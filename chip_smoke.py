@@ -5,25 +5,38 @@
 
 Phases (any failed check raises and the exit code is non-zero):
 
-1. builds the two CUDA kernels from devicekmc_tpu_torch/csrc (nvcc, sm_90a,
-   one nvcc per source, in parallel);
-2. small-device check: the 256-site test stack (headline modules, mixed
-   precision, Vd = 2.5 V) for 4 supersteps on the card and through the
-   port's CPU path; per-step event counts equal and potentials within
-   1e-5 of their scale (f32 Poisson sums in another order);
-3. main path: the synthetic crossbar of 108,944 sites (the composition and
-   neighbour statistics of the reference's timing crossbar) with the
-   headline configuration, neighbour list built on the card; each kernel
-   is held against its plain PyTorch version at the shapes of this path
-   (gather bit-equal on valid slots for 1 and 2 channels; Poisson within
-   atol 2e-6 * max|plain|, PBC off and on) and timed beside its bound; then
-   Simulation.run_bias_point runs the cold pre-solve, 2 warm-up and 8 timed
-   supersteps at Vd = 1 V, with the launch counters set to 0 just before it.
+1. builds the five CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
+   sm_90a, one nvcc per source, in parallel);
+2. small-device checks: the 256-site test stack (mixed precision) on the card
+   and through the port's CPU path, once with the headline modules
+   (Vd = 2.5 V, 4 supersteps: event counts equal, potentials within 1e-5 of
+   their scale) and once with blocked transport on (on-the-fly metal block,
+   chunked cold solves, Vd = 10 V: event counts equal, I_macro within 1e-5);
+3. headline path: the synthetic crossbar of 108,944 sites (the composition
+   and neighbour statistics of the reference's timing crossbar), neighbour
+   list built on the card; the gather and the Poisson kernel are held against
+   their plain versions at this path's shapes and timed beside their bounds;
+   then Simulation.run_bias_point runs the cold pre-solve, 2 warm-up and 4
+   timed supersteps at Vd = 1 V, with the launch counters set to 0 just
+   before it;
+4. transport path: the same crossbar with solve_current on (heating off,
+   transport blocked, on-the-fly metal block, deflated cold solve with 24
+   slabs, chunked cold solves, 256 integration steps, Vd = 1 V), counters
+   set to 0 just before: CB-edge solve, cold deflated transport solve,
+   8 supersteps; every transport solve must converge, I_macro be finite
+   and positive, a skipped or an incremental assembly be seen, and all four
+   transport kernels be launched.  Then each transport kernel is held
+   against its plain version at this path's shapes (the band, the metal
+   atoms and CB edges, the vacancy bucket of the run) and timed beside its
+   bound and a library call; the on-the-fly products are also measured at
+   the reference crossbar's 24,768 interior-metal atoms against the stored
+   block.
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -41,10 +54,22 @@ PEAK_FP32_PER_S = 67e12
 # multiply, division, square root, rint and exp counted once): 30, plus
 # 8 for the two minimum-image wraps under PBC
 POISSON_OPS_PER_PAIR = {False: 30, True: 38}
+# FP32 operations of one WKB pair value in csrc/wkb_fly.cu (3 subtractions, 5
+# for the squared distance, 2 square roots, |dE|, 2 comparisons, 2 selects,
+# 3 for s, 2 for e15, E2, the barrier term's 3, exp, negation and select):
+# 30, plus 8 under PBC; every use of the value in a sum adds 2
+WKB_OPS_PER_PAIR = {False: 30, True: 38}
+# per energy step and pair in csrc/wkb_window.cu: k*dE, comparison, e1, e2,
+# sqrt and product (e15), comparison, sqrt, product, subtraction, product,
+# exp, accumulate
+WINDOW_OPS_PER_STEP = 13
 
 N_SITES = 110_000
 VD_MAIN = 1.0
-WARMUP_STEPS, TIMED_STEPS = 2, 8
+WARMUP_STEPS, TIMED_STEPS = 2, 4
+TRANSPORT_STEPS = 8
+# interior-metal atoms of the reference's timing crossbar
+REF_N_MP = 24_768
 
 
 def log(msg):
@@ -119,9 +144,11 @@ def time_ms_cold(fn, reps=20, warmup=3):
 # configurations
 # ---------------------------------------------------------------------------
 
-def small_device(device, out_dir):
+def small_device(device, out_dir, current=False):
     """The 256-site stack of tests/test_golden_trajectory.py with the
-    headline modules."""
+    headline modules; ``current`` adds blocked transport as the transport
+    path runs it (transport_tol 1e-11: two solves that meet the default
+    1e-8 agree on I_macro only to ~3e-5)."""
     from devicekmc_tpu_torch.config import KMCConfig
     from devicekmc_tpu_torch.engine import Simulation
     from devicekmc_tpu_torch.structure import make_test_structure
@@ -137,15 +164,24 @@ def small_device(device, out_dir):
         precision="mixed", poisson_kernel="pallas",
         V_switch=[2.5], t_switch=[1e30], output_dir=out_dir, log_freq=1000,
     )
+    if current:
+        cfg = dataclasses.replace(
+            cfg, solve_current=True, transport="blocked", transport_cc="fly",
+            transport_precond="deflated", coarse_slabs=4, solver_chunk_iters=40,
+            transport_tol=1e-11)
     os.makedirs(out_dir, exist_ok=True)
     return Simulation(cfg, elements=s.elements, coords=s.coords, device=device)
 
 
-def synthetic_crossbar(n_sites, device, out_dir):
+def synthetic_crossbar(n_sites, device, out_dir, current=False, **overrides):
     """The headline configuration on the synthetic crossbar: the structure,
     substoichiometry and solver settings of the JAX package's bench.py
     build_synthetic_crossbar_sim (bench.py:219-297), with site_order "x",
-    mixed precision, both kernels, Vd = 1 V."""
+    mixed precision, both kernels, Vd = 1 V.  ``current`` adds that
+    function's transport settings (blocked, deflated, 24 slabs) with heating
+    off, the on-the-fly metal block, an automatic vacancy bucket, chunked
+    cold solves and 256 integration steps; ``overrides`` replace single
+    configuration fields."""
     from devicekmc_tpu_torch.config import KMCConfig
     from devicekmc_tpu_torch.engine import Simulation
     from devicekmc_tpu_torch.state import make_substoichiometric
@@ -166,6 +202,12 @@ def synthetic_crossbar(n_sites, device, out_dir):
         poisson_kernel="pallas",
         V_switch=[VD_MAIN], t_switch=[1e30], output_dir=out_dir, log_freq=1000,
     )
+    if current:
+        cfg = dataclasses.replace(
+            cfg, solve_current=True, transport="blocked", transport_cc="fly",
+            transport_precond="deflated", coarse_slabs=24, tunnel_vac_cap=-1,
+            solver_chunk_iters=200, tunnel_int_steps=256)
+    cfg = dataclasses.replace(cfg, **overrides)
     os.makedirs(out_dir, exist_ok=True)
     return Simulation(cfg, elements=elems, coords=s.coords, device=device)
 
@@ -182,33 +224,40 @@ def record_steps(sim):
     def wrapped(state, Vd):
         out = step(state, Vd)
         phi = (out[0].potential_boundary + out[0].potential_charge).cpu()
-        recs.append((int(out[2]["n_events"]), phi.double().numpy()))
+        recs.append((int(out[2]["n_events"]), phi.double().numpy(),
+                     out[2].get("Current [uA]")))
         return out
 
     sim._superstep = wrapped
     return recs
 
 
-def small_device_check(out_dir, steps=4):
+def small_device_check(out_dir, steps=4, current=False, Vd=2.5):
     import numpy as np
 
     runs = {}
     for device in ("cuda", "cpu"):
-        sim = small_device(device, os.path.join(out_dir, device))
+        sim = small_device(device, os.path.join(out_dir, device), current=current)
         recs = record_steps(sim)
-        sim.run_bias_point(2.5, 1e30, max_steps=steps)
+        sim.run_bias_point(Vd, 1e30, max_steps=steps)
         runs[device] = recs
     gpu, cpu = runs["cuda"], runs["cpu"]
     check(len(gpu) == len(cpu) >= steps, "small device: step count")
-    worst = 0.0
-    for k, ((ne_g, phi_g), (ne_c, phi_c)) in enumerate(zip(gpu, cpu)):
+    worst = worst_I = 0.0
+    for k, ((ne_g, phi_g, I_g), (ne_c, phi_c, I_c)) in enumerate(zip(gpu, cpu)):
         check(ne_g == ne_c, f"small device step {k}: events {ne_g} vs {ne_c}")
         scale = float(np.abs(phi_c).max())
         err = float(np.abs(phi_g - phi_c).max())
         worst = max(worst, err / scale)
         check(err <= 1e-5 * scale, f"small device step {k}: potential error {err}")
-    log(f"small device: {steps} supersteps, events per step "
-        f"{[r[0] for r in gpu]} on both, max potential error {worst:.3e} of its scale")
+        if current:
+            check(I_c > 0 and abs(I_g - I_c) <= 1e-5 * abs(I_c),
+                  f"small device step {k}: current {I_g} vs {I_c} uA")
+            worst_I = max(worst_I, abs(I_g - I_c) / abs(I_c))
+    log(f"small device{' with transport' if current else ''}: {steps} supersteps at "
+        f"Vd = {Vd} V, events per step {[r[0] for r in gpu]} on both, max potential "
+        f"error {worst:.3e} of its scale"
+        + (f", max current error {worst_I:.3e} relative" if current else ""))
 
 
 def kernel_checks(sim):
@@ -291,29 +340,215 @@ def kernel_checks(sim):
     return gather, poisson
 
 
-def main():
+def _bound(ops, bytes_):
+    """(bound_ms, bound_by): the larger of operations over the FP32 peak and
+    bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32_PER_S, bytes_ / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _close(name, got, ref, tol):
+    """max|got - ref| <= tol * max|ref| (f32 sums in another order, FMA
+    contraction, one-ulp exp and sqrt); returns the absolute error."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
-    from devicekmc_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name}: output finite")
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    check(scale > 0, f"{name}: the plain version is all zero")
+    check(err <= tol * scale, f"{name}: max error {err} > {tol} * {scale}")
+    return err
+
+
+def fly_checks(pos, cb, env, K, tag, plain_reps=5):
+    """The on-the-fly matvec (both forms) and matmat against their plain
+    versions and the stored block, timed beside their bounds."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.wkb_fly import (
+        wkb_fly_matmat, wkb_fly_matmat_plain, wkb_fly_matvec, wkb_fly_matvec_plain,
+    )
+    from devicekmc_tpu_torch.physics.current import tunnel_block, wkb_single_T
+
+    n = pos.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(n, generator=g, device="cuda")
+    X = torch.randn((n, K), generator=g, device="cuda")
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
+    T = tunnel_block(env, pos, cb, ones, pos, cb, ones, wkb_single_T)
+    check(not torch.backends.cuda.matmul.allow_tf32, "f32 matmul is IEEE f32")
+    ops1 = WKB_OPS_PER_PAIR[bool(env["pbc"])]
+    io = n * 20 + n * 4
+    rec = {}
+    ref = wkb_fly_matvec_plain(pos, cb, x, env)
+    for sym in (True, False):
+        y = wkb_fly_matvec(pos, cb, x, env, symmetric=sym)
+        err = _close(f"fly matvec {tag} sym={sym}", y, ref, 1e-5)
+        err_T = _close(f"fly matvec {tag} sym={sym} vs stored", y, T @ x, 1e-5)
+        check(torch.equal(y, wkb_fly_matvec(pos, cb, x, env, symmetric=sym)),
+              f"fly matvec {tag} sym={sym}: two launches differ")
+        pairs = n * (n + 1) // 2 if sym else n * n
+        bound, by = _bound(pairs * (ops1 + (4 if sym else 2)), io)
+        rec[sym] = dict(
+            err=max(err, err_T), bound_ms=bound, bound_by=by,
+            ms=time_ms(lambda: wkb_fly_matvec(pos, cb, x, env, symmetric=sym)))
+    rec["plain_ms"] = time_ms(lambda: wkb_fly_matvec_plain(pos, cb, x, env),
+                              reps=plain_reps, rounds=3, warmup=1)
+    rec["library_ms"] = time_ms(lambda: T @ x)
+    Y = wkb_fly_matmat(pos, cb, X, env)
+    Yref = wkb_fly_matmat_plain(pos, cb, X, env)
+    err = max(_close(f"fly matmat {tag}", Y, Yref, 1e-5),
+              _close(f"fly matmat {tag} vs stored", Y, T @ X, 1e-5))
+    err = max(err, _close(f"fly matmat {tag} KB=8", wkb_fly_matmat(pos, cb, X, env, KB=8),
+                          Yref, 1e-5))
+    # what Y = T X needs: one pair value and K multiply-adds a pair, however
+    # the kernel groups the columns
+    bound, by = _bound(n * n * (ops1 + 2 * K), n * 16 + 2 * n * K * 4)
+    rec["mm"] = dict(
+        err=err, bound_ms=bound, bound_by=by,
+        ms=time_ms(lambda: wkb_fly_matmat(pos, cb, X, env)),
+        ms_kb8=time_ms(lambda: wkb_fly_matmat(pos, cb, X, env, KB=8)),
+        plain_ms=time_ms(lambda: wkb_fly_matmat_plain(pos, cb, X, env),
+                         reps=plain_reps, rounds=3, warmup=1),
+        library_ms=time_ms(lambda: T @ X))
+    log(f"wkb_fly {tag} [n_mp={n}, stored block {T.numel() * 4 / 2**30:.2f} GiB]: "
+        f"matvec symmetric {rec[True]['ms']:.4f} ms (bound {rec[True]['bound_ms']:.4f}), "
+        f"row form {rec[False]['ms']:.4f} ms (bound {rec[False]['bound_ms']:.4f}), "
+        f"plain {rec['plain_ms']:.4f} ms, stored T @ x {rec['library_ms']:.4f} ms, "
+        f"max err {max(rec[True]['err'], rec[False]['err']):.3e}; matmat K={K} "
+        f"{rec['mm']['ms']:.4f} ms in one sweep (bound {rec['mm']['bound_ms']:.4f}; in "
+        f"groups of 8 columns {rec['mm']['ms_kb8']:.4f} ms), plain "
+        f"{rec['mm']['plain_ms']:.4f} ms, stored T @ X {rec['mm']['library_ms']:.4f} ms, "
+        f"max err {rec['mm']['err']:.3e}")
+    return rec
+
+
+def transport_kernel_checks(sim):
+    """The four transport kernels against their plain versions at the
+    transport path's shapes: the band built for this structure, the run's
+    metal atoms and CB edges, its vacancy bucket."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.banded import (
+        banded_matvec, banded_matvec_plain, window_stack,
+    )
+    from devicekmc_tpu_torch.ops.wkb_window import (
+        wkb_window_block, wkb_window_block_plain,
+    )
+    from devicekmc_tpu_torch.physics import current as cur
+
+    geom, params, state = sim.geom, sim.params, sim.state
+    blk = cur.assemble_X_blocks(geom, params, state, band=sim._band)
+    env = blk["fly"]["env"]
+    out = {}
+
+    # ---- banded matvec, beside the ELL gather form of the same product ----
+    Cb = sim._band["C"]
+    R, m_pad, B, _ = Cb.shape
+    Na = geom.N_atom
+    g = torch.Generator(device="cuda").manual_seed(1)
+    xa = torch.randn(Na, generator=g, device="cuda")
+    xp = torch.zeros((R + m_pad - 1) * B, device="cuda")
+    xp[sim._band["front"]:sim._band["front"] + Na] = xa[sim._band["pi"]]
+    xp2 = xp.reshape(R + m_pad - 1, B)
+    y = banded_matvec(Cb, xp2)
+    # rtol 2e-5 of the largest entry: f32 sums in another order
+    err = _close("banded matvec", y, banded_matvec_plain(Cb, xp2), 2e-5)
+    xst = window_stack(xp2, R, m_pad)
+    nb32, nb_safe = blk["nb_vals"].float(), blk["nb_safe"]
+    bytes_ = Cb.numel() * 4 + xp2.numel() * 4 + R * B * 4
+    bound, by = _bound(2 * Cb.numel(), bytes_)
+    out["banded"] = dict(
+        err=err, bound_ms=bound, bound_by=by,
+        ms=time_ms(lambda: banded_matvec(Cb, xp2), reps=10),
+        plain_ms=time_ms(lambda: banded_matvec_plain(Cb, xp2), reps=5, rounds=3),
+        library_ms=time_ms(lambda: torch.einsum("rkbj,rkj->rb", Cb, xst), reps=5, rounds=3),
+        ell_ms=time_ms(lambda: (nb32 * xa[nb_safe]).sum(dim=1)),
+        ell_bytes=nb32.numel() * 4 + nb_safe.numel() * 8,
+        shape=f"C4 [{R}, {m_pad}, {B}, {B}] f32, {bytes_ / 2**30:.2f} GiB")
+    nnz = int((Cb != 0).sum())
+    log(f"banded_matvec {out['banded']['shape']} ({nnz} non-zeros, "
+        f"{100 * nnz / Cb.numel():.3f} %): {out['banded']['ms']:.4f} ms (bound "
+        f"{bound:.4f} ms by {by}), plain {out['banded']['plain_ms']:.4f} ms, einsum on "
+        f"the window stack {out['banded']['library_ms']:.4f} ms, max err {err:.3e}; the "
+        f"ELL form nb_vals * xa[nb_safe] in f32 ({out['banded']['ell_bytes'] / 2**20:.1f} "
+        f"MiB): {out['banded']['ell_ms']:.4f} ms")
+
+    # ---- on-the-fly products at this path's metal set ----
+    K = params.coarse_slabs * max(1, params.coarse_yz) ** 2
+    mpos, mcb = blk["fly"]["mpos"], blk["fly"]["mcb"]
+    out["fly"] = fly_checks(mpos, mcb, env, K, "transport path")
+
+    # ---- window-integral block on the run's vacancy bucket ----
+    ai = geom.atom_ind.long()
+    apos = geom.coords[ai].float()
+    acb = state.CB_edge[ai].float()
+    vpos, vcb, v_ok = apos[blk["vidx"]].contiguous(), acb[blk["vidx"]].contiguous(), blk["v_ok"]
+    T = wkb_window_block(vpos, vcb, v_ok, mpos, mcb, env)
+    err = _close("window block", T, wkb_window_block_plain(vpos, vcb, v_ok, mpos, mcb, env),
+                 1e-5)
+    check(bool((T[~v_ok] == 0).all()), "window block: v_ok False rows are zero")
+    check(torch.equal(T, blk["T_vm"]), "window block: differs from the assembled T_vm")
+    # the work this data needs: per eligible pair the steps with k*dE < |dE|
+    dist = cur._dist_blocks(vpos, mpos, env["lattice"], env["pbc"])
+    abs_dE = (vcb[:, None] - mcb[None, :]).abs()
+    elig = v_ok[:, None] & (abs_dE > env["ctol"]) & ~(dist < env["nn"])
+    steps = torch.clamp(torch.ceil(abs_dE / env["dE_step"]), max=env["n_int_steps"])
+    n_steps = int(torch.where(elig, steps, 0.0).double().sum())
+    n_pairs = T.numel()
+    bound, by = _bound(n_steps * WINDOW_OPS_PER_STEP + n_pairs * 25,
+                       n_pairs * 4 + (vpos.shape[0] + mpos.shape[0]) * 16)
+    out["window"] = dict(
+        err=err, bound_ms=bound, bound_by=by,
+        ms=time_ms(lambda: wkb_window_block(vpos, vcb, v_ok, mpos, mcb, env)),
+        plain_ms=time_ms(lambda: wkb_window_block_plain(vpos, vcb, v_ok, mpos, mcb, env),
+                         reps=2, rounds=3, warmup=1),
+        shape=f"[{vpos.shape[0]} ({int(v_ok.sum())} live) x {mpos.shape[0]}], "
+              f"{int(elig.sum())} eligible pairs, {n_steps} steps in all")
+    log(f"wkb_window_block {out['window']['shape']}: {out['window']['ms']:.4f} ms (bound "
+        f"{bound:.4f} ms by {by}), plain {out['window']['plain_ms']:.4f} ms, max err {err:.3e}")
+    return out
+
+
+def reference_width_fly(sim):
+    """The on-the-fly products at the reference crossbar's interior-metal
+    count: this structure's metal atoms (both plate contacts) with their CB
+    edges, against the 2.45 GB stored block."""
+    import torch
+
+    from devicekmc_tpu_torch.physics import current as cur
+
+    geom, params = sim.geom, sim.params
+    ai = geom.atom_ind.long()
+    metal = geom.metal_mask_table[sim.state.element[ai].long()]
+    sel = torch.nonzero(metal).reshape(-1)
+    check(sel.numel() >= REF_N_MP, "not enough metal atoms for the reference width")
+    # every other metal atom, so that both contacts take part
+    sel = sel[torch.linspace(0, sel.numel() - 1, REF_N_MP, device="cuda").long()]
+    pos = geom.coords[ai][sel].float().contiguous()
+    cb = sim.state.CB_edge[ai][sel].float().contiguous()
+    K = params.coarse_slabs * max(1, params.coarse_yz) ** 2
+    rec = fly_checks(pos, cb, cur.wkb_env(geom, params), K, "reference width",
+                     plain_reps=1)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def conserved_counts(state):
+    """(O + V, d + Od): every event conserves the lattice-oxygen sites and
+    the interstitial sites."""
+    e = state.element
+    return int(((e == 3) | (e == 2)).sum()), int(((e == 0) | (e == 1)).sum())
+
+
+def headline_path(out_root):
+    """Phase 3: kernel checks and the headline run; returns the two kernels'
+    records."""
+    import torch
+
     from devicekmc_tpu_torch.ops.ell_gather import ell_gather
     from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise
-
-    t0 = time.perf_counter()
-    _build.build(["ell_gather", "pairwise"])
-    log(f"built kernels in {time.perf_counter() - t0:.1f} s")
-    for name, text in _build.build_logs.items():
-        regs = [l.strip() for l in text.splitlines() if "registers" in l]
-        log(f"  {name}: {regs}")
-
-    out_root = os.path.join(ROOT, "build", "chip_smoke")
-    t0 = time.perf_counter()
-    small_device_check(os.path.join(out_root, "small"))
-    log(f"small-device check in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "crossbar"))
@@ -326,12 +561,9 @@ def main():
         f"{sim.params.active_rows_cap}")
 
     gather, poisson = kernel_checks(sim)
+    counts0 = conserved_counts(sim.state)
 
-    e = sim.state.element
-    n_ov0 = int(((e == 3) | (e == 2)).sum())
-    n_dod0 = int(((e == 0) | (e == 1)).sum())
-
-    # ---- main path: counters to 0, drive, read ----
+    # ---- counters to 0, drive, read ----
     ell_gather.launches = 0
     poisson_pairwise.launches = 0
     t0 = time.perf_counter()
@@ -343,7 +575,7 @@ def main():
     steps = sim.step_log
     check(len(steps) == WARMUP_STEPS + TIMED_STEPS, f"ran {len(steps)} supersteps")
     for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+        check(n > 0, f"{name} was not launched on the headline path")
 
     st = sim.state
     phi_b = st.potential_boundary
@@ -353,18 +585,14 @@ def main():
     check(phi_b.shape == (g.N,) and phi_c.shape == (g.N,), "potential shapes")
     check(float(phi_b.abs().max()) <= VD_MAIN / 2 * (1 + 1e-6),
           "boundary potential within the contact voltages")
-    # every event conserves the lattice-oxygen sites (O or V) and the
-    # interstitial sites (d or Od)
-    e = st.element
-    check(int(((e == 3) | (e == 2)).sum()) == n_ov0, "O+V count conserved")
-    check(int(((e == 0) | (e == 1)).sum()) == n_dod0, "d+Od count conserved")
+    check(conserved_counts(st) == counts0, "O+V and d+Od counts conserved")
 
     pre = sim.presolve_log[-1]
     log(f"cold deflated boundary pre-solve: {pre['cg_iters']} CG iterations, "
         f"{pre['s'] * 1e3:.1f} ms")
     timed = steps[WARMUP_STEPS:]
     ms = [s["Z - calculation time - KMC superstep [s]"] * 1e3 for s in timed]
-    log(f"main path: run_bias_point (cold deflated pre-solve + "
+    log(f"headline path: run_bias_point (cold deflated pre-solve + "
         f"{WARMUP_STEPS} warm-up + {TIMED_STEPS} timed supersteps) in {wall:.2f} s")
     for s in steps:
         log(f"  step {s['step']}: {s['Z - calculation time - KMC superstep [s]'] * 1e3:.2f} ms, "
@@ -375,7 +603,7 @@ def main():
         f"min {min(ms):.2f} ms, max {max(ms):.2f} ms; launches {launches}; "
         f"kmc_time {summary['kmc_time']:.4g} s")
 
-    kernels = [
+    return [
         {
             "name": "ell_gather", "route": "cuda",
             "source": "devicekmc_tpu_torch/csrc/ell_gather.cu",
@@ -403,6 +631,168 @@ def main():
             "ms_pbc": poisson[True]["ms"], "bound_ms_pbc": poisson[True]["bound_ms"],
         },
     ]
+
+
+def transport_path(out_root):
+    """Phase 4: the transport run, then its kernels' checks; returns the
+    four kernels' records."""
+    import math
+
+    import torch
+
+    from devicekmc_tpu_torch.ops import cg
+    from devicekmc_tpu_torch.ops.banded import banded_matvec
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matmat, wkb_fly_matvec
+    from devicekmc_tpu_torch.ops.wkb_window import wkb_window_block
+
+    t0 = time.perf_counter()
+    sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "transport"),
+                             current=True)
+    torch.cuda.synchronize()
+    g, p = sim.geom, sim.params
+    Cb = sim._band["C"] if sim._band is not None else None
+    check(Cb is not None, "the banded operator was not built")
+    log(f"transport crossbar: N={g.N} sites, {g.N_atom} atoms, n_mp="
+        f"{g.atom_metalp_idx.shape[0]}, tunnel_vac_cap {p.tunnel_vac_cap}, "
+        f"transport_cc {p.transport_cc}, incremental {p.transport_incremental}, band "
+        f"{tuple(Cb.shape)}; built in {time.perf_counter() - t0:.1f} s")
+    check(p.transport_cc == "fly" and p.transport_incremental, "transport options")
+    counts0 = conserved_counts(sim.state)
+
+    # ---- counters to 0, drive, read ----
+    wrappers = {"banded_matvec": banded_matvec, "wkb_fly_matvec": wkb_fly_matvec,
+                "wkb_fly_matmat": wkb_fly_matmat, "wkb_window_block": wkb_window_block}
+    for w in wrappers.values():
+        w.launches = 0
+    cg.readbacks = 0
+    t0 = time.perf_counter()
+    summary = sim.run_bias_point(VD_MAIN, 1e30, max_steps=TRANSPORT_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the transport path")
+
+    steps = sim.step_log
+    check(len(steps) == TRANSPORT_STEPS, f"ran {len(steps)} transport supersteps")
+    for s in steps:
+        check(s["transport_converged"] == 1.0, f"step {s['step']}: transport not converged")
+        check(s["tunnel_int_steps_needed"] <= p.tunnel_int_steps,
+              f"step {s['step']}: integration steps truncated")
+    I = sim.state.I_macro
+    check(math.isfinite(I) and I > 0, f"I_macro {I}")
+    check(bool(torch.isfinite(sim.state.virtual_potentials).all()), "virtual potentials")
+    assembly = [int(s["transport_partial_assembly"]) for s in steps]
+    check(any(a != 0 for a in assembly), "no skipped and no incremental assembly seen")
+    check(conserved_counts(sim.state) == counts0, "O+V and d+Od counts conserved")
+
+    for pre in sim.presolve_log:
+        log(f"cold {pre['phase']} solve: {pre['cg_iters']} CG iterations, "
+            f"{pre['s'] * 1e3:.1f} ms")
+    log(f"transport path: run_bias_point (CB edge, boundary and deflated transport "
+        f"cold solves + {TRANSPORT_STEPS} supersteps) in {wall:.2f} s; "
+        f"{cg.readbacks} CG read-backs; launches {launches}")
+    for s in steps:
+        log(f"  step {s['step']}: {s['Z - calculation time - KMC superstep [s]'] * 1e3:.2f} ms, "
+            f"events {int(s['n_events'])}, cg_iters_power {int(s['cg_iters_power'])}, "
+            f"rel0 {s['transport_rel0']:.3e}, assembly "
+            f"{ {1: 'partial', 0: 'full', -1: 'skipped'}[int(s['transport_partial_assembly'])] }, "
+            f"n_vac_atoms {int(s['n_vac_atoms'])}, int steps needed "
+            f"{int(s['tunnel_int_steps_needed'])}, Current {s['Current [uA]']:.6g} uA")
+    ms = [s["Z - calculation time - KMC superstep [s]"] * 1e3 for s in steps[2:]]
+    log(f"transport supersteps after 2: median {statistics.median(ms):.2f} ms, "
+        f"min {min(ms):.2f} ms, max {max(ms):.2f} ms; kmc_time {summary['kmc_time']:.4g} s")
+
+    k = transport_kernel_checks(sim)
+    ref = reference_width_fly(sim)
+    fly, mm, ref_mm = k["fly"], k["fly"]["mm"], ref["mm"]
+    n_mp = int(g.atom_metalp_idx.shape[0])
+    return [
+        {
+            "name": "banded_matvec", "route": "cuda",
+            "source": "devicekmc_tpu_torch/csrc/banded.cu",
+            "replaces": "devicekmc_tpu/ops/banded_pallas.py:74",
+            "launches": launches["banded_matvec"], "max_abs_err": k["banded"]["err"],
+            "ms": k["banded"]["ms"], "plain_ms": k["banded"]["plain_ms"],
+            "bound_ms": k["banded"]["bound_ms"], "bound_by": k["banded"]["bound_by"],
+            "library_ms": k["banded"]["library_ms"], "shape": k["banded"]["shape"],
+            "ell_form_ms": k["banded"]["ell_ms"],
+        },
+        {
+            "name": "wkb_fly_matvec", "route": "cuda",
+            "source": "devicekmc_tpu_torch/csrc/wkb_fly.cu",
+            "replaces": "devicekmc_tpu/ops/wkb_pallas.py:288",
+            "launches": launches["wkb_fly_matvec"],
+            "max_abs_err": max(fly[True]["err"], fly[False]["err"]),
+            "ms": fly[True]["ms"], "plain_ms": fly["plain_ms"],
+            "bound_ms": fly[True]["bound_ms"], "bound_by": fly[True]["bound_by"],
+            "library_ms": fly["library_ms"],
+            "shape": f"n_mp={n_mp}, symmetric form (the default)",
+            "ms_row_form": fly[False]["ms"], "bound_ms_row_form": fly[False]["bound_ms"],
+            "ref_width": {
+                "n_mp": REF_N_MP, "ms": ref[True]["ms"], "bound_ms": ref[True]["bound_ms"],
+                "ms_row_form": ref[False]["ms"],
+                "bound_ms_row_form": ref[False]["bound_ms"],
+                "plain_ms": ref["plain_ms"], "library_ms": ref["library_ms"],
+                "max_abs_err": max(ref[True]["err"], ref[False]["err"]),
+            },
+        },
+        {
+            "name": "wkb_fly_matmat", "route": "cuda",
+            "source": "devicekmc_tpu_torch/csrc/wkb_fly.cu",
+            "replaces": "devicekmc_tpu/ops/wkb_pallas.py:345",
+            "launches": launches["wkb_fly_matmat"], "max_abs_err": mm["err"],
+            "ms": mm["ms"], "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
+            "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
+            "shape": f"n_mp={n_mp}, K={p.coarse_slabs * max(1, p.coarse_yz) ** 2}, one sweep",
+            "ms_kb8": mm["ms_kb8"],
+            "ref_width": {
+                "n_mp": REF_N_MP, "ms": ref_mm["ms"], "ms_kb8": ref_mm["ms_kb8"],
+                "bound_ms": ref_mm["bound_ms"],
+                "plain_ms": ref_mm["plain_ms"], "library_ms": ref_mm["library_ms"],
+                "max_abs_err": ref_mm["err"],
+            },
+        },
+        {
+            "name": "wkb_window_block", "route": "cuda",
+            "source": "devicekmc_tpu_torch/csrc/wkb_window.cu",
+            "replaces": "devicekmc_tpu/ops/wkb_pallas.py:482",
+            "launches": launches["wkb_window_block"], "max_abs_err": k["window"]["err"],
+            "ms": k["window"]["ms"], "plain_ms": k["window"]["plain_ms"],
+            "bound_ms": k["window"]["bound_ms"], "bound_by": k["window"]["bound_by"],
+            "library_ms": None, "shape": k["window"]["shape"],
+        },
+    ]
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from devicekmc_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
+    _build.build(["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window"])
+    log(f"built kernels in {time.perf_counter() - t_start:.1f} s")
+    for name, text in _build.build_logs.items():
+        regs = [l.strip() for l in text.splitlines() if "registers" in l]
+        log(f"  {name}: {regs}")
+
+    out_root = os.path.join(ROOT, "build", "chip_smoke")
+    t0 = time.perf_counter()
+    small_device_check(os.path.join(out_root, "small"))
+    small_device_check(os.path.join(out_root, "small_current"), current=True, Vd=10.0)
+    log(f"small-device checks in {time.perf_counter() - t0:.1f} s")
+
+    kernels = headline_path(out_root)
+    torch.cuda.empty_cache()
+    kernels += transport_path(out_root)
+    log(f"all phases in {time.perf_counter() - t_start:.1f} s")
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

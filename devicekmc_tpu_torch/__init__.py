@@ -2,10 +2,12 @@
 kinetic Monte Carlo simulator for VCM RRAM devices (filament formation and
 dissolution in TiN-HfO2/Ti-TiN stacks), for one NVIDIA Hopper card.
 
-The headline module set is ported: charge rule, boundary-potential CG,
-compacted gridless Poisson and the residence-time event loop, with the
-neighbour gather and the Poisson pair sweep as hand-written CUDA kernels
-(``csrc/``).  Transport and heat are not ported yet.
+Ported: charge rule, boundary-potential CG, compacted gridless Poisson, the
+residence-time event loop and the blocked charge-transport solver (CB edge,
+WKB tunnel blocks, mixed-precision deflated CG, current), with the neighbour
+gather, the Poisson pair sweep, the banded matvec, the on-the-fly WKB
+products and the window-integral block as hand-written CUDA kernels
+(``csrc/``).  Heat and the dense transport path are not ported yet.
 
 Quick start::
 

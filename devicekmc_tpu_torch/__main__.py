@@ -1,6 +1,8 @@
-"""Command-line entry point for the headline module set (charge, boundary
-potential, gridless Poisson, KMC events): the equivalent of the reference's
-``./bin/runKMC parameters.txt`` (src/kmc_main.cpp:26).
+"""Command-line entry point: the equivalent of the reference's
+``./bin/runKMC parameters.txt`` (src/kmc_main.cpp:26) for the ported module
+set (charge, boundary potential, gridless Poisson, KMC events, and with
+``solve_current = 1`` and ``transport = blocked`` the charge transport).
+Heating and ``transport = dense`` raise NotImplementedError.
 
     python -m devicekmc_tpu_torch parameters.txt [--cpu] [--max-steps N]
 

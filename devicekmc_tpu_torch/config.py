@@ -132,23 +132,29 @@ class KMCConfig:
     precision: str = "f64"                 # "f64" | "f32" | "mixed" (f32 rate
                                            # table and Poisson sweep, f64 solves)
     solver_tol: float = 1e-12              # CG relative tolerance
-    transport_tol: float = 1e-8            # transport CG tolerance (not ported yet)
+    transport_tol: float = 1e-8            # transport CG tolerance, in the Jacobi-scaled
+                                           # residual norm
     solver_maxiter: int = 50000            # CG iteration cap (reference warns at 50k)
     selection: str = "two_level"           # "two_level" | "flat" event selection
     event_mode: str = "incremental"        # "incremental" | "scan" residence-time loop
-    heat_solver: str = "dense"             # heat model (not ported yet)
+    heat_solver: str = "dense"             # heat model (heating is not ported yet)
     max_events_per_superstep: int = 10000  # safety bound for the event loop
     poisson_compact_cap: int = -1          # -1 auto-bucket; >0 fixed compaction size
     active_rows_cap: int = -1              # event-source row compaction: -1 auto, 0 full table, >0 fixed
-    tunnel_vac_cap: int = -1               # transport bucket (not ported yet)
-    tunnel_int_steps: int = 1024           # transport window steps (not ported yet)
+    tunnel_vac_cap: int = -1               # vacancy bucket of the tunnel blocks: -1 auto,
+                                           # >0 fixed
+    tunnel_int_steps: int = 1024           # energy-window integration trip count (exact
+                                           # while >= 100 * max CB-edge spread [V]; grown
+                                           # with a redo when a step needed more)
     site_order: str = "file"               # "file" | "x": stable x-sort of the internal
                                            # site order; I/O stays in file order through
                                            # Geometry.io_idx
     bc_pinned_width: str = "first_layer"   # boundary-potential Dirichlet width:
                                            # "first_layer" (reference GPU path) |
                                            # "full_contact" (reference CPU path)
-    transport_precond: str = "deflated"    # transport (not ported yet)
+    transport_precond: str = "deflated"    # cold transport solves: "jacobi" | "deflated"
+                                           # (A-DEF2 in the Jacobi-scaled metric, x-slab
+                                           # Galerkin coarse space)
     boundary_precond: str = "jacobi"       # in-superstep boundary solve: "jacobi" |
                                            # "deflated"; the bias-start cold solve is
                                            # always deflated
@@ -158,27 +164,51 @@ class KMCConfig:
     boundary_delta_cap: int = 256          # max changed neutral-vacancy sites tracked per
                                            # superstep (overflow -> full solve, still exact)
     coarse_slabs: int = 16                 # x-slab aggregates of the deflated solve
-    transport_warm_precond: str = "jacobi" # transport (not ported yet)
-    coarse_yz: int = 1                     # transport (not ported yet)
+    transport_warm_precond: str = "jacobi" # in-superstep transport re-solves
+    coarse_yz: int = 1                     # transverse refinement of the transport coarse
+                                           # space: K_tot = coarse_slabs * coarse_yz^2
     solver_chunk_iters: int = 0            # >0: bias-start cold solves as restarted CG
                                            # segments of this many iterations
-    transport: str = "dense"               # transport (not ported yet)
+    transport: str = "dense"               # "blocked" (matrix-free: ELL neighbour part +
+                                           # tunnel blocks over vacancies and interior
+                                           # metals) | "dense" (not ported yet: raises with
+                                           # solve_current)
     poisson_kernel: str = "jnp"            # compacted-Poisson pair sweep: "jnp" (exact
                                            # erfc, plain torch) | "pallas" (A&S erfc,
                                            # the hand-written CUDA kernel on the card)
-    transport_bf16_inner: bool = False     # transport (not ported yet)
-    transport_skip_unchanged: bool = True  # transport (not ported yet)
+    transport_bf16_inner: bool = False     # bf16 twins in the inner solver (not ported
+                                           # yet: True raises)
+    transport_skip_unchanged: bool = True  # exact skip of the in-superstep transport solve
+                                           # when (element, charge) at atom sites and Vd are
+                                           # unchanged since the last converged solve
     ell_gather_kernel: str = "jnp"         # accepted ("jnp" | "pallas") so a parameters
                                            # file means the same in both packages, then
                                            # ignored: both values gather the same bits,
                                            # and the port always takes the CUDA kernel
                                            # on the card
-    transport_band_kernel: str = "jnp"     # transport (not ported yet)
-    transport_cc: str = "auto"             # transport (not ported yet)
-    tunnel_vm_kernel: str = "jnp"          # transport (not ported yet)
-    transport_incremental: str = "auto"    # transport (not ported yet)
-    transport_delta_cap: int = 16          # transport (not ported yet)
-    transport_banded: bool = True          # transport (not ported yet)
+    transport_band_kernel: str = "jnp"     # accepted ("jnp" | "pallas") and ignored like
+                                           # ell_gather_kernel: both compute the same
+                                           # product, and the port always takes the banded
+                                           # CUDA kernel on the card
+    transport_cc: str = "auto"             # metal_p x metal_p tunnel block: "stored"
+                                           # (materialised f32, cached per bias point),
+                                           # "fly" (re-derived inside the on-the-fly CUDA
+                                           # kernels in every product, never stored),
+                                           # "auto" (stored below 3 GiB, fly beyond)
+    tunnel_vm_kernel: str = "jnp"          # accepted ("jnp" | "pallas") and ignored: f32
+                                           # vacancy x metal blocks always go through the
+                                           # window-integral kernel's wrapper
+    transport_incremental: str = "auto"    # persistent vacancy tunnel blocks: rows of atoms
+                                           # already in the bucket are kept, only atoms that
+                                           # entered it are recomputed (bit-identical to the
+                                           # full assembly); "auto" = on while the blocks
+                                           # fit 512 MiB; "on" | "off"
+    transport_delta_cap: int = 16          # most newly entered bucket atoms recomputed per
+                                           # solve; more falls back to the full assembly
+    transport_banded: bool = True          # f32 inner matvec through the static banded
+                                           # operator (current.build_banded_nb) plus a
+                                           # vacancy-bucket correction; off, or a band above
+                                           # 3 GiB, keeps the ELL gather
     batch_steps: int = 1                   # supersteps per dispatch (only 1 is ported)
 
     # ------------------------------------------------------------------

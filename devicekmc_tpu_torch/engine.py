@@ -1,18 +1,21 @@
 """Simulation engine: bias sweep, superstep loop, logging, snapshots.
 
-Mirrors the reference main loop (src/kmc_main.cpp:26-299) for the headline
-module set (charge, boundary potential, gridless Poisson, KMC events): for
-each bias point (V_switch[i], t_switch[i]) the boundary network is
-pre-solved cold (deflated CG), then supersteps run until the KMC clock
-passes t_switch[i] or the compliance current trips.  Output goes to
-``output.txt`` with the reference's keys and to xyz snapshots in
-``Results_<Vd>/``, as ``devicekmc_tpu.engine`` writes them.
+Mirrors the reference main loop (src/kmc_main.cpp:26-299) for the ported
+module set (charge, boundary potential, gridless Poisson, KMC events,
+blocked charge transport): for each bias point (V_switch[i], t_switch[i])
+the cold systems are pre-solved (with ``solve_current`` the CB edge and, in
+chunked mode, the transport network; the boundary network, deflated CG),
+then supersteps run until the KMC clock passes t_switch[i] or the
+compliance current trips.  Output goes to ``output.txt`` with the
+reference's keys and to xyz snapshots in ``Results_<Vd>/``, as
+``devicekmc_tpu.engine`` writes them.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -21,14 +24,20 @@ import torch
 from .config import KMCConfig
 from .device import resolve_device
 from .physics import charge as charge_mod
+from .physics import current as current_mod
 from .physics import potential as potential_mod
-from .state import build_simulation, replace
+from .state import attach_tunnel_state, build_params, build_simulation, replace
 from .structure import Element, write_xyz
 from .superstep import check_ported, superstep_impl
 
 
+#: metrics kept in ``step_log`` but not written to output.txt, whose keys are
+#: those of the JAX package
+_UNLOGGED = {"boundary_converged", "transport_partial_assembly"}
+
+
 class Simulation:
-    """End-to-end KMC simulation of the headline module set on one device
+    """End-to-end KMC simulation of the ported module set on one device
     (default the CUDA card; ``device="cpu"`` runs the plain versions)."""
 
     def __init__(
@@ -39,8 +48,7 @@ class Simulation:
         neigh_idx=None,
         device="cuda",
     ):
-        if cfg.solve_current or cfg.solve_heating_global or cfg.solve_heating_local:
-            raise NotImplementedError("transport and heating are not ported yet")
+        check_ported(build_params(cfg))
         if cfg.batch_steps > 1:
             raise NotImplementedError("batch_steps > 1 is not ported yet")
         self.cfg = cfg
@@ -54,15 +62,49 @@ class Simulation:
             self.params = replace(self.params, poisson_compact_cap=self._auto_poisson_cap())
         if cfg.active_rows_cap == -1:
             self.params = replace(self.params, active_rows_cap=self._auto_active_cap())
+        # per-bias-point cache of the blocked transport operator (the metal
+        # block, constant within a bias point) and the static banded operator
+        self._cc = None
+        self._band = None
+        self._tt_stale = False
+        if cfg.solve_current:
+            self._init_transport()
         self._buffer: List[str] = []
         self.output_path = os.path.join(cfg.output_dir, "output.txt")
         #: one dict per superstep run: the logged metrics, keyed as in output.txt
         self.step_log: List[Dict] = []
-        #: one dict per bias-start cold boundary solve: CG iterations, seconds
+        #: one dict per bias-start cold solve: phase ("cb_edge", "boundary",
+        #: "transport"), CG iterations, seconds
         self.presolve_log: List[Dict] = []
 
+    def _init_transport(self):
+        """Resolve the transport options that depend on the structure: the
+        vacancy bucket, stored or on-the-fly metal block, persistent tunnel
+        blocks; build the static band."""
+        cfg = self.cfg
+        n_mp = int(self.geom.atom_metalp_idx.shape[0])
+        if cfg.tunnel_vac_cap == -1:
+            # n_vac <= the V + Od species count, the Poisson bucket's bound
+            self.params = replace(self.params, tunnel_vac_cap=self._auto_poisson_cap())
+        f32_entries = self.params.mixed or self.params.dtype == torch.float32
+        self.params = replace(self.params, transport_cc=current_mod.resolve_transport_cc(
+            self.params.transport_cc, n_mp, f32_entries))
+        self.params = replace(
+            self.params,
+            transport_incremental=current_mod.resolve_transport_incremental(
+                cfg.transport_incremental, self.params, n_mp))
+        self.state = attach_tunnel_state(self.state, self.geom, self.params)
+        if cfg.transport_banded:
+            # built once: metal sites and the atom graph never change
+            self._band = current_mod.build_banded_nb(self.geom, self.params, self.state)
+            if self._band is None:
+                warnings.warn(
+                    "transport_banded: the banded operator exceeds its size limit "
+                    "for this structure and was not built; the f32 inner matvec "
+                    "uses the ELL neighbour product", RuntimeWarning, stacklevel=2)
+
     def _superstep(self, state, Vd):
-        return superstep_impl(self.geom, self.params, state, Vd)
+        return superstep_impl(self.geom, self.params, state, Vd, cc=self._cc)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -151,23 +193,105 @@ class Simulation:
                 self.params = replace(self.params, poisson_compact_cap=new_cap)
         return overflow
 
+    def _maybe_grow_tunnel_cap(self, metrics: Dict) -> bool:
+        """Vacancy bucket of the tunnel blocks: grown when the vacancy count
+        nears it; True (redo) when the count reached it."""
+        n_vac = metrics.get("n_vac_atoms")
+        cap = self.params.tunnel_vac_cap
+        if n_vac is None or cap <= 0:
+            return False
+        n_vac = int(n_vac)
+        overflow = n_vac >= cap
+        if self.cfg.tunnel_vac_cap != -1:
+            if overflow:
+                raise RuntimeError(
+                    f"tunnel vacancy bucket overflow: n_vac={n_vac} >= fixed "
+                    f"tunnel_vac_cap={cap}; raise the cap (or set -1)"
+                )
+            return False
+        if overflow or n_vac > 0.75 * cap:
+            new_cap = min(max(cap * 2, 256), self.geom.N_atom)
+            if new_cap != cap:
+                self.params = replace(self.params, tunnel_vac_cap=new_cap)
+                self._tt_stale = True
+        return overflow
+
+    def _maybe_grow_tunnel_int_steps(self, metrics: Dict) -> bool:
+        """Energy-window integration trip count.  The solver reports the
+        count the widest contact->trap pair needed (ceil(max |dE_CB| /
+        0.01 V)); above the configured count the integral was truncated:
+        grow to the next power of two and redo.  The stored tunnel rows were
+        summed with the old count, so the persistent store is dropped."""
+        needed = metrics.get("tunnel_int_steps_needed")
+        cur = self.params.tunnel_int_steps
+        if needed is None or int(needed) <= cur:
+            return False
+        new = max(cur, 1)
+        while new < int(needed):
+            new *= 2
+        self.params = replace(self.params, tunnel_int_steps=new)
+        self._tt_stale = True
+        return True
+
     def _check_caps(self, metrics: Dict) -> bool:
         redo = self._maybe_grow_active_cap(metrics)
+        redo = self._maybe_grow_tunnel_cap(metrics) or redo
         redo = self._maybe_grow_poisson_cap(metrics) or redo
+        redo = self._maybe_grow_tunnel_int_steps(metrics) or redo
         return redo
 
     def _redo_exhausted_msg(self, metrics: Dict) -> str:
-        counts = {k: int(metrics[k]) for k in ("n_active_rows", "n_charged_sites")
-                  if k in metrics}
+        counts = {k: int(metrics[k])
+                  for k in ("n_active_rows", "n_vac_atoms", "n_charged_sites",
+                            "tunnel_int_steps_needed") if k in metrics}
         caps = {k: getattr(self.params, k)
-                for k in ("active_rows_cap", "poisson_compact_cap")}
+                for k in ("active_rows_cap", "tunnel_vac_cap",
+                          "poisson_compact_cap", "tunnel_int_steps")}
         return ("compaction bucket still overflowing after 4 grow-and-redo "
                 f"attempts; counts={counts}, caps={caps}")
 
-    # -- bias-start cold solve --------------------------------------------
-    def _chunked_boundary(self, Vd: float, chunk: int, base_params=None):
-        """Charge rule, then the boundary network solved as restarted CG
-        segments of ``chunk`` iterations; returns the total iterations."""
+    def _step_with_redo(self, Vd: float):
+        """One superstep on ``self.state``, redone with larger caps while a
+        compaction bucket overflowed.  Returns the state before the step,
+        the step time and the metrics."""
+        prev_state = self.state
+        self.state, step_time, metrics = self._superstep(self.state, Vd)
+        for attempt in range(5):
+            redo = self._check_caps(metrics)
+            if self._tt_stale:
+                # the tunnel bucket or the integration count grew: a fresh,
+                # invalid store, so that the next assembly (the redo's too)
+                # rebuilds every row
+                prev_state = attach_tunnel_state(prev_state, self.geom, self.params)
+                self.state = attach_tunnel_state(self.state, self.geom, self.params)
+                self._tt_stale = False
+            if not redo:
+                break
+            if attempt == 4:
+                raise RuntimeError(self._redo_exhausted_msg(metrics))
+            self.state, step_time, metrics = self._superstep(prev_state, Vd)
+        return prev_state, step_time, metrics
+
+    # -- bias-start cold solves -------------------------------------------
+    # Restarted CG in segments of ``chunk`` iterations, each warm-started
+    # from the last partial solution.  Every loop ends on the solver's own
+    # ``converged`` flag, never on the iteration count: a segment can
+    # converge in exactly ``chunk`` iterations, and the mixed-precision solver
+    # can leave unconverged with fewer than ``chunk``.
+    def _chunked_cb_edge(self, Vd: float, chunk: int, base_params=None) -> int:
+        pchunk = replace(base_params or self.params, solver_maxiter=chunk)
+        total = 0
+        for _ in range(1000):
+            self.state, m = potential_mod.solve_cb_edge(
+                self.geom, pchunk, self.state, Vd)
+            total += int(m["cg_iters_cb_edge"])
+            if m["cb_edge_converged"]:
+                return total
+        raise RuntimeError("chunked CB-edge solve failed to converge")
+
+    def _chunked_boundary(self, Vd: float, chunk: int, base_params=None) -> int:
+        """Charge rule, then the boundary network; returns the total
+        iterations."""
         pchunk = replace(base_params or self.params, solver_maxiter=chunk)
         self.state, _ = charge_mod.update_charge(self.geom, self.params, self.state)
         total = 0
@@ -175,11 +299,35 @@ class Simulation:
             self.state, m = potential_mod.solve_boundary_potential(
                 self.geom, pchunk, self.state, Vd)
             total += int(m["cg_iters_boundary"])
-            if int(m["cg_iters_boundary"]) < chunk:
+            if m["boundary_converged"]:
                 return total
             # defeat the exact skip for the next segment
             self.state = replace(self.state, Vd_prev=float("nan"))
         raise RuntimeError("chunked boundary solve failed to converge")
+
+    def _chunked_transport(self, Vd: float, chunk: int) -> int:
+        """Pre-solve the transport network cold (``transport_precond``).
+        Commits ONLY the ``virtual_potentials`` warm start: I_macro stays
+        untouched, so the first superstep's IR drop and trajectory are those
+        of an unchunked run, and its own transport solve starts converged."""
+        total = 0
+        for _ in range(1000):
+            st, m = current_mod.update_power(
+                self.geom, self.params, self.state, Vd, cc=self._cc,
+                cg_maxiter=chunk)
+            self.state = replace(self.state, virtual_potentials=st.virtual_potentials)
+            total += int(m["cg_iters_power"])
+            if m["transport_converged"]:
+                return total
+        raise RuntimeError("chunked transport solve failed to converge")
+
+    def _presolve(self, phase: str, Vd: float, fn) -> float:
+        t0 = time.perf_counter()
+        iters = fn()
+        self._sync()
+        dt = time.perf_counter() - t0
+        self.presolve_log.append({"phase": phase, "Vd": Vd, "cg_iters": iters, "s": dt})
+        return dt
 
     # -- logging ---------------------------------------------------------
     def _log(self, text: str):
@@ -232,17 +380,36 @@ class Simulation:
         self._log("--------------------------------\n")
 
         chunk = cfg.solver_chunk_iters
+        # cold bias-start solves run deflated; the in-superstep re-solves
+        # keep cfg.boundary_precond
+        cold_params = replace(self.params, boundary_precond="deflated")
+        if params.solve_current:
+            # no unchanged-network skip and no stored tunnel rows across the
+            # bias boundary: the CB edge is solved anew, and it enters every
+            # tunnel entry
+            self.state = replace(self.state, transport_Vd_prev=float("nan"),
+                                 tt_valid=False)
+
+            def cb_edge():
+                if chunk > 0:
+                    return self._chunked_cb_edge(Vd, chunk, cold_params)
+                self.state, m = potential_mod.solve_cb_edge(
+                    self.geom, cold_params, self.state, Vd)
+                return int(m["cg_iters_cb_edge"])
+
+            dt = self._presolve("cb_edge", Vd, cb_edge)
+            self._log(f"Z - calculation time - CB edge [s]: {dt:.6g}\n")
+            cache = current_mod.assemble_transport_cache(
+                self.geom, self.params, self.state)
+            if self._band is not None:
+                cache["band"] = self._band
+            self._cc = cache
         if params.solve_potential:
-            # cold bias-start solve, deflated; the in-superstep re-solves
-            # keep cfg.boundary_precond
-            cold_params = replace(self.params, boundary_precond="deflated")
-            t0 = time.perf_counter()
-            iters = self._chunked_boundary(
-                Vd, chunk if chunk > 0 else self.params.solver_maxiter, cold_params
-            )
-            self._sync()
-            self.presolve_log.append({"Vd": Vd, "cg_iters": iters,
-                                      "s": time.perf_counter() - t0})
+            self._presolve("boundary", Vd, lambda: self._chunked_boundary(
+                Vd, chunk if chunk > 0 else self.params.solver_maxiter, cold_params))
+        if params.solve_current and chunk > 0:
+            self._presolve("transport", Vd,
+                           lambda: self._chunked_transport(Vd, chunk))
 
         folder = os.path.join(cfg.output_dir, f"Results_{Vd:.6f}")
         os.makedirs(folder, exist_ok=True)
@@ -260,16 +427,7 @@ class Simulation:
             self._log(f"KMC step count: {step_count}\n")
             self._log(f"V_vcm: {Vd - I_macro * cfg.Rs:g}\n")
 
-            prev_state = self.state
-            self.state, step_time, metrics = self._superstep(self.state, Vd)
-            for attempt in range(5):
-                # a compaction bucket overflowed: redo with the larger cap(s)
-                if not self._check_caps(metrics):
-                    break
-                if attempt == 4:
-                    raise RuntimeError(self._redo_exhausted_msg(metrics))
-                self.state = prev_state
-                self.state, step_time, metrics = self._superstep(self.state, Vd)
+            prev_state, step_time, metrics = self._step_with_redo(Vd)
 
             if step_count % cfg.log_freq == 0:
                 self.write_snapshot(step_count, folder, elem_state=prev_state,
@@ -287,16 +445,20 @@ class Simulation:
 
             I_macro = self.state.I_macro
             result = {k: float(v) for k, v in metrics.items()}
-            if result.get("cg_iters_boundary", 0) >= self.params.solver_maxiter:
-                self._log(f"WARNING: cg_iters_boundary hit the iteration cap "
-                          f"({self.params.solver_maxiter}) — solver may "
-                          "not have converged.\n")
+            for key in ("cg_iters_boundary", "cg_iters_power"):
+                if result.get(key, 0) >= self.params.solver_maxiter:
+                    self._log(f"WARNING: {key} hit the iteration cap "
+                              f"({self.params.solver_maxiter}) — solver may "
+                              "not have converged.\n")
+            if not result.get("transport_converged", 1.0):
+                self._log("WARNING: the transport solve left above its "
+                          "tolerance (transport_converged = 0).\n")
             result["Z - calculation time - KMC superstep [s]"] = dt_step
             summary = result
             self.step_log.append(dict(result, step=step_count, step_time=step_time))
 
             self._log(f"KMC time is: {kmc_time:g}\n")
-            for k in sorted(result):
+            for k in sorted(set(result) - _UNLOGGED):
                 self._log(f"{k}: {result[k]:.10g}\n")
 
             if step_count % cfg.output_freq == 0:

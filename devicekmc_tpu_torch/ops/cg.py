@@ -21,7 +21,15 @@ class CGResult(NamedTuple):
     x: torch.Tensor
     iters: int
     residual: float      # final ||r|| (or the preconditioned norm, criterion "pre")
-    converged: bool      # final residual met the tolerance
+    converged: bool      # final residual met the tolerance: the signal that
+                         # chunked cold solves loop on (iteration counts are
+                         # ambiguous when max_outer binds in cg_solve_mixed)
+    rel0: float = float("nan")   # initial ||r0||/||b|| (cg_solve_mixed only)
+
+
+#: device-to-host read-backs made by the solvers' host loops since the
+#: counter was last set to 0 (one per CG iteration or refinement round)
+readbacks = 0
 
 
 def cg_solve(
@@ -63,8 +71,12 @@ def cg_solve(
     z = apply_M(r)
     p = z
     rz = torch.dot(r, z)
+    global readbacks
     it = 0
-    while it < maxiter and bool(measure2(r, rz) > thresh2):
+    while it < maxiter:
+        readbacks += 1
+        if not bool(measure2(r, rz) > thresh2):
+            break
         ap = matvec(p)
         denom = torch.dot(p, ap)
         alpha = torch.where(denom != 0, rz / denom, 0.0)
@@ -81,6 +93,88 @@ def cg_solve(
         x=x, iters=it, residual=float(torch.sqrt(torch.abs(final2))),
         converged=bool(final2 <= thresh2),
     )
+
+
+def cg_solve_mixed(
+    matvec_hi: Callable,
+    matvec_lo: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    diag: Optional[torch.Tensor] = None,
+    tol: float = 1e-10,
+    inner_tol: float = 1e-4,
+    maxiter: int = 50000,
+    max_outer: int = 40,
+    inner_maxiter: int = 300,
+    inner_precond: Optional[Callable] = None,
+    inner_start: Optional[Callable] = None,
+    inner_gate_rel: Optional[float] = None,
+) -> CGResult:
+    """Mixed-precision CG with iterative refinement: the CG iterations run
+    in f32 (``matvec_lo``) on the residual scaled to O(1), and every round is
+    corrected with an f64 residual (``matvec_hi``).  b, x0 and diag are f64;
+    the result is f64.  On ill-conditioned conductance networks (high_G/low_G
+    = 1e8) plain f32 CG leaves O(1e-2) field errors; refinement drives them to
+    the f64 floor.
+
+    ``inner_precond`` / ``inner_start``: preconditioner application and
+    start-vector map of the inner solves (the A-DEF2 deflated transport CG
+    needs the start vector Z E^-1 Z^T b).  With ``inner_gate_rel`` set both
+    take ``(r, gate)``, gate = this round's ||r||/||b|| exceeds the threshold.
+
+    The inner tolerance adapts: a round only needs to bring ||r|| below the
+    threshold, a reduction of thresh/||r||; it asks for 0.1 of that (so the
+    final residual lands about 10x below the threshold), no tighter than
+    ``inner_tol`` and no looser than 0.05.  ``iters`` counts inner
+    iterations; the loop also leaves after ``max_outer`` rounds, so
+    ``converged`` and not the count says whether the tolerance was met."""
+    global readbacks
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    lo = torch.float32
+    diag_lo = None if diag is None else diag.to(lo)
+
+    bnorm = float(torch.sqrt(torch.dot(b, b)))
+    bref = bnorm if bnorm > 0 else 1.0
+    thresh = tol * bref
+
+    x = x0
+    r = b - matvec_hi(x0)
+    rnorm = float(torch.sqrt(torch.dot(r, r)))
+    readbacks += 2
+    rel0 = rnorm / bref
+    it_out = it_in = 0
+    while rnorm > thresh and it_out < max_outer and it_in < maxiter:
+        # scale the residual to O(1): f32 CG underflows on tiny residuals
+        scale = rnorm if rnorm > 0 else 1.0
+        b_in = (r / scale).to(lo)
+        pre, start = inner_precond, inner_start
+        if inner_gate_rel is not None:
+            gate = rnorm > inner_gate_rel * bref
+            if inner_precond is not None:
+                pre = lambda rr: inner_precond(rr, gate)
+            if inner_start is not None:
+                start = lambda bb: inner_start(bb, gate)
+        needed = thresh / max(rnorm, 1e-300)
+        tol_round = float(torch.tensor(min(max(0.1 * needed, inner_tol), 0.05),
+                                       dtype=lo))
+        inner = cg_solve(
+            matvec_lo, b_in,
+            x0=start(b_in) if start is not None else None,
+            diag=diag_lo, tol=tol_round,
+            maxiter=inner_maxiter,   # bounded: f32 CG stagnates at its
+                                     # precision floor; the outer rounds do
+                                     # the rest
+            precond=pre,
+        )
+        x = x + inner.x.to(b.dtype) * scale
+        r = b - matvec_hi(x)
+        rnorm = float(torch.sqrt(torch.dot(r, r)))
+        readbacks += 1
+        it_out += 1
+        it_in += inner.iters
+    return CGResult(x=x, iters=it_in, residual=rnorm,
+                    converged=rnorm <= thresh, rel0=rel0)
 
 
 def _cholesky_small(A: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,907 @@
+"""Charge-transport (current) solver, blocked matrix-free path.
+
+Builds the transmission/conductance operator X over the *atom* sub-graph
+plus two virtual nodes (ground/extraction = node 0, source/injection =
+node 1), solves for the virtual potentials and extracts the macroscopic
+current.  Reference: Device::updatePower (src/current_solver.cpp:4-385) and
+update_power_gpu_sparse (src/current_solver_gpu.cu:854-1136).
+
+Matrix entries (atoms i, j at indices i+2, j+2):
+  * neighbour pairs (dist < nn_dist): -high_G' for metal-metal or neutral
+    vacancy pairs, else -low_G;
+  * non-neighbour pairs that are trap<->trap, contact<->trap or
+    contact<->contact with |dE_CB| > tol: -T(WKB), with a trapezoidal
+    (low-field) or triangular (high-field) barrier, and an energy-window
+    integration for contact->trap (src/current_solver.cpp:99-154);
+  * node 1 -- the first ``num_source_inj`` atoms and node 0 -- atoms with
+    index > N_atom - num_ground_ext at -high_G' (the reference's strict
+    comparison attaches one atom fewer to ground; reproduced);
+  * node 0 -- node 1 at -loop_G;
+  * diagonal = negated row sum of the off-diagonals.
+
+The tunnel-eligible pairs involve only vacancies and interior-metal atoms
+(the reference's own comment, src/current_solver_gpu.cu:32: X "separates
+into a sparse neighbor matrix and a dense tunnel matrix"), so instead of
+the dense [N_atom+2]^2 matrix the operator is kept as
+
+  * an ELL neighbour-conductance part over the static atom graph
+    (``geom.atom_neigh_idx``), with a static banded-dense twin for the f32
+    inner iterations (:func:`build_banded_nb`),
+  * three tunnel blocks over the active subset:
+      - metal_p x metal_p  (c2c, single-shot WKB): stored, or re-derived
+        inside every product (``transport_cc="fly"``, ``ops/wkb_fly.py``),
+      - vac x metal_p      (c2t, energy-window integral, ``ops/wkb_window.py``),
+      - vac x vac          (t2t, single-shot WKB),
+  * the two virtual-node rows and the exact f64 diagonal.
+
+The linear system is the Nsub = N_atom+1 leading principal block (the last
+atom is the ground reference), solved warm-started from the previous
+solution: in mixed precision as Jacobi-scaled f32 CG with f64 refinement
+(``ops.cg.cg_solve_mixed``), optionally A-DEF2-deflated.  Entries are
+assembled in f32 in mixed mode (about 1e-7 relative error each; the solve
+refines in f64).
+
+Site-resolved dissipated power is computed only when a heating solver is on
+(the reference guards it the same way, src/current_solver.cpp:279-371);
+heating is not ported, so power stays zero here.  The dense path
+(``transport="dense"``) is not ported either.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from ..ops.banded import banded_matvec
+from ..ops.cg import cg_solve, cg_solve_mixed, invert_coarse
+from ..ops.compact import nonzero_fixed
+from ..ops.wkb_fly import wkb_fly_matmat, wkb_fly_matvec
+from ..ops.wkb_window import wkb_window_block
+from ..state import Geometry, PhysParams, SimState, replace
+from ..structure import Element
+
+#: conductance-quantum prefactor: G = G0 * T_ij
+#: (reference: src/current_solver.cpp:13, G0 = 2 * 3.8612e-5 * 1e-5)
+G0 = 2.0 * 3.8612e-5 * 1e-5
+
+#: relative-residual threshold above which a refinement round engages the
+#: A-DEF2 deflation; 0.0 = always on (kept as a tunable)
+DEFLATION_GATE_REL = 0.0
+
+#: energy spacing of the contact->trap integration [V]
+#: (src/current_solver.cpp:111)
+DV_INT = 0.01
+
+#: row-chunking threshold (elements) of the tunnel-block assembly; larger
+#: blocks are built chunk by chunk over rows
+TUNNEL_CHUNK_ELEMS = 1 << 25
+
+#: transport_cc="auto": largest stored metal_p tunnel block [bytes f32].
+#: Below it the block is materialised once per bias point; above it the
+#: on-the-fly kernels are the only option on one card.  Kept at the JAX
+#: package's value so that "auto" decides alike in both.
+CC_STORED_MAX_BYTES = 3 << 30
+
+#: transport_incremental="auto": largest persistent (T_vm + T_vv) footprint
+#: [bytes] for which the blocks are kept in SimState (the JAX package's value).
+TT_INCR_MAX_BYTES = 512 << 20
+
+
+def resolve_transport_cc(mode: str, n_mp: int, f32_entries: bool) -> str:
+    """Resolve transport_cc='auto' to 'stored' or 'fly'.  ``f32_entries``:
+    the pairwise dtype is f32 (mixed or f32 precision); the fly kernels
+    compute f32 entries, so pure-f64 runs always store."""
+    if mode != "auto":
+        return mode
+    if not f32_entries:
+        return "stored"
+    return "stored" if n_mp * n_mp * 4 <= CC_STORED_MAX_BYTES else "fly"
+
+
+def _cdtype(params: PhysParams) -> torch.dtype:
+    """The pairwise working dtype: f32 in mixed mode."""
+    return torch.float32 if params.mixed else params.dtype
+
+
+def _dist_blocks(pa, pb, lattice, pbc: bool):
+    """Pairwise distances between two point sets with y/z minimum image."""
+    dx = pa[:, None, 0] - pb[None, :, 0]
+    dy = pa[:, None, 1] - pb[None, :, 1]
+    dz = pa[:, None, 2] - pb[None, :, 2]
+    if pbc:
+        dy = dy - torch.round(dy / lattice[1]) * lattice[1]
+        dz = dz - torch.round(dz / lattice[2]) * lattice[2]
+    return torch.sqrt(dx * dx + dy * dy + dz * dz)
+
+
+# --- WKB tunnelling physics ----------------------------------------------
+
+def wkb_env(geom: Geometry, params: PhysParams) -> dict:
+    """Scalars of the WKB transmission model as Python floats holding the
+    pairwise working dtype's values (f32 in mixed mode).
+    Reference: src/current_solver.cpp:99-154."""
+    cdtype = _cdtype(params)
+    dt = np.float32 if params.dtype == torch.float32 else np.float64
+    cd = np.float32 if cdtype == torch.float32 else np.float64
+    prefac = -(np.sqrt(dt(2.0) * dt(params.m_e)) / dt(C.H_BAR)) * dt(2.0 / 3.0)
+    return dict(
+        cdtype=cdtype,
+        prefac=float(cd(prefac)),
+        qV0=float(cd(dt(C.Q_C) * dt(params.V0))),
+        dE_step=float(cd(C.Q_C * DV_INT)),
+        ctol=float(cd(C.Q_C * 0.01)),
+        nn=float(cd(params.nn_dist)),
+        lattice=tuple(float(cd(x)) for x in geom.lattice_host),
+        pbc=geom.pbc,
+        n_int_steps=params.tunnel_int_steps,
+    )
+
+
+def wkb_single_T(env, s, abs_dE):
+    """Single-shot trapezoidal/triangular barrier (trap<->trap,
+    contact<->contact; src/current_solver.cpp:135-154)."""
+    E1 = torch.tensor(env["qV0"], dtype=s.dtype, device=s.device)
+    E2 = E1 - abs_dE
+    return torch.where(
+        E2 > 0,
+        torch.exp(s * (E1 ** 1.5 - torch.where(E2 > 0, E2, 0.0) ** 1.5)),
+        torch.where(E2 < 0, torch.exp(s * E1 ** 1.5), 0.0),
+    )
+
+
+def wkb_window_T(env, s, abs_dE):
+    """contact->trap occupied-energy-window integration
+    (src/current_solver.cpp:99-134): ``n_int_steps`` single-shot terms;
+    exact while n_int_steps >= ceil(max |dE| / dE_step), which
+    :func:`assemble_X_blocks` reports as a metric."""
+    qV0 = torch.tensor(env["qV0"], dtype=s.dtype, device=s.device)
+    dE_step = torch.tensor(env["dE_step"], dtype=s.dtype, device=s.device)
+    acc = torch.zeros_like(s)
+    for kk in range(int(env["n_int_steps"])):
+        iv = torch.tensor(kk, dtype=s.dtype, device=s.device) * dE_step
+        e1 = qV0 + iv
+        e2 = e1 - abs_dE
+        term = torch.where(
+            e2 > 0,
+            torch.exp(s * (e1 ** 1.5 - torch.where(e2 > 0, e2, 0.0) ** 1.5)),
+            torch.where(e2 < 0, torch.exp(s * e1 ** 1.5), 0.0),
+        )
+        acc = acc + torch.where(iv < abs_dE, term, 0.0)
+    return acc
+
+
+def tunnel_block(env, pa, cba, oka, pb, cbb, okb, kernel):
+    """Negated tunnel-transmission block between two point sets (rows a,
+    cols b), built chunk by chunk over rows when big so that the elementwise
+    intermediates stay bounded (~128 MB).  ``kernel``: wkb_single_T or
+    wkb_window_T."""
+    prefac, nn, ctol = env["prefac"], env["nn"], env["ctol"]
+    lattice, pbc = env["lattice"], env["pbc"]
+    n_cols = pb.shape[0]
+
+    def rows(pa_c, cba_c, oka_c):
+        dist = _dist_blocks(pa_c, pb, lattice, pbc)
+        abs_dE = torch.abs(cba_c[:, None] - cbb[None, :])
+        # dist(i,i)=0 < nn_dist, so self pairs are excluded by ~neighbour
+        elig = oka_c[:, None] & okb[None, :] & (abs_dE > ctol) & ~(dist < nn)
+        safe_abs = torch.where(elig, abs_dE, 1.0)
+        s = prefac * (dist * 1e-10) / safe_abs
+        return torch.where(elig, -kernel(env, s, safe_abs), 0.0)
+
+    n_rows = pa.shape[0]
+    if n_rows * n_cols <= TUNNEL_CHUNK_ELEMS:
+        return rows(pa, cba, oka)
+    chunk = max(8, (TUNNEL_CHUNK_ELEMS // n_cols) // 8 * 8)
+    out = torch.empty((n_rows, n_cols), dtype=env["cdtype"], device=pa.device)
+    for r0 in range(0, n_rows, chunk):
+        r1 = min(r0 + chunk, n_rows)
+        out[r0:r1] = rows(pa[r0:r1], cba[r0:r1], oka[r0:r1])
+    return out
+
+
+def resolve_transport_incremental(mode: str, params: PhysParams, n_mp: int) -> bool:
+    """Resolve config transport_incremental ('auto'|'on'|'off') to a bool
+    once the final tunnel_vac_cap and n_mp are known (see
+    state.attach_tunnel_state)."""
+    if mode == "off":
+        return False
+    vcap = params.tunnel_vac_cap
+    eligible = (params.solve_current and params.transport == "blocked"
+                and vcap > 0 and n_mp > 0)
+    if not eligible:
+        if mode == "on":
+            raise ValueError(
+                "transport_incremental='on' requires solve_current with "
+                "transport='blocked' and tunnel_vac_cap > 0"
+            )
+        return False
+    if mode == "on":
+        return True
+    itemsize = 4 if _cdtype(params) == torch.float32 else 8
+    return vcap * (n_mp + vcap) * itemsize <= TT_INCR_MAX_BYTES
+
+
+def _vm_block(env, vpos, vcb, v_ok, mpos, mcb):
+    """The vacancy x metal_p window-integral block.  f32 entries go through
+    the window kernel's wrapper (``ops/wkb_window.py``), f64 entries (pure
+    f64 precision) through :func:`tunnel_block`.  Shared by the full and the
+    incremental assembly so that their entries are bit-identical."""
+    if env["cdtype"] == torch.float32:
+        return wkb_window_block(vpos.contiguous(), vcb.contiguous(), v_ok,
+                                mpos, mcb, env)
+    ones_m = torch.ones(mpos.shape[0], dtype=torch.bool, device=mpos.device)
+    return tunnel_block(env, vpos, vcb, v_ok, mpos, mcb, ones_m, wkb_window_T)
+
+
+def _incremental_vacancy_blocks(
+    geom, params, state, vidx, v_ok, vpos, vcb, apos, acb, mpos, mcb, env,
+):
+    """Persistent-tunnel-block update (params.transport_incremental).
+
+    Row content of T_vm/T_vv depends only on (atom identity, the bias-start
+    CB edge): the ascending vacancy bucket is reproduced exactly, rows of
+    atoms already present in the previous bucket are GATHERED from the
+    stored blocks through the atom -> old-slot map, and only atoms that
+    ENTERED the bucket since the last solve (<= 1 per KMC event; charge
+    flips change nothing here) are recomputed, through the same functions
+    the full assembly uses, so the assembled blocks are BIT-IDENTICAL to the
+    from-scratch path.  More than transport_delta_cap new atoms, or an
+    invalid store (first solve of a bias point, cap growth), falls back to
+    the full re-assembly, exact either way.
+
+    Returns (T_vm, T_vv, slot_atom_new, partial)."""
+    vcap = params.tunnel_vac_cap
+    ccap = params.transport_delta_cap
+    Na = geom.N_atom
+    dev = vidx.device
+    slot_atom_new = torch.where(v_ok, vidx, -1)
+
+    use_partial = False
+    if state.tt_valid:
+        prev = state.tt_slot_atom                      # [vcap] atom ids, -1 free
+        occupied = prev >= 0
+        amap = torch.full((Na,), -1, dtype=torch.int32, device=dev)
+        amap[prev[occupied].long()] = torch.arange(
+            vcap, dtype=torch.int32, device=dev)[occupied]
+        src_slot = torch.where(v_ok, amap[vidx.long()], -1)
+        have = v_ok & (src_slot >= 0)
+        need_idx, n_need_t = nonzero_fixed(v_ok & ~have, ccap, fill_value=0)
+        n_need = int(n_need_t)
+        use_partial = n_need <= ccap
+
+    if not use_partial:
+        T_vm = _vm_block(env, vpos, vcb, v_ok, mpos, mcb)
+        T_vv = tunnel_block(env, vpos, vcb, v_ok, vpos, vcb, v_ok, wkb_single_T)
+        return T_vm, T_vv, slot_atom_new, False
+
+    t_live = torch.arange(ccap, device=dev) < n_need
+    atoms_t = torch.where(t_live, vidx[need_idx.long()], 0).long()
+    pos_t, cb_t = apos[atoms_t], acb[atoms_t]
+    rows_vm = _vm_block(env, pos_t, cb_t, t_live, mpos, mcb)
+    rows_vv = tunnel_block(env, pos_t, cb_t, t_live, vpos, vcb, v_ok, wkb_single_T)
+    sg = src_slot.clamp(0, max(vcap - 1, 0)).long()
+    T_vm = torch.where(have[:, None], state.tt_vm[sg], 0.0)
+    T_vv = torch.where(have[:, None] & have[None, :], state.tt_vv[sg][:, sg], 0.0)
+    new_rows = need_idx[t_live].long()
+    T_vm[new_rows] = rows_vm[t_live]
+    T_vv[new_rows] = rows_vv[t_live]
+    # symmetric column write; (need x need) entries are written twice with
+    # bit-equal values (dist and |dE| are exactly symmetric)
+    T_vv[:, new_rows] = rows_vv[t_live].T
+    return T_vm, T_vv, slot_atom_new, True
+
+
+def assemble_cc_block(geom: Geometry, params: PhysParams, state: SimState):
+    """The metal_p x metal_p (c2c) tunnel block alone.
+
+    Within a bias point the CB edges, and therefore this (largest) block,
+    are constant: the engine assembles it once per bias point and hands it
+    to the superstep.  Under ``transport_cc='fly'`` there is nothing to
+    cache (entries are re-derived in the kernel): returns None."""
+    if params.transport_cc == "fly":
+        return None
+    return assemble_X_blocks(geom, params, state, _cc_only=True)["T_cc"]
+
+
+def assemble_transport_cache(geom: Geometry, params: PhysParams, state: SimState):
+    """Per-bias-point cache of the blocked transport solver: the metal_p x
+    metal_p tunnel block.  The deflation operators are NOT cached: they are
+    rebuilt per solve from the current operator, because deflation quality
+    degrades with a stale basis while a stale ``cc`` block is exact within a
+    bias point."""
+    return {"cc": assemble_cc_block(geom, params, state)}
+
+
+def _coarse_restriction(geom: Geometry, params: PhysParams):
+    """0/1 aggregation matrix R [K_tot, Nsub] over the atoms of the grounded
+    subsystem: the deflation basis of the A-DEF2 transport preconditioner.
+    Aggregates are ``coarse_slabs`` x-slabs, optionally refined
+    ``coarse_yz``-ways in each transverse direction (K_tot = slabs * yz^2).
+    The two virtual nodes belong to NO aggregate (a zero column): their
+    loop_G ~ 1e15 rows would put kappa(E) near 1e20, and Jacobi already
+    handles them."""
+    K = params.coarse_slabs
+    Q = max(1, params.coarse_yz)
+    Na = geom.N_atom
+    apos = geom.coords[geom.atom_ind.long()][: Na - 1].to(params.dtype)
+
+    def bins(c, nb):
+        lo, hi = c.min(), c.max()
+        return torch.clamp(
+            ((c - lo) / torch.clamp(hi - lo, min=1e-30) * nb).to(torch.int32),
+            0, nb - 1,
+        )
+
+    agg = bins(apos[:, 0], K)
+    K_tot = K
+    if Q > 1:
+        agg = (agg * Q + bins(apos[:, 1], Q)) * Q + bins(apos[:, 2], Q)
+        K_tot = K * Q * Q
+    agg = torch.cat([torch.full((2,), K_tot, dtype=torch.int32, device=agg.device), agg])
+    return torch.nn.functional.one_hot(agg.long(), K_tot + 1)[:, :K_tot].to(params.dtype).T
+
+
+def assemble_X_blocks(
+    geom: Geometry, params: PhysParams, state: SimState,
+    cc=None, _cc_only: bool = False, band=None,
+):
+    """Assemble the blocked transport operator (see the module docstring).
+
+    Returns a dict with all pieces :func:`_apply_X_blocks` needs: negated
+    off-diagonal values (the dense convention) and the exact f64 diagonal.
+    ``cc``: the precomputed metal_p x metal_p block of
+    :func:`assemble_cc_block` (valid within one bias point); ``band``: the
+    static banded operator of :func:`build_banded_nb`."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the transport operator's f32 tunnel-block products need IEEE f32: "
+            "torch.backends.cuda.matmul.allow_tf32 must be False"
+        )
+    dtype = params.dtype
+    cdtype = _cdtype(params)
+    dev = geom.device
+    ai = geom.atom_ind.long()
+    Na = geom.N_atom
+    apos = geom.coords[ai].to(cdtype)
+    aelem = state.element[ai]
+    acharge = state.charge[ai]
+    acb = state.CB_edge[ai].to(cdtype)
+
+    high_G = params.high_G * 1e5             # src/current_solver.cpp:9
+    low_G = params.low_G
+    loop_G = params.high_G * 1e7             # src/current_solver.cpp:8
+
+    metal = geom.metal_mask_table[aelem.long()]
+    anyvac = aelem == int(Element.VACANCY)
+    cvac = anyvac & (acharge == 0)
+
+    # --- ELL neighbour conductances (exact dtype: they set the diagonal) ---
+    anb = geom.atom_neigh_idx
+    valid = anb >= 0
+    safe = anb.clamp(min=0).long()
+    hi = (metal[:, None] & metal[safe]) | (cvac[:, None] & cvac[safe])
+    g_hi = torch.tensor(-high_G, dtype=dtype, device=dev)
+    g_lo = torch.tensor(-low_G, dtype=dtype, device=dev)
+    nb_vals = torch.where(valid, torch.where(hi, g_hi, g_lo), 0.0)
+
+    # --- active subset ---
+    mp = geom.atom_metalp_idx.long()              # [n_mp] static
+    vcap = params.tunnel_vac_cap
+    if vcap <= 0:
+        raise ValueError("transport='blocked' requires tunnel_vac_cap > 0")
+    vidx, n_vac = nonzero_fixed(anyvac, vcap, fill_value=0)
+    v_ok = torch.arange(vcap, device=dev) < min(int(n_vac), vcap)
+    vlong = vidx.long()
+
+    mpos, mcb = apos[mp].contiguous(), acb[mp].contiguous()
+    vpos, vcb = apos[vlong], acb[vlong]
+
+    env = wkb_env(geom, params)
+
+    cc_fly = params.transport_cc == "fly"
+    if cc_fly and cdtype != torch.float32:
+        raise ValueError(
+            "transport_cc='fly' computes f32 entries (the on-the-fly kernels "
+            "are f32); it requires precision 'mixed' or 'f32'"
+        )
+    ones_m = torch.ones(mp.shape[0], dtype=torch.bool, device=dev)
+    if cc_fly:
+        T_cc = None
+    elif cc is not None:
+        T_cc = cc.to(cdtype)
+    else:
+        T_cc = tunnel_block(env, mpos, mcb, ones_m, mpos, mcb, ones_m, wkb_single_T)
+    if _cc_only:
+        return dict(T_cc=T_cc)
+    tt_slot_new, partial = None, False
+    if params.transport_incremental:
+        T_vm, T_vv, tt_slot_new, partial = _incremental_vacancy_blocks(
+            geom, params, state, vidx, v_ok, vpos, vcb, apos, acb, mpos, mcb, env,
+        )
+    else:
+        T_vv = tunnel_block(env, vpos, vcb, v_ok, vpos, vcb, v_ok, wkb_single_T)
+        T_vm = _vm_block(env, vpos, vcb, v_ok, mpos, mcb)
+
+    # exactness check of the integration trip count: the number of dE_step
+    # windows the widest eligible (vac, metal_p) pair needs
+    dist_vm = _dist_blocks(vpos, mpos, env["lattice"], geom.pbc)
+    abs_vm = torch.abs(vcb[:, None] - mcb[None, :])
+    elig_vm = v_ok[:, None] & (abs_vm > env["ctol"]) & ~(dist_vm < env["nn"])
+    widest = torch.where(elig_vm, abs_vm, 0.0).max() if elig_vm.numel() else \
+        torch.zeros((), dtype=cdtype, device=dev)
+    int_steps_needed = int(torch.ceil(widest / env["dE_step"]))
+
+    # --- virtual-node rows ---
+    idx = torch.arange(Na, device=dev)
+    nsi, nge = params.num_source_inj, params.num_ground_ext
+    src_vals = torch.where(idx < nsi, g_hi, 0.0)
+    # strict ">" keeps the reference's off-by-one (src/current_solver.cpp:187)
+    gnd_vals = torch.where(idx > (Na - nge), g_hi, 0.0)
+
+    # --- exact diagonal = -(off-diagonal row sums) ---
+    row_atoms = nb_vals.sum(dim=1) + gnd_vals + src_vals
+    # block row sums in the storage dtype, cast after (no f64 copy of the
+    # multi-GB cc block)
+    if cc_fly:
+        cc_row = wkb_fly_matvec(
+            mpos, mcb, torch.ones(mp.shape[0], dtype=torch.float32, device=dev), env,
+        ).to(dtype)
+    else:
+        cc_row = T_cc.sum(dim=1).to(dtype)
+    mv_row = T_vm.sum(dim=0).to(dtype)             # metal rows, vac cols
+    vv_row = T_vv.sum(dim=1).to(dtype)
+    vm_row = T_vm.sum(dim=1).to(dtype)
+    # index_add_: the pad slots of vidx all point at atom 0 (with value 0)
+    row_atoms.index_add_(0, mp, cc_row + mv_row)
+    row_atoms.index_add_(0, vlong, torch.where(v_ok, vv_row + vm_row, 0.0))
+    row0 = gnd_vals.sum() - loop_G
+    row1 = src_vals.sum() - loop_G
+    diag = -torch.cat([torch.stack([row0, row1]), row_atoms])
+
+    out = dict(
+        nb_vals=nb_vals, nb_safe=safe,
+        T_cc=T_cc, T_vv=T_vv, T_vm=T_vm,
+        mp=mp, mp_inv=geom.atom_metalp_inv, vidx=vlong, v_ok=v_ok,
+        src_vals=src_vals, gnd_vals=gnd_vals,
+        loop_G=loop_G, diag=diag,
+        int_steps_needed=int_steps_needed,
+        tt_slot_atom=tt_slot_new, tt_partial=partial,
+    )
+    if cc_fly:
+        # everything the on-the-fly kernels need to re-derive cc entries
+        out["fly"] = dict(mpos=mpos, mcb=mcb, env=env)
+    if band is not None:
+        # dynamic complement of the static banded operator: the
+        # (high_G - low_G) bump on uncharged-vacancy pairs, supported
+        # entirely on the vacancy bucket (see build_banded_nb)
+        vnb = anb[vlong]                      # [vcap, max_nn]
+        vvalid = vnb >= 0
+        vsafe = vnb.clamp(min=0).long()
+        hi_dyn = vvalid & v_ok[:, None] & cvac[vlong][:, None] & cvac[vsafe]
+        bump = torch.tensor(-(high_G - low_G), dtype=dtype, device=dev).to(torch.float32)
+        out["band"] = band
+        out["band_dyn_vals"] = torch.where(hi_dyn, bump, 0.0)
+        out["band_vnb_safe"] = vsafe
+    return out
+
+
+def _place_tunnel(blk, ya, y_mp, y_v):
+    """Add the metal_p part (through the static inverse map, a gather) and
+    the vacancy part (a small scatter-add) of a tunnel product to ``ya``."""
+    pad = torch.zeros((1,) + y_mp.shape[1:], dtype=y_mp.dtype, device=y_mp.device)
+    inv = blk["mp_inv"].long()
+    n_mp = blk["mp"].shape[0]
+    ya = ya + torch.cat([y_mp, pad])[torch.where(inv >= 0, inv, n_mp)]
+    v_ok = blk["v_ok"] if y_v.dim() == 1 else blk["v_ok"][:, None]
+    # index_add_, not ya[vidx] += ...: the pad slots of vidx repeat atom 0
+    return ya.index_add_(0, blk["vidx"], torch.where(v_ok, y_v, 0.0))
+
+
+def _apply_X_blocks(blk, x, wd):
+    """y = X @ x for the blocked operator; x is the full [Na+2] vector.
+
+    ``wd`` is the working dtype of the gather/reduction path; the tunnel
+    blocks multiply in their storage dtype (f32 in mixed mode: promoting to
+    f64 would materialise multi-GB converted copies) and the products are
+    cast to ``wd``."""
+    x = x.to(wd)
+    x0, x1, xa = x[0], x[1], x[2:]
+    if blk.get("band") is not None and wd == torch.float32:
+        # gather-free static banded matvec + the small dynamic vacancy-pair
+        # correction (f32 inner iterations only; the f64 refinement matvec
+        # keeps the exact ELL path)
+        ya = _banded_nb_matvec(blk["band"], xa)
+        yv = (blk["band_dyn_vals"] * xa[blk["band_vnb_safe"]]).sum(dim=1)
+        ya = ya.index_add_(0, blk["vidx"], torch.where(blk["v_ok"], yv, 0.0))
+    else:
+        ya = (blk["nb_vals"].to(wd) * xa[blk["nb_safe"]]).sum(dim=1)
+
+    T_vv, T_vm = blk["T_vv"], blk["T_vm"]
+    cd = T_vv.dtype
+    xm = xa[blk["mp"]].to(cd)
+    xv = torch.where(blk["v_ok"], xa[blk["vidx"]], 0.0).to(cd)
+    if blk.get("fly") is not None:
+        f = blk["fly"]
+        y_cc = wkb_fly_matvec(f["mpos"], f["mcb"], xm.float().contiguous(), f["env"]).to(wd)
+    else:
+        y_cc = torch.matmul(blk["T_cc"], xm).to(wd)
+    y_mv = torch.matmul(xv, T_vm).to(wd)
+    y_vv = torch.matmul(T_vv, xv).to(wd)
+    y_vm = torch.matmul(T_vm, xm).to(wd)
+    ya = _place_tunnel(blk, ya, y_cc + y_mv, y_vv + y_vm)
+
+    src = blk["src_vals"].to(wd)
+    gnd = blk["gnd_vals"].to(wd)
+    loop_G = blk["loop_G"]
+    ya = ya + gnd * x0 + src * x1
+    y0 = torch.dot(gnd, xa) - loop_G * x1
+    y1 = torch.dot(src, xa) - loop_G * x0
+    return torch.cat([torch.stack([y0, y1]), ya]) + blk["diag"].to(wd) * x
+
+
+def _apply_X_blocks_mat(blk, X, wd):
+    """Y = X_op @ X for a matrix of column vectors X [Na+2, K]: the
+    multi-RHS twin of :func:`_apply_X_blocks`, used to build the deflation
+    basis W = A Z in one pass (the tunnel blocks are read once for all K
+    columns; the ELL part runs as max_nn row gathers of [Na, K] panels)."""
+    X = X.to(wd)
+    x0, x1, Xa = X[0], X[1], X[2:]
+    nb_vals = blk["nb_vals"].to(wd)
+    nb_safe = blk["nb_safe"]
+    Ya = torch.zeros_like(Xa)
+    for s in range(nb_vals.shape[1]):
+        Ya = Ya + nb_vals[:, s:s + 1] * Xa[nb_safe[:, s]]
+
+    T_vv, T_vm = blk["T_vv"], blk["T_vm"]
+    cd = T_vv.dtype
+    Xm = Xa[blk["mp"]].to(cd)
+    Xv = torch.where(blk["v_ok"][:, None], Xa[blk["vidx"]], 0.0).to(cd)
+    if blk.get("fly") is not None:
+        f = blk["fly"]
+        Y_cc = wkb_fly_matmat(f["mpos"], f["mcb"], Xm.float().contiguous(), f["env"]).to(wd)
+    else:
+        Y_cc = torch.matmul(blk["T_cc"], Xm).to(wd)
+    Y_mv = torch.matmul(T_vm.T, Xv).to(wd)
+    Y_vv = torch.matmul(T_vv, Xv).to(wd)
+    Y_vm = torch.matmul(T_vm, Xm).to(wd)
+    Ya = _place_tunnel(blk, Ya, Y_cc + Y_mv, Y_vv + Y_vm)
+
+    src = blk["src_vals"].to(wd)
+    gnd = blk["gnd_vals"].to(wd)
+    loop_G = blk["loop_G"]
+    Ya = Ya + gnd[:, None] * x0[None, :] + src[:, None] * x1[None, :]
+    y0 = gnd @ Xa - loop_G * x1
+    y1 = src @ Xa - loop_G * x0
+    return torch.cat([torch.stack([y0, y1]), Ya]) + blk["diag"].to(wd)[:, None] * X
+
+
+def build_banded_nb(
+    geom: Geometry, params: PhysParams, state: SimState,
+    block: int = 128, max_bytes: int = 3 << 30,
+):
+    """Static banded-dense neighbour-conductance operator (built ONCE per
+    simulation, on the device; the gather-free inner-CG matvec).
+
+    The neighbour matrix decomposes exactly as
+
+        nb = -low_G * ADJ  - (high_G-low_G) * MM  - (high_G-low_G) * CVAC2
+
+    where ADJ (atom adjacency) and MM (metal-metal pairs) are STATIC (no
+    KMC event touches a metal site) and CVAC2 (uncharged-vacancy pairs,
+    src/current_solver.cpp:86-99) lives entirely on the vacancy bucket.
+    The static part is laid out banded-dense over x-sorted atoms:
+    ``C[r, k, b, j]`` holds the coupling of permuted atom r*B+b to permuted
+    atom (r-p+k)*B+j, stored f32, so the matvec needs no gather beyond the
+    two [Na] permutation reads.  The k axis is zero-padded to a multiple of
+    8 (the JAX package's layout).  The permutation is internal to this
+    operator.
+
+    Returns None when the banded layout exceeds ``max_bytes`` (extreme
+    aspect ratios); callers then keep the ELL gather."""
+    dev = geom.device
+    anb = geom.atom_neigh_idx
+    Na = int(geom.N_atom)
+    ai = geom.atom_ind.long()
+    ax = geom.coords[ai][:, 0]
+    pi = torch.sort(ax, stable=True).indices
+    inv = torch.empty_like(pi)
+    inv[pi] = torch.arange(Na, device=dev)
+    rows = torch.arange(Na, device=dev)[:, None].expand_as(anb)
+    msk = anb >= 0
+    rows, cols = rows[msk], anb[msk].long()
+    bw = int((inv[rows] - inv[cols]).abs().max()) if rows.numel() else 1
+    B = block
+    p = -(-bw // B)
+    m = 2 * p + 1
+    m_pad = m if m < 8 else -(-m // 8) * 8
+    R = -(-Na // B)
+    if R * B * m_pad * B * 4 > max_bytes:
+        return None
+    metal = geom.metal_mask_table[state.element[ai].long()]
+    high_G = params.high_G * 1e5
+    vals = torch.where(
+        metal[rows] & metal[cols],
+        torch.tensor(-high_G, dtype=torch.float64, device=dev),
+        torch.tensor(-params.low_G, dtype=torch.float64, device=dev),
+    ).to(torch.float32)
+    C4 = torch.zeros((R, m_pad, B, B), dtype=torch.float32, device=dev)
+    ri, ci = inv[rows], inv[cols]
+    off = ci - (ri // B - p) * B
+    C4[ri // B, off // B, ri % B, off % B] = vals
+    return dict(C=C4, front=p * B, pi=pi, inv=inv)
+
+
+def _banded_nb_matvec(band, xa):
+    """y = C_static @ x through the banded-matvec kernel's wrapper
+    (``ops/banded.py``): the permuted vector is laid into the zero-padded
+    window layout, and the result permuted back."""
+    Cb = band["C"]
+    R, m_pad, B, _ = Cb.shape
+    Na = band["pi"].shape[0]
+    xp = torch.zeros((R + m_pad - 1) * B, dtype=Cb.dtype, device=Cb.device)
+    front = band["front"]                  # p*B leading zeros
+    xp[front:front + Na] = xa[band["pi"]].to(Cb.dtype)
+    y = banded_matvec(Cb, xp.reshape(R + m_pad - 1, B))
+    return y.reshape(R * B)[:Na][band["inv"]]
+
+
+def _deflation_ops(geom: Geometry, params: PhysParams, blk, d):
+    """A-DEF2 deflation operators of the blocked transport CG, built in the
+    Jacobi-SCALED metric (transport_precond="deflated").
+
+    A coarse correction formulated in the UNSCALED metric is optimal in the
+    A-energy norm but worsens the Jacobi-scaled residual norm the stopping
+    criterion uses (the reference's rule on the symmetric-scaled system,
+    src/iterative_solvers_gpu.cu:309-480).  So the scaled system
+    A^ = D^-1/2 A D^-1/2 is deflated with the scaled basis Z^ = D^1/2 Z: the
+    Galerkin matrix E = Z^T A Z is unchanged and warm-started easy solves
+    cannot be hurt (the A-DEF2 operator is a projection, not an additive
+    term).
+
+    Returns (Zhat [Nsub,K], W = A^ Z^ [Nsub,K], coarse_solve).  The
+    preconditioner application is  M^-1 r = r + Z^ E^-1 (Z^^T r - W^T r)
+    with the start vector  x0 = Z^ E^-1 Z^^T b  (Tang/Nabben/Vuik/Erlangga's
+    A-DEF2, the variant robust to inexact coarse solves, which matters here
+    because E is assembled through f32 blocks)."""
+    dtype = params.dtype
+    Nsub = geom.N_atom + 1
+    Zm = _coarse_restriction(geom, params).T            # [Nsub, K] 0/1
+    # AZ in FULL precision even in mixed mode: E's dominant entries come from
+    # the exact high_G neighbour couplings, and with kappa(E) ~ 1e10 an
+    # f32-assembled E makes E^-1 worthless.  The tunnel blocks stay f32
+    # inside _apply_X_blocks_mat: their contributions are far below E's floor.
+    Xfull = torch.cat([Zm, torch.zeros((1, Zm.shape[1]), dtype=dtype, device=Zm.device)])
+    AZ = _apply_X_blocks_mat(blk, Xfull, dtype)[:Nsub]
+    E = Zm.T @ AZ                                       # = Z^T A Z
+    E_inv = invert_coarse(E)
+
+    def coarse_solve(a):
+        # one refinement step on the K x K solve: kappa(E) ~ 1e10 leaves the
+        # raw Cholesky inverse ~1e-6 accurate, and the residual drift that
+        # induces in the inner CG stalls warm solves
+        c = E_inv @ a
+        return c + E_inv @ (a - E @ c)
+
+    ds = torch.sqrt(torch.where(d > 0, d, 1.0))
+    return ds[:, None] * Zm, AZ / ds[:, None], coarse_solve
+
+
+def update_power_blocked(
+    geom: Geometry,
+    params: PhysParams,
+    state: SimState,
+    Vd: float,
+    cg_tol: Optional[float] = None,
+    cg_maxiter: int = 20000,
+    cc=None,
+    precond: Optional[str] = None,
+) -> Tuple[SimState, Dict]:
+    """The transport solve with the blocked matrix-free operator
+    (transport="blocked"): same physics and outputs as Device::updatePower
+    (src/current_solver.cpp:4-385) at a size where the dense matrix cannot
+    be materialised.  ``cc``: the per-bias-point cache dict of
+    :func:`assemble_transport_cache` (plus ``band``), or the raw metal
+    block."""
+    solve_heat = params.solve_heating_global or params.solve_heating_local
+    if solve_heat:
+        raise NotImplementedError(
+            "site-resolved dissipated power (the solve_heat block of "
+            "update_power_blocked) is not ported yet: ROADMAP, heat slice")
+    dtype = params.dtype
+    dev = geom.device
+    Na = geom.N_atom
+    Nsub = Na + 1
+    nsi = params.num_source_inj
+    if cg_tol is None:
+        cg_tol = params.transport_tol
+
+    band = None
+    if isinstance(cc, dict):
+        band = cc.get("band")
+        cc = cc.get("cc")
+    blk = assemble_X_blocks(geom, params, state, cc=cc, band=band)
+    loop_G = blk["loop_G"]
+    diag = blk["diag"]
+
+    rhs = torch.zeros(Nsub, dtype=dtype, device=dev)
+    rhs[0] = -loop_G * Vd
+    rhs[1] = loop_G * Vd
+
+    def apply_sub(x_sub, wd):
+        x_full = torch.cat([x_sub, torch.zeros(1, dtype=x_sub.dtype, device=dev)])
+        return _apply_X_blocks(blk, x_full, wd)[:Nsub]
+
+    d = diag[:Nsub]
+    x_init = state.virtual_potentials[:Nsub]
+    deflate = (precond or params.transport_precond) == "deflated"
+    if deflate:
+        Zhat, W, esolve = _deflation_ops(geom, params, blk, d)
+    if params.mixed:
+        # Jacobi-scaled f32 CG + f64 iterative refinement
+        dsi = 1.0 / torch.sqrt(torch.where(d > 0, d, 1.0))
+        dsi32 = dsi.to(torch.float32)
+        b_s = rhs * dsi
+        y0 = x_init / dsi
+        inner_precond = inner_start = None
+        if deflate:
+            Zh32 = Zhat.to(torch.float32)
+            W32 = W.to(torch.float32)
+
+            def _coarse_f32(coeff):
+                # the coarse solve stays f64 (kappa(E) ~ 1e10 makes an f32
+                # solve garbage); cast at the boundary only
+                return esolve(coeff.to(dtype)).to(torch.float32)
+
+            # per-round gate (see DEFLATION_GATE_REL; always on as shipped)
+            def inner_precond(r, gate):
+                if not gate:
+                    return r
+                return r + Zh32 @ _coarse_f32(Zh32.T @ r - W32.T @ r)
+
+            def inner_start(b, gate):
+                if not gate:
+                    return torch.zeros_like(b)
+                return Zh32 @ _coarse_f32(Zh32.T @ b)
+
+        res = cg_solve_mixed(
+            lambda y: dsi * apply_sub(dsi * y, dtype),
+            lambda y: dsi32 * apply_sub(dsi32 * y, torch.float32),
+            b_s, x0=y0,
+            tol=cg_tol, inner_tol=1e-5, inner_maxiter=400,
+            maxiter=cg_maxiter,
+            inner_precond=inner_precond, inner_start=inner_start,
+            inner_gate_rel=DEFLATION_GATE_REL if deflate else None,
+        )
+        v = res.x * dsi
+    elif deflate:
+        # f64 deflated solve on the scaled system.  criterion "r" on the
+        # scaled system IS the Jacobi-preconditioned criterion on the
+        # unscaled one: ||D^-1/2 (b - A x)|| = sqrt(r' M^-1 r).
+        ds = torch.sqrt(torch.where(d > 0, d, 1.0))
+        dsi = 1.0 / ds
+        b_s = rhs * dsi
+        y0 = x_init * ds
+        y0 = (
+            y0
+            - Zhat @ esolve(W.T @ y0)           # P^T y0
+            + Zhat @ esolve(Zhat.T @ b_s)       # + Z^ E^-1 Z^^T b
+        )
+        res = cg_solve(
+            lambda y: dsi * apply_sub(dsi * y, dtype), b_s,
+            x0=y0,
+            precond=lambda r: r + Zhat @ esolve(Zhat.T @ r - W.T @ r),
+            tol=cg_tol, maxiter=cg_maxiter, criterion="r",
+        )
+        v = res.x * dsi
+    else:
+        res = cg_solve(
+            lambda x: apply_sub(x, dtype), rhs,
+            x0=x_init,
+            diag=d, tol=cg_tol, maxiter=cg_maxiter, criterion="pre",
+        )
+        v = res.x
+
+    contact_drop = float(torch.abs(v[nsi] - Vd))
+    M = torch.cat([v * G0, torch.zeros(1, dtype=dtype, device=dev)])  # [Na+2]
+    I_macro = float(torch.sum(blk["gnd_vals"] * (M[0] - M[2:])))
+
+    new_state = replace(
+        state,
+        power=torch.zeros(geom.N, dtype=dtype, device=dev),
+        I_macro=I_macro,
+        virtual_potentials=torch.cat([v, torch.zeros(1, dtype=dtype, device=dev)]),
+    )
+    if blk["tt_slot_atom"] is not None:
+        # persist the (bit-exact) incremental tunnel blocks for the next solve
+        new_state = replace(
+            new_state, tt_slot_atom=blk["tt_slot_atom"],
+            tt_vm=blk["T_vm"], tt_vv=blk["T_vv"], tt_valid=True,
+        )
+    metrics = {
+        "n_vac_atoms": _n_vac_atoms(geom, state),
+        "Current [uA]": I_macro * 1e6,
+        "Conductance [uS]": abs(I_macro / (Vd if Vd != 0 else 1.0)) * 1e6,
+        "cg_iters_power": res.iters,
+        "transport_rel0": res.rel0,
+        # the explicit convergence signal the chunked cold solves loop on
+        "transport_converged": res.converged,
+        "contact_potential_drop": contact_drop,
+        "tunnel_int_steps_needed": blk["int_steps_needed"],
+        # 1: stored tunnel rows reused and only new ones computed, 0: full
+        # assembly, -1: solve skipped (kept out of output.txt by the engine)
+        "transport_partial_assembly": int(blk["tt_partial"]),
+    }
+    return new_state, metrics
+
+
+def _n_vac_atoms(geom: Geometry, state: SimState) -> int:
+    return int((state.element[geom.atom_ind.long()] == int(Element.VACANCY)).sum())
+
+
+def _reuse_transport_metrics(
+    geom: Geometry, params: PhysParams, state: SimState, Vd: float
+) -> Dict:
+    """Metrics of an unchanged-network transport skip, reconstructed from
+    the stored converged solution: the keys of the solve branch, with -1
+    sentinels that tell "skipped" from "converged at once" in the logs."""
+    I_macro = state.I_macro
+    return {
+        "n_vac_atoms": _n_vac_atoms(geom, state),
+        "Current [uA]": I_macro * 1e6,
+        "Conductance [uS]": abs(I_macro / (Vd if Vd != 0 else 1.0)) * 1e6,
+        "cg_iters_power": 0,
+        "transport_converged": True,
+        "contact_potential_drop": float(
+            torch.abs(state.virtual_potentials[params.num_source_inj] - Vd)),
+        "transport_rel0": -1.0,
+        "tunnel_int_steps_needed": -1,
+        "transport_partial_assembly": -1,
+    }
+
+
+def update_power(
+    geom: Geometry,
+    params: PhysParams,
+    state: SimState,
+    Vd: float,
+    cg_tol: Optional[float] = None,
+    cg_maxiter: int = 20000,
+    cc=None,
+    allow_skip: bool = False,
+) -> Tuple[SimState, Dict]:
+    """Transport dispatcher.  ``allow_skip=True`` (the superstep path)
+    enables the exact unchanged-network fast path: X is a function of
+    (element, charge) at atom sites, the bias-start CB edge and Vd only;
+    when all are unchanged since the last converged solve, that solution IS
+    the solution and assembly, set-up and solve are skipped.  The superstep
+    path is also the WARM path: its re-solves use transport_warm_precond,
+    cold pre-solves (the default, always solve) keep transport_precond."""
+    if params.transport != "blocked":
+        raise NotImplementedError(
+            "transport='dense' is not ported yet (ROADMAP item 7); use "
+            "transport='blocked'")
+    Vd = float(torch.tensor(Vd, dtype=params.dtype))
+
+    def solve(st):
+        return update_power_blocked(
+            geom, params, st, Vd, cg_tol=cg_tol, cg_maxiter=cg_maxiter, cc=cc,
+            precond=params.transport_warm_precond if allow_skip else None,
+        )
+
+    if not (allow_skip and params.transport_skip_unchanged):
+        return solve(state)
+
+    ai = geom.atom_ind.long()
+    elem_a = state.element[ai]
+    chg_a = state.charge[ai]
+    unchanged = (Vd == state.transport_Vd_prev
+                 and torch.equal(elem_a, state.trans_elem_prev)
+                 and torch.equal(chg_a, state.trans_charge_prev))
+    if unchanged:
+        return state, _reuse_transport_metrics(geom, params, state, Vd)
+    new_state, m = solve(state)
+    return replace(new_state, trans_elem_prev=elem_a, trans_charge_prev=chg_a,
+                   transport_Vd_prev=Vd), m

@@ -13,8 +13,12 @@
 The Laplace solve is Dirichlet-eliminated CG on the ELL graph, warm-started
 from the previous solution, with two exact shortcuts (unchanged network,
 incrementally certified residual) — the decisions of
-``devicekmc_tpu.physics.potential``.  The CB-edge solve belongs to the
-transport path and is not ported yet.
+``devicekmc_tpu.physics.potential``.
+
+3. **Conduction-band edge** — the same Laplace solve on the CB-edge network
+   (high_G where either endpoint is metal), contacts at +Vd/2 / -Vd/2, once
+   per bias point for the transport solver.  Reference: src/potential_solver.cpp:58-70,
+   src/potential_solver_gpu.cu:634-674.
 """
 
 from __future__ import annotations
@@ -51,6 +55,16 @@ def _edge_conductance_boundary(geom: Geometry, state: SimState, params: PhysPara
     return torch.where(geom.neigh_valid, g, 0.0)
 
 
+def _edge_conductance_cb(geom: Geometry, state: SimState, params: PhysParams):
+    """Per-edge conductance of the CB-edge network: high_G iff either
+    endpoint is metal (src/potential_solver.cpp:58-70)."""
+    safe = safe_index(geom.neigh_idx)
+    metal = geom.metal_mask_table[state.element.long()]
+    g = _select(metal[:, None] | metal[safe], params.high_G, params.low_G,
+                params.dtype)
+    return torch.where(geom.neigh_valid, g, 0.0)
+
+
 def _dirichlet_laplace_solve(
     geom: Geometry,
     edge_g: torch.Tensor,
@@ -59,13 +73,15 @@ def _dirichlet_laplace_solve(
     x0: torch.Tensor,
     tol: float,
     maxiter: int,
+    masks=None,
     deflate_slabs: int = 0,
     want_residual: bool = False,
 ):
-    """Graph-Laplacian solve with Dirichlet contacts on the boundary
-    network's masks.  Returns the full-length potential and the CG result
-    (plus the TRUE residual and the right-hand side with ``want_residual``)."""
-    is_left, is_right, interior = (
+    """Graph-Laplacian solve with Dirichlet contacts on ``masks`` = (left,
+    right, interior), by default the boundary network's.  Returns the
+    full-length potential and the CG result (plus the TRUE residual and the
+    right-hand side with ``want_residual``)."""
+    is_left, is_right, interior = masks or (
         geom.bp_left_mask, geom.bp_right_mask, geom.bp_interior_mask
     )
 
@@ -230,27 +246,51 @@ def solve_boundary_potential(
                            if params.boundary_precond == "deflated" else 0),
             want_residual=True,
         )
-        return phi, res.iters, r_true, b
+        return phi, res.iters, r_true, b, res.converged
 
     if same_vd and not bool(changed.any()):
-        phi, iters, r, b = (state.potential_boundary, 0,
-                            state.boundary_r, state.boundary_b)
+        phi, iters, r, b, conv = (state.potential_boundary, 0,
+                                  state.boundary_r, state.boundary_b, True)
     elif inc_on:
         r_inc, b_inc, inc_conv = _incremental_boundary_residual(
             geom, params, state, cvac, changed, vl, vr
         )
         if same_vd and inc_conv:
-            phi, iters, r, b = state.potential_boundary, 0, r_inc, b_inc
+            phi, iters, r, b, conv = state.potential_boundary, 0, r_inc, b_inc, True
         else:
-            phi, iters, r, b = solve()
+            phi, iters, r, b, conv = solve()
     else:
-        phi, iters, r, b = solve()
+        phi, iters, r, b, conv = solve()
 
     new_state = replace(
         state, potential_boundary=phi, cvac_prev=cvac, Vd_prev=Vd,
         boundary_r=r, boundary_b=b,
     )
-    return new_state, {"cg_iters_boundary": iters}
+    # boundary_converged: the CG's own flag (True on the skip paths), which
+    # the engine's chunked cold solve loops on
+    return new_state, {"cg_iters_boundary": iters, "boundary_converged": conv}
+
+
+def solve_cb_edge(
+    geom: Geometry, params: PhysParams, state: SimState, Vd: float
+) -> Tuple[SimState, dict]:
+    """Update ``CB_edge`` [J]: contacts at +q*Vd/2 (left), -q*Vd/2 (right).
+    The linear solve runs in volts and the result is scaled by eV_to_J, as
+    the reference's GPU path does (src/potential_solver_gpu.cu:634-674)."""
+    dtype = params.dtype
+    edge_g = _edge_conductance_cb(geom, state, params)
+    vl = float(torch.tensor(Vd / 2.0, dtype=dtype))
+    vr = float(torch.tensor(-Vd / 2.0, dtype=dtype))
+    phi, res = _dirichlet_laplace_solve(
+        geom, edge_g, vl, vr,
+        x0=state.CB_edge / C.EV_TO_J,
+        tol=params.solver_tol, maxiter=params.solver_maxiter,
+        masks=(geom.left_mask, geom.right_mask, geom.interior_mask),
+        deflate_slabs=(params.coarse_slabs
+                       if params.boundary_precond == "deflated" else 0),
+    )
+    return (replace(state, CB_edge=phi * C.EV_TO_J),
+            {"cg_iters_cb_edge": res.iters, "cb_edge_converged": res.converged})
 
 
 # ----------------------------------------------------------------------------

@@ -55,6 +55,13 @@ class Geometry:
     bp_left_mask: torch.Tensor      # [N] bool: boundary-potential Dirichlet masks
     bp_right_mask: torch.Tensor     # [N] bool
     bp_interior_mask: torch.Tensor  # [N] bool
+    left_mask: torch.Tensor         # [N] bool: CB-edge Dirichlet masks (first layer)
+    right_mask: torch.Tensor        # [N] bool
+    interior_mask: torch.Tensor     # [N] bool
+    atom_ind: torch.Tensor          # [N_atom] int32: site of atom slot a (FILE order)
+    atom_metalp_idx: torch.Tensor   # [n_mp] int32: atom slots of the interior metals
+    atom_metalp_inv: torch.Tensor   # [N_atom] int32: slot in atom_metalp_idx, -1 else
+    atom_neigh_idx: torch.Tensor    # [N_atom,max_nn] int32: neigh_idx in atom slots, pad -1
     N: int = 0
     max_nn: int = 0
     N_atom: int = 0
@@ -75,6 +82,10 @@ class PhysParams:
     high_G: float
     low_G: float
     background_temp: float
+    m_e: float = 0.0          # effective electron mass [kg]
+    V0: float = 0.0           # defect state energy [eV]
+    num_source_inj: int = 0
+    num_ground_ext: int = 0
     num_atoms_contact: int = 0
     solve_potential: bool = True
     solve_current: bool = False
@@ -82,6 +93,7 @@ class PhysParams:
     solve_heating_local: bool = False
     perturb_structure: bool = True
     solver_tol: float = 1e-12
+    transport_tol: float = 1e-8
     solver_maxiter: int = 50000
     selection: str = "two_level"
     event_mode: str = "incremental"
@@ -93,6 +105,21 @@ class PhysParams:
     boundary_incremental: bool = True
     boundary_delta_cap: int = 256
     coarse_slabs: int = 16
+    coarse_yz: int = 1
+    # blocked transport (physics/current.py)
+    transport: str = "dense"
+    transport_precond: str = "jacobi"       # cold solves
+    transport_warm_precond: str = "jacobi"  # in-superstep re-solves
+    transport_cc: str = "stored"            # metal x metal block: "stored" | "fly"
+                                            # ("auto" until the engine resolves it)
+    transport_bf16_inner: bool = False      # not ported: raises
+    transport_incremental: bool = False     # resolved by the engine from the config's
+                                            # "auto" | "on" | "off"
+    transport_delta_cap: int = 16
+    transport_skip_unchanged: bool = True
+    tunnel_vac_cap: int = 0                 # vacancy bucket of the tunnel blocks
+    tunnel_int_steps: int = 1024            # energy-window steps; exact while
+                                            # >= ceil(max |dE_CB| / (q * 0.01 V))
     mixed: bool = False
     dtype: torch.dtype = torch.float64
 
@@ -103,7 +130,9 @@ class SimState:
     charge: torch.Tensor              # [N] int32
     potential_boundary: torch.Tensor  # [N] float [V]
     potential_charge: torch.Tensor    # [N] float [V]
-    power: torch.Tensor               # [N] float [W] (0 while transport is not ported)
+    CB_edge: torch.Tensor             # [N] float [J], solved at every bias start
+    power: torch.Tensor               # [N] float [W] (0 while heating is not ported)
+    virtual_potentials: torch.Tensor  # [N_atom+2] float: transport warm start
     cvac_prev: torch.Tensor           # [N] bool: neutral-vacancy mask at last boundary solve
     boundary_r: torch.Tensor          # [N] float: TRUE residual b - L x of potential_boundary
     boundary_b: torch.Tensor          # [N] float: its right-hand side
@@ -112,6 +141,18 @@ class SimState:
     kmc_time: float                   # [s] within the current bias point
     I_macro: float                    # [A]
     Vd_prev: float                    # bias at the last boundary solve (nan: none)
+    # change tracking of the transport solve: X depends only on (element,
+    # charge) at atom sites, the bias-start CB edge and Vd
+    trans_elem_prev: torch.Tensor     # [N_atom] int32: element[atom_ind] at last solve
+    trans_charge_prev: torch.Tensor   # [N_atom] int32
+    transport_Vd_prev: float          # bias at the last transport solve (nan: none)
+    # persistent vacancy tunnel blocks (params.transport_incremental; sized by
+    # attach_tunnel_state, 0-shaped otherwise): row i is the block row of the
+    # atom in ascending-bucket slot i at the last solve
+    tt_slot_atom: torch.Tensor        # [vcap] int32: atom in the slot, -1 empty
+    tt_vm: torch.Tensor               # [vcap, n_mp]: window-integral block
+    tt_vv: torch.Tensor               # [vcap, vcap]: single-shot block
+    tt_valid: bool
 
 
 def _dtype_of(precision: str) -> torch.dtype:
@@ -238,6 +279,31 @@ def build_geometry(
     def t(a, dt=None):
         return torch.as_tensor(a, device=dev, dtype=dt)
 
+    # atom slots are ordered by FILE position: the transport solver's
+    # positional rules (injection = first atoms, ground = last, the metal_p
+    # extents) are defined on the file order (src/current_solver.cpp:86-99,
+    # 181-191)
+    a_int = np.nonzero(atom_mask)[0]
+    atom_ind = a_int[np.argsort(fpos[a_int], kind="stable")].astype(np.int32)
+    na = len(atom_ind)
+    # interior-metal atoms (metal_p; static, no event changes a metal site)
+    aidx = np.arange(na)
+    nlc, nsi = cfg.num_layers_contact, cfg.num_atoms_first_layer
+    metalp = (metal_table[elements[atom_ind]]
+              & (aidx > (nlc - 1) * nsi) & (aidx < na - (nlc - 1) * nsi))
+    atom_metalp_idx = np.nonzero(metalp)[0].astype(np.int32)
+    atom_metalp_inv = np.full(na, -1, dtype=np.int32)
+    atom_metalp_inv[atom_metalp_idx] = np.arange(len(atom_metalp_idx), dtype=np.int32)
+    # the neighbour graph restricted to atom sites, in atom slots
+    atom_ind_t = t(atom_ind).long()
+    site_to_atom = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    site_to_atom[atom_ind_t] = torch.arange(na, dtype=torch.int32, device=dev)
+    anb_sites = nb[atom_ind_t]
+    atom_neigh_idx = torch.where(
+        anb_sites >= 0, site_to_atom[anb_sites.clamp(min=0).long()], -1
+    ).to(torch.int32)
+    n_first = cfg.num_atoms_first_layer
+
     return Geometry(
         coords=coords_t.to(dtype),
         neigh_idx=nb,
@@ -252,6 +318,13 @@ def build_geometry(
         bp_left_mask=t(fpos < bp_w),
         bp_right_mask=t(fpos >= n - bp_w),
         bp_interior_mask=t((fpos >= bp_w) & (fpos < n - bp_w)),
+        left_mask=t(fpos < n_first),
+        right_mask=t(fpos >= n - n_first),
+        interior_mask=t((fpos >= n_first) & (fpos < n - n_first)),
+        atom_ind=t(atom_ind),
+        atom_metalp_idx=t(atom_metalp_idx),
+        atom_metalp_inv=t(atom_metalp_inv),
+        atom_neigh_idx=atom_neigh_idx,
         N=int(n),
         max_nn=int(m),
         N_atom=int(atom_mask.sum()),
@@ -268,6 +341,13 @@ def build_params(cfg: KMCConfig) -> PhysParams:
         ("precision", ("f64", "f32", "mixed")),
         ("event_mode", ("incremental", "scan")),
         ("selection", ("two_level", "flat")),
+        ("transport", ("dense", "blocked")),
+        ("transport_precond", ("jacobi", "deflated")),
+        ("transport_warm_precond", ("jacobi", "deflated")),
+        ("transport_cc", ("auto", "stored", "fly")),
+        ("transport_incremental", ("auto", "on", "off")),
+        ("transport_band_kernel", ("jnp", "pallas")),
+        ("tunnel_vm_kernel", ("jnp", "pallas")),
     ):
         if getattr(cfg, opt) not in allowed:
             raise ValueError(f"unknown {opt}={getattr(cfg, opt)!r}; expected one of {allowed}")
@@ -281,6 +361,10 @@ def build_params(cfg: KMCConfig) -> PhysParams:
         high_G=s(cfg.high_G),
         low_G=s(cfg.low_G),
         background_temp=s(cfg.background_temp),
+        m_e=s(cfg.m_e),
+        V0=s(cfg.V0),
+        num_source_inj=cfg.num_atoms_first_layer,
+        num_ground_ext=cfg.num_atoms_first_layer,
         num_atoms_contact=cfg.num_atoms_contact,
         solve_potential=cfg.solve_potential,
         solve_current=cfg.solve_current,
@@ -288,6 +372,7 @@ def build_params(cfg: KMCConfig) -> PhysParams:
         solve_heating_local=cfg.solve_heating_local,
         perturb_structure=cfg.perturb_structure,
         solver_tol=cfg.solver_tol,
+        transport_tol=cfg.transport_tol,
         solver_maxiter=cfg.solver_maxiter,
         selection=cfg.selection,
         event_mode=cfg.event_mode,
@@ -299,6 +384,19 @@ def build_params(cfg: KMCConfig) -> PhysParams:
         boundary_incremental=cfg.boundary_incremental,
         boundary_delta_cap=cfg.boundary_delta_cap,
         coarse_slabs=cfg.coarse_slabs,
+        coarse_yz=cfg.coarse_yz,
+        transport=cfg.transport,
+        transport_precond=cfg.transport_precond,
+        transport_warm_precond=cfg.transport_warm_precond,
+        transport_cc=cfg.transport_cc,
+        transport_bf16_inner=cfg.transport_bf16_inner,
+        # transport_incremental stays False here: the engine resolves the
+        # config's "auto" | "on" | "off" once n_mp and the final
+        # tunnel_vac_cap are known, then sizes the state (attach_tunnel_state)
+        transport_delta_cap=cfg.transport_delta_cap,
+        transport_skip_unchanged=cfg.transport_skip_unchanged,
+        tunnel_vac_cap=max(cfg.tunnel_vac_cap, 0),
+        tunnel_int_steps=cfg.tunnel_int_steps,
         mixed=(cfg.precision == "mixed"),
         dtype=dtype,
     )
@@ -338,7 +436,9 @@ def init_state(geom: Geometry, cfg: KMCConfig, elements: np.ndarray) -> SimState
         charge=torch.zeros(n, dtype=torch.int32, device=dev),
         potential_boundary=zeros(),
         potential_charge=zeros(),
+        CB_edge=zeros(),
         power=zeros(),
+        virtual_potentials=torch.zeros(geom.N_atom + 2, dtype=dtype, device=dev),
         cvac_prev=torch.ones(n, dtype=torch.bool, device=dev),  # forces the 1st solve
         boundary_r=zeros(),
         boundary_b=zeros(),
@@ -347,6 +447,40 @@ def init_state(geom: Geometry, cfg: KMCConfig, elements: np.ndarray) -> SimState
         kmc_time=0.0,
         I_macro=0.0,
         Vd_prev=float("nan"),
+        trans_elem_prev=torch.full((geom.N_atom,), -1, dtype=torch.int32, device=dev),
+        trans_charge_prev=torch.zeros(geom.N_atom, dtype=torch.int32, device=dev),
+        transport_Vd_prev=float("nan"),
+        tt_slot_atom=torch.zeros(0, dtype=torch.int32, device=dev),
+        tt_vm=torch.zeros((0, 0), dtype=torch.float32, device=dev),
+        tt_vv=torch.zeros((0, 0), dtype=torch.float32, device=dev),
+        tt_valid=False,
+    )
+
+
+def attach_tunnel_state(state: SimState, geom: Geometry, params: PhysParams) -> SimState:
+    """Size (or clear) the persistent tunnel-block fields for
+    ``params.transport_incremental``.  Call after every change to
+    ``tunnel_vac_cap`` or ``tunnel_int_steps``.  Always returns an INVALID
+    store (``tt_valid=False``): the next solve rebuilds every occupied row,
+    which is exactly the from-scratch assembly."""
+    dev = geom.device
+    if not params.transport_incremental:
+        return replace(
+            state,
+            tt_slot_atom=torch.zeros(0, dtype=torch.int32, device=dev),
+            tt_vm=torch.zeros((0, 0), dtype=torch.float32, device=dev),
+            tt_vv=torch.zeros((0, 0), dtype=torch.float32, device=dev),
+            tt_valid=False,
+        )
+    cdtype = torch.float32 if params.mixed else params.dtype
+    vcap = params.tunnel_vac_cap
+    n_mp = int(geom.atom_metalp_idx.shape[0])
+    return replace(
+        state,
+        tt_slot_atom=torch.full((vcap,), -1, dtype=torch.int32, device=dev),
+        tt_vm=torch.zeros((vcap, n_mp), dtype=cdtype, device=dev),
+        tt_vv=torch.zeros((vcap, vcap), dtype=cdtype, device=dev),
+        tt_valid=False,
     )
 
 
@@ -396,9 +530,11 @@ def build_simulation(
 # ----------------------------------------------------------------------------
 
 _INT_FIELDS = {"neigh_idx", "site_layer", "rev_slot", "io_idx", "io_fpos",
-               "element", "charge"}
+               "element", "charge", "atom_ind", "atom_metalp_idx",
+               "atom_metalp_inv", "atom_neigh_idx", "trans_elem_prev",
+               "trans_charge_prev", "tt_slot_atom"}
 _STATIC_GEOM = {"N", "max_nn", "N_atom", "pbc"}
-_HOST_STATE = {"T_bg", "kmc_time", "I_macro", "Vd_prev"}
+_HOST_STATE = {"T_bg", "kmc_time", "I_macro", "Vd_prev", "transport_Vd_prev"}
 
 
 def _tensor(name: str, a, dev) -> torch.Tensor:
@@ -411,7 +547,7 @@ def _tensor(name: str, a, dev) -> torch.Tensor:
 def from_jax_arrays(geom: dict, state: dict, device="cuda"):
     """Turn the JAX package's Geometry and SimState, given as dicts of numpy
     arrays (and the static ints), into the port's records on ``device``.
-    Fields the port does not carry (transport and heat state) are ignored.
+    Fields the port does not carry (heat state) are ignored.
     Returns ``(Geometry, SimState)``."""
     if int(geom["N_real"]) != int(geom["N"]):
         raise ValueError("from_jax_arrays: padded geometries are not supported")
@@ -434,6 +570,8 @@ def from_jax_arrays(geom: dict, state: dict, device="cuda"):
             skw[f.name] = rng.key_from_array(v)
         elif f.name in _HOST_STATE:
             skw[f.name] = float(np.asarray(v))
+        elif f.name == "tt_valid":
+            skw[f.name] = bool(np.asarray(v))
         else:
             skw[f.name] = _tensor(f.name, v, dev)
     return g, SimState(**skw)

@@ -1,30 +1,43 @@
-"""The KMC superstep body of the headline module set.  Phase order mirrors
-the reference main loop (src/kmc_main.cpp:175-234): charge -> boundary
-potential -> gridless Poisson -> KMC events.  Transport, power and heat
-follow the events there; they are not ported yet."""
+"""The KMC superstep body.  Phase order mirrors the reference main loop
+(src/kmc_main.cpp:175-234): charge -> boundary potential -> gridless Poisson
+-> KMC events -> transport.  Heat follows transport there; it is not ported
+yet."""
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 from .physics import charge as charge_mod
+from .physics import current as current_mod
 from .physics import events as events_mod
 from .physics import potential as potential_mod
 from .state import Geometry, PhysParams, SimState, replace
 
 
 def check_ported(params: PhysParams) -> None:
-    if params.solve_current:
-        raise NotImplementedError("solve_current (transport) is not ported yet")
+    """Raise for the options whose code is not ported yet."""
     if params.solve_heating_global or params.solve_heating_local:
-        raise NotImplementedError("heating is not ported yet")
+        raise NotImplementedError(
+            "heating (physics/heat.py, the dissipated-power block of the "
+            "transport solver) is not ported yet: ROADMAP item 9")
+    if params.solve_current and params.transport != "blocked":
+        raise NotImplementedError(
+            "transport='dense' (assemble_X, the dense solve) is not ported "
+            "yet: ROADMAP item 7; use transport='blocked'")
+    if params.transport_bf16_inner:
+        raise NotImplementedError(
+            "transport_bf16_inner (bf16 twins of the tunnel blocks and a "
+            "bf16 band in the inner solver) is not ported yet: ROADMAP, queue "
+            "ahead, heat slice")
 
 
 def superstep_impl(
-    geom: Geometry, params: PhysParams, state: SimState, Vd: float
+    geom: Geometry, params: PhysParams, state: SimState, Vd: float, cc=None
 ) -> Tuple[SimState, float, Dict]:
     """One superstep.  Returns ``(state, step_time, metrics)``; metric
-    values are Python numbers or 0-d tensors."""
+    values are Python numbers or 0-d tensors.  ``cc``: the per-bias-point
+    cache of the blocked transport operator
+    (``current.assemble_transport_cache``, plus the static band)."""
     check_ported(params)
     metrics: Dict = {}
     if params.solve_potential:
@@ -50,4 +63,13 @@ def superstep_impl(
         state, step_time = res.state, res.step_time
         metrics["n_events"] = res.n_events
         metrics["n_active_rows"] = res.n_active
+
+    if params.solve_current:
+        # allow_skip: the exact unchanged-network fast path applies only
+        # here, where events may have left X identical to the last solve;
+        # cold pre-solves call update_power directly and always solve
+        state, m = current_mod.update_power(
+            geom, params, state, Vd, cc=cc, allow_skip=True
+        )
+        metrics.update(m)
     return state, step_time, metrics

@@ -67,3 +67,127 @@ def test_cuda_poisson_close_to_plain(pbc):
     assert poisson_pairwise.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                atol=2e-6 * float(ref.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# transport kernels
+# ---------------------------------------------------------------------------
+
+Q = 1.60217663e-19
+HBAR = 1.054571817e-34
+M0 = 9.11e-31
+
+
+def _env(pbc, n_int_steps=64):
+    f = lambda v: float(np.float32(v))
+    return dict(
+        cdtype=torch.float32,
+        prefac=f(-(np.sqrt(2 * 0.85 * M0) / HBAR) * (2 / 3)),
+        qV0=f(Q * 1.6), dE_step=f(Q * 0.01), ctol=f(Q * 0.01), nn=f(3.5),
+        lattice=(100.0, 60.0, 60.0), pbc=pbc, n_int_steps=n_int_steps,
+    )
+
+
+def _points(n, seed):
+    rng = np.random.default_rng(seed)
+    pos = (rng.random((n, 3)) * np.array([100.0, 60.0, 60.0])).astype(np.float32)
+    cb = (rng.random(n) * Q * 2 - Q).astype(np.float32)
+    return (torch.as_tensor(pos, device="cuda"), torch.as_tensor(cb, device="cuda"), rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,m_pad,B,dtype,rtol,atol", [
+    (5, 3, 128, torch.float32, 2e-5, 1e-4),
+    (3, 16, 128, torch.float32, 2e-5, 1e-4),
+    (37, 56, 128, torch.float32, 2e-5, 1e-4),
+    (2, 120, 128, torch.float32, 2e-5, 2e-4),
+    (3, 8, 256, torch.float32, 2e-5, 1e-4),
+    (4, 8, 128, torch.bfloat16, 2e-2, 2e-1),
+])
+def test_cuda_banded_matvec(R, m_pad, B, dtype, rtol, atol):
+    """f32 sums in another order than the einsum; bf16 storage with f32
+    accumulation (the tolerances of the TPU kernel's own tests)."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.banded import banded_matvec, banded_matvec_plain
+
+    g = torch.Generator(device="cuda").manual_seed(R * 100 + m_pad)
+    C4 = torch.randn((R, m_pad, B, B), generator=g, device="cuda").to(dtype)
+    xp2 = torch.randn((R + m_pad - 1, B), generator=g, device="cuda").to(dtype)
+    before = banded_matvec.launches
+    y = banded_matvec(C4, xp2)
+    ref = banded_matvec_plain(C4, xp2)
+    torch.cuda.synchronize()
+    assert banded_matvec.launches == before + 1
+    assert y.dtype == torch.float32 and y.shape == (R, B)
+    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("n", [300, 1153])
+def test_cuda_fly_matvec(n, symmetric, pbc):
+    """atol 1e-5 * max|plain| (f32 sums in another order, FMA); two launches
+    on the same input give the same bits."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matvec, wkb_fly_matvec_plain
+
+    pos, cb, rng = _points(n, 42)
+    x = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device="cuda")
+    env = _env(pbc)
+    before = wkb_fly_matvec.launches
+    y = wkb_fly_matvec(pos, cb, x, env, symmetric=symmetric)
+    y2 = wkb_fly_matvec(pos, cb, x, env, symmetric=symmetric)
+    ref = wkb_fly_matvec_plain(pos, cb, x, env)
+    torch.cuda.synchronize()
+    assert wkb_fly_matvec.launches == before + 2
+    assert torch.equal(y, y2)
+    assert float(ref.abs().max()) > 0
+    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,KB", [(12, 8), (24, 8), (24, 24), (5, 4), (5, None), (24, None), (40, None)])
+def test_cuda_fly_matmat(K, KB):
+    """atol 1e-5 * max|plain|: the K-column contraction is FP32 FMA."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matmat, wkb_fly_matmat_plain
+
+    n = 1153
+    pos, cb, rng = _points(n, 7)
+    X = torch.as_tensor(rng.standard_normal((n, K)).astype(np.float32), device="cuda")
+    env = _env(True)
+    before = wkb_fly_matmat.launches
+    Y = wkb_fly_matmat(pos, cb, X, env, KB=KB)
+    ref = wkb_fly_matmat_plain(pos, cb, X, env)
+    torch.cuda.synchronize()
+    assert wkb_fly_matmat.launches == before + 1
+    np.testing.assert_allclose(Y.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pbc", [False, True])
+def test_cuda_window_block(pbc):
+    """atol 1e-5 * max|plain|; rows with v_ok False are exact zeros."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.wkb_window import (
+        wkb_window_block, wkb_window_block_plain,
+    )
+
+    n, nv = 1153, 37
+    pos, cb, _ = _points(n, 42)
+    vpos = (pos[:nv] + 0.5).contiguous()
+    vcb = (cb[:nv] * 0.7).contiguous()
+    v_ok = torch.arange(nv, device="cuda") < nv - 5
+    env = _env(pbc, n_int_steps=256)
+    before = wkb_window_block.launches
+    T = wkb_window_block(vpos, vcb, v_ok, pos, cb, env)
+    ref = wkb_window_block_plain(vpos, vcb, v_ok, pos, cb, env)
+    torch.cuda.synchronize()
+    assert wkb_window_block.launches == before + 1
+    assert float(ref.abs().max()) > 0
+    np.testing.assert_allclose(T.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    assert bool((T[nv - 5:] == 0).all())

@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time of the port's headline superstep goes on one CUDA card.
+"""Where the time of the port's superstep goes on one CUDA card.
 
     python3 tools/profile_torch_superstep.py [--sites 110000] [--steps 6]
+                                             [--transport [--ell] [--stored]]
 
-Builds the main-path configuration of chip_smoke.py (synthetic crossbar,
-mixed precision, both CUDA kernels, Vd = 1 V), runs the cold pre-solve and
-two warm-up supersteps, then:
+Builds the headline configuration of chip_smoke.py (synthetic crossbar,
+mixed precision, the CUDA kernels, Vd = 1 V), or with ``--transport`` its
+transport configuration (blocked transport, on-the-fly metal block, heating
+off; ``--ell`` keeps the ELL gather in the f32 inner matvec instead of the
+banded operator, ``--stored`` stores the metal block instead of re-deriving
+it), builds the kernels, runs the cold pre-solves and two warm-up supersteps,
+then:
 
 1. host-clock phase breakdown over ``--steps`` supersteps, with a device
    synchronize after each phase: charge rule, boundary solve, Poisson,
    rate table, event loop (the loop's time is the events phase minus a
-   separate rate-table build of the same state);
+   separate rate-table build of the same state); with ``--transport`` also
+   the transport phase, split into operator assembly (a separate assembly
+   of the same state) and the rest (set-up and CG), with the skipped steps
+   listed apart;
 2. torch.profiler over ``--steps`` further supersteps: device time by
    kernel, and the device's busy share of the wall time.
 
@@ -31,6 +39,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--sites", type=int, default=110_000)
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--transport", action="store_true",
+                    help="profile the transport configuration (solve_current on)")
+    ap.add_argument("--ell", action="store_true",
+                    help="with --transport: transport_banded off")
+    ap.add_argument("--stored", action="store_true",
+                    help="with --transport: transport_cc stored")
     args = ap.parse_args()
 
     import torch
@@ -39,12 +53,24 @@ def main():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     from chip_smoke import VD_MAIN, gpu_line, synthetic_crossbar
-    from devicekmc_tpu_torch.physics import charge, events, potential
+    from devicekmc_tpu_torch.physics import charge, current, events, potential
+
+    from devicekmc_tpu_torch.ops import _build
 
     print(gpu_line(), flush=True)
+    _build.build(["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window"])
+    overrides = {}
+    if args.ell:
+        overrides["transport_banded"] = False
+    if args.stored:
+        overrides["transport_cc"] = "stored"
     sim = synthetic_crossbar(args.sites, "cuda",
-                             os.path.join(ROOT, "build", "profile_superstep"))
+                             os.path.join(ROOT, "build", "profile_superstep"),
+                             current=args.transport, **overrides)
     sim.run_bias_point(VD_MAIN, 1e30, max_steps=2)
+    for pre in sim.presolve_log:
+        print(f"cold {pre['phase']} solve: {pre['cg_iters']} CG iterations, "
+              f"{pre['s'] * 1e3:.1f} ms")
     geom, params, Vd = sim.geom, sim.params, VD_MAIN
     print(f"N={geom.N} max_nn={geom.max_nn} active_rows_cap={params.active_rows_cap} "
           f"poisson_cap={params.poisson_compact_cap}")
@@ -55,6 +81,8 @@ def main():
 
     phases = {k: [] for k in ("charge", "boundary", "poisson", "rate_table",
                               "event_loop", "superstep")}
+    transport = {k: [] for k in ("assembly", "setup_and_cg", "skipped")}
+    cg_iters = []
     n_events = []
     state = sim.state
     for _ in range(args.steps):
@@ -78,6 +106,21 @@ def main():
         phases["rate_table"].append(t4 - t3)
         phases["event_loop"].append((t5 - t4) - (t4 - t3))
         phases["superstep"].append((t3 - t0) + (t5 - t4))
+        if args.transport:
+            before = state
+            state, m = current.update_power(geom, params, state, Vd, cc=sim._cc,
+                                            allow_skip=True)
+            t6 = sync()
+            phases["superstep"][-1] += t6 - t5
+            if m["transport_partial_assembly"] < 0:
+                transport["skipped"].append(t6 - t5)
+            else:
+                current.assemble_X_blocks(geom, params, before, cc=sim._cc["cc"],
+                                          band=sim._cc.get("band"))
+                t7 = sync()
+                transport["assembly"].append(t7 - t6)
+                transport["setup_and_cg"].append((t6 - t5) - (t7 - t6))
+                cg_iters.append(int(m["cg_iters_power"]))
     print(f"host-clock phases over {args.steps} supersteps "
           f"(events per step {n_events}), median ms:")
     for k, v in phases.items():
@@ -85,6 +128,13 @@ def main():
               f"(min {min(v) * 1e3:.3f}, max {max(v) * 1e3:.3f})")
     per_event = [p / max(n, 1) for p, n in zip(phases["event_loop"], n_events)]
     print(f"  event loop per event: median {statistics.median(per_event) * 1e3:.3f} ms")
+    if args.transport:
+        print(f"transport phase: {len(transport['assembly'])} solved steps "
+              f"(cg_iters_power {cg_iters}), {len(transport['skipped'])} skipped; median ms:")
+        for k, v in transport.items():
+            if v:
+                print(f"  {k:<12} {statistics.median(v) * 1e3:9.3f}   "
+                      f"(min {min(v) * 1e3:.3f}, max {max(v) * 1e3:.3f})")
     sim.state = state
 
     from torch.profiler import ProfilerActivity, profile
