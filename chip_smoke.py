@@ -7,11 +7,15 @@ Phases (any failed check raises and the exit code is non-zero):
 
 1. builds the five CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
    sm_90a, one nvcc per source, in parallel);
-2. small-device checks: the 256-site test stack (mixed precision) on the card
-   and through the port's CPU path, once with the headline modules
-   (Vd = 2.5 V, 4 supersteps: event counts equal, potentials within 1e-5 of
-   their scale) and once with blocked transport on (on-the-fly metal block,
-   chunked cold solves, Vd = 10 V: event counts equal, I_macro within 1e-5);
+2. small-device checks: the 256-site test stack on the card and through the
+   port's CPU path, with the headline modules (mixed precision, Vd = 2.5 V,
+   4 supersteps: event counts equal, potentials within 1e-5 of their scale),
+   with blocked transport on (on-the-fly metal block, chunked cold solves,
+   Vd = 10 V: event counts equal, I_macro within 1e-5), and with Joule
+   heating in three forms: blocked on-the-fly transport + global heat, dense
+   transport + global heat in f64 (the golden trajectory's configuration),
+   blocked transport + local heat with the dense propagators (I_macro,
+   P_tot, T_bg and the temperature field within stated tolerances);
 3. headline path: the synthetic crossbar of 108,944 sites (the composition
    and neighbour statistics of the reference's timing crossbar), neighbour
    list built on the card; the gather and the Poisson kernel are held against
@@ -30,7 +34,18 @@ Phases (any failed check raises and the exit code is non-zero):
    atoms and CB edges, the vacancy bucket of the run) and timed beside its
    bound and a library call; the on-the-fly products are also measured at
    the reference crossbar's 24,768 interior-metal atoms against the stored
-   block.
+   block;
+5. heat path: the transport configuration with solve_heating_global on and
+   A = ly * lz, counters set to 0 just before: cold solves, 8 supersteps;
+   every transport solve must converge, the site power be non-zero on
+   non-metal atoms only, T_bg be finite and never below background_temp, and
+   the dissipation kernel be launched once per transport solve.  Then the
+   dissipation kernel is held against its plain version and the stored-block
+   sweep, Vd of both signs, PBC off and on, two launches bit-equal, at this
+   path's metal set and at the reference crossbar's 24,768.  Then 3
+   supersteps with solve_heating_local on (matrix-free model, symmetric
+   contact spans), with the branch taken, the substeps and the CG iterations
+   of every step.
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -68,6 +83,11 @@ N_SITES = 110_000
 VD_MAIN = 1.0
 WARMUP_STEPS, TIMED_STEPS = 2, 4
 TRANSPORT_STEPS = 8
+HEAT_STEPS = 8
+LOCAL_HEAT_STEPS = 3
+# FP32 operations a pair that the dissipation sum adds to the pair value: dM,
+# the product, two comparisons, select, two negations, multiply, add
+PDISP_EXTRA_OPS = 8
 # interior-metal atoms of the reference's timing crossbar
 REF_N_MP = 24_768
 
@@ -144,11 +164,15 @@ def time_ms_cold(fn, reps=20, warmup=3):
 # configurations
 # ---------------------------------------------------------------------------
 
-def small_device(device, out_dir, current=False):
+def small_device(device, out_dir, current=False, heat=None):
     """The 256-site stack of tests/test_golden_trajectory.py with the
     headline modules; ``current`` adds blocked transport as the transport
     path runs it (transport_tol 1e-11: two solves that meet the default
-    1e-8 agree on I_macro only to ~3e-5)."""
+    1e-8 agree on I_macro only to ~3e-5); ``heat`` adds Joule heating:
+    "global-fly" (blocked on-the-fly transport, global model), "global-dense"
+    (f64, dense transport, global model: the golden trajectory's
+    configuration), "local-dense" (blocked transport, stored metal block,
+    local model with the dense propagators)."""
     from devicekmc_tpu_torch.config import KMCConfig
     from devicekmc_tpu_torch.engine import Simulation
     from devicekmc_tpu_torch.structure import make_test_structure
@@ -169,21 +193,37 @@ def small_device(device, out_dir, current=False):
             cfg, solve_current=True, transport="blocked", transport_cc="fly",
             transport_precond="deflated", coarse_slabs=4, solver_chunk_iters=40,
             transport_tol=1e-11)
+    if heat == "global-fly":
+        cfg = dataclasses.replace(cfg, solve_heating_global=True, A=1e-18)
+    elif heat == "global-dense":
+        cfg = dataclasses.replace(
+            cfg, solve_current=True, transport="dense", precision="f64",
+            poisson_kernel="jnp", solver_chunk_iters=0, solve_heating_global=True,
+            A=1e-18)
+    elif heat == "local-dense":
+        cfg = dataclasses.replace(cfg, transport_cc="stored", solve_heating_local=True,
+                                  heat_solver="dense")
     os.makedirs(out_dir, exist_ok=True)
     return Simulation(cfg, elements=s.elements, coords=s.coords, device=device)
 
 
-def synthetic_crossbar(n_sites, device, out_dir, current=False, **overrides):
+def synthetic_crossbar(n_sites, device, out_dir, current=False, heat=None,
+                       **overrides):
     """The headline configuration on the synthetic crossbar: the structure,
     substoichiometry and solver settings of the JAX package's bench.py
     build_synthetic_crossbar_sim (bench.py:219-297), with site_order "x",
     mixed precision, both kernels, Vd = 1 V.  ``current`` adds that
     function's transport settings (blocked, deflated, 24 slabs) with heating
     off, the on-the-fly metal block, an automatic vacancy bucket, chunked
-    cold solves and 256 integration steps; ``overrides`` replace single
+    cold solves and 256 integration steps; ``heat`` adds to those Joule
+    heating as bench.py's build_crossbar_sim_full sets it (bench.py:120-153):
+    "global" (the lumped model, A = ly * lz) or "local" (the matrix-free
+    site-resolved model with symmetric plate-contact spans, so that interior
+    metal stays inside the heat domain); ``overrides`` replace single
     configuration fields."""
     from devicekmc_tpu_torch.config import KMCConfig
     from devicekmc_tpu_torch.engine import Simulation
+    from devicekmc_tpu_torch.physics import heat as heat_mod
     from devicekmc_tpu_torch.state import make_substoichiometric
     from devicekmc_tpu_torch.structure import make_crossbar_structure
 
@@ -207,9 +247,23 @@ def synthetic_crossbar(n_sites, device, out_dir, current=False, **overrides):
             cfg, solve_current=True, transport="blocked", transport_cc="fly",
             transport_precond="deflated", coarse_slabs=24, tunnel_vac_cap=-1,
             solver_chunk_iters=200, tunnel_int_steps=256)
+    if heat == "global":
+        cfg = dataclasses.replace(
+            cfg, solve_heating_global=True,
+            A=s.lattice[1] * 1e-10 * s.lattice[2] * 1e-10)
+    elif heat == "local":
+        cfg = dataclasses.replace(cfg, solve_heating_local=True, heat_solver="cg")
     cfg = dataclasses.replace(cfg, **overrides)
     os.makedirs(out_dir, exist_ok=True)
-    return Simulation(cfg, elements=elems, coords=s.coords, device=device)
+    sim = Simulation(cfg, elements=elems, coords=s.coords, device=device)
+    if heat == "local":
+        e = sim.state.element.cpu().numpy()
+        spans = (heat_mod._num_in_contact_left(e, cfg.num_atoms_contact),
+                 heat_mod._num_in_contact_left(e[::-1], cfg.num_atoms_contact))
+        sim.heat = heat_mod.build_heat_model(
+            sim.geom, sim.params, cfg, e, sim.geom.neigh_idx.cpu().numpy(),
+            method="cg", contact_spans=spans)
+    return sim
 
 
 # ---------------------------------------------------------------------------
@@ -225,26 +279,34 @@ def record_steps(sim):
         out = step(state, Vd)
         phi = (out[0].potential_boundary + out[0].potential_charge).cpu()
         recs.append((int(out[2]["n_events"]), phi.double().numpy(),
-                     out[2].get("Current [uA]")))
+                     out[2].get("Current [uA]"),
+                     dict(P_tot=out[0].P_tot, T_bg=out[0].T_bg,
+                          temperature=out[0].temperature.cpu().double().numpy())))
         return out
 
     sim._superstep = wrapped
     return recs
 
 
-def small_device_check(out_dir, steps=4, current=False, Vd=2.5):
+def small_device_check(out_dir, steps=4, current=False, Vd=2.5, heat=None):
+    """The small device on the card against the port's CPU path.  With
+    ``heat``: P_tot within 1e-4 relative (it is quadratic in the potentials
+    of two independent solves), T_bg within 1e-7 relative and the
+    temperature field within 1e-6 relative."""
     import numpy as np
 
+    current = current or heat is not None
     runs = {}
     for device in ("cuda", "cpu"):
-        sim = small_device(device, os.path.join(out_dir, device), current=current)
+        sim = small_device(device, os.path.join(out_dir, device), current=current,
+                           heat=heat)
         recs = record_steps(sim)
         sim.run_bias_point(Vd, 1e30, max_steps=steps)
         runs[device] = recs
     gpu, cpu = runs["cuda"], runs["cpu"]
     check(len(gpu) == len(cpu) >= steps, "small device: step count")
-    worst = worst_I = 0.0
-    for k, ((ne_g, phi_g, I_g), (ne_c, phi_c, I_c)) in enumerate(zip(gpu, cpu)):
+    worst = worst_I = worst_P = worst_T = 0.0
+    for k, ((ne_g, phi_g, I_g, h_g), (ne_c, phi_c, I_c, h_c)) in enumerate(zip(gpu, cpu)):
         check(ne_g == ne_c, f"small device step {k}: events {ne_g} vs {ne_c}")
         scale = float(np.abs(phi_c).max())
         err = float(np.abs(phi_g - phi_c).max())
@@ -254,10 +316,24 @@ def small_device_check(out_dir, steps=4, current=False, Vd=2.5):
             check(I_c > 0 and abs(I_g - I_c) <= 1e-5 * abs(I_c),
                   f"small device step {k}: current {I_g} vs {I_c} uA")
             worst_I = max(worst_I, abs(I_g - I_c) / abs(I_c))
-    log(f"small device{' with transport' if current else ''}: {steps} supersteps at "
+        if heat:
+            eP = abs(h_g["P_tot"] - h_c["P_tot"]) / abs(h_c["P_tot"])
+            eT = abs(h_g["T_bg"] - h_c["T_bg"]) / h_c["T_bg"]
+            eF = float(np.abs(h_g["temperature"] / h_c["temperature"] - 1).max())
+            check(h_c["P_tot"] > 0 and eP <= 1e-4,
+                  f"small device step {k}: P_tot {h_g['P_tot']} vs {h_c['P_tot']} W")
+            check(eT <= 1e-7, f"small device step {k}: T_bg {h_g['T_bg']} vs {h_c['T_bg']} K")
+            check(eF <= 1e-6, f"small device step {k}: temperature field error {eF}")
+            worst_P, worst_T = max(worst_P, eP), max(worst_T, eT, eF)
+    if heat:
+        check(gpu[-1][3]["T_bg"] != 300.0, "small device: the temperature never moved")
+    tag = f" with heating ({heat})" if heat else " with transport" if current else ""
+    log(f"small device{tag}: {steps} supersteps at "
         f"Vd = {Vd} V, events per step {[r[0] for r in gpu]} on both, max potential "
         f"error {worst:.3e} of its scale"
-        + (f", max current error {worst_I:.3e} relative" if current else ""))
+        + (f", max current error {worst_I:.3e} relative" if current else "")
+        + (f", max P_tot error {worst_P:.3e} relative, max temperature error "
+           f"{worst_T:.3e} relative, T_bg {gpu[-1][3]['T_bg']:.9g} K" if heat else ""))
 
 
 def kernel_checks(sim):
@@ -511,6 +587,82 @@ def transport_kernel_checks(sim):
     return out
 
 
+def pdisp_checks(pos, cb, env, tag, plain_reps=5):
+    """The dissipation kernel against its plain version and against the
+    sweep of the stored block (f64 potentials, as the stored route of the
+    main path multiplies), Vd of both signs and 0, PBC off and on, two
+    launches bit-equal; timed with this geometry's own PBC flag."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_pdisp, wkb_fly_pdisp_plain
+    from devicekmc_tpu_torch.physics.current import (
+        _pdisp_rows_cols, tunnel_block, wkb_single_T,
+    )
+
+    n = pos.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(n + 1)
+    # shifted scaled potentials as the solve makes them: G0 * volts, >= 0
+    ms = torch.rand(n, generator=g, device="cuda") * 7.7e-10
+    ms64 = ms.double()
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
+    own_pbc = bool(env["pbc"])
+    rec = dict(err=0.0, rel_err=0.0, n=n)
+    for pbc in (own_pbc, not own_pbc):
+        e = dict(env, pbc=pbc)
+        T = tunnel_block(e, pos, cb, ones, pos, cb, ones, wkb_single_T)
+        for Vd in (1.0, -1.0):
+            row = wkb_fly_pdisp(pos, cb, ms, Vd, e)
+            name = f"fly pdisp {tag} pbc={pbc} Vd={Vd:+.0f}"
+            plain = wkb_fly_pdisp_plain(pos, cb, ms, Vd, e)
+            err = _close(name, row, plain, 1e-5)
+            stored, _ = _pdisp_rows_cols(T, ms64, ms64, Vd)
+            err = max(err, _close(name + " vs stored", row.double(), stored, 1e-5))
+            check(torch.equal(row, wkb_fly_pdisp(pos, cb, ms, Vd, e)),
+                  name + ": two launches differ")
+            rec["err"] = max(rec["err"], err)
+            # the sums are of order G0^2 * volts^2: the error beside their scale
+            rec["rel_err"] = max(rec["rel_err"], err / float(plain.abs().max()))
+        zero = wkb_fly_pdisp(pos, cb, ms, 0.0, e)
+        torch.cuda.synchronize()
+        check(not bool(zero.any()), f"fly pdisp {tag} pbc={pbc}: Vd = 0 is not all zero")
+        if pbc == own_pbc:
+            rec["stored_sweep_ms"] = time_ms(
+                lambda: _pdisp_rows_cols(T, ms64, ms64, 1.0), reps=plain_reps, rounds=3,
+                warmup=1)
+        del T
+    bound, by = _bound(n * n * (WKB_OPS_PER_PAIR[own_pbc] + PDISP_EXTRA_OPS),
+                       n * 20 + n * 4)
+    rec.update(
+        bound_ms=bound, bound_by=by,
+        ms=time_ms(lambda: wkb_fly_pdisp(pos, cb, ms, 1.0, env)),
+        plain_ms=time_ms(lambda: wkb_fly_pdisp_plain(pos, cb, ms, 1.0, env),
+                         reps=plain_reps, rounds=3, warmup=1))
+    log(f"wkb_fly_pdisp {tag} [n_mp={n}]: {rec['ms']:.4f} ms (bound {bound:.4f} ms by "
+        f"{by}), plain {rec['plain_ms']:.4f} ms, sweep of the stored block "
+        f"{rec['stored_sweep_ms']:.4f} ms, max err {rec['err']:.3e} = {rec['rel_err']:.3e} "
+        f"of the largest sum (both signs, PBC off "
+        f"and on, against the plain version and the stored sweep); bit-equal launches")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def reference_metal_set(sim):
+    """Positions and CB edges of REF_N_MP of this structure's metal atoms
+    (both plate contacts): the reference crossbar's interior-metal count."""
+    import torch
+
+    geom = sim.geom
+    ai = geom.atom_ind.long()
+    metal = geom.metal_mask_table[sim.state.element[ai].long()]
+    sel = torch.nonzero(metal).reshape(-1)
+    check(sel.numel() >= REF_N_MP, "not enough metal atoms for the reference width")
+    # evenly spaced over the metal atoms, so that both contacts take part
+    sel = sel[torch.linspace(0, sel.numel() - 1, REF_N_MP, device="cuda").long()]
+    pos = geom.coords[ai][sel].float().contiguous()
+    cb = sim.state.CB_edge[ai][sel].float().contiguous()
+    return pos, cb
+
+
 def reference_width_fly(sim):
     """The on-the-fly products at the reference crossbar's interior-metal
     count: this structure's metal atoms (both plate contacts) with their CB
@@ -520,14 +672,7 @@ def reference_width_fly(sim):
     from devicekmc_tpu_torch.physics import current as cur
 
     geom, params = sim.geom, sim.params
-    ai = geom.atom_ind.long()
-    metal = geom.metal_mask_table[sim.state.element[ai].long()]
-    sel = torch.nonzero(metal).reshape(-1)
-    check(sel.numel() >= REF_N_MP, "not enough metal atoms for the reference width")
-    # every other metal atom, so that both contacts take part
-    sel = sel[torch.linspace(0, sel.numel() - 1, REF_N_MP, device="cuda").long()]
-    pos = geom.coords[ai][sel].float().contiguous()
-    cb = sim.state.CB_edge[ai][sel].float().contiguous()
+    pos, cb = reference_metal_set(sim)
     K = params.coarse_slabs * max(1, params.coarse_yz) ** 2
     rec = fly_checks(pos, cb, cur.wkb_env(geom, params), K, "reference width",
                      plain_reps=1)
@@ -765,6 +910,201 @@ def transport_path(out_root):
     ]
 
 
+def _counted(module, name, sync=None):
+    """Replace ``module.name`` by a wrapper that counts its calls and, with
+    ``sync``, times each between two device synchronizations.  Returns
+    ``(record, restore)``."""
+    fn = getattr(module, name)
+    rec = {"calls": 0, "ms": []}
+
+    def wrapped(*a, **kw):
+        rec["calls"] += 1
+        if sync is None:
+            return fn(*a, **kw)
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(module, name, wrapped)
+    return rec, lambda: setattr(module, name, fn)
+
+
+def heat_run(out_root, model, n_steps, wrappers, device="cuda", n_sites=N_SITES):
+    """One run of the heat path: the transport configuration with the
+    ``model`` ("global" | "local") heat solver on, counters set to 0 just
+    before run_bias_point and read just after.  Returns the simulation and
+    the launch counts.  ``device="cpu"`` with a small ``n_sites`` rehearses
+    the run without a card (no kernel is launched then, so pass no
+    wrappers)."""
+    import math
+
+    import torch
+
+    from devicekmc_tpu_torch.physics import current as cur
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    sim = synthetic_crossbar(n_sites, device, os.path.join(out_root, "heat_" + model),
+                             current=True, heat=model)
+    sync()
+    g, p = sim.geom, sim.params
+    check(p.transport_cc == "fly" and (p.solve_heating_global if model == "global"
+                                       else p.solve_heating_local), "heat options")
+    log(f"heat crossbar ({model} model): N={g.N} sites, {g.N_atom} atoms, n_mp="
+        f"{g.atom_metalp_idx.shape[0]}, A = {p.A:.6g} m^2"
+        + (f", {sim.heat.n_interface} interface sites (spans {sim.heat.n_left}, "
+           f"{sim.heat.n_right}), heat_solver {sim.heat.method}" if model == "local" else "")
+        + f"; built in {time.perf_counter() - t0:.1f} s")
+    counts0 = conserved_counts(sim.state)
+    T0 = p.background_temp
+
+    solves, restore_solves = _counted(cur, "update_power_blocked")
+    phase, restore_phase = _counted(heat_mod, "update_temperature", sync)
+    local_log = []
+    step = sim._superstep
+
+    def stepped(state, Vd):
+        out = step(state, Vd)
+        local_log.append(dict(heat_mod.last_local))
+        return out
+
+    sim._superstep = stepped
+    # ---- counters to 0, drive, read ----
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        t0 = time.perf_counter()
+        sim.run_bias_point(VD_MAIN, 1e30, max_steps=n_steps)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        restore_solves()
+        restore_phase()
+    launches = {name: w.launches for name, w in wrappers.items()}
+
+    steps = sim.step_log
+    check(len(steps) == n_steps == phase["calls"], f"ran {len(steps)} heat supersteps")
+    T_prev = T0
+    for s in steps:
+        check(s["transport_converged"] == 1.0, f"step {s['step']}: transport not converged")
+        T = s["Global temperature [K]"]
+        check(math.isfinite(T), f"step {s['step']}: T_bg {T}")
+        if model == "global":
+            check(T >= T_prev >= T0, f"step {s['step']}: T_bg {T} fell under power")
+            T_prev = T
+        check(math.isfinite(s["Total dissipated power [mW]"]), "P_tot finite")
+    st = sim.state
+    check(math.isfinite(st.I_macro) and st.I_macro > 0, f"I_macro {st.I_macro}")
+    check(math.isfinite(st.P_tot) and st.P_tot > 0, f"P_tot {st.P_tot}")
+    check(st.T_bg == steps[-1]["Global temperature [K]"], "T_bg of the state is the logged one")
+    # the site power: on non-metal atoms only, and some of them dissipate
+    power = st.power
+    check(bool(torch.isfinite(power).all()), "site power finite")
+    is_atom = torch.zeros(g.N, dtype=torch.bool, device=power.device)
+    is_atom[g.atom_ind.long()] = True
+    metal = g.metal_mask_table[st.element.long()]
+    check(not bool(power[~is_atom | metal].any()),
+          "site power is non-zero off the non-metal atoms")
+    n_hot = int((power != 0).sum())
+    check(n_hot > 0, "site power is zero everywhere")
+    check(abs(float(power.sum()) - st.P_tot) <= 1e-9 * abs(st.P_tot), "P_tot is the sum")
+    check(bool(torch.isfinite(st.temperature).all()), "temperature field finite")
+    check(conserved_counts(st) == counts0, "O+V and d+Od counts conserved")
+    # one dissipation launch per transport solve (cold segments included),
+    # none on a skipped step
+    check(solves["calls"] > 0, "no transport solve ran")
+    if wrappers:
+        check(launches["wkb_fly_pdisp"] == solves["calls"],
+              f"{launches['wkb_fly_pdisp']} dissipation launches for {solves['calls']} solves")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the heat path ({model})")
+
+    for pre in sim.presolve_log:
+        log(f"cold {pre['phase']} solve: {pre['cg_iters']} CG iterations, "
+            f"{pre['s'] * 1e3:.1f} ms")
+    log(f"heat path ({model} model): run_bias_point (cold solves + {n_steps} supersteps) "
+        f"in {wall:.2f} s; {solves['calls']} transport solves, launches {launches}; "
+        f"{n_hot} sites dissipate")
+    for s, ms, ll in zip(steps, phase["ms"], local_log):
+        log(f"  step {s['step']}: {s['Z - calculation time - KMC superstep [s]'] * 1e3:.2f} ms "
+            f"(heat phase {ms:.3f} ms"
+            + (f", {ll['branch']} branch, {ll['substeps']} substeps, {ll['cg_iters']} CG "
+               f"iterations" if model == "local" else "")
+            + f"), events {int(s['n_events'])}, cg_iters_power {int(s['cg_iters_power'])}, "
+            f"step_time {s['step_time']:.4g} s, Current {s['Current [uA]']:.6g} uA, P_tot "
+            f"{s['Total dissipated power [mW]']:.6g} mW, T_bg "
+            f"{s['Global temperature [K]']:.12g} K")
+    if model == "local":
+        check(all(ll.get("branch") in ("steady", "transient") for ll in local_log),
+              "the local model ran no branch")
+        T = st.temperature[sim.heat.interface_idx]
+        log(f"  local temperature over the interface sites: min {float(T.min()):.6f} K, "
+            f"max {float(T.max()):.6f} K")
+    ms = [s["Z - calculation time - KMC superstep [s]"] * 1e3 for s in steps[2:]]
+    if ms:
+        log(f"heat supersteps ({model}) after 2: median {statistics.median(ms):.2f} ms, "
+            f"min {min(ms):.2f} ms, max {max(ms):.2f} ms; heat phase median "
+            f"{statistics.median(phase['ms']):.3f} ms")
+    return sim, launches
+
+
+def heat_path(out_root):
+    """Phase 5: the heat runs (global, then local), then the dissipation
+    kernel's checks; returns every kernel's launches on the global run and
+    the new kernel's record."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.banded import banded_matvec
+    from devicekmc_tpu_torch.ops.ell_gather import ell_gather
+    from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise
+    from devicekmc_tpu_torch.ops.wkb_fly import (
+        wkb_fly_matmat, wkb_fly_matvec, wkb_fly_pdisp,
+    )
+    from devicekmc_tpu_torch.ops.wkb_window import wkb_window_block
+    from devicekmc_tpu_torch.physics import current as cur
+
+    wrappers = {"ell_gather": ell_gather, "poisson_pairwise": poisson_pairwise,
+                "banded_matvec": banded_matvec, "wkb_fly_matvec": wkb_fly_matvec,
+                "wkb_fly_matmat": wkb_fly_matmat, "wkb_window_block": wkb_window_block,
+                "wkb_fly_pdisp": wkb_fly_pdisp}
+    sim, launches = heat_run(out_root, "global", HEAT_STEPS, wrappers)
+    blk = cur.assemble_X_blocks(sim.geom, sim.params, sim.state, band=sim._band)
+    f = blk["fly"]
+    rec = pdisp_checks(f["mpos"], f["mcb"], f["env"], "heat path")
+    pos, cb = reference_metal_set(sim)
+    ref = pdisp_checks(pos, cb, f["env"], "reference width", plain_reps=1)
+    del sim, blk, f
+    torch.cuda.empty_cache()
+
+    _, local_launches = heat_run(out_root, "local", LOCAL_HEAT_STEPS, wrappers)
+    torch.cuda.empty_cache()
+    n_mp = rec["n"]
+    return launches, {
+        "name": "wkb_fly_pdisp", "route": "cuda",
+        "source": "devicekmc_tpu_torch/csrc/wkb_fly.cu",
+        "replaces": "devicekmc_tpu/ops/wkb_pallas.py:383",
+        "launches": launches["wkb_fly_pdisp"], "max_abs_err": rec["err"],
+        "max_err_of_largest_sum": rec["rel_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": None,
+        "shape": f"n_mp={n_mp}, all n^2 pairs",
+        "stored_sweep_ms": rec["stored_sweep_ms"],
+        "launches_local_heat_run": local_launches["wkb_fly_pdisp"],
+        "ref_width": {
+            "n_mp": REF_N_MP, "ms": ref["ms"], "bound_ms": ref["bound_ms"],
+            "plain_ms": ref["plain_ms"], "stored_sweep_ms": ref["stored_sweep_ms"],
+            "max_abs_err": ref["err"], "max_err_of_largest_sum": ref["rel_err"],
+        },
+    }
+
+
 def main():
     import torch
 
@@ -786,11 +1126,21 @@ def main():
     t0 = time.perf_counter()
     small_device_check(os.path.join(out_root, "small"))
     small_device_check(os.path.join(out_root, "small_current"), current=True, Vd=10.0)
+    small_device_check(os.path.join(out_root, "small_heat_fly"), Vd=10.0, heat="global-fly")
+    small_device_check(os.path.join(out_root, "small_heat_dense"), heat="global-dense")
+    small_device_check(os.path.join(out_root, "small_heat_local"), Vd=10.0,
+                       heat="local-dense")
     log(f"small-device checks in {time.perf_counter() - t0:.1f} s")
 
     kernels = headline_path(out_root)
     torch.cuda.empty_cache()
     kernels += transport_path(out_root)
+    torch.cuda.empty_cache()
+    heat_launches, pdisp = heat_path(out_root)
+    for k in kernels:
+        k["launches_heat_path"] = heat_launches[k["name"]]
+    # table order: the dissipation kernel stands before the window block
+    kernels.insert(len(kernels) - 1, pdisp)
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)

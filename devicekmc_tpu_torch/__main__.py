@@ -1,8 +1,11 @@
 """Command-line entry point: the equivalent of the reference's
 ``./bin/runKMC parameters.txt`` (src/kmc_main.cpp:26) for the ported module
-set (charge, boundary potential, gridless Poisson, KMC events, and with
-``solve_current = 1`` and ``transport = blocked`` the charge transport).
-Heating and ``transport = dense`` raise NotImplementedError.
+set: charge, boundary potential, gridless Poisson, KMC events, with
+``solve_current = 1`` the charge transport (``transport = blocked`` or
+``dense``) and with ``solve_heating_global = 1`` or ``solve_heating_local =
+1`` (``heat_solver = dense`` or ``cg``) the dissipated power and the
+temperature.  ``transport_bf16_inner = 1`` and ``batch_steps > 1`` raise
+NotImplementedError.
 
     python -m devicekmc_tpu_torch parameters.txt [--cpu] [--max-steps N]
 

@@ -137,7 +137,9 @@ class KMCConfig:
     solver_maxiter: int = 50000            # CG iteration cap (reference warns at 50k)
     selection: str = "two_level"           # "two_level" | "flat" event selection
     event_mode: str = "incremental"        # "incremental" | "scan" residence-time loop
-    heat_solver: str = "dense"             # heat model (heating is not ported yet)
+    heat_solver: str = "dense"             # local heat model: "dense" (precomputed
+                                           # inverses, the reference's way) | "cg"
+                                           # (matrix-free, CG per substep)
     max_events_per_superstep: int = 10000  # safety bound for the event loop
     poisson_compact_cap: int = -1          # -1 auto-bucket; >0 fixed compaction size
     active_rows_cap: int = -1              # event-source row compaction: -1 auto, 0 full table, >0 fixed
@@ -171,13 +173,13 @@ class KMCConfig:
                                            # segments of this many iterations
     transport: str = "dense"               # "blocked" (matrix-free: ELL neighbour part +
                                            # tunnel blocks over vacancies and interior
-                                           # metals) | "dense" (not ported yet: raises with
-                                           # solve_current)
+                                           # metals) | "dense" (the [N_atom+2]^2 matrix:
+                                           # tests and small devices)
     poisson_kernel: str = "jnp"            # compacted-Poisson pair sweep: "jnp" (exact
                                            # erfc, plain torch) | "pallas" (A&S erfc,
                                            # the hand-written CUDA kernel on the card)
     transport_bf16_inner: bool = False     # bf16 twins in the inner solver (not ported
-                                           # yet: True raises)
+                                           # yet: True raises NotImplementedError)
     transport_skip_unchanged: bool = True  # exact skip of the in-superstep transport solve
                                            # when (element, charge) at atom sites and Vd are
                                            # unchanged since the last converged solve

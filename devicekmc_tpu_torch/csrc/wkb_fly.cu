@@ -1,10 +1,13 @@
 // On-the-fly WKB tunnel block products for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernels of devicekmc_tpu/ops/wkb_pallas.py:
-//   wkb_fly_matvec (_mv_kernel and the symmetric _mv_sym_kernel) and
-//   wkb_fly_matmat (_mm_kernel).
+//   wkb_fly_matvec (_mv_kernel and the symmetric _mv_sym_kernel),
+//   wkb_fly_matmat (_mm_kernel) and wkb_fly_pdisp (_pdisp_kernel).
 //
-// y = T x and Y = T X for the metal x metal tunnel block T [n, n], whose
+// y = T x, Y = T X and the forward-current dissipation row sums
+//   row[i] = sum_j [fwd_ij] (-T_ij dM_ij) (-dM_ij),  dM_ij = ms_i - ms_j,
+//   fwd_ij = (T_ij dM_ij < 0 and Vd > 0) or (T_ij dM_ij > 0 and Vd < 0),
+// for the metal x metal tunnel block T [n, n], whose
 // entries are never stored: each is re-derived from the two atoms' positions
 // and conduction-band edges by pair_val(), the arithmetic of the TPU
 // kernels' _pair_vals in f32:
@@ -45,6 +48,13 @@
 //     once per group of KB columns and contracts with FP32 FMAs (never
 //     TF32 tensor cores); part[split][row][col].  KB = 24 covers the
 //     deflation basis of 24 columns in one sweep over the pairs.
+//   * pdisp: the plain matvec's tiling with the column atoms' ms staged
+//     beside them; tile (rt, ct) writes its 128 partial row sums to
+//     part[ct][rt*128 + i].  Every pair adds to exactly one of rows i and j
+//     (the sign of dM decides), so an upper-triangle form exists; this one
+//     visits all n^2 pairs.  About 8 more FP32 operations a pair than the
+//     matvec (dM, the product, two comparisons, select, negations, the
+//     multiply-add): still bound by operations.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -145,6 +155,52 @@ fly_matvec_tiles(const float* __restrict__ pos, const float* __restrict__ cb,
     for (int w = 0; w < kTile / 32; ++w) cs += scol[w][tid];
     part[(int64_t)rt * n_pad + ct * kTile + tid] = cs;
   }
+}
+
+// Forward-current dissipation partial row sums of one 128 x 128 tile.  vsgn
+// is the sign of the bias (0 gives all zeros: neither clause holds).  Rows
+// and columns beyond n are left out by index.
+__global__ void __launch_bounds__(kTile)
+fly_pdisp_tiles(const float* __restrict__ pos, const float* __restrict__ cb,
+                const float* __restrict__ ms, int n, Scal sc, float vsgn,
+                float* __restrict__ part, int n_pad) {
+  const int rt = blockIdx.y, ct = blockIdx.x;
+  __shared__ float sx[kTile], sy[kTile], sz[kTile], scb[kTile], sms[kTile];
+  const int tid = threadIdx.x;
+  const int c = ct * kTile + tid;
+  if (c < n) {
+    sx[tid] = pos[3 * (int64_t)c];
+    sy[tid] = pos[3 * (int64_t)c + 1];
+    sz[tid] = pos[3 * (int64_t)c + 2];
+    scb[tid] = cb[c];
+    sms[tid] = ms[c];
+  } else {
+    sx[tid] = sy[tid] = sz[tid] = scb[tid] = sms[tid] = 0.f;
+  }
+  const int i = rt * kTile + tid;
+  const bool row_ok = i < n;
+  float pxr = 0.f, pyr = 0.f, pzr = 0.f, cbr = 0.f, msr = 0.f;
+  if (row_ok) {
+    pxr = pos[3 * (int64_t)i];
+    pyr = pos[3 * (int64_t)i + 1];
+    pzr = pos[3 * (int64_t)i + 2];
+    cbr = cb[i];
+    msr = ms[i];
+  }
+  __syncthreads();
+  const int n_cols = min(kTile, n - ct * kTile);
+  const bool pos_bias = vsgn > 0.f, neg_bias = vsgn < 0.f;
+  float acc = 0.f;
+  if (row_ok) {
+    for (int k = 0; k < n_cols; ++k) {
+      const float v = pair_val(pxr, pyr, pzr, cbr, sx[k], sy[k], sz[k], scb[k], sc);
+      const float dM = msr - sms[k];
+      const float I_cal = v * dM;
+      const bool fwd = (I_cal < 0.f && pos_bias) || (I_cal > 0.f && neg_bias);
+      acc += fwd ? (-I_cal) * (-dM) : 0.f;
+    }
+  }
+  part[(int64_t)ct * n_pad + i] = acc;
 }
 
 // out[e] = sum over s (ascending) of part[s * stride + e], e < count
@@ -250,6 +306,31 @@ extern "C" int dkmc_wkb_fly_matvec(const void* pos, const void* cb, const void* 
   reduce_slots<<<(n + 255) / 256, 256, 0, st>>>(static_cast<const float*>(part), nt,
                                                (int64_t)n_pad, (int64_t)n,
                                                static_cast<float*>(y));
+  return (int)cudaGetLastError();
+}
+
+// row [n] = forward-current dissipation row sums for the atoms' scaled
+// potentials ms [n]; vsgn: the sign of the bias (-1, 0 or 1).  part: scratch
+// of n_tiles * n_tiles * 128 floats.  Returns the cudaError_t of the launches.
+extern "C" int dkmc_wkb_fly_pdisp(const void* pos, const void* cb, const void* ms,
+                                  int n, float prefac, float qV0, float ctol,
+                                  float nn, float ly, float lz, int pbc,
+                                  float vsgn, void* part, void* row, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const int nt = (n + kTile - 1) / kTile;
+  if (nt > 65535) return (int)cudaErrorInvalidValue;
+  const int n_pad = nt * kTile;
+  const Scal sc{prefac, qV0, ctol, nn, ly, lz, pbc};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(nt, nt);
+  fly_pdisp_tiles<<<grid, kTile, 0, st>>>(
+      static_cast<const float*>(pos), static_cast<const float*>(cb),
+      static_cast<const float*>(ms), n, sc, vsgn, static_cast<float*>(part), n_pad);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  reduce_slots<<<(n + 255) / 256, 256, 0, st>>>(static_cast<const float*>(part), nt,
+                                               (int64_t)n_pad, (int64_t)n,
+                                               static_cast<float*>(row));
   return (int)cudaGetLastError();
 }
 

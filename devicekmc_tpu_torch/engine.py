@@ -1,8 +1,9 @@
 """Simulation engine: bias sweep, superstep loop, logging, snapshots.
 
 Mirrors the reference main loop (src/kmc_main.cpp:26-299) for the ported
-module set (charge, boundary potential, gridless Poisson, KMC events,
-blocked charge transport): for each bias point (V_switch[i], t_switch[i])
+module set (charge, boundary potential, gridless Poisson, KMC events, charge
+transport blocked or dense, dissipated power, global and local heat): for
+each bias point (V_switch[i], t_switch[i])
 the cold systems are pre-solved (with ``solve_current`` the CB edge and, in
 chunked mode, the transport network; the boundary network, deflated CG),
 then supersteps run until the KMC clock passes t_switch[i] or the
@@ -25,6 +26,7 @@ from .config import KMCConfig
 from .device import resolve_device
 from .physics import charge as charge_mod
 from .physics import current as current_mod
+from .physics import heat as heat_mod
 from .physics import potential as potential_mod
 from .state import attach_tunnel_state, build_params, build_simulation, replace
 from .structure import Element, write_xyz
@@ -58,6 +60,15 @@ class Simulation:
             device=self.device,
         )
         check_ported(self.params)
+        if cfg.solve_heating_local:
+            # the reference's contact-span rule; crossbars with interior metal
+            # build their model with symmetric spans (heat.build_heat_model)
+            # and assign it to ``heat``
+            self.heat = heat_mod.build_heat_model(
+                self.geom, self.params, cfg, self._elements_np(),
+                self.geom.neigh_idx.cpu().numpy(), method=cfg.heat_solver)
+        else:
+            self.heat = heat_mod.empty_heat_model(self.params, self.device)
         if cfg.poisson_compact_cap == -1:
             self.params = replace(self.params, poisson_compact_cap=self._auto_poisson_cap())
         if cfg.active_rows_cap == -1:
@@ -86,6 +97,9 @@ class Simulation:
         if cfg.tunnel_vac_cap == -1:
             # n_vac <= the V + Od species count, the Poisson bucket's bound
             self.params = replace(self.params, tunnel_vac_cap=self._auto_poisson_cap())
+        if self.params.transport != "blocked":
+            # the dense path stores nothing per bias point and has no band
+            return
         f32_entries = self.params.mixed or self.params.dtype == torch.float32
         self.params = replace(self.params, transport_cc=current_mod.resolve_transport_cc(
             self.params.transport_cc, n_mp, f32_entries))
@@ -104,7 +118,8 @@ class Simulation:
                     "uses the ELL neighbour product", RuntimeWarning, stacklevel=2)
 
     def _superstep(self, state, Vd):
-        return superstep_impl(self.geom, self.params, state, Vd, cc=self._cc)
+        return superstep_impl(self.geom, self.params, state, Vd, cc=self._cc,
+                              heat=self.heat)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -307,9 +322,10 @@ class Simulation:
 
     def _chunked_transport(self, Vd: float, chunk: int) -> int:
         """Pre-solve the transport network cold (``transport_precond``).
-        Commits ONLY the ``virtual_potentials`` warm start: I_macro stays
-        untouched, so the first superstep's IR drop and trajectory are those
-        of an unchunked run, and its own transport solve starts converged."""
+        Commits ONLY the ``virtual_potentials`` warm start: I_macro (and, with
+        heating on, the power the solve extracts) stays untouched, so the
+        first superstep's IR drop and trajectory are those of an unchunked
+        run, and its own transport solve starts converged."""
         total = 0
         for _ in range(1000):
             st, m = current_mod.update_power(
@@ -399,11 +415,12 @@ class Simulation:
 
             dt = self._presolve("cb_edge", Vd, cb_edge)
             self._log(f"Z - calculation time - CB edge [s]: {dt:.6g}\n")
-            cache = current_mod.assemble_transport_cache(
-                self.geom, self.params, self.state)
-            if self._band is not None:
-                cache["band"] = self._band
-            self._cc = cache
+            if params.transport == "blocked":
+                cache = current_mod.assemble_transport_cache(
+                    self.geom, self.params, self.state)
+                if self._band is not None:
+                    cache["band"] = self._band
+                self._cc = cache
         if params.solve_potential:
             self._presolve("boundary", Vd, lambda: self._chunked_boundary(
                 Vd, chunk if chunk > 0 else self.params.solver_maxiter, cold_params))

@@ -1,8 +1,10 @@
-"""On-the-fly WKB tunnel block products: kernels 4-6 of the port
+"""On-the-fly WKB tunnel block products: kernels 4-7 of the port
 (``csrc/wkb_fly.cu``).
 
 Replaces the TPU kernels of ``devicekmc_tpu/ops/wkb_pallas.py``:
-``wkb_fly_matvec`` (plain and symmetric form) and ``wkb_fly_matmat``.  The
+``wkb_fly_matvec`` (plain and symmetric form), ``wkb_fly_matmat`` and
+``wkb_fly_pdisp`` (the forward-current dissipation row sums of the
+site-resolved power, run once per transport solve with heating on).  The
 metal x metal tunnel block ``T_cc`` of the blocked transport operator is
 never stored: every entry is re-derived from the two atoms' positions and
 conduction-band edges inside the product (negated WKB transmission,
@@ -13,9 +15,9 @@ Bound on the card: operations (about 30 FP32 operations a pair, 38 under
 PBC, with one exp, two square roots and a division).  See the kernel source
 for the design.
 
-:func:`wkb_fly_matvec` and :func:`wkb_fly_matmat` launch the kernels for CUDA
-tensors and take the plain versions (``*_plain``) only for CPU tensors.  Each
-wrapper's ``launches`` counts its kernel launches.  ``env`` is the dict of
+:func:`wkb_fly_matvec`, :func:`wkb_fly_matmat` and :func:`wkb_fly_pdisp`
+launch the kernels for CUDA tensors and take the plain versions (``*_plain``)
+only for CPU tensors.  Each wrapper's ``launches`` counts its kernel launches.  ``env`` is the dict of
 ``physics.current.wkb_env``.
 """
 
@@ -178,3 +180,57 @@ def wkb_fly_matmat(pos: torch.Tensor, cb: torch.Tensor, X: torch.Tensor, env,
 
 
 wkb_fly_matmat.launches = 0
+
+
+def _vsgn(Vd) -> float:
+    """The sign of the bias as the kernels take it: -1.0, 0.0 or 1.0."""
+    Vd = float(Vd)
+    return float((Vd > 0) - (Vd < 0))
+
+
+def wkb_fly_pdisp_plain(pos, cb, ms, Vd, env) -> torch.Tensor:
+    """The plain PyTorch version of :func:`wkb_fly_pdisp`, chunked over rows:
+    ``row[i] = sum_j [fwd] (-T_ij dM)(-dM)``, ``dM = ms_i - ms_j``, in f32."""
+    n = pos.shape[0]
+    pos32, cb32, ms32 = pos.float(), cb.float(), ms.float()
+    vs = _vsgn(Vd)
+    out = torch.empty(n, dtype=torch.float32, device=pos.device)
+    step = _row_chunk(n)
+    for r0 in range(0, n, step):
+        r1 = min(r0 + step, n)
+        vals = pair_vals_plain(env, pos32[r0:r1], cb32[r0:r1], pos32, cb32)
+        dM = ms32[r0:r1, None] - ms32[None, :]
+        I_cal = vals * dM
+        fwd = ((I_cal < 0) & (vs > 0)) | ((I_cal > 0) & (vs < 0))
+        out[r0:r1] = (torch.where(fwd, -I_cal, 0.0) * (-dM)).sum(dim=1)
+    return out
+
+
+def wkb_fly_pdisp(pos: torch.Tensor, cb: torch.Tensor, ms: torch.Tensor, Vd,
+                  env) -> torch.Tensor:
+    """The metal x metal rows of the forward-current dissipation sweep
+    (``physics.current._pdisp_rows_cols`` on the on-the-fly block; the block
+    is symmetric, so the row sums are all it needs).  pos [n,3], cb [n] (J),
+    ms [n] (the atoms' shifted scaled potentials), all f32; only the sign of
+    ``Vd`` enters.  Returns [n] f32."""
+    if pos.device.type == "cpu":
+        return wkb_fly_pdisp_plain(pos, cb, ms, Vd, env)
+    _check("wkb_fly_pdisp", pos, cb, ms, 1)
+    n = pos.shape[0]
+    row = torch.empty(n, dtype=torch.float32, device=pos.device)
+    if n == 0:
+        return row
+    nt = -(-n // _TILE)
+    part = torch.empty(nt * nt * _TILE, dtype=torch.float32, device=pos.device)
+    fn = _fn("dkmc_wkb_fly_pdisp",
+             [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _F, _P, _P, _P])
+    err = fn(pos.data_ptr(), cb.data_ptr(), ms.data_ptr(), n, *_scalars(env),
+             _vsgn(Vd), part.data_ptr(), row.data_ptr(),
+             torch.cuda.current_stream(pos.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wkb_fly_pdisp kernel launch failed: cudaError {err}")
+    wkb_fly_pdisp.launches += 1
+    return row
+
+
+wkb_fly_pdisp.launches = 0

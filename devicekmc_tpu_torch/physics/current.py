@@ -1,9 +1,11 @@
-"""Charge-transport (current) solver, blocked matrix-free path.
+"""Charge-transport (current and dissipated power) solver: the blocked
+matrix-free path and the dense path.
 
 Builds the transmission/conductance operator X over the *atom* sub-graph
 plus two virtual nodes (ground/extraction = node 0, source/injection =
 node 1), solves for the virtual potentials and extracts the macroscopic
-current.  Reference: Device::updatePower (src/current_solver.cpp:4-385) and
+current and, with a heating solver on, the site-resolved dissipated power.
+Reference: Device::updatePower (src/current_solver.cpp:4-385) and
 update_power_gpu_sparse (src/current_solver_gpu.cu:854-1136).
 
 Matrix entries (atoms i, j at indices i+2, j+2):
@@ -42,9 +44,15 @@ assembled in f32 in mixed mode (about 1e-7 relative error each; the solve
 refines in f64).
 
 Site-resolved dissipated power is computed only when a heating solver is on
-(the reference guards it the same way, src/current_solver.cpp:279-371);
-heating is not ported, so power stays zero here.  The dense path
-(``transport="dense"``) is not ported either.
+(the reference guards it the same way, src/current_solver.cpp:279-371): the
+forward-current rule P_disp[i] = sum_j I_neg(i,j) (Ms_j - Ms_i) is swept
+block by block, the metal x metal part by the on-the-fly kernel
+(``ops.wkb_fly.wkb_fly_pdisp``) under ``transport_cc="fly"``.
+
+The dense path (``transport="dense"``, :func:`assemble_X` and
+:func:`_update_power_dense`) materialises the [N_atom+2]^2 matrix: the
+reference's own formulation, for tests and small devices (45 GB in f64 at
+the 75k-atom crossbar).
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ from .. import constants as C
 from ..ops.banded import banded_matvec
 from ..ops.cg import cg_solve, cg_solve_mixed, invert_coarse
 from ..ops.compact import nonzero_fixed
-from ..ops.wkb_fly import wkb_fly_matmat, wkb_fly_matvec
+from ..ops.wkb_fly import wkb_fly_matmat, wkb_fly_matvec, wkb_fly_pdisp
 from ..ops.wkb_window import wkb_window_block
 from ..state import Geometry, PhysParams, SimState, replace
 from ..structure import Element
@@ -99,6 +107,24 @@ def resolve_transport_cc(mode: str, n_mp: int, f32_entries: bool) -> str:
     if not f32_entries:
         return "stored"
     return "stored" if n_mp * n_mp * 4 <= CC_STORED_MAX_BYTES else "fly"
+
+
+def require_ieee_f32(what: str) -> None:
+    """f32 products that go to ``torch.matmul`` must not run as TF32."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            f"{what} need IEEE f32: "
+            "torch.backends.cuda.matmul.allow_tf32 must be False"
+        )
+
+
+def check_transport_ported(params: PhysParams) -> None:
+    """Raise for the transport option whose code is not ported yet."""
+    if params.transport_bf16_inner:
+        raise NotImplementedError(
+            "transport_bf16_inner (bf16 twins of the tunnel blocks and a "
+            "bf16 band in the inner solver) is not ported yet: ROADMAP, queue "
+            "ahead, item 2 (the remaining run modes)")
 
 
 def _cdtype(params: PhysParams) -> torch.dtype:
@@ -355,11 +381,7 @@ def assemble_X_blocks(
     ``cc``: the precomputed metal_p x metal_p block of
     :func:`assemble_cc_block` (valid within one bias point); ``band``: the
     static banded operator of :func:`build_banded_nb`."""
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "the transport operator's f32 tunnel-block products need IEEE f32: "
-            "torch.backends.cuda.matmul.allow_tf32 must be False"
-        )
+    require_ieee_f32("the transport operator's f32 tunnel-block products")
     dtype = params.dtype
     cdtype = _cdtype(params)
     dev = geom.device
@@ -689,6 +711,81 @@ def _deflation_ops(geom: Geometry, params: PhysParams, blk, d):
     return ds[:, None] * Zm, AZ / ds[:, None], coarse_solve
 
 
+def _forward_masks(I_cal, Vd: float):
+    """(fwd, fwd_t): the forward-current pairs of the stored orientation and
+    of its transpose (whose I_cal has the other sign).  Vd == 0 selects
+    nothing."""
+    if Vd > 0:
+        return I_cal < 0, I_cal > 0
+    if Vd < 0:
+        return I_cal > 0, I_cal < 0
+    none = torch.zeros_like(I_cal, dtype=torch.bool)
+    return none, none
+
+
+def _pdisp_rows_cols(E, ms_r, ms_c, Vd: float, chunk: int = 2048):
+    """Forward-current dissipation sums of one stored tunnel block.
+
+    Returns (row_contrib [R], col_contrib [C]): the dense rule
+    P_disp[i] += I_neg(i,j) * (Ms_j - Ms_i) for the stored orientation AND
+    its transpose in one sweep (the transpose flips the sign of I_cal,
+    src/current_solver.cpp:319-337), chunk by chunk over rows so that no
+    second block-sized array is made.  The stored rows are multiplied in the
+    dtype of ``ms_c`` (f64 in mixed mode)."""
+    R = E.shape[0]
+    row = torch.empty(R, dtype=ms_c.dtype, device=E.device)
+    col = torch.zeros(E.shape[1], dtype=ms_c.dtype, device=E.device)
+    for b0 in range(0, R, chunk):
+        b1 = min(b0 + chunk, R)
+        dM = ms_r[b0:b1, None] - ms_c[None, :]
+        I_cal = E[b0:b1].to(ms_c.dtype) * dM
+        fwd, fwd_t = _forward_masks(I_cal, Vd)
+        row[b0:b1] = (torch.where(fwd, -I_cal, 0.0) * (-dM)).sum(dim=1)
+        # transpose orientation: I_cal' = -I_cal, displacement = +dM
+        col = col + (torch.where(fwd_t, I_cal, 0.0) * dM).sum(dim=0)
+    return row, col
+
+
+def _site_power(geom: Geometry, params: PhysParams, state: SimState, P_disp):
+    """Per-site power [N] and its sum from the per-atom dissipation sums:
+    metal atoms dissipate nothing (alpha = 0), the injection and extraction
+    layers are left out (src/current_solver.cpp:339-371)."""
+    Na, nsi = geom.N_atom, params.num_source_inj
+    ai = geom.atom_ind.long()
+    idx = torch.arange(Na, device=P_disp.device)
+    metal = geom.metal_mask_table[state.element[ai].long()]
+    in_range = (idx >= nsi) & (idx < Na - nsi)
+    atom_power = torch.where(in_range & ~metal, -P_disp, 0.0).to(params.dtype)
+    power = torch.zeros(geom.N, dtype=params.dtype, device=P_disp.device)
+    power[ai] = atom_power
+    return power, float(power.sum())
+
+
+def _pdisp_blocked(blk, Matoms, Vd: float):
+    """Per-atom forward-current dissipation sums over the blocked operator:
+    the ELL neighbour part, then the three tunnel blocks placed as in
+    :func:`_place_tunnel`.  Under ``transport_cc="fly"`` the metal x metal
+    rows come from the on-the-fly kernel, f32 throughout; the stored blocks
+    multiply in the dtype of ``Matoms``."""
+    Ms = Matoms + torch.abs(Matoms.min())
+    dM_nb = Ms[:, None] - Ms[blk["nb_safe"]]
+    I_cal = blk["nb_vals"] * dM_nb
+    fwd, _ = _forward_masks(I_cal, Vd)
+    P_disp = (torch.where(fwd, -I_cal, 0.0) * (-dM_nb)).sum(dim=1)
+
+    ms_m = Ms[blk["mp"]]
+    ms_v = torch.where(blk["v_ok"], Ms[blk["vidx"]], 0.0)
+    if blk.get("fly") is not None:
+        f = blk["fly"]
+        cc_r = wkb_fly_pdisp(f["mpos"], f["mcb"], ms_m.float().contiguous(), Vd,
+                             f["env"]).to(Ms.dtype)
+    else:
+        cc_r, _ = _pdisp_rows_cols(blk["T_cc"], ms_m, ms_m, Vd)
+    vv_r, _ = _pdisp_rows_cols(blk["T_vv"], ms_v, ms_v, Vd)
+    vm_r, vm_c = _pdisp_rows_cols(blk["T_vm"], ms_v, ms_m, Vd)
+    return _place_tunnel(blk, P_disp, cc_r + vm_c, vv_r + vm_r)
+
+
 def update_power_blocked(
     geom: Geometry,
     params: PhysParams,
@@ -705,11 +802,7 @@ def update_power_blocked(
     be materialised.  ``cc``: the per-bias-point cache dict of
     :func:`assemble_transport_cache` (plus ``band``), or the raw metal
     block."""
-    solve_heat = params.solve_heating_global or params.solve_heating_local
-    if solve_heat:
-        raise NotImplementedError(
-            "site-resolved dissipated power (the solve_heat block of "
-            "update_power_blocked) is not ported yet: ROADMAP, heat slice")
+    check_transport_ported(params)
     dtype = params.dtype
     dev = geom.device
     Na = geom.N_atom
@@ -808,10 +901,19 @@ def update_power_blocked(
     M = torch.cat([v * G0, torch.zeros(1, dtype=dtype, device=dev)])  # [Na+2]
     I_macro = float(torch.sum(blk["gnd_vals"] * (M[0] - M[2:])))
 
+    # dissipated power, block by block: only when a heating solver is on
+    # (the reference guards the whole extraction, src/current_solver.cpp:279-371)
+    solve_heat = params.solve_heating_global or params.solve_heating_local
+    if solve_heat:
+        power, P_tot = _site_power(geom, params, state, _pdisp_blocked(blk, M[2:], Vd))
+    else:
+        power, P_tot = torch.zeros(geom.N, dtype=dtype, device=dev), 0.0
+
     new_state = replace(
         state,
-        power=torch.zeros(geom.N, dtype=dtype, device=dev),
+        power=power,
         I_macro=I_macro,
+        P_tot=P_tot,
         virtual_potentials=torch.cat([v, torch.zeros(1, dtype=dtype, device=dev)]),
     )
     if blk["tt_slot_atom"] is not None:
@@ -834,6 +936,9 @@ def update_power_blocked(
         # assembly, -1: solve skipped (kept out of output.txt by the engine)
         "transport_partial_assembly": int(blk["tt_partial"]),
     }
+    if solve_heat:
+        # logged only when a heating solver is on (reference schema)
+        metrics["Total dissipated power [mW]"] = P_tot * 1e3
     return new_state, metrics
 
 
@@ -842,13 +947,15 @@ def _n_vac_atoms(geom: Geometry, state: SimState) -> int:
 
 
 def _reuse_transport_metrics(
-    geom: Geometry, params: PhysParams, state: SimState, Vd: float
+    geom: Geometry, params: PhysParams, state: SimState, Vd: float, blocked: bool
 ) -> Dict:
     """Metrics of an unchanged-network transport skip, reconstructed from
-    the stored converged solution: the keys of the solve branch, with -1
-    sentinels that tell "skipped" from "converged at once" in the logs."""
+    the stored converged solution: the keys of the matching solve branch; on
+    the blocked path -1 sentinels tell "skipped" from "converged at once" in
+    the logs.  With heating on, ``power`` and ``P_tot`` of the last solve
+    stay in the state and are reported again."""
     I_macro = state.I_macro
-    return {
+    metrics = {
         "n_vac_atoms": _n_vac_atoms(geom, state),
         "Current [uA]": I_macro * 1e6,
         "Conductance [uS]": abs(I_macro / (Vd if Vd != 0 else 1.0)) * 1e6,
@@ -856,10 +963,14 @@ def _reuse_transport_metrics(
         "transport_converged": True,
         "contact_potential_drop": float(
             torch.abs(state.virtual_potentials[params.num_source_inj] - Vd)),
-        "transport_rel0": -1.0,
-        "tunnel_int_steps_needed": -1,
-        "transport_partial_assembly": -1,
     }
+    if blocked:
+        metrics["transport_rel0"] = -1.0
+        metrics["tunnel_int_steps_needed"] = -1
+        metrics["transport_partial_assembly"] = -1
+    if params.solve_heating_global or params.solve_heating_local:
+        metrics["Total dissipated power [mW]"] = state.P_tot * 1e3
+    return metrics
 
 
 def update_power(
@@ -867,31 +978,39 @@ def update_power(
     params: PhysParams,
     state: SimState,
     Vd: float,
+    method: str = "cg",
     cg_tol: Optional[float] = None,
     cg_maxiter: int = 20000,
     cc=None,
     allow_skip: bool = False,
 ) -> Tuple[SimState, Dict]:
-    """Transport dispatcher.  ``allow_skip=True`` (the superstep path)
-    enables the exact unchanged-network fast path: X is a function of
-    (element, charge) at atom sites, the bias-start CB edge and Vd only;
-    when all are unchanged since the last converged solve, that solution IS
-    the solution and assembly, set-up and solve are skipped.  The superstep
-    path is also the WARM path: its re-solves use transport_warm_precond,
-    cold pre-solves (the default, always solve) keep transport_precond."""
-    if params.transport != "blocked":
-        raise NotImplementedError(
-            "transport='dense' is not ported yet (ROADMAP item 7); use "
-            "transport='blocked'")
+    """Transport dispatcher.  ``transport="blocked"`` takes the matrix-free
+    operator unless ``method="direct"`` asks for the dense direct solve (the
+    oracle of the tests); ``transport="dense"`` materialises X and solves by
+    ``method`` ("cg", "direct", "cg_f32scaled").
+
+    ``allow_skip=True`` (the superstep path) enables the exact
+    unchanged-network fast path: X is a function of (element, charge) at atom
+    sites, the bias-start CB edge and Vd only; when all are unchanged since
+    the last converged solve, that solution IS the solution and assembly,
+    set-up and solve are skipped (never with ``method="direct"``).  The
+    superstep path is also the WARM path: its blocked re-solves use
+    transport_warm_precond, cold pre-solves (the default, always solve) keep
+    transport_precond."""
+    if cg_tol is None:
+        cg_tol = params.transport_tol
     Vd = float(torch.tensor(Vd, dtype=params.dtype))
+    blocked = params.transport == "blocked" and method != "direct"
 
     def solve(st):
-        return update_power_blocked(
-            geom, params, st, Vd, cg_tol=cg_tol, cg_maxiter=cg_maxiter, cc=cc,
-            precond=params.transport_warm_precond if allow_skip else None,
-        )
+        if blocked:
+            return update_power_blocked(
+                geom, params, st, Vd, cg_tol=cg_tol, cg_maxiter=cg_maxiter, cc=cc,
+                precond=params.transport_warm_precond if allow_skip else None,
+            )
+        return _update_power_dense(geom, params, st, Vd, method, cg_tol, cg_maxiter)
 
-    if not (allow_skip and params.transport_skip_unchanged):
+    if not (allow_skip and params.transport_skip_unchanged and method != "direct"):
         return solve(state)
 
     ai = geom.atom_ind.long()
@@ -901,7 +1020,262 @@ def update_power(
                  and torch.equal(elem_a, state.trans_elem_prev)
                  and torch.equal(chg_a, state.trans_charge_prev))
     if unchanged:
-        return state, _reuse_transport_metrics(geom, params, state, Vd)
+        return state, _reuse_transport_metrics(geom, params, state, Vd, blocked)
     new_state, m = solve(state)
     return replace(new_state, trans_elem_prev=elem_a, trans_charge_prev=chg_a,
                    transport_Vd_prev=Vd), m
+
+
+# ----------------------------------------------------------------------------
+# dense path
+# ----------------------------------------------------------------------------
+
+def assemble_X(geom: Geometry, params: PhysParams, state: SimState, Vd=None):
+    """Dense X matrix [N_atom+2, N_atom+2] (symmetric, diagonal folded) and
+    loop_G.
+
+    In mixed precision the pairwise assembly (distances, WKB exponentials)
+    runs in f32: every entry is an independent elementwise computation with
+    about 1e-7 relative error; the matrix itself is cast to f64 for the
+    solve.  With a vacancy bucket (``tunnel_vac_cap > 0``) the contact->trap
+    window integral runs over the compacted vacancy x interior-metal pairs
+    only and is scattered back symmetrically; without one it runs over all
+    pairs."""
+    dtype = params.dtype
+    cdtype = _cdtype(params)
+    dev = geom.device
+    ai = geom.atom_ind.long()
+    Na = geom.N_atom
+    apos = geom.coords[ai].to(cdtype)
+    aelem = state.element[ai]
+    acharge = state.charge[ai]
+    acb = state.CB_edge[ai].to(cdtype)          # [J]
+    env = wkb_env(geom, params)
+
+    high_G = params.high_G * 1e5                # src/current_solver.cpp:9
+    low_G = params.low_G
+    loop_G = params.high_G * 1e7                # src/current_solver.cpp:8
+
+    idx = torch.arange(Na, device=dev)
+    eye = idx[:, None] == idx[None, :]
+    dist = _dist_blocks(apos, apos, env["lattice"], geom.pbc)
+    neighbor = (dist < env["nn"]) & ~eye
+
+    metal = geom.metal_mask_table[aelem.long()]
+    anyvac = aelem == int(Element.VACANCY)
+    cvac = anyvac & (acharge == 0)
+
+    # --- neighbour conductances ---
+    hi_pair = (metal[:, None] & metal[None, :]) | (cvac[:, None] & cvac[None, :])
+    G_nb = torch.where(
+        hi_pair, torch.tensor(high_G, dtype=torch.float64, device=dev),
+        torch.tensor(low_G, dtype=torch.float64, device=dev)).to(cdtype)
+
+    # --- tunnelling ---
+    nlc, nsi, nge = params.num_layers_contact, params.num_source_inj, params.num_ground_ext
+    metal_p = metal & (idx > (nlc - 1) * nsi) & (idx < Na - (nlc - 1) * nge)
+    t2t = anyvac[:, None] & anyvac[None, :]
+    c2t = (anyvac[:, None] & metal_p[None, :]) | (anyvac[None, :] & metal_p[:, None])
+    c2c = metal_p[:, None] & metal_p[None, :]
+
+    abs_dE = torch.abs(acb[:, None] - acb[None, :])
+    eligible = (t2t | c2t | c2c) & (abs_dE > env["ctol"]) & ~neighbor & ~eye
+    safe_abs_dE = torch.where(eligible, abs_dE, 1.0)
+    s = env["prefac"] * (dist * 1e-10) / safe_abs_dE     # common exponent scale
+    T_single = wkb_single_T(env, s, safe_abs_dE)
+
+    vcap = params.tunnel_vac_cap
+    mp = geom.atom_metalp_idx.long()
+    if vcap > 0 and mp.shape[0] > 0:
+        # compacted: c2t pairs live on (vacancy x interior-metal) only; exact
+        # while n_vac <= vcap (the n_vac_atoms metric lets the engine redo)
+        vidx, n_vac = nonzero_fixed(anyvac, vcap, fill_value=0)
+        v_ok = torch.arange(vcap, device=dev) < min(int(n_vac), vcap)
+        vlong = vidx.long()
+        elig_cv = eligible[vlong][:, mp] & v_ok[:, None]
+        s_cv, abs_cv = s[vlong][:, mp], safe_abs_dE[vlong][:, mp]
+        T_cv = torch.where(elig_cv, wkb_window_T(env, s_cv, abs_cv), 0.0)
+        X_atoms = torch.where(
+            neighbor, -G_nb, torch.where(eligible & ~c2t, -T_single, 0.0)
+        ).to(dtype)
+        # scatter the compact c2t entries symmetrically; fill slots carry 0
+        # and the eligibility mask keeps neighbour entries untouched (the
+        # repeated pad slots rewrite atom 0's row with its own values)
+        upd = torch.where(elig_cv, -T_cv, 0.0).to(dtype)
+        keep_vm = torch.where(elig_cv, 0.0, X_atoms[vlong][:, mp])
+        X_atoms[vlong[:, None], mp[None, :]] = keep_vm + upd
+        X_atoms[mp[None, :], vlong[:, None]] = keep_vm + upd
+    else:
+        T = torch.where(c2t, wkb_window_T(env, s, safe_abs_dE), T_single)
+        X_atoms = torch.where(
+            neighbor, -G_nb, torch.where(eligible, -T, 0.0)).to(dtype)
+
+    # --- the full (Na+2) x (Na+2) matrix ---
+    X = torch.zeros((Na + 2, Na + 2), dtype=dtype, device=dev)
+    X[2:, 2:] = X_atoms
+    g_hi = torch.tensor(-high_G, dtype=dtype, device=dev)
+    src_row = torch.where(idx < nsi, g_hi, 0.0)
+    # strict ">" keeps the reference's off-by-one (src/current_solver.cpp:187):
+    # one atom fewer is attached to ground
+    gnd_row = torch.where(idx > (Na - nge), g_hi, 0.0)
+    X[1, 2:] = src_row
+    X[2:, 1] = src_row
+    X[0, 2:] = gnd_row
+    X[2:, 0] = gnd_row
+    X[0, 1] = -loop_G
+    X[1, 0] = -loop_G
+
+    # diagonal = negated off-diagonal row sums over the FULL matrix
+    diag = -X.sum(dim=1)
+    X = X + torch.diag(diag)
+    return X, loop_G
+
+
+def _dense_system(geom, params, state, Vd: float):
+    """X, its grounded leading block and the right-hand side."""
+    Nsub = geom.N_atom + 1
+    X, loop_G = assemble_X(geom, params, state, Vd)
+    rhs = torch.zeros(Nsub, dtype=params.dtype, device=geom.device)
+    rhs[0] = -loop_G * Vd
+    rhs[1] = loop_G * Vd
+    return X, X[:Nsub, :Nsub], rhs
+
+
+def _update_power_dense(
+    geom: Geometry,
+    params: PhysParams,
+    state: SimState,
+    Vd: float,
+    method: str,
+    cg_tol: float,
+    cg_maxiter: int,
+) -> Tuple[SimState, Dict]:
+    """The transport solve on the dense matrix: ``direct`` (LU), Jacobi CG
+    with the preconditioned criterion, or, in mixed precision (and for
+    ``cg_f32scaled``), f32 CG on the symmetrically Jacobi-scaled matrix with
+    f64 refinement."""
+    require_ieee_f32("the dense transport solve's f32 products")
+    dtype = params.dtype
+    dev = geom.device
+    Na = geom.N_atom
+    Nsub = Na + 1
+    nsi = params.num_source_inj
+
+    X, Dsub, rhs = _dense_system(geom, params, state, Vd)
+    cg_iters, cg_converged = 0, True
+    if method == "direct":
+        v = torch.linalg.solve(Dsub, rhs)
+    elif method == "cg_f32scaled" or (method == "cg" and params.mixed):
+        # D^-1/2 X D^-1/2 has a unit diagonal and |off-diagonal| <= 1, all
+        # f32-representable, and a moderate condition number
+        d = torch.diagonal(Dsub)
+        dsi = 1.0 / torch.sqrt(torch.where(d > 0, d, 1.0))
+        A64 = Dsub * dsi[:, None] * dsi[None, :]
+        A32 = A64.to(torch.float32)
+        res = cg_solve_mixed(
+            lambda y: A64 @ y, lambda y: A32 @ y,
+            rhs * dsi, x0=state.virtual_potentials[:Nsub] / dsi,
+            tol=cg_tol, inner_tol=1e-5, inner_maxiter=400, maxiter=cg_maxiter,
+        )
+        v = res.x * dsi
+        cg_iters, cg_converged = res.iters, res.converged
+    else:
+        # "pre" criterion: the rows span ~21 decades (the loop_G penalty
+        # against tunnelling), so the plain residual norm means nothing
+        res = cg_solve(
+            lambda x: Dsub @ x, rhs, x0=state.virtual_potentials[:Nsub],
+            diag=torch.diagonal(Dsub), tol=cg_tol, maxiter=cg_maxiter,
+            criterion="pre",
+        )
+        v = res.x
+        cg_iters, cg_converged = res.iters, res.converged
+
+    # potential-drop sanity check (src/current_solver.cpp:239-243)
+    contact_drop = float(torch.abs(v[nsi] - Vd))
+    # scale by the conductance quantum; the grounded last atom stays at 0
+    M = torch.cat([v * G0, torch.zeros(1, dtype=dtype, device=dev)])  # [Na+2]
+    # macroscopic current through the ground/extraction node
+    I_macro = float(torch.sum(X[0, 2:] * (M[0] - M[2:])))
+
+    solve_heat = params.solve_heating_global or params.solve_heating_local
+    if solve_heat:
+        Matoms = M[2:]
+        Ms = Matoms + torch.abs(Matoms.min())
+        # P_disp[i] = sum_j I_neg[i,j] * (Ms[j] - Ms[i]) with
+        # I_neg(i,j) = -X(i,j)(Ms_i - Ms_j) on forward-current pairs off the
+        # diagonal (src/current_solver.cpp:319-337), in row blocks so that no
+        # second N_atom^2 array stands beside X
+        BLK = 1024
+        idx = torch.arange(Na, device=dev)
+        P_disp = torch.empty(Na, dtype=dtype, device=dev)
+        for b0 in range(0, Na, BLK):
+            b1 = min(b0 + BLK, Na)
+            dMb = Ms[b0:b1, None] - Ms[None, :]
+            I_cal = X[2 + b0:2 + b1, 2:] * dMb
+            fwd, _ = _forward_masks(I_cal, Vd)
+            offd = idx[b0:b1, None] != idx[None, :]
+            P_disp[b0:b1] = (torch.where(fwd & offd, -I_cal, 0.0) * (-dMb)).sum(dim=1)
+        power, P_tot = _site_power(geom, params, state, P_disp)
+    else:
+        power, P_tot = torch.zeros(geom.N, dtype=dtype, device=dev), 0.0
+
+    new_state = replace(
+        state,
+        power=power,
+        I_macro=I_macro,
+        P_tot=P_tot,
+        virtual_potentials=torch.cat([v, torch.zeros(1, dtype=dtype, device=dev)]),
+    )
+    metrics = {
+        "n_vac_atoms": _n_vac_atoms(geom, state),
+        "Current [uA]": I_macro * 1e6,
+        "Conductance [uS]": abs(I_macro / (Vd if Vd != 0 else 1.0)) * 1e6,
+        "cg_iters_power": cg_iters,
+        "transport_converged": cg_converged,
+        "contact_potential_drop": contact_drop,
+    }
+    if solve_heat:
+        metrics["Total dissipated power [mW]"] = P_tot * 1e3
+    return new_state, metrics
+
+
+def compute_bond_currents(
+    geom: Geometry,
+    params: PhysParams,
+    state: SimState,
+    Vd: float,
+    method: str = "cg",
+    cg_tol: float = 1e-10,
+):
+    """Per-atom bond-current flow field (analysis tool; reference:
+    postprocessing/plot_bond_current.py over a dumped X matrix).
+
+    Returns (I_vec [N_atom,3], I_out [N_atom]): the displacement-weighted sum
+    of the outgoing bond currents at each atom and the total outgoing
+    (positive) current."""
+    Na = geom.N_atom
+    Nsub = Na + 1
+    dtype = params.dtype
+    Vd = float(torch.tensor(Vd, dtype=dtype))
+    X, Dsub, rhs = _dense_system(geom, params, state, Vd)
+    if method == "direct":
+        v = torch.linalg.solve(Dsub, rhs)
+    else:
+        v = cg_solve(
+            lambda x: Dsub @ x, rhs, x0=state.virtual_potentials[:Nsub],
+            diag=torch.diagonal(X)[:Nsub], tol=cg_tol, maxiter=50000,
+        ).x
+    Matoms = torch.cat([v * G0, torch.zeros(1, dtype=dtype, device=v.device)])[2:]
+
+    apos = geom.coords[geom.atom_ind.long()]
+    dM = Matoms[:, None] - Matoms[None, :]
+    idx = torch.arange(Na, device=v.device)
+    # current from i to j (off the diagonal)
+    I_bond = torch.where(idx[:, None] != idx[None, :], -X[2:, 2:] * dM, 0.0)
+
+    disp = apos[:, None, :] - apos[None, :, :]
+    norm = torch.sqrt((disp * disp).sum(dim=-1))
+    unit = disp / torch.where(norm > 0, norm, 1.0)[..., None]
+    I_vec = (I_bond[..., None] * (-unit)).sum(dim=1)
+    I_out = torch.where(I_bond > 0, I_bond, 0.0).sum(dim=1)
+    return I_vec, I_out

@@ -58,6 +58,8 @@ class Geometry:
     left_mask: torch.Tensor         # [N] bool: CB-edge Dirichlet masks (first layer)
     right_mask: torch.Tensor        # [N] bool
     interior_mask: torch.Tensor     # [N] bool
+    inner_mask: torch.Tensor        # [N] bool: file positions [num_atoms_contact, N - nac):
+                                    # the region the local heat model averages T_bg over
     atom_ind: torch.Tensor          # [N_atom] int32: site of atom slot a (FILE order)
     atom_metalp_idx: torch.Tensor   # [n_mp] int32: atom slots of the interior metals
     atom_metalp_inv: torch.Tensor   # [N_atom] int32: slot in atom_metalp_idx, -1 else
@@ -82,11 +84,21 @@ class PhysParams:
     high_G: float
     low_G: float
     background_temp: float
+    # heat models (physics/heat.py)
+    dissipation_constant: float = 0.0   # global model [J/Ks]
+    t_ox: float = 0.0         # oxide thickness [m]
+    A: float = 0.0            # device area [m^2]
+    c_p: float = 0.0          # [J/K cm^3]
+    delta_t: float = 0.0      # local model substep [s]
+    tau: float = 0.0          # thermal rate constant [1/s]
+    k_th_interface: float = 0.0
+    k_th_vacancies: float = 0.0
     m_e: float = 0.0          # effective electron mass [kg]
     V0: float = 0.0           # defect state energy [eV]
     num_source_inj: int = 0
     num_ground_ext: int = 0
     num_atoms_contact: int = 0
+    num_layers_contact: int = 0
     solve_potential: bool = True
     solve_current: bool = False
     solve_heating_global: bool = False
@@ -112,7 +124,7 @@ class PhysParams:
     transport_warm_precond: str = "jacobi"  # in-superstep re-solves
     transport_cc: str = "stored"            # metal x metal block: "stored" | "fly"
                                             # ("auto" until the engine resolves it)
-    transport_bf16_inner: bool = False      # not ported: raises
+    transport_bf16_inner: bool = False      # not ported (ROADMAP, queue ahead, item 2): raises
     transport_incremental: bool = False     # resolved by the engine from the config's
                                             # "auto" | "on" | "off"
     transport_delta_cap: int = 16
@@ -131,7 +143,9 @@ class SimState:
     potential_boundary: torch.Tensor  # [N] float [V]
     potential_charge: torch.Tensor    # [N] float [V]
     CB_edge: torch.Tensor             # [N] float [J], solved at every bias start
-    power: torch.Tensor               # [N] float [W] (0 while heating is not ported)
+    power: torch.Tensor               # [N] float [W]: dissipated power of the last
+                                      # transport solve (0 with heating off)
+    temperature: torch.Tensor         # [N] float [K]
     virtual_potentials: torch.Tensor  # [N_atom+2] float: transport warm start
     cvac_prev: torch.Tensor           # [N] bool: neutral-vacancy mask at last boundary solve
     boundary_r: torch.Tensor          # [N] float: TRUE residual b - L x of potential_boundary
@@ -140,6 +154,7 @@ class SimState:
     T_bg: float                       # [K]
     kmc_time: float                   # [s] within the current bias point
     I_macro: float                    # [A]
+    P_tot: float                      # [W]: sum of ``power``
     Vd_prev: float                    # bias at the last boundary solve (nan: none)
     # change tracking of the transport solve: X depends only on (element,
     # charge) at atom sites, the bias-start CB edge and Vd
@@ -321,6 +336,8 @@ def build_geometry(
         left_mask=t(fpos < n_first),
         right_mask=t(fpos >= n - n_first),
         interior_mask=t((fpos >= n_first) & (fpos < n - n_first)),
+        inner_mask=t((fpos >= cfg.num_atoms_contact)
+                     & (fpos < n - cfg.num_atoms_contact)),
         atom_ind=t(atom_ind),
         atom_metalp_idx=t(atom_metalp_idx),
         atom_metalp_inv=t(atom_metalp_inv),
@@ -361,11 +378,20 @@ def build_params(cfg: KMCConfig) -> PhysParams:
         high_G=s(cfg.high_G),
         low_G=s(cfg.low_G),
         background_temp=s(cfg.background_temp),
+        dissipation_constant=s(cfg.dissipation_constant),
+        t_ox=s(cfg.t_ox),
+        A=s(cfg.A),
+        c_p=s(cfg.c_p),
+        delta_t=s(cfg.delta_t),
+        tau=s(cfg.tau),
+        k_th_interface=s(cfg.k_th_interface),
+        k_th_vacancies=s(cfg.k_th_vacancies),
         m_e=s(cfg.m_e),
         V0=s(cfg.V0),
         num_source_inj=cfg.num_atoms_first_layer,
         num_ground_ext=cfg.num_atoms_first_layer,
         num_atoms_contact=cfg.num_atoms_contact,
+        num_layers_contact=cfg.num_layers_contact,
         solve_potential=cfg.solve_potential,
         solve_current=cfg.solve_current,
         solve_heating_global=cfg.solve_heating_global,
@@ -438,6 +464,8 @@ def init_state(geom: Geometry, cfg: KMCConfig, elements: np.ndarray) -> SimState
         potential_charge=zeros(),
         CB_edge=zeros(),
         power=zeros(),
+        temperature=torch.full((n,), _as_dtype(cfg.background_temp, dtype),
+                               dtype=dtype, device=dev),
         virtual_potentials=torch.zeros(geom.N_atom + 2, dtype=dtype, device=dev),
         cvac_prev=torch.ones(n, dtype=torch.bool, device=dev),  # forces the 1st solve
         boundary_r=zeros(),
@@ -446,6 +474,7 @@ def init_state(geom: Geometry, cfg: KMCConfig, elements: np.ndarray) -> SimState
         T_bg=_as_dtype(cfg.background_temp, dtype),
         kmc_time=0.0,
         I_macro=0.0,
+        P_tot=0.0,
         Vd_prev=float("nan"),
         trans_elem_prev=torch.full((geom.N_atom,), -1, dtype=torch.int32, device=dev),
         trans_charge_prev=torch.zeros(geom.N_atom, dtype=torch.int32, device=dev),
@@ -534,7 +563,8 @@ _INT_FIELDS = {"neigh_idx", "site_layer", "rev_slot", "io_idx", "io_fpos",
                "atom_metalp_inv", "atom_neigh_idx", "trans_elem_prev",
                "trans_charge_prev", "tt_slot_atom"}
 _STATIC_GEOM = {"N", "max_nn", "N_atom", "pbc"}
-_HOST_STATE = {"T_bg", "kmc_time", "I_macro", "Vd_prev", "transport_Vd_prev"}
+_HOST_STATE = {"T_bg", "kmc_time", "I_macro", "P_tot", "Vd_prev",
+               "transport_Vd_prev"}
 
 
 def _tensor(name: str, a, dev) -> torch.Tensor:
@@ -546,9 +576,11 @@ def _tensor(name: str, a, dev) -> torch.Tensor:
 
 def from_jax_arrays(geom: dict, state: dict, device="cuda"):
     """Turn the JAX package's Geometry and SimState, given as dicts of numpy
-    arrays (and the static ints), into the port's records on ``device``.
-    Fields the port does not carry (heat state) are ignored.
-    Returns ``(Geometry, SimState)``."""
+    arrays (and the static ints), into the port's records on ``device``,
+    heat state (``temperature``, ``power``, ``P_tot``, ``T_bg``) included.
+    Fields the port does not carry are ignored.  Returns
+    ``(Geometry, SimState)``; a JAX ``HeatModel`` goes through
+    ``physics.heat.heat_from_jax_arrays``."""
     if int(geom["N_real"]) != int(geom["N"]):
         raise ValueError("from_jax_arrays: padded geometries are not supported")
     dev = resolve_device(device)

@@ -1,7 +1,6 @@
 """The KMC superstep body.  Phase order mirrors the reference main loop
 (src/kmc_main.cpp:175-234): charge -> boundary potential -> gridless Poisson
--> KMC events -> transport.  Heat follows transport there; it is not ported
-yet."""
+-> KMC events -> transport / dissipated power -> heat."""
 
 from __future__ import annotations
 
@@ -10,34 +9,26 @@ from typing import Dict, Tuple
 from .physics import charge as charge_mod
 from .physics import current as current_mod
 from .physics import events as events_mod
+from .physics import heat as heat_mod
 from .physics import potential as potential_mod
 from .state import Geometry, PhysParams, SimState, replace
 
 
 def check_ported(params: PhysParams) -> None:
     """Raise for the options whose code is not ported yet."""
-    if params.solve_heating_global or params.solve_heating_local:
-        raise NotImplementedError(
-            "heating (physics/heat.py, the dissipated-power block of the "
-            "transport solver) is not ported yet: ROADMAP item 9")
-    if params.solve_current and params.transport != "blocked":
-        raise NotImplementedError(
-            "transport='dense' (assemble_X, the dense solve) is not ported "
-            "yet: ROADMAP item 7; use transport='blocked'")
-    if params.transport_bf16_inner:
-        raise NotImplementedError(
-            "transport_bf16_inner (bf16 twins of the tunnel blocks and a "
-            "bf16 band in the inner solver) is not ported yet: ROADMAP, queue "
-            "ahead, heat slice")
+    current_mod.check_transport_ported(params)
 
 
 def superstep_impl(
-    geom: Geometry, params: PhysParams, state: SimState, Vd: float, cc=None
+    geom: Geometry, params: PhysParams, state: SimState, Vd: float, cc=None,
+    heat=None,
 ) -> Tuple[SimState, float, Dict]:
     """One superstep.  Returns ``(state, step_time, metrics)``; metric
     values are Python numbers or 0-d tensors.  ``cc``: the per-bias-point
     cache of the blocked transport operator
-    (``current.assemble_transport_cache``, plus the static band)."""
+    (``current.assemble_transport_cache``, plus the static band); ``heat``:
+    the local heat model (``heat.build_heat_model``), needed only with
+    ``solve_heating_local``."""
     check_ported(params)
     metrics: Dict = {}
     if params.solve_potential:
@@ -72,4 +63,9 @@ def superstep_impl(
             geom, params, state, Vd, cc=cc, allow_skip=True
         )
         metrics.update(m)
+        # heat runs on the power of the last transport solve, also after a
+        # skipped one (power and P_tot then stay in the state)
+        if params.solve_heating_global or params.solve_heating_local:
+            state, m = heat_mod.update_temperature(geom, params, heat, state, step_time)
+            metrics.update(m)
     return state, step_time, metrics

@@ -191,3 +191,75 @@ def test_cuda_window_block(pbc):
     np.testing.assert_allclose(T.cpu().numpy(), ref.cpu().numpy(), rtol=0,
                                atol=1e-5 * float(ref.abs().max()))
     assert bool((T[nv - 5:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("Vd", [2.0, -1.5, 0.0])
+@pytest.mark.parametrize("n", [300, 1153])
+def test_cuda_fly_pdisp(n, Vd, pbc):
+    """Dissipation row sums: atol 1e-5 * max|plain| (f32 sums in another
+    order, FMA); Vd = 0 gives exact zeros; two launches on the same input
+    give the same bits (no float atomics)."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_pdisp, wkb_fly_pdisp_plain
+
+    pos, cb, rng = _points(n, 42)
+    ms = rng.standard_normal(n).astype(np.float32) * 1e-10
+    ms = torch.as_tensor(ms + np.abs(ms.min()), device="cuda")
+    env = _env(pbc)
+    before = wkb_fly_pdisp.launches
+    row = wkb_fly_pdisp(pos, cb, ms, Vd, env)
+    row2 = wkb_fly_pdisp(pos, cb, ms, Vd, env)
+    ref = wkb_fly_pdisp_plain(pos, cb, ms, Vd, env)
+    torch.cuda.synchronize()
+    assert wkb_fly_pdisp.launches == before + 2
+    assert row.dtype == torch.float32 and row.shape == (n,)
+    assert torch.equal(row, row2)
+    if Vd == 0.0:
+        assert not row.any() and not ref.any()
+        return
+    assert float(ref.abs().max()) > 0
+    np.testing.assert_allclose(row.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_heated_solve_launches_pdisp_once():
+    """update_power with a heating flag and the on-the-fly metal block
+    launches the dissipation kernel once per solve; the site power agrees
+    with the CPU path's to 1e-5 of its largest entry (two mixed solves at
+    tolerance 1e-11)."""
+    _need_card()
+    import dataclasses
+
+    from devicekmc_tpu_torch.config import KMCConfig
+    from devicekmc_tpu_torch.engine import Simulation
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_pdisp
+    from devicekmc_tpu_torch.physics import current, potential
+    from devicekmc_tpu_torch.structure import make_test_structure
+
+    s = make_test_structure(nx_contact=2, nx_oxide=8, ny=4, nz=4, seed=11)
+    cfg = KMCConfig(
+        lattice=list(s.lattice), nn_dist=3.0,
+        num_atoms_first_layer=s.num_atoms_first_layer,
+        num_layers_contact=s.num_layers_contact,
+        num_atoms_contact=s.num_atoms_contact, layers=s.layers,
+        solve_potential=True, solve_current=True, solve_heating_global=True,
+        perturb_structure=True, pristine=True, initial_vacancy_concentration=0.08,
+        A=1e-18, rnd_seed=3, precision="mixed", transport="blocked",
+        transport_cc="fly", transport_tol=1e-11, V_switch=[10.0], t_switch=[1e30],
+    )
+    power = {}
+    for device in ("cuda", "cpu"):
+        sim = Simulation(dataclasses.replace(cfg), elements=s.elements, coords=s.coords,
+                         device=device)
+        st, _ = potential.solve_cb_edge(sim.geom, sim.params, sim.state, 10.0)
+        before = wkb_fly_pdisp.launches
+        st, m = current.update_power(sim.geom, sim.params, st, 10.0)
+        st, m = current.update_power(sim.geom, sim.params, st, 10.0)
+        assert wkb_fly_pdisp.launches == before + (2 if device == "cuda" else 0)
+        assert m["transport_converged"] and st.P_tot > 0
+        power[device] = st.power.cpu().numpy()
+    np.testing.assert_allclose(power["cuda"], power["cpu"], rtol=0,
+                               atol=1e-5 * np.abs(power["cpu"]).max())

@@ -324,20 +324,29 @@ def test_update_power_f64_matches_jax(dev):
 
 
 def test_unported_options_raise(dev):
+    """The options that used to raise "not ported" now run: dense transport,
+    global and local heating pass check_ported and solve; only
+    transport_bf16_inner still raises, naming its ROADMAP item."""
     from devicekmc_tpu_torch.physics import current as tcur
     from devicekmc_tpu_torch.superstep import check_ported
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcur.update_power(dev["tg"], dataclasses.replace(dev["tbase"], transport="dense"),
-                          dev["ts"], VD)
+    dense = dataclasses.replace(dev["tbase"], transport="dense", tunnel_int_steps=256)
+    st, m = tcur.update_power(dev["tg"], dense, dev["ts"], VD)
+    assert m["transport_converged"] and st.I_macro > 0
     for kw in (dict(solve_heating_global=True), dict(solve_heating_local=True),
-               dict(transport="dense"), dict(transport_bf16_inner=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_ported(dataclasses.replace(dev["tbase"], **kw))
-    with pytest.raises(NotImplementedError, match="heat"):
+               dict(transport="dense")):
+        check_ported(dataclasses.replace(dev["tbase"], **kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 2"):
+        check_ported(dataclasses.replace(dev["tbase"], transport_bf16_inner=True))
+    with pytest.raises(NotImplementedError, match="transport_bf16_inner"):
         tcur.update_power_blocked(
-            dev["tg"], dataclasses.replace(dev["tbase"], solve_heating_global=True),
+            dev["tg"], dataclasses.replace(dev["tbase"], transport_bf16_inner=True),
             dev["ts"], VD)
+    st, m = tcur.update_power_blocked(
+        dev["tg"], dataclasses.replace(dev["tbase"], solve_heating_global=True),
+        dev["ts"], VD)
+    assert float(st.power.abs().max()) > 0 and st.P_tot > 0
+    assert m["Total dissipated power [mW]"] == st.P_tot * 1e3
 
 
 def test_resolvers_match_jax(dev):

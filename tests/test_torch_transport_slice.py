@@ -1,5 +1,6 @@
 """The transport slice end to end: Simulation.run_bias_point with
-``solve_current`` on (blocked transport, mixed precision, heating off)
+``solve_current`` on (blocked transport, mixed precision, heating off;
+tests/test_torch_heat_slice.py has heating on)
 through both packages on the small stack, step by step; the
 ``tunnel_int_steps`` growth redo; the command line."""
 
@@ -178,8 +179,9 @@ def test_band_not_built_warns_and_runs_on_the_ell_product(tmp_path, monkeypatch)
 
 def test_cli_runs_with_current_on_cpu(tmp_path):
     """solve_current = 1 with transport = blocked runs from the command line
-    and logs the current; heating and dense transport raise
-    NotImplementedError naming the ROADMAP item."""
+    and logs the current; so do dense transport and heating (with the
+    temperature and power lines); transport_bf16_inner still raises
+    NotImplementedError naming its ROADMAP item."""
     path, n = _write_inputs(tmp_path)
     base = path.read_text().replace("solve_current = 0", "solve_current = 1")
     path.write_text(base + "transport = blocked\ntransport_cc = fly\n"
@@ -195,9 +197,17 @@ def test_cli_runs_with_current_on_cpu(tmp_path):
     assert out.count("KMC step count:") == 2
     assert out.count("Current [uA]:") == 2 and "cg_iters_power:" in out
     assert "Z - calculation time - CB edge [s]:" in out
-    for extra in ("transport = dense\n", "solve_heating_global = 1\n",
-                  "transport_bf16_inner = 1\n"):
+    for extra, heated in (("transport = dense\n", False),
+                          ("solve_heating_global = 1\nA = 1e-18\n", True)):
         path.write_text(base + "transport = blocked\n" + extra)
         r = run()
-        assert r.returncode != 0
-        assert "NotImplementedError" in r.stderr and "ROADMAP" in r.stderr
+        assert r.returncode == 0, r.stderr[-2000:]
+        out = (tmp_path / "out" / "output.txt").read_text()
+        assert out.count("Current [uA]:") == 2
+        assert out.count("Global temperature [K]:") == (2 if heated else 0)
+        assert out.count("Total dissipated power [mW]:") == (2 if heated else 0)
+    path.write_text(base + "transport = blocked\ntransport_bf16_inner = 1\n")
+    r = run()
+    assert r.returncode != 0
+    assert "NotImplementedError" in r.stderr and "ROADMAP" in r.stderr
+    assert "item 2 (the remaining run modes)" in r.stderr

@@ -2,23 +2,27 @@
 """Where the time of the port's superstep goes on one CUDA card.
 
     python3 tools/profile_torch_superstep.py [--sites 110000] [--steps 6]
-                                             [--transport [--ell] [--stored]]
+                                             [--transport [--ell] [--stored]
+                                              [--heat [--local]]]
 
 Builds the headline configuration of chip_smoke.py (synthetic crossbar,
 mixed precision, the CUDA kernels, Vd = 1 V), or with ``--transport`` its
 transport configuration (blocked transport, on-the-fly metal block, heating
 off; ``--ell`` keeps the ELL gather in the f32 inner matvec instead of the
 banded operator, ``--stored`` stores the metal block instead of re-deriving
-it), builds the kernels, runs the cold pre-solves and two warm-up supersteps,
-then:
+it; ``--heat`` turns Joule heating on: the global model, or with ``--local``
+the matrix-free local model with symmetric contact spans), builds the
+kernels, runs the cold pre-solves and two warm-up supersteps, then:
 
 1. host-clock phase breakdown over ``--steps`` supersteps, with a device
    synchronize after each phase: charge rule, boundary solve, Poisson,
    rate table, event loop (the loop's time is the events phase minus a
    separate rate-table build of the same state); with ``--transport`` also
    the transport phase, split into operator assembly (a separate assembly
-   of the same state) and the rest (set-up and CG), with the skipped steps
-   listed apart;
+   of the same state) and the rest (set-up and CG; with ``--heat`` the
+   dissipated-power extraction is timed apart, on the solved potentials),
+   with the skipped steps listed apart; with ``--heat`` also the heat phase,
+   with the local model's branch, substeps and CG iterations;
 2. torch.profiler over ``--steps`` further supersteps: device time by
    kernel, and the device's busy share of the wall time.
 
@@ -45,7 +49,13 @@ def main():
                     help="with --transport: transport_banded off")
     ap.add_argument("--stored", action="store_true",
                     help="with --transport: transport_cc stored")
+    ap.add_argument("--heat", action="store_true",
+                    help="with --transport: solve_heating_global on")
+    ap.add_argument("--local", action="store_true",
+                    help="with --heat: the local matrix-free model instead")
     args = ap.parse_args()
+    if (args.heat and not args.transport) or (args.local and not args.heat):
+        ap.error("--heat needs --transport, --local needs --heat")
 
     import torch
 
@@ -53,7 +63,7 @@ def main():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     from chip_smoke import VD_MAIN, gpu_line, synthetic_crossbar
-    from devicekmc_tpu_torch.physics import charge, current, events, potential
+    from devicekmc_tpu_torch.physics import charge, current, events, heat, potential
 
     from devicekmc_tpu_torch.ops import _build
 
@@ -66,7 +76,9 @@ def main():
         overrides["transport_cc"] = "stored"
     sim = synthetic_crossbar(args.sites, "cuda",
                              os.path.join(ROOT, "build", "profile_superstep"),
-                             current=args.transport, **overrides)
+                             current=args.transport,
+                             heat=("local" if args.local else "global") if args.heat
+                             else None, **overrides)
     sim.run_bias_point(VD_MAIN, 1e30, max_steps=2)
     for pre in sim.presolve_log:
         print(f"cold {pre['phase']} solve: {pre['cg_iters']} CG iterations, "
@@ -81,7 +93,9 @@ def main():
 
     phases = {k: [] for k in ("charge", "boundary", "poisson", "rate_table",
                               "event_loop", "superstep")}
-    transport = {k: [] for k in ("assembly", "setup_and_cg", "skipped")}
+    transport = {k: [] for k in ("assembly", "setup_and_cg", "power_extraction",
+                                 "skipped")}
+    heat_ms, heat_log = [], []
     cg_iters = []
     n_events = []
     state = sim.state
@@ -121,6 +135,25 @@ def main():
                 transport["assembly"].append(t7 - t6)
                 transport["setup_and_cg"].append((t6 - t5) - (t7 - t6))
                 cg_iters.append(int(m["cg_iters_power"]))
+                if args.heat:
+                    # the power block alone, on the potentials just solved
+                    blk = current.assemble_X_blocks(geom, params, before, cc=sim._cc["cc"],
+                                                    band=sim._cc.get("band"))
+                    M = state.virtual_potentials * current.G0
+                    t8 = sync()
+                    current._site_power(geom, params, state,
+                                        current._pdisp_blocked(blk, M[2:], Vd))
+                    t9 = sync()
+                    transport["power_extraction"].append(t9 - t8)
+                    transport["setup_and_cg"][-1] -= t9 - t8
+            if args.heat:
+                t10 = sync()
+                state, _ = heat.update_temperature(geom, params, sim.heat, state,
+                                                   res.step_time)
+                t11 = sync()
+                heat_ms.append(t11 - t10)
+                heat_log.append(dict(heat.last_local))
+                phases["superstep"][-1] += t11 - t10
     print(f"host-clock phases over {args.steps} supersteps "
           f"(events per step {n_events}), median ms:")
     for k, v in phases.items():
@@ -135,6 +168,15 @@ def main():
             if v:
                 print(f"  {k:<12} {statistics.median(v) * 1e3:9.3f}   "
                       f"(min {min(v) * 1e3:.3f}, max {max(v) * 1e3:.3f})")
+    if args.heat:
+        print(f"heat phase ({'local cg' if args.local else 'global'} model): median "
+              f"{statistics.median(heat_ms) * 1e3:.3f} ms (min {min(heat_ms) * 1e3:.3f}, "
+              f"max {max(heat_ms) * 1e3:.3f}); T_bg {state.T_bg:.12g} K, P_tot "
+              f"{state.P_tot:.6g} W")
+        if args.local:
+            for ms, ll in zip(heat_ms, heat_log):
+                print(f"  {ms * 1e3:9.3f} ms: {ll.get('branch')} branch, "
+                      f"{ll.get('substeps')} substeps, {ll.get('cg_iters')} CG iterations")
     sim.state = state
 
     from torch.profiler import ProfilerActivity, profile
