@@ -6,7 +6,8 @@
 Phases (any failed check raises and the exit code is non-zero):
 
 1. builds the five CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
-   sm_90a, one nvcc per source, in parallel);
+   sm_90a, one nvcc per source, in parallel) and prints ptxas's registers
+   and shared memory per kernel;
 2. small-device checks: the 256-site test stack on the card and through the
    port's CPU path, with the headline modules (mixed precision, Vd = 2.5 V,
    4 supersteps: event counts equal, potentials within 1e-5 of their scale),
@@ -32,9 +33,13 @@ Phases (any failed check raises and the exit code is non-zero):
    transport kernels be launched.  Then each transport kernel is held
    against its plain version at this path's shapes (the band, the metal
    atoms and CB edges, the vacancy bucket of the run) and timed beside its
-   bound and a library call; the on-the-fly products are also measured at
+   bound and a library call; the on-the-fly products are also held against
+   them at a ragged width (2,001 atoms of both contacts) and measured at
    the reference crossbar's 24,768 interior-metal atoms against the stored
-   block;
+   block, with the share of pairs that pass the CB-edge test and of 32 x 32
+   chunks the kernels do not skip, and per on-the-fly kernel ptxas's
+   registers and shared bytes and the device launches of one call as
+   torch.profiler counts them (it must be the one kernel);
 5. heat path: the transport configuration with solve_heating_global on and
    A = ly * lz, counters set to 0 just before: cold solves, 8 supersteps;
    every transport solve must converge, the site power be non-zero on
@@ -437,17 +442,102 @@ def _close(name, got, ref, tol):
     return err
 
 
+# FP32 operations of the CB-edge part of the eligibility test (difference,
+# absolute value, comparison): what a pair needs when it fails that test
+WKB_OPS_DE_TEST = 3
+
+
+def device_launches(fn):
+    """How many device kernels one call of ``fn`` launches, as torch.profiler
+    sees it: the call's kernel-launch records of the CUDA runtime
+    (``cudaLaunchKernel`` and its kin; copies and memsets are other calls),
+    and the names of the kernels on the device side where their records came
+    back with the trace (they can arrive after it ends).  The call is made
+    once before, so that nothing is built or allocated for the first time
+    under the profiler.  (None, []) if the trace holds no CUDA call at all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    if not any(e.name.startswith("cuda") for e in events):
+        return None, []
+    names = [e.name for e in events if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return sum(e.name.startswith(("cudaLaunch", "cuLaunch")) for e in events), names
+
+
+def fly_kernel_facts(kernel, targs, fn):
+    """What the build and one profiled call say of the fly kernel
+    ``kernel<targs>``: ptxas's registers and static shared bytes of that
+    entry (found by its mangled template arguments, bool then int), and the
+    device kernels one call of ``fn`` launches, which must be that kernel
+    alone (the partial sums are added inside it)."""
+    from devicekmc_tpu_torch.ops import _build
+
+    mangled = kernel + ("I" + "".join(
+        f"L{'b' if isinstance(a, bool) else 'i'}{int(a)}E" for a in targs) + "E"
+        if targs else "")
+    found = [v for k, v in _build.kernel_resources("wkb_fly").items() if mangled in k]
+    regs, smem = found[0] if len(found) == 1 else (None, None)
+    count, names = device_launches(fn)
+    if count is not None:
+        check(count == 1 and all(kernel in nm for nm in names),
+              f"{kernel}: one call made {count} launches, of {names}")
+    label = kernel + (f"<{','.join(str(int(a)) for a in targs)}>" if targs else "")
+    return dict(kernel=label, registers=regs, shared_bytes=smem, device_launches=count)
+
+
+def fly_pair_stats(cb, ctol):
+    """What this data asks of the fly kernels: ordered pairs, those that pass
+    the CB-edge test |dE| > ctol (the others are exact zeros whatever their
+    distance), and the 32 x 32 chunks the kernels do not skip (all of them
+    for the row form and the matmat, the upper triangle for the symmetric
+    form)."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.wkb_fly import chunk_skip_plain
+
+    n = cb.shape[0]
+    ok = 0
+    for r0 in range(0, n, 4096):
+        ok += int(((cb[r0:r0 + 4096, None] - cb[None, :]).abs() > ctol).sum())
+    live = ~chunk_skip_plain(cb, cb, ctol)
+    return dict(pairs=n * n, ok=ok, chunks=live.numel(), live=int(live.sum()),
+                live_sym=int(torch.triu(live).sum()))
+
+
+def _wkb_ops(pairs, ok_pairs, ops_ok):
+    """FP32 operations this data needs: the CB-edge test for every pair, the
+    rest of the pair value and its uses only where the test passes."""
+    return pairs * WKB_OPS_DE_TEST + ok_pairs * (ops_ok - WKB_OPS_DE_TEST)
+
+
 def fly_checks(pos, cb, env, K, tag, plain_reps=5):
     """The on-the-fly matvec (both forms) and matmat against their plain
-    versions and the stored block, timed beside their bounds."""
+    versions and the stored block, timed beside their bounds: the data-sheet
+    bound of the operations this data needs (bound_ms; bound_all_pairs_ms
+    counts every pair in full, as the table did before the kernels skipped
+    any), with ptxas's registers and shared bytes and the profiler's count
+    of device launches a call.  The plain version is also held against the
+    stored product, to show how much of the kernels' distance to it is the
+    stored block's own (its pow form, cuBLAS's order of summation)."""
     import torch
 
     from devicekmc_tpu_torch.ops.wkb_fly import (
-        wkb_fly_matmat, wkb_fly_matmat_plain, wkb_fly_matvec, wkb_fly_matvec_plain,
+        matmat_split, matvec_col_split, wkb_fly_matmat, wkb_fly_matmat_plain,
+        wkb_fly_matvec, wkb_fly_matvec_plain,
     )
     from devicekmc_tpu_torch.physics.current import tunnel_block, wkb_single_T
 
     n = pos.shape[0]
+    st = fly_pair_stats(cb, env["ctol"])
+    S = matvec_col_split(n, torch.cuda.get_device_properties(0).multi_processor_count)
     g = torch.Generator(device="cuda").manual_seed(n)
     x = torch.randn(n, generator=g, device="cuda")
     X = torch.randn((n, K), generator=g, device="cuda")
@@ -465,38 +555,69 @@ def fly_checks(pos, cb, env, K, tag, plain_reps=5):
         check(torch.equal(y, wkb_fly_matvec(pos, cb, x, env, symmetric=sym)),
               f"fly matvec {tag} sym={sym}: two launches differ")
         pairs = n * (n + 1) // 2 if sym else n * n
-        bound, by = _bound(pairs * (ops1 + (4 if sym else 2)), io)
+        ok_pairs = st["ok"] // 2 if sym else st["ok"]
+        uses = 4 if sym else 2
+        bound, by = _bound(_wkb_ops(pairs, ok_pairs, ops1 + uses), io)
         rec[sym] = dict(
             err=max(err, err_T), bound_ms=bound, bound_by=by,
-            ms=time_ms(lambda: wkb_fly_matvec(pos, cb, x, env, symmetric=sym)))
+            bound_all_pairs_ms=_bound(pairs * (ops1 + uses), io)[0],
+            ms=time_ms(lambda: wkb_fly_matvec(pos, cb, x, env, symmetric=sym)),
+            **fly_kernel_facts("fly_matvec_tiles", (sym, S),
+                               lambda: wkb_fly_matvec(pos, cb, x, env, symmetric=sym)))
     rec["plain_ms"] = time_ms(lambda: wkb_fly_matvec_plain(pos, cb, x, env),
                               reps=plain_reps, rounds=3, warmup=1)
     rec["library_ms"] = time_ms(lambda: T @ x)
     Y = wkb_fly_matmat(pos, cb, X, env)
     Yref = wkb_fly_matmat_plain(pos, cb, X, env)
-    err = max(_close(f"fly matmat {tag}", Y, Yref, 1e-5),
-              _close(f"fly matmat {tag} vs stored", Y, T @ X, 1e-5))
+    err_plain = _close(f"fly matmat {tag}", Y, Yref, 1e-5)
+    err_stored = _close(f"fly matmat {tag} vs stored", Y, T @ X, 1e-5)
+    err = max(err_plain, err_stored)
+    plain_vs_stored = float((Yref - T @ X).abs().max())
+    check(torch.equal(Y, wkb_fly_matmat(pos, cb, X, env)),
+          f"fly matmat {tag}: two launches differ")
     err = max(err, _close(f"fly matmat {tag} KB=8", wkb_fly_matmat(pos, cb, X, env, KB=8),
                           Yref, 1e-5))
     # what Y = T X needs: one pair value and K multiply-adds a pair, however
     # the kernel groups the columns
-    bound, by = _bound(n * n * (ops1 + 2 * K), n * 16 + 2 * n * K * 4)
+    io_mm = n * 16 + 2 * n * K * 4
+    bound, by = _bound(_wkb_ops(n * n, st["ok"], ops1 + 2 * K), io_mm)
     rec["mm"] = dict(
         err=err, bound_ms=bound, bound_by=by,
+        bound_all_pairs_ms=_bound(n * n * (ops1 + 2 * K), io_mm)[0],
+        err_plain=err_plain, err_stored=err_stored, plain_vs_stored=plain_vs_stored,
+        n_split=matmat_split(n),
+        **fly_kernel_facts("fly_matmat_tiles", (24,),
+                           lambda: wkb_fly_matmat(pos, cb, X, env)),
         ms=time_ms(lambda: wkb_fly_matmat(pos, cb, X, env)),
         ms_kb8=time_ms(lambda: wkb_fly_matmat(pos, cb, X, env, KB=8)),
         plain_ms=time_ms(lambda: wkb_fly_matmat_plain(pos, cb, X, env),
                          reps=plain_reps, rounds=3, warmup=1),
         library_ms=time_ms(lambda: T @ X))
-    log(f"wkb_fly {tag} [n_mp={n}, stored block {T.numel() * 4 / 2**30:.2f} GiB]: "
-        f"matvec symmetric {rec[True]['ms']:.4f} ms (bound {rec[True]['bound_ms']:.4f}), "
-        f"row form {rec[False]['ms']:.4f} ms (bound {rec[False]['bound_ms']:.4f}), "
+    rec["stats"] = dict(
+        st, ok_share=st["ok"] / st["pairs"], live_share=st["live"] / st["chunks"])
+    scale = float(ref.abs().max())
+
+    def line(r):
+        return (f"{r['ms']:.4f} ms (data-sheet bound {r['bound_ms']:.4f}, with every pair "
+                f"in full {r['bound_all_pairs_ms']:.4f}; {r['kernel']}: {r['registers']} "
+                f"registers, {r['shared_bytes']} bytes shared, {r['device_launches']} "
+                f"device launch a call by the profiler)")
+
+    log(f"wkb_fly {tag} [n_mp={n}, stored block {T.numel() * 4 / 2**30:.2f} GiB; "
+        f"{100 * rec['stats']['ok_share']:.2f} % of the pairs pass |dE| > ctol, "
+        f"{100 * rec['stats']['live_share']:.2f} % of the 32 x 32 chunks are not "
+        f"skipped]: matvec symmetric {line(rec[True])}, row form {line(rec[False])}, "
         f"plain {rec['plain_ms']:.4f} ms, stored T @ x {rec['library_ms']:.4f} ms, "
-        f"max err {max(rec[True]['err'], rec[False]['err']):.3e}; matmat K={K} "
-        f"{rec['mm']['ms']:.4f} ms in one sweep (bound {rec['mm']['bound_ms']:.4f}; in "
-        f"groups of 8 columns {rec['mm']['ms_kb8']:.4f} ms), plain "
+        f"max err {max(rec[True]['err'], rec[False]['err']):.3e} = "
+        f"{max(rec[True]['err'], rec[False]['err']) / scale:.3e} of the largest entry; "
+        f"matmat K={K} in one sweep, {rec['mm']['n_split']} blocks a row tile, "
+        f"{line(rec['mm'])} (in groups of 8 columns {rec['mm']['ms_kb8']:.4f} ms), plain "
         f"{rec['mm']['plain_ms']:.4f} ms, stored T @ X {rec['mm']['library_ms']:.4f} ms, "
-        f"max err {rec['mm']['err']:.3e}")
+        f"max err {rec['mm']['err']:.3e} = {rec['mm']['err'] / float(Yref.abs().max()):.3e} "
+        f"of the largest entry ({err_plain / float(Yref.abs().max()):.3e} against the plain "
+        f"version, {err_stored / float(Yref.abs().max()):.3e} against the stored product, "
+        f"from which the plain version itself is "
+        f"{plain_vs_stored / float(Yref.abs().max()):.3e}); bit-equal launches")
     return rec
 
 
@@ -555,6 +676,12 @@ def transport_kernel_checks(sim):
     K = params.coarse_slabs * max(1, params.coarse_yz) ** 2
     mpos, mcb = blk["fly"]["mpos"], blk["fly"]["mcb"]
     out["fly"] = fly_checks(mpos, mcb, env, K, "transport path")
+    # a width that is no multiple of the tile, the chunk or the warp, with
+    # atoms of both contacts: the first 1,000 and the last 1,001
+    rag = torch.cat([torch.arange(1000, device="cuda"),
+                     torch.arange(mpos.shape[0] - 1001, mpos.shape[0], device="cuda")])
+    out["fly_ragged"] = fly_checks(mpos[rag].contiguous(), mcb[rag].contiguous(), env, K,
+                                   "ragged width")
 
     # ---- window-integral block on the run's vacancy bucket ----
     ai = geom.atom_ind.long()
@@ -630,15 +757,22 @@ def pdisp_checks(pos, cb, env, tag, plain_reps=5):
                 lambda: _pdisp_rows_cols(T, ms64, ms64, 1.0), reps=plain_reps, rounds=3,
                 warmup=1)
         del T
-    bound, by = _bound(n * n * (WKB_OPS_PER_PAIR[own_pbc] + PDISP_EXTRA_OPS),
-                       n * 20 + n * 4)
+    st = fly_pair_stats(cb, env["ctol"])
+    ops_pair = WKB_OPS_PER_PAIR[own_pbc] + PDISP_EXTRA_OPS
+    bound, by = _bound(_wkb_ops(n * n, st["ok"], ops_pair), n * 20 + n * 4)
     rec.update(
         bound_ms=bound, bound_by=by,
+        bound_all_pairs_ms=_bound(n * n * ops_pair, n * 20 + n * 4)[0],
+        **fly_kernel_facts("fly_pdisp_tiles", (),
+                           lambda: wkb_fly_pdisp(pos, cb, ms, 1.0, env)),
         ms=time_ms(lambda: wkb_fly_pdisp(pos, cb, ms, 1.0, env)),
         plain_ms=time_ms(lambda: wkb_fly_pdisp_plain(pos, cb, ms, 1.0, env),
                          reps=plain_reps, rounds=3, warmup=1))
-    log(f"wkb_fly_pdisp {tag} [n_mp={n}]: {rec['ms']:.4f} ms (bound {bound:.4f} ms by "
-        f"{by}), plain {rec['plain_ms']:.4f} ms, sweep of the stored block "
+    log(f"wkb_fly_pdisp {tag} [n_mp={n}]: {rec['ms']:.4f} ms (data-sheet bound "
+        f"{bound:.4f} ms by {by}, with every pair in full {rec['bound_all_pairs_ms']:.4f}; "
+        f"{rec['registers']} registers, {rec['shared_bytes']} bytes shared, "
+        f"{rec['device_launches']} device launch a call by the profiler), plain "
+        f"{rec['plain_ms']:.4f} ms, sweep of the stored block "
         f"{rec['stored_sweep_ms']:.4f} ms, max err {rec['err']:.3e} = {rec['rel_err']:.3e} "
         f"of the largest sum (both signs, PBC off "
         f"and on, against the plain version and the stored sweep); bit-equal launches")
@@ -852,6 +986,8 @@ def transport_path(out_root):
     ref = reference_width_fly(sim)
     fly, mm, ref_mm = k["fly"], k["fly"]["mm"], ref["mm"]
     n_mp = int(g.atom_metalp_idx.shape[0])
+    facts = ("bound_all_pairs_ms", "kernel", "registers", "shared_bytes", "device_launches")
+    pick = lambda r: {key: r[key] for key in facts}
     return [
         {
             "name": "banded_matvec", "route": "cuda",
@@ -874,8 +1010,14 @@ def transport_path(out_root):
             "library_ms": fly["library_ms"],
             "shape": f"n_mp={n_mp}, symmetric form (the default)",
             "ms_row_form": fly[False]["ms"], "bound_ms_row_form": fly[False]["bound_ms"],
+            **pick(fly[True]), "row_form": pick(fly[False]), "pair_stats": fly["stats"],
+            "ragged_width": {"n_mp": 2001,
+                             "max_abs_err": max(k["fly_ragged"][True]["err"],
+                                                k["fly_ragged"][False]["err"],
+                                                k["fly_ragged"]["mm"]["err"])},
             "ref_width": {
                 "n_mp": REF_N_MP, "ms": ref[True]["ms"], "bound_ms": ref[True]["bound_ms"],
+                **pick(ref[True]), "row_form": pick(ref[False]), "pair_stats": ref["stats"],
                 "ms_row_form": ref[False]["ms"],
                 "bound_ms_row_form": ref[False]["bound_ms"],
                 "plain_ms": ref["plain_ms"], "library_ms": ref["library_ms"],
@@ -890,12 +1032,17 @@ def transport_path(out_root):
             "ms": mm["ms"], "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
             "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
             "shape": f"n_mp={n_mp}, K={p.coarse_slabs * max(1, p.coarse_yz) ** 2}, one sweep",
-            "ms_kb8": mm["ms_kb8"],
+            "ms_kb8": mm["ms_kb8"], "n_split": mm["n_split"], **pick(mm),
+            "err_vs_plain": mm["err_plain"], "err_vs_stored": mm["err_stored"],
+            "plain_vs_stored": mm["plain_vs_stored"],
             "ref_width": {
                 "n_mp": REF_N_MP, "ms": ref_mm["ms"], "ms_kb8": ref_mm["ms_kb8"],
+                "n_split": ref_mm["n_split"], **pick(ref_mm),
                 "bound_ms": ref_mm["bound_ms"],
                 "plain_ms": ref_mm["plain_ms"], "library_ms": ref_mm["library_ms"],
-                "max_abs_err": ref_mm["err"],
+                "max_abs_err": ref_mm["err"], "err_vs_plain": ref_mm["err_plain"],
+                "err_vs_stored": ref_mm["err_stored"],
+                "plain_vs_stored": ref_mm["plain_vs_stored"],
             },
         },
         {
@@ -1055,6 +1202,9 @@ def heat_run(out_root, model, n_steps, wrappers, device="cuda", n_sites=N_SITES)
     return sim, launches
 
 
+PDISP_FACTS = ("bound_all_pairs_ms", "registers", "shared_bytes", "device_launches")
+
+
 def heat_path(out_root):
     """Phase 5: the heat runs (global, then local), then the dissipation
     kernel's checks; returns every kernel's launches on the global run and
@@ -1097,8 +1247,10 @@ def heat_path(out_root):
         "shape": f"n_mp={n_mp}, all n^2 pairs",
         "stored_sweep_ms": rec["stored_sweep_ms"],
         "launches_local_heat_run": local_launches["wkb_fly_pdisp"],
+        **{key: rec[key] for key in PDISP_FACTS},
         "ref_width": {
             "n_mp": REF_N_MP, "ms": ref["ms"], "bound_ms": ref["bound_ms"],
+            **{key: ref[key] for key in PDISP_FACTS},
             "plain_ms": ref["plain_ms"], "stored_sweep_ms": ref["stored_sweep_ms"],
             "max_abs_err": ref["err"], "max_err_of_largest_sum": ref["rel_err"],
         },
@@ -1116,10 +1268,11 @@ def main():
     from devicekmc_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
-    _build.build(["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window"])
+    libs = ["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window"]
+    _build.build(libs)
     log(f"built kernels in {time.perf_counter() - t_start:.1f} s")
-    for name, text in _build.build_logs.items():
-        regs = [l.strip() for l in text.splitlines() if "registers" in l]
+    for name in libs:
+        regs = [l.strip() for l in _build.build_log(name).splitlines() if "registers" in l]
         log(f"  {name}: {regs}")
 
     out_root = os.path.join(ROOT, "build", "chip_smoke")

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -41,7 +42,9 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
-#: nvcc's output (ptxas register and shared-memory report) per built source
+#: nvcc's output (ptxas register and shared-memory report) per built source;
+#: kept beside the library too (:func:`build_log`), since ptxas reports only
+#: while it compiles
 build_logs: Dict[str, str] = {}
 
 
@@ -59,12 +62,40 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".log")
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for ``csrc/<name>.cu``: of this process's build, else
+    as kept beside a library that an earlier process built ("" if neither)."""
+    if name not in build_logs:
+        kept = _log_path(_lib_path(name))
+        build_logs[name] = kept.read_text() if kept.exists() else ""
+    return build_logs[name]
+
+
+def kernel_resources(name: str) -> Dict[str, tuple]:
+    """{mangled kernel name: (registers, static shared bytes)} of
+    ``csrc/<name>.cu`` from ptxas's report."""
+    out, cur = {}, None
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), int(m.group(2) or 0))
+            cur = None
+    return out
+
+
 def build(names: Iterable[str]) -> None:
     """Compile every library of ``names`` not built yet, all at once."""
     jobs = []
     for name in names:
         out = _lib_path(name)
-        if out.exists():
+        if out.exists() and _log_path(out).exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -79,6 +110,7 @@ def build(names: Iterable[str]) -> None:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            _log_path(out).write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

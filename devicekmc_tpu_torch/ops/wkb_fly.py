@@ -11,13 +11,26 @@ conduction-band edges inside the product (negated WKB transmission,
 trapezoidal or triangular barrier; eligible when ``|dE| > ctol`` and the pair
 are not neighbours), in f32.
 
-Bound on the card: operations (about 30 FP32 operations a pair, 38 under
-PBC, with one exp, two square roots and a division).  See the kernel source
-for the design.
+Two bounds on the card: the data-sheet bound (about 30 FP32 operations a
+pair, 38 under PBC, against 67 TFLOP/s; ``chip_smoke.py`` prints it beside the
+times) and the issue bound (the compiled inner loop's instructions and
+special-function instructions a pair against the SMs' issue slots;
+``tools/fly_sass.py`` works it out from the disassembly).
+The design, in the kernel source's header: a short pair value (launch
+constants hoisted, approximate square roots and division for the value,
+full-accuracy exp; which entries are exact zeros is decided with the plain
+version's correctly rounded operations), column chunks of 32 that a warp leaves when their CB-edge range proves
+every entry an exact zero (:func:`chunk_skip_plain` is that test in
+PyTorch), a symmetric matvec over the upper-triangle tiles whose column sums
+travel through the lanes of a warp, a matmat with the X tile read as float4,
+and one launch a call: the partial sums of a strip are added in a fixed order
+by the block that draws the strip's last integer ticket, so two calls give
+the same bits.
 
 :func:`wkb_fly_matvec`, :func:`wkb_fly_matmat` and :func:`wkb_fly_pdisp`
 launch the kernels for CUDA tensors and take the plain versions (``*_plain``)
-only for CPU tensors.  Each wrapper's ``launches`` counts its kernel launches.  ``env`` is the dict of
+only for CPU tensors.  Each wrapper's ``launches`` counts its calls that
+launched (one device launch each).  ``env`` is the dict of
 ``physics.current.wkb_env``.
 """
 
@@ -30,10 +43,17 @@ import torch
 from . import _build
 
 _TILE = 128
+#: columns of a skip chunk (the lanes of a warp)
+_CHUNK = 32
 #: column-group widths the matmat kernel is built for
 _MATMAT_KB = (4, 8, 24)
-#: blocks per row tile of the matmat kernel (column tiles dealt round-robin)
-_MATMAT_SPLIT = 8
+#: blocks per row tile of the matmat kernel, at most
+_MATMAT_SPLIT = 16
+#: tiles a streaming multiprocessor that the matvec's grid aims for
+_TILES_PER_SM = 8
+#: streaming multiprocessors of an H100 (SXM): what :func:`matvec_col_split`
+#: assumes when it is not told the card's count
+_H100_SMS = 132
 
 
 def pair_vals_plain(env, pos_r, cb_r, pos_c, cb_c) -> torch.Tensor:
@@ -62,6 +82,59 @@ def pair_vals_plain(env, pos_r, cb_r, pos_c, cb_c) -> torch.Tensor:
         torch.where(E2 < 0, torch.exp(s * e15), 0.0),
     )
     return torch.where(elig, -T, 0.0)
+
+
+def chunk_skip_plain(cb_r, cb_c, ctol) -> torch.Tensor:
+    """The kernels' skip test in PyTorch: [ceil(R/32), ceil(C/32)] bool, True
+    where a warp of 32 rows leaves a chunk of 32 columns because every row's
+    CB edge lies within ``ctol`` of the chunk's smallest and largest, in f32.
+    Every entry of :func:`pair_vals_plain` in a skipped chunk is an exact 0:
+    rounding is monotone, so ``|fl(a - b)| <= max(fl(a - min), fl(max - a))``."""
+    cr, cc = cb_r.float(), cb_c.float()
+    R, C = cr.shape[0], cc.shape[0]
+    nr, nc = -(-R // _CHUNK), -(-C // _CHUNK)
+    inf = float("inf")
+    pad = nc * _CHUNK - C
+    cmin = torch.nn.functional.pad(cc, (0, pad), value=inf).reshape(nc, _CHUNK).amin(dim=1)
+    cmax = torch.nn.functional.pad(cc, (0, pad), value=-inf).reshape(nc, _CHUNK).amax(dim=1)
+    mine = ((cr[:, None] - cmin[None, :]) <= ctol) & ((cmax[None, :] - cr[:, None]) <= ctol)
+    mine = torch.nn.functional.pad(mine, (0, 0, 0, nr * _CHUNK - R), value=True)
+    return mine.reshape(nr, _CHUNK, nc).all(dim=1)
+
+
+def matvec_col_split(n: int, n_sm: int = _H100_SMS) -> int:
+    """Warps-of-4 per tile of the matvec on a card of ``n_sm`` streaming
+    multiprocessors: 4 while the upper triangle alone holds too few tiles to
+    fill the card with one, else 1."""
+    nt = -(-n // _TILE)
+    return 4 if nt * (nt + 1) // 2 < 2 * _TILES_PER_SM * n_sm else 1
+
+
+def matmat_split(n: int) -> int:
+    """Blocks per row tile of the matmat (the column tiles are dealt to them
+    round-robin): 16 where there are as many column tiles, the fastest on an
+    H100 at 3,527 and at 24,768 atoms alike (fewer leave the card empty at
+    the first width and balance the skipped chunks worse at the second, more
+    lengthen the last block's sum over the slots)."""
+    return min(-(-n // _TILE), _MATMAT_SPLIT)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_tickets_cache = {}
+
+
+def _tickets(device, count: int) -> torch.Tensor:
+    """``count`` int32 tickets, zero between calls (the kernel that draws a
+    strip's last ticket sets it back), one buffer per device and stream."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _tickets_cache.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _tickets_cache[key] = buf
+    return buf
 
 
 def _row_chunk(n_cols: int) -> int:
@@ -125,7 +198,8 @@ def wkb_fly_matvec(pos: torch.Tensor, cb: torch.Tensor, x: torch.Tensor, env,
                    symmetric: bool = True) -> torch.Tensor:
     """y = T_cc @ x without materialising T_cc.  pos [n,3], cb [n] (J),
     x [n], all f32; returns [n] f32.  ``symmetric=True`` uses every
-    upper-triangle entry for its row and its column sum."""
+    upper-triangle entry for its row and its column sum.  One device launch
+    either way."""
     if pos.device.type == "cpu":
         return wkb_fly_matvec_plain(pos, cb, x, env)
     _check("wkb_fly_matvec", pos, cb, x, 1)
@@ -136,9 +210,11 @@ def wkb_fly_matvec(pos: torch.Tensor, cb: torch.Tensor, x: torch.Tensor, env,
     nt = -(-n // _TILE)
     part = torch.empty(nt * nt * _TILE, dtype=torch.float32, device=pos.device)
     fn = _fn("dkmc_wkb_fly_matvec",
-             [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P])
+             [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P])
     err = fn(pos.data_ptr(), cb.data_ptr(), x.data_ptr(), n, *_scalars(env),
-             int(bool(symmetric)), part.data_ptr(), y.data_ptr(),
+             int(bool(symmetric)), matvec_col_split(n, _sm_count(pos.device)),
+             part.data_ptr(),
+             _tickets(pos.device, nt).data_ptr(), y.data_ptr(),
              torch.cuda.current_stream(pos.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkb_fly_matvec kernel launch failed: cudaError {err}")
@@ -154,7 +230,8 @@ def wkb_fly_matmat(pos: torch.Tensor, cb: torch.Tensor, X: torch.Tensor, env,
     """Y = T_cc @ X for X [n, K] f32 (the deflation basis); the pair value is
     computed once per group of ``KB`` columns and contracted in FP32.  By
     default ``KB`` is the narrowest built width that holds all K columns (one
-    sweep over the pairs up to K = 24), else the widest."""
+    sweep over the pairs up to K = 24), else the widest; all groups run in
+    one device launch."""
     if pos.device.type == "cpu":
         return wkb_fly_matmat_plain(pos, cb, X, env)
     _check("wkb_fly_matmat", pos, cb, X, 2)
@@ -166,13 +243,15 @@ def wkb_fly_matmat(pos: torch.Tensor, cb: torch.Tensor, X: torch.Tensor, env,
     Y = torch.empty((n, K), dtype=torch.float32, device=pos.device)
     if n == 0 or K == 0:
         return Y
-    n_split = min(_MATMAT_SPLIT, -(-n // _TILE))
-    part = torch.empty(n_split * n * K, dtype=torch.float32, device=pos.device)
+    nt, groups = -(-n // _TILE), -(-K // KB)
+    n_split = matmat_split(n)
+    part = torch.empty(n_split * nt * _TILE * groups * KB, dtype=torch.float32,
+                       device=pos.device)
     fn = _fn("dkmc_wkb_fly_matmat",
-             [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P])
+             [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P])
     err = fn(pos.data_ptr(), cb.data_ptr(), X.data_ptr(), n, K, KB, *_scalars(env),
-             n_split, part.data_ptr(), Y.data_ptr(),
-             torch.cuda.current_stream(pos.device).cuda_stream)
+             n_split, part.data_ptr(), _tickets(pos.device, nt * groups).data_ptr(),
+             Y.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkb_fly_matmat kernel launch failed: cudaError {err}")
     wkb_fly_matmat.launches += 1
@@ -223,10 +302,10 @@ def wkb_fly_pdisp(pos: torch.Tensor, cb: torch.Tensor, ms: torch.Tensor, Vd,
     nt = -(-n // _TILE)
     part = torch.empty(nt * nt * _TILE, dtype=torch.float32, device=pos.device)
     fn = _fn("dkmc_wkb_fly_pdisp",
-             [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _F, _P, _P, _P])
+             [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _F, _P, _P, _P, _P])
     err = fn(pos.data_ptr(), cb.data_ptr(), ms.data_ptr(), n, *_scalars(env),
-             _vsgn(Vd), part.data_ptr(), row.data_ptr(),
-             torch.cuda.current_stream(pos.device).cuda_stream)
+             _vsgn(Vd), part.data_ptr(), _tickets(pos.device, nt).data_ptr(),
+             row.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkb_fly_pdisp kernel launch failed: cudaError {err}")
     wkb_fly_pdisp.launches += 1

@@ -122,13 +122,29 @@ def test_cuda_banded_matvec(R, m_pad, B, dtype, rtol, atol):
     np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=rtol, atol=atol)
 
 
+FLY_N = [1, 31, 128, 129, 300, 1153, 3527]
+
+
+def _assert_close_to_plain(got, ref):
+    """atol 1e-5 * max|plain| (f32 sums in another order, FMA, the value's
+    square roots and division within 2 ulp); an all-zero plain version
+    (n = 1: only the self pair) must be met exactly."""
+    scale = float(ref.abs().max())
+    if got.shape[0] > 1:
+        assert scale > 0
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-5 * scale)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pbc", [False, True])
 @pytest.mark.parametrize("symmetric", [False, True])
-@pytest.mark.parametrize("n", [300, 1153])
+@pytest.mark.parametrize("n", FLY_N)
 def test_cuda_fly_matvec(n, symmetric, pbc):
     """atol 1e-5 * max|plain| (f32 sums in another order, FMA); two launches
-    on the same input give the same bits."""
+    on the same input give the same bits.  The widths cover one row, less
+    than a warp, one tile exactly, one row more, ragged tiles and the
+    transport path's 3,527."""
     _need_card()
     from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matvec, wkb_fly_matvec_plain
 
@@ -142,15 +158,14 @@ def test_cuda_fly_matvec(n, symmetric, pbc):
     torch.cuda.synchronize()
     assert wkb_fly_matvec.launches == before + 2
     assert torch.equal(y, y2)
-    assert float(ref.abs().max()) > 0
-    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=0,
-                               atol=1e-5 * float(ref.abs().max()))
+    _assert_close_to_plain(y, ref)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,KB", [(12, 8), (24, 8), (24, 24), (5, 4), (5, None), (24, None), (40, None)])
 def test_cuda_fly_matmat(K, KB):
-    """atol 1e-5 * max|plain|: the K-column contraction is FP32 FMA."""
+    """atol 1e-5 * max|plain|: the K-column contraction is FP32 FMA; two
+    launches give the same bits."""
     _need_card()
     from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matmat, wkb_fly_matmat_plain
 
@@ -160,11 +175,199 @@ def test_cuda_fly_matmat(K, KB):
     env = _env(True)
     before = wkb_fly_matmat.launches
     Y = wkb_fly_matmat(pos, cb, X, env, KB=KB)
+    Y2 = wkb_fly_matmat(pos, cb, X, env, KB=KB)
     ref = wkb_fly_matmat_plain(pos, cb, X, env)
     torch.cuda.synchronize()
-    assert wkb_fly_matmat.launches == before + 1
-    np.testing.assert_allclose(Y.cpu().numpy(), ref.cpu().numpy(), rtol=0,
-                               atol=1e-5 * float(ref.abs().max()))
+    assert wkb_fly_matmat.launches == before + 2
+    assert torch.equal(Y, Y2)
+    _assert_close_to_plain(Y, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("K", [1, 5, 24, 40])
+@pytest.mark.parametrize("n", FLY_N)
+def test_cuda_fly_matmat_shapes(n, K, pbc):
+    """The widths of test_cuda_fly_matvec with one column, a ragged group,
+    the deflation basis's 24 and two groups; bit-equal repeat."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matmat, wkb_fly_matmat_plain
+
+    pos, cb, rng = _points(n, 11)
+    X = torch.as_tensor(rng.standard_normal((n, K)).astype(np.float32), device="cuda")
+    env = _env(pbc)
+    Y = wkb_fly_matmat(pos, cb, X, env)
+    Y2 = wkb_fly_matmat(pos, cb, X, env)
+    ref = wkb_fly_matmat_plain(pos, cb, X, env)
+    torch.cuda.synchronize()
+    assert Y.shape == (n, K) and torch.equal(Y, Y2)
+    _assert_close_to_plain(Y, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("n_a", [64, 200, 700])
+def test_cuda_fly_contact_zeros(n_a, pbc):
+    """The first n_a atoms are one contact whose CB edges agree to within
+    ctol: all their pairs are ineligible, so an operand that lives on that
+    contact alone gives exact zeros on its rows, in both matvec forms, the
+    matmat and the dissipation sums, while the rows of the other atoms
+    agree with the plain version (the chunk skip leaves out only zeros)."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.wkb_fly import (
+        wkb_fly_matmat, wkb_fly_matmat_plain, wkb_fly_matvec, wkb_fly_matvec_plain,
+        wkb_fly_pdisp, wkb_fly_pdisp_plain,
+    )
+
+    n = 1153
+    pos, cb, rng = _points(n, 5)
+    env = _env(pbc)
+    cb[:n_a] = torch.as_tensor(
+        (0.3 * Q + rng.random(n_a) * 0.009 * Q).astype(np.float32), device="cuda")
+    x = torch.zeros(n, device="cuda")
+    x[:n_a] = torch.as_tensor(rng.standard_normal(n_a).astype(np.float32), device="cuda")
+    X = x[:, None] * torch.arange(1, 25, device="cuda")[None, :]
+    ref = wkb_fly_matvec_plain(pos, cb, x, env)
+    torch.cuda.synchronize()
+    assert not ref[:n_a].any() and ref[n_a:].any()
+    for symmetric in (False, True):
+        y = wkb_fly_matvec(pos, cb, x, env, symmetric=symmetric)
+        assert not y[:n_a].any()
+        _assert_close_to_plain(y, ref)
+    Y = wkb_fly_matmat(pos, cb, X.contiguous(), env)
+    assert not Y[:n_a].any()
+    _assert_close_to_plain(Y, wkb_fly_matmat_plain(pos, cb, X, env))
+    ms = torch.as_tensor((rng.random(n) * 7e-10).astype(np.float32), device="cuda")
+    _assert_close_to_plain(wkb_fly_pdisp(pos, cb, ms, 1.0, env),
+                           wkb_fly_pdisp_plain(pos, cb, ms, 1.0, env))
+
+
+def _straddle(a, b, axis, below, cell=None):
+    """b moved along ``axis`` by single f32 steps until its distance from a,
+    computed as the plain version computes it (minimum image along y and z
+    in a cell of sides ``cell``), is the last one below ``below`` (returned
+    first) and the first one not below it."""
+    f = np.float32
+
+    def dist(q):
+        d = a - q
+        if cell is not None:
+            for ax in (1, 2):
+                d[ax] = d[ax] - f(np.round(d[ax] / cell[ax]) * cell[ax])
+        return np.sqrt(f(f(d[0] * d[0]) + f(d[1] * d[1])) + f(d[2] * d[2]))
+
+    b = b.copy()
+    away = f(np.inf) if b[axis] > a[axis] else f(-np.inf)
+    while dist(b) < below:
+        b[axis] = np.nextafter(b[axis], away)
+    while not dist(b) < below:
+        b[axis] = np.nextafter(b[axis], a[axis])
+    outside = b.copy()
+    outside[axis] = np.nextafter(b[axis], away)
+    assert dist(b) < below and not dist(outside) < below
+    return b, outside
+
+
+def _at_squared_distance(t, z):
+    """Two atoms whose squared distance, summed as the plain version sums it,
+    is the float t exactly: one at the origin of the xy plane (so that the
+    differences are the other's coordinates), the other's small y tuned."""
+    f = np.float32
+    dx = f(np.sqrt(float(t)) * 0.999)
+    dy = f(np.sqrt(float(t) - float(dx) ** 2))
+    d2 = lambda y: f(f(dx * dx) + f(y * y))
+    for _ in range(4000):
+        if d2(dy) == t:
+            break
+        dy = np.nextafter(dy, f(np.inf) if d2(dy) < t else f(0))
+    assert d2(dy) == t
+    return np.array([0, 0, z], f), np.array([dx, dy, z], f)
+
+
+def _threshold_points(pbc, nn):
+    """Pairs of atoms (CB edges well apart) around the neighbour distance:
+    seven whose squared distances are the floats from three below fl(nn^2)
+    to three above it, then pairs one f32 step of a coordinate either side
+    of nn in random directions (under PBC every other one reaches its
+    partner across the cell's y face), then pairs half a cell apart along
+    y.  Returns positions [n, 3], CB edges [n], the pairs' index triples
+    (anchor, partner, partner) or pairs, and the kernels' env."""
+    f = np.float32
+    env = dict(_env(pbc), nn=float(f(nn)))
+    nn = f(nn)
+    cell = np.asarray(env["lattice"], dtype=f)
+    rng = np.random.default_rng(21)
+    pts, cbs, exact, groups = [], [], [], []
+    t = f(nn * nn)
+    for _ in range(3):
+        t = np.nextafter(t, f(0))
+    for k in range(7):
+        exact.append((len(pts), len(pts) + 1))
+        pts += list(_at_squared_distance(t, f(3 + 8 * k)))
+        cbs += [0.5 * Q, -0.5 * Q]
+        t = np.nextafter(t, f(np.inf))
+    for k in range(30):
+        a = (np.array([12.0 + k % 10 * 8.0, 8.0 + k // 10 * 14.0, 6.0])
+             + rng.random(3) * 2.0).astype(f)
+        wrap = pbc and k % 2 == 1
+        u = rng.standard_normal(3)
+        u /= np.linalg.norm(u)
+        u[0] = np.sign(u[0]) * max(abs(u[0]), 0.3)
+        if wrap:
+            a[1] = f(rng.random())
+            u[1] = -abs(u[1]) - 0.4
+        b = (a + u / np.linalg.norm(u) * float(nn)).astype(f)
+        if wrap:
+            b[1] += cell[1]
+        inside, outside = _straddle(a, b, 0, nn, cell if pbc else None)
+        groups.append((len(pts), len(pts) + 1, len(pts) + 2))
+        pts += [a, inside, outside]
+        cbs += [0.5 * Q, -0.5 * Q, -0.3 * Q]
+    for k in range(12):
+        a = (np.array([5.0 + 7 * k, 4.0, 50.0]) + rng.random(3)).astype(f)
+        b = a.copy()
+        b[1] = a[1] + cell[1] / 2
+        for _ in range(k % 4):
+            b[1] = np.nextafter(b[1], f(np.inf) if k % 2 else f(-np.inf))
+        pts += [a, b]
+        cbs += [0.4 * Q, -0.6 * Q]
+    return (torch.as_tensor(np.stack(pts).astype(f)),
+            torch.as_tensor(np.asarray(cbs, dtype=f)), exact, groups, env)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("nn", [3.5, 3.3, 2.9, 4.1])
+def test_cuda_fly_neighbour_threshold_is_exact(nn, pbc):
+    """Pairs whose squared distance is each float within three of fl(nn^2),
+    pairs one f32 step either side of nn, pairs half a cell apart: the
+    kernels' entries are exact zeros exactly where the plain version's are
+    (it takes sqrt(d2) < nn; the kernels compare d2 with a threshold made on
+    the host).  T is read column by column: the matmat on the identity, both
+    matvec forms on unit vectors."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.wkb_fly import (
+        pair_vals_plain, wkb_fly_matmat, wkb_fly_matvec,
+    )
+
+    pos, cb, exact, groups, env = _threshold_points(pbc, nn)
+    n = pos.shape[0]
+    T_ref = pair_vals_plain(env, pos, cb, pos, cb)
+    zeros = [bool(T_ref[a, b] == 0) for a, b in exact]
+    assert zeros[0] and not zeros[-1] and zeros == sorted(zeros, reverse=True)
+    for a, inside, outside in groups:
+        assert T_ref[a, inside] == 0 and T_ref[a, outside] != 0
+    pc, cc = pos.cuda(), cb.cuda()
+    eye = torch.eye(n, device="cuda")
+    T_mm = wkb_fly_matmat(pc, cc, eye, env).cpu()
+    assert torch.equal(T_mm == 0, T_ref == 0)
+    _assert_close_to_plain(T_mm, T_ref)
+    for symmetric in (False, True):
+        T_mv = torch.stack([wkb_fly_matvec(pc, cc, eye[j].contiguous(), env,
+                                           symmetric=symmetric) for j in range(n)],
+                           dim=1).cpu()
+        assert torch.equal(T_mv == 0, T_ref == 0)
+        _assert_close_to_plain(T_mv, T_ref)
 
 
 @pytest.mark.cuda

@@ -175,3 +175,70 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         banded_matvec(torch.zeros((1, 1, 128, 128), device="meta"),
                       torch.zeros((1, 128), device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' chunk skip and grid rules (Python side)
+# ---------------------------------------------------------------------------
+
+from hypothesis import given, settings, strategies as st
+
+
+def _skipped_entries(skip, vals):
+    """The entries of vals [R, C] that lie in a skipped 32 x 32 chunk."""
+    R, C = vals.shape
+    full = skip.repeat_interleave(32, dim=0).repeat_interleave(32, dim=1)[:R, :C]
+    return vals[full]
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), R=st.integers(1, 150), C=st.integers(1, 150),
+       spread=st.sampled_from([0.0, 0.004, 0.0099, 0.01, 0.0101, 0.05, 2.0]),
+       pbc=st.booleans())
+def test_chunk_skip_never_skips_a_nonzero_entry(seed, R, C, spread, pbc):
+    """Atoms in two contacts whose CB edges spread over `spread` volts around
+    0 and -1 V (ctol is 0.01 V): wherever the skip test says True, every
+    entry of pair_vals_plain is an exact 0."""
+    from devicekmc_tpu_torch.ops.wkb_fly import chunk_skip_plain, pair_vals_plain
+
+    rng = np.random.default_rng(seed)
+    _, tenv = _envs(pbc)
+    pts = (rng.random((R + C, 3)) * np.array(LATTICE)).astype(np.float32)
+    # sorted by contact, as the metal atoms of a device are, with a few strays
+    side = np.sort(rng.random(R + C) < 0.5)
+    side ^= rng.random(R + C) < 0.02
+    cb = ((-1.0 * side + spread * (rng.random(R + C) - 0.5)) * Q).astype(np.float32)
+    pr, cr = torch.as_tensor(pts[:R]), torch.as_tensor(cb[:R])
+    pc, cc = torch.as_tensor(pts[R:]), torch.as_tensor(cb[R:])
+    skip = chunk_skip_plain(cr, cc, tenv["ctol"])
+    assert tuple(skip.shape) == (-(-R // 32), -(-C // 32))
+    vals = pair_vals_plain(tenv, pr, cr, pc, cc)
+    assert not _skipped_entries(skip, vals).any()
+
+
+def test_chunk_skip_takes_the_contact_interior():
+    """One contact whose atoms share their CB edge to within ctol is skipped
+    whole against itself and kept against the other contact."""
+    from devicekmc_tpu_torch.ops.wkb_fly import chunk_skip_plain
+
+    rng = np.random.default_rng(0)
+    _, tenv = _envs(False)
+    cb = np.concatenate([rng.random(64) * 0.009, -1.0 + rng.random(64) * 0.009])
+    cb = torch.as_tensor((cb * Q).astype(np.float32))
+    skip = chunk_skip_plain(cb, cb, tenv["ctol"])
+    same = torch.tensor([[1, 1, 0, 0], [1, 1, 0, 0], [0, 0, 1, 1], [0, 0, 1, 1]],
+                        dtype=torch.bool)
+    assert torch.equal(skip, same)
+
+
+@pytest.mark.parametrize("n,col_split,n_split", [
+    (1, 4, 1), (129, 4, 2), (3527, 4, 16), (24768, 1, 16), (200_000, 1, 16),
+])
+def test_fly_grid_rules(n, col_split, n_split):
+    """Threads a tile of the matvec are chosen from n: many at the transport
+    path's width, few at the reference crossbar's; the matmat never splits
+    finer than its column tiles."""
+    from devicekmc_tpu_torch.ops.wkb_fly import matmat_split, matvec_col_split
+
+    assert matvec_col_split(n) == col_split
+    assert matmat_split(n) == n_split
