@@ -20,26 +20,32 @@ Phases (any failed check raises and the exit code is non-zero):
 3. headline path: the synthetic crossbar of 108,944 sites (the composition
    and neighbour statistics of the reference's timing crossbar), neighbour
    list built on the card; the gather and the Poisson kernel are held against
-   their plain versions at this path's shapes and timed beside their bounds;
-   then Simulation.run_bias_point runs the cold pre-solve, 2 warm-up and 4
-   timed supersteps at Vd = 1 V, with the launch counters set to 0 just
-   before it;
+   their plain versions at this path's shapes and timed beside their bounds
+   (the Poisson kernel PBC off and on, two calls bit-equal, with ptxas's
+   registers and shared bytes and the device launches of one call as
+   torch.profiler counts them: it must be the one kernel); then
+   Simulation.run_bias_point runs the cold pre-solve, 2 warm-up and 4 timed
+   supersteps at Vd = 1 V, with the launch counters set to 0 just before it;
 4. transport path: the same crossbar with solve_current on (heating off,
    transport blocked, on-the-fly metal block, deflated cold solve with 24
    slabs, chunked cold solves, 256 integration steps, Vd = 1 V), counters
    set to 0 just before: CB-edge solve, cold deflated transport solve,
    8 supersteps; every transport solve must converge, I_macro be finite
-   and positive, a skipped or an incremental assembly be seen, and all four
-   transport kernels be launched.  Then each transport kernel is held
-   against its plain version at this path's shapes (the band, the metal
-   atoms and CB edges, the vacancy bucket of the run) and timed beside its
-   bound and a library call; the on-the-fly products are also held against
-   them at a ragged width (2,001 atoms of both contacts) and measured at
-   the reference crossbar's 24,768 interior-metal atoms against the stored
-   block, with the share of pairs that pass the CB-edge test and of 32 x 32
-   chunks the kernels do not skip, and per on-the-fly kernel ptxas's
-   registers and shared bytes and the device launches of one call as
-   torch.profiler counts them (it must be the one kernel);
+   and positive, a skipped or an incremental assembly be seen, and the two
+   headline and all four transport kernels be launched (the window block's
+   launches split into full and partial assemblies by their rows).  Then
+   each transport kernel is held against its plain version at this path's
+   shapes (the band, the metal atoms and CB edges, the vacancy bucket of
+   the run) and timed beside its bound and a library call; the on-the-fly
+   products are also held against them at a ragged width (2,001 atoms of
+   both contacts) and measured at the reference crossbar's 24,768
+   interior-metal atoms against the stored block, with the share of pairs
+   that pass the CB-edge test and of 32 x 32 chunks the kernels do not
+   skip; the window block also at 16 of the bucket's live rows (the
+   partial assembly's shape) and at the bucket against 24,768 metal atoms,
+   with the steps its pairs take and the share of lanes they keep busy;
+   per kernel ptxas's registers and shared bytes and the device launches
+   of one call as torch.profiler counts them (it must be the one kernel);
 5. heat path: the transport configuration with solve_heating_global on and
    A = ly * lz, counters set to 0 just before: cold solves, 8 supersteps;
    every transport solve must converge, the site power be non-zero on
@@ -348,7 +354,7 @@ def kernel_checks(sim):
 
     from devicekmc_tpu_torch.ops.ell_gather import ell_gather, ell_gather_plain
     from devicekmc_tpu_torch.ops.pairwise import (
-        kernel_scalars, poisson_pairwise, poisson_pairwise_plain,
+        kernel_scalars, poisson_grid, poisson_pairwise, poisson_pairwise_plain,
     )
     from devicekmc_tpu_torch.physics.charge import update_charge
     from devicekmc_tpu_torch.physics.events import pack_site_code
@@ -405,6 +411,7 @@ def kernel_checks(sim):
         err = float((got - ref).abs().max())
         tol = 2e-6 * float(ref.abs().max())
         check(err <= tol, f"poisson pbc={pbc}: max error {err} > {tol}")
+        check(torch.equal(got, poisson_pairwise(*args)), f"poisson pbc={pbc}: two calls differ")
         ops = geom.N * n_c * POISSON_OPS_PER_PAIR[pbc]
         bytes_ = geom.N * 12 + n_c * 8 + geom.N * 4
         bound = max(ops / PEAK_FP32_PER_S, bytes_ / PEAK_BYTES_PER_S) * 1e3
@@ -414,10 +421,17 @@ def kernel_checks(sim):
             bound_ms=bound,
             bound_by="operations" if ops / PEAK_FP32_PER_S >= bytes_ / PEAK_BYTES_PER_S
             else "bytes",
+            n_split=poisson_grid(geom.N, n_c, torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)[1],
+            **kernel_facts("pairwise", "poisson_pairwise_kernel", (pbc,),
+                           lambda: poisson_pairwise(*args)),
         )
-        log(f"poisson_pairwise pbc={pbc} [{geom.N} rows x {n_c} charged]: max err "
-            f"{err:.3e} (atol {tol:.3e}); {poisson[pbc]['ms']:.4f} ms (bound "
-            f"{bound:.4f} ms, plain {poisson[pbc]['plain_ms']:.4f} ms)")
+        r = poisson[pbc]
+        log(f"poisson_pairwise pbc={pbc} [{geom.N} rows x {n_c} charged, {r['n_split']} "
+            f"splits of the charged set]: max err {err:.3e} (atol {tol:.3e}); "
+            f"{r['ms']:.4f} ms (bound {bound:.4f} ms, plain {r['plain_ms']:.4f} ms; "
+            f"{r['kernel']}: {r['registers']} registers, {r['shared_bytes']} bytes shared, "
+            f"{r['device_launches']} device launch a call by the profiler); bit-equal calls")
     return gather, poisson
 
 
@@ -472,18 +486,18 @@ def device_launches(fn):
     return sum(e.name.startswith(("cudaLaunch", "cuLaunch")) for e in events), names
 
 
-def fly_kernel_facts(kernel, targs, fn):
-    """What the build and one profiled call say of the fly kernel
-    ``kernel<targs>``: ptxas's registers and static shared bytes of that
-    entry (found by its mangled template arguments, bool then int), and the
-    device kernels one call of ``fn`` launches, which must be that kernel
-    alone (the partial sums are added inside it)."""
+def kernel_facts(lib, kernel, targs, fn):
+    """What the build and one profiled call say of the kernel
+    ``kernel<targs>`` of ``csrc/<lib>.cu``: ptxas's registers and static
+    shared bytes of that entry (found by its mangled template arguments, bool
+    then int), and the device kernels one call of ``fn`` launches, which must
+    be that kernel alone (partial sums are added inside it)."""
     from devicekmc_tpu_torch.ops import _build
 
     mangled = kernel + ("I" + "".join(
         f"L{'b' if isinstance(a, bool) else 'i'}{int(a)}E" for a in targs) + "E"
         if targs else "")
-    found = [v for k, v in _build.kernel_resources("wkb_fly").items() if mangled in k]
+    found = [v for k, v in _build.kernel_resources(lib).items() if mangled in k]
     regs, smem = found[0] if len(found) == 1 else (None, None)
     count, names = device_launches(fn)
     if count is not None:
@@ -562,7 +576,7 @@ def fly_checks(pos, cb, env, K, tag, plain_reps=5):
             err=max(err, err_T), bound_ms=bound, bound_by=by,
             bound_all_pairs_ms=_bound(pairs * (ops1 + uses), io)[0],
             ms=time_ms(lambda: wkb_fly_matvec(pos, cb, x, env, symmetric=sym)),
-            **fly_kernel_facts("fly_matvec_tiles", (sym, S),
+            **kernel_facts("wkb_fly", "fly_matvec_tiles", (sym, S),
                                lambda: wkb_fly_matvec(pos, cb, x, env, symmetric=sym)))
     rec["plain_ms"] = time_ms(lambda: wkb_fly_matvec_plain(pos, cb, x, env),
                               reps=plain_reps, rounds=3, warmup=1)
@@ -586,7 +600,7 @@ def fly_checks(pos, cb, env, K, tag, plain_reps=5):
         bound_all_pairs_ms=_bound(n * n * (ops1 + 2 * K), io_mm)[0],
         err_plain=err_plain, err_stored=err_stored, plain_vs_stored=plain_vs_stored,
         n_split=matmat_split(n),
-        **fly_kernel_facts("fly_matmat_tiles", (24,),
+        **kernel_facts("wkb_fly", "fly_matmat_tiles", (24,),
                            lambda: wkb_fly_matmat(pos, cb, X, env)),
         ms=time_ms(lambda: wkb_fly_matmat(pos, cb, X, env)),
         ms_kb8=time_ms(lambda: wkb_fly_matmat(pos, cb, X, env, KB=8)),
@@ -683,35 +697,108 @@ def transport_kernel_checks(sim):
     out["fly_ragged"] = fly_checks(mpos[rag].contiguous(), mcb[rag].contiguous(), env, K,
                                    "ragged width")
 
-    # ---- window-integral block on the run's vacancy bucket ----
+    # ---- window-integral block: the run's vacancy bucket (full assembly),
+    # 16 of its live rows (the partial assembly's shape), the bucket against
+    # the reference crossbar's metal count ----
     ai = geom.atom_ind.long()
     apos = geom.coords[ai].float()
     acb = state.CB_edge[ai].float()
     vpos, vcb, v_ok = apos[blk["vidx"]].contiguous(), acb[blk["vidx"]].contiguous(), blk["v_ok"]
+    live = torch.nonzero(v_ok).reshape(-1)[:16]
+    ones = torch.ones(live.numel(), dtype=torch.bool, device="cuda")
+    rpos, rcb = reference_metal_set(sim)
+    out["window"] = window_checks(vpos, vcb, v_ok, mpos, mcb, env, "run's bucket",
+                                  T_vm=blk["T_vm"])
+    out["window_partial"] = window_checks(vpos[live].contiguous(), vcb[live].contiguous(),
+                                          ones, mpos, mcb, env, "partial assembly's shape")
+    out["window_ref"] = window_checks(vpos, vcb, v_ok, rpos, rcb, env, "reference width",
+                                      plain_reps=1)
+    return out
+
+
+def window_f64(vpos, vcb, mpos, mcb, env, steps, rows=64):
+    """The window block in f64 over the pairs and steps ``steps`` (of
+    ``window_steps_plain``) selects: what the f32 versions approximate."""
+    import torch
+
+    out = torch.zeros(steps.shape, dtype=torch.float64, device=vpos.device)
+    p64, c64 = mpos.double(), mcb.double()
+    for r0 in range(0, steps.shape[0], rows):
+        nk = steps[r0:r0 + rows]
+        d = vpos[r0:r0 + rows, None, :].double() - p64[None]
+        if env["pbc"]:
+            for a in (1, 2):
+                d[..., a] -= torch.round(d[..., a] / env["lattice"][a]) * env["lattice"][a]
+        safe = torch.where(nk > 0, (vcb[r0:r0 + rows, None].double() - c64[None]).abs(), 1.0)
+        s = env["prefac"] * (d.norm(dim=-1) * 1e-10) / safe
+        T = torch.zeros_like(s)
+        for k in range(int(nk.max()) if nk.numel() else 0):
+            e1 = env["qV0"] + k * env["dE_step"]
+            e2p = (e1 - safe).clamp(min=0)
+            term = torch.where(e1 - safe == 0, 0.0, torch.exp(s * (e1 ** 1.5 - e2p ** 1.5)))
+            T += torch.where(k < nk, term, 0.0)
+        out[r0:r0 + rows] = -T
+    return out
+
+
+def window_checks(vpos, vcb, v_ok, mpos, mcb, env, tag, T_vm=None, plain_reps=2):
+    """The window block against its plain version (1e-5 of the largest
+    entry), rows with v_ok False exact zeros, two calls bit-equal, and with
+    ``T_vm`` equal to the block the run assembled; timed beside its
+    data-sheet bound, with ptxas's registers and shared bytes, the
+    profiler's count of device launches a call, the steps the pairs take and
+    the share of the lanes those steps keep busy; and the kernel's and the
+    plain version's distance from an f64 evaluation (largest error over the
+    largest entry, and the Frobenius norms' ratio)."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.wkb_window import (
+        window_lane_share, window_steps_plain, wkb_window_block, wkb_window_block_plain,
+    )
+
     T = wkb_window_block(vpos, vcb, v_ok, mpos, mcb, env)
-    err = _close("window block", T, wkb_window_block_plain(vpos, vcb, v_ok, mpos, mcb, env),
-                 1e-5)
-    check(bool((T[~v_ok] == 0).all()), "window block: v_ok False rows are zero")
-    check(torch.equal(T, blk["T_vm"]), "window block: differs from the assembled T_vm")
+    plain = wkb_window_block_plain(vpos, vcb, v_ok, mpos, mcb, env)
+    err = _close(f"window block, {tag}", T, plain, 1e-5)
+    check(bool((T[~v_ok] == 0).all()), f"window block, {tag}: v_ok False rows are zero")
+    check(torch.equal(T, wkb_window_block(vpos, vcb, v_ok, mpos, mcb, env)),
+          f"window block, {tag}: two calls differ")
+    if T_vm is not None:
+        check(torch.equal(T, T_vm), "window block: differs from the assembled T_vm")
     # the work this data needs: per eligible pair the steps with k*dE < |dE|
-    dist = cur._dist_blocks(vpos, mpos, env["lattice"], env["pbc"])
-    abs_dE = (vcb[:, None] - mcb[None, :]).abs()
-    elig = v_ok[:, None] & (abs_dE > env["ctol"]) & ~(dist < env["nn"])
-    steps = torch.clamp(torch.ceil(abs_dE / env["dE_step"]), max=env["n_int_steps"])
-    n_steps = int(torch.where(elig, steps, 0.0).double().sum())
+    # (every eligible pair takes step 0, since |dE| > ctol >= 0)
+    exact = window_steps_plain(vpos, vcb, v_ok, mpos, mcb, env)
+    n_steps, n_elig = int(exact.sum()), int((exact > 0).sum())
     n_pairs = T.numel()
     bound, by = _bound(n_steps * WINDOW_OPS_PER_STEP + n_pairs * 25,
                        n_pairs * 4 + (vpos.shape[0] + mpos.shape[0]) * 16)
-    out["window"] = dict(
-        err=err, bound_ms=bound, bound_by=by,
+    t64 = window_f64(vpos, vcb, mpos, mcb, env, exact)
+    f64 = {name: (float((X.double() - t64).abs().max() / t64.abs().max()),
+                  float((X.double() - t64).norm() / t64.norm()))
+           for name, X in (("kernel", T), ("plain", plain))}
+    del t64, plain
+    rec = dict(
+        err=err, rel_err=err / float(T.abs().max()), bound_ms=bound, bound_by=by,
         ms=time_ms(lambda: wkb_window_block(vpos, vcb, v_ok, mpos, mcb, env)),
         plain_ms=time_ms(lambda: wkb_window_block_plain(vpos, vcb, v_ok, mpos, mcb, env),
-                         reps=2, rounds=3, warmup=1),
+                         reps=plain_reps, rounds=3, warmup=1),
+        steps=n_steps, lane_share=window_lane_share(exact),
+        err_f64=f64["kernel"], plain_err_f64=f64["plain"],
         shape=f"[{vpos.shape[0]} ({int(v_ok.sum())} live) x {mpos.shape[0]}], "
-              f"{int(elig.sum())} eligible pairs, {n_steps} steps in all")
-    log(f"wkb_window_block {out['window']['shape']}: {out['window']['ms']:.4f} ms (bound "
-        f"{bound:.4f} ms by {by}), plain {out['window']['plain_ms']:.4f} ms, max err {err:.3e}")
-    return out
+              f"{n_elig} eligible pairs, {n_steps} steps in all",
+        **kernel_facts("wkb_window", "window_block_kernel", (),
+                       lambda: wkb_window_block(vpos, vcb, v_ok, mpos, mcb, env)))
+    log(f"wkb_window_block, {tag} {rec['shape']}: {rec['ms']:.4f} ms (data-sheet bound "
+        f"{bound:.4f} ms by {by}), plain {rec['plain_ms']:.4f} ms, max err {err:.3e} = "
+        f"{rec['rel_err']:.3e} of the largest entry; against f64 the kernel "
+        f"{f64['kernel'][0]:.3e} of the largest entry ({f64['kernel'][1]:.3e} in Frobenius "
+        f"norm), the plain version {f64['plain'][0]:.3e} ({f64['plain'][1]:.3e}); "
+        f"{100 * rec['lane_share']:.2f} % of the issued lane-steps busy; "
+        f"{rec['kernel']}: {rec['registers']} registers, {rec['shared_bytes']} bytes "
+        f"shared, {rec['device_launches']} device launch a call by the profiler; "
+        f"bit-equal calls")
+    del exact, T
+    torch.cuda.empty_cache()
+    return rec
 
 
 def pdisp_checks(pos, cb, env, tag, plain_reps=5):
@@ -763,7 +850,7 @@ def pdisp_checks(pos, cb, env, tag, plain_reps=5):
     rec.update(
         bound_ms=bound, bound_by=by,
         bound_all_pairs_ms=_bound(n * n * ops_pair, n * 20 + n * 4)[0],
-        **fly_kernel_facts("fly_pdisp_tiles", (),
+        **kernel_facts("wkb_fly", "fly_pdisp_tiles", (),
                            lambda: wkb_fly_pdisp(pos, cb, ms, 1.0, env)),
         ms=time_ms(lambda: wkb_fly_pdisp(pos, cb, ms, 1.0, env)),
         plain_ms=time_ms(lambda: wkb_fly_pdisp_plain(pos, cb, ms, 1.0, env),
@@ -908,21 +995,28 @@ def headline_path(out_root):
             "bound_ms": poisson[False]["bound_ms"],
             "bound_by": poisson[False]["bound_by"], "library_ms": None,
             "ms_pbc": poisson[True]["ms"], "bound_ms_pbc": poisson[True]["bound_ms"],
+            "n_split": poisson[False]["n_split"],
+            **{key: poisson[False][key] for key in KERNEL_FACTS},
+            "pbc": {key: poisson[True][key] for key in KERNEL_FACTS},
         },
     ]
 
 
 def transport_path(out_root):
     """Phase 4: the transport run, then its kernels' checks; returns the
-    four kernels' records."""
+    four transport kernels' records and every kernel's launches on the
+    run."""
     import math
 
     import torch
 
     from devicekmc_tpu_torch.ops import cg
     from devicekmc_tpu_torch.ops.banded import banded_matvec
+    from devicekmc_tpu_torch.ops.ell_gather import ell_gather
+    from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise
     from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matmat, wkb_fly_matvec
     from devicekmc_tpu_torch.ops.wkb_window import wkb_window_block
+    from devicekmc_tpu_torch.physics import current as cur
 
     t0 = time.perf_counter()
     sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "transport"),
@@ -939,16 +1033,34 @@ def transport_path(out_root):
     counts0 = conserved_counts(sim.state)
 
     # ---- counters to 0, drive, read ----
-    wrappers = {"banded_matvec": banded_matvec, "wkb_fly_matvec": wkb_fly_matvec,
+    wrappers = {"ell_gather": ell_gather, "poisson_pairwise": poisson_pairwise,
+                "banded_matvec": banded_matvec, "wkb_fly_matvec": wkb_fly_matvec,
                 "wkb_fly_matmat": wkb_fly_matmat, "wkb_window_block": wkb_window_block}
+    # the window block's launches, by shape: the whole bucket (full assembly)
+    # or the rows of the atoms that entered it (partial)
+    vm_rows = []
+    vm_block = cur._vm_block
+
+    def counted_vm_block(env, vpos, *a):
+        vm_rows.append(vpos.shape[0])
+        return vm_block(env, vpos, *a)
+
+    cur._vm_block = counted_vm_block
     for w in wrappers.values():
         w.launches = 0
     cg.readbacks = 0
     t0 = time.perf_counter()
-    summary = sim.run_bias_point(VD_MAIN, 1e30, max_steps=TRANSPORT_STEPS)
-    torch.cuda.synchronize()
+    try:
+        summary = sim.run_bias_point(VD_MAIN, 1e30, max_steps=TRANSPORT_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        cur._vm_block = vm_block
     wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
+    assemblies = {"full": sum(r != p.transport_delta_cap for r in vm_rows),
+                  "partial": sum(r == p.transport_delta_cap for r in vm_rows)}
+    check(sum(assemblies.values()) == launches["wkb_window_block"],
+          f"window block shapes {vm_rows} for {launches['wkb_window_block']} launches")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the transport path")
 
@@ -970,7 +1082,8 @@ def transport_path(out_root):
             f"{pre['s'] * 1e3:.1f} ms")
     log(f"transport path: run_bias_point (CB edge, boundary and deflated transport "
         f"cold solves + {TRANSPORT_STEPS} supersteps) in {wall:.2f} s; "
-        f"{cg.readbacks} CG read-backs; launches {launches}")
+        f"{cg.readbacks} CG read-backs; launches {launches}; window block rows a launch "
+        f"{vm_rows} ({assemblies['full']} full, {assemblies['partial']} partial assemblies)")
     for s in steps:
         log(f"  step {s['step']}: {s['Z - calculation time - KMC superstep [s]'] * 1e3:.2f} ms, "
             f"events {int(s['n_events'])}, cg_iters_power {int(s['cg_iters_power'])}, "
@@ -988,7 +1101,7 @@ def transport_path(out_root):
     n_mp = int(g.atom_metalp_idx.shape[0])
     facts = ("bound_all_pairs_ms", "kernel", "registers", "shared_bytes", "device_launches")
     pick = lambda r: {key: r[key] for key in facts}
-    return [
+    return launches, [
         {
             "name": "banded_matvec", "route": "cuda",
             "source": "devicekmc_tpu_torch/csrc/banded.cu",
@@ -1053,8 +1166,18 @@ def transport_path(out_root):
             "ms": k["window"]["ms"], "plain_ms": k["window"]["plain_ms"],
             "bound_ms": k["window"]["bound_ms"], "bound_by": k["window"]["bound_by"],
             "library_ms": None, "shape": k["window"]["shape"],
+            "launches_full": assemblies["full"], "launches_partial": assemblies["partial"],
+            **{key: k["window"][key] for key in WINDOW_FACTS},
+            "partial": {key: k["window_partial"][key] for key in WINDOW_FACTS + WINDOW_TIMES},
+            "ref_width": {"n_mp": REF_N_MP,
+                          **{key: k["window_ref"][key] for key in WINDOW_FACTS + WINDOW_TIMES}},
         },
     ]
+
+
+KERNEL_FACTS = ("kernel", "registers", "shared_bytes", "device_launches")
+WINDOW_FACTS = KERNEL_FACTS + ("steps", "lane_share", "rel_err", "err_f64", "plain_err_f64")
+WINDOW_TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "shape")
 
 
 def _counted(module, name, sync=None):
@@ -1287,10 +1410,12 @@ def main():
 
     kernels = headline_path(out_root)
     torch.cuda.empty_cache()
-    kernels += transport_path(out_root)
+    transport_launches, records = transport_path(out_root)
+    kernels += records
     torch.cuda.empty_cache()
     heat_launches, pdisp = heat_path(out_root)
     for k in kernels:
+        k["launches_transport_path"] = transport_launches[k["name"]]
         k["launches_heat_path"] = heat_launches[k["name"]]
     # table order: the dissipation kernel stands before the window block
     kernels.insert(len(kernels) - 1, pdisp)

@@ -51,13 +51,12 @@
 //     has only exact zeros in that chunk (rounding is monotone: fl(a - b) <=
 //     fl(a - min) <= ctol), and a warp leaves a chunk that all its 32 rows
 //     skip (chunk_skip_plain in ops/wkb_fly.py is the same test in PyTorch).
-//   * One launch a call, and the same bits every time.  Blocks run in no
-//     order, so every block writes its partial sums to a scratch slot that
-//     no other block writes, makes them visible (__threadfence) and takes an
-//     integer ticket of the output strip they belong to; the block that
-//     draws the last ticket adds the strip's slots in ascending order and
-//     sets the ticket back to 0.  No float atomics: results, and with them
-//     CG iteration counts, repeat from run to run.
+//   * One launch a call, and the same bits every time (csrc/ticket.cuh):
+//     every block writes its partial sums to a scratch slot of its own and
+//     takes an integer ticket of the output strip they belong to; the block
+//     that draws the last ticket adds the strip's slots in ascending order.
+//     No float atomics: results, and with them CG iteration counts, repeat
+//     from run to run.
 //   * matvec: a block owns one 128 x 128 tile with 4 * S warps (S = 1 or 4,
 //     chosen from n so that the card is full at small n too); warp
 //     (rg, seg) owns rows rg*32.. and the column chunks seg, seg+S, ...  In
@@ -88,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "ticket.cuh"
 
 namespace {
 
@@ -209,24 +210,6 @@ __device__ __forceinline__ bool chunk_skip(const ColTile& t, int cg, float cbr,
   const bool mine = !row_ok ||
       ((cbr - t.cmin[cg] <= ctol) && (t.cmax[cg] - cbr <= ctol));
   return __all_sync(kFull, mine);
-}
-
-// Takes a ticket of `strip` after this block's slots were written; true in
-// every thread of the block that drew the last of `expected` tickets, which
-// may then read all slots of the strip.
-__device__ __forceinline__ bool last_ticket(int* cnt, int strip, int expected,
-                                            int* s_flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const bool last = atomicAdd(&cnt[strip], 1) == expected - 1;
-    if (last) cnt[strip] = 0;   // ready for the next call on this stream
-    *s_flag = last;
-  }
-  __syncthreads();
-  const bool last = *s_flag != 0;
-  if (last) __threadfence();
-  return last;
 }
 
 // out[e] = sum over s (ascending) of part[s * stride + e] for the 128

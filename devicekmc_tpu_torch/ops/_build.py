@@ -4,10 +4,13 @@ loads them with ctypes.
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/devicekmc_tpu_torch/``
 at the root of the checkout (a user cache directory for an installed
-package, see :func:`_build_dir`), named by a hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is reused.  Nothing is built
-when the package is imported: the first kernel call builds what it needs,
-and :func:`build` compiles several sources in parallel (one ``nvcc`` each).
+package, see :func:`_build_dir`), named by a hash of its source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source is rebuilt and an
+unchanged one is reused.  Nothing is built when the package is imported: the
+first kernel call builds what it needs, and :func:`build` compiles several
+sources in parallel (one ``nvcc`` each).  :func:`tickets` holds the integer
+tickets of the kernels that reduce across blocks in one launch
+(``csrc/ticket.cuh``).
 """
 
 from __future__ import annotations
@@ -57,8 +60,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -124,3 +129,32 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _libs[name] = lib
     return lib
+
+
+#: streaming multiprocessors of an H100 (SXM): what the grid rules assume
+#: when they are not told the card's count
+H100_SMS = 132
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card ``device``, for the grid rules."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_tickets_cache = {}
+
+
+def tickets(device, count: int):
+    """``count`` int32 tickets, zero between calls (the block that draws a
+    strip's last ticket sets it back), one buffer per device and stream: the
+    kernels that use them run in stream order, so they share it."""
+    import torch
+
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _tickets_cache.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _tickets_cache[key] = buf
+    return buf

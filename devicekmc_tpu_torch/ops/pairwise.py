@@ -7,14 +7,17 @@ superposition over a compacted charged set, all in f32:
     V_i = sum_c q_c * erfc(r_ic / (sigma*sqrt2)) * k*e / r_ic
 
 with the y/z minimum image under PBC (round half to even), the self pair and
-r <= 0 skipped, and erfc by Abramowitz & Stegun 7.1.26.
+r <= 0 skipped, and erfc by Abramowitz & Stegun 7.1.26.  The kernel skips a
+pair when its squared distance is 0, which is the same rule.
 
-Bound on the card: operations (about 30 FP32 operations a pair, one exp).
-See the kernel source for the design.
+Bound on the card: operations (about 30 FP32 operations a pair, one exp; the
+compiled loop's issue bound in ``tools/fly_sass.py``).  See the kernel
+source for the design; :func:`poisson_grid` is its grid rule.
 
 :func:`poisson_pairwise` launches the kernel for CUDA tensors and takes the
 plain version :func:`poisson_pairwise_plain` only for CPU tensors.
-``poisson_pairwise.launches`` counts kernel launches.
+``poisson_pairwise.launches`` counts kernel launches (one device launch a
+call).
 """
 
 from __future__ import annotations
@@ -26,6 +29,15 @@ import torch
 
 from .. import constants as C
 from . import _build
+
+#: threads a block of the kernel, and charged sites a tile
+_THREADS = 128
+#: rows a thread
+_ROWS = 2
+#: blocks a streaming multiprocessor that the grid aims for
+_BLOCKS_PER_SM = 24
+#: charged sites a split of the charged set takes at least
+_MIN_SPLIT = 64
 
 _A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
 _P = 0.3275911
@@ -74,12 +86,23 @@ def poisson_pairwise_plain(coords, charged_idx, charged_q, inv_s, kq, lat_y,
     return out
 
 
+def poisson_grid(n: int, n_c: int, n_sm: int = _build.H100_SMS):
+    """(row blocks, splits of the charged set) of the kernel's grid for n
+    rows and n_c charged sites on a card of ``n_sm`` streaming
+    multiprocessors: 256 rows a block; the charged set is split where the row
+    blocks alone leave the card short of 24 blocks an SM (small blocks
+    balance the SMs' work), into at most one split a 64 charged sites."""
+    blocks = -(-n // (_THREADS * _ROWS))
+    want = -(-_BLOCKS_PER_SM * n_sm // max(blocks, 1))
+    return blocks, max(1, min(want, -(-n_c // _MIN_SPLIT)))
+
+
 def _lib():
     lib = _build.load("pairwise")
     fn = lib.dkmc_poisson_pairwise
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, p, i, f, f, f, f, i, p, p]
+        fn.argtypes = [p, i, p, p, i, f, f, f, f, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -109,11 +132,16 @@ def poisson_pairwise(coords: torch.Tensor, charged_idx: torch.Tensor,
     out = torch.empty(n, dtype=torch.float32, device=coords.device)
     if n == 0:
         return out
+    n_c = charged_idx.shape[0]
+    blocks, n_split = poisson_grid(n, n_c, _build.sm_count(coords.device))
+    part = torch.empty(n_split * blocks * _THREADS * _ROWS, dtype=torch.float32,
+                       device=coords.device)
+    cnt = _build.tickets(coords.device, blocks)
     fn = _lib()
     stream = torch.cuda.current_stream(coords.device).cuda_stream
     err = fn(coords.data_ptr(), n, charged_idx.data_ptr(), charged_q.data_ptr(),
-             charged_idx.shape[0], inv_s, kq, lat_y, lat_z, int(bool(pbc)),
-             out.data_ptr(), stream)
+             n_c, inv_s, kq, lat_y, lat_z, int(bool(pbc)), n_split, part.data_ptr(),
+             cnt.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"poisson_pairwise kernel launch failed: cudaError {err}")
     poisson_pairwise.launches += 1

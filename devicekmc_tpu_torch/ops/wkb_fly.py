@@ -51,9 +51,6 @@ _MATMAT_KB = (4, 8, 24)
 _MATMAT_SPLIT = 16
 #: tiles a streaming multiprocessor that the matvec's grid aims for
 _TILES_PER_SM = 8
-#: streaming multiprocessors of an H100 (SXM): what :func:`matvec_col_split`
-#: assumes when it is not told the card's count
-_H100_SMS = 132
 
 
 def pair_vals_plain(env, pos_r, cb_r, pos_c, cb_c) -> torch.Tensor:
@@ -102,7 +99,7 @@ def chunk_skip_plain(cb_r, cb_c, ctol) -> torch.Tensor:
     return mine.reshape(nr, _CHUNK, nc).all(dim=1)
 
 
-def matvec_col_split(n: int, n_sm: int = _H100_SMS) -> int:
+def matvec_col_split(n: int, n_sm: int = _build.H100_SMS) -> int:
     """Warps-of-4 per tile of the matvec on a card of ``n_sm`` streaming
     multiprocessors: 4 while the upper triangle alone holds too few tiles to
     fill the card with one, else 1."""
@@ -117,24 +114,6 @@ def matmat_split(n: int) -> int:
     the first width and balance the skipped chunks worse at the second, more
     lengthen the last block's sum over the slots)."""
     return min(-(-n // _TILE), _MATMAT_SPLIT)
-
-
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-_tickets_cache = {}
-
-
-def _tickets(device, count: int) -> torch.Tensor:
-    """``count`` int32 tickets, zero between calls (the kernel that draws a
-    strip's last ticket sets it back), one buffer per device and stream."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    buf = _tickets_cache.get(key)
-    if buf is None or buf.numel() < count:
-        buf = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
-        _tickets_cache[key] = buf
-    return buf
 
 
 def _row_chunk(n_cols: int) -> int:
@@ -212,9 +191,9 @@ def wkb_fly_matvec(pos: torch.Tensor, cb: torch.Tensor, x: torch.Tensor, env,
     fn = _fn("dkmc_wkb_fly_matvec",
              [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P])
     err = fn(pos.data_ptr(), cb.data_ptr(), x.data_ptr(), n, *_scalars(env),
-             int(bool(symmetric)), matvec_col_split(n, _sm_count(pos.device)),
+             int(bool(symmetric)), matvec_col_split(n, _build.sm_count(pos.device)),
              part.data_ptr(),
-             _tickets(pos.device, nt).data_ptr(), y.data_ptr(),
+             _build.tickets(pos.device, nt).data_ptr(), y.data_ptr(),
              torch.cuda.current_stream(pos.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkb_fly_matvec kernel launch failed: cudaError {err}")
@@ -250,7 +229,7 @@ def wkb_fly_matmat(pos: torch.Tensor, cb: torch.Tensor, X: torch.Tensor, env,
     fn = _fn("dkmc_wkb_fly_matmat",
              [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P])
     err = fn(pos.data_ptr(), cb.data_ptr(), X.data_ptr(), n, K, KB, *_scalars(env),
-             n_split, part.data_ptr(), _tickets(pos.device, nt * groups).data_ptr(),
+             n_split, part.data_ptr(), _build.tickets(pos.device, nt * groups).data_ptr(),
              Y.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkb_fly_matmat kernel launch failed: cudaError {err}")
@@ -304,7 +283,7 @@ def wkb_fly_pdisp(pos: torch.Tensor, cb: torch.Tensor, ms: torch.Tensor, Vd,
     fn = _fn("dkmc_wkb_fly_pdisp",
              [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _F, _P, _P, _P, _P])
     err = fn(pos.data_ptr(), cb.data_ptr(), ms.data_ptr(), n, *_scalars(env),
-             _vsgn(Vd), part.data_ptr(), _tickets(pos.device, nt).data_ptr(),
+             _vsgn(Vd), part.data_ptr(), _build.tickets(pos.device, nt).data_ptr(),
              row.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkb_fly_pdisp kernel launch failed: cudaError {err}")

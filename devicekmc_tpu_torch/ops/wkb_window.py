@@ -9,13 +9,18 @@ reaches ``|dE|`` add exact zeros), negated, in f32.  Rows with ``v_ok`` False
 hold exact zeros.
 
 Bound on the card: operations (about 13 FP32 operations with one exp and two
-square roots per energy step and pair).  See the kernel source for the
-design.
+square roots per energy step and pair; the compiled loop's issue bound, with
+one square root and one exp a step on the special-function units, in
+``tools/fly_sass.py``).  See the kernel source for the design.  The values of
+a step that do not depend on the pair come from :func:`window_step_table`,
+which the kernel builds in the same way; :func:`window_steps_plain` gives the
+steps each pair takes and :func:`window_lane_share` the share of a warp's
+lanes those steps keep busy.
 
 :func:`wkb_window_block` launches the kernel for CUDA tensors and takes the
 plain version :func:`wkb_window_block_plain` only for CPU tensors.
-``wkb_window_block.launches`` counts kernel launches.  ``env`` is the dict of
-``physics.current.wkb_env``.
+``wkb_window_block.launches`` counts kernel launches (one device launch a
+call).  ``env`` is the dict of ``physics.current.wkb_env``.
 """
 
 from __future__ import annotations
@@ -27,9 +32,25 @@ import torch
 
 from . import _build
 
+#: lanes of a warp of the kernel: 32 consecutive columns of one row
+_WARP = 32
 
-def _window_rows_plain(env, vpos, vcb, v_ok, pos, cb) -> torch.Tensor:
-    dev = vpos.device
+
+def window_step_table(env, n_steps: int, device=None):
+    """(iv, e1, e15) [n_steps] f32: the energy offset ``k * dE_step``,
+    ``e1 = qV0 + iv`` and ``e15 = e1 * sqrt(e1)`` of steps k = 0 ..
+    n_steps - 1, each one f32 operation, the values a step loop computes one
+    step at a time.  The kernel builds the same table with correctly rounded
+    operations; PyTorch's f32 square root on the CPU can be an ulp off."""
+    f32 = torch.float32
+    iv = torch.arange(n_steps, dtype=f32, device=device) * torch.tensor(
+        env["dE_step"], dtype=f32, device=device)
+    e1 = torch.tensor(env["qV0"], dtype=f32, device=device) + iv
+    return iv, e1, e1 * torch.sqrt(e1)
+
+
+def _eligible(env, vpos, vcb, v_ok, pos, cb):
+    """(elig, |dE|, dist) [n_vac, n_mp] of the window block's pairs, f32."""
     dx = vpos[:, None, 0] - pos[None, :, 0]
     dy = vpos[:, None, 1] - pos[None, :, 1]
     dz = vpos[:, None, 2] - pos[None, :, 2]
@@ -40,19 +61,21 @@ def _window_rows_plain(env, vpos, vcb, v_ok, pos, cb) -> torch.Tensor:
     dist = torch.sqrt(dx * dx + dy * dy + dz * dz)
     abs_dE = torch.abs(vcb[:, None] - cb[None, :])
     elig = v_ok[:, None] & (abs_dE > env["ctol"]) & ~(dist < env["nn"])
+    return elig, abs_dE, dist
+
+
+def _window_rows_plain(env, vpos, vcb, v_ok, pos, cb) -> torch.Tensor:
+    elig, abs_dE, dist = _eligible(env, vpos, vcb, v_ok, pos, cb)
     safe = torch.where(elig, abs_dE, 1.0)
     s = env["prefac"] * (dist * 1e-10) / safe
-    qV0 = torch.tensor(env["qV0"], dtype=torch.float32, device=dev)
-    dE_step = torch.tensor(env["dE_step"], dtype=torch.float32, device=dev)
     # steps past the widest eligible window add exact zeros: leave them out
     widest = float(torch.where(elig, abs_dE, 0.0).max()) if elig.numel() else 0.0
     n_steps = min(int(env["n_int_steps"]), int(math.ceil(widest / env["dE_step"])) + 1)
+    ivs, e1s, e15s = window_step_table(env, n_steps, vpos.device)
     T = torch.zeros_like(s)
     for k in range(n_steps):
-        iv = torch.tensor(float(k), dtype=torch.float32, device=dev) * dE_step
-        e1 = qV0 + iv
-        e2 = e1 - safe
-        e15 = e1 * torch.sqrt(e1)
+        iv, e15 = ivs[k], e15s[k]
+        e2 = e1s[k] - safe
         e2p = torch.where(e2 > 0, e2, 0.0)
         term = torch.where(
             e2 > 0,
@@ -76,6 +99,29 @@ def wkb_window_block_plain(vpos, vcb, v_ok, pos, cb, env) -> torch.Tensor:
         out[r0:r1] = _window_rows_plain(env, vpos32[r0:r1], vcb32[r0:r1],
                                         v_ok[r0:r1], pos32, cb32)
     return out
+
+
+def window_steps_plain(vpos, vcb, v_ok, pos, cb, env) -> torch.Tensor:
+    """[n_vac, n_mp] int64: the energy steps each pair's window takes (the
+    steps k < n_int_steps with ``k * dE_step < |dE|``, exactly as the step
+    table rounds them), 0 for a pair that is not eligible."""
+    elig, abs_dE, _ = _eligible(env, vpos.float(), vcb.float(), v_ok, pos.float(),
+                                cb.float())
+    iv, _, _ = window_step_table(env, int(env["n_int_steps"]), vpos.device)
+    steps = torch.searchsorted(iv, abs_dE.reshape(-1).contiguous()).reshape(abs_dE.shape)
+    return torch.where(elig, steps, 0)
+
+
+def window_lane_share(steps: torch.Tensor) -> float:
+    """The share of the lane-steps the kernel issues that do work: the sum of
+    every pair's steps over 32 times the longest window of each warp (32
+    consecutive columns of one row, the ragged end padded with idle lanes),
+    for warps that take any step at all; 1.0 when no pair takes a step."""
+    nv, n = steps.shape
+    pad = -(-n // _WARP) * _WARP - n
+    w = torch.nn.functional.pad(steps, (0, pad)).reshape(nv, -1, _WARP)
+    issued = float(w.amax(dim=2).double().sum()) * _WARP
+    return float(steps.double().sum()) / issued if issued else 1.0
 
 
 def _lib():

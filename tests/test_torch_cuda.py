@@ -69,6 +69,46 @@ def test_cuda_poisson_close_to_plain(pbc):
                                atol=2e-6 * float(ref.abs().max()))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("n_c", [1, 7, 128, 129, 502, 8192])
+def test_cuda_poisson_shapes(n_c, pbc):
+    """A ragged row count (20,001), charged sets of one site to the largest
+    compaction cap, one split and several (poisson_grid), a charged site
+    with a charged twin and one with an uncharged twin at the same
+    coordinates (pairs of squared distance 0 add 0): within atol 2e-6 *
+    max|plain|, finite, two calls bit-equal, one launch a call."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.pairwise import (
+        kernel_scalars, poisson_grid, poisson_pairwise, poisson_pairwise_plain,
+    )
+
+    rng = np.random.default_rng(n_c)
+    N = 20_001
+    coords = rng.uniform(0, 60, (N, 3)).astype(np.float32)
+    cidx = rng.choice(N, n_c, replace=False).astype(np.int32)
+    if n_c > 1:
+        coords[cidx[1]] = coords[cidx[0]]
+    coords[np.setdiff1d(np.arange(N), cidx)[0]] = coords[cidx[-1]]
+    args = (torch.as_tensor(coords, device="cuda"), torch.as_tensor(cidx, device="cuda"),
+            torch.as_tensor(rng.choice([-2.0, -1.0, 1.0, 2.0], n_c).astype(np.float32),
+                            device="cuda"),
+            *kernel_scalars(3.5e-10, 8.987552e9 / 23, [60.0, 60.0, 60.0], torch.float32),
+            pbc)
+    before = poisson_pairwise.launches
+    got = poisson_pairwise(*args)
+    got2 = poisson_pairwise(*args)
+    ref = poisson_pairwise_plain(*args)
+    torch.cuda.synchronize()
+    assert poisson_pairwise.launches == before + 2
+    assert got.shape == (N,) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, got2)
+    if n_c >= 64:
+        assert poisson_grid(N, n_c)[1] > 1
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=2e-6 * float(ref.abs().max()))
+
+
 # ---------------------------------------------------------------------------
 # transport kernels
 # ---------------------------------------------------------------------------
@@ -394,6 +434,51 @@ def test_cuda_window_block(pbc):
     np.testing.assert_allclose(T.cpu().numpy(), ref.cpu().numpy(), rtol=0,
                                atol=1e-5 * float(ref.abs().max()))
     assert bool((T[nv - 5:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv,n_int_steps,pbc,dead", [
+    (16, 256, False, "none"),      # the partial assembly's shape, all rows live
+    (16, 256, True, "none"),
+    (40, 256, False, "some"),
+    (300, 256, False, "some"),
+    (300, 256, True, "tail"),      # the bucket's form: live rows first
+    (37, 1, False, "some"),
+    (37, 1024, False, "some"),     # windows over 256 steps: the table in parts
+    (37, 1024, True, "none"),
+    (300, 256, False, "all"),
+])
+def test_cuda_window_block_shapes(nv, n_int_steps, pbc, dead):
+    """3,527 metal atoms (the transport path's count), CB edges over 6 V so
+    that windows reach past 256 steps: atol 1e-5 * max|plain|, rows with
+    v_ok False exact zeros, two calls bit-equal, one launch a call."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.wkb_window import wkb_window_block, wkb_window_block_plain
+
+    n = 3527
+    pos, _, rng = _points(n, nv + n_int_steps)
+    cb = torch.as_tensor(((rng.random(n) * 2 - 1) * Q * 6).astype(np.float32),
+                         device="cuda")
+    vpos = (pos[:nv] + 0.5).contiguous()
+    vcb = (cb[:nv] * 0.7).contiguous()
+    v_ok = {"none": np.ones(nv, bool), "all": np.zeros(nv, bool),
+            "some": rng.random(nv) < 0.6, "tail": np.arange(nv) < nv * 0.56}[dead]
+    v_ok = torch.as_tensor(v_ok, device="cuda")
+    env = _env(pbc, n_int_steps=n_int_steps)
+    before = wkb_window_block.launches
+    T = wkb_window_block(vpos, vcb, v_ok, pos, cb, env)
+    T2 = wkb_window_block(vpos, vcb, v_ok, pos, cb, env)
+    ref = wkb_window_block_plain(vpos, vcb, v_ok, pos, cb, env)
+    torch.cuda.synchronize()
+    assert wkb_window_block.launches == before + 2
+    assert torch.equal(T, T2)
+    assert bool((T[~v_ok] == 0).all())
+    if dead == "all":
+        assert not T.any() and not ref.any()
+        return
+    assert float(ref.abs().max()) > 0
+    np.testing.assert_allclose(T.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
 
 
 @pytest.mark.cuda

@@ -138,6 +138,125 @@ def test_window_plain_matches_pallas(pbc):
     assert (got[nv - 5:] == 0).all()
 
 
+def _window_rows_stepwise(env, vpos, vcb, v_ok, pos, cb):
+    """The plain version's rows as they were before the step table: e1, e15
+    and the offset computed step by step."""
+    import math
+
+    dev = vpos.device
+    dx = vpos[:, None, 0] - pos[None, :, 0]
+    dy = vpos[:, None, 1] - pos[None, :, 1]
+    dz = vpos[:, None, 2] - pos[None, :, 2]
+    if env["pbc"]:
+        ly, lz = env["lattice"][1], env["lattice"][2]
+        dy = dy - torch.round(dy / ly) * ly
+        dz = dz - torch.round(dz / lz) * lz
+    dist = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    abs_dE = torch.abs(vcb[:, None] - cb[None, :])
+    elig = v_ok[:, None] & (abs_dE > env["ctol"]) & ~(dist < env["nn"])
+    safe = torch.where(elig, abs_dE, 1.0)
+    s = env["prefac"] * (dist * 1e-10) / safe
+    qV0 = torch.tensor(env["qV0"], dtype=torch.float32, device=dev)
+    dE_step = torch.tensor(env["dE_step"], dtype=torch.float32, device=dev)
+    widest = float(torch.where(elig, abs_dE, 0.0).max()) if elig.numel() else 0.0
+    n_steps = min(int(env["n_int_steps"]), int(math.ceil(widest / env["dE_step"])) + 1)
+    T = torch.zeros_like(s)
+    for k in range(n_steps):
+        iv = torch.tensor(float(k), dtype=torch.float32, device=dev) * dE_step
+        e1 = qV0 + iv
+        e2 = e1 - safe
+        e15 = e1 * torch.sqrt(e1)
+        e2p = torch.where(e2 > 0, e2, 0.0)
+        term = torch.where(
+            e2 > 0,
+            torch.exp(s * (e15 - e2p * torch.sqrt(e2p))),
+            torch.where(e2 < 0, torch.exp(s * e15), 0.0),
+        )
+        T = T + torch.where(iv < safe, term, 0.0)
+    return torch.where(elig, -T, 0.0)
+
+
+@pytest.mark.parametrize("n_steps", [1, 256, 1024, 4096])
+def test_window_step_table_is_the_step_loop(n_steps):
+    """window_step_table's offset, e1 and e15 are bit for bit what the step
+    loop computed at each step."""
+    from devicekmc_tpu_torch.ops.wkb_window import window_step_table
+
+    _, tenv = _envs(False, n_int_steps=n_steps)
+    iv, e1, e15 = window_step_table(tenv, n_steps)
+    assert iv.dtype == e1.dtype == e15.dtype == torch.float32
+    qV0 = torch.tensor(tenv["qV0"], dtype=torch.float32)
+    dE = torch.tensor(tenv["dE_step"], dtype=torch.float32)
+    for k in sorted({0, 1, 2, 3, 52, 53, 255, n_steps - 2, n_steps - 1} & set(range(n_steps))):
+        ivk = torch.tensor(float(k), dtype=torch.float32) * dE
+        e1k = qV0 + ivk
+        assert torch.equal(iv[k], ivk) and torch.equal(e1[k], e1k)
+        assert torch.equal(e15[k], e1k * torch.sqrt(e1k))
+    # the kernel builds the table with correctly rounded f32 operations, as
+    # numpy does here: the same offsets and e1; e15 within two ulp, since
+    # PyTorch's f32 square root on the CPU is not always correctly rounded
+    # (one ulp off, and the product rounds once more)
+    ivn = np.arange(n_steps, dtype=np.float32) * np.float32(tenv["dE_step"])
+    e1n = np.float32(tenv["qV0"]) + ivn
+    np.testing.assert_array_equal(iv.numpy(), ivn)
+    np.testing.assert_array_equal(e1.numpy(), e1n)
+    np.testing.assert_array_max_ulp(e15.numpy(), e1n * np.sqrt(e1n), maxulp=2)
+
+
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("n_int_steps", [1, 48, 256, 1024])
+def test_window_plain_with_table_is_bit_equal(pbc, n_int_steps):
+    """The plain version on the step table gives the bits it gave with the
+    values computed step by step; CB edges over 3 V so that wide windows
+    and both barrier forms occur."""
+    from devicekmc_tpu_torch.ops.wkb_window import wkb_window_block_plain
+
+    pos, _, rng = _points(300, seed=n_int_steps)
+    cb = ((rng.random(300) * 2 - 1) * Q * 3).astype(np.float32)
+    _, tenv = _envs(pbc, n_int_steps=n_int_steps)
+    tp, tc = torch.as_tensor(pos), torch.as_tensor(cb)
+    vpos, vcb = (tp[:24] + 0.5).contiguous(), (tc[:24] * 0.7).contiguous()
+    v_ok = torch.arange(24) < 19
+    got = wkb_window_block_plain(vpos, vcb, v_ok, tp, tc, tenv)
+    ref = _window_rows_stepwise(tenv, vpos, vcb, v_ok, tp, tc)
+    assert float(ref.abs().max()) > 0
+    assert torch.equal(got, ref)
+
+
+def test_window_steps_and_lane_share():
+    """window_steps_plain counts the steps k with k * dE_step < |dE| of each
+    eligible pair (0 otherwise), and window_lane_share is the steps over 32
+    times each warp's longest window."""
+    from devicekmc_tpu_torch.ops.wkb_window import (
+        window_lane_share, window_step_table, window_steps_plain,
+    )
+
+    pos, _, rng = _points(100, seed=3)
+    cb = ((rng.random(100) * 2 - 1) * Q * 3).astype(np.float32)
+    _, tenv = _envs(False, n_int_steps=256)
+    tp, tc = torch.as_tensor(pos), torch.as_tensor(cb)
+    vpos, vcb = (tp[:6] + 0.5).contiguous(), (tc[:6] * 0.7).contiguous()
+    v_ok = torch.tensor([True, True, False, True, True, True])
+    steps = window_steps_plain(vpos, vcb, v_ok, tp, tc, tenv)
+    iv, _, _ = window_step_table(tenv, 256)
+    abs_dE = (vcb[:, None] - tc[None, :]).abs()
+    dist = torch.cdist(vpos.double(), tp.double()).float()
+    for r in range(6):
+        for c in range(100):
+            elig = bool(v_ok[r]) and abs_dE[r, c] > tenv["ctol"] and not dist[r, c] < 3.5
+            want = int((iv < abs_dE[r, c]).sum()) if elig else 0
+            assert int(steps[r, c]) == want
+    assert int(steps[2].abs().sum()) == 0 and int(steps.max()) == 256
+    # two rows of 40 columns: warps of 32 and 8 columns
+    s = torch.zeros((2, 40), dtype=torch.int64)
+    s[0, :32] = 10
+    s[0, 5] = 20
+    s[1, 32:] = 4
+    s[1, 39] = 0
+    assert window_lane_share(s) == pytest.approx((31 * 10 + 20 + 7 * 4) / (32 * (20 + 4)))
+    assert window_lane_share(torch.zeros((3, 5), dtype=torch.int64)) == 1.0
+
+
 def test_window_plain_matches_tunnel_block_window():
     """The kernel's plain version (x*sqrt(x), early exit) against the pow
     form tunnel_block(wkb_window_T), which pure-f64 runs use."""

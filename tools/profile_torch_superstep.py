@@ -4,6 +4,7 @@
     python3 tools/profile_torch_superstep.py [--sites 110000] [--steps 6]
                                              [--transport [--ell] [--stored]
                                               [--heat [--local]]]
+                                             [--plain KERNEL ...]
 
 Builds the headline configuration of chip_smoke.py (synthetic crossbar,
 mixed precision, the CUDA kernels, Vd = 1 V), or with ``--transport`` its
@@ -11,8 +12,12 @@ transport configuration (blocked transport, on-the-fly metal block, heating
 off; ``--ell`` keeps the ELL gather in the f32 inner matvec instead of the
 banded operator, ``--stored`` stores the metal block instead of re-deriving
 it; ``--heat`` turns Joule heating on: the global model, or with ``--local``
-the matrix-free local model with symmetric contact spans), builds the
-kernels, runs the cold pre-solves and two warm-up supersteps, then:
+the matrix-free local model with symmetric contact spans; ``--plain``
+runs the plain PyTorch version of the named kernels, ``poisson_pairwise``
+or ``wkb_window_block``, where the path calls them: what their last bits do
+to the trajectory), builds the kernels, runs the cold pre-solves and two
+warm-up supersteps (printing each step's events, CG iterations and
+current), then:
 
 1. host-clock phase breakdown over ``--steps`` supersteps, with a device
    synchronize after each phase: charge rule, boundary solve, Poisson,
@@ -53,6 +58,9 @@ def main():
                     help="with --transport: solve_heating_global on")
     ap.add_argument("--local", action="store_true",
                     help="with --heat: the local matrix-free model instead")
+    ap.add_argument("--plain", nargs="+", default=[],
+                    choices=["poisson_pairwise", "wkb_window_block"],
+                    help="run these kernels' plain versions on the path")
     args = ap.parse_args()
     if (args.heat and not args.transport) or (args.local and not args.heat):
         ap.error("--heat needs --transport, --local needs --heat")
@@ -65,9 +73,13 @@ def main():
     from chip_smoke import VD_MAIN, gpu_line, synthetic_crossbar
     from devicekmc_tpu_torch.physics import charge, current, events, heat, potential
 
-    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import _build, pairwise, wkb_window
 
     print(gpu_line(), flush=True)
+    if "poisson_pairwise" in args.plain:
+        potential.poisson_pairwise = pairwise.poisson_pairwise_plain
+    if "wkb_window_block" in args.plain:
+        current.wkb_window_block = wkb_window.wkb_window_block_plain
     _build.build(["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window"])
     overrides = {}
     if args.ell:
@@ -83,6 +95,10 @@ def main():
     for pre in sim.presolve_log:
         print(f"cold {pre['phase']} solve: {pre['cg_iters']} CG iterations, "
               f"{pre['s'] * 1e3:.1f} ms")
+    for s in sim.step_log:
+        print(f"warm-up step {s['step']}: events {int(s['n_events'])}"
+              + (f", cg_iters_power {int(s['cg_iters_power'])}, Current "
+                 f"{s['Current [uA]']:.9g} uA" if args.transport else ""))
     geom, params, Vd = sim.geom, sim.params, VD_MAIN
     print(f"N={geom.N} max_nn={geom.max_nn} active_rows_cap={params.active_rows_cap} "
           f"poisson_cap={params.poisson_compact_cap}")
