@@ -21,7 +21,11 @@ Phases (any failed check raises and the exit code is non-zero):
    and neighbour statistics of the reference's timing crossbar), neighbour
    list built on the card; the gather and the Poisson kernel are held against
    their plain versions at this path's shapes and timed beside their bounds
-   (the Poisson kernel PBC off and on, two calls bit-equal, with ptxas's
+   (the gather bit-equal on every slot, pads included, 1 and 2 channels,
+   cold L2 and back to back, also with every source local and without the
+   gather, beside the x-bandwidth of the neighbour list, and at the rate
+   table's smallest bucket of rows taken through active_idx; the Poisson kernel
+   PBC off and on, two calls bit-equal, with ptxas's
    registers and shared bytes and the device launches of one call as
    torch.profiler counts them: it must be the one kernel); then
    Simulation.run_bias_point runs the cold pre-solve, 2 warm-up and 4 timed
@@ -32,7 +36,8 @@ Phases (any failed check raises and the exit code is non-zero):
    set to 0 just before: CB-edge solve, cold deflated transport solve,
    8 supersteps; every transport solve must converge, I_macro be finite
    and positive, a skipped or an incremental assembly be seen, and the two
-   headline and all four transport kernels be launched (the window block's
+   headline and all four transport kernels be launched and the dissipation
+   kernel not be (the window block's
    launches split into full and partial assemblies by their rows).  Then
    each transport kernel is held against its plain version at this path's
    shapes (the band, the metal atoms and CB edges, the vacancy bucket of
@@ -53,7 +58,9 @@ Phases (any failed check raises and the exit code is non-zero):
    the dissipation kernel be launched once per transport solve.  Then the
    dissipation kernel is held against its plain version and the stored-block
    sweep, Vd of both signs, PBC off and on, two launches bit-equal, at this
-   path's metal set and at the reference crossbar's 24,768.  Then 3
+   path's metal set and at the reference crossbar's 24,768, with ptxas's
+   registers and shared bytes, the device launches of one call and the
+   share of upper-triangle chunks it skips.  Then 3
    supersteps with solve_heating_local on (matrix-free model, symmetric
    contact spans), with the branch taken, the substeps and the CG iterations
    of every step.
@@ -101,6 +108,8 @@ LOCAL_HEAT_STEPS = 3
 PDISP_EXTRA_OPS = 8
 # interior-metal atoms of the reference's timing crossbar
 REF_N_MP = 24_768
+# the smallest bucket of rate-table rows (the engine's auto rule)
+RATE_BUCKET = 1024
 
 
 def log(msg):
@@ -352,12 +361,16 @@ def kernel_checks(sim):
     timed beside its bound; returns the kernels' records."""
     import torch
 
-    from devicekmc_tpu_torch.ops.ell_gather import ell_gather, ell_gather_plain
+    from devicekmc_tpu_torch.ops.compact import nonzero_fixed
+    from devicekmc_tpu_torch.ops.ell_gather import (
+        ell_gather, ell_gather_plain, ell_stream_copy, launch_grid,
+    )
     from devicekmc_tpu_torch.ops.pairwise import (
         kernel_scalars, poisson_grid, poisson_pairwise, poisson_pairwise_plain,
     )
     from devicekmc_tpu_torch.physics.charge import update_charge
     from devicekmc_tpu_torch.physics.events import pack_site_code
+    from devicekmc_tpu_torch.structure import Element
 
     geom, params = sim.geom, sim.params
     state, _ = update_charge(geom, params, sim.state)
@@ -371,6 +384,12 @@ def kernel_checks(sim):
     code = pack_site_code(elem, state.charge, geom.site_layer)
     R, M = idx.shape
 
+    site = torch.arange(R, device="cuda", dtype=torch.int32)[:, None]
+    # the x-bandwidth in site-index space, as build_ell_gather_plan of the
+    # JAX package computes it (a pad slot counts as the row's own site)
+    bw = int((torch.where(idx >= 0, idx, site) - site).abs().max())
+    # every source access local: idx[r, s] = r
+    idx_local = site.expand(R, M).contiguous()
     gather = {}
     for c, vals in ((1, [flags]), (2, [phi, code])):
         got = ell_gather(idx, vals)
@@ -378,7 +397,9 @@ def kernel_checks(sim):
         torch.cuda.synchronize()
         err = 0.0
         for g, r in zip(got, ref):
-            check(torch.equal(g[valid], r[valid]), f"gather C={c} differs")
+            # every slot, pads included, bit for bit
+            check(torch.equal(g.view(torch.int32), r.view(torch.int32)),
+                  f"gather C={c} differs")
             err = max(err, float((g[valid].double() - r[valid].double()).abs().max()))
         bytes_ = R * M * 4 + c * geom.N * 4 + c * R * M * 4
         gather[c] = dict(
@@ -387,12 +408,46 @@ def kernel_checks(sim):
             library_ms=time_ms_cold(lambda: [v[idx_long] for v in vals]),
             ms_warm=time_ms(lambda: ell_gather(idx, vals)),
             bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3,
+            # what sets the pace: the same kernel with every source local,
+            # and its loop with no gather at all (the streams alone)
+            ms_local=time_ms_cold(lambda: ell_gather(idx_local, vals)),
+            ms_copy=time_ms_cold(lambda: ell_stream_copy(idx, c)),
+            ms_copy_warm=time_ms(lambda: ell_stream_copy(idx, c)),
         )
-        log(f"ell_gather C={c} [{R}x{M}]: bit-equal on valid slots; cold L2 "
-            f"{gather[c]['ms']:.4f} ms (bound {gather[c]['bound_ms']:.4f} ms, "
-            f"plain {gather[c]['plain_ms']:.4f} ms, values[idx] "
-            f"{gather[c]['library_ms']:.4f} ms); back to back "
-            f"{gather[c]['ms_warm']:.4f} ms")
+        r = gather[c]
+        log(f"ell_gather C={c} [{R}x{M}, x-bandwidth {bw} sites]: bit-equal on every "
+            f"slot; cold L2 {r['ms']:.5f} ms (bound {r['bound_ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.5f} ms, values[idx] {r['library_ms']:.5f} ms); back to back "
+            f"{r['ms_warm']:.5f} ms; idx = row (local sources) {r['ms_local']:.5f} ms; "
+            f"the streams alone (no gather) {r['ms_copy']:.5f} ms cold, "
+            f"{r['ms_copy_warm']:.5f} ms back to back")
+    # the rate table's rows as build_rate_table takes them through
+    # active_idx, at the smallest bucket of the engine's auto rule (1,024
+    # rows): the candidate source rows {d, Od, V}, padded with row 0
+    aidx, _ = nonzero_fixed((elem == int(Element.DEFECT))
+                            | (elem == int(Element.OXYGEN_DEFECT))
+                            | (elem == int(Element.VACANCY)), RATE_BUCKET)
+    idx_a = idx[aidx.long()].contiguous()
+    vals = [phi, code]
+    got, ref = ell_gather(idx_a, vals), ell_gather_plain(idx_a, vals)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        check(torch.equal(g.view(torch.int32), r.view(torch.int32)),
+              f"gather at [{RATE_BUCKET}x{M}] differs")
+    gather["bucket"] = dict(
+        ms=time_ms_cold(lambda: ell_gather(idx_a, vals)),
+        ms_warm=time_ms(lambda: ell_gather(idx_a, vals)),
+        plain_ms=time_ms_cold(lambda: ell_gather_plain(idx_a, vals)),
+        bound_ms=(RATE_BUCKET * M * 4 * 3 + 2 * geom.N * 4) / PEAK_BYTES_PER_S * 1e3,
+        **dict(zip(("slots_per_lane", "blocks"), launch_grid(RATE_BUCKET * M, 2, idx.device))))
+    r = gather["bucket"]
+    log(f"ell_gather C=2 [{RATE_BUCKET}x{M}, rate-table rows through active_idx, "
+        f"{r['slots_per_lane']} slots a lane, {r['blocks']} blocks]: bit-equal on every slot; "
+        f"cold L2 {r['ms']:.5f} ms (bound "
+        f"{r['bound_ms']:.5f} ms, plain {r['plain_ms']:.5f} ms); back to back "
+        f"{r['ms_warm']:.5f} ms")
+    gather["bandwidth"] = bw
+    gather["grid"] = {c: launch_grid(R * M, c, idx.device) for c in (1, 2)}
 
     coords32 = geom.coords.to(torch.float32).contiguous()
     cidx = torch.nonzero(state.charge != 0).reshape(-1).to(torch.int32)
@@ -808,7 +863,9 @@ def pdisp_checks(pos, cb, env, tag, plain_reps=5):
     launches bit-equal; timed with this geometry's own PBC flag."""
     import torch
 
-    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_pdisp, wkb_fly_pdisp_plain
+    from devicekmc_tpu_torch.ops.wkb_fly import (
+        matvec_col_split, wkb_fly_pdisp, wkb_fly_pdisp_plain,
+    )
     from devicekmc_tpu_torch.physics.current import (
         _pdisp_rows_cols, tunnel_block, wkb_single_T,
     )
@@ -845,20 +902,30 @@ def pdisp_checks(pos, cb, env, tag, plain_reps=5):
                 warmup=1)
         del T
     st = fly_pair_stats(cb, env["ctol"])
+    # the data-sheet bound counts the work of all n^2 ordered terms, however
+    # the kernel computes them
     ops_pair = WKB_OPS_PER_PAIR[own_pbc] + PDISP_EXTRA_OPS
     bound, by = _bound(_wkb_ops(n * n, st["ok"], ops_pair), n * 20 + n * 4)
+    S = matvec_col_split(n, torch.cuda.get_device_properties(0).multi_processor_count)
+    nc = -(-n // 32)
     rec.update(
         bound_ms=bound, bound_by=by,
         bound_all_pairs_ms=_bound(n * n * ops_pair, n * 20 + n * 4)[0],
-        **kernel_facts("wkb_fly", "fly_pdisp_tiles", (),
-                           lambda: wkb_fly_pdisp(pos, cb, ms, 1.0, env)),
+        # the upper-triangle 32 x 32 chunks the kernel visits, and the share
+        # of them that it skips
+        chunks_upper=nc * (nc + 1) // 2,
+        skipped_chunk_share=1 - st["live_sym"] / (nc * (nc + 1) // 2),
+        **kernel_facts("wkb_fly", "fly_pdisp_tiles", (S,),
+                       lambda: wkb_fly_pdisp(pos, cb, ms, 1.0, env)),
         ms=time_ms(lambda: wkb_fly_pdisp(pos, cb, ms, 1.0, env)),
         plain_ms=time_ms(lambda: wkb_fly_pdisp_plain(pos, cb, ms, 1.0, env),
                          reps=plain_reps, rounds=3, warmup=1))
-    log(f"wkb_fly_pdisp {tag} [n_mp={n}]: {rec['ms']:.4f} ms (data-sheet bound "
-        f"{bound:.4f} ms by {by}, with every pair in full {rec['bound_all_pairs_ms']:.4f}; "
-        f"{rec['registers']} registers, {rec['shared_bytes']} bytes shared, "
-        f"{rec['device_launches']} device launch a call by the profiler), plain "
+    log(f"wkb_fly_pdisp {tag} [n_mp={n}]: {rec['ms']:.5f} ms (data-sheet bound "
+        f"{bound:.5f} ms by {by}, with every pair in full {rec['bound_all_pairs_ms']:.5f}; "
+        f"{rec['kernel']}: {rec['registers']} registers, {rec['shared_bytes']} bytes shared, "
+        f"{rec['device_launches']} device launch a call by the profiler; "
+        f"{100 * rec['skipped_chunk_share']:.2f} % of the {rec['chunks_upper']} "
+        f"upper-triangle chunks skipped), plain "
         f"{rec['plain_ms']:.4f} ms, sweep of the stored block "
         f"{rec['stored_sweep_ms']:.4f} ms, max err {rec['err']:.3e} = {rec['rel_err']:.3e} "
         f"of the largest sum (both signs, PBC off "
@@ -984,6 +1051,13 @@ def headline_path(out_root):
             "ms_1ch": gather[1]["ms"], "plain_ms_1ch": gather[1]["plain_ms"],
             "bound_ms_1ch": gather[1]["bound_ms"],
             "library_ms_1ch": gather[1]["library_ms"],
+            "x_bandwidth": gather["bandwidth"],
+            "slots_per_lane": gather["grid"][2][0], "blocks": gather["grid"][2][1],
+            "slots_per_lane_1ch": gather["grid"][1][0], "blocks_1ch": gather["grid"][1][1],
+            **{f"{key}{sfx}": gather[c][key] for c, sfx in ((2, ""), (1, "_1ch"))
+               for key in ("ms_local", "ms_copy", "ms_copy_warm")},
+            "rate_bucket": {"shape": f"{RATE_BUCKET}x{g.max_nn}, 2 channels",
+                            **gather["bucket"]},
         },
         {
             "name": "poisson_pairwise", "route": "cuda",
@@ -1014,7 +1088,9 @@ def transport_path(out_root):
     from devicekmc_tpu_torch.ops.banded import banded_matvec
     from devicekmc_tpu_torch.ops.ell_gather import ell_gather
     from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise
-    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matmat, wkb_fly_matvec
+    from devicekmc_tpu_torch.ops.wkb_fly import (
+        wkb_fly_matmat, wkb_fly_matvec, wkb_fly_pdisp,
+    )
     from devicekmc_tpu_torch.ops.wkb_window import wkb_window_block
     from devicekmc_tpu_torch.physics import current as cur
 
@@ -1035,7 +1111,8 @@ def transport_path(out_root):
     # ---- counters to 0, drive, read ----
     wrappers = {"ell_gather": ell_gather, "poisson_pairwise": poisson_pairwise,
                 "banded_matvec": banded_matvec, "wkb_fly_matvec": wkb_fly_matvec,
-                "wkb_fly_matmat": wkb_fly_matmat, "wkb_window_block": wkb_window_block}
+                "wkb_fly_matmat": wkb_fly_matmat, "wkb_window_block": wkb_window_block,
+                "wkb_fly_pdisp": wkb_fly_pdisp}
     # the window block's launches, by shape: the whole bucket (full assembly)
     # or the rows of the atoms that entered it (partial)
     vm_rows = []
@@ -1062,7 +1139,11 @@ def transport_path(out_root):
     check(sum(assemblies.values()) == launches["wkb_window_block"],
           f"window block shapes {vm_rows} for {launches['wkb_window_block']} launches")
     for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the transport path")
+        if name == "wkb_fly_pdisp":
+            # the run has no heating: no dissipation sweep
+            check(n == 0, f"{name} was launched {n} times on the transport path")
+        else:
+            check(n > 0, f"{name} was not launched on the transport path")
 
     steps = sim.step_log
     check(len(steps) == TRANSPORT_STEPS, f"ran {len(steps)} transport supersteps")
@@ -1325,7 +1406,8 @@ def heat_run(out_root, model, n_steps, wrappers, device="cuda", n_sites=N_SITES)
     return sim, launches
 
 
-PDISP_FACTS = ("bound_all_pairs_ms", "registers", "shared_bytes", "device_launches")
+PDISP_FACTS = ("bound_all_pairs_ms", "kernel", "registers", "shared_bytes",
+               "device_launches", "chunks_upper", "skipped_chunk_share")
 
 
 def heat_path(out_root):
@@ -1367,7 +1449,7 @@ def heat_path(out_root):
         "max_err_of_largest_sum": rec["rel_err"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None,
-        "shape": f"n_mp={n_mp}, all n^2 pairs",
+        "shape": f"n_mp={n_mp}, upper-triangle tiles",
         "stored_sweep_ms": rec["stored_sweep_ms"],
         "launches_local_heat_run": local_launches["wkb_fly_pdisp"],
         **{key: rec[key] for key in PDISP_FACTS},
@@ -1414,6 +1496,8 @@ def main():
     kernels += records
     torch.cuda.empty_cache()
     heat_launches, pdisp = heat_path(out_root)
+    pdisp.update(launches_transport_path=transport_launches["wkb_fly_pdisp"],
+                 launches_heat_path=pdisp["launches"])
     for k in kernels:
         k["launches_transport_path"] = transport_launches[k["name"]]
         k["launches_heat_path"] = heat_launches[k["name"]]

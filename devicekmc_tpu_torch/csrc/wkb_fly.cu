@@ -57,7 +57,9 @@
 //     that draws the last ticket adds the strip's slots in ascending order.
 //     No float atomics: results, and with them CG iteration counts, repeat
 //     from run to run.
-//   * matvec: a block owns one 128 x 128 tile with 4 * S warps (S = 1 or 4,
+//   * matvec and pdisp: one tile loop (tile_sweep), whose per-pair step is
+//     a functor (MatvecOp multiplies by x, PdispOp routes the dissipation
+//     term); a block owns one 128 x 128 tile with 4 * S warps (S = 1 or 4,
 //     chosen from n so that the card is full at small n too); warp
 //     (rg, seg) owns rows rg*32.. and the column chunks seg, seg+S, ...  In
 //     a chunk lane l visits column (l + s) mod 32 at step s, so the lanes
@@ -81,8 +83,11 @@
 //     a scratch slot of K floats per column and row *tile* (nt * n * K
 //     floats, 461 MB at n = 24,768) for the column sums, and its 2 K FMAs a
 //     pair value stay; the chunk skip gives the larger saving.
-//   * pdisp and the row-form matvec share the pair value, the chunk skip and
-//     the ticket; pdisp visits all n^2 pairs a thread per row.
+//   * pdisp runs the symmetric form: each unordered pair once, its term
+//     routed to the row, the column or neither by the sign of the current
+//     it carries (PdispOp), so that it computes half the pair values of a
+//     sweep over all n^2 ordered pairs and no term changes, only the order
+//     of the sums.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -168,8 +173,8 @@ __device__ __forceinline__ float pair_val(float pxr, float pyr, float pzr, float
 
 // The column atoms of tile ct, staged by threads 0..127 of the block (warp w
 // stages chunk w and leaves its smallest and largest CB edge).  Columns
-// beyond n are zeros (a finite pair value that meets a zero operand) and do
-// not enter the chunk's range.
+// beyond n sit at the origin with the operand entry `pad` (a finite pair
+// value meets it and adds nothing) and do not enter the chunk's range.
 struct ColTile {
   float4 p[kTile];   // x, y, z, CB edge: one 16-byte load a pair
   float v[kTile];    // the operand's entry
@@ -178,8 +183,8 @@ struct ColTile {
 
 __device__ __forceinline__ void stage_cols(ColTile& t, const float* __restrict__ pos,
                                            const float* __restrict__ cb,
-                                           const float* __restrict__ v, int n, int ct,
-                                           int tid) {
+                                           const float* __restrict__ v, float pad, int n,
+                                           int ct, int tid) {
   const int c = ct * kTile + tid;
   const bool ok = c < n;
   float lo = INFINITY, hi = -INFINITY;
@@ -190,7 +195,7 @@ __device__ __forceinline__ void stage_cols(ColTile& t, const float* __restrict__
     t.v[tid] = v ? v[c] : 0.f;
   } else {
     t.p[tid] = make_float4(0.f, 0.f, 0.f, 0.f);
-    t.v[tid] = 0.f;
+    t.v[tid] = pad;
   }
 #pragma unroll
   for (int off = kChunk / 2; off > 0; off >>= 1) {
@@ -244,11 +249,49 @@ __device__ __forceinline__ void tri_decode(int t, int nt, int& rt, int& ct) {
   ct = r + (int)(t - tri_first(r, nt));
 }
 
-template <bool SYM, int S>
-__global__ void __launch_bounds__(kTile * S)
-fly_matvec_tiles(const float* __restrict__ pos, const float* __restrict__ cb,
-                 const float* __restrict__ x, int n, Scal sc, int nt,
-                 float* part, int* cnt, float* __restrict__ y) {
+// What a pair adds to its row's sum and to its column's sum, for the
+// matvec: the pair value times the column's and the row's entry of x.
+// Rows and columns beyond n take pad() as their entry.
+struct MatvecOp {
+  __device__ __forceinline__ static float pad() { return 0.f; }
+  __device__ __forceinline__ void operator()(float v, float r, float c, float& acc,
+                                             float& cacc) const {
+    acc = fmaf(v, c, acc);
+    cacc = fmaf(v, r, cacc);
+  }
+};
+
+// The dissipation sweep: r and c are the row's and the column's scaled
+// potentials ms.  With dM = r - c and I = v dM, the term t = I dM is the
+// TPU kernel's (-I)(-dM) bit for bit (negation is exact); the pair in the
+// other order has dM and I negated exactly and so the same t.  t goes to the
+// row when (i, j) carries forward current, fwd(I): I vsgn < 0, and to the
+// column when (j, i) does, fwd(-I): I vsgn > 0; to neither when I or the
+// bias is 0.  Beyond n the entry is a NaN: every comparison with it fails,
+// so pad rows and columns add nothing either way.
+struct PdispOp {
+  __device__ __forceinline__ static float pad() { return __int_as_float(0x7fc00000); }
+  float vsgn;
+  __device__ __forceinline__ void operator()(float v, float r, float c, float& acc,
+                                             float& cacc) const {
+    const float dM = r - c;
+    const float I = v * dM;
+    const float t = I * dM;
+    const float Is = I * vsgn;
+    acc += Is < 0.f ? t : 0.f;
+    cacc += Is > 0.f ? t : 0.f;
+  }
+};
+
+// One 128 x 128 tile of a sweep over the pairs, out = the row sums of
+// op's terms (the column sums too in the symmetric form).  v: the operand
+// (x of the matvec, ms of the dissipation sweep).
+template <bool SYM, int S, class Op>
+__device__ __forceinline__ void tile_sweep(const float* __restrict__ pos,
+                                           const float* __restrict__ cb,
+                                           const float* __restrict__ v, int n,
+                                           const Scal& sc, int nt, float* part, int* cnt,
+                                           float* __restrict__ out, const Op op) {
   int rt, ct;
   if (SYM) {
     tri_decode(blockIdx.x, nt, rt, ct);
@@ -265,16 +308,16 @@ fly_matvec_tiles(const float* __restrict__ pos, const float* __restrict__ cb,
   const int warp = tid / kChunk;
   const int rg = warp % kChunks, seg = warp / kChunks;
   const int n_pad = nt * kTile;
-  if (tid < kTile) stage_cols(col, pos, cb, x, n, ct, tid);
+  if (tid < kTile) stage_cols(col, pos, cb, v, Op::pad(), n, ct, tid);
   const int i = rt * kTile + rg * kChunk + lane;
   const bool row_ok = i < n;
-  float pxr = 0.f, pyr = 0.f, pzr = 0.f, cbr = 0.f, xr = 0.f;
+  float pxr = 0.f, pyr = 0.f, pzr = 0.f, cbr = 0.f, vr = Op::pad();
   if (row_ok) {
     pxr = pos[3 * (int64_t)i];
     pyr = pos[3 * (int64_t)i + 1];
     pzr = pos[3 * (int64_t)i + 2];
     cbr = cb[i];
-    xr = x[i];
+    vr = v[i];
   }
   __syncthreads();
   const bool diag = SYM && rt == ct;
@@ -287,13 +330,10 @@ fly_matvec_tiles(const float* __restrict__ pos, const float* __restrict__ cb,
 #pragma unroll 4
       for (int s = 0; s < kChunk; ++s) {
         const int k = base + ((lane + s) & (kChunk - 1));
-        const float v = pair_val(pxr, pyr, pzr, cbr, col.p[k], sc);
-        acc = fmaf(v, col.v[k], acc);
-        if (SYM) {
-          // lane l holds the partial sum of column (l + s); hand it one lane on
-          cacc = fmaf(v, xr, cacc);
-          cacc = __shfl_sync(kFull, cacc, (lane + 1) & (kChunk - 1));
-        }
+        const float val = pair_val(pxr, pyr, pzr, cbr, col.p[k], sc);
+        op(val, vr, col.v[k], acc, cacc);
+        // lane l holds the partial sum of column (l + s); hand it one lane on
+        if (SYM) cacc = __shfl_sync(kFull, cacc, (lane + 1) & (kChunk - 1));
       }
     }
     if (SYM) scol[rg][cg * kChunk + lane] = (diag && cg == rg) ? 0.f : cacc;
@@ -313,52 +353,28 @@ fly_matvec_tiles(const float* __restrict__ pos, const float* __restrict__ cb,
     }
     part[(int64_t)ct * n_pad + rt * kTile + tid] = r;
   }
-  if (last_ticket(cnt, rt, nt, &s_flag)) add_strip(part, nt, n_pad, rt, n, y, tid);
+  if (last_ticket(cnt, rt, nt, &s_flag)) add_strip(part, nt, n_pad, rt, n, out, tid);
   if (SYM && ct > rt) {
-    if (last_ticket(cnt, ct, nt, &s_flag)) add_strip(part, nt, n_pad, ct, n, y, tid);
+    if (last_ticket(cnt, ct, nt, &s_flag)) add_strip(part, nt, n_pad, ct, n, out, tid);
   }
 }
 
-// Forward-current dissipation row sums; vsgn is the sign of the bias (0 gives
-// all zeros: neither clause holds).  A thread per row of tile (rt, ct).
-__global__ void __launch_bounds__(kTile)
+template <bool SYM, int S>
+__global__ void __launch_bounds__(kTile * S)
+fly_matvec_tiles(const float* __restrict__ pos, const float* __restrict__ cb,
+                 const float* __restrict__ x, int n, Scal sc, int nt,
+                 float* part, int* cnt, float* __restrict__ y) {
+  tile_sweep<SYM, S>(pos, cb, x, n, sc, nt, part, cnt, y, MatvecOp{});
+}
+
+// Forward-current dissipation row sums over the upper-triangle tiles, each
+// unordered pair once; vsgn is the sign of the bias (0 gives all zeros).
+template <int S>
+__global__ void __launch_bounds__(kTile * S)
 fly_pdisp_tiles(const float* __restrict__ pos, const float* __restrict__ cb,
                 const float* __restrict__ ms, int n, Scal sc, float vsgn, int nt,
                 float* part, int* cnt, float* __restrict__ row) {
-  const int rt = blockIdx.y, ct = blockIdx.x;
-  __shared__ ColTile col;
-  __shared__ int s_flag;
-  const int tid = threadIdx.x;
-  const int n_pad = nt * kTile;
-  stage_cols(col, pos, cb, ms, n, ct, tid);
-  const int i = rt * kTile + tid;
-  const bool row_ok = i < n;
-  float pxr = 0.f, pyr = 0.f, pzr = 0.f, cbr = 0.f, msr = 0.f;
-  if (row_ok) {
-    pxr = pos[3 * (int64_t)i];
-    pyr = pos[3 * (int64_t)i + 1];
-    pzr = pos[3 * (int64_t)i + 2];
-    cbr = cb[i];
-    msr = ms[i];
-  }
-  __syncthreads();
-  const int n_cols = min(kTile, n - ct * kTile);
-  const bool pos_bias = vsgn > 0.f, neg_bias = vsgn < 0.f;
-  float acc = 0.f;
-  for (int cg = 0; cg < kChunks; ++cg) {
-    if (chunk_skip(col, cg, cbr, row_ok, sc.ctol)) continue;
-    const int k_end = min((cg + 1) * kChunk, n_cols);
-#pragma unroll 4
-    for (int k = cg * kChunk; k < k_end; ++k) {
-      const float v = pair_val(pxr, pyr, pzr, cbr, col.p[k], sc);
-      const float dM = msr - col.v[k];
-      const float I_cal = v * dM;
-      const bool fwd = (I_cal < 0.f && pos_bias) || (I_cal > 0.f && neg_bias);
-      acc += fwd ? (-I_cal) * (-dM) : 0.f;
-    }
-  }
-  part[(int64_t)ct * n_pad + i] = acc;
-  if (last_ticket(cnt, rt, nt, &s_flag)) add_strip(part, nt, n_pad, rt, n, row, tid);
+  tile_sweep<true, S>(pos, cb, ms, n, sc, nt, part, cnt, row, PdispOp{vsgn});
 }
 
 template <int KB>
@@ -387,7 +403,7 @@ fly_matmat_tiles(const float* __restrict__ pos, const float* __restrict__ cb,
   for (int q = 0; q < KQ; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
   float* sXf = reinterpret_cast<float*>(&sX[0][0]);
   for (int ct = split; ct < nt; ct += n_split) {
-    stage_cols(col, pos, cb, nullptr, n, ct, tid);
+    stage_cols(col, pos, cb, nullptr, 0.f, n, ct, tid);
     // consecutive threads read consecutive floats of X (one run when KB == K)
     for (int e = tid; e < kTile * KB; e += kTile) {
       const int c = ct * kTile + e / KB, q = k0 + e % KB;
@@ -523,22 +539,35 @@ extern "C" int dkmc_wkb_fly_matvec(const void* pos, const void* cb, const void* 
 }
 
 // row [n] = forward-current dissipation row sums for the atoms' scaled
-// potentials ms [n]; vsgn: the sign of the bias (-1, 0 or 1).  part: scratch
-// of n_tiles * n_tiles * 128 floats; cnt: n_tiles tickets.
+// potentials ms [n]; vsgn: the sign of the bias (-1, 0 or 1).  part, cnt
+// and col_split as for the matvec.
 extern "C" int dkmc_wkb_fly_pdisp(const void* pos, const void* cb, const void* ms,
                                   int n, float prefac, float qV0, float ctol,
                                   float nn, float ly, float lz, int pbc,
-                                  float vsgn, void* part, void* cnt, void* row,
-                                  void* stream) {
+                                  float vsgn, int col_split, void* part, void* cnt,
+                                  void* row, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   const int nt = (n + kTile - 1) / kTile;
   if (nt > 65535) return (int)cudaErrorInvalidValue;
   const Scal sc = scalars(prefac, qV0, ctol, nn, ly, lz, pbc);
-  dim3 grid(nt, nt);
-  fly_pdisp_tiles<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pos), static_cast<const float*>(cb),
-      static_cast<const float*>(ms), n, sc, vsgn, nt, static_cast<float*>(part),
-      static_cast<int*>(cnt), static_cast<float*>(row));
+  const dim3 grid((unsigned)((int64_t)nt * (nt + 1) / 2));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(pos);
+  const float* c = static_cast<const float*>(cb);
+  const float* m = static_cast<const float*>(ms);
+  float* pt = static_cast<float*>(part);
+  int* ct = static_cast<int*>(cnt);
+  float* r = static_cast<float*>(row);
+  switch (col_split) {
+    case 1:
+      fly_pdisp_tiles<1><<<grid, kTile, 0, st>>>(p, c, m, n, sc, vsgn, nt, pt, ct, r);
+      break;
+    case 4:
+      fly_pdisp_tiles<4><<<grid, 4 * kTile, 0, st>>>(p, c, m, n, sc, vsgn, nt, pt, ct, r);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

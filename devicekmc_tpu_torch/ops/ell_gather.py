@@ -7,17 +7,23 @@ only: float32 and int32 channels pass unchanged, and pad slots hold site 0's
 word, to be masked with ``neigh_valid`` downstream.
 
 Bound on the card: bytes (the index stream in, C output streams out; the
-per-site sources stay in L2).  See the kernel source for the design.
+per-site sources stay in L2).  See the kernel source for the design: four
+slots a lane in warp tiles of 128 consecutive slots (one slot a lane for
+short calls), two tiles in flight, evict-first streams, each block sweeping
+one contiguous range of tiles with a grid of a few blocks an SM
+(:func:`gather_grid`).
 
 :func:`ell_gather` launches the kernel for CUDA tensors and takes the plain
 version :func:`ell_gather_plain` only for CPU tensors.  ``ell_gather.launches``
-counts kernel launches.
+counts kernel launches.  :func:`ell_stream_copy` runs the kernel's loop
+without the gather: a measurement aid, launched on no path, that gives the
+streams' floor beside the gather.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -25,6 +31,28 @@ from . import _build
 
 MAX_CHANNELS = 2
 _WORD_DTYPES = (torch.float32, torch.int32)
+_THREADS = 512
+_WARPS = _THREADS // 32
+#: blocks of the grid a streaming multiprocessor, at most (fewer where the
+#: kernel's registers leave room for fewer, :func:`resident_blocks`: 2 for two
+#: channels on an H100); more blocks an SM keep more bytes in flight, fewer
+#: keep fewer source windows in L1
+GATHER_BLOCKS_PER_SM = 4
+
+
+def gather_grid(n_pairs: int, n_sm: int, per_sm: int = GATHER_BLOCKS_PER_SM
+                ) -> Tuple[int, int]:
+    """(slots a lane, blocks) of the kernel's launch.  Four slots a lane
+    (warp tiles of 128 slots) where the tiles give every warp of one block
+    an SM work; one slot a lane below that (short calls, such as the rate
+    table's compacted rows, are latency bound: four times the warps).
+    ``per_sm`` blocks an SM, each sweeping one contiguous range of tiles, no
+    more blocks than give each of their warps a tile, but at least one block
+    an SM while there are tiles for them."""
+    k = 4 if -(-n_pairs // 128) >= n_sm * _WARPS else 1
+    tiles = -(-n_pairs // (32 * k))
+    full = -(-tiles // _WARPS)
+    return k, max(1, min(n_sm * per_sm, max(full, min(n_sm, tiles))))
 
 
 def ell_gather_plain(neigh_idx: torch.Tensor, values: Sequence[torch.Tensor]
@@ -34,15 +62,65 @@ def ell_gather_plain(neigh_idx: torch.Tensor, values: Sequence[torch.Tensor]
     return [v[safe] for v in values]
 
 
-def _lib():
-    lib = _build.load("ell_gather")
-    fn = lib.dkmc_ell_gather
+def _fn(symbol, n_ptrs):
+    fn = getattr(_build.load("ell_gather"), symbol)
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = ([p, ctypes.c_longlong, ctypes.c_int]
-                       + [p] * (2 * MAX_CHANNELS) + [p])
+        fn.argtypes = ([p, ctypes.c_longlong, ctypes.c_int] + [p] * n_ptrs
+                       + [ctypes.c_int, ctypes.c_int, p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_idx(name, neigh_idx):
+    if neigh_idx.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {neigh_idx.device}")
+    if neigh_idx.dtype != torch.int32 or neigh_idx.dim() != 2 \
+            or not neigh_idx.is_contiguous():
+        raise ValueError(f"{name}: neigh_idx must be a contiguous 2-D int32 tensor")
+
+
+_resident = {}
+
+
+def resident_blocks(nch: int) -> int:
+    """Blocks of the kernel for ``nch`` channels that one SM holds at once
+    (the CUDA occupancy calculator: the kernel's registers decide)."""
+    if nch not in _resident:
+        fn = _build.load("ell_gather").dkmc_ell_gather_blocks_per_sm
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        per_sm = fn(nch)
+        if per_sm <= 0:
+            raise RuntimeError(f"ell_gather: occupancy query failed ({per_sm})")
+        _resident[nch] = per_sm
+    return _resident[nch]
+
+
+def launch_grid(n_pairs: int, nch: int, device) -> Tuple[int, int]:
+    """(slots a lane, blocks) that :func:`ell_gather` launches for
+    ``n_pairs`` pairs of ``nch`` channels on the card ``device``."""
+    return gather_grid(n_pairs, _build.sm_count(device),
+                       min(GATHER_BLOCKS_PER_SM, resident_blocks(nch)))
+
+
+def _launch(name, fn, neigh_idx, ptrs, nch, grid):
+    stream = torch.cuda.current_stream(neigh_idx.device).cuda_stream
+    err = fn(neigh_idx.data_ptr(), neigh_idx.numel(), nch, *ptrs, *grid, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _gather(neigh_idx, values, grid):
+    """The kernel's launch with ``grid`` = (slots a lane, blocks) (checked
+    inputs, at least one pair); :func:`ell_gather` gives it
+    :func:`launch_grid`."""
+    outs = [torch.empty(neigh_idx.shape, dtype=v.dtype, device=v.device)
+            for v in values]
+    srcs = [v.data_ptr() for v in values] + [None] * (MAX_CHANNELS - len(values))
+    dsts = [o.data_ptr() for o in outs] + [None] * (MAX_CHANNELS - len(outs))
+    _launch("ell_gather", _fn("dkmc_ell_gather", 2 * MAX_CHANNELS), neigh_idx,
+            srcs + dsts, len(values), grid)
+    return outs
 
 
 def ell_gather(neigh_idx: torch.Tensor, values: Sequence[torch.Tensor]
@@ -53,11 +131,7 @@ def ell_gather(neigh_idx: torch.Tensor, values: Sequence[torch.Tensor]
     values = list(values)
     if neigh_idx.device.type == "cpu":
         return ell_gather_plain(neigh_idx, values)
-    if neigh_idx.device.type != "cuda":
-        raise ValueError(f"ell_gather: unsupported device {neigh_idx.device}")
-    if neigh_idx.dtype != torch.int32 or neigh_idx.dim() != 2 \
-            or not neigh_idx.is_contiguous():
-        raise ValueError("ell_gather: neigh_idx must be a contiguous 2-D int32 tensor")
+    _check_idx("ell_gather", neigh_idx)
     if not 1 <= len(values) <= MAX_CHANNELS:
         raise ValueError(f"ell_gather: 1 to {MAX_CHANNELS} channels, got {len(values)}")
     for v in values:
@@ -67,20 +141,30 @@ def ell_gather(neigh_idx: torch.Tensor, values: Sequence[torch.Tensor]
                 "ell_gather: each channel must be a contiguous 1-D float32 or "
                 f"int32 tensor on {neigh_idx.device}"
             )
-    outs = [torch.empty(neigh_idx.shape, dtype=v.dtype, device=v.device)
-            for v in values]
-    n_pairs = neigh_idx.numel()
-    if n_pairs == 0:
-        return outs
-    fn = _lib()
-    srcs = [v.data_ptr() for v in values] + [None] * (MAX_CHANNELS - len(values))
-    dsts = [o.data_ptr() for o in outs] + [None] * (MAX_CHANNELS - len(outs))
-    stream = torch.cuda.current_stream(neigh_idx.device).cuda_stream
-    err = fn(neigh_idx.data_ptr(), n_pairs, len(values), *srcs, *dsts, stream)
-    if err != 0:
-        raise RuntimeError(f"ell_gather kernel launch failed: cudaError {err}")
+    if neigh_idx.numel() == 0:
+        return [torch.empty(neigh_idx.shape, dtype=v.dtype, device=v.device)
+                for v in values]
+    outs = _gather(neigh_idx, values,
+                   launch_grid(neigh_idx.numel(), len(values), neigh_idx.device))
     ell_gather.launches += 1
     return outs
 
 
 ell_gather.launches = 0
+
+
+def ell_stream_copy(neigh_idx: torch.Tensor, nch: int) -> List[torch.Tensor]:
+    """The gather kernel's loop with the gather left out: ``nch`` int32
+    copies of ``neigh_idx`` (CUDA only, on :func:`ell_gather`'s grid).  It
+    moves the index and output bytes that :func:`ell_gather` moves and
+    reads no source: a measurement of the streams alone, launched on no
+    path."""
+    _check_idx("ell_stream_copy", neigh_idx)
+    if not 1 <= nch <= MAX_CHANNELS:
+        raise ValueError(f"ell_stream_copy: 1 to {MAX_CHANNELS} channels, got {nch}")
+    outs = [torch.empty_like(neigh_idx) for _ in range(nch)]
+    if neigh_idx.numel():
+        dsts = [o.data_ptr() for o in outs] + [None] * (MAX_CHANNELS - nch)
+        _launch("ell_stream_copy", _fn("dkmc_ell_stream_copy", MAX_CHANNELS), neigh_idx,
+                dsts, nch, launch_grid(neigh_idx.numel(), nch, neigh_idx.device))
+    return outs

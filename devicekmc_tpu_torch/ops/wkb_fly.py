@@ -22,7 +22,8 @@ full-accuracy exp; which entries are exact zeros is decided with the plain
 version's correctly rounded operations), column chunks of 32 that a warp leaves when their CB-edge range proves
 every entry an exact zero (:func:`chunk_skip_plain` is that test in
 PyTorch), a symmetric matvec over the upper-triangle tiles whose column sums
-travel through the lanes of a warp, a matmat with the X tile read as float4,
+travel through the lanes of a warp (the dissipation sweep runs the same tile
+loop and routes each unordered pair's term), a matmat with the X tile read as float4,
 and one launch a call: the partial sums of a strip are added in a fixed order
 by the block that draws the strip's last integer ticket, so two calls give
 the same bits.
@@ -100,9 +101,9 @@ def chunk_skip_plain(cb_r, cb_c, ctol) -> torch.Tensor:
 
 
 def matvec_col_split(n: int, n_sm: int = _build.H100_SMS) -> int:
-    """Warps-of-4 per tile of the matvec on a card of ``n_sm`` streaming
-    multiprocessors: 4 while the upper triangle alone holds too few tiles to
-    fill the card with one, else 1."""
+    """Warps-of-4 per tile of the symmetric matvec and the dissipation sweep
+    on a card of ``n_sm`` streaming multiprocessors: 4 while the upper
+    triangle alone holds too few tiles to fill the card with one, else 1."""
     nt = -(-n // _TILE)
     return 4 if nt * (nt + 1) // 2 < 2 * _TILES_PER_SM * n_sm else 1
 
@@ -270,7 +271,11 @@ def wkb_fly_pdisp(pos: torch.Tensor, cb: torch.Tensor, ms: torch.Tensor, Vd,
     (``physics.current._pdisp_rows_cols`` on the on-the-fly block; the block
     is symmetric, so the row sums are all it needs).  pos [n,3], cb [n] (J),
     ms [n] (the atoms' shifted scaled potentials), all f32; only the sign of
-    ``Vd`` enters.  Returns [n] f32."""
+    ``Vd`` enters.  Returns [n] f32.  The kernel visits the upper-triangle
+    tiles, as the symmetric matvec does (same grid and warps a tile), and
+    routes each unordered pair's term to the row or the column that carries
+    forward current: the terms of :func:`wkb_fly_pdisp_plain`, summed in
+    another order."""
     if pos.device.type == "cpu":
         return wkb_fly_pdisp_plain(pos, cb, ms, Vd, env)
     _check("wkb_fly_pdisp", pos, cb, ms, 1)
@@ -281,9 +286,10 @@ def wkb_fly_pdisp(pos: torch.Tensor, cb: torch.Tensor, ms: torch.Tensor, Vd,
     nt = -(-n // _TILE)
     part = torch.empty(nt * nt * _TILE, dtype=torch.float32, device=pos.device)
     fn = _fn("dkmc_wkb_fly_pdisp",
-             [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _F, _P, _P, _P, _P])
+             [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _F, _I, _P, _P, _P, _P])
     err = fn(pos.data_ptr(), cb.data_ptr(), ms.data_ptr(), n, *_scalars(env),
-             _vsgn(Vd), part.data_ptr(), _build.tickets(pos.device, nt).data_ptr(),
+             _vsgn(Vd), matvec_col_split(n, _build.sm_count(pos.device)),
+             part.data_ptr(), _build.tickets(pos.device, nt).data_ptr(),
              row.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkb_fly_pdisp kernel launch failed: cudaError {err}")

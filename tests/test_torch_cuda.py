@@ -16,29 +16,81 @@ def _need_card():
         pytest.skip("needs a CUDA card")
 
 
+# (N, max_nn, bw, offset, active): n_pairs % 4 of 0, 1, 2 and 3 (and fewer
+# pairs than a 16-byte group); ``offset`` words between a 16-byte boundary
+# and the index tensor's data_ptr; ``active`` rows taken as the rate table
+# takes them through active_idx (geom.neigh_idx[a].contiguous()), one at the
+# smallest bucket of rows (1,024 x 51); the cases of 20,000 sites and more
+# run four slots a lane on an H100, the others one (gather_grid)
+GATHER_CASES = [
+    (515, 52, 510, 0, False), (20000, 27, 3000, 0, False),
+    (513, 13, 100, 0, False), (255, 6, 50, 0, False), (1001, 3, 200, 0, False),
+    (1, 1, 0, 0, False), (2, 1, 1, 0, False), (3, 1, 2, 0, False),
+    (515, 52, 510, 1, False), (513, 13, 100, 2, False), (255, 6, 50, 3, False),
+    (2, 1, 1, 3, False), (20000, 27, 3000, 0, True), (1001, 51, 500, 0, True),
+    (3072, 51, 1500, 0, True), (20001, 27, 3000, 3, False), (30000, 51, 5000, 0, True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,max_nn,bw", [(515, 52, 510), (20000, 27, 3000)])
-def test_cuda_gather_bit_equal(N, max_nn, bw):
-    """Both channels bit-equal to the plain version on valid slots."""
+@pytest.mark.parametrize("N,max_nn,bw,offset,active", GATHER_CASES)
+def test_cuda_gather_bit_equal(N, max_nn, bw, offset, active):
+    """Bit-equal to the plain version on every slot, pads included: one and
+    two channels, f32 and int32 sources in either place."""
     _need_card()
     from devicekmc_tpu_torch.ops.ell_gather import ell_gather, ell_gather_plain
 
-    rng = np.random.default_rng(N)
+    rng = np.random.default_rng(N * 8 + offset)
     site = np.arange(N)[:, None]
     nb = np.clip(site + rng.integers(-bw, bw + 1, (N, max_nn)), 0, N - 1)
     nb[rng.random((N, max_nn)) < 0.15] = -1
     idx = torch.as_tensor(nb, dtype=torch.int32, device="cuda")
-    vals = [torch.as_tensor(rng.standard_normal(N).astype(np.float32), device="cuda"),
-            torch.as_tensor(rng.integers(0, 1 << 16, N).astype(np.int32), device="cuda")]
-    valid = idx >= 0
+    if active:
+        a = torch.as_tensor(np.sort(rng.choice(N, N // 3, replace=False)), device="cuda")
+        idx = idx[a].contiguous()
+    if offset:
+        buf = torch.empty(idx.numel() + 8, dtype=torch.int32, device="cuda")
+        head = (-(buf.data_ptr() // 4)) % 4
+        view = buf[head + offset:head + offset + idx.numel()].view(idx.shape)
+        view.copy_(idx)
+        idx = view
+        assert idx.is_contiguous() and idx.data_ptr() % 16 == 4 * offset
+    f32 = torch.as_tensor(rng.standard_normal(N).astype(np.float32), device="cuda")
+    i32 = torch.as_tensor(rng.integers(-(1 << 30), 1 << 30, N).astype(np.int32),
+                          device="cuda")
     before = ell_gather.launches
-    for c in (1, 2):
-        got = ell_gather(idx, vals[:c])
-        ref = ell_gather_plain(idx, vals[:c])
+    sets = ([f32], [i32], [f32, i32], [i32, f32])
+    for vals in sets:
+        got = ell_gather(idx, vals)
+        ref = ell_gather_plain(idx, vals)
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
-            assert torch.equal(g[valid], r[valid])
-    assert ell_gather.launches == before + 2
+            assert g.dtype == r.dtype and g.shape == idx.shape
+            assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+    assert ell_gather.launches == before + len(sets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("n", [20000 * 27 + 3, 1000 * 27 + 1])
+def test_cuda_gather_stream_copy(offset, n):
+    """The measurement aid copies the index words into every channel, with
+    four and with one slot a lane."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.ell_gather import (
+        ell_gather, ell_gather_plain, ell_stream_copy,
+    )
+
+    rng = np.random.default_rng(5)
+    buf = torch.as_tensor(rng.integers(-1, 20000, n + 8).astype(np.int32), device="cuda")
+    head = (-(buf.data_ptr() // 4)) % 4
+    idx = buf[head + offset:head + offset + n].view(1, n)
+    for nch in (1, 2):
+        outs = ell_stream_copy(idx, nch)
+        torch.cuda.synchronize()
+        assert len(outs) == nch and all(torch.equal(o, idx) for o in outs)
+    vals = [torch.randn(20000, device="cuda")]
+    assert torch.equal(ell_gather(idx, vals)[0], ell_gather_plain(idx, vals)[0])
 
 
 @pytest.mark.cuda
@@ -484,13 +536,21 @@ def test_cuda_window_block_shapes(nv, n_int_steps, pbc, dead):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pbc", [False, True])
 @pytest.mark.parametrize("Vd", [2.0, -1.5, 0.0])
-@pytest.mark.parametrize("n", [300, 1153])
+@pytest.mark.parametrize("n", [1, 127, 128, 300, 1153])
 def test_cuda_fly_pdisp(n, Vd, pbc):
-    """Dissipation row sums: atol 1e-5 * max|plain| (f32 sums in another
-    order, FMA); Vd = 0 gives exact zeros; two launches on the same input
-    give the same bits (no float atomics)."""
+    """Dissipation row sums over the upper-triangle tiles: atol 1e-5 *
+    max|plain| against the plain version and against the sweep of the
+    stored block with f64 potentials (f32 sums in another order, FMA, the
+    value's square roots and division within 2 ulp); Vd = 0 and a single
+    atom give exact zeros; two launches on the same input give the same
+    bits (no float atomics).  The widths cover one atom, one row short of a
+    tile, one tile exactly, ragged tiles and a width at which the kernel
+    takes one warp group a tile."""
     _need_card()
     from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_pdisp, wkb_fly_pdisp_plain
+    from devicekmc_tpu_torch.physics.current import (
+        _pdisp_rows_cols, tunnel_block, wkb_single_T,
+    )
 
     pos, cb, rng = _points(n, 42)
     ms = rng.standard_normal(n).astype(np.float32) * 1e-10
@@ -500,16 +560,22 @@ def test_cuda_fly_pdisp(n, Vd, pbc):
     row = wkb_fly_pdisp(pos, cb, ms, Vd, env)
     row2 = wkb_fly_pdisp(pos, cb, ms, Vd, env)
     ref = wkb_fly_pdisp_plain(pos, cb, ms, Vd, env)
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
+    T = tunnel_block(env, pos, cb, ones, pos, cb, ones, wkb_single_T)
+    stored, _ = _pdisp_rows_cols(T, ms.double(), ms.double(), Vd)
     torch.cuda.synchronize()
     assert wkb_fly_pdisp.launches == before + 2
     assert row.dtype == torch.float32 and row.shape == (n,)
     assert torch.equal(row, row2)
-    if Vd == 0.0:
-        assert not row.any() and not ref.any()
+    if Vd == 0.0 or n == 1:
+        assert not row.any() and not ref.any() and not stored.any()
         return
-    assert float(ref.abs().max()) > 0
+    scale = float(ref.abs().max())
+    assert scale > 0
     np.testing.assert_allclose(row.cpu().numpy(), ref.cpu().numpy(), rtol=0,
-                               atol=1e-5 * float(ref.abs().max()))
+                               atol=1e-5 * scale)
+    np.testing.assert_allclose(row.double().cpu().numpy(), stored.cpu().numpy(), rtol=0,
+                               atol=1e-5 * scale)
 
 
 @pytest.mark.cuda

@@ -125,3 +125,74 @@ def test_pdisp_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         wkb_fly_pdisp(m, v, v, 1.0, tenv)
     assert wkb_fly_pdisp.launches == 0
+
+
+def _routed_rows(pos, cb, ms, Vd, tenv):
+    """The card kernel's upper-triangle form in numpy: each unordered pair
+    i < j once, t = I dM with I = T_ij dM and dM = ms_i - ms_j, routed to
+    row i when I sign(Vd) < 0 and to row j when I sign(Vd) > 0; summed in
+    f64.  Returns (rows, t [n, n] of the plain version's ordered terms
+    (-I)(-dM), pair values [n, n])."""
+    from devicekmc_tpu_torch.ops.wkb_fly import pair_vals_plain
+
+    p, c = torch.as_tensor(pos), torch.as_tensor(cb)
+    vals = pair_vals_plain(tenv, p, c, p, c).numpy()
+    dM = ms[:, None] - ms[None, :]
+    I = vals * dM
+    t_ordered = (-I) * (-dM)
+    iu, ju = np.triu_indices(len(ms), k=1)
+    t = (I * dM)[iu, ju]
+    Is = I[iu, ju] * np.float32(np.sign(Vd))
+    n = len(ms)
+    rows = (np.bincount(iu, np.where(Is < 0, t, 0).astype(np.float64), minlength=n)
+            + np.bincount(ju, np.where(Is > 0, t, 0).astype(np.float64), minlength=n))
+    return rows, t_ordered, vals
+
+
+@pytest.mark.parametrize("n", [1, 127, 300])
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("Vd", [1.0, -1.0, 0.0])
+def test_pdisp_upper_triangle_routing_matches_plain(n, pbc, Vd):
+    """What the card kernel relies on: the pair values and the ordered terms
+    (-I)(-dM) are symmetric bit for bit, so each unordered pair's term,
+    routed to the row or the column that carries forward current, gives the
+    row sums of wkb_fly_pdisp_plain (within 1e-6 of the largest sum: the
+    plain version sums in f32, the routed sums here in f64); Vd = 0 gives
+    zeros, one atom only its zero self pair."""
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_pdisp_plain
+
+    pos, cb, rng = _points(n)
+    ms = _ms(rng, n)
+    _, tenv = _envs(pbc)
+    rows, t, vals = _routed_rows(pos, cb, ms, Vd, tenv)
+    assert np.array_equal(vals, vals.T)
+    assert np.array_equal(t, t.T)
+    plain = wkb_fly_pdisp_plain(torch.as_tensor(pos), torch.as_tensor(cb),
+                                torch.as_tensor(ms), Vd, tenv).numpy()
+    if Vd == 0.0 or n == 1:
+        assert not rows.any() and not plain.any()
+        return
+    scale = np.abs(plain).max()
+    assert scale > 0
+    np.testing.assert_allclose(rows, plain, rtol=0, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("Vd", [1.0, -1.0])
+def test_pdisp_upper_triangle_routing_matches_pallas(pbc, Vd):
+    """The routed upper-triangle sums against the JAX kernel
+    (_pdisp_kernel in interpret mode) at n = 127: atol 1e-5 * max|ref|, the
+    tolerance of test_pdisp_plain_matches_pallas (the two packages' pair
+    values differ in their last bits)."""
+    from devicekmc_tpu.ops.wkb_pallas import wkb_fly_pdisp as jpd
+
+    n = 127
+    pos, cb, rng = _points(n)
+    ms = _ms(rng, n)
+    jenv, tenv = _envs(pbc)
+    ref = np.asarray(jpd(jnp.asarray(pos), jnp.asarray(cb), jnp.asarray(ms),
+                         jnp.asarray(Vd), jenv, interpret=True))
+    rows, _, _ = _routed_rows(pos, cb, ms, Vd, tenv)
+    scale = np.abs(ref).max()
+    assert scale > 0
+    np.testing.assert_allclose(rows, ref, rtol=0, atol=1e-5 * scale)

@@ -49,6 +49,67 @@ def test_gather_matches_pallas(N, max_nn, bw):
                                   np.asarray(ref_c).astype(np.int32)[valid])
 
 
+@pytest.mark.parametrize("N,max_nn,bw", [(1000, 13, 200), (128, 5, 40),
+                                         (515, 52, 510), (7, 3, 7)])
+def test_gather_every_slot_matches_jax(N, max_nn, bw):
+    """Every slot, pads included, f32 and int32 channels in one call.  The
+    plain version (what the card kernel must equal bit for bit) is the JAX
+    package's XLA gather ``values[max(idx, 0)]`` (physics/charge.py,
+    physics/events.py) on every slot: pads hold site 0's word.  The Pallas
+    kernel equals it on the valid slots; its plan points a pad slot at the
+    row's own site instead (build_ell_gather_plan: a pad must stay inside
+    the row block's page window), so there a pad holds the row's own word.
+    Either way pads are masked with neigh_valid downstream."""
+    from devicekmc_tpu.ops.ell_gather_pallas import (
+        build_ell_gather_plan, ell_gather_pallas,
+    )
+    from devicekmc_tpu_torch.ops.ell_gather import ell_gather
+
+    nb, v, c = _gather_inputs(N, max_nn, bw)
+    pad = nb < 0
+    assert pad.any() and (~pad).any()
+    safe = jnp.maximum(jnp.asarray(nb), 0)
+    xla_v, xla_c = np.asarray(jnp.asarray(v)[safe]), np.asarray(jnp.asarray(c)[safe])
+    pal_v, pal_c = ell_gather_pallas(
+        build_ell_gather_plan(nb), [jnp.asarray(v), jnp.asarray(c).view(jnp.float32)],
+        interpret=True,
+    )
+    pal_v, pal_c = np.asarray(pal_v), np.asarray(pal_c).view(np.int32)
+    got_v, got_c = (g.numpy() for g in ell_gather(
+        torch.as_tensor(nb, dtype=torch.int32), [torch.as_tensor(v), torch.as_tensor(c)]))
+    assert got_v.dtype == np.float32 and got_c.dtype == np.int32
+    # bit for bit: compare the 32-bit words
+    np.testing.assert_array_equal(got_v.view(np.int32), xla_v.view(np.int32))
+    np.testing.assert_array_equal(got_c, xla_c)
+    np.testing.assert_array_equal(got_v.view(np.int32)[~pad], pal_v.view(np.int32)[~pad])
+    np.testing.assert_array_equal(got_c[~pad], pal_c[~pad])
+    assert (got_v[pad] == v[0]).all() and (got_c[pad] == c[0]).all()
+    own = np.broadcast_to(np.arange(N)[:, None], nb.shape)[pad]
+    np.testing.assert_array_equal(pal_v[pad], v[own])
+    np.testing.assert_array_equal(pal_c[pad], c[own])
+
+
+@pytest.mark.parametrize("n_pairs,n_sm,per_sm,grid", [
+    (108_944 * 51, 132, 2, (4, 264)), (108_944 * 51, 132, 1, (4, 132)),
+    (1, 132, 2, (1, 1)), (2048, 132, 2, (1, 64)), (2049, 132, 2, (1, 65)),
+    (16 * 128 * 264, 132, 2, (4, 264)), (16 * 128 * 263 + 1, 132, 2, (4, 264)),
+    (16 * 128 * 263, 132, 2, (4, 263)), (16 * 128 * 132, 132, 2, (4, 132)),
+    (16 * 128 * 132 - 128, 132, 2, (1, 264)), (1024 * 51, 132, 2, (1, 132)),
+    (8192 * 51, 132, 2, (4, 204)), (1024 * 51, 132, 1, (1, 132)),
+])
+def test_gather_grid_rule(n_pairs, n_sm, per_sm, grid):
+    """Four slots a lane where 128-slot tiles give every warp of one block
+    an SM (16 warps) work, else one; per_sm blocks an SM, fewer where the
+    pairs do not give every warp of a block a tile, but one block an SM
+    while there are tiles for them: the headline shape (5,556,144 pairs)
+    takes four slots a lane and 264 blocks on 132 SMs at 2 an SM, the rate
+    table's smallest bucket of rows (1,024 x 51) one slot a lane and one
+    block an SM."""
+    from devicekmc_tpu_torch.ops.ell_gather import gather_grid
+
+    assert gather_grid(n_pairs, n_sm, per_sm) == grid
+
+
 def _poisson_inputs():
     rng = np.random.default_rng(0)
     N, cap = 700, 128

@@ -47,7 +47,13 @@ DIR`` takes ``devicekmc_tpu_torch`` from the checkout at DIR (say, the parent
 commit unpacked under ``build/``), so that one call can compare two versions
 of the kernels on the same inputs in turns (parent, change, change, parent);
 ``--times`` adds the time of one call of the Poisson sweep and the window
-block at each shape (CUDA events, ``chip_smoke.time_ms``) beside the bounds.
+block at each shape (CUDA events, ``chip_smoke.time_ms``) beside the bounds,
+of the dissipation sweep at both metal widths, and of the neighbour gather
+at the headline path's shape (1 and 2 channels, cold L2 and back to back)
+and at two buckets of the rate table's rows taken through active_idx, and
+of the full rate table (the gather and the rates computed from its
+outputs).  Without ``--pkg`` it also times the gather at other grids than
+its rule's.
 """
 
 import argparse
@@ -62,6 +68,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 N_SM = 132
+# buckets of rate-table rows (the engine's auto rule: 1,024 and up by powers of 2)
+RATE_BUCKETS = (1024, 8192)
 LANES_ISSUED_PER_CLK = 128
 MUFU_LANES_PER_CLK = 16
 
@@ -233,6 +241,9 @@ def path_inputs(path):
     from devicekmc_tpu_torch.ops.wkb_window import window_lane_share, window_steps_plain
     from devicekmc_tpu_torch.physics import current as cur
     from devicekmc_tpu_torch.physics.charge import update_charge
+    from devicekmc_tpu_torch.ops.compact import nonzero_fixed
+    from devicekmc_tpu_torch.physics.events import pack_site_code
+    from devicekmc_tpu_torch.structure import Element
 
     sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build", "fly_sass"),
                                 current=True)
@@ -243,6 +254,22 @@ def path_inputs(path):
     poisson = dict(coords=g.coords.to(torch.float32).contiguous(), cidx=cidx,
                    cq=state.charge[cidx.long()].to(torch.float32),
                    scal=kernel_scalars(p.sigma, p.k, list(g.lattice_host), p.dtype))
+    # the gather's channels as chip_smoke.kernel_checks makes them
+    elem = state.element
+    gather = dict(
+        idx=g.neigh_idx,
+        flags=((g.metal_mask_table[elem.long()].to(torch.int32) << 1)
+               | (elem == 2).to(torch.int32)),
+        phi=(state.potential_boundary + state.potential_charge).to(torch.float32),
+        code=pack_site_code(elem, state.charge, g.site_layer))
+    # the rate table's rows as build_rate_table takes them through
+    # active_idx, at two buckets of the engine's auto rule
+    active = nonzero_fixed((elem == int(Element.DEFECT))
+                           | (elem == int(Element.OXYGEN_DEFECT))
+                           | (elem == int(Element.VACANCY)), max(RATE_BUCKETS))[0].long()
+    gather["buckets"] = {b: g.neigh_idx[active[:b]].contiguous() for b in RATE_BUCKETS}
+    # the full rate table, the reader of the gather's outputs
+    rate = dict(geom=g, params=p, state=state)
     sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=1)
     blk = cur.assemble_X_blocks(g, p, sim.state, band=sim._band)
     env, mpos, mcb = blk["fly"]["env"], blk["fly"]["mpos"], blk["fly"]["mcb"]
@@ -264,7 +291,7 @@ def path_inputs(path):
                            steps=int(steps.sum()), lane_share=window_lane_share(steps),
                            shape=f"[{vp.shape[0]} ({int(ok.sum())} live) x {mp.shape[0]}]")
     out = dict(env=env, fly={"n_mp=3527": (mpos, mcb), f"n_mp={cs.REF_N_MP}": (rpos, rcb)},
-               poisson=poisson, window=window)
+               poisson=poisson, window=window, gather=gather, rate=rate)
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         torch.save(out, path)
@@ -286,7 +313,9 @@ def width_bounds(costs, clock_mhz, inputs):
         S = matvec_col_split(pos.shape[0], n_sm)
         rows = [(f"fly_matvec_tiles<1,{S}>", st["live_sym"]),
                 (f"fly_matvec_tiles<0,{S}>", st["live"]),
-                ("fly_matmat_tiles<24>", st["live"]), ("fly_pdisp_tiles", st["live"])]
+                ("fly_matmat_tiles<24>", st["live"]),
+                # the upper-triangle form; an earlier version swept all chunks
+                (f"fly_pdisp_tiles<{S}>", st["live_sym"]), ("fly_pdisp_tiles", st["live"])]
         print(f"{tag}: {st['live']} of {st['chunks']} chunks not skipped "
               f"({st['live_sym']} in the upper triangle)")
         for label, chunks in rows:
@@ -299,6 +328,86 @@ def _cost_of(costs, base, targs):
     """The loop costs of ``base<targs>``, or of ``base`` where the kernel is
     no template (an earlier version)."""
     return costs.get(f"{base}<{targs}>", costs.get(base))
+
+
+def pdisp_ms(n, seed_offset=1):
+    """Scaled potentials for the dissipation sweep at width ``n``, as
+    ``chip_smoke.pdisp_checks`` makes them."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(n + seed_offset)
+    return torch.rand(n, generator=g, device="cuda") * 7.7e-10
+
+
+def grid_sweep(idx, vals):
+    """Cold-L2 times of the gather at other grids than its rule's: a few
+    blocks an SM, as many as the SMs hold, and one tile a warp (every block
+    a single step), with four and with one slot a lane."""
+    import chip_smoke as cs
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import ell_gather as E
+
+    n_sm = _build.sm_count(idx.device)
+    res = E.resident_blocks(len(vals))
+    rule = E.launch_grid(idx.numel(), len(vals), idx.device)
+    grids = {"rule": rule}
+    for k in (4, 1):
+        for per_sm in sorted({1, 2, 4, res} - {0}):
+            if per_sm <= res:
+                grids[f"{k} a lane, {per_sm} an SM"] = (k, per_sm * n_sm)
+        grids[f"{k} a lane, one tile a warp"] = (k, -(-idx.numel() // (32 * k * E._WARPS)))
+    line = []
+    for name, grid in grids.items():
+        t = cs.time_ms_cold(lambda: E._gather(idx, vals, grid))
+        line.append(f"{name} ({grid[1]} blocks) {t:.5f}")
+    print(f"  grids, cold L2 ms ({res} blocks an SM resident; the rule: {rule[0]} a lane): "
+          + "; ".join(line))
+
+
+def kernel_times(inputs, sweep):
+    """Times of one call (ms) of the gather at the headline path's shape
+    (cold L2 and back to back, 1 and 2 channels, ``chip_smoke.time_ms_cold``
+    and ``time_ms``; also with every source local, ``idx[r, s] = r``) and at
+    the rate table's buckets of rows, of the full rate table (the gather and
+    the rates computed from its outputs), and of the dissipation sweep at
+    both fly widths.  ``sweep`` adds the gather's grid sweep."""
+    import torch
+
+    import chip_smoke as cs
+    from devicekmc_tpu_torch.ops.ell_gather import ell_gather
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_pdisp
+    from devicekmc_tpu_torch.physics.events import build_rate_table
+
+    G = inputs["gather"]
+    idx = G["idx"]
+    R, M = idx.shape
+    idx_local = torch.arange(R, dtype=torch.int32, device="cuda")[:, None].expand(R, M)
+    idx_local = idx_local.contiguous()
+    for c, vals in ((2, [G["phi"], G["code"]]), (1, [G["flags"]])):
+        cold = cs.time_ms_cold(lambda: ell_gather(idx, vals))
+        warm = cs.time_ms(lambda: ell_gather(idx, vals))
+        local = cs.time_ms_cold(lambda: ell_gather(idx_local, vals))
+        print(f"ell_gather C={c} [{idx.shape[0]}x{idx.shape[1]}]: {cold:.5f} ms cold L2, "
+              f"{warm:.5f} ms back to back; idx = row (local sources) {local:.5f} ms cold")
+        if sweep:
+            grid_sweep(idx, vals)
+    vals = [G["phi"], G["code"]]
+    for ia in G["buckets"].values():
+        cold = cs.time_ms_cold(lambda: ell_gather(ia, vals))
+        warm = cs.time_ms(lambda: ell_gather(ia, vals))
+        print(f"ell_gather C=2 [{ia.shape[0]}x{ia.shape[1]}] (rate-table rows through "
+              f"active_idx): {cold:.5f} ms cold L2, {warm:.5f} ms back to back")
+        if sweep:
+            grid_sweep(ia, vals)
+    rt = inputs["rate"]
+    t = cs.time_ms_cold(lambda: build_rate_table(rt["geom"], rt["params"], rt["state"]))
+    print(f"build_rate_table [{R}x{M}] (the gather and the rates from its outputs): "
+          f"{t:.5f} ms cold L2")
+    env = inputs["env"]
+    for tag, (pos, cb) in inputs["fly"].items():
+        ms = pdisp_ms(pos.shape[0])
+        t = cs.time_ms(lambda: wkb_fly_pdisp(pos, cb, ms, 1.0, env))
+        print(f"wkb_fly_pdisp {tag}: {t:.5f} ms a call")
 
 
 def path_bounds(costs, clock_mhz, inputs, times):
@@ -342,7 +451,8 @@ def main():
     ap.add_argument("--inputs", help="file that keeps the paths' inputs between runs")
     ap.add_argument("--pkg", help="checkout whose devicekmc_tpu_torch is measured")
     ap.add_argument("--times", action="store_true",
-                    help="time the Poisson sweep and the window block at the paths' shapes")
+                    help="time the Poisson sweep, the window block, the dissipation sweep "
+                         "and the gather at the paths' shapes")
     args = ap.parse_args()
     if args.pkg:
         sys.path.insert(0, os.path.abspath(args.pkg))
@@ -388,6 +498,9 @@ def main():
         if not args.no_widths:
             width_bounds(costs, clock, inputs)
         path_bounds(costs, clock, inputs, args.times)
+        if args.times:
+            # the grid sweep needs this checkout's private launch helper
+            kernel_times(inputs, sweep=not args.pkg)
     return 0
 
 
