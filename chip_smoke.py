@@ -5,9 +5,11 @@
 
 Phases (any failed check raises and the exit code is non-zero):
 
-1. builds the five CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
+1. builds the six CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
    sm_90a, one nvcc per source, in parallel) and prints ptxas's registers
-   and shared memory per kernel;
+   and shared memory per kernel; holds the event kernel's random stream
+   (csrc/threefry.cuh) against rng.py: 10^4 successive key splits and their
+   f64 and f32 draws, bit for bit;
 2. small-device checks: the 256-site test stack on the card and through the
    port's CPU path, with the headline modules (mixed precision, Vd = 2.5 V,
    4 supersteps: event counts equal, potentials within 1e-5 of their scale),
@@ -16,7 +18,11 @@ Phases (any failed check raises and the exit code is non-zero):
    heating in three forms: blocked on-the-fly transport + global heat, dense
    transport + global heat in f64 (the golden trajectory's configuration),
    blocked transport + local heat with the dense propagators (I_macro,
-   P_tot, T_bg and the temperature field within stated tolerances);
+   P_tot, T_bg and the temperature field within stated tolerances); the
+   event kernel against its plain version (the host loop, on the card) with
+   an f64 table, 6 supersteps from one state (events, elements, charges,
+   keys equal, step_time within 1e-9 relative); batch_steps = 4 against the
+   per-step driver (events and elements per step, output.txt's numbers);
 3. headline path: the synthetic crossbar of 108,944 sites (the composition
    and neighbour statistics of the reference's timing crossbar), neighbour
    list built on the card; the gather and the Poisson kernel are held against
@@ -29,7 +35,12 @@ Phases (any failed check raises and the exit code is non-zero):
    registers and shared bytes and the device launches of one call as
    torch.profiler counts them: it must be the one kernel); then
    Simulation.run_bias_point runs the cold pre-solve, 2 warm-up and 4 timed
-   supersteps at Vd = 1 V, with the launch counters set to 0 just before it;
+   supersteps at Vd = 1 V, with the launch counters set to 0 just before it
+   (the event kernel launched once a superstep, its plain version never);
+   then the event kernel against its plain version on the crossbar's f32
+   table (3 supersteps, step_time within 2 f32 ulps), the loop alone timed
+   both ways, and batch_steps = 4 over the same 6 steps against the per-step
+   run;
 4. transport path: the same crossbar with solve_current on (heating off,
    transport blocked, on-the-fly metal block, deflated cold solve with 24
    slabs, chunked cold solves, 256 integration steps, Vd = 1 V), counters
@@ -38,7 +49,8 @@ Phases (any failed check raises and the exit code is non-zero):
    and positive, a skipped or an incremental assembly be seen, and the two
    headline and all four transport kernels be launched and the dissipation
    kernel not be (the window block's
-   launches split into full and partial assemblies by their rows).  Then
+   launches split into full and partial assemblies by their rows), with the
+   CG read-backs of the run (stop conditions read once a chunk).  Then
    each transport kernel is held against its plain version at this path's
    shapes (the band, the metal atoms and CB edges, the vacancy bucket of
    the run) and timed beside its bound and a library call; the on-the-fly
@@ -63,7 +75,12 @@ Phases (any failed check raises and the exit code is non-zero):
    share of upper-triangle chunks it skips.  Then 3
    supersteps with solve_heating_local on (matrix-free model, symmetric
    contact spans), with the branch taken, the substeps and the CG iterations
-   of every step.
+   of every step;
+6. the transport run again with the CG stop condition read every iteration:
+   the cold solves' iterations and every step's events, cg_iters_boundary
+   and cg_iters_power equal to the chunked run's; the log of the event
+   kernel's time draws against numpy's (draws that differ, and by how many
+   ulps).
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -184,7 +201,7 @@ def time_ms_cold(fn, reps=20, warmup=3):
 # configurations
 # ---------------------------------------------------------------------------
 
-def small_device(device, out_dir, current=False, heat=None):
+def small_device(device, out_dir, current=False, heat=None, **overrides):
     """The 256-site stack of tests/test_golden_trajectory.py with the
     headline modules; ``current`` adds blocked transport as the transport
     path runs it (transport_tol 1e-11: two solves that meet the default
@@ -192,7 +209,8 @@ def small_device(device, out_dir, current=False, heat=None):
     "global-fly" (blocked on-the-fly transport, global model), "global-dense"
     (f64, dense transport, global model: the golden trajectory's
     configuration), "local-dense" (blocked transport, stored metal block,
-    local model with the dense propagators)."""
+    local model with the dense propagators); ``overrides`` replace single
+    configuration fields."""
     from devicekmc_tpu_torch.config import KMCConfig
     from devicekmc_tpu_torch.engine import Simulation
     from devicekmc_tpu_torch.structure import make_test_structure
@@ -223,6 +241,7 @@ def small_device(device, out_dir, current=False, heat=None):
     elif heat == "local-dense":
         cfg = dataclasses.replace(cfg, transport_cc="stored", solve_heating_local=True,
                                   heat_solver="dense")
+    cfg = dataclasses.replace(cfg, **overrides)
     os.makedirs(out_dir, exist_ok=True)
     return Simulation(cfg, elements=s.elements, coords=s.coords, device=device)
 
@@ -976,10 +995,14 @@ def conserved_counts(state):
 
 
 def headline_path(out_root):
-    """Phase 3: kernel checks and the headline run; returns the two kernels'
-    records."""
+    """Phase 3: kernel checks and the headline run, then the event kernel
+    against its plain version on the crossbar; returns the kernels' records
+    (the two TPU kernels, the event loop), the run's supersteps
+    (record_supersteps) and output.txt lines, and the event phase's time
+    draws."""
     import torch
 
+    from devicekmc_tpu_torch.ops import kmc_events
     from devicekmc_tpu_torch.ops.ell_gather import ell_gather
     from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise
 
@@ -999,16 +1022,28 @@ def headline_path(out_root):
     # ---- counters to 0, drive, read ----
     ell_gather.launches = 0
     poisson_pairwise.launches = 0
-    t0 = time.perf_counter()
-    summary = sim.run_bias_point(VD_MAIN, 1e30, max_steps=WARMUP_STEPS + TIMED_STEPS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    kmc_events.kmc_event_loop.launches = 0
+    plain, restore_plain = _counted(kmc_events, "kmc_event_loop_plain")
+    recs, restore_recs = record_supersteps()
+    try:
+        t0 = time.perf_counter()
+        summary = sim.run_bias_point(VD_MAIN, 1e30, max_steps=WARMUP_STEPS + TIMED_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore_plain()
+        restore_recs()
     launches = {"ell_gather": ell_gather.launches,
-                "poisson_pairwise": poisson_pairwise.launches}
+                "poisson_pairwise": poisson_pairwise.launches,
+                "kmc_event_loop": kmc_events.kmc_event_loop.launches}
     steps = sim.step_log
     check(len(steps) == WARMUP_STEPS + TIMED_STEPS, f"ran {len(steps)} supersteps")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the headline path")
+    check(launches["kmc_event_loop"] == len(steps),
+          f"kmc_event_loop launched {launches['kmc_event_loop']} times in {len(steps)} "
+          "supersteps")
+    check(plain["calls"] == 0, f"the plain event loop ran {plain['calls']} times on the card")
 
     st = sim.state
     phi_b = st.potential_boundary
@@ -1034,9 +1069,28 @@ def headline_path(out_root):
             f"n_active_rows {int(s['n_active_rows'])}, step_time {s['step_time']:.4g} s")
     log(f"timed supersteps: median {statistics.median(ms):.2f} ms, "
         f"min {min(ms):.2f} ms, max {max(ms):.2f} ms; launches {launches}; "
-        f"kmc_time {summary['kmc_time']:.4g} s")
+        f"the plain event loop {plain['calls']} times; kmc_time {summary['kmc_time']:.4g} s")
 
-    return [
+    ev, draws = event_phase(sim.geom, sim.params, sim.state, EVENT_STEPS_CROSSBAR,
+                            "crossbar")
+    loop = event_loop_timing(sim)
+    run = (recs, physics_lines(sim.cfg.output_dir))
+    event_record = {
+        "name": "kmc_event_loop", "route": "cuda",
+        "source": "devicekmc_tpu_torch/csrc/kmc_events.cu",
+        "replaces": "devicekmc_tpu/physics/events.py:609",
+        "launches": launches["kmc_event_loop"], "max_abs_err": ev["max_abs_err"],
+        "max_rel_err": ev["max_rel_err"], "ms": loop["ms"], "plain_ms": loop["plain_ms"],
+        "ms_per_event": loop["ms_per_event"],
+        "plain_ms_per_event": loop["plain_ms_per_event"], "bound_ms": loop["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "shape": loop["shape"],
+        "bound_note": "the bytes the events touch, each once; a chain of dependent "
+                      "per-event steps bounds the loop, not bytes",
+        "events_phase_crossbar": {key: ev[key] for key in (
+            "table", "events", "ms_per_superstep", "plain_ms_per_superstep",
+            "ms_per_event", "plain_ms_per_event", "step_time_bit_equal", "steps")},
+    }
+    return run, draws, event_record, [
         {
             "name": "ell_gather", "route": "cuda",
             "source": "devicekmc_tpu_torch/csrc/ell_gather.cu",
@@ -1087,6 +1141,7 @@ def transport_path(out_root):
     from devicekmc_tpu_torch.ops import cg
     from devicekmc_tpu_torch.ops.banded import banded_matvec
     from devicekmc_tpu_torch.ops.ell_gather import ell_gather
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop
     from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise
     from devicekmc_tpu_torch.ops.wkb_fly import (
         wkb_fly_matmat, wkb_fly_matvec, wkb_fly_pdisp,
@@ -1112,7 +1167,7 @@ def transport_path(out_root):
     wrappers = {"ell_gather": ell_gather, "poisson_pairwise": poisson_pairwise,
                 "banded_matvec": banded_matvec, "wkb_fly_matvec": wkb_fly_matvec,
                 "wkb_fly_matmat": wkb_fly_matmat, "wkb_window_block": wkb_window_block,
-                "wkb_fly_pdisp": wkb_fly_pdisp}
+                "wkb_fly_pdisp": wkb_fly_pdisp, "kmc_event_loop": kmc_event_loop}
     # the window block's launches, by shape: the whole bucket (full assembly)
     # or the rows of the atoms that entered it (partial)
     vm_rows = []
@@ -1161,9 +1216,12 @@ def transport_path(out_root):
     for pre in sim.presolve_log:
         log(f"cold {pre['phase']} solve: {pre['cg_iters']} CG iterations, "
             f"{pre['s'] * 1e3:.1f} ms")
+    check(launches["kmc_event_loop"] == len(steps), "kmc_event_loop: one launch a superstep")
+    readbacks = cg.readbacks
     log(f"transport path: run_bias_point (CB edge, boundary and deflated transport "
         f"cold solves + {TRANSPORT_STEPS} supersteps) in {wall:.2f} s; "
-        f"{cg.readbacks} CG read-backs; launches {launches}; window block rows a launch "
+        f"{readbacks} CG read-backs (stop conditions read in chunks {cg.CHUNKS}; the run "
+        f"that reads every iteration is phase 6); launches {launches}; window block rows a launch "
         f"{vm_rows} ({assemblies['full']} full, {assemblies['partial']} partial assemblies)")
     for s in steps:
         log(f"  step {s['step']}: {s['Z - calculation time - KMC superstep [s]'] * 1e3:.2f} ms, "
@@ -1182,7 +1240,8 @@ def transport_path(out_root):
     n_mp = int(g.atom_metalp_idx.shape[0])
     facts = ("bound_all_pairs_ms", "kernel", "registers", "shared_bytes", "device_launches")
     pick = lambda r: {key: r[key] for key in facts}
-    return launches, [
+    logs = (sim.presolve_log, sim.step_log, readbacks)
+    return launches, logs, [
         {
             "name": "banded_matvec", "route": "cuda",
             "source": "devicekmc_tpu_torch/csrc/banded.cu",
@@ -1418,6 +1477,7 @@ def heat_path(out_root):
 
     from devicekmc_tpu_torch.ops.banded import banded_matvec
     from devicekmc_tpu_torch.ops.ell_gather import ell_gather
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop
     from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise
     from devicekmc_tpu_torch.ops.wkb_fly import (
         wkb_fly_matmat, wkb_fly_matvec, wkb_fly_pdisp,
@@ -1428,7 +1488,7 @@ def heat_path(out_root):
     wrappers = {"ell_gather": ell_gather, "poisson_pairwise": poisson_pairwise,
                 "banded_matvec": banded_matvec, "wkb_fly_matvec": wkb_fly_matvec,
                 "wkb_fly_matmat": wkb_fly_matmat, "wkb_window_block": wkb_window_block,
-                "wkb_fly_pdisp": wkb_fly_pdisp}
+                "wkb_fly_pdisp": wkb_fly_pdisp, "kmc_event_loop": kmc_event_loop}
     sim, launches = heat_run(out_root, "global", HEAT_STEPS, wrappers)
     blk = cur.assemble_X_blocks(sim.geom, sim.params, sim.state, band=sim._band)
     f = blk["fly"]
@@ -1462,6 +1522,347 @@ def heat_path(out_root):
     }
 
 
+# ---------------------------------------------------------------------------
+# the event loop, the CG stop checks and batched supersteps
+# ---------------------------------------------------------------------------
+
+#: successive key splits of the threefry check
+THREEFRY_DRAWS = 10_000
+#: step_time of the event kernel against its plain version on the same state:
+#: an f64 table to 1e-9 relative (CUDA's log and the sums' order move the last
+#: bits), an f32 table to 2 f32 ulps (its log in f32, psum in another order)
+EVENT_TOL = {"f64": 1e-9, "f32": 2.4e-7}
+#: supersteps of the event-kernel phase on the small stack and the crossbar
+EVENT_STEPS_SMALL, EVENT_STEPS_CROSSBAR = 6, 3
+#: batch of the batched runs
+BATCH_STEPS = 4
+
+
+def threefry_check():
+    """The kernel's random stream (csrc/threefry.cuh) against rng.py:
+    THREEFRY_DRAWS successive ``split(key, 3)`` and the f64 and f32 draws of
+    k_sel and k_time, bit for bit.  Returns the time draws (f32, f64) for
+    the log check."""
+    import numpy as np
+
+    from devicekmc_tpu_torch import rng
+    from devicekmc_tpu_torch.ops.kmc_events import threefry_draws
+
+    t0 = time.perf_counter()
+    key = rng.prng_key(7)
+    keys, u64, u32 = threefry_draws(key, THREEFRY_DRAWS)
+    keys, u64, u32 = keys.tolist(), u64.tolist(), u32.tolist()
+    for e in range(THREEFRY_DRAWS):
+        key, k_sel, k_time = rng.split(key, 3)
+        check(tuple(keys[e]) == key, f"threefry: key {e} differs")
+        check(u64[e] == [rng.uniform(k_sel, np.float64), rng.uniform(k_time, np.float64)],
+              f"threefry: f64 draws {e} differ")
+        check(u32[e] == [rng.uniform(k_sel, np.float32), rng.uniform(k_time, np.float32)],
+              f"threefry: f32 draws {e} differ")
+    log(f"threefry: {THREEFRY_DRAWS} successive splits and the f64 and f32 draws of "
+        f"k_sel and k_time bit-equal to rng.py ({time.perf_counter() - t0:.1f} s)")
+    return [r[1] for r in u32], [r[1] for r in u64]
+
+
+def time_log_check(u32, u64):
+    """The kernel takes the log of the time draw as (float)log((double)u)
+    for an f32 table and log(u) for an f64 one, with CUDA's log (the one
+    torch.log calls on the card); the plain version takes numpy's f64 log,
+    rounded to f32 for an f32 table (``ops.kmc_events.time_draw``).  Returns
+    {table type: (draws whose logs differ, draws, the largest difference in
+    ulps)}, and under "f32 numpy" the same for numpy's own f32 log, which
+    the plain version avoids."""
+    import numpy as np
+    import torch
+
+    from devicekmc_tpu_torch.ops.kmc_events import time_draw
+
+    a32, a64 = np.asarray(u32, np.float32), np.asarray(u64, np.float64)
+    card32 = torch.log(torch.as_tensor(a32, dtype=torch.float64, device="cuda")
+                       ).float().cpu().numpy()
+    card64 = torch.log(torch.as_tensor(a64, device="cuda")).cpu().numpy()
+    with np.errstate(divide="ignore"):
+        # -log(u) / 1 in the table's type is the plain version's log, negated
+        plain = lambda a, dt: -np.array([time_draw(dt, dt, u, 1.0) for u in a],
+                                        dtype=a.dtype)
+        host32 = plain(a32, torch.float32)
+        host64 = plain(a64, torch.float64)
+        numpy32 = np.log(a32)
+
+    def diff(a, b):
+        # logs of draws in (0, 1) are negative: as integers, their bits are
+        # ordered, and the distance counts ulps (-inf of a zero draw: 0)
+        ints = np.int32 if a.dtype == np.float32 else np.int64
+        d = np.abs(a.view(ints).astype(np.int64) - b.view(ints).astype(np.int64))
+        return int((d != 0).sum()), a.size, int(d.max(initial=0))
+
+    return {"f32": diff(card32, host32), "f64": diff(card64, host64),
+            "f32 numpy": diff(card32, numpy32)}
+
+
+def event_phase(geom, params, state, n_steps, tag):
+    """The event loop on the card against its plain version (the host loop,
+    on the card too): ``n_steps`` supersteps in a row from ``state``, each
+    from the kernel's result, both ways from the same state: events,
+    elements, charges, keys and n_active equal, step_time within EVENT_TOL.
+    Times each way the whole events phase (rate table, sums, loop, the
+    read-back) with the host clock between device synchronizations.  Returns
+    the record and the time draws of the events, for the log check."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from devicekmc_tpu_torch import rng
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop_plain
+    from devicekmc_tpu_torch.physics.events import execute_superstep_incremental
+
+    kind = "f32" if params.mixed or params.dtype == torch.float32 else "f64"
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = execute_superstep_incremental(geom, params, state, **kw)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    rec = dict(table=kind, steps=n_steps, events=[], ms=[], plain_ms=[], max_rel_err=0.0,
+               max_abs_err=0.0, step_time_bit_equal=0)
+    draws = []
+    for k in range(n_steps):
+        got, ms = timed()
+        ref, plain_ms = timed(event_loop=kmc_event_loop_plain)
+        what = f"{tag} superstep {k}"
+        check(got.n_events == ref.n_events, f"{what}: events {got.n_events} vs {ref.n_events}")
+        check(torch.equal(got.state.element, ref.state.element), f"{what}: elements differ")
+        check(torch.equal(got.state.charge, ref.state.charge), f"{what}: charges differ")
+        check(got.state.key == ref.state.key, f"{what}: keys differ")
+        check(got.n_active == ref.n_active, f"{what}: n_active differs")
+        if math.isinf(ref.step_time):
+            check(got.step_time == ref.step_time, f"{what}: step_time {got.step_time}")
+        else:
+            err = abs(got.step_time - ref.step_time)
+            rel = err / abs(ref.step_time)
+            check(rel <= EVENT_TOL[kind], f"{what}: step_time {got.step_time} vs "
+                  f"{ref.step_time} ({rel:.3e} relative)")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+        rec["step_time_bit_equal"] += got.step_time == ref.step_time
+        key = state.key
+        for _ in range(got.n_events):
+            key, _, k_time = rng.split(key, 3)
+            draws.append(rng.uniform(k_time, np.float32 if kind == "f32" else np.float64))
+        rec["events"].append(got.n_events)
+        rec["ms"].append(ms)
+        rec["plain_ms"].append(plain_ms)
+        state = got.state
+    n_ev = max(sum(rec["events"]), 1)
+    rec.update(ms_per_superstep=statistics.median(rec["ms"]),
+               plain_ms_per_superstep=statistics.median(rec["plain_ms"]),
+               ms_per_event=sum(rec["ms"]) / n_ev, plain_ms_per_event=sum(rec["plain_ms"]) / n_ev)
+    log(f"event kernel ({tag}, {kind} table, {n_steps} supersteps from one state): events "
+        f"{rec['events']} equal both ways, elements, charges, keys equal; step_time max "
+        f"{rec['max_rel_err']:.3e} relative ({rec['step_time_bit_equal']} of {n_steps} "
+        f"bit-equal); events phase {rec['ms_per_superstep']:.3f} ms a superstep, "
+        f"{rec['ms_per_event']:.4f} ms an event (plain host loop "
+        f"{rec['plain_ms_per_superstep']:.3f} ms, {rec['plain_ms_per_event']:.4f} ms)")
+    return rec, draws
+
+
+def event_loop_bytes(events, n_blocks, m, table_bytes):
+    """Bytes the events of one superstep must move, each once: per event
+    the block sums the selection scans (n_blocks f64), one block's row sums
+    (128 f64) and the chosen row (m entries); the neighbour and reverse-slot
+    rows of i and j (4m int32); the 2m+2 touched rows of m entries, read for
+    their sums; their row and block sums written (2 (2m+2) f64)."""
+    per = (8 * n_blocks + 8 * 128 + m * table_bytes + 16 * m
+           + (2 * m + 2) * m * table_bytes + 16 * (2 * m + 2))
+    return events * per
+
+
+def event_loop_timing(sim, reps=20, plain_reps=3):
+    """The loop alone on the table of ``sim``'s state: the kernel between
+    CUDA events (the stream held busy first, the scratch inputs cloned
+    before, outside the events), the plain version with the host clock
+    between synchronizations; the bound from event_loop_bytes."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop, kmc_event_loop_plain
+    from devicekmc_tpu_torch.physics.events import incremental_tables
+
+    geom, params, state = sim.geom, sim.params, sim.state
+    prob, row_sums, block_sums, aidx, inv, _ = incremental_tables(geom, params, state)
+
+    def args():
+        return (prob.clone(), row_sums.clone(), block_sums.clone(), aidx, inv,
+                geom.neigh_idx, geom.rev_slot, state.element, state.charge, state.key,
+                1.0 / params.freq, params.max_events_per_superstep, params.dtype)
+
+    count = int(kmc_event_loop(*args())[2].tolist()[1])
+    times = []
+    for _ in range(reps):
+        a = args()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        e0.record()
+        kmc_event_loop(*a)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    plain = []
+    for _ in range(plain_reps):
+        a = args()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = kmc_event_loop_plain(*a)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+        check(int(out[2].tolist()[1]) == count, "plain loop: another event count")
+    n_blocks = block_sums.shape[0]
+    bytes_ = event_loop_bytes(count, n_blocks, geom.max_nn, prob.element_size())
+    rec = dict(events=count, ms=statistics.median(times), plain_ms=statistics.median(plain),
+               bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3, bytes=bytes_,
+               shape=f"{prob.shape[0]}x{prob.shape[1]} {str(prob.dtype)[6:]} table, "
+                     f"{n_blocks} blocks of sums, {count} events")
+    rec["ms_per_event"] = rec["ms"] / max(count, 1)
+    rec["plain_ms_per_event"] = rec["plain_ms"] / max(count, 1)
+    log(f"kmc_event_loop [{rec['shape']}]: {rec['ms']:.4f} ms a superstep, "
+        f"{rec['ms_per_event']:.5f} ms an event (plain host loop {rec['plain_ms']:.3f} ms, "
+        f"{rec['plain_ms_per_event']:.4f} ms an event; bytes bound {rec['bound_ms']:.6f} ms "
+        f"for {bytes_} bytes: a chain of dependent per-event steps bounds the loop, "
+        f"not bytes)")
+    return rec
+
+
+def record_supersteps():
+    """Keep a device copy of every superstep's elements and its event count,
+    where the per-step driver (engine) and the batch
+    (superstep.multi_superstep_impl) call superstep_impl.  Returns
+    ``(records, restore)``."""
+    from devicekmc_tpu_torch import engine, superstep
+
+    fn = superstep.superstep_impl
+    recs = []
+
+    def wrapped(*a, **kw):
+        out = fn(*a, **kw)
+        recs.append((out[0].element.clone(), int(out[2].get("n_events", -1))))
+        return out
+
+    engine.superstep_impl = superstep.superstep_impl = wrapped
+
+    def restore():
+        engine.superstep_impl = superstep.superstep_impl = fn
+
+    return recs, restore
+
+
+def physics_lines(out_dir):
+    """output.txt of a run without the wall-clock timing lines and the
+    separators."""
+    with open(os.path.join(out_dir, "output.txt")) as f:
+        return [ln for ln in f.read().splitlines()
+                if not ln.startswith(("Z - calculation time", "-", "Created folder"))]
+
+
+def same_runs(tag, ref, got):
+    """Two runs' records (record_supersteps) and output.txt lines equal."""
+    import torch
+
+    (recs_a, lines_a), (recs_b, lines_b) = ref, got
+    check(len(recs_a) == len(recs_b), f"{tag}: {len(recs_a)} vs {len(recs_b)} supersteps")
+    for k, ((ea, na), (eb, nb)) in enumerate(zip(recs_a, recs_b)):
+        check(na == nb, f"{tag}: step {k} events {na} vs {nb}")
+        check(torch.equal(ea, eb), f"{tag}: step {k} elements differ")
+    check(lines_a == lines_b, f"{tag}: output.txt numbers differ")
+
+
+def small_batched_check(out_root, steps=8):
+    """The small stack on the card with batch_steps = BATCH_STEPS against
+    the per-step driver (log_freq 3: snapshot steps run alone between the
+    batches): events and elements per step and output.txt's numbers equal."""
+    runs = {}
+    for bs in (1, BATCH_STEPS):
+        sim = small_device("cuda", os.path.join(out_root, f"small_batch{bs}"),
+                           batch_steps=bs, log_freq=3)
+        recs, restore = record_supersteps()
+        try:
+            sim.run_bias_point(2.5, 1e30, max_steps=steps)
+        finally:
+            restore()
+        runs[bs] = (recs, physics_lines(sim.cfg.output_dir))
+    same_runs("small stack batched", runs[1], runs[BATCH_STEPS])
+    log(f"small stack, batch_steps = {BATCH_STEPS}: {steps} supersteps, events per step "
+        f"{[n for _, n in runs[1][0]]} and elements equal to the per-step driver's, "
+        "output.txt numbers equal")
+
+
+def crossbar_batched_check(out_root, ref):
+    """The headline configuration with batch_steps = BATCH_STEPS over the
+    headline run's steps: events and elements per step and output.txt's
+    numbers equal to the per-step run's ``ref``.  Returns the batched run's
+    step times."""
+    import torch
+
+    sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "crossbar_batched"),
+                             batch_steps=BATCH_STEPS)
+    recs, restore = record_supersteps()
+    try:
+        t0 = time.perf_counter()
+        sim.run_bias_point(VD_MAIN, 1e30, max_steps=WARMUP_STEPS + TIMED_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    same_runs("crossbar batched", ref, (recs, physics_lines(sim.cfg.output_dir)))
+    ms = [s["Z - calculation time - KMC superstep [s]"] * 1e3 for s in sim.step_log]
+    log(f"crossbar, batch_steps = {BATCH_STEPS}: {len(recs)} supersteps in {wall:.2f} s, "
+        f"events and elements per step and output.txt numbers equal to the per-step run; "
+        f"superstep wall ms {[round(x, 2) for x in ms]} (a batch step: its batch's time "
+        "over its steps)")
+    return ms
+
+
+def cg_reference_run(out_root, chunked):
+    """The transport run again with the CG stop condition read every
+    iteration (cg.CHUNKS = (1,)): the cold solves' iterations and every
+    step's events, cg_iters_boundary and cg_iters_power equal to the
+    chunked run ``chunked`` (its presolve and step logs).  Returns the
+    reference run's read-backs."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import cg
+
+    sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "transport_chunk1"),
+                             current=True)
+    chunks = cg.CHUNKS
+    cg.CHUNKS = (1,)
+    cg.readbacks = 0
+    try:
+        sim.run_bias_point(VD_MAIN, 1e30, max_steps=TRANSPORT_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        cg.CHUNKS = chunks
+    reads = cg.readbacks
+    presolve, steps = chunked
+    check([p["cg_iters"] for p in sim.presolve_log] == [p["cg_iters"] for p in presolve],
+          f"cold solves: {[p['cg_iters'] for p in sim.presolve_log]} iterations read "
+          f"every iteration, {[p['cg_iters'] for p in presolve]} in chunks")
+    keys = ("n_events", "cg_iters_boundary", "cg_iters_power")
+    for a, b in zip(sim.step_log, steps):
+        for key in keys:
+            check(a[key] == b[key], f"step {a['step']}: {key} {a[key]} read every "
+                  f"iteration, {b[key]} in chunks")
+    check(len(sim.step_log) == len(steps), "CG reference run: step count")
+    log(f"CG stop checks in chunks {chunks}: cold solves {[p['cg_iters'] for p in presolve]} "
+        f"iterations, cg_iters_power {[int(s['cg_iters_power']) for s in steps]}, "
+        f"cg_iters_boundary {[int(s['cg_iters_boundary']) for s in steps]}, equal to the run "
+        f"that reads every iteration ({reads} CG read-backs there)")
+    return reads
+
+
+
 def main():
     import torch
 
@@ -1473,12 +1874,13 @@ def main():
     from devicekmc_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
-    libs = ["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window"]
+    libs = ["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window", "kmc_events"]
     _build.build(libs)
     log(f"built kernels in {time.perf_counter() - t_start:.1f} s")
     for name in libs:
         regs = [l.strip() for l in _build.build_log(name).splitlines() if "registers" in l]
         log(f"  {name}: {regs}")
+    u32, u64 = threefry_check()
 
     out_root = os.path.join(ROOT, "build", "chip_smoke")
     t0 = time.perf_counter()
@@ -1488,14 +1890,24 @@ def main():
     small_device_check(os.path.join(out_root, "small_heat_dense"), heat="global-dense")
     small_device_check(os.path.join(out_root, "small_heat_local"), Vd=10.0,
                        heat="local-dense")
+    sim = small_device("cuda", os.path.join(out_root, "small_events"), precision="f64",
+                       poisson_kernel="jnp")
+    sim.run_bias_point(2.5, 1e30, max_steps=2)
+    ev_small, draws_small = event_phase(sim.geom, sim.params, sim.state,
+                                        EVENT_STEPS_SMALL, "small stack")
+    small_batched_check(out_root)
     log(f"small-device checks in {time.perf_counter() - t0:.1f} s")
 
-    kernels = headline_path(out_root)
+    run, draws_crossbar, event_record, kernels = headline_path(out_root)
     torch.cuda.empty_cache()
-    transport_launches, records = transport_path(out_root)
+    batched_ms = crossbar_batched_check(out_root, run)
+    torch.cuda.empty_cache()
+    transport_launches, (presolve, steps, readbacks), records = transport_path(out_root)
     kernels += records
     torch.cuda.empty_cache()
     heat_launches, pdisp = heat_path(out_root)
+    torch.cuda.empty_cache()
+    readbacks_ref = cg_reference_run(out_root, (presolve, steps))
     pdisp.update(launches_transport_path=transport_launches["wkb_fly_pdisp"],
                  launches_heat_path=pdisp["launches"])
     for k in kernels:
@@ -1503,6 +1915,25 @@ def main():
         k["launches_heat_path"] = heat_launches[k["name"]]
     # table order: the dissipation kernel stands before the window block
     kernels.insert(len(kernels) - 1, pdisp)
+
+    logs = time_log_check(u32 + draws_crossbar, u64 + draws_small)
+    log("log of the time draw, kernel (CUDA's log) against the plain version (numpy's f64 "
+        "log, rounded to the table's type): "
+        + ", ".join(f"{kind} {n} of {total} draws differ, by at most {ulps} ulp"
+                    for kind, (n, total, ulps) in logs.items()))
+    event_record.update(
+        launches_transport_path=transport_launches["kmc_event_loop"],
+        launches_heat_path=heat_launches["kmc_event_loop"],
+        max_abs_err=max(event_record["max_abs_err"], ev_small["max_abs_err"]),
+        max_rel_err=max(event_record["max_rel_err"], ev_small["max_rel_err"]),
+        events_phase_small={key: ev_small[key] for key in (
+            "table", "events", "ms_per_superstep", "plain_ms_per_superstep",
+            "ms_per_event", "plain_ms_per_event", "step_time_bit_equal", "steps")},
+        time_log_differs={kind: {"draws": n, "of": total, "max_ulps": ulps}
+                          for kind, (n, total, ulps) in logs.items()},
+        batched_crossbar_step_ms=batched_ms,
+        cg_readbacks_transport_run=readbacks, cg_readbacks_read_every_iteration=readbacks_ref)
+    kernels.append(event_record)
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)

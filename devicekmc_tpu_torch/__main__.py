@@ -4,8 +4,8 @@ set: charge, boundary potential, gridless Poisson, KMC events, with
 ``solve_current = 1`` the charge transport (``transport = blocked`` or
 ``dense``) and with ``solve_heating_global = 1`` or ``solve_heating_local =
 1`` (``heat_solver = dense`` or ``cg``) the dissipated power and the
-temperature.  ``transport_bf16_inner = 1`` and ``batch_steps > 1`` raise
-NotImplementedError.
+temperature; ``batch_steps > 1`` runs the supersteps in batches.
+``transport_bf16_inner = 1`` raises NotImplementedError.
 
     python -m devicekmc_tpu_torch parameters.txt [--cpu] [--max-steps N]
 

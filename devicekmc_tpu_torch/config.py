@@ -211,7 +211,9 @@ class KMCConfig:
                                            # operator (current.build_banded_nb) plus a
                                            # vacancy-bucket correction; off, or a band above
                                            # 3 GiB, keeps the ELL gather
-    batch_steps: int = 1                   # supersteps per dispatch (only 1 is ported)
+    batch_steps: int = 1                   # supersteps a batch (engine._run_bias_point_batched):
+                                           # the t_end and Icc stops apply between them,
+                                           # snapshot steps run alone; a host loop here
 
     # ------------------------------------------------------------------
     # derived parameters (reference: input_parser.cpp:391-398)

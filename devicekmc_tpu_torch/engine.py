@@ -30,7 +30,7 @@ from .physics import heat as heat_mod
 from .physics import potential as potential_mod
 from .state import attach_tunnel_state, build_params, build_simulation, replace
 from .structure import Element, write_xyz
-from .superstep import check_ported, superstep_impl
+from .superstep import check_ported, multi_superstep_impl, superstep_impl
 
 
 #: metrics kept in ``step_log`` but not written to output.txt, whose keys are
@@ -51,8 +51,6 @@ class Simulation:
         device="cuda",
     ):
         check_ported(build_params(cfg))
-        if cfg.batch_steps > 1:
-            raise NotImplementedError("batch_steps > 1 is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.geom, self.params, self.state = build_simulation(
@@ -120,6 +118,18 @@ class Simulation:
     def _superstep(self, state, Vd):
         return superstep_impl(self.geom, self.params, state, Vd, cc=self._cc,
                               heat=self.heat)
+
+    def _msuperstep(self, state, Vd, Icc_A, t_end, limit):
+        return multi_superstep_impl(self.geom, self.params, state, Vd, Icc_A, t_end,
+                                    self.cfg.batch_steps, cc=self._cc, heat=self.heat,
+                                    limit=limit)
+
+    @staticmethod
+    def _batch_peaks(metrics: Dict) -> Dict:
+        """The largest value of each metric over a batch's steps that ran:
+        what the caps of the batch are checked against."""
+        return {k: float(v[metrics["active"]].max()) for k, v in metrics.items()
+                if k != "active"}
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -269,10 +279,18 @@ class Simulation:
         """One superstep on ``self.state``, redone with larger caps while a
         compaction bucket overflowed.  Returns the state before the step,
         the step time and the metrics."""
+        return self._with_redo(lambda st: self._superstep(st, Vd))
+
+    def _with_redo(self, step, counts=lambda metrics: metrics):
+        """``step(state)`` -> (state, step time(s), metrics) on ``self.state``,
+        redone from the state before it with larger caps while a compaction
+        bucket overflowed; ``counts`` maps the metrics to the counts the caps
+        are checked against (a batch's peaks).  Returns the state before the
+        step, the step time(s) and the metrics."""
         prev_state = self.state
-        self.state, step_time, metrics = self._superstep(self.state, Vd)
+        self.state, step_time, metrics = step(prev_state)
         for attempt in range(5):
-            redo = self._check_caps(metrics)
+            redo = self._check_caps(counts(metrics))
             if self._tt_stale:
                 # the tunnel bucket or the integration count grew: a fresh,
                 # invalid store, so that the next assembly (the redo's too)
@@ -283,8 +301,8 @@ class Simulation:
             if not redo:
                 break
             if attempt == 4:
-                raise RuntimeError(self._redo_exhausted_msg(metrics))
-            self.state, step_time, metrics = self._superstep(prev_state, Vd)
+                raise RuntimeError(self._redo_exhausted_msg(counts(metrics)))
+            self.state, step_time, metrics = step(prev_state)
         return prev_state, step_time, metrics
 
     # -- bias-start cold solves -------------------------------------------
@@ -374,6 +392,31 @@ class Simulation:
             extra_cols=[phi, es.power[io].cpu().numpy()],
         )
 
+    def _log_step_start(self, step_count: int, V_vcm: float):
+        self._log("--------------\n")
+        self._log(f"KMC step count: {step_count}\n")
+        self._log(f"V_vcm: {V_vcm:g}\n")
+
+    def _log_result(self, step_count: int, kmc_time: float, step_time: float,
+                    result: Dict, dt: float) -> Dict:
+        """Warnings, the clock and the metrics of one superstep (host
+        numbers); ``dt`` its wall time.  Kept in ``step_log``; returns the
+        result with the timing key."""
+        for key in ("cg_iters_boundary", "cg_iters_power"):
+            if result.get(key, 0) >= self.params.solver_maxiter:
+                self._log(f"WARNING: {key} hit the iteration cap "
+                          f"({self.params.solver_maxiter}) — solver may "
+                          "not have converged.\n")
+        if not result.get("transport_converged", 1.0):
+            self._log("WARNING: the transport solve left above its "
+                      "tolerance (transport_converged = 0).\n")
+        result["Z - calculation time - KMC superstep [s]"] = dt
+        self.step_log.append(dict(result, step=step_count, step_time=step_time))
+        self._log(f"KMC time is: {kmc_time:g}\n")
+        for k in sorted(set(result) - _UNLOGGED):
+            self._log(f"{k}: {result[k]:.10g}\n")
+        return result
+
     # -- main loop -------------------------------------------------------
     def run(self, max_steps_per_bias: Optional[int] = None) -> None:
         cfg = self.cfg
@@ -438,11 +481,12 @@ class Simulation:
         kmc_time = 0.0
         summary: Dict = {}
 
+        if cfg.batch_steps > 1:
+            return self._run_bias_point_batched(Vd, t_end, folder, max_steps)
+
         while kmc_time < t_end:
             t_start = time.perf_counter()
-            self._log("--------------\n")
-            self._log(f"KMC step count: {step_count}\n")
-            self._log(f"V_vcm: {Vd - I_macro * cfg.Rs:g}\n")
+            self._log_step_start(step_count, Vd - I_macro * cfg.Rs)
 
             prev_state, step_time, metrics = self._step_with_redo(Vd)
 
@@ -461,22 +505,9 @@ class Simulation:
             self.state = replace(self.state, kmc_time=kmc_time)
 
             I_macro = self.state.I_macro
-            result = {k: float(v) for k, v in metrics.items()}
-            for key in ("cg_iters_boundary", "cg_iters_power"):
-                if result.get(key, 0) >= self.params.solver_maxiter:
-                    self._log(f"WARNING: {key} hit the iteration cap "
-                              f"({self.params.solver_maxiter}) — solver may "
-                              "not have converged.\n")
-            if not result.get("transport_converged", 1.0):
-                self._log("WARNING: the transport solve left above its "
-                          "tolerance (transport_converged = 0).\n")
-            result["Z - calculation time - KMC superstep [s]"] = dt_step
-            summary = result
-            self.step_log.append(dict(result, step=step_count, step_time=step_time))
-
-            self._log(f"KMC time is: {kmc_time:g}\n")
-            for k in sorted(set(result) - _UNLOGGED):
-                self._log(f"{k}: {result[k]:.10g}\n")
+            summary = self._log_result(
+                step_count, kmc_time, step_time,
+                {k: float(v) for k, v in metrics.items()}, dt_step)
 
             if step_count % cfg.output_freq == 0:
                 self._flush()
@@ -494,4 +525,96 @@ class Simulation:
         summary["steps"] = step_count
         summary["kmc_time"] = kmc_time
         summary["completed"] = kmc_time >= t_end or I_macro > cfg.Icc * 1e-6
+        return summary
+
+    def _run_bias_point_batched(self, Vd: float, t_end: float, folder: str,
+                                max_steps: Optional[int] = None) -> Dict:
+        """The main loop with ``batch_steps`` supersteps a batch
+        (``superstep.multi_superstep_impl``), as the JAX package's
+        ``Simulation._run_bias_point_batched``
+        (``devicekmc_tpu/engine.py:1217-1361``): the time-window and
+        compliance stops apply between the steps of a batch; every step is
+        logged as the per-step driver logs it, V_vcm with the running
+        I_macro (from each step's current) and the KMC time accumulated over
+        the step times; a bucket that overflowed anywhere in a batch grows
+        and the whole batch is redone from the state before it (five
+        attempts); snapshot steps run alone through the per-step path, so
+        that a snapshot pairs the elements before the events with the
+        potentials after them (src/kmc_main.cpp:198-205).  A batch step's
+        ``Z - calculation time - KMC superstep [s]`` is the batch's wall time
+        over its steps.  The bias point starts at step 0: checkpoint and
+        resume are not ported, so there is no resume step."""
+        cfg = self.cfg
+        icc_A = cfg.Icc * 1e-6
+        step_count = 0
+        summary: Dict = {}
+        kmc_time = self.state.kmc_time
+        I_macro = self.state.I_macro
+        lf = max(cfg.log_freq, 1)
+        next_snap = 0
+
+        while kmc_time < t_end:
+            if max_steps is not None and step_count >= max_steps:
+                break
+
+            if step_count == next_snap:
+                t0 = time.perf_counter()
+                self._log_step_start(step_count, Vd - I_macro * cfg.Rs)
+                prev_state, step_time, metrics = self._step_with_redo(Vd)
+                self.write_snapshot(step_count, folder, elem_state=prev_state,
+                                    field_state=self.state)
+                self._sync()
+                dt = time.perf_counter() - t0
+                kmc_time += step_time
+                self.state = replace(self.state, kmc_time=kmc_time)
+                I_macro = self.state.I_macro
+                summary = self._log_result(step_count, kmc_time, step_time,
+                                           {k: float(v) for k, v in metrics.items()}, dt)
+                self._log("--------------------------------------\n")
+                step_count += 1
+                next_snap += lf
+                self._flush()
+                if I_macro > icc_A:
+                    self._log("I_macro > Icc, compliance current reached.\n")
+                    break
+                continue
+
+            # a batch, stopped at the next snapshot step
+            lim = min(next_snap - step_count, cfg.batch_steps)
+            if max_steps is not None:
+                lim = min(lim, max_steps - step_count)
+            t0 = time.perf_counter()
+            kmc_start, I_start = kmc_time, I_macro
+            _, step_times, ms = self._with_redo(
+                lambda st: self._msuperstep(st, Vd, icc_A, t_end, lim),
+                counts=self._batch_peaks)
+            self._sync()
+            dt_batch = time.perf_counter() - t0
+
+            n_done = int(ms["active"].sum())
+            kmc_time = self.state.kmc_time
+            I_macro = self.state.I_macro
+            I_hist = ms.get("Current [uA]")
+            t_run, I_run = kmc_start, I_start
+            for r in range(n_done):
+                self._log_step_start(step_count, Vd - I_run * cfg.Rs)
+                t_run += float(step_times[r])
+                if I_hist is not None:
+                    I_run = float(I_hist[r]) * 1e-6
+                summary = self._log_result(
+                    step_count, t_run, float(step_times[r]),
+                    {k: float(v[r]) for k, v in ms.items() if k != "active"},
+                    dt_batch / n_done)
+                self._log("--------------------------------------\n")
+                step_count += 1
+            self._flush()
+            if I_macro > icc_A:
+                self._log("I_macro > Icc, compliance current reached.\n")
+                break
+
+        self.write_snapshot(step_count, folder)
+        self._flush()
+        summary["steps"] = step_count
+        summary["kmc_time"] = kmc_time
+        summary["completed"] = kmc_time >= t_end or self.state.I_macro > icc_A
         return summary

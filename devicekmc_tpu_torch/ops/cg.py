@@ -4,14 +4,27 @@ Replaces the reference's cuSPARSE/cuBLAS CG implementations
 (solve_sparse_CG / solve_sparse_CG_Jacobi, src/iterative_solvers_gpu.cu:309-631)
 with preconditioned CG, M = diag(A) (Jacobi) or a caller-supplied M^-1.
 
-The loop runs on the host and reads its stop condition every iteration (one
-device sync per iteration).  Its stopping rule is the JAX package's exactly:
-the iterate returned is the first that meets the criterion, capped at
-``maxiter``, so iteration counts agree with ``devicekmc_tpu.ops.cg``.
+The loop runs on the host in chunks of iterations (:data:`CHUNKS`, each
+capped by the iterations left at the rate of convergence so far), and reads
+its stop condition once a chunk, not once an iteration.  Inside a chunk every
+iteration tests ``active = measure > threshold`` on the device and updates
+the iterate, the residual and r'z only where ``active`` holds
+(``torch.where``, so an ``inf`` or ``nan`` of an iteration past the stop
+cannot leak in); a stopped solve stays stopped, so the iterations after the
+stop inside a chunk change nothing, and the search direction, which only the
+iterations of a running solve read, needs no mask.  The chunk lengths keep
+the iterations below ``maxiter``, and the chunk's ``active`` flags, summed on
+the device, count its iterations.  The stopping rule is the JAX package's exactly: the iterate
+returned is the first that meets the criterion, capped at ``maxiter``, so
+iteration counts agree with ``devicekmc_tpu.ops.cg``, and every result is
+bit-equal to a run that reads the condition every iteration (``CHUNKS =
+(1,)``).  The mixed-precision solver's outer loop still reads one norm a
+refinement round.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -28,8 +41,16 @@ class CGResult(NamedTuple):
 
 
 #: device-to-host read-backs made by the solvers' host loops since the
-#: counter was last set to 0 (one per CG iteration or refinement round)
+#: counter was last set to 0 (one per chunk of CG iterations, two at the start
+#: and one per round of the mixed-precision solver)
 readbacks = 0
+
+#: the most iterations between two reads of the stop condition, chunk after
+#: chunk (the last length repeats): the first chunks are short, so that a warm
+#: solve of a few iterations computes few past its stop; from the third chunk
+#: on a chunk is also no longer than the iterations left at the mean rate of
+#: convergence since the first read; (1,) reads every iteration
+CHUNKS = (1, 2, 4, 8, 16, 32)
 
 
 def cg_solve(
@@ -72,27 +93,60 @@ def cg_solve(
     p = z
     rz = torch.dot(r, z)
     global readbacks
-    it = 0
+
+    def state(ran):
+        """(iterations of the chunk that ran, ||r|| or the preconditioned
+        norm, criterion met, continue, threshold), computed on the device and
+        read back together."""
+        m2 = measure2(r, rz)
+        return torch.stack([
+            ran, torch.sqrt(torch.abs(m2)).to(torch.float64),
+            (m2 <= thresh2).to(torch.float64), (m2 > thresh2).to(torch.float64),
+            thresh.to(torch.float64)]).tolist()
+
+    it, chunk_no = 0, 0
+    read = first = None
     while it < maxiter:
+        n = CHUNKS[min(chunk_no, len(CHUNKS) - 1)]
+        chunk_no += 1
+        if first is not None and it > first[0] and 0 < read[1] < first[1] and read[4] > 0:
+            # no longer than the iterations left at the mean rate of
+            # convergence since the first read: few computed past the stop
+            rate = math.log(read[1] / first[1]) / (it - first[0])
+            n = min(n, max(1, math.ceil(math.log(read[4] / read[1]) / rate)))
+        n = min(n, maxiter - it)
+        flags = []
+        for _ in range(n):
+            # the chunk lengths keep the iterations below maxiter, so the
+            # test is the criterion alone; a stopped solve stays stopped (r
+            # and rz, and with them the test, no longer change)
+            active = measure2(r, rz) > thresh2
+            ap = matvec(p)
+            denom = torch.dot(p, ap)
+            alpha = torch.where(denom != 0, rz / denom, 0.0)
+            x_n = x + alpha * p
+            r_n = r - alpha * ap
+            z = apply_M(r_n)
+            rz_n = torch.dot(r_n, z)
+            beta = torch.where(rz != 0, rz_n / rz, 0.0)
+            x = torch.where(active, x_n, x)
+            r = torch.where(active, r_n, r)
+            rz = torch.where(active, rz_n, rz)
+            # read only by the iterations of a solve that has not stopped
+            p = z + beta * p
+            flags.append(active)
+        read = state(torch.stack(flags).sum().to(torch.float64))
         readbacks += 1
-        if not bool(measure2(r, rz) > thresh2):
+        ran = int(read[0])
+        it += ran
+        if first is None:
+            first = (it, read[1])
+        if ran < n or not read[3]:
             break
-        ap = matvec(p)
-        denom = torch.dot(p, ap)
-        alpha = torch.where(denom != 0, rz / denom, 0.0)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = apply_M(r)
-        rz_new = torch.dot(r, z)
-        beta = torch.where(rz != 0, rz_new / rz, 0.0)
-        p = z + beta * p
-        rz = rz_new
-        it += 1
-    final2 = measure2(r, rz)
-    return CGResult(
-        x=x, iters=it, residual=float(torch.sqrt(torch.abs(final2))),
-        converged=bool(final2 <= thresh2),
-    )
+    if read is None:
+        read = state(torch.zeros((), dtype=torch.float64, device=b.device))
+        readbacks += 1
+    return CGResult(x=x, iters=it, residual=read[1], converged=bool(read[2]))
 
 
 def cg_solve_mixed(

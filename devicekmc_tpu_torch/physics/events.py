@@ -19,8 +19,12 @@ The random stream is the JAX package's (threefry, ``rng.py``): per event
 ``key, k_sel, k_time = split(key, 3)``, the selection draw in f64 and the
 time draw in the table's dtype, so trajectories compare event by event.
 
-The table lives on the device; the event loop is a host loop that reads one
-small result per event (whether the drawn event is valid, and its time).
+The table lives on the device.  On the card the incremental event loop of a
+superstep is ONE kernel launch (``ops/kmc_events.py``): no read-back per
+event, and one small result (time, count, key) read per superstep.  The
+host loop that reads ten scalars an event is its plain version and runs for
+CPU tensors; ``event_mode = "scan"`` and the flat selection stay host loops,
+the equivalence checks of the incremental loop.
 """
 
 from __future__ import annotations
@@ -32,24 +36,19 @@ import torch
 
 from .. import constants as C
 from .. import rng
+from ..ops import kmc_events
 from ..ops.compact import nonzero_fixed
 from ..ops.ell_gather import ell_gather
+from ..ops.kmc_events import execute_event, event_type, time_draw
 from ..state import Geometry, PhysParams, SimState, replace
 from ..structure import Element
-
-# event type codes (reference: src/utils.h:53-60)
-VACANCY_GENERATION = 0
-VACANCY_RECOMBINATION = 1
-VACANCY_DIFFUSION = 2
-ION_DIFFUSION = 3
-NULL_EVENT = 4
 
 _D = int(Element.DEFECT)
 _OD = int(Element.OXYGEN_DEFECT)
 _V = int(Element.VACANCY)
 _O = int(Element.O)
 
-_BLOCK = 128  # rows per block in the hierarchical rate sum
+_BLOCK = kmc_events.BLOCK  # rows per block in the hierarchical rate sum
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -174,35 +173,6 @@ def build_rate_table(
     )
 
 
-def _event_type(e_i: int, e_j: int) -> int:
-    if e_i == _D and e_j == _O:
-        return VACANCY_GENERATION
-    if e_i == _OD and e_j == _V:
-        return VACANCY_RECOMBINATION
-    if e_i == _V and e_j == _O:
-        return VACANCY_DIFFUSION
-    if e_i == _OD and e_j == _D:
-        return ION_DIFFUSION
-    return NULL_EVENT
-
-
-def _execute_event(element, charge, i: int, j: int, e_i: int, e_j: int,
-                   q_i: int, q_j: int, ev: int) -> None:
-    """Apply the two-site mutation of event ``ev`` in place
-    (reference: KMCProcess::execute_event, src/KMCProcess.cpp:187-256):
-    generation d -> Od(-2), O -> V(+2); recombination Od -> d(0), V -> O(0);
-    both diffusions swap elements and charges."""
-    if ev == NULL_EVENT:
-        return
-    if ev == VACANCY_GENERATION:
-        new = (_OD, _V, -2, 2)
-    elif ev == VACANCY_RECOMBINATION:
-        new = (_D, _O, 0, 0)
-    else:
-        new = (e_j, e_i, q_j, q_i)
-    element[i], element[j], charge[i], charge[j] = new
-
-
 class SuperstepResult(NamedTuple):
     state: SimState
     step_time: float
@@ -216,14 +186,6 @@ def execute_superstep(geom: Geometry, params: PhysParams, state: SimState
     if params.event_mode == "incremental":
         return execute_superstep_incremental(geom, params, state)
     return execute_superstep_scan(geom, params, state)
-
-
-def _time_draw(params: PhysParams, table_dtype, u_t: float, psum: float) -> float:
-    """event_time = -log(u_t) / psum: the log in the table's dtype, the
-    division in the working dtype."""
-    wd = _NP_DTYPE[params.dtype]
-    lg = np.log(_NP_DTYPE[table_dtype](u_t))
-    return float(wd(-wd(lg)) / wd(psum))
 
 
 def _select_flat(prob: torch.Tensor, u: float):
@@ -280,14 +242,14 @@ def execute_superstep_scan(geom: Geometry, params: PhysParams, state: SimState
         i, j = idx_h // m, int(nb_flat[idx_h])
         e_i, e_j, q_i, q_j = torch.stack(
             [element[i], element[j], charge[i], charge[j]]).tolist()
-        _execute_event(element, charge, i, j, e_i, e_j, q_i, q_j, _event_type(e_i, e_j))
+        execute_event(element, charge, i, j, e_i, e_j, q_i, q_j, event_type(e_i, e_j))
         # conflict zeroing: any pair whose row or neighbour is i or j
         rows = torch.arange(n, device=prob.device)[:, None]
         nb = geom.neigh_idx
         conflict = (rows == i) | (rows == j) | (nb == i) | (nb == j)
         prob = torch.where(conflict, 0.0, prob)
         u_t = rng.uniform(k_time, npd)
-        event_time = _time_draw(params, prob.dtype, u_t, psum_h)
+        event_time = time_draw(params.dtype, prob.dtype, u_t, psum_h)
         count += 1
     return SuperstepResult(
         state=replace(state, element=element, charge=charge, key=key,
@@ -296,8 +258,45 @@ def execute_superstep_scan(geom: Geometry, params: PhysParams, state: SimState
     )
 
 
+def incremental_tables(geom: Geometry, params: PhysParams, state: SimState):
+    """The inputs of the incremental event loop: the rate table (all rows,
+    or with ``params.active_rows_cap > 0`` the candidate source rows {d, Od,
+    V}, fill rows zero), its f64 row sums (zero-padded to whole blocks) and
+    block sums, the site of each row and the row of each site (int32, -1
+    where a site has none), and the count of candidate rows as a 0-d device
+    tensor (None for the full table).  Returns ``(prob, row_sums,
+    block_sums, aidx, inv, n_active)``."""
+    N = geom.N
+    cap = params.active_rows_cap
+    dev = geom.device
+    if cap > 0:
+        elem = state.element
+        active = (elem == _D) | (elem == _OD) | (elem == _V)
+        aidx, n_active = nonzero_fixed(active, cap, fill_value=0)
+        slot_ok = torch.arange(cap, device=dev) < n_active
+        inv = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+        inv[torch.where(slot_ok, aidx.long(), N)] = torch.arange(
+            cap, dtype=torch.int32, device=dev)
+        inv = inv[:N]
+        prob = build_rate_table(geom, params, state, active_idx=aidx)
+        prob = torch.where(slot_ok[:, None], prob, 0.0)
+        n_rows = cap
+    else:
+        aidx = torch.arange(N, dtype=torch.int32, device=dev)
+        inv = aidx
+        n_active = None
+        prob = build_rate_table(geom, params, state)
+        n_rows = N
+    nb_pad = (-n_rows) % _BLOCK
+    n_blocks = (n_rows + nb_pad) // _BLOCK
+    acc = torch.float64 if prob.dtype == torch.float32 else prob.dtype
+    row_sums = torch.nn.functional.pad(prob.to(acc).sum(dim=1), (0, nb_pad))
+    block_sums = row_sums.reshape(n_blocks, _BLOCK).sum(dim=1)
+    return prob.contiguous(), row_sums, block_sums, aidx, inv, n_active
+
+
 def execute_superstep_incremental(geom: Geometry, params: PhysParams,
-                                  state: SimState) -> SuperstepResult:
+                                  state: SimState, event_loop=None) -> SuperstepResult:
     """The same superstep at O(max_nn + N/BLOCK) work per event:
 
       * a three-level sum hierarchy (block sums -> row sums -> slots) in f64
@@ -308,116 +307,29 @@ def execute_superstep_incremental(geom: Geometry, params: PhysParams,
         table, never by subtraction (removing an exp(+70) rate would leave
         ulp noise larger than the surviving rates).
 
+    The table and its sums come from :func:`incremental_tables`; the loop
+    over events is ``ops.kmc_events.kmc_event_loop`` (one launch on the
+    card, the plain host loop for CPU tensors), or ``event_loop`` with its
+    signature.  The loop's result and ``n_active`` are read back together,
+    once.
+
     With ``params.active_rows_cap > 0`` the table holds only the candidate
     source rows (elements in {d, Od, V}); ``n_active`` lets the engine grow
     the bucket when it overflows.
     """
-    N, m = geom.N, geom.max_nn
-    cap = params.active_rows_cap
-    dev = geom.device
-
-    if cap > 0:
-        elem = state.element
-        active = (elem == _D) | (elem == _OD) | (elem == _V)
-        aidx, n_active_t = nonzero_fixed(active, cap, fill_value=0)
-        n_active = int(n_active_t)
-        slot_ok = torch.arange(cap, device=dev) < n_active
-        inv = torch.full((N + 1,), -1, dtype=torch.int64, device=dev)
-        inv[torch.where(slot_ok, aidx.long(), N)] = torch.arange(cap, device=dev)
-        inv = inv[:N]
-        prob = build_rate_table(geom, params, state, active_idx=aidx)
-        prob = torch.where(slot_ok[:, None], prob, 0.0)
-        n_rows = cap
-    else:
-        aidx = torch.arange(N, dtype=torch.int32, device=dev)
-        inv = torch.arange(N, device=dev)
-        n_active = N
-        prob = build_rate_table(geom, params, state)
-        n_rows = N
-    prob = prob.clone()
-    aidx_l = aidx.long()
-
-    nb_pad = (-n_rows) % _BLOCK
-    n_blocks = (n_rows + nb_pad) // _BLOCK
-    acc = torch.float64 if prob.dtype == torch.float32 else prob.dtype
-    row_sums = torch.nn.functional.pad(prob.to(acc).sum(dim=1), (0, nb_pad))
-    block_sums = row_sums.reshape(n_blocks, _BLOCK).sum(dim=1)
-
-    t_window = 1.0 / params.freq
-    npd = _NP_DTYPE[prob.dtype]
-    nb_all = geom.neigh_idx
-    rev_all = geom.rev_slot
-    element = state.element.clone()
-    charge = state.charge.clone()
-    key = state.key
-    event_time, count = 0.0, 0
-    while event_time < t_window and count < params.max_events_per_superstep:
-        key, k_sel, k_time = rng.split(key, 3)
-        u = rng.uniform(k_sel, np.float64)
-
-        # --- hierarchical selection over the compact rows ---
-        block_cum = torch.cumsum(block_sums, dim=0)
-        psum = block_cum[-1]
-        target = (u * psum).reshape(1)
-        blk = torch.clamp(torch.searchsorted(block_cum, target, right=True)[0],
-                          max=n_blocks - 1)
-        base_b = torch.where(blk > 0, block_cum[(blk - 1).clamp(min=0)], 0.0)
-        rows_here = row_sums.reshape(n_blocks, _BLOCK)[blk]
-        row_cum = torch.cumsum(rows_here, dim=0)
-        r_in = torch.clamp(
-            torch.searchsorted(row_cum, target - base_b, right=True)[0], max=_BLOCK - 1)
-        r = torch.clamp(blk * _BLOCK + r_in, max=n_rows - 1)
-        base_r = torch.where(r_in > 0, row_cum[(r_in - 1).clamp(min=0)], 0.0)
-        slot_cum = torch.cumsum(prob[r].to(acc), dim=0)
-        s = torch.clamp(
-            torch.searchsorted(slot_cum, target - base_b - base_r, right=True)[0],
-            max=m - 1)
-        i = aidx_l[r]
-        j = nb_all[i, s]
-        jc = j.clamp(min=0).long()
-        sel = torch.stack([
-            psum, prob[r, s].to(acc), r.to(acc), i.to(acc), j.to(acc),
-            inv[jc].to(acc), element[i].to(acc), element[jc].to(acc),
-            charge[i].to(acc), charge[jc].to(acc),
-        ])
-        psum_h, p_h, r_h, i_h, j_h, rj_h, e_i, e_j, q_i, q_j = sel.tolist()
-        if not (psum_h > 0 and p_h > 0):
-            event_time = float("inf")
-            break
-        r_h, i_h, j_h, rj_h = int(r_h), int(i_h), int(j_h), int(rj_h)
-        _execute_event(element, charge, i_h, j_h, int(e_i), int(e_j), int(q_i),
-                       int(q_j), _event_type(int(e_i), int(e_j)))
-
-        # --- incremental conflict zeroing: rows r and rj_row, plus the
-        # reverse-edge slot of i and j in every neighbouring active row ---
-        rj_row = rj_h if (j_h >= 0 and rj_h >= 0) else r_h
-
-        def rev_targets(site):
-            nbrs = nb_all[site].long()
-            slots = rev_all[site].long()
-            crow = inv[nbrs.clamp(min=0)]
-            ok = (nbrs >= 0) & (slots >= 0) & (crow >= 0)
-            return torch.where(ok, crow, r_h), torch.where(ok, slots, 0)
-
-        ri_, ci = rev_targets(i_h)
-        rj_, cj = rev_targets(j_h)
-        prob[ri_, ci] = 0.0
-        prob[rj_, cj] = 0.0
-        prob[r_h, :] = 0.0
-        prob[rj_row, :] = 0.0
-
-        rows_touched = torch.cat([
-            ri_, rj_, torch.tensor([r_h, rj_row], device=dev)])
-        row_sums[rows_touched] = prob[rows_touched].to(acc).sum(dim=1)
-        ub = rows_touched // _BLOCK
-        block_sums[ub] = row_sums.reshape(n_blocks, _BLOCK)[ub].sum(dim=1)
-
-        u_t = rng.uniform(k_time, npd)
-        event_time = _time_draw(params, prob.dtype, u_t, psum_h)
-        count += 1
-
+    prob, row_sums, block_sums, aidx, inv, n_active_t = incremental_tables(
+        geom, params, state)
+    loop = event_loop or kmc_events.kmc_event_loop
+    element, charge, res = loop(
+        prob, row_sums, block_sums, aidx, inv, geom.neigh_idx, geom.rev_slot,
+        state.element, state.charge, state.key, 1.0 / params.freq,
+        params.max_events_per_superstep, params.dtype)
+    if n_active_t is not None:
+        res = torch.cat([res, n_active_t.reshape(1).to(res.dtype)])
+    event_time, count, k0, k1, *n_active = res.tolist()
+    n_active = int(n_active[0]) if n_active else geom.N
     return SuperstepResult(
-        state=replace(state, element=element, charge=charge, key=key,
+        state=replace(state, element=element, charge=charge, key=(int(k0), int(k1)),
                       kmc_time=state.kmc_time + event_time),
-        step_time=event_time, n_events=count, n_active=n_active,
+        step_time=event_time, n_events=int(count), n_active=n_active,
     )

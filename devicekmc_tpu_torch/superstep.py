@@ -1,10 +1,14 @@
-"""The KMC superstep body.  Phase order mirrors the reference main loop
-(src/kmc_main.cpp:175-234): charge -> boundary potential -> gridless Poisson
--> KMC events -> transport / dissipated power -> heat."""
+"""The KMC superstep body, and a batch of supersteps with the driver's stop
+conditions between them (``batch_steps > 1``).  Phase order mirrors the
+reference main loop (src/kmc_main.cpp:175-234): charge -> boundary potential
+-> gridless Poisson -> KMC events -> transport / dissipated power -> heat."""
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
+
+import numpy as np
+import torch
 
 from .physics import charge as charge_mod
 from .physics import current as current_mod
@@ -69,3 +73,51 @@ def superstep_impl(
             state, m = heat_mod.update_temperature(geom, params, heat, state, step_time)
             metrics.update(m)
     return state, step_time, metrics
+
+
+def multi_superstep_impl(
+    geom: Geometry, params: PhysParams, state: SimState, Vd: float, Icc_A: float,
+    t_end: float, n_steps: int, cc=None, heat=None, limit=None,
+):
+    """Up to ``n_steps`` supersteps with the driver's stop conditions
+    applied between them, as the JAX package's ``multi_superstep_impl``
+    (``devicekmc_tpu/superstep.py:63-107``): a step after the KMC clock
+    reached ``t_end`` or the current passed the compliance ``Icc_A`` [A] is
+    a no-op (``step_time`` 0, ``active`` False), and so is every step from
+    ``limit`` on.  Returns ``(state, step_times, metrics)``: ``step_times``
+    an f64 array [n_steps], ``metrics`` a dict of f64 arrays [n_steps] of the
+    superstep's metrics plus the bool array ``active``; a no-op step's row
+    holds 0.
+
+    The batch is a host loop over supersteps: each still reads a few
+    scalars, so the loop leaves once a step is a no-op, with the results of
+    the JAX package's no-ops.  All the batch's tensor metrics are read back
+    in one transfer at the end."""
+    step_times = np.zeros(n_steps)
+    active = np.zeros(n_steps, dtype=bool)
+    rows = []
+    for k in range(n_steps):
+        if limit is not None and k >= limit:
+            break
+        state, step_times[k], m = superstep_impl(geom, params, state, Vd, cc=cc,
+                                                 heat=heat)
+        active[k] = True
+        rows.append(m)
+        if state.kmc_time >= t_end or state.I_macro > Icc_A:
+            break
+    keys = sorted({key for m in rows for key in m})
+    metrics = {key: np.zeros(n_steps) for key in keys}
+    lazy = [(k, key, v) for k, m in enumerate(rows) for key, v in m.items()
+            if torch.is_tensor(v)]
+    if lazy:
+        vals = torch.stack([v.reshape(()).to(device=lazy[0][2].device,
+                                             dtype=torch.float64)
+                            for _, _, v in lazy]).tolist()
+        for (k, key, _), val in zip(lazy, vals):
+            metrics[key][k] = val
+    for k, m in enumerate(rows):
+        for key, v in m.items():
+            if not torch.is_tensor(v):
+                metrics[key][k] = float(v)
+    metrics["active"] = active
+    return state, step_times, metrics

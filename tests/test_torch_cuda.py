@@ -617,3 +617,186 @@ def test_cuda_heated_solve_launches_pdisp_once():
         power[device] = st.power.cpu().numpy()
     np.testing.assert_allclose(power["cuda"], power["cpu"], rtol=0,
                                atol=1e-5 * np.abs(power["cpu"]).max())
+
+
+def _event_state(precision, cap, seed=4, n_vac=14, n_od=10, phi_scale=3.0):
+    """The 256-site stack on the card with random vacancies, oxygen ions
+    and potentials (numpy, seeded), so that one superstep fires tens of
+    events of every type."""
+    import dataclasses
+
+    from devicekmc_tpu_torch.config import KMCConfig
+    from devicekmc_tpu_torch.state import build_simulation
+    from devicekmc_tpu_torch.structure import Element, make_test_structure
+
+    s = make_test_structure(nx_contact=2, nx_oxide=8, ny=4, nz=4, seed=11)
+    cfg = KMCConfig(
+        lattice=list(s.lattice), nn_dist=3.0,
+        num_atoms_first_layer=s.num_atoms_first_layer,
+        num_layers_contact=s.num_layers_contact,
+        num_atoms_contact=s.num_atoms_contact, layers=s.layers,
+        solve_potential=True, perturb_structure=True, precision=precision,
+        active_rows_cap=cap, rnd_seed_kmc=7,
+    )
+    geom, params, state = build_simulation(cfg, elements=s.elements, coords=s.coords,
+                                           device="cuda")
+    rng = np.random.default_rng(seed)
+    elem = state.element.cpu().numpy().copy()
+    ox = np.nonzero(elem == int(Element.O))[0]
+    elem[rng.choice(ox, size=n_vac, replace=False)] = int(Element.VACANCY)
+    d = np.nonzero(elem == int(Element.DEFECT))[0]
+    elem[rng.choice(d, size=n_od, replace=False)] = int(Element.OXYGEN_DEFECT)
+    charge = np.where(elem == int(Element.VACANCY), 2,
+                      np.where(elem == int(Element.OXYGEN_DEFECT), -2, 0))
+    n = elem.shape[0]
+    cuda = lambda a, dt: torch.as_tensor(a, dtype=dt, device="cuda")
+    state = dataclasses.replace(
+        state, element=cuda(elem, torch.int32), charge=cuda(charge, torch.int32),
+        potential_boundary=cuda(phi_scale * rng.standard_normal(n), params.dtype),
+        potential_charge=cuda(0.1 * phi_scale * rng.standard_normal(n), params.dtype))
+    return geom, params, state
+
+
+def _assert_same_superstep(got, ref, rel):
+    assert got.n_events == ref.n_events and got.n_active == ref.n_active
+    assert torch.equal(got.state.element, ref.state.element)
+    assert torch.equal(got.state.charge, ref.state.charge)
+    assert got.state.key == ref.state.key
+    assert got.step_time == pytest.approx(ref.step_time, rel=rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,rel", [("f64", 1e-9), ("mixed", 2.4e-7)])
+@pytest.mark.parametrize("cap", [0, 128])
+def test_cuda_event_loop_matches_plain(precision, rel, cap):
+    """Three supersteps from the same state, the kernel against the plain
+    host loop on the card: events, elements, charges and keys equal;
+    step_time within 1e-9 relative (f64 table) or 2 f32 ulps (f32 table:
+    the log of the time draw and the sums' order may differ by an ulp);
+    the kernel launched once a superstep, the input state untouched."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop, kmc_event_loop_plain
+    from devicekmc_tpu_torch.physics.events import execute_superstep_incremental
+
+    geom, params, state = _event_state(precision, cap)
+    elem0 = state.element.clone()
+    total = 0
+    for _ in range(3):
+        before = kmc_event_loop.launches
+        got = execute_superstep_incremental(geom, params, state)
+        ref = execute_superstep_incremental(geom, params, state,
+                                            event_loop=kmc_event_loop_plain)
+        assert kmc_event_loop.launches == before + 1
+        _assert_same_superstep(got, ref, rel)
+        assert got.n_events > 0
+        total += got.n_events
+        assert torch.equal(state.element, elem0)
+        state = got.state
+        elem0 = state.element.clone()
+    assert total > 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_events", [1, 5])
+def test_cuda_event_loop_max_events(max_events):
+    """The event cap is hit exactly, with the same state as the plain
+    loop."""
+    _need_card()
+    import dataclasses
+
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop_plain
+    from devicekmc_tpu_torch.physics.events import execute_superstep_incremental
+
+    geom, params, state = _event_state("f64", 0)
+    params = dataclasses.replace(params, max_events_per_superstep=max_events)
+    got = execute_superstep_incremental(geom, params, state)
+    ref = execute_superstep_incremental(geom, params, state,
+                                        event_loop=kmc_event_loop_plain)
+    assert got.n_events == max_events
+    _assert_same_superstep(got, ref, 1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_event_loop_no_valid_event(dtype):
+    """A table without a positive rate (psum = 0): event_time = inf, no
+    event, the key split once, elements untouched."""
+    _need_card()
+    from devicekmc_tpu_torch import rng
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop, kmc_event_loop_plain
+
+    geom, params, state = _event_state("f64", 0)
+    N, m = geom.N, geom.max_nn
+    n_blocks = -(-N // 128)
+    outs = []
+    for loop in (kmc_event_loop, kmc_event_loop_plain):
+        prob = torch.zeros((N, m), dtype=dtype, device="cuda")
+        row_sums = torch.zeros(n_blocks * 128, dtype=torch.float64, device="cuda")
+        block_sums = torch.zeros(n_blocks, dtype=torch.float64, device="cuda")
+        aidx = torch.arange(N, dtype=torch.int32, device="cuda")
+        outs.append(loop(prob, row_sums, block_sums, aidx, aidx, geom.neigh_idx,
+                         geom.rev_slot, state.element, state.charge, state.key,
+                         1.0 / params.freq, 100, torch.float64))
+    for element, charge, res in outs:
+        t, count, k0, k1 = res.tolist()
+        assert t == float("inf") and count == 0
+        assert (int(k0), int(k1)) == rng.split(state.key, 3)[0]
+        assert torch.equal(element, state.element) and torch.equal(charge, state.charge)
+
+
+@pytest.mark.cuda
+def test_cuda_threefry_matches_rng():
+    """The kernel's stream: 2,000 successive splits and the f64 and f32
+    draws of both keys, bit for bit against rng.py."""
+    _need_card()
+    from devicekmc_tpu_torch import rng
+    from devicekmc_tpu_torch.ops.kmc_events import threefry_draws
+
+    key = rng.prng_key(7)
+    keys, u64, u32 = threefry_draws(key, 2000)
+    keys, u64, u32 = keys.tolist(), u64.tolist(), u32.tolist()
+    for e in range(2000):
+        key, k_sel, k_time = rng.split(key, 3)
+        assert tuple(keys[e]) == key
+        assert u64[e] == [rng.uniform(k_sel, np.float64), rng.uniform(k_time, np.float64)]
+        assert u32[e] == [rng.uniform(k_sel, np.float32), rng.uniform(k_time, np.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_event_loop_large_table(dtype):
+    """A table of 800,000 rows (6,250 blocks of sums: 50 KB of shared
+    memory, past the 48 KB default) on a ring graph of 4 neighbours with
+    random rates and elements: 30 events (the cap) equal to the plain loop's,
+    with the same key, elements, charges and time."""
+    _need_card()
+    from devicekmc_tpu_torch import rng
+    from devicekmc_tpu_torch.ops.kmc_events import BLOCK, kmc_event_loop, kmc_event_loop_plain
+
+    N, d = 800_000, np.array([-1, 1, -2, 2])
+    gen = np.random.default_rng(3)
+    site = np.arange(N)[:, None]
+    nb = torch.as_tensor((site + d) % N, dtype=torch.int32, device="cuda")
+    rev = torch.as_tensor(np.broadcast_to([1, 0, 3, 2], (N, 4)).copy(), dtype=torch.int32,
+                          device="cuda")
+    elem = gen.integers(0, 4, N)
+    charge = np.where(elem == 2, 2, np.where(elem == 1, -2, 0))
+    prob = torch.as_tensor(gen.random((N, 4)) * (gen.random((N, 4)) < 0.3), dtype=dtype,
+                           device="cuda")
+    n_blocks = -(-N // BLOCK)
+    row_sums = torch.nn.functional.pad(prob.double().sum(dim=1), (0, n_blocks * BLOCK - N))
+    block_sums = row_sums.reshape(n_blocks, BLOCK).sum(dim=1)
+    aidx = torch.arange(N, dtype=torch.int32, device="cuda")
+    outs = []
+    for loop in (kmc_event_loop, kmc_event_loop_plain):
+        outs.append(loop(prob.clone(), row_sums.clone(), block_sums.clone(), aidx, aidx, nb,
+                         rev, torch.as_tensor(elem, dtype=torch.int32, device="cuda"),
+                         torch.as_tensor(charge, dtype=torch.int32, device="cuda"),
+                         rng.prng_key(11), 1e30, 30, torch.float64))
+    (e_k, q_k, r_k), (e_p, q_p, r_p) = outs
+    t_k, n_k, *key_k = r_k.tolist()
+    t_p, n_p, *key_p = r_p.tolist()
+    assert n_k == n_p == 30 and key_k == key_p
+    assert torch.equal(e_k, e_p) and torch.equal(q_k, q_p)
+    assert (e_k.cpu().numpy() != elem).any()
+    assert t_k == pytest.approx(t_p, rel=1e-9 if dtype == torch.float64 else 2.4e-7)

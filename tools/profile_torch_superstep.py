@@ -4,7 +4,7 @@
     python3 tools/profile_torch_superstep.py [--sites 110000] [--steps 6]
                                              [--transport [--ell] [--stored]
                                               [--heat [--local]]]
-                                             [--plain KERNEL ...]
+                                             [--plain KERNEL ...] [--chunks 1,2,4]
 
 Builds the headline configuration of chip_smoke.py (synthetic crossbar,
 mixed precision, the CUDA kernels, Vd = 1 V), or with ``--transport`` its
@@ -15,9 +15,11 @@ it; ``--heat`` turns Joule heating on: the global model, or with ``--local``
 the matrix-free local model with symmetric contact spans; ``--plain``
 runs the plain PyTorch version of the named kernels, ``poisson_pairwise``
 or ``wkb_window_block``, where the path calls them: what their last bits do
-to the trajectory), builds the kernels, runs the cold pre-solves and two
-warm-up supersteps (printing each step's events, CG iterations and
-current), then:
+to the trajectory; ``--chunks`` sets the CG iterations between two reads of
+the stop condition, ``ops.cg.CHUNKS``, ``1`` reads every iteration), builds
+the kernels, runs the cold pre-solves and two warm-up supersteps (printing
+each step's events, CG iterations and current, the wall time of the cold
+solves and the warm-up, the CG read-backs and the matvec launches), then:
 
 1. host-clock phase breakdown over ``--steps`` supersteps, with a device
    synchronize after each phase: charge rule, boundary solve, Poisson,
@@ -29,7 +31,8 @@ current), then:
    with the skipped steps listed apart; with ``--heat`` also the heat phase,
    with the local model's branch, substeps and CG iterations;
 2. torch.profiler over ``--steps`` further supersteps: device time by
-   kernel, and the device's busy share of the wall time.
+   kernel, the device's busy share of the wall time, and the device-to-host
+   copies (the read-backs) a superstep.
 
 Prints plain text; the card's name and power limit come first.
 """
@@ -61,6 +64,8 @@ def main():
     ap.add_argument("--plain", nargs="+", default=[],
                     choices=["poisson_pairwise", "wkb_window_block"],
                     help="run these kernels' plain versions on the path")
+    ap.add_argument("--chunks", default=None,
+                    help="CG stop-check schedule, e.g. 1,2,4,8 (default: ops.cg.CHUNKS)")
     args = ap.parse_args()
     if (args.heat and not args.transport) or (args.local and not args.heat):
         ap.error("--heat needs --transport, --local needs --heat")
@@ -73,14 +78,17 @@ def main():
     from chip_smoke import VD_MAIN, gpu_line, synthetic_crossbar
     from devicekmc_tpu_torch.physics import charge, current, events, heat, potential
 
-    from devicekmc_tpu_torch.ops import _build, pairwise, wkb_window
+    from devicekmc_tpu_torch.ops import _build, cg, pairwise, wkb_window
 
     print(gpu_line(), flush=True)
+    if args.chunks:
+        cg.CHUNKS = tuple(int(c) for c in args.chunks.split(","))
     if "poisson_pairwise" in args.plain:
         potential.poisson_pairwise = pairwise.poisson_pairwise_plain
     if "wkb_window_block" in args.plain:
         current.wkb_window_block = wkb_window.wkb_window_block_plain
-    _build.build(["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window"])
+    _build.build(["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window",
+                  "kmc_events"])
     overrides = {}
     if args.ell:
         overrides["transport_banded"] = False
@@ -91,7 +99,16 @@ def main():
                              current=args.transport,
                              heat=("local" if args.local else "global") if args.heat
                              else None, **overrides)
+    from devicekmc_tpu_torch.ops.banded import banded_matvec
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matvec
+
+    cg.readbacks = banded_matvec.launches = wkb_fly_matvec.launches = 0
+    t0 = time.perf_counter()
     sim.run_bias_point(VD_MAIN, 1e30, max_steps=2)
+    torch.cuda.synchronize()
+    print(f"CG stop checks every {cg.CHUNKS} iterations: cold solves and 2 warm-up steps in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, {cg.readbacks} CG read-backs, "
+          f"{banded_matvec.launches} banded and {wkb_fly_matvec.launches} fly matvec launches")
     for pre in sim.presolve_log:
         print(f"cold {pre['phase']} solve: {pre['cg_iters']} CG iterations, "
               f"{pre['s'] * 1e3:.1f} ms")
@@ -115,6 +132,7 @@ def main():
     cg_iters = []
     n_events = []
     state = sim.state
+    cg.readbacks = banded_matvec.launches = wkb_fly_matvec.launches = 0
     for _ in range(args.steps):
         t0 = sync()
         state, _ = charge.update_charge(geom, params, state)
@@ -177,6 +195,8 @@ def main():
               f"(min {min(v) * 1e3:.3f}, max {max(v) * 1e3:.3f})")
     per_event = [p / max(n, 1) for p, n in zip(phases["event_loop"], n_events)]
     print(f"  event loop per event: median {statistics.median(per_event) * 1e3:.3f} ms")
+    print(f"  CG read-backs {cg.readbacks}; banded matvec launches "
+          f"{banded_matvec.launches}, fly matvec launches {wkb_fly_matvec.launches}")
     if args.transport:
         print(f"transport phase: {len(transport['assembly'])} solved steps "
               f"(cg_iters_power {cg_iters}), {len(transport['skipped'])} skipped; median ms:")
@@ -221,6 +241,8 @@ def main():
           f"(idle {100 - 100 * busy / wall_us:.2f} %)")
     if busy == 0:
         print("profiler recorded no device time: busy share not measured")
+    dtoh = sum(e.count for e in kernels if e.key.startswith("Memcpy DtoH"))
+    print(f"device-to-host copies: {dtoh} ({dtoh / args.steps:.1f} a superstep)")
     rows = sorted(kernels, key=dev_us, reverse=True)
     print("device time by kernel (top 15): total ms, calls, name")
     for e in rows[:15]:
