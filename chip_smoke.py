@@ -22,7 +22,11 @@ Phases (any failed check raises and the exit code is non-zero):
    event kernel against its plain version (the host loop, on the card) with
    an f64 table, 6 supersteps from one state (events, elements, charges,
    keys equal, step_time within 1e-9 relative); batch_steps = 4 against the
-   per-step driver (events and elements per step, output.txt's numbers);
+   per-step driver (events and elements per step, output.txt's numbers); the
+   accuracy gate of transport_bf16_inner (Vd = 10 V, 4 supersteps), once with
+   the stored metal block (the bf16 twin products run) and once on the fly
+   (they do not): card and CPU path with equal events and I_macro within
+   1e-5, both within 2e-4 of the dense direct solve;
 3. headline path: the synthetic crossbar of 108,944 sites (the composition
    and neighbour statistics of the reference's timing crossbar), neighbour
    list built on the card; the gather and the Poisson kernel are held against
@@ -80,7 +84,29 @@ Phases (any failed check raises and the exit code is non-zero):
    the cold solves' iterations and every step's events, cg_iters_boundary
    and cg_iters_power equal to the chunked run's; the log of the event
    kernel's time draws against numpy's (draws that differ, and by how many
-   ulps).
+   ulps);
+7. the modular driver (Simulation(fused=False)): on the small stack with
+   transport and the local cg heat model against the fused driver (events
+   and elements per step, the module times logged), and its chunked heat
+   phase against the single call at 151 substeps (1e-9 relative); then the
+   headline crossbar run of phase 3 again with in-superstep segments of 200
+   iterations, counters set to 0 just before: events and elements equal to
+   phase 3's step for step, the four headline module times at every step,
+   their medians printed;
+8. checkpoint and resume on the card: on the small stack with transport and
+   on the headline crossbar, per step and with batch_steps = 4, 2
+   supersteps, a checkpoint, 2 more, against a fresh Simulation that loads
+   the file and runs the same 2: element, charge, key, kmc_time, I_macro,
+   virtual_potentials and CB_edge bit for bit; the save and load seconds;
+9. the transport configuration of phase 4 with transport_bf16_inner and
+   transport_tol 1e-6 (the option's 1e-2 tightening makes it phase 4's
+   1e-8), counters set to 0 just before: cold solves and 4 supersteps,
+   every solve converged, every transport kernel launched and the band
+   bf16, the iterations and currents beside phase 4's; then the bf16 band
+   kernel (with the f32 vector the path gives it) against its plain
+   version on the run's band (within 2e-5 of its largest entry, and the vector
+   rounded to bf16 more than 10x further off),
+   timed beside its bytes bound and torch.einsum on the bf16 window stack.
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -201,7 +227,7 @@ def time_ms_cold(fn, reps=20, warmup=3):
 # configurations
 # ---------------------------------------------------------------------------
 
-def small_device(device, out_dir, current=False, heat=None, **overrides):
+def small_device(device, out_dir, current=False, heat=None, fused=True, **overrides):
     """The 256-site stack of tests/test_golden_trajectory.py with the
     headline modules; ``current`` adds blocked transport as the transport
     path runs it (transport_tol 1e-11: two solves that meet the default
@@ -209,8 +235,8 @@ def small_device(device, out_dir, current=False, heat=None, **overrides):
     "global-fly" (blocked on-the-fly transport, global model), "global-dense"
     (f64, dense transport, global model: the golden trajectory's
     configuration), "local-dense" (blocked transport, stored metal block,
-    local model with the dense propagators); ``overrides`` replace single
-    configuration fields."""
+    local model with the dense propagators); ``fused=False`` selects the
+    modular driver; ``overrides`` replace single configuration fields."""
     from devicekmc_tpu_torch.config import KMCConfig
     from devicekmc_tpu_torch.engine import Simulation
     from devicekmc_tpu_torch.structure import make_test_structure
@@ -243,10 +269,11 @@ def small_device(device, out_dir, current=False, heat=None, **overrides):
                                   heat_solver="dense")
     cfg = dataclasses.replace(cfg, **overrides)
     os.makedirs(out_dir, exist_ok=True)
-    return Simulation(cfg, elements=s.elements, coords=s.coords, device=device)
+    return Simulation(cfg, elements=s.elements, coords=s.coords, device=device,
+                      fused=fused)
 
 
-def synthetic_crossbar(n_sites, device, out_dir, current=False, heat=None,
+def synthetic_crossbar(n_sites, device, out_dir, current=False, heat=None, fused=True,
                        **overrides):
     """The headline configuration on the synthetic crossbar: the structure,
     substoichiometry and solver settings of the JAX package's bench.py
@@ -258,8 +285,8 @@ def synthetic_crossbar(n_sites, device, out_dir, current=False, heat=None,
     heating as bench.py's build_crossbar_sim_full sets it (bench.py:120-153):
     "global" (the lumped model, A = ly * lz) or "local" (the matrix-free
     site-resolved model with symmetric plate-contact spans, so that interior
-    metal stays inside the heat domain); ``overrides`` replace single
-    configuration fields."""
+    metal stays inside the heat domain); ``fused=False`` selects the modular
+    driver; ``overrides`` replace single configuration fields."""
     from devicekmc_tpu_torch.config import KMCConfig
     from devicekmc_tpu_torch.engine import Simulation
     from devicekmc_tpu_torch.physics import heat as heat_mod
@@ -294,7 +321,7 @@ def synthetic_crossbar(n_sites, device, out_dir, current=False, heat=None,
         cfg = dataclasses.replace(cfg, solve_heating_local=True, heat_solver="cg")
     cfg = dataclasses.replace(cfg, **overrides)
     os.makedirs(out_dir, exist_ok=True)
-    sim = Simulation(cfg, elements=elems, coords=s.coords, device=device)
+    sim = Simulation(cfg, elements=elems, coords=s.coords, device=device, fused=fused)
     if heat == "local":
         e = sim.state.element.cpu().numpy()
         spans = (heat_mod._num_in_contact_left(e, cfg.num_atoms_contact),
@@ -1863,6 +1890,383 @@ def cg_reference_run(out_root, chunked):
 
 
 
+# ---------------------------------------------------------------------------
+# the modular driver, checkpoint and resume, the bf16 inner transport
+# ---------------------------------------------------------------------------
+
+#: the reference's per-module timing keys every modular headline superstep logs
+MODULAR_KEYS = ("charge", "potential from boundaries", "potential from charges",
+                "kmc events")
+#: segment length of the modular driver's in-superstep re-solves on the crossbar
+MODULAR_CHUNK = 200
+#: transient substeps of the chunked local heat check: segments of 64, 64, 23
+HEAT_CHECK_SUBSTEPS = 150.5
+#: supersteps before and after the checkpoint in the resume checks
+CKPT_STEPS = 2
+#: the fields a resume must reproduce bit for bit
+RESUME_FIELDS = ("element", "charge", "key", "kmc_time", "I_macro",
+                 "virtual_potentials", "CB_edge")
+#: the bf16 band with the f32 vector against its plain version, as a share
+#: of the largest entry: f32 sums in another order (the bound of
+#: tests/test_torch_cuda.py::test_cuda_banded_matvec_bf16_band_f32_vector)
+BF16_REL = 2e-5
+#: the bf16 inner I_macro against the dense direct solve on the small stack
+BF16_DIRECT_RTOL = 2e-4
+#: supersteps of the bf16 transport run on the crossbar
+BF16_STEPS = 4
+#: transport_tol of the bf16 transport run: the option tightens it by 1e-2 to
+#: phase 4's 1e-8.  At its default (1e-10 after the tightening) no cold solve
+#: converges at this width, with the f32 inner operator either: the mixed
+#: refinement's floor lies above 1e-10 here (ROADMAP section 3, item 1)
+BF16_TRANSPORT_TOL = 1e-6
+
+
+def record_elements(sim):
+    """Keep a device copy of the elements and the event count of every
+    ``sim._superstep`` call of one Simulation; the records of
+    record_supersteps."""
+    recs = []
+    step = sim._superstep
+
+    def wrapped(state, Vd):
+        out = step(state, Vd)
+        recs.append((out[0].element.clone(), int(out[2].get("n_events", -1))))
+        return out
+
+    sim._superstep = wrapped
+    return recs
+
+
+def same_steps(tag, ref, got):
+    """Two runs' records (record_supersteps, record_elements): events and
+    elements equal step for step."""
+    import torch
+
+    check(len(ref) == len(got), f"{tag}: {len(ref)} vs {len(got)} supersteps")
+    for k, ((ea, na), (eb, nb)) in enumerate(zip(ref, got)):
+        check(na == nb, f"{tag}: step {k} events {na} vs {nb}")
+        check(torch.equal(ea, eb), f"{tag}: step {k} elements differ")
+
+
+def small_modular_check(out_root, steps=4):
+    """Phase 7, first part: the small stack with blocked transport and the
+    local cg heat model, the modular driver (segments of 40 iterations)
+    against the fused one on the card: events and elements per step equal,
+    every step with the six timing keys; then the chunked heat phase against
+    the single call at 151 transient substeps (segments of 64, 64, 23): the
+    temperature field within 1e-9 relative."""
+    from devicekmc_tpu_torch import engine
+
+    runs = {}
+    for fused in (True, False):
+        sim = small_device("cuda", os.path.join(out_root, f"small_modular_{fused}"),
+                           current=True, fused=fused, solve_heating_local=True,
+                           heat_solver="cg")
+        recs = record_elements(sim)
+        sim.run_bias_point(10.0, 1e30, max_steps=steps)
+        runs[fused] = (recs, sim)
+    same_steps("small stack modular", runs[True][0], runs[False][0])
+    sim = runs[False][1]
+    keys = MODULAR_KEYS + ("dissipated power", "temperature")
+    for s in sim.step_log:
+        for key in keys:
+            check(f"Z - calculation time - {key} [s]" in s, f"step {s['step']}: no {key} time")
+    p = sim.params
+    step_time = HEAT_CHECK_SUBSTEPS * p.delta_t
+    st_c, _ = engine.run_heat_phase_chunked(sim.geom, p, sim.heat, sim.state, step_time)
+    st_s, _ = engine._phase_heat(sim.geom, p, sim.heat, sim.state, step_time)
+    err = float((st_c.temperature / st_s.temperature - 1).abs().max())
+    moved = float((st_s.temperature - p.background_temp).abs().max())
+    check(err <= 1e-9, f"chunked heat phase: temperature error {err}")
+    check(moved > 0, "the local heat model left the background temperature everywhere")
+    log(f"small stack, modular driver (segments of {sim.cfg.solver_chunk_iters}) with "
+        f"transport and the local cg heat model: {steps} supersteps, events per step "
+        f"{[n for _, n in runs[False][0]]} and elements equal to the fused driver's; every "
+        f"step logs {len(keys)} module times; the chunked heat phase at "
+        f"{int(HEAT_CHECK_SUBSTEPS) + 1} substeps against the single call: max temperature "
+        f"error {err:.3e} relative (up to {moved:.3e} K above the background)")
+
+
+def small_bf16_check(out_root, steps=4, Vd=10.0):
+    """Phase 2, the bf16 accuracy gate: the small stack with
+    transport_bf16_inner, once with the stored metal block (the bf16 twin
+    products run) and once on the fly (they do not): events per step equal
+    on the card and on the CPU, I_macro within 1e-5, and on both the final
+    I_macro within BF16_DIRECT_RTOL of the dense direct solve of the final
+    state."""
+    import torch
+
+    from devicekmc_tpu_torch.physics import current as cur
+
+    for cc in ("stored", "fly"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            sim = small_device(device, os.path.join(out_root, f"small_bf16_{cc}_{device}"),
+                               current=True, transport_cc=cc, transport_bf16_inner=True)
+            twins, restore = _counted(cur, "twin_matmul")
+            try:
+                sim.run_bias_point(Vd, 1e30, max_steps=steps)
+            finally:
+                restore()
+            check(sim._band is not None and sim._band["C"].dtype == torch.bfloat16,
+                  f"{cc}: the band is not bf16")
+            st_d, _ = cur.update_power(sim.geom, sim.params, sim.state, Vd, method="direct")
+            runs[device] = (sim, st_d.I_macro, twins["calls"])
+        (g, Ig, tg), (c, Ic, tc) = runs["cuda"], runs["cpu"]
+        check([int(s["n_events"]) for s in g.step_log] == [int(s["n_events"]) for s in c.step_log],
+              f"bf16 {cc}: events differ between the card and the CPU")
+        for a, b in zip(g.step_log, c.step_log):
+            check(a["transport_converged"] == b["transport_converged"] == 1.0,
+                  f"bf16 {cc}: step {a['step']} not converged")
+            check(abs(a["Current [uA]"] / b["Current [uA]"] - 1) <= 1e-5,
+                  f"bf16 {cc}: step {a['step']} current {a['Current [uA]']} vs "
+                  f"{b['Current [uA]']} uA")
+        eg, ec = abs(g.state.I_macro / Ig - 1), abs(c.state.I_macro / Ic - 1)
+        check(eg <= BF16_DIRECT_RTOL and ec <= BF16_DIRECT_RTOL,
+              f"bf16 {cc}: I_macro {eg:.3e} (card) and {ec:.3e} (CPU) from the direct solve")
+        check((tg > 0) == (tc > 0) == (cc == "stored"),
+              f"bf16 {cc}: twin products {tg} (card), {tc} (CPU)")
+        log(f"small stack, transport_bf16_inner, metal block {cc}: {steps} supersteps at "
+            f"Vd = {Vd} V, events {[int(s['n_events']) for s in g.step_log]} on both, "
+            f"cg_iters_power {[int(s['cg_iters_power']) for s in g.step_log]} (card), "
+            f"{[int(s['cg_iters_power']) for s in c.step_log]} (CPU); twin products "
+            f"{tg} (card), {tc} (CPU); final I_macro {g.state.I_macro:.9e} A (card), "
+            f"{c.state.I_macro:.9e} A (CPU), from the direct solve {eg:.3e} and {ec:.3e}")
+
+
+def state_fields(sim):
+    """RESUME_FIELDS of the state as numpy (host scalars and the key as arrays)."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for f in RESUME_FIELDS:
+        v = getattr(sim.state, f)
+        out[f] = v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+    return out
+
+
+def resume_check(tag, make, Vd, out_root):
+    """Run A: CKPT_STEPS supersteps, a checkpoint, CKPT_STEPS more; run B: a
+    fresh Simulation loads the file and runs the same steps.  RESUME_FIELDS
+    equal bit for bit; the save and load seconds are printed."""
+    import numpy as np
+    import torch
+
+    path = os.path.join(out_root, f"ckpt_{tag}.npz")
+    a = make("a")
+    a.run_bias_point(Vd, 1e30, max_steps=CKPT_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    a.run_bias_point(Vd, 1e30, max_steps=2 * CKPT_STEPS, resume_step=CKPT_STEPS)
+    b = make("b")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.load_checkpoint(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(b._pos == (0, CKPT_STEPS), f"{tag}: position {b._pos}")
+    b.run_bias_point(Vd, 1e30, max_steps=2 * CKPT_STEPS, resume_step=CKPT_STEPS)
+    fa, fb = state_fields(a), state_fields(b)
+    for f in RESUME_FIELDS:
+        check(np.array_equal(fa[f], fb[f]), f"{tag}: resumed {f} differs")
+    check([s["step"] for s in b.step_log] == list(range(CKPT_STEPS, 2 * CKPT_STEPS)),
+          f"{tag}: resumed steps {[s['step'] for s in b.step_log]}")
+    log(f"checkpoint and resume, {tag}: {CKPT_STEPS} supersteps, save, {CKPT_STEPS} more, "
+        f"against a fresh Simulation that loads the file and runs the same: "
+        f"{', '.join(RESUME_FIELDS)} equal bit for bit; events "
+        f"{[int(s['n_events']) for s in a.step_log]}; save {save_s:.3f} s, load "
+        f"{load_s:.3f} s ({os.path.getsize(path) / 2**20:.1f} MiB)")
+
+
+def small_resume_checks(out_root):
+    """Phase 8, first part: resume_check on the small stack with transport,
+    per step and with batch_steps = BATCH_STEPS."""
+    for bs in (1, BATCH_STEPS):
+        resume_check(f"small stack with transport, batch_steps {bs}",
+                     lambda tag: small_device(
+                         "cuda", os.path.join(out_root, f"small_ckpt{bs}_{tag}"),
+                         current=True, batch_steps=bs),
+                     10.0, out_root)
+
+
+def crossbar_resume_checks(out_root):
+    """Phase 8, second part: resume_check on the headline crossbar, per step
+    and with batch_steps = BATCH_STEPS."""
+    for bs in (1, BATCH_STEPS):
+        resume_check(
+            f"crossbar headline, batch_steps {bs}",
+            lambda tag: synthetic_crossbar(N_SITES, "cuda",
+                                           os.path.join(out_root, f"crossbar_ckpt{bs}_{tag}"),
+                                           batch_steps=bs),
+            VD_MAIN, out_root)
+
+
+def modular_path(out_root, ref):
+    """Phase 7, second part: the headline configuration under the modular
+    driver with in-superstep segments of MODULAR_CHUNK iterations, counters set to
+    0 just before run_bias_point and read just after: the same cold
+    pre-solve, warm-up and timed supersteps as phase 3; events and elements
+    equal to the fused run ``ref`` (record_supersteps) step for step, every
+    step with the four headline module times, their medians over the timed
+    steps printed.  Returns the launches."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.ell_gather import ell_gather
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop
+    from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise
+
+    sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "crossbar_modular"),
+                             fused=False, solver_chunk_iters=MODULAR_CHUNK)
+    recs = record_elements(sim)
+    wrappers = {"ell_gather": ell_gather, "poisson_pairwise": poisson_pairwise,
+                "kmc_event_loop": kmc_event_loop}
+    # ---- counters to 0, drive, read ----
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    sim.run_bias_point(VD_MAIN, 1e30, max_steps=WARMUP_STEPS + TIMED_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the modular path")
+    same_steps("crossbar modular", ref, recs)
+    steps = sim.step_log
+    for s in steps:
+        for key in MODULAR_KEYS:
+            check(f"Z - calculation time - {key} [s]" in s, f"step {s['step']}: no {key} time")
+    keys = ("KMC superstep",) + MODULAR_KEYS
+    med = {key: statistics.median(s[f"Z - calculation time - {key} [s]"] * 1e3
+                                  for s in steps[WARMUP_STEPS:]) for key in keys}
+    log(f"modular driver (segments of {MODULAR_CHUNK}) on the crossbar: run_bias_point "
+        f"(cold pre-solve + {WARMUP_STEPS} warm-up + {TIMED_STEPS} timed supersteps) in "
+        f"{wall:.2f} s; events and elements equal to the fused run's step for step; "
+        f"launches {launches}; cg_iters_boundary "
+        f"{[int(s['cg_iters_boundary']) for s in steps]}")
+    log("  medians over the timed supersteps (ms): "
+        + ", ".join(f"{key} {med[key]:.3f}" for key in keys))
+    return launches
+
+
+def bf16_transport_path(out_root, f32_steps):
+    """Phase 9: the transport configuration with transport_bf16_inner (at
+    transport_tol BF16_TRANSPORT_TOL, so that it stops where phase 4 does),
+    counters set to 0 just before run_bias_point and read just after: the
+    cold solves and BF16_STEPS supersteps; every solve converged, I_macro
+    finite and positive, every transport kernel launched, the band bf16.
+    cg_iters_power and I_macro beside the f32 inner run's (``f32_steps``,
+    phase 4).  Then the bf16 band kernel against its plain version on the
+    run's band, timed beside its bytes bound and torch.einsum on the same
+    bf16 window stack.  Returns its record and the run's launches."""
+    import math
+
+    import torch
+
+    from devicekmc_tpu_torch.ops.banded import (
+        banded_matvec, banded_matvec_plain, window_stack,
+    )
+    from devicekmc_tpu_torch.ops.ell_gather import ell_gather
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop
+    from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matmat, wkb_fly_matvec, wkb_fly_pdisp
+    from devicekmc_tpu_torch.ops.wkb_window import wkb_window_block
+
+    sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "transport_bf16"),
+                             current=True, transport_bf16_inner=True,
+                             transport_tol=BF16_TRANSPORT_TOL)
+    Cb = sim._band["C"]
+    check(Cb.dtype == torch.bfloat16, f"the band is {Cb.dtype}, not bf16")
+    wrappers = {"ell_gather": ell_gather, "poisson_pairwise": poisson_pairwise,
+                "banded_matvec": banded_matvec, "wkb_fly_matvec": wkb_fly_matvec,
+                "wkb_fly_matmat": wkb_fly_matmat, "wkb_window_block": wkb_window_block,
+                "wkb_fly_pdisp": wkb_fly_pdisp, "kmc_event_loop": kmc_event_loop}
+    # ---- counters to 0, drive, read ----
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    sim.run_bias_point(VD_MAIN, 1e30, max_steps=BF16_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name, n in launches.items():
+        if name == "wkb_fly_pdisp":
+            check(n == 0, f"{name} was launched {n} times on the bf16 transport path")
+        else:
+            check(n > 0, f"{name} was not launched on the bf16 transport path")
+    steps = sim.step_log
+    check(len(steps) == BF16_STEPS, f"ran {len(steps)} bf16 transport supersteps")
+    for s in steps:
+        check(s["transport_converged"] == 1.0, f"bf16 step {s['step']}: not converged")
+    I = sim.state.I_macro
+    check(math.isfinite(I) and I > 0, f"bf16 I_macro {I}")
+    for pre in sim.presolve_log:
+        log(f"cold {pre['phase']} solve (bf16 inner): {pre['cg_iters']} CG iterations, "
+            f"{pre['s'] * 1e3:.1f} ms")
+    log(f"bf16 transport path: run_bias_point (cold solves + {BF16_STEPS} supersteps) in "
+        f"{wall:.2f} s; launches {launches} (every band launch bf16)")
+    for a, b in zip(steps, f32_steps):
+        log(f"  step {a['step']}: {a['Z - calculation time - KMC superstep [s]'] * 1e3:.2f} ms, "
+            f"events {int(a['n_events'])} (f32 inner {int(b['n_events'])}), cg_iters_power "
+            f"{int(a['cg_iters_power'])} (f32 inner {int(b['cg_iters_power'])}), Current "
+            f"{a['Current [uA]']:.9g} uA (f32 inner {b['Current [uA]']:.9g})")
+
+    # ---- the bf16 band kernel at the run's band ----
+    R, m_pad, B, _ = Cb.shape
+    Na = sim.geom.N_atom
+    g = torch.Generator(device="cuda").manual_seed(1)
+    xa = torch.randn(Na, generator=g, device="cuda")
+    xp = torch.zeros((R + m_pad - 1) * B, device="cuda")
+    xp[sim._band["front"]:sim._band["front"] + Na] = xa[sim._band["pi"]]
+    xp2 = xp.reshape(R + m_pad - 1, B)
+    y = banded_matvec(Cb, xp2)
+    ref = banded_matvec_plain(Cb, xp2)
+    torch.cuda.synchronize()
+    # the vector rounded to bf16 (the JAX package's form, which stalls the
+    # inner CG) must lie well outside the bound
+    rounded = banded_matvec_plain(Cb, xp2.to(torch.bfloat16))
+    check(bool(torch.isfinite(y).all()), "bf16 band: output finite")
+    err = float((y - ref).abs().max())
+    scale = float(ref.abs().max())
+    err_rounded = float((rounded - ref).abs().max())
+    check(err <= BF16_REL * scale, f"bf16 band: max error {err} beyond {BF16_REL} of the "
+          f"largest entry {scale}")
+    check(err_rounded > 10 * err, f"bf16 band: the bf16-rounded vector's error "
+          f"{err_rounded} is not 10x the kernel's {err}")
+    # the library call takes one type: the window stack rounded to bf16
+    xst = window_stack(xp2.to(torch.bfloat16), R, m_pad)
+    bytes_ = Cb.numel() * 2 + xp2.numel() * 4 + R * B * 4
+    bound, by = _bound(2 * Cb.numel(), bytes_)
+    rec = dict(
+        err=err, bound_ms=bound, bound_by=by,
+        ms=time_ms(lambda: banded_matvec(Cb, xp2), reps=10),
+        plain_ms=time_ms(lambda: banded_matvec_plain(Cb, xp2), reps=2, rounds=3),
+        library_ms=time_ms(lambda: torch.einsum("rkbj,rkj->rb", Cb, xst), reps=5, rounds=3),
+        shape=f"C4 [{R}, {m_pad}, {B}, {B}] bf16, f32 vector, {bytes_ / 2**30:.2f} GiB")
+    log(f"banded_matvec {rec['shape']}: {rec['ms']:.4f} ms (bound {bound:.4f} ms by {by}), "
+        f"plain {rec['plain_ms']:.4f} ms, torch.einsum on the bf16 window stack "
+        f"{rec['library_ms']:.4f} ms, max err {err:.3e} = {err / scale:.3e} of the largest "
+        f"entry (bound {BF16_REL}; the bf16-rounded vector {err_rounded / scale:.3e})")
+    record = {
+        "name": "banded_matvec_bf16", "route": "cuda",
+        "source": "devicekmc_tpu_torch/csrc/banded.cu",
+        "replaces": "devicekmc_tpu/ops/banded_pallas.py:74",
+        "launches": launches["banded_matvec"], "max_abs_err": err,
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound, "bound_by": by,
+        "library_ms": rec["library_ms"], "shape": rec["shape"],
+        "path": "transport with transport_bf16_inner (cold solves + "
+                f"{BF16_STEPS} supersteps)",
+        "cg_iters_power": [int(s["cg_iters_power"]) for s in steps],
+        "cg_iters_power_f32_inner": [int(s["cg_iters_power"]) for s in f32_steps[:BF16_STEPS]],
+        "cold_cg_iters": [p["cg_iters"] for p in sim.presolve_log],
+        "current_uA": [s["Current [uA]"] for s in steps],
+        "current_uA_f32_inner": [s["Current [uA]"] for s in f32_steps[:BF16_STEPS]],
+    }
+    return record, launches
+
+
 def main():
     import torch
 
@@ -1890,6 +2294,7 @@ def main():
     small_device_check(os.path.join(out_root, "small_heat_dense"), heat="global-dense")
     small_device_check(os.path.join(out_root, "small_heat_local"), Vd=10.0,
                        heat="local-dense")
+    small_bf16_check(out_root)
     sim = small_device("cuda", os.path.join(out_root, "small_events"), precision="f64",
                        poisson_kernel="jnp")
     sim.run_bias_point(2.5, 1e30, max_steps=2)
@@ -1908,6 +2313,18 @@ def main():
     heat_launches, pdisp = heat_path(out_root)
     torch.cuda.empty_cache()
     readbacks_ref = cg_reference_run(out_root, (presolve, steps))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    small_modular_check(out_root)
+    modular_launches = modular_path(out_root, run[0])
+    torch.cuda.empty_cache()
+    small_resume_checks(out_root)
+    crossbar_resume_checks(out_root)
+    torch.cuda.empty_cache()
+    bf16_record, bf16_launches = bf16_transport_path(out_root, steps)
+    torch.cuda.empty_cache()
+    log(f"modular, checkpoint and bf16 phases in {time.perf_counter() - t0:.1f} s")
     pdisp.update(launches_transport_path=transport_launches["wkb_fly_pdisp"],
                  launches_heat_path=pdisp["launches"])
     for k in kernels:
@@ -1915,6 +2332,12 @@ def main():
         k["launches_heat_path"] = heat_launches[k["name"]]
     # table order: the dissipation kernel stands before the window block
     kernels.insert(len(kernels) - 1, pdisp)
+    for k in kernels + [event_record]:
+        k["launches_bf16_transport_path"] = bf16_launches[k["name"]]
+        if k["name"] in modular_launches:
+            k["launches_modular_path"] = modular_launches[k["name"]]
+    # the bf16 band stands beside the f32 one
+    kernels.insert([k["name"] for k in kernels].index("banded_matvec") + 1, bf16_record)
 
     logs = time_log_check(u32 + draws_crossbar, u64 + draws_small)
     log("log of the time draw, kernel (CUDA's log) against the plain version (numpy's f64 "

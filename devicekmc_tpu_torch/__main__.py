@@ -1,15 +1,22 @@
 """Command-line entry point: the equivalent of the reference's
-``./bin/runKMC parameters.txt`` (src/kmc_main.cpp:26) for the ported module
-set: charge, boundary potential, gridless Poisson, KMC events, with
-``solve_current = 1`` the charge transport (``transport = blocked`` or
-``dense``) and with ``solve_heating_global = 1`` or ``solve_heating_local =
-1`` (``heat_solver = dense`` or ``cg``) the dissipated power and the
-temperature; ``batch_steps > 1`` runs the supersteps in batches.
-``transport_bf16_inner = 1`` raises NotImplementedError.
+``./bin/runKMC parameters.txt`` (src/kmc_main.cpp:26): charge, boundary
+potential, gridless Poisson, KMC events, with ``solve_current = 1`` the
+charge transport (``transport = blocked`` or ``dense``,
+``transport_bf16_inner = 1`` for the bf16 inner operator, which at crossbar
+width needs ``transport_tol`` of 1e-6 or looser) and with
+``solve_heating_global = 1`` or ``solve_heating_local = 1`` (``heat_solver =
+dense`` or ``cg``) the dissipated power and the temperature; ``batch_steps >
+1`` runs the supersteps in batches.
 
     python -m devicekmc_tpu_torch parameters.txt [--cpu] [--max-steps N]
+        [--modular] [--resume ck.npz] [--checkpoint ck.npz]
 
-Runs on the CUDA card unless ``--cpu`` is given.
+``--modular`` runs the superstep phase by phase with the reference's
+per-module timing keys (and, with ``solver_chunk_iters > 0``, the
+in-superstep re-solves in bounded segments); ``--resume`` loads a full-state
+checkpoint (of this package or of the JAX package) before the run and
+``--checkpoint`` writes one after it (npz).  Runs on the CUDA card unless
+``--cpu`` is given.
 """
 
 import argparse
@@ -25,6 +32,14 @@ def main(argv=None):
     ap.add_argument("--max-steps", type=int, default=None,
                     help="cap KMC supersteps per bias point")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--modular", action="store_true",
+                    help="per-phase timing (reference-style module timers)")
+    ap.add_argument("--checkpoint", default="",
+                    help="write a full-state checkpoint here at the end")
+    ap.add_argument("--checkpoint-backend", default=None, choices=["npz"],
+                    help="checkpoint format (npz, the only one)")
+    ap.add_argument("--resume", default="",
+                    help="load a full-state checkpoint before running")
     args = ap.parse_args(argv)
 
     import torch
@@ -38,7 +53,7 @@ def main(argv=None):
     print(f"Device: {device} ({name})")
     print("Constructing device...")
     try:
-        sim = Simulation(cfg, device=device)
+        sim = Simulation(cfg, device=device, fused=not args.modular)
     except FileNotFoundError as e:
         print(e)
         return 1
@@ -47,7 +62,11 @@ def main(argv=None):
         f"{sim.geom.N_atom} atoms and "
         f"{sim.geom.N - sim.geom.N_atom} interstitials"
     )
+    if args.resume:
+        sim.load_checkpoint(args.resume)
     sim.run(max_steps_per_bias=args.max_steps)
+    if args.checkpoint:
+        sim.save_checkpoint(args.checkpoint, backend=args.checkpoint_backend)
     print(f"Done. Output in {sim.output_path}")
     return 0
 

@@ -178,8 +178,11 @@ class KMCConfig:
     poisson_kernel: str = "jnp"            # compacted-Poisson pair sweep: "jnp" (exact
                                            # erfc, plain torch) | "pallas" (A&S erfc,
                                            # the hand-written CUDA kernel on the card)
-    transport_bf16_inner: bool = False     # bf16 twins in the inner solver (not ported
-                                           # yet: True raises NotImplementedError)
+    transport_bf16_inner: bool = False     # mixed mode: bf16 twins of the stored tunnel
+                                           # blocks and a bf16 band in the f32 inner
+                                           # iterations, transport_tol tightened by 1e-2
+                                           # (at crossbar width set transport_tol >= 1e-6:
+                                           # 1e-10 after the tightening does not converge)
     transport_skip_unchanged: bool = True  # exact skip of the in-superstep transport solve
                                            # when (element, charge) at atom sites and Vd are
                                            # unchanged since the last converged solve

@@ -8,7 +8,10 @@
 //
 // C4 [R, m_pad, B, B] holds the neighbour conductances of x-sorted atoms as
 // zero-padded band blocks, stored f32 or bf16; xp2 [R + m_pad - 1, B] is the
-// padded, permuted vector in the same type; the sum is taken in f32.
+// padded, permuted vector, f32 or in C4's type; the sum is taken in f32.
+// transport_bf16_inner takes a bf16 C4 with an f32 vector: rounding the
+// vector too would make the inner operator nonlinear noise of 2^-9 of the
+// metal rows' 1e5 conductances, and its CG stall.
 //
 // Bound on this card: bytes.  C4 is read once (about 2 GB at crossbar width)
 // against 2 operations per element; x and y are a few hundred KB.
@@ -47,18 +50,18 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // B is a multiple of 128: a lane owns elements j = 128*c + 4*lane .. +3
-template <typename T>
+template <typename TC, typename TX>
 __global__ void __launch_bounds__(kWarps * 32)
-banded_matvec_kernel(const T* __restrict__ C4, const T* __restrict__ xp2, int m_pad,
+banded_matvec_kernel(const TC* __restrict__ C4, const TX* __restrict__ xp2, int m_pad,
                      int B, float* __restrict__ y) {
   extern __shared__ __align__(16) float xs[];  // [m_pad * B]
   const int r = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t win = (int64_t)m_pad * B;
-  const T* xw = xp2 + (int64_t)r * B;
+  const TX* xw = xp2 + (int64_t)r * B;
   for (int64_t e = tid; e < win; e += blockDim.x) xs[e] = to_float(xw[e]);
   __syncthreads();
-  const T* Cr = C4 + (int64_t)r * m_pad * B * B;
+  const TC* Cr = C4 + (int64_t)r * m_pad * B * B;
   for (int b = warp; b < B; b += kWarps) {
     float acc = 0.f;
     for (int c = 0; c < B; c += 128) {
@@ -80,31 +83,36 @@ banded_matvec_kernel(const T* __restrict__ C4, const T* __restrict__ xp2, int m_
   }
 }
 
-template <typename T>
+template <typename TC, typename TX>
 int launch(const void* C4, const void* xp2, int R, int m_pad, int B, void* y,
            cudaStream_t st) {
   const size_t smem = (size_t)m_pad * B * sizeof(float);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(banded_matvec_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(banded_matvec_kernel<TC, TX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  banded_matvec_kernel<T><<<R, kWarps * 32, smem, st>>>(
-      static_cast<const T*>(C4), static_cast<const T*>(xp2), m_pad, B,
+  banded_matvec_kernel<TC, TX><<<R, kWarps * 32, smem, st>>>(
+      static_cast<const TC*>(C4), static_cast<const TX*>(xp2), m_pad, B,
       static_cast<float*>(y));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// y [R, B] f32.  is_bf16: storage type of C4 and xp2.  B % 128 == 0.
-// Returns the cudaError_t of the launch (0 on success).
+// y [R, B] f32.  c_bf16, x_bf16: storage types of C4 and xp2 (f32 C4 with
+// a bf16 xp2 is refused).  B % 128 == 0.  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int dkmc_banded_matvec(const void* C4, const void* xp2, int R, int m_pad,
-                                  int B, int is_bf16, void* y, void* stream) {
+                                  int B, int c_bf16, int x_bf16, void* y, void* stream) {
   if (R <= 0 || m_pad <= 0 || B <= 0 || B % 128 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(C4, xp2, R, m_pad, B, y, st)
-                 : launch<float>(C4, xp2, R, m_pad, B, y, st);
+  if (!c_bf16) {
+    return x_bf16 ? (int)cudaErrorInvalidValue
+                  : launch<float, float>(C4, xp2, R, m_pad, B, y, st);
+  }
+  return x_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(C4, xp2, R, m_pad, B, y, st)
+                : launch<__nv_bfloat16, float>(C4, xp2, R, m_pad, B, y, st);
 }

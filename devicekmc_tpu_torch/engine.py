@@ -10,6 +10,15 @@ then supersteps run until the KMC clock passes t_switch[i] or the
 compliance current trips.  Output goes to ``output.txt`` with the
 reference's keys and to xyz snapshots in ``Results_<Vd>/``, as
 ``devicekmc_tpu.engine`` writes them.
+
+Two superstep forms: ``fused=True`` runs ``superstep.superstep_impl`` whole;
+``fused=False`` runs it phase by phase with a device synchronization between
+phases and logs the reference's per-module times (``Z - calculation time -
+<phase> [s]``, src/kmc_main.cpp:272-277), and with ``solver_chunk_iters > 0``
+runs the in-superstep boundary and transport re-solves and the local cg heat
+model in bounded segments.  A full-state npz checkpoint
+(:meth:`Simulation.save_checkpoint`) resumes a run bit for bit, also in the
+middle of a bias point; the JAX package reads and writes the same file.
 """
 
 from __future__ import annotations
@@ -22,15 +31,19 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import rng
 from .config import KMCConfig
 from .device import resolve_device
-from .physics import charge as charge_mod
 from .physics import current as current_mod
 from .physics import heat as heat_mod
-from .physics import potential as potential_mod
-from .state import attach_tunnel_state, build_params, build_simulation, replace
+from .state import attach_tunnel_state, build_simulation, replace
 from .structure import Element, write_xyz
-from .superstep import check_ported, multi_superstep_impl, superstep_impl
+from .superstep import (  # noqa: F401  (the JAX package's engine names)
+    HEAT_SUBSTEPS_PER_DISPATCH, _phase_boundary, _phase_cb_edge, _phase_charge,
+    _phase_events, _phase_heat, _phase_heat_finish, _phase_heat_steady,
+    _phase_heat_window, _phase_poisson, _phase_power, _phase_power_chunk,
+    _phase_transport_cache, chunked_boundary_resolve, multi_superstep_impl,
+    run_heat_phase_chunked, segments, superstep_impl)
 
 
 #: metrics kept in ``step_log`` but not written to output.txt, whose keys are
@@ -38,9 +51,85 @@ from .superstep import check_ported, multi_superstep_impl, superstep_impl
 _UNLOGGED = {"boundary_converged", "transport_partial_assembly"}
 
 
+def make_superstep(geom, params, heat):
+    """The superstep as one call (``superstep.superstep_impl``).  Returns
+    ``superstep(state, Vd, cc=None) -> (state, step_time, metrics)``."""
+
+    def superstep(state, Vd, cc=None):
+        return superstep_impl(geom, params, state, Vd, cc=cc, heat=heat)
+
+    return superstep
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def make_modular_superstep(geom, params, heat, chunk_iters: int = 0):
+    """``superstep_impl`` with the device synchronized after each phase and
+    the reference's per-module timing keys (src/kmc_main.cpp:272-277):
+    ``Z - calculation time - <phase> [s]`` for charge, potential from
+    boundaries, potential from charges, kmc events, dissipated power and
+    temperature.  Without chunks the result is the fused superstep's, bit
+    for bit.
+
+    ``chunk_iters > 0`` runs the in-superstep boundary and transport
+    re-solves as restarted CG in segments of ``chunk_iters`` iterations,
+    each warm-started from the last, and the local cg heat model in segments
+    of HEAT_SUBSTEPS_PER_DISPATCH substeps (run_heat_phase_chunked), so that
+    no single call runs long.  Every segment loop ends on the solver's own
+    ``converged`` flag; the transport segments keep the unchanged-network
+    skip and transport_warm_precond, and the last transport call's
+    ``transport_converged`` is logged (a warning when 0).  Converged results
+    equal the unchunked ones to the solver tolerance."""
+    dev = geom.device
+
+    def superstep(state, Vd, cc=None):
+        times: Dict = {}
+
+        def timed(key, fn, *a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            _sync(dev)
+            times[f"Z - calculation time - {key} [s]"] = time.perf_counter() - t0
+            return out
+
+        _sync(dev)
+        state, step_time, metrics = superstep_impl(
+            geom, params, state, Vd, cc=cc, heat=heat, chunk_iters=chunk_iters,
+            phase=timed)
+        metrics.update(times)
+        return state, step_time, metrics
+
+    return superstep
+
+
+# ----------------------------------------------------------------------------
+# driver
+# ----------------------------------------------------------------------------
+
 class Simulation:
     """End-to-end KMC simulation of the ported module set on one device
-    (default the CUDA card; ``device="cpu"`` runs the plain versions)."""
+    (default the CUDA card; ``device="cpu"`` runs the plain versions).
+    ``fused=False`` selects the modular superstep (make_modular_superstep,
+    with ``cfg.solver_chunk_iters`` as its segment length); ``batch_steps >
+    1`` then runs per step, as in the JAX package."""
+
+    #: the checkpoint's state fields and grown caps, under the JAX package's
+    #: names (devicekmc_tpu/engine.py), so that both read one npz
+    _CKPT_STATE_FIELDS = (
+        "element", "charge", "potential_boundary",
+        "potential_charge", "CB_edge", "power", "temperature",
+        "T_bg", "key", "kmc_time", "I_macro", "P_tot",
+        "virtual_potentials", "step_count", "cvac_prev", "Vd_prev",
+        "boundary_r", "boundary_b",
+        "trans_elem_prev", "trans_charge_prev", "transport_Vd_prev",
+    )
+    _CKPT_CAP_FIELDS = (
+        "active_rows_cap", "tunnel_vac_cap", "poisson_compact_cap",
+        "tunnel_int_steps",
+    )
 
     def __init__(
         self,
@@ -49,15 +138,21 @@ class Simulation:
         coords: Optional[np.ndarray] = None,
         neigh_idx=None,
         device="cuda",
+        fused: bool = True,
     ):
-        check_ported(build_params(cfg))
         self.cfg = cfg
+        self.fused = fused
+        if fused:
+            self._make = make_superstep
+        else:
+            self._make = lambda g, p, h: make_modular_superstep(
+                g, p, h, chunk_iters=cfg.solver_chunk_iters)
+        self._step_params = self._step = None
         self.device = resolve_device(device)
         self.geom, self.params, self.state = build_simulation(
             cfg, elements=elements, coords=coords, neigh_idx=neigh_idx,
             device=self.device,
         )
-        check_ported(self.params)
         if cfg.solve_heating_local:
             # the reference's contact-span rule; crossbars with interior metal
             # build their model with symmetric spans (heat.build_heat_model)
@@ -85,6 +180,12 @@ class Simulation:
         #: one dict per bias-start cold solve: phase ("cb_edge", "boundary",
         #: "transport"), CG iterations, seconds
         self.presolve_log: List[Dict] = []
+        #: driver position for checkpoint and resume: (bias index, step
+        #: within that bias point)
+        self._pos = (0, 0)
+        #: the JAX state's step_count, which nothing advances: carried
+        #: through a checkpoint as read
+        self._step_count = 0
 
     def _init_transport(self):
         """Resolve the transport options that depend on the structure: the
@@ -116,8 +217,12 @@ class Simulation:
                     "uses the ELL neighbour product", RuntimeWarning, stacklevel=2)
 
     def _superstep(self, state, Vd):
-        return superstep_impl(self.geom, self.params, state, Vd, cc=self._cc,
-                              heat=self.heat)
+        if self._step_params is not self.params:
+            # built once, and again when the params change (a cap grew, a
+            # checkpoint restored its caps)
+            self._step_params = self.params
+            self._step = self._make(self.geom, self.params, self.heat)
+        return self._step(state, Vd, self._cc)
 
     def _msuperstep(self, state, Vd, Icc_A, t_end, limit):
         return multi_superstep_impl(self.geom, self.params, state, Vd, Icc_A, t_end,
@@ -132,8 +237,7 @@ class Simulation:
                 if k != "active"}
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        _sync(self.device)
 
     # -- compaction buckets ---------------------------------------------
     def _elements_np(self) -> np.ndarray:
@@ -306,37 +410,21 @@ class Simulation:
         return prev_state, step_time, metrics
 
     # -- bias-start cold solves -------------------------------------------
-    # Restarted CG in segments of ``chunk`` iterations, each warm-started
-    # from the last partial solution.  Every loop ends on the solver's own
-    # ``converged`` flag, never on the iteration count: a segment can
-    # converge in exactly ``chunk`` iterations, and the mixed-precision solver
-    # can leave unconverged with fewer than ``chunk``.
+    # Restarted CG in segments of ``chunk`` iterations (superstep.segments).
     def _chunked_cb_edge(self, Vd: float, chunk: int, base_params=None) -> int:
         pchunk = replace(base_params or self.params, solver_maxiter=chunk)
-        total = 0
-        for _ in range(1000):
-            self.state, m = potential_mod.solve_cb_edge(
-                self.geom, pchunk, self.state, Vd)
-            total += int(m["cg_iters_cb_edge"])
-            if m["cb_edge_converged"]:
-                return total
-        raise RuntimeError("chunked CB-edge solve failed to converge")
+        self.state, _, total = segments(
+            lambda st: _phase_cb_edge(self.geom, pchunk, st, Vd), self.state,
+            "cg_iters_cb_edge", "cb_edge_converged", "CB-edge solve")
+        return total
 
     def _chunked_boundary(self, Vd: float, chunk: int, base_params=None) -> int:
         """Charge rule, then the boundary network; returns the total
         iterations."""
-        pchunk = replace(base_params or self.params, solver_maxiter=chunk)
-        self.state, _ = charge_mod.update_charge(self.geom, self.params, self.state)
-        total = 0
-        for _ in range(1000):
-            self.state, m = potential_mod.solve_boundary_potential(
-                self.geom, pchunk, self.state, Vd)
-            total += int(m["cg_iters_boundary"])
-            if m["boundary_converged"]:
-                return total
-            # defeat the exact skip for the next segment
-            self.state = replace(self.state, Vd_prev=float("nan"))
-        raise RuntimeError("chunked boundary solve failed to converge")
+        self.state, _ = _phase_charge(self.geom, self.params, self.state)
+        self.state, m = chunked_boundary_resolve(self.geom, base_params or self.params,
+                                                 self.state, Vd, chunk)
+        return int(m["cg_iters_boundary"])
 
     def _chunked_transport(self, Vd: float, chunk: int) -> int:
         """Pre-solve the transport network cold (``transport_precond``).
@@ -344,16 +432,15 @@ class Simulation:
         heating on, the power the solve extracts) stays untouched, so the
         first superstep's IR drop and trajectory are those of an unchunked
         run, and its own transport solve starts converged."""
-        total = 0
-        for _ in range(1000):
-            st, m = current_mod.update_power(
-                self.geom, self.params, self.state, Vd, cc=self._cc,
-                cg_maxiter=chunk)
-            self.state = replace(self.state, virtual_potentials=st.virtual_potentials)
-            total += int(m["cg_iters_power"])
-            if m["transport_converged"]:
-                return total
-        raise RuntimeError("chunked transport solve failed to converge")
+
+        def step(st):
+            new, m = _phase_power_chunk(self.geom, self.params, st, Vd, cc=self._cc,
+                                        cg_maxiter=chunk)
+            return replace(st, virtual_potentials=new.virtual_potentials), m
+
+        self.state, _, total = segments(step, self.state, "cg_iters_power",
+                                        "transport_converged", "transport solve")
+        return total
 
     def _presolve(self, phase: str, Vd: float, fn) -> float:
         t0 = time.perf_counter()
@@ -417,57 +504,160 @@ class Simulation:
             self._log(f"{k}: {result[k]:.10g}\n")
         return result
 
+    # -- checkpointing (full state, beyond the reference's xyz restart) ----
+    def _checkpoint_payload(self) -> Dict:
+        """The npz payload, laid out as the JAX package writes it: per-site
+        fields as arrays, the host scalars as 0-d f64 arrays, the key as
+        uint32[2], the caps as ``cap_<name>``, the driver position."""
+        st = self.state
+        p = {}
+        for f in self._CKPT_STATE_FIELDS:
+            if f == "step_count":
+                p[f] = np.asarray(self._step_count, dtype=np.int32)
+            elif f == "key":
+                p[f] = np.asarray(st.key, dtype=np.uint32)
+            else:
+                v = getattr(st, f)
+                p[f] = v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v, np.float64)
+        for f in self._CKPT_CAP_FIELDS:
+            p[f"cap_{f}"] = np.asarray(getattr(self.params, f))
+        p["pos_bias_index"] = np.asarray(self._pos[0])
+        p["pos_bias_step"] = np.asarray(self._pos[1])
+        return p
+
+    def _restore_payload(self, data: Dict):
+        kw, caps = {}, {}
+        for f, arr in data.items():
+            if f.startswith("cap_"):
+                caps[f[4:]] = int(arr)
+            elif f == "pos_bias_index":
+                self._pos = (int(arr), self._pos[1])
+            elif f == "pos_bias_step":
+                self._pos = (self._pos[0], int(arr))
+            elif f == "step_count":
+                self._step_count = int(arr)
+            elif f == "key":
+                kw[f] = rng.key_from_array(arr)
+            else:
+                cur = getattr(self.state, f)
+                if not torch.is_tensor(cur):
+                    kw[f] = float(arr)
+                    continue
+                a = np.asarray(arr)
+                if a.shape != tuple(cur.shape):
+                    # e.g. a JAX geometry padded past N (pad_to > 1)
+                    raise ValueError(
+                        f"checkpoint field {f!r} has shape {a.shape}, this "
+                        f"simulation's is {tuple(cur.shape)}: not a checkpoint of "
+                        "this structure (padded geometries are not supported)")
+                kw[f] = torch.as_tensor(a, device=self.device).to(cur.dtype)
+        if "boundary_r" not in data and "Vd_prev" in kw:
+            # a payload without the residual anchor: force a full boundary
+            # solve (a stale zero residual must never certify a skip)
+            kw["Vd_prev"] = float("nan")
+        self.state = replace(self.state, **kw)
+        if caps:
+            self.params = replace(self.params, **caps)
+        # the persistent tunnel rows are not checkpointed: a fresh, invalid
+        # store sized for the restored caps makes the next solve rebuild
+        # every row (bit-equal to the incremental rows)
+        self.state = attach_tunnel_state(self.state, self.geom, self.params)
+
+    @staticmethod
+    def _check_backend(path: str, backend: Optional[str]):
+        """npz only: the JAX package's default for a path that is not *.npz,
+        orbax, raises here, as do its orbax backends."""
+        if backend is None:
+            backend = "npz" if path.endswith(".npz") else "orbax"
+        if backend in ("orbax", "orbax_async"):
+            raise ValueError(
+                f"checkpoint backend {backend!r} is not available in this "
+                "package: it writes and reads npz only (a path ending in .npz, "
+                "or backend='npz')")
+        if backend != "npz":
+            raise ValueError(f"unknown checkpoint backend {backend!r}")
+
+    def save_checkpoint(self, path: str, backend: Optional[str] = None):
+        """Full-state checkpoint: the state fields, the grown caps and the
+        driver position (bias index, step), enough for a bit-exact resume
+        also in the middle of a bias point.  npz only (``backend`` "npz",
+        the default for a ``*.npz`` path; an orbax backend raises)."""
+        self._check_backend(path, backend)
+        np.savez(path, **self._checkpoint_payload())
+
+    def load_checkpoint(self, path: str, backend: Optional[str] = None):
+        """Restore a checkpoint of this package or of the JAX package."""
+        self._check_backend(path, backend)
+        with np.load(path) as data:
+            self._restore_payload({f: data[f] for f in data.files})
+
+    def wait_for_checkpoint(self):
+        """Nothing to wait for: every save is written before it returns."""
+
     # -- main loop -------------------------------------------------------
     def run(self, max_steps_per_bias: Optional[int] = None) -> None:
+        """Every bias point from the driver position on (a loaded checkpoint
+        resumes where it was taken)."""
         cfg = self.cfg
-        if os.path.exists(self.output_path):
+        resume_bias, resume_step = self._pos
+        if resume_bias == 0 and resume_step == 0 and os.path.exists(self.output_path):
             os.remove(self.output_path)
-        for vt in range(len(cfg.V_switch)):
+        for vt in range(resume_bias, len(cfg.V_switch)):
+            self._pos = (vt, resume_step if vt == resume_bias else 0)
             summary = self.run_bias_point(
                 float(cfg.V_switch[vt]), float(cfg.t_switch[vt]),
-                max_steps=max_steps_per_bias,
+                max_steps=max_steps_per_bias, resume_step=self._pos[1],
             )
             if not summary.get("completed", True):
+                # stopped by max_steps: the position stays inside the bias
+                # point, so that a checkpoint taken now resumes here
                 break
+            self._pos = (vt + 1, 0)
         self._flush()
 
     def run_bias_point(self, Vd: float, t_end: float,
-                       max_steps: Optional[int] = None) -> Dict:
+                       max_steps: Optional[int] = None, resume_step: int = 0) -> Dict:
+        """One bias point.  ``resume_step > 0`` resumes it from a checkpoint
+        taken at that step: the cold solves are skipped (the saved CB edge is
+        the bias-start solution; recomputing it from the mid-bias elements
+        would leave the uninterrupted run), the transport cache is rebuilt
+        from it, the saved unchanged-network record of the transport solve
+        is kept, and the KMC clock continues."""
         cfg, params = self.cfg, self.params
         self._log("--------------------------------\n")
         self._log(f"Applied Voltage = {Vd:g} V\n")
         self._log("--------------------------------\n")
 
         chunk = cfg.solver_chunk_iters
+        cold = resume_step == 0
         # cold bias-start solves run deflated; the in-superstep re-solves
         # keep cfg.boundary_precond
         cold_params = replace(self.params, boundary_precond="deflated")
         if params.solve_current:
-            # no unchanged-network skip and no stored tunnel rows across the
-            # bias boundary: the CB edge is solved anew, and it enters every
-            # tunnel entry
-            self.state = replace(self.state, transport_Vd_prev=float("nan"),
-                                 tt_valid=False)
+            # no stored tunnel rows across a bias boundary or a restore, and
+            # at a bias start no unchanged-network skip either: the CB edge is
+            # solved anew, and it enters every tunnel entry
+            self.state = replace(self.state, tt_valid=False)
+            if cold:
+                self.state = replace(self.state, transport_Vd_prev=float("nan"))
 
-            def cb_edge():
-                if chunk > 0:
-                    return self._chunked_cb_edge(Vd, chunk, cold_params)
-                self.state, m = potential_mod.solve_cb_edge(
-                    self.geom, cold_params, self.state, Vd)
-                return int(m["cg_iters_cb_edge"])
+                def cb_edge():
+                    if chunk > 0:
+                        return self._chunked_cb_edge(Vd, chunk, cold_params)
+                    self.state, m = _phase_cb_edge(self.geom, cold_params, self.state, Vd)
+                    return int(m["cg_iters_cb_edge"])
 
-            dt = self._presolve("cb_edge", Vd, cb_edge)
-            self._log(f"Z - calculation time - CB edge [s]: {dt:.6g}\n")
+                dt = self._presolve("cb_edge", Vd, cb_edge)
+                self._log(f"Z - calculation time - CB edge [s]: {dt:.6g}\n")
             if params.transport == "blocked":
-                cache = current_mod.assemble_transport_cache(
-                    self.geom, self.params, self.state)
+                cache = _phase_transport_cache(self.geom, self.params, self.state)
                 if self._band is not None:
                     cache["band"] = self._band
                 self._cc = cache
-        if params.solve_potential:
+        if params.solve_potential and cold:
             self._presolve("boundary", Vd, lambda: self._chunked_boundary(
                 Vd, chunk if chunk > 0 else self.params.solver_maxiter, cold_params))
-        if params.solve_current and chunk > 0:
+        if params.solve_current and chunk > 0 and cold:
             self._presolve("transport", Vd,
                            lambda: self._chunked_transport(Vd, chunk))
 
@@ -475,14 +665,16 @@ class Simulation:
         os.makedirs(folder, exist_ok=True)
         self._log(f"Created folder: {folder}\n")
 
-        self.state = replace(self.state, kmc_time=0.0)
+        if cold:
+            self.state = replace(self.state, kmc_time=0.0)
         I_macro = self.state.I_macro
-        step_count = 0
-        kmc_time = 0.0
+        step_count = resume_step
+        kmc_time = self.state.kmc_time
         summary: Dict = {}
 
-        if cfg.batch_steps > 1:
-            return self._run_bias_point_batched(Vd, t_end, folder, max_steps)
+        if cfg.batch_steps > 1 and self.fused:
+            return self._run_bias_point_batched(Vd, t_end, folder, max_steps,
+                                                resume_step)
 
         while kmc_time < t_end:
             t_start = time.perf_counter()
@@ -512,6 +704,7 @@ class Simulation:
             if step_count % cfg.output_freq == 0:
                 self._flush()
             step_count += 1
+            self._pos = (self._pos[0], step_count)
 
             if I_macro > cfg.Icc * 1e-6:
                 self._log("I_macro > Icc, compliance current reached.\n")
@@ -528,7 +721,8 @@ class Simulation:
         return summary
 
     def _run_bias_point_batched(self, Vd: float, t_end: float, folder: str,
-                                max_steps: Optional[int] = None) -> Dict:
+                                max_steps: Optional[int] = None,
+                                resume_step: int = 0) -> Dict:
         """The main loop with ``batch_steps`` supersteps a batch
         (``superstep.multi_superstep_impl``), as the JAX package's
         ``Simulation._run_bias_point_batched``
@@ -542,16 +736,16 @@ class Simulation:
         that a snapshot pairs the elements before the events with the
         potentials after them (src/kmc_main.cpp:198-205).  A batch step's
         ``Z - calculation time - KMC superstep [s]`` is the batch's wall time
-        over its steps.  The bias point starts at step 0: checkpoint and
-        resume are not ported, so there is no resume step."""
+        over its steps.  A resumed bias point starts at ``resume_step``, and
+        the snapshot steps stay the multiples of ``log_freq``."""
         cfg = self.cfg
         icc_A = cfg.Icc * 1e-6
-        step_count = 0
+        step_count = resume_step
         summary: Dict = {}
         kmc_time = self.state.kmc_time
         I_macro = self.state.I_macro
         lf = max(cfg.log_freq, 1)
-        next_snap = 0
+        next_snap = -(-resume_step // lf) * lf
 
         while kmc_time < t_end:
             if max_steps is not None and step_count >= max_steps:
@@ -573,6 +767,7 @@ class Simulation:
                 self._log("--------------------------------------\n")
                 step_count += 1
                 next_snap += lf
+                self._pos = (self._pos[0], step_count)
                 self._flush()
                 if I_macro > icc_A:
                     self._log("I_macro > Icc, compliance current reached.\n")
@@ -607,6 +802,7 @@ class Simulation:
                     dt_batch / n_done)
                 self._log("--------------------------------------\n")
                 step_count += 1
+            self._pos = (self._pos[0], step_count)
             self._flush()
             if I_macro > icc_A:
                 self._log("I_macro > Icc, compliance current reached.\n")

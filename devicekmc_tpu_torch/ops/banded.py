@@ -8,8 +8,8 @@ Replaces the TPU kernel ``devicekmc_tpu/ops/banded_pallas.py``
 ``C4`` [R, m_pad, B, B] holds the static neighbour conductances of the
 blocked transport operator as zero-padded band blocks over x-sorted atoms
 (``physics.current.build_banded_nb``), stored f32 or bf16; ``xp2``
-[R + m_pad - 1, B] is the padded, permuted vector in the same type; the sum
-is taken in f32.
+[R + m_pad - 1, B] is the padded, permuted vector, f32 or in C4's type (the
+transport path passes f32 with either band); the sum is taken in f32.
 
 Bound on the card: bytes (``C4`` is read once).  See the kernel source for
 the design.
@@ -55,15 +55,15 @@ def _lib():
     fn = _build.load("banded").dkmc_banded_matvec
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, p, p]
+        fn.argtypes = [p, p, i, i, i, i, i, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def banded_matvec(C4: torch.Tensor, xp2: torch.Tensor) -> torch.Tensor:
-    """y [R, B] f32 from contiguous ``C4`` [R, m_pad, B, B] and ``xp2``
-    [R + m_pad - 1, B] of one storage type (f32 or bf16); B a multiple of
-    128 on the card."""
+    """y [R, B] f32 from contiguous ``C4`` [R, m_pad, B, B] (f32 or bf16)
+    and ``xp2`` [R + m_pad - 1, B] (f32, or C4's type); B a multiple of 128
+    on the card."""
     if C4.device.type == "cpu":
         return banded_matvec_plain(C4, xp2)
     if C4.device.type != "cuda":
@@ -73,10 +73,11 @@ def banded_matvec(C4: torch.Tensor, xp2: torch.Tensor) -> torch.Tensor:
         raise ValueError("banded_matvec: C4 must be a contiguous [R, m_pad, B, B] "
                          "float32 or bfloat16 tensor")
     R, m_pad, B, _ = C4.shape
-    if xp2.dtype != C4.dtype or tuple(xp2.shape) != (R + m_pad - 1, B) \
+    if xp2.dtype not in (C4.dtype, torch.float32) \
+            or tuple(xp2.shape) != (R + m_pad - 1, B) \
             or not xp2.is_contiguous() or xp2.device != C4.device:
         raise ValueError("banded_matvec: xp2 must be a contiguous "
-                         "[R + m_pad - 1, B] tensor of C4's type and device")
+                         "[R + m_pad - 1, B] f32 tensor, or of C4's type, on C4's device")
     if B % 128 != 0:
         raise ValueError("banded_matvec: B must be a multiple of 128")
     if m_pad * B * 4 > 227 * 1024:
@@ -86,7 +87,8 @@ def banded_matvec(C4: torch.Tensor, xp2: torch.Tensor) -> torch.Tensor:
     if R == 0:
         return y
     err = _lib()(C4.data_ptr(), xp2.data_ptr(), R, m_pad, B,
-                 int(C4.dtype == torch.bfloat16), y.data_ptr(),
+                 int(C4.dtype == torch.bfloat16), int(xp2.dtype == torch.bfloat16),
+                 y.data_ptr(),
                  torch.cuda.current_stream(C4.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"banded_matvec kernel launch failed: cudaError {err}")

@@ -118,13 +118,50 @@ def require_ieee_f32(what: str) -> None:
         )
 
 
-def check_transport_ported(params: PhysParams) -> None:
-    """Raise for the transport option whose code is not ported yet."""
-    if params.transport_bf16_inner:
-        raise NotImplementedError(
-            "transport_bf16_inner (bf16 twins of the tunnel blocks and a "
-            "bf16 band in the inner solver) is not ported yet: ROADMAP, queue "
-            "ahead, item 2 (the remaining run modes)")
+def bf16_inner(params: PhysParams) -> bool:
+    """``transport_bf16_inner`` in effect: bf16 twins of the tunnel blocks
+    and a bf16 band for the f32 inner iterations.  Mixed mode only: without
+    the f64 refinement the whole solve would run on the bf16-perturbed
+    operator."""
+    return bool(params.mixed and params.transport_bf16_inner)
+
+
+def twin_matmul_plain(a: torch.Tensor, b: torch.Tensor,
+                      max_bytes: int = 1 << 28) -> torch.Tensor:
+    """The plain version of :func:`twin_matmul`: both operands upcast to f32
+    in row chunks (a bf16 product is exact in f32), so that no f32 copy of a
+    whole block is made."""
+    if a.dim() == 2:
+        step = max(1, max_bytes // max(a.shape[1] * 4, 1))
+        out = torch.empty((a.shape[0],) + tuple(b.shape[1:]), dtype=torch.float32,
+                          device=a.device)
+        bf = b.float()
+        for r0 in range(0, a.shape[0], step):
+            out[r0:r0 + step] = a[r0:r0 + step].float() @ bf
+        return out
+    # a vector times a matrix: chunks of the matrix's rows, summed
+    step = max(1, max_bytes // max(b.shape[1] * 4, 1))
+    out = torch.zeros(b.shape[1:], dtype=torch.float32, device=a.device)
+    for r0 in range(0, b.shape[0], step):
+        out = out + a[r0:r0 + step].float() @ b[r0:r0 + step].float()
+    return out
+
+
+def twin_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 operands (a matrix and a vector on either side,
+    or two matrices) with f32 products and sums and an f32 result: the JAX
+    package's ``jnp.matmul(..., preferred_element_type=float32)``.  A bf16
+    result (``torch.matmul`` of two bf16 tensors) would round the product to
+    8 mantissa bits.  On the card one library call (``aten::mm.dtype``);
+    on CPU tensors the plain version."""
+    if a.device.type == "cpu":
+        return twin_matmul_plain(a, b)
+    a2 = a[None] if a.dim() == 1 else a
+    b2 = b[:, None] if b.dim() == 1 else b
+    y = torch.mm(a2, b2, out_dtype=torch.float32)
+    if a.dim() == 1:
+        return y[0]
+    return y[:, 0] if b.dim() == 1 else y
 
 
 def _cdtype(params: PhysParams) -> torch.dtype:
@@ -507,6 +544,16 @@ def assemble_X_blocks(
         out["band"] = band
         out["band_dyn_vals"] = torch.where(hi_dyn, bump, 0.0)
         out["band_vnb_safe"] = vsafe
+    if bf16_inner(params):
+        # bf16 twins of the tunnel blocks for the f32 inner iterations only;
+        # the f64 refinement keeps the f32 blocks, so the converged answer is
+        # unchanged.  Under transport_cc="fly" the metal block has no stored
+        # form: only the vacancy blocks get twins (and _apply_X_blocks then
+        # reads none of them, as the JAX package does)
+        if not cc_fly:
+            out["T_cc16"] = T_cc.to(torch.bfloat16)
+        out["T_vv16"] = T_vv.to(torch.bfloat16)
+        out["T_vm16"] = T_vm.to(torch.bfloat16)
     return out
 
 
@@ -541,7 +588,15 @@ def _apply_X_blocks(blk, x, wd):
     else:
         ya = (blk["nb_vals"].to(wd) * xa[blk["nb_safe"]]).sum(dim=1)
 
-    T_vv, T_vm = blk["T_vv"], blk["T_vm"]
+    # the f32 inner iterations read the bf16 twins when the metal block has
+    # one (transport_bf16_inner with a stored block: the JAX package's test);
+    # the f64 refinement always reads the f32 blocks
+    if wd == torch.float32 and blk.get("T_cc16") is not None:
+        T_cc, T_vv, T_vm = blk["T_cc16"], blk["T_vv16"], blk["T_vm16"]
+        mm = twin_matmul
+    else:
+        T_cc, T_vv, T_vm = blk["T_cc"], blk["T_vv"], blk["T_vm"]
+        mm = torch.matmul
     cd = T_vv.dtype
     xm = xa[blk["mp"]].to(cd)
     xv = torch.where(blk["v_ok"], xa[blk["vidx"]], 0.0).to(cd)
@@ -549,10 +604,10 @@ def _apply_X_blocks(blk, x, wd):
         f = blk["fly"]
         y_cc = wkb_fly_matvec(f["mpos"], f["mcb"], xm.float().contiguous(), f["env"]).to(wd)
     else:
-        y_cc = torch.matmul(blk["T_cc"], xm).to(wd)
-    y_mv = torch.matmul(xv, T_vm).to(wd)
-    y_vv = torch.matmul(T_vv, xv).to(wd)
-    y_vm = torch.matmul(T_vm, xm).to(wd)
+        y_cc = mm(T_cc, xm).to(wd)
+    y_mv = mm(xv, T_vm).to(wd)
+    y_vv = mm(T_vv, xv).to(wd)
+    y_vm = mm(T_vm, xm).to(wd)
     ya = _place_tunnel(blk, ya, y_cc + y_mv, y_vv + y_vm)
 
     src = blk["src_vals"].to(wd)
@@ -619,7 +674,10 @@ def build_banded_nb(
     atom (r-p+k)*B+j, stored f32, so the matvec needs no gather beyond the
     two [Na] permutation reads.  The k axis is zero-padded to a multiple of
     8 (the JAX package's layout).  The permutation is internal to this
-    operator.
+    operator.  Under ``transport_bf16_inner`` the band is stored bf16: it
+    feeds only the f32 inner matvec (the f64 refinement keeps the exact ELL
+    path), as the tunnel blocks' twins do, with ``row_fix`` [Na] f32, each
+    row's rounding, which the matvec adds back on the diagonal.
 
     Returns None when the banded layout exceeds ``max_bytes`` (extreme
     aspect ratios); callers then keep the ELL gather."""
@@ -644,30 +702,49 @@ def build_banded_nb(
         return None
     metal = geom.metal_mask_table[state.element[ai].long()]
     high_G = params.high_G * 1e5
-    vals = torch.where(
+    vals64 = torch.where(
         metal[rows] & metal[cols],
         torch.tensor(-high_G, dtype=torch.float64, device=dev),
         torch.tensor(-params.low_G, dtype=torch.float64, device=dev),
-    ).to(torch.float32)
+    )
+    vals = vals64.to(torch.float32)
     C4 = torch.zeros((R, m_pad, B, B), dtype=torch.float32, device=dev)
     ri, ci = inv[rows], inv[cols]
     off = ci - (ri // B - p) * B
     C4[ri // B, off // B, ri % B, off % B] = vals
-    return dict(C=C4, front=p * B, pi=pi, inv=inv)
+    band = dict(C=C4, front=p * B, pi=pi, inv=inv)
+    if bf16_inner(params):
+        band["C"] = C4.to(torch.bfloat16)
+        # the rows of the rounded band no longer sum to what the exact f64
+        # diagonal cancels (-1e5 rounds to a bf16 160 away, 18 times in a
+        # metal row): the inner operator would lose the Laplacian's
+        # near-null space and its CG stall (with the vector rounded too, as
+        # the JAX package has it: 16,000 iterations unconverged on a
+        # 5,000-site crossbar).  Each row's rounding is put back on the
+        # diagonal (_banded_nb_matvec), so that the rounded operator stays a
+        # conductance Laplacian whose entries are within bf16 of the exact
+        band["row_fix"] = torch.zeros(Na, dtype=torch.float64, device=dev).index_add_(
+            0, rows, vals64 - vals.to(torch.bfloat16).double()).to(torch.float32)
+    return band
 
 
 def _banded_nb_matvec(band, xa):
     """y = C_static @ x through the banded-matvec kernel's wrapper
     (``ops/banded.py``): the permuted vector is laid into the zero-padded
-    window layout, and the result permuted back."""
+    window layout, and the result permuted back.  The vector stays f32 with
+    a bf16 band too (the JAX package rounds it to bf16, which makes the
+    inner operator nonlinear noise of 2^-9 of the 1e5 metal conductances),
+    and a bf16 band adds its ``row_fix`` diagonal."""
     Cb = band["C"]
     R, m_pad, B, _ = Cb.shape
     Na = band["pi"].shape[0]
-    xp = torch.zeros((R + m_pad - 1) * B, dtype=Cb.dtype, device=Cb.device)
+    xp = torch.zeros((R + m_pad - 1) * B, dtype=torch.float32, device=Cb.device)
     front = band["front"]                  # p*B leading zeros
-    xp[front:front + Na] = xa[band["pi"]].to(Cb.dtype)
-    y = banded_matvec(Cb, xp.reshape(R + m_pad - 1, B))
-    return y.reshape(R * B)[:Na][band["inv"]]
+    xp[front:front + Na] = xa[band["pi"]].float()
+    y = banded_matvec(Cb, xp.reshape(R + m_pad - 1, B)).reshape(R * B)[:Na][band["inv"]]
+    if band.get("row_fix") is not None:
+        y = y + band["row_fix"] * xa
+    return y
 
 
 def _deflation_ops(geom: Geometry, params: PhysParams, blk, d):
@@ -802,7 +879,6 @@ def update_power_blocked(
     be materialised.  ``cc``: the per-bias-point cache dict of
     :func:`assemble_transport_cache` (plus ``band``), or the raw metal
     block."""
-    check_transport_ported(params)
     dtype = params.dtype
     dev = geom.device
     Na = geom.N_atom
@@ -810,6 +886,11 @@ def update_power_blocked(
     nsi = params.num_source_inj
     if cg_tol is None:
         cg_tol = params.transport_tol
+    if bf16_inner(params):
+        # the bf16-perturbed inner operator leaves a larger error that the
+        # criterion does not see at a given outer tolerance: two more digits
+        # (the JAX package's rule)
+        cg_tol = cg_tol * 1e-2
 
     band = None
     if isinstance(cc, dict):
@@ -983,6 +1064,7 @@ def update_power(
     cg_maxiter: int = 20000,
     cc=None,
     allow_skip: bool = False,
+    precond: Optional[str] = None,
 ) -> Tuple[SimState, Dict]:
     """Transport dispatcher.  ``transport="blocked"`` takes the matrix-free
     operator unless ``method="direct"`` asks for the dense direct solve (the
@@ -996,34 +1078,44 @@ def update_power(
     set-up and solve are skipped (never with ``method="direct"``).  The
     superstep path is also the WARM path: its blocked re-solves use
     transport_warm_precond, cold pre-solves (the default, always solve) keep
-    transport_precond."""
+    transport_precond; ``precond`` names the blocked solve's preconditioner
+    outright (the modular driver's bounded warm segments)."""
     if cg_tol is None:
         cg_tol = params.transport_tol
     Vd = float(torch.tensor(Vd, dtype=params.dtype))
     blocked = params.transport == "blocked" and method != "direct"
+    if precond is None and allow_skip:
+        precond = params.transport_warm_precond
 
     def solve(st):
         if blocked:
             return update_power_blocked(
                 geom, params, st, Vd, cg_tol=cg_tol, cg_maxiter=cg_maxiter, cc=cc,
-                precond=params.transport_warm_precond if allow_skip else None,
+                precond=precond,
             )
         return _update_power_dense(geom, params, st, Vd, method, cg_tol, cg_maxiter)
 
     if not (allow_skip and params.transport_skip_unchanged and method != "direct"):
         return solve(state)
 
-    ai = geom.atom_ind.long()
-    elem_a = state.element[ai]
-    chg_a = state.charge[ai]
-    unchanged = (Vd == state.transport_Vd_prev
-                 and torch.equal(elem_a, state.trans_elem_prev)
-                 and torch.equal(chg_a, state.trans_charge_prev))
-    if unchanged:
+    if transport_unchanged(geom, params, state, Vd):
         return state, _reuse_transport_metrics(geom, params, state, Vd, blocked)
     new_state, m = solve(state)
-    return replace(new_state, trans_elem_prev=elem_a, trans_charge_prev=chg_a,
-                   transport_Vd_prev=Vd), m
+    ai = geom.atom_ind.long()
+    return replace(new_state, trans_elem_prev=state.element[ai],
+                   trans_charge_prev=state.charge[ai], transport_Vd_prev=Vd), m
+
+
+def transport_unchanged(geom: Geometry, params: PhysParams, state: SimState,
+                        Vd: float) -> bool:
+    """True when X is the one of the last converged solve: (element, charge)
+    at atom sites and Vd unchanged (the bias-start CB edge is constant within
+    a bias point).  Then that solution IS the solution."""
+    Vd = float(torch.tensor(Vd, dtype=params.dtype))
+    ai = geom.atom_ind.long()
+    return (Vd == state.transport_Vd_prev
+            and torch.equal(state.element[ai], state.trans_elem_prev)
+            and torch.equal(state.charge[ai], state.trans_charge_prev))
 
 
 # ----------------------------------------------------------------------------

@@ -276,13 +276,15 @@ def _p_transfer(params: PhysParams, elem: torch.Tensor) -> torch.Tensor:
     return torch.where(elem == int(Element.VACANCY), p_vac * one, p_non * one)
 
 
-def _n_substeps(params: PhysParams, step_time: float) -> int:
+def n_substeps(params: PhysParams, step_time: float) -> int:
     """floor(step_time / delta_t) + 1, the division in the working dtype."""
     f = _npd(params)
     return int(np.floor(f(step_time) / f(params.delta_t))) + 1
 
 
-def _is_steady(params: PhysParams, step_time: float) -> bool:
+def is_steady(params: PhysParams, step_time: float) -> bool:
+    """The steady-state branch: step_time > 1e3 delta_t, in the working
+    dtype."""
     f = _npd(params)
     return bool(f(step_time) > f(1e3) * f(params.delta_t))
 
@@ -304,13 +306,13 @@ def update_temperature_local(
     P_i = state.power[iidx]
     p_t = _p_transfer(params, state.element[iidx])
 
-    if _is_steady(params, step_time):
+    if is_steady(params, step_time):
         last_local.update(branch="steady", substeps=0, cg_iters=0)
         t_tr = heat.L_ss_inv @ (P_i * p_t)
         temp_i = -t_tr * scale + T0
     else:
         sub_dt = float(f(params.delta_t) * f(params.tau))
-        n_sub = _n_substeps(params, step_time)
+        n_sub = n_substeps(params, step_time)
         last_local.update(branch="transient", substeps=n_sub, cg_iters=0)
         src = P_i * p_t * sub_dt
         temp_i = state.temperature[iidx]
@@ -423,11 +425,11 @@ def update_temperature_local_cg(
     transient substep solves (I - dt*tau*L) T' = rhs with CG (the reference
     precomputes the dense inverse instead, src/heat_solver.cpp:151-191); the
     steady-state branch solves L T = -P*p_t."""
-    if _is_steady(params, step_time):
+    if is_steady(params, step_time):
         last_local.update(branch="steady", substeps=0, cg_iters=0)
         temp = local_cg_steady(geom, params, heat, state, state.temperature, tol, maxiter)
     else:
-        n_sub = _n_substeps(params, step_time)
+        n_sub = n_substeps(params, step_time)
         last_local.update(branch="transient", substeps=n_sub, cg_iters=0)
         temp = local_cg_transient_window(
             geom, params, heat, state, state.temperature, n_sub, tol, maxiter)

@@ -18,59 +18,224 @@ from .physics import potential as potential_mod
 from .state import Geometry, PhysParams, SimState, replace
 
 
-def check_ported(params: PhysParams) -> None:
-    """Raise for the options whose code is not ported yet."""
-    current_mod.check_transport_ported(params)
+# ----------------------------------------------------------------------------
+# phases: the units of the superstep, of the modular driver's timing and of
+# the engine's cold solves (named as the JAX package's engine names them)
+# ----------------------------------------------------------------------------
+
+def _phase_charge(geom, params, state):
+    return charge_mod.update_charge(geom, params, state)
+
+
+def _phase_boundary(geom, params, state, Vd):
+    return potential_mod.solve_boundary_potential(geom, params, state, Vd)
+
+
+def _phase_poisson(geom, params, state):
+    if params.poisson_compact_cap > 0:
+        state, n = potential_mod.poisson_gridless_compact(
+            geom, params, state, cap=params.poisson_compact_cap)
+        return state, {"n_charged_sites": n}
+    # dense sweep: every site is a candidate, so the compaction bucket is the
+    # whole site axis and can never overflow
+    state, _ = potential_mod.poisson_gridless_compact(
+        geom, replace(params, poisson_kernel="jnp"), state, cap=geom.N)
+    return state, {}
+
+
+def _phase_cb_edge(geom, params, state, Vd):
+    return potential_mod.solve_cb_edge(geom, params, state, Vd)
+
+
+def _phase_events(geom, params, state):
+    return events_mod.execute_superstep(geom, params, state)
+
+
+def _phase_power(geom, params, state, Vd, cc=None, cg_maxiter=20000):
+    """The in-superstep transport solve: the exact unchanged-network skip and
+    transport_warm_precond (cold pre-solves call update_power directly and
+    always solve)."""
+    return current_mod.update_power(geom, params, state, Vd, cc=cc,
+                                    cg_maxiter=cg_maxiter, allow_skip=True)
+
+
+def _phase_transport_cache(geom, params, state):
+    return current_mod.assemble_transport_cache(geom, params, state)
+
+
+def _phase_power_chunk(geom, params, state, Vd, cc=None, cg_maxiter=20000,
+                       precond=None):
+    """One bounded transport solve (no skip); ``precond`` None keeps
+    transport_precond (the cold solves)."""
+    return current_mod.update_power(geom, params, state, Vd, cc=cc,
+                                    cg_maxiter=cg_maxiter, precond=precond)
+
+
+def _phase_heat(geom, params, heat, state, step_time):
+    return heat_mod.update_temperature(geom, params, heat, state, step_time)
+
+
+def _phase_heat_window(geom, params, heat, state, temp, n_sub):
+    return heat_mod.local_cg_transient_window(geom, params, heat, state, temp, n_sub)
+
+
+def _phase_heat_steady(geom, params, heat, state, temp):
+    return heat_mod.local_cg_steady(geom, params, heat, state, temp)
+
+
+def _phase_heat_finish(geom, params, state, temp):
+    return heat_mod.finish_local_temperature(geom, params, state, temp)
+
+
+# ----------------------------------------------------------------------------
+# bounded segments (solver_chunk_iters > 0)
+# ----------------------------------------------------------------------------
+
+#: transient local-heat substeps a segment in the chunked modular driver
+HEAT_SUBSTEPS_PER_DISPATCH = 64
+
+
+def segments(step, state, iters_key: str, converged_key: str, what: str):
+    """``step(state) -> (state, metrics)`` repeated, each segment
+    warm-started from the last, until the solver reports convergence: the
+    loop ends on its ``converged_key`` flag, never on the iteration count (a
+    segment can converge in exactly its cap, and the mixed-precision solver
+    can leave unconverged with fewer).  Returns the state, the last
+    segment's metrics and the iterations summed over the segments."""
+    total = 0
+    for _ in range(1000):
+        state, m = step(state)
+        total += int(m[iters_key])
+        if m[converged_key]:
+            return state, m, total
+    raise RuntimeError(f"chunked {what} failed to converge")
+
+
+def chunked_boundary_resolve(geom, params, state, Vd, chunk: int):
+    """The boundary solve in segments of ``chunk`` iterations; the metrics
+    with the iterations summed."""
+    pchunk = replace(params, solver_maxiter=chunk)
+
+    def step(st):
+        st, m = _phase_boundary(geom, pchunk, st, Vd)
+        if not m["boundary_converged"]:
+            # defeat the exact skip for the next segment (it would see an
+            # unchanged network and keep the unconverged field)
+            st = replace(st, Vd_prev=float("nan"))
+        return st, m
+
+    state, m, total = segments(step, state, "cg_iters_boundary", "boundary_converged",
+                               "boundary solve")
+    return state, dict(m, cg_iters_boundary=total)
+
+
+def chunked_power_resolve(geom, params, state, Vd, cc, chunk: int):
+    """The in-superstep transport solve in segments of ``chunk`` iterations:
+    an unchanged network takes the exact skip; otherwise warm segments
+    (transport_warm_precond) commit only the warm start and the persistent
+    tunnel rows until one converges, and a last call from that start does
+    the extraction and records the network for the skip.  Its
+    ``transport_converged`` is the step's; ``cg_iters_power`` sums all
+    segments."""
+    if params.transport_skip_unchanged and current_mod.transport_unchanged(
+            geom, params, state, Vd):
+        return _phase_power(geom, params, state, Vd, cc)
+
+    def step(st):
+        new, m = _phase_power_chunk(geom, params, st, Vd, cc=cc, cg_maxiter=chunk,
+                                    precond=params.transport_warm_precond)
+        rep = {"virtual_potentials": new.virtual_potentials}
+        if params.transport_incremental:
+            rep.update(tt_slot_atom=new.tt_slot_atom, tt_vm=new.tt_vm, tt_vv=new.tt_vv,
+                       tt_valid=new.tt_valid)
+        return replace(st, **rep), m
+
+    state, _, total = segments(step, state, "cg_iters_power", "transport_converged",
+                               "transport re-solve")
+    state, m = _phase_power(geom, params, state, Vd, cc, cg_maxiter=chunk)
+    return state, dict(m, cg_iters_power=total + int(m["cg_iters_power"]))
+
+
+def run_heat_phase_chunked(geom, params, heat, state, step_time):
+    """The local cg heat phase as segments of at most
+    HEAT_SUBSTEPS_PER_DISPATCH transient substeps; the same substeps in the
+    same order as the single call, so the same field.  The global and dense
+    models take the single call.  Returns (state, metrics)."""
+    if not (params.solve_heating_local and not params.solve_heating_global
+            and heat is not None and heat.method == "cg" and heat.n_interface):
+        return _phase_heat(geom, params, heat, state, step_time)
+    temp = state.temperature
+    if heat_mod.is_steady(params, step_time):
+        heat_mod.last_local.update(branch="steady", substeps=0, cg_iters=0)
+        temp = _phase_heat_steady(geom, params, heat, state, temp)
+    else:
+        n_sub = heat_mod.n_substeps(params, step_time)
+        heat_mod.last_local.update(branch="transient", substeps=n_sub, cg_iters=0)
+        W = HEAT_SUBSTEPS_PER_DISPATCH
+        for k0 in range(0, n_sub, W):
+            temp = _phase_heat_window(geom, params, heat, state, temp,
+                                      min(W, n_sub - k0))
+    return _phase_heat_finish(geom, params, state, temp)
+
+
+# ----------------------------------------------------------------------------
+# the superstep
+# ----------------------------------------------------------------------------
+
+def _untimed(key, fn, *args, **kw):
+    return fn(*args, **kw)
 
 
 def superstep_impl(
     geom: Geometry, params: PhysParams, state: SimState, Vd: float, cc=None,
-    heat=None,
+    heat=None, chunk_iters: int = 0, phase=_untimed,
 ) -> Tuple[SimState, float, Dict]:
     """One superstep.  Returns ``(state, step_time, metrics)``; metric
     values are Python numbers or 0-d tensors.  ``cc``: the per-bias-point
     cache of the blocked transport operator
     (``current.assemble_transport_cache``, plus the static band); ``heat``:
     the local heat model (``heat.build_heat_model``), needed only with
-    ``solve_heating_local``."""
-    check_ported(params)
+    ``solve_heating_local``.
+
+    ``phase(key, fn, *args, **kw)`` runs each module under the reference's
+    timing key (charge, potential from boundaries, potential from charges,
+    kmc events, dissipated power, temperature); the default just calls it.
+    ``chunk_iters > 0`` runs the boundary and transport re-solves in segments
+    of that many iterations and the local cg heat model in segments of
+    HEAT_SUBSTEPS_PER_DISPATCH substeps."""
     metrics: Dict = {}
     if params.solve_potential:
-        state, m = charge_mod.update_charge(geom, params, state)
+        state, m = phase("charge", _phase_charge, geom, params, state)
         metrics.update(m)
-        state, m = potential_mod.solve_boundary_potential(geom, params, state, Vd)
-        metrics.update(m)
-        if params.poisson_compact_cap > 0:
-            state, n_charged = potential_mod.poisson_gridless_compact(
-                geom, params, state, cap=params.poisson_compact_cap
-            )
-            metrics["n_charged_sites"] = n_charged
+        if chunk_iters > 0:
+            state, m = phase("potential from boundaries", chunked_boundary_resolve,
+                             geom, params, state, Vd, chunk_iters)
         else:
-            # dense sweep: every site is a candidate, so the compaction
-            # bucket is the whole site axis and can never overflow
-            state, _ = potential_mod.poisson_gridless_compact(
-                geom, replace(params, poisson_kernel="jnp"), state, cap=geom.N
-            )
+            state, m = phase("potential from boundaries", _phase_boundary,
+                             geom, params, state, Vd)
+        metrics.update(m)
+        state, m = phase("potential from charges", _phase_poisson, geom, params, state)
+        metrics.update(m)
 
     step_time = 0.0
     if params.perturb_structure:
-        res = events_mod.execute_superstep(geom, params, state)
+        res = phase("kmc events", _phase_events, geom, params, state)
         state, step_time = res.state, res.step_time
         metrics["n_events"] = res.n_events
         metrics["n_active_rows"] = res.n_active
 
     if params.solve_current:
-        # allow_skip: the exact unchanged-network fast path applies only
-        # here, where events may have left X identical to the last solve;
-        # cold pre-solves call update_power directly and always solve
-        state, m = current_mod.update_power(
-            geom, params, state, Vd, cc=cc, allow_skip=True
-        )
+        if chunk_iters > 0:
+            state, m = phase("dissipated power", chunked_power_resolve,
+                             geom, params, state, Vd, cc, chunk_iters)
+        else:
+            state, m = phase("dissipated power", _phase_power, geom, params, state, Vd, cc)
         metrics.update(m)
         # heat runs on the power of the last transport solve, also after a
         # skipped one (power and P_tot then stay in the state)
         if params.solve_heating_global or params.solve_heating_local:
-            state, m = heat_mod.update_temperature(geom, params, heat, state, step_time)
+            heat_fn = run_heat_phase_chunked if chunk_iters > 0 else _phase_heat
+            state, m = phase("temperature", heat_fn, geom, params, heat, state, step_time)
             metrics.update(m)
     return state, step_time, metrics
 

@@ -82,3 +82,48 @@ def test_cli_runs_on_cpu(tmp_path):
     folder = tmp_path / "out" / "Results_2.500000"
     assert (folder / "snapshot_0.xyz").exists()
     assert (folder / "snapshot_2.xyz").exists()
+
+
+def _cli(path, *args):
+    return subprocess.run(
+        [sys.executable, "-m", "devicekmc_tpu_torch", str(path), "--cpu", *args],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+    )
+
+
+def test_cli_modular_on_cpu(tmp_path):
+    """--modular runs the superstep phase by phase and logs the reference's
+    per-module timing keys at every step."""
+    path, _ = _write_inputs(tmp_path)
+    r = _cli(path, "--max-steps", "2", "--modular")
+    assert r.returncode == 0, r.stderr[-2000:]
+    out = (tmp_path / "out" / "output.txt").read_text()
+    assert out.count("KMC step count:") == 2
+    for key in ("charge", "potential from boundaries", "potential from charges",
+                "kmc events"):
+        assert out.count(f"Z - calculation time - {key} [s]:") == 2, key
+
+
+def test_cli_checkpoint_and_resume_on_cpu(tmp_path):
+    """--checkpoint writes the npz after 2 steps; --resume continues the bias
+    point from step 2 in a new process, appending to output.txt, and ends
+    in the uninterrupted 4-step run's snapshot byte for byte."""
+    path, _ = _write_inputs(tmp_path)
+    text = path.read_text()
+    ck = tmp_path / "ck.npz"
+    r = _cli(path, "--max-steps", "2", "--checkpoint", str(ck))
+    assert r.returncode == 0, r.stderr[-2000:]
+    with np.load(ck) as data:
+        assert int(data["pos_bias_index"]) == 0 and int(data["pos_bias_step"]) == 2
+    r = _cli(path, "--max-steps", "4", "--resume", str(ck))
+    assert r.returncode == 0, r.stderr[-2000:]
+    out = (tmp_path / "out" / "output.txt").read_text()
+    assert [int(l.split(": ")[1]) for l in out.splitlines()
+            if l.startswith("KMC step count:")] == [0, 1, 2, 3]
+    resumed = (tmp_path / "out" / "Results_2.500000" / "snapshot_4.xyz").read_text()
+
+    path.write_text(text.replace(f"output_dir = {tmp_path / 'out'}",
+                                 f"output_dir = {tmp_path / 'ref'}"))
+    r = _cli(path, "--max-steps", "4")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert (tmp_path / "ref" / "Results_2.500000" / "snapshot_4.xyz").read_text() == resumed

@@ -800,3 +800,101 @@ def test_cuda_event_loop_large_table(dtype):
     assert torch.equal(e_k, e_p) and torch.equal(q_k, q_p)
     assert (e_k.cpu().numpy() != elem).any()
     assert t_k == pytest.approx(t_p, rel=1e-9 if dtype == torch.float64 else 2.4e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,m_pad", [(4, 8), (37, 56), (2, 120)])
+def test_cuda_banded_matvec_bf16_band_f32_vector(R, m_pad):
+    """A bf16 band with an f32 vector (what transport_bf16_inner runs):
+    against the plain version on the same inputs, f32 sums in another order
+    (2e-5 of the largest entry); the vector is not rounded."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.banded import banded_matvec, banded_matvec_plain
+
+    g = torch.Generator(device="cuda").manual_seed(R * 100 + m_pad)
+    C4 = torch.randn((R, m_pad, 128, 128), generator=g, device="cuda").to(torch.bfloat16)
+    xp2 = torch.randn((R + m_pad - 1, 128), generator=g, device="cuda")
+    before = banded_matvec.launches
+    y = banded_matvec(C4, xp2)
+    ref = banded_matvec_plain(C4, xp2)
+    rounded = banded_matvec_plain(C4, xp2.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert banded_matvec.launches == before + 1
+    scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= 2e-5 * scale
+    assert float((rounded - ref).abs().max()) > 10 * float((y - ref).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [((300, 70), (70,)), ((70,), (70, 300)),
+                                   ((1024, 3527), (3527,)), ((1024,), (1024, 3527)),
+                                   ((3527, 3527), (3527,))],
+                         ids=["matvec", "vecmat", "T_vm", "T_vm'", "T_cc"])
+def test_cuda_twin_matmul_matches_plain(shape):
+    """The bf16 twin product of transport_bf16_inner on the card (one
+    library call, aten::mm.dtype: bf16 operands, f32 result) against its
+    plain version (f32 upcast in row chunks) on the same card: f32 results,
+    within 1e-6 of the terms' magnitude, at the small stack's and the
+    crossbar's block shapes."""
+    _need_card()
+    from devicekmc_tpu_torch.physics.current import twin_matmul, twin_matmul_plain
+
+    g = torch.Generator(device="cuda").manual_seed(sum(shape[0]))
+    a = torch.randn(shape[0], generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(shape[1], generator=g, device="cuda").to(torch.bfloat16)
+    got = twin_matmul(a, b)
+    ref = twin_matmul_plain(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    scale = float((a.float().abs() @ b.float().abs()).max())
+    assert float((got - ref).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_roundtrip_and_resume(tmp_path):
+    """A checkpoint written on the card: read back on the card and on the
+    CPU, every field equal; the card run resumed from it in a fresh
+    Simulation ends in the uninterrupted run's state bit for bit."""
+    import dataclasses
+
+    from devicekmc_tpu_torch.config import KMCConfig
+    from devicekmc_tpu_torch.engine import Simulation
+    from devicekmc_tpu_torch.structure import make_test_structure
+
+    _need_card()
+    s = make_test_structure(nx_contact=2, nx_oxide=8, ny=4, nz=4, seed=11)
+    base = KMCConfig(
+        lattice=list(s.lattice), nn_dist=3.0,
+        num_atoms_first_layer=s.num_atoms_first_layer,
+        num_layers_contact=s.num_layers_contact,
+        num_atoms_contact=s.num_atoms_contact, layers=s.layers,
+        solve_potential=True, perturb_structure=True, pristine=True,
+        initial_vacancy_concentration=0.08, rnd_seed=3, rnd_seed_kmc=7,
+        precision="mixed", poisson_kernel="pallas", V_switch=[2.5], t_switch=[1e30],
+        log_freq=1000)
+
+    def sim(tag, device="cuda"):
+        d = tmp_path / tag
+        d.mkdir()
+        return Simulation(dataclasses.replace(base, output_dir=str(d)),
+                          elements=s.elements, coords=s.coords, device=device)
+
+    a = sim("a")
+    a.run_bias_point(2.5, 1e30, max_steps=4)
+    b = sim("b")
+    b.run_bias_point(2.5, 1e30, max_steps=2)
+    ck = str(tmp_path / "ck.npz")
+    b.save_checkpoint(ck)
+    saved = b._checkpoint_payload()
+    for tag, device in (("c", "cuda"), ("cpu", "cpu")):
+        r = sim(tag, device)
+        r.load_checkpoint(ck)
+        back = r._checkpoint_payload()
+        for f, v in saved.items():
+            assert np.array_equal(back[f], v, equal_nan=v.dtype.kind == "f"), (tag, f)
+    c = sim("d")
+    c.load_checkpoint(ck)
+    c.run_bias_point(2.5, 1e30, max_steps=4, resume_step=2)
+    for f in ("element", "charge", "potential_boundary", "potential_charge"):
+        assert torch.equal(getattr(c.state, f), getattr(a.state, f)), f
+    assert c.state.key == a.state.key and c.state.kmc_time == a.state.kmc_time

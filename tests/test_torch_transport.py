@@ -324,24 +324,24 @@ def test_update_power_f64_matches_jax(dev):
 
 
 def test_unported_options_raise(dev):
-    """The options that used to raise "not ported" now run: dense transport,
-    global and local heating pass check_ported and solve; only
-    transport_bf16_inner still raises, naming its ROADMAP item."""
+    """No option raises "not ported" any longer: dense transport, global and
+    local heating solve, and so does transport_bf16_inner, whose solve
+    matches the JAX package's bf16 inner solve (I_macro within 2e-5: see
+    tests/test_torch_bf16_inner.py) and the dense direct solve (2e-4)."""
+    from devicekmc_tpu.physics import current as jcur
     from devicekmc_tpu_torch.physics import current as tcur
-    from devicekmc_tpu_torch.superstep import check_ported
 
     dense = dataclasses.replace(dev["tbase"], transport="dense", tunnel_int_steps=256)
     st, m = tcur.update_power(dev["tg"], dense, dev["ts"], VD)
     assert m["transport_converged"] and st.I_macro > 0
-    for kw in (dict(solve_heating_global=True), dict(solve_heating_local=True),
-               dict(transport="dense")):
-        check_ported(dataclasses.replace(dev["tbase"], **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 2"):
-        check_ported(dataclasses.replace(dev["tbase"], transport_bf16_inner=True))
-    with pytest.raises(NotImplementedError, match="transport_bf16_inner"):
-        tcur.update_power_blocked(
-            dev["tg"], dataclasses.replace(dev["tbase"], transport_bf16_inner=True),
-            dev["ts"], VD)
+    bf16 = dataclasses.replace(dev["tbase"], transport_bf16_inner=True)
+    st, m = tcur.update_power_blocked(dev["tg"], bf16, dev["ts"], VD)
+    jst, jm = jcur.update_power_blocked(
+        dev["jg"], dev["jbase"].replace(transport_bf16_inner=True), dev["js"], VD)
+    assert m["transport_converged"] and bool(jm["transport_converged"])
+    assert st.I_macro == pytest.approx(float(jst.I_macro), rel=2e-5)
+    st_d, _ = tcur.update_power(dev["tg"], bf16, dev["ts"], VD, method="direct")
+    assert st.I_macro == pytest.approx(st_d.I_macro, rel=2e-4)
     st, m = tcur.update_power_blocked(
         dev["tg"], dataclasses.replace(dev["tbase"], solve_heating_global=True),
         dev["ts"], VD)

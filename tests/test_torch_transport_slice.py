@@ -180,8 +180,9 @@ def test_band_not_built_warns_and_runs_on_the_ell_product(tmp_path, monkeypatch)
 def test_cli_runs_with_current_on_cpu(tmp_path):
     """solve_current = 1 with transport = blocked runs from the command line
     and logs the current; so do dense transport and heating (with the
-    temperature and power lines); transport_bf16_inner still raises
-    NotImplementedError naming its ROADMAP item."""
+    temperature and power lines), and transport_bf16_inner, whose currents
+    match the f32 inner run at its tightened tolerance (1e-10) within 2e-4
+    with the same events (measured 4.6e-6)."""
     path, n = _write_inputs(tmp_path)
     base = path.read_text().replace("solve_current = 0", "solve_current = 1")
     path.write_text(base + "transport = blocked\ntransport_cc = fly\n"
@@ -206,8 +207,15 @@ def test_cli_runs_with_current_on_cpu(tmp_path):
         assert out.count("Current [uA]:") == 2
         assert out.count("Global temperature [K]:") == (2 if heated else 0)
         assert out.count("Total dissipated power [mW]:") == (2 if heated else 0)
-    path.write_text(base + "transport = blocked\ntransport_bf16_inner = 1\n")
-    r = run()
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "ROADMAP" in r.stderr
-    assert "item 2 (the remaining run modes)" in r.stderr
+    runs = {}
+    for extra in ("transport_bf16_inner = 1\n", "transport_tol = 1e-10\n"):
+        path.write_text(base + "transport = blocked\n" + extra)
+        r = run()
+        assert r.returncode == 0, r.stderr[-2000:]
+        runs[extra] = _parse(tmp_path / "out" / "output.txt")
+    bf16, f32 = runs.values()
+    assert len(bf16) == len(f32) == 2
+    for a, b in zip(f32, bf16):
+        assert b["n_events"] == a["n_events"] and float(b["transport_converged"]) == 1
+        assert float(b["Current [uA]"]) == pytest.approx(float(a["Current [uA]"]),
+                                                         rel=2e-4)
