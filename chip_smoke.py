@@ -106,7 +106,20 @@ Phases (any failed check raises and the exit code is non-zero):
    kernel (with the f32 vector the path gives it) against its plain
    version on the run's band (within 2e-5 of its largest entry, and the vector
    rounded to bf16 more than 10x further off),
-   timed beside its bytes bound and torch.einsum on the bf16 window stack.
+   timed beside its bytes bound and torch.einsum on the bf16 window stack;
+10. device ensembles: 8 replicas of the headline crossbar (keys
+   fold_in(PRNGKey(42), b)) through parallel.batched.make_batched_superstep,
+   counters set to 0 just before 2 warm-up and 4 timed supersteps: the
+   batched gather twice a superstep, the batched pair sweep and event loop
+   once, no single kernel, no plain version; every replica against the
+   single path on the card with its key (elements and events equal); the
+   device-to-host copies of each batched superstep no more than the most
+   that any replica alone (B = 1) makes in that superstep; the batched
+   superstep timed at B = 1, 8 and 32 beside the single path; the three
+   batched kernels against their batched plain versions and B single
+   launches (bit-equal), timed beside their bounds; and
+   examples/ensemble_torch.py's configuration (dense transport, global
+   heat, B = 2) on the card against the CPU path.
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -2267,6 +2280,421 @@ def bf16_transport_path(out_root, f32_steps):
     return record, launches
 
 
+# ---------------------------------------------------------------------------
+# device ensembles: B replicas of the crossbar through one superstep
+# ---------------------------------------------------------------------------
+
+#: replicas of the ensemble phase's main run, the batch sizes it times, and
+#: the base seed of the replicas' keys (examples/ensemble.py's)
+ENSEMBLE_B = 8
+ENSEMBLE_SIZES = (1, ENSEMBLE_B, 32)
+ENSEMBLE_SEED = 42
+
+
+def dtoh_per_step(step, states, n):
+    """Device-to-host copies of each of ``n`` supersteps of ``step`` from
+    ``states``, as the device records of torch.profiler count them ("Memcpy
+    DtoH"), one profiled superstep at a time.  None for a superstep whose
+    trace came back without device records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            states, _, _ = step(states, VD_MAIN)
+            torch.cuda.synchronize()
+        dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        counts.append(sum(name.startswith("Memcpy DtoH") for name in dev) if dev else None)
+    return counts
+
+
+def ensemble_kernel_checks(geom, params, states):
+    """The three batched kernels at the ensemble's shapes (B replicas of the
+    crossbar, each in its own state), held against their batched plain
+    versions and against B single launches, and timed beside their bounds;
+    returns their records (without the launches of the run)."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.compact import nonzero_fixed_batched
+    from devicekmc_tpu_torch.ops.ell_gather import (
+        ell_gather, ell_gather_batched, ell_gather_batched_plain,
+    )
+    from devicekmc_tpu_torch.ops.kmc_events import (
+        kmc_event_loop, kmc_event_loop_batched, kmc_event_loop_batched_plain,
+    )
+    from devicekmc_tpu_torch.ops.pairwise import (
+        kernel_scalars, poisson_pairwise, poisson_pairwise_batched,
+        poisson_pairwise_batched_plain,
+    )
+    from devicekmc_tpu_torch.physics.charge import _flags
+    from devicekmc_tpu_torch.physics.events import incremental_tables, pack_site_code
+
+    B, N = states.element.shape
+    idx = geom.neigh_idx
+    R, M = idx.shape
+    idx_long = idx.clamp(min=0).long()
+    flags = _flags(geom, states.element)[1]
+    phi = (states.potential_boundary + states.potential_charge).to(torch.float32)
+    code = pack_site_code(states.element, states.charge, geom.site_layer)
+    records = {}
+    for c, vals in ((1, [flags]), (2, [phi, code])):
+        got = ell_gather_batched(idx, vals)
+        ref = ell_gather_batched_plain(idx, vals)
+        one = [ell_gather(idx, [v[b] for v in vals]) for b in range(B)]
+        torch.cuda.synchronize()
+        for k, (g, r) in enumerate(zip(got, ref)):
+            check(torch.equal(g.view(torch.int32), r.view(torch.int32)),
+                  f"batched gather C={c}: differs from its plain version")
+            for b in range(B):
+                check(torch.equal(g[b].view(torch.int32), one[b][k].view(torch.int32)),
+                      f"batched gather C={c}: replica {b} differs from its single launch")
+        del got, ref, one
+        rec = dict(
+            max_abs_err=0.0, shape=f"{B} x [{R}x{M}], {c} channel{'s' * (c > 1)}",
+            ms=time_ms_cold(lambda: ell_gather_batched(idx, vals)),
+            ms_singles=time_ms_cold(lambda: [ell_gather(idx, [v[b] for v in vals])
+                                             for b in range(B)]),
+            plain_ms=time_ms_cold(lambda: ell_gather_batched_plain(idx, vals), reps=5),
+            library_ms=time_ms_cold(lambda: [v[:, idx_long] for v in vals]),
+            bound_ms=(R * M * 4 + B * c * (N * 4 + R * M * 4)) / PEAK_BYTES_PER_S * 1e3,
+            bound_by="bytes")
+        records[f"gather{c}"] = rec
+        log(f"ell_gather_batched C={c} [{rec['shape']}]: bit-equal to its plain version and "
+            f"to {B} single launches; cold L2 {rec['ms']:.5f} ms (bound {rec['bound_ms']:.5f} "
+            f"ms: the index stream once, {B} x {c} sources and outputs; {B} single launches "
+            f"{rec['ms_singles']:.5f} ms, plain {rec['plain_ms']:.5f} ms, v[:, idx] "
+            f"{rec['library_ms']:.5f} ms)")
+
+    cap = -(-params.poisson_compact_cap // 8) * 8
+    cidx, n_c = nonzero_fixed_batched(states.charge != 0, cap)
+    cq = torch.gather(states.charge, 1, cidx.long()).to(torch.float32)
+    coords32 = geom.coords.to(torch.float32).contiguous()
+    scal = kernel_scalars(params.sigma, params.k, geom.lattice_host, params.dtype)
+    counts = [min(n, cap) for n in n_c.tolist()]
+    args = (coords32, cidx, cq, n_c, *scal, geom.pbc)
+    got = poisson_pairwise_batched(*args)
+    ref = poisson_pairwise_batched_plain(*args)
+    err = _close("poisson_pairwise_batched", got, ref, 2e-6)
+    parts = [(cidx[b, :n], cq[b, :n]) for b, n in enumerate(counts)]
+    for b, (ci, q) in enumerate(parts):
+        check(torch.equal(got[b], poisson_pairwise(coords32, ci, q, *scal, geom.pbc)),
+              f"batched pair sweep: replica {b} differs from its single launch")
+    check(torch.equal(got, poisson_pairwise_batched(*args)), "batched pair sweep: two calls "
+          "differ")
+    ops = N * sum(counts) * POISSON_OPS_PER_PAIR[geom.pbc]
+    bound, by = _bound(ops, N * 12 + sum(counts) * 8 + B * N * 4)
+    rec = dict(max_abs_err=err, bound_ms=bound, bound_by=by, library_ms=None,
+               shape=f"{B} x [{N} rows x {counts} charged]",
+               ms=time_ms(lambda: poisson_pairwise_batched(*args)),
+               ms_singles=time_ms(lambda: [poisson_pairwise(coords32, ci, q, *scal, geom.pbc)
+                                           for ci, q in parts]),
+               plain_ms=time_ms(lambda: poisson_pairwise_batched_plain(*args), reps=1,
+                                rounds=3, warmup=1))
+    records["poisson"] = rec
+    log(f"poisson_pairwise_batched [{rec['shape']}]: bit-equal to {B} single launches, "
+        f"max err {err:.3e} against its plain version; {rec['ms']:.4f} ms (bound "
+        f"{bound:.4f} ms by {by}; {B} single launches {rec['ms_singles']:.4f} ms, plain "
+        f"{rec['plain_ms']:.3f} ms)")
+
+    prob, row_sums, block_sums, aidx, inv, _ = incremental_tables(geom, params, states)
+    tail = (geom.neigh_idx, geom.rev_slot, states.element, states.charge, states.key,
+            1.0 / params.freq, params.max_events_per_superstep, params.dtype)
+
+    def fresh():
+        return (prob.clone(), row_sums.clone(), block_sums.clone(), aidx, inv)
+
+    got = kmc_event_loop_batched(*fresh(), *tail)
+    ref = kmc_event_loop_batched_plain(*fresh(), *tail)
+    torch.cuda.synchronize()
+    res_g, res_r = got[3].tolist(), ref[3].tolist()
+    check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+          and torch.equal(got[2], ref[2]), "batched event loop: elements, charges or keys "
+          "differ from its plain version")
+    max_abs = max_rel = 0.0
+    for b, (g, r) in enumerate(zip(res_g, res_r)):
+        check(g[1:] == r[1:], f"batched event loop replica {b}: {g} vs {r}")
+        rel = abs(g[0] - r[0]) / abs(r[0])
+        check(rel <= EVENT_TOL["f32"], f"batched event loop replica {b}: step_time {g[0]} vs "
+              f"{r[0]}")
+        max_abs, max_rel = max(max_abs, abs(g[0] - r[0])), max(max_rel, rel)
+
+    def singles(tabs):
+        return [kmc_event_loop(*t, geom.neigh_idx, geom.rev_slot, states.element[b],
+                               states.charge[b], tuple(states.key[b].tolist()), *tail[5:])
+                for b, t in enumerate(tabs)]
+
+    def single_tabs():
+        return [(prob[b].clone(), row_sums[b].clone(), block_sums[b].clone(), aidx, inv)
+                for b in range(B)]
+
+    for b, (e, q, r) in enumerate(singles(single_tabs())):
+        check(torch.equal(e, got[0][b]) and torch.equal(q, got[1][b])
+              and torch.equal(r, got[3][b]), f"batched event loop: replica {b} differs from "
+              "its single launch")
+    keys = [tuple(k) for k in states.key.tolist()]
+
+    def timed(call, make, reps):
+        times = []
+        for _ in range(reps):
+            a = make()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(HOLD_CYCLES)
+            e0.record()
+            call(a)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return statistics.median(times)
+
+    ms = timed(lambda a: kmc_event_loop_batched(*a, *tail), fresh, 20)
+    ms_singles = timed(lambda tabs: [
+        kmc_event_loop(*t, geom.neigh_idx, geom.rev_slot, states.element[b], states.charge[b],
+                       keys[b], *tail[5:]) for b, t in enumerate(tabs)], single_tabs, 10)
+    plain = []
+    for _ in range(2):
+        a = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kmc_event_loop_batched_plain(*a, *tail)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    events = [int(g[1]) for g in res_g]
+    bytes_ = sum(event_loop_bytes(n, block_sums.shape[1], M, prob.element_size())
+                 for n in events)
+    rec = dict(max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, ms_singles=ms_singles,
+               plain_ms=statistics.median(plain), bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3,
+               bound_by="bytes", library_ms=None, events=events,
+               shape=f"{B} x [{prob.shape[1]}x{M} f32 table, {block_sums.shape[1]} blocks of "
+                     f"sums], events {events}")
+    records["events"] = rec
+    log(f"kmc_event_loop_batched [{rec['shape']}]: events, elements, charges and keys equal "
+        f"to its plain version (step_time max {max_rel:.3e} relative) and bit-equal to {B} "
+        f"single launches; {ms:.4f} ms a launch ({B} single launches {ms_singles:.4f} ms, "
+        f"plain host loop {rec['plain_ms']:.2f} ms; bytes bound {rec['bound_ms']:.6f} ms)")
+    return records
+
+
+def ensemble_example_check():
+    """examples/ensemble_torch.py's configuration (the small stack with dense
+    transport and the global heat model, f64) at B = 2, 3 supersteps, on the
+    card and through the CPU path: elements and events equal, I_macro within
+    1e-5 and T_bg within 1e-7 relative (phase 2's tolerances for this
+    configuration)."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    try:
+        import ensemble_torch
+    finally:
+        sys.path.pop(0)
+    runs = {dev: ensemble_torch.main(["--batch", "2", "--steps", "3", "--device", dev])
+            for dev in ("cuda", "cpu")}
+    (sg, mg), (sc, mc) = runs["cuda"], runs["cpu"]
+    check(np.array_equal(sg.element.cpu().numpy(), sc.element.numpy()),
+          "ensemble example: elements differ between card and CPU")
+    check(mg["n_events"].tolist() == mc["n_events"].tolist(), "ensemble example: events")
+    eI = float((sg.I_macro.cpu() - sc.I_macro).abs().max() / sc.I_macro.abs().max())
+    eT = float(((sg.T_bg.cpu() - sc.T_bg) / sc.T_bg).abs().max())
+    check(eI <= 1e-5 and eT <= 1e-7, f"ensemble example: I_macro {eI:.3e}, T_bg {eT:.3e} "
+          "relative")
+    check(float(sc.T_bg.max()) > 300.0, "ensemble example: the temperature never moved")
+    log(f"ensemble example (small stack, dense transport + global heat, B = 2, 3 "
+        f"supersteps): card against CPU, elements and events equal, I_macro {eI:.3e} and "
+        f"T_bg {eT:.3e} relative")
+    return dict(I_rel=eI, T_bg_rel=eT)
+
+
+def ensemble_path(out_root):
+    """Phase 10: B = ENSEMBLE_B replicas of the crossbar's headline
+    configuration through make_batched_superstep.  The cold deflated
+    boundary solve runs once, on the single state; the replicas get the keys
+    fold_in(PRNGKey(42), b).  Counters set to 0 just before the main run (2
+    warm-up + 4 timed supersteps): the batched gather launched twice a
+    superstep, the batched pair sweep and event loop once, no single kernel
+    and no plain version.  Each replica against the single path on the card
+    with its key (superstep_impl, the same supersteps: elements and events
+    equal, step times and the final potentials within 1e-12 relative);
+    device-to-host copies of each superstep at B = 8 no more than the most
+    any replica alone makes in it at B = 1; timings at B = 1, 8, 32 beside
+    the single path; the batched kernels against their plain versions and B
+    single launches; the example's configuration card against CPU.  Returns
+    the kernels' records and the phase's numbers."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import cg, kmc_events
+    from devicekmc_tpu_torch.ops import ell_gather as eg
+    from devicekmc_tpu_torch.ops import pairwise as pw
+    from devicekmc_tpu_torch.parallel.batched import batch_states, make_batched_superstep
+    from devicekmc_tpu_torch.state import replace, stack_states, unbatch
+    from devicekmc_tpu_torch.superstep import superstep_impl
+
+    t_phase = time.perf_counter()
+    sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "ensemble"))
+    geom, params = sim.geom, sim.params
+    t0 = time.perf_counter()
+    cold_iters = sim._chunked_boundary(VD_MAIN, params.solver_maxiter,
+                                       replace(params, boundary_precond="deflated"))
+    torch.cuda.synchronize()
+    log(f"ensemble: crossbar of {geom.N} sites, cold deflated boundary solve {cold_iters} "
+        f"CG iterations ({(time.perf_counter() - t0) * 1e3:.1f} ms), once for all replicas")
+    base = sim.state
+    step = make_batched_superstep(geom, params, sim.heat)
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+
+    def drive(states, n, record=None):
+        ms = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            states, dts, m = step(states, VD_MAIN)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            if record is not None:
+                record.append((states.element.clone(), m, dts))
+        return states, ms
+
+    states0 = batch_states(base, ENSEMBLE_B, base_seed=ENSEMBLE_SEED)
+    batched = {"ell_gather_batched": eg.ell_gather_batched,
+               "poisson_pairwise_batched": pw.poisson_pairwise_batched,
+               "kmc_event_loop_batched": kmc_events.kmc_event_loop_batched}
+    single = (eg.ell_gather, pw.poisson_pairwise, kmc_events.kmc_event_loop)
+    # ---- counters to 0, drive, read ----
+    for fn in (*batched.values(), *single):
+        fn.launches = 0
+    plains = [_counted(eg, "ell_gather_batched_plain"),
+              _counted(pw, "poisson_pairwise_batched_plain"),
+              _counted(kmc_events, "kmc_event_loop_batched_plain")]
+    recs = []
+    reads0 = cg.readbacks
+    try:
+        states, ms = drive(states0, n_steps, recs)
+    finally:
+        for _, restore in plains:
+            restore()
+    launches = {name: fn.launches for name, fn in batched.items()}
+    reads = cg.readbacks - reads0
+    check(launches == {"ell_gather_batched": 2 * n_steps, "poisson_pairwise_batched": n_steps,
+                       "kmc_event_loop_batched": n_steps},
+          f"ensemble: batched launches {launches} in {n_steps} supersteps")
+    check(all(fn.launches == 0 for fn in single), "ensemble: a single kernel was launched")
+    check(all(rec["calls"] == 0 for rec, _ in plains), "ensemble: a plain version ran")
+
+    events = [m["n_events"].tolist() for _, m, _ in recs]
+    cg_iters = [m["cg_iters_boundary"].tolist() for _, m, _ in recs]
+    n_charged = [m["n_charged_sites"].tolist() for _, m, _ in recs]
+    check(all(all(m["boundary_converged"].tolist()) for _, m, _ in recs),
+          "ensemble: a boundary solve did not converge")
+    check(all(max(n) <= params.poisson_compact_cap for n in n_charged),
+          "ensemble: a replica overflowed the Poisson bucket")
+    check(bool(torch.isfinite(states.potential_boundary).all()
+               and torch.isfinite(states.potential_charge).all()), "ensemble: potentials")
+    check(len({tuple(k) for k in states.key.tolist()}) == ENSEMBLE_B, "ensemble: keys")
+    check(any(not torch.equal(states.element[0], states.element[b])
+              for b in range(1, ENSEMBLE_B)), "ensemble: every replica has one trajectory")
+    for k in range(n_steps):
+        log(f"  ensemble step {k}: {ms[k]:.2f} ms, events {events[k]}, cg_iters_boundary "
+            f"{cg_iters[k]}, n_charged_sites {n_charged[k]}")
+
+    # each replica against the single path with its key
+    single_ms, phi_err, dt_err = [], 0.0, 0.0
+    for b in range(ENSEMBLE_B):
+        st = unbatch(states0, b)
+        for k in range(n_steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, dt, m1 = superstep_impl(geom, params, st, VD_MAIN)
+            torch.cuda.synchronize()
+            if k >= WARMUP_STEPS:
+                single_ms.append((time.perf_counter() - t) * 1e3)
+            check(torch.equal(st.element, recs[k][0][b]),
+                  f"ensemble replica {b} step {k}: elements differ from the single path")
+            check(int(m1["n_events"]) == events[k][b],
+                  f"ensemble replica {b} step {k}: events {m1['n_events']} vs {events[k][b]}")
+            dt_b = float(recs[k][2][b])
+            dt_err = max(dt_err, 0.0 if dt == dt_b else abs(dt - dt_b) / abs(dt))
+        phi = st.potential_boundary + st.potential_charge
+        phi_b = states.potential_boundary[b] + states.potential_charge[b]
+        phi_err = max(phi_err, float((phi - phi_b).abs().max() / phi.abs().max()))
+    # not bit-equal on the card: the batched CG's row sums reduce in another
+    # order than torch.dot, so the potentials and step times may differ in
+    # their last bits
+    check(phi_err <= 1e-12, f"ensemble: potentials {phi_err:.3e} of their scale from the "
+          "single path's")
+    check(dt_err <= 1e-12, f"ensemble: step times {dt_err:.3e} from the single path's")
+    log(f"ensemble: each of the {ENSEMBLE_B} replicas equal to the single path with its key "
+        f"over {n_steps} supersteps (elements and events); step times within {dt_err:.3e}, "
+        f"potentials at the end within {phi_err:.3e} of their scale")
+
+    # device-to-host copies, superstep by superstep: the batch against the
+    # most that any replica alone (B = 1, its own key) makes in that step
+    dtoh_b = dtoh_per_step(step, states0, n_steps)
+    dtoh_1 = [dtoh_per_step(step, stack_states([unbatch(states0, b)]), n_steps)
+              for b in range(ENSEMBLE_B)]
+    check(None not in dtoh_b and all(None not in d for d in dtoh_1),
+          "ensemble: a profiler trace came back without device records")
+    dtoh_max1 = [max(d[k] for d in dtoh_1) for k in range(n_steps)]
+    check(all(a <= b for a, b in zip(dtoh_b, dtoh_max1)),
+          f"ensemble: device-to-host copies a superstep {dtoh_b} at B = {ENSEMBLE_B}, more "
+          f"than the most of any replica alone {dtoh_max1}")
+    log(f"ensemble: device-to-host copies a superstep {dtoh_b} at B = {ENSEMBLE_B}, the most "
+        f"of any replica alone at B = 1 {dtoh_max1} (each replica: {dtoh_1}; CG chunk reads "
+        f"of the main run: {reads})")
+
+    # timings at B = 1, 8, 32
+    sizes = {ENSEMBLE_B: dict(ms=ms[WARMUP_STEPS:])}
+    for nb in ENSEMBLE_SIZES:
+        if nb in sizes:
+            continue
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, ms_n = drive(batch_states(base, nb, base_seed=ENSEMBLE_SEED), n_steps)
+        sizes[nb] = dict(ms=ms_n[WARMUP_STEPS:],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.empty_cache()
+    single_med = statistics.median(single_ms)
+    for nb in sorted(sizes):
+        r = sizes[nb]
+        r["median_ms"] = statistics.median(r["ms"])
+        r["ms_per_replica"] = r["median_ms"] / nb
+        log(f"ensemble B = {nb}: batched superstep median {r['median_ms']:.2f} ms "
+            f"(timed {[round(x, 2) for x in r['ms']]}), {r['ms_per_replica']:.3f} ms a "
+            f"replica-superstep against the single path's median {single_med:.2f} ms"
+            + (f"; peak memory {r['peak_gib']:.2f} GiB" if "peak_gib" in r else ""))
+
+    kchecks = ensemble_kernel_checks(geom, params, states)
+    example = ensemble_example_check()
+    log(f"ensemble phase in {time.perf_counter() - t_phase:.1f} s")
+    common = dict(batch=ENSEMBLE_B, path=f"ensemble of {ENSEMBLE_B} crossbar replicas "
+                  f"({n_steps} supersteps)")
+    g1, g2 = kchecks["gather1"], kchecks["gather2"]
+    records = [
+        {"name": "ell_gather_batched", "route": "cuda",
+         "source": "devicekmc_tpu_torch/csrc/ell_gather.cu",
+         "replaces": "devicekmc_tpu/ops/ell_gather_pallas.py:184",
+         "launches": launches["ell_gather_batched"], **g2,
+         "ms_1ch": g1["ms"], "ms_singles_1ch": g1["ms_singles"], "plain_ms_1ch": g1["plain_ms"],
+         "bound_ms_1ch": g1["bound_ms"], "library_ms_1ch": g1["library_ms"], **common},
+        {"name": "poisson_pairwise_batched", "route": "cuda",
+         "source": "devicekmc_tpu_torch/csrc/pairwise.cu",
+         "replaces": "devicekmc_tpu/ops/pairwise_pallas.py:88",
+         "launches": launches["poisson_pairwise_batched"], **kchecks["poisson"], **common},
+        {"name": "kmc_event_loop_batched", "route": "cuda",
+         "source": "devicekmc_tpu_torch/csrc/kmc_events.cu",
+         "replaces": "devicekmc_tpu/physics/events.py:609",
+         "launches": launches["kmc_event_loop_batched"], **kchecks["events"], **common},
+    ]
+    summary = dict(
+        sizes={nb: {k: v for k, v in r.items()} for nb, r in sizes.items()},
+        single_median_ms=single_med, dtoh_batch=dtoh_b, dtoh_single=dtoh_1,
+        cg_reads=reads, events=events, cg_iters_boundary=cg_iters, n_charged=n_charged,
+        phi_err=phi_err, dt_err=dt_err, cold_iters=cold_iters, example=example)
+    return records, summary
+
+
 def main():
     import torch
 
@@ -2325,6 +2753,9 @@ def main():
     bf16_record, bf16_launches = bf16_transport_path(out_root, steps)
     torch.cuda.empty_cache()
     log(f"modular, checkpoint and bf16 phases in {time.perf_counter() - t0:.1f} s")
+    ensemble_records, ensemble = ensemble_path(out_root)
+    torch.cuda.empty_cache()
+    log("ensemble summary: " + json.dumps(ensemble))
     pdisp.update(launches_transport_path=transport_launches["wkb_fly_pdisp"],
                  launches_heat_path=pdisp["launches"])
     for k in kernels:
@@ -2357,6 +2788,7 @@ def main():
         batched_crossbar_step_ms=batched_ms,
         cg_readbacks_transport_run=readbacks, cg_readbacks_read_every_iteration=readbacks_ref)
     kernels.append(event_record)
+    kernels += ensemble_records
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,11 +3,13 @@ kinetic Monte Carlo simulator for VCM RRAM devices (filament formation and
 dissolution in TiN-HfO2/Ti-TiN stacks), for one NVIDIA Hopper card.
 
 Ported: charge rule, boundary-potential CG, compacted gridless Poisson, the
-residence-time event loop and the blocked charge-transport solver (CB edge,
-WKB tunnel blocks, mixed-precision deflated CG, current), with the neighbour
-gather, the Poisson pair sweep, the banded matvec, the on-the-fly WKB
-products and the window-integral block as hand-written CUDA kernels
-(``csrc/``).  Heat and the dense transport path are not ported yet.
+residence-time event loop, charge transport (blocked and dense), Joule
+heating, the engine's run modes, and device ensembles
+(``parallel.batched``: B replicas of one device through one superstep), with
+the neighbour gather, the Poisson pair sweep, the banded matvec, the
+on-the-fly WKB products, the window-integral block and the event loop as
+hand-written CUDA kernels (``csrc/``).  The multi-card layers of
+``devicekmc_tpu.parallel`` (mesh, sharding, halos) are not ported yet.
 
 Quick start::
 

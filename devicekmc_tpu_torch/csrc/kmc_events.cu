@@ -107,14 +107,19 @@ struct Shared {
   int r, i, j, rj_row;
 };
 
+// The loop of one superstep in this block; key_out (if not null) receives
+// the new key's two words.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-kmc_event_loop_kernel(T* prob, double* row_sums, const double* __restrict__ block_sums,
-                      const int* __restrict__ aidx, const int* __restrict__ inv,
-                      const int* __restrict__ neigh_idx, const int* __restrict__ rev_slot,
-                      int* element, int* charge, int n_rows, int n_blocks, int m,
-                      uint32_t k0, uint32_t k1, double t_window, int max_events,
-                      int wd_f32, double* out) {
+__device__ __forceinline__ void event_loop(T* prob, double* row_sums,
+                                           const double* __restrict__ block_sums,
+                                           const int* __restrict__ aidx,
+                                           const int* __restrict__ inv,
+                                           const int* __restrict__ neigh_idx,
+                                           const int* __restrict__ rev_slot, int* element,
+                                           int* charge, int n_rows, int n_blocks, int m,
+                                           uint32_t k0, uint32_t k1, double t_window,
+                                           int max_events, int wd_f32, double* out,
+                                           uint32_t* key_out) {
   extern __shared__ double s_dyn[];
   double* s_blk = s_dyn;                                   // [n_blocks]
   int* s_touch = reinterpret_cast<int*>(s_dyn + n_blocks);  // [2m + 2] touched rows
@@ -246,7 +251,47 @@ kmc_event_loop_kernel(T* prob, double* row_sums, const double* __restrict__ bloc
     out[1] = (double)count;
     out[2] = (double)key.k0;
     out[3] = (double)key.k1;
+    if (key_out != nullptr) {
+      key_out[0] = key.k0;
+      key_out[1] = key.k1;
+    }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+kmc_event_loop_kernel(T* prob, double* row_sums, const double* __restrict__ block_sums,
+                      const int* __restrict__ aidx, const int* __restrict__ inv,
+                      const int* __restrict__ neigh_idx, const int* __restrict__ rev_slot,
+                      int* element, int* charge, int n_rows, int n_blocks, int m,
+                      uint32_t k0, uint32_t k1, double t_window, int max_events,
+                      int wd_f32, double* out) {
+  event_loop<T>(prob, row_sums, block_sums, aidx, inv, neigh_idx, rev_slot, element, charge,
+                n_rows, n_blocks, m, k0, k1, t_window, max_events, wd_f32, out, nullptr);
+}
+
+// B replicas, block b the loop of replica b on its own table, sums, element,
+// charge and key: prob [B, n_rows, m], row_sums [B, n_blocks * kBlock],
+// block_sums [B, n_blocks], element and charge [B, n_sites], keys [B, 2]
+// (read at the start, the new key written back), out [B, 4].  aidx and inv
+// are shared (stride 0) or one a replica (strides n_rows and n_sites).
+// Each block is the single launch's block, so replica b's events are the
+// single loop's on replica b's inputs, bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+kmc_event_loop_batched_kernel(T* prob, double* row_sums, const double* __restrict__ block_sums,
+                              const int* __restrict__ aidx, int64_t aidx_stride,
+                              const int* __restrict__ inv, int64_t inv_stride,
+                              const int* __restrict__ neigh_idx,
+                              const int* __restrict__ rev_slot, int* element, int* charge,
+                              int n_sites, int n_rows, int n_blocks, int m, uint32_t* keys,
+                              double t_window, int max_events, int wd_f32, double* out) {
+  const int64_t b = blockIdx.x;
+  event_loop<T>(prob + b * n_rows * m, row_sums + b * n_blocks * kBlock,
+                block_sums + b * n_blocks, aidx + b * aidx_stride, inv + b * inv_stride,
+                neigh_idx, rev_slot, element + b * n_sites, charge + b * n_sites, n_rows,
+                n_blocks, m, keys[2 * b], keys[2 * b + 1], t_window, max_events, wd_f32,
+                out + 4 * b, keys + 2 * b);
 }
 
 // 10^4-scale check of the device stream: from `key`, n successive
@@ -267,19 +312,46 @@ __global__ void threefry_draws_kernel(uint32_t k0, uint32_t k1, int n, uint32_t*
   }
 }
 
+size_t shared_bytes(int n_blocks, int m) {
+  return (size_t)n_blocks * sizeof(double) + (size_t)(2 * m + 2) * sizeof(int);
+}
+
+// Above 48 KB a kernel takes dynamic shared memory only after this call.
+template <typename K>
+cudaError_t allow_shared(K kernel, size_t smem) {
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch_batched(void* prob, void* row_sums, const void* block_sums, const void* aidx,
+                   long long aidx_stride, const void* inv, long long inv_stride,
+                   const void* neigh_idx, const void* rev_slot, void* element, void* charge,
+                   int batch, int n_sites, int n_rows, int n_blocks, int m, void* keys,
+                   double t_window, int max_events, int wd_f32, void* out, cudaStream_t st) {
+  const size_t smem = shared_bytes(n_blocks, m);
+  const cudaError_t e = allow_shared(kmc_event_loop_batched_kernel<T>, smem);
+  if (e != cudaSuccess) return (int)e;
+  kmc_event_loop_batched_kernel<T><<<batch, kThreads, smem, st>>>(
+      static_cast<T*>(prob), static_cast<double*>(row_sums),
+      static_cast<const double*>(block_sums), static_cast<const int*>(aidx), aidx_stride,
+      static_cast<const int*>(inv), inv_stride, static_cast<const int*>(neigh_idx),
+      static_cast<const int*>(rev_slot), static_cast<int*>(element), static_cast<int*>(charge),
+      n_sites, n_rows, n_blocks, m, static_cast<uint32_t*>(keys), t_window, max_events,
+      wd_f32, static_cast<double*>(out));
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(void* prob, void* row_sums, const void* block_sums, const void* aidx,
            const void* inv, const void* neigh_idx, const void* rev_slot, void* element,
            void* charge, int n_rows, int n_blocks, int m, uint32_t k0, uint32_t k1,
            double t_window, int max_events, int wd_f32, void* out, cudaStream_t st) {
-  const size_t smem = (size_t)n_blocks * sizeof(double) + (size_t)(2 * m + 2) * sizeof(int);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kmc_event_loop_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const size_t smem = shared_bytes(n_blocks, m);
+  const cudaError_t e = allow_shared(kmc_event_loop_kernel<T>, smem);
+  if (e != cudaSuccess) return (int)e;
   kmc_event_loop_kernel<T><<<1, kThreads, smem, st>>>(
       static_cast<T*>(prob), static_cast<double*>(row_sums),
       static_cast<const double*>(block_sums), static_cast<const int*>(aidx),
@@ -314,6 +386,36 @@ extern "C" int dkmc_kmc_event_loop(void* prob, int is_f64, void* row_sums,
                 : launch<float>(prob, row_sums, block_sums, aidx, inv, neigh_idx, rev_slot,
                                 element, charge, n_rows, n_blocks, m, k0, k1, t_window,
                                 max_events, wd_f32, out, st);
+}
+
+// B replicas in one launch, one block a replica (kmc_event_loop_batched_kernel):
+// prob [B, n_rows, m], row_sums [B, n_blocks * 128] (overwritten),
+// block_sums [B, n_blocks] (read), aidx [n_rows] or [B, n_rows] (aidx_stride
+// 0 or n_rows), inv [N] or [B, N] (inv_stride 0 or N), neigh_idx and
+// rev_slot [N, m] shared, element and charge [B, N] updated in place, keys
+// [B, 2] (uint32) read and overwritten with the new keys, out [B, 4].
+// Returns the cudaError_t of the launch.
+extern "C" int dkmc_kmc_event_loop_batched(void* prob, int is_f64, void* row_sums,
+                                           const void* block_sums, const void* aidx,
+                                           long long aidx_stride, const void* inv,
+                                           long long inv_stride, const void* neigh_idx,
+                                           const void* rev_slot, void* element, void* charge,
+                                           int batch, int n_sites, int n_rows, int n_blocks,
+                                           int m, void* keys, double t_window,
+                                           int max_events, int wd_f32, void* out,
+                                           void* stream) {
+  if (batch <= 0 || n_sites <= 0 || n_rows <= 0 || m <= 0 || n_blocks * kBlock < n_rows
+      || (n_blocks - 1) * kBlock >= n_rows)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch_batched<double>(prob, row_sums, block_sums, aidx, aidx_stride, inv,
+                                         inv_stride, neigh_idx, rev_slot, element, charge,
+                                         batch, n_sites, n_rows, n_blocks, m, keys, t_window,
+                                         max_events, wd_f32, out, st)
+                : launch_batched<float>(prob, row_sums, block_sums, aidx, aidx_stride, inv,
+                                        inv_stride, neigh_idx, rev_slot, element, charge,
+                                        batch, n_sites, n_rows, n_blocks, m, keys, t_window,
+                                        max_events, wd_f32, out, st);
 }
 
 // keys [n, 2] (uint32), u64 and u32 [n, 2]: the new key of each step and the

@@ -57,6 +57,7 @@ namespace {
 constexpr int kThreads = 128;  // threads a block == charged sites a tile
 constexpr int kRows = 2;       // rows a thread
 constexpr int kBlockRows = kThreads * kRows;
+constexpr int kMinSplit = 64;  // charged sites a split takes at least (poisson_grid)
 
 // A&S 7.1.26
 constexpr float kA0 = 0.254829592f, kA1 = -0.284496736f, kA2 = 1.421413741f,
@@ -113,19 +114,19 @@ __device__ __forceinline__ float4 load_site(const float* __restrict__ coords,
   return make_float4(coords[3 * ci], coords[3 * ci + 1], coords[3 * ci + 2], cq[c] * kq);
 }
 
-// Grid (row blocks, splits of the charged set); split s takes the charged
-// sites [s * chunk, min(n_c, (s + 1) * chunk)).  part: [splits][row blocks
-// * kBlockRows] slots, cnt: a ticket a row block.
+// The sweep of one block: row block blockIdx.x, split `split` of n_split,
+// which takes the charged sites [split * chunk, min(n_c, (split + 1) *
+// chunk)).  part: [n_split][row blocks * kBlockRows] slots, cnt: a ticket a
+// row block.
 template <bool PBC>
-__global__ void __launch_bounds__(kThreads)
-poisson_pairwise_kernel(const float* __restrict__ coords, int n,
-                        const int32_t* __restrict__ cidx, const float* __restrict__ cq,
-                        int n_c, int chunk, Scal sc, float* part, int* cnt,
-                        float* __restrict__ out) {
+__device__ __forceinline__ void sweep(const float* __restrict__ coords, int n,
+                                      const int32_t* __restrict__ cidx,
+                                      const float* __restrict__ cq, int n_c, int chunk,
+                                      int split, int n_split, const Scal& sc, float* part,
+                                      int* cnt, float* __restrict__ out) {
   __shared__ float4 buf[2][kThreads];
   __shared__ int s_flag;
   const int tid = threadIdx.x;
-  const int split = blockIdx.y, n_split = gridDim.y;
   const int row0 = blockIdx.x * kBlockRows;
   float xr[kRows], yr[kRows], zr[kRows], acc[kRows];
 #pragma unroll
@@ -179,6 +180,55 @@ poisson_pairwise_kernel(const float* __restrict__ coords, int n,
   }
 }
 
+// Grid (row blocks, splits of the charged set).
+template <bool PBC>
+__global__ void __launch_bounds__(kThreads)
+poisson_pairwise_kernel(const float* __restrict__ coords, int n,
+                        const int32_t* __restrict__ cidx, const float* __restrict__ cq,
+                        int n_c, int chunk, Scal sc, float* part, int* cnt,
+                        float* __restrict__ out) {
+  sweep<PBC>(coords, n, cidx, cq, n_c, chunk, blockIdx.y, gridDim.y, sc, part, cnt, out);
+}
+
+// B replicas in one launch, grid (row blocks, the most splits, replicas).
+// Replica b sweeps its first min(counts[b], cap) charged sites of cidx[b]
+// and cq[b] ([B, cap]), split as the single launch splits them
+// (ops/pairwise.py poisson_grid: min(want, ceil(n_c / kMinSplit)), at least
+// one): its count is read here, on the device, and the blocks of splits it
+// does not have leave at once, so each replica's sums, split by split and
+// then over the splits, are the single launch's.  part: [B][gridDim.y][row
+// blocks * kBlockRows], cnt: a ticket a replica and row block.
+template <bool PBC>
+__global__ void __launch_bounds__(kThreads)
+poisson_pairwise_batched_kernel(const float* __restrict__ coords, int n,
+                                const int32_t* __restrict__ cidx,
+                                const float* __restrict__ cq,
+                                const int32_t* __restrict__ counts, int cap, int want,
+                                Scal sc, float* part, int* cnt, float* __restrict__ out) {
+  const int b = blockIdx.z;
+  const int n_c = min(counts[b], cap);
+  const int n_split = max(1, min(want, (n_c + kMinSplit - 1) / kMinSplit));
+  if ((int)blockIdx.y >= n_split) return;
+  const int chunk = (n_c + n_split - 1) / n_split;
+  const int64_t n_pad = (int64_t)gridDim.x * kBlockRows;
+  sweep<PBC>(coords, n, cidx + (int64_t)b * cap, cq + (int64_t)b * cap, n_c, chunk, blockIdx.y,
+             n_split, sc, part + (int64_t)b * gridDim.y * n_pad, cnt + (int64_t)b * gridDim.x,
+             out + (int64_t)b * n);
+}
+
+Scal scalars(float inv_s, float kq, float lat_y, float lat_z) {
+  const double s = 1e-10 * (double)inv_s;
+  Scal sc;
+  sc.c_r = (float)(0.3275911 * s);
+  sc.c_e = (float)(-s * s * 1.4426950408889634);
+  sc.kq = (float)((double)kq * 1e10);
+  sc.ly = lat_y;
+  sc.lz = lat_z;
+  sc.ily = 1.0f / lat_y;
+  sc.ilz = 1.0f / lat_z;
+  return sc;
+}
+
 }  // namespace
 
 // V [n] of the charged sites cidx [n_c] (int32) with charges cq [n_c] (f32)
@@ -195,15 +245,7 @@ extern "C" int dkmc_poisson_pairwise(const void* coords, int n, const void* cidx
   if (n <= 0 || n_c < 0 || n_split <= 0 || n_split > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const double s = 1e-10 * (double)inv_s;
-  Scal sc;
-  sc.c_r = (float)(0.3275911 * s);
-  sc.c_e = (float)(-s * s * 1.4426950408889634);
-  sc.kq = (float)((double)kq * 1e10);
-  sc.ly = lat_y;
-  sc.lz = lat_z;
-  sc.ily = 1.0f / lat_y;
-  sc.ilz = 1.0f / lat_z;
+  const Scal sc = scalars(inv_s, kq, lat_y, lat_z);
   const int chunk = (n_c + n_split - 1) / n_split;
   const dim3 grid((unsigned)((n + kBlockRows - 1) / kBlockRows), (unsigned)n_split);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -219,6 +261,45 @@ extern "C" int dkmc_poisson_pairwise(const void* coords, int n, const void* cidx
   } else {
     poisson_pairwise_kernel<false><<<grid, kThreads, 0, st>>>(c, n, ci, q, n_c, chunk, sc,
                                                               pt, ct, o);
+  }
+  return (int)cudaGetLastError();
+}
+
+// V [B, n] of B replicas: replica b's first min(counts[b], cap) charged sites
+// of cidx [B, cap] (int32) with charges cq [B, cap] (f32) over the shared
+// rows coords [n, 3] (f32); counts [B] (int32) on the device.  want: the
+// most splits a replica may take (ops/pairwise.py poisson_grid); max_split:
+// the grid's splits, at least every replica's.  part: scratch of B *
+// max_split * ceil(n / 256) * 256 floats and cnt: B * ceil(n / 256) int32
+// tickets, 0 before the call and 0 again after it.  Returns the cudaError_t
+// of the launch.
+extern "C" int dkmc_poisson_pairwise_batched(const void* coords, int n, const void* cidx,
+                                             const void* cq, const void* counts, int batch,
+                                             int cap, float inv_s, float kq, float lat_y,
+                                             float lat_z, int pbc, int want, int max_split,
+                                             void* part, void* cnt, void* out,
+                                             void* stream) {
+  if (n <= 0 || batch <= 0 || batch > 65535 || cap < 0 || want <= 0 || max_split <= 0
+      || max_split > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Scal sc = scalars(inv_s, kq, lat_y, lat_z);
+  const dim3 grid((unsigned)((n + kBlockRows - 1) / kBlockRows), (unsigned)max_split,
+                  (unsigned)batch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(coords);
+  const int32_t* ci = static_cast<const int32_t*>(cidx);
+  const float* q = static_cast<const float*>(cq);
+  const int32_t* cn = static_cast<const int32_t*>(counts);
+  float* pt = static_cast<float*>(part);
+  int* ct = static_cast<int*>(cnt);
+  float* o = static_cast<float*>(out);
+  if (pbc) {
+    poisson_pairwise_batched_kernel<true><<<grid, kThreads, 0, st>>>(c, n, ci, q, cn, cap, want,
+                                                                     sc, pt, ct, o);
+  } else {
+    poisson_pairwise_batched_kernel<false><<<grid, kThreads, 0, st>>>(c, n, ci, q, cn, cap,
+                                                                      want, sc, pt, ct, o);
   }
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,12 @@ iteration counts agree with ``devicekmc_tpu.ops.cg``, and every result is
 bit-equal to a run that reads the condition every iteration (``CHUNKS =
 (1,)``).  The mixed-precision solver's outer loop still reads one norm a
 refinement round.
+
+:func:`cg_solve_batched` solves B independent systems ([B, N] vectors) in
+one loop, as the JAX package's vmap of its CG does: each replica has its own
+stop flag, a replica that has stopped keeps its iterate, residual, r'z and
+count, and the stop flags of all replicas are read once a chunk as one
+vector; the chunks follow the slowest replica.
 """
 
 from __future__ import annotations
@@ -147,6 +153,121 @@ def cg_solve(
         read = state(torch.zeros((), dtype=torch.float64, device=b.device))
         readbacks += 1
     return CGResult(x=x, iters=it, residual=read[1], converged=bool(read[2]))
+
+
+class BatchedCGResult(NamedTuple):
+    x: torch.Tensor           # [B, N]
+    iters: torch.Tensor       # [B] int64, on the device
+    residual: torch.Tensor    # [B] float64: final ||r||
+    converged: torch.Tensor   # [B] bool: final ||r|| met the tolerance
+
+
+def rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B] dot products of the rows of ``a`` and ``b`` ([B, N]).  For CPU
+    tensors each row goes through ``torch.dot``, so a replica's solve is its
+    single solve bit for bit; on the card one row-sum reduction serves all
+    replicas (``torch.dot``'s cuBLAS reduction has no batched form of the
+    same order, so there a replica may differ from its single solve in the
+    last bits)."""
+    if a.device.type == "cpu":
+        return torch.stack([torch.dot(x, y) for x, y in zip(a, b)])
+    return (a * b).sum(dim=1)
+
+
+def cg_solve_batched(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    diag: torch.Tensor,
+    tol: float = 1e-12,
+    maxiter: int = 50000,
+    active: Optional[torch.Tensor] = None,
+) -> BatchedCGResult:
+    """:func:`cg_solve` (criterion "r", Jacobi ``diag``) of B systems at
+    once: ``matvec`` maps [B, N] to [B, N]; ``b``, ``x0``, ``diag`` are [B,
+    N].  ``active`` [B] bool (default all): the replicas to solve; the others
+    keep ``x0`` and count 0 iterations.  Replica b's iterate and count are
+    :func:`cg_solve`'s on system b (bit for bit on the CPU, see
+    :func:`rowdot`).  One read a chunk, of all replicas' flags together."""
+    global readbacks
+    B = b.shape[0]
+    dev = b.device
+    minv = torch.where(diag != 0, 1.0 / diag, 1.0)
+    ref = torch.sqrt(rowdot(b, b))
+    thresh = tol * torch.where(ref > 0, ref, 1.0)
+    thresh2 = thresh * thresh
+    act0 = (torch.ones(B, dtype=torch.bool, device=dev) if active is None
+            else active.to(device=dev, dtype=torch.bool))
+
+    x = x0
+    r = b - matvec(x0)
+    z = minv * r
+    p = z
+    rz = rowdot(r, z)
+    iters = torch.zeros(B, dtype=torch.int64, device=dev)
+
+    def state(ran):
+        """Per replica: (iterations of the chunk that ran, ||r||, criterion
+        met, continue, threshold), read back together; and ||r|| and the
+        criterion as device tensors."""
+        m2 = rowdot(r, r)
+        norm = torch.sqrt(torch.abs(m2)).to(torch.float64)
+        met = m2 <= thresh2
+        return torch.stack([
+            ran.to(torch.float64), norm, met.to(torch.float64),
+            (act0 & (m2 > thresh2)).to(torch.float64),
+            thresh.to(torch.float64)], dim=1).tolist(), norm, met
+
+    it, chunk_no = 0, 0
+    read = first = None
+    while it < maxiter:
+        n = CHUNKS[min(chunk_no, len(CHUNKS) - 1)]
+        chunk_no += 1
+        if first is not None and it > first[0]:
+            # no longer than the slowest running replica's iterations left at
+            # its mean rate of convergence since the first read
+            left = []
+            for (_, nrm, _, cont, th), f in zip(read, first[1]):
+                if not cont:
+                    continue
+                if not (0 < nrm < f and th > 0):
+                    left = None
+                    break
+                rate = math.log(nrm / f) / (it - first[0])
+                left.append(max(1, math.ceil(math.log(th / nrm) / rate)))
+            if left:
+                n = min(n, max(left))
+        n = min(n, maxiter - it)
+        flags = []
+        for _ in range(n):
+            act = act0 & (rowdot(r, r) > thresh2)
+            ap = matvec(p)
+            denom = rowdot(p, ap)
+            alpha = torch.where(denom != 0, rz / denom, 0.0)[:, None]
+            x_n = x + alpha * p
+            r_n = r - alpha * ap
+            z = minv * r_n
+            rz_n = rowdot(r_n, z)
+            beta = torch.where(rz != 0, rz_n / rz, 0.0)[:, None]
+            a2 = act[:, None]
+            x = torch.where(a2, x_n, x)
+            r = torch.where(a2, r_n, r)
+            rz = torch.where(act, rz_n, rz)
+            p = z + beta * p
+            flags.append(act)
+        ran = torch.stack(flags).sum(dim=0)
+        iters = iters + ran
+        read, norm, met = state(ran)
+        readbacks += 1
+        it += n
+        if first is None:
+            first = (it, [row[1] for row in read])
+        if not any(row[3] for row in read):
+            break
+    if read is None:
+        read, norm, met = state(torch.zeros(B, dtype=torch.int64, device=dev))
+        readbacks += 1
+    return BatchedCGResult(x=x, iters=iters, residual=norm, converged=met)
 
 
 def cg_solve_mixed(

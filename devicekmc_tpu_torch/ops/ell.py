@@ -19,5 +19,7 @@ def safe_index(neigh_idx: torch.Tensor) -> torch.Tensor:
 def ell_matvec(diag: torch.Tensor, vals: torch.Tensor, safe_idx: torch.Tensor,
                x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with A = diag + off-diagonal ELL values; ``safe_idx`` is
-    :func:`safe_index` of the neighbour array."""
-    return diag * x + (vals * x[safe_idx]).sum(dim=1)
+    :func:`safe_index` of the neighbour array.  With a leading replica axis
+    (``diag``, ``x`` [B, N], ``vals`` [B, N, max_nn]) each replica's product
+    is its own, row by row the same arithmetic."""
+    return diag * x + (vals * x[..., safe_idx]).sum(dim=-1)

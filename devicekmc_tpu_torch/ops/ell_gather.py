@@ -15,7 +15,10 @@ one contiguous range of tiles with a grid of a few blocks an SM
 
 :func:`ell_gather` launches the kernel for CUDA tensors and takes the plain
 version :func:`ell_gather_plain` only for CPU tensors.  ``ell_gather.launches``
-counts kernel launches.  :func:`ell_stream_copy` runs the kernel's loop
+counts kernel launches.  :func:`ell_gather_batched` gathers the channels of B
+replicas of one geometry ([B, N] each) in one launch (its own count), the
+index plan shared or one a replica; :func:`ell_gather_batched_plain` is the
+single plain gather replica by replica.  :func:`ell_stream_copy` runs the kernel's loop
 without the gather: a measurement aid, launched on no path, that gives the
 streams' floor beside the gather.
 """
@@ -151,6 +154,67 @@ def ell_gather(neigh_idx: torch.Tensor, values: Sequence[torch.Tensor]
 
 
 ell_gather.launches = 0
+
+
+def ell_gather_batched_plain(neigh_idx: torch.Tensor, values: Sequence[torch.Tensor]
+                             ) -> List[torch.Tensor]:
+    """The plain version of :func:`ell_gather_batched`: :func:`ell_gather_plain`
+    replica by replica."""
+    values = list(values)
+    per = [ell_gather_plain(neigh_idx if neigh_idx.dim() == 2 else neigh_idx[b],
+                            [v[b] for v in values])
+           for b in range(values[0].shape[0])]
+    return [torch.stack([p[c] for p in per]) for c in range(len(values))]
+
+
+def ell_gather_batched(neigh_idx: torch.Tensor, values: Sequence[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+    """Gather each [B, N] 32-bit tensor of ``values`` (B replicas of a
+    channel) at ``neigh_idx``: [R, M] int32 shared by the replicas, or [B, R,
+    M] one plan a replica (pad -1, entries < N).  Returns a list of [B, R, M]
+    tensors of the input dtypes; replica b is ``ell_gather`` of replica b's
+    channels at its plan, bit for bit."""
+    values = list(values)
+    if neigh_idx.device.type == "cpu":
+        return ell_gather_batched_plain(neigh_idx, values)
+    if not 1 <= len(values) <= MAX_CHANNELS:
+        raise ValueError(f"ell_gather_batched: 1 to {MAX_CHANNELS} channels, "
+                         f"got {len(values)}")
+    B, n_src = values[0].shape if values[0].dim() == 2 else (0, 0)
+    shared = neigh_idx.dim() == 2
+    if neigh_idx.device.type != "cuda" or neigh_idx.dtype != torch.int32 \
+            or neigh_idx.dim() not in (2, 3) or not neigh_idx.is_contiguous() \
+            or (not shared and neigh_idx.shape[0] != B):
+        raise ValueError("ell_gather_batched: neigh_idx must be a contiguous int32 "
+                         "[R, M] or [B, R, M] tensor on a CUDA device")
+    for v in values:
+        if v.device != neigh_idx.device or v.dim() != 2 or not v.is_contiguous() \
+                or v.dtype not in _WORD_DTYPES or tuple(v.shape) != (B, n_src):
+            raise ValueError(
+                "ell_gather_batched: each channel must be a contiguous [B, N] float32 "
+                f"or int32 tensor on {neigh_idx.device}, all of one shape")
+    out_shape = (B,) + tuple(neigh_idx.shape[-2:])
+    outs = [torch.empty(out_shape, dtype=v.dtype, device=v.device) for v in values]
+    n_pairs = neigh_idx.shape[-2] * neigh_idx.shape[-1]
+    if B == 0 or n_pairs == 0:
+        return outs
+    srcs = [v.data_ptr() for v in values] + [None] * (MAX_CHANNELS - len(values))
+    dsts = [o.data_ptr() for o in outs] + [None] * (MAX_CHANNELS - len(outs))
+    fn = _build.load("ell_gather").dkmc_ell_gather_batched
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, ll, i, p, p, p, p, i, i, i, ll, i, p]
+        fn.restype = ctypes.c_int
+    k, blocks = launch_grid(n_pairs, len(values), neigh_idx.device)
+    err = fn(neigh_idx.data_ptr(), n_pairs, len(values), *srcs, *dsts, k, blocks, B, n_src,
+             int(not shared), torch.cuda.current_stream(neigh_idx.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ell_gather_batched kernel launch failed: cudaError {err}")
+    ell_gather_batched.launches += 1
+    return outs
+
+
+ell_gather_batched.launches = 0
 
 
 def ell_stream_copy(neigh_idx: torch.Tensor, nch: int) -> List[torch.Tensor]:

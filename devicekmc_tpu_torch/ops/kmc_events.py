@@ -19,6 +19,13 @@ k0, k1]`` (f64), which the caller reads once per superstep; ``prob``,
 ``kmc_event_loop.launches`` counts kernel launches.  :func:`threefry_draws`
 runs the kernel's random stream alone, to hold it against ``rng.py``.
 
+:func:`kmc_event_loop_batched` runs B replicas' loops in ONE launch, one
+block of 512 threads a replica, each with its own table, sums, element,
+charge and key; the keys ([B, 2] uint32) are read from the device and the
+new ones written there, and the result is one [B, 4] device tensor.  Its
+plain version :func:`kmc_event_loop_batched_plain` is the plain loop replica
+by replica.
+
 Bound on the card: a chain of dependent per-event steps (the key split, three
 searches, the zeroing, the sums, each behind a barrier), not bytes: an event
 touches 2m+2 rows of m entries.
@@ -185,14 +192,25 @@ def kmc_event_loop_plain(prob, row_sums, block_sums, aidx, inv, neigh_idx, rev_s
 def _fn(symbol):
     fn = getattr(_build.load("kmc_events"), symbol)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if symbol == "dkmc_kmc_event_loop":
             fn.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_uint,
                            ctypes.c_uint, ctypes.c_double, i, i, p, p]
+        elif symbol == "dkmc_kmc_event_loop_batched":
+            fn.argtypes = [p, i, p, p, p, ll, p, ll, p, p, p, p, i, i, i, i, i, p,
+                           ctypes.c_double, i, i, p, p]
         else:
             fn.argtypes = [ctypes.c_uint, ctypes.c_uint, i, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check(name, dev, checks):
+    for what, t, dtype, shape in checks:
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous() \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {what} must be a contiguous {dtype} tensor of "
+                             f"shape {shape} on {dev}")
 
 
 def kmc_event_loop(prob, row_sums, block_sums, aidx, inv, neigh_idx, rev_slot,
@@ -222,19 +240,15 @@ def kmc_event_loop(prob, row_sums, block_sums, aidx, inv, neigh_idx, rev_slot,
         raise ValueError("kmc_event_loop: prob must be a contiguous f32 or f64 tensor")
     if n_rows == 0 or n_blocks != -(-n_rows // BLOCK):
         raise ValueError(f"kmc_event_loop: {n_blocks} blocks for {n_rows} rows")
-    for name, t, dtype, shape in (
-            ("row_sums", row_sums, torch.float64, (n_blocks * BLOCK,)),
-            ("block_sums", block_sums, torch.float64, (n_blocks,)),
-            ("aidx", aidx, torch.int32, (n_rows,)),
-            ("inv", inv, torch.int32, (element.shape[0],)),
-            ("neigh_idx", neigh_idx, torch.int32, (element.shape[0], m)),
-            ("rev_slot", rev_slot, torch.int32, (element.shape[0], m)),
-            ("element", element, torch.int32, (element.shape[0],)),
-            ("charge", charge, torch.int32, (element.shape[0],))):
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous() \
-                or tuple(t.shape) != shape:
-            raise ValueError(f"kmc_event_loop: {name} must be a contiguous {dtype} "
-                             f"tensor of shape {shape} on {dev}")
+    _check("kmc_event_loop", dev, (
+        ("row_sums", row_sums, torch.float64, (n_blocks * BLOCK,)),
+        ("block_sums", block_sums, torch.float64, (n_blocks,)),
+        ("aidx", aidx, torch.int32, (n_rows,)),
+        ("inv", inv, torch.int32, (element.shape[0],)),
+        ("neigh_idx", neigh_idx, torch.int32, (element.shape[0], m)),
+        ("rev_slot", rev_slot, torch.int32, (element.shape[0], m)),
+        ("element", element, torch.int32, (element.shape[0],)),
+        ("charge", charge, torch.int32, (element.shape[0],))))
     smem = 8 * n_blocks + 4 * (2 * m + 2)  # the block sums, the touched rows
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"kmc_event_loop: {n_blocks} blocks of sums need {smem} bytes "
@@ -256,6 +270,90 @@ def kmc_event_loop(prob, row_sums, block_sums, aidx, inv, neigh_idx, rev_slot,
 
 
 kmc_event_loop.launches = 0
+
+
+def kmc_event_loop_batched_plain(prob, row_sums, block_sums, aidx, inv, neigh_idx,
+                                 rev_slot, element, charge, keys, t_window: float,
+                                 max_events: int, work_dtype
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """The plain version of :func:`kmc_event_loop_batched`:
+    :func:`kmc_event_loop_plain` replica by replica, each from its key."""
+    outs = []
+    for b, key in enumerate(keys.tolist()):
+        outs.append(kmc_event_loop_plain(
+            prob[b], row_sums[b], block_sums[b], aidx if aidx.dim() == 1 else aidx[b],
+            inv if inv.dim() == 1 else inv[b], neigh_idx, rev_slot, element[b], charge[b],
+            (int(key[0]), int(key[1])), t_window, max_events, work_dtype))
+    res = torch.stack([o[2] for o in outs])
+    new_keys = res[:, 2:].to(torch.int64).to(torch.uint32)
+    return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
+            new_keys, res)
+
+
+def kmc_event_loop_batched(prob, row_sums, block_sums, aidx, inv, neigh_idx, rev_slot,
+                           element, charge, keys, t_window: float, max_events: int,
+                           work_dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """The event loops of B replicas' supersteps in one launch.
+
+    ``prob`` [B, n_rows, m], ``row_sums`` [B, n_blocks * BLOCK] and
+    ``block_sums`` [B, n_blocks] as :func:`kmc_event_loop` takes them, a
+    replica a row; ``aidx`` [n_rows] and ``inv`` [N] shared, or [B, n_rows]
+    and [B, N] one a replica (each replica's compacted rows);
+    ``neigh_idx`` and ``rev_slot`` [N, m] shared; ``element`` and ``charge``
+    [B, N] int32; ``keys`` [B, 2] uint32 on the device.  Returns
+    ``(element, charge, keys, result)``: clones with the events applied, the
+    new keys [B, 2] uint32 and ``[event_time, count, k0, k1]`` of each replica
+    as one [B, 4] f64 device tensor.  Nothing is read by the host."""
+    if prob.device.type == "cpu":
+        return kmc_event_loop_batched_plain(prob, row_sums, block_sums, aidx, inv,
+                                            neigh_idx, rev_slot, element, charge, keys,
+                                            t_window, max_events, work_dtype)
+    dev = prob.device
+    if dev.type != "cuda":
+        raise ValueError(f"kmc_event_loop_batched: unsupported device {dev}")
+    if prob.dtype not in _NP_DTYPE or not prob.is_contiguous() or prob.dim() != 3:
+        raise ValueError("kmc_event_loop_batched: prob must be a contiguous [B, n_rows, m] "
+                         "f32 or f64 tensor")
+    B, n_rows, m = prob.shape
+    N = element.shape[-1]
+    n_blocks = block_sums.shape[-1]
+    if n_rows == 0 or n_blocks != -(-n_rows // BLOCK):
+        raise ValueError(f"kmc_event_loop_batched: {n_blocks} blocks for {n_rows} rows")
+    per_aidx, per_inv = aidx.dim() == 2, inv.dim() == 2
+    _check("kmc_event_loop_batched", dev, (
+        ("row_sums", row_sums, torch.float64, (B, n_blocks * BLOCK)),
+        ("block_sums", block_sums, torch.float64, (B, n_blocks)),
+        ("aidx", aidx, torch.int32, (B, n_rows) if per_aidx else (n_rows,)),
+        ("inv", inv, torch.int32, (B, N) if per_inv else (N,)),
+        ("neigh_idx", neigh_idx, torch.int32, (N, m)),
+        ("rev_slot", rev_slot, torch.int32, (N, m)),
+        ("element", element, torch.int32, (B, N)),
+        ("charge", charge, torch.int32, (B, N)),
+        ("keys", keys, torch.uint32, (B, 2))))
+    smem = 8 * n_blocks + 4 * (2 * m + 2)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"kmc_event_loop_batched: {n_blocks} blocks of sums need {smem} "
+                         f"bytes of shared memory, more than {MAX_SHARED_BYTES}")
+    element = element.clone()
+    charge = charge.clone()
+    keys = keys.clone()
+    out = torch.empty((B, 4), dtype=torch.float64, device=dev)
+    err = _fn("dkmc_kmc_event_loop_batched")(
+        prob.data_ptr(), int(prob.dtype == torch.float64), row_sums.data_ptr(),
+        block_sums.data_ptr(), aidx.data_ptr(), n_rows if per_aidx else 0, inv.data_ptr(),
+        N if per_inv else 0, neigh_idx.data_ptr(), rev_slot.data_ptr(), element.data_ptr(),
+        charge.data_ptr(), B, N, n_rows, n_blocks, m, keys.data_ptr(), float(t_window),
+        int(max_events), int(work_dtype == torch.float32), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kmc_event_loop_batched kernel launch failed: cudaError {err}")
+    kmc_event_loop_batched.launches += 1
+    return element, charge, keys, out
+
+
+kmc_event_loop_batched.launches = 0
 
 
 def threefry_draws(key: rng.Key, n: int, device="cuda"

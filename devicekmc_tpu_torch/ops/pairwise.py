@@ -17,7 +17,12 @@ source for the design; :func:`poisson_grid` is its grid rule.
 :func:`poisson_pairwise` launches the kernel for CUDA tensors and takes the
 plain version :func:`poisson_pairwise_plain` only for CPU tensors.
 ``poisson_pairwise.launches`` counts kernel launches (one device launch a
-call).
+call).  :func:`poisson_pairwise_batched` sweeps B replicas' charged lists
+over the shared coordinates in one launch, each replica's count read on the
+device and its charged set split as the single launch splits it, so replica
+b's V is the single kernel's bit for bit; its plain version
+:func:`poisson_pairwise_batched_plain` is the single plain sweep replica by
+replica.
 """
 
 from __future__ import annotations
@@ -86,23 +91,30 @@ def poisson_pairwise_plain(coords, charged_idx, charged_q, inv_s, kq, lat_y,
     return out
 
 
+def _want_splits(blocks: int, n_sm: int) -> int:
+    """The most splits of the charged set for ``blocks`` row blocks: enough
+    for 24 blocks an SM."""
+    return -(-_BLOCKS_PER_SM * n_sm // max(blocks, 1))
+
+
 def poisson_grid(n: int, n_c: int, n_sm: int = _build.H100_SMS):
     """(row blocks, splits of the charged set) of the kernel's grid for n
     rows and n_c charged sites on a card of ``n_sm`` streaming
     multiprocessors: 256 rows a block; the charged set is split where the row
     blocks alone leave the card short of 24 blocks an SM (small blocks
-    balance the SMs' work), into at most one split a 64 charged sites."""
+    balance the SMs' work), into at most one split a 64 charged sites.  The
+    batched kernel applies the same rule to each replica's count."""
     blocks = -(-n // (_THREADS * _ROWS))
-    want = -(-_BLOCKS_PER_SM * n_sm // max(blocks, 1))
-    return blocks, max(1, min(want, -(-n_c // _MIN_SPLIT)))
+    return blocks, max(1, min(_want_splits(blocks, n_sm), -(-n_c // _MIN_SPLIT)))
 
 
-def _lib():
-    lib = _build.load("pairwise")
-    fn = lib.dkmc_poisson_pairwise
+def _lib(symbol="dkmc_poisson_pairwise"):
+    fn = getattr(_build.load("pairwise"), symbol)
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, p, i, f, f, f, f, i, i, p, p, p, p]
+        fn.argtypes = ([p, i, p, p, i, f, f, f, f, i, i, p, p, p, p]
+                       if symbol == "dkmc_poisson_pairwise" else
+                       [p, i, p, p, p, i, i, f, f, f, f, i, i, i, p, p, p, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -149,3 +161,68 @@ def poisson_pairwise(coords: torch.Tensor, charged_idx: torch.Tensor,
 
 
 poisson_pairwise.launches = 0
+
+
+def poisson_pairwise_batched_plain(coords, charged_idx, charged_q, counts, inv_s, kq,
+                                   lat_y, lat_z, pbc: bool) -> torch.Tensor:
+    """The plain version of :func:`poisson_pairwise_batched`:
+    :func:`poisson_pairwise_plain` of each replica's first ``min(count,
+    cap)`` charged sites."""
+    cap = charged_idx.shape[1]
+    return torch.stack([
+        poisson_pairwise_plain(coords, charged_idx[b, :n], charged_q[b, :n], inv_s, kq,
+                               lat_y, lat_z, pbc)
+        for b, n in enumerate(min(int(c), cap) for c in counts.tolist())])
+
+
+def poisson_pairwise_batched(coords: torch.Tensor, charged_idx: torch.Tensor,
+                             charged_q: torch.Tensor, counts: torch.Tensor, inv_s: float,
+                             kq: float, lat_y: float, lat_z: float, pbc: bool
+                             ) -> torch.Tensor:
+    """V [B, N] f32 of B replicas in one launch: f32 ``coords`` [N,3] shared,
+    int32 ``charged_idx`` [B, cap] and f32 ``charged_q`` [B, cap] (each
+    replica's charged list, filled past its count), int32 ``counts`` [B] on
+    the device (the true counts; a replica sweeps its first ``min(count,
+    cap)``); the scalars come from :func:`kernel_scalars`.  No count is read
+    by the host."""
+    if coords.device.type == "cpu":
+        return poisson_pairwise_batched_plain(coords, charged_idx, charged_q, counts,
+                                              inv_s, kq, lat_y, lat_z, pbc)
+    if coords.device.type != "cuda":
+        raise ValueError(f"poisson_pairwise_batched: unsupported device {coords.device}")
+    if coords.dtype != torch.float32 or coords.dim() != 2 or coords.shape[1] != 3 \
+            or not coords.is_contiguous():
+        raise ValueError("poisson_pairwise_batched: coords must be a contiguous [N,3] "
+                         "float32 tensor")
+    B = charged_idx.shape[0]
+    if charged_idx.dtype != torch.int32 or charged_q.dtype != torch.float32 \
+            or counts.dtype != torch.int32 or charged_idx.dim() != 2 \
+            or charged_q.shape != charged_idx.shape or tuple(counts.shape) != (B,) \
+            or not (charged_idx.is_contiguous() and charged_q.is_contiguous()
+                    and counts.is_contiguous()):
+        raise ValueError("poisson_pairwise_batched: charged_idx int32 [B, cap], charged_q "
+                         "float32 [B, cap] and counts int32 [B], contiguous")
+    if any(t.device != coords.device for t in (charged_idx, charged_q, counts)):
+        raise ValueError("poisson_pairwise_batched: all tensors on one device")
+    n, cap = coords.shape[0], charged_idx.shape[1]
+    out = torch.empty((B, n), dtype=torch.float32, device=coords.device)
+    if n == 0 or B == 0:
+        return out
+    n_sm = _build.sm_count(coords.device)
+    blocks, max_split = poisson_grid(n, cap, n_sm)
+    part = torch.empty(B * max_split * blocks * _THREADS * _ROWS, dtype=torch.float32,
+                       device=coords.device)
+    cnt = _build.tickets(coords.device, B * blocks)
+    stream = torch.cuda.current_stream(coords.device).cuda_stream
+    err = _lib("dkmc_poisson_pairwise_batched")(
+        coords.data_ptr(), n, charged_idx.data_ptr(), charged_q.data_ptr(),
+        counts.data_ptr(), B, cap, inv_s, kq, lat_y, lat_z, int(bool(pbc)),
+        _want_splits(blocks, n_sm), max_split, part.data_ptr(), cnt.data_ptr(),
+        out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"poisson_pairwise_batched kernel launch failed: cudaError {err}")
+    poisson_pairwise_batched.launches += 1
+    return out
+
+
+poisson_pairwise_batched.launches = 0

@@ -25,6 +25,10 @@ event, and one small result (time, count, key) read per superstep.  The
 host loop that reads ten scalars an event is its plain version and runs for
 CPU tensors; ``event_mode = "scan"`` and the flat selection stay host loops,
 the equivalence checks of the incremental loop.
+
+:func:`execute_superstep_incremental_batched` runs the incremental superstep
+of B replicas (a batched state): the tables [B, n_rows, m] with their sums,
+one launch of the batched event loop, and nothing read back.
 """
 
 from __future__ import annotations
@@ -37,8 +41,8 @@ import torch
 from .. import constants as C
 from .. import rng
 from ..ops import kmc_events
-from ..ops.compact import nonzero_fixed
-from ..ops.ell_gather import ell_gather
+from ..ops.compact import nonzero_fixed, nonzero_fixed_batched
+from ..ops.ell_gather import ell_gather, ell_gather_batched
 from ..ops.kmc_events import execute_event, event_type, time_draw
 from ..state import Geometry, PhysParams, SimState, replace
 from ..structure import Element
@@ -62,7 +66,7 @@ def pack_site_code(elem, charge, site_layer) -> torch.Tensor:
 def rates_from_pairs(
     params: PhysParams,
     layer_E,        # [n_layers, 4]
-    T_bg: float,
+    T_bg,           # float, or [B] tensor for B replicas
     row_elem,       # [R]
     row_charge,     # [R]
     row_phi,        # [R]
@@ -73,19 +77,21 @@ def rates_from_pairs(
     neigh_valid,    # [R, m]
 ) -> torch.Tensor:
     """The four-event-type Arrhenius rate law on pre-gathered pair data, in
-    ``phi_j.dtype``, with the JAX package's arithmetic order."""
+    ``phi_j.dtype``, with the JAX package's arithmetic order.  With a leading
+    replica axis (row data [B, R], pair data [B, R, m], ``T_bg`` [B]) each
+    replica's table is its single table, bit for bit."""
     dtype = phi_j.dtype
     e_j = code_j >> 8
     q_j = (((code_j >> 4) & 15) - 8).to(dtype)
     lay_j = code_j & 15
 
-    e_i = row_elem[:, None]
-    q_i = row_charge.to(dtype)[:, None]
-    dphi = row_phi[:, None] - phi_j
+    e_i = row_elem[..., None]
+    q_i = row_charge.to(dtype)[..., None]
+    dphi = row_phi[..., None] - phi_j
 
     v1 = v1.to(dtype)
     v2 = v1 * 2.0
-    lay_i = row_layer[:, None]
+    lay_i = row_layer[..., None]
     layer_E = layer_E.to(dtype)
 
     def _table(col, lay):
@@ -121,15 +127,32 @@ def rates_from_pairs(
     any_event = (m_gen | m_rec | m_vdf | m_idf) & neigh_valid
 
     npd, wd = _NP_DTYPE[dtype], _NP_DTYPE[params.dtype]
-    kT = float(npd(wd(C.KB_EV) * wd(T_bg)))
+    if torch.is_tensor(T_bg):
+        # kT of each replica, rounded as the single path rounds it on the host
+        kT = (T_bg.to(params.dtype) * float(wd(C.KB_EV))).to(dtype)[:, None, None]
+        # PyTorch divides by a host scalar on the card as a product with its
+        # reciprocal, on the CPU by true division: the same here
+        x = -EA * torch.reciprocal(kT) if EA.device.type == "cuda" else -EA / kT
+    else:
+        x = -EA / float(npd(wd(C.KB_EV) * wd(T_bg)))
     # clamp the Arrhenius exponent and the rate so Psum stays finite: an
     # exp(+80) f32 rate already fires "instantly"
     exp_cap = 80.0 if dtype == torch.float32 else 600.0
     p_cap = 1e30 if dtype == torch.float32 else 1e290
     freq = float(npd(params.freq))
-    P = freq * torch.exp(torch.clamp(-EA / kT, max=exp_cap))
+    P = freq * torch.exp(torch.clamp(x, max=exp_cap))
     P = torch.clamp(P, max=p_cap)
     return torch.where(any_event, P, 0.0)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [N] at the indices idx (any shape), or x [B, N] at idx [R, m]
+    (shared by the replicas) or [B, R, m] (one per replica) -> [B, R, m]."""
+    if x.dim() == 1:
+        return x[idx]
+    if idx.dim() == 2:
+        return x[:, idx]
+    return torch.gather(x, 1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
 
 
 def build_rate_table(
@@ -142,7 +165,12 @@ def build_rate_table(
     In mixed precision the table is f32, and the neighbour gather of
     (phi, code) goes through the ELL-gather kernel; it moves 32-bit words, so
     the int32 codes pass unchanged.  An f64 table gathers with plain
-    indexing, as the JAX package does."""
+    indexing, as the JAX package does.
+
+    A batched state (a leading replica axis [B]) gives [B, N, max_nn], or
+    [B, cap, max_nn] for each replica's rows ``active_idx`` [B, cap]; an f32
+    table gathers (phi, code) of all replicas in one launch of the batched
+    gather, and each replica's table is its single table, bit for bit."""
     dtype = torch.float32 if params.mixed else params.dtype
     elem = state.element
     phi = (state.potential_boundary + state.potential_charge).to(dtype)
@@ -153,18 +181,19 @@ def build_rate_table(
         neigh_idx = geom.neigh_idx[a].contiguous()
         neigh_valid = geom.neigh_valid[a]
         v_pair = geom.v2_pair[a]
-        row_elem, row_charge = elem[a], state.charge[a]
-        row_phi, row_layer = phi[a], geom.site_layer[a]
+        row_elem, row_charge = torch.gather(elem, -1, a), torch.gather(state.charge, -1, a)
+        row_phi, row_layer = torch.gather(phi, -1, a), geom.site_layer[a]
     else:
         neigh_idx, neigh_valid, v_pair = geom.neigh_idx, geom.neigh_valid, geom.v2_pair
         row_elem, row_charge = elem, state.charge
         row_phi, row_layer = phi, geom.site_layer
 
     if dtype == torch.float32:
-        phi_j, code_j = ell_gather(neigh_idx, [phi.contiguous(), code.contiguous()])
+        gather = ell_gather_batched if elem.dim() == 2 else ell_gather
+        phi_j, code_j = gather(neigh_idx, [phi.contiguous(), code.contiguous()])
     else:
         safe = neigh_idx.clamp(min=0).long()
-        phi_j, code_j = phi[safe], code[safe]
+        phi_j, code_j = _take(phi, safe), _take(code, safe)
 
     return rates_from_pairs(
         params, geom.layer_E, state.T_bg,
@@ -265,21 +294,28 @@ def incremental_tables(geom: Geometry, params: PhysParams, state: SimState):
     block sums, the site of each row and the row of each site (int32, -1
     where a site has none), and the count of candidate rows as a 0-d device
     tensor (None for the full table).  Returns ``(prob, row_sums,
-    block_sums, aidx, inv, n_active)``."""
+    block_sums, aidx, inv, n_active)``.
+
+    A batched state gives each of these with a leading replica axis
+    (``prob`` [B, n_rows, m], counts [B]), each replica compacting its own
+    rows on the device; the full table's ``aidx = inv = arange(N)`` stays
+    shared."""
     N = geom.N
     cap = params.active_rows_cap
     dev = geom.device
+    lead = state.element.shape[:-1]     # () for one state, (B,) for a batch
     if cap > 0:
         elem = state.element
         active = (elem == _D) | (elem == _OD) | (elem == _V)
-        aidx, n_active = nonzero_fixed(active, cap, fill_value=0)
-        slot_ok = torch.arange(cap, device=dev) < n_active
-        inv = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
-        inv[torch.where(slot_ok, aidx.long(), N)] = torch.arange(
-            cap, dtype=torch.int32, device=dev)
-        inv = inv[:N]
+        compact = nonzero_fixed_batched if lead else nonzero_fixed
+        aidx, n_active = compact(active, cap, fill_value=0)
+        slot_ok = torch.arange(cap, device=dev) < n_active[..., None]
+        inv = torch.full((*lead, N + 1), -1, dtype=torch.int32, device=dev)
+        inv.scatter_(-1, torch.where(slot_ok, aidx.long(), N),
+                     torch.arange(cap, dtype=torch.int32, device=dev).expand(*lead, cap))
+        inv = inv[..., :N].contiguous()
         prob = build_rate_table(geom, params, state, active_idx=aidx)
-        prob = torch.where(slot_ok[:, None], prob, 0.0)
+        prob = torch.where(slot_ok[..., None], prob, 0.0)
         n_rows = cap
     else:
         aidx = torch.arange(N, dtype=torch.int32, device=dev)
@@ -290,8 +326,8 @@ def incremental_tables(geom: Geometry, params: PhysParams, state: SimState):
     nb_pad = (-n_rows) % _BLOCK
     n_blocks = (n_rows + nb_pad) // _BLOCK
     acc = torch.float64 if prob.dtype == torch.float32 else prob.dtype
-    row_sums = torch.nn.functional.pad(prob.to(acc).sum(dim=1), (0, nb_pad))
-    block_sums = row_sums.reshape(n_blocks, _BLOCK).sum(dim=1)
+    row_sums = torch.nn.functional.pad(prob.to(acc).sum(dim=-1), (0, nb_pad))
+    block_sums = row_sums.reshape(*lead, n_blocks, _BLOCK).sum(dim=-1)
     return prob.contiguous(), row_sums, block_sums, aidx, inv, n_active
 
 
@@ -333,3 +369,33 @@ def execute_superstep_incremental(geom: Geometry, params: PhysParams,
                       kmc_time=state.kmc_time + event_time),
         step_time=event_time, n_events=int(count), n_active=n_active,
     )
+
+
+class BatchedSuperstepResult(NamedTuple):
+    state: SimState
+    step_time: torch.Tensor   # [B] float64
+    n_events: torch.Tensor    # [B] int64
+    n_active: torch.Tensor    # [B] int64
+
+
+def execute_superstep_incremental_batched(geom: Geometry, params: PhysParams,
+                                          states: SimState) -> BatchedSuperstepResult:
+    """:func:`execute_superstep_incremental` of B replicas: the tables of
+    all replicas, then ONE launch of the batched event loop
+    (``ops.kmc_events.kmc_event_loop_batched``; its plain version for CPU
+    tensors), each replica from its own key on the device.  Nothing is read
+    back: the step times, event counts and keys stay on the device."""
+    prob, row_sums, block_sums, aidx, inv, n_active = incremental_tables(
+        geom, params, states)
+    element, charge, keys, res = kmc_events.kmc_event_loop_batched(
+        prob, row_sums, block_sums, aidx, inv, geom.neigh_idx, geom.rev_slot,
+        states.element, states.charge, states.key, 1.0 / params.freq,
+        params.max_events_per_superstep, params.dtype)
+    event_time = res[:, 0]
+    if n_active is None:
+        n_active = torch.full_like(event_time, geom.N, dtype=torch.int64)
+    return BatchedSuperstepResult(
+        state=replace(states, element=element, charge=charge, key=keys,
+                      kmc_time=states.kmc_time + event_time),
+        step_time=event_time, n_events=res[:, 1].to(torch.int64),
+        n_active=n_active.to(torch.int64))

@@ -13,7 +13,10 @@
 The Laplace solve is Dirichlet-eliminated CG on the ELL graph, warm-started
 from the previous solution, with two exact shortcuts (unchanged network,
 incrementally certified residual) — the decisions of
-``devicekmc_tpu.physics.potential``.
+``devicekmc_tpu.physics.potential``.  The ``*_batched`` functions take B
+replicas of one geometry (a batched state, ``parallel.batched``) and make
+each replica's decisions on the device, as masks, as the JAX package's vmap
+turns its conditionals into selects.
 
 3. **Conduction-band edge** — the same Laplace solve on the CB-edge network
    (high_G where either endpoint is metal), contacts at +Vd/2 / -Vd/2, once
@@ -28,29 +31,31 @@ from typing import Tuple
 import torch
 
 from .. import constants as C
-from ..ops.cg import cg_solve, invert_coarse
-from ..ops.compact import nonzero_fixed
+from ..ops.cg import cg_solve, cg_solve_batched, invert_coarse, rowdot
+from ..ops.compact import nonzero_fixed, nonzero_fixed_batched
 from ..ops.ell import ell_matvec, safe_index
-from ..ops.pairwise import kernel_scalars, poisson_pairwise
+from ..ops.pairwise import kernel_scalars, poisson_pairwise, poisson_pairwise_batched
 from ..state import Geometry, PhysParams, SimState, replace
 from ..structure import Element
 
 
 def _select(cond: torch.Tensor, a: float, b: float, dtype) -> torch.Tensor:
     """``where(cond, a, b)`` for two scalars, in ``dtype`` (torch.where of
-    two Python scalars would give the default float32)."""
-    return torch.where(cond, torch.tensor(a, dtype=dtype, device=cond.device),
-                       torch.tensor(b, dtype=dtype, device=cond.device))
+    two Python scalars would give the default float32).  The scalars are
+    filled on the device: a tensor made from host data is a copy that waits
+    for the card."""
+    return torch.where(cond, torch.full((), a, dtype=dtype, device=cond.device),
+                       torch.full((), b, dtype=dtype, device=cond.device))
 
 
 def _edge_conductance_boundary(geom: Geometry, state: SimState, params: PhysParams):
     """Per-edge conductance: high_G iff (metal,metal) or (neutral vacancy,
-    neutral vacancy)."""
+    neutral vacancy); [B, N, max_nn] for a batched state."""
     elem = state.element.long()
     safe = safe_index(geom.neigh_idx)
     metal = geom.metal_mask_table[elem]
     cvac = (state.element == int(Element.VACANCY)) & (state.charge == 0)
-    high = (metal[:, None] & metal[safe]) | (cvac[:, None] & cvac[safe])
+    high = (metal[..., None] & metal[..., safe]) | (cvac[..., None] & cvac[..., safe])
     g = _select(high, params.high_G, params.low_G, params.dtype)
     return torch.where(geom.neigh_valid, g, 0.0)
 
@@ -63,6 +68,30 @@ def _edge_conductance_cb(geom: Geometry, state: SimState, params: PhysParams):
     g = _select(metal[:, None] | metal[safe], params.high_G, params.low_G,
                 params.dtype)
     return torch.where(geom.neigh_valid, g, 0.0)
+
+
+def _dirichlet_system(geom: Geometry, edge_g, v_left: float, v_right: float, masks):
+    """The Dirichlet-eliminated interior system of the conductances
+    ``edge_g`` ([N, max_nn], or [B, N, max_nn] for B replicas): the
+    right-hand side, the operator, its diagonal, the off-diagonal values and
+    the Jacobi diagonal (1 on the contacts)."""
+    is_left, is_right, interior = masks
+    dtype = edge_g.dtype
+    diag = edge_g.sum(dim=-1)
+    safe = safe_index(geom.neigh_idx)
+    nb_boundary_v = torch.where(
+        is_left[safe], v_left, _select(is_right[safe], v_right, 0.0, dtype)
+    )
+    # RHS: b_i = sum_{j in boundary} G_ij * V_j   (Dirichlet elimination)
+    b = torch.where(interior, (edge_g * nb_boundary_v).sum(dim=-1), 0.0)
+    # interior operator: (L_II x)_i = diag_i x_i - sum_{j interior} G_ij x_j
+    neg_vals = -edge_g * interior[safe]
+
+    def matvec(x):
+        xm = torch.where(interior, x, 0.0)
+        return torch.where(interior, ell_matvec(diag, neg_vals, safe, xm), 0.0)
+
+    return b, matvec, diag, neg_vals, torch.where(interior, diag, 1.0)
 
 
 def _dirichlet_laplace_solve(
@@ -86,22 +115,10 @@ def _dirichlet_laplace_solve(
     )
 
     dtype = edge_g.dtype
-    diag = edge_g.sum(dim=1)
+    b, matvec, diag, neg_vals, pre_diag = _dirichlet_system(
+        geom, edge_g, v_left, v_right, (is_left, is_right, interior))
     safe = safe_index(geom.neigh_idx)
-    nb_boundary_v = torch.where(
-        is_left[safe], v_left, _select(is_right[safe], v_right, 0.0, dtype)
-    )
-    # RHS: b_i = sum_{j in boundary} G_ij * V_j   (Dirichlet elimination)
-    b = torch.where(interior, (edge_g * nb_boundary_v).sum(dim=1), 0.0)
-    # interior operator: (L_II x)_i = diag_i x_i - sum_{j interior} G_ij x_j
-    neg_vals = -edge_g * interior[safe]
-
-    def matvec(x):
-        xm = torch.where(interior, x, 0.0)
-        return torch.where(interior, ell_matvec(diag, neg_vals, safe, xm), 0.0)
-
     x0_int = torch.where(interior, x0, 0.0)
-    pre_diag = torch.where(interior, diag, 1.0)
 
     if deflate_slabs > 0:
         # A-DEF2 x-slab deflation in the Jacobi-scaled metric: the slab
@@ -271,6 +288,131 @@ def solve_boundary_potential(
     return new_state, {"cg_iters_boundary": iters, "boundary_converged": conv}
 
 
+def _incremental_boundary_residual_batched(
+    geom: Geometry, params: PhysParams, states: SimState, cvac, changed,
+    v_left: float, v_right: float,
+):
+    """:func:`_incremental_boundary_residual` of B replicas on the device:
+    each replica's changed sites compacted to ``boundary_delta_cap`` slots,
+    the rows they touch (a changed site and its neighbours, [B, cap *
+    (max_nn + 1)], a row touched twice computed twice alike) recomputed with
+    its arithmetic and scattered into the stored residual and RHS, so
+    replica b's are its single update's; ``converged`` [B] with the same
+    rule (a changed set over the cap never converges).  No host read."""
+    dtype = params.dtype
+    cap = int(params.boundary_delta_cap)
+    B, N = changed.shape
+    ch_idx, n_changed = nonzero_fixed_batched(changed, cap, fill_value=0)
+    ch = ch_idx.long()
+    ch_ok = torch.arange(cap, device=geom.device) < n_changed[:, None]
+    rows = torch.cat([ch[..., None], geom.neigh_idx[ch].long()], dim=-1)   # [B, cap, m+1]
+    row_ok = (ch_ok[..., None] & (rows >= 0)).reshape(B, -1)
+    rows = rows.clamp(min=0).reshape(B, -1)
+
+    def at(x, idx):     # x [B, N] at per-replica indices idx [B, ...]
+        return torch.gather(x, 1, idx.reshape(B, -1)).reshape(idx.shape)
+
+    metal = geom.metal_mask_table[states.element.long()]
+    interior = geom.bp_interior_mask
+    xm = torch.where(interior, states.potential_boundary, 0.0)
+
+    rnb = geom.neigh_idx[rows]
+    rvalid = rnb >= 0
+    rsafe = rnb.clamp(min=0).long()
+    hi = ((at(metal, rows)[..., None] & at(metal, rsafe))
+          | (at(cvac, rows)[..., None] & at(cvac, rsafe)))
+    g = torch.where(rvalid, _select(hi, params.high_G, params.low_G, dtype), 0.0)
+    nbv = torch.where(
+        geom.bp_left_mask[rsafe], v_left,
+        _select(geom.bp_right_mask[rsafe], v_right, 0.0, dtype),
+    )
+    int_rows = interior[rows]
+    b_rows = torch.where(int_rows, (g * nbv).sum(dim=-1), 0.0)
+    diag_rows = g.sum(dim=-1)
+    y_rows = diag_rows * at(xm, rows) - (g * interior[rsafe] * at(xm, rsafe)).sum(dim=-1)
+    r_rows = torch.where(int_rows, b_rows - y_rows, 0.0)
+
+    # rows not touched go to a dropped column N
+    dst = torch.where(row_ok, rows, N)
+    pad = states.boundary_r.new_zeros(B, 1)
+    r_new = torch.cat([states.boundary_r, pad], 1).scatter_(1, dst, r_rows)[:, :N]
+    b_new = torch.cat([states.boundary_b, pad], 1).scatter_(1, dst, b_rows)[:, :N]
+    rn2 = rowdot(r_new, r_new)
+    ref = torch.sqrt(rowdot(b_new, b_new))
+    thresh = params.solver_tol * torch.where(ref > 0, ref, 1.0)
+    return r_new, b_new, (n_changed <= cap) & (rn2 <= thresh * thresh)
+
+
+def solve_boundary_potential_batched(
+    geom: Geometry, params: PhysParams, states: SimState, Vd: float
+) -> Tuple[SimState, dict]:
+    """:func:`solve_boundary_potential` of B replicas.  The exact skip, the
+    incremental residual and the solve are chosen per replica on the device
+    (masks): the solve runs as one batched CG (:func:`cg_solve_batched`)
+    over the replicas that need it, and the others keep their field; one
+    read for all replicas says whether any solves at all.  With
+    ``boundary_precond = "deflated"`` the replicas that need a solve run the
+    single deflated solve one by one (one read of the mask).  Metrics are [B]
+    tensors."""
+    dtype = params.dtype
+    Vd = float(torch.tensor(Vd, dtype=dtype))
+    cvac = (states.element == int(Element.VACANCY)) & (states.charge == 0)
+    changed = cvac != states.cvac_prev
+    same_vd = states.Vd_prev == Vd
+    vl = float(torch.tensor(-Vd / 2.0, dtype=dtype))
+    vr = float(torch.tensor(Vd / 2.0, dtype=dtype))
+    skip = same_vd & ~changed.any(dim=-1)
+    keep = torch.zeros_like(skip)
+    r_keep, b_keep = states.boundary_r, states.boundary_b
+    if params.boundary_incremental and params.boundary_precond == "jacobi":
+        r_inc, b_inc, inc_conv = _incremental_boundary_residual_batched(
+            geom, params, states, cvac, changed, vl, vr)
+        keep = ~skip & same_vd & inc_conv
+        r_keep = torch.where(skip[:, None], states.boundary_r, r_inc)
+        b_keep = torch.where(skip[:, None], states.boundary_b, b_inc)
+    solve = ~(skip | keep)
+    new_states = replace(
+        states, cvac_prev=cvac, Vd_prev=torch.full_like(states.Vd_prev, Vd),
+        boundary_r=r_keep, boundary_b=b_keep)
+    if not bool(solve.any()):
+        # one read for all replicas: no assembly and no CG when none solves
+        return new_states, {"cg_iters_boundary": torch.zeros_like(solve, dtype=torch.int64),
+                            "boundary_converged": torch.ones_like(solve)}
+
+    edge_g = _edge_conductance_boundary(geom, states, params)
+    masks = (geom.bp_left_mask, geom.bp_right_mask, geom.bp_interior_mask)
+    interior = geom.bp_interior_mask
+    if params.boundary_precond == "deflated":
+        phi, iters = states.potential_boundary.clone(), torch.zeros_like(states.Vd_prev,
+                                                                          dtype=torch.int64)
+        r, b = r_keep.clone(), b_keep.clone()
+        conv = torch.ones_like(skip)
+        for k in torch.nonzero(solve).reshape(-1).tolist():
+            phi[k], res, r[k], b[k] = _dirichlet_laplace_solve(
+                geom, edge_g[k], vl, vr, x0=states.potential_boundary[k],
+                tol=params.solver_tol, maxiter=params.solver_maxiter,
+                deflate_slabs=params.coarse_slabs, want_residual=True)
+            iters[k], conv[k] = res.iters, res.converged
+    else:
+        b_sys, matvec, _, _, pre_diag = _dirichlet_system(geom, edge_g, vl, vr, masks)
+        res = cg_solve_batched(matvec, b_sys, torch.where(interior, states.potential_boundary,
+                                                          0.0),
+                               pre_diag, tol=params.solver_tol, maxiter=params.solver_maxiter,
+                               active=solve)
+        phi_s = torch.where(geom.bp_left_mask, vl,
+                            torch.where(geom.bp_right_mask, vr, res.x)).to(dtype)
+        r_true = torch.where(interior, b_sys - matvec(res.x), 0.0)
+        s2 = solve[:, None]
+        phi = torch.where(s2, phi_s, states.potential_boundary)
+        r = torch.where(s2, r_true, r_keep)
+        b = torch.where(s2, b_sys, b_keep)
+        iters = torch.where(solve, res.iters, 0)
+        conv = solve.logical_not() | res.converged
+
+    return (replace(new_states, potential_boundary=phi, boundary_r=r, boundary_b=b),
+            {"cg_iters_boundary": iters, "boundary_converged": conv})
+
+
 def solve_cb_edge(
     geom: Geometry, params: PhysParams, state: SimState, Vd: float
 ) -> Tuple[SimState, dict]:
@@ -361,3 +503,37 @@ def poisson_gridless_compact(
             float(torch.tensor(params.k, dtype=cdtype)), geom.pbc, block,
         )
     return replace(state, potential_charge=v.to(params.dtype)), n_charged
+
+
+def poisson_gridless_compact_batched(
+    geom: Geometry, params: PhysParams, states: SimState, cap: int, block: int = 512,
+) -> Tuple[SimState, torch.Tensor]:
+    """:func:`poisson_gridless_compact` of B replicas.  Returns ``(states,
+    n_charged)`` with the true counts [B] on the device; a replica that
+    overflows ``cap`` sweeps its first ``cap`` charged sites, as the single
+    path does.  ``poisson_kernel == "pallas"`` is ONE launch of the batched
+    pair sweep, which reads the counts on the device; ``"jnp"`` sweeps
+    replica by replica over its charged sites (one read of the counts)."""
+    if params.poisson_kernel == "pallas":
+        cap = -(-cap // 8) * 8
+    cidx, n_charged = nonzero_fixed_batched(states.charge != 0, cap, fill_value=0)
+    if params.poisson_kernel == "pallas":
+        coords32 = geom.coords.to(torch.float32).contiguous()
+        cq = torch.gather(states.charge, 1, cidx.long()).to(torch.float32)
+        inv_s, kq, lat_y, lat_z = kernel_scalars(
+            params.sigma, params.k, geom.lattice_host, params.dtype)
+        v = poisson_pairwise_batched(coords32, cidx, cq, n_charged, inv_s, kq, lat_y, lat_z,
+                                     geom.pbc)
+    else:
+        cdtype = torch.float32 if params.mixed else params.dtype
+        coords = geom.coords.to(cdtype)
+        lat = [float(torch.tensor(x, dtype=cdtype)) for x in geom.lattice_host]
+        rows = []
+        for b, n in enumerate(n_charged.tolist()):
+            ci = cidx[b, :min(n, cap)].long()
+            rows.append(_poisson_rows_compact(
+                coords, ci, states.charge[b, ci].to(cdtype), lat,
+                float(torch.tensor(params.sigma, dtype=cdtype)),
+                float(torch.tensor(params.k, dtype=cdtype)), geom.pbc, block))
+        v = torch.stack(rows)
+    return replace(states, potential_charge=v.to(params.dtype)), n_charged

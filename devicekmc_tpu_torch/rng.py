@@ -7,6 +7,7 @@ on the host in plain Python integers: a key is a pair of 32-bit words
 
   * ``prng_key(seed)``     == ``jax.random.PRNGKey(seed)``
   * ``split(key, n)``      == ``jax.random.split(key, n)``
+  * ``fold_in(key, data)``  == ``jax.random.fold_in(key, data)``
   * ``uniform(key, dtype)`` == ``jax.random.uniform(key, dtype=dtype)``
     for a scalar draw in [0, 1), dtype float32 or float64.
 """
@@ -17,6 +18,7 @@ import struct
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 Key = Tuple[int, int]
 
@@ -55,6 +57,13 @@ def split(key: Key, n: int = 2) -> List[Key]:
     return [threefry2x32(key, (0, i)) for i in range(n)]
 
 
+def fold_in(key: Key, data: int) -> Key:
+    """The key of ``data`` (taken as uint32) folded into ``key``:
+    threefry(key, (0, data)), as ``jax.random.fold_in`` computes it from
+    ``threefry_seed(uint32(data)) = (0, data)``."""
+    return threefry2x32(key, (0, int(data) & _M32))
+
+
 def uniform(key: Key, dtype=np.float64) -> float:
     """One uniform draw in [0, 1) of ``dtype`` (float32 or float64); the
     value is returned as a Python float holding that dtype's value."""
@@ -76,3 +85,9 @@ def key_from_array(arr) -> Key:
     """The (k0, k1) pair of a uint32[2] raw key array."""
     a = np.asarray(arr).astype(np.uint32).reshape(2)
     return int(a[0]), int(a[1])
+
+
+def keys_tensor(keys, device="cpu"):
+    """A [B, 2] uint32 tensor of the (k0, k1) pairs ``keys``: the key of
+    each replica of a batched state, on ``device``."""
+    return torch.tensor([list(k) for k in keys], dtype=torch.uint32, device=device)

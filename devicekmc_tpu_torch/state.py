@@ -14,6 +14,12 @@ Three records, as in ``devicekmc_tpu.state``:
 Every phase returns a new :class:`SimState` (``dataclasses.replace``) and
 never writes into a tensor it was given, so the engine may keep the previous
 state to redo a step.
+
+A *batched* state (``parallel.batched``) is a :class:`SimState` of B replicas
+of one geometry, as the JAX package batches its pytree: every tensor field
+has a leading [B] axis, and the host scalars are device tensors, so that no
+replica's decision needs a host read: ``key`` [B, 2] uint32, ``tt_valid`` [B]
+bool, the others [B] float64 (:func:`stack_states`, :func:`unbatch`).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import sys
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -574,6 +580,22 @@ def _tensor(name: str, a, dev) -> torch.Tensor:
     return torch.as_tensor(a, device=dev)
 
 
+def _state_from_arrays(state: dict, dev) -> SimState:
+    """A single state from {field: numpy array}, host scalars read."""
+    skw = {}
+    for f in dataclasses.fields(SimState):
+        v = state[f.name]
+        if f.name == "key":
+            skw[f.name] = rng.key_from_array(v)
+        elif f.name in _HOST_STATE:
+            skw[f.name] = float(np.asarray(v))
+        elif f.name == "tt_valid":
+            skw[f.name] = bool(np.asarray(v))
+        else:
+            skw[f.name] = _tensor(f.name, v, dev)
+    return SimState(**skw)
+
+
 def from_jax_arrays(geom: dict, state: dict, device="cuda"):
     """Turn the JAX package's Geometry and SimState, given as dicts of numpy
     arrays (and the static ints), into the port's records on ``device``,
@@ -595,15 +617,77 @@ def from_jax_arrays(geom: dict, state: dict, device="cuda"):
     gkw["lattice_host"] = tuple(float(x) for x in np.asarray(geom["lattice"]))
     g = Geometry(**gkw)
 
-    skw = {}
+    return g, _state_from_arrays(state, dev)
+
+
+def batched_state_from_numpy(state: dict, device="cuda") -> SimState:
+    """A JAX batched ``SimState`` (``parallel.batched.batch_states`` or a
+    batched superstep's output), given as {field: numpy array} with the
+    leading replica axis, as the port's batched state on ``device``."""
+    dev = resolve_device(device)
+    kw = {}
     for f in dataclasses.fields(SimState):
-        v = state[f.name]
+        v = np.asarray(state[f.name])
         if f.name == "key":
-            skw[f.name] = rng.key_from_array(v)
+            kw[f.name] = torch.as_tensor(v.astype(np.uint32).reshape(-1, 2), device=dev)
         elif f.name in _HOST_STATE:
-            skw[f.name] = float(np.asarray(v))
+            kw[f.name] = torch.as_tensor(v.astype(np.float64), device=dev)
         elif f.name == "tt_valid":
-            skw[f.name] = bool(np.asarray(v))
+            kw[f.name] = torch.as_tensor(v.astype(bool), device=dev)
         else:
-            skw[f.name] = _tensor(f.name, v, dev)
-    return g, SimState(**skw)
+            kw[f.name] = _tensor(f.name, v, dev)
+    return SimState(**kw)
+
+
+# ----------------------------------------------------------------------------
+# batched states: B replicas of one geometry
+# ----------------------------------------------------------------------------
+
+def batch_size(states: SimState) -> int:
+    return int(states.element.shape[0])
+
+
+def stack_states(states: Sequence[SimState]) -> SimState:
+    """B single states as one batched state (new tensors)."""
+    dev = states[0].element.device
+    kw = {}
+    for f in dataclasses.fields(SimState):
+        vals = [getattr(s, f.name) for s in states]
+        if f.name == "key":
+            kw[f.name] = rng.keys_tensor(vals, dev)
+        elif f.name in _HOST_STATE:
+            kw[f.name] = torch.tensor(vals, dtype=torch.float64, device=dev)
+        elif f.name == "tt_valid":
+            kw[f.name] = torch.tensor(vals, dtype=torch.bool, device=dev)
+        else:
+            kw[f.name] = torch.stack(vals)
+    return SimState(**kw)
+
+
+def _host_rows(states: SimState) -> List[dict]:
+    """The host scalars, key and tt_valid of every replica, read in one
+    transfer."""
+    names = sorted(_HOST_STATE)
+    block = torch.cat([torch.stack([getattr(states, n) for n in names], dim=1),
+                       states.key.to(torch.float64),
+                       states.tt_valid.to(torch.float64)[:, None]], dim=1).tolist()
+    return [dict(zip(names, row), key=(int(row[-3]), int(row[-2])), tt_valid=bool(row[-1]))
+            for row in block]
+
+
+def _unbatch(states: SimState, b: int, host: dict) -> SimState:
+    kw = {f.name: host[f.name] if f.name in host else getattr(states, f.name)[b]
+          for f in dataclasses.fields(SimState)}
+    return SimState(**kw)
+
+
+def unbatch(states: SimState, b: int) -> SimState:
+    """Replica ``b`` of a batched state as a single state (views of its
+    tensors; its scalars and key read to the host)."""
+    return _unbatch(states, b, _host_rows(states)[b])
+
+
+def unbatch_all(states: SimState) -> List[SimState]:
+    """Every replica of a batched state as a single state, the scalars of all
+    read in one transfer."""
+    return [_unbatch(states, b, host) for b, host in enumerate(_host_rows(states))]

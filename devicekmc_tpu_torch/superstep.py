@@ -1,7 +1,9 @@
-"""The KMC superstep body, and a batch of supersteps with the driver's stop
-conditions between them (``batch_steps > 1``).  Phase order mirrors the
-reference main loop (src/kmc_main.cpp:175-234): charge -> boundary potential
--> gridless Poisson -> KMC events -> transport / dissipated power -> heat."""
+"""The KMC superstep body, a batch of supersteps with the driver's stop
+conditions between them (``batch_steps > 1``), and the superstep of B
+replicas of one device (:func:`superstep_batched`, the body of
+``parallel.batched``).  Phase order mirrors the reference main loop
+(src/kmc_main.cpp:175-234): charge -> boundary potential -> gridless Poisson
+-> KMC events -> transport / dissipated power -> heat."""
 
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from .physics import current as current_mod
 from .physics import events as events_mod
 from .physics import heat as heat_mod
 from .physics import potential as potential_mod
-from .state import Geometry, PhysParams, SimState, replace
+from .state import (Geometry, PhysParams, SimState, batch_size, replace, stack_states,
+                    unbatch_all)
 
 
 # ----------------------------------------------------------------------------
@@ -286,3 +289,66 @@ def multi_superstep_impl(
                 metrics[key][k] = float(v)
     metrics["active"] = active
     return state, step_times, metrics
+
+
+def superstep_batched(
+    geom: Geometry, params: PhysParams, states: SimState, Vd: float, heat=None,
+) -> Tuple[SimState, torch.Tensor, Dict]:
+    """One superstep of B replicas of one device (a batched state), in the
+    phase order of :func:`superstep_impl`; replica b computes what
+    ``superstep_impl`` computes from replica b alone.  Returns ``(states,
+    step_times, metrics)``: the step times [B] float64 and every metric a [B]
+    tensor, on the device.
+
+    Charge, boundary potential, gridless Poisson and the KMC events run with
+    a replica axis: one launch of the batched gather a call site, of the
+    batched pair sweep and of the batched event loop for all replicas, and
+    each replica's decisions (skip, incremental residual, CG stop) are masks
+    on the device, so that the host reads of this part (the CG's, one a chunk
+    of iterations) do not grow with B.  With ``solve_current`` (and heating)
+    the transport and heat phases run replica by replica on
+    ``state.unbatch_all(states)`` and are stacked again: what the JAX
+    package's vmap computes; the replica axis through the transport and heat
+    kernels is a later slice."""
+    B = batch_size(states)
+    metrics: Dict = {}
+    if params.solve_potential:
+        states, m = charge_mod.update_charge_batched(geom, params, states)
+        metrics.update(m)
+        states, m = potential_mod.solve_boundary_potential_batched(geom, params, states, Vd)
+        metrics.update(m)
+        if params.poisson_compact_cap > 0:
+            states, n = potential_mod.poisson_gridless_compact_batched(
+                geom, params, states, cap=params.poisson_compact_cap)
+            metrics["n_charged_sites"] = n
+        else:
+            states, _ = potential_mod.poisson_gridless_compact_batched(
+                geom, replace(params, poisson_kernel="jnp"), states, cap=geom.N)
+
+    step_times = torch.zeros(B, dtype=torch.float64, device=geom.device)
+    if params.perturb_structure:
+        if params.event_mode != "incremental":
+            raise NotImplementedError(
+                "batched supersteps run the incremental event loop; event_mode "
+                f"{params.event_mode!r} runs only on a single state")
+        res = events_mod.execute_superstep_incremental_batched(geom, params, states)
+        states, step_times = res.state, res.step_time
+        metrics["n_events"] = res.n_events
+        metrics["n_active_rows"] = res.n_active
+
+    if params.solve_current:
+        heating = params.solve_heating_global or params.solve_heating_local
+        dts = step_times.tolist()
+        singles, rows = [], []
+        for b, st in enumerate(unbatch_all(states)):
+            st, m = _phase_power(geom, params, st, Vd)
+            if heating:
+                st, mh = _phase_heat(geom, params, heat, st, dts[b])
+                m = {**m, **mh}
+            singles.append(st)
+            rows.append(m)
+        states = stack_states(singles)
+        for key in rows[0]:
+            metrics[key] = torch.tensor([float(m[key]) for m in rows], dtype=torch.float64,
+                                        device=geom.device)
+    return states, step_times, metrics

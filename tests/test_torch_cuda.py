@@ -898,3 +898,173 @@ def test_cuda_checkpoint_roundtrip_and_resume(tmp_path):
     for f in ("element", "charge", "potential_boundary", "potential_charge"):
         assert torch.equal(getattr(c.state, f), getattr(a.state, f)), f
     assert c.state.key == a.state.key and c.state.kmc_time == a.state.kmc_time
+
+
+# ---------------------------------------------------------------------------
+# device ensembles: the batched kernels (one launch for B replicas)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,max_nn,per_replica", [
+    (515, 52, False), (20000, 27, False), (3, 1, False), (30000, 51, False),
+    (1001, 51, True), (20001, 27, True)])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_cuda_gather_batched(N, max_nn, per_replica, B):
+    """B replicas in one launch, bit-equal on every slot to the batched
+    plain version and to B single launches; the plan shared or one a
+    replica, one and two channels."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.ell_gather import (
+        ell_gather, ell_gather_batched, ell_gather_batched_plain,
+    )
+
+    rng = np.random.default_rng(N + B)
+    shape = (B, max(1, N // 3), max_nn) if per_replica else (N, max_nn)
+    nb = rng.integers(-1, N, shape).astype(np.int32)
+    idx = torch.as_tensor(nb, device="cuda")
+    f32 = torch.as_tensor(rng.standard_normal((B, N)).astype(np.float32), device="cuda")
+    i32 = torch.as_tensor(rng.integers(-(1 << 30), 1 << 30, (B, N)).astype(np.int32),
+                          device="cuda")
+    for vals in ([f32], [i32, f32]):
+        before = ell_gather_batched.launches
+        got = ell_gather_batched(idx, vals)
+        assert ell_gather_batched.launches == before + 1
+        ref = ell_gather_batched_plain(idx, vals)
+        torch.cuda.synchronize()
+        for c, (g, r) in enumerate(zip(got, ref)):
+            assert g.shape == (B,) + shape[-2:]
+            assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+            for b in range(B):
+                one = ell_gather(idx[b] if per_replica else idx, [vals[c][b]])[0]
+                assert torch.equal(g[b].view(torch.int32), one.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("counts", [(1, 129, 502), (0, 8192, 7000, 64), (900,)])
+def test_cuda_poisson_batched(counts, pbc):
+    """Each replica's count read on the device, its charged set split as a
+    single launch splits it: replica b bit-equal to the single kernel on its
+    first min(count, cap) charged sites, within 2e-6 of the largest plain
+    value of the batched plain version, one launch; a count past the bucket
+    sweeps the first cap sites."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.compact import nonzero_fixed_batched
+    from devicekmc_tpu_torch.ops.pairwise import (
+        kernel_scalars, poisson_pairwise, poisson_pairwise_batched,
+        poisson_pairwise_batched_plain,
+    )
+
+    rng = np.random.default_rng(sum(counts))
+    N, B = 20_001, len(counts)
+    cap = min(max(counts), 6000)
+    coords = torch.as_tensor(rng.uniform(0, 60, (N, 3)).astype(np.float32), device="cuda")
+    charge = np.zeros((B, N), dtype=np.int32)
+    for b, n in enumerate(counts):
+        charge[b, rng.choice(N, n, replace=False)] = rng.choice([-2, -1, 1, 2], n)
+    charge = torch.as_tensor(charge, device="cuda")
+    cidx, n_c = nonzero_fixed_batched(charge != 0, cap)
+    cq = torch.gather(charge, 1, cidx.long()).float()
+    scal = kernel_scalars(3.5e-10, 8.987552e9 / 23, [60.0, 60.0, 60.0], torch.float32)
+    before = poisson_pairwise_batched.launches
+    got = poisson_pairwise_batched(coords, cidx, cq, n_c, *scal, pbc)
+    assert poisson_pairwise_batched.launches == before + 1
+    ref = poisson_pairwise_batched_plain(coords, cidx, cq, n_c, *scal, pbc)
+    torch.cuda.synchronize()
+    assert n_c.tolist() == list(counts) and bool(torch.isfinite(got).all())
+    for b, n in enumerate(counts):
+        k = min(n, cap)
+        one = poisson_pairwise(coords, cidx[b, :k].contiguous(), cq[b, :k].contiguous(),
+                               *scal, pbc)
+        assert torch.equal(got[b], one), b
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=2e-6 * max(float(ref.abs().max()), 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,rel", [("f64", 1e-9), ("mixed", 2.4e-7)])
+@pytest.mark.parametrize("cap", [0, 128])
+def test_cuda_event_loop_batched(precision, rel, cap):
+    """Four replicas (own keys and T_bg) in one launch: each replica
+    bit-equal to a single launch on its tables and key, and against the
+    batched plain loop events, elements, charges and keys equal, times
+    within 1e-9 relative (f64) or 2 f32 ulps (f32); the tables of each
+    replica (own compacted rows with a bucket) those of
+    incremental_tables."""
+    _need_card()
+    import dataclasses
+
+    from devicekmc_tpu_torch.ops.kmc_events import (
+        kmc_event_loop, kmc_event_loop_batched, kmc_event_loop_batched_plain,
+    )
+    from devicekmc_tpu_torch.parallel.batched import batch_states
+    from devicekmc_tpu_torch.physics.events import incremental_tables
+    from devicekmc_tpu_torch.state import unbatch
+
+    geom, params, state = _event_state(precision, cap)
+    states = dataclasses.replace(batch_states(state, 4, base_seed=5), T_bg=torch.tensor(
+        [300.0, 330.0, 360.0, 400.0], dtype=torch.float64, device="cuda"))
+    tabs = incremental_tables(geom, params, states)
+    singles = [incremental_tables(geom, params, unbatch(states, b)) for b in range(4)]
+    for b, one in enumerate(singles):
+        for t, o in zip(tabs[:5], one[:5]):
+            assert torch.equal(t if t.dim() == o.dim() else t[b], o)
+    args = (geom.neigh_idx, geom.rev_slot)
+    tail = (1.0 / params.freq, params.max_events_per_superstep, params.dtype)
+    before = kmc_event_loop_batched.launches
+    got = kmc_event_loop_batched(*[t.clone() for t in tabs[:3]], *tabs[3:5], *args,
+                                 states.element, states.charge, states.key, *tail)
+    assert kmc_event_loop_batched.launches == before + 1
+    ref = kmc_event_loop_batched_plain(*tabs[:5], *args, states.element, states.charge,
+                                       states.key, *tail)
+    torch.cuda.synchronize()
+    for b, one in enumerate(singles):
+        u = unbatch(states, b)
+        e, q, r = kmc_event_loop(*one[:5], *args, u.element, u.charge, u.key, *tail)
+        assert torch.equal(got[0][b], e) and torch.equal(got[1][b], q)
+        assert torch.equal(got[3][b], r)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3][:, 1:], ref[3][:, 1:])
+    np.testing.assert_allclose(got[3][:, 0].cpu().numpy(), ref[3][:, 0].cpu().numpy(),
+                               rtol=rel)
+    assert (got[3][:, 1] > 0).all() and not torch.equal(got[0][0], got[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+def test_cuda_batched_superstep_matches_single(precision):
+    """Three replicas of the 256-site stack on the card, 3 supersteps:
+    each replica's elements, charges, keys and events equal to the single
+    superstep's on the card with its key; the batched gather launched twice
+    (charge flags, rate table), the pair sweep and the event loop once a
+    superstep, and no single kernel launched."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.ell_gather import ell_gather, ell_gather_batched
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop, kmc_event_loop_batched
+    from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise, poisson_pairwise_batched
+    from devicekmc_tpu_torch.parallel.batched import batch_states, make_batched_superstep
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+    from devicekmc_tpu_torch.state import replace, unbatch
+    from devicekmc_tpu_torch.superstep import superstep_impl
+
+    geom, params, state = _event_state(precision, 0, phi_scale=0.0)
+    params = replace(params, poisson_compact_cap=64, poisson_kernel="pallas")
+    step = make_batched_superstep(geom, params, heat_mod.empty_heat_model(params, "cuda"))
+    states = batch_states(state, 3, base_seed=11)
+    singles = [unbatch(states, b) for b in range(3)]
+    counters = (ell_gather_batched, poisson_pairwise_batched, kmc_event_loop_batched,
+                ell_gather, poisson_pairwise, kmc_event_loop)
+    for _ in range(3):
+        before = [c.launches for c in counters]
+        states, dts, m = step(states, 10.0)
+        torch.cuda.synchronize()
+        assert [c.launches - n for c, n in zip(counters, before)] == [
+            2 if precision == "mixed" else 1, 1, 1, 0, 0, 0]
+        for b in range(3):
+            singles[b], dt, ms = superstep_impl(geom, params, singles[b], 10.0)
+            got = unbatch(states, b)
+            assert torch.equal(got.element, singles[b].element)
+            assert torch.equal(got.charge, singles[b].charge)
+            assert got.key == singles[b].key
+            assert int(m["n_events"][b]) == ms["n_events"]
+            assert float(dts[b]) == pytest.approx(dt, rel=1e-6)
