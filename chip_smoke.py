@@ -5,7 +5,7 @@
 
 Phases (any failed check raises and the exit code is non-zero):
 
-1. builds the six CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
+1. builds the eight CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
    sm_90a, one nvcc per source, in parallel) and prints ptxas's registers
    and shared memory per kernel; holds the event kernel's random stream
    (csrc/threefry.cuh) against rng.py: 10^4 successive key splits and their
@@ -39,12 +39,30 @@ Phases (any failed check raises and the exit code is non-zero):
    registers and shared bytes and the device launches of one call as
    torch.profiler counts them: it must be the one kernel); then
    Simulation.run_bias_point runs the cold pre-solve, 2 warm-up and 4 timed
-   supersteps at Vd = 1 V, with the launch counters set to 0 just before it
-   (the event kernel launched once a superstep, its plain version never);
-   then the event kernel against its plain version on the crossbar's f32
-   table (3 supersteps, step_time within 2 f32 ulps), the loop alone timed
-   both ways, and batch_steps = 4 over the same 6 steps against the per-step
-   run;
+   supersteps at Vd = 1 V on the captured graph (the main path: a superstep
+   one replay and one read), with the launch counters set to 0 just before it
+   (the batched gather twice a superstep, the batched pair sweep and event
+   loop once, each as the card counts its launches too, the boundary CG
+   kernels once an iteration as the card counts them, no plain version); the
+   same run eagerly (the engine's superstep
+   without a graph), counters set to 0 again: events, elements and
+   cg_iters_boundary equal step for step, potentials within 1e-12 of their
+   scale; the three batched kernels the graph launches held against their
+   plain versions at its shapes (B = 1, the run's last state; bit-equal)
+   and timed beside their bounds; both drivers again in turns, timed, one
+   superstep of each under torch.profiler (device busy share; device-to-host
+   copies: 1 a graph superstep, 0 in a replay alone; each kernel's launches
+   in the trace equal to its wrapper's count, on the graph its per-replay
+   count, and the batched kernels' counts equal to the launches the card
+   counts itself (csrc/launch_count.cuh); each CG kernel in the trace at
+   most as often as the card counts iterations and at least once where it
+   counts one; a trace may miss launches); then the
+   event kernel against its plain version on the crossbar's f32 table (3
+   supersteps, step_time within 2 f32 ulps), the loop alone timed both
+   ways, and batch_steps = 4 over the same 6 steps against the per-step run
+   (events, and elements or inside a batch their checksum, step for step;
+   one replay a driver call; a batch one replay and one device-to-host copy,
+   its launches witnessed by the trace);
 4. transport path: the same crossbar with solve_current on (heating off,
    transport blocked, on-the-fly metal block, deflated cold solve with 24
    slabs, chunked cold solves, 256 integration steps, Vd = 1 V), counters
@@ -108,18 +126,31 @@ Phases (any failed check raises and the exit code is non-zero):
    rounded to bf16 more than 10x further off),
    timed beside its bytes bound and torch.einsum on the bf16 window stack;
 10. device ensembles: 8 replicas of the headline crossbar (keys
-   fold_in(PRNGKey(42), b)) through parallel.batched.make_batched_superstep,
-   counters set to 0 just before 2 warm-up and 4 timed supersteps: the
-   batched gather twice a superstep, the batched pair sweep and event loop
-   once, no single kernel, no plain version; every replica against the
-   single path on the card with its key (elements and events equal); the
-   device-to-host copies of each batched superstep no more than the most
-   that any replica alone (B = 1) makes in that superstep; the batched
+   fold_in(PRNGKey(42), b)) through parallel.batched.make_batched_superstep
+   (a captured graph a call), counters set to 0 just before 2 warm-up and 4
+   timed supersteps: the batched gather twice a superstep, the batched pair
+   sweep and event loop once (the card's own counts equal), no single
+   kernel, no plain version; every
+   replica against the single path on the card with its key (elements and
+   events equal); the same supersteps of the eager batched superstep
+   (elements, events, cg_iters_boundary equal); the device-to-host copies of
+   each batched superstep no more than the most that any replica alone
+   (B = 1) makes in that superstep, and the batched kernels' launches in
+   each such superstep's trace equal to their counts; the graph and the eager batched
    superstep timed at B = 1, 8 and 32 beside the single path; the three
    batched kernels against their batched plain versions and B single
    launches (bit-equal), timed beside their bounds; and
    examples/ensemble_torch.py's configuration (dense transport, global
-   heat, B = 2) on the card against the CPU path.
+   heat, B = 2) on the card against the CPU path;
+11. the boundary CG kernels of the captured superstep (csrc/boundary_cg.cu)
+   at the crossbar's boundary system after phase 3: the device loop captured
+   with its WHILE node against cg_solve_batched from the run's potential plus
+   seeded noise (iteration counts equal, the iterate within 1e-12 of its
+   scale; the kernels of the WHILE node's body in the trace of a replay),
+   each kernel against its plain version, timed beside its bytes
+   bound (the matvec also beside torch.sparse.mm of the operator in CSR), and
+   the boundary work a captured superstep adds where no replica solves,
+   captured and timed.
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -156,6 +187,8 @@ WINDOW_OPS_PER_STEP = 13
 N_SITES = 110_000
 VD_MAIN = 1.0
 WARMUP_STEPS, TIMED_STEPS = 2, 4
+# supersteps of the graph and the eager driver in turns after phase 3's runs
+GRAPH_TURNS = 4
 TRANSPORT_STEPS = 8
 HEAT_STEPS = 8
 LOCAL_HEAT_STEPS = 3
@@ -1035,16 +1068,24 @@ def conserved_counts(state):
 
 
 def headline_path(out_root):
-    """Phase 3: kernel checks and the headline run, then the event kernel
-    against its plain version on the crossbar; returns the kernels' records
-    (the two TPU kernels, the event loop), the run's supersteps
-    (record_supersteps) and output.txt lines, and the event phase's time
-    draws."""
+    """Phase 3: kernel checks; the headline run on the captured graph (the
+    main path: every superstep one replay and one read) and the same run
+    eagerly (the superstep's operations one by one, as every configuration
+    outside the graph runs), step for step; both again in turns, timed and
+    profiled; then the event kernel against its plain version on the
+    crossbar.  Returns the run's records (record_run) and output.txt lines,
+    the event phase's time draws, the single kernels' records and the
+    graph's numbers (with ``kernel_checks``, ensemble_kernel_checks of the
+    batched kernels at the graph's shapes, B = 1)."""
     import torch
 
+    from devicekmc_tpu_torch import engine
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.ops import ell_gather as eg
     from devicekmc_tpu_torch.ops import kmc_events
-    from devicekmc_tpu_torch.ops.ell_gather import ell_gather
-    from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise
+    from devicekmc_tpu_torch.ops import pairwise as pw
+    from devicekmc_tpu_torch.state import stack_states
 
     t0 = time.perf_counter()
     sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "crossbar"))
@@ -1058,36 +1099,83 @@ def headline_path(out_root):
 
     gather, poisson = kernel_checks(sim)
     counts0 = conserved_counts(sim.state)
+    graph = sim._graph_for(sim.params)
+    check(graph is not None, "the headline configuration does not run the captured graph")
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    singles = {"ell_gather": eg.ell_gather, "poisson_pairwise": pw.poisson_pairwise,
+               "kmc_event_loop": kmc_events.kmc_event_loop}
+    batched = {"ell_gather_batched": eg.ell_gather_batched,
+               "poisson_pairwise_batched": pw.poisson_pairwise_batched,
+               "kmc_event_loop_batched": kmc_events.kmc_event_loop_batched}
 
-    # ---- counters to 0, drive, read ----
-    ell_gather.launches = 0
-    poisson_pairwise.launches = 0
-    kmc_events.kmc_event_loop.launches = 0
-    plain, restore_plain = _counted(kmc_events, "kmc_event_loop_plain")
-    recs, restore_recs = record_supersteps()
-    try:
-        t0 = time.perf_counter()
-        summary = sim.run_bias_point(VD_MAIN, 1e30, max_steps=WARMUP_STEPS + TIMED_STEPS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        restore_plain()
-        restore_recs()
-    launches = {"ell_gather": ell_gather.launches,
-                "poisson_pairwise": poisson_pairwise.launches,
-                "kmc_event_loop": kmc_events.kmc_event_loop.launches}
+    def drive(s, tag):
+        """Counters to 0, run_bias_point, read: (records, launches, wall
+        s); no plain version may run."""
+        for w in (*singles.values(), *batched.values()):
+            w.launches = 0
+        graph.ws.total.zero_()
+        _build.launch_counts("cuda").zero_()
+        plains = [_counted(kmc_events, "kmc_event_loop_plain"),
+                  _counted(kmc_events, "kmc_event_loop_batched_plain"),
+                  _counted(pw, "poisson_pairwise_batched_plain"),
+                  _counted(eg, "ell_gather_batched_plain")]
+        recs = record_run(s)
+        try:
+            t = time.perf_counter()
+            s.run_bias_point(VD_MAIN, 1e30, max_steps=n_steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            stop_recording(s)
+            for _, restore in plains:
+                restore()
+        launches = {name: w.launches for name, w in (*singles.items(), *batched.items())}
+        launches["boundary_cg"] = bcg.device_iterations(graph.ws)
+        card = card_counts()
+        check(all(card[name] == launches[name] for name in batched),
+              f"{tag}: launches counted on the host {launches}, on the card {card}")
+        check(len(s.step_log) == n_steps, f"{tag}: ran {len(s.step_log)} supersteps")
+        check(all(rec["calls"] == 0 for rec, _ in plains), f"{tag}: a plain version ran")
+        return recs, launches, wall
+
+    # ---- the main path: the captured graph ----
+    recs, launches, wall = drive(sim, "headline graph run")
     steps = sim.step_log
-    check(len(steps) == WARMUP_STEPS + TIMED_STEPS, f"ran {len(steps)} supersteps")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the headline path")
-    check(launches["kmc_event_loop"] == len(steps),
-          f"kmc_event_loop launched {launches['kmc_event_loop']} times in {len(steps)} "
-          "supersteps")
-    check(plain["calls"] == 0, f"the plain event loop ran {plain['calls']} times on the card")
+    cg_iters = [int(s["cg_iters_boundary"]) for s in steps]
+    check(launches["ell_gather_batched"] == 2 * n_steps
+          and launches["poisson_pairwise_batched"] == n_steps
+          and launches["kmc_event_loop_batched"] == n_steps,
+          f"headline graph run: batched launches {launches} in {n_steps} supersteps")
+    check(launches["poisson_pairwise"] == 0 and launches["kmc_event_loop"] == 0,
+          f"headline graph run: a single kernel launched in a superstep: {launches}")
+    check(launches["boundary_cg"] == sum(cg_iters) > 0,
+          f"headline graph run: {launches['boundary_cg']} CG iterations on the card, "
+          f"cg_iters_boundary {cg_iters}")
+    check(graph.replays == n_steps, f"headline graph run: {graph.replays} replays")
+
+    # ---- the same run eagerly (the eager superstep, make_superstep without a graph) ----
+    sim_e = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "crossbar_eager"))
+    sim_e._make = engine.make_superstep
+    recs_e, launches_e, wall_e = drive(sim_e, "headline eager run")
+    check(sim_e._graph is None, "the eager run took the graph")
+    check(launches_e["kmc_event_loop"] == n_steps and launches_e["poisson_pairwise"] == n_steps
+          and launches_e["ell_gather"] > 0,
+          f"headline eager run: single launches {launches_e} in {n_steps} supersteps")
+    check(sum(launches_e[k] for k in batched) == 0, "headline eager run: a batched launch")
+    same_runs("headline graph against eager", (recs_e, physics_lines(sim_e.cfg.output_dir)),
+              (recs, physics_lines(sim.cfg.output_dir)), lines=False)
+    cg_e = [int(s["cg_iters_boundary"]) for s in sim_e.step_log]
+    check(cg_iters == cg_e, f"cg_iters_boundary {cg_iters} on the graph, {cg_e} eagerly")
+    phi_err = max(rel_err(a, b) for a, b in zip(recs.phi, recs_e.phi))
+    check(phi_err <= 1e-12, f"headline graph against eager: potentials {phi_err:.3e} of "
+          "their scale apart")
+
+    # the batched kernels the graph launches, at its shapes (B = 1, the
+    # run's last state), against their plain versions and timed
+    b1 = ensemble_kernel_checks(g, sim.params, stack_states([sim.state]))
 
     st = sim.state
-    phi_b = st.potential_boundary
-    phi_c = st.potential_charge
+    phi_b, phi_c = st.potential_boundary, st.potential_charge
     check(bool(torch.isfinite(phi_b).all() and torch.isfinite(phi_c).all()),
           "potentials finite")
     check(phi_b.shape == (g.N,) and phi_c.shape == (g.N,), "potential shapes")
@@ -1098,28 +1186,38 @@ def headline_path(out_root):
     pre = sim.presolve_log[-1]
     log(f"cold deflated boundary pre-solve: {pre['cg_iters']} CG iterations, "
         f"{pre['s'] * 1e3:.1f} ms")
-    timed = steps[WARMUP_STEPS:]
-    ms = [s["Z - calculation time - KMC superstep [s]"] * 1e3 for s in timed]
-    log(f"headline path: run_bias_point (cold deflated pre-solve + "
-        f"{WARMUP_STEPS} warm-up + {TIMED_STEPS} timed supersteps) in {wall:.2f} s")
-    for s in steps:
-        log(f"  step {s['step']}: {s['Z - calculation time - KMC superstep [s]'] * 1e3:.2f} ms, "
-            f"events {int(s['n_events'])}, cg_iters_boundary "
-            f"{int(s['cg_iters_boundary'])}, n_charged_sites {int(s['n_charged_sites'])}, "
-            f"n_active_rows {int(s['n_active_rows'])}, step_time {s['step_time']:.4g} s")
-    log(f"timed supersteps: median {statistics.median(ms):.2f} ms, "
-        f"min {min(ms):.2f} ms, max {max(ms):.2f} ms; launches {launches}; "
-        f"the plain event loop {plain['calls']} times; kmc_time {summary['kmc_time']:.4g} s")
+    key = "Z - calculation time - KMC superstep [s]"
+    ms = [s[key] * 1e3 for s in steps[WARMUP_STEPS:]]
+    ms_e = [s[key] * 1e3 for s in sim_e.step_log[WARMUP_STEPS:]]
+    log(f"headline path on the captured graph: run_bias_point (cold deflated pre-solve + "
+        f"{WARMUP_STEPS} warm-up + {TIMED_STEPS} timed supersteps) in {wall:.2f} s "
+        f"({graph.captures} captures); eagerly in {wall_e:.2f} s")
+    for s, se in zip(steps, sim_e.step_log):
+        log(f"  step {s['step']}: graph {s[key] * 1e3:.2f} ms, eager {se[key] * 1e3:.2f} ms, "
+            f"events {int(s['n_events'])}, cg_iters_boundary {int(s['cg_iters_boundary'])}, "
+            f"n_charged_sites {int(s['n_charged_sites'])}, n_active_rows "
+            f"{int(s['n_active_rows'])}, step_time {s['step_time']:.4g} s")
+    log(f"timed supersteps: graph median {statistics.median(ms):.2f} ms (min {min(ms):.2f}, "
+        f"max {max(ms):.2f}), eager median {statistics.median(ms_e):.2f} ms; events, "
+        f"elements and cg_iters_boundary equal step for step, potentials within "
+        f"{phi_err:.3e} of their scale; launches, graph run {launches}, eager run "
+        f"{launches_e}; kmc_time {sim.state.kmc_time:.4g} s")
+    turns = graph_turns(sim, sim_e, {**singles, **batched})
 
     ev, draws = event_phase(sim.geom, sim.params, sim.state, EVENT_STEPS_CROSSBAR,
                             "crossbar")
     loop = event_loop_timing(sim)
     run = (recs, physics_lines(sim.cfg.output_dir))
+    summary = dict(launches_graph=launches, launches_eager=launches_e, median_ms=
+                   statistics.median(ms), median_ms_eager=statistics.median(ms_e),
+                   phi_err=phi_err, cg_iters=cg_iters, captures=graph.captures,
+                   kernel_checks=b1, **turns)
     event_record = {
         "name": "kmc_event_loop", "route": "cuda",
         "source": "devicekmc_tpu_torch/csrc/kmc_events.cu",
         "replaces": "devicekmc_tpu/physics/events.py:609",
-        "launches": launches["kmc_event_loop"], "max_abs_err": ev["max_abs_err"],
+        "launches": launches_e["kmc_event_loop"], "path": "headline, eager superstep",
+        "max_abs_err": ev["max_abs_err"],
         "max_rel_err": ev["max_rel_err"], "ms": loop["ms"], "plain_ms": loop["plain_ms"],
         "ms_per_event": loop["ms_per_event"],
         "plain_ms_per_event": loop["plain_ms_per_event"], "bound_ms": loop["bound_ms"],
@@ -1135,7 +1233,8 @@ def headline_path(out_root):
             "name": "ell_gather", "route": "cuda",
             "source": "devicekmc_tpu_torch/csrc/ell_gather.cu",
             "replaces": "devicekmc_tpu/ops/ell_gather_pallas.py:184",
-            "launches": launches["ell_gather"],
+            "launches": launches_e["ell_gather"], "path": "headline, eager superstep",
+            "launches_graph_path": launches["ell_gather"],
             "max_abs_err": max(gather[1]["err"], gather[2]["err"]),
             "ms": gather[2]["ms"], "plain_ms": gather[2]["plain_ms"],
             "bound_ms": gather[2]["bound_ms"], "bound_by": "bytes",
@@ -1157,7 +1256,7 @@ def headline_path(out_root):
             "name": "poisson_pairwise", "route": "cuda",
             "source": "devicekmc_tpu_torch/csrc/pairwise.cu",
             "replaces": "devicekmc_tpu/ops/pairwise_pallas.py:88",
-            "launches": launches["poisson_pairwise"],
+            "launches": launches_e["poisson_pairwise"], "path": "headline, eager superstep",
             "max_abs_err": max(poisson[False]["err"], poisson[True]["err"]),
             "ms": poisson[False]["ms"], "plain_ms": poisson[False]["plain_ms"],
             "bound_ms": poisson[False]["bound_ms"],
@@ -1167,7 +1266,222 @@ def headline_path(out_root):
             **{key: poisson[False][key] for key in KERNEL_FACTS},
             "pbc": {key: poisson[True][key] for key in KERNEL_FACTS},
         },
-    ]
+    ], (sim, summary)
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+#: the kernels of the headline paths by their wrappers' names, and the name
+#: each has in a profiler trace (no name holds another)
+TRACE_NAMES = {name: f"{name}_kernel" for name in (
+    "ell_gather", "ell_gather_batched", "poisson_pairwise", "poisson_pairwise_batched",
+    "kmc_event_loop", "kmc_event_loop_batched", "cg_matvec_dot", "cg_update", "cg_direction")}
+CG_KERNELS = ("cg_matvec_dot", "cg_update", "cg_direction")
+
+
+def trace_counts(prof):
+    """Launches of each kernel of TRACE_NAMES among the device records of a
+    torch.profiler trace."""
+    from torch.autograd import DeviceType
+
+    dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {k: sum(stem in name for name in dev) for k, stem in TRACE_NAMES.items()}
+
+
+#: profiler sessions a profiled call may take: torch.profiler now and then
+#: returns a trace without a single device record, and the call is then
+#: profiled again
+PROFILE_ATTEMPTS = 3
+#: the profiled calls whose trace came back empty and were taken again
+empty_traces = []
+#: each kernel's launches in the traces of the profiled calls and as counted
+#: (witness_launches)
+traced = {}
+
+
+def profile_calls(fn, n, reset=None, before=None):
+    """``n`` calls of ``fn`` under torch.profiler: (wall ms, device busy ms,
+    device-to-host copies, trace_counts) in all.  ``before()`` runs just
+    before the profiler starts; a trace without device records is taken
+    again, after ``reset()`` undoes what the calls changed, in at most
+    PROFILE_ATTEMPTS sessions; busy, copies and counts None when every one
+    came back empty."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(PROFILE_ATTEMPTS):
+        if attempt:
+            empty_traces.append(getattr(fn, "__name__", "call"))
+            if reset is not None:
+                reset()
+        if before is not None:
+            before()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            busy = sum(e.time_range.elapsed_us() for e in dev
+                       if not e.name.startswith("Memcpy DtoH")) / 1e3
+            return (wall, busy, sum(e.name.startswith("Memcpy DtoH") for e in dev),
+                    trace_counts(prof))
+    return wall, None, None, None
+
+
+def card_counts():
+    """The launches the card has counted of each kernel of
+    ``_build.COUNTED_ON_CARD`` (csrc/launch_count.cuh), read."""
+    from devicekmc_tpu_torch.ops import _build
+
+    return dict(zip(_build.COUNTED_ON_CARD, _build.launch_counts("cuda").tolist()))
+
+
+def witness_launches(tag, wrappers, counted, seen, iters=None, card=None):
+    """The launches the wrappers counted in a profiled call (``counted``: for
+    a replay, its graph's per_replay) against what the card counted in it
+    (``card``: equal, for each kernel that counts itself) and the kernels of
+    its trace (``seen``, trace_counts: never more often than counted; a trace
+    may miss launches, see cg_seen, and traced_totals checks that each kernel
+    shows in some); with
+    ``iters``, the boundary CG iterations the device counted in it, witnessed
+    by the CG kernels in the trace (cg_seen)."""
+    check(seen is not None, f"{tag}: a profiler trace came back without device records")
+    for name in wrappers:
+        if card is not None and name in card:
+            check(card[name] == counted[name], f"{tag}: {name} counted {counted[name]} "
+                  f"launches on the host, {card[name]} on the card")
+        check(seen[name] <= counted[name], f"{tag}: {name} counted {counted[name]} launches, "
+              f"the trace shows {seen[name]} (counted {counted}, trace {seen})")
+        total = traced.setdefault(name, [0, 0])
+        total[0] += seen[name]
+        total[1] += counted[name]
+    if iters is not None:
+        cg_seen(tag, seen, iters)
+
+
+def traced_totals():
+    """Every kernel counted in the profiled calls also seen in their traces
+    (traced: launches seen, launches counted); returns the totals."""
+    for name, (seen, counted) in traced.items():
+        check(seen > 0 or counted == 0, f"{name}: {counted} launches in the profiled calls, "
+              "none in their traces")
+    return {name: tuple(t) for name, t in traced.items()}
+
+
+def cg_seen(tag, seen, iters):
+    """The three CG kernels in a trace (``seen``) of a call in which the device
+    counted ``iters`` iterations: each launched at least once when ``iters``
+    > 0, never when it is 0, and at most ``iters`` times.  The trace misses
+    some launches: of a captured loop of 46 iterations on an H100 it showed
+    43 or 44 of each kernel, in different numbers for the three, and of a
+    replay of the ensemble's superstep one of its two batched gathers, so
+    the device's count stands for the launches.
+    Returns each kernel's launches in the trace."""
+    n = {k: seen[k] for k in CG_KERNELS}
+    check(all((0 < c <= iters) if iters else c == 0 for c in n.values()),
+          f"{tag}: {iters} CG iterations on the device, the trace shows {n}")
+    return n
+
+
+def profile_witnessed(tag, fn, wrappers, ws=None, reset=None):
+    """One call of ``fn`` under torch.profiler (profile_calls, ``reset`` its
+    undo), its kernel launches witnessed by its trace (witness_launches;
+    ``ws``: the CG workspace of the graph it replays, captured before the
+    profiler started).  Returns profile_calls' tuple and the CG iterations
+    the device counted (None without ``ws``)."""
+    snap = {}
+
+    def before():
+        snap.update({name: w.launches for name, w in wrappers.items()}, card=card_counts())
+        if ws is not None:
+            ws.total.zero_()
+
+    out = profile_calls(fn, 1, reset=reset, before=before)
+    counted = {name: w.launches - snap[name] for name, w in wrappers.items()}
+    card = {name: n - snap["card"][name] for name, n in card_counts().items()}
+    iters = None if ws is None else int(ws.total)
+    witness_launches(tag, wrappers, counted, out[3], iters, card)
+    return (*out, iters)
+
+
+def graph_turns(sim, sim_e, wrappers, turns=GRAPH_TURNS):
+    """Phase 3's graph and eager drivers again, superstep by superstep in
+    turns from where their runs ended: wall ms of each, events equal; one
+    superstep of each under torch.profiler (device busy share, device-to-host
+    copies), and one replay of the graph alone (its copies: none); in each
+    profiled call the launches the kernel ``wrappers`` count (on the graph:
+    its per_replay) equal to the kernels of the trace, and the CG
+    iterations the device counts witnessed by it (witness_launches)."""
+    import torch
+
+    def step(s):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.state, _, m = s._superstep(s.state, VD_MAIN)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, m
+
+    ms_g, ms_e, prof = [], [], {}
+    for _ in range(turns):
+        (tg, mg), (te, me) = step(sim), step(sim_e)
+        check(mg["n_events"] == me["n_events"] and torch.equal(sim.state.element,
+                                                               sim_e.state.element),
+              "graph and eager supersteps in turns differ")
+        ms_g.append(tg)
+        ms_e.append(te)
+    graph = sim._graph
+    for tag, s in (("graph", sim), ("eager", sim_e), ("graph2", sim), ("eager2", sim_e)):
+        prev = s.state
+        prof[tag] = profile_witnessed(f"{tag} superstep", lambda: step(s), wrappers,
+                                      graph.ws if s is sim else None,
+                                      reset=lambda: setattr(s, "state", prev))
+    i = graph.load_single(sim.state)
+    replay = graph._graph("step", i, VD_MAIN)
+    per_replay = {name: replay.per_replay.get(w, 0) for name, w in wrappers.items()}
+    card0 = {}
+    prof["replay"] = profile_calls(replay, 1, before=lambda: (graph.ws.total.zero_(),
+                                                              card0.update(card_counts())))
+    iters = int(graph.ws.total)
+    witness_launches("a replay alone", wrappers, per_replay, prof["replay"][3], iters,
+                     {name: n - card0[name] for name, n in card_counts().items()})
+    out = {"trace_per_replay": {name: prof["replay"][3][name] for name in
+                                (*wrappers, *CG_KERNELS)},
+           "graph_per_replay": per_replay, "cg_iters_traced_replay": iters,
+           "cg_iters_traced_supersteps": [prof["graph"][4], prof["graph2"][4]]}
+    for tag in ("graph", "eager"):
+        runs = [prof[tag], prof[f"{tag}2"]]
+        check(all(p[1] is not None for p in runs),
+              f"{tag}: a profiler trace came back without device records")
+        out[f"busy_{tag}"] = [100 * p[1] / p[0] for p in runs]
+        out[f"dtoh_{tag}"] = [p[2] for p in runs]
+    out["dtoh_replay"] = prof["replay"][2]
+    check(out["dtoh_graph"] == [1, 1], f"graph superstep: {out['dtoh_graph']} device-to-host "
+          "copies, not 1")
+    check(out["dtoh_replay"] == 0, f"a replay alone: {out['dtoh_replay']} device-to-host "
+          "copies")
+    out.update(ms_turns_graph=ms_g, ms_turns_eager=ms_e,
+               median_turns_graph=statistics.median(ms_g),
+               median_turns_eager=statistics.median(ms_e))
+    log(f"in turns, {turns} supersteps each: graph median {out['median_turns_graph']:.2f} ms "
+        f"({[round(x, 2) for x in ms_g]}), eager median {out['median_turns_eager']:.2f} ms "
+        f"({[round(x, 2) for x in ms_e]}); device busy (one profiled superstep each, twice) "
+        f"graph {[round(x, 1) for x in out['busy_graph']]} %, eager "
+        f"{[round(x, 1) for x in out['busy_eager']]} %; device-to-host copies a superstep "
+        f"graph {out['dtoh_graph']}, eager {out['dtoh_eager']}, a replay alone "
+        f"{out['dtoh_replay']}; kernels in the trace of a replay alone "
+        f"{out['trace_per_replay']} (its graph's per_replay {per_replay}, {iters} CG "
+        f"iterations on the device); in each profiled call the card's own launch counts "
+        f"equal to the wrappers' (CG iterations of the profiled graph supersteps: "
+        f"{out['cg_iters_traced_supersteps']})")
+    return out
 
 
 def transport_path(out_root):
@@ -1775,27 +2089,49 @@ def event_loop_timing(sim, reps=20, plain_reps=3):
     return rec
 
 
-def record_supersteps():
-    """Keep a device copy of every superstep's elements and its event count,
-    where the per-step driver (engine) and the batch
-    (superstep.multi_superstep_impl) call superstep_impl.  Returns
-    ``(records, restore)``."""
-    from devicekmc_tpu_torch import engine, superstep
+class RunRecord(list):
+    """``(elements, events, checksum)`` of every superstep of a run: the
+    elements a device copy, or None for the steps inside a batch, whose
+    states the batch does not return, and for those the batch's checksum of
+    them (superstep.element_checksum); and ``phi``, the potentials after
+    every single superstep."""
 
-    fn = superstep.superstep_impl
-    recs = []
+    def __init__(self):
+        super().__init__()
+        self.phi = []
 
-    def wrapped(*a, **kw):
-        out = fn(*a, **kw)
-        recs.append((out[0].element.clone(), int(out[2].get("n_events", -1))))
+
+def record_run(sim):
+    """Record every superstep of ``sim`` where its driver calls one
+    (``sim._superstep``) and a batch (``sim._msuperstep``, its captured
+    graph: the events and element checksum of each step that ran, the
+    elements after the last).  Returns the RunRecord."""
+    recs = RunRecord()
+    step, multi = sim._superstep, sim._msuperstep
+
+    def one(state, Vd, *rest):
+        out = step(state, Vd, *rest)
+        recs.append((out[0].element.clone(), int(out[2].get("n_events", -1)), None))
+        recs.phi.append(out[0].potential_boundary + out[0].potential_charge)
         return out
 
-    engine.superstep_impl = superstep.superstep_impl = wrapped
+    def many(state, Vd, *rest):
+        out = multi(state, Vd, *rest)
+        check(sim._graph is not None, "a batch ran without its captured graph")
+        n = int(out[2]["active"].sum())
+        for r in range(n):
+            recs.append((out[0].element.clone() if r == n - 1 else None,
+                         int(out[2]["n_events"][r]), float(sim._graph.checksums[r])))
+        return out
 
-    def restore():
-        engine.superstep_impl = superstep.superstep_impl = fn
+    sim._superstep, sim._msuperstep = one, many
+    return recs
 
-    return recs, restore
+
+def stop_recording(sim):
+    """Undo record_run: the driver's own superstep and batch again."""
+    for name in ("_superstep", "_msuperstep"):
+        sim.__dict__.pop(name, None)
 
 
 def physics_lines(out_dir):
@@ -1806,62 +2142,102 @@ def physics_lines(out_dir):
                 if not ln.startswith(("Z - calculation time", "-", "Created folder"))]
 
 
-def same_runs(tag, ref, got):
-    """Two runs' records (record_supersteps) and output.txt lines equal."""
-    import torch
-
+def same_runs(tag, ref, got, lines=True):
+    """Two runs' records (record_run) equal: the events and the elements of
+    every step (same_steps); with ``lines`` also output.txt's lines
+    (physics_lines)."""
     (recs_a, lines_a), (recs_b, lines_b) = ref, got
-    check(len(recs_a) == len(recs_b), f"{tag}: {len(recs_a)} vs {len(recs_b)} supersteps")
-    for k, ((ea, na), (eb, nb)) in enumerate(zip(recs_a, recs_b)):
-        check(na == nb, f"{tag}: step {k} events {na} vs {nb}")
-        check(torch.equal(ea, eb), f"{tag}: step {k} elements differ")
-    check(lines_a == lines_b, f"{tag}: output.txt numbers differ")
+    same_steps(tag, recs_a, recs_b)
+    if lines:
+        check(lines_a == lines_b, f"{tag}: output.txt numbers differ")
 
 
 def small_batched_check(out_root, steps=8):
     """The small stack on the card with batch_steps = BATCH_STEPS against
     the per-step driver (log_freq 3: snapshot steps run alone between the
-    batches): events and elements per step and output.txt's numbers equal."""
+    batches): events and elements (inside a batch, their checksum) per step
+    and output.txt's numbers equal."""
     runs = {}
     for bs in (1, BATCH_STEPS):
         sim = small_device("cuda", os.path.join(out_root, f"small_batch{bs}"),
                            batch_steps=bs, log_freq=3)
-        recs, restore = record_supersteps()
-        try:
-            sim.run_bias_point(2.5, 1e30, max_steps=steps)
-        finally:
-            restore()
+        recs = record_run(sim)
+        sim.run_bias_point(2.5, 1e30, max_steps=steps)
         runs[bs] = (recs, physics_lines(sim.cfg.output_dir))
     same_runs("small stack batched", runs[1], runs[BATCH_STEPS])
     log(f"small stack, batch_steps = {BATCH_STEPS}: {steps} supersteps, events per step "
-        f"{[n for _, n in runs[1][0]]} and elements equal to the per-step driver's, "
+        f"{[r[1] for r in runs[1][0]]} and elements equal to the per-step driver's, "
         "output.txt numbers equal")
 
 
 def crossbar_batched_check(out_root, ref):
     """The headline configuration with batch_steps = BATCH_STEPS over the
-    headline run's steps: events and elements per step and output.txt's
-    numbers equal to the per-step run's ``ref``.  Returns the batched run's
-    step times."""
+    headline run's steps (step 0 alone, a snapshot step, then batches, the
+    last with a limit of 1): events and elements (inside a batch, their
+    checksum) per step and output.txt's numbers equal to the per-step run's
+    ``ref``, one replay of the captured graph a driver call; then one more
+    batch under torch.profiler: one replay, one device-to-host copy, its
+    kernels' launches witnessed by the trace.  Returns the batched run's
+    step times and the batch's copies and wall ms."""
     import torch
+
+    from devicekmc_tpu_torch.ops import ell_gather as eg
+    from devicekmc_tpu_torch.ops import kmc_events
+    from devicekmc_tpu_torch.ops import pairwise as pw
 
     sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "crossbar_batched"),
                              batch_steps=BATCH_STEPS)
-    recs, restore = record_supersteps()
-    try:
-        t0 = time.perf_counter()
-        sim.run_bias_point(VD_MAIN, 1e30, max_steps=WARMUP_STEPS + TIMED_STEPS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        restore()
+    recs = record_run(sim)
+    calls = []
+    multi = sim._msuperstep
+    sim._msuperstep = lambda *a: calls.append(1) or multi(*a)
+    t0 = time.perf_counter()
+    sim.run_bias_point(VD_MAIN, 1e30, max_steps=WARMUP_STEPS + TIMED_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     same_runs("crossbar batched", ref, (recs, physics_lines(sim.cfg.output_dir)))
+    graph = sim._graph
+    check(graph.replays == len(recs.phi) + len(calls),
+          f"crossbar batched: {graph.replays} replays for {len(recs.phi)} single steps and "
+          f"{len(calls)} batches")
     ms = [s["Z - calculation time - KMC superstep [s]"] * 1e3 for s in sim.step_log]
-    log(f"crossbar, batch_steps = {BATCH_STEPS}: {len(recs)} supersteps in {wall:.2f} s, "
-        f"events and elements per step and output.txt numbers equal to the per-step run; "
-        f"superstep wall ms {[round(x, 2) for x in ms]} (a batch step: its batch's time "
-        "over its steps)")
-    return ms
+    replays0, n_steps = graph.replays, len(recs)
+
+    def batch():
+        sim.state, _, _ = multi(sim.state, VD_MAIN, float("inf"), 1e30, BATCH_STEPS)
+
+    prev = sim.state
+
+    wall_b, busy_b, dtoh_b, seen_b, iters_b = profile_witnessed(
+        f"a batch of {BATCH_STEPS}", batch, {"ell_gather_batched": eg.ell_gather_batched,
+                                             "poisson_pairwise_batched":
+                                                 pw.poisson_pairwise_batched,
+                                             "kmc_event_loop_batched":
+                                                 kmc_events.kmc_event_loop_batched}, graph.ws,
+        reset=lambda: setattr(sim, "state", prev))
+    check(graph.replays - replays0 == 1 and dtoh_b == 1,
+          f"a batch of {BATCH_STEPS}: {graph.replays - replays0} replays, {dtoh_b} "
+          "device-to-host copies")
+    ms_b = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        ms_b.append((time.perf_counter() - t) * 1e3 / BATCH_STEPS)
+    log(f"crossbar, batch_steps = {BATCH_STEPS}: {n_steps} supersteps in {wall:.2f} s "
+        f"({len(recs.phi)} alone, {len(calls)} batches, {replays0} replays), events "
+        f"and elements (inside a batch their checksum) per step and output.txt numbers "
+        f"equal to the per-step "
+        f"run; superstep wall ms {[round(x, 2) for x in ms]} (a batch step: its batch's "
+        f"time over its steps, the first two batches with their captures); one more "
+        f"batch under the profiler: 1 replay, {dtoh_b} device-to-host copy, {wall_b:.2f} ms "
+        f"wall" + (f", device busy {100 * busy_b / wall_b:.1f} %" if busy_b else "")
+        + f", kernels in its trace {seen_b} ({iters_b} CG iterations on the device); 3 more "
+        f"batches: {[round(x, 3) for x in ms_b]} ms a superstep")
+    return dict(ms=ms, batch_dtoh=dtoh_b, batch_wall_ms=wall_b, ms_per_step=ms_b,
+                batch_trace=seen_b, batch_cg_iters=iters_b,
+                batch_busy=None if busy_b is None else 100 * busy_b / wall_b)
 
 
 def cg_reference_run(out_root, chunked):
@@ -1937,13 +2313,13 @@ BF16_TRANSPORT_TOL = 1e-6
 def record_elements(sim):
     """Keep a device copy of the elements and the event count of every
     ``sim._superstep`` call of one Simulation; the records of
-    record_supersteps."""
+    record_run."""
     recs = []
     step = sim._superstep
 
     def wrapped(state, Vd):
         out = step(state, Vd)
-        recs.append((out[0].element.clone(), int(out[2].get("n_events", -1))))
+        recs.append((out[0].element.clone(), int(out[2].get("n_events", -1)), None))
         return out
 
     sim._superstep = wrapped
@@ -1951,14 +2327,24 @@ def record_elements(sim):
 
 
 def same_steps(tag, ref, got):
-    """Two runs' records (record_supersteps, record_elements): events and
-    elements equal step for step."""
+    """Two runs' records (record_run, record_elements): events equal step for
+    step, and the elements of every step: equal where both runs recorded
+    them, else their checksums."""
     import torch
 
+    from devicekmc_tpu_torch.superstep import element_checksum
+
+    def checksum(rec):
+        return rec[2] if rec[0] is None else float(element_checksum(rec[0][None])[0])
+
     check(len(ref) == len(got), f"{tag}: {len(ref)} vs {len(got)} supersteps")
-    for k, ((ea, na), (eb, nb)) in enumerate(zip(ref, got)):
-        check(na == nb, f"{tag}: step {k} events {na} vs {nb}")
-        check(torch.equal(ea, eb), f"{tag}: step {k} elements differ")
+    for k, (a, b) in enumerate(zip(ref, got)):
+        check(a[1] == b[1], f"{tag}: step {k} events {a[1]} vs {b[1]}")
+        if a[0] is not None and b[0] is not None:
+            check(torch.equal(a[0], b[0]), f"{tag}: step {k} elements differ")
+        else:
+            check(checksum(a) == checksum(b), f"{tag}: step {k} element checksums "
+                  f"{checksum(a)} vs {checksum(b)}")
 
 
 def small_modular_check(out_root, steps=4):
@@ -1994,7 +2380,7 @@ def small_modular_check(out_root, steps=4):
     check(moved > 0, "the local heat model left the background temperature everywhere")
     log(f"small stack, modular driver (segments of {sim.cfg.solver_chunk_iters}) with "
         f"transport and the local cg heat model: {steps} supersteps, events per step "
-        f"{[n for _, n in runs[False][0]]} and elements equal to the fused driver's; every "
+        f"{[r[1] for r in runs[False][0]]} and elements equal to the fused driver's; every "
         f"step logs {len(keys)} module times; the chunked heat phase at "
         f"{int(HEAT_CHECK_SUBSTEPS) + 1} substeps against the single call: max temperature "
         f"error {err:.3e} relative (up to {moved:.3e} K above the background)")
@@ -2122,7 +2508,7 @@ def modular_path(out_root, ref):
     driver with in-superstep segments of MODULAR_CHUNK iterations, counters set to
     0 just before run_bias_point and read just after: the same cold
     pre-solve, warm-up and timed supersteps as phase 3; events and elements
-    equal to the fused run ``ref`` (record_supersteps) step for step, every
+    equal to the fused run ``ref`` (record_run) step for step, every
     step with the four headline module times, their medians over the timed
     steps printed.  Returns the launches."""
     import torch
@@ -2291,23 +2677,20 @@ ENSEMBLE_SIZES = (1, ENSEMBLE_B, 32)
 ENSEMBLE_SEED = 42
 
 
-def dtoh_per_step(step, states, n):
+def dtoh_per_step(step, states, n, wrappers):
     """Device-to-host copies of each of ``n`` supersteps of ``step`` from
     ``states``, as the device records of torch.profiler count them ("Memcpy
-    DtoH"), one profiled superstep at a time.  None for a superstep whose
-    trace came back without device records."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    DtoH"), one profiled superstep at a time, each superstep's kernel
+    launches (the counts of ``wrappers``) witnessed by its trace
+    (profile_witnessed)."""
     counts = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            states, _, _ = step(states, VD_MAIN)
-            torch.cuda.synchronize()
-        dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        counts.append(sum(name.startswith("Memcpy DtoH") for name in dev) if dev else None)
+    for k in range(n):
+        out = []
+        prof = profile_witnessed(f"ensemble superstep {k} at B = {states.element.shape[0]}",
+                                 lambda: out.append(step(states, VD_MAIN)), wrappers,
+                                 reset=out.clear)
+        states = out[-1][0]
+        counts.append(prof[2])
     return counts
 
 
@@ -2519,18 +2902,22 @@ def ensemble_path(out_root):
     with its key (superstep_impl, the same supersteps: elements and events
     equal, step times and the final potentials within 1e-12 relative);
     device-to-host copies of each superstep at B = 8 no more than the most
-    any replica alone makes in it at B = 1; timings at B = 1, 8, 32 beside
-    the single path; the batched kernels against their plain versions and B
-    single launches; the example's configuration card against CPU.  Returns
-    the kernels' records and the phase's numbers."""
+    any replica alone makes in it at B = 1; the same supersteps of the eager
+    batched superstep (superstep_batched, no graph) against the graph's
+    (elements, events and cg_iters_boundary equal, potentials and step times
+    within 1e-12 relative); timings at B = 1, 8, 32, graph and eager in
+    turns, beside the single path; the batched kernels against their plain
+    versions and B single launches; the example's configuration card against
+    CPU.  Returns the kernels' checks (ensemble_kernel_checks) with their
+    launches in the main run, and the phase's numbers."""
     import torch
 
-    from devicekmc_tpu_torch.ops import cg, kmc_events
+    from devicekmc_tpu_torch.ops import _build, cg, kmc_events
     from devicekmc_tpu_torch.ops import ell_gather as eg
     from devicekmc_tpu_torch.ops import pairwise as pw
     from devicekmc_tpu_torch.parallel.batched import batch_states, make_batched_superstep
     from devicekmc_tpu_torch.state import replace, stack_states, unbatch
-    from devicekmc_tpu_torch.superstep import superstep_impl
+    from devicekmc_tpu_torch.superstep import superstep_batched, superstep_impl
 
     t_phase = time.perf_counter()
     sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "ensemble"))
@@ -2545,12 +2932,15 @@ def ensemble_path(out_root):
     step = make_batched_superstep(geom, params, sim.heat)
     n_steps = WARMUP_STEPS + TIMED_STEPS
 
-    def drive(states, n, record=None):
+    def eager(states, Vd):
+        return superstep_batched(geom, params, states, Vd)
+
+    def drive(states, n, record=None, fn=step):
         ms = []
         for _ in range(n):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            states, dts, m = step(states, VD_MAIN)
+            states, dts, m = fn(states, VD_MAIN)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t) * 1e3)
             if record is not None:
@@ -2565,6 +2955,7 @@ def ensemble_path(out_root):
     # ---- counters to 0, drive, read ----
     for fn in (*batched.values(), *single):
         fn.launches = 0
+    _build.launch_counts("cuda").zero_()
     plains = [_counted(eg, "ell_gather_batched_plain"),
               _counted(pw, "poisson_pairwise_batched_plain"),
               _counted(kmc_events, "kmc_event_loop_batched_plain")]
@@ -2578,8 +2969,9 @@ def ensemble_path(out_root):
     launches = {name: fn.launches for name, fn in batched.items()}
     reads = cg.readbacks - reads0
     check(launches == {"ell_gather_batched": 2 * n_steps, "poisson_pairwise_batched": n_steps,
-                       "kmc_event_loop_batched": n_steps},
-          f"ensemble: batched launches {launches} in {n_steps} supersteps")
+                       "kmc_event_loop_batched": n_steps} == card_counts(),
+          f"ensemble: batched launches {launches} in {n_steps} supersteps, on the card "
+          f"{card_counts()}")
     check(all(fn.launches == 0 for fn in single), "ensemble: a single kernel was launched")
     check(all(rec["calls"] == 0 for rec, _ in plains), "ensemble: a plain version ran")
 
@@ -2598,6 +2990,24 @@ def ensemble_path(out_root):
     for k in range(n_steps):
         log(f"  ensemble step {k}: {ms[k]:.2f} ms, events {events[k]}, cg_iters_boundary "
             f"{cg_iters[k]}, n_charged_sites {n_charged[k]}")
+
+    # the eager batched superstep (no graph) from the same states
+    recs_e = []
+    states_e, ms_e = drive(states0, n_steps, recs_e, fn=eager)
+    for k, ((el, m, dts), (el_e, m_e, dts_e)) in enumerate(zip(recs, recs_e)):
+        check(torch.equal(el, el_e), f"ensemble step {k}: graph and eager elements differ")
+        for key in ("n_events", "cg_iters_boundary"):
+            check(m[key].tolist() == m_e[key].tolist(),
+                  f"ensemble step {k}: {key} {m[key].tolist()} on the graph, "
+                  f"{m_e[key].tolist()} eagerly")
+        check(rel_err(dts, dts_e) <= 1e-12, f"ensemble step {k}: step times differ")
+    phi_ge = rel_err(states.potential_boundary + states.potential_charge,
+                     states_e.potential_boundary + states_e.potential_charge)
+    check(phi_ge <= 1e-12, f"ensemble: potentials {phi_ge:.3e} of their scale from the "
+          "eager batched superstep's")
+    log(f"ensemble: the captured graph equal to the eager batched superstep over {n_steps} "
+        f"supersteps (elements, events, cg_iters_boundary; step times and potentials within "
+        f"{phi_ge:.3e} of their scale); eager ms {[round(x, 2) for x in ms_e]}")
 
     # each replica against the single path with its key
     single_ms, phi_err, dt_err = [], 0.0, 0.0
@@ -2631,8 +3041,8 @@ def ensemble_path(out_root):
 
     # device-to-host copies, superstep by superstep: the batch against the
     # most that any replica alone (B = 1, its own key) makes in that step
-    dtoh_b = dtoh_per_step(step, states0, n_steps)
-    dtoh_1 = [dtoh_per_step(step, stack_states([unbatch(states0, b)]), n_steps)
+    dtoh_b = dtoh_per_step(step, states0, n_steps, batched)
+    dtoh_1 = [dtoh_per_step(step, stack_states([unbatch(states0, b)]), n_steps, batched)
               for b in range(ENSEMBLE_B)]
     check(None not in dtoh_b and all(None not in d for d in dtoh_1),
           "ensemble: a profiler trace came back without device records")
@@ -2642,56 +3052,240 @@ def ensemble_path(out_root):
           f"than the most of any replica alone {dtoh_max1}")
     log(f"ensemble: device-to-host copies a superstep {dtoh_b} at B = {ENSEMBLE_B}, the most "
         f"of any replica alone at B = 1 {dtoh_max1} (each replica: {dtoh_1}; CG chunk reads "
-        f"of the main run: {reads})")
+        f"of the main run: {reads}); in each profiled superstep the batched kernels' "
+        f"launches counted on the card equal to their wrappers' counts")
 
-    # timings at B = 1, 8, 32
-    sizes = {ENSEMBLE_B: dict(ms=ms[WARMUP_STEPS:])}
+    # timings at B = 1, 8, 32: the graph and the eager batched superstep in turns
+    sizes = {}
     for nb in ENSEMBLE_SIZES:
-        if nb in sizes:
-            continue
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        _, ms_n = drive(batch_states(base, nb, base_seed=ENSEMBLE_SEED), n_steps)
-        sizes[nb] = dict(ms=ms_n[WARMUP_STEPS:],
-                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        st_n = batch_states(base, nb, base_seed=ENSEMBLE_SEED)
+        _, ms_n = drive(st_n, n_steps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _, ms_ne = drive(st_n, n_steps, fn=eager)
+        sizes[nb] = dict(ms=ms_n[WARMUP_STEPS:], ms_eager=ms_ne[WARMUP_STEPS:], peak_gib=peak)
         torch.cuda.empty_cache()
     single_med = statistics.median(single_ms)
     for nb in sorted(sizes):
         r = sizes[nb]
         r["median_ms"] = statistics.median(r["ms"])
+        r["median_ms_eager"] = statistics.median(r["ms_eager"])
         r["ms_per_replica"] = r["median_ms"] / nb
-        log(f"ensemble B = {nb}: batched superstep median {r['median_ms']:.2f} ms "
-            f"(timed {[round(x, 2) for x in r['ms']]}), {r['ms_per_replica']:.3f} ms a "
-            f"replica-superstep against the single path's median {single_med:.2f} ms"
-            + (f"; peak memory {r['peak_gib']:.2f} GiB" if "peak_gib" in r else ""))
+        log(f"ensemble B = {nb}: captured graph median {r['median_ms']:.2f} ms (timed "
+            f"{[round(x, 2) for x in r['ms']]}), eager batched superstep median "
+            f"{r['median_ms_eager']:.2f} ms, {r['ms_per_replica']:.3f} ms a replica-superstep "
+            f"against the single path's median {single_med:.2f} ms; peak memory "
+            f"{r['peak_gib']:.2f} GiB (graph run)")
 
     kchecks = ensemble_kernel_checks(geom, params, states)
     example = ensemble_example_check()
     log(f"ensemble phase in {time.perf_counter() - t_phase:.1f} s")
-    common = dict(batch=ENSEMBLE_B, path=f"ensemble of {ENSEMBLE_B} crossbar replicas "
-                  f"({n_steps} supersteps)")
-    g1, g2 = kchecks["gather1"], kchecks["gather2"]
-    records = [
-        {"name": "ell_gather_batched", "route": "cuda",
-         "source": "devicekmc_tpu_torch/csrc/ell_gather.cu",
-         "replaces": "devicekmc_tpu/ops/ell_gather_pallas.py:184",
-         "launches": launches["ell_gather_batched"], **g2,
-         "ms_1ch": g1["ms"], "ms_singles_1ch": g1["ms_singles"], "plain_ms_1ch": g1["plain_ms"],
-         "bound_ms_1ch": g1["bound_ms"], "library_ms_1ch": g1["library_ms"], **common},
-        {"name": "poisson_pairwise_batched", "route": "cuda",
-         "source": "devicekmc_tpu_torch/csrc/pairwise.cu",
-         "replaces": "devicekmc_tpu/ops/pairwise_pallas.py:88",
-         "launches": launches["poisson_pairwise_batched"], **kchecks["poisson"], **common},
-        {"name": "kmc_event_loop_batched", "route": "cuda",
-         "source": "devicekmc_tpu_torch/csrc/kmc_events.cu",
-         "replaces": "devicekmc_tpu/physics/events.py:609",
-         "launches": launches["kmc_event_loop_batched"], **kchecks["events"], **common},
-    ]
     summary = dict(
         sizes={nb: {k: v for k, v in r.items()} for nb, r in sizes.items()},
         single_median_ms=single_med, dtoh_batch=dtoh_b, dtoh_single=dtoh_1,
+        eager_ms=ms_e, phi_err_eager=phi_ge,
         cg_reads=reads, events=events, cg_iters_boundary=cg_iters, n_charged=n_charged,
         phi_err=phi_err, dt_err=dt_err, cold_iters=cold_iters, example=example)
+    return (kchecks, launches), summary
+
+
+#: the batched kernels: wrapper, source, the TPU kernel it replaces, and its
+#: record in ensemble_kernel_checks
+BATCHED_KERNELS = (
+    ("ell_gather_batched", "ell_gather.cu", "devicekmc_tpu/ops/ell_gather_pallas.py:184",
+     "gather2"),
+    ("poisson_pairwise_batched", "pairwise.cu", "devicekmc_tpu/ops/pairwise_pallas.py:88",
+     "poisson"),
+    ("kmc_event_loop_batched", "kmc_events.cu", "devicekmc_tpu/physics/events.py:609",
+     "events"))
+
+
+def batched_records(headline, ensemble):
+    """The batched kernels' records: those of the main path (the headline
+    graph run, B = 1: its launches, the kernels held against their plain
+    versions and timed at its shapes) with the ensemble's (B = ENSEMBLE_B)
+    beside them.  ``headline`` and ``ensemble``: (ensemble_kernel_checks,
+    launches) of each."""
+    def fields(checks, key):
+        rec = dict(checks[key])
+        if key == "gather2":
+            rec.update({f"{k}_1ch": checks["gather1"][k] for k in (
+                "ms", "ms_singles", "plain_ms", "bound_ms", "library_ms", "shape")})
+        return rec
+
+    (b1, launches_1), (bn, launches_n) = headline, ensemble
+    return [{"name": name, "route": "cuda", "source": f"devicekmc_tpu_torch/csrc/{src}",
+             "replaces": replaces, "launches": launches_1[name],
+             "path": "headline, captured graph (B = 1)", **fields(b1, key),
+             "ensemble": {"launches": launches_n[name], "batch": ENSEMBLE_B,
+                          "path": f"ensemble of {ENSEMBLE_B} crossbar replicas "
+                                  f"({WARMUP_STEPS + TIMED_STEPS} supersteps)",
+                          **fields(bn, key)}}
+            for name, src, replaces, key in BATCHED_KERNELS]
+
+
+# ---------------------------------------------------------------------------
+# the boundary CG kernels of the captured superstep
+# ---------------------------------------------------------------------------
+
+#: the warm start of phase 11's solve: the run's potential plus seeded noise
+#: of this amplitude [V] on the interior sites, and its iteration cap
+CG_NOISE, CG_MAXITER = 1e-4, 5000
+
+
+def boundary_cg_path(sim, cg_launches):
+    """Phase 11: the three boundary CG kernels at the crossbar's boundary
+    system (B = 1, the state after phase 3's runs).  The device loop,
+    captured with its WHILE node, against cg_solve_batched from the run's
+    potential plus seeded noise: iteration counts equal, the iterate within
+    1e-12 of its scale, both timed; each kernel against its plain version on
+    the same workspace, timed alone beside its bytes bound, its plain
+    version and, for the matvec, torch.sparse.mm of the same operator in
+    CSR; the work a captured superstep adds in a step where no replica
+    solves (assembly, CG setup, residual) captured and timed.  Returns the
+    kernels' records (``cg_launches``: the device's iteration count in
+    phase 3's graph run)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.ops.cg import cg_solve_batched
+    from devicekmc_tpu_torch.ops.graph import Graph
+    from devicekmc_tpu_torch.physics import potential as pot
+    from devicekmc_tpu_torch.state import stack_states
+
+    t_phase = time.perf_counter()
+    geom, params = sim.geom, sim.params
+    states = stack_states([sim.state])
+    interior = geom.bp_interior_mask
+    masks = (geom.bp_left_mask, geom.bp_right_mask, interior)
+    vl, vr = -VD_MAIN / 2, VD_MAIN / 2
+    edge_g = pot._edge_conductance_boundary(geom, states, params)
+    b, matvec, diag, vals, pre = pot._dirichlet_system(geom, edge_g, vl, vr, masks)
+    op = (diag, vals, geom.neigh_idx, interior)
+    rng = np.random.default_rng(7)
+    noise = torch.as_tensor(CG_NOISE * rng.standard_normal(geom.N), device="cuda")
+    x0 = torch.where(interior, states.potential_boundary + noise, 0.0)
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    tol = params.solver_tol
+
+    ref = cg_solve_batched(matvec, b, x0, pre, tol=tol, maxiter=CG_MAXITER, active=active)
+    ws = bcg.workspace(1, geom.N, b.dtype, "cuda")
+    solve = Graph(lambda: bcg.cg_solve_device(op, b, x0, pre, tol, CG_MAXITER, active, ws),
+                  "cuda")
+    res = solve()
+    iters, iters_ref = int(res.iters[0]), int(ref.iters[0])
+    x_err = rel_err(res.x, ref.x)
+    check(iters == iters_ref and 0 < iters < CG_MAXITER,
+          f"boundary CG: {iters} iterations in the graph, {iters_ref} by cg_solve_batched")
+    check(x_err <= 1e-12, f"boundary CG: iterate {x_err:.3e} of its scale apart")
+    seen = profile_calls(solve, 1, before=ws.total.zero_)[3]
+    check(seen is not None and int(ws.total) == iters,
+          f"boundary CG: {int(ws.total)} iterations on the card in a profiled replay")
+    n_seen = cg_seen("boundary CG", seen, iters)
+    solve_ms = time_ms(solve, reps=3, rounds=3, warmup=1)
+    eager_ms = time_ms(lambda: cg_solve_batched(matvec, b, x0, pre, tol=tol,
+                                                maxiter=CG_MAXITER, active=active),
+                       reps=1, rounds=3, warmup=1)
+
+    # each kernel alone, on a workspace that never stops (threshold 0)
+    def fresh():
+        w = bcg.workspace(1, geom.N, b.dtype, "cuda")
+        bcg.cg_setup(op, b, x0, pre, 0.0, CG_MAXITER, active, w)
+        return w
+
+    def clone(w):
+        return dataclasses.replace(w, **{f.name: getattr(w, f.name).clone()
+                                         for f in dataclasses.fields(w)
+                                         if f.name not in ("grid", "grid_mv")})
+
+    kernels = {
+        "cg_matvec_dot": (lambda w: bcg.cg_matvec_dot(w, op),
+                          lambda w: bcg.cg_matvec_dot_plain(w, op), ("ap", "alpha")),
+        "cg_update": (lambda w: bcg.cg_update(w, CG_MAXITER),
+                      lambda w: bcg.cg_update_plain(w, CG_MAXITER),
+                      ("x", "r", "z", "rz", "rr", "beta", "iters", "act", "cond")),
+        "cg_direction": (bcg.cg_direction, bcg.cg_direction_plain, ("p",)),
+    }
+    N, M = geom.N, geom.max_nn
+    vec = 8 * N
+    nbytes = {"cg_matvec_dot": 8 * N * M + 4 * N * M + 3 * vec + N,
+              "cg_update": 8 * vec, "cg_direction": 3 * vec}
+    w0 = fresh()
+    for _ in range(3):      # a few iterations in, as inside a solve
+        bcg.cg_iteration(w0, op, CG_MAXITER)
+    out = {}
+    for name, (kern, plain, fields) in kernels.items():
+        wk, wp = clone(w0), clone(w0)
+        kern(wk)
+        plain(wp)
+        err = 0.0
+        for f in fields:
+            a, c = getattr(wk, f), getattr(wp, f)
+            if a.dtype.is_floating_point:
+                err = max(err, float((a - c).abs().max()))
+            else:
+                check(torch.equal(a, c), f"{name}: {f} differs from the plain version")
+        wt, wq = clone(w0), clone(w0)
+        out[name] = dict(max_abs_err=err, ms=time_ms(lambda: kern(wt)),
+                         plain_ms=time_ms(lambda: plain(wq), reps=5),
+                         bound_ms=nbytes[name] / PEAK_BYTES_PER_S * 1e3)
+        check(err <= 1e-12 * max(1.0, float(getattr(wp, fields[0]).abs().max())),
+              f"{name}: {err:.3e} from its plain version")
+    # the operator as one CSR matrix: the library's sparse product
+    nb = geom.neigh_idx.long()
+    rows = torch.arange(N, device="cuda")
+    keep = (nb >= 0) & interior[:, None] & interior[nb.clamp(min=0)]
+    r_idx = torch.cat([rows[interior], rows[:, None].expand(N, M)[keep]])
+    c_idx = torch.cat([rows[interior], nb[keep]])
+    v = torch.cat([diag[0][interior], vals[0][keep]])
+    order = torch.argsort(r_idx * N + c_idx)
+    csr = torch.sparse_coo_tensor(torch.stack([r_idx[order], c_idx[order]]), v[order],
+                                  (N, N)).coalesce().to_sparse_csr()
+    p = w0.p[0][:, None].contiguous()
+    lib_err = float((torch.sparse.mm(csr, p)[:, 0] - bcg.apply_operator(op, w0.p)[0])
+                    .abs().max())
+    check(lib_err <= 1e-9 * float(w0.ap.abs().max() + 1), f"CSR operator: {lib_err:.3e} off")
+    out["cg_matvec_dot"]["library_ms"] = time_ms(lambda: torch.sparse.mm(csr, p))
+    out["cg_update"]["library_ms"] = out["cg_direction"]["library_ms"] = None
+
+    # what a captured superstep adds where no replica solves
+    none = torch.zeros(1, dtype=torch.bool, device="cuda")
+    wa = bcg.workspace(1, geom.N, b.dtype, "cuda")
+
+    def assembly():
+        eg = pot._edge_conductance_boundary(geom, states, params)
+        b2, mv, d2, v2, p2 = pot._dirichlet_system(geom, eg, vl, vr, masks)
+        x = torch.where(interior, states.potential_boundary, 0.0)
+        bcg.cg_setup((d2, v2, geom.neigh_idx, interior), b2, x, p2, tol, CG_MAXITER, none, wa)
+        return torch.where(interior, b2 - mv(wa.x), 0.0)
+
+    assembly_ms = time_ms(Graph(assembly, "cuda"))
+    log(f"boundary CG at the crossbar's system (noise {CG_NOISE} V on the warm start): "
+        f"{iters} iterations in the captured device loop and by cg_solve_batched, iterate "
+        f"within {x_err:.3e} of its scale; the trace of a profiled replay shows the CG "
+        f"kernels {n_seen} times for its {iters} iterations; the captured solve "
+        f"{solve_ms:.3f} ms "
+        f"({solve_ms / iters * 1e3:.2f} us an iteration), cg_solve_batched {eager_ms:.3f} ms "
+        f"({eager_ms / iters * 1e3:.2f} us an iteration)")
+    for name, r in out.items():
+        log(f"  {name}: {r['ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us (bytes, "
+            f"{100 * r['bound_ms'] / r['ms']:.0f} %), plain {r['plain_ms'] * 1e3:.2f} us"
+            + (f", torch.sparse.mm {r['library_ms'] * 1e3:.2f} us" if r["library_ms"] else "")
+            + f"; max abs error {r['max_abs_err']:.3e}")
+    log(f"a captured superstep's boundary work where no replica solves (assembly, CG setup, "
+        f"residual), as a graph: {assembly_ms:.4f} ms; phase 11 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    records = [dict(name=name, route="cuda", source="devicekmc_tpu_torch/csrc/boundary_cg.cu",
+                    replaces="devicekmc_tpu/ops/cg.py:112", launches=cg_launches,
+                    bound_by="bytes", shape=f"1x{N}x{M} f64",
+                    path="headline, captured graph (WHILE node body)", **r)
+               for name, r in out.items()]
+    summary = dict(iters=iters, x_err=x_err, solve_ms=solve_ms, eager_ms=eager_ms,
+                   assembly_ms=assembly_ms, cg_launches_traced=n_seen)
     return records, summary
 
 
@@ -2706,7 +3300,8 @@ def main():
     from devicekmc_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
-    libs = ["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window", "kmc_events"]
+    libs = ["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window", "kmc_events",
+            "graph", "boundary_cg"]
     _build.build(libs)
     log(f"built kernels in {time.perf_counter() - t_start:.1f} s")
     for name in libs:
@@ -2731,9 +3326,9 @@ def main():
     small_batched_check(out_root)
     log(f"small-device checks in {time.perf_counter() - t0:.1f} s")
 
-    run, draws_crossbar, event_record, kernels = headline_path(out_root)
+    run, draws_crossbar, event_record, kernels, (xsim, headline) = headline_path(out_root)
     torch.cuda.empty_cache()
-    batched_ms = crossbar_batched_check(out_root, run)
+    batched = crossbar_batched_check(out_root, run)
     torch.cuda.empty_cache()
     transport_launches, (presolve, steps, readbacks), records = transport_path(out_root)
     kernels += records
@@ -2753,7 +3348,7 @@ def main():
     bf16_record, bf16_launches = bf16_transport_path(out_root, steps)
     torch.cuda.empty_cache()
     log(f"modular, checkpoint and bf16 phases in {time.perf_counter() - t0:.1f} s")
-    ensemble_records, ensemble = ensemble_path(out_root)
+    ensemble_checks, ensemble = ensemble_path(out_root)
     torch.cuda.empty_cache()
     log("ensemble summary: " + json.dumps(ensemble))
     pdisp.update(launches_transport_path=transport_launches["wkb_fly_pdisp"],
@@ -2785,10 +3380,19 @@ def main():
             "ms_per_event", "plain_ms_per_event", "step_time_bit_equal", "steps")},
         time_log_differs={kind: {"draws": n, "of": total, "max_ulps": ulps}
                           for kind, (n, total, ulps) in logs.items()},
-        batched_crossbar_step_ms=batched_ms,
+        batched_crossbar=batched,
         cg_readbacks_transport_run=readbacks, cg_readbacks_read_every_iteration=readbacks_ref)
     kernels.append(event_record)
-    kernels += ensemble_records
+    kernels += batched_records((headline.pop("kernel_checks"), headline["launches_graph"]),
+                               ensemble_checks)
+    cg_records, cg_summary = boundary_cg_path(xsim, headline["launches_graph"]["boundary_cg"])
+    del xsim
+    torch.cuda.empty_cache()
+    kernels += cg_records
+    log("headline graph summary: " + json.dumps({**headline, **cg_summary}))
+    log(f"profiled calls taken again after a trace without device records: "
+        f"{len(empty_traces)} {empty_traces}; launches in the traces of the profiled calls "
+        f"against their counts: {traced_totals()}")
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)

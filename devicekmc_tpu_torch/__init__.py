@@ -7,9 +7,11 @@ residence-time event loop, charge transport (blocked and dense), Joule
 heating, the engine's run modes, and device ensembles
 (``parallel.batched``: B replicas of one device through one superstep), with
 the neighbour gather, the Poisson pair sweep, the banded matvec, the
-on-the-fly WKB products, the window-integral block and the event loop as
-hand-written CUDA kernels (``csrc/``).  The multi-card layers of
-``devicekmc_tpu.parallel`` (mesh, sharding, halos) are not ported yet.
+on-the-fly WKB products, the window-integral block, the event loop and the
+boundary CG iteration as hand-written CUDA kernels (``csrc/``).  The
+headline configuration runs each superstep, batch and ensemble call as one
+captured CUDA graph (``superstep.SuperstepGraph``).  The multi-card layers
+of ``devicekmc_tpu.parallel`` (mesh, sharding, halos) are not ported yet.
 
 Quick start::
 

@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kMaxChannels = 2;
@@ -182,7 +184,9 @@ ell_gather_kernel(const int32_t* __restrict__ idx, int64_t n_pairs, int64_t base
 template <int K, int NCH, bool SHARED>
 __global__ void __launch_bounds__(kThreads)
 ell_gather_batched_kernel(const int32_t* __restrict__ idx, int64_t n_pairs, int64_t base,
-                          int rem, Channels ch, int batch, int64_t n_src) {
+                          int rem, Channels ch, int batch, int64_t n_src,
+                          unsigned long long* launches) {
+  count_launch(launches);
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   const int b = blockIdx.x;
   const int64_t t0 = base * b + min(b, rem);
@@ -195,16 +199,17 @@ ell_gather_batched_kernel(const int32_t* __restrict__ idx, int64_t n_pairs, int6
 
 template <int K, bool SHARED>
 void launch_batched_k(const int32_t* idx, long long n_pairs, int nch, const Channels& ch,
-                      int blocks, int batch, long long n_src, cudaStream_t s) {
+                      int blocks, int batch, long long n_src, unsigned long long* launches,
+                      cudaStream_t s) {
   const int64_t n_tiles = (n_pairs + 32 * K - 1) / (32 * K);
   const int64_t base = n_tiles / blocks;
   const int rem = (int)(n_tiles % blocks);
   if (nch == 1)
     ell_gather_batched_kernel<K, 1, SHARED><<<(unsigned)blocks, kThreads, 0, s>>>(
-        idx, n_pairs, base, rem, ch, batch, n_src);
+        idx, n_pairs, base, rem, ch, batch, n_src, launches);
   else
     ell_gather_batched_kernel<K, 2, SHARED><<<(unsigned)blocks, kThreads, 0, s>>>(
-        idx, n_pairs, base, rem, ch, batch, n_src);
+        idx, n_pairs, base, rem, ch, batch, n_src, launches);
 }
 
 template <int K, bool GATHER>
@@ -276,11 +281,14 @@ extern "C" int dkmc_ell_stream_copy(const void* idx, long long n_pairs, int nch,
 
 // B replicas in one launch: src_c [batch, n_src], dst_c [batch, n_pairs];
 // idx [n_pairs] shared by the replicas (idx_per_replica 0) or [batch,
-// n_pairs] (1).  Returns the cudaError_t of the launch (0 on success).
+// n_pairs] (1); launches: a uint64 the launch adds one to on the card
+// (csrc/launch_count.cuh), or null.  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int dkmc_ell_gather_batched(const void* idx, long long n_pairs, int nch,
                                        const void* s0, const void* s1, void* d0, void* d1,
                                        int slots_per_lane, int blocks, int batch,
-                                       long long n_src, int idx_per_replica, void* stream) {
+                                       long long n_src, int idx_per_replica, void* launches,
+                                       void* stream) {
   if (nch < 1 || nch > kMaxChannels || n_pairs <= 0 || blocks <= 0 || batch <= 0
       || n_src <= 0 || (slots_per_lane != 1 && slots_per_lane != 4)) {
     return (int)cudaErrorInvalidValue;
@@ -288,13 +296,14 @@ extern "C" int dkmc_ell_gather_batched(const void* idx, long long n_pairs, int n
   const Channels ch = channels(s0, s1, d0, d1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* ip = static_cast<const int32_t*>(idx);
+  unsigned long long* lc = static_cast<unsigned long long*>(launches);
   if (slots_per_lane == 4 && !idx_per_replica)
-    launch_batched_k<4, true>(ip, n_pairs, nch, ch, blocks, batch, n_src, s);
+    launch_batched_k<4, true>(ip, n_pairs, nch, ch, blocks, batch, n_src, lc, s);
   else if (slots_per_lane == 4)
-    launch_batched_k<4, false>(ip, n_pairs, nch, ch, blocks, batch, n_src, s);
+    launch_batched_k<4, false>(ip, n_pairs, nch, ch, blocks, batch, n_src, lc, s);
   else if (!idx_per_replica)
-    launch_batched_k<1, true>(ip, n_pairs, nch, ch, blocks, batch, n_src, s);
+    launch_batched_k<1, true>(ip, n_pairs, nch, ch, blocks, batch, n_src, lc, s);
   else
-    launch_batched_k<1, false>(ip, n_pairs, nch, ch, blocks, batch, n_src, s);
+    launch_batched_k<1, false>(ip, n_pairs, nch, ch, blocks, batch, n_src, lc, s);
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
 #include "threefry.cuh"
 
 namespace {
@@ -285,7 +286,9 @@ kmc_event_loop_batched_kernel(T* prob, double* row_sums, const double* __restric
                               const int* __restrict__ neigh_idx,
                               const int* __restrict__ rev_slot, int* element, int* charge,
                               int n_sites, int n_rows, int n_blocks, int m, uint32_t* keys,
-                              double t_window, int max_events, int wd_f32, double* out) {
+                              double t_window, int max_events, int wd_f32, double* out,
+                              unsigned long long* launches) {
+  count_launch(launches);
   const int64_t b = blockIdx.x;
   event_loop<T>(prob + b * n_rows * m, row_sums + b * n_blocks * kBlock,
                 block_sums + b * n_blocks, aidx + b * aidx_stride, inv + b * inv_stride,
@@ -330,7 +333,8 @@ int launch_batched(void* prob, void* row_sums, const void* block_sums, const voi
                    long long aidx_stride, const void* inv, long long inv_stride,
                    const void* neigh_idx, const void* rev_slot, void* element, void* charge,
                    int batch, int n_sites, int n_rows, int n_blocks, int m, void* keys,
-                   double t_window, int max_events, int wd_f32, void* out, cudaStream_t st) {
+                   double t_window, int max_events, int wd_f32, void* out, void* launches,
+                   cudaStream_t st) {
   const size_t smem = shared_bytes(n_blocks, m);
   const cudaError_t e = allow_shared(kmc_event_loop_batched_kernel<T>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -340,7 +344,7 @@ int launch_batched(void* prob, void* row_sums, const void* block_sums, const voi
       static_cast<const int*>(inv), inv_stride, static_cast<const int*>(neigh_idx),
       static_cast<const int*>(rev_slot), static_cast<int*>(element), static_cast<int*>(charge),
       n_sites, n_rows, n_blocks, m, static_cast<uint32_t*>(keys), t_window, max_events,
-      wd_f32, static_cast<double*>(out));
+      wd_f32, static_cast<double*>(out), static_cast<unsigned long long*>(launches));
   return (int)cudaGetLastError();
 }
 
@@ -393,8 +397,9 @@ extern "C" int dkmc_kmc_event_loop(void* prob, int is_f64, void* row_sums,
 // block_sums [B, n_blocks] (read), aidx [n_rows] or [B, n_rows] (aidx_stride
 // 0 or n_rows), inv [N] or [B, N] (inv_stride 0 or N), neigh_idx and
 // rev_slot [N, m] shared, element and charge [B, N] updated in place, keys
-// [B, 2] (uint32) read and overwritten with the new keys, out [B, 4].
-// Returns the cudaError_t of the launch.
+// [B, 2] (uint32) read and overwritten with the new keys, out [B, 4];
+// launches: a uint64 the launch adds one to on the card
+// (csrc/launch_count.cuh), or null.  Returns the cudaError_t of the launch.
 extern "C" int dkmc_kmc_event_loop_batched(void* prob, int is_f64, void* row_sums,
                                            const void* block_sums, const void* aidx,
                                            long long aidx_stride, const void* inv,
@@ -403,7 +408,7 @@ extern "C" int dkmc_kmc_event_loop_batched(void* prob, int is_f64, void* row_sum
                                            int batch, int n_sites, int n_rows, int n_blocks,
                                            int m, void* keys, double t_window,
                                            int max_events, int wd_f32, void* out,
-                                           void* stream) {
+                                           void* launches, void* stream) {
   if (batch <= 0 || n_sites <= 0 || n_rows <= 0 || m <= 0 || n_blocks * kBlock < n_rows
       || (n_blocks - 1) * kBlock >= n_rows)
     return (int)cudaErrorInvalidValue;
@@ -411,11 +416,11 @@ extern "C" int dkmc_kmc_event_loop_batched(void* prob, int is_f64, void* row_sum
   return is_f64 ? launch_batched<double>(prob, row_sums, block_sums, aidx, aidx_stride, inv,
                                          inv_stride, neigh_idx, rev_slot, element, charge,
                                          batch, n_sites, n_rows, n_blocks, m, keys, t_window,
-                                         max_events, wd_f32, out, st)
+                                         max_events, wd_f32, out, launches, st)
                 : launch_batched<float>(prob, row_sums, block_sums, aidx, aidx_stride, inv,
                                         inv_stride, neigh_idx, rev_slot, element, charge,
                                         batch, n_sites, n_rows, n_blocks, m, keys, t_window,
-                                        max_events, wd_f32, out, st);
+                                        max_events, wd_f32, out, launches, st);
 }
 
 // keys [n, 2] (uint32), u64 and u32 [n, 2]: the new key of each step and the

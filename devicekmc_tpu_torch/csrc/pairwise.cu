@@ -50,6 +50,7 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
 #include "ticket.cuh"
 
 namespace {
@@ -204,7 +205,9 @@ poisson_pairwise_batched_kernel(const float* __restrict__ coords, int n,
                                 const int32_t* __restrict__ cidx,
                                 const float* __restrict__ cq,
                                 const int32_t* __restrict__ counts, int cap, int want,
-                                Scal sc, float* part, int* cnt, float* __restrict__ out) {
+                                Scal sc, float* part, int* cnt, float* __restrict__ out,
+                                unsigned long long* launches) {
+  count_launch(launches);
   const int b = blockIdx.z;
   const int n_c = min(counts[b], cap);
   const int n_split = max(1, min(want, (n_c + kMinSplit - 1) / kMinSplit));
@@ -271,14 +274,15 @@ extern "C" int dkmc_poisson_pairwise(const void* coords, int n, const void* cidx
 // most splits a replica may take (ops/pairwise.py poisson_grid); max_split:
 // the grid's splits, at least every replica's.  part: scratch of B *
 // max_split * ceil(n / 256) * 256 floats and cnt: B * ceil(n / 256) int32
-// tickets, 0 before the call and 0 again after it.  Returns the cudaError_t
-// of the launch.
+// tickets, 0 before the call and 0 again after it; launches: a uint64 the
+// launch adds one to on the card (csrc/launch_count.cuh), or null.  Returns
+// the cudaError_t of the launch.
 extern "C" int dkmc_poisson_pairwise_batched(const void* coords, int n, const void* cidx,
                                              const void* cq, const void* counts, int batch,
                                              int cap, float inv_s, float kq, float lat_y,
                                              float lat_z, int pbc, int want, int max_split,
                                              void* part, void* cnt, void* out,
-                                             void* stream) {
+                                             void* launches, void* stream) {
   if (n <= 0 || batch <= 0 || batch > 65535 || cap < 0 || want <= 0 || max_split <= 0
       || max_split > 65535) {
     return (int)cudaErrorInvalidValue;
@@ -294,12 +298,13 @@ extern "C" int dkmc_poisson_pairwise_batched(const void* coords, int n, const vo
   float* pt = static_cast<float*>(part);
   int* ct = static_cast<int*>(cnt);
   float* o = static_cast<float*>(out);
+  unsigned long long* lc = static_cast<unsigned long long*>(launches);
   if (pbc) {
     poisson_pairwise_batched_kernel<true><<<grid, kThreads, 0, st>>>(c, n, ci, q, cn, cap, want,
-                                                                     sc, pt, ct, o);
+                                                                     sc, pt, ct, o, lc);
   } else {
     poisson_pairwise_batched_kernel<false><<<grid, kThreads, 0, st>>>(c, n, ci, q, cn, cap,
-                                                                      want, sc, pt, ct, o);
+                                                                      want, sc, pt, ct, o, lc);
   }
   return (int)cudaGetLastError();
 }

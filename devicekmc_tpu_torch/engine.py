@@ -42,8 +42,8 @@ from .superstep import (  # noqa: F401  (the JAX package's engine names)
     HEAT_SUBSTEPS_PER_DISPATCH, _phase_boundary, _phase_cb_edge, _phase_charge,
     _phase_events, _phase_heat, _phase_heat_finish, _phase_heat_steady,
     _phase_heat_window, _phase_poisson, _phase_power, _phase_power_chunk,
-    _phase_transport_cache, chunked_boundary_resolve, multi_superstep_impl,
-    run_heat_phase_chunked, segments, superstep_impl)
+    SuperstepGraph, _phase_transport_cache, chunked_boundary_resolve, graph_ready,
+    multi_superstep_impl, run_heat_phase_chunked, segments, superstep_impl)
 
 
 #: metrics kept in ``step_log`` but not written to output.txt, whose keys are
@@ -51,9 +51,20 @@ from .superstep import (  # noqa: F401  (the JAX package's engine names)
 _UNLOGGED = {"boundary_converged", "transport_partial_assembly"}
 
 
-def make_superstep(geom, params, heat):
-    """The superstep as one call (``superstep.superstep_impl``).  Returns
-    ``superstep(state, Vd, cc=None) -> (state, step_time, metrics)``."""
+def make_superstep(geom, params, heat, graph: Optional[SuperstepGraph] = None):
+    """The superstep as one call.  Returns ``superstep(state, Vd, cc=None) ->
+    (state, step_time, metrics)``.  With ``graph`` (a
+    ``superstep.SuperstepGraph`` of one replica, for the configurations of
+    ``superstep.graph_ready``) each call replays the superstep's captured
+    graph and reads its result once; otherwise it runs
+    ``superstep.superstep_impl`` eagerly."""
+    if graph is not None:
+        graph.set_params(params)
+
+        def superstep(state, Vd, cc=None):
+            return graph.step(state, Vd)
+
+        return superstep
 
     def superstep(state, Vd, cc=None):
         return superstep_impl(geom, params, state, Vd, cc=cc, heat=heat)
@@ -114,7 +125,14 @@ class Simulation:
     (default the CUDA card; ``device="cpu"`` runs the plain versions).
     ``fused=False`` selects the modular superstep (make_modular_superstep,
     with ``cfg.solver_chunk_iters`` as its segment length); ``batch_steps >
-    1`` then runs per step, as in the JAX package."""
+    1`` then runs per step, as in the JAX package.
+
+    Fused, the configurations of ``superstep.graph_ready`` (the headline
+    module set) run every superstep, and every batch of ``batch_steps``, as
+    one replay of a captured CUDA graph (``superstep.SuperstepGraph``, on the
+    CPU its plain version) and one read of its result; the state then stays
+    in the graph's buffers between replays, and ``state`` is a view of them.
+    The others run eagerly."""
 
     #: the checkpoint's state fields and grown caps, under the JAX package's
     #: names (devicekmc_tpu/engine.py), so that both read one npz
@@ -143,11 +161,12 @@ class Simulation:
         self.cfg = cfg
         self.fused = fused
         if fused:
-            self._make = make_superstep
+            self._make = lambda g, p, h: make_superstep(g, p, h, self._graph_for(p))
         else:
             self._make = lambda g, p, h: make_modular_superstep(
                 g, p, h, chunk_iters=cfg.solver_chunk_iters)
         self._step_params = self._step = None
+        self._graph: Optional[SuperstepGraph] = None
         self.device = resolve_device(device)
         self.geom, self.params, self.state = build_simulation(
             cfg, elements=elements, coords=coords, neigh_idx=neigh_idx,
@@ -224,7 +243,21 @@ class Simulation:
             self._step = self._make(self.geom, self.params, self.heat)
         return self._step(state, Vd, self._cc)
 
+    def _graph_for(self, params) -> Optional[SuperstepGraph]:
+        """The captured superstep of one replica when the fused driver runs
+        ``params`` as a graph (made once, told of changed params), else
+        None."""
+        if not self.fused or graph_ready(params) is not None:
+            return None
+        if self._graph is None:
+            self._graph = SuperstepGraph(self.geom, params, 1)
+        self._graph.set_params(params)
+        return self._graph
+
     def _msuperstep(self, state, Vd, Icc_A, t_end, limit):
+        graph = self._graph_for(self.params)
+        if graph is not None:
+            return graph.multi(state, Vd, Icc_A, t_end, self.cfg.batch_steps, limit=limit)
         return multi_superstep_impl(self.geom, self.params, state, Vd, Icc_A, t_end,
                                     self.cfg.batch_steps, cc=self._cc, heat=self.heat,
                                     limit=limit)

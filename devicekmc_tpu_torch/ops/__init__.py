@@ -1,2 +1,3 @@
-"""Tensor operations of the port: compaction, ELL products, CG, and the
-hand-written CUDA kernels (ell_gather, pairwise) with their plain versions."""
+"""Tensor operations of the port: compaction, ELL products, CG, the device
+loop of a captured graph (graph), and the hand-written CUDA kernels with
+their plain versions."""

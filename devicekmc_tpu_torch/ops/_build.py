@@ -10,7 +10,8 @@ unchanged one is reused.  Nothing is built when the package is imported: the
 first kernel call builds what it needs, and :func:`build` compiles several
 sources in parallel (one ``nvcc`` each).  :func:`tickets` holds the integer
 tickets of the kernels that reduce across blocks in one launch
-(``csrc/ticket.cuh``).
+(``csrc/ticket.cuh``), and :func:`launch_counts` the counters on the card
+of the kernels a captured superstep launches (``csrc/launch_count.cuh``).
 """
 
 from __future__ import annotations
@@ -144,6 +145,34 @@ def sm_count(device) -> int:
 
 
 _tickets_cache = {}
+_launch_counts = {}
+#: the kernels that count their launches on the card, in the order of
+#: launch_counts
+COUNTED_ON_CARD = ("ell_gather_batched", "poisson_pairwise_batched", "kmc_event_loop_batched")
+
+
+def launch_counts(device):
+    """int64 [len(COUNTED_ON_CARD)] on ``device``: the launches of those
+    kernels as they ran on the card (each launch's first thread adds one).
+    Made at the first request, which must come outside a capture
+    (``ops.graph.Graph`` makes it before it captures)."""
+    import torch
+
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    buf = _launch_counts.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("launch_counts: first made inside a CUDA graph capture")
+        buf = _launch_counts[device] = torch.zeros(len(COUNTED_ON_CARD), dtype=torch.int64,
+                                                   device=device)
+    return buf
+
+
+def launch_counter(device, name: str) -> int:
+    """The device address of kernel ``name``'s counter in launch_counts."""
+    return launch_counts(device).data_ptr() + 8 * COUNTED_ON_CARD.index(name)
 
 
 def tickets(device, count: int):

@@ -1,0 +1,317 @@
+"""The warm boundary CG of a captured superstep: B replicas' Jacobi CG as one
+device loop (``ops.graph.device_while``) whose body is three hand-written
+kernels (``csrc/boundary_cg.cu``).
+
+Replaces the JAX package's device loop of the boundary solve, the
+``lax.while_loop`` of ``devicekmc_tpu/ops/cg.py:95-115`` (criterion "r",
+Jacobi) inside its jitted superstep.  :func:`cg_solve_device` computes what
+``ops.cg.cg_solve_batched`` computes, with the same stop rule and counts,
+and reads nothing back: the setup is PyTorch operations on the device, the
+loop a WHILE node entered on its predicate, each iteration
+:func:`cg_matvec_dot`, :func:`cg_update` (which sets the predicate) and
+:func:`cg_direction` on the buffers of a :class:`Workspace` made before the
+capture, so nothing allocates inside the loop.  For CPU tensors the loop is
+the plain ``while`` of ``device_while`` and each kernel wrapper runs its
+plain version, the arithmetic of ``cg_solve_batched`` in its order, so the
+CPU result is ``cg_solve_batched``'s bit for bit.  On the card the kernels
+reduce in another, fixed order.
+
+Launches: each iteration launches each kernel once, counted on the device in
+``Workspace.total`` (:func:`device_iterations`); the wrappers' ``launches``
+count their host calls, one a capture of the loop's body.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Callable, Tuple
+
+import torch
+
+from . import _build
+from .cg import BatchedCGResult, rowdot
+from .ell import ell_matvec, safe_index
+from .graph import device_while
+
+#: threads a block of the three kernels
+THREADS = 256
+#: blocks a replica of cg_update and cg_direction at most: four a streaming
+#: multiprocessor of an H100, so that a replica's reduction order depends on
+#: N alone
+MAX_GRID = 4 * _build.H100_SMS
+#: rows a block of cg_matvec_dot: a warp a row, four rows a warp
+MATVEC_ROWS = 32
+
+
+def grid_size(n: int) -> int:
+    """Blocks a replica of cg_update and cg_direction for ``n`` rows."""
+    return max(1, min(-(-n // THREADS), MAX_GRID))
+
+
+def matvec_grid_size(n: int) -> int:
+    """Blocks a replica of cg_matvec_dot for ``n`` rows."""
+    return max(1, -(-n // MATVEC_ROWS))
+
+
+@dataclass
+class Workspace:
+    """The buffers of one batched solve, made before a capture.  [B, N]: the
+    iterate ``x``, residual ``r``, preconditioned residual ``z``, direction
+    ``p``, its product ``ap``, the inverse Jacobi diagonal ``minv``; [B]:
+    ``rz`` (r.z), ``rr`` (r.r), ``thresh2``, ``alpha``, ``beta``, the
+    replicas asked to solve ``act0`` and iterating ``act``, the counts
+    ``iters``; ``ctl`` int32 [iterations run, replicas iterating], ``cond``
+    the loop's int32 [1] predicate, ``total`` the iterations run since it
+    was last set to 0 (int64 [1]); ``part`` the blocks' partial sums,
+    ``tickets`` their int32 tickets (zero between launches); the grids a
+    replica of cg_update and cg_direction (``grid``) and cg_matvec_dot
+    (``grid_mv``)."""
+    x: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    p: torch.Tensor
+    ap: torch.Tensor
+    minv: torch.Tensor
+    rz: torch.Tensor
+    rr: torch.Tensor
+    thresh2: torch.Tensor
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    act0: torch.Tensor
+    act: torch.Tensor
+    iters: torch.Tensor
+    ctl: torch.Tensor
+    cond: torch.Tensor
+    total: torch.Tensor
+    part: torch.Tensor
+    tickets: torch.Tensor
+    grid: int
+    grid_mv: int
+
+
+def workspace(batch: int, n: int, dtype, device) -> Workspace:
+    """The buffers of a solve of ``batch`` systems of ``n`` rows."""
+    dev = torch.device(device)
+    grid, grid_mv = grid_size(n), matvec_grid_size(n)
+
+    def vec(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return Workspace(
+        x=vec(batch, n), r=vec(batch, n), z=vec(batch, n), p=vec(batch, n),
+        ap=vec(batch, n), minv=vec(batch, n), rz=vec(batch), rr=vec(batch),
+        thresh2=vec(batch), alpha=vec(batch), beta=vec(batch),
+        act0=torch.zeros(batch, dtype=torch.bool, device=dev),
+        act=torch.zeros(batch, dtype=torch.bool, device=dev),
+        iters=torch.zeros(batch, dtype=torch.int64, device=dev),
+        ctl=torch.zeros(2, dtype=torch.int32, device=dev),
+        cond=torch.zeros(1, dtype=torch.int32, device=dev),
+        total=torch.zeros(1, dtype=torch.int64, device=dev),
+        part=vec(batch * max(2 * grid, grid_mv)),
+        tickets=torch.zeros(batch + 1, dtype=torch.int32, device=dev),
+        grid=grid, grid_mv=grid_mv)
+
+
+def device_iterations(ws: Workspace) -> int:
+    """Iterations run on ``ws`` since ``ws.total`` was last set to 0 (a read):
+    the launches of each of the three kernels."""
+    return int(ws.total)
+
+
+# ----------------------------------------------------------------------------
+# the three kernels (CUDA tensors only)
+# ----------------------------------------------------------------------------
+
+def _fn(symbol):
+    fn = getattr(_build.load("boundary_cg"), symbol)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = {
+            "dkmc_cg_matvec_dot": [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
+            "dkmc_cg_update": [i] + [p] * 19 + [ctypes.c_ulonglong, i, i, i, i, p],
+            "dkmc_cg_direction": [i, p, p, p, p, i, i, i, p],
+        }[symbol]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _check_ws(name: str, ws: Workspace, op=None) -> Tuple[int, int]:
+    B, n = ws.x.shape
+    if ws.x.device.type != "cuda" or ws.x.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: the workspace must hold f32 or f64 CUDA tensors")
+    if op is not None:
+        diag, vals, neigh_idx, interior = op
+        m = neigh_idx.shape[1]
+        for what, t, dtype, shape in (("diag", diag, ws.x.dtype, (B, n)),
+                                      ("vals", vals, ws.x.dtype, (B, n, m)),
+                                      ("neigh_idx", neigh_idx, torch.int32, (n, m)),
+                                      ("interior", interior, torch.bool, (n,))):
+            if t.device != ws.x.device or t.dtype != dtype or tuple(t.shape) != shape \
+                    or not t.is_contiguous():
+                raise ValueError(f"{name}: {what} must be a contiguous {dtype} tensor of "
+                                 f"shape {shape} on {ws.x.device}")
+    return B, n
+
+
+def apply_operator(op, x: torch.Tensor) -> torch.Tensor:
+    """``A x`` of ``op = (diag [B, N], vals [B, N, M], neigh_idx [N, M] int32,
+    interior [N] bool)``: the interior operator of
+    ``physics.potential._dirichlet_system`` in its arithmetic."""
+    diag, vals, neigh_idx, interior = op
+    xm = torch.where(interior, x, 0.0)
+    return torch.where(interior, ell_matvec(diag, vals, safe_index(neigh_idx), xm), 0.0)
+
+
+def cg_matvec_dot_plain(ws: Workspace, op) -> None:
+    """The plain version of :func:`cg_matvec_dot` (every replica)."""
+    ws.ap.copy_(apply_operator(op, ws.p))
+    denom = rowdot(ws.p, ws.ap)
+    ws.alpha.copy_(torch.where(denom != 0, ws.rz / denom, 0.0))
+
+
+def cg_matvec_dot(ws: Workspace, op, stream=None) -> None:
+    """``ws.ap = A ws.p`` and ``ws.alpha = ws.rz / (p.ap)`` of each iterating
+    replica (:func:`apply_operator`'s ``op``), on ``stream``."""
+    if ws.x.device.type == "cpu":
+        return cg_matvec_dot_plain(ws, op)
+    B, n = _check_ws("cg_matvec_dot", ws, op)
+    diag, vals, neigh_idx, interior = op
+    _launched("cg_matvec_dot", _fn("dkmc_cg_matvec_dot")(
+        int(ws.x.dtype == torch.float64), diag.data_ptr(), vals.data_ptr(),
+        neigh_idx.data_ptr(), interior.data_ptr(), ws.p.data_ptr(), ws.ap.data_ptr(),
+        ws.act.data_ptr(), ws.rz.data_ptr(), ws.alpha.data_ptr(), ws.part.data_ptr(),
+        ws.tickets.data_ptr(), n, neigh_idx.shape[1], B, ws.grid_mv, _stream(ws, stream)))
+    cg_matvec_dot.launches += 1
+
+
+cg_matvec_dot.launches = 0
+
+
+def cg_update_plain(ws: Workspace, maxiter: int) -> None:
+    """The plain version of :func:`cg_update` (``z`` and ``beta`` of every
+    replica, the rest where it iterates), in ``cg_solve_batched``'s
+    arithmetic."""
+    act = ws.act
+    alpha = ws.alpha[:, None]
+    x_n = ws.x + alpha * ws.p
+    r_n = ws.r - alpha * ws.ap
+    ws.z.copy_(ws.minv * r_n)
+    rz_n = rowdot(r_n, ws.z)
+    ws.beta.copy_(torch.where(ws.rz != 0, rz_n / ws.rz, 0.0))
+    a2 = act[:, None]
+    ws.x.copy_(torch.where(a2, x_n, ws.x))
+    ws.r.copy_(torch.where(a2, r_n, ws.r))
+    ws.rz.copy_(torch.where(act, rz_n, ws.rz))
+    ws.iters.add_(act)
+    ws.ctl[0] += 1
+    ws.total += 1
+    _decide(ws, maxiter)
+
+
+def cg_update(ws: Workspace, maxiter: int, handle: int = 0, stream=None) -> None:
+    """The iterate, residual and preconditioned residual of each iterating
+    replica, its r.z, r.r, beta and count; then the stop flags, the
+    iterations run and the predicate ``ws.cond``, also set as the condition
+    of the WHILE node ``handle`` (0: none)."""
+    if ws.x.device.type == "cpu":
+        return cg_update_plain(ws, maxiter)
+    B, n = _check_ws("cg_update", ws)
+    _launched("cg_update", _fn("dkmc_cg_update")(
+        int(ws.x.dtype == torch.float64), ws.x.data_ptr(), ws.r.data_ptr(), ws.z.data_ptr(),
+        ws.p.data_ptr(), ws.ap.data_ptr(), ws.minv.data_ptr(), ws.act.data_ptr(),
+        ws.act0.data_ptr(), ws.alpha.data_ptr(), ws.beta.data_ptr(), ws.rz.data_ptr(),
+        ws.rr.data_ptr(), ws.thresh2.data_ptr(), ws.iters.data_ptr(), ws.part.data_ptr(),
+        ws.tickets.data_ptr(), ws.ctl.data_ptr(), ws.cond.data_ptr(), ws.total.data_ptr(),
+        handle, n, B, ws.grid, int(maxiter), _stream(ws, stream)))
+    cg_update.launches += 1
+
+
+cg_update.launches = 0
+
+
+def cg_direction_plain(ws: Workspace) -> None:
+    """The plain version of :func:`cg_direction` (every replica)."""
+    ws.p.copy_(ws.z + ws.beta[:, None] * ws.p)
+
+
+def cg_direction(ws: Workspace, stream=None) -> None:
+    """``ws.p = ws.z + beta ws.p`` of each replica still iterating."""
+    if ws.x.device.type == "cpu":
+        return cg_direction_plain(ws)
+    B, n = _check_ws("cg_direction", ws)
+    _launched("cg_direction", _fn("dkmc_cg_direction")(
+        int(ws.x.dtype == torch.float64), ws.p.data_ptr(), ws.z.data_ptr(),
+        ws.beta.data_ptr(), ws.act.data_ptr(), n, B, ws.grid, _stream(ws, stream)))
+    cg_direction.launches += 1
+
+
+cg_direction.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# the solve
+# ----------------------------------------------------------------------------
+
+def _stream(ws: Workspace, stream):
+    return torch.cuda.current_stream(ws.x.device).cuda_stream if stream is None else stream
+
+
+def _decide(ws: Workspace, maxiter: int) -> None:
+    """r.r, the stop flags and the predicate from the residual, on the device."""
+    ws.rr.copy_(rowdot(ws.r, ws.r))
+    ws.act.copy_(ws.act0 & (ws.rr > ws.thresh2))
+    n_act = ws.act.sum(dtype=torch.int32)
+    ws.ctl[1] = n_act
+    ws.cond.copy_(((n_act > 0) & (ws.ctl[0] < maxiter)).to(torch.int32).reshape(1))
+
+
+def cg_setup(op, b: torch.Tensor, x0: torch.Tensor, diag: torch.Tensor, tol: float,
+             maxiter: int, active: torch.Tensor, ws: Workspace) -> None:
+    """The state of ``cg_solve_batched`` before its first iteration, written
+    into ``ws`` by operations on the device: r = b - A x0, z = p = r / diag,
+    r.z, r.r, the threshold, the stop flags, the predicate."""
+    if tuple(ws.x.shape) != tuple(b.shape) or ws.x.dtype != b.dtype \
+            or ws.x.device != b.device:
+        raise ValueError(f"cg_setup: a workspace of {tuple(ws.x.shape)} {ws.x.dtype} "
+                         f"on {ws.x.device} for systems {tuple(b.shape)} {b.dtype}")
+    ws.minv.copy_(torch.where(diag != 0, 1.0 / diag, 1.0))
+    ref = torch.sqrt(rowdot(b, b))
+    thresh = tol * torch.where(ref > 0, ref, 1.0)
+    ws.thresh2.copy_(thresh * thresh)
+    ws.act0.copy_(active)
+    ws.x.copy_(x0)
+    ws.r.copy_(b - apply_operator(op, x0))
+    ws.p.copy_(ws.minv * ws.r)
+    ws.rz.copy_(rowdot(ws.r, ws.p))
+    ws.iters.zero_()
+    ws.ctl.zero_()
+    _decide(ws, maxiter)
+
+
+def cg_iteration(ws: Workspace, op, maxiter: int, handle: int = 0, stream=None) -> None:
+    """One iteration: the three kernels (their plain versions for CPU
+    tensors)."""
+    cg_matvec_dot(ws, op, stream)
+    cg_update(ws, maxiter, handle, stream)
+    cg_direction(ws, stream)
+
+
+def cg_solve_device(op, b: torch.Tensor, x0: torch.Tensor, diag: torch.Tensor, tol: float,
+                    maxiter: int, active: torch.Tensor, ws: Workspace) -> BatchedCGResult:
+    """``cg_solve_batched`` of the operator ``op`` (:func:`apply_operator`)
+    as one device loop on ``ws``, with no read: ``b`` and ``x0`` [B, N],
+    ``diag`` the Jacobi diagonal, criterion "r" at ``tol``, at most
+    ``maxiter`` iterations.  A replica not ``active`` keeps ``x0`` and counts
+    0; when none is, the loop runs no iteration.  Returns the iterate, the
+    counts, ||r|| and the criterion (new tensors)."""
+    cg_setup(op, b, x0, diag, tol, maxiter, active, ws)
+    device_while(ws.cond, lambda handle, stream: cg_iteration(ws, op, maxiter, handle, stream))
+    return BatchedCGResult(x=ws.x.clone(), iters=ws.iters.clone(),
+                           residual=torch.sqrt(torch.abs(ws.rr)).to(torch.float64),
+                           converged=ws.rr <= ws.thresh2)

@@ -203,11 +203,12 @@ def ell_gather_batched(neigh_idx: torch.Tensor, values: Sequence[torch.Tensor]
     fn = _build.load("ell_gather").dkmc_ell_gather_batched
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, i, p, p, p, p, i, i, i, ll, i, p]
+        fn.argtypes = [p, ll, i, p, p, p, p, i, i, i, ll, i, p, p]
         fn.restype = ctypes.c_int
     k, blocks = launch_grid(n_pairs, len(values), neigh_idx.device)
     err = fn(neigh_idx.data_ptr(), n_pairs, len(values), *srcs, *dsts, k, blocks, B, n_src,
-             int(not shared), torch.cuda.current_stream(neigh_idx.device).cuda_stream)
+             int(not shared), _build.launch_counter(neigh_idx.device, "ell_gather_batched"),
+             torch.cuda.current_stream(neigh_idx.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ell_gather_batched kernel launch failed: cudaError {err}")
     ell_gather_batched.launches += 1

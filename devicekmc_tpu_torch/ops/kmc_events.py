@@ -198,7 +198,7 @@ def _fn(symbol):
                            ctypes.c_uint, ctypes.c_double, i, i, p, p]
         elif symbol == "dkmc_kmc_event_loop_batched":
             fn.argtypes = [p, i, p, p, p, ll, p, ll, p, p, p, p, i, i, i, i, i, p,
-                           ctypes.c_double, i, i, p, p]
+                           ctypes.c_double, i, i, p, p, p]
         else:
             fn.argtypes = [ctypes.c_uint, ctypes.c_uint, i, p, p, p, p]
         fn.restype = ctypes.c_int
@@ -346,6 +346,7 @@ def kmc_event_loop_batched(prob, row_sums, block_sums, aidx, inv, neigh_idx, rev
         N if per_inv else 0, neigh_idx.data_ptr(), rev_slot.data_ptr(), element.data_ptr(),
         charge.data_ptr(), B, N, n_rows, n_blocks, m, keys.data_ptr(), float(t_window),
         int(max_events), int(work_dtype == torch.float32), out.data_ptr(),
+        _build.launch_counter(dev, "kmc_event_loop_batched"),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kmc_event_loop_batched kernel launch failed: cudaError {err}")

@@ -108,13 +108,19 @@ def poisson_grid(n: int, n_c: int, n_sm: int = _build.H100_SMS):
     return blocks, max(1, min(_want_splits(blocks, n_sm), -(-n_c // _MIN_SPLIT)))
 
 
+def batched_tickets(n: int, batch: int) -> int:
+    """The int32 tickets the batched kernel draws for ``batch`` replicas of
+    ``n`` rows: one a row block of each replica."""
+    return batch * poisson_grid(n, 0)[0]
+
+
 def _lib(symbol="dkmc_poisson_pairwise"):
     fn = getattr(_build.load("pairwise"), symbol)
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([p, i, p, p, i, f, f, f, f, i, i, p, p, p, p]
                        if symbol == "dkmc_poisson_pairwise" else
-                       [p, i, p, p, p, i, i, f, f, f, f, i, i, i, p, p, p, p])
+                       [p, i, p, p, p, i, i, f, f, f, f, i, i, i, p, p, p, p, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -212,13 +218,14 @@ def poisson_pairwise_batched(coords: torch.Tensor, charged_idx: torch.Tensor,
     blocks, max_split = poisson_grid(n, cap, n_sm)
     part = torch.empty(B * max_split * blocks * _THREADS * _ROWS, dtype=torch.float32,
                        device=coords.device)
-    cnt = _build.tickets(coords.device, B * blocks)
+    cnt = _build.tickets(coords.device, batched_tickets(n, B))
     stream = torch.cuda.current_stream(coords.device).cuda_stream
     err = _lib("dkmc_poisson_pairwise_batched")(
         coords.data_ptr(), n, charged_idx.data_ptr(), charged_q.data_ptr(),
         counts.data_ptr(), B, cap, inv_s, kq, lat_y, lat_z, int(bool(pbc)),
         _want_splits(blocks, n_sm), max_split, part.data_ptr(), cnt.data_ptr(),
-        out.data_ptr(), stream)
+        out.data_ptr(), _build.launch_counter(coords.device, "poisson_pairwise_batched"),
+        stream)
     if err != 0:
         raise RuntimeError(f"poisson_pairwise_batched kernel launch failed: cudaError {err}")
     poisson_pairwise_batched.launches += 1

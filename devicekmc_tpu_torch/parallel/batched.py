@@ -21,8 +21,8 @@ from __future__ import annotations
 import dataclasses
 
 from .. import rng
-from ..state import Geometry, PhysParams, SimState, stack_states
-from ..superstep import superstep_batched
+from ..state import Geometry, PhysParams, SimState, batch_size, stack_states
+from ..superstep import SuperstepGraph, graph_ready, superstep_batched
 
 _NO_MESH = ("sharding the replica axis over a mesh of cards is not ported yet "
             "(ROADMAP §1 item 6: parallel/mesh.py, sharding.py, multihost.py)")
@@ -43,9 +43,28 @@ def make_batched_superstep(geom: Geometry, params: PhysParams, heat, mesh=None):
     metric a [B] tensor (``n_events``, ``n_active_rows``,
     ``n_charged_sites``, ``cg_iters_boundary``, ``boundary_converged``, and
     those of the transport and heat phases when they run).  ``heat``: the
-    heat model of the single path (``physics.heat``)."""
+    heat model of the single path (``physics.heat``).
+
+    The configurations of ``superstep.graph_ready`` (the headline module set)
+    run each call as one replay of the superstep's captured CUDA graph at
+    that B (``superstep.SuperstepGraph.step_batched``; on the CPU its plain
+    version), as the JAX package jits its vmap
+    (``devicekmc_tpu/parallel/batched.py:47-51``), and read nothing back; the
+    returned tensors are copies of the graph's outputs.  The others run
+    ``superstep.superstep_batched`` eagerly."""
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
+
+    if graph_ready(params) is None:
+        graphs = {}
+
+        def superstep(states: SimState, Vd: float):
+            B = batch_size(states)
+            if B not in graphs:
+                graphs[B] = SuperstepGraph(geom, params, B)
+            return graphs[B].step_batched(states, Vd)
+
+        return superstep
 
     def superstep(states: SimState, Vd: float):
         return superstep_batched(geom, params, states, Vd, heat=heat)

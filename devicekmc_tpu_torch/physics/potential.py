@@ -26,16 +26,17 @@ turns its conditionals into selects.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import constants as C
+from ..ops.boundary_cg import Workspace, cg_solve_device
 from ..ops.cg import cg_solve, cg_solve_batched, invert_coarse, rowdot
 from ..ops.compact import nonzero_fixed, nonzero_fixed_batched
 from ..ops.ell import ell_matvec, safe_index
 from ..ops.pairwise import kernel_scalars, poisson_pairwise, poisson_pairwise_batched
-from ..state import Geometry, PhysParams, SimState, replace
+from ..state import Geometry, PhysParams, SimState, _as_dtype, replace
 from ..structure import Element
 
 
@@ -344,23 +345,33 @@ def _incremental_boundary_residual_batched(
 
 
 def solve_boundary_potential_batched(
-    geom: Geometry, params: PhysParams, states: SimState, Vd: float
+    geom: Geometry, params: PhysParams, states: SimState, Vd: float,
+    cg_ws: Optional[Workspace] = None,
 ) -> Tuple[SimState, dict]:
     """:func:`solve_boundary_potential` of B replicas.  The exact skip, the
     incremental residual and the solve are chosen per replica on the device
-    (masks): the solve runs as one batched CG (:func:`cg_solve_batched`)
-    over the replicas that need it, and the others keep their field; one
-    read for all replicas says whether any solves at all.  With
+    (masks), and the replicas that need a solve run one batched CG; the
+    others keep their field.  Metrics are [B] tensors.
+
+    Without ``cg_ws`` (run eagerly): one read for all replicas says whether
+    any solves at all (no assembly and no CG when none does), the CG is
+    :func:`cg_solve_batched` (a read a chunk of iterations), and with
     ``boundary_precond = "deflated"`` the replicas that need a solve run the
-    single deflated solve one by one (one read of the mask).  Metrics are [B]
-    tensors."""
+    single deflated solve one by one (one read of the mask).
+
+    With ``cg_ws`` (the buffers of ``ops.boundary_cg``, made before a graph
+    capture) nothing is read: the system is assembled every step and the CG
+    is one device loop (``ops.boundary_cg.cg_solve_device``), which runs no
+    iteration when no replica solves; the deflated solve raises."""
     dtype = params.dtype
-    Vd = float(torch.tensor(Vd, dtype=dtype))
+    Vd = _as_dtype(Vd, dtype)   # on the host: a captured body reads nothing
+    if cg_ws is not None and params.boundary_precond != "jacobi":
+        raise ValueError("a captured superstep runs the Jacobi boundary CG; "
+                         f"boundary_precond={params.boundary_precond!r} runs eagerly")
     cvac = (states.element == int(Element.VACANCY)) & (states.charge == 0)
     changed = cvac != states.cvac_prev
     same_vd = states.Vd_prev == Vd
-    vl = float(torch.tensor(-Vd / 2.0, dtype=dtype))
-    vr = float(torch.tensor(Vd / 2.0, dtype=dtype))
+    vl, vr = _as_dtype(-Vd / 2.0, dtype), _as_dtype(Vd / 2.0, dtype)
     skip = same_vd & ~changed.any(dim=-1)
     keep = torch.zeros_like(skip)
     r_keep, b_keep = states.boundary_r, states.boundary_b
@@ -374,7 +385,7 @@ def solve_boundary_potential_batched(
     new_states = replace(
         states, cvac_prev=cvac, Vd_prev=torch.full_like(states.Vd_prev, Vd),
         boundary_r=r_keep, boundary_b=b_keep)
-    if not bool(solve.any()):
+    if cg_ws is None and not bool(solve.any()):
         # one read for all replicas: no assembly and no CG when none solves
         return new_states, {"cg_iters_boundary": torch.zeros_like(solve, dtype=torch.int64),
                             "boundary_converged": torch.ones_like(solve)}
@@ -394,11 +405,16 @@ def solve_boundary_potential_batched(
                 deflate_slabs=params.coarse_slabs, want_residual=True)
             iters[k], conv[k] = res.iters, res.converged
     else:
-        b_sys, matvec, _, _, pre_diag = _dirichlet_system(geom, edge_g, vl, vr, masks)
-        res = cg_solve_batched(matvec, b_sys, torch.where(interior, states.potential_boundary,
-                                                          0.0),
-                               pre_diag, tol=params.solver_tol, maxiter=params.solver_maxiter,
-                               active=solve)
+        b_sys, matvec, diag, neg_vals, pre_diag = _dirichlet_system(geom, edge_g, vl, vr,
+                                                                    masks)
+        x0 = torch.where(interior, states.potential_boundary, 0.0)
+        if cg_ws is None:
+            res = cg_solve_batched(matvec, b_sys, x0, pre_diag, tol=params.solver_tol,
+                                   maxiter=params.solver_maxiter, active=solve)
+        else:
+            res = cg_solve_device((diag, neg_vals, geom.neigh_idx, interior), b_sys, x0,
+                                  pre_diag, params.solver_tol, params.solver_maxiter, solve,
+                                  cg_ws)
         phi_s = torch.where(geom.bp_left_mask, vl,
                             torch.where(geom.bp_right_mask, vr, res.x)).to(dtype)
         r_true = torch.where(interior, b_sys - matvec(res.x), 0.0)

@@ -664,15 +664,47 @@ def stack_states(states: Sequence[SimState]) -> SimState:
     return SimState(**kw)
 
 
+_HOST_NAMES = sorted(_HOST_STATE)
+#: columns of host_block: the host scalars, the key's two words, tt_valid
+HOST_COLS = len(_HOST_NAMES) + 3
+
+
+def host_block(states: SimState) -> torch.Tensor:
+    """[B, HOST_COLS] f64 on the device: each replica's host scalars (in sorted
+    order), the two words of its key and tt_valid (:func:`host_values` reads
+    a row back)."""
+    return torch.cat([torch.stack([getattr(states, n).to(torch.float64) for n in _HOST_NAMES],
+                                  dim=1),
+                      states.key.to(torch.float64),
+                      states.tt_valid.to(torch.float64)[:, None]], dim=1)
+
+
+def host_values(row: Sequence[float]) -> dict:
+    """A single state's host fields from its row of :func:`host_block`."""
+    return dict(zip(_HOST_NAMES, (float(v) for v in row)),
+                key=(int(row[-3]), int(row[-2])), tt_valid=bool(row[-1]))
+
+
+def host_row(state: SimState) -> List[float]:
+    """A single state's row of :func:`host_block`, from its host fields."""
+    return ([float(getattr(state, n)) for n in _HOST_NAMES]
+            + [float(w) for w in state.key] + [float(state.tt_valid)])
+
+
+def set_host(states: SimState, block: torch.Tensor) -> None:
+    """Write each replica's host scalars, key and tt_valid from its row of
+    ``block`` (:func:`host_block`'s layout), on the device."""
+    for j, n in enumerate(_HOST_NAMES):
+        getattr(states, n).copy_(block[:, j])
+    words = block[:, -3:-1].to(torch.int64)
+    states.key.view(torch.int32).copy_(torch.where(words >= 2**31, words - 2**32, words))
+    states.tt_valid.copy_(block[:, -1] != 0)
+
+
 def _host_rows(states: SimState) -> List[dict]:
     """The host scalars, key and tt_valid of every replica, read in one
     transfer."""
-    names = sorted(_HOST_STATE)
-    block = torch.cat([torch.stack([getattr(states, n) for n in names], dim=1),
-                       states.key.to(torch.float64),
-                       states.tt_valid.to(torch.float64)[:, None]], dim=1).tolist()
-    return [dict(zip(names, row), key=(int(row[-3]), int(row[-2])), tt_valid=bool(row[-1]))
-            for row in block]
+    return [host_values(row) for row in host_block(states).tolist()]
 
 
 def _unbatch(states: SimState, b: int, host: dict) -> SimState:

@@ -7,18 +7,23 @@ replicas of one device (:func:`superstep_batched`, the body of
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .ops import boundary_cg, kmc_events
+from .ops import graph as ops_graph
+from .ops.ell_gather import ell_gather_batched
+from .ops.pairwise import batched_tickets, poisson_pairwise_batched
 from .physics import charge as charge_mod
 from .physics import current as current_mod
 from .physics import events as events_mod
 from .physics import heat as heat_mod
 from .physics import potential as potential_mod
-from .state import (Geometry, PhysParams, SimState, batch_size, replace, stack_states,
-                    unbatch_all)
+from .state import (HOST_COLS, Geometry, PhysParams, SimState, _unbatch, batch_size, host_block,
+                    host_row, host_values, replace, set_host, stack_states, unbatch_all)
 
 
 # ----------------------------------------------------------------------------
@@ -293,6 +298,7 @@ def multi_superstep_impl(
 
 def superstep_batched(
     geom: Geometry, params: PhysParams, states: SimState, Vd: float, heat=None,
+    cg_ws=None,
 ) -> Tuple[SimState, torch.Tensor, Dict]:
     """One superstep of B replicas of one device (a batched state), in the
     phase order of :func:`superstep_impl`; replica b computes what
@@ -309,13 +315,19 @@ def superstep_batched(
     the transport and heat phases run replica by replica on
     ``state.unbatch_all(states)`` and are stacked again: what the JAX
     package's vmap computes; the replica axis through the transport and heat
-    kernels is a later slice."""
+    kernels is a later slice.
+
+    ``cg_ws`` (``ops.boundary_cg.workspace``, made before a capture): the
+    body a captured graph runs, which reads nothing back: the boundary
+    system is assembled every step and solved by the device loop of
+    ``ops.boundary_cg`` (configurations of :func:`graph_ready` only)."""
     B = batch_size(states)
     metrics: Dict = {}
     if params.solve_potential:
         states, m = charge_mod.update_charge_batched(geom, params, states)
         metrics.update(m)
-        states, m = potential_mod.solve_boundary_potential_batched(geom, params, states, Vd)
+        states, m = potential_mod.solve_boundary_potential_batched(geom, params, states, Vd,
+                                                                   cg_ws=cg_ws)
         metrics.update(m)
         if params.poisson_compact_cap > 0:
             states, n = potential_mod.poisson_gridless_compact_batched(
@@ -352,3 +364,287 @@ def superstep_batched(
             metrics[key] = torch.tensor([float(m[key]) for m in rows], dtype=torch.float64,
                                         device=geom.device)
     return states, step_times, metrics
+
+
+# ----------------------------------------------------------------------------
+# the superstep as one captured CUDA graph
+# ----------------------------------------------------------------------------
+
+_FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
+#: a single state's host fields: its scalars, then its key and tt_valid
+_SCALARS = ("kmc_time", "T_bg", "I_macro", "P_tot", "Vd_prev", "transport_Vd_prev")
+_HOST = _SCALARS + ("key", "tt_valid")
+#: the kernel wrappers a captured superstep launches outside its CG loop
+_COUNTED = (ell_gather_batched, poisson_pairwise_batched,
+            kmc_events.kmc_event_loop_batched)
+
+
+def graph_ready(params: PhysParams) -> Optional[str]:
+    """None when the superstep of ``params`` runs as one captured graph
+    (:class:`SuperstepGraph`): the headline module set with the Jacobi
+    boundary CG, the incremental event loop and the compacted pair-sweep
+    kernel.  Otherwise why it runs eagerly."""
+    if params.solve_current:
+        return "solve_current: the transport and heat phases run eagerly"
+    if params.solve_potential and params.boundary_precond != "jacobi":
+        return (f"boundary_precond={params.boundary_precond!r}: the deflated "
+                "in-superstep solve runs eagerly")
+    if params.perturb_structure and params.event_mode != "incremental":
+        return f"event_mode={params.event_mode!r} runs eagerly"
+    if params.solve_potential and not (params.poisson_compact_cap > 0
+                                       and params.poisson_kernel == "pallas"):
+        return ("the Poisson sweep without the pair-sweep kernel and a bucket "
+                "reads its counts; it runs eagerly")
+    return None
+
+
+def _clone(states: SimState) -> SimState:
+    return SimState(**{f: getattr(states, f).clone() for f in _FIELDS})
+
+
+def _copy_into(dst: SimState, src: SimState) -> None:
+    for f in _FIELDS:
+        getattr(dst, f).copy_(getattr(src, f))
+
+
+def _select(done: torch.Tensor, old: SimState, new: SimState) -> SimState:
+    """Per replica, ``old`` where ``done`` else ``new`` (the key through its
+    int32 view)."""
+    kw = {}
+    for f in _FIELDS:
+        a, b = getattr(old, f), getattr(new, f)
+        if a is b:
+            kw[f] = a
+            continue
+        d = done.reshape(-1, *([1] * (a.dim() - 1)))
+        if a.dtype == torch.uint32:
+            kw[f] = torch.where(d, a.view(torch.int32), b.view(torch.int32)).view(torch.uint32)
+        else:
+            kw[f] = torch.where(d, a, b)
+    return SimState(**kw)
+
+
+def element_checksum(element: torch.Tensor) -> torch.Tensor:
+    """[B] f64: each replica's sum over sites of ``element[b, i] * w_i``, with
+    weights ``w_i = (i * 40503 mod 2**16) + 1``: one number that tells two
+    element arrays apart, exact in f64 while the sites times 2**16 times the
+    largest element code stay below 2**53."""
+    n = element.shape[-1]
+    w = (torch.arange(n, dtype=torch.int64, device=element.device) * 40503) % 65536 + 1
+    return (element.to(torch.int64) * w).sum(dim=-1).to(torch.float64)
+
+
+class SuperstepGraph:
+    """The superstep of B replicas (:func:`superstep_batched` with the boundary
+    CG as a device loop) and batches of ``n_steps`` of it, each captured once
+    as a CUDA graph that replays as one launch and reads nothing back: the
+    port's ``jax.jit(superstep_impl)`` and ``jit(multi_superstep_impl)``.  On
+    the CPU a replay calls the captured function (the plain version).
+
+    The state lives in two static batched states, ``slots``: a graph reads
+    one and writes the other, so the state before a replay stays intact for
+    a redo or a snapshot, and a graph is captured for each (kind, source
+    slot, Vd, steps), and again after ``params`` change (a cap grew).  The
+    bias and the caps are fixed at capture; the clock, key, T_bg and the bias
+    of the last boundary solve are device tensors of the state.  A replay's
+    host inputs are one device buffer, written by one copy before it: each
+    replica's host scalars, key and tt_valid (``hin``, :func:`state.host_block`'s
+    layout), which the graph writes into its source slot first, and a
+    batch's ``limit``, ``t_end`` and ``Icc_A`` (``ctl``), so that one capture
+    serves every batch of a bias point.  Every buffer the capture needs
+    outside PyTorch's pool (the slots, the CG workspace ``ws``, ``hin``) is
+    made before it.
+
+    :meth:`step` and :meth:`multi` take and return single states (B = 1),
+    the driver's form, with one read a replay; :meth:`step_batched` takes
+    and returns batched states and reads nothing.  ``checksums``: after
+    :meth:`multi`, :func:`element_checksum` of the elements after each step
+    of the batch, [n_steps] (read with the batch's result)."""
+
+    def __init__(self, geom: Geometry, params: PhysParams, batch: int):
+        reason = graph_ready(params)
+        if reason is not None:
+            raise ValueError(f"the superstep of these params is not captured: {reason}")
+        self.geom, self.params, self.batch = geom, params, batch
+        self.device = geom.device
+        self.slots: Optional[List[SimState]] = None
+        self.ws = boundary_cg.workspace(batch, geom.N, params.dtype, self.device)
+        cols = HOST_COLS
+        self._hin = torch.zeros(batch * cols + 3, dtype=torch.float64, device=self.device)
+        self.hin = self._hin[:batch * cols].view(batch, cols)
+        self.ctl = self._hin[batch * cols:]
+        self._staging = (torch.empty(self._hin.shape, dtype=torch.float64, pin_memory=True)
+                         if self.device.type == "cuda" else None)
+        self.pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self.graphs: Dict = {}
+        self.keys: Dict = {}
+        self.checksums = None
+        #: graphs captured and replays (calls of a graph) so far
+        self.captures = self.replays = 0
+
+    def set_params(self, params: PhysParams) -> None:
+        """Use ``params`` from the next replay on (captured anew)."""
+        if params is not self.params:
+            reason = graph_ready(params)
+            if reason is not None:
+                raise ValueError(f"the superstep of these params is not captured: {reason}")
+            self.params = params
+            self.graphs.clear()
+
+    # -- the state in the slots -------------------------------------------
+    def _slot_of(self, element: torch.Tensor) -> int:
+        """The slot whose elements ``element`` views (a state a replay
+        returned), else 0."""
+        for i, s in enumerate(self.slots):
+            if element.data_ptr() == s.element.data_ptr():
+                return i
+        return 0
+
+    def _load_tensors(self, states: SimState, single: bool) -> int:
+        """Copy the device fields of ``states`` (a single state when
+        ``single``) into a slot: the one they already view, where nothing is
+        copied, else slot 0 (both made anew when a shape changed).  Returns
+        the slot."""
+        fields = [f for f in _FIELDS if f not in _HOST]
+        lead = 1 if single else 0
+        if self.slots is None or any(getattr(states, f).shape
+                                     != getattr(self.slots[0], f).shape[lead:] for f in fields):
+            self.slots = [_clone(stack_states([states]) if single else states) for _ in range(2)]
+            self.graphs.clear()
+            return 0
+        i = self._slot_of(states.element)
+        for f in fields:
+            src, dst = getattr(states, f), getattr(self.slots[i], f)
+            dst = dst[0] if single else dst
+            if src.data_ptr() != dst.data_ptr():
+                dst.copy_(src)
+        return i
+
+    def load(self, states: SimState) -> int:
+        """Make a slot hold the batched state ``states`` (its scalars, key
+        and tt_valid through ``hin``); returns the slot."""
+        i = self._load_tensors(states, single=False)
+        self.hin.copy_(host_block(states))
+        return i
+
+    def load_single(self, state: SimState, ctl=(0.0, 0.0, 0.0)) -> int:
+        """Make a slot hold the single state ``state`` (B = 1); its host
+        fields and ``ctl`` (limit, t_end, Icc_A) go to the device in one copy.
+        Returns the slot."""
+        if self.batch != 1:
+            raise ValueError("load_single: a graph of one replica")
+        i = self._load_tensors(state, single=True)
+        values = host_row(state) + [float(c) for c in ctl]
+        if self._staging is None:
+            self._hin.copy_(torch.tensor(values, dtype=torch.float64))
+        else:
+            # the previous copy from the staging buffer ended before the
+            # read of the previous replay's result
+            self._staging.numpy()[:] = values
+            self._hin.copy_(self._staging, non_blocking=True)
+        return i
+
+    # -- capture ------------------------------------------------------------
+    def _graph(self, kind: str, src: int, Vd: float, n_steps: int = 1) -> ops_graph.Graph:
+        """The graph of ``kind`` ("step" or "batch" of ``n_steps``) from slot
+        ``src`` at ``Vd``, captured at its first use; every call is followed
+        by one replay of it."""
+        key = (kind, src, Vd, n_steps)
+        g = self.graphs.get(key)
+        if g is None:
+            # a new bias point: the graphs of the last one are not replayed again
+            self.graphs = {k: v for k, v in self.graphs.items() if k[2] == Vd}
+            fn = (self._step_fn if kind == "step" else self._batch_fn)(src, Vd, n_steps)
+            g = ops_graph.Graph(fn, self.device, counted=_COUNTED, pool=self.pool,
+                                tickets=batched_tickets(self.geom.N, self.batch))
+            self.graphs[key] = g
+            self.captures += 1
+        self.replays += 1
+        return g
+
+    def _step_fn(self, src: int, Vd: float, _n_steps: int):
+        S, D = self.slots[src], self.slots[1 - src]
+
+        def fn():
+            set_host(S, self.hin)
+            out, dts, m = superstep_batched(self.geom, self.params, S, Vd, cg_ws=self.ws)
+            _copy_into(D, out)
+            keys = self.keys["step"] = sorted(m)
+            pack = torch.cat([dts.to(torch.float64)[:, None]]
+                             + [m[k].to(torch.float64)[:, None] for k in keys]
+                             + [host_block(D)], dim=1)
+            return pack, dts, m
+
+        return fn
+
+    def _batch_fn(self, src: int, Vd: float, n_steps: int):
+        """``multi_superstep_impl`` of the JAX package (a ``lax.scan``),
+        unrolled: each step computes, and a step that is done (from
+        ``limit`` on, or after the clock reached ``t_end`` or the current
+        passed ``Icc_A``) is selected away, its step time and metrics 0 and
+        ``active`` False."""
+        S, D = self.slots[src], self.slots[1 - src]
+
+        def fn():
+            set_host(S, self.hin)
+            limit, t_end, icc = self.ctl[0], self.ctl[1], self.ctl[2]
+            st = S
+            done = torch.zeros(self.batch, dtype=torch.bool, device=self.device)
+            rows, sums = [], []
+            for k in range(n_steps):
+                done = done | (limit <= k)
+                new, dts, m = superstep_batched(self.geom, self.params, st, Vd,
+                                                cg_ws=self.ws)
+                st = _select(done, st, new)
+                keys = sorted(m)
+                rows.append(torch.stack(
+                    [torch.where(done, 0.0, dts.to(torch.float64)),
+                     (~done).to(torch.float64)]
+                    + [torch.where(done, 0.0, m[key].to(torch.float64)) for key in keys],
+                    dim=1))
+                sums.append(element_checksum(st.element))
+                done = done | (st.kmc_time >= t_end) | (st.I_macro > icc)
+            self.keys[("batch", n_steps)] = keys
+            _copy_into(D, st)
+            return torch.cat([torch.stack(rows).reshape(-1), torch.stack(sums).reshape(-1),
+                              host_block(D).reshape(-1)])
+
+        return fn
+
+    # -- replays ------------------------------------------------------------
+    def step(self, state: SimState, Vd: float):
+        """One superstep of the single state ``state`` as one replay, then
+        one read: ``(state, step_time, metrics)`` as :func:`superstep_impl`
+        returns them (Python numbers), the state views of the slot written
+        (valid until a replay writes that slot again)."""
+        i = self.load_single(state)
+        pack, _, _ = self._graph("step", i, Vd)()
+        row = pack.tolist()[0]
+        keys = self.keys["step"]
+        host = host_values(row[1 + len(keys):])
+        return _unbatch(self.slots[1 - i], 0, host), row[0], dict(zip(keys, row[1:1 + len(keys)]))
+
+    def multi(self, state: SimState, Vd: float, Icc_A: float, t_end: float, n_steps: int,
+              limit=None):
+        """:func:`multi_superstep_impl` of the single state ``state`` as one
+        replay and one read: ``(state, step_times, metrics)`` with
+        ``metrics["active"]``, numpy arrays [n_steps]."""
+        i = self.load_single(state, (n_steps if limit is None else limit, t_end, Icc_A))
+        vals = np.asarray(self._graph("batch", i, Vd, n_steps)().tolist())
+        keys = self.keys[("batch", n_steps)]
+        width = 2 + len(keys)
+        rows = vals[:n_steps * width].reshape(n_steps, width)
+        self.checksums = vals[n_steps * width:n_steps * (width + 1)]
+        host = host_values(vals[n_steps * (width + 1):])
+        metrics = {key: rows[:, 2 + c] for c, key in enumerate(keys)}
+        metrics["active"] = rows[:, 1] > 0
+        return _unbatch(self.slots[1 - i], 0, host), rows[:, 0], metrics
+
+    def step_batched(self, states: SimState, Vd: float):
+        """One superstep of the batched state ``states`` as one replay, with
+        no read: ``(states, step_times, metrics)`` as
+        :func:`superstep_batched` returns them, copies of the graph's
+        outputs."""
+        i = self.load(states)
+        _, dts, m = self._graph("step", i, Vd)()
+        return _clone(self.slots[1 - i]), dts.clone(), {k: v.clone() for k, v in m.items()}

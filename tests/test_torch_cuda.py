@@ -1068,3 +1068,276 @@ def test_cuda_batched_superstep_matches_single(precision):
             assert got.key == singles[b].key
             assert int(m["n_events"][b]) == ms["n_events"]
             assert float(dts[b]) == pytest.approx(dt, rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the captured superstep: the boundary CG kernels, the WHILE node, the graphs
+# ---------------------------------------------------------------------------
+
+def _boundary_system(B, dtype, seed=4):
+    """B replicas' Dirichlet boundary systems of the 256-site stack on the
+    card (random vacancies a replica, a warm start of random size), as
+    physics.potential._dirichlet_system assembles them."""
+    from devicekmc_tpu_torch.physics import potential as pot
+    from devicekmc_tpu_torch.state import replace, stack_states
+
+    geom, params, state = _event_state("f64", 0, seed=seed)
+    states = stack_states([_event_state("f64", 0, seed=seed + b)[2] for b in range(B)])
+    edge_g = pot._edge_conductance_boundary(geom, states, params).to(dtype)
+    masks = (geom.bp_left_mask, geom.bp_right_mask, geom.bp_interior_mask)
+    b_sys, matvec, diag, vals, pre = pot._dirichlet_system(geom, edge_g, -1.25, 1.25, masks)
+    rng = np.random.default_rng(seed)
+    x0 = torch.where(geom.bp_interior_mask,
+                     torch.as_tensor(rng.standard_normal((B, geom.N)), device="cuda"),
+                     0.0).to(dtype)
+    return geom, b_sys, matvec, (diag, vals, geom.neigh_idx, geom.bp_interior_mask), pre, x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
+def test_cuda_boundary_cg_kernels_match_plain(dtype, tol):
+    """The three kernels, launched eagerly in a loop that reads the predicate,
+    against cg_solve_batched (its plain version) on three replicas, one not
+    solving: equal iteration counts, the iterate within tol of its scale,
+    the inactive replica untouched, and the kernels' iterations counted on
+    the device."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.ops.cg import cg_solve_batched
+
+    geom, b, matvec, op, pre, x0 = _boundary_system(3, dtype)
+    active = torch.tensor([True, False, True], device="cuda")
+    ctol = 1e-10 if dtype == torch.float64 else 1e-5
+    ref = cg_solve_batched(matvec, b, x0, pre, tol=ctol, maxiter=5000, active=active)
+    ws = bcg.workspace(3, geom.N, dtype, "cuda")
+    bcg.cg_setup(op, b, x0, pre, ctol, 5000, active, ws)
+    stream = torch.cuda.current_stream().cuda_stream
+    while int(ws.cond):
+        bcg.cg_matvec_dot(ws, op, stream)
+        bcg.cg_update(ws, 5000, 0, stream)
+        bcg.cg_direction(ws, stream)
+    got, want = ws.iters.tolist(), ref.iters.tolist()
+    assert want[0] > 5 and got[1] == want[1] == 0
+    if dtype == torch.float64:
+        assert got == want
+    else:
+        # f32 sums in another order: a stop may move by an iteration or two
+        assert all(abs(a - b) <= 2 for a, b in zip(got, want))
+    assert bcg.device_iterations(ws) == max(got)
+    scale = float(ref.x.abs().max())
+    assert float((ws.x - ref.x).abs().max()) <= tol * scale
+    assert torch.equal(ws.x[1], x0[1])
+    assert ws.rr.le(ws.thresh2).tolist() == ref.converged.tolist()
+
+
+def _capture_solve(B, dtype, active, maxiter=5000):
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.ops.graph import Graph
+
+    geom, b, matvec, op, pre, x0 = _boundary_system(B, dtype)
+    ws = bcg.workspace(B, geom.N, dtype, "cuda")
+    g = Graph(lambda: bcg.cg_solve_device(op, b, x0, pre, 1e-10, maxiter, active, ws), "cuda")
+    return g, ws, (matvec, b, x0, pre)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maxiter", [5000, 7])
+def test_cuda_boundary_cg_graph_while_node(maxiter):
+    """cg_solve_device captured with its WHILE node: a replay equals
+    cg_solve_batched (counts equal, iterate within 1e-12 of its scale, the
+    cap at maxiter kept), replays are bit-equal, and with no replica active
+    the node runs no iteration."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.cg import cg_solve_batched
+
+    active = torch.tensor([True, True, False], device="cuda")
+    g, ws, (matvec, b, x0, pre) = _capture_solve(3, torch.float64, active, maxiter)
+    ref = cg_solve_batched(matvec, b, x0, pre, tol=1e-10, maxiter=maxiter, active=active)
+    ws.total.zero_()
+    res = g()
+    x1 = res.x.clone()
+    assert res.iters.tolist() == ref.iters.tolist()
+    assert int(ws.total) == int(ref.iters.max()) <= maxiter
+    assert float((res.x - ref.x).abs().max()) <= 1e-12 * float(ref.x.abs().max())
+    assert torch.equal(g().x, x1)
+    active.zero_()
+    ws.total.zero_()
+    res = g()
+    assert res.iters.tolist() == [0, 0, 0] and int(ws.total) == 0
+    assert torch.equal(res.x, x0)
+
+
+@pytest.mark.cuda
+def test_cuda_device_while_raises_without_node(monkeypatch):
+    """device_while outside a capture raises, and a WHILE node that cannot be
+    made fails the capture: nothing runs eagerly instead."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import graph as og
+
+    cond = torch.ones(1, dtype=torch.int32, device="cuda")
+    ran = []
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        og.device_while(cond, lambda h, s: ran.append(1))
+    real = og._fn
+
+    def failing(name):
+        if name == "dkmc_while_begin":
+            return lambda *a: 801     # cudaErrorNotSupported
+        return real(name)
+
+    monkeypatch.setattr(og, "_fn", failing)
+    active = torch.tensor([True], device="cuda")
+    with pytest.raises(RuntimeError, match="WHILE node could not be added"):
+        _capture_solve(1, torch.float64, active)
+    assert not ran
+
+
+@pytest.mark.cuda
+def test_cuda_graph_capture_rejects_a_read():
+    """A capture runs with synchronizing calls an error: a read of the device
+    inside the captured function fails the capture."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.graph import Graph
+
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(RuntimeError):
+        Graph(lambda: float(x.sum()), "cuda")
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def _graph_sim(tmp_path, **over):
+    import dataclasses
+
+    from devicekmc_tpu_torch.config import KMCConfig
+    from devicekmc_tpu_torch.engine import Simulation
+    from devicekmc_tpu_torch.structure import make_test_structure
+
+    s = make_test_structure(nx_contact=2, nx_oxide=8, ny=4, nz=4, seed=11)
+    cfg = KMCConfig(
+        lattice=list(s.lattice), nn_dist=3.0,
+        num_atoms_first_layer=s.num_atoms_first_layer,
+        num_layers_contact=s.num_layers_contact,
+        num_atoms_contact=s.num_atoms_contact, layers=s.layers,
+        solve_potential=True, perturb_structure=True, pristine=True,
+        initial_vacancy_concentration=0.08, rnd_seed=3, rnd_seed_kmc=7,
+        precision="mixed", poisson_kernel="pallas", V_switch=[2.5], t_switch=[1e30],
+        output_dir=str(tmp_path), log_freq=1000)
+    cfg = dataclasses.replace(cfg, **over)
+    return Simulation(cfg, elements=s.elements, coords=s.coords, device="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_graph_superstep_matches_eager(tmp_path):
+    """The engine's per-step graph on the small stack against the eager
+    superstep_impl from the same state, step by step: elements and events
+    equal, cg_iters_boundary equal, potentials within 1e-12 of their scale;
+    one capture from each of the two slots the state alternates between,
+    and the three kernels counted a replay."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.ell_gather import ell_gather_batched
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop_batched
+    from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise_batched
+    from devicekmc_tpu_torch.superstep import superstep_impl
+
+    sim = _graph_sim(tmp_path)
+    sim.run_bias_point(2.5, 1e30, max_steps=1)
+    assert sim._graph is not None and sim._graph.captures == 1
+    eager = sim.state
+    counters = (ell_gather_batched, poisson_pairwise_batched, kmc_event_loop_batched)
+    for k in range(6):
+        before = [c.launches for c in counters]
+        got, dt, m = sim._superstep(sim.state, 2.5)
+        assert [c.launches - n for c, n in zip(counters, before)] == [2, 1, 1]
+        sim.state = got
+        eager, dt_e, m_e = superstep_impl(sim.geom, sim.params, eager, 2.5)
+        assert torch.equal(got.element, eager.element), k
+        assert torch.equal(got.charge, eager.charge), k
+        assert got.key == eager.key and m["n_events"] == m_e["n_events"], k
+        assert m["cg_iters_boundary"] == m_e["cg_iters_boundary"], k
+        phi, phi_e = (s.potential_boundary + s.potential_charge for s in (got, eager))
+        assert float((phi - phi_e).abs().max()) <= 1e-12 * float(phi_e.abs().max()), k
+        # the f32 rate table of potentials that differ in their last bits
+        assert dt == pytest.approx(dt_e, rel=1e-6)
+    assert sim._graph.captures == 2
+
+
+@pytest.mark.cuda
+def test_cuda_graph_batch_matches_per_step(tmp_path):
+    """batch_steps = 4 through the batch graph against the per-step graph:
+    the same elements, events and output.txt numbers, a limit inside a batch
+    included (log_freq 3 puts snapshot steps between the batches)."""
+    _need_card()
+    import os
+
+    runs = {}
+    for bs in (1, 4):
+        d = tmp_path / f"b{bs}"
+        d.mkdir()
+        sim = _graph_sim(d, batch_steps=bs, log_freq=3)
+        sim.run_bias_point(2.5, 1e30, max_steps=9)
+        with open(os.path.join(str(d), "output.txt")) as f:
+            # the per-step driver writes no separator after its last step
+            runs[bs] = ([ln for ln in f.read().splitlines()
+                         if not ln.startswith(("Z - calculation time", "-", "Created folder"))],
+                        sim.state.element.clone())
+    assert runs[1][0] == runs[4][0]
+    assert torch.equal(runs[1][1], runs[4][1])
+
+
+@pytest.mark.cuda
+def test_cuda_graph_ensemble_matches_eager():
+    """make_batched_superstep at B = 3 (a graph a call) against the eager
+    superstep_batched: elements, events and keys equal, potentials within
+    1e-12 of their scale, the returned tensors the caller's own."""
+    _need_card()
+    from devicekmc_tpu_torch.parallel.batched import batch_states, make_batched_superstep
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+    from devicekmc_tpu_torch.state import replace
+    from devicekmc_tpu_torch.superstep import superstep_batched
+
+    geom, params, state = _event_state("mixed", 0, phi_scale=0.0)
+    params = replace(params, poisson_compact_cap=64, poisson_kernel="pallas")
+    step = make_batched_superstep(geom, params, heat_mod.empty_heat_model(params, "cuda"))
+    states = eager = batch_states(state, 3, base_seed=11)
+    kept = []
+    for k in range(4):
+        states, dts, m = step(states, 10.0)
+        kept.append(states.element.clone())
+        eager, dts_e, m_e = superstep_batched(geom, params, eager, 10.0)
+        assert torch.equal(states.element, eager.element), k
+        assert torch.equal(states.key, eager.key), k
+        assert torch.equal(m["n_events"], m_e["n_events"]), k
+        assert torch.equal(m["cg_iters_boundary"], m_e["cg_iters_boundary"]), k
+        phi, phi_e = (s.potential_boundary + s.potential_charge for s in (states, eager))
+        assert float((phi - phi_e).abs().max()) <= 1e-12 * float(phi_e.abs().max()), k
+    assert torch.equal(kept[-1], states.element)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_launches_counted_on_card():
+    """The batched kernels a captured superstep replays count their launches
+    on the card (csrc/launch_count.cuh): after 3 calls of the ensemble
+    superstep at B = 3 the card's counts are the wrappers' (2, 1 and 1 a
+    superstep), counted by Graph at each replay."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops.ell_gather import ell_gather_batched
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop_batched
+    from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise_batched
+    from devicekmc_tpu_torch.parallel.batched import batch_states, make_batched_superstep
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+    from devicekmc_tpu_torch.state import replace
+
+    geom, params, state = _event_state("mixed", 0, phi_scale=0.0)
+    params = replace(params, poisson_compact_cap=64, poisson_kernel="pallas")
+    step = make_batched_superstep(geom, params, heat_mod.empty_heat_model(params, "cuda"))
+    states = batch_states(state, 3, base_seed=11)
+    wrappers = (ell_gather_batched, poisson_pairwise_batched, kmc_event_loop_batched)
+    host0 = [w.launches for w in wrappers]
+    card0 = _build.launch_counts("cuda").tolist()
+    for _ in range(3):
+        states, _, _ = step(states, 10.0)
+    host = [w.launches - n for w, n in zip(wrappers, host0)]
+    card = [a - b for a, b in zip(_build.launch_counts("cuda").tolist(), card0)]
+    assert list(_build.COUNTED_ON_CARD) == [w.__name__ for w in wrappers]
+    assert host == card == [6, 3, 3]
