@@ -6,8 +6,9 @@
 Phases (any failed check raises and the exit code is non-zero):
 
 1. builds the eight CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
-   sm_90a, one nvcc per source, in parallel) and prints ptxas's registers
-   and shared memory per kernel; holds the event kernel's random stream
+   sm_90a, one nvcc per source, in parallel) and beside them the latency
+   probes of the event loop's bound (tools/latency_probe.cu), and prints
+   ptxas's registers and shared memory per kernel; holds the event kernel's random stream
    (csrc/threefry.cuh) against rng.py: 10^4 successive key splits and their
    f64 and f32 draws, bit for bit;
 2. small-device checks: the 256-site test stack on the card and through the
@@ -59,7 +60,11 @@ Phases (any failed check raises and the exit code is non-zero):
    counts one; a trace may miss launches); then the
    event kernel against its plain version on the crossbar's f32 table (3
    supersteps, step_time within 2 f32 ulps), the loop alone timed both
-   ways, and batch_steps = 4 over the same 6 steps against the per-step run
+   ways, at the path's time window and with a cap of 200 events and no
+   window, beside its bytes bound and a latency bound (the L2 round trips
+   and barriers an event cannot avoid, at the L2 hit and barrier latencies
+   measured on the card),
+   and batch_steps = 4 over the same 6 steps against the per-step run
    (events, and elements or inside a batch their checksum, step for step;
    one replay a driver call; a batch one replay and one device-to-host copy,
    its launches witnessed by the trace);
@@ -147,10 +152,12 @@ Phases (any failed check raises and the exit code is non-zero):
    with its WHILE node against cg_solve_batched from the run's potential plus
    seeded noise (iteration counts equal, the iterate within 1e-12 of its
    scale; the kernels of the WHILE node's body in the trace of a replay),
-   each kernel against its plain version, timed beside its bytes
-   bound (the matvec also beside torch.sparse.mm of the operator in CSR), and
-   the boundary work a captured superstep adds where no replica solves,
-   captured and timed.
+   each kernel against its plain version, timed beside its bytes bound
+   (the matvec's: the operator's interior nonzeros, value and index, the
+   interior rows' diagonal, p, ap and the row lengths, each once; the matvec
+   also beside torch.sparse.mm of the operator in CSR, back to back and with
+   a cold L2), and the boundary work a captured superstep adds where no
+   replica solves, captured and timed.
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -199,6 +206,77 @@ PDISP_EXTRA_OPS = 8
 REF_N_MP = 24_768
 # the smallest bucket of rate-table rows (the engine's auto rule)
 RATE_BUCKET = 1024
+
+
+#: the latency probes (tools/latency_probe.cu), built beside the package's
+#: libraries: {"lib": ctypes library} once built
+LATENCY = {}
+
+
+def start_latency_build():
+    """An nvcc of tools/latency_probe.cu as the package's sources are built:
+    (process, library path)."""
+    from devicekmc_tpu_torch.ops import _build
+
+    out_dir = os.path.join(ROOT, "build", "tools")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "liblatency_probe.so")
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+           os.path.join(ROOT, "tools", "latency_probe.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), so
+
+
+def finish_latency_build(job):
+    """Wait for start_latency_build's nvcc and load its library."""
+    import ctypes
+
+    proc, so = job
+    out, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc failed for tools/latency_probe.cu:\n{out}")
+    lib = ctypes.CDLL(so)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, args in (("dkmc_chase", [p, i, p, p]), ("dkmc_barriers", [i, p, p]),
+                       ("dkmc_raw_probe", [p, i, p, p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ctypes.c_int
+    LATENCY["lib"] = lib
+
+
+def latencies(lines=1 << 16, hops=1 << 16, barriers=1 << 16, seed=0):
+    """What one event's chain of dependent steps costs at the least on this
+    card: ``(load_ns, barrier_ns)``, the latency of one dependent load (a
+    pointer chase over ``lines`` lines of 128 bytes in a seeded random
+    cycle, past L1: 8 MiB at the default, inside L2) and of one
+    ``__syncthreads`` of the event loop's 512 threads, each the median of
+    five launches of ``hops`` or ``barriers`` steps timed between CUDA
+    events (tools/latency_probe.cu)."""
+    import torch
+
+    lib = LATENCY["lib"]
+    gen = torch.Generator().manual_seed(seed)
+    order = torch.randperm(lines, generator=gen) * 32
+    nxt = torch.zeros(lines * 32, dtype=torch.int32)
+    nxt[order] = torch.roll(order, -1).to(torch.int32)
+    nxt = nxt.to("cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def timed(launch, n):
+        times = []
+        for _ in range(6):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            err = launch()
+            b.record()
+            b.synchronize()
+            check(err == 0, f"latency probe launch failed: cudaError {err}")
+            times.append(a.elapsed_time(b) * 1e6 / n)
+        return statistics.median(times[1:])
+
+    return (timed(lambda: lib.dkmc_chase(nxt.data_ptr(), hops, sink.data_ptr(), stream), hops),
+            timed(lambda: lib.dkmc_barriers(barriers, sink.data_ptr(), stream), barriers))
 
 
 def log(msg):
@@ -1223,7 +1301,10 @@ def headline_path(out_root):
         "plain_ms_per_event": loop["plain_ms_per_event"], "bound_ms": loop["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "shape": loop["shape"],
         "bound_note": "the bytes the events touch, each once; a chain of dependent "
-                      "per-event steps bounds the loop, not bytes",
+                      "per-event steps bounds the loop, not bytes: latency_bound_ms",
+        **{key: loop[key] for key in (
+            "latency_bound_ms", "latency_bound_ms_per_event", "l2_ns", "barrier_ns",
+            "cap_events", "cap_ms", "cap_ms_per_event")},
         "events_phase_crossbar": {key: ev[key] for key in (
             "table", "events", "ms_per_superstep", "plain_ms_per_superstep",
             "ms_per_event", "plain_ms_per_event", "step_time_bit_equal", "steps")},
@@ -2034,11 +2115,31 @@ def event_loop_bytes(events, n_blocks, m, table_bytes):
     return events * per
 
 
+#: dependent round trips to L2 and barriers that one event of the loop cannot
+#: avoid: the chosen block's row sums, the chosen row (with its site), the
+#: site's neighbour row (j), j's neighbour row, the rows of those neighbours,
+#: the touched rows' entries for their new sums; a barrier after the
+#: selection and one before the next (csrc/kmc_events.cu)
+EVENT_ROUND_TRIPS, EVENT_BARRIERS = 6, 2
+#: the cap of the loop's timed launch with no time window
+EVENT_CAP = 200
+
+
+def event_latency_bound_ms(events, l2_ns, barrier_ns):
+    """The least time of ``events`` events as a chain: each its
+    EVENT_ROUND_TRIPS L2 round trips and EVENT_BARRIERS barriers at the
+    latencies measured on this card (latencies)."""
+    return events * (EVENT_ROUND_TRIPS * l2_ns + EVENT_BARRIERS * barrier_ns) * 1e-6
+
+
 def event_loop_timing(sim, reps=20, plain_reps=3):
     """The loop alone on the table of ``sim``'s state: the kernel between
     CUDA events (the stream held busy first, the scratch inputs cloned
-    before, outside the events), the plain version with the host clock
-    between synchronizations; the bound from event_loop_bytes."""
+    before, outside the events), at the path's time window and with
+    EVENT_CAP events and no window; the plain version with the host clock
+    between synchronizations; the bytes bound from event_loop_bytes and the
+    latency bound from the load and barrier latencies measured here
+    (latencies)."""
     import torch
 
     from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop, kmc_event_loop_plain
@@ -2046,24 +2147,32 @@ def event_loop_timing(sim, reps=20, plain_reps=3):
 
     geom, params, state = sim.geom, sim.params, sim.state
     prob, row_sums, block_sums, aidx, inv, _ = incremental_tables(geom, params, state)
+    n_rows, m = prob.shape
+    n_blocks = block_sums.shape[0]
 
-    def args():
+    def args(window=1.0 / params.freq, cap=params.max_events_per_superstep):
         return (prob.clone(), row_sums.clone(), block_sums.clone(), aidx, inv,
                 geom.neigh_idx, geom.rev_slot, state.element, state.charge, state.key,
-                1.0 / params.freq, params.max_events_per_superstep, params.dtype)
+                window, cap, params.dtype)
+
+    def timed(make, n):
+        times = []
+        for _ in range(n):
+            a = make()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(HOLD_CYCLES)
+            e0.record()
+            kmc_event_loop(*a)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return statistics.median(times)
 
     count = int(kmc_event_loop(*args())[2].tolist()[1])
-    times = []
-    for _ in range(reps):
-        a = args()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(HOLD_CYCLES)
-        e0.record()
-        kmc_event_loop(*a)
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+    cap_args = lambda: args(float("inf"), EVENT_CAP)
+    cap_count = int(kmc_event_loop(*cap_args())[2].tolist()[1])
+    ms, cap_ms = timed(args, reps), timed(cap_args, reps // 2)
     plain = []
     for _ in range(plain_reps):
         a = args()
@@ -2073,19 +2182,25 @@ def event_loop_timing(sim, reps=20, plain_reps=3):
         torch.cuda.synchronize()
         plain.append((time.perf_counter() - t0) * 1e3)
         check(int(out[2].tolist()[1]) == count, "plain loop: another event count")
-    n_blocks = block_sums.shape[0]
-    bytes_ = event_loop_bytes(count, n_blocks, geom.max_nn, prob.element_size())
-    rec = dict(events=count, ms=statistics.median(times), plain_ms=statistics.median(plain),
+    l2_ns, barrier_ns = latencies()
+    bytes_ = event_loop_bytes(count, n_blocks, m, prob.element_size())
+    rec = dict(events=count, ms=ms, plain_ms=statistics.median(plain),
                bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3, bytes=bytes_,
-               shape=f"{prob.shape[0]}x{prob.shape[1]} {str(prob.dtype)[6:]} table, "
+               latency_bound_ms=event_latency_bound_ms(count, l2_ns, barrier_ns),
+               l2_ns=l2_ns, barrier_ns=barrier_ns, cap_events=cap_count, cap_ms=cap_ms,
+               shape=f"{n_rows}x{m} {str(prob.dtype)[6:]} table, "
                      f"{n_blocks} blocks of sums, {count} events")
     rec["ms_per_event"] = rec["ms"] / max(count, 1)
     rec["plain_ms_per_event"] = rec["plain_ms"] / max(count, 1)
+    rec["cap_ms_per_event"] = rec["cap_ms"] / max(cap_count, 1)
+    rec["latency_bound_ms_per_event"] = event_latency_bound_ms(1, l2_ns, barrier_ns)
     log(f"kmc_event_loop [{rec['shape']}]: {rec['ms']:.4f} ms a superstep, "
-        f"{rec['ms_per_event']:.5f} ms an event (plain host loop {rec['plain_ms']:.3f} ms, "
-        f"{rec['plain_ms_per_event']:.4f} ms an event; bytes bound {rec['bound_ms']:.6f} ms "
-        f"for {bytes_} bytes: a chain of dependent per-event steps bounds the loop, "
-        f"not bytes)")
+        f"{rec['ms_per_event']:.5f} ms an event; {cap_count} events with no window "
+        f"{rec['cap_ms']:.4f} ms ({rec['cap_ms_per_event'] * 1e3:.3f} us an event); latency "
+        f"bound {rec['latency_bound_ms_per_event'] * 1e3:.3f} us an event ({EVENT_ROUND_TRIPS} "
+        f"L2 round trips of {l2_ns:.1f} ns, {EVENT_BARRIERS} barriers of {barrier_ns:.1f} ns); "
+        f"plain host loop {rec['plain_ms']:.3f} ms ({rec['plain_ms_per_event']:.4f} ms an "
+        f"event); bytes bound {rec['bound_ms']:.6f} ms for {bytes_} bytes")
     return rec
 
 
@@ -2848,8 +2963,11 @@ def ensemble_kernel_checks(geom, params, states):
     events = [int(g[1]) for g in res_g]
     bytes_ = sum(event_loop_bytes(n, block_sums.shape[1], M, prob.element_size())
                  for n in events)
+    # the replicas' chains run side by side, a block each: the longest bounds
+    l2_ns, barrier_ns = latencies()
     rec = dict(max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, ms_singles=ms_singles,
                plain_ms=statistics.median(plain), bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3,
+               latency_bound_ms=event_latency_bound_ms(max(events), l2_ns, barrier_ns),
                bound_by="bytes", library_ms=None, events=events,
                shape=f"{B} x [{prob.shape[1]}x{M} f32 table, {block_sums.shape[1]} blocks of "
                      f"sums], events {events}")
@@ -2857,7 +2975,8 @@ def ensemble_kernel_checks(geom, params, states):
     log(f"kmc_event_loop_batched [{rec['shape']}]: events, elements, charges and keys equal "
         f"to its plain version (step_time max {max_rel:.3e} relative) and bit-equal to {B} "
         f"single launches; {ms:.4f} ms a launch ({B} single launches {ms_singles:.4f} ms, "
-        f"plain host loop {rec['plain_ms']:.2f} ms; bytes bound {rec['bound_ms']:.6f} ms)")
+        f"plain host loop {rec['plain_ms']:.2f} ms; bytes bound {rec['bound_ms']:.6f} ms, "
+        f"latency bound {rec['latency_bound_ms']:.6f} ms)")
     return records
 
 
@@ -3173,7 +3292,7 @@ def boundary_cg_path(sim, cg_launches):
     tol = params.solver_tol
 
     ref = cg_solve_batched(matvec, b, x0, pre, tol=tol, maxiter=CG_MAXITER, active=active)
-    ws = bcg.workspace(1, geom.N, b.dtype, "cuda")
+    ws = bcg.workspace(1, geom.neigh_idx, interior, b.dtype, "cuda")
     solve = Graph(lambda: bcg.cg_solve_device(op, b, x0, pre, tol, CG_MAXITER, active, ws),
                   "cuda")
     res = solve()
@@ -3193,7 +3312,7 @@ def boundary_cg_path(sim, cg_launches):
 
     # each kernel alone, on a workspace that never stops (threshold 0)
     def fresh():
-        w = bcg.workspace(1, geom.N, b.dtype, "cuda")
+        w = bcg.workspace(1, geom.neigh_idx, interior, b.dtype, "cuda")
         bcg.cg_setup(op, b, x0, pre, 0.0, CG_MAXITER, active, w)
         return w
 
@@ -3212,7 +3331,12 @@ def boundary_cg_path(sim, cg_launches):
     }
     N, M = geom.N, geom.max_nn
     vec = 8 * N
-    nbytes = {"cg_matvec_dot": 8 * N * M + 4 * N * M + 3 * vec + N,
+    # the operator's interior-to-interior nonzeros (value and index each), the
+    # interior rows' diagonal, p, ap and the row lengths
+    nb = geom.neigh_idx.long()
+    keep = (nb >= 0) & interior[:, None] & interior[nb.clamp(min=0)]
+    nnz, n_int = int(keep.sum()), int(interior.sum())
+    nbytes = {"cg_matvec_dot": 12 * nnz + 8 * n_int + 2 * vec + 4 * N,
               "cg_update": 8 * vec, "cg_direction": 3 * vec}
     w0 = fresh()
     for _ in range(3):      # a few iterations in, as inside a solve
@@ -3236,9 +3360,7 @@ def boundary_cg_path(sim, cg_launches):
         check(err <= 1e-12 * max(1.0, float(getattr(wp, fields[0]).abs().max())),
               f"{name}: {err:.3e} from its plain version")
     # the operator as one CSR matrix: the library's sparse product
-    nb = geom.neigh_idx.long()
     rows = torch.arange(N, device="cuda")
-    keep = (nb >= 0) & interior[:, None] & interior[nb.clamp(min=0)]
     r_idx = torch.cat([rows[interior], rows[:, None].expand(N, M)[keep]])
     c_idx = torch.cat([rows[interior], nb[keep]])
     v = torch.cat([diag[0][interior], vals[0][keep]])
@@ -3249,12 +3371,19 @@ def boundary_cg_path(sim, cg_launches):
     lib_err = float((torch.sparse.mm(csr, p)[:, 0] - bcg.apply_operator(op, w0.p)[0])
                     .abs().max())
     check(lib_err <= 1e-9 * float(w0.ap.abs().max() + 1), f"CSR operator: {lib_err:.3e} off")
-    out["cg_matvec_dot"]["library_ms"] = time_ms(lambda: torch.sparse.mm(csr, p))
+    library = lambda: torch.sparse.mm(csr, p)
+    out["cg_matvec_dot"]["library_ms"] = time_ms(library)
     out["cg_update"]["library_ms"] = out["cg_direction"]["library_ms"] = None
+    wc = clone(w0)
+    out["cg_matvec_dot"].update(
+        ms_cold=time_ms_cold(lambda: bcg.cg_matvec_dot(wc, op)),
+        library_ms_cold=time_ms_cold(library), nnz=nnz,
+        bound_note="the operator's interior-to-interior nonzeros (8 + 4 bytes each), the "
+                   "interior rows' diagonal, p, ap and the row lengths, each once")
 
     # what a captured superstep adds where no replica solves
     none = torch.zeros(1, dtype=torch.bool, device="cuda")
-    wa = bcg.workspace(1, geom.N, b.dtype, "cuda")
+    wa = bcg.workspace(1, geom.neigh_idx, interior, b.dtype, "cuda")
 
     def assembly():
         eg = pot._edge_conductance_boundary(geom, states, params)
@@ -3276,6 +3405,10 @@ def boundary_cg_path(sim, cg_launches):
             f"{100 * r['bound_ms'] / r['ms']:.0f} %), plain {r['plain_ms'] * 1e3:.2f} us"
             + (f", torch.sparse.mm {r['library_ms'] * 1e3:.2f} us" if r["library_ms"] else "")
             + f"; max abs error {r['max_abs_err']:.3e}")
+    mv = out["cg_matvec_dot"]
+    log(f"  cg_matvec_dot: {nnz} interior nonzeros off the diagonal, bound "
+        f"{mv['bound_ms'] * 1e3:.2f} us; with a cold L2 {mv['ms_cold'] * 1e3:.2f} us "
+        f"(torch.sparse.mm {mv['library_ms_cold'] * 1e3:.2f} us)")
     log(f"a captured superstep's boundary work where no replica solves (assembly, CG setup, "
         f"residual), as a graph: {assembly_ms:.4f} ms; phase 11 in "
         f"{time.perf_counter() - t_phase:.1f} s")
@@ -3302,7 +3435,9 @@ def main():
     t_start = time.perf_counter()
     libs = ["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window", "kmc_events",
             "graph", "boundary_cg"]
+    latency_job = start_latency_build()
     _build.build(libs)
+    finish_latency_build(latency_job)
     log(f"built kernels in {time.perf_counter() - t_start:.1f} s")
     for name in libs:
         regs = [l.strip() for l in _build.build_log(name).splitlines() if "registers" in l]

@@ -21,16 +21,28 @@
 //                   -> beta, the new stop flags, the loop's predicate
 //   cg_direction    p = z + beta p
 //
-// Bound: bytes.  An iteration reads the [B, N, M] values (8 bytes each in
-// f64) and the [N, M] indices once, and about ten [B, N] vectors; 51 values a
-// row on the headline crossbar make the values two thirds of it.  Design:
+// Bound: bytes.  An iteration needs the operator's nonzeros (8 + 4 bytes
+// each in f64; 27.4 a row of the headline crossbar, 51 at most), the
+// diagonal, p, ap and the row lengths once, and about ten [B, N] vectors.
+// Design:
 //
-//   * the matvec runs four rows a warp, lanes on consecutive slots, so the
-//     loads of a row's values and indices are whole 128-byte lines; a warp
-//     issues the index and value loads of its four rows, then their gathers
-//     of p (through L2: 0.87 MB a replica on the crossbar), so that eight
-//     loads a lane are in flight; blocks of 32 rows (3,405 a replica on the
-//     crossbar) keep enough warps resident to cover the rest;
+//   * the matvec reads only what the product needs: rows are left-packed
+//     (pad -1 after the valid slots, state.Geometry), so a row's nonzeros
+//     are the prefix of row_len[i] slots (ops/boundary_cg.row_lengths,
+//     made once with the workspace); a contact row (row_len -1) loads no
+//     value and no index, and no lane issues a load past a prefix;
+//   * a group of 16 lanes a row, two rows a warp: lane g of a group takes
+//     slots g, g + 16, g + 32, g + 48 (consecutive lanes on consecutive slots,
+//     so a group's loads are whole 32-byte sectors but at the prefix's ends),
+//     all four of a pass issued before their gathers of p, which go through
+//     the read-only path (site_order "x" keeps a row's neighbours close in
+//     index); 528 blocks (four an SM) walk the groups of 16 rows, each
+//     reading the next group's row lengths before this group's loads.  A
+//     probe of 4-32 lanes a row, 2-8 slots a lane, one or two groups in
+//     flight and 528 to 13,618 blocks (tools/probe_cg_events.py --variants,
+//     on an H100 80GB HBM3 at 700 W) put every form at 0.033 ms or more at
+//     the crossbar's system, this one the fastest; the prefixes' values
+//     alone take 0.021-0.024 ms of it;
 //   * every reduction is a fixed tree: a butterfly in the warp, warps in
 //     order, blocks' partial sums in slots of their own that the block which
 //     draws a replica's last ticket (csrc/ticket.cuh) adds in a fixed order
@@ -52,7 +64,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 4;  // rows a warp of cg_matvec_dot (its grid: N / 32 blocks)
+// cg_matvec_dot: a group of kRowLanes lanes a row, kRowsPerWarp rows a warp,
+// kMatvecRows rows a block at a time, kSlots slots a lane in one pass over a
+// row (64 slots: one pass for max_nn up to 64)
+constexpr int kRowLanes = 16;
+constexpr int kRowsPerWarp = 32 / kRowLanes;
+constexpr int kMatvecRows = kWarps * kRowsPerWarp;
+constexpr int kSlots = 4;
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -83,7 +101,7 @@ __device__ __forceinline__ T sum_partials(const T* part, int count, int stride, 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 cg_matvec_dot_kernel(const T* __restrict__ diag, const T* __restrict__ vals,
-                     const int* __restrict__ nb, const bool* __restrict__ interior,
+                     const int* __restrict__ nb, const int* __restrict__ row_len,
                      const T* __restrict__ p, T* __restrict__ ap,
                      const unsigned char* __restrict__ act, const T* __restrict__ rz,
                      T* __restrict__ alpha, T* __restrict__ part, int* __restrict__ tickets,
@@ -92,57 +110,62 @@ cg_matvec_dot_kernel(const T* __restrict__ diag, const T* __restrict__ vals,
   if (!act[b]) return;
   const int grid = gridDim.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gl = lane % kRowLanes;  // this lane's place in its row's group
+  const int n_groups = (n + kMatvecRows - 1) / kMatvecRows;
   const T* pb = p + (size_t)b * n;
-  const T* vb = vals + (size_t)b * n * m;
   const T* db = diag + (size_t)b * n;
+  const T* vb = vals + (size_t)b * n * m;
   T* apb = ap + (size_t)b * n;
-  // the warp's rows: lanes on slots k = lane and lane + 32, the loads of all
-  // its rows issued before the first product; every lane ends with each
-  // row's sum (butterflies), lane q finishes row q
-  const int row0 = (blockIdx.x * kWarps + warp) * kRowsPerWarp;
-  T s[kRowsPerWarp];
-  if (m <= 64) {
-    int j[kRowsPerWarp][2];
-    T v[kRowsPerWarp][2];
+  // the block's groups of kMatvecRows rows: blockIdx.x, + grid, ...; a row's
+  // valid prefix (-1: a contact row, or past the last row, which loads
+  // nothing and gives 0), the next group's read before this one's loads
+  auto row_of = [&](int g) { return g * kMatvecRows + warp * kRowsPerWarp + lane / kRowLanes; };
+  auto len_of = [&](int g) {
+    const int row = row_of(g);
+    return g < n_groups && row < n ? __ldg(row_len + row) : -1;
+  };
+  int g = blockIdx.x;
+  int len = len_of(g);
+  T py = 0;  // the group's first lane: p_i y_i of its rows, in group order
+  for (; g < n_groups; g += grid) {
+    const int row = row_of(g);
+    const int len_next = len_of(g + grid);
+    T d = 0, pr = 0;
+    if (gl == 0 && len >= 0) {
+      d = __ldg(db + row);
+      pr = __ldg(pb + row);
+    }
+    // lane gl takes slots gl, gl + kRowLanes, ... of the prefix, kSlots of
+    // them a pass: the index and value loads of a pass all issued before its
+    // gathers of p, no load past the prefix; the products added in slot order
+    const size_t e0 = (size_t)row * m;
+    T s = 0;
+    for (int base = 0; base < len; base += kRowLanes * kSlots) {
+      int j[kSlots];
+      T v[kSlots];
 #pragma unroll
-    for (int q = 0; q < kRowsPerWarp; ++q)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = lane + 32 * h;
-        const bool ok = row0 + q < n && k < m;
-        const size_t e = (size_t)(row0 + q) * m + k;
-        j[q][h] = ok ? __ldcs(nb + e) : 0;
-        v[q][h] = ok ? __ldcs(vb + e) : T(0);
+      for (int k = 0; k < kSlots; ++k) {
+        const int e = base + gl + kRowLanes * k;
+        j[k] = e < len ? __ldg(nb + e0 + e) : -1;
+        v[k] = e < len ? __ldg(vb + e0 + e) : T(0);
       }
 #pragma unroll
-    for (int q = 0; q < kRowsPerWarp; ++q)
-      s[q] = v[q][0] * pb[j[q][0] < 0 ? 0 : j[q][0]] + v[q][1] * pb[j[q][1] < 0 ? 0 : j[q][1]];
-  } else {
-#pragma unroll
-    for (int q = 0; q < kRowsPerWarp; ++q) {
-      s[q] = 0;
-      if (row0 + q < n)
-        for (int k = lane; k < m; k += 32) {
-          const int jk = __ldcs(nb + (size_t)(row0 + q) * m + k);
-          s[q] += __ldcs(vb + (size_t)(row0 + q) * m + k) * pb[jk < 0 ? 0 : jk];
-        }
+      for (int k = 0; k < kSlots; ++k)
+        if (j[k] >= 0) s += v[k] * __ldg(pb + j[k]);
     }
-  }
+    // the group's sum, a butterfly over its kRowLanes lanes
 #pragma unroll
-  for (int q = 0; q < kRowsPerWarp; ++q) s[q] = warp_sum(s[q]);
-  T py = 0;  // lane q: p_i y_i of row q
-#pragma unroll
-  for (int q = 0; q < kRowsPerWarp; ++q) {
-    const int row = row0 + q;
-    if (lane == q && row < n) {
-      const T y = interior[row] ? db[row] * pb[row] + s[q] : T(0);
+    for (int o = kRowLanes / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (gl == 0 && row < n) {
+      const T y = len >= 0 ? d * pr + s : T(0);
       apb[row] = y;
-      py = pb[row] * y;
+      py += pr * y;
     }
+    len = len_next;
   }
   T acc = 0;  // lane 0: p.ap over this warp's rows, in row order
 #pragma unroll
-  for (int q = 0; q < kRowsPerWarp; ++q) acc += __shfl_sync(0xffffffffu, py, q);
+  for (int q = 0; q < kRowsPerWarp; ++q) acc += __shfl_sync(0xffffffffu, py, q * kRowLanes);
   __shared__ T s_part[kWarps];
   __shared__ int s_flag;
   if (lane == 0) s_part[warp] = acc;
@@ -253,25 +276,25 @@ bool bad_shape(int n, int m, int batch, int grid) {
 }  // namespace
 
 extern "C" int dkmc_cg_matvec_dot(int is_f64, const void* diag, const void* vals,
-                                  const void* nb, const void* interior, const void* p, void* ap,
+                                  const void* nb, const void* row_len, const void* p, void* ap,
                                   const void* act, const void* rz, void* alpha, void* part,
                                   void* tickets, int n, int m, int batch, int grid,
                                   void* stream) {
   if (bad_shape(n, m, batch, grid)) return (int)cudaErrorInvalidValue;
   const dim3 g(grid, batch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* in = static_cast<const bool*>(interior);
+  const auto* len = static_cast<const int*>(row_len);
   const auto* a = static_cast<const unsigned char*>(act);
   const auto* ix = static_cast<const int*>(nb);
   if (is_f64)
     cg_matvec_dot_kernel<double><<<g, kThreads, 0, st>>>(
-        static_cast<const double*>(diag), static_cast<const double*>(vals), ix, in,
+        static_cast<const double*>(diag), static_cast<const double*>(vals), ix, len,
         static_cast<const double*>(p), static_cast<double*>(ap), a,
         static_cast<const double*>(rz), static_cast<double*>(alpha),
         static_cast<double*>(part), static_cast<int*>(tickets), n, m);
   else
     cg_matvec_dot_kernel<float><<<g, kThreads, 0, st>>>(
-        static_cast<const float*>(diag), static_cast<const float*>(vals), ix, in,
+        static_cast<const float*>(diag), static_cast<const float*>(vals), ix, len,
         static_cast<const float*>(p), static_cast<float*>(ap), a,
         static_cast<const float*>(rz), static_cast<float*>(alpha),
         static_cast<float*>(part), static_cast<int*>(tickets), n, m);

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Callable, Tuple
+from typing import Tuple
 
 import torch
 
@@ -40,8 +40,12 @@ THREADS = 256
 #: multiprocessor of an H100, so that a replica's reduction order depends on
 #: N alone
 MAX_GRID = 4 * _build.H100_SMS
-#: rows a block of cg_matvec_dot: a warp a row, four rows a warp
-MATVEC_ROWS = 32
+#: rows a group of cg_matvec_dot, what a block takes at a time: 16 lanes a
+#: row, two rows a warp
+MATVEC_ROWS = 16
+#: blocks a replica of cg_matvec_dot at most, each taking every
+#: MATVEC_GRID-th group: four a streaming multiprocessor of an H100
+MATVEC_GRID = 4 * _build.H100_SMS
 
 
 def grid_size(n: int) -> int:
@@ -51,7 +55,7 @@ def grid_size(n: int) -> int:
 
 def matvec_grid_size(n: int) -> int:
     """Blocks a replica of cg_matvec_dot for ``n`` rows."""
-    return max(1, -(-n // MATVEC_ROWS))
+    return max(1, min(-(-n // MATVEC_ROWS), MATVEC_GRID))
 
 
 @dataclass
@@ -64,9 +68,11 @@ class Workspace:
     ``iters``; ``ctl`` int32 [iterations run, replicas iterating], ``cond``
     the loop's int32 [1] predicate, ``total`` the iterations run since it
     was last set to 0 (int64 [1]); ``part`` the blocks' partial sums,
-    ``tickets`` their int32 tickets (zero between launches); the grids a
-    replica of cg_update and cg_direction (``grid``) and cg_matvec_dot
-    (``grid_mv``)."""
+    ``tickets`` their int32 tickets (zero between launches); ``row_len``
+    the operator's valid prefix a row, -1 on contact rows (int32 [N],
+    :func:`row_lengths`: the structure cg_matvec_dot reads on the card); the
+    grids a replica of cg_update and cg_direction (``grid``) and
+    cg_matvec_dot (``grid_mv``)."""
     x: torch.Tensor
     r: torch.Tensor
     z: torch.Tensor
@@ -86,13 +92,30 @@ class Workspace:
     total: torch.Tensor
     part: torch.Tensor
     tickets: torch.Tensor
+    row_len: torch.Tensor
     grid: int
     grid_mv: int
 
 
-def workspace(batch: int, n: int, dtype, device) -> Workspace:
-    """The buffers of a solve of ``batch`` systems of ``n`` rows."""
+def row_lengths(neigh_idx: torch.Tensor, interior: torch.Tensor) -> torch.Tensor:
+    """The valid prefix of each row of the operator's neighbour list
+    ``neigh_idx`` [N, M] (pad -1), its count of valid slots on interior rows
+    and -1 on contact rows (int32 [N]): what cg_matvec_dot reads of a row.
+    Raises unless every row is left-packed (its valid slots first, as the
+    neighbour list is built)."""
+    valid = neigh_idx >= 0
+    if bool((valid[:, 1:] & ~valid[:, :-1]).any()):
+        raise ValueError("row_lengths: a row of the neighbour list is not left-packed")
+    return torch.where(interior, valid.sum(-1), -1).to(torch.int32)
+
+
+def workspace(batch: int, neigh_idx: torch.Tensor, interior: torch.Tensor, dtype,
+              device) -> Workspace:
+    """The buffers of a solve of ``batch`` systems over the operator whose
+    structure is ``neigh_idx`` [N, M] and ``interior`` [N] (the last two of
+    :func:`apply_operator`'s ``op``), with its :func:`row_lengths`."""
     dev = torch.device(device)
+    n = interior.shape[0]
     grid, grid_mv = grid_size(n), matvec_grid_size(n)
 
     def vec(*shape):
@@ -110,7 +133,8 @@ def workspace(batch: int, n: int, dtype, device) -> Workspace:
         total=torch.zeros(1, dtype=torch.int64, device=dev),
         part=vec(batch * max(2 * grid, grid_mv)),
         tickets=torch.zeros(batch + 1, dtype=torch.int32, device=dev),
-        grid=grid, grid_mv=grid_mv)
+        row_len=row_lengths(neigh_idx, interior).to(dev).contiguous(), grid=grid,
+        grid_mv=grid_mv)
 
 
 def device_iterations(ws: Workspace) -> int:
@@ -177,14 +201,16 @@ def cg_matvec_dot_plain(ws: Workspace, op) -> None:
 
 def cg_matvec_dot(ws: Workspace, op, stream=None) -> None:
     """``ws.ap = A ws.p`` and ``ws.alpha = ws.rz / (p.ap)`` of each iterating
-    replica (:func:`apply_operator`'s ``op``), on ``stream``."""
+    replica (:func:`apply_operator`'s ``op``; on the card the interior rows
+    and their prefixes are ``ws.row_len``'s, made by :func:`workspace` from
+    ``op``'s structure), on ``stream``."""
     if ws.x.device.type == "cpu":
         return cg_matvec_dot_plain(ws, op)
     B, n = _check_ws("cg_matvec_dot", ws, op)
-    diag, vals, neigh_idx, interior = op
+    diag, vals, neigh_idx, _ = op
     _launched("cg_matvec_dot", _fn("dkmc_cg_matvec_dot")(
         int(ws.x.dtype == torch.float64), diag.data_ptr(), vals.data_ptr(),
-        neigh_idx.data_ptr(), interior.data_ptr(), ws.p.data_ptr(), ws.ap.data_ptr(),
+        neigh_idx.data_ptr(), ws.row_len.data_ptr(), ws.p.data_ptr(), ws.ap.data_ptr(),
         ws.act.data_ptr(), ws.rz.data_ptr(), ws.alpha.data_ptr(), ws.part.data_ptr(),
         ws.tickets.data_ptr(), n, neigh_idx.shape[1], B, ws.grid_mv, _stream(ws, stream)))
     cg_matvec_dot.launches += 1

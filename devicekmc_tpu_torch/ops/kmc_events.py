@@ -49,6 +49,20 @@ BLOCK = 128
 #: list bounds the rows a table may have
 MAX_SHARED_BYTES = 227 * 1024
 
+
+def shared_bytes(n_blocks: int, m: int) -> int:
+    """The kernel's shared memory: the block sums (f64), the touched rows
+    (int32), a bit a block."""
+    return 8 * n_blocks + 4 * (2 * m + 2) + 4 * -(-n_blocks // 32)
+
+
+def _check_table(name, n_blocks, m):
+    smem = shared_bytes(n_blocks, m)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: {n_blocks} blocks of sums need {smem} bytes of shared "
+                         f"memory, more than {MAX_SHARED_BYTES}")
+
+
 # event type codes (reference: src/utils.h:53-60)
 VACANCY_GENERATION = 0
 VACANCY_RECOMBINATION = 1
@@ -249,10 +263,7 @@ def kmc_event_loop(prob, row_sums, block_sums, aidx, inv, neigh_idx, rev_slot,
         ("rev_slot", rev_slot, torch.int32, (element.shape[0], m)),
         ("element", element, torch.int32, (element.shape[0],)),
         ("charge", charge, torch.int32, (element.shape[0],))))
-    smem = 8 * n_blocks + 4 * (2 * m + 2)  # the block sums, the touched rows
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"kmc_event_loop: {n_blocks} blocks of sums need {smem} bytes "
-                         f"of shared memory, more than {MAX_SHARED_BYTES}")
+    _check_table("kmc_event_loop", n_blocks, m)
     element = element.clone()
     charge = charge.clone()
     out = torch.empty(4, dtype=torch.float64, device=dev)
@@ -332,10 +343,7 @@ def kmc_event_loop_batched(prob, row_sums, block_sums, aidx, inv, neigh_idx, rev
         ("element", element, torch.int32, (B, N)),
         ("charge", charge, torch.int32, (B, N)),
         ("keys", keys, torch.uint32, (B, 2))))
-    smem = 8 * n_blocks + 4 * (2 * m + 2)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"kmc_event_loop_batched: {n_blocks} blocks of sums need {smem} "
-                         f"bytes of shared memory, more than {MAX_SHARED_BYTES}")
+    _check_table("kmc_event_loop_batched", n_blocks, m)
     element = element.clone()
     charge = charge.clone()
     keys = keys.clone()

@@ -263,9 +263,12 @@ def multi_superstep_impl(
     holds 0.
 
     The batch is a host loop over supersteps: each still reads a few
-    scalars, so the loop leaves once a step is a no-op, with the results of
-    the JAX package's no-ops.  All the batch's tensor metrics are read back
-    in one transfer at the end."""
+    scalars, so the loop leaves once a step is a no-op.  The state and the
+    step times are those of the JAX package; a no-op step's metric row is
+    0, where the JAX package's holds the metrics of the superstep it
+    computed from the frozen state and selected away (its ``n_events`` may
+    be nonzero), as the per-step driver would have no such step.  All the
+    batch's tensor metrics are read back in one transfer at the end."""
     step_times = np.zeros(n_steps)
     active = np.zeros(n_steps, dtype=bool)
     rows = []
@@ -468,7 +471,8 @@ class SuperstepGraph:
         self.geom, self.params, self.batch = geom, params, batch
         self.device = geom.device
         self.slots: Optional[List[SimState]] = None
-        self.ws = boundary_cg.workspace(batch, geom.N, params.dtype, self.device)
+        self.ws = boundary_cg.workspace(batch, geom.neigh_idx, geom.bp_interior_mask,
+                                        params.dtype, self.device)
         cols = HOST_COLS
         self._hin = torch.zeros(batch * cols + 3, dtype=torch.float64, device=self.device)
         self.hin = self._hin[:batch * cols].view(batch, cols)

@@ -136,6 +136,37 @@ def test_multi_superstep_limit(sim):
     np.testing.assert_array_equal(ms["n_events"][:2], ms2["n_events"])
 
 
+def test_multi_superstep_limit_rows_against_jax(sim):
+    """``limit`` = 2 of K = 5 in both packages: the same two steps active,
+    the same state and the same rows for them; the port's three no-op rows
+    are 0 in every metric, where the JAX package's still hold the metrics
+    of the superstep it computed from the frozen state and selected away
+    (its ``n_events`` nonzero: a known fault of the JAX package, not
+    copied)."""
+    import jax
+    import jax.numpy as jnp
+
+    from devicekmc_tpu.superstep import multi_superstep_impl as jmulti
+    from devicekmc_tpu_torch.superstep import multi_superstep_impl as tmulti
+
+    (jg, jp, jh, js), (tg, tp, th, ts) = sim
+    inf = float("inf")
+    jst, jdts, jms = jax.jit(partial(jmulti, n_steps=K))(
+        jg, jp, jh, js, VD, jnp.asarray(inf), jnp.asarray(inf),
+        limit=jnp.asarray(2, dtype=jnp.int32))
+    tst, tdts, tms = tmulti(tg, tp, ts, VD, inf, inf, K, heat=th, limit=2)
+    active = np.asarray(jms["active"])
+    assert active.tolist() == [True, True, False, False, False]
+    np.testing.assert_array_equal(tms["active"], active)
+    np.testing.assert_array_equal(tst.element.numpy(), np.asarray(jst.element))
+    np.testing.assert_array_equal(tms["n_events"][:2], np.asarray(jms["n_events"])[:2])
+    assert not tdts[2:].any() and not np.asarray(jdts)[2:].any()
+    for key, rows in tms.items():
+        if key != "active":
+            assert not np.asarray(rows)[2:].any(), key
+    assert (np.asarray(jms["n_events"])[2:] > 0).all()
+
+
 DRIVER = dict(V_switch=[2.0], t_switch=[1e30], log_freq=2)
 STEPS = 8
 

@@ -665,6 +665,38 @@ def _assert_same_superstep(got, ref, rel):
     assert got.step_time == pytest.approx(ref.step_time, rel=rel)
 
 
+def _straddle_tables(geom, prob, seed=0, lo=112, hi=144):
+    """A full table (a row a site) whose only rates, seeded and positive on
+    every valid slot, are on the rows [lo, hi) around the first block
+    boundary (row 128), so that every event's touched rows straddle it;
+    and its f64 row and block sums.  ``prob`` [n_rows, m] or [B, n_rows, m]
+    gives the shape and dtype."""
+    from devicekmc_tpu_torch.ops.kmc_events import BLOCK
+
+    n_rows = prob.shape[-2]
+    assert n_rows > BLOCK and ((geom.neigh_idx[lo:hi] >= 0) & (geom.neigh_idx[lo:hi] < BLOCK)
+                               ).any() and (geom.neigh_idx[lo:hi] >= BLOCK).any()
+    rng = np.random.default_rng(seed)
+    rates = torch.as_tensor(rng.uniform(0.5, 1.5, tuple(prob.shape)), device=prob.device)
+    rows = torch.arange(n_rows, device=prob.device)
+    keep = ((rows >= lo) & (rows < hi))[:, None] & (geom.neigh_idx >= 0)
+    prob = torch.where(keep, rates, 0.0).to(prob.dtype).contiguous()
+    n_blocks = -(-n_rows // BLOCK)
+    row_sums = torch.zeros((*prob.shape[:-2], n_blocks * BLOCK), dtype=torch.float64,
+                           device=prob.device)
+    row_sums[..., :n_rows] = prob.double().sum(-1)
+    return prob, row_sums, row_sums.view(*row_sums.shape[:-1], n_blocks, BLOCK).sum(-1)
+
+
+def _same_loop(got, ref, rel):
+    """Two results of the single event loop: elements, charges, count and
+    key equal, the time within rel (or both inf)."""
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(got[2][1:], ref[2][1:])
+    t, t_ref = float(got[2][0]), float(ref[2][0])
+    assert t == t_ref or t == pytest.approx(t_ref, rel=rel)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision,rel", [("f64", 1e-9), ("mixed", 2.4e-7)])
 @pytest.mark.parametrize("cap", [0, 128])
@@ -694,6 +726,22 @@ def test_cuda_event_loop_matches_plain(precision, rel, cap):
         state = got.state
         elem0 = state.element.clone()
     assert total > 10
+    if cap:
+        return
+    # events whose touched rows straddle the first block boundary, at the
+    # event caps 1 and 5 and to the end of the table's rates
+    from devicekmc_tpu_torch.physics.events import incremental_tables
+
+    prob, _, _, aidx, inv, _ = incremental_tables(geom, params, state)
+    prob, row_sums, block_sums = _straddle_tables(geom, prob)
+    for max_events in (1, 5, 10000):
+        args = (aidx, inv, geom.neigh_idx, geom.rev_slot, state.element, state.charge,
+                state.key, float("inf"), max_events, params.dtype)
+        got = kmc_event_loop(prob.clone(), row_sums.clone(), block_sums.clone(), *args)
+        ref = kmc_event_loop_plain(prob.clone(), row_sums.clone(), block_sums.clone(), *args)
+        _same_loop(got, ref, rel)
+        count = int(got[2][1])
+        assert count == max_events if max_events < 10000 else count > 5
 
 
 @pytest.mark.cuda
@@ -800,6 +848,78 @@ def test_cuda_event_loop_large_table(dtype):
     assert torch.equal(e_k, e_p) and torch.equal(q_k, q_p)
     assert (e_k.cpu().numpy() != elem).any()
     assert t_k == pytest.approx(t_p, rel=1e-9 if dtype == torch.float64 else 2.4e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_event_loop_wide_rows(dtype):
+    """Rows of more than the 128 slots the kernel holds in registers: a
+    seeded random symmetric graph of 400 sites with 100 to some 160
+    neighbours a site (left-packed, ascending, with its reverse slots),
+    random rates and elements.  At the event caps 1, 5 and 40 the single
+    loop equals the plain loop (key, elements, charges, count; the time
+    within the table type's rounding), and the batched entry (two replicas,
+    their own keys and elements) each replica's single launch and the plain
+    batched loop."""
+    _need_card()
+    from devicekmc_tpu_torch import rng
+    from devicekmc_tpu_torch.ops.kmc_events import (
+        BLOCK, kmc_event_loop, kmc_event_loop_batched, kmc_event_loop_batched_plain,
+        kmc_event_loop_plain,
+    )
+
+    N = 400
+    gen = np.random.default_rng(5)
+    adj = np.triu(gen.random((N, N)) < 0.34, 1)
+    adj |= adj.T
+    deg = adj.sum(1)
+    m = int(deg.max())
+    assert m > 128 + 16 and int(deg.min()) < 128
+    nb = np.full((N, m), -1, dtype=np.int64)
+    for i in range(N):
+        nb[i, :deg[i]] = np.flatnonzero(adj[i])
+    slot_of = {(i, int(j)): k for i in range(N) for k, j in enumerate(nb[i, :deg[i]])}
+    rev = np.array([[slot_of[(int(j), i)] if j >= 0 else -1 for j in nb[i]]
+                    for i in range(N)])
+    elem = gen.integers(0, 4, (2, N))
+    charge = np.where(elem == 2, 2, np.where(elem == 1, -2, 0))
+    rates = gen.random((N, m)) * (gen.random((N, m)) < 0.6) * (nb >= 0)
+    cuda = lambda a, dt=torch.int32: torch.as_tensor(a, device="cuda").to(dt).contiguous()
+    nb_t, rev_t = cuda(nb), cuda(rev)
+    prob = cuda(rates, dtype)
+    n_blocks = -(-N // BLOCK)
+    row_sums = torch.nn.functional.pad(prob.double().sum(dim=1), (0, n_blocks * BLOCK - N))
+    block_sums = row_sums.reshape(n_blocks, BLOCK).sum(dim=1)
+    aidx = torch.arange(N, dtype=torch.int32, device="cuda")
+    keys = [rng.prng_key(21), rng.prng_key(22)]
+    rel = 1e-9 if dtype == torch.float64 else 2.4e-7
+    for max_events in (1, 5, 40):
+        singles = []
+        for b in range(2):
+            args = (aidx, aidx, nb_t, rev_t, cuda(elem[b]), cuda(charge[b]), keys[b], 1e30,
+                    max_events, torch.float64)
+            got = kmc_event_loop(prob.clone(), row_sums.clone(), block_sums.clone(), *args)
+            ref = kmc_event_loop_plain(prob.clone(), row_sums.clone(), block_sums.clone(),
+                                       *args)
+            _same_loop(got, ref, rel)
+            assert int(got[2][1]) == max_events
+            singles.append(got)
+        stack = lambda t: torch.stack([t, t]).contiguous()
+        bargs = (aidx, aidx, nb_t, rev_t, cuda(elem), cuda(charge),
+                 cuda(np.array(keys, dtype=np.int64), torch.int64).to(torch.uint32), 1e30,
+                 max_events, torch.float64)
+        got = kmc_event_loop_batched(stack(prob), stack(row_sums), stack(block_sums), *bargs)
+        ref = kmc_event_loop_batched_plain(stack(prob), stack(row_sums), stack(block_sums),
+                                           *bargs)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert torch.equal(got[2], ref[2]) and torch.equal(got[3][:, 1:], ref[3][:, 1:])
+        np.testing.assert_allclose(got[3][:, 0].cpu().numpy(), ref[3][:, 0].cpu().numpy(),
+                                   rtol=rel)
+        for b, (e, q, r) in enumerate(singles):
+            assert torch.equal(got[0][b], e) and torch.equal(got[1][b], q)
+            assert torch.equal(got[3][b], r)
+    assert (singles[0][0].cpu().numpy() != elem[0]).any()
 
 
 @pytest.mark.cuda
@@ -1028,6 +1148,32 @@ def test_cuda_event_loop_batched(precision, rel, cap):
     np.testing.assert_allclose(got[3][:, 0].cpu().numpy(), ref[3][:, 0].cpu().numpy(),
                                rtol=rel)
     assert (got[3][:, 1] > 0).all() and not torch.equal(got[0][0], got[0][1])
+    if cap:
+        return
+    # events whose touched rows straddle the first block boundary, at the
+    # event caps 1 and 5: against the plain loop and each replica's launch
+    prob, row_sums, block_sums = _straddle_tables(geom, tabs[0])
+    for max_events in (1, 5):
+        tail = (float("inf"), max_events, params.dtype)
+        got = kmc_event_loop_batched(prob.clone(), row_sums.clone(), block_sums.clone(),
+                                     *tabs[3:5], *args, states.element, states.charge,
+                                     states.key, *tail)
+        ref = kmc_event_loop_batched_plain(prob.clone(), row_sums.clone(), block_sums.clone(),
+                                           *tabs[3:5], *args, states.element, states.charge,
+                                           states.key, *tail)
+        torch.cuda.synchronize()
+        assert got[3][:, 1].tolist() == [float(max_events)] * 4
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert torch.equal(got[2], ref[2]) and torch.equal(got[3][:, 1:], ref[3][:, 1:])
+        np.testing.assert_allclose(got[3][:, 0].cpu().numpy(), ref[3][:, 0].cpu().numpy(),
+                                   rtol=rel)
+        for b in range(4):
+            u = unbatch(states, b)
+            e, q, r = kmc_event_loop(prob[b].clone(), row_sums[b].clone(),
+                                     block_sums[b].clone(), *tabs[3:5], *args, u.element,
+                                     u.charge, u.key, *tail)
+            assert torch.equal(got[0][b], e) and torch.equal(got[1][b], q)
+            assert torch.equal(got[3][b], r)
 
 
 @pytest.mark.cuda
@@ -1093,6 +1239,47 @@ def _boundary_system(B, dtype, seed=4):
     return geom, b_sys, matvec, (diag, vals, geom.neigh_idx, geom.bp_interior_mask), pre, x0
 
 
+def _ragged_operator(B, m, dtype, seed=0):
+    """An operator in the layout of physics.potential._dirichlet_system with
+    rows of every length from 0 to ``m``, three rows of each, a fifth of them
+    contact rows: neighbours ascending and left-packed (pad -1), values
+    negative on interior neighbours and 0 on contact neighbours and pads;
+    the direction p 0 on contact sites, as a CG keeps it.  Returns
+    ``(op, p, rz)``."""
+    rng = np.random.default_rng(seed)
+    lens = np.repeat(np.arange(m + 1), 3)
+    rng.shuffle(lens)
+    N = lens.size
+    interior = rng.random(N) > 0.2
+    interior[np.argmax(lens == 0)] = True    # an interior row with no neighbour
+    nb = np.full((N, m), -1, dtype=np.int32)
+    for i, n_i in enumerate(lens):
+        nb[i, :n_i] = np.sort(rng.choice(np.delete(np.arange(N), i), n_i, replace=False))
+    keep = (nb >= 0) & interior[np.clip(nb, 0, None)]
+    vals = np.where(keep, -rng.uniform(0.1, 1.0, (B, N, m)), 0.0)
+    diag = rng.uniform(1.0, 2.0, (B, N)) * (m + 1)
+    p = np.where(interior, rng.standard_normal((B, N)), 0.0)
+    cuda = lambda a, dt=dtype: torch.as_tensor(a, device="cuda").to(dt).contiguous()
+    nb_t = cuda(nb, torch.int32)
+    interior_t = cuda(interior, torch.bool)
+    op = (cuda(diag), cuda(vals), nb_t, interior_t)
+    return op, cuda(p), cuda(rng.uniform(0.5, 1.5, B))
+
+
+def _matvec(op, p, rz, act):
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+
+    ws = bcg.workspace(p.shape[0], op[2], op[3], p.dtype, "cuda")
+    ws.p.copy_(p)
+    ws.rz.copy_(rz)
+    ws.act.copy_(torch.as_tensor(act, device="cuda"))
+    ws.ap.fill_(7.0)
+    ws.alpha.fill_(7.0)
+    bcg.cg_matvec_dot(ws, op)
+    torch.cuda.synchronize()
+    return ws
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
 def test_cuda_boundary_cg_kernels_match_plain(dtype, tol):
@@ -1100,16 +1287,40 @@ def test_cuda_boundary_cg_kernels_match_plain(dtype, tol):
     against cg_solve_batched (its plain version) on three replicas, one not
     solving: equal iteration counts, the iterate within tol of its scale,
     the inactive replica untouched, and the kernels' iterations counted on
-    the device."""
+    the device.  Then cg_matvec_dot alone on operators with rows of every
+    length from 0 to max_nn (51, 70 and 133: one, two and three passes of a
+    row's lanes) and contact rows, against its plain version (ap and alpha
+    within tol of their scale) at B = 1 and 3, a stopped replica untouched,
+    and each replica's bits at B = 3 those of its own launch at B = 1."""
     _need_card()
     from devicekmc_tpu_torch.ops import boundary_cg as bcg
+
+    for m in (51, 70, 133):
+        op, p, rz = _ragged_operator(3, m, dtype, seed=m)
+        got = _matvec(op, p, rz, [True, False, True])
+        ref = _matvec(op, p, rz, [True, True, True])
+        row_len = got.row_len
+        assert int(row_len.max()) == m and int(row_len.min()) == -1
+        assert bool(((row_len == 0) & op[3]).any())
+        bcg.cg_matvec_dot_plain(ref, op)
+        for b in (0, 2):
+            scale = float(ref.ap[b].abs().max())
+            assert float((got.ap[b] - ref.ap[b]).abs().max()) <= tol * scale, (m, b)
+            assert abs(float(got.alpha[b] - ref.alpha[b])) <= tol * abs(float(ref.alpha[b]))
+        assert bool((got.ap[1] == 7.0).all()) and float(got.alpha[1]) == 7.0
+        assert bool((got.ap[[0, 2]][:, ~op[3]] == 0).all())
+        for b in (0, 2):
+            one = _matvec(tuple(t[b:b + 1] if k < 2 else t for k, t in enumerate(op)),
+                          p[b:b + 1], rz[b:b + 1], [True])
+            assert torch.equal(one.ap[0], got.ap[b]) and torch.equal(one.alpha[0], got.alpha[b])
+
     from devicekmc_tpu_torch.ops.cg import cg_solve_batched
 
     geom, b, matvec, op, pre, x0 = _boundary_system(3, dtype)
     active = torch.tensor([True, False, True], device="cuda")
     ctol = 1e-10 if dtype == torch.float64 else 1e-5
     ref = cg_solve_batched(matvec, b, x0, pre, tol=ctol, maxiter=5000, active=active)
-    ws = bcg.workspace(3, geom.N, dtype, "cuda")
+    ws = bcg.workspace(3, geom.neigh_idx, geom.bp_interior_mask, dtype, "cuda")
     bcg.cg_setup(op, b, x0, pre, ctol, 5000, active, ws)
     stream = torch.cuda.current_stream().cuda_stream
     while int(ws.cond):
@@ -1135,7 +1346,7 @@ def _capture_solve(B, dtype, active, maxiter=5000):
     from devicekmc_tpu_torch.ops.graph import Graph
 
     geom, b, matvec, op, pre, x0 = _boundary_system(B, dtype)
-    ws = bcg.workspace(B, geom.N, dtype, "cuda")
+    ws = bcg.workspace(B, geom.neigh_idx, geom.bp_interior_mask, dtype, "cuda")
     g = Graph(lambda: bcg.cg_solve_device(op, b, x0, pre, 1e-10, maxiter, active, ws), "cuda")
     return g, ws, (matvec, b, x0, pre)
 

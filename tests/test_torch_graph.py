@@ -375,7 +375,7 @@ def test_cg_device_plain_matches_cg_solve_batched(both, active, maxiter):
                      torch.as_tensor(rng.standard_normal((3, tg.N))), 0.0)
     act = torch.tensor(active, dtype=torch.bool)
     ref = cg_solve_batched(matvec, b, x0, pre, tol=1e-12, maxiter=maxiter, active=act)
-    ws = bcg.workspace(3, tg.N, torch.float64, "cpu")
+    ws = bcg.workspace(3, tg.neigh_idx, tg.bp_interior_mask, torch.float64, "cpu")
     got = bcg.cg_solve_device((diag, vals, tg.neigh_idx, tg.bp_interior_mask), b, x0, pre,
                               1e-12, maxiter, act, ws)
     assert got.iters.tolist() == ref.iters.tolist()
@@ -392,6 +392,55 @@ def test_cg_device_plain_matches_cg_solve_batched(both, active, maxiter):
             assert int(got.iters[k]) == 5
         else:
             assert 10 < int(got.iters[k]) < maxiter
+
+
+def _crossbar_geometry():
+    """A small synthetic crossbar (``structure.make_crossbar_structure``)
+    with the headline's site order "x", built by the port on the CPU."""
+    from devicekmc_tpu_torch.config import KMCConfig
+    from devicekmc_tpu_torch.state import build_simulation
+    from devicekmc_tpu_torch.structure import make_crossbar_structure
+
+    s = make_crossbar_structure(nx_contact=3, nx_oxide=6, ny=8, nz=8, seed=1)
+    cfg = KMCConfig(lattice=list(s.lattice), nn_dist=3.5, pbc=False, site_order="x",
+                    num_atoms_first_layer=s.num_atoms_first_layer,
+                    num_layers_contact=s.num_layers_contact,
+                    num_atoms_contact=s.num_atoms_contact, layers=s.layers)
+    return build_simulation(cfg, elements=s.elements, coords=s.coords, device="cpu")[0]
+
+
+@pytest.mark.parametrize("where", ["stack", "crossbar"])
+def test_cg_row_lengths(both, where):
+    """The row lengths that cg_matvec_dot reads on the card
+    (``boundary_cg.row_lengths``, made by the workspace from the operator's
+    structure): each interior row's ``neigh_valid.sum(-1)`` and -1 on every
+    contact row; every row of the neighbour list left-packed (its valid
+    slots first, pads -1 after), so that a row's nonzeros are the prefix the
+    kernel loads; rows of every length from 0 to max_nn's neighbours; a row
+    that is not left-packed raises."""
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.superstep import SuperstepGraph
+
+    geom = both[1][0] if where == "stack" else _crossbar_geometry()
+    valid, interior = geom.neigh_valid, geom.bp_interior_mask
+    row_len = bcg.row_lengths(geom.neigh_idx, interior)
+    assert row_len.dtype == torch.int32 and row_len.shape == (geom.N,)
+    counts = valid.sum(-1)
+    assert torch.equal(row_len[interior], counts[interior].to(torch.int32))
+    assert bool((row_len[~interior] == -1).all()) and bool((~interior).any())
+    slots = torch.arange(geom.max_nn)
+    assert torch.equal(valid, slots < counts[:, None])
+    assert torch.equal(valid, geom.neigh_idx >= 0)
+    assert int(counts.max()) == geom.max_nn and int(counts.min()) > 0
+    if where == "crossbar":
+        assert geom.max_nn > 32
+    ws = SuperstepGraph(geom, both[1][1], 1).ws if where == "stack" \
+        else bcg.workspace(1, geom.neigh_idx, interior, torch.float64, "cpu")
+    assert torch.equal(ws.row_len, row_len)
+    broken = geom.neigh_idx.clone()
+    broken[int(counts.argmax()), 0] = -1
+    with pytest.raises(ValueError, match="left-packed"):
+        bcg.row_lengths(broken, interior)
 
 
 # ---------------------------------------------------------------------------

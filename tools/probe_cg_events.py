@@ -1,0 +1,521 @@
+#!/usr/bin/env python3
+"""Probes of two kernels of the headline path on the card, at the synthetic
+crossbar's shapes (108,944 sites; the state after two graph supersteps):
+
+* the KMC event loop (``csrc/kmc_events.cu``): a copy of the source with
+  ``clock64()`` stamps inserted (STAMPS), whose thread 0 stamps the end of
+  each phase of the first 256 events (STAMP_NAMES: the draw read, the
+  levels of the selection, the event and its zeroing, and the barriers
+  after the selection, the row sums and the block sums) and each warp's
+  lane 0 the end of its share of the sums, run for ``--events`` events from
+  the state's table; the medians of each phase's cycles; the L2 hit, DRAM
+  and barrier latencies and a round of loads after another warp's stores
+  (``tools/latency_probe.cu``); the loop timed at the path's time window
+  and with ``--events`` events and no window;
+* ``cg_matvec_dot`` (``csrc/boundary_cg.cu``) at the crossbar's boundary
+  system (as ``chip_smoke.py`` phase 11 builds it): against its plain
+  version, timed back to back and with a cold L2, beside
+  ``torch.sparse.mm`` of the same operator in CSR, the nonzero bound and
+  the 32-byte sectors that the rows' valid prefixes span.
+
+``--pkg DIR`` measures the package of another checkout instead (its
+kernels through its wrappers; no stamps, no variants), so that two designs
+are timed in turns on one card, one process each, e.g. the parent
+commit's:
+
+    git archive HEAD~1 devicekmc_tpu_torch setup.py | tar -x -C build/parent
+    python3 tools/probe_cg_events.py --pkg build/parent --out build/p1.json
+    python3 tools/probe_cg_events.py --out build/c1.json   # and again, in turns
+
+``--variants`` also times this checkout's matvec rebuilt with other lanes a
+row and slots a lane at several grids, and with parts of its work taken out,
+and reports the event loop's phases with 4 or 16 lanes a touched row and
+block.  Needs the card:
+
+    python3 tools/probe_cg_events.py [--events 200] [--variants] [--pkg DIR]
+        [--out build/probe_cg_events.json]
+"""
+
+import argparse
+import ctypes
+import importlib.util
+import inspect
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the phases between the stamps 0-8 (8: the event's end)
+STAMP_NAMES = ("draw read", "levels 0-1 (runs of blocks, blocks)", "level 2 (rows)",
+               "level 3 (slots), i's rows", "j, event, zeroing", "barrier 1",
+               "row sums + barrier", "block sums + barrier")
+END = len(STAMP_NAMES)
+PROBE_EVENTS, PROBE_STAMPS, PROBE_WARPS = 256, 9, 16
+
+#: where the stamps go in csrc/kmc_events.cu: (text that occurs once, the
+#: stamp, "after" or "before" it).  PROBE_STAMP(ev, k) in thread 0 ends
+#: phase k; PROBE_WARP(ev, k) in each warp's lane 0 ends its share of the
+#: row sums (0) and of the block sums (1).
+STAMPS = (
+    ("for (int ev = 0;; ++ev) {", "PROBE_STAMP(ev, 0);", "after"),
+    ("const float lg32 = sh.lg32;", "PROBE_STAMP(ev, 1);", "after"),
+    ("const int blk = min(first + a1 * c1 + k1, n_blocks - 1);", "PROBE_STAMP(ev, 2);",
+     "after"),
+    ("const int r = min(blk * kBlock + 4 * a2 + kk, n_rows - 1);", "PROBE_STAMP(ev, 3);",
+     "after"),
+    ("const int s = min(a3 * c_slot + kk, m - 1);", "PROBE_STAMP(ev, 4);", "after"),
+    ("if (lane == 0) sh.go = go;", "PROBE_STAMP(ev, 5);", "after"),
+    ("if (!sh.go) break;", "PROBE_STAMP(ev, 6);", "before"),
+    ("atomicOr(s_mark + (blk >> 5), 1u << (blk & 31));\n      }\n    }\n",
+     "PROBE_WARP(ev, 0);", "after"),
+    ("// the marked blocks' sums from the row sums", "PROBE_STAMP(ev, 7);", "before"),
+    ("if (gl == 0 && blk >= 0) s_blk[blk] = acc;\n      }\n    }\n", "PROBE_WARP(ev, 1);",
+     "after"),
+    ("  }\n\n  if (tid == 0) {\n    out[0] = event_time;", "PROBE_STAMP(ev, 8);", "before"),
+)
+STAMP_DEFS = """
+__device__ long long g_probe_stamps[%(ev)d * %(st)d];
+__device__ long long g_probe_warps[%(ev)d * %(w)d * 2];
+#define PROBE_STAMP(e, k)                                                        \\
+  do {                                                                           \\
+    if (threadIdx.x == 0 && blockIdx.x == 0 && (e) < %(ev)d)                     \\
+      g_probe_stamps[(e) * %(st)d + (k)] = clock64();                            \\
+  } while (0)
+#define PROBE_WARP(e, k)                                                         \\
+  do {                                                                           \\
+    if ((threadIdx.x & 31) == 0 && blockIdx.x == 0 && (e) < %(ev)d)              \\
+      g_probe_warps[((e) * %(w)d + (threadIdx.x >> 5)) * 2 + (k)] = clock64();   \\
+  } while (0)
+""" % {"ev": PROBE_EVENTS, "st": PROBE_STAMPS, "w": PROBE_WARPS}
+STAMP_EXPORTS = """
+// the stamps, [events, stamps] and [events, warps, 2] int64, into host memory
+extern "C" int dkmc_event_probe_stamps(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, g_probe_stamps, sizeof(g_probe_stamps));
+}
+extern "C" int dkmc_event_probe_warps(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, g_probe_warps, sizeof(g_probe_warps));
+}
+"""
+
+#: probe builds of the event loop laid out otherwise (name: [(old, new)] text
+#: replacements), whose phases ``--variants`` also reports: 4 or 16 lanes a
+#: touched row and a touched block
+EVENT_VARIANTS = {
+    "group4": [("constexpr int kGroup = 8;", "constexpr int kGroup = 4;")],
+    "group16": [("constexpr int kGroup = 8;", "constexpr int kGroup = 16;")],
+}
+
+
+def replace_once(text, old, new, what):
+    if text.count(old) != 1:
+        raise RuntimeError(f"{what}: {old!r} occurs {text.count(old)} times, not once")
+    return text.replace(old, new)
+
+
+def stamped_source(src):
+    """csrc/kmc_events.cu with the stamps of STAMPS, their buffers and their
+    exports."""
+    for anchor, stamp, where in STAMPS:
+        src = replace_once(src, anchor, anchor + stamp + "\n" if where == "after"
+                           else stamp + "\n" + anchor, "kmc_events.cu")
+    head = "constexpr int kD = 0, kOD = 1, kV = 2, kO = 3;\n"
+    return replace_once(src, head, head + STAMP_DEFS, "kmc_events.cu") + STAMP_EXPORTS
+
+
+def nvcc_build(src, out, include):
+    """``src`` compiled as the package builds it (ops/_build.NVCC_FLAGS),
+    ``include`` on the include path."""
+    from devicekmc_tpu_torch.ops import _build
+
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(include), "-o", out, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), out
+
+
+def finish(jobs):
+    """{key: library} of nvcc_build's jobs."""
+    libs = {}
+    for key, (proc, out) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        libs[key] = ctypes.CDLL(out)
+        print(key, [l.strip() for l in log.splitlines() if "registers" in l], flush=True)
+    return libs
+
+
+def event_builds(bdir, variants):
+    """The stamped event loop, and with ``variants`` its EVENT_VARIANTS:
+    {name: nvcc job}."""
+    from devicekmc_tpu_torch.ops import _build
+
+    src = stamped_source((_build.CSRC / "kmc_events.cu").read_text())
+    sources = {"probe": src}
+    if variants:
+        for name, subs in EVENT_VARIANTS.items():
+            text = src
+            for old, new in subs:
+                text = replace_once(text, old, new, "kmc_events.cu")
+            sources[name] = text
+    jobs = {}
+    for name, text in sources.items():
+        path = os.path.join(bdir, f"kmc_events_{name}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        jobs[name] = nvcc_build(path, path[:-3] + ".so", _build.CSRC)
+    return jobs
+
+
+def raw_probe(cs):
+    """Cycles of a round of loads of lines another warp just stored to, and
+    of lines nothing stored to, plain and past L1 (dkmc_raw_probe)."""
+    import torch
+
+    buf = torch.zeros(2 * 224 * 32, dtype=torch.int32, device="cuda")
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for rep in range(4):
+        for cg in (0, 1):
+            err = cs.LATENCY["lib"].dkmc_raw_probe(buf.data_ptr(), cg, out.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"dkmc_raw_probe: cudaError {err}")
+            torch.cuda.synchronize()
+            if rep:
+                res.setdefault("ldcg" if cg else "plain", []).append(out[:2].tolist())
+    return res
+
+
+def stamps_of(lib, count):
+    """The stamps of a stamped build's last launch: the medians of each
+    phase's cycles, of the slowest and fastest warp's sums and of the draw,
+    and the cycles an event."""
+    stamps = (ctypes.c_longlong * (PROBE_EVENTS * PROBE_STAMPS))()
+    warps = (ctypes.c_longlong * (PROBE_EVENTS * PROBE_WARPS * 2))()
+    for fn, buf in ((lib.dkmc_event_probe_stamps, stamps),
+                    (lib.dkmc_event_probe_warps, warps)):
+        err = fn(ctypes.cast(buf, ctypes.c_void_p))
+        if err != 0:
+            raise RuntimeError(f"probe stamps: cudaError {err}")
+    st = [[stamps[e * PROBE_STAMPS + k] for k in range(PROBE_STAMPS)]
+          for e in range(min(count, PROBE_EVENTS))]
+    w = lambda e, k, q: warps[(e * PROBE_WARPS + k) * 2 + q]
+    ev = range(1, len(st))
+    med = lambda xs: statistics.median(xs) if xs else None
+    phases = {name: med([st[e][k + 1] - st[e][k] for e in ev])
+              for k, name in enumerate(STAMP_NAMES)}
+    phases.update({
+        "slowest warp's row sums": med([max(w(e, k, 0) for k in range(PROBE_WARPS))
+                                        - st[e][6] for e in ev]),
+        "fastest warp's row sums": med([min(w(e, k, 0) for k in range(PROBE_WARPS))
+                                        - st[e][6] for e in ev]),
+        "slowest warp's block sums": med([max(w(e, k, 1) for k in range(PROBE_WARPS - 1))
+                                          - st[e][7] for e in ev]),
+        "draw warp's draw": med([w(e, PROBE_WARPS - 1, 1) - st[e][7] for e in ev]),
+    })
+    total = st[-1][END] - st[0][0] if st else 0
+    return phases, med([st[e][END] - st[e][0] for e in ev]), total
+
+
+def event_probe(cs, sim, stamped, n_events):
+    """The event loop of the package on the path: timed through its wrapper
+    at the path's time window and with ``n_events`` events and no window;
+    with ``stamped`` ({name: stamped library}) each stamped build's phases,
+    and the latencies."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop
+    from devicekmc_tpu_torch.physics.events import incremental_tables
+
+    geom, params, state = sim.geom, sim.params, sim.state
+    prob, row_sums, block_sums, aidx, inv, _ = incremental_tables(geom, params, state)
+    n_rows, m = prob.shape
+    n_blocks = block_sums.shape[0]
+
+    def launch(fn, max_events, t_window):
+        p, rs, bs = prob.clone(), row_sums.clone(), block_sums.clone()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cs.HOLD_CYCLES)
+        a.record()
+        res = fn(p, rs, bs, max_events, t_window)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b), res
+
+    def wrapper(p, rs, bs, max_events, t_window):
+        return kmc_event_loop(p, rs, bs, aidx, inv, geom.neigh_idx, geom.rev_slot,
+                              state.element, state.charge, state.key, t_window, max_events,
+                              params.dtype)
+
+    def c_entry(lib):
+        fn = lib.dkmc_kmc_event_loop
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i, ctypes.c_uint, ctypes.c_uint,
+                       ctypes.c_double, i, i, p, p]
+        fn.restype = ctypes.c_int
+
+        def run(p_, rs, bs, max_events, t_window):
+            el, q = state.element.clone(), state.charge.clone()
+            out = torch.empty(4, dtype=torch.float64, device="cuda")
+            err = fn(p_.data_ptr(), int(p_.dtype == torch.float64), rs.data_ptr(),
+                     bs.data_ptr(), aidx.data_ptr(), inv.data_ptr(), geom.neigh_idx.data_ptr(),
+                     geom.rev_slot.data_ptr(), el.data_ptr(), q.data_ptr(), n_rows, n_blocks,
+                     m, state.key[0], state.key[1], t_window, max_events,
+                     int(params.dtype == torch.float32), out.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"stamped event loop: cudaError {err}")
+            return el, q, out
+
+        return run
+
+    natural = 1.0 / params.freq
+    res = {"table": f"{n_rows}x{m} {str(prob.dtype)[6:]}", "n_blocks": n_blocks}
+    window = [launch(wrapper, params.max_events_per_superstep, natural) for _ in range(10)]
+    cap = [launch(wrapper, n_events, float("inf")) for _ in range(10)]
+    res.update(window_events=int(window[0][1][2][1]), cap_events=int(cap[0][1][2][1]),
+               window_ms=statistics.median(t for t, _ in window),
+               cap_ms=statistics.median(t for t, _ in cap))
+    res["cap_us_per_event"] = res["cap_ms"] * 1e3 / max(res["cap_events"], 1)
+    ref = cap[0][1]
+    for name, lib in stamped.items():
+        ms, got = launch(c_entry(lib), n_events, float("inf"))
+        count = int(got[2][1])
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                and torch.equal(got[2][1:], ref[2][1:])):
+            raise RuntimeError(f"the stamped build {name}: other events than the package's")
+        phases, per_event, total = stamps_of(lib, count)
+        res[f"stamped_{name}"] = dict(ms=ms, cycles_per_event=per_event, phase_cycles=phases,
+                                      sm_mhz=total / (ms * 1e3) if ms > 0 else None)
+    l2_ns, bar_ns = cs.latencies()
+    res.update(l2_ns=l2_ns, barrier_ns=bar_ns,
+               dram_ns=cs.latencies(lines=1 << 22, hops=1 << 19)[0], raw_cycles=raw_probe(cs))
+    return res
+
+
+#: the matvec's variants (lanes a row, slots a lane a pass) that
+#: ``--variants`` times
+MATVEC_VARIANTS = ((8, 8), (16, 4), (32, 2))
+#: the matvec with parts of its work taken out (name: text replacements), to
+#: see what its time is made of: no gather of p (each product takes p of its
+#: own row), and no index stream either
+MATVEC_PARTS = {
+    "no_gather": [("s += v[k] * __ldg(pb + j[k]);", "s += v[k] * __ldg(pb + row);")],
+    "values_only": [("s += v[k] * __ldg(pb + j[k]);", "s += v[k] * __ldg(pb + row);"),
+                    ("j[k] = e < len ? __ldg(nb + e0 + e) : -1;", "j[k] = e < len ? e : -1;")],
+}
+
+
+def matvec_builds(bdir):
+    """This checkout's boundary_cg.cu rebuilt with other constants of its
+    matvec (MATVEC_VARIANTS) and with parts of its work taken out
+    (MATVEC_PARTS): {(lanes, slots) or name: nvcc job}."""
+    from devicekmc_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "boundary_cg.cu").read_text()
+    lines = ("constexpr int kRowLanes = ", "constexpr int kSlots = ")
+    sources = {}
+    for var in MATVEC_VARIANTS:
+        text = src
+        for line, value in zip(lines, var):
+            if line not in text:
+                raise RuntimeError(f"boundary_cg.cu: no line {line!r} to vary")
+            head, tail = text.split(line, 1)
+            text = head + line + str(value) + tail[tail.index(";"):]
+        sources[var] = text
+    for name, subs in MATVEC_PARTS.items():
+        text = src
+        for old, new in subs:
+            text = replace_once(text, old, new, "boundary_cg.cu")
+        sources[name] = text
+    jobs = {}
+    for var, text in sources.items():
+        tag = var if isinstance(var, str) else "{}_{}".format(*var)
+        path = os.path.join(bdir, f"boundary_cg_{tag}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        jobs[var] = nvcc_build(path, path[:-3] + ".so", _build.CSRC)
+    return jobs
+
+
+def make_workspace(bcg, geom, dtype):
+    """A workspace of one replica for the package on the path (the ones
+    before the row lengths took ``(batch, n, dtype, device)``)."""
+    if "neigh_idx" in inspect.signature(bcg.workspace).parameters:
+        return bcg.workspace(1, geom.neigh_idx, geom.bp_interior_mask, dtype, "cuda")
+    return bcg.workspace(1, geom.N, dtype, "cuda")
+
+
+def matvec_probe(cs, sim, variants):
+    """cg_matvec_dot at the crossbar's boundary system, against its plain
+    version and torch.sparse.mm, and (``variants``, {(lanes, slots) or name:
+    library}) other constants at several grids, or parts of its work taken
+    out."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.physics import potential as pot
+    from devicekmc_tpu_torch.state import stack_states
+
+    geom, params = sim.geom, sim.params
+    states = stack_states([sim.state])
+    interior = geom.bp_interior_mask
+    masks = (geom.bp_left_mask, geom.bp_right_mask, interior)
+    edge_g = pot._edge_conductance_boundary(geom, states, params)
+    b, _, diag, vals, pre = pot._dirichlet_system(geom, edge_g, -cs.VD_MAIN / 2,
+                                                  cs.VD_MAIN / 2, masks)
+    op = (diag, vals, geom.neigh_idx, interior)
+    rng = np.random.default_rng(7)
+    noise = torch.as_tensor(cs.CG_NOISE * rng.standard_normal(geom.N), device="cuda")
+    x0 = torch.where(interior, states.potential_boundary + noise, 0.0)
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    ws = make_workspace(bcg, geom, b.dtype)
+    if variants:
+        ws.part = torch.zeros(geom.N, dtype=b.dtype, device="cuda")  # room for any grid
+    bcg.cg_setup(op, b, x0, pre, 0.0, cs.CG_MAXITER, active, ws)
+    for _ in range(3):
+        bcg.cg_iteration(ws, op, cs.CG_MAXITER)
+
+    def clone(w):
+        return dataclasses.replace(w, **{f.name: getattr(w, f.name).clone()
+                                         for f in dataclasses.fields(w)
+                                         if isinstance(getattr(w, f.name), torch.Tensor)})
+
+    N, M = geom.N, geom.max_nn
+    wk, wp = clone(ws), clone(ws)
+    bcg.cg_matvec_dot(wk, op)
+    bcg.cg_matvec_dot_plain(wp, op)
+    scale = float(wp.ap.abs().max())
+    fns = {"package": lambda w: bcg.cg_matvec_dot(w, op)}
+    variant_err = {}
+    for var, lib in (variants or {}).items():
+        fn_v = lib.dkmc_cg_matvec_dot
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn_v.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        fn_v.restype = ctypes.c_int
+        if isinstance(var, str):
+            grids, label_of = [ws.grid_mv], lambda grid, var=var: var
+        else:
+            lanes, slots = var
+            group = 8 * (32 // lanes)
+            grids = [g for g in sorted({-(-N // group), 4 * 132, 8 * 132})
+                     if g <= -(-N // group)]
+            label_of = lambda grid, var=var: "lanes{}_slots{}_grid".format(*var) + str(grid)
+        for grid in grids:
+
+            def run(w, fn_v=fn_v, grid=grid):
+                e = fn_v(1, diag.data_ptr(), vals.data_ptr(), geom.neigh_idx.data_ptr(),
+                         w.row_len.data_ptr(), w.p.data_ptr(), w.ap.data_ptr(),
+                         w.act.data_ptr(), w.rz.data_ptr(), w.alpha.data_ptr(),
+                         w.part.data_ptr(), w.tickets.data_ptr(), N, M, 1, grid,
+                         torch.cuda.current_stream().cuda_stream)
+                if e != 0:
+                    raise RuntimeError(f"cg_matvec_dot variant: cudaError {e}")
+
+            label = label_of(grid)
+            fns[label] = run
+            wv = clone(ws)
+            run(wv)
+            variant_err[label] = max(float((wv.ap - wp.ap).abs().max()),
+                                     float((wv.alpha - wp.alpha).abs().max()
+                                           / wp.alpha.abs().max()) * scale)
+    # the library's product
+    nb = geom.neigh_idx.long()
+    rows = torch.arange(N, device="cuda")
+    keep = (nb >= 0) & interior[:, None] & interior[nb.clamp(min=0)]
+    r_idx = torch.cat([rows[interior], rows[:, None].expand(N, M)[keep]])
+    c_idx = torch.cat([rows[interior], nb[keep]])
+    v = torch.cat([diag[0][interior], vals[0][keep]])
+    order = torch.argsort(r_idx * N + c_idx)
+    csr = torch.sparse_coo_tensor(torch.stack([r_idx[order], c_idx[order]]), v[order],
+                                  (N, N)).coalesce().to_sparse_csr()
+    pv = ws.p[0][:, None].contiguous()
+    nnz_off, n_int = int(keep.sum()), int(interior.sum())
+    # bytes: the nonzeros (value + index), the interior rows' diag, p, ap,
+    # the row lengths (as chip_smoke.py phase 11 counts them)
+    nbytes = 12 * nnz_off + 8 * n_int + 8 * 2 * N + 4 * N
+    # the 32-byte sectors the interior rows' valid prefixes span
+    lens = torch.where(interior, (nb >= 0).sum(-1), 0)
+    start = rows * M
+    sect = lambda width: int((((start + lens) * width + 31) // 32 - (start * width) // 32)
+                             .masked_fill(lens == 0, 0).sum()) * 32
+    res = dict(N=N, M=M, interior_rows=n_int, valid_slots=int(lens.sum()),
+               nnz_interior_offdiag=nnz_off, bound_bytes=nbytes,
+               bound_ms=nbytes / cs.PEAK_BYTES_PER_S * 1e3,
+               prefix_value_sector_bytes=sect(8), prefix_index_sector_bytes=sect(4),
+               max_abs_err=float((wk.ap - wp.ap).abs().max()), scale=scale,
+               alpha_rel_err=float(abs(wk.alpha - wp.alpha) / abs(wp.alpha)),
+               variant_max_abs_err=variant_err, times={})
+    wt = clone(ws)
+    fns["sparse.mm"] = lambda w: torch.sparse.mm(csr, pv)
+    for label, f in fns.items():
+        res["times"][label] = {"warm": cs.time_ms(lambda: f(wt)),
+                               "cold": cs.time_ms_cold(lambda: f(wt))}
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--events", type=int, default=200, help="events of the capped launch")
+    ap.add_argument("--variants", action="store_true",
+                    help="also time variants of both kernels (see the module's docstring)")
+    ap.add_argument("--pkg", help="checkout whose devicekmc_tpu_torch is measured")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "probe_cg_events.json"))
+    args = ap.parse_args()
+    if args.pkg and args.variants:
+        ap.error("--variants rebuilds this checkout's sources: not with --pkg")
+    sys.path.insert(0, os.path.abspath(args.pkg) if args.pkg else ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("probe_cg_events: no CUDA device", file=sys.stderr)
+        return 2
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import devicekmc_tpu_torch
+    from devicekmc_tpu_torch.ops import _build
+
+    pkg = os.path.dirname(devicekmc_tpu_torch.__file__)
+    print(f"devicekmc_tpu_torch from {pkg}", flush=True)
+    t0 = time.perf_counter()
+    bdir = os.path.join(ROOT, "build", "probe")
+    os.makedirs(bdir, exist_ok=True)
+    latency_job = cs.start_latency_build()
+    events_jobs = {} if args.pkg else event_builds(bdir, args.variants)
+    matvec_jobs = matvec_builds(bdir) if args.variants else {}
+    _build.build(["ell_gather", "pairwise", "kmc_events", "graph", "boundary_cg"])
+    cs.finish_latency_build(latency_job)
+    stamped, variants = finish(events_jobs), finish(matvec_jobs)
+    print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in ("kmc_events", "boundary_cg"):
+        print(name, [l.strip() for l in _build.build_log(name).splitlines()
+                     if "registers" in l], flush=True)
+
+    sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build", "probe_run"))
+    sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
+    torch.cuda.synchronize()
+    out = {"gpu": cs.gpu_line(), "package": pkg}
+    out["events"] = event_probe(cs, sim, stamped, args.events)
+    print("event loop: " + json.dumps(out["events"]), flush=True)
+    out["matvec"] = matvec_probe(cs, sim, variants)
+    print("cg_matvec_dot: " + json.dumps(out["matvec"]), flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    print(out["gpu"], flush=True)
+    print(f"done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
