@@ -152,12 +152,15 @@ Phases (any failed check raises and the exit code is non-zero):
    with its WHILE node against cg_solve_batched from the run's potential plus
    seeded noise (iteration counts equal, the iterate within 1e-12 of its
    scale; the kernels of the WHILE node's body in the trace of a replay),
-   each kernel against its plain version, timed beside its bytes bound
-   (the matvec's: the operator's interior nonzeros, value and index, the
-   interior rows' diagonal, p, ap and the row lengths, each once; the matvec
-   also beside torch.sparse.mm of the operator in CSR, back to back and with
-   a cold L2), and the boundary work a captured superstep adds where no
-   replica solves, captured and timed.
+   each of the two kernels (cg_matvec_dot, cg_update_direction) against its
+   plain version, timed back to back and with a cold L2 beside its bytes
+   bound (the matvec's: the operator's interior nonzeros, value and index,
+   the interior rows' diagonal, p, ap and the row lengths, each once; the
+   update and direction's: eight vectors; the matvec also beside
+   torch.sparse.mm of the operator in CSR), cg_update_direction also at
+   B = 8 and 32 beside its bound and the bytes its blocks read again, and
+   the boundary work a captured superstep adds where no replica solves,
+   captured and timed.
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -1359,8 +1362,8 @@ def rel_err(a, b):
 #: each has in a profiler trace (no name holds another)
 TRACE_NAMES = {name: f"{name}_kernel" for name in (
     "ell_gather", "ell_gather_batched", "poisson_pairwise", "poisson_pairwise_batched",
-    "kmc_event_loop", "kmc_event_loop_batched", "cg_matvec_dot", "cg_update", "cg_direction")}
-CG_KERNELS = ("cg_matvec_dot", "cg_update", "cg_direction")
+    "kmc_event_loop", "kmc_event_loop_batched", "cg_matvec_dot", "cg_update_direction")}
+CG_KERNELS = ("cg_matvec_dot", "cg_update_direction")
 
 
 def trace_counts(prof):
@@ -1458,11 +1461,11 @@ def traced_totals():
 
 
 def cg_seen(tag, seen, iters):
-    """The three CG kernels in a trace (``seen``) of a call in which the device
+    """The two CG kernels in a trace (``seen``) of a call in which the device
     counted ``iters`` iterations: each launched at least once when ``iters``
     > 0, never when it is 0, and at most ``iters`` times.  The trace misses
     some launches: of a captured loop of 46 iterations on an H100 it showed
-    43 or 44 of each kernel, in different numbers for the three, and of a
+    43 or 44 of each kernel, in different numbers for each, and of a
     replay of the ensemble's superstep one of its two batched gathers, so
     the device's count stands for the launches.
     Returns each kernel's launches in the trace."""
@@ -3032,6 +3035,7 @@ def ensemble_path(out_root):
     import torch
 
     from devicekmc_tpu_torch.ops import _build, cg, kmc_events
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
     from devicekmc_tpu_torch.ops import ell_gather as eg
     from devicekmc_tpu_torch.ops import pairwise as pw
     from devicekmc_tpu_torch.parallel.batched import batch_states, make_batched_superstep
@@ -3086,6 +3090,7 @@ def ensemble_path(out_root):
         for _, restore in plains:
             restore()
     launches = {name: fn.launches for name, fn in batched.items()}
+    cg_card = bcg.device_iterations(step.graphs[ENSEMBLE_B].ws)
     reads = cg.readbacks - reads0
     check(launches == {"ell_gather_batched": 2 * n_steps, "poisson_pairwise_batched": n_steps,
                        "kmc_event_loop_batched": n_steps} == card_counts(),
@@ -3097,6 +3102,8 @@ def ensemble_path(out_root):
     events = [m["n_events"].tolist() for _, m, _ in recs]
     cg_iters = [m["cg_iters_boundary"].tolist() for _, m, _ in recs]
     n_charged = [m["n_charged_sites"].tolist() for _, m, _ in recs]
+    check(cg_card == sum(max(c) for c in cg_iters),
+          f"ensemble: {cg_card} CG iterations on the card, cg_iters_boundary {cg_iters}")
     check(all(all(m["boundary_converged"].tolist()) for _, m, _ in recs),
           "ensemble: a boundary solve did not converge")
     check(all(max(n) <= params.poisson_compact_cap for n in n_charged),
@@ -3205,6 +3212,7 @@ def ensemble_path(out_root):
         single_median_ms=single_med, dtoh_batch=dtoh_b, dtoh_single=dtoh_1,
         eager_ms=ms_e, phi_err_eager=phi_ge,
         cg_reads=reads, events=events, cg_iters_boundary=cg_iters, n_charged=n_charged,
+        cg_iterations_card=cg_card,
         phi_err=phi_err, dt_err=dt_err, cold_iters=cold_iters, example=example)
     return (kchecks, launches), summary
 
@@ -3253,18 +3261,40 @@ def batched_records(headline, ensemble):
 CG_NOISE, CG_MAXITER = 1e-4, 5000
 
 
-def boundary_cg_path(sim, cg_launches):
-    """Phase 11: the three boundary CG kernels at the crossbar's boundary
+#: the replica counts at which phase 11 also times cg_update_direction
+CG_BATCHES = (8, 32)
+#: the per-replica fields of a CG workspace, copied into a larger batch
+CG_REPLICA_FIELDS = ("x", "r", "p", "ap", "minv", "rz", "rr", "thresh2", "alpha", "beta",
+                     "act0", "act", "iters")
+
+
+def update_direction_bytes(bcg, N, nb, per, itemsize=8):
+    """The bytes cg_update_direction must move for ``nb`` replicas of ``N``
+    rows (x, r, ap, minv and p read, x, r and p written: 8 vectors), and
+    those it reads again: r, minv and p of every tile but a block's first
+    (``per`` tiles a block)."""
+    tiles = bcg.n_tiles(N)
+    again = sum(min(bcg.TILE, N - (w % tiles) * bcg.TILE)
+                for w in range(nb * tiles) if w % per)
+    return 8 * itemsize * nb * N, 3 * itemsize * again
+
+
+def boundary_cg_path(sim, cg_launches, cg_launches_ensemble):
+    """Phase 11: the two boundary CG kernels at the crossbar's boundary
     system (B = 1, the state after phase 3's runs).  The device loop,
     captured with its WHILE node, against cg_solve_batched from the run's
     potential plus seeded noise: iteration counts equal, the iterate within
     1e-12 of its scale, both timed; each kernel against its plain version on
-    the same workspace, timed alone beside its bytes bound, its plain
-    version and, for the matvec, torch.sparse.mm of the same operator in
-    CSR; the work a captured superstep adds in a step where no replica
-    solves (assembly, CG setup, residual) captured and timed.  Returns the
-    kernels' records (``cg_launches``: the device's iteration count in
-    phase 3's graph run)."""
+    the same workspace (cg_update_direction: each field within 1e-12 of
+    its scale), timed alone
+    back to back and with a cold L2 beside its bytes bound and its plain
+    version, the matvec also beside torch.sparse.mm of the same operator in
+    CSR; cg_update_direction also at B = 8 and 32 (the replica copied),
+    beside its bound and the bytes its blocks read again; the work a
+    captured superstep adds in a step where no replica solves (assembly, CG
+    setup, residual) captured and timed.  Returns the kernels' records
+    (``cg_launches``, ``cg_launches_ensemble``: the device's iteration
+    count in phase 3's graph run and phase 10's main run)."""
     import dataclasses
 
     import numpy as np
@@ -3311,23 +3341,23 @@ def boundary_cg_path(sim, cg_launches):
                        reps=1, rounds=3, warmup=1)
 
     # each kernel alone, on a workspace that never stops (threshold 0)
-    def fresh():
-        w = bcg.workspace(1, geom.neigh_idx, interior, b.dtype, "cuda")
-        bcg.cg_setup(op, b, x0, pre, 0.0, CG_MAXITER, active, w)
+    def fresh(nb=1):
+        w = bcg.workspace(nb, geom.neigh_idx, interior, b.dtype, "cuda")
+        if nb == 1:
+            bcg.cg_setup(op, b, x0, pre, 0.0, CG_MAXITER, active, w)
         return w
 
     def clone(w):
         return dataclasses.replace(w, **{f.name: getattr(w, f.name).clone()
                                          for f in dataclasses.fields(w)
-                                         if f.name not in ("grid", "grid_mv")})
+                                         if isinstance(getattr(w, f.name), torch.Tensor)})
 
     kernels = {
         "cg_matvec_dot": (lambda w: bcg.cg_matvec_dot(w, op),
                           lambda w: bcg.cg_matvec_dot_plain(w, op), ("ap", "alpha")),
-        "cg_update": (lambda w: bcg.cg_update(w, CG_MAXITER),
-                      lambda w: bcg.cg_update_plain(w, CG_MAXITER),
-                      ("x", "r", "z", "rz", "rr", "beta", "iters", "act", "cond")),
-        "cg_direction": (bcg.cg_direction, bcg.cg_direction_plain, ("p",)),
+        "cg_update_direction": (lambda w: bcg.cg_update_direction(w, CG_MAXITER),
+                                lambda w: bcg.cg_update_direction_plain(w, CG_MAXITER),
+                                ("x", "r", "p", "rz", "rr", "beta", "iters", "act", "cond")),
     }
     N, M = geom.N, geom.max_nn
     vec = 8 * N
@@ -3337,7 +3367,7 @@ def boundary_cg_path(sim, cg_launches):
     keep = (nb >= 0) & interior[:, None] & interior[nb.clamp(min=0)]
     nnz, n_int = int(keep.sum()), int(interior.sum())
     nbytes = {"cg_matvec_dot": 12 * nnz + 8 * n_int + 2 * vec + 4 * N,
-              "cg_update": 8 * vec, "cg_direction": 3 * vec}
+              "cg_update_direction": 8 * vec}
     w0 = fresh()
     for _ in range(3):      # a few iterations in, as inside a solve
         bcg.cg_iteration(w0, op, CG_MAXITER)
@@ -3350,15 +3380,36 @@ def boundary_cg_path(sim, cg_launches):
         for f in fields:
             a, c = getattr(wk, f), getattr(wp, f)
             if a.dtype.is_floating_point:
-                err = max(err, float((a - c).abs().max()))
+                e = float((a - c).abs().max())
+                check(name != "cg_update_direction" or e <= 1e-12 * float(c.abs().max()),
+                      f"{name}: {f} {e:.3e} from its plain version")
+                err = max(err, e)
             else:
                 check(torch.equal(a, c), f"{name}: {f} differs from the plain version")
-        wt, wq = clone(w0), clone(w0)
+        wt, wq, wc = clone(w0), clone(w0), clone(w0)
         out[name] = dict(max_abs_err=err, ms=time_ms(lambda: kern(wt)),
                          plain_ms=time_ms(lambda: plain(wq), reps=5),
+                         ms_cold=time_ms_cold(lambda: kern(wc)),
                          bound_ms=nbytes[name] / PEAK_BYTES_PER_S * 1e3)
         check(err <= 1e-12 * max(1.0, float(getattr(wp, fields[0]).abs().max())),
               f"{name}: {err:.3e} from its plain version")
+    # cg_update_direction at B = 8 and 32: the replica copied, timed beside
+    # the bytes it must move and those its blocks read again
+    ud = out["cg_update_direction"]
+    ud["grid"], ud["tiles_per_block"] = bcg.update_direction_grid(w0)
+    ud["batches"] = {}
+    for nbat in CG_BATCHES:
+        wb = fresh(nbat)
+        for f in CG_REPLICA_FIELDS:
+            getattr(wb, f).copy_(getattr(w0, f).expand_as(getattr(wb, f)))
+        grid, per = bcg.update_direction_grid(wb)
+        must, again = update_direction_bytes(bcg, N, nbat, per)
+        ud["batches"][nbat] = dict(
+            ms=time_ms(lambda: bcg.cg_update_direction(wb, CG_MAXITER)),
+            bound_ms=must / PEAK_BYTES_PER_S * 1e3, grid=grid, tiles_per_block=per,
+            bytes_read_again=again,
+            bound_ms_with_read_again=(must + again) / PEAK_BYTES_PER_S * 1e3)
+        del wb
     # the operator as one CSR matrix: the library's sparse product
     rows = torch.arange(N, device="cuda")
     r_idx = torch.cat([rows[interior], rows[:, None].expand(N, M)[keep]])
@@ -3373,10 +3424,9 @@ def boundary_cg_path(sim, cg_launches):
     check(lib_err <= 1e-9 * float(w0.ap.abs().max() + 1), f"CSR operator: {lib_err:.3e} off")
     library = lambda: torch.sparse.mm(csr, p)
     out["cg_matvec_dot"]["library_ms"] = time_ms(library)
-    out["cg_update"]["library_ms"] = out["cg_direction"]["library_ms"] = None
-    wc = clone(w0)
+    # no one PyTorch call updates, reduces and sets the direction
+    ud["library_ms"] = None
     out["cg_matvec_dot"].update(
-        ms_cold=time_ms_cold(lambda: bcg.cg_matvec_dot(wc, op)),
         library_ms_cold=time_ms_cold(library), nnz=nnz,
         bound_note="the operator's interior-to-interior nonzeros (8 + 4 bytes each), the "
                    "interior rows' diagonal, p, ap and the row lengths, each once")
@@ -3401,19 +3451,28 @@ def boundary_cg_path(sim, cg_launches):
         f"({solve_ms / iters * 1e3:.2f} us an iteration), cg_solve_batched {eager_ms:.3f} ms "
         f"({eager_ms / iters * 1e3:.2f} us an iteration)")
     for name, r in out.items():
-        log(f"  {name}: {r['ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us (bytes, "
+        log(f"  {name}: {r['ms'] * 1e3:.2f} us, with a cold L2 {r['ms_cold'] * 1e3:.2f} us, "
+            f"bound {r['bound_ms'] * 1e3:.2f} us (bytes, "
             f"{100 * r['bound_ms'] / r['ms']:.0f} %), plain {r['plain_ms'] * 1e3:.2f} us"
             + (f", torch.sparse.mm {r['library_ms'] * 1e3:.2f} us" if r["library_ms"] else "")
             + f"; max abs error {r['max_abs_err']:.3e}")
     mv = out["cg_matvec_dot"]
     log(f"  cg_matvec_dot: {nnz} interior nonzeros off the diagonal, bound "
-        f"{mv['bound_ms'] * 1e3:.2f} us; with a cold L2 {mv['ms_cold'] * 1e3:.2f} us "
-        f"(torch.sparse.mm {mv['library_ms_cold'] * 1e3:.2f} us)")
+        f"{mv['bound_ms'] * 1e3:.2f} us; torch.sparse.mm with a cold L2 "
+        f"{mv['library_ms_cold'] * 1e3:.2f} us")
+    log(f"  cg_update_direction: {ud['grid']} blocks of {ud['tiles_per_block']} tiles at "
+        f"B = 1; " + "; ".join(
+            f"B = {nbat}: {r['ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+            f"({100 * r['bound_ms'] / r['ms']:.0f} %), {r['grid']} blocks of "
+            f"{r['tiles_per_block']} tiles, {r['bytes_read_again']} bytes read again "
+            f"(bound with them {r['bound_ms_with_read_again'] * 1e3:.2f} us)"
+            for nbat, r in ud["batches"].items()))
     log(f"a captured superstep's boundary work where no replica solves (assembly, CG setup, "
         f"residual), as a graph: {assembly_ms:.4f} ms; phase 11 in "
         f"{time.perf_counter() - t_phase:.1f} s")
     records = [dict(name=name, route="cuda", source="devicekmc_tpu_torch/csrc/boundary_cg.cu",
                     replaces="devicekmc_tpu/ops/cg.py:112", launches=cg_launches,
+                    launches_ensemble_path=cg_launches_ensemble,
                     bound_by="bytes", shape=f"1x{N}x{M} f64",
                     path="headline, captured graph (WHILE node body)", **r)
                for name, r in out.items()]
@@ -3520,7 +3579,8 @@ def main():
     kernels.append(event_record)
     kernels += batched_records((headline.pop("kernel_checks"), headline["launches_graph"]),
                                ensemble_checks)
-    cg_records, cg_summary = boundary_cg_path(xsim, headline["launches_graph"]["boundary_cg"])
+    cg_records, cg_summary = boundary_cg_path(xsim, headline["launches_graph"]["boundary_cg"],
+                                              ensemble["cg_iterations_card"])
     del xsim
     torch.cuda.empty_cache()
     kernels += cg_records

@@ -1,4 +1,4 @@
-// One iteration of the warm boundary CG of B replicas, in three kernels: the
+// One iteration of the warm boundary CG of B replicas, in two kernels: the
 // body of the WHILE node that a captured superstep runs the solve in
 // (ops/boundary_cg.py, csrc/graph.cu).
 //
@@ -16,14 +16,15 @@
 // 0 there in every iteration (the residual is 0 on contact rows, so z and p
 // are), and a contact neighbour's value is 0.
 //
-//   cg_matvec_dot   ap = A p and p.ap of each replica -> alpha = r.z / p.ap
-//   cg_update       x += alpha p, r -= alpha ap, z = r / diag, r.z and r.r
-//                   -> beta, the new stop flags, the loop's predicate
-//   cg_direction    p = z + beta p
+//   cg_matvec_dot        ap = A p and p.ap of each replica -> alpha = r.z / p.ap
+//   cg_update_direction  x += alpha p, r -= alpha ap, z = r / diag, r.z and
+//                        r.r -> beta, p = z + beta p, the new stop flags, the
+//                        loop's predicate
 //
 // Bound: bytes.  An iteration needs the operator's nonzeros (8 + 4 bytes
 // each in f64; 27.4 a row of the headline crossbar, 51 at most), the
-// diagonal, p, ap and the row lengths once, and about ten [B, N] vectors.
+// diagonal, p, ap and the row lengths once, and eight [B, N] vectors for the
+// update and direction (x, r, ap, minv, p read; x, r, p written).
 // Design:
 //
 //   * the matvec reads only what the product needs: rows are left-packed
@@ -43,16 +44,28 @@
 //     on an H100 80GB HBM3 at 700 W) put every form at 0.033 ms or more at
 //     the crossbar's system, this one the fastest; the prefixes' values
 //     alone take 0.021-0.024 ms of it;
+//   * the update and the direction are one launch with a barrier of the
+//     whole grid between them (a cooperative launch: every block resident,
+//     the grid capped at what the card holds), so z never leaves the
+//     registers of the block that made it and no block waits for a serial
+//     last block: after the barrier every block sums the same tiles'
+//     partial sums in the same order and gets the same r.z and r.r, and
+//     block 0 alone writes the replicas' scalars, flags and the predicate;
+//     tiles of 512 rows, two a thread: of 1, 2, 3, 4 and 8 rows a thread
+//     and a launch that is not cooperative (tools/probe_cg_events.py
+//     --parts update --variants, on an H100 80GB HBM3 at 700 W) none was
+//     faster at the crossbar's system by more than the noise; clock64()
+//     stamps put the barrier and the sums after it at half of a block's time;
 //   * every reduction is a fixed tree: a butterfly in the warp, warps in
-//     order, blocks' partial sums in slots of their own that the block which
-//     draws a replica's last ticket (csrc/ticket.cuh) adds in a fixed order
-//     (strided over its threads, then butterflies, then warps), and
-//     the replicas' last blocks take a ticket of the loop, whose last block
-//     sets the stop flags and the predicate.  No float atomics: two runs give
-//     the same bits, and the grid depends on N only, so a replica's bits do
-//     not depend on B;
-//   * a stopped replica's blocks leave at once;
-//   * nothing allocates: every buffer comes from the caller, so the three
+//     order; the matvec's blocks' partial sums in slots of their own that
+//     the block which draws a replica's last ticket (csrc/ticket.cuh) adds
+//     in a fixed order (strided over its threads, then butterflies, then
+//     warps), with a grid that depends on N only; the update's partial sums
+//     one a tile of kTile rows, added in tile order.  No float atomics: two
+//     runs give the same bits, and a replica's bits do not depend on B;
+//   * a stopped replica's matvec blocks leave at once; its update tiles are
+//     skipped, but their blocks reach the barrier;
+//   * nothing allocates: every buffer comes from the caller, so the two
 //     launches can be captured into the body of a conditional node.
 
 #include <cuda_runtime.h>
@@ -71,6 +84,36 @@ constexpr int kRowLanes = 16;
 constexpr int kRowsPerWarp = 32 / kRowLanes;
 constexpr int kMatvecRows = kWarps * kRowsPerWarp;
 constexpr int kSlots = 4;
+// cg_update_direction: tiles of kTile rows, kRows a thread (rows k kThreads +
+// threadIdx.x of the tile); the tiles of one block span kMaxSpan replicas at
+// most (a bit each)
+constexpr int kRows = 2;
+constexpr int kTile = kThreads * kRows;
+constexpr int kMaxSpan = 64;
+// reads of the barrier's counter before a waiting block gives up (a trap):
+// seconds, where a barrier takes microseconds
+constexpr long long kMaxPolls = 1LL << 24;
+
+template <typename T>
+struct Pair;
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+
+// a product rounded on its own (never fused into an add), and a fused
+// multiply-add: the update and direction spell out each rounding, so that z
+// comes out the same from registers and from r read again
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -180,97 +223,251 @@ cg_matvec_dot_kernel(const T* __restrict__ diag, const T* __restrict__ vals,
   if (threadIdx.x == 0) alpha[b] = denom != T(0) ? rz[b] / denom : T(0);
 }
 
+// r.z and r.r of one replica from its tiles' partial sums (pairs, written
+// by other blocks: read past L1), in every lane of the calling warp and with
+// the same bits in whichever warp and block: lane l adds tiles l, l + 32, ...
+// in order (kPass of them loaded before any is added), then a butterfly.
+// Every lane of the warp calls it.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cg_update_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__ z,
-                 const T* __restrict__ p, const T* __restrict__ ap,
-                 const T* __restrict__ minv, unsigned char* __restrict__ act,
-                 const unsigned char* __restrict__ act0, const T* __restrict__ alpha,
-                 T* __restrict__ beta, T* __restrict__ rz, T* __restrict__ rr,
-                 const T* __restrict__ thresh2, long long* __restrict__ iters,
-                 T* __restrict__ part, int* __restrict__ tickets, int* __restrict__ ctl,
-                 int* __restrict__ cond, unsigned long long* __restrict__ total,
-                 unsigned long long handle, int n, int batch, int maxiter) {
-  const int b = blockIdx.y;
-  if (!act[b]) return;
-  const int grid = gridDim.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T a = alpha[b];
-  T s_rz = 0, s_rr = 0;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += grid * kThreads) {
-    const size_t k = (size_t)b * n + i;
-    const T rn = r[k] - a * ap[k];
-    const T zn = minv[k] * rn;
-    x[k] = x[k] + a * p[k];
-    r[k] = rn;
-    z[k] = zn;
-    s_rz += rn * zn;
-    s_rr += rn * rn;
+__device__ __forceinline__ void tile_sums(const T* part, int n_tiles, T& s_rz, T& s_rr) {
+  using T2 = typename Pair<T>::type;
+  constexpr int kPass = 8;
+  const T2* pc = reinterpret_cast<const T2*>(part);
+  T a = 0, q = 0;
+  for (int t0 = threadIdx.x & 31; t0 < n_tiles; t0 += 32 * kPass) {
+    T2 v[kPass];
+#pragma unroll
+    for (int k = 0; k < kPass; ++k) {
+      const int t = t0 + 32 * k;
+      v[k] = t < n_tiles ? __ldcg(pc + t) : T2{T(0), T(0)};
+    }
+#pragma unroll
+    for (int k = 0; k < kPass; ++k) {
+      a += v[k].x;
+      q += v[k].y;
+    }
   }
-  s_rz = warp_sum(s_rz);
-  s_rr = warp_sum(s_rr);
-  __shared__ T s_part[2][kWarps];
-  __shared__ int s_flag;
-  if (lane == 0) {
-    s_part[0][warp] = s_rz;
-    s_part[1][warp] = s_rr;
-  }
+  s_rz = warp_sum(a);
+  s_rr = warp_sum(q);
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned atom_add_release(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.add.release.gpu.global.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// A barrier of the whole grid on one counter: block 0 adds 2^31 - (blocks -
+// 1), every other block 1, so the counter's top bit flips when the last
+// block arrives and its low bits come back to where they were; each block
+// waits until the bit differs from what it saw at its own arrival.  One
+// atomic a block, no release step after the last arrival: thread 0's
+// arrival releases its partial sums (the block's only writes that other
+// blocks read), its poll acquires everyone's, and the block's threads read
+// them past L1 after the closing __syncthreads.  Every block must be
+// resident (see the launch); a block that waits kMaxPolls reads traps, so
+// that a fault ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void grid_barrier(unsigned* bar) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    T t0 = 0, t1 = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      t0 += s_part[0][w];
-      t1 += s_part[1][w];
-    }
-    part[((size_t)b * grid + blockIdx.x) * 2] = t0;
-    part[((size_t)b * grid + blockIdx.x) * 2 + 1] = t1;
+    const unsigned add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    const unsigned old = atom_add_release(bar, add);
+    for (long long polls = 0; ((old ^ ld_acquire(bar)) & 0x80000000u) == 0; ++polls)
+      if (polls == kMaxPolls) __trap();
   }
-  if (!last_ticket(tickets, b, grid, &s_flag)) return;
-  // this replica's last block: its r.z and r.r, beta and count
-  const T* pb = part + (size_t)b * grid * 2;
-  const T rz_n = sum_partials(pb, grid, 2, s_part[0]);
-  const T rr_n = sum_partials(pb + 1, grid, 2, s_part[1]);
-  if (threadIdx.x == 0) {
-    const T rz_o = rz[b];
-    beta[b] = rz_o != T(0) ? rz_n / rz_o : T(0);
-    rz[b] = rz_n;
-    rr[b] = rr_n;
-    iters[b] += 1;
+  __syncthreads();
+}
+
+// One launch after cg_matvec_dot: the update x += alpha p, r -= alpha ap,
+// z = r / diag with the partial sums of r.z and r.r, a barrier of the grid,
+// every block's sums, beta and the direction p = z + beta p.  The grid's
+// blocks take `per` consecutive items (replica b, tile t), t a tile of kTile
+// rows; a tile's partial sums go to its own slot (part[2 (b n_tiles + t)]),
+// so the sums' bits depend on N alone, not on B or the grid.  The block's
+// first tile keeps z and the old p in registers to the direction; its other
+// tiles read r, minv and p again.  Block 0 writes every replica's r.z, r.r,
+// beta, count and flag, the loop's count and predicate and sets the WHILE
+// node's condition; the other blocks read act and rz before the barrier.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+cg_update_direction_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__ p,
+                           const T* __restrict__ ap, const T* __restrict__ minv,
+                           unsigned char* __restrict__ act,
+                           const unsigned char* __restrict__ act0, const T* __restrict__ alpha,
+                           T* __restrict__ beta, T* __restrict__ rz, T* __restrict__ rr,
+                           const T* __restrict__ thresh2, long long* __restrict__ iters,
+                           T* __restrict__ part, unsigned* __restrict__ bar,
+                           int* __restrict__ ctl, int* __restrict__ cond,
+                           unsigned long long* __restrict__ total, unsigned long long handle,
+                           int n, int batch, int per, int maxiter) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int first = blockIdx.x * per, last = min(first + per, batch * n_tiles);
+  const int b_lo = first / n_tiles, span = (last - 1) / n_tiles - b_lo + 1;
+  __shared__ T s_part[2][kWarps];
+  __shared__ T s_rzo[kMaxSpan], s_beta[kMaxSpan];
+  __shared__ int s_cnt[kWarps];
+  // the entry flags of the replicas this block's tiles span, and their r.z
+  unsigned long long on = 0;
+  for (int j = 0; j < span; ++j) on |= (unsigned long long)(act[b_lo + j] != 0) << j;
+  if ((int)threadIdx.x < span) s_rzo[threadIdx.x] = rz[b_lo + threadIdx.x];
+
+  // block 0: the scalars of each warp's first replica and the loop's count,
+  // read before the barrier so that its tail after it waits on no load
+  const bool writer = blockIdx.x == 0;
+  long long it_w = 0;
+  T rz_w = 0, rr_w = 0, th_w = 0;
+  bool on_w = false, a0_w = false;
+  int ctl_0 = 0;
+  if (writer && warp < batch) {
+    it_w = iters[warp];
+    rz_w = rz[warp];
+    rr_w = rr[warp];
+    th_w = thresh2[warp];
+    on_w = act[warp] != 0;
+    a0_w = act0[warp] != 0;
   }
-  // the loop's ticket, one a replica that iterated: its last block decides
-  if (!last_ticket(tickets, batch, ctl[1], &s_flag)) return;
-  if (threadIdx.x == 0) {
-    const int it = ctl[0] + 1;
-    int n_act = 0;
-    for (int c = 0; c < batch; ++c) {
-      const bool on = act0[c] && __ldcg(rr + c) > thresh2[c];
-      act[c] = on;
-      n_act += on;
+  if (writer && threadIdx.x == 0) ctl_0 = ctl[0];
+
+  // 1. each tile of an iterating replica: the update and its partial sums
+  // (each thread's rows in order, the warp's butterfly, the warps in order)
+  T zh[kRows], ph[kRows];
+  for (int w = first; w < last; ++w) {
+    const int b = w / n_tiles;
+    if (!((on >> (b - b_lo)) & 1)) continue;
+    const int t = w - b * n_tiles;
+    const T a = alpha[b];
+    T s_rz = 0, s_rr = 0;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int i = t * kTile + k * kThreads + threadIdx.x;
+      if (i < n) {
+        const size_t e = (size_t)b * n + i;
+        const T pe = p[e];
+        const T rn = fma_rn(-a, ap[e], r[e]);
+        const T zn = mul_rn(minv[e], rn);
+        x[e] = fma_rn(a, pe, x[e]);
+        r[e] = rn;
+        s_rz = fma_rn(rn, zn, s_rz);
+        s_rr = fma_rn(rn, rn, s_rr);
+        if (w == first) {
+          zh[k] = zn;
+          ph[k] = pe;
+        }
+      }
     }
+    s_rz = warp_sum(s_rz);
+    s_rr = warp_sum(s_rr);
+    if (lane == 0) {
+      s_part[0][warp] = s_rz;
+      s_part[1][warp] = s_rr;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      T t0 = 0, t1 = 0;
+      for (int q = 0; q < kWarps; ++q) {
+        t0 += s_part[0][q];
+        t1 += s_part[1][q];
+      }
+      part[2 * (size_t)w] = t0;
+      part[2 * (size_t)w + 1] = t1;
+    }
+    __syncthreads();
+  }
+
+  // 2. every tile's partial sums written
+  grid_barrier(bar);
+
+  // 3. r.z, r.r and beta of the replicas spanned, a warp each; block 0 also
+  // of every other replica, whose scalars and flags it writes (a warp's
+  // first replica's from what it read before the barrier)
+  const int c_end = writer ? batch : b_lo + span;
+  int n_act = 0;
+  for (int c = (writer ? 0 : b_lo) + warp; c < c_end; c += kWarps) {
+    const bool pre = writer && c == warp;
+    const bool in_span = c >= b_lo && c < b_lo + span;
+    const bool it = in_span ? ((on >> (c - b_lo)) & 1) != 0 : pre ? on_w : act[c] != 0;
+    T rr_c = 0;
+    if (it) {
+      T s_rz, s_rr;
+      tile_sums(part + 2 * (size_t)c * n_tiles, n_tiles, s_rz, s_rr);
+      const T rz_o = in_span ? s_rzo[c - b_lo] : pre ? rz_w : rz[c];
+      const T be = rz_o != T(0) ? s_rz / rz_o : T(0);
+      if (in_span && lane == 0) s_beta[c - b_lo] = be;
+      if (writer && lane == 0) {
+        beta[c] = be;
+        rz[c] = s_rz;
+        rr[c] = s_rr;
+        iters[c] = (pre ? it_w : iters[c]) + 1;
+      }
+      rr_c = s_rr;
+    } else if (writer) {
+      rr_c = pre ? rr_w : rr[c];
+    }
+    if (writer && lane == 0) {
+      const bool go_c = (pre ? a0_w : act0[c] != 0) && rr_c > (pre ? th_w : thresh2[c]);
+      act[c] = go_c;
+      n_act += go_c;
+    }
+  }
+  if (lane == 0) s_cnt[warp] = n_act;
+  __syncthreads();
+
+  // 4. the direction of each tile of an iterating replica: z and the old p
+  // of the first from registers, of the others z again from r and minv (the
+  // same product, so the same bits)
+  for (int w = first; w < last; ++w) {
+    const int b = w / n_tiles;
+    if (!((on >> (b - b_lo)) & 1)) continue;
+    const int t = w - b * n_tiles;
+    const T be = s_beta[b - b_lo];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int i = t * kTile + k * kThreads + threadIdx.x;
+      if (i < n) {
+        const size_t e = (size_t)b * n + i;
+        p[e] = w == first ? fma_rn(be, ph[k], zh[k]) : fma_rn(be, p[e], mul_rn(minv[e], r[e]));
+      }
+    }
+  }
+
+  // 5. block 0: the iterations run, the replicas iterating, the predicate
+  if (writer && threadIdx.x == 0) {
+    int n_on = 0;
+    for (int q = 0; q < kWarps; ++q) n_on += s_cnt[q];
+    const int it = ctl_0 + 1;
     ctl[0] = it;
-    ctl[1] = n_act;
-    const int go = n_act > 0 && it < maxiter;
+    ctl[1] = n_on;
+    const int go = n_on > 0 && it < maxiter;
     cond[0] = go;
     *total += 1;
     if (handle) cudaGraphSetConditional(handle, go);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cg_direction_kernel(T* __restrict__ p, const T* __restrict__ z, const T* __restrict__ beta,
-                    const unsigned char* __restrict__ act, int n) {
-  const int b = blockIdx.y;
-  if (!act[b]) return;
-  const T be = beta[b];
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += gridDim.x * kThreads) {
-    const size_t k = (size_t)b * n + i;
-    p[k] = z[k] + be * p[k];
-  }
-}
-
 bool bad_shape(int n, int m, int batch, int grid) {
   return n <= 0 || m <= 0 || batch <= 0 || batch > 65535 || grid <= 0;
+}
+
+// Blocks of cg_update_direction that the current card holds at once.
+int resident_blocks(bool f64) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  const cudaError_t err =
+      f64 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, cg_update_direction_kernel<double>, kThreads, 0)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, cg_update_direction_kernel<float>, kThreads, 0);
+  return err == cudaSuccess ? per_sm * sms : 0;
 }
 
 }  // namespace
@@ -301,54 +498,71 @@ extern "C" int dkmc_cg_matvec_dot(int is_f64, const void* diag, const void* vals
   return (int)cudaGetLastError();
 }
 
-extern "C" int dkmc_cg_update(int is_f64, void* x, void* r, void* z, const void* p,
-                              const void* ap, const void* minv, void* act, const void* act0,
-                              const void* alpha, void* beta, void* rz, void* rr,
-                              const void* thresh2, void* iters, void* part, void* tickets,
-                              void* ctl, void* cond, void* total, unsigned long long handle,
-                              int n, int batch, int grid, int maxiter, void* stream) {
-  if (bad_shape(n, 1, batch, grid)) return (int)cudaErrorInvalidValue;
-  const dim3 g(grid, batch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+// The grid of cg_update_direction for B = batch replicas of n rows: `per`
+// consecutive (replica, tile) items a block, as few a block as the resident
+// blocks allow, and no block without one.  cudaErrorCooperativeLaunchTooLarge
+// when no block is resident or a block's items would span more than
+// kMaxSpan replicas.
+extern "C" int dkmc_cg_update_direction_grid(int is_f64, int n, int batch, int* grid,
+                                             int* per) {
+  if (bad_shape(n, 1, batch, 1)) return (int)cudaErrorInvalidValue;
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  const long long items = batch * n_tiles;
+  const int cap = resident_blocks(is_f64 != 0);
+  if (cap <= 0 || items > 0x7fffffffLL) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const long long pr = (items + cap - 1) / cap;
+  if ((pr + n_tiles - 2) / n_tiles + 1 > kMaxSpan)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  *per = (int)pr;
+  *grid = (int)((items + pr - 1) / pr);
+  return 0;
+}
+
+extern "C" int dkmc_cg_update_direction(int is_f64, void* x, void* r, void* p, const void* ap,
+                                        const void* minv, void* act, const void* act0,
+                                        const void* alpha, void* beta, void* rz, void* rr,
+                                        const void* thresh2, void* iters, void* part,
+                                        void* bar, void* ctl, void* cond, void* total,
+                                        unsigned long long handle, int n, int batch,
+                                        int maxiter, void* stream) {
+  int grid = 0, per = 0;
+  const int err = dkmc_cg_update_direction_grid(is_f64, n, batch, &grid, &per);
+  if (err != 0) return err;
+  // a cooperative launch: every block resident at once, as the barrier needs
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   auto* a = static_cast<unsigned char*>(act);
   const auto* a0 = static_cast<const unsigned char*>(act0);
   auto* it = static_cast<long long*>(iters);
-  auto* tk = static_cast<int*>(tickets);
+  auto* b = static_cast<unsigned*>(bar);
   auto* c = static_cast<int*>(ctl);
   auto* cd = static_cast<int*>(cond);
   auto* tot = static_cast<unsigned long long*>(total);
+  cudaError_t e;
   if (is_f64)
-    cg_update_kernel<double><<<g, kThreads, 0, st>>>(
-        static_cast<double*>(x), static_cast<double*>(r), static_cast<double*>(z),
-        static_cast<const double*>(p), static_cast<const double*>(ap),
-        static_cast<const double*>(minv), a, a0, static_cast<const double*>(alpha),
-        static_cast<double*>(beta), static_cast<double*>(rz), static_cast<double*>(rr),
-        static_cast<const double*>(thresh2), it, static_cast<double*>(part), tk, c, cd, tot,
-        handle, n, batch, maxiter);
+    e = cudaLaunchKernelEx(&cfg, cg_update_direction_kernel<double>, static_cast<double*>(x),
+                           static_cast<double*>(r), static_cast<double*>(p),
+                           static_cast<const double*>(ap), static_cast<const double*>(minv), a,
+                           a0, static_cast<const double*>(alpha), static_cast<double*>(beta),
+                           static_cast<double*>(rz), static_cast<double*>(rr),
+                           static_cast<const double*>(thresh2), it, static_cast<double*>(part),
+                           b, c, cd, tot, handle, n, batch, per, maxiter);
   else
-    cg_update_kernel<float><<<g, kThreads, 0, st>>>(
-        static_cast<float*>(x), static_cast<float*>(r), static_cast<float*>(z),
-        static_cast<const float*>(p), static_cast<const float*>(ap),
-        static_cast<const float*>(minv), a, a0, static_cast<const float*>(alpha),
-        static_cast<float*>(beta), static_cast<float*>(rz), static_cast<float*>(rr),
-        static_cast<const float*>(thresh2), it, static_cast<float*>(part), tk, c, cd, tot,
-        handle, n, batch, maxiter);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int dkmc_cg_direction(int is_f64, void* p, const void* z, const void* beta,
-                                 const void* act, int n, int batch, int grid, void* stream) {
-  if (bad_shape(n, 1, batch, grid)) return (int)cudaErrorInvalidValue;
-  const dim3 g(grid, batch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* a = static_cast<const unsigned char*>(act);
-  if (is_f64)
-    cg_direction_kernel<double><<<g, kThreads, 0, st>>>(
-        static_cast<double*>(p), static_cast<const double*>(z),
-        static_cast<const double*>(beta), a, n);
-  else
-    cg_direction_kernel<float><<<g, kThreads, 0, st>>>(
-        static_cast<float*>(p), static_cast<const float*>(z), static_cast<const float*>(beta),
-        a, n);
-  return (int)cudaGetLastError();
+    e = cudaLaunchKernelEx(&cfg, cg_update_direction_kernel<float>, static_cast<float*>(x),
+                           static_cast<float*>(r), static_cast<float*>(p),
+                           static_cast<const float*>(ap), static_cast<const float*>(minv), a,
+                           a0, static_cast<const float*>(alpha), static_cast<float*>(beta),
+                           static_cast<float*>(rz), static_cast<float*>(rr),
+                           static_cast<const float*>(thresh2), it, static_cast<float*>(part), b,
+                           c, cd, tot, handle, n, batch, per, maxiter);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 """The warm boundary CG of a captured superstep: B replicas' Jacobi CG as one
-device loop (``ops.graph.device_while``) whose body is three hand-written
+device loop (``ops.graph.device_while``) whose body is two hand-written
 kernels (``csrc/boundary_cg.cu``).
 
 Replaces the JAX package's device loop of the boundary solve, the
@@ -8,9 +8,9 @@ Jacobi) inside its jitted superstep.  :func:`cg_solve_device` computes what
 ``ops.cg.cg_solve_batched`` computes, with the same stop rule and counts,
 and reads nothing back: the setup is PyTorch operations on the device, the
 loop a WHILE node entered on its predicate, each iteration
-:func:`cg_matvec_dot`, :func:`cg_update` (which sets the predicate) and
-:func:`cg_direction` on the buffers of a :class:`Workspace` made before the
-capture, so nothing allocates inside the loop.  For CPU tensors the loop is
+:func:`cg_matvec_dot` and :func:`cg_update_direction` (which sets the
+predicate) on the buffers of a :class:`Workspace` made before the capture, so
+nothing allocates inside the loop.  For CPU tensors the loop is
 the plain ``while`` of ``device_while`` and each kernel wrapper runs its
 plain version, the arithmetic of ``cg_solve_batched`` in its order, so the
 CPU result is ``cg_solve_batched``'s bit for bit.  On the card the kernels
@@ -34,12 +34,11 @@ from .cg import BatchedCGResult, rowdot
 from .ell import ell_matvec, safe_index
 from .graph import device_while
 
-#: threads a block of the three kernels
+#: threads a block of the two kernels
 THREADS = 256
-#: blocks a replica of cg_update and cg_direction at most: four a streaming
-#: multiprocessor of an H100, so that a replica's reduction order depends on
-#: N alone
-MAX_GRID = 4 * _build.H100_SMS
+#: rows a tile of cg_update_direction (two a thread), whose partial sums have
+#: a slot of their own: a replica's reduction order depends on N alone
+TILE = 2 * THREADS
 #: rows a group of cg_matvec_dot, what a block takes at a time: 16 lanes a
 #: row, two rows a warp
 MATVEC_ROWS = 16
@@ -48,9 +47,9 @@ MATVEC_ROWS = 16
 MATVEC_GRID = 4 * _build.H100_SMS
 
 
-def grid_size(n: int) -> int:
-    """Blocks a replica of cg_update and cg_direction for ``n`` rows."""
-    return max(1, min(-(-n // THREADS), MAX_GRID))
+def n_tiles(n: int) -> int:
+    """Tiles of cg_update_direction for ``n`` rows."""
+    return -(-n // TILE)
 
 
 def matvec_grid_size(n: int) -> int:
@@ -61,21 +60,22 @@ def matvec_grid_size(n: int) -> int:
 @dataclass
 class Workspace:
     """The buffers of one batched solve, made before a capture.  [B, N]: the
-    iterate ``x``, residual ``r``, preconditioned residual ``z``, direction
-    ``p``, its product ``ap``, the inverse Jacobi diagonal ``minv``; [B]:
+    iterate ``x``, residual ``r``, direction ``p``, its product ``ap``, the
+    inverse Jacobi diagonal ``minv``; [B]:
     ``rz`` (r.z), ``rr`` (r.r), ``thresh2``, ``alpha``, ``beta``, the
     replicas asked to solve ``act0`` and iterating ``act``, the counts
     ``iters``; ``ctl`` int32 [iterations run, replicas iterating], ``cond``
     the loop's int32 [1] predicate, ``total`` the iterations run since it
-    was last set to 0 (int64 [1]); ``part`` the blocks' partial sums,
-    ``tickets`` their int32 tickets (zero between launches); ``row_len``
-    the operator's valid prefix a row, -1 on contact rows (int32 [N],
-    :func:`row_lengths`: the structure cg_matvec_dot reads on the card); the
-    grids a replica of cg_update and cg_direction (``grid``) and
-    cg_matvec_dot (``grid_mv``)."""
+    was last set to 0 (int64 [1]); ``part`` the partial sums of
+    cg_matvec_dot's blocks and of cg_update_direction's tiles, ``tickets``
+    cg_matvec_dot's int32 tickets (zero between launches), ``bar``
+    cg_update_direction's grid barrier (int32 [1], whose top bit flips at
+    each barrier); ``row_len`` the operator's valid
+    prefix a row, -1 on contact rows (int32 [N], :func:`row_lengths`: the
+    structure cg_matvec_dot reads on the card); ``grid_mv`` the blocks a
+    replica of cg_matvec_dot."""
     x: torch.Tensor
     r: torch.Tensor
-    z: torch.Tensor
     p: torch.Tensor
     ap: torch.Tensor
     minv: torch.Tensor
@@ -92,8 +92,8 @@ class Workspace:
     total: torch.Tensor
     part: torch.Tensor
     tickets: torch.Tensor
+    bar: torch.Tensor
     row_len: torch.Tensor
-    grid: int
     grid_mv: int
 
 
@@ -116,13 +116,13 @@ def workspace(batch: int, neigh_idx: torch.Tensor, interior: torch.Tensor, dtype
     :func:`apply_operator`'s ``op``), with its :func:`row_lengths`."""
     dev = torch.device(device)
     n = interior.shape[0]
-    grid, grid_mv = grid_size(n), matvec_grid_size(n)
+    grid_mv = matvec_grid_size(n)
 
     def vec(*shape):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     return Workspace(
-        x=vec(batch, n), r=vec(batch, n), z=vec(batch, n), p=vec(batch, n),
+        x=vec(batch, n), r=vec(batch, n), p=vec(batch, n),
         ap=vec(batch, n), minv=vec(batch, n), rz=vec(batch), rr=vec(batch),
         thresh2=vec(batch), alpha=vec(batch), beta=vec(batch),
         act0=torch.zeros(batch, dtype=torch.bool, device=dev),
@@ -131,20 +131,20 @@ def workspace(batch: int, neigh_idx: torch.Tensor, interior: torch.Tensor, dtype
         ctl=torch.zeros(2, dtype=torch.int32, device=dev),
         cond=torch.zeros(1, dtype=torch.int32, device=dev),
         total=torch.zeros(1, dtype=torch.int64, device=dev),
-        part=vec(batch * max(2 * grid, grid_mv)),
-        tickets=torch.zeros(batch + 1, dtype=torch.int32, device=dev),
-        row_len=row_lengths(neigh_idx, interior).to(dev).contiguous(), grid=grid,
-        grid_mv=grid_mv)
+        part=vec(batch * max(2 * n_tiles(n), grid_mv)),
+        tickets=torch.zeros(batch, dtype=torch.int32, device=dev),
+        bar=torch.zeros(1, dtype=torch.int32, device=dev),
+        row_len=row_lengths(neigh_idx, interior).to(dev).contiguous(), grid_mv=grid_mv)
 
 
 def device_iterations(ws: Workspace) -> int:
     """Iterations run on ``ws`` since ``ws.total`` was last set to 0 (a read):
-    the launches of each of the three kernels."""
+    the launches of each of the two kernels."""
     return int(ws.total)
 
 
 # ----------------------------------------------------------------------------
-# the three kernels (CUDA tensors only)
+# the two kernels (CUDA tensors only)
 # ----------------------------------------------------------------------------
 
 def _fn(symbol):
@@ -153,8 +153,9 @@ def _fn(symbol):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
             "dkmc_cg_matvec_dot": [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
-            "dkmc_cg_update": [i] + [p] * 19 + [ctypes.c_ulonglong, i, i, i, i, p],
-            "dkmc_cg_direction": [i, p, p, p, p, i, i, i, p],
+            "dkmc_cg_update_direction": [i] + [p] * 18 + [ctypes.c_ulonglong, i, i, i, p],
+            "dkmc_cg_update_direction_grid": [i, i, i, ctypes.POINTER(i),
+                                              ctypes.POINTER(i)],
         }[symbol]
         fn.restype = ctypes.c_int
     return fn
@@ -219,16 +220,16 @@ def cg_matvec_dot(ws: Workspace, op, stream=None) -> None:
 cg_matvec_dot.launches = 0
 
 
-def cg_update_plain(ws: Workspace, maxiter: int) -> None:
-    """The plain version of :func:`cg_update` (``z`` and ``beta`` of every
-    replica, the rest where it iterates), in ``cg_solve_batched``'s
-    arithmetic."""
+def cg_update_direction_plain(ws: Workspace, maxiter: int) -> None:
+    """The plain version of :func:`cg_update_direction` (``beta`` and ``p``
+    of every replica, the rest where it iterates), in ``cg_solve_batched``'s
+    arithmetic; the preconditioned residual ``z`` is a local."""
     act = ws.act
     alpha = ws.alpha[:, None]
     x_n = ws.x + alpha * ws.p
     r_n = ws.r - alpha * ws.ap
-    ws.z.copy_(ws.minv * r_n)
-    rz_n = rowdot(r_n, ws.z)
+    z = ws.minv * r_n
+    rz_n = rowdot(r_n, z)
     ws.beta.copy_(torch.where(ws.rz != 0, rz_n / ws.rz, 0.0))
     a2 = act[:, None]
     ws.x.copy_(torch.where(a2, x_n, ws.x))
@@ -238,46 +239,44 @@ def cg_update_plain(ws: Workspace, maxiter: int) -> None:
     ws.ctl[0] += 1
     ws.total += 1
     _decide(ws, maxiter)
+    ws.p.copy_(z + ws.beta[:, None] * ws.p)
 
 
-def cg_update(ws: Workspace, maxiter: int, handle: int = 0, stream=None) -> None:
-    """The iterate, residual and preconditioned residual of each iterating
-    replica, its r.z, r.r, beta and count; then the stop flags, the
-    iterations run and the predicate ``ws.cond``, also set as the condition
-    of the WHILE node ``handle`` (0: none)."""
+def update_direction_grid(ws: Workspace) -> Tuple[int, int]:
+    """``(blocks, tiles a block)`` of :func:`cg_update_direction` on ``ws``'s
+    card: as few tiles a block as the blocks the card holds at once allow.
+    Raises when no grid of resident blocks can take the solve."""
+    B, n = _check_ws("cg_update_direction", ws)
+    grid, per = ctypes.c_int(0), ctypes.c_int(0)
+    err = _fn("dkmc_cg_update_direction_grid")(int(ws.x.dtype == torch.float64), n, B,
+                                               ctypes.byref(grid), ctypes.byref(per))
+    if err != 0:
+        raise RuntimeError(f"cg_update_direction: no grid of resident blocks takes {B} "
+                           f"replicas of {n} rows: cudaError {err}")
+    return grid.value, per.value
+
+
+def cg_update_direction(ws: Workspace, maxiter: int, handle: int = 0, stream=None) -> None:
+    """The iterate, residual and direction of each iterating replica, its
+    r.z, r.r, beta and count; then the stop flags, the iterations run and the
+    predicate ``ws.cond``, also set as the condition of the WHILE node
+    ``handle`` (0: none).  On the card one cooperative launch whose grid the
+    card holds at once (:func:`update_direction_grid`; raises when none
+    can)."""
     if ws.x.device.type == "cpu":
-        return cg_update_plain(ws, maxiter)
-    B, n = _check_ws("cg_update", ws)
-    _launched("cg_update", _fn("dkmc_cg_update")(
-        int(ws.x.dtype == torch.float64), ws.x.data_ptr(), ws.r.data_ptr(), ws.z.data_ptr(),
-        ws.p.data_ptr(), ws.ap.data_ptr(), ws.minv.data_ptr(), ws.act.data_ptr(),
-        ws.act0.data_ptr(), ws.alpha.data_ptr(), ws.beta.data_ptr(), ws.rz.data_ptr(),
-        ws.rr.data_ptr(), ws.thresh2.data_ptr(), ws.iters.data_ptr(), ws.part.data_ptr(),
-        ws.tickets.data_ptr(), ws.ctl.data_ptr(), ws.cond.data_ptr(), ws.total.data_ptr(),
-        handle, n, B, ws.grid, int(maxiter), _stream(ws, stream)))
-    cg_update.launches += 1
+        return cg_update_direction_plain(ws, maxiter)
+    B, n = _check_ws("cg_update_direction", ws)
+    _launched("cg_update_direction", _fn("dkmc_cg_update_direction")(
+        int(ws.x.dtype == torch.float64), ws.x.data_ptr(), ws.r.data_ptr(), ws.p.data_ptr(),
+        ws.ap.data_ptr(), ws.minv.data_ptr(), ws.act.data_ptr(), ws.act0.data_ptr(),
+        ws.alpha.data_ptr(), ws.beta.data_ptr(), ws.rz.data_ptr(), ws.rr.data_ptr(),
+        ws.thresh2.data_ptr(), ws.iters.data_ptr(), ws.part.data_ptr(), ws.bar.data_ptr(),
+        ws.ctl.data_ptr(), ws.cond.data_ptr(), ws.total.data_ptr(), handle, n, B,
+        int(maxiter), _stream(ws, stream)))
+    cg_update_direction.launches += 1
 
 
-cg_update.launches = 0
-
-
-def cg_direction_plain(ws: Workspace) -> None:
-    """The plain version of :func:`cg_direction` (every replica)."""
-    ws.p.copy_(ws.z + ws.beta[:, None] * ws.p)
-
-
-def cg_direction(ws: Workspace, stream=None) -> None:
-    """``ws.p = ws.z + beta ws.p`` of each replica still iterating."""
-    if ws.x.device.type == "cpu":
-        return cg_direction_plain(ws)
-    B, n = _check_ws("cg_direction", ws)
-    _launched("cg_direction", _fn("dkmc_cg_direction")(
-        int(ws.x.dtype == torch.float64), ws.p.data_ptr(), ws.z.data_ptr(),
-        ws.beta.data_ptr(), ws.act.data_ptr(), n, B, ws.grid, _stream(ws, stream)))
-    cg_direction.launches += 1
-
-
-cg_direction.launches = 0
+cg_update_direction.launches = 0
 
 
 # ----------------------------------------------------------------------------
@@ -321,11 +320,10 @@ def cg_setup(op, b: torch.Tensor, x0: torch.Tensor, diag: torch.Tensor, tol: flo
 
 
 def cg_iteration(ws: Workspace, op, maxiter: int, handle: int = 0, stream=None) -> None:
-    """One iteration: the three kernels (their plain versions for CPU
+    """One iteration: the two kernels (their plain versions for CPU
     tensors)."""
     cg_matvec_dot(ws, op, stream)
-    cg_update(ws, maxiter, handle, stream)
-    cg_direction(ws, stream)
+    cg_update_direction(ws, maxiter, handle, stream)
 
 
 def cg_solve_device(op, b: torch.Tensor, x0: torch.Tensor, diag: torch.Tensor, tol: float,

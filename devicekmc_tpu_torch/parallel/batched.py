@@ -50,7 +50,8 @@ def make_batched_superstep(geom: Geometry, params: PhysParams, heat, mesh=None):
     that B (``superstep.SuperstepGraph.step_batched``; on the CPU its plain
     version), as the JAX package jits its vmap
     (``devicekmc_tpu/parallel/batched.py:47-51``), and read nothing back; the
-    returned tensors are copies of the graph's outputs.  The others run
+    returned tensors are copies of the graph's outputs (the function's
+    ``graphs``: its ``SuperstepGraph`` by B).  The others run
     ``superstep.superstep_batched`` eagerly."""
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
@@ -64,6 +65,7 @@ def make_batched_superstep(geom: Geometry, params: PhysParams, heat, mesh=None):
                 graphs[B] = SuperstepGraph(geom, params, B)
             return graphs[B].step_batched(states, Vd)
 
+        superstep.graphs = graphs
         return superstep
 
     def superstep(states: SimState, Vd: float):

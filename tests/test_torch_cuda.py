@@ -1283,7 +1283,7 @@ def _matvec(op, p, rz, act):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
 def test_cuda_boundary_cg_kernels_match_plain(dtype, tol):
-    """The three kernels, launched eagerly in a loop that reads the predicate,
+    """The two kernels, launched eagerly in a loop that reads the predicate,
     against cg_solve_batched (its plain version) on three replicas, one not
     solving: equal iteration counts, the iterate within tol of its scale,
     the inactive replica untouched, and the kernels' iterations counted on
@@ -1325,8 +1325,7 @@ def test_cuda_boundary_cg_kernels_match_plain(dtype, tol):
     stream = torch.cuda.current_stream().cuda_stream
     while int(ws.cond):
         bcg.cg_matvec_dot(ws, op, stream)
-        bcg.cg_update(ws, 5000, 0, stream)
-        bcg.cg_direction(ws, stream)
+        bcg.cg_update_direction(ws, 5000, 0, stream)
     got, want = ws.iters.tolist(), ref.iters.tolist()
     assert want[0] > 5 and got[1] == want[1] == 0
     if dtype == torch.float64:
@@ -1339,6 +1338,103 @@ def test_cuda_boundary_cg_kernels_match_plain(dtype, tol):
     assert float((ws.x - ref.x).abs().max()) <= tol * scale
     assert torch.equal(ws.x[1], x0[1])
     assert ws.rr.le(ws.thresh2).tolist() == ref.converged.tolist()
+
+
+#: rows of the vectors cg_update_direction is checked on: 391 tiles of 512
+#: rows, the last one partial: at B = 1 a block a tile (an H100 holds 528 or
+#: more blocks of it), at B = 3 and 8 several tiles a block (the direction
+#: reads r, minv and p again for all but its first), a block's tiles
+#: spanning two replicas
+UD_ROWS = 200_001
+
+
+def _update_state(B, dtype, seed=0, n=UD_ROWS):
+    """A workspace of B replicas of ``n`` rows in the middle of a solve
+    (random iterate, residual, direction, its product, Jacobi inverse, alpha
+    and r.z; r.r as stored by the last iteration), every replica asked to
+    solve and iterating; the structure a one-row-per-site chain.  Each
+    replica's values depend on its seed alone."""
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+
+    nb = torch.full((n, 1), -1, dtype=torch.int32)
+    ws = bcg.workspace(B, nb, torch.ones(n, dtype=torch.bool), dtype, "cuda")
+    for b in range(B):
+        rng = np.random.default_rng(seed + b)
+        for name in ("x", "r", "p", "ap"):
+            getattr(ws, name)[b] = torch.as_tensor(rng.standard_normal(n))
+        ws.minv[b] = torch.as_tensor(rng.uniform(0.02, 0.05, n))
+        ws.alpha[b], ws.rz[b], ws.rr[b] = (float(v) for v in rng.uniform(0.5, 1.5, 3))
+    ws.act0.fill_(True)
+    ws.act.fill_(True)
+    ws.ctl[1] = B
+    return ws
+
+
+def _clone_ws(ws):
+    import dataclasses
+
+    return dataclasses.replace(ws, **{f.name: getattr(ws, f.name).clone()
+                                      for f in dataclasses.fields(ws)
+                                      if isinstance(getattr(ws, f.name), torch.Tensor)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
+def test_cuda_cg_update_direction_matches_plain(dtype, tol):
+    """cg_update_direction against its plain version at B = 1, 3 and 8 on
+    vectors of 200,001 rows: x, r, p, r.z, r.r and beta of every iterating
+    replica within tol of their scale, counts, flags, the loop's count and
+    predicate equal; a replica not solving untouched (its p too); a replica
+    whose r.r falls under its threshold stops, its p still updated; the
+    predicate 0 once the loop reaches maxiter; the grid within the blocks
+    the card holds at once; each replica's bits at B = 3 and 8 those of its
+    own launch at B = 1."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+
+    fields = ("x", "r", "p", "rz", "rr", "beta")
+    maxiter = 40
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B in (1, 3, 8):
+        for capped in (False, True):
+            ws = _update_state(B, dtype)
+            if capped:
+                ws.ctl[0] = maxiter - 1
+            if B > 1:
+                ws.act0[1] = ws.act[1] = False
+                ws.ctl[1] = B - 1
+                ws.thresh2[2] = 1e30         # r.r falls under it: stops now
+            grid, per = bcg.update_direction_grid(ws)
+            assert grid * per >= B * bcg.n_tiles(UD_ROWS) and grid <= 8 * sms
+            assert (per > 1) == (B > 1)
+            before, ref = _clone_ws(ws), _clone_ws(ws)
+            bcg.cg_update_direction(ws, maxiter)
+            bcg.cg_update_direction_plain(ref, maxiter)
+            torch.cuda.synchronize()
+            on = [b for b in range(B) if B == 1 or b != 1]
+            for f in fields:
+                got, want = getattr(ws, f)[on], getattr(ref, f)[on]
+                scale = float(want.abs().max())
+                assert float((got - want).abs().max()) <= tol * scale, (B, capped, f)
+            for f in ("iters", "act", "ctl", "cond", "total"):
+                assert torch.equal(getattr(ws, f), getattr(ref, f)), (B, capped, f)
+            assert int(ws.cond) == (0 if capped else 1) and int(ws.ctl[0]) == (
+                maxiter if capped else 1)
+            if B > 1:
+                assert ws.act.tolist()[:3] == [True, False, False]
+                assert ws.iters.tolist()[:3] == [1, 0, 1] and int(ws.ctl[1]) == B - 2
+                for f in fields:
+                    assert torch.equal(getattr(ws, f)[1], getattr(before, f)[1]), (B, f)
+                assert not torch.equal(ws.p[2], before.p[2])
+    for B in (3, 8):
+        ws = _update_state(B, dtype)
+        bcg.cg_update_direction(ws, maxiter)
+        for b in range(B):
+            one = _update_state(1, dtype, seed=b)
+            bcg.cg_update_direction(one, maxiter)
+            torch.cuda.synchronize()
+            for f in fields + ("iters", "act"):
+                assert torch.equal(getattr(one, f)[0], getattr(ws, f)[b]), (B, b, f)
 
 
 def _capture_solve(B, dtype, active, maxiter=5000):

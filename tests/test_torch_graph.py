@@ -394,6 +394,81 @@ def test_cg_device_plain_matches_cg_solve_batched(both, active, maxiter):
             assert 10 < int(got.iters[k]) < maxiter
 
 
+def _parent_update(ws, z, maxiter):
+    """The update of the boundary CG's body before it was fused with the
+    direction (x, r, z = M^-1 r, r.z, beta, counts, then the stop flags and
+    the predicate), in that version's arithmetic, with ``z`` a buffer of its
+    own."""
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.ops.cg import rowdot
+
+    act = ws.act
+    alpha = ws.alpha[:, None]
+    x_n = ws.x + alpha * ws.p
+    r_n = ws.r - alpha * ws.ap
+    z.copy_(ws.minv * r_n)
+    rz_n = rowdot(r_n, z)
+    ws.beta.copy_(torch.where(ws.rz != 0, rz_n / ws.rz, 0.0))
+    a2 = act[:, None]
+    ws.x.copy_(torch.where(a2, x_n, ws.x))
+    ws.r.copy_(torch.where(a2, r_n, ws.r))
+    ws.rz.copy_(torch.where(act, rz_n, ws.rz))
+    ws.iters.add_(act)
+    ws.ctl[0] += 1
+    ws.total += 1
+    bcg._decide(ws, maxiter)
+
+
+@pytest.mark.parametrize("maxiter", [50000, 4])
+def test_cg_update_direction_plain_matches_parent_pair(both, maxiter):
+    """cg_update_direction_plain against the update and the direction of the
+    body before they were fused (``_parent_update``, then p = z + beta p), on
+    three replicas of the small stack's boundary system, one not solving, the
+    others stopping at their own iteration or at the cap ``maxiter``: after
+    every iteration x, r, p, r.z, r.r, beta, the counts, the flags, the
+    loop's count and predicate equal bit for bit."""
+    import dataclasses
+
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.parallel.batched import batch_states
+    from devicekmc_tpu_torch.physics import potential as pot
+
+    _, (tg, tp, ts) = both
+    states = batch_states(ts, 3)
+    edge_g = pot._edge_conductance_boundary(tg, states, tp)
+    masks = (tg.bp_left_mask, tg.bp_right_mask, tg.bp_interior_mask)
+    b, _, diag, vals, pre = pot._dirichlet_system(tg, edge_g, -1.25, 1.25, masks)
+    rng = np.random.default_rng(5)
+    x0 = torch.where(tg.bp_interior_mask,
+                     torch.as_tensor(rng.standard_normal((3, tg.N)) * [[1.0], [1.0], [1e-3]]), 0.0)
+    op = (diag, vals, tg.neigh_idx, tg.bp_interior_mask)
+    act = torch.tensor([True, False, True])
+    ws = bcg.workspace(3, tg.neigh_idx, tg.bp_interior_mask, torch.float64, "cpu")
+    bcg.cg_setup(op, b, x0, pre, 1e-12, maxiter, act, ws)
+    old = dataclasses.replace(ws, **{f.name: getattr(ws, f.name).clone()
+                                     for f in dataclasses.fields(ws)
+                                     if isinstance(getattr(ws, f.name), torch.Tensor)})
+    z = torch.zeros_like(ws.x)
+    fields = ("x", "r", "p", "rz", "rr", "beta", "iters", "act", "ctl", "cond", "total")
+    stops = []
+    while int(ws.cond):
+        bcg.cg_matvec_dot(ws, op)
+        bcg.cg_matvec_dot(old, op)
+        bcg.cg_update_direction_plain(ws, maxiter)
+        _parent_update(old, z, maxiter)
+        old.p.copy_(z + old.beta[:, None] * old.p)
+        for f in fields:
+            assert torch.equal(getattr(ws, f), getattr(old, f)), (int(ws.ctl[0]), f)
+        stops.append(ws.act.tolist())
+    assert not int(old.cond) and int(ws.iters[1]) == 0
+    if maxiter == 4:
+        assert ws.iters.tolist() == [4, 0, 4] and stops[-1] == [True, False, True]
+    else:
+        # the replicas stop at iterations of their own, one while the other runs
+        assert [True, False, False] in stops or [False, False, True] in stops
+        assert 10 < int(ws.ctl[0]) < maxiter
+
+
 def _crossbar_geometry():
     """A small synthetic crossbar (``structure.make_crossbar_structure``)
     with the headline's site order "x", built by the port on the CPU."""

@@ -18,10 +18,22 @@ crossbar's shapes (108,944 sites; the state after two graph supersteps):
   ``torch.sparse.mm`` of the same operator in CSR, the nonzero bound and
   the 32-byte sectors that the rows' valid prefixes span.
 
+* the boundary CG's update and direction at the same system: through the
+  package's wrappers, the update and direction kernels (the parent's pair
+  ``cg_update`` + ``cg_direction``, beside ``torch.addcmul``, the one
+  PyTorch call for the direction; or the fused ``cg_update_direction``)
+  back to back and with a cold L2, also at B = 8 and 32 (the replica
+  copied), beside their bytes bound; the captured solve a WHILE node, its
+  time an iteration; the ensemble's captured superstep at B = 8 and 32; and
+  a copy of the update kernel's source with ``clock64()`` stamps at the end
+  of each phase in every block (UPDATE_STAMPS, for whichever of the two
+  designs the measured package has), the medians and maxima of each phase
+  over the blocks.
+
 ``--pkg DIR`` measures the package of another checkout instead (its
-kernels through its wrappers; no stamps, no variants), so that two designs
-are timed in turns on one card, one process each, e.g. the parent
-commit's:
+kernels through its wrappers, the stamps of its update kernel; no event
+stamps, no variants), so that two designs are timed in turns on one card,
+one process each, e.g. the parent commit's:
 
     git archive HEAD~1 devicekmc_tpu_torch setup.py | tar -x -C build/parent
     python3 tools/probe_cg_events.py --pkg build/parent --out build/p1.json
@@ -29,11 +41,12 @@ commit's:
 
 ``--variants`` also times this checkout's matvec rebuilt with other lanes a
 row and slots a lane at several grids, and with parts of its work taken out,
-and reports the event loop's phases with 4 or 16 lanes a touched row and
-block.  Needs the card:
+reports the event loop's phases with 4 or 16 lanes a touched row and block,
+and times ``cg_update_direction`` with other tiles and a launch that is not
+cooperative (UPDATE_VARIANTS).  Needs the card:
 
     python3 tools/probe_cg_events.py [--events 200] [--variants] [--pkg DIR]
-        [--out build/probe_cg_events.json]
+        [--parts events,matvec,update] [--out build/probe_cg_events.json]
 """
 
 import argparse
@@ -358,25 +371,14 @@ def matvec_probe(cs, sim, variants):
     out."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from devicekmc_tpu_torch.ops import boundary_cg as bcg
-    from devicekmc_tpu_torch.physics import potential as pot
-    from devicekmc_tpu_torch.state import stack_states
 
-    geom, params = sim.geom, sim.params
-    states = stack_states([sim.state])
+    geom = sim.geom
     interior = geom.bp_interior_mask
-    masks = (geom.bp_left_mask, geom.bp_right_mask, interior)
-    edge_g = pot._edge_conductance_boundary(geom, states, params)
-    b, _, diag, vals, pre = pot._dirichlet_system(geom, edge_g, -cs.VD_MAIN / 2,
-                                                  cs.VD_MAIN / 2, masks)
-    op = (diag, vals, geom.neigh_idx, interior)
-    rng = np.random.default_rng(7)
-    noise = torch.as_tensor(cs.CG_NOISE * rng.standard_normal(geom.N), device="cuda")
-    x0 = torch.where(interior, states.potential_boundary + noise, 0.0)
-    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    op, b, x0, pre, active, _ = boundary_system(cs, sim)
+    diag, vals = op[:2]
     ws = make_workspace(bcg, geom, b.dtype)
     if variants:
         ws.part = torch.zeros(geom.N, dtype=b.dtype, device="cuda")  # room for any grid
@@ -462,16 +464,396 @@ def matvec_probe(cs, sim, variants):
     return res
 
 
+#: clock64() stamps of the boundary CG's update kernel, by the kernel the
+#: measured source has: (text that occurs once, stamp, "after" or "before"
+#: it); thread 0 of every block writes stamp k at its point (a block that
+#: leaves early writes none of the later ones), and the phases between them
+#: are named in UPDATE_PHASES
+UPDATE_STAMPS = {
+    "cg_update_direction_kernel": (
+        ("  if (writer && threadIdx.x == 0) ctl_0 = ctl[0];\n", 0, "after"),
+        ("  // 2. every tile's partial sums written\n", 1, "before"),
+        ("  // 3. r.z, r.r and beta of the replicas spanned", 2, "before"),
+        ("  // 4. the direction of each tile", 3, "before"),
+        ("  // 5. block 0: the iterations run", 4, "before"),
+        ("    if (handle) cudaGraphSetConditional(handle, go);\n  }\n", 5, "after"),
+    ),
+    "cg_update_kernel": (
+        ("  const T a = alpha[b];\n  T s_rz = 0, s_rr = 0;\n", 0, "after"),
+        ("  if (!last_ticket(tickets, b, grid, &s_flag)) return;\n  // this replica's", 1,
+         "before"),
+        ("  // this replica's last block: its r.z and r.r, beta and count\n", 2, "before"),
+        ("  // the loop's ticket, one a replica that iterated", 3, "before"),
+        ("  if (threadIdx.x == 0) {\n    const int it = ctl[0] + 1;", 4, "before"),
+        ("    if (handle) cudaGraphSetConditional(handle, go);\n  }\n", 5, "after"),
+    ),
+}
+UPDATE_PHASES = {
+    "cg_update_direction_kernel": ("update, partial sums", "grid barrier",
+                                   "r.z, r.r, beta of the replicas spanned", "direction",
+                                   "block 0: flags, count, predicate"),
+    "cg_update_kernel": ("update, partial sums", "the replica's ticket",
+                         "the last block: two sums of the partials", "the loop's ticket",
+                         "the loop's last block: flags, count, predicate"),
+}
+UPDATE_PROBE_BLOCKS = 8192
+UPDATE_STAMP_DEFS = """
+__device__ long long g_cg_stamps[%(b)d * 6];
+__device__ unsigned long long g_cg_gt[%(b)d * 2];
+#define CG_STAMP(k)                                                              \\
+  do {                                                                           \\
+    const unsigned blk_ = blockIdx.x + gridDim.x * blockIdx.y;                   \\
+    if (threadIdx.x == 0 && blk_ < %(b)d) {                                      \\
+      g_cg_stamps[blk_ * 6 + (k)] = clock64();                                   \\
+      if ((k) == 0 || (k) == 5) {                                                \\
+        unsigned long long t_;                                                   \\
+        asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(t_));                \\
+        g_cg_gt[blk_ * 2 + ((k) == 5)] = t_;                                     \\
+      }                                                                          \\
+    }                                                                            \\
+  } while (0)
+""" % {"b": UPDATE_PROBE_BLOCKS}
+UPDATE_STAMP_EXPORTS = """
+// the stamps, [blocks, 6] int64, and the global timer at the first and last
+// stamp, [blocks, 2] uint64 ns (of the last, block 0's is used): into host
+// memory, and set to 0
+extern "C" int dkmc_cg_probe_stamps(void* dst, void* gt) {
+  cudaError_t e = cudaMemcpyFromSymbol(dst, g_cg_stamps, sizeof(g_cg_stamps));
+  return (int)(e != cudaSuccess ? e : cudaMemcpyFromSymbol(gt, g_cg_gt, sizeof(g_cg_gt)));
+}
+extern "C" int dkmc_cg_probe_clear() {
+  void *p = nullptr, *q = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, g_cg_stamps);
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&q, g_cg_gt);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(g_cg_stamps));
+  return (int)(e != cudaSuccess ? e : cudaMemset(q, 0, sizeof(g_cg_gt)));
+}
+"""
+
+
+#: cg_update_direction rebuilt with 1, 3, 4 or 8 rows a thread (tiles of
+#: 256 to 2,048 rows) and with a launch that is not cooperative, which
+#: ``--variants`` times (name: [(old, new)] text replacements)
+UPDATE_VARIANTS = {
+    "rows1": [("constexpr int kRows = 2;", "constexpr int kRows = 1;")],
+    "rows4": [("constexpr int kRows = 2;", "constexpr int kRows = 4;")],
+    "rows8": [("constexpr int kRows = 2;", "constexpr int kRows = 8;")],
+    "noncoop": [("attr[0].val.cooperative = 1;", "attr[0].val.cooperative = 0;")],
+    "rows3": [("constexpr int kRows = 2;", "constexpr int kRows = 3;")],
+}
+
+
+def update_variant_builds(bdir, csrc):
+    """This checkout's boundary_cg.cu with UPDATE_VARIANTS: {name: nvcc job}."""
+    src = (csrc / "boundary_cg.cu").read_text()
+    jobs = {}
+    for name, subs in UPDATE_VARIANTS.items():
+        text = src
+        for old, new in subs:
+            text = replace_once(text, old, new, "boundary_cg.cu")
+        path = os.path.join(bdir, f"boundary_cg_{name}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        jobs[name] = nvcc_build(path, path[:-3] + ".so", csrc)
+    return jobs
+
+
+def update_kernel_of(src):
+    """The update kernel that ``src`` (a boundary_cg.cu) holds."""
+    names = [k for k in UPDATE_STAMPS if f"\n{k}(" in src]
+    if len(names) != 1:
+        raise RuntimeError(f"boundary_cg.cu: update kernels {names}, not one")
+    return names[0]
+
+
+def update_build(bdir, csrc):
+    """The boundary_cg.cu of ``csrc`` with its update kernel's stamps: (its
+    kernel's name, nvcc job); None when the source lacks an anchor (an
+    earlier form of the kernel: its times are taken, not its phases)."""
+    src = (csrc / "boundary_cg.cu").read_text()
+    kernel = update_kernel_of(src)
+    if any(src.count(anchor) != 1 for anchor, _, _ in UPDATE_STAMPS[kernel]):
+        print(f"{kernel}: not the form of UPDATE_STAMPS' anchors, no stamps", flush=True)
+        return None
+    for anchor, k, where in UPDATE_STAMPS[kernel]:
+        stamp = f"CG_STAMP({k});"
+        src = replace_once(src, anchor, anchor + stamp + "\n" if where == "after"
+                           else stamp + "\n" + anchor, "boundary_cg.cu")
+    head = "constexpr int kSlots = 4;\n"
+    src = replace_once(src, head, head + UPDATE_STAMP_DEFS, "boundary_cg.cu")
+    path = os.path.join(bdir, "boundary_cg_stamped.cu")
+    with open(path, "w") as f:
+        f.write(src + UPDATE_STAMP_EXPORTS)
+    return kernel, nvcc_build(path, path[:-3] + ".so", csrc)
+
+
+def boundary_system(cs, sim):
+    """The crossbar's boundary system as chip_smoke.py phase 11 builds it:
+    (operator, b, warm start, Jacobi diagonal, active, tolerance)."""
+    import numpy as np
+    import torch
+
+    from devicekmc_tpu_torch.physics import potential as pot
+    from devicekmc_tpu_torch.state import stack_states
+
+    geom, params = sim.geom, sim.params
+    states = stack_states([sim.state])
+    interior = geom.bp_interior_mask
+    masks = (geom.bp_left_mask, geom.bp_right_mask, interior)
+    edge_g = pot._edge_conductance_boundary(geom, states, params)
+    b, _, diag, vals, pre = pot._dirichlet_system(geom, edge_g, -cs.VD_MAIN / 2,
+                                                  cs.VD_MAIN / 2, masks)
+    op = (diag, vals, geom.neigh_idx, interior)
+    rng = np.random.default_rng(7)
+    noise = torch.as_tensor(cs.CG_NOISE * rng.standard_normal(geom.N), device="cuda")
+    x0 = torch.where(interior, states.potential_boundary + noise, 0.0)
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    return op, b, x0, pre, active, params.solver_tol
+
+
+def sm_mhz(cycles=20_000_000):
+    """The SM clock under a busy loop: torch.cuda._sleep's cycles over its
+    time between CUDA events."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    b.synchronize()
+    return cycles / (a.elapsed_time(b) * 1e3)
+
+
+def stamp_phases(lib, kernel):
+    """Each phase's cycles of the stamped update kernel's last launch: the
+    median and the most over the blocks that reached both its stamps, their
+    count, and block 0's."""
+    raw = (ctypes.c_longlong * (UPDATE_PROBE_BLOCKS * 6))()
+    gt = (ctypes.c_ulonglong * (UPDATE_PROBE_BLOCKS * 2))()
+    err = lib.dkmc_cg_probe_stamps(ctypes.cast(raw, ctypes.c_void_p),
+                                   ctypes.cast(gt, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"update stamps: cudaError {err}")
+    starts = [gt[2 * k] for k in range(UPDATE_PROBE_BLOCKS) if gt[2 * k]]
+    rows = [raw[6 * k:6 * k + 6] for k in range(UPDATE_PROBE_BLOCKS)]
+    rows = [r for r in rows if r[0]]
+    out = {}
+    for k, name in enumerate(UPDATE_PHASES[kernel]):
+        d = [r[k + 1] - r[k] for r in rows if r[k] and r[k + 1]]
+        out[name] = dict(blocks=len(d), median=statistics.median(d) if d else None,
+                         max=max(d) if d else None,
+                         block0=(rows[0][k + 1] - rows[0][k]
+                                 if rows and rows[0][k] and rows[0][k + 1] else None))
+    ends = [max(v for v in r if v) - r[0] for r in rows]
+    spans = [max(v for v in r if v) - r[0] for r in rows]
+    out["a block, first stamp to last"] = dict(
+        blocks=len(spans), median=statistics.median(spans) if spans else None,
+        max=max(spans) if spans else None)
+    if starts:
+        # global timer, ns: the blocks' first stamps after the earliest, and
+        # block 0's first stamp to its last
+        t0 = min(starts)
+        out["globaltimer_ns"] = dict(start_spread=max(starts) - t0,
+                                     start_median=statistics.median(starts) - t0,
+                                     block0_span=gt[1] - gt[0] if gt[0] and gt[1] else None)
+    return out
+
+
+class _NoStamps(Exception):
+    pass
+
+
+def update_probe(cs, sim, stamped, variants=None, batches=(8, 32), ensemble=True):
+    """The boundary CG's update and direction of the package at the
+    crossbar's boundary system (``stamped``: (kernel name, library) of
+    update_build): the kernels through the package's wrappers, back to back
+    and cold, at B = 1 and ``batches``, beside their bytes bound; the
+    parent's direction beside torch.addcmul; the captured solve an
+    iteration; the ensemble's graph at ``batches`` (``ensemble``); the
+    stamped build's phases; each of ``variants`` ({name: library} of
+    update_variant_builds) back to back and in the captured solve, against
+    the package's kernel."""
+    import dataclasses
+
+    import torch
+
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.ops.graph import Graph
+
+    geom = sim.geom
+    op, b, x0, pre, active, tol = boundary_system(cs, sim)
+    fused = hasattr(bcg, "cg_update_direction")
+    kernel, lib = stamped
+    N, maxiter = geom.N, cs.CG_MAXITER
+    res = {"design": "fused cg_update_direction" if fused else "cg_update + cg_direction",
+           "stamped_kernel": kernel}
+
+    # the captured solve, a WHILE node
+    ws = make_workspace(bcg, geom, b.dtype)
+    solve = Graph(lambda: bcg.cg_solve_device(op, b, x0, pre, tol, maxiter, active, ws), "cuda")
+    iters = int(solve().iters[0])
+    solve_ms = cs.time_ms(solve, reps=3, rounds=5, warmup=1)
+    res.update(solve_iters=iters, solve_ms=solve_ms, iteration_ms=solve_ms / iters)
+
+    def clone(w):
+        return dataclasses.replace(w, **{f.name: getattr(w, f.name).clone()
+                                         for f in dataclasses.fields(w)
+                                         if isinstance(getattr(w, f.name), torch.Tensor)})
+
+    w0 = make_workspace(bcg, geom, b.dtype)
+    bcg.cg_setup(op, b, x0, pre, 0.0, maxiter, active, w0)
+    for _ in range(3):
+        bcg.cg_iteration(w0, op, maxiter)
+    if fused:
+        fns = {"cg_update_direction": lambda w: bcg.cg_update_direction(w, maxiter)}
+        plain = {"cg_update_direction": lambda w: bcg.cg_update_direction_plain(w, maxiter)}
+    else:
+        fns = {"cg_update": lambda w: bcg.cg_update(w, maxiter),
+               "cg_direction": lambda w: bcg.cg_direction(w),
+               "pair": lambda w: (bcg.cg_update(w, maxiter), bcg.cg_direction(w)),
+               "torch.addcmul": lambda w: torch.addcmul(w.z, w.beta[:, None], w.p, out=w.ap)}
+        plain = {"cg_update": lambda w: bcg.cg_update_plain(w, maxiter),
+                 "cg_direction": lambda w: bcg.cg_direction_plain(w)}
+        wa, wd = clone(w0), clone(w0)
+        bcg.cg_update(wa, maxiter)
+        wd.z.copy_(wa.z)
+        wd.beta.copy_(wa.beta)
+        bcg.cg_direction(wd)
+        res["addcmul_max_abs_err"] = float(
+            (torch.addcmul(wa.z, wa.beta[:, None], wa.p) - wd.p).abs().max())
+    vec = 8 * N
+    res["bound_ms"] = {"cg_update_direction": 8 * vec, "pair": 8 * vec, "cg_update": 8 * vec,
+                       "cg_direction": 3 * vec, "torch.addcmul": 3 * vec}
+    res["bound_ms"] = {k: v / cs.PEAK_BYTES_PER_S * 1e3 for k, v in res["bound_ms"].items()}
+    res["times"] = {}
+    for name, fn in fns.items():
+        w = clone(w0)
+        res["times"][name] = {"warm": cs.time_ms(lambda: fn(w)),
+                              "cold": cs.time_ms_cold(lambda: fn(w))}
+    for name, fn in plain.items():
+        w = clone(w0)
+        res["times"][name]["plain"] = cs.time_ms(lambda: fn(w), reps=5)
+    if fused:
+        res["grid_b1"] = bcg.update_direction_grid(w0)
+
+    # B > 1: the replica copied
+    fields = ("x", "r", "p", "ap", "minv", "rz", "rr", "thresh2", "alpha", "beta", "act0",
+              "act", "iters")
+
+    def replicated(nb):
+        wb = (bcg.workspace(nb, geom.neigh_idx, geom.bp_interior_mask, b.dtype, "cuda")
+              if "neigh_idx" in inspect.signature(bcg.workspace).parameters
+              else bcg.workspace(nb, N, b.dtype, "cuda"))
+        for f in fields:
+            getattr(wb, f).copy_(getattr(w0, f).expand_as(getattr(wb, f)))
+        return wb
+
+    res["batches"] = {}
+    for nb in batches:
+        wb = replicated(nb)
+        name = "cg_update_direction" if fused else "pair"
+        res["batches"][nb] = {"ms": cs.time_ms(lambda: fns[name](wb)),
+                              "bound_ms": 8 * vec * nb / cs.PEAK_BYTES_PER_S * 1e3}
+        if fused:
+            res["batches"][nb]["grid"] = bcg.update_direction_grid(wb)
+        del wb
+
+    # the stamped build: one launch on a copy of w0, through the wrapper
+    loaded = _build._libs.get("boundary_cg")
+    _build._libs["boundary_cg"] = lib
+    try:
+        if lib is None:
+            raise _NoStamps
+        w = clone(w0)
+        err = lib.dkmc_cg_probe_clear()
+        if err != 0:
+            raise RuntimeError(f"update stamps: cudaError {err}")
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cs.HOLD_CYCLES)
+        a.record()
+        (fns["cg_update_direction"] if fused else fns["cg_update"])(w)
+        e.record()
+        e.synchronize()
+        res["stamped_ms"] = a.elapsed_time(e)
+        res["stamp_cycles"] = stamp_phases(lib, kernel)
+    except _NoStamps:
+        res["stamp_cycles"] = None
+    finally:
+        _build._libs["boundary_cg"] = loaded
+    res["sm_mhz"] = sm_mhz()
+
+    # the variants, their library in the package's place (part: room for
+    # any tile)
+    res["variants"] = {}
+    if variants:
+        wref = clone(w0)
+        fns["cg_update_direction"](wref)
+    for name, vlib in (variants or {}).items():
+        _build._libs["boundary_cg"] = vlib
+        try:
+            w = clone(w0)
+            w.part = torch.zeros(N, dtype=b.dtype, device="cuda")
+            fns["cg_update_direction"](w)
+            err = max(float((getattr(w, f) - getattr(wref, f)).abs().max())
+                      for f in ("x", "r", "p", "rz", "rr", "beta"))
+            w = clone(w0)
+            w.part = torch.zeros(N, dtype=b.dtype, device="cuda")
+            warm = cs.time_ms(lambda: fns["cg_update_direction"](w))
+            wv = make_workspace(bcg, geom, b.dtype)
+            wv.part = torch.zeros(N, dtype=b.dtype, device="cuda")
+            g = Graph(lambda: bcg.cg_solve_device(op, b, x0, pre, tol, maxiter, active, wv),
+                      "cuda")
+            it = int(g().iters[0])
+            ms = cs.time_ms(g, reps=3, rounds=5, warmup=1)
+            wb = replicated(max(batches))
+            wb.part = torch.zeros(max(batches) * N, dtype=b.dtype, device="cuda")
+            res["variants"][name] = dict(
+                warm=warm, solve_iters=it, iteration_ms=ms / it, max_abs_diff=err,
+                grid_b1=bcg.update_direction_grid(w),
+                warm_largest_batch=cs.time_ms(lambda: fns["cg_update_direction"](wb)))
+            del wb
+        finally:
+            _build._libs["boundary_cg"] = loaded
+
+    if ensemble:
+        from devicekmc_tpu_torch.parallel.batched import batch_states, make_batched_superstep
+
+        step = make_batched_superstep(geom, sim.params, sim.heat)
+        res["ensemble_ms"] = {}
+        for nb in batches:
+            st = batch_states(sim.state, nb, base_seed=cs.ENSEMBLE_SEED)
+            ms = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                st, _, _ = step(st, cs.VD_MAIN)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            res["ensemble_ms"][nb] = {"median": statistics.median(ms[2:]), "ms": ms[2:]}
+            del st
+            torch.cuda.empty_cache()
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--events", type=int, default=200, help="events of the capped launch")
     ap.add_argument("--variants", action="store_true",
                     help="also time variants of both kernels (see the module's docstring)")
     ap.add_argument("--pkg", help="checkout whose devicekmc_tpu_torch is measured")
+    ap.add_argument("--parts", default="events,matvec,update",
+                    help="what to probe, of events, matvec and update")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "probe_cg_events.json"))
     args = ap.parse_args()
     if args.pkg and args.variants:
         ap.error("--variants rebuilds this checkout's sources: not with --pkg")
+    parts = set(args.parts.split(","))
+    if parts - {"events", "matvec", "update"}:
+        ap.error(f"--parts: unknown {sorted(parts - {'events', 'matvec', 'update'})}")
     sys.path.insert(0, os.path.abspath(args.pkg) if args.pkg else ROOT)
     import torch
 
@@ -491,11 +873,21 @@ def main():
     bdir = os.path.join(ROOT, "build", "probe")
     os.makedirs(bdir, exist_ok=True)
     latency_job = cs.start_latency_build()
-    events_jobs = {} if args.pkg else event_builds(bdir, args.variants)
-    matvec_jobs = matvec_builds(bdir) if args.variants else {}
+    events_jobs = {} if args.pkg or "events" not in parts else event_builds(bdir,
+                                                                           args.variants)
+    matvec_jobs = matvec_builds(bdir) if args.variants and "matvec" in parts else {}
+    update_job = update_build(bdir, _build.CSRC) if "update" in parts else None
+    update_variant_jobs = (update_variant_builds(bdir, _build.CSRC)
+                           if args.variants and "update" in parts else {})
     _build.build(["ell_gather", "pairwise", "kmc_events", "graph", "boundary_cg"])
     cs.finish_latency_build(latency_job)
     stamped, variants = finish(events_jobs), finish(matvec_jobs)
+    update_lib = None
+    if update_job is not None:
+        update_lib = finish({"update_stamped": update_job[1]})["update_stamped"]
+        update_lib.dkmc_cg_probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        for fn in (update_lib.dkmc_cg_probe_stamps, update_lib.dkmc_cg_probe_clear):
+            fn.restype = ctypes.c_int
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in ("kmc_events", "boundary_cg"):
         print(name, [l.strip() for l in _build.build_log(name).splitlines()
@@ -505,10 +897,16 @@ def main():
     sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
     torch.cuda.synchronize()
     out = {"gpu": cs.gpu_line(), "package": pkg}
-    out["events"] = event_probe(cs, sim, stamped, args.events)
-    print("event loop: " + json.dumps(out["events"]), flush=True)
-    out["matvec"] = matvec_probe(cs, sim, variants)
-    print("cg_matvec_dot: " + json.dumps(out["matvec"]), flush=True)
+    if "events" in parts:
+        out["events"] = event_probe(cs, sim, stamped, args.events)
+        print("event loop: " + json.dumps(out["events"]), flush=True)
+    if "matvec" in parts:
+        out["matvec"] = matvec_probe(cs, sim, variants)
+        print("cg_matvec_dot: " + json.dumps(out["matvec"]), flush=True)
+    if "update" in parts:
+        kernel = update_kernel_of((_build.CSRC / "boundary_cg.cu").read_text())
+        out["update"] = update_probe(cs, sim, (kernel, update_lib), finish(update_variant_jobs))
+        print("update and direction: " + json.dumps(out["update"]), flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
