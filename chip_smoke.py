@@ -5,7 +5,7 @@
 
 Phases (any failed check raises and the exit code is non-zero):
 
-1. builds the eight CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
+1. builds the nine CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
    sm_90a, one nvcc per source, in parallel) and beside them the latency
    probes of the event loop's bound (tools/latency_probe.cu), and prints
    ptxas's registers and shared memory per kernel; holds the event kernel's random stream
@@ -70,9 +70,9 @@ Phases (any failed check raises and the exit code is non-zero):
    its launches witnessed by the trace);
 4. transport path: the same crossbar with solve_current on (heating off,
    transport blocked, on-the-fly metal block, deflated cold solve with 24
-   slabs, chunked cold solves, 256 integration steps, Vd = 1 V), counters
-   set to 0 just before: CB-edge solve, cold deflated transport solve,
-   8 supersteps; every transport solve must converge, I_macro be finite
+   slabs, chunked cold solves, 256 integration steps, Vd = 1 V), on the
+   eager driver, counters set to 0 just before: CB-edge solve, cold deflated
+   transport solve, 8 supersteps; every transport solve must converge, I_macro be finite
    and positive, a skipped or an incremental assembly be seen, and the two
    headline and all four transport kernels be launched and the dissipation
    kernel not be (the window block's
@@ -89,9 +89,24 @@ Phases (any failed check raises and the exit code is non-zero):
    partial assembly's shape) and at the bucket against 24,768 metal atoms,
    with the steps its pairs take and the share of lanes they keep busy;
    per kernel ptxas's registers and shared bytes and the device launches
-   of one call as torch.profiler counts them (it must be the one kernel);
+   of one call as torch.profiler counts them (it must be the one kernel).
+   The main path of this configuration: the same run on the captured graph
+   (the transport CG's refinement rounds and inner CG two nested WHILE
+   nodes, csrc/transport_cg.cu), counters set to 0 just before and read
+   just after (the batched kernels and the transport CG's five kernels as
+   the card counts them, each launched), held bit for bit step for step
+   against the eager run (events, elements, cg_iters_power, I_macro, P_tot,
+   T_bg, the virtual potentials, the site power, the tunnel store, every
+   metric); both again in turns, timed, one superstep of each under
+   torch.profiler (busy share; 1 device-to-host copy a graph superstep); the
+   capture seconds at a second bias point (Vd = 1.05 V, 2 supersteps); the
+   transport CG's kernels (pack, apply, refine, f32 and f64 builds) against
+   their plain versions at the path's shapes, timed beside their bytes
+   bounds, and the band's and fly matvec's out= entries bit-equal to the
+   allocating ones;
 5. heat path: the transport configuration with solve_heating_global on and
-   A = ly * lz, counters set to 0 just before: cold solves, 8 supersteps;
+   A = ly * lz on the eager driver, counters set to 0 just before: cold
+   solves, 8 supersteps, then its captured graph against it as in phase 4;
    every transport solve must converge, the site power be non-zero on
    non-metal atoms only, T_bg be finite and never below background_temp, and
    the dissipation kernel be launched once per transport solve.  Then the
@@ -103,7 +118,7 @@ Phases (any failed check raises and the exit code is non-zero):
    supersteps with solve_heating_local on (matrix-free model, symmetric
    contact spans), with the branch taken, the substeps and the CG iterations
    of every step;
-6. the transport run again with the CG stop condition read every iteration:
+6. the transport run again (eager) with the CG stop condition read every iteration:
    the cold solves' iterations and every step's events, cg_iters_boundary
    and cg_iters_power equal to the chunked run's; the log of the event
    kernel's time draws against numpy's (draws that differ, and by how many
@@ -1568,6 +1583,417 @@ def graph_turns(sim, sim_e, wrappers, turns=GRAPH_TURNS):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the transport and heat supersteps as captured graphs
+# ---------------------------------------------------------------------------
+
+# supersteps of the transport graph and the eager driver in turns after the
+# runs
+TRANSPORT_TURNS = 3
+# the second bias point the transport graph is captured at
+VD_SECOND = 1.05
+#: the transport CG's kernels that count their launches on the card
+TRANSPORT_CARD = ("banded_matvec_out", "wkb_fly_matvec_out", "transport_pack",
+                  "transport_apply", "transport_refine")
+
+
+def transport_record(sim):
+    """Wrap ``sim``'s superstep: per step the fields the transport and heat
+    phases write (device copies) and the metrics.  Returns the list."""
+    recs = []
+    step = sim._superstep
+
+    def wrapped(state, Vd, *rest):
+        out = step(state, Vd, *rest)
+        st, m = out[0], out[2]
+        recs.append(dict(
+            element=st.element.clone(), vp=st.virtual_potentials.clone(),
+            tt=(st.tt_slot_atom.clone(), st.tt_vm.clone(), st.tt_vv.clone()),
+            power=st.power.clone(), step_time=out[1],
+            scalars=(st.I_macro, st.P_tot, st.T_bg, bool(st.tt_valid)),
+            metrics={k: float(v) for k, v in m.items() if not k.startswith("Z - ")}))
+        return out
+
+    sim._superstep = wrapped
+    return recs
+
+
+def same_transport_steps(tag, ref, got):
+    """Two transport runs (transport_record) bit for bit, step for step: the
+    events, elements, cg_iters_power, I_macro, P_tot, T_bg, the virtual
+    potentials, the site power and the tunnel store, every metric."""
+    import torch
+
+    check(len(ref) == len(got), f"{tag}: {len(ref)} and {len(got)} supersteps")
+    for k, (a, b) in enumerate(zip(ref, got)):
+        diff = [key for key in ("element", "vp", "power") if not torch.equal(a[key], b[key])]
+        if not all(torch.equal(u, v) for u, v in zip(a["tt"], b["tt"])):
+            diff.append("the tunnel store")
+        if a["scalars"] != b["scalars"] or a["step_time"] != b["step_time"]:
+            diff.append(f"scalars {a['scalars']} against {b['scalars']}")
+        metrics = {key: (v, b["metrics"].get(key)) for key, v in a["metrics"].items()
+                   if v != b["metrics"].get(key)}
+        check(not diff and not metrics, f"{tag}: step {k}: {diff} differ; metrics {metrics}")
+
+
+def transport_graph_run(sim, tag, n_steps=TRANSPORT_STEPS, wrappers=None):
+    """Counters to 0, ``sim.run_bias_point`` (cold solves + ``n_steps``),
+    read: (records, card counts, wrapper counts, wall s).  No plain version
+    of a transport CG kernel may run."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+
+    wrappers = wrappers or {}
+    for w in wrappers.values():
+        w.launches = 0
+    _build.launch_counts("cuda").zero_()
+    plains = [_counted(tcg, name) for name in ("pack_plain", "apply_plain", "refine_plain")]
+    recs = transport_record(sim)
+    try:
+        t = time.perf_counter()
+        sim.run_bias_point(VD_MAIN, 1e30, max_steps=n_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        sim.__dict__.pop("_superstep", None)
+        for _, restore in plains:
+            restore()
+    check(all(rec["calls"] == 0 for rec, _ in plains), f"{tag}: a plain version ran")
+    check(len(recs) == n_steps, f"{tag}: ran {len(recs)} supersteps")
+    return recs, card_counts(), {name: w.launches for name, w in wrappers.items()}, wall
+
+
+def transport_turns(sim, sim_e, tag, turns=TRANSPORT_TURNS):
+    """The graph and the eager driver again, superstep by superstep in turns
+    (elements, I_macro and the virtual potentials equal): wall ms of each;
+    one superstep of each under torch.profiler (device busy share,
+    device-to-host copies: 1 a graph superstep)."""
+    import torch
+
+    def step(s):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.state, _, m = s._superstep(s.state, VD_MAIN)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, m
+
+    ms_g, ms_e = [], []
+    for _ in range(turns):
+        (tg, mg), (te, me) = step(sim), step(sim_e)
+        check(torch.equal(sim.state.element, sim_e.state.element)
+              and sim.state.I_macro == sim_e.state.I_macro
+              and torch.equal(sim.state.virtual_potentials, sim_e.state.virtual_potentials)
+              and mg["cg_iters_power"] == me["cg_iters_power"],
+              f"{tag}: graph and eager supersteps in turns differ")
+        ms_g.append(tg)
+        ms_e.append(te)
+    prof = {}
+    for name, s in (("graph", sim), ("eager", sim_e)):
+        prev = s.state
+        prof[name] = profile_calls(lambda: step(s), 1,
+                                   reset=lambda: setattr(s, "state", prev))
+        check(prof[name][1] is not None, f"{tag} {name}: a trace without device records")
+    check(prof["graph"][2] == 1, f"{tag}: {prof['graph'][2]} device-to-host copies a graph "
+          "superstep, not 1")
+    out = dict(ms_turns_graph=ms_g, ms_turns_eager=ms_e,
+               median_turns_graph=statistics.median(ms_g),
+               median_turns_eager=statistics.median(ms_e),
+               busy_graph=100 * prof["graph"][1] / prof["graph"][0],
+               busy_eager=100 * prof["eager"][1] / prof["eager"][0],
+               dtoh_graph=prof["graph"][2], dtoh_eager=prof["eager"][2])
+    log(f"{tag} in turns, {turns} supersteps each: graph median "
+        f"{out['median_turns_graph']:.2f} ms ({[round(x, 2) for x in ms_g]}), eager median "
+        f"{out['median_turns_eager']:.2f} ms ({[round(x, 2) for x in ms_e]}); one profiled "
+        f"superstep each: device busy graph {out['busy_graph']:.1f} %, eager "
+        f"{out['busy_eager']:.1f} %; device-to-host copies graph {out['dtoh_graph']}, eager "
+        f"{out['dtoh_eager']}")
+    return out
+
+
+def transport_graph_phase(out_root, heat, eager_run, second_point=True):
+    """The main path of the transport (``heat`` False) or heat (global)
+    configuration: the captured graph, counters set to 0 just before cold
+    solves + TRANSPORT_STEPS supersteps and read just after, then held bit
+    for bit step for step against ``eager_run`` (``(sim_e, records)``, the
+    eager driver's run of the same configuration), the two in turns, and
+    with ``second_point`` the graph captured at a second bias point.  Returns
+    (sim, summary)."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import ell_gather as eg
+    from devicekmc_tpu_torch.ops import kmc_events
+    from devicekmc_tpu_torch.ops import pairwise as pw
+
+    tag = "heat (global) graph" if heat else "transport graph"
+    sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(
+        out_root, "heat_graph" if heat else "transport_graph"), current=True,
+        heat="global" if heat else None)
+    check(sim._graph_for(sim.params) is not None,
+          f"{tag}: the configuration does not run the captured graph")
+    batched = {"ell_gather_batched": eg.ell_gather_batched,
+               "poisson_pairwise_batched": pw.poisson_pairwise_batched,
+               "kmc_event_loop_batched": kmc_events.kmc_event_loop_batched}
+    recs, card, host, wall = transport_graph_run(sim, tag, wrappers=batched)
+    graph = sim._graph
+    n = TRANSPORT_STEPS
+    check(graph.replays == n and graph.captures == 2,
+          f"{tag}: {graph.replays} replays, {graph.captures} captures")
+    check(card["ell_gather_batched"] == 2 * n and card["poisson_pairwise_batched"] == n
+          and card["kmc_event_loop_batched"] == n, f"{tag}: batched launches {card}")
+    for name in TRANSPORT_CARD:
+        check(card[name] > 0, f"{tag}: {name} was not launched on the card ({card})")
+    steps = sim.step_log
+    inner = sum(int(s["cg_iters_power"]) for s in steps)
+    rounds = sum(int(s["cg_iters_power"] > 0) for s in steps)
+    check(all(s["transport_converged"] == 1.0 for s in steps), f"{tag}: a solve did not "
+          "converge")
+    sim_e, recs_e = eager_run
+    same_transport_steps(f"{tag} against eager", recs_e, recs)
+    turns = transport_turns(sim, sim_e, tag)
+    first = list(graph.capture_s)
+    t = time.perf_counter()
+    if second_point:
+        sim.run_bias_point(VD_SECOND, 1e30, max_steps=2)
+        torch.cuda.synchronize()
+    second = graph.capture_s[len(first):]
+    check(len(second) == (2 if second_point else 0),
+          f"{tag}: {len(second)} captures at the second bias point")
+    key = "Z - calculation time - KMC superstep [s]"
+    ms = [s[key] * 1e3 for s in steps[2:]]
+    ms_e = [s[key] * 1e3 for s in sim_e.step_log[2:n]]
+    log(f"{tag}: run_bias_point (cold solves + {n} supersteps) in {wall:.2f} s on the graph "
+        f"({graph.captures} captures of {[round(x, 3) for x in first]} s; at {VD_SECOND} V "
+        f"{[round(x, 3) for x in second]} s, that bias point in {time.perf_counter() - t:.2f} "
+        f"s); launches on the card {card}; {inner} inner CG iterations in {n} supersteps; "
+        f"events, elements, cg_iters_power, I_macro, P_tot, T_bg, the virtual potentials, "
+        f"the site power and the tunnel store equal to the eager run step for step")
+    log(f"{tag} supersteps after 2: graph median {statistics.median(ms):.2f} ms (min "
+        f"{min(ms):.2f}, max {max(ms):.2f}), eager median {statistics.median(ms_e):.2f} ms; "
+        "step by step (graph / eager ms, inner iterations): "
+        + ", ".join(f"{a[key] * 1e3:.1f} / {b[key] * 1e3:.1f} ({int(a['cg_iters_power'])})"
+                    for a, b in zip(steps, sim_e.step_log[:n])))
+    return sim, dict(wall_s=wall, captures_first_s=first, captures_second_s=second,
+                     launches_card=card, launches_host=host, inner_iterations=inner,
+                     solving_steps=rounds, median_ms=statistics.median(ms),
+                     median_ms_eager=statistics.median(ms_e), **turns)
+
+
+def transport_cg_checks(sim, band):
+    """The transport CG's kernels at the path's shapes (``sim``'s operator
+    after its run, a seeded inner direction and correction) against their
+    plain versions (PyTorch operations on the same tensors), timed beside
+    their bytes bounds; the band's and the fly matvec's out= entries against
+    their allocating entries (bit-equal)."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+    from devicekmc_tpu_torch.ops.banded import banded_matvec, banded_matvec_out
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matvec, wkb_fly_matvec_out
+    from devicekmc_tpu_torch.physics import current as cur
+
+    cap = {}
+    solve = cur.transport_cg.solve
+
+    def grab(tws, op, x0, go, tol, maxiter, max_outer=tcg.MAX_OUTER):
+        cap.update(tws=tws, op=op, x0=x0.clone())
+        return solve(tws, op, x0, go, tol, maxiter, max_outer)
+
+    cur.transport_cg.solve = grab
+    try:
+        st = dataclasses.replace(sim.state, transport_Vd_prev=float("nan"))
+        cur.update_power(sim.geom, sim.params, st, VD_MAIN, cc=dict(sim._cc), allow_skip=True)
+    finally:
+        cur.transport_cg.solve = solve
+    tws, op = cap["tws"], cap["op"]
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    nsub = tws.x.shape[0]
+    tws.cg.p[0].copy_(torch.randn(nsub, generator=gen).float())
+    tws.cg.x[0].copy_(torch.randn(nsub, generator=gen).float())
+    tws.cg.act.fill_(True)
+    tws.x.copy_(cap["x0"])
+    tws.scale.fill_(1e-3)
+    tws.go.fill_(True)
+    tws.thresh.fill_(1e-30)
+    na, max_nn = op.anb.shape
+    n_mp = op.mpos.shape[0]
+    nv = int(op.n_vac)
+    R, m_pad, B = tws.shape
+    nfull = nsub + 1
+    f4, f8, i4 = 4, 8, 4
+
+    def clone(ws):
+        kw = {}
+        for f in dataclasses.fields(ws):
+            v = getattr(ws, f.name)
+            if f.name == "cg":
+                v = dataclasses.replace(v, **{g.name: getattr(v, g.name).clone() for g in
+                                              dataclasses.fields(v)
+                                              if torch.is_tensor(getattr(v, g.name))})
+            elif f.name == "fly":
+                v = tuple(t.clone() for t in v)
+            elif torch.is_tensor(v):
+                v = v.clone()
+            kw[f.name] = v
+        return type(ws)(**kw)
+
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    out = {}
+    # pack: the inner direction (lo) and the refinement's iterate (hi)
+    for hi in (False, True):
+        k, p = clone(tws), clone(tws)
+        tcg.pack(k, op, hi, first=True)
+        tcg.pack_plain(p, op, hi, first=True)
+        fields = ("xs64", "xm") if hi else ("xs32", "xw", "xm")
+        e = max(err(getattr(k, f), getattr(p, f)) for f in fields)
+        check(e == 0, f"transport_pack ({'hi' if hi else 'lo'}): {e} from its plain version")
+        if hi:
+            k2, p2 = clone(tws), clone(tws)
+            tcg.pack(k2, op, True, first=False)
+            tcg.pack_plain(p2, op, True, first=False)
+            check(torch.equal(k2.x, p2.x), "transport_pack (hi): the corrected iterate differs")
+        bytes_ = ((f8 if hi else f4) * 2 * nsub + i4 * na * (1 if hi else 2)
+                  + (f8 if hi else f4) * nfull + (0 if hi else f4 * na) + f4 * n_mp)
+        out[f"pack_{'hi' if hi else 'lo'}"] = dict(
+            err=e, ms=time_ms(lambda: tcg.pack(k, op, hi, first=True)),
+            plain_ms=time_ms(lambda: tcg.pack_plain(p, op, hi, first=True), reps=5, rounds=3),
+            bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3)
+    # the band's and the fly matvec's out= entries, at the path's shapes
+    k = clone(tws)
+    tcg.pack(k, op, False)
+    y = torch.empty((R, B), dtype=torch.float32, device="cuda")
+    banded_matvec_out(band["C"], k.xw.view(R + m_pad - 1, B), y)
+    check(torch.equal(y, banded_matvec(band["C"], k.xw.view(R + m_pad - 1, B))),
+          "banded_matvec_out differs from banded_matvec")
+    yc = torch.empty(n_mp, dtype=torch.float32, device="cuda")
+    wkb_fly_matvec_out(op.mpos, op.mcb, k.xm, op.env, yc, k.fly)
+    check(torch.equal(yc, wkb_fly_matvec(op.mpos, op.mcb, k.xm, op.env)),
+          "wkb_fly_matvec_out differs from wkb_fly_matvec")
+    out["band_out_ms"] = time_ms(lambda: tcg.band(k, op))
+    out["fly_out_ms"] = time_ms(lambda: tcg.fly(k, op))
+    # apply: ap and alpha (lo), r and r.r (hi)
+    for hi in (False, True):
+        k = clone(tws)
+        tcg.pack(k, op, hi, first=hi)
+        if not hi:
+            tcg.band(k, op)
+        tcg.fly(k, op)
+        p = clone(k)
+        tcg.apply(k, op, hi)
+        tcg.apply_plain(p, op, hi)
+        got, ref = (k.r, p.r) if hi else (k.cg.ap[0], p.cg.ap[0])
+        scale = float((op.b - ref).abs().max()) if hi else float(ref.abs().max())
+        e = err(got, ref)
+        check(e <= (1e-9 if hi else 2e-6) * scale,
+              f"transport_apply ({'hi' if hi else 'lo'}): {e} from its plain version "
+              f"(scale {scale})")
+        # T_vm and T_vv's live rows, the bucket, xm and y_cc, vslot and mp_inv
+        common = f4 * nv * n_mp + f4 * nv * nv + i4 * nv + f4 * n_mp * 2 + i4 * na * 2
+        if hi:
+            bytes_ = (common + (f8 + i4) * na * max_nn + f8 * (nfull + 2 * na + nfull + 2 * nsub)
+                      + f8 * nsub)
+        else:
+            bytes_ = (common + (f4 + i4) * nv * max_nn + f4 * na + i4 * na
+                      + f4 * (nfull + 2 * na + nfull + 2 * nsub) + f4 * nsub)
+        out[f"apply_{'hi' if hi else 'lo'}"] = dict(
+            err=e, rel_err=e / scale, ms=time_ms(lambda: tcg.apply(k, op, hi)),
+            plain_ms=time_ms(lambda: tcg.apply_plain(p, op, hi), reps=5, rounds=3),
+            bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3)
+    # refine: the end of a round from the same residual
+    k = clone(tws)
+    tcg.pack(k, op, True, first=True)
+    tcg.fly(k, op)
+    tcg.apply(k, op, True)
+    k.thresh.fill_(float(k.rsum) ** 0.5 * 1e-3)
+    p = clone(k)
+    tcg.refine(k, True, tcg.MAX_OUTER, 20000)
+    tcg.refine_plain(p, True, tcg.MAX_OUTER, 20000)
+    for f in ("x", "r", "p", "act", "iters", "ctl", "cond"):
+        check(torch.equal(getattr(k.cg, f), getattr(p.cg, f)), f"transport_refine: {f} "
+              "differs from its plain version")
+    check(torch.equal(k.rnorm, p.rnorm) and torch.equal(k.cond, p.cond),
+          "transport_refine: ||r|| or the predicate differs from its plain version")
+    e = abs(float(k.cg.rz) - float(p.cg.rz)) / abs(float(p.cg.rz))
+    check(e <= 1e-5, f"transport_refine: b_in.b_in {e} relative from its plain version")
+    out["refine"] = dict(err=e, ms=time_ms(lambda: tcg.refine(k, True, tcg.MAX_OUTER, 20000)),
+                         plain_ms=time_ms(lambda: tcg.refine_plain(p, True, tcg.MAX_OUTER,
+                                                                   20000), reps=5, rounds=3),
+                         bound_ms=(f8 * nsub + 3 * f4 * nsub) / PEAK_BYTES_PER_S * 1e3)
+    # the whole solve from a perturbed warm start: captured (two nested WHILE
+    # nodes) and from the host loop, a replay and a call timed with CUDA
+    # events, over the inner iterations the card counted
+    from devicekmc_tpu_torch.ops.graph import Graph
+
+    x0 = cap["x0"] * (1 + 1e-3 * torch.randn(cap["x0"].shape, generator=gen,
+                                             dtype=torch.float64).cuda())
+    go = torch.ones(1, dtype=torch.bool, device="cuda")
+    tol = sim.params.transport_tol
+    solve_g = Graph(lambda: tcg.solve(tws, op, x0, go, tol, 20000), "cuda")
+
+    def timed(fn):
+        tws.cg.total.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b), int(tws.cg.total), int(tws.it_in), int(tws.it_out)
+
+    runs = {"graph": [timed(solve_g) for _ in range(3)],
+            "eager": [timed(lambda: tcg.solve(tws, op, x0, go, tol, 20000)) for _ in range(3)]}
+    iters = {r[2] for rs in runs.values() for r in rs}
+    check(len(iters) == 1, f"the solve's inner iterations differ between runs: {runs}")
+    out["solve"] = {name: dict(ms=statistics.median(r[0] for r in rs), inner=rs[0][2],
+                               rounds=rs[0][3], run_on_card=rs[0][1],
+                               ms_per_inner=statistics.median(r[0] / r[1] for r in rs))
+                    for name, rs in runs.items()}
+    log(f"the transport solve from a perturbed warm start: {out['solve']['graph']['inner']} "
+        f"inner iterations in {out['solve']['graph']['rounds']} rounds; captured "
+        f"{out['solve']['graph']['ms']:.3f} ms ({out['solve']['graph']['ms_per_inner']:.4f} ms "
+        f"an inner iteration), from the host loop {out['solve']['eager']['ms']:.3f} ms "
+        f"({out['solve']['eager']['ms_per_inner']:.4f} ms an inner iteration run)")
+    shape = (f"Nsub={nsub}, n_mp={n_mp}, vacancy bucket {op.T_vm.shape[0]} ({nv} live), "
+             f"max_nn={max_nn}")
+    log(f"transport CG kernels at the path's shapes ({shape}): "
+        + "; ".join(f"{name} {r['ms']:.5f} ms (bound {r['bound_ms']:.5f}, plain "
+                    f"{r['plain_ms']:.4f}, err {r['err']:.3g})"
+                    for name, r in out.items() if isinstance(r, dict) and "ms" in r)
+        + f"; band out= {out['band_out_ms']:.5f} ms, fly out= {out['fly_out_ms']:.5f} ms, both "
+        "bit-equal to their allocating entries")
+    out["shape"] = shape
+    return out
+
+
+def transport_cg_records(k, launches):
+    """The kernels JSON records of the transport CG's kernels (``k``:
+    transport_cg_checks; ``launches``: the card's counts on the main
+    path)."""
+    src = "devicekmc_tpu_torch/csrc/transport_cg.cu"
+    recs = []
+    for name, key, replaces, note in (
+            ("transport_pack", "pack_lo", "devicekmc_tpu/ops/cg.py:112",
+             "the inner direction into the band's window and the metal vector (f32)"),
+            ("transport_apply", "apply_lo", "devicekmc_tpu/ops/cg.py:112",
+             "the rest of A p after the band and the fly matvec, p.ap and alpha (f32)"),
+            ("transport_refine", "refine", "devicekmc_tpu/ops/cg.py:225",
+             "the end of a refinement round and the inner set-up")):
+        r = k[key]
+        rec = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+               "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
+               "library_ms": None, "shape": k["shape"], "computes": note}
+        hi = {"pack_lo": "pack_hi", "apply_lo": "apply_hi"}.get(key)
+        if hi:
+            rec["f64_build"] = {f: k[hi][f] for f in ("err", "ms", "plain_ms", "bound_ms")}
+        recs.append(rec)
+    recs[0]["solve"] = k["solve"]
+    return recs
+
+
 def transport_path(out_root):
     """Phase 4: the transport run, then its kernels' checks; returns the
     four transport kernels' records and every kernel's launches on the
@@ -1587,9 +2013,14 @@ def transport_path(out_root):
     from devicekmc_tpu_torch.ops.wkb_window import wkb_window_block
     from devicekmc_tpu_torch.physics import current as cur
 
+    from devicekmc_tpu_torch import engine
+
     t0 = time.perf_counter()
     sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "transport"),
                              current=True)
+    # the eager driver (the engine's superstep without a graph); the graph
+    # run of this configuration, the main path, is transport_graph_phase's
+    sim._make = engine.make_superstep
     torch.cuda.synchronize()
     g, p = sim.geom, sim.params
     Cb = sim._band["C"] if sim._band is not None else None
@@ -1619,12 +2050,14 @@ def transport_path(out_root):
     for w in wrappers.values():
         w.launches = 0
     cg.readbacks = 0
+    recs_e = transport_record(sim)
     t0 = time.perf_counter()
     try:
         summary = sim.run_bias_point(VD_MAIN, 1e30, max_steps=TRANSPORT_STEPS)
         torch.cuda.synchronize()
     finally:
         cur._vm_block = vm_block
+        sim.__dict__.pop("_superstep", None)
     wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     assemblies = {"full": sum(r != p.transport_delta_cap for r in vm_rows),
@@ -1672,14 +2105,19 @@ def transport_path(out_root):
     log(f"transport supersteps after 2: median {statistics.median(ms):.2f} ms, "
         f"min {min(ms):.2f} ms, max {max(ms):.2f} ms; kmc_time {summary['kmc_time']:.4g} s")
 
+    _, graph_summary = transport_graph_phase(out_root, False, (sim, recs_e))
+    del recs_e
+    torch.cuda.empty_cache()
+    tcg_checks = transport_cg_checks(sim, sim._band)
     k = transport_kernel_checks(sim)
     ref = reference_width_fly(sim)
     fly, mm, ref_mm = k["fly"], k["fly"]["mm"], ref["mm"]
     n_mp = int(g.atom_metalp_idx.shape[0])
     facts = ("bound_all_pairs_ms", "kernel", "registers", "shared_bytes", "device_launches")
     pick = lambda r: {key: r[key] for key in facts}
-    logs = (sim.presolve_log, sim.step_log, readbacks)
-    return launches, logs, [
+    logs = (sim.presolve_log, sim.step_log[:TRANSPORT_STEPS], readbacks)
+    graph_summary["kernel_checks"] = tcg_checks
+    return launches, logs, graph_summary, [
         {
             "name": "banded_matvec", "route": "cuda",
             "source": "devicekmc_tpu_torch/csrc/banded.cu",
@@ -1689,6 +2127,9 @@ def transport_path(out_root):
             "bound_ms": k["banded"]["bound_ms"], "bound_by": k["banded"]["bound_by"],
             "library_ms": k["banded"]["library_ms"], "shape": k["banded"]["shape"],
             "ell_form_ms": k["banded"]["ell_ms"],
+            "out_entry": {"launches_graph_run_card": graph_summary["launches_card"][
+                "banded_matvec_out"], "ms": tcg_checks["band_out_ms"],
+                "bit_equal_to_allocating_entry": True},
         },
         {
             "name": "wkb_fly_matvec", "route": "cuda",
@@ -1702,6 +2143,9 @@ def transport_path(out_root):
             "shape": f"n_mp={n_mp}, symmetric form (the default)",
             "ms_row_form": fly[False]["ms"], "bound_ms_row_form": fly[False]["bound_ms"],
             **pick(fly[True]), "row_form": pick(fly[False]), "pair_stats": fly["stats"],
+            "out_entry": {"launches_graph_run_card": graph_summary["launches_card"][
+                "wkb_fly_matvec_out"], "ms": tcg_checks["fly_out_ms"],
+                "bit_equal_to_allocating_entry": True},
             "ragged_width": {"n_mp": 2001,
                              "max_abs_err": max(k["fly_ragged"][True]["err"],
                                                 k["fly_ragged"][False]["err"],
@@ -1781,16 +2225,18 @@ def _counted(module, name, sync=None):
 
 
 def heat_run(out_root, model, n_steps, wrappers, device="cuda", n_sites=N_SITES):
-    """One run of the heat path: the transport configuration with the
-    ``model`` ("global" | "local") heat solver on, counters set to 0 just
-    before run_bias_point and read just after.  Returns the simulation and
-    the launch counts.  ``device="cpu"`` with a small ``n_sites`` rehearses
+    """One run of the heat path on the eager driver: the transport
+    configuration with the ``model`` ("global" | "local") heat solver on,
+    counters set to 0 just before run_bias_point and read just after.
+    Returns the simulation, the launch counts and the steps' records
+    (transport_record).  ``device="cpu"`` with a small ``n_sites`` rehearses
     the run without a card (no kernel is launched then, so pass no
     wrappers)."""
     import math
 
     import torch
 
+    from devicekmc_tpu_torch import engine
     from devicekmc_tpu_torch.physics import current as cur
     from devicekmc_tpu_torch.physics import heat as heat_mod
 
@@ -1801,6 +2247,7 @@ def heat_run(out_root, model, n_steps, wrappers, device="cuda", n_sites=N_SITES)
     t0 = time.perf_counter()
     sim = synthetic_crossbar(n_sites, device, os.path.join(out_root, "heat_" + model),
                              current=True, heat=model)
+    sim._make = engine.make_superstep
     sync()
     g, p = sim.geom, sim.params
     check(p.transport_cc == "fly" and (p.solve_heating_global if model == "global"
@@ -1813,9 +2260,12 @@ def heat_run(out_root, model, n_steps, wrappers, device="cuda", n_sites=N_SITES)
     counts0 = conserved_counts(sim.state)
     T0 = p.background_temp
 
+    # the transport solves: the cold ones and the warm re-solves' device form
     solves, restore_solves = _counted(cur, "update_power_blocked")
+    warm, restore_warm = _counted(cur, "_update_power_warm_device")
     phase, restore_phase = _counted(heat_mod, "update_temperature", sync)
     local_log = []
+    recs = transport_record(sim)
     step = sim._superstep
 
     def stepped(state, Vd):
@@ -1834,8 +2284,11 @@ def heat_run(out_root, model, n_steps, wrappers, device="cuda", n_sites=N_SITES)
         wall = time.perf_counter() - t0
     finally:
         restore_solves()
+        restore_warm()
         restore_phase()
+        sim.__dict__.pop("_superstep", None)
     launches = {name: w.launches for name, w in wrappers.items()}
+    solves["calls"] += warm["calls"]
 
     steps = sim.step_log
     check(len(steps) == n_steps == phase["calls"], f"ran {len(steps)} heat supersteps")
@@ -1900,7 +2353,7 @@ def heat_run(out_root, model, n_steps, wrappers, device="cuda", n_sites=N_SITES)
         log(f"heat supersteps ({model}) after 2: median {statistics.median(ms):.2f} ms, "
             f"min {min(ms):.2f} ms, max {max(ms):.2f} ms; heat phase median "
             f"{statistics.median(phase['ms']):.3f} ms")
-    return sim, launches
+    return sim, launches, recs
 
 
 PDISP_FACTS = ("bound_all_pairs_ms", "kernel", "registers", "shared_bytes",
@@ -1927,7 +2380,12 @@ def heat_path(out_root):
                 "banded_matvec": banded_matvec, "wkb_fly_matvec": wkb_fly_matvec,
                 "wkb_fly_matmat": wkb_fly_matmat, "wkb_window_block": wkb_window_block,
                 "wkb_fly_pdisp": wkb_fly_pdisp, "kmc_event_loop": kmc_event_loop}
-    sim, launches = heat_run(out_root, "global", HEAT_STEPS, wrappers)
+    sim, launches, recs = heat_run(out_root, "global", HEAT_STEPS, wrappers)
+    # the second bias point's captures are phase 4's
+    _, graph_summary = transport_graph_phase(out_root, True, (sim, recs),
+                                             second_point=False)
+    del recs
+    torch.cuda.empty_cache()
     blk = cur.assemble_X_blocks(sim.geom, sim.params, sim.state, band=sim._band)
     f = blk["fly"]
     rec = pdisp_checks(f["mpos"], f["mcb"], f["env"], "heat path")
@@ -1936,10 +2394,10 @@ def heat_path(out_root):
     del sim, blk, f
     torch.cuda.empty_cache()
 
-    _, local_launches = heat_run(out_root, "local", LOCAL_HEAT_STEPS, wrappers)
+    _, local_launches, _ = heat_run(out_root, "local", LOCAL_HEAT_STEPS, wrappers)
     torch.cuda.empty_cache()
     n_mp = rec["n"]
-    return launches, {
+    return launches, graph_summary, {
         "name": "wkb_fly_pdisp", "route": "cuda",
         "source": "devicekmc_tpu_torch/csrc/wkb_fly.cu",
         "replaces": "devicekmc_tpu/ops/wkb_pallas.py:383",
@@ -2368,8 +2826,11 @@ def cg_reference_run(out_root, chunked):
 
     from devicekmc_tpu_torch.ops import cg
 
+    from devicekmc_tpu_torch import engine
+
     sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "transport_chunk1"),
                              current=True)
+    sim._make = engine.make_superstep      # the eager driver, as the chunked run
     chunks = cg.CHUNKS
     cg.CHUNKS = (1,)
     cg.readbacks = 0
@@ -3092,8 +3553,9 @@ def ensemble_path(out_root):
     launches = {name: fn.launches for name, fn in batched.items()}
     cg_card = bcg.device_iterations(step.graphs[ENSEMBLE_B].ws)
     reads = cg.readbacks - reads0
+    card = {name: n for name, n in card_counts().items() if name in batched}
     check(launches == {"ell_gather_batched": 2 * n_steps, "poisson_pairwise_batched": n_steps,
-                       "kmc_event_loop_batched": n_steps} == card_counts(),
+                       "kmc_event_loop_batched": n_steps} == card,
           f"ensemble: batched launches {launches} in {n_steps} supersteps, on the card "
           f"{card_counts()}")
     check(all(fn.launches == 0 for fn in single), "ensemble: a single kernel was launched")
@@ -3493,7 +3955,7 @@ def main():
 
     t_start = time.perf_counter()
     libs = ["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window", "kmc_events",
-            "graph", "boundary_cg"]
+            "graph", "boundary_cg", "transport_cg"]
     latency_job = start_latency_build()
     _build.build(libs)
     finish_latency_build(latency_job)
@@ -3524,10 +3986,11 @@ def main():
     torch.cuda.empty_cache()
     batched = crossbar_batched_check(out_root, run)
     torch.cuda.empty_cache()
-    transport_launches, (presolve, steps, readbacks), records = transport_path(out_root)
+    transport_launches, (presolve, steps, readbacks), tgraph, records = transport_path(
+        out_root)
     kernels += records
     torch.cuda.empty_cache()
-    heat_launches, pdisp = heat_path(out_root)
+    heat_launches, hgraph, pdisp = heat_path(out_root)
     torch.cuda.empty_cache()
     readbacks_ref = cg_reference_run(out_root, (presolve, steps))
     torch.cuda.empty_cache()
@@ -3584,7 +4047,13 @@ def main():
     del xsim
     torch.cuda.empty_cache()
     kernels += cg_records
+    tcg_records = transport_cg_records(tgraph.pop("kernel_checks"), tgraph["launches_card"])
+    for rec in tcg_records:
+        rec["launches_heat_graph_run"] = hgraph["launches_card"][rec["name"]]
+    kernels += tcg_records
     log("headline graph summary: " + json.dumps({**headline, **cg_summary}))
+    log("transport graph summary: " + json.dumps(tgraph))
+    log("heat (global) graph summary: " + json.dumps(hgraph))
     log(f"profiled calls taken again after a trace without device records: "
         f"{len(empty_traces)} {empty_traces}; launches in the traces of the profiled calls "
         f"against their counts: {traced_totals()}")

@@ -29,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -53,7 +55,8 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 template <typename TC, typename TX>
 __global__ void __launch_bounds__(kWarps * 32)
 banded_matvec_kernel(const TC* __restrict__ C4, const TX* __restrict__ xp2, int m_pad,
-                     int B, float* __restrict__ y) {
+                     int B, float* __restrict__ y, unsigned long long* count) {
+  count_launch(count);
   extern __shared__ __align__(16) float xs[];  // [m_pad * B]
   const int r = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -85,7 +88,7 @@ banded_matvec_kernel(const TC* __restrict__ C4, const TX* __restrict__ xp2, int 
 
 template <typename TC, typename TX>
 int launch(const void* C4, const void* xp2, int R, int m_pad, int B, void* y,
-           cudaStream_t st) {
+           unsigned long long* count, cudaStream_t st) {
   const size_t smem = (size_t)m_pad * B * sizeof(float);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -96,23 +99,30 @@ int launch(const void* C4, const void* xp2, int R, int m_pad, int B, void* y,
   }
   banded_matvec_kernel<TC, TX><<<R, kWarps * 32, smem, st>>>(
       static_cast<const TC*>(C4), static_cast<const TX*>(xp2), m_pad, B,
-      static_cast<float*>(y));
+      static_cast<float*>(y), count);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // y [R, B] f32.  c_bf16, x_bf16: storage types of C4 and xp2 (f32 C4 with
-// a bf16 xp2 is refused).  B % 128 == 0.  Returns the cudaError_t of the
-// launch (0 on success).
-extern "C" int dkmc_banded_matvec(const void* C4, const void* xp2, int R, int m_pad,
-                                  int B, int c_bf16, int x_bf16, void* y, void* stream) {
+// a bf16 xp2 is refused).  B % 128 == 0.  count: the launch counter on the
+// card (null: none).  Returns the cudaError_t of the launch (0 on success).
+extern "C" int dkmc_banded_matvec_out(const void* C4, const void* xp2, int R, int m_pad,
+                                      int B, int c_bf16, int x_bf16, void* y, void* count,
+                                      void* stream) {
   if (R <= 0 || m_pad <= 0 || B <= 0 || B % 128 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* cnt = static_cast<unsigned long long*>(count);
   if (!c_bf16) {
     return x_bf16 ? (int)cudaErrorInvalidValue
-                  : launch<float, float>(C4, xp2, R, m_pad, B, y, st);
+                  : launch<float, float>(C4, xp2, R, m_pad, B, y, cnt, st);
   }
-  return x_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(C4, xp2, R, m_pad, B, y, st)
-                : launch<__nv_bfloat16, float>(C4, xp2, R, m_pad, B, y, st);
+  return x_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(C4, xp2, R, m_pad, B, y, cnt, st)
+                : launch<__nv_bfloat16, float>(C4, xp2, R, m_pad, B, y, cnt, st);
+}
+
+extern "C" int dkmc_banded_matvec(const void* C4, const void* xp2, int R, int m_pad,
+                                  int B, int c_bf16, int x_bf16, void* y, void* stream) {
+  return dkmc_banded_matvec_out(C4, xp2, R, m_pad, B, c_bf16, x_bf16, y, nullptr, stream);
 }

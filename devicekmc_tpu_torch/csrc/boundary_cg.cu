@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_sync.cuh"
 #include "ticket.cuh"
 
 namespace {
@@ -90,9 +91,6 @@ constexpr int kSlots = 4;
 constexpr int kRows = 2;
 constexpr int kTile = kThreads * kRows;
 constexpr int kMaxSpan = 64;
-// reads of the barrier's counter before a waiting block gives up (a trap):
-// seconds, where a barrier takes microseconds
-constexpr long long kMaxPolls = 1LL << 24;
 
 template <typename T>
 struct Pair;
@@ -249,40 +247,6 @@ __device__ __forceinline__ void tile_sums(const T* part, int n_tiles, T& s_rz, T
   }
   s_rz = warp_sum(a);
   s_rr = warp_sum(q);
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned atom_add_release(unsigned* p, unsigned v) {
-  unsigned old;
-  asm volatile("atom.add.release.gpu.global.u32 %0, [%1], %2;"
-               : "=r"(old) : "l"(p), "r"(v) : "memory");
-  return old;
-}
-
-// A barrier of the whole grid on one counter: block 0 adds 2^31 - (blocks -
-// 1), every other block 1, so the counter's top bit flips when the last
-// block arrives and its low bits come back to where they were; each block
-// waits until the bit differs from what it saw at its own arrival.  One
-// atomic a block, no release step after the last arrival: thread 0's
-// arrival releases its partial sums (the block's only writes that other
-// blocks read), its poll acquires everyone's, and the block's threads read
-// them past L1 after the closing __syncthreads.  Every block must be
-// resident (see the launch); a block that waits kMaxPolls reads traps, so
-// that a fault ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
-    const unsigned old = atom_add_release(bar, add);
-    for (long long polls = 0; ((old ^ ld_acquire(bar)) & 0x80000000u) == 0; ++polls)
-      if (polls == kMaxPolls) __trap();
-  }
-  __syncthreads();
 }
 
 // One launch after cg_matvec_dot: the update x += alpha p, r -= alpha ap,

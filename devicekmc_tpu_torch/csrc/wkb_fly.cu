@@ -93,6 +93,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_count.cuh"
 #include "ticket.cuh"
 
 namespace {
@@ -363,7 +364,8 @@ template <bool SYM, int S>
 __global__ void __launch_bounds__(kTile * S)
 fly_matvec_tiles(const float* __restrict__ pos, const float* __restrict__ cb,
                  const float* __restrict__ x, int n, Scal sc, int nt,
-                 float* part, int* cnt, float* __restrict__ y) {
+                 float* part, int* cnt, float* __restrict__ y, unsigned long long* count) {
+  count_launch(count);
   tile_sweep<SYM, S>(pos, cb, x, n, sc, nt, part, cnt, y, MatvecOp{});
 }
 
@@ -468,14 +470,16 @@ int launch_matmat(const float* pos, const float* cb, const float* X, int n, int 
 template <bool SYM>
 int launch_matvec(const float* pos, const float* cb, const float* x, int n,
                   const Scal& sc, int nt, int col_split, float* part, int* cnt, float* y,
-                  cudaStream_t st) {
+                  unsigned long long* count, cudaStream_t st) {
   const dim3 grid = SYM ? dim3((unsigned)((int64_t)nt * (nt + 1) / 2)) : dim3(nt, nt);
   switch (col_split) {
     case 1:
-      fly_matvec_tiles<SYM, 1><<<grid, kTile, 0, st>>>(pos, cb, x, n, sc, nt, part, cnt, y);
+      fly_matvec_tiles<SYM, 1><<<grid, kTile, 0, st>>>(pos, cb, x, n, sc, nt, part, cnt, y,
+                                                        count);
       break;
     case 4:
-      fly_matvec_tiles<SYM, 4><<<grid, 4 * kTile, 0, st>>>(pos, cb, x, n, sc, nt, part, cnt, y);
+      fly_matvec_tiles<SYM, 4><<<grid, 4 * kTile, 0, st>>>(pos, cb, x, n, sc, nt, part, cnt,
+                                                            y, count);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -517,12 +521,13 @@ Scal scalars(float prefac, float qV0, float ctol, float nn, float ly, float lz, 
 // it must be ordered on one stream.
 
 // y [n] = T x.  part: scratch of n_tiles * n_tiles * 128 floats; cnt: n_tiles
-// tickets; col_split in {1, 4}: 128 * col_split threads a tile.
-extern "C" int dkmc_wkb_fly_matvec(const void* pos, const void* cb, const void* x,
-                                   int n, float prefac, float qV0, float ctol,
-                                   float nn, float ly, float lz, int pbc,
-                                   int symmetric, int col_split, void* part, void* cnt,
-                                   void* y, void* stream) {
+// tickets; col_split in {1, 4}: 128 * col_split threads a tile; count: the
+// launch counter on the card (null: none).
+extern "C" int dkmc_wkb_fly_matvec_out(const void* pos, const void* cb, const void* x,
+                                       int n, float prefac, float qV0, float ctol,
+                                       float nn, float ly, float lz, int pbc,
+                                       int symmetric, int col_split, void* part, void* cnt,
+                                       void* y, void* count, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   const int nt = (n + kTile - 1) / kTile;
   if (nt > 65535) return (int)cudaErrorInvalidValue;
@@ -534,8 +539,18 @@ extern "C" int dkmc_wkb_fly_matvec(const void* pos, const void* cb, const void* 
   float* pt = static_cast<float*>(part);
   int* ct = static_cast<int*>(cnt);
   float* yy = static_cast<float*>(y);
-  return symmetric ? launch_matvec<true>(p, c, xx, n, sc, nt, col_split, pt, ct, yy, st)
-                   : launch_matvec<false>(p, c, xx, n, sc, nt, col_split, pt, ct, yy, st);
+  auto* cn = static_cast<unsigned long long*>(count);
+  return symmetric ? launch_matvec<true>(p, c, xx, n, sc, nt, col_split, pt, ct, yy, cn, st)
+                   : launch_matvec<false>(p, c, xx, n, sc, nt, col_split, pt, ct, yy, cn, st);
+}
+
+extern "C" int dkmc_wkb_fly_matvec(const void* pos, const void* cb, const void* x,
+                                   int n, float prefac, float qV0, float ctol,
+                                   float nn, float ly, float lz, int pbc,
+                                   int symmetric, int col_split, void* part, void* cnt,
+                                   void* y, void* stream) {
+  return dkmc_wkb_fly_matvec_out(pos, cb, x, n, prefac, qV0, ctol, nn, ly, lz, pbc, symmetric,
+                                 col_split, part, cnt, y, nullptr, stream);
 }
 
 // row [n] = forward-current dissipation row sums for the atoms' scaled

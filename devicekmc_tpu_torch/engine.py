@@ -62,7 +62,7 @@ def make_superstep(geom, params, heat, graph: Optional[SuperstepGraph] = None):
         graph.set_params(params)
 
         def superstep(state, Vd, cc=None):
-            return graph.step(state, Vd)
+            return graph.step(state, Vd, cc)
 
         return superstep
 
@@ -128,11 +128,12 @@ class Simulation:
     1`` then runs per step, as in the JAX package.
 
     Fused, the configurations of ``superstep.graph_ready`` (the headline
-    module set) run every superstep, and every batch of ``batch_steps``, as
-    one replay of a captured CUDA graph (``superstep.SuperstepGraph``, on the
-    CPU its plain version) and one read of its result; the state then stays
-    in the graph's buffers between replays, and ``state`` is a view of them.
-    The others run eagerly."""
+    module set, and with ``solve_current`` the blocked mixed transport on the
+    fly with the band, heating off or global) run every superstep, and every
+    batch of ``batch_steps``, as one replay of a captured CUDA graph
+    (``superstep.SuperstepGraph``, on the CPU its plain version) and one read
+    of its result; the state then stays in the graph's buffers between
+    replays, and ``state`` is a view of them.  The others run eagerly."""
 
     #: the checkpoint's state fields and grown caps, under the JAX package's
     #: names (devicekmc_tpu/engine.py), so that both read one npz
@@ -247,7 +248,7 @@ class Simulation:
         """The captured superstep of one replica when the fused driver runs
         ``params`` as a graph (made once, told of changed params), else
         None."""
-        if not self.fused or graph_ready(params) is not None:
+        if not self.fused or graph_ready(params, band=self._band is not None) is not None:
             return None
         if self._graph is None:
             self._graph = SuperstepGraph(self.geom, params, 1)
@@ -257,7 +258,8 @@ class Simulation:
     def _msuperstep(self, state, Vd, Icc_A, t_end, limit):
         graph = self._graph_for(self.params)
         if graph is not None:
-            return graph.multi(state, Vd, Icc_A, t_end, self.cfg.batch_steps, limit=limit)
+            return graph.multi(state, Vd, Icc_A, t_end, self.cfg.batch_steps, limit=limit,
+                               cc=self._cc)
         return multi_superstep_impl(self.geom, self.params, state, Vd, Icc_A, t_end,
                                     self.cfg.batch_steps, cc=self._cc, heat=self.heat,
                                     limit=limit)

@@ -148,7 +148,9 @@ _tickets_cache = {}
 _launch_counts = {}
 #: the kernels that count their launches on the card, in the order of
 #: launch_counts
-COUNTED_ON_CARD = ("ell_gather_batched", "poisson_pairwise_batched", "kmc_event_loop_batched")
+COUNTED_ON_CARD = ("ell_gather_batched", "poisson_pairwise_batched", "kmc_event_loop_batched",
+                   "banded_matvec_out", "wkb_fly_matvec_out", "transport_pack",
+                   "transport_apply", "transport_refine")
 
 
 def launch_counts(device):

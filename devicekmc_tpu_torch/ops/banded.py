@@ -16,7 +16,10 @@ the design.
 
 :func:`banded_matvec` launches the kernel for CUDA tensors and takes the
 plain version :func:`banded_matvec_plain` only for CPU tensors.
-``banded_matvec.launches`` counts kernel launches.
+``banded_matvec.launches`` counts kernel launches.  :func:`banded_matvec_out`
+writes into a buffer of the caller's on a given stream and counts its
+launches on the card too (``_build.launch_counts``): the form the transport
+solve's device loop captures into a WHILE body, where nothing may allocate.
 """
 
 from __future__ import annotations
@@ -51,21 +54,17 @@ def banded_matvec_plain(C4: torch.Tensor, xp2: torch.Tensor,
     return out
 
 
-def _lib():
-    fn = _build.load("banded").dkmc_banded_matvec
+def _lib(symbol="dkmc_banded_matvec"):
+    fn = getattr(_build.load("banded"), symbol)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, p, p]
+        fn.argtypes = ([p, p, i, i, i, i, i, p, p] if symbol == "dkmc_banded_matvec"
+                       else [p, p, i, i, i, i, i, p, p, p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def banded_matvec(C4: torch.Tensor, xp2: torch.Tensor) -> torch.Tensor:
-    """y [R, B] f32 from contiguous ``C4`` [R, m_pad, B, B] (f32 or bf16)
-    and ``xp2`` [R + m_pad - 1, B] (f32, or C4's type); B a multiple of 128
-    on the card."""
-    if C4.device.type == "cpu":
-        return banded_matvec_plain(C4, xp2)
+def _check(C4: torch.Tensor, xp2: torch.Tensor) -> None:
     if C4.device.type != "cuda":
         raise ValueError(f"banded_matvec: unsupported device {C4.device}")
     if C4.dim() != 4 or C4.shape[2] != C4.shape[3] or C4.dtype not in _STORAGE \
@@ -83,6 +82,16 @@ def banded_matvec(C4: torch.Tensor, xp2: torch.Tensor) -> torch.Tensor:
     if m_pad * B * 4 > 227 * 1024:
         raise ValueError("banded_matvec: the window (m_pad * B floats) exceeds "
                          "the shared memory of a block")
+
+
+def banded_matvec(C4: torch.Tensor, xp2: torch.Tensor) -> torch.Tensor:
+    """y [R, B] f32 from contiguous ``C4`` [R, m_pad, B, B] (f32 or bf16)
+    and ``xp2`` [R + m_pad - 1, B] (f32, or C4's type); B a multiple of 128
+    on the card."""
+    if C4.device.type == "cpu":
+        return banded_matvec_plain(C4, xp2)
+    _check(C4, xp2)
+    R, m_pad, B, _ = C4.shape
     y = torch.empty((R, B), dtype=torch.float32, device=C4.device)
     if R == 0:
         return y
@@ -97,3 +106,32 @@ def banded_matvec(C4: torch.Tensor, xp2: torch.Tensor) -> torch.Tensor:
 
 
 banded_matvec.launches = 0
+
+
+def banded_matvec_out(C4: torch.Tensor, xp2: torch.Tensor, out: torch.Tensor,
+                      stream=None) -> torch.Tensor:
+    """:func:`banded_matvec` into ``out`` (contiguous [R, B] f32) on
+    ``stream`` (a raw stream handle; None: the current stream), its launches
+    also counted on the card; allocates nothing.  For CPU tensors the plain
+    version, copied into ``out``."""
+    if C4.device.type == "cpu":
+        return out.copy_(banded_matvec_plain(C4, xp2))
+    _check(C4, xp2)
+    R, m_pad, B, _ = C4.shape
+    if out.dtype != torch.float32 or tuple(out.shape) != (R, B) or not out.is_contiguous() \
+            or out.device != C4.device:
+        raise ValueError("banded_matvec_out: out must be a contiguous [R, B] f32 tensor on "
+                         "C4's device")
+    if stream is None:
+        stream = torch.cuda.current_stream(C4.device).cuda_stream
+    err = _lib("dkmc_banded_matvec_out")(
+        C4.data_ptr(), xp2.data_ptr(), R, m_pad, B, int(C4.dtype == torch.bfloat16),
+        int(xp2.dtype == torch.bfloat16), out.data_ptr(),
+        _build.launch_counter(C4.device, "banded_matvec_out"), stream)
+    if err != 0:
+        raise RuntimeError(f"banded_matvec kernel launch failed: cudaError {err}")
+    banded_matvec_out.launches += 1
+    return out
+
+
+banded_matvec_out.launches = 0

@@ -5,8 +5,10 @@ package's one jitted program a superstep (``jax.jit(superstep_impl)``,
 * :func:`device_while` is ``lax.while_loop``: under a capture on the card it
   adds a conditional WHILE node (``csrc/graph.cu``) whose body is captured
   from hand-written kernels, the last of which sets the node's condition on
-  the device; its plain version, for CPU tensors only, is a Python ``while``
-  on a read of the predicate.
+  the device; called inside such a body it nests a WHILE node in it (a loop
+  inside a loop, as the refinement rounds around the inner CG of the
+  transport solve); its plain version, for CPU tensors only, is a Python
+  ``while`` on a read of the predicate.
 * :class:`Graph` captures a function of static buffers once and replays it
   as one launch (``torch.cuda.graph``, every read of the device forbidden
   while it captures); on the CPU it calls the function, the plain version of
@@ -19,14 +21,20 @@ unrolled at capture; those need no helper here.
 from __future__ import annotations
 
 import ctypes
+import gc
 from typing import Callable, Dict, Sequence
 
 import torch
 
 from . import _build
 
-#: the stream the bodies of WHILE nodes are captured on, one a device
-_side_streams: Dict[torch.device, torch.cuda.Stream] = {}
+#: the streams the bodies of WHILE nodes are captured on, one a device and
+#: nesting depth
+_side_streams: Dict[tuple, torch.cuda.Stream] = {}
+#: WHILE nodes nested deepest: the side streams Graph makes before a capture
+MAX_DEPTH = 2
+#: the WHILE bodies being captured now (0: none)
+_depth = 0
 #: the stream graphs are captured on, one a device
 _capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
 
@@ -34,20 +42,25 @@ _capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
 def _fn(name: str):
     fn = getattr(_build.load("graph"), name)
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = ([p, p, p, ctypes.POINTER(ctypes.c_ulonglong)]
-                       if name == "dkmc_while_begin" else [p])
+        p, u = ctypes.c_void_p, ctypes.c_ulonglong
+        fn.argtypes = {"dkmc_while_begin": [p, p, p, ctypes.POINTER(u)],
+                       "dkmc_while_end": [p],
+                       "dkmc_while_probe_step": [p, p, p, u, p, ctypes.c_longlong, p, p],
+                       }[name]
         fn.restype = ctypes.c_int
     return fn
 
 
-def side_stream(device) -> torch.cuda.Stream:
-    """The stream that captures the bodies of WHILE nodes on ``device``;
-    :class:`Graph` makes it before a capture begins."""
+def side_stream(device, depth: int = 0) -> torch.cuda.Stream:
+    """The stream that captures the bodies of WHILE nodes nested ``depth``
+    deep on ``device``; :class:`Graph` makes them before a capture begins."""
     device = torch.device(device)
-    if device not in _side_streams:
-        _side_streams[device] = torch.cuda.Stream(device)
-    return _side_streams[device]
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    key = (device, depth)
+    if key not in _side_streams:
+        _side_streams[key] = torch.cuda.Stream(key[0])
+    return _side_streams[key]
 
 
 def _predicate(cond: torch.Tensor) -> bool:
@@ -55,10 +68,13 @@ def _predicate(cond: torch.Tensor) -> bool:
     return int(cond[0]) != 0
 
 
-def device_while(cond: torch.Tensor, body: Callable[[int, object], None]) -> None:
+def device_while(cond: torch.Tensor, body: Callable[[int, object], None],
+                 stream=None) -> None:
     """Run ``body`` while ``cond[0] != 0``: the counterpart of
     ``lax.while_loop``.  ``cond`` is an int32 [1] tensor that the work before
     the loop sets; ``body(handle, stream)`` runs one iteration and updates it.
+    ``stream``: the stream of an enclosing loop's body, when this loop runs
+    inside it (None: the current stream, which must be capturing).
 
     For a CUDA tensor this must run inside a capture (:class:`Graph`): it adds
     a WHILE node to the graph, entered on ``cond[0]``, and captures
@@ -79,17 +95,23 @@ def device_while(cond: torch.Tensor, body: Callable[[int, object], None]) -> Non
     if not torch.cuda.is_current_stream_capturing():
         raise RuntimeError("device_while runs on the card only inside a CUDA graph capture "
                            "(ops.graph.Graph)")
-    stream = torch.cuda.current_stream(cond.device)
-    side = side_stream(cond.device)
+    global _depth
+    if stream is None:
+        stream = torch.cuda.current_stream(cond.device).cuda_stream
+    if _depth >= MAX_DEPTH:
+        raise RuntimeError(f"device_while: WHILE nodes nest {MAX_DEPTH} deep at most")
+    side = side_stream(cond.device, _depth)
     handle = ctypes.c_ulonglong(0)
-    err = _fn("dkmc_while_begin")(stream.cuda_stream, side.cuda_stream, cond.data_ptr(),
+    err = _fn("dkmc_while_begin")(stream, side.cuda_stream, cond.data_ptr(),
                                   ctypes.byref(handle))
     if err != 0:
         raise RuntimeError(f"device_while: the conditional WHILE node could not be added "
                            f"to the graph under capture: cudaError {err}")
+    _depth += 1
     try:
         body(handle.value, side.cuda_stream)
     finally:
+        _depth -= 1
         err = _fn("dkmc_while_end")(side.cuda_stream)
     if err != 0:
         raise RuntimeError(f"device_while: capturing the loop's body failed: cudaError {err}")
@@ -120,7 +142,8 @@ class Graph:
         self.per_replay = {}
         if self.device.type == "cpu":
             return
-        side_stream(self.device)
+        for depth in range(MAX_DEPTH):
+            side_stream(self.device, depth)
         stream = _capture_streams.get(self.device)
         if stream is None:
             stream = _capture_streams[self.device] = torch.cuda.Stream(self.device)
@@ -131,6 +154,12 @@ class Graph:
             self.tickets = _build.tickets(self.device, tickets)
         _build.launch_counts(self.device)
         before = {f: f.launches for f in counted}
+        # no collection while capturing: a graph freed by the collector
+        # destroys its executable, which a capture does not permit (it would
+        # invalidate this capture)
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
         mode = torch.cuda.get_sync_debug_mode()
@@ -140,6 +169,8 @@ class Graph:
                 self.outputs = fn()
         finally:
             torch.cuda.set_sync_debug_mode(mode)
+            if collecting:
+                gc.enable()
             for f, n in before.items():
                 self.per_replay[f] = f.launches - n
                 f.launches = n
@@ -152,3 +183,22 @@ class Graph:
         for f, n in self.per_replay.items():
             f.launches += n
         return self.outputs
+
+
+def probe_step(count: torch.Tensor, left: torch.Tensor, cond: torch.Tensor, handle: int = 0,
+               stream=None, reload=None) -> None:
+    """The counting kernel of the nested loop's test (one thread on the
+    card): ``count += 1``, ``left -= 1``, ``cond = left > 0`` (also the
+    condition of the WHILE node ``handle``); ``reload = (left2, value,
+    cond2)`` arms an inner loop again: ``left2 = value``, ``cond2 = value >
+    0``.  CUDA tensors only: ``count`` int64 [1], ``left`` int64 [1],
+    ``cond`` int32 [1]."""
+    if stream is None:
+        stream = torch.cuda.current_stream(count.device).cuda_stream
+    left2, value, cond2 = reload if reload is not None else (None, 0, None)
+    err = _fn("dkmc_while_probe_step")(
+        count.data_ptr(), left.data_ptr(), cond.data_ptr(), handle,
+        None if left2 is None else left2.data_ptr(), int(value),
+        None if cond2 is None else cond2.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"probe_step kernel launch failed: cudaError {err}")

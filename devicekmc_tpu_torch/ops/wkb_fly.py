@@ -30,7 +30,9 @@ the same bits.
 
 :func:`wkb_fly_matvec`, :func:`wkb_fly_matmat` and :func:`wkb_fly_pdisp`
 launch the kernels for CUDA tensors and take the plain versions (``*_plain``)
-only for CPU tensors.  Each wrapper's ``launches`` counts its calls that
+only for CPU tensors; :func:`wkb_fly_matvec_out` is the symmetric matvec into
+buffers of the caller's on a given stream, its launches also counted on the
+card (the form a WHILE body captures, where nothing may allocate).  Each wrapper's ``launches`` counts its calls that
 launched (one device launch each).  ``env`` is the dict of
 ``physics.current.wkb_env``.
 """
@@ -203,6 +205,49 @@ def wkb_fly_matvec(pos: torch.Tensor, cb: torch.Tensor, x: torch.Tensor, env,
 
 
 wkb_fly_matvec.launches = 0
+
+
+def matvec_scratch(n: int, device):
+    """(part, tickets): the scratch of :func:`wkb_fly_matvec_out` for ``n``
+    atoms, made once by the caller (the tickets zero, as every launch leaves
+    them)."""
+    nt = -(-n // _TILE)
+    return (torch.zeros(nt * nt * _TILE, dtype=torch.float32, device=device),
+            torch.zeros(max(nt, 1), dtype=torch.int32, device=device))
+
+
+def wkb_fly_matvec_out(pos: torch.Tensor, cb: torch.Tensor, x: torch.Tensor, env,
+                       out: torch.Tensor, scratch, stream=None) -> torch.Tensor:
+    """The symmetric :func:`wkb_fly_matvec` into ``out`` ([n] f32) with the
+    caller's ``scratch`` (:func:`matvec_scratch`) on ``stream`` (a raw stream
+    handle; None: the current stream), its launches also counted on the card;
+    allocates nothing.  For CPU tensors the plain version, copied into
+    ``out``."""
+    if pos.device.type == "cpu":
+        return out.copy_(wkb_fly_matvec_plain(pos, cb, x, env))
+    _check("wkb_fly_matvec_out", pos, cb, x, 1)
+    n = pos.shape[0]
+    part, tickets = scratch
+    nt = -(-n // _TILE)
+    if out.dtype != torch.float32 or tuple(out.shape) != (n,) or not out.is_contiguous() \
+            or part.numel() < nt * nt * _TILE or tickets.numel() < nt:
+        raise ValueError("wkb_fly_matvec_out: out must be [n] f32 and the scratch that of "
+                         "matvec_scratch(n)")
+    if stream is None:
+        stream = torch.cuda.current_stream(pos.device).cuda_stream
+    fn = _fn("dkmc_wkb_fly_matvec_out",
+             [_P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P])
+    err = fn(pos.data_ptr(), cb.data_ptr(), x.data_ptr(), n, *_scalars(env), 1,
+             matvec_col_split(n, _build.sm_count(pos.device)), part.data_ptr(),
+             tickets.data_ptr(), out.data_ptr(),
+             _build.launch_counter(pos.device, "wkb_fly_matvec_out"), stream)
+    if err != 0:
+        raise RuntimeError(f"wkb_fly_matvec kernel launch failed: cudaError {err}")
+    wkb_fly_matvec_out.launches += 1
+    return out
+
+
+wkb_fly_matvec_out.launches = 0
 
 
 def wkb_fly_matmat(pos: torch.Tensor, cb: torch.Tensor, X: torch.Tensor, env,

@@ -56,7 +56,9 @@ def make_batched_superstep(geom: Geometry, params: PhysParams, heat, mesh=None):
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
 
-    if graph_ready(params) is None:
+    # an ensemble has no transport cache (band): with solve_current it runs
+    # eagerly, replica by replica
+    if graph_ready(params, band=False) is None:
         graphs = {}
 
         def superstep(states: SimState, Vd: float):

@@ -65,7 +65,8 @@ import torch
 from .. import constants as C
 from ..ops.banded import banded_matvec
 from ..ops.cg import cg_solve, cg_solve_mixed, invert_coarse
-from ..ops.compact import nonzero_fixed
+from ..ops import transport_cg
+from ..ops.compact import nonzero_fixed, nonzero_fixed_batched
 from ..ops.wkb_fly import wkb_fly_matmat, wkb_fly_matvec, wkb_fly_pdisp
 from ..ops.wkb_window import wkb_window_block
 from ..state import Geometry, PhysParams, SimState, replace
@@ -206,7 +207,7 @@ def wkb_env(geom: Geometry, params: PhysParams) -> dict:
 def wkb_single_T(env, s, abs_dE):
     """Single-shot trapezoidal/triangular barrier (trap<->trap,
     contact<->contact; src/current_solver.cpp:135-154)."""
-    E1 = torch.tensor(env["qV0"], dtype=s.dtype, device=s.device)
+    E1 = torch.full((), env["qV0"], dtype=s.dtype, device=s.device)
     E2 = E1 - abs_dE
     return torch.where(
         E2 > 0,
@@ -220,11 +221,11 @@ def wkb_window_T(env, s, abs_dE):
     (src/current_solver.cpp:99-134): ``n_int_steps`` single-shot terms;
     exact while n_int_steps >= ceil(max |dE| / dE_step), which
     :func:`assemble_X_blocks` reports as a metric."""
-    qV0 = torch.tensor(env["qV0"], dtype=s.dtype, device=s.device)
-    dE_step = torch.tensor(env["dE_step"], dtype=s.dtype, device=s.device)
+    qV0 = torch.full((), env["qV0"], dtype=s.dtype, device=s.device)
+    dE_step = torch.full((), env["dE_step"], dtype=s.dtype, device=s.device)
     acc = torch.zeros_like(s)
     for kk in range(int(env["n_int_steps"])):
-        iv = torch.tensor(kk, dtype=s.dtype, device=s.device) * dE_step
+        iv = torch.full((), kk, dtype=s.dtype, device=s.device) * dE_step
         e1 = qV0 + iv
         e2 = e1 - abs_dE
         term = torch.where(
@@ -357,6 +358,65 @@ def _incremental_vacancy_blocks(
     return T_vm, T_vv, slot_atom_new, True
 
 
+def _slot_map(idx: torch.Tensor, ok: torch.Tensor, size: int) -> torch.Tensor:
+    """int32 [size]: the position in ``idx`` of each index that ``ok``
+    marks (positions of distinct indices), -1 elsewhere; fixed shapes, no
+    read."""
+    out = torch.full((size + 1,), -1, dtype=torch.int32, device=idx.device)
+    pos = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
+    return out.scatter_(0, torch.where(ok, idx, size).long(), pos)[:size]
+
+
+def _incremental_vacancy_blocks_device(
+    geom, params, state, vidx, v_ok, vpos, vcb, apos, acb, mpos, mcb, env,
+):
+    """:func:`_incremental_vacancy_blocks` without a read, as the JAX
+    package's ``lax.cond`` makes the choice: both branches at their fixed
+    sizes (the full assembly, and the rows of at most transport_delta_cap
+    new atoms placed into the gathered store), selected on the device by
+    ``tt_valid`` and the count of new atoms.  Each branch's blocks are the
+    eager one's bit for bit.  Returns (T_vm, T_vv, slot_atom_new, partial:
+    0-d bool tensor)."""
+    vcap = params.tunnel_vac_cap
+    ccap = params.transport_delta_cap
+    Na = geom.N_atom
+    dev = vidx.device
+    slot_atom_new = torch.where(v_ok, vidx, -1)
+    T_vm_f = _vm_block(env, vpos, vcb, v_ok, mpos, mcb)
+    T_vv_f = tunnel_block(env, vpos, vcb, v_ok, vpos, vcb, v_ok, wkb_single_T)
+
+    prev = state.tt_slot_atom                      # [vcap] atom ids, -1 free
+    amap = _slot_map(prev, prev >= 0, Na)
+    src_slot = torch.where(v_ok, amap[vidx.long()], -1)
+    have = v_ok & (src_slot >= 0)
+    need_idx, n_need = nonzero_fixed_batched((v_ok & ~have)[None], ccap, fill_value=0)
+    need_idx, n_need = need_idx[0], n_need[0]
+    valid = state.tt_valid if torch.is_tensor(state.tt_valid) else torch.full(
+        (), bool(state.tt_valid), device=dev)
+    partial = valid & (n_need <= ccap)
+
+    t_live = torch.arange(ccap, device=dev) < n_need
+    atoms_t = torch.where(t_live, vidx[need_idx.long()], 0).long()
+    pos_t, cb_t = apos[atoms_t], acb[atoms_t]
+    rows_vm = _vm_block(env, pos_t, cb_t, t_live, mpos, mcb)
+    rows_vv = tunnel_block(env, pos_t, cb_t, t_live, vpos, vcb, v_ok, wkb_single_T)
+    sg = src_slot.clamp(0, max(vcap - 1, 0)).long()
+    T_vm = torch.where(have[:, None], state.tt_vm[sg], 0.0)
+    T_vv = torch.where(have[:, None] & have[None, :], state.tt_vv[sg][:, sg], 0.0)
+    # the new atoms' rows, then their columns (written last, as the eager
+    # assembly writes them)
+    new_of = _slot_map(need_idx, t_live, vcap)
+    is_new = new_of >= 0
+    new_vv = rows_vv[new_of.clamp(min=0).long()]
+    T_vm = torch.where(is_new[:, None], rows_vm[new_of.clamp(min=0).long()], T_vm)
+    T_vv = torch.where(is_new[:, None], new_vv, T_vv)
+    T_vv = torch.where(is_new[None, :], new_vv.T, T_vv)
+    # row-major, as the eager assembly's blocks are (a product of a
+    # transposed layout sums in another order)
+    return (torch.where(partial, T_vm, T_vm_f).contiguous(),
+            torch.where(partial, T_vv, T_vv_f).contiguous(), slot_atom_new, partial)
+
+
 def assemble_cc_block(geom: Geometry, params: PhysParams, state: SimState):
     """The metal_p x metal_p (c2c) tunnel block alone.
 
@@ -409,7 +469,7 @@ def _coarse_restriction(geom: Geometry, params: PhysParams):
 
 def assemble_X_blocks(
     geom: Geometry, params: PhysParams, state: SimState,
-    cc=None, _cc_only: bool = False, band=None,
+    cc=None, _cc_only: bool = False, band=None, device_form: bool = False,
 ):
     """Assemble the blocked transport operator (see the module docstring).
 
@@ -417,7 +477,12 @@ def assemble_X_blocks(
     off-diagonal values (the dense convention) and the exact f64 diagonal.
     ``cc``: the precomputed metal_p x metal_p block of
     :func:`assemble_cc_block` (valid within one bias point); ``band``: the
-    static banded operator of :func:`build_banded_nb`."""
+    static banded operator of :func:`build_banded_nb`.  ``device_form``: no
+    read of the device (the live vacancy count a mask, the incremental
+    choice made on the device, ``int_steps_needed`` and ``tt_partial`` 0-d
+    tensors), the same entries; plus the int32 bucket ``vidx32``, its live
+    count ``n_vac`` [1] and each atom's bucket slot ``vslot`` [Na] that the
+    transport CG's kernels read."""
     require_ieee_f32("the transport operator's f32 tunnel-block products")
     dtype = params.dtype
     cdtype = _cdtype(params)
@@ -442,8 +507,8 @@ def assemble_X_blocks(
     valid = anb >= 0
     safe = anb.clamp(min=0).long()
     hi = (metal[:, None] & metal[safe]) | (cvac[:, None] & cvac[safe])
-    g_hi = torch.tensor(-high_G, dtype=dtype, device=dev)
-    g_lo = torch.tensor(-low_G, dtype=dtype, device=dev)
+    g_hi = torch.full((), -high_G, dtype=dtype, device=dev)
+    g_lo = torch.full((), -low_G, dtype=dtype, device=dev)
     nb_vals = torch.where(valid, torch.where(hi, g_hi, g_lo), 0.0)
 
     # --- active subset ---
@@ -451,8 +516,13 @@ def assemble_X_blocks(
     vcap = params.tunnel_vac_cap
     if vcap <= 0:
         raise ValueError("transport='blocked' requires tunnel_vac_cap > 0")
-    vidx, n_vac = nonzero_fixed(anyvac, vcap, fill_value=0)
-    v_ok = torch.arange(vcap, device=dev) < min(int(n_vac), vcap)
+    if device_form:
+        vidx, n_vac = nonzero_fixed_batched(anyvac[None], vcap, fill_value=0)
+        vidx, n_vac = vidx[0], n_vac[0]
+        v_ok = torch.arange(vcap, device=dev) < n_vac.clamp(max=vcap)
+    else:
+        vidx, n_vac = nonzero_fixed(anyvac, vcap, fill_value=0)
+        v_ok = torch.arange(vcap, device=dev) < min(int(n_vac), vcap)
     vlong = vidx.long()
 
     mpos, mcb = apos[mp].contiguous(), acb[mp].contiguous()
@@ -477,7 +547,9 @@ def assemble_X_blocks(
         return dict(T_cc=T_cc)
     tt_slot_new, partial = None, False
     if params.transport_incremental:
-        T_vm, T_vv, tt_slot_new, partial = _incremental_vacancy_blocks(
+        incremental = (_incremental_vacancy_blocks_device if device_form
+                       else _incremental_vacancy_blocks)
+        T_vm, T_vv, tt_slot_new, partial = incremental(
             geom, params, state, vidx, v_ok, vpos, vcb, apos, acb, mpos, mcb, env,
         )
     else:
@@ -491,7 +563,9 @@ def assemble_X_blocks(
     elig_vm = v_ok[:, None] & (abs_vm > env["ctol"]) & ~(dist_vm < env["nn"])
     widest = torch.where(elig_vm, abs_vm, 0.0).max() if elig_vm.numel() else \
         torch.zeros((), dtype=cdtype, device=dev)
-    int_steps_needed = int(torch.ceil(widest / env["dE_step"]))
+    int_steps_needed = torch.ceil(widest / env["dE_step"])
+    if not device_form:
+        int_steps_needed = int(int_steps_needed)
 
     # --- virtual-node rows ---
     idx = torch.arange(Na, device=dev)
@@ -529,6 +603,10 @@ def assemble_X_blocks(
         int_steps_needed=int_steps_needed,
         tt_slot_atom=tt_slot_new, tt_partial=partial,
     )
+    if device_form:
+        out["vidx32"] = vidx
+        out["n_vac"] = n_vac.reshape(1).to(torch.int32)
+        out["vslot"] = _slot_map(vidx, v_ok, Na)
     if cc_fly:
         # everything the on-the-fly kernels need to re-derive cc entries
         out["fly"] = dict(mpos=mpos, mcb=mcb, env=env)
@@ -540,7 +618,7 @@ def assemble_X_blocks(
         vvalid = vnb >= 0
         vsafe = vnb.clamp(min=0).long()
         hi_dyn = vvalid & v_ok[:, None] & cvac[vlong][:, None] & cvac[vsafe]
-        bump = torch.tensor(-(high_G - low_G), dtype=dtype, device=dev).to(torch.float32)
+        bump = torch.full((), -(high_G - low_G), dtype=dtype, device=dev).to(torch.float32)
         out["band"] = band
         out["band_dyn_vals"] = torch.where(hi_dyn, bump, 0.0)
         out["band_vnb_safe"] = vsafe
@@ -577,16 +655,14 @@ def _apply_X_blocks(blk, x, wd):
     f64 would materialise multi-GB converted copies) and the products are
     cast to ``wd``."""
     x = x.to(wd)
-    x0, x1, xa = x[0], x[1], x[2:]
+    xa = x[2:]
     if blk.get("band") is not None and wd == torch.float32:
         # gather-free static banded matvec + the small dynamic vacancy-pair
         # correction (f32 inner iterations only; the f64 refinement matvec
         # keeps the exact ELL path)
-        ya = _banded_nb_matvec(blk["band"], xa)
-        yv = (blk["band_dyn_vals"] * xa[blk["band_vnb_safe"]]).sum(dim=1)
-        ya = ya.index_add_(0, blk["vidx"], torch.where(blk["v_ok"], yv, 0.0))
+        ya = _band_bump(blk, xa, _banded_nb_matvec(blk["band"], xa))
     else:
-        ya = (blk["nb_vals"].to(wd) * xa[blk["nb_safe"]]).sum(dim=1)
+        ya = _ell_nb(blk, xa, wd)
 
     # the f32 inner iterations read the bf16 twins when the metal block has
     # one (transport_bf16_inner with a stored block: the JAX package's test);
@@ -599,12 +675,33 @@ def _apply_X_blocks(blk, x, wd):
         mm = torch.matmul
     cd = T_vv.dtype
     xm = xa[blk["mp"]].to(cd)
-    xv = torch.where(blk["v_ok"], xa[blk["vidx"]], 0.0).to(cd)
     if blk.get("fly") is not None:
         f = blk["fly"]
         y_cc = wkb_fly_matvec(f["mpos"], f["mcb"], xm.float().contiguous(), f["env"]).to(wd)
     else:
         y_cc = mm(T_cc, xm).to(wd)
+    return _apply_tail(blk, x, wd, ya, y_cc, xm, T_vv, T_vm, mm)
+
+
+def _ell_nb(blk, xa, wd):
+    """The neighbour part of X x through the ELL conductances."""
+    return (blk["nb_vals"].to(wd) * xa[blk["nb_safe"]]).sum(dim=1)
+
+
+def _band_bump(blk, xa, ya):
+    """The band's product plus the dynamic (high_G - low_G) bump on the
+    neutral-vacancy pairs of the bucket."""
+    yv = (blk["band_dyn_vals"] * xa[blk["band_vnb_safe"]]).sum(dim=1)
+    return ya.index_add_(0, blk["vidx"], torch.where(blk["v_ok"], yv, 0.0))
+
+
+def _apply_tail(blk, x, wd, ya, y_cc, xm, T_vv, T_vm, mm):
+    """The rest of X x after the neighbour part ``ya`` and the metal block's
+    product ``y_cc``: the vacancy blocks, their placement, the virtual rows
+    and the diagonal."""
+    xa = x[2:]
+    cd = T_vv.dtype
+    xv = torch.where(blk["v_ok"], xa[blk["vidx"]], 0.0).to(cd)
     y_mv = mm(xv, T_vm).to(wd)
     y_vv = mm(T_vv, xv).to(wd)
     y_vm = mm(T_vm, xm).to(wd)
@@ -613,10 +710,28 @@ def _apply_X_blocks(blk, x, wd):
     src = blk["src_vals"].to(wd)
     gnd = blk["gnd_vals"].to(wd)
     loop_G = blk["loop_G"]
+    x0, x1 = x[0], x[1]
     ya = ya + gnd * x0 + src * x1
     y0 = torch.dot(gnd, xa) - loop_G * x1
     y1 = torch.dot(src, xa) - loop_G * x0
     return torch.cat([torch.stack([y0, y1]), ya]) + blk["diag"].to(wd) * x
+
+
+def apply_from_parts(blk, x, wd, band_y, y_cc):
+    """:func:`_apply_X_blocks` of the full vector ``x`` (already in ``wd``)
+    from the products its kernels made: ``band_y`` the band's output in its
+    permuted layout (f32 with a band; None: the ELL part) and ``y_cc`` the
+    on-the-fly metal block's [n_mp] f32.  The plain version the transport
+    CG's device loop (``ops.transport_cg``) runs on CPU tensors, the same
+    operations as :func:`_apply_X_blocks`."""
+    xa = x[2:]
+    if band_y is not None:
+        ya = _band_bump(blk, xa, _band_unpermute(blk["band"], band_y, xa))
+    else:
+        ya = _ell_nb(blk, xa, wd)
+    xm = xa[blk["mp"]].to(blk["T_vv"].dtype)
+    return _apply_tail(blk, x, wd, ya, y_cc.to(wd), xm, blk["T_vv"], blk["T_vm"],
+                       torch.matmul)
 
 
 def _apply_X_blocks_mat(blk, X, wd):
@@ -728,6 +843,28 @@ def build_banded_nb(
     return band
 
 
+def _band_window(band, xa):
+    """The permuted vector laid into the band's zero-padded window layout
+    [(R + m_pad - 1) * B] f32."""
+    Cb = band["C"]
+    R, m_pad, B, _ = Cb.shape
+    Na = band["pi"].shape[0]
+    xp = torch.zeros((R + m_pad - 1) * B, dtype=torch.float32, device=Cb.device)
+    front = band["front"]                  # p*B leading zeros
+    xp[front:front + Na] = xa[band["pi"]].float()
+    return xp
+
+
+def _band_unpermute(band, y, xa):
+    """The band kernel's output ``y`` (its permuted layout) back in atom
+    order, plus the ``row_fix`` diagonal of a bf16 band."""
+    Na = band["pi"].shape[0]
+    y = y.reshape(-1)[:Na][band["inv"]]
+    if band.get("row_fix") is not None:
+        y = y + band["row_fix"] * xa
+    return y
+
+
 def _banded_nb_matvec(band, xa):
     """y = C_static @ x through the banded-matvec kernel's wrapper
     (``ops/banded.py``): the permuted vector is laid into the zero-padded
@@ -737,14 +874,8 @@ def _banded_nb_matvec(band, xa):
     and a bf16 band adds its ``row_fix`` diagonal."""
     Cb = band["C"]
     R, m_pad, B, _ = Cb.shape
-    Na = band["pi"].shape[0]
-    xp = torch.zeros((R + m_pad - 1) * B, dtype=torch.float32, device=Cb.device)
-    front = band["front"]                  # p*B leading zeros
-    xp[front:front + Na] = xa[band["pi"]].float()
-    y = banded_matvec(Cb, xp.reshape(R + m_pad - 1, B)).reshape(R * B)[:Na][band["inv"]]
-    if band.get("row_fix") is not None:
-        y = y + band["row_fix"] * xa
-    return y
+    xp = _band_window(band, xa)
+    return _band_unpermute(band, banded_matvec(Cb, xp.reshape(R + m_pad - 1, B)), xa)
 
 
 def _deflation_ops(geom: Geometry, params: PhysParams, blk, d):
@@ -823,10 +954,12 @@ def _pdisp_rows_cols(E, ms_r, ms_c, Vd: float, chunk: int = 2048):
     return row, col
 
 
-def _site_power(geom: Geometry, params: PhysParams, state: SimState, P_disp):
+def _site_power(geom: Geometry, params: PhysParams, state: SimState, P_disp,
+                read: bool = True):
     """Per-site power [N] and its sum from the per-atom dissipation sums:
     metal atoms dissipate nothing (alpha = 0), the injection and extraction
-    layers are left out (src/current_solver.cpp:339-371)."""
+    layers are left out (src/current_solver.cpp:339-371).  ``read`` False:
+    the sum stays a 0-d tensor."""
     Na, nsi = geom.N_atom, params.num_source_inj
     ai = geom.atom_ind.long()
     idx = torch.arange(Na, device=P_disp.device)
@@ -835,7 +968,7 @@ def _site_power(geom: Geometry, params: PhysParams, state: SimState, P_disp):
     atom_power = torch.where(in_range & ~metal, -P_disp, 0.0).to(params.dtype)
     power = torch.zeros(geom.N, dtype=params.dtype, device=P_disp.device)
     power[ai] = atom_power
-    return power, float(power.sum())
+    return power, (float(power.sum()) if read else power.sum())
 
 
 def _pdisp_blocked(blk, Matoms, Vd: float):
@@ -1023,8 +1156,153 @@ def update_power_blocked(
     return new_state, metrics
 
 
+def device_form_reason(params: PhysParams) -> Optional[str]:
+    """Why the in-superstep transport solve of ``params`` does not run as the
+    transport CG's device loops (``ops.transport_cg``); None when it does:
+    blocked, mixed precision, the on-the-fly metal block, the Jacobi warm
+    preconditioner, no bf16 inner operator (and, at the call, the static
+    band: :func:`warm_device_form`)."""
+    if params.transport != "blocked":
+        return f"transport={params.transport!r}: the dense transport solve runs eagerly"
+    if not params.mixed:
+        return "a precision other than 'mixed': the f64 blocked solve runs eagerly"
+    if params.transport_cc != "fly":
+        return (f"transport_cc={params.transport_cc!r}: the stored metal block runs "
+                "eagerly")
+    if params.transport_warm_precond != "jacobi":
+        return (f"transport_warm_precond={params.transport_warm_precond!r}: the deflated "
+                "warm re-solve runs eagerly")
+    if params.transport_bf16_inner:
+        return "transport_bf16_inner: the bf16 inner operator runs eagerly"
+    return None
+
+
+def warm_device_form(params: PhysParams, cc, precond: Optional[str]) -> bool:
+    """The in-superstep blocked solve runs as the transport CG's device loops
+    (no read inside the solve): :func:`device_form_reason` None, the warm
+    preconditioner ``precond`` Jacobi, and the static band in ``cc``."""
+    return (device_form_reason(params) is None and precond == "jacobi"
+            and isinstance(cc, dict) and cc.get("band") is not None)
+
+
+def transport_workspace(geom: Geometry, params: PhysParams, cc) -> transport_cg.Workspace:
+    """The transport CG's workspace of this bias point's cache ``cc`` (made
+    at the first solve, kept in ``cc`` under "tws" for the next)."""
+    n_mp = int(geom.atom_metalp_idx.shape[0])
+    key = (geom.N_atom, params.tunnel_vac_cap, n_mp)
+    tws = cc.get("tws")
+    if tws is None or cc.get("tws_key") != key:
+        tws = cc["tws"] = transport_cg.workspace(geom.N_atom, params.tunnel_vac_cap, n_mp,
+                                                 cc["band"], geom.device)
+        cc["tws_key"] = key
+    return tws
+
+
+def _update_power_warm_device(
+    geom: Geometry, params: PhysParams, state: SimState, Vd: float, cg_tol: float,
+    cg_maxiter: int, cc, go: torch.Tensor,
+) -> Tuple[Dict, Dict]:
+    """The warm blocked re-solve with no read of the device
+    (:func:`warm_device_form`): the device-form assembly, the mixed CG as the
+    transport CG's device loops (``ops.transport_cg.solve``, under a capture
+    two nested WHILE nodes), the current, and with heating the site power.
+    ``go`` [1] bool: False runs no refinement round.  Returns the new state
+    fields and the metrics, 0-d tensors where they are scalars (the
+    arithmetic of :func:`update_power_blocked`'s mixed branch)."""
+    dtype = params.dtype
+    dev = geom.device
+    Na = geom.N_atom
+    Nsub = Na + 1
+    nsi = params.num_source_inj
+    band = cc["band"]
+    blk = assemble_X_blocks(geom, params, state, band=band, device_form=True)
+    loop_G = blk["loop_G"]
+    diag = blk["diag"]
+    rhs = torch.zeros(Nsub, dtype=dtype, device=dev)
+    # fills, not item assignments (a copy from the host under a capture)
+    rhs.select(0, 0).fill_(-loop_G * Vd)
+    rhs.select(0, 1).fill_(loop_G * Vd)
+    d = diag[:Nsub]
+    dsi = 1.0 / torch.sqrt(torch.where(d > 0, d, 1.0))
+    b_s = rhs * dsi
+    y0 = state.virtual_potentials[:Nsub] / dsi
+    f = blk["fly"]
+    gnd, src = blk["gnd_vals"], blk["src_vals"]
+    op = transport_cg.Operator(
+        dsi=dsi, dsi32=dsi.to(torch.float32), b=b_s, diag=diag,
+        diag32=diag.to(torch.float32), gnd=gnd, gnd32=gnd.to(torch.float32), src=src,
+        src32=src.to(torch.float32), gnd_lo=max(0, min(Na, Na - params.num_ground_ext + 1)),
+        nsi=max(0, min(Na, nsi)), loop_G=loop_G, C=band["C"],
+        dyn=blk["band_dyn_vals"].contiguous(), nbv=blk["nb_vals"].contiguous(),
+        anb=geom.atom_neigh_idx, T_vm=blk["T_vm"].contiguous(), T_vv=blk["T_vv"].contiguous(),
+        vidx=blk["vidx32"], vslot=blk["vslot"], n_vac=blk["n_vac"],
+        mp_inv=geom.atom_metalp_inv, mp=blk["mp"], mpos=f["mpos"], mcb=f["mcb"], env=f["env"],
+        plain=lambda x, wd, band_y, y_cc: apply_from_parts(blk, x, wd, band_y, y_cc))
+    tws = transport_workspace(geom, params, cc)
+    res = transport_cg.solve(tws, op, y0, go, cg_tol, cg_maxiter)
+    v = res.x * dsi
+
+    contact_drop = torch.abs(v[nsi] - Vd)
+    M = torch.cat([v * G0, torch.zeros(1, dtype=dtype, device=dev)])  # [Na+2]
+    I_macro = torch.sum(blk["gnd_vals"] * (M[0] - M[2:]))
+    solve_heat = params.solve_heating_global or params.solve_heating_local
+    if solve_heat:
+        power, P_tot = _site_power(geom, params, state, _pdisp_blocked(blk, M[2:], Vd),
+                                   read=False)
+    else:
+        power = torch.zeros(geom.N, dtype=dtype, device=dev)
+        P_tot = torch.zeros((), dtype=dtype, device=dev)
+    fields = dict(power=power, I_macro=I_macro, P_tot=P_tot,
+                  virtual_potentials=torch.cat([v, torch.zeros(1, dtype=dtype, device=dev)]))
+    if blk["tt_slot_atom"] is not None:
+        fields.update(tt_slot_atom=blk["tt_slot_atom"], tt_vm=blk["T_vm"], tt_vv=blk["T_vv"],
+                      tt_valid=torch.ones((), dtype=torch.bool, device=dev))
+    bref = torch.sqrt(torch.dot(b_s, b_s))
+    bref = torch.where(bref > 0, bref, 1.0)
+    metrics = {
+        "n_vac_atoms": _n_vac_atoms_t(geom, state),
+        "Current [uA]": I_macro * 1e6,
+        "Conductance [uS]": torch.abs(I_macro / (Vd if Vd != 0 else 1.0)) * 1e6,
+        "cg_iters_power": res.iters.clone(),
+        "transport_rel0": res.rnorm0 / bref,
+        "transport_converged": res.residual <= res.thresh,
+        "contact_potential_drop": contact_drop,
+        "tunnel_int_steps_needed": blk["int_steps_needed"],
+        "transport_partial_assembly": (blk["tt_partial"] if torch.is_tensor(blk["tt_partial"])
+                                       else torch.full((), bool(blk["tt_partial"]),
+                                                       device=dev)).to(torch.int64),
+    }
+    if solve_heat:
+        metrics["Total dissipated power [mW]"] = P_tot * 1e3
+    return fields, metrics
+
+
+#: the Python types of the metrics of the blocked solve, as the eager solve
+#: returns them
+_METRIC_TYPES = {"n_vac_atoms": int, "cg_iters_power": int, "transport_converged": bool,
+                 "tunnel_int_steps_needed": int, "transport_partial_assembly": int}
+
+
+def _to_host(fields: Dict, metrics: Dict) -> Tuple[Dict, Dict]:
+    """The scalar fields and the metrics of :func:`_update_power_warm_device`
+    as host numbers, in one read."""
+    keys = [k for k in ("I_macro", "P_tot", "tt_valid") if k in fields] + sorted(metrics)
+    vals = torch.stack([(fields[k] if k in fields else metrics[k]).reshape(())
+                        .to(torch.float64) for k in keys]).tolist()
+    out = dict(zip(keys, vals))
+    fields = dict(fields, **{k: out[k] for k in ("I_macro", "P_tot") if k in fields})
+    if "tt_valid" in fields:
+        fields["tt_valid"] = bool(out["tt_valid"])
+    metrics = {k: _METRIC_TYPES.get(k, float)(out[k]) for k in metrics}
+    return fields, metrics
+
+
+def _n_vac_atoms_t(geom: Geometry, state: SimState) -> torch.Tensor:
+    return (state.element[geom.atom_ind.long()] == int(Element.VACANCY)).sum()
+
+
 def _n_vac_atoms(geom: Geometry, state: SimState) -> int:
-    return int((state.element[geom.atom_ind.long()] == int(Element.VACANCY)).sum())
+    return int(_n_vac_atoms_t(geom, state))
 
 
 def _reuse_transport_metrics(
@@ -1087,7 +1365,16 @@ def update_power(
     if precond is None and allow_skip:
         precond = params.transport_warm_precond
 
+    device = blocked and allow_skip and warm_device_form(params, cc, precond)
+    if device and torch.is_tensor(state.I_macro):
+        return _update_power_device_state(geom, params, state, Vd, cg_tol, cg_maxiter, cc)
+
     def solve(st):
+        if device:
+            go = torch.ones(1, dtype=torch.bool, device=geom.device)
+            fields, m = _to_host(*_update_power_warm_device(
+                geom, params, st, Vd, cg_tol, cg_maxiter, cc, go))
+            return replace(st, **fields), m
         if blocked:
             return update_power_blocked(
                 geom, params, st, Vd, cg_tol=cg_tol, cg_maxiter=cg_maxiter, cc=cc,
@@ -1104,6 +1391,57 @@ def update_power(
     ai = geom.atom_ind.long()
     return replace(new_state, trans_elem_prev=state.element[ai],
                    trans_charge_prev=state.charge[ai], transport_Vd_prev=Vd), m
+
+
+def _update_power_device_state(geom: Geometry, params: PhysParams, state: SimState,
+                               Vd: float, cg_tol: float, cg_maxiter: int, cc):
+    """:func:`update_power`'s in-superstep path on a state whose scalars are
+    0-d device tensors (a captured superstep's): the unchanged-network test
+    on the device; a skipped step enters the solve's loops with a false
+    predicate and keeps the old state's fields and the skip's metrics,
+    selected on the device."""
+    dev = geom.device
+    ai = geom.atom_ind.long()
+    elem, charge = state.element[ai], state.charge[ai]
+    Vd_t = torch.full((), Vd, dtype=torch.float64, device=dev)
+    if params.transport_skip_unchanged:
+        same = ((state.transport_Vd_prev == Vd_t) & (elem == state.trans_elem_prev).all()
+                & (charge == state.trans_charge_prev).all())
+    else:
+        same = torch.zeros((), dtype=torch.bool, device=dev)
+    fields, m = _update_power_warm_device(geom, params, state, Vd, cg_tol, cg_maxiter, cc,
+                                          (~same).reshape(1))
+    kw = {k: torch.where(same, getattr(state, k).to(v.dtype), v) for k, v in fields.items()}
+    if params.transport_skip_unchanged:
+        kw.update(trans_elem_prev=elem, trans_charge_prev=charge,
+                  transport_Vd_prev=Vd_t.to(state.transport_Vd_prev.dtype))
+    reuse = _reuse_transport_metrics_t(geom, params, state, Vd)
+    metrics = {k: torch.where(same, reuse[k].to(v.dtype), v) for k, v in m.items()}
+    return replace(state, **kw), metrics
+
+
+def _reuse_transport_metrics_t(geom: Geometry, params: PhysParams, state: SimState,
+                               Vd: float) -> Dict:
+    """:func:`_reuse_transport_metrics` of the blocked path as 0-d tensors,
+    from a state whose scalars are device tensors."""
+    dev = geom.device
+    I_macro = state.I_macro
+    t = lambda v: torch.full((), v, device=dev)
+    metrics = {
+        "n_vac_atoms": _n_vac_atoms_t(geom, state),
+        "Current [uA]": I_macro * 1e6,
+        "Conductance [uS]": torch.abs(I_macro / (Vd if Vd != 0 else 1.0)) * 1e6,
+        "cg_iters_power": t(0),
+        "transport_converged": t(True),
+        "contact_potential_drop": torch.abs(
+            state.virtual_potentials[params.num_source_inj] - Vd),
+        "transport_rel0": t(-1.0),
+        "tunnel_int_steps_needed": t(-1.0),
+        "transport_partial_assembly": t(-1),
+    }
+    if params.solve_heating_global or params.solve_heating_local:
+        metrics["Total dissipated power [mW]"] = state.P_tot * 1e3
+    return metrics
 
 
 def transport_unchanged(geom: Geometry, params: PhysParams, state: SimState,

@@ -233,28 +233,43 @@ def heat_from_jax_arrays(heat: dict, geom: Geometry) -> HeatModel:
 # ----------------------------------------------------------------------------
 
 def global_ode(
-    params: PhysParams, T_bg: float, P_tot: float, step_time: float,
-    ambient_coupling: bool = False,
-) -> float:
+    params: PhysParams, T_bg, P_tot, step_time, ambient_coupling: bool = False,
+):
     """Analytic solution of the capacitative heat ODE over the event time
-    (src/heat_solver.cpp:316-350), evaluated in the working dtype."""
+    (src/heat_solver.cpp:316-350), evaluated in the working dtype: T_bg,
+    P_tot and step_time 0-d tensors (the result one, on their device: a
+    captured superstep's work, no read) or host numbers (the result a float).
+    The constants that depend on ``params`` alone are made on the host."""
     f = _npd(params)
-    T_bg, P_tot, step_time = f(T_bg), f(P_tot), f(step_time)
+    if not torch.is_tensor(T_bg):
+        t = lambda v: torch.tensor(v, dtype=params.dtype)
+        return float(global_ode(params, t(T_bg), t(P_tot), t(step_time), ambient_coupling))
     C_th = f(params.A) * f(params.t_ox) * f(params.c_p) * f(1e6)          # [J/K]
     a = f(params.dissipation_constant) / C_th
-    T_couple = f(params.background_temp) if ambient_coupling else T_bg
-    c = a * T_couple + P_tot / C_th
-    return float(c / a + (T_bg - c / a) * np.exp(-a * step_time))
+    T_couple = float(f(params.background_temp)) if ambient_coupling else T_bg
+    c = float(a) * T_couple + P_tot / float(C_th)
+    ca = c / float(a)
+    return ca + (T_bg - ca) * torch.exp(float(-a) * step_time)
 
 
 def update_temperature_global(
-    params: PhysParams, state: SimState, step_time: float,
+    params: PhysParams, state: SimState, step_time,
     ambient_coupling: bool = False,
 ) -> Tuple[SimState, Dict]:
-    """Global (lumped) temperature update (src/heat_solver.cpp:316-350).
-    One read-back: the sum of the site power."""
-    P_tot = float(state.power.sum())
-    T_new = global_ode(params, state.T_bg, P_tot, step_time, ambient_coupling)
+    """Global (lumped) temperature update (src/heat_solver.cpp:316-350) on the
+    device: P_tot is the sum of the site power, T_bg the ODE's solution
+    (:func:`global_ode`).  A state whose scalars are host numbers gets
+    them back as host numbers (one read); a state whose scalars are 0-d
+    tensors (a captured superstep's) keeps them on the device, and so do the
+    metrics."""
+    dt = params.dtype
+    dev = state.power.device
+    P_tot = state.power.sum()
+    T_bg = torch.as_tensor(state.T_bg, dtype=torch.float64, device=dev).to(dt)
+    st = torch.as_tensor(step_time, dtype=torch.float64, device=dev).to(dt)
+    T_new = global_ode(params, T_bg, P_tot, st, ambient_coupling)
+    if not torch.is_tensor(state.T_bg):
+        T_new, P_tot = torch.stack([T_new, P_tot]).to(torch.float64).tolist()
     return replace(state, T_bg=T_new, P_tot=P_tot), {
         "Global temperature [K]": T_new,
         "Total dissipated power [mW]": P_tot * 1e3,

@@ -8,6 +8,7 @@ replicas of one device (:func:`superstep_batched`, the body of
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -17,6 +18,8 @@ from .ops import boundary_cg, kmc_events
 from .ops import graph as ops_graph
 from .ops.ell_gather import ell_gather_batched
 from .ops.pairwise import batched_tickets, poisson_pairwise_batched
+from .ops.wkb_fly import wkb_fly_matvec, wkb_fly_pdisp
+from .ops.wkb_window import wkb_window_block
 from .physics import charge as charge_mod
 from .physics import current as current_mod
 from .physics import events as events_mod
@@ -301,7 +304,7 @@ def multi_superstep_impl(
 
 def superstep_batched(
     geom: Geometry, params: PhysParams, states: SimState, Vd: float, heat=None,
-    cg_ws=None,
+    cg_ws=None, cc=None,
 ) -> Tuple[SimState, torch.Tensor, Dict]:
     """One superstep of B replicas of one device (a batched state), in the
     phase order of :func:`superstep_impl`; replica b computes what
@@ -323,7 +326,11 @@ def superstep_batched(
     ``cg_ws`` (``ops.boundary_cg.workspace``, made before a capture): the
     body a captured graph runs, which reads nothing back: the boundary
     system is assembled every step and solved by the device loop of
-    ``ops.boundary_cg`` (configurations of :func:`graph_ready` only)."""
+    ``ops.boundary_cg``, and with ``solve_current`` (B = 1) the transport
+    phase assembles its operator on the device and solves it by the device
+    loops of ``ops.transport_cg`` with the per-bias-point cache ``cc`` (band,
+    workspace), the skip a mask, and the global heat model runs on the
+    device (configurations of :func:`graph_ready` only)."""
     B = batch_size(states)
     metrics: Dict = {}
     if params.solve_potential:
@@ -351,7 +358,17 @@ def superstep_batched(
         metrics["n_events"] = res.n_events
         metrics["n_active_rows"] = res.n_active
 
-    if params.solve_current:
+    if params.solve_current and cg_ws is not None:
+        if B != 1:
+            raise ValueError("the captured transport phase runs one replica")
+        st, m = _phase_power(geom, params, _device_single(states), Vd, cc)
+        if params.solve_heating_global or params.solve_heating_local:
+            st, mh = _phase_heat(geom, params, heat, st, step_times[0])
+            m = {**m, **mh}
+        states = _device_batch(states, st)
+        for key, v in m.items():
+            metrics[key] = v.reshape(1).to(torch.float64)
+    elif params.solve_current:
         heating = params.solve_heating_global or params.solve_heating_local
         dts = step_times.tolist()
         singles, rows = [], []
@@ -377,18 +394,50 @@ _FIELDS = tuple(f.name for f in dataclasses.fields(SimState))
 #: a single state's host fields: its scalars, then its key and tt_valid
 _SCALARS = ("kmc_time", "T_bg", "I_macro", "P_tot", "Vd_prev", "transport_Vd_prev")
 _HOST = _SCALARS + ("key", "tt_valid")
-#: the kernel wrappers a captured superstep launches outside its CG loop
+#: the kernel wrappers a captured superstep launches outside its CG loops
+#: (the loops' kernels count their launches on the card)
 _COUNTED = (ell_gather_batched, poisson_pairwise_batched,
-            kmc_events.kmc_event_loop_batched)
+            kmc_events.kmc_event_loop_batched, wkb_window_block, wkb_fly_matvec,
+            wkb_fly_pdisp)
 
 
-def graph_ready(params: PhysParams) -> Optional[str]:
-    """None when the superstep of ``params`` runs as one captured graph
-    (:class:`SuperstepGraph`): the headline module set with the Jacobi
-    boundary CG, the incremental event loop and the compacted pair-sweep
-    kernel.  Otherwise why it runs eagerly."""
+def _device_single(states: SimState) -> SimState:
+    """Replica 0 of a batched state as a single state whose scalars, key and
+    tt_valid stay on the device (0-d views)."""
+    return SimState(**{f: getattr(states, f)[0] for f in _FIELDS})
+
+
+def _device_batch(states: SimState, single: SimState) -> SimState:
+    """``states`` (B = 1) with the fields of the single state ``single``
+    (:func:`_device_single`'s form) that changed."""
+    kw = {}
+    for f in _FIELDS:
+        v, old = getattr(single, f), getattr(states, f)
+        kw[f] = old if v.data_ptr() == old.data_ptr() \
+            else v.reshape((1,) + tuple(old.shape[1:])).to(old.dtype)
+    return SimState(**kw)
+
+
+def graph_ready(params: PhysParams, batch: int = 1, band: bool = True) -> Optional[str]:
+    """None when the superstep of ``params`` (``batch`` replicas) runs as
+    one captured graph (:class:`SuperstepGraph`): the headline module set
+    with the Jacobi boundary CG, the incremental event loop and the
+    compacted pair-sweep kernel; with ``solve_current``, one replica
+    (``batch`` 1) of the blocked mixed solve with the on-the-fly metal block,
+    the static band (``band``) and the Jacobi warm preconditioner, heating
+    off or global.  Otherwise why it runs eagerly."""
     if params.solve_current:
-        return "solve_current: the transport and heat phases run eagerly"
+        reason = current_mod.device_form_reason(params)
+        if reason is not None:
+            return f"solve_current with {reason}"
+        if params.solve_heating_local and not params.solve_heating_global:
+            return "solve_current with solve_heating_local: the local heat model runs eagerly"
+        if batch != 1:
+            return ("solve_current with a replica axis (B > 1): the transport and heat "
+                    "phases run replica by replica, eagerly")
+        if not band:
+            return ("solve_current without the static band (transport_banded off, or too "
+                    "large): the ELL inner operator runs eagerly")
     if params.solve_potential and params.boundary_precond != "jacobi":
         return (f"boundary_precond={params.boundary_precond!r}: the deflated "
                 "in-superstep solve runs eagerly")
@@ -465,7 +514,7 @@ class SuperstepGraph:
     of the batch, [n_steps] (read with the batch's result)."""
 
     def __init__(self, geom: Geometry, params: PhysParams, batch: int):
-        reason = graph_ready(params)
+        reason = graph_ready(params, batch)
         if reason is not None:
             raise ValueError(f"the superstep of these params is not captured: {reason}")
         self.geom, self.params, self.batch = geom, params, batch
@@ -483,13 +532,18 @@ class SuperstepGraph:
         self.graphs: Dict = {}
         self.keys: Dict = {}
         self.checksums = None
-        #: graphs captured and replays (calls of a graph) so far
+        #: the per-bias-point transport cache (band, transport CG workspace)
+        #: the graphs of this bias point were captured with
+        self.cc = None
+        #: graphs captured and replays (calls of a graph) so far, and the
+        #: seconds of each capture
         self.captures = self.replays = 0
+        self.capture_s: List[float] = []
 
     def set_params(self, params: PhysParams) -> None:
         """Use ``params`` from the next replay on (captured anew)."""
         if params is not self.params:
-            reason = graph_ready(params)
+            reason = graph_ready(params, self.batch)
             if reason is not None:
                 raise ValueError(f"the superstep of these params is not captured: {reason}")
             self.params = params
@@ -553,14 +607,24 @@ class SuperstepGraph:
         """The graph of ``kind`` ("step" or "batch" of ``n_steps``) from slot
         ``src`` at ``Vd``, captured at its first use; every call is followed
         by one replay of it."""
-        key = (kind, src, Vd, n_steps)
+        key = (kind, src, Vd, n_steps, id(self.cc))
         g = self.graphs.get(key)
         if g is None:
             # a new bias point: the graphs of the last one are not replayed again
-            self.graphs = {k: v for k, v in self.graphs.items() if k[2] == Vd}
+            self.graphs = {k: v for k, v in self.graphs.items()
+                           if k[2] == Vd and k[4] == id(self.cc)}
+            if self.params.solve_current:
+                if not (isinstance(self.cc, dict) and self.cc.get("band") is not None):
+                    raise ValueError("the captured transport phase needs the bias point's "
+                                     "cache with the static band")
+                # made before the capture, outside PyTorch's pool
+                current_mod.transport_workspace(self.geom, self.params, self.cc)
             fn = (self._step_fn if kind == "step" else self._batch_fn)(src, Vd, n_steps)
+            t0 = time.perf_counter()
             g = ops_graph.Graph(fn, self.device, counted=_COUNTED, pool=self.pool,
                                 tickets=batched_tickets(self.geom.N, self.batch))
+            self.capture_s.append(time.perf_counter() - t0)
+            g.cc = self.cc      # the buffers it reads live as long as it does
             self.graphs[key] = g
             self.captures += 1
         self.replays += 1
@@ -571,7 +635,8 @@ class SuperstepGraph:
 
         def fn():
             set_host(S, self.hin)
-            out, dts, m = superstep_batched(self.geom, self.params, S, Vd, cg_ws=self.ws)
+            out, dts, m = superstep_batched(self.geom, self.params, S, Vd, cg_ws=self.ws,
+                                            cc=self.cc)
             _copy_into(D, out)
             keys = self.keys["step"] = sorted(m)
             pack = torch.cat([dts.to(torch.float64)[:, None]]
@@ -598,7 +663,7 @@ class SuperstepGraph:
             for k in range(n_steps):
                 done = done | (limit <= k)
                 new, dts, m = superstep_batched(self.geom, self.params, st, Vd,
-                                                cg_ws=self.ws)
+                                                cg_ws=self.ws, cc=self.cc)
                 st = _select(done, st, new)
                 keys = sorted(m)
                 rows.append(torch.stack(
@@ -616,11 +681,13 @@ class SuperstepGraph:
         return fn
 
     # -- replays ------------------------------------------------------------
-    def step(self, state: SimState, Vd: float):
+    def step(self, state: SimState, Vd: float, cc=None):
         """One superstep of the single state ``state`` as one replay, then
         one read: ``(state, step_time, metrics)`` as :func:`superstep_impl`
         returns them (Python numbers), the state views of the slot written
-        (valid until a replay writes that slot again)."""
+        (valid until a replay writes that slot again).  ``cc``: the bias
+        point's transport cache (with ``solve_current``)."""
+        self.cc = cc
         i = self.load_single(state)
         pack, _, _ = self._graph("step", i, Vd)()
         row = pack.tolist()[0]
@@ -629,10 +696,12 @@ class SuperstepGraph:
         return _unbatch(self.slots[1 - i], 0, host), row[0], dict(zip(keys, row[1:1 + len(keys)]))
 
     def multi(self, state: SimState, Vd: float, Icc_A: float, t_end: float, n_steps: int,
-              limit=None):
+              limit=None, cc=None):
         """:func:`multi_superstep_impl` of the single state ``state`` as one
         replay and one read: ``(state, step_times, metrics)`` with
-        ``metrics["active"]``, numpy arrays [n_steps]."""
+        ``metrics["active"]``, numpy arrays [n_steps].  A step after the
+        current passed ``Icc_A`` is a no-op, decided on the device."""
+        self.cc = cc
         i = self.load_single(state, (n_steps if limit is None else limit, t_end, Icc_A))
         vals = np.asarray(self._graph("batch", i, Vd, n_steps)().tolist())
         keys = self.keys[("batch", n_steps)]

@@ -1500,6 +1500,40 @@ def test_cuda_device_while_raises_without_node(monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_out,n_in", [(3, 5), (1, 1), (7, 2)])
+def test_cuda_device_while_nested(n_out, n_in):
+    """A WHILE node inside another WHILE node's body: the outer body arms
+    the inner loop, which runs n_in iterations, then counts itself; a replay
+    runs n_out x n_in inner and n_out outer iterations, counted on the card,
+    and a second replay (the counts set anew) the same."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import graph as og
+
+    def i64(v):
+        return torch.full((1,), v, dtype=torch.int64, device="cuda")
+
+    count_in, count_out = i64(0), i64(0)
+    left_in, left_out = i64(n_in), i64(n_out)
+    cond_in = torch.ones(1, dtype=torch.int32, device="cuda")
+    cond_out = torch.ones(1, dtype=torch.int32, device="cuda")
+
+    def outer(h_out, s_out):
+        og.device_while(cond_in, lambda h, s: og.probe_step(count_in, left_in, cond_in, h, s),
+                        stream=s_out)
+        og.probe_step(count_out, left_out, cond_out, h_out, s_out,
+                      reload=(left_in, n_in, cond_in))
+
+    g = og.Graph(lambda: og.device_while(cond_out, outer), "cuda")
+    for _ in range(2):
+        count_in.zero_(), count_out.zero_()
+        left_in.fill_(n_in), left_out.fill_(n_out)
+        cond_in.fill_(1), cond_out.fill_(1)
+        g()
+        torch.cuda.synchronize()
+        assert (int(count_in), int(count_out)) == (n_out * n_in, n_out)
+
+
+@pytest.mark.cuda
 def test_cuda_graph_capture_rejects_a_read():
     """A capture runs with synchronizing calls an error: a read of the device
     inside the captured function fails the capture."""
@@ -1645,6 +1679,342 @@ def test_cuda_graph_launches_counted_on_card():
     for _ in range(3):
         states, _, _ = step(states, 10.0)
     host = [w.launches - n for w, n in zip(wrappers, host0)]
-    card = [a - b for a, b in zip(_build.launch_counts("cuda").tolist(), card0)]
-    assert list(_build.COUNTED_ON_CARD) == [w.__name__ for w in wrappers]
+    card = [a - b for a, b in zip(_build.launch_counts("cuda").tolist(), card0)][:3]
+    assert list(_build.COUNTED_ON_CARD)[:3] == [w.__name__ for w in wrappers]
     assert host == card == [6, 3, 3]
+
+
+# ---------------------------------------------------------------------------
+# the transport solve's device loops (csrc/transport_cg.cu) and the transport
+# superstep as a captured graph
+# ---------------------------------------------------------------------------
+
+def _transport_sim(tmp_path, heat=False, crossbar=False, fused=True, **over):
+    """The transport configuration of the captured superstep (blocked, mixed,
+    on-the-fly metal block, band, Jacobi warm re-solve) on the card: the
+    small stack, or a crossbar of about 6,000 sites (``crossbar``: several
+    row tiles, blocks and metal tiles); ``heat`` adds the global model."""
+    import dataclasses
+
+    from devicekmc_tpu_torch.config import KMCConfig
+    from devicekmc_tpu_torch.engine import Simulation
+    from devicekmc_tpu_torch.state import make_substoichiometric
+    from devicekmc_tpu_torch.structure import make_crossbar_structure, make_test_structure
+
+    if crossbar:
+        s = make_crossbar_structure(nx_contact=10, nx_oxide=24, ny=10, nz=10, seed=1)
+        elems = make_substoichiometric(s.elements, 0.02, seed=5)
+        kw = dict(nn_dist=3.5, pbc=False, site_order="x", poisson_compact_cap=2048,
+                  tunnel_int_steps=256, V_switch=[1.0])
+    else:
+        s = make_test_structure(nx_contact=2, nx_oxide=8, ny=4, nz=4, seed=11)
+        elems = make_substoichiometric(s.elements, 0.08, seed=3)
+        kw = dict(nn_dist=3.0, V_switch=[10.0], poisson_compact_cap=64)
+    cfg = KMCConfig(
+        lattice=list(s.lattice), num_atoms_first_layer=s.num_atoms_first_layer,
+        num_layers_contact=s.num_layers_contact, num_atoms_contact=s.num_atoms_contact,
+        layers=s.layers, solve_potential=True, perturb_structure=True, rnd_seed_kmc=7,
+        precision="mixed", poisson_kernel="pallas", solve_current=True, transport="blocked",
+        transport_cc="fly", transport_precond="deflated", coarse_slabs=4,
+        solver_chunk_iters=40, tunnel_vac_cap=-1, transport_tol=1e-11, t_switch=[1e30],
+        output_dir=str(tmp_path), log_freq=1000, **kw)
+    if heat:
+        cfg = dataclasses.replace(cfg, solve_heating_global=True,
+                                  A=s.lattice[1] * 1e-10 * s.lattice[2] * 1e-10)
+    cfg = dataclasses.replace(cfg, **over)
+    return Simulation(cfg, elements=elems, coords=s.coords, device="cuda", fused=fused)
+
+
+@pytest.mark.cuda
+def test_cuda_band_and_fly_out_entries_bit_equal():
+    """The out= entries of the band (row 3) and the symmetric fly matvec
+    (row 5) write into the caller's buffers the allocating entries' bits,
+    on a side stream too, and the card counts one launch of each a call."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops.banded import banded_matvec, banded_matvec_out
+    from devicekmc_tpu_torch.ops.wkb_fly import (
+        matvec_scratch, wkb_fly_matvec, wkb_fly_matvec_out,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    R, m_pad, B = 7, 8, 128
+    C4 = torch.randn((R, m_pad, B, B), generator=g).cuda()
+    xp = torch.randn((R + m_pad - 1, B), generator=g).cuda()
+    out = torch.full((R, B), float("nan"), device="cuda")
+    names = _build.COUNTED_ON_CARD
+    card0 = _build.launch_counts("cuda").tolist()
+    side = torch.cuda.Stream()
+    banded_matvec_out(C4, xp, out, side.cuda_stream)
+    side.synchronize()
+    assert torch.equal(out, banded_matvec(C4, xp))
+    env = _env(False)
+    for n in (3527, 2001):
+        pos, cb, _ = _points(n, n)
+        x = torch.randn(n, generator=g).cuda()
+        y = torch.full((n,), float("nan"), device="cuda")
+        wkb_fly_matvec_out(pos, cb, x, env, y, matvec_scratch(n, "cuda"))
+        assert torch.equal(y, wkb_fly_matvec(pos, cb, x, env))
+    card = [a - b for a, b in zip(_build.launch_counts("cuda").tolist(), card0)]
+    assert card[names.index("banded_matvec_out")] == 1
+    assert card[names.index("wkb_fly_matvec_out")] == 2
+
+
+def _transport_op(sim, seed=0):
+    """The device-form operator of ``sim``'s state and its workspace, the
+    inner direction p and the refinement's iterate set from seeded noise."""
+    import dataclasses
+
+    from devicekmc_tpu_torch.physics import current
+
+    cc = dict(sim._cc)
+    captured = {}
+    solve = current.transport_cg.solve
+
+    def grab(tws, op, x0, go, tol, maxiter, max_outer=40):
+        captured.update(tws=tws, op=op, x0=x0.clone(), tol=tol, maxiter=maxiter)
+        return solve(tws, op, x0, go, tol, maxiter, max_outer)
+
+    current.transport_cg.solve = grab
+    try:
+        # a changed bias of the last solve: no unchanged-network skip
+        state = dataclasses.replace(sim.state, transport_Vd_prev=float("nan"))
+        current.update_power(sim.geom, sim.params, state, sim.cfg.V_switch[0], cc=cc,
+                             allow_skip=True)
+    finally:
+        current.transport_cg.solve = solve
+    tws, op = captured["tws"], captured["op"]
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    n = tws.x.shape[0]
+    tws.cg.p[0].copy_(torch.randn(n, generator=gen).float())
+    tws.cg.x[0].copy_(torch.randn(n, generator=gen).float())
+    tws.x.copy_(captured["x0"])
+    tws.scale.fill_(1e-3)
+    return tws, op, captured
+
+
+def _clone_tws(tws):
+    import copy
+    import dataclasses
+
+    kw = {}
+    for f in dataclasses.fields(tws):
+        v = getattr(tws, f.name)
+        if torch.is_tensor(v):
+            kw[f.name] = v.clone()
+        elif f.name == "cg":
+            kw[f.name] = dataclasses.replace(v, **{
+                g.name: getattr(v, g.name).clone() for g in dataclasses.fields(v)
+                if torch.is_tensor(getattr(v, g.name))})
+        elif f.name == "fly":
+            kw[f.name] = tuple(t.clone() for t in v)
+        else:
+            kw[f.name] = copy.copy(v)
+    return type(tws)(**kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crossbar", [False, True])
+def test_cuda_transport_kernels_match_plain(tmp_path, crossbar):
+    """Each kernel of the transport CG against its plain version on the same
+    inputs (the operator of a state after 2 supersteps, a seeded direction):
+    pack bit-equal (f32 and f64, with and without the round's correction);
+    apply's ap within 2e-6 and the f64 residual within 1e-9 of their largest
+    entry, p.ap within 1e-6 of the sum of its terms' sizes, r.r that of the
+    kernel's residual; refine's b_in, flags, counts,
+    scale and ||r|| equal given the same residual, r.r of b_in within 1e-5."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+
+    sim = _transport_sim(tmp_path, crossbar=crossbar, fused=False)
+    sim.run_bias_point(sim.cfg.V_switch[0], 1e30, max_steps=2)
+    tws, op, cap = _transport_op(sim)
+    # a CPU twin of the operator for the plain versions
+    cpu = lambda v: v.cpu() if torch.is_tensor(v) else v
+    op_c = op._replace(**{k: cpu(v) for k, v in op._asdict().items()
+                          if k not in ("plain", "env")})
+    blk_plain = op.plain
+
+    def plain_on_cpu(x, wd, band_y, y_cc):
+        return blk_plain(x.cuda(), wd, None if band_y is None else band_y.cuda(),
+                         y_cc.cuda()).cpu()
+
+    op_c = op_c._replace(plain=plain_on_cpu)
+
+    def to_cpu(ws):
+        import dataclasses
+        kw = {}
+        for f in dataclasses.fields(ws):
+            v = getattr(ws, f.name)
+            if f.name == "cg":
+                v = dataclasses.replace(v, **{g.name: getattr(v, g.name).cpu() for g in
+                                              dataclasses.fields(v)
+                                              if torch.is_tensor(getattr(v, g.name))})
+            elif f.name == "fly":
+                v = tuple(t.cpu() for t in v)
+            elif torch.is_tensor(v):
+                v = v.cpu()
+            kw[f.name] = v
+        return type(ws)(**kw)
+
+    for hi, first in ((False, False), (True, True), (True, False)):
+        k, p = _clone_tws(tws), to_cpu(_clone_tws(tws))
+        tcg.pack(k, op, hi, first)
+        tcg.pack_plain(p, op_c, hi, first)
+        for f in ("xs64" if hi else "xs32", "xm", "x") + (() if hi else ("xw",)):
+            assert torch.equal(getattr(k, f).cpu(), getattr(p, f)), (hi, first, f)
+    for hi in (False, True):
+        k = _clone_tws(tws)
+        tcg.pack(k, op, hi)
+        if not hi:
+            tcg.band(k, op)
+        tcg.fly(k, op)
+        p = to_cpu(_clone_tws(k))
+        k.cg.act.fill_(True)
+        p.cg.act.fill_(True)
+        tcg.apply(k, op, hi)
+        tcg.apply_plain(p, op_c, hi)
+        if hi:
+            ref = p.r
+            scale = float((op_c.b - ref).abs().max())
+            assert float((k.r.cpu() - ref).abs().max()) <= 1e-9 * scale
+            # r.r of the kernel's own residual, in its tile order
+            assert float(k.rsum) == pytest.approx(float((k.r * k.r).sum()), rel=1e-12)
+        else:
+            ref = p.cg.ap
+            scale = float(ref.abs().max())
+            assert float((k.cg.ap.cpu() - ref).abs().max()) <= 2e-6 * scale
+            # p.ap (= r.z / alpha) within 1e-6 of the sum of its terms' sizes
+            terms = float((p.cg.p * ref).abs().sum())
+            rz = float(p.cg.rz)
+            assert abs(rz / float(k.cg.alpha) - rz / float(p.cg.alpha)) <= 1e-6 * terms
+    for first in (True, False):
+        k = _clone_tws(tws)
+        tcg.pack(k, op, True, True)
+        tcg.fly(k, op)
+        tcg.apply(k, op, True)
+        k.go.fill_(True)
+        k.thresh.fill_(float(k.rsum) ** 0.5 * 1e-3)
+        k.cg.iters.fill_(17)
+        k.it_in.fill_(100)
+        p = to_cpu(_clone_tws(k))
+        tcg.refine(k, first, 40, 20000)
+        tcg.refine_plain(p, first, 40, 20000)
+        for f in ("it_out", "it_in", "rnorm", "scale", "cond"):
+            assert torch.equal(getattr(k, f).cpu(), getattr(p, f)), (first, f)
+        for f in ("x", "r", "p", "act", "act0", "iters", "ctl", "cond"):
+            assert torch.equal(getattr(k.cg, f).cpu(), getattr(p.cg, f)), (first, f)
+        assert float(k.cg.rz) == pytest.approx(float(p.cg.rz), rel=1e-5)
+        assert float(k.cg.thresh2) == pytest.approx(float(p.cg.thresh2), rel=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crossbar,inner_cap", [(False, None), (True, None), (True, 5)])
+def test_cuda_transport_solve_graph_equals_eager(tmp_path, monkeypatch, crossbar, inner_cap):
+    """transport_cg.solve captured (two nested WHILE nodes) and run from the
+    host loop on the same operator and warm start: the iterate and the
+    counts bit for bit, also when rounds stop at an inner cap of 5
+    iterations inside the host loop's chunks; both meet the criterion (but
+    at that cap, where the 40 rounds run out first); the
+    captured replay allocates nothing and reads nothing (sync debug mode
+    "error" around it), and a replay with go False runs no round."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+    from devicekmc_tpu_torch.ops.graph import Graph
+
+    if inner_cap is not None:
+        monkeypatch.setattr(tcg, "INNER_MAXITER", inner_cap)
+
+    sim = _transport_sim(tmp_path, crossbar=crossbar, fused=False)
+    sim.run_bias_point(sim.cfg.V_switch[0], 1e30, max_steps=2)
+    tws, op, cap = _transport_op(sim)
+    x0, tol, maxiter = cap["x0"], cap["tol"], cap["maxiter"]
+    x0 = x0 * (1 + 1e-3 * torch.randn(x0.shape, generator=torch.Generator().manual_seed(1),
+                                       dtype=torch.float64).cuda())
+    go = torch.ones(1, dtype=torch.bool, device="cuda")
+    res = tcg.solve(tws, op, x0, go, tol, maxiter)
+    eager = (res.x.clone(), int(res.iters), float(res.residual), int(tws.it_out))
+    # at the inner cap of 5 the rounds run out before the criterion is met
+    assert (float(res.residual) <= float(res.thresh)) == (inner_cap is None) and eager[1] > 0
+    g = Graph(lambda: tcg.solve(tws, op, x0, go, tol, maxiter), "cuda")
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tws.cg.total.zero_()
+        out = g()
+        g()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert torch.equal(out.x, eager[0])
+    assert (int(out.iters), float(out.residual), int(tws.it_out)) == eager[1:]
+    assert int(tws.cg.total) >= 2 * eager[1]
+    go.fill_(False)
+    out = g()
+    assert torch.equal(out.x, x0) and int(out.iters) == 0 and int(tws.it_out) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heat", [False, True])
+def test_cuda_transport_graph_superstep_matches_eager(tmp_path, heat):
+    """The engine's captured transport superstep (heating off or global)
+    against the eager engine from the same start, step by step and bit for
+    bit: elements, events, cg_iters_power, I_macro, P_tot, T_bg, the
+    virtual potentials and the tunnel store; a skipped or a partial
+    assembly among the steps; one capture from each slot."""
+    _need_card()
+    from devicekmc_tpu_torch.engine import make_superstep
+
+    runs = {}
+    for kind in ("graph", "eager"):
+        d = tmp_path / kind
+        d.mkdir()
+        sim = _transport_sim(d, heat=heat)
+        if kind == "eager":
+            sim._make = lambda g, p, h: make_superstep(g, p, h)
+        rec = runs[kind] = []
+        step = sim._superstep
+
+        def wrapped(state, Vd, *a, step=step, rec=rec):
+            out = step(state, Vd, *a)
+            st, m = out[0], out[2]
+            rec.append((st.element.clone(), m["n_events"], m["cg_iters_power"], st.I_macro,
+                        st.P_tot, st.T_bg, st.virtual_potentials.clone(),
+                        st.tt_vm.clone(), st.tt_vv.clone(), st.tt_slot_atom.clone(),
+                        st.tt_valid, m["transport_partial_assembly"]))
+            return out
+
+        sim._superstep = wrapped
+        sim.run_bias_point(10.0, 1e30, max_steps=6)
+        if kind == "graph":
+            assert sim._graph is not None and sim._graph.captures == 2
+        else:
+            assert sim._graph is None
+    assert len(runs["graph"]) == len(runs["eager"]) == 6
+    for k, (a, b) in enumerate(zip(runs["graph"], runs["eager"])):
+        for j, (u, v) in enumerate(zip(a, b)):
+            same = torch.equal(u, v) if torch.is_tensor(u) else u == v
+            assert same, (k, j)
+    assert any(r[-1] != 0 for r in runs["graph"])
+
+
+@pytest.mark.cuda
+def test_cuda_transport_graph_batch_matches_per_step(tmp_path):
+    """batch_steps = 4 through the transport batch graph (one replay a
+    batch) against the per-step graph: the same output.txt numbers and
+    elements (log_freq 3 puts snapshot steps between the batches)."""
+    _need_card()
+    import os
+
+    runs = {}
+    for bs in (1, 4):
+        d = tmp_path / f"b{bs}"
+        d.mkdir()
+        sim = _transport_sim(d, batch_steps=bs, log_freq=3)
+        sim.run_bias_point(10.0, 1e30, max_steps=9)
+        assert sim._graph is not None
+        with open(os.path.join(str(d), "output.txt")) as f:
+            runs[bs] = ([ln for ln in f.read().splitlines()
+                         if not ln.startswith(("Z - calculation time", "-", "Created folder"))],
+                        sim.state.element.clone())
+    assert runs[1][0] == runs[4][0]
+    assert torch.equal(runs[1][1], runs[4][1])
