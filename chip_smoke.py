@@ -75,8 +75,9 @@ Phases (any failed check raises and the exit code is non-zero):
    transport solve, 8 supersteps; every transport solve must converge, I_macro be finite
    and positive, a skipped or an incremental assembly be seen, and the two
    headline and all four transport kernels be launched and the dissipation
-   kernel not be (the window block's
-   launches split into full and partial assemblies by their rows), with the
+   kernel not be (the window block launched twice an assembly, at the
+   bucket and at the delta rows; the supersteps' full, partial and skipped
+   assemblies counted from their metric), with the
    CG read-backs of the run (stop conditions read once a chunk).  Then
    each transport kernel is held against its plain version at this path's
    shapes (the band, the metal atoms and CB edges, the vacancy bucket of
@@ -1947,15 +1948,21 @@ def transport_cg_checks(sim, band):
             "eager": [timed(lambda: tcg.solve(tws, op, x0, go, tol, 20000)) for _ in range(3)]}
     iters = {r[2] for rs in runs.values() for r in rs}
     check(len(iters) == 1, f"the solve's inner iterations differ between runs: {runs}")
+    # both divided by the solve's inner iterations; the host loop's chunks
+    # also launch iterations past convergence (``overshoot``, run on the
+    # card as no-ops)
     out["solve"] = {name: dict(ms=statistics.median(r[0] for r in rs), inner=rs[0][2],
                                rounds=rs[0][3], run_on_card=rs[0][1],
-                               ms_per_inner=statistics.median(r[0] / r[1] for r in rs))
+                               overshoot=rs[0][1] - rs[0][2],
+                               ms_per_inner=statistics.median(r[0] / r[2] for r in rs))
                     for name, rs in runs.items()}
-    log(f"the transport solve from a perturbed warm start: {out['solve']['graph']['inner']} "
-        f"inner iterations in {out['solve']['graph']['rounds']} rounds; captured "
-        f"{out['solve']['graph']['ms']:.3f} ms ({out['solve']['graph']['ms_per_inner']:.4f} ms "
-        f"an inner iteration), from the host loop {out['solve']['eager']['ms']:.3f} ms "
-        f"({out['solve']['eager']['ms_per_inner']:.4f} ms an inner iteration run)")
+    sg, se = out["solve"]["graph"], out["solve"]["eager"]
+    log(f"the transport solve from a perturbed warm start: {sg['inner']} inner iterations in "
+        f"{sg['rounds']} rounds; captured {sg['ms']:.3f} ms ({sg['ms_per_inner']:.4f} ms an "
+        f"inner iteration, {sg['overshoot']} launched past convergence), from the host loop "
+        f"{se['ms']:.3f} ms ({se['ms_per_inner']:.4f} ms an inner iteration, "
+        f"{se['ms'] / sg['ms']:.4f}x the captured solve; {se['overshoot']} iterations launched "
+        "past convergence)")
     shape = (f"Nsub={nsub}, n_mp={n_mp}, vacancy bucket {op.T_vm.shape[0]} ({nv} live), "
              f"max_nn={max_nn}")
     log(f"transport CG kernels at the path's shapes ({shape}): "
@@ -2037,8 +2044,9 @@ def transport_path(out_root):
                 "banded_matvec": banded_matvec, "wkb_fly_matvec": wkb_fly_matvec,
                 "wkb_fly_matmat": wkb_fly_matmat, "wkb_window_block": wkb_window_block,
                 "wkb_fly_pdisp": wkb_fly_pdisp, "kmc_event_loop": kmc_event_loop}
-    # the window block's launches, by shape: the whole bucket (full assembly)
-    # or the rows of the atoms that entered it (partial)
+    # the window block's launches, by shape: an assembly with the store on
+    # launches it at the whole bucket and at the transport_delta_cap rows of
+    # the atoms that entered it, and selects on the device
     vm_rows = []
     vm_block = cur._vm_block
 
@@ -2060,10 +2068,10 @@ def transport_path(out_root):
         sim.__dict__.pop("_superstep", None)
     wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
-    assemblies = {"full": sum(r != p.transport_delta_cap for r in vm_rows),
-                  "partial": sum(r == p.transport_delta_cap for r in vm_rows)}
-    check(sum(assemblies.values()) == launches["wkb_window_block"],
-          f"window block shapes {vm_rows} for {launches['wkb_window_block']} launches")
+    check(vm_rows == [sim.params.tunnel_vac_cap, p.transport_delta_cap] * (len(vm_rows) // 2)
+          and len(vm_rows) == launches["wkb_window_block"],
+          f"window block shapes {vm_rows} for {launches['wkb_window_block']} launches: "
+          "not the bucket and the delta rows an assembly")
     for name, n in launches.items():
         if name == "wkb_fly_pdisp":
             # the run has no heating: no dissipation sweep
@@ -2082,6 +2090,9 @@ def transport_path(out_root):
     check(bool(torch.isfinite(sim.state.virtual_potentials).all()), "virtual potentials")
     assembly = [int(s["transport_partial_assembly"]) for s in steps]
     check(any(a != 0 for a in assembly), "no skipped and no incremental assembly seen")
+    # which branch each superstep's assembly took (the step's metric)
+    assemblies = {name: assembly.count(a) for a, name in ((0, "full"), (1, "partial"),
+                                                           (-1, "skipped"))}
     check(conserved_counts(sim.state) == counts0, "O+V and d+Od counts conserved")
 
     for pre in sim.presolve_log:
@@ -2092,8 +2103,10 @@ def transport_path(out_root):
     log(f"transport path: run_bias_point (CB edge, boundary and deflated transport "
         f"cold solves + {TRANSPORT_STEPS} supersteps) in {wall:.2f} s; "
         f"{readbacks} CG read-backs (stop conditions read in chunks {cg.CHUNKS}; the run "
-        f"that reads every iteration is phase 6); launches {launches}; window block rows a launch "
-        f"{vm_rows} ({assemblies['full']} full, {assemblies['partial']} partial assemblies)")
+        f"that reads every iteration is phase 6); launches {launches}; window block: 2 launches "
+        f"an assembly (rows {vm_rows[:2]}), {len(vm_rows) // 2} assemblies; supersteps "
+        f"{assemblies['full']} full, {assemblies['partial']} partial, {assemblies['skipped']} "
+        "skipped")
     for s in steps:
         log(f"  step {s['step']}: {s['Z - calculation time - KMC superstep [s]'] * 1e3:.2f} ms, "
             f"events {int(s['n_events'])}, cg_iters_power {int(s['cg_iters_power'])}, "
@@ -2188,7 +2201,7 @@ def transport_path(out_root):
             "ms": k["window"]["ms"], "plain_ms": k["window"]["plain_ms"],
             "bound_ms": k["window"]["bound_ms"], "bound_by": k["window"]["bound_by"],
             "library_ms": None, "shape": k["window"]["shape"],
-            "launches_full": assemblies["full"], "launches_partial": assemblies["partial"],
+            "steps_by_assembly": assemblies,
             **{key: k["window"][key] for key in WINDOW_FACTS},
             "partial": {key: k["window_partial"][key] for key in WINDOW_FACTS + WINDOW_TIMES},
             "ref_width": {"n_mp": REF_N_MP,

@@ -21,8 +21,7 @@
 // A loop inside a loop: `stream` may itself be a stream that captures the
 // body of another WHILE node (the caller passes it and a second side
 // stream).  The handle is then made on that body graph, the node is added to
-// it, and the inner body is captured from `side`.  dkmc_while_probe_step is
-// the counting kernel of the nested loop's test.
+// it, and the inner body is captured from `side`.
 //
 // The handles are the driver's: this library links the CUDA runtime
 // statically, and a stream, a graph and a node made through PyTorch's runtime
@@ -36,23 +35,6 @@ namespace {
 
 __global__ void while_cond_kernel(cudaGraphConditionalHandle handle, const int* cond) {
   cudaGraphSetConditional(handle, cond[0] != 0);
-}
-
-// count[0] += 1, left[0] -= 1, cond[0] = left[0] > 0 (also the condition of
-// `handle`, 0: none); with `reload`, reload[0] = reload_to and reload_cond[0]
-// = reload_to > 0: an outer iteration arms its inner loop again.
-__global__ void probe_step_kernel(unsigned long long* count, long long* left, int* cond,
-                                  cudaGraphConditionalHandle handle, long long* reload,
-                                  long long reload_to, int* reload_cond) {
-  *count += 1;
-  const long long l = *left - 1;
-  *left = l;
-  *cond = l > 0;
-  if (handle) cudaGraphSetConditional(handle, l > 0);
-  if (reload) {
-    *reload = reload_to;
-    *reload_cond = reload_to > 0;
-  }
 }
 
 // The capture's graph and current dependencies of `stream`.
@@ -120,14 +102,4 @@ extern "C" int dkmc_while_begin(void* stream, void* side, const void* cond,
 extern "C" int dkmc_while_end(void* side) {
   cudaGraph_t body;
   return (int)cudaStreamEndCapture(static_cast<cudaStream_t>(side), &body);
-}
-
-extern "C" int dkmc_while_probe_step(void* count, void* left, void* cond,
-                                     unsigned long long handle, void* reload,
-                                     long long reload_to, void* reload_cond, void* stream) {
-  probe_step_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned long long*>(count), static_cast<long long*>(left),
-      static_cast<int*>(cond), handle, static_cast<long long*>(reload), reload_to,
-      static_cast<int*>(reload_cond));
-  return (int)cudaGetLastError();
 }

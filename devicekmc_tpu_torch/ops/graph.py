@@ -44,9 +44,7 @@ def _fn(name: str):
     if fn.argtypes is None:
         p, u = ctypes.c_void_p, ctypes.c_ulonglong
         fn.argtypes = {"dkmc_while_begin": [p, p, p, ctypes.POINTER(u)],
-                       "dkmc_while_end": [p],
-                       "dkmc_while_probe_step": [p, p, p, u, p, ctypes.c_longlong, p, p],
-                       }[name]
+                       "dkmc_while_end": [p]}[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -183,22 +181,3 @@ class Graph:
         for f, n in self.per_replay.items():
             f.launches += n
         return self.outputs
-
-
-def probe_step(count: torch.Tensor, left: torch.Tensor, cond: torch.Tensor, handle: int = 0,
-               stream=None, reload=None) -> None:
-    """The counting kernel of the nested loop's test (one thread on the
-    card): ``count += 1``, ``left -= 1``, ``cond = left > 0`` (also the
-    condition of the WHILE node ``handle``); ``reload = (left2, value,
-    cond2)`` arms an inner loop again: ``left2 = value``, ``cond2 = value >
-    0``.  CUDA tensors only: ``count`` int64 [1], ``left`` int64 [1],
-    ``cond`` int32 [1]."""
-    if stream is None:
-        stream = torch.cuda.current_stream(count.device).cuda_stream
-    left2, value, cond2 = reload if reload is not None else (None, 0, None)
-    err = _fn("dkmc_while_probe_step")(
-        count.data_ptr(), left.data_ptr(), cond.data_ptr(), handle,
-        None if left2 is None else left2.data_ptr(), int(value),
-        None if cond2 is None else cond2.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"probe_step kernel launch failed: cudaError {err}")

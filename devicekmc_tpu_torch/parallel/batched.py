@@ -56,9 +56,9 @@ def make_batched_superstep(geom: Geometry, params: PhysParams, heat, mesh=None):
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
 
-    # an ensemble has no transport cache (band): with solve_current it runs
-    # eagerly, replica by replica
-    if graph_ready(params, band=False) is None:
+    # B is known only at the call: a batch of None is the case B > 1, which
+    # with solve_current runs eagerly, replica by replica
+    if graph_ready(params, batch=None) is None:
         graphs = {}
 
         def superstep(states: SimState, Vd: float):

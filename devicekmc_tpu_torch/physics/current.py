@@ -300,6 +300,15 @@ def _vm_block(env, vpos, vcb, v_ok, mpos, mcb):
     return tunnel_block(env, vpos, vcb, v_ok, mpos, mcb, ones_m, wkb_window_T)
 
 
+def _slot_map(idx: torch.Tensor, ok: torch.Tensor, size: int) -> torch.Tensor:
+    """int32 [size]: the position in ``idx`` of each index that ``ok``
+    marks (positions of distinct indices), -1 elsewhere; fixed shapes, no
+    read."""
+    out = torch.full((size + 1,), -1, dtype=torch.int32, device=idx.device)
+    pos = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
+    return out.scatter_(0, torch.where(ok, idx, size).long(), pos)[:size]
+
+
 def _incremental_vacancy_blocks(
     geom, params, state, vidx, v_ok, vpos, vcb, apos, acb, mpos, mcb, env,
 ):
@@ -313,70 +322,14 @@ def _incremental_vacancy_blocks(
     flips change nothing here) are recomputed, through the same functions
     the full assembly uses, so the assembled blocks are BIT-IDENTICAL to the
     from-scratch path.  More than transport_delta_cap new atoms, or an
-    invalid store (first solve of a bias point, cap growth), falls back to
-    the full re-assembly, exact either way.
+    invalid store (first solve of a bias point, cap growth), takes the full
+    re-assembly, exact either way.
 
-    Returns (T_vm, T_vv, slot_atom_new, partial)."""
-    vcap = params.tunnel_vac_cap
-    ccap = params.transport_delta_cap
-    Na = geom.N_atom
-    dev = vidx.device
-    slot_atom_new = torch.where(v_ok, vidx, -1)
-
-    use_partial = False
-    if state.tt_valid:
-        prev = state.tt_slot_atom                      # [vcap] atom ids, -1 free
-        occupied = prev >= 0
-        amap = torch.full((Na,), -1, dtype=torch.int32, device=dev)
-        amap[prev[occupied].long()] = torch.arange(
-            vcap, dtype=torch.int32, device=dev)[occupied]
-        src_slot = torch.where(v_ok, amap[vidx.long()], -1)
-        have = v_ok & (src_slot >= 0)
-        need_idx, n_need_t = nonzero_fixed(v_ok & ~have, ccap, fill_value=0)
-        n_need = int(n_need_t)
-        use_partial = n_need <= ccap
-
-    if not use_partial:
-        T_vm = _vm_block(env, vpos, vcb, v_ok, mpos, mcb)
-        T_vv = tunnel_block(env, vpos, vcb, v_ok, vpos, vcb, v_ok, wkb_single_T)
-        return T_vm, T_vv, slot_atom_new, False
-
-    t_live = torch.arange(ccap, device=dev) < n_need
-    atoms_t = torch.where(t_live, vidx[need_idx.long()], 0).long()
-    pos_t, cb_t = apos[atoms_t], acb[atoms_t]
-    rows_vm = _vm_block(env, pos_t, cb_t, t_live, mpos, mcb)
-    rows_vv = tunnel_block(env, pos_t, cb_t, t_live, vpos, vcb, v_ok, wkb_single_T)
-    sg = src_slot.clamp(0, max(vcap - 1, 0)).long()
-    T_vm = torch.where(have[:, None], state.tt_vm[sg], 0.0)
-    T_vv = torch.where(have[:, None] & have[None, :], state.tt_vv[sg][:, sg], 0.0)
-    new_rows = need_idx[t_live].long()
-    T_vm[new_rows] = rows_vm[t_live]
-    T_vv[new_rows] = rows_vv[t_live]
-    # symmetric column write; (need x need) entries are written twice with
-    # bit-equal values (dist and |dE| are exactly symmetric)
-    T_vv[:, new_rows] = rows_vv[t_live].T
-    return T_vm, T_vv, slot_atom_new, True
-
-
-def _slot_map(idx: torch.Tensor, ok: torch.Tensor, size: int) -> torch.Tensor:
-    """int32 [size]: the position in ``idx`` of each index that ``ok``
-    marks (positions of distinct indices), -1 elsewhere; fixed shapes, no
-    read."""
-    out = torch.full((size + 1,), -1, dtype=torch.int32, device=idx.device)
-    pos = torch.arange(idx.shape[0], dtype=torch.int32, device=idx.device)
-    return out.scatter_(0, torch.where(ok, idx, size).long(), pos)[:size]
-
-
-def _incremental_vacancy_blocks_device(
-    geom, params, state, vidx, v_ok, vpos, vcb, apos, acb, mpos, mcb, env,
-):
-    """:func:`_incremental_vacancy_blocks` without a read, as the JAX
-    package's ``lax.cond`` makes the choice: both branches at their fixed
-    sizes (the full assembly, and the rows of at most transport_delta_cap
-    new atoms placed into the gathered store), selected on the device by
-    ``tt_valid`` and the count of new atoms.  Each branch's blocks are the
-    eager one's bit for bit.  Returns (T_vm, T_vv, slot_atom_new, partial:
-    0-d bool tensor)."""
+    No read, as the JAX package's ``lax.cond`` makes the choice: both
+    branches run at their fixed sizes (the full assembly, and the rows of at
+    most transport_delta_cap new atoms placed into the gathered store) and
+    are selected on the device by ``tt_valid`` and the count of new atoms.
+    Returns (T_vm, T_vv, slot_atom_new, partial: 0-d bool tensor)."""
     vcap = params.tunnel_vac_cap
     ccap = params.transport_delta_cap
     Na = geom.N_atom
@@ -395,23 +348,24 @@ def _incremental_vacancy_blocks_device(
         (), bool(state.tt_valid), device=dev)
     partial = valid & (n_need <= ccap)
 
-    t_live = torch.arange(ccap, device=dev) < n_need
-    atoms_t = torch.where(t_live, vidx[need_idx.long()], 0).long()
-    pos_t, cb_t = apos[atoms_t], acb[atoms_t]
-    rows_vm = _vm_block(env, pos_t, cb_t, t_live, mpos, mcb)
-    rows_vv = tunnel_block(env, pos_t, cb_t, t_live, vpos, vcb, v_ok, wkb_single_T)
     sg = src_slot.clamp(0, max(vcap - 1, 0)).long()
     T_vm = torch.where(have[:, None], state.tt_vm[sg], 0.0)
     T_vv = torch.where(have[:, None] & have[None, :], state.tt_vv[sg][:, sg], 0.0)
-    # the new atoms' rows, then their columns (written last, as the eager
-    # assembly writes them)
-    new_of = _slot_map(need_idx, t_live, vcap)
-    is_new = new_of >= 0
-    new_vv = rows_vv[new_of.clamp(min=0).long()]
-    T_vm = torch.where(is_new[:, None], rows_vm[new_of.clamp(min=0).long()], T_vm)
-    T_vv = torch.where(is_new[:, None], new_vv, T_vv)
-    T_vv = torch.where(is_new[None, :], new_vv.T, T_vv)
-    # row-major, as the eager assembly's blocks are (a product of a
+    if ccap > 0:
+        # the new atoms' rows, then their columns (the need x need entries
+        # are bit-equal either way: dist and |dE| are exactly symmetric)
+        t_live = torch.arange(ccap, device=dev) < n_need
+        atoms_t = torch.where(t_live, vidx[need_idx.long()], 0).long()
+        pos_t, cb_t = apos[atoms_t], acb[atoms_t]
+        rows_vm = _vm_block(env, pos_t, cb_t, t_live, mpos, mcb)
+        rows_vv = tunnel_block(env, pos_t, cb_t, t_live, vpos, vcb, v_ok, wkb_single_T)
+        new_of = _slot_map(need_idx, t_live, vcap)
+        is_new = new_of >= 0
+        new_vv = rows_vv[new_of.clamp(min=0).long()]
+        T_vm = torch.where(is_new[:, None], rows_vm[new_of.clamp(min=0).long()], T_vm)
+        T_vv = torch.where(is_new[:, None], new_vv, T_vv)
+        T_vv = torch.where(is_new[None, :], new_vv.T, T_vv)
+    # row-major, as the full assembly's blocks are (a product of a
     # transposed layout sums in another order)
     return (torch.where(partial, T_vm, T_vm_f).contiguous(),
             torch.where(partial, T_vv, T_vv_f).contiguous(), slot_atom_new, partial)
@@ -469,7 +423,7 @@ def _coarse_restriction(geom: Geometry, params: PhysParams):
 
 def assemble_X_blocks(
     geom: Geometry, params: PhysParams, state: SimState,
-    cc=None, _cc_only: bool = False, band=None, device_form: bool = False,
+    cc=None, _cc_only: bool = False, band=None,
 ):
     """Assemble the blocked transport operator (see the module docstring).
 
@@ -477,12 +431,12 @@ def assemble_X_blocks(
     off-diagonal values (the dense convention) and the exact f64 diagonal.
     ``cc``: the precomputed metal_p x metal_p block of
     :func:`assemble_cc_block` (valid within one bias point); ``band``: the
-    static banded operator of :func:`build_banded_nb`.  ``device_form``: no
-    read of the device (the live vacancy count a mask, the incremental
-    choice made on the device, ``int_steps_needed`` and ``tt_partial`` 0-d
-    tensors), the same entries; plus the int32 bucket ``vidx32``, its live
-    count ``n_vac`` [1] and each atom's bucket slot ``vslot`` [Na] that the
-    transport CG's kernels read."""
+    static banded operator of :func:`build_banded_nb`.  No read of the
+    device: the live vacancy count is a mask, the incremental choice is made
+    on the device, ``int_steps_needed`` and ``tt_partial`` are 0-d tensors.
+    Also the int32 bucket ``vidx32``, its live count ``n_vac`` [1] and each
+    atom's bucket slot ``vslot`` [Na] that the transport CG's kernels
+    read."""
     require_ieee_f32("the transport operator's f32 tunnel-block products")
     dtype = params.dtype
     cdtype = _cdtype(params)
@@ -516,13 +470,9 @@ def assemble_X_blocks(
     vcap = params.tunnel_vac_cap
     if vcap <= 0:
         raise ValueError("transport='blocked' requires tunnel_vac_cap > 0")
-    if device_form:
-        vidx, n_vac = nonzero_fixed_batched(anyvac[None], vcap, fill_value=0)
-        vidx, n_vac = vidx[0], n_vac[0]
-        v_ok = torch.arange(vcap, device=dev) < n_vac.clamp(max=vcap)
-    else:
-        vidx, n_vac = nonzero_fixed(anyvac, vcap, fill_value=0)
-        v_ok = torch.arange(vcap, device=dev) < min(int(n_vac), vcap)
+    vidx, n_vac = nonzero_fixed_batched(anyvac[None], vcap, fill_value=0)
+    vidx, n_vac = vidx[0], n_vac[0]
+    v_ok = torch.arange(vcap, device=dev) < n_vac.clamp(max=vcap)
     vlong = vidx.long()
 
     mpos, mcb = apos[mp].contiguous(), acb[mp].contiguous()
@@ -545,11 +495,10 @@ def assemble_X_blocks(
         T_cc = tunnel_block(env, mpos, mcb, ones_m, mpos, mcb, ones_m, wkb_single_T)
     if _cc_only:
         return dict(T_cc=T_cc)
-    tt_slot_new, partial = None, False
+    tt_slot_new = None
+    partial = torch.zeros((), dtype=torch.bool, device=dev)
     if params.transport_incremental:
-        incremental = (_incremental_vacancy_blocks_device if device_form
-                       else _incremental_vacancy_blocks)
-        T_vm, T_vv, tt_slot_new, partial = incremental(
+        T_vm, T_vv, tt_slot_new, partial = _incremental_vacancy_blocks(
             geom, params, state, vidx, v_ok, vpos, vcb, apos, acb, mpos, mcb, env,
         )
     else:
@@ -564,8 +513,6 @@ def assemble_X_blocks(
     widest = torch.where(elig_vm, abs_vm, 0.0).max() if elig_vm.numel() else \
         torch.zeros((), dtype=cdtype, device=dev)
     int_steps_needed = torch.ceil(widest / env["dE_step"])
-    if not device_form:
-        int_steps_needed = int(int_steps_needed)
 
     # --- virtual-node rows ---
     idx = torch.arange(Na, device=dev)
@@ -602,11 +549,8 @@ def assemble_X_blocks(
         loop_G=loop_G, diag=diag,
         int_steps_needed=int_steps_needed,
         tt_slot_atom=tt_slot_new, tt_partial=partial,
+        vidx32=vidx, n_vac=n_vac.reshape(1).to(torch.int32), vslot=_slot_map(vidx, v_ok, Na),
     )
-    if device_form:
-        out["vidx32"] = vidx
-        out["n_vac"] = n_vac.reshape(1).to(torch.int32)
-        out["vslot"] = _slot_map(vidx, v_ok, Na)
     if cc_fly:
         # everything the on-the-fly kernels need to re-derive cc entries
         out["fly"] = dict(mpos=mpos, mcb=mcb, env=env)
@@ -1111,9 +1055,12 @@ def update_power_blocked(
         )
         v = res.x
 
-    contact_drop = float(torch.abs(v[nsi] - Vd))
     M = torch.cat([v * G0, torch.zeros(1, dtype=dtype, device=dev)])  # [Na+2]
-    I_macro = float(torch.sum(blk["gnd_vals"] * (M[0] - M[2:])))
+    # one read: the current, the contact drop and the assembly's metrics
+    I_macro, contact_drop, n_vac, int_steps, partial = torch.stack([
+        t.to(torch.float64) for t in (
+            torch.sum(blk["gnd_vals"] * (M[0] - M[2:])), torch.abs(v[nsi] - Vd),
+            _n_vac_atoms_t(geom, state), blk["int_steps_needed"], blk["tt_partial"])]).tolist()
 
     # dissipated power, block by block: only when a heating solver is on
     # (the reference guards the whole extraction, src/current_solver.cpp:279-371)
@@ -1137,7 +1084,7 @@ def update_power_blocked(
             tt_vm=blk["T_vm"], tt_vv=blk["T_vv"], tt_valid=True,
         )
     metrics = {
-        "n_vac_atoms": _n_vac_atoms(geom, state),
+        "n_vac_atoms": int(n_vac),
         "Current [uA]": I_macro * 1e6,
         "Conductance [uS]": abs(I_macro / (Vd if Vd != 0 else 1.0)) * 1e6,
         "cg_iters_power": res.iters,
@@ -1145,10 +1092,10 @@ def update_power_blocked(
         # the explicit convergence signal the chunked cold solves loop on
         "transport_converged": res.converged,
         "contact_potential_drop": contact_drop,
-        "tunnel_int_steps_needed": blk["int_steps_needed"],
+        "tunnel_int_steps_needed": int(int_steps),
         # 1: stored tunnel rows reused and only new ones computed, 0: full
         # assembly, -1: solve skipped (kept out of output.txt by the engine)
-        "transport_partial_assembly": int(blk["tt_partial"]),
+        "transport_partial_assembly": int(partial),
     }
     if solve_heat:
         # logged only when a heating solver is on (reference schema)
@@ -1203,7 +1150,7 @@ def _update_power_warm_device(
     cg_maxiter: int, cc, go: torch.Tensor,
 ) -> Tuple[Dict, Dict]:
     """The warm blocked re-solve with no read of the device
-    (:func:`warm_device_form`): the device-form assembly, the mixed CG as the
+    (:func:`warm_device_form`): the assembly, the mixed CG as the
     transport CG's device loops (``ops.transport_cg.solve``, under a capture
     two nested WHILE nodes), the current, and with heating the site power.
     ``go`` [1] bool: False runs no refinement round.  Returns the new state
@@ -1215,7 +1162,7 @@ def _update_power_warm_device(
     Nsub = Na + 1
     nsi = params.num_source_inj
     band = cc["band"]
-    blk = assemble_X_blocks(geom, params, state, band=band, device_form=True)
+    blk = assemble_X_blocks(geom, params, state, band=band)
     loop_G = blk["loop_G"]
     diag = blk["diag"]
     rhs = torch.zeros(Nsub, dtype=dtype, device=dev)
@@ -1268,9 +1215,7 @@ def _update_power_warm_device(
         "transport_converged": res.residual <= res.thresh,
         "contact_potential_drop": contact_drop,
         "tunnel_int_steps_needed": blk["int_steps_needed"],
-        "transport_partial_assembly": (blk["tt_partial"] if torch.is_tensor(blk["tt_partial"])
-                                       else torch.full((), bool(blk["tt_partial"]),
-                                                       device=dev)).to(torch.int64),
+        "transport_partial_assembly": blk["tt_partial"].to(torch.int64),
     }
     if solve_heat:
         metrics["Total dissipated power [mW]"] = P_tot * 1e3
@@ -1305,30 +1250,41 @@ def _n_vac_atoms(geom: Geometry, state: SimState) -> int:
     return int(_n_vac_atoms_t(geom, state))
 
 
+def _f64(v, dev) -> torch.Tensor:
+    """A host number or a 0-d tensor as a 0-d f64 tensor on ``dev`` (a
+    fill: no copy from the host, which a capture cannot hold)."""
+    if torch.is_tensor(v):
+        return v.to(torch.float64)
+    return torch.full((), v, dtype=torch.float64, device=dev)
+
+
 def _reuse_transport_metrics(
     geom: Geometry, params: PhysParams, state: SimState, Vd: float, blocked: bool
 ) -> Dict:
     """Metrics of an unchanged-network transport skip, reconstructed from
-    the stored converged solution: the keys of the matching solve branch; on
-    the blocked path -1 sentinels tell "skipped" from "converged at once" in
-    the logs.  With heating on, ``power`` and ``P_tot`` of the last solve
-    stay in the state and are reported again."""
-    I_macro = state.I_macro
+    the stored converged solution, as 0-d tensors (:func:`_to_host` reads
+    them): the keys of the matching solve branch; on the blocked path -1
+    sentinels tell "skipped" from "converged at once" in the logs.  With
+    heating on, ``power`` and ``P_tot`` of the last solve stay in the state
+    and are reported again."""
+    dev = geom.device
+    f64 = lambda v: _f64(v, dev)
+    I_macro = f64(state.I_macro)
     metrics = {
-        "n_vac_atoms": _n_vac_atoms(geom, state),
+        "n_vac_atoms": _n_vac_atoms_t(geom, state),
         "Current [uA]": I_macro * 1e6,
-        "Conductance [uS]": abs(I_macro / (Vd if Vd != 0 else 1.0)) * 1e6,
-        "cg_iters_power": 0,
-        "transport_converged": True,
-        "contact_potential_drop": float(
-            torch.abs(state.virtual_potentials[params.num_source_inj] - Vd)),
+        "Conductance [uS]": torch.abs(I_macro / (Vd if Vd != 0 else 1.0)) * 1e6,
+        "cg_iters_power": torch.zeros((), dtype=torch.int64, device=dev),
+        "transport_converged": torch.ones((), dtype=torch.bool, device=dev),
+        "contact_potential_drop": torch.abs(
+            state.virtual_potentials[params.num_source_inj] - Vd),
     }
     if blocked:
-        metrics["transport_rel0"] = -1.0
-        metrics["tunnel_int_steps_needed"] = -1
-        metrics["transport_partial_assembly"] = -1
+        metrics["transport_rel0"] = f64(-1.0)
+        metrics["tunnel_int_steps_needed"] = f64(-1.0)
+        metrics["transport_partial_assembly"] = f64(-1.0)
     if params.solve_heating_global or params.solve_heating_local:
-        metrics["Total dissipated power [mW]"] = state.P_tot * 1e3
+        metrics["Total dissipated power [mW]"] = f64(state.P_tot) * 1e3
     return metrics
 
 
@@ -1386,7 +1342,7 @@ def update_power(
         return solve(state)
 
     if transport_unchanged(geom, params, state, Vd):
-        return state, _reuse_transport_metrics(geom, params, state, Vd, blocked)
+        return state, _to_host({}, _reuse_transport_metrics(geom, params, state, Vd, blocked))[1]
     new_state, m = solve(state)
     ai = geom.atom_ind.long()
     return replace(new_state, trans_elem_prev=state.element[ai],
@@ -1405,8 +1361,7 @@ def _update_power_device_state(geom: Geometry, params: PhysParams, state: SimSta
     elem, charge = state.element[ai], state.charge[ai]
     Vd_t = torch.full((), Vd, dtype=torch.float64, device=dev)
     if params.transport_skip_unchanged:
-        same = ((state.transport_Vd_prev == Vd_t) & (elem == state.trans_elem_prev).all()
-                & (charge == state.trans_charge_prev).all())
+        same = transport_unchanged(geom, params, state, Vd)
     else:
         same = torch.zeros((), dtype=torch.bool, device=dev)
     fields, m = _update_power_warm_device(geom, params, state, Vd, cg_tol, cg_maxiter, cc,
@@ -1415,45 +1370,23 @@ def _update_power_device_state(geom: Geometry, params: PhysParams, state: SimSta
     if params.transport_skip_unchanged:
         kw.update(trans_elem_prev=elem, trans_charge_prev=charge,
                   transport_Vd_prev=Vd_t.to(state.transport_Vd_prev.dtype))
-    reuse = _reuse_transport_metrics_t(geom, params, state, Vd)
+    reuse = _reuse_transport_metrics(geom, params, state, Vd, True)
     metrics = {k: torch.where(same, reuse[k].to(v.dtype), v) for k, v in m.items()}
     return replace(state, **kw), metrics
 
 
-def _reuse_transport_metrics_t(geom: Geometry, params: PhysParams, state: SimState,
-                               Vd: float) -> Dict:
-    """:func:`_reuse_transport_metrics` of the blocked path as 0-d tensors,
-    from a state whose scalars are device tensors."""
-    dev = geom.device
-    I_macro = state.I_macro
-    t = lambda v: torch.full((), v, device=dev)
-    metrics = {
-        "n_vac_atoms": _n_vac_atoms_t(geom, state),
-        "Current [uA]": I_macro * 1e6,
-        "Conductance [uS]": torch.abs(I_macro / (Vd if Vd != 0 else 1.0)) * 1e6,
-        "cg_iters_power": t(0),
-        "transport_converged": t(True),
-        "contact_potential_drop": torch.abs(
-            state.virtual_potentials[params.num_source_inj] - Vd),
-        "transport_rel0": t(-1.0),
-        "tunnel_int_steps_needed": t(-1.0),
-        "transport_partial_assembly": t(-1),
-    }
-    if params.solve_heating_global or params.solve_heating_local:
-        metrics["Total dissipated power [mW]"] = state.P_tot * 1e3
-    return metrics
-
-
 def transport_unchanged(geom: Geometry, params: PhysParams, state: SimState,
-                        Vd: float) -> bool:
-    """True when X is the one of the last converged solve: (element, charge)
-    at atom sites and Vd unchanged (the bias-start CB edge is constant within
-    a bias point).  Then that solution IS the solution."""
+                        Vd: float) -> torch.Tensor:
+    """0-d bool, True when X is the one of the last converged solve: (element,
+    charge) at atom sites and Vd unchanged (the bias-start CB edge is
+    constant within a bias point).  Then that solution IS the solution.  No
+    read: the state's scalars may be host numbers or 0-d device tensors."""
+    dev = geom.device
     Vd = float(torch.tensor(Vd, dtype=params.dtype))
     ai = geom.atom_ind.long()
-    return (Vd == state.transport_Vd_prev
-            and torch.equal(state.element[ai], state.trans_elem_prev)
-            and torch.equal(state.charge[ai], state.trans_charge_prev))
+    return ((_f64(state.transport_Vd_prev, dev) == _f64(Vd, dev))
+            & (state.element[ai] == state.trans_elem_prev).all()
+            & (state.charge[ai] == state.trans_charge_prev).all())
 
 
 # ----------------------------------------------------------------------------

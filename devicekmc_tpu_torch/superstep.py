@@ -418,11 +418,13 @@ def _device_batch(states: SimState, single: SimState) -> SimState:
     return SimState(**kw)
 
 
-def graph_ready(params: PhysParams, batch: int = 1, band: bool = True) -> Optional[str]:
-    """None when the superstep of ``params`` (``batch`` replicas) runs as
-    one captured graph (:class:`SuperstepGraph`): the headline module set
-    with the Jacobi boundary CG, the incremental event loop and the
-    compacted pair-sweep kernel; with ``solve_current``, one replica
+def graph_ready(params: PhysParams, batch: Optional[int] = 1,
+                band: bool = True) -> Optional[str]:
+    """None when the superstep of ``params`` (``batch`` replicas; None: a
+    count not known yet, possibly above 1) runs as one captured graph
+    (:class:`SuperstepGraph`): the headline module set with the Jacobi
+    boundary CG, the incremental event loop and the compacted pair-sweep
+    kernel; with ``solve_current``, one replica
     (``batch`` 1) of the blocked mixed solve with the on-the-fly metal block,
     the static band (``band``) and the Jacobi warm preconditioner, heating
     off or global.  Otherwise why it runs eagerly."""

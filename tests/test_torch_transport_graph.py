@@ -93,6 +93,7 @@ def _record(sim, to_np=lambda t: t.numpy()):
     (dict(transport_bf16_inner=True), 1, True, "bf16"),
     (dict(solve_heating_local=True), 1, True, "local heat model"),
     ({}, 3, True, "B > 1"),
+    ({}, None, True, "B > 1"),
     ({}, 1, False, "static band"),
 ])
 def test_transport_graph_route_by_configuration(over, batch, band, reason):
