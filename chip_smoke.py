@@ -94,17 +94,21 @@ Phases (any failed check raises and the exit code is non-zero):
    The main path of this configuration: the same run on the captured graph
    (the transport CG's refinement rounds and inner CG two nested WHILE
    nodes, csrc/transport_cg.cu), counters set to 0 just before and read
-   just after (the batched kernels and the transport CG's five kernels as
-   the card counts them, each launched), held bit for bit step for step
+   just after (the batched kernels and the transport CG's kernels as the
+   card counts them, each launched; the f64 pack at the round ends only,
+   none in the inner body), held bit for bit step for step
    against the eager run (events, elements, cg_iters_power, I_macro, P_tot,
    T_bg, the virtual potentials, the site power, the tunnel store, every
    metric); both again in turns, timed, one superstep of each under
-   torch.profiler (busy share; 1 device-to-host copy a graph superstep); the
-   capture seconds at a second bias point (Vd = 1.05 V, 2 supersteps); the
-   transport CG's kernels (pack, apply, refine, f32 and f64 builds) against
-   their plain versions at the path's shapes, timed beside their bytes
-   bounds, and the band's and fly matvec's out= entries bit-equal to the
-   allocating ones;
+   torch.profiler (busy share, the union of the device records; 1
+   device-to-host copy a graph superstep); the capture seconds at a second
+   bias point (Vd = 1.05 V, 2 supersteps); the transport CG's kernels
+   (blocks and rows, f32 and f64 builds, the update that packs, the f64
+   pack, refine) against their plain versions at the path's shapes, timed
+   beside their bytes bounds, the band's and fly matvec's out= entries
+   bit-equal to the allocating ones, the inner body inside a WHILE node
+   with and without the branch beside the band and in series, and the warm
+   solve captured and from the host loop;
 5. heat path: the transport configuration with solve_heating_global on and
    A = ly * lz on the eager driver, counters set to 0 just before: cold
    solves, 8 supersteps, then its captured graph against it as in phase 4;
@@ -1429,11 +1433,25 @@ def profile_calls(fn, n, reset=None, before=None):
             wall = (time.perf_counter() - t0) * 1e3
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if dev:
-            busy = sum(e.time_range.elapsed_us() for e in dev
-                       if not e.name.startswith("Memcpy DtoH")) / 1e3
+            busy = busy_ms([e for e in dev if not e.name.startswith("Memcpy DtoH")])
             return (wall, busy, sum(e.name.startswith("Memcpy DtoH") for e in dev),
                     trace_counts(prof))
     return wall, None, None, None
+
+
+def busy_ms(events):
+    """The time some device record of ``events`` runs (the union of their
+    intervals: kernels on two branches overlap), ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
 
 
 def card_counts():
@@ -1595,7 +1613,8 @@ TRANSPORT_TURNS = 3
 VD_SECOND = 1.05
 #: the transport CG's kernels that count their launches on the card
 TRANSPORT_CARD = ("banded_matvec_out", "wkb_fly_matvec_out", "transport_pack",
-                  "transport_apply", "transport_refine")
+                  "transport_blocks", "transport_rows", "transport_refine",
+                  "cg_update_direction_pack")
 
 
 def transport_record(sim):
@@ -1650,7 +1669,8 @@ def transport_graph_run(sim, tag, n_steps=TRANSPORT_STEPS, wrappers=None):
     for w in wrappers.values():
         w.launches = 0
     _build.launch_counts("cuda").zero_()
-    plains = [_counted(tcg, name) for name in ("pack_plain", "apply_plain", "refine_plain")]
+    plains = [_counted(tcg, name) for name in ("pack_plain", "blocks_plain", "rows_plain",
+                                               "update_pack_plain", "refine_plain")]
     recs = transport_record(sim)
     try:
         t = time.perf_counter()
@@ -1747,6 +1767,16 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True):
         check(card[name] > 0, f"{tag}: {name} was not launched on the card ({card})")
     steps = sim.step_log
     inner = sum(int(s["cg_iters_power"]) for s in steps)
+    # the inner body launches no pack: the f64 pack, the fly matvec's extra
+    # launches and the rows' and blocks' come from the round ends (one a
+    # refine), the update and the band from the inner iterations
+    ends = card["transport_refine"]
+    check(card["transport_pack"] == ends and card["cg_update_direction_pack"] == inner
+          and card["banded_matvec_out"] == inner
+          and card["transport_blocks"] == card["transport_rows"] == inner + ends
+          and card["wkb_fly_matvec_out"] == inner + ends,
+          f"{tag}: launches on the card {card} against {inner} inner iterations and {ends} "
+          "round ends")
     rounds = sum(int(s["cg_iters_power"] > 0) for s in steps)
     check(all(s["transport_converged"] == 1.0 for s in steps), f"{tag}: a solve did not "
           "converge")
@@ -1781,23 +1811,19 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True):
                      median_ms_eager=statistics.median(ms_e), **turns)
 
 
-def transport_cg_checks(sim, band):
-    """The transport CG's kernels at the path's shapes (``sim``'s operator
-    after its run, a seeded inner direction and correction) against their
-    plain versions (PyTorch operations on the same tensors), timed beside
-    their bytes bounds; the band's and the fly matvec's out= entries against
-    their allocating entries (bit-equal)."""
+def transport_operator(sim, seed=13):
+    """The transport CG's workspace and operator of ``sim``'s state (the
+    solve of a changed bias: no unchanged-network skip), a seeded inner
+    direction and correction set in the workspace: (tws, op, the solve's
+    warm start, the generator after those draws)."""
     import torch
 
-    from devicekmc_tpu_torch.ops import transport_cg as tcg
-    from devicekmc_tpu_torch.ops.banded import banded_matvec, banded_matvec_out
-    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matvec, wkb_fly_matvec_out
     from devicekmc_tpu_torch.physics import current as cur
 
     cap = {}
     solve = cur.transport_cg.solve
 
-    def grab(tws, op, x0, go, tol, maxiter, max_outer=tcg.MAX_OUTER):
+    def grab(tws, op, x0, go, tol, maxiter, max_outer=40):
         cap.update(tws=tws, op=op, x0=x0.clone())
         return solve(tws, op, x0, go, tol, maxiter, max_outer)
 
@@ -1808,7 +1834,7 @@ def transport_cg_checks(sim, band):
     finally:
         cur.transport_cg.solve = solve
     tws, op = cap["tws"], cap["op"]
-    gen = torch.Generator(device="cpu").manual_seed(13)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
     nsub = tws.x.shape[0]
     tws.cg.p[0].copy_(torch.randn(nsub, generator=gen).float())
     tws.cg.x[0].copy_(torch.randn(nsub, generator=gen).float())
@@ -1817,11 +1843,35 @@ def transport_cg_checks(sim, band):
     tws.scale.fill_(1e-3)
     tws.go.fill_(True)
     tws.thresh.fill_(1e-30)
+    return tws, op, cap["x0"], gen
+
+
+def transport_cg_checks(sim, band):
+    """The transport CG's kernels at the path's shapes (``sim``'s operator
+    after its run, a seeded inner direction and correction) against their
+    plain versions (PyTorch operations on the same tensors), timed beside
+    their bytes bounds; the update and pack against the boundary build of
+    cg_update_direction (bit-equal) and its pack against pack_plain of the
+    new direction (bit-equal); the band's and the fly matvec's out= entries
+    against their allocating entries (bit-equal); the band alone against the
+    band with its branch (fly, transport_blocks) and whole inner iterations,
+    captured; the warm solve captured and from the host loop."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+    from devicekmc_tpu_torch.ops.banded import banded_matvec, banded_matvec_out
+    from devicekmc_tpu_torch.ops.graph import Graph, device_while
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matvec, wkb_fly_matvec_out
+
+    tws, op, x0_solve, gen = transport_operator(sim)
+    nsub = tws.x.shape[0]
     na, max_nn = op.anb.shape
-    n_mp = op.mpos.shape[0]
+    vcap, n_mp = op.T_vm.shape
     nv = int(op.n_vac)
     R, m_pad, B = tws.shape
     nfull = nsub + 1
+    dots_terms = (na - op.gnd_lo) + op.nsi
     f4, f8, i4 = 4, 8, 4
 
     def clone(ws):
@@ -1842,29 +1892,24 @@ def transport_cg_checks(sim, band):
     def err(a, b):
         return float((a.double() - b.double()).abs().max())
 
+    def timed(name, fn, plain, bound_bytes, e, **extra):
+        out[name] = dict(err=e, ms=time_ms(fn), plain_ms=time_ms(plain, reps=5, rounds=3),
+                         bound_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3, **extra)
+
     out = {}
-    # pack: the inner direction (lo) and the refinement's iterate (hi)
-    for hi in (False, True):
+    # the f64 pack: the warm start, and the iterate with the round's
+    # correction
+    for first in (True, False):
         k, p = clone(tws), clone(tws)
-        tcg.pack(k, op, hi, first=True)
-        tcg.pack_plain(p, op, hi, first=True)
-        fields = ("xs64", "xm") if hi else ("xs32", "xw", "xm")
-        e = max(err(getattr(k, f), getattr(p, f)) for f in fields)
-        check(e == 0, f"transport_pack ({'hi' if hi else 'lo'}): {e} from its plain version")
-        if hi:
-            k2, p2 = clone(tws), clone(tws)
-            tcg.pack(k2, op, True, first=False)
-            tcg.pack_plain(p2, op, True, first=False)
-            check(torch.equal(k2.x, p2.x), "transport_pack (hi): the corrected iterate differs")
-        bytes_ = ((f8 if hi else f4) * 2 * nsub + i4 * na * (1 if hi else 2)
-                  + (f8 if hi else f4) * nfull + (0 if hi else f4 * na) + f4 * n_mp)
-        out[f"pack_{'hi' if hi else 'lo'}"] = dict(
-            err=e, ms=time_ms(lambda: tcg.pack(k, op, hi, first=True)),
-            plain_ms=time_ms(lambda: tcg.pack_plain(p, op, hi, first=True), reps=5, rounds=3),
-            bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3)
+        tcg.pack(k, op, first)
+        tcg.pack_plain(p, op, True, first)
+        e = max(err(getattr(k, f), getattr(p, f)) for f in ("xs64", "xm", "x"))
+        check(e == 0, f"transport_pack (first={first}): {e} from its plain version")
+    timed("pack", lambda: tcg.pack(k, op, True), lambda: tcg.pack_plain(p, op, True, True),
+          f8 * 2 * nsub + f4 * nsub + f8 * nfull + i4 * na + f4 * n_mp, 0.0)
     # the band's and the fly matvec's out= entries, at the path's shapes
     k = clone(tws)
-    tcg.pack(k, op, False)
+    tcg.pack_plain(k, op, False)
     y = torch.empty((R, B), dtype=torch.float32, device="cuda")
     banded_matvec_out(band["C"], k.xw.view(R + m_pad - 1, B), y)
     check(torch.equal(y, banded_matvec(band["C"], k.xw.view(R + m_pad - 1, B))),
@@ -1875,66 +1920,151 @@ def transport_cg_checks(sim, band):
           "wkb_fly_matvec_out differs from wkb_fly_matvec")
     out["band_out_ms"] = time_ms(lambda: tcg.band(k, op))
     out["fly_out_ms"] = time_ms(lambda: tcg.fly(k, op))
-    # apply: ap and alpha (lo), r and r.r (hi)
+
+    # a round's set-up (refine packs its direction) and one inner product
+    base = clone(tws)
+    tcg.pack(base, op, True)
+    tcg.fly(base, op)
+    tcg.blocks(base, op, True)
+    tcg.rows(base, op, True)
+    base.thresh.fill_(float(base.rsum) ** 0.5 * 1e-3)
+    k, p = clone(base), clone(base)
+    tcg.refine(k, op, True, tcg.MAX_OUTER, 20000)
+    tcg.refine_plain(p, op, True, tcg.MAX_OUTER, 20000)
+    for f in ("x", "r", "p", "act", "iters", "ctl", "cond"):
+        check(torch.equal(getattr(k.cg, f), getattr(p.cg, f)), f"transport_refine: {f} "
+              "differs from its plain version")
+    for f in ("rnorm", "cond", "xs32", "xw", "xm"):
+        check(torch.equal(getattr(k, f), getattr(p, f)),
+              f"transport_refine: {f} differs from its plain version")
+    e = abs(float(k.cg.rz) - float(p.cg.rz)) / abs(float(p.cg.rz))
+    check(e <= 1e-5, f"transport_refine: b_in.b_in {e} relative from its plain version")
+    timed("refine", lambda: tcg.refine(k, op, True, tcg.MAX_OUTER, 20000),
+          lambda: tcg.refine_plain(p, op, True, tcg.MAX_OUTER, 20000),
+          f8 * nsub + 3 * f4 * nsub + f4 * nsub + f4 * nfull + (f4 + 2 * i4) * na + f4 * n_mp, e)
+    tcg.refine(base, op, True, tcg.MAX_OUTER, 20000)
+
+    # transport_blocks of the direction (lo) and of the iterate (hi)
     for hi in (False, True):
-        k = clone(tws)
-        tcg.pack(k, op, hi, first=hi)
-        if not hi:
+        k = clone(base)
+        if hi:
+            tcg.pack(k, op, True)
+        p = clone(k)
+        tcg.blocks(k, op, hi)
+        tcg.blocks_plain(p, op, hi)
+        fields = ("mv", "y_vm", "y_vv") + (() if hi else ("y_bump",))
+        e = max(err(getattr(k, f)[:nv if f != "mv" else n_mp],
+                    getattr(p, f)[:nv if f != "mv" else n_mp]) for f in fields)
+        scale = max(float(getattr(p, f).abs().max()) for f in fields)
+        dk, dp = (k.dots64, p.dots64) if hi else (k.dots32, p.dots32)
+        e_dot = err(dk, dp) / max(float(dp.abs().max()), 1e-300)
+        check(e <= 1e-5 * scale and e_dot <= (1e-9 if hi else 1e-5),
+              f"transport_blocks ({'hi' if hi else 'lo'}): {e} from its plain version "
+              f"(scale {scale}), dots {e_dot} relative")
+        w = f8 if hi else f4
+        bytes_ = (f4 * nv * n_mp + f4 * nv * nv + f4 * n_mp + (i4 + w) * nv
+                  + (0 if hi else (f4 + i4 + w) * nv * max_nn) + 2 * w * dots_terms
+                  + f4 * (n_mp + 3 * nv) + 2 * w)
+        timed(f"blocks_{'hi' if hi else 'lo'}", lambda: tcg.blocks(k, op, hi),
+              lambda: tcg.blocks_plain(p, op, hi), bytes_, e, rel_err=e / scale,
+              dots_rel_err=e_dot)
+    # transport_rows: ap and alpha (lo), r and r.r (hi)
+    for hi in (False, True):
+        k = clone(base)
+        if hi:
+            tcg.pack(k, op, True)
+        else:
             tcg.band(k, op)
         tcg.fly(k, op)
+        tcg.blocks(k, op, hi)
         p = clone(k)
-        tcg.apply(k, op, hi)
-        tcg.apply_plain(p, op, hi)
+        tcg.rows(k, op, hi)
+        tcg.rows_plain(p, op, hi)
         got, ref = (k.r, p.r) if hi else (k.cg.ap[0], p.cg.ap[0])
         scale = float((op.b - ref).abs().max()) if hi else float(ref.abs().max())
         e = err(got, ref)
         check(e <= (1e-9 if hi else 2e-6) * scale,
-              f"transport_apply ({'hi' if hi else 'lo'}): {e} from its plain version "
+              f"transport_rows ({'hi' if hi else 'lo'}): {e} from its plain version "
               f"(scale {scale})")
-        # T_vm and T_vv's live rows, the bucket, xm and y_cc, vslot and mp_inv
-        common = f4 * nv * n_mp + f4 * nv * nv + i4 * nv + f4 * n_mp * 2 + i4 * na * 2
+        common = i4 * na * 2 + f4 * n_mp * 2 + f4 * nv * 2
         if hi:
-            bytes_ = (common + (f8 + i4) * na * max_nn + f8 * (nfull + 2 * na + nfull + 2 * nsub)
-                      + f8 * nsub)
+            bytes_ = common + (f8 + i4) * na * max_nn + f8 * (2 * na + 2 + 4 * nsub) + f8 * nsub
         else:
-            bytes_ = (common + (f4 + i4) * nv * max_nn + f4 * na + i4 * na
-                      + f4 * (nfull + 2 * na + nfull + 2 * nsub) + f4 * nsub)
-        out[f"apply_{'hi' if hi else 'lo'}"] = dict(
-            err=e, rel_err=e / scale, ms=time_ms(lambda: tcg.apply(k, op, hi)),
-            plain_ms=time_ms(lambda: tcg.apply_plain(p, op, hi), reps=5, rounds=3),
-            bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3)
-    # refine: the end of a round from the same residual
-    k = clone(tws)
-    tcg.pack(k, op, True, first=True)
-    tcg.fly(k, op)
-    tcg.apply(k, op, True)
-    k.thresh.fill_(float(k.rsum) ** 0.5 * 1e-3)
-    p = clone(k)
-    tcg.refine(k, True, tcg.MAX_OUTER, 20000)
-    tcg.refine_plain(p, True, tcg.MAX_OUTER, 20000)
-    for f in ("x", "r", "p", "act", "iters", "ctl", "cond"):
-        check(torch.equal(getattr(k.cg, f), getattr(p.cg, f)), f"transport_refine: {f} "
-              "differs from its plain version")
-    check(torch.equal(k.rnorm, p.rnorm) and torch.equal(k.cond, p.cond),
-          "transport_refine: ||r|| or the predicate differs from its plain version")
-    e = abs(float(k.cg.rz) - float(p.cg.rz)) / abs(float(p.cg.rz))
-    check(e <= 1e-5, f"transport_refine: b_in.b_in {e} relative from its plain version")
-    out["refine"] = dict(err=e, ms=time_ms(lambda: tcg.refine(k, True, tcg.MAX_OUTER, 20000)),
-                         plain_ms=time_ms(lambda: tcg.refine_plain(p, True, tcg.MAX_OUTER,
-                                                                   20000), reps=5, rounds=3),
-                         bound_ms=(f8 * nsub + 3 * f4 * nsub) / PEAK_BYTES_PER_S * 1e3)
+            bytes_ = (common + i4 * na + f4 * na + f4 * nv
+                      + f4 * (2 * na + 2 + 4 * nsub) + f4 * nsub)
+        timed(f"rows_{'hi' if hi else 'lo'}", lambda: tcg.rows(k, op, hi),
+              lambda: tcg.rows_plain(p, op, hi), bytes_, e, rel_err=e / scale)
+    # the update and pack: the boundary build's update bit for bit, and the
+    # new direction packed as pack_plain packs it
+    tcg.products(base, op)
+    tcg.rows(base, op, False)
+    k, b, p = clone(base), clone(base), clone(base)
+    tcg.update_pack(k, op)
+    bcg.cg_update_direction(b.cg, tcg.INNER_MAXITER)
+    tcg.update_pack_plain(p, op)
+    for f in ("x", "r", "p", "rz", "rr", "beta", "act", "iters", "ctl", "cond"):
+        check(torch.equal(getattr(k.cg, f), getattr(b.cg, f)),
+              f"cg_update_direction_pack: {f} differs from the boundary build's")
+    ref = clone(k)
+    tcg.pack_plain(ref, op, False)
+    check(all(torch.equal(getattr(k, f), getattr(ref, f)) for f in ("xs32", "xw", "xm")),
+          "cg_update_direction_pack: the packed direction differs from pack_plain's")
+    e = max(err(getattr(k, f), getattr(p, f)) for f in ("xs32", "xm"))
+    scale = float(p.xs32.abs().max())
+    check(e <= 1e-5 * scale, f"cg_update_direction_pack: {e} from its plain version "
+          f"(scale {scale})")
+    k.cg.thresh2.zero_()
+    p.cg.thresh2.zero_()
+    timed("update_pack", lambda: tcg.update_pack(k, op), lambda: tcg.update_pack_plain(p, op),
+          f4 * 8 * nsub + f4 * nsub + f4 * nfull + (f4 + 2 * i4) * na + f4 * n_mp, e,
+          rel_err=e / scale, boundary_ms=time_ms(
+              lambda: bcg.cg_update_direction(b.cg, tcg.INNER_MAXITER)))
+
+    # the inner body inside a WHILE node, as the solve runs it, from a CG
+    # start whose threshold is 0 (INNER_MAXITER iterations a replay): the
+    # package's body, the body without the branch (the band, the rows, the
+    # update) and every kernel in series
+    it = clone(base)
+    tcg.refine(it, op, True, tcg.MAX_OUTER, 20000)
+    it.cg.thresh2.zero_()
+    it.cg.act.fill_(True)
+    it.cg.cond.fill_(1)
+    start = clone(it)
+    bodies = {
+        "inner iteration": lambda h, s_: tcg.inner_iteration(it, op, h, s_),
+        "without the branch": lambda h, s_: (tcg.band(it, op, s_), tcg.rows(it, op, False, s_),
+                                             tcg.update_pack(it, op, h, s_)),
+        "in series": lambda h, s_: (tcg.band(it, op, s_), tcg.fly(it, op, s_),
+                                    tcg.blocks(it, op, False, s_), tcg.rows(it, op, False, s_),
+                                    tcg.update_pack(it, op, h, s_)),
+    }
+
+    def loop(body):
+        for f in ("x", "r", "p", "rz", "rr", "act", "iters", "ctl", "cond"):
+            getattr(it.cg, f).copy_(getattr(start.cg, f))
+        for f in ("xs32", "xw", "xm"):
+            getattr(it, f).copy_(getattr(start, f))
+        device_while(it.cg.cond, body)
+
+    out["body_ms_each"] = {}
+    for name, body in bodies.items():
+        g = Graph(lambda: loop(body), "cuda")
+        it.cg.total.zero_()
+        g()
+        n_it = int(it.cg.total)
+        check(n_it == tcg.INNER_MAXITER, f"the inner body's loop ran {n_it} iterations")
+        out["body_ms_each"][name] = time_ms(g, reps=1, rounds=3, warmup=1) / n_it
+        del g
     # the whole solve from a perturbed warm start: captured (two nested WHILE
     # nodes) and from the host loop, a replay and a call timed with CUDA
     # events, over the inner iterations the card counted
-    from devicekmc_tpu_torch.ops.graph import Graph
-
-    x0 = cap["x0"] * (1 + 1e-3 * torch.randn(cap["x0"].shape, generator=gen,
-                                             dtype=torch.float64).cuda())
+    x0 = x0_solve * (1 + 1e-3 * torch.randn(x0_solve.shape, generator=gen,
+                                            dtype=torch.float64).cuda())
     go = torch.ones(1, dtype=torch.bool, device="cuda")
     tol = sim.params.transport_tol
     solve_g = Graph(lambda: tcg.solve(tws, op, x0, go, tol, 20000), "cuda")
 
-    def timed(fn):
+    def timed_solve(fn):
         tws.cg.total.zero_()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1944,8 +2074,9 @@ def transport_cg_checks(sim, band):
         b.synchronize()
         return a.elapsed_time(b), int(tws.cg.total), int(tws.it_in), int(tws.it_out)
 
-    runs = {"graph": [timed(solve_g) for _ in range(3)],
-            "eager": [timed(lambda: tcg.solve(tws, op, x0, go, tol, 20000)) for _ in range(3)]}
+    runs = {"graph": [timed_solve(solve_g) for _ in range(3)],
+            "eager": [timed_solve(lambda: tcg.solve(tws, op, x0, go, tol, 20000))
+                      for _ in range(3)]}
     iters = {r[2] for rs in runs.values() for r in rs}
     check(len(iters) == 1, f"the solve's inner iterations differ between runs: {runs}")
     # both divided by the solve's inner iterations; the host loop's chunks
@@ -1957,20 +2088,27 @@ def transport_cg_checks(sim, band):
                                ms_per_inner=statistics.median(r[0] / r[2] for r in rs))
                     for name, rs in runs.items()}
     sg, se = out["solve"]["graph"], out["solve"]["eager"]
+    ce = out["body_ms_each"]
     log(f"the transport solve from a perturbed warm start: {sg['inner']} inner iterations in "
         f"{sg['rounds']} rounds; captured {sg['ms']:.3f} ms ({sg['ms_per_inner']:.4f} ms an "
         f"inner iteration, {sg['overshoot']} launched past convergence), from the host loop "
         f"{se['ms']:.3f} ms ({se['ms_per_inner']:.4f} ms an inner iteration, "
         f"{se['ms'] / sg['ms']:.4f}x the captured solve; {se['overshoot']} iterations launched "
-        "past convergence)")
-    shape = (f"Nsub={nsub}, n_mp={n_mp}, vacancy bucket {op.T_vm.shape[0]} ({nv} live), "
-             f"max_nn={max_nn}")
+        f"past convergence); an inner iteration inside a WHILE node "
+        f"{ce['inner iteration']:.5f} ms, without the branch (fly, transport_blocks) "
+        f"{ce['without the branch']:.5f} ms, every kernel in series {ce['in series']:.5f} ms: "
+        f"the branch beside the band costs "
+        f"{(ce['inner iteration'] - ce['without the branch']) * 1e3:.2f} us, in series "
+        f"{(ce['in series'] - ce['without the branch']) * 1e3:.2f} us")
+    shape = (f"Nsub={nsub}, n_mp={n_mp}, vacancy bucket {vcap} ({nv} live), "
+             f"max_nn={max_nn}, dots of {na - op.gnd_lo} and {op.nsi} terms")
     log(f"transport CG kernels at the path's shapes ({shape}): "
         + "; ".join(f"{name} {r['ms']:.5f} ms (bound {r['bound_ms']:.5f}, plain "
                     f"{r['plain_ms']:.4f}, err {r['err']:.3g})"
-                    for name, r in out.items() if isinstance(r, dict) and "ms" in r)
-        + f"; band out= {out['band_out_ms']:.5f} ms, fly out= {out['fly_out_ms']:.5f} ms, both "
-        "bit-equal to their allocating entries")
+                    for name, r in out.items() if isinstance(r, dict) and "bound_ms" in r)
+        + f"; the boundary build of cg_update_direction on the same state "
+        f"{out['update_pack']['boundary_ms']:.5f} ms; band out= {out['band_out_ms']:.5f} ms, "
+        f"fly out= {out['fly_out_ms']:.5f} ms, both bit-equal to their allocating entries")
     out["shape"] = shape
     return out
 
@@ -1980,23 +2118,37 @@ def transport_cg_records(k, launches):
     transport_cg_checks; ``launches``: the card's counts on the main
     path)."""
     src = "devicekmc_tpu_torch/csrc/transport_cg.cu"
+    none = "no one PyTorch call computes it"
     recs = []
-    for name, key, replaces, note in (
-            ("transport_pack", "pack_lo", "devicekmc_tpu/ops/cg.py:112",
-             "the inner direction into the band's window and the metal vector (f32)"),
-            ("transport_apply", "apply_lo", "devicekmc_tpu/ops/cg.py:112",
-             "the rest of A p after the band and the fly matvec, p.ap and alpha (f32)"),
-            ("transport_refine", "refine", "devicekmc_tpu/ops/cg.py:225",
-             "the end of a refinement round and the inner set-up")):
+    for name, key, source, replaces, note in (
+            ("transport_blocks", "blocks_lo", src, "devicekmc_tpu/ops/cg.py:112",
+             "the products that read the inner direction alone: T_vm x_m, T_vv x_v, "
+             "T_vm^T x_v, the bump, the virtual-node dots (f32), beside the band"),
+            ("transport_rows", "rows_lo", src, "devicekmc_tpu/ops/cg.py:112",
+             "every row of A p after the band, the fly matvec and transport_blocks, p.ap "
+             "and alpha (f32)"),
+            ("cg_update_direction_pack", "update_pack", "devicekmc_tpu_torch/csrc/boundary_cg.cu",
+             "devicekmc_tpu/ops/cg.py:112",
+             "the inner CG's update and direction (the transport build of "
+             "cg_update_direction), the new direction packed into the band's window and the "
+             "metal vector"),
+            ("transport_pack", "pack", src, "devicekmc_tpu/ops/cg.py:225",
+             "the round's correction of the iterate and its f64 scaled vector"),
+            ("transport_refine", "refine", src, "devicekmc_tpu/ops/cg.py:225",
+             "the end of a refinement round and the inner set-up, its direction packed")):
         r = k[key]
-        rec = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+        rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
-               "library_ms": None, "shape": k["shape"], "computes": note}
-        hi = {"pack_lo": "pack_hi", "apply_lo": "apply_hi"}.get(key)
+               "library_ms": None, "library_none": none, "shape": k["shape"],
+               "computes": note}
+        hi = {"blocks_lo": "blocks_hi", "rows_lo": "rows_hi"}.get(key)
         if hi:
             rec["f64_build"] = {f: k[hi][f] for f in ("err", "ms", "plain_ms", "bound_ms")}
+        if key == "update_pack":
+            rec["boundary_build_ms"] = r["boundary_ms"]
         recs.append(rec)
+    recs[0]["body_ms_each"] = k["body_ms_each"]
     recs[0]["solve"] = k["solve"]
     return recs
 
@@ -3754,7 +3906,42 @@ def update_direction_bytes(bcg, N, nb, per, itemsize=8):
     return 8 * itemsize * nb * N, 3 * itemsize * again
 
 
-def boundary_cg_path(sim, cg_launches, cg_launches_ensemble):
+def boundary_cg_graph(sim):
+    """Phase 11's captured boundary CG at the crossbar's boundary system (B =
+    1, the state after phase 3's runs, a warm start with seeded noise),
+    captured right after phase 3: torch.profiler records the WHILE body's
+    kernels of a graph captured then, and of one captured after the later
+    phases' graphs none (my chip runs PR 14).  Returns its inputs, the
+    workspace and the graph."""
+    import numpy as np
+    import torch
+
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.ops.graph import Graph
+    from devicekmc_tpu_torch.physics import potential as pot
+    from devicekmc_tpu_torch.state import stack_states
+
+    geom, params = sim.geom, sim.params
+    states = stack_states([sim.state])
+    interior = geom.bp_interior_mask
+    masks = (geom.bp_left_mask, geom.bp_right_mask, interior)
+    edge_g = pot._edge_conductance_boundary(geom, states, params)
+    b, matvec, diag, vals, pre = pot._dirichlet_system(geom, edge_g, -VD_MAIN / 2,
+                                                       VD_MAIN / 2, masks)
+    op = (diag, vals, geom.neigh_idx, interior)
+    rng = np.random.default_rng(7)
+    noise = torch.as_tensor(CG_NOISE * rng.standard_normal(geom.N), device="cuda")
+    x0 = torch.where(interior, states.potential_boundary + noise, 0.0)
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    tol = params.solver_tol
+    ws = bcg.workspace(1, geom.neigh_idx, interior, b.dtype, "cuda")
+    solve = Graph(lambda: bcg.cg_solve_device(op, b, x0, pre, tol, CG_MAXITER, active, ws),
+                  "cuda")
+    return dict(states=states, b=b, matvec=matvec, pre=pre, op=op, x0=x0, active=active,
+                tol=tol, ws=ws, solve=solve)
+
+
+def boundary_cg_path(sim, cg, cg_launches, cg_launches_ensemble):
     """Phase 11: the two boundary CG kernels at the crossbar's boundary
     system (B = 1, the state after phase 3's runs).  The device loop,
     captured with its WHILE node, against cg_solve_batched from the run's
@@ -3767,39 +3954,29 @@ def boundary_cg_path(sim, cg_launches, cg_launches_ensemble):
     CSR; cg_update_direction also at B = 8 and 32 (the replica copied),
     beside its bound and the bytes its blocks read again; the work a
     captured superstep adds in a step where no replica solves (assembly, CG
-    setup, residual) captured and timed.  Returns the kernels' records
-    (``cg_launches``, ``cg_launches_ensemble``: the device's iteration
-    count in phase 3's graph run and phase 10's main run)."""
+    setup, residual) captured and timed.  ``cg``: boundary_cg_graph's.
+    Returns the kernels' records (``cg_launches``, ``cg_launches_ensemble``:
+    the device's iteration count in phase 3's graph run and phase 10's main
+    run)."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from devicekmc_tpu_torch.ops import boundary_cg as bcg
     from devicekmc_tpu_torch.ops.cg import cg_solve_batched
     from devicekmc_tpu_torch.ops.graph import Graph
     from devicekmc_tpu_torch.physics import potential as pot
-    from devicekmc_tpu_torch.state import stack_states
 
     t_phase = time.perf_counter()
     geom, params = sim.geom, sim.params
-    states = stack_states([sim.state])
+    states, b, matvec, pre, op = cg["states"], cg["b"], cg["matvec"], cg["pre"], cg["op"]
+    diag, vals = op[0], op[1]
+    x0, active, tol, ws, solve = cg["x0"], cg["active"], cg["tol"], cg["ws"], cg["solve"]
     interior = geom.bp_interior_mask
     masks = (geom.bp_left_mask, geom.bp_right_mask, interior)
     vl, vr = -VD_MAIN / 2, VD_MAIN / 2
-    edge_g = pot._edge_conductance_boundary(geom, states, params)
-    b, matvec, diag, vals, pre = pot._dirichlet_system(geom, edge_g, vl, vr, masks)
-    op = (diag, vals, geom.neigh_idx, interior)
-    rng = np.random.default_rng(7)
-    noise = torch.as_tensor(CG_NOISE * rng.standard_normal(geom.N), device="cuda")
-    x0 = torch.where(interior, states.potential_boundary + noise, 0.0)
-    active = torch.ones(1, dtype=torch.bool, device="cuda")
-    tol = params.solver_tol
 
     ref = cg_solve_batched(matvec, b, x0, pre, tol=tol, maxiter=CG_MAXITER, active=active)
-    ws = bcg.workspace(1, geom.neigh_idx, interior, b.dtype, "cuda")
-    solve = Graph(lambda: bcg.cg_solve_device(op, b, x0, pre, tol, CG_MAXITER, active, ws),
-                  "cuda")
     res = solve()
     iters, iters_ref = int(res.iters[0]), int(ref.iters[0])
     x_err = rel_err(res.x, ref.x)
@@ -3997,6 +4174,7 @@ def main():
 
     run, draws_crossbar, event_record, kernels, (xsim, headline) = headline_path(out_root)
     torch.cuda.empty_cache()
+    boundary_cg = boundary_cg_graph(xsim)
     batched = crossbar_batched_check(out_root, run)
     torch.cuda.empty_cache()
     transport_launches, (presolve, steps, readbacks), tgraph, records = transport_path(
@@ -4055,7 +4233,8 @@ def main():
     kernels.append(event_record)
     kernels += batched_records((headline.pop("kernel_checks"), headline["launches_graph"]),
                                ensemble_checks)
-    cg_records, cg_summary = boundary_cg_path(xsim, headline["launches_graph"]["boundary_cg"],
+    cg_records, cg_summary = boundary_cg_path(xsim, boundary_cg,
+                                              headline["launches_graph"]["boundary_cg"],
                                               ensemble["cg_iterations_card"])
     del xsim
     torch.cuda.empty_cache()

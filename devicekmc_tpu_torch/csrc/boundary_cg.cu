@@ -19,7 +19,9 @@
 //   cg_matvec_dot        ap = A p and p.ap of each replica -> alpha = r.z / p.ap
 //   cg_update_direction  x += alpha p, r -= alpha ap, z = r / diag, r.z and
 //                        r.r -> beta, p = z + beta p, the new stop flags, the
-//                        loop's predicate
+//                        loop's predicate; its transport build (f32, B = 1)
+//                        also packs the new p as the transport CG's next
+//                        product reads it (ops/transport_cg.update_pack)
 //
 // Bound: bytes.  An iteration needs the operator's nonzeros (8 + 4 bytes
 // each in f64; 27.4 a row of the headline crossbar, 51 at most), the
@@ -65,6 +67,11 @@
 //     runs give the same bits, and a replica's bits do not depend on B;
 //   * a stopped replica's matvec blocks leave at once; its update tiles are
 //     skipped, but their blocks reach the barrier;
+//   * the transport build (a template flag) writes, from the p each row has
+//     just computed, xs[i] = dsi[i] p[i] (xs[n] = 0), the atom's slot of the
+//     band's window and of the metal vector (csrc/transport_cg.cu's inputs),
+//     so the transport CG's inner body needs no pack launch; the boundary
+//     builds read none of its pointers;
 //   * nothing allocates: every buffer comes from the caller, so the two
 //     launches can be captured into the body of a conditional node.
 
@@ -72,6 +79,7 @@
 #include <stdint.h>
 
 #include "grid_sync.cuh"
+#include "launch_count.cuh"
 #include "ticket.cuh"
 
 namespace {
@@ -249,6 +257,21 @@ __device__ __forceinline__ void tile_sums(const T* part, int n_tiles, T& s_rz, T
   s_rr = warp_sum(q);
 }
 
+// The transport CG's inner direction as its next product reads it
+// (transport build, B = 1, f32): the scaling dsi [n], the scaled vector xs
+// [n + 1], the band's zero-padded window xw (atom a at front + inv[a]) and
+// the metal vector xm (atom a at mp_inv[a] >= 0); row i is atom i - 2.
+struct PackArgs {
+  const float* dsi;
+  float* xs;
+  float* xw;
+  float* xm;
+  const int* inv;
+  const int* mp_inv;
+  int front;
+  unsigned long long* count;
+};
+
 // One launch after cg_matvec_dot: the update x += alpha p, r -= alpha ap,
 // z = r / diag with the partial sums of r.z and r.r, a barrier of the grid,
 // every block's sums, beta and the direction p = z + beta p.  The grid's
@@ -259,7 +282,8 @@ __device__ __forceinline__ void tile_sums(const T* part, int n_tiles, T& s_rz, T
 // tiles read r, minv and p again.  Block 0 writes every replica's r.z, r.r,
 // beta, count and flag, the loop's count and predicate and sets the WHILE
 // node's condition; the other blocks read act and rz before the barrier.
-template <typename T>
+// kPack (T float, B = 1): row i's new direction also packed (PackArgs).
+template <typename T, bool kPack>
 __global__ void __launch_bounds__(kThreads)
 cg_update_direction_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__ p,
                            const T* __restrict__ ap, const T* __restrict__ minv,
@@ -270,7 +294,9 @@ cg_update_direction_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__
                            T* __restrict__ part, unsigned* __restrict__ bar,
                            int* __restrict__ ctl, int* __restrict__ cond,
                            unsigned long long* __restrict__ total, unsigned long long handle,
-                           int n, int batch, int per, int maxiter) {
+                           int n, int batch, int per, int maxiter, const PackArgs pk) {
+  static_assert(!kPack || sizeof(T) == 4, "the transport build is f32");
+  if constexpr (kPack) count_launch(pk.count);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_tiles = (n + kTile - 1) / kTile;
   const int first = blockIdx.x * per, last = min(first + per, batch * n_tiles);
@@ -397,7 +423,18 @@ cg_update_direction_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__
       const int i = t * kTile + k * kThreads + threadIdx.x;
       if (i < n) {
         const size_t e = (size_t)b * n + i;
-        p[e] = w == first ? fma_rn(be, ph[k], zh[k]) : fma_rn(be, p[e], mul_rn(minv[e], r[e]));
+        const T pn =
+            w == first ? fma_rn(be, ph[k], zh[k]) : fma_rn(be, p[e], mul_rn(minv[e], r[e]));
+        p[e] = pn;
+        if constexpr (kPack) {
+          const float v = mul_rn(pk.dsi[i], pn);
+          pk.xs[i] = v;
+          if (i >= 2) {
+            pk.xw[pk.front + pk.inv[i - 2]] = v;
+            const int m = pk.mp_inv[i - 2];
+            if (m >= 0) pk.xm[m] = v;
+          }
+        }
       }
     }
   }
@@ -412,6 +449,7 @@ cg_update_direction_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__
     const int go = n_on > 0 && it < maxiter;
     cond[0] = go;
     *total += 1;
+    if constexpr (kPack) pk.xs[n] = 0.f;
     if (handle) cudaGraphSetConditional(handle, go);
   }
 }
@@ -420,18 +458,70 @@ bool bad_shape(int n, int m, int batch, int grid) {
   return n <= 0 || m <= 0 || batch <= 0 || batch > 65535 || grid <= 0;
 }
 
-// Blocks of cg_update_direction that the current card holds at once.
-int resident_blocks(bool f64) {
+// Blocks of a build of cg_update_direction that the current card holds at
+// once.
+template <typename K>
+int resident_blocks(K kernel) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess
-      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)
+             != cudaSuccess)
     return 0;
-  const cudaError_t err =
-      f64 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, cg_update_direction_kernel<double>, kThreads, 0)
-          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, cg_update_direction_kernel<float>, kThreads, 0);
-  return err == cudaSuccess ? per_sm * sms : 0;
+  return per_sm * sms;
+}
+
+// The grid of a build of cg_update_direction for B = batch replicas of n
+// rows: `per` consecutive (replica, tile) items a block, as few a block as
+// the resident blocks allow, and no block without one.
+// cudaErrorCooperativeLaunchTooLarge when no block is resident or a block's
+// items would span more than kMaxSpan replicas.
+template <typename K>
+int update_grid(K kernel, int n, int batch, int* grid, int* per) {
+  if (bad_shape(n, 1, batch, 1)) return (int)cudaErrorInvalidValue;
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  const long long items = batch * n_tiles;
+  const int cap = resident_blocks(kernel);
+  if (cap <= 0 || items > 0x7fffffffLL) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const long long pr = (items + cap - 1) / cap;
+  if ((pr + n_tiles - 2) / n_tiles + 1 > kMaxSpan)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  *per = (int)pr;
+  *grid = (int)((items + pr - 1) / pr);
+  return 0;
+}
+
+// A cooperative launch of a build of cg_update_direction (every block
+// resident at once, as the barrier needs) on the grid of update_grid.
+template <typename T, bool kPack>
+int launch_update(void* x, void* r, void* p, const void* ap, const void* minv, void* act,
+                  const void* act0, const void* alpha, void* beta, void* rz, void* rr,
+                  const void* thresh2, void* iters, void* part, void* bar, void* ctl,
+                  void* cond, void* total, unsigned long long handle, int n, int batch,
+                  int maxiter, const PackArgs& pk, void* stream) {
+  auto* kernel = cg_update_direction_kernel<T, kPack>;
+  int grid = 0, per = 0;
+  const int err = update_grid(kernel, n, batch, &grid, &per);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<T*>(x), static_cast<T*>(r), static_cast<T*>(p),
+      static_cast<const T*>(ap), static_cast<const T*>(minv), static_cast<unsigned char*>(act),
+      static_cast<const unsigned char*>(act0), static_cast<const T*>(alpha),
+      static_cast<T*>(beta), static_cast<T*>(rz), static_cast<T*>(rr),
+      static_cast<const T*>(thresh2), static_cast<long long*>(iters), static_cast<T*>(part),
+      static_cast<unsigned*>(bar), static_cast<int*>(ctl), static_cast<int*>(cond),
+      static_cast<unsigned long long*>(total), handle, n, batch, per, maxiter, pk);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -463,24 +553,12 @@ extern "C" int dkmc_cg_matvec_dot(int is_f64, const void* diag, const void* vals
 }
 
 
-// The grid of cg_update_direction for B = batch replicas of n rows: `per`
-// consecutive (replica, tile) items a block, as few a block as the resident
-// blocks allow, and no block without one.  cudaErrorCooperativeLaunchTooLarge
-// when no block is resident or a block's items would span more than
-// kMaxSpan replicas.
+// The grid of cg_update_direction (its f32 or f64 boundary build) for B =
+// batch replicas of n rows (update_grid).
 extern "C" int dkmc_cg_update_direction_grid(int is_f64, int n, int batch, int* grid,
                                              int* per) {
-  if (bad_shape(n, 1, batch, 1)) return (int)cudaErrorInvalidValue;
-  const long long n_tiles = (n + kTile - 1) / kTile;
-  const long long items = batch * n_tiles;
-  const int cap = resident_blocks(is_f64 != 0);
-  if (cap <= 0 || items > 0x7fffffffLL) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const long long pr = (items + cap - 1) / cap;
-  if ((pr + n_tiles - 2) / n_tiles + 1 > kMaxSpan)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
-  *per = (int)pr;
-  *grid = (int)((items + pr - 1) / pr);
-  return 0;
+  return is_f64 ? update_grid(cg_update_direction_kernel<double, false>, n, batch, grid, per)
+                : update_grid(cg_update_direction_kernel<float, false>, n, batch, grid, per);
 }
 
 extern "C" int dkmc_cg_update_direction(int is_f64, void* x, void* r, void* p, const void* ap,
@@ -490,43 +568,29 @@ extern "C" int dkmc_cg_update_direction(int is_f64, void* x, void* r, void* p, c
                                         void* bar, void* ctl, void* cond, void* total,
                                         unsigned long long handle, int n, int batch,
                                         int maxiter, void* stream) {
-  int grid = 0, per = 0;
-  const int err = dkmc_cg_update_direction_grid(is_f64, n, batch, &grid, &per);
-  if (err != 0) return err;
-  // a cooperative launch: every block resident at once, as the barrier needs
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  auto* a = static_cast<unsigned char*>(act);
-  const auto* a0 = static_cast<const unsigned char*>(act0);
-  auto* it = static_cast<long long*>(iters);
-  auto* b = static_cast<unsigned*>(bar);
-  auto* c = static_cast<int*>(ctl);
-  auto* cd = static_cast<int*>(cond);
-  auto* tot = static_cast<unsigned long long*>(total);
-  cudaError_t e;
-  if (is_f64)
-    e = cudaLaunchKernelEx(&cfg, cg_update_direction_kernel<double>, static_cast<double*>(x),
-                           static_cast<double*>(r), static_cast<double*>(p),
-                           static_cast<const double*>(ap), static_cast<const double*>(minv), a,
-                           a0, static_cast<const double*>(alpha), static_cast<double*>(beta),
-                           static_cast<double*>(rz), static_cast<double*>(rr),
-                           static_cast<const double*>(thresh2), it, static_cast<double*>(part),
-                           b, c, cd, tot, handle, n, batch, per, maxiter);
-  else
-    e = cudaLaunchKernelEx(&cfg, cg_update_direction_kernel<float>, static_cast<float*>(x),
-                           static_cast<float*>(r), static_cast<float*>(p),
-                           static_cast<const float*>(ap), static_cast<const float*>(minv), a,
-                           a0, static_cast<const float*>(alpha), static_cast<float*>(beta),
-                           static_cast<float*>(rz), static_cast<float*>(rr),
-                           static_cast<const float*>(thresh2), it, static_cast<float*>(part), b,
-                           c, cd, tot, handle, n, batch, per, maxiter);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  const PackArgs none = {};
+  auto launch = is_f64 ? launch_update<double, false> : launch_update<float, false>;
+  return launch(x, r, p, ap, minv, act, act0, alpha, beta, rz, rr, thresh2, iters,
+                part, bar, ctl, cond, total, handle, n, batch, maxiter, none, stream);
+}
+
+// The transport build (f32, one replica of n rows): the boundary build's
+// update and direction, and the new direction packed into xs, xw and xm.
+extern "C" int dkmc_cg_update_direction_pack(void* x, void* r, void* p, const void* ap,
+                                             const void* minv, void* act, const void* act0,
+                                             const void* alpha, void* beta, void* rz, void* rr,
+                                             const void* thresh2, void* iters, void* part,
+                                             void* bar, void* ctl, void* cond, void* total,
+                                             unsigned long long handle, int n, int maxiter,
+                                             const void* dsi, void* xs, void* xw, void* xm,
+                                             const void* inv, const void* mp_inv, int front,
+                                             void* count, void* stream) {
+  if (n < 2) return (int)cudaErrorInvalidValue;
+  const PackArgs pk = {static_cast<const float*>(dsi), static_cast<float*>(xs),
+                       static_cast<float*>(xw), static_cast<float*>(xm),
+                       static_cast<const int*>(inv), static_cast<const int*>(mp_inv), front,
+                       static_cast<unsigned long long*>(count)};
+  return launch_update<float, true>(x, r, p, ap, minv, act, act0, alpha, beta, rz, rr, thresh2,
+                                    iters, part, bar, ctl, cond, total, handle, n, 1, maxiter,
+                                    pk, stream);
 }

@@ -13,49 +13,64 @@
 // (csrc/wkb_fly.cu), the vacancy blocks T_vm [vcap, n_mp] and T_vv [vcap,
 // vcap] (f32), the virtual-node rows and the exact diagonal.
 //
-//   transport_pack    the scaled vector x = dsi * v into the full layout,
-//                     the band's zero-padded window (through the band's
-//                     inverse permutation) and the metal vector the fly
-//                     kernel reads; the f64 build first adds the finished
-//                     round's correction, x += f64(inner x) * scale
-//   transport_apply   the rest of the product, one cooperative launch: the
-//                     three vacancy-block products and the bump, the two
-//                     virtual-node dots; a barrier of the grid; every row
-//                     (band or ELL part, bump, metal block through mp_inv,
-//                     vacancy blocks through the bucket slot, virtual rows,
-//                     diagonal, dsi); the f32 build writes ap and
-//                     alpha = r.z / p.ap (the inner CG's step, as
-//                     cg_matvec_dot does), the f64 build r = b - A x and r.r
+//   transport_blocks  every part of the product that reads the packed
+//                     vector alone: T_vm x_m, T_vv x_v, the columns
+//                     T_vm^T x_v, the bump over the bucket's neighbours
+//                     (f32 build) and the two virtual-node dots; it runs on
+//                     a branch beside the band (ops/transport_cg.products)
+//   transport_rows    every row (band or ELL part, bump, metal row through
+//                     mp_inv, vacancy slot, virtual rows, diagonal, dsi);
+//                     the f32 build writes ap and alpha = r.z / p.ap (the
+//                     inner CG's step, as cg_matvec_dot does), the f64
+//                     build r = b - A x and r.r
+//   transport_pack    the refinement's iterate: x += f64(inner x) scale (the
+//                     finished round's correction), then the scaled vector
+//                     xs = dsi * x and its f32 metal part
 //   transport_refine  the end of a round (and the set-up): ||r||, the
 //                     rounds and inner iterations counted, the outer
 //                     predicate (also the outer WHILE node's condition), the
 //                     scale, b_in = f32(r / scale), the round's tolerance
-//                     and the inner CG's set-up (x = 0, r = p = b_in, r.r,
-//                     its threshold and predicate); a barrier of the grid
+//                     and the inner CG's set-up (x = 0, r = p = b_in, p
+//                     packed as the inner product reads it, r.r, its
+//                     threshold and predicate); a barrier of the grid
 //                     between the sum of b_in.b_in's tiles and its use
 //
 // The inner update and direction is boundary_cg.cu's cg_update_direction
-// kernel (f32, B = 1) with the inverse diagonal 1: the system is Jacobi-
-// scaled, so z = r and r.z is r.r bit for bit.
+// kernel (f32, B = 1) in its transport build, with the inverse diagonal 1
+// (the system is Jacobi-scaled, so z = r and r.z is r.r bit for bit): it
+// also packs the new direction (xs = dsi p, the band's window, the metal
+// vector), so the inner body is band | (fly, transport_blocks), then
+// transport_rows, then the update.
 //
 // Bound: bytes.  An inner iteration reads the band (static, about 2 GB at
-// the crossbar's width: its own kernel), the vacancy blocks twice (rows and
-// columns, 14.4 + 4.2 MB at a bucket of 1,024 and 3,527 metal atoms) and a
-// few [N] vectors; the rest is small.
+// the crossbar's width: its own kernel), the vacancy blocks' live rows once
+// (8.1 + 1.3 MB at 572 live slots and 3,527 metal atoms) and a few [N]
+// vectors; the rest is small.
 // Design:
 //
-//   * every row is written by one thread, every sum has a fixed order and
-//     no float atomics are used: a block product's sums in a warp's lanes in
-//     order then a butterfly; the T_vm^T x_v columns in chunks of rows whose
-//     partial sums have slots of their own, added in chunk order by the
-//     row's thread; tile partial sums of 512 rows added in tile order by
-//     the block that draws the last ticket; two runs give the same bits;
+//   * transport_blocks reads each live element of T_vm once for both of its
+//     products: a block takes a tile of kBlockRows rows x kBlockCols
+//     columns, a warp kRowsPerWarp rows, a lane kColsPerLane columns (all
+//     kRowsPerWarp x kColsPerLane loads issued before any is used); the
+//     tile's x_v is gathered into shared memory once a block; the rows'
+//     partial sums (one a column tile) and the columns' (one a live row
+//     tile) go to slots of their own, and the block that draws a column
+//     tile's or a row tile's last ticket (csrc/ticket.cuh) adds them in tile
+//     order, so that a metal row later reads one value; row tiles past the
+//     bucket's live slots (n_vac, on the device) leave at once, so the
+//     column sums fit the live rows; T_vv's rows a warp each, 8 loads a lane
+//     in flight against x_v in shared memory; the dots a block each;
+//   * transport_rows takes one row a thread in tiles of kThreads rows (the
+//     grid covers the card: 304 blocks at the crossbar's 77,617 rows), the
+//     f64 build's ELL row in passes of kEll slots whose loads are all
+//     issued before the first is used; the tiles' partial sums are added in
+//     tile order by the block that draws the last ticket;
+//   * every sum has a fixed order and no float atomics are used: two runs
+//     give the same bits;
 //   * the row arithmetic spells out each rounding (products rounded on
 //     their own, then added) in the order of the plain version, so that a
 //     row differs from it only through the sums that reduce in another
 //     order;
-//   * a slot past the bucket's live vacancies (n_vac, on the device) is
-//     skipped: its rows and columns of the blocks are zeros;
 //   * nothing allocates: every buffer comes from the caller, so the
 //     launches can be captured into the body of a WHILE node.
 
@@ -72,12 +87,21 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// row tiles of kTile rows, kRows a thread (rows k kThreads + threadIdx.x of
-// the tile), whose partial sums have a slot of their own
+// transport_refine: tiles of kTile rows, kRows a thread (rows k kThreads +
+// threadIdx.x of the tile), whose partial sums have a slot of their own
 constexpr int kRows = 2;
 constexpr int kTile = kThreads * kRows;
-// chunks of the bucket's rows in the T_vm^T x_v column sums
-constexpr int kColChunks = 32;
+// transport_blocks: tiles of T_vm of kBlockRows x kBlockCols, kRowsPerWarp
+// rows a warp and kColsPerLane columns a lane (lane l: l, l + 32, ...)
+constexpr int kRowsPerWarp = 4;
+constexpr int kBlockRows = kWarps * kRowsPerWarp;
+constexpr int kColsPerLane = 4;
+constexpr int kBlockCols = 32 * kColsPerLane;
+// transport_blocks: T_vv's loads in flight a lane, and the tile sums'
+constexpr int kVvLoads = 8;
+constexpr int kSumLoads = 8;
+// transport_rows (f64): ELL slots a pass, their loads issued together
+constexpr int kEll = 8;
 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -130,81 +154,305 @@ __device__ __forceinline__ T block_sum(T v, T* s_warp) {
   return sum;
 }
 
+// The sum of slots q, q + lanes, ... below count of a column of partial sums
+// (base[k stride], written by other blocks: read past L1), in order, with
+// kSumLoads loads in flight; 0 unless `on`.
+__device__ __forceinline__ float sum_strided(const float* base, size_t stride, int q,
+                                             int lanes, int count, bool on) {
+  float a = 0.f;
+  if (!on) return a;
+  for (int k0 = q; k0 < count; k0 += lanes * kSumLoads) {
+    float v[kSumLoads];
+#pragma unroll
+    for (int u = 0; u < kSumLoads; ++u) {
+      const int k = k0 + u * lanes;
+      v[u] = k < count ? __ldcg(base + (size_t)k * stride) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kSumLoads; ++u) a += v[u];
+  }
+  return a;
+}
+
 // ----------------------------------------------------------------------------
-// transport_pack
+// transport_pack (f64)
 // ----------------------------------------------------------------------------
 
-// Thread i of [0, n_full): the scaled full vector xs[i] = dsi[i] v[i] (0 on
-// the grounded last atom, i = nsub), its atom's slot of the band's window
-// (xw[front + inv[a]], a = i - 2; lo only) and of the metal vector (xm[k],
-// k = mp_inv[a]).  hi: v is x + f64(xi) scale (the round's correction,
-// written back to x; `first`: x as it is).
-template <typename T>
+// Thread i of [0, n_full): the corrected iterate x[i] += f64(xi[i]) scale
+// (`first`: x as it is), the scaled full vector xs[i] = dsi[i] x[i] (0 on
+// the grounded last atom, i = nsub) and its atom's slot of the metal vector
+// (xm[k], k = mp_inv[a], a = i - 2).
 __global__ void __launch_bounds__(kThreads)
-transport_pack_kernel(const T* __restrict__ dsi, const float* __restrict__ p, T* __restrict__ x,
+transport_pack_kernel(const double* __restrict__ dsi, double* __restrict__ x,
                       const float* __restrict__ xi, const double* __restrict__ scale, int first,
-                      const int* __restrict__ inv, const int* __restrict__ mp_inv, int front,
-                      int nsub, int n_full, T* __restrict__ xs, float* __restrict__ xw,
-                      float* __restrict__ xm, unsigned long long* count) {
+                      const int* __restrict__ mp_inv, int nsub, int n_full,
+                      double* __restrict__ xs, float* __restrict__ xm,
+                      unsigned long long* count) {
   count_launch(count);
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_full) return;
-  T v = T(0);
+  double v = 0;
   if (i < nsub) {
-    if (sizeof(T) == 4) {
-      v = mul_rn(dsi[i], (T)p[i]);
-    } else {
-      T xv = x[i];
-      if (!first) {
-        xv = add_rn(xv, mul_rn((T)xi[i], (T)scale[0]));
-        x[i] = xv;
-      }
-      v = mul_rn(dsi[i], xv);
+    double xv = x[i];
+    if (!first) {
+      xv = add_rn(xv, mul_rn((double)xi[i], scale[0]));
+      x[i] = xv;
     }
+    v = mul_rn(dsi[i], xv);
   }
   xs[i] = v;
   if (i < 2) return;
-  const int a = i - 2;
-  if (xw != nullptr) xw[front + inv[a]] = (float)v;
-  const int k = mp_inv[a];
+  const int k = mp_inv[i - 2];
   if (k >= 0) xm[k] = (float)v;
 }
 
 // ----------------------------------------------------------------------------
-// transport_apply
+// transport_blocks
 // ----------------------------------------------------------------------------
 
 template <typename T>
-struct ApplyArgs {
+struct BlocksArgs {
   // the scaled vector [n_full] and its f32 metal part [n_mp]
   const T* xs;
   const float* xm;
-  // lo: the band's product in its permuted layout and the inverse
-  // permutation [na]; the bump's values [vcap, max_nn] (f32)
-  const float* band_y;
-  const int* inv;
-  const float* dyn;
-  // hi: the ELL neighbour conductances [na, max_nn] (f64)
-  const double* nbv;
-  // the atom graph [na, max_nn] (int32, pad -1)
-  const int* anb;
-  // the vacancy blocks and the bucket
+  // the vacancy blocks, the bucket and its live count
   const float* T_vm;
   const float* T_vv;
   const int* vidx;
-  const int* vslot;
   const int* n_vac;
+  // lo: the bump's values [vcap, max_nn] (f32) over the atom graph [na,
+  // max_nn] (int32, pad -1)
+  const float* dyn;
+  const int* anb;
+  // the virtual rows: gnd nonzero on atoms gnd_lo .. na - 1, src on 0 ..
+  // nsi - 1
+  const T* gnd;
+  const T* src;
+  int gnd_lo, nsi, na, max_nn, vcap, n_mp;
+  // out: the column sums T_vm^T x_v [n_mp], T_vm x_m, T_vv x_v and the bump
+  // [vcap] (f32), the dots [2]
+  float* mv;
+  float* y_vm;
+  float* y_vv;
+  float* y_bump;
+  T* dots;
+  // scratch: the column tiles' partial sums [n_rt, n_mp], the row tiles'
+  // [n_ct, vcap], the tickets [n_ct + n_rt] (column tiles, then row tiles)
+  float* col_part;
+  float* row_part;
+  int* tickets;
+  unsigned long long* count;
+};
+
+// Blocks: the gnd and the src dot; n_vb = ceil(vcap / kWarps) blocks of the
+// bump and n_vb of T_vv's rows, a warp a slot; then the n_rt n_ct tiles of
+// T_vm (row tile rt = t / n_ct, column tile ct = t % n_ct): the short
+// latency-bound kinds first, so that they start in the first wave.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T> A) {
+  count_launch(A.count);
+  constexpr bool kLo = sizeof(T) == 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nv = min(*A.n_vac, A.vcap);
+  const int n_ct = (A.n_mp + kBlockCols - 1) / kBlockCols;
+  const int n_rt = (A.vcap + kBlockRows - 1) / kBlockRows;
+  const int n_vb = (A.vcap + kWarps - 1) / kWarps;
+  const int n_small = 2 + 2 * n_vb;
+  const int b = blockIdx.x;
+  __shared__ float s_xv[kBlockRows];
+  __shared__ float s_cp[kWarps][kBlockCols];  // (and the column sums' halves)
+  __shared__ T s_warp[kWarps];
+  __shared__ int s_flag;
+  extern __shared__ float s_xall[];
+
+  if (b >= n_small) {
+    // a tile of T_vm: its elements once, for the rows' T_vm x_m and the
+    // columns' T_vm^T x_v
+    const int tile = b - n_small, rt = tile / n_ct, ct = tile - rt * n_ct;
+    const int r0 = rt * kBlockRows, c0 = ct * kBlockCols;
+    const int n_live = (nv + kBlockRows - 1) / kBlockRows;
+    if (r0 >= nv) {
+      // no live slot: the first row tile leaves zero column sums
+      if (rt == 0 && threadIdx.x < kBlockCols && c0 + (int)threadIdx.x < A.n_mp)
+        A.mv[c0 + threadIdx.x] = 0.f;
+      return;
+    }
+    float t[kRowsPerWarp][kColsPerLane], xm[kColsPerLane];
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp; ++j) {
+      const int s = r0 + warp * kRowsPerWarp + j;
+#pragma unroll
+      for (int q = 0; q < kColsPerLane; ++q) {
+        const int col = c0 + lane + 32 * q;
+        t[j][q] = s < nv && col < A.n_mp ? __ldg(A.T_vm + (size_t)s * A.n_mp + col) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kColsPerLane; ++q) {
+      const int col = c0 + lane + 32 * q;
+      xm[q] = col < A.n_mp ? __ldg(A.xm + col) : 0.f;
+    }
+    if (threadIdx.x < kBlockRows) {
+      const int s = r0 + threadIdx.x;
+      s_xv[threadIdx.x] = s < nv ? (float)A.xs[A.vidx[s] + 2] : 0.f;
+    }
+    // each row's partial T_vm x_m over the tile's columns: a lane's columns
+    // in order, then the warp's butterfly
+#pragma unroll
+    for (int j = 0; j < kRowsPerWarp; ++j) {
+      float a = 0.f;
+#pragma unroll
+      for (int q = 0; q < kColsPerLane; ++q) a = fma_rn(t[j][q], xm[q], a);
+      a = warp_sum(a);
+      const int s = r0 + warp * kRowsPerWarp + j;
+      if (lane == 0 && s < nv) A.row_part[(size_t)ct * A.vcap + s] = a;
+    }
+    __syncthreads();
+    // each column's partial T_vm^T x_v over the tile's rows: a warp's rows
+    // in order, then the warps in order
+#pragma unroll
+    for (int q = 0; q < kColsPerLane; ++q) {
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < kRowsPerWarp; ++j)
+        a = fma_rn(s_xv[warp * kRowsPerWarp + j], t[j][q], a);
+      s_cp[warp][lane + 32 * q] = a;
+    }
+    __syncthreads();
+    const int col = c0 + threadIdx.x;
+    if (threadIdx.x < kBlockCols && col < A.n_mp) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) a += s_cp[w][threadIdx.x];
+      A.col_part[(size_t)rt * A.n_mp + col] = a;
+    }
+    // the column tile's last live row tile: its columns' sums over the row
+    // tiles, kSumLanes threads a column (thread q of a column: tiles q, q +
+    // kSumLanes, ... in order), then those in order; the row tile's last
+    // column tile: its rows' over the column tiles, alike
+    if (last_ticket(A.tickets, ct, n_live, &s_flag)) {
+      constexpr int kLanes = kThreads / kBlockCols;
+      const int c = threadIdx.x % kBlockCols, q = threadIdx.x / kBlockCols;
+      const float a = sum_strided(A.col_part + c0 + c, A.n_mp, q, kLanes, n_live,
+                                  c0 + c < A.n_mp);
+      s_cp[q][c] = a;
+      __syncthreads();
+      if (threadIdx.x < kBlockCols && col < A.n_mp) {
+        float t = 0.f;
+#pragma unroll
+        for (int k = 0; k < kLanes; ++k) t += s_cp[k][threadIdx.x];
+        A.mv[col] = t;
+      }
+    }
+    if (last_ticket(A.tickets, n_ct + rt, n_ct, &s_flag)) {
+      constexpr int kLanes = kThreads / kBlockRows;
+      const int j = threadIdx.x / kLanes, q = threadIdx.x % kLanes, s = r0 + j;
+      float a = sum_strided(A.row_part + s, A.vcap, q, kLanes, n_ct, s < nv);
+#pragma unroll
+      for (int o = 1; o < kLanes; o <<= 1) a += __shfl_down_sync(0xffffffffu, a, o, kLanes);
+      if (q == 0 && s < nv) A.y_vm[s] = a;
+    }
+    return;
+  }
+
+  if (b >= 2 + n_vb) {
+    // a warp a slot: T_vv's row against x_v gathered into shared memory
+    // once a block, the row's first loads issued before the gather
+    const int s0 = (b - 2 - n_vb) * kWarps, s = s0 + warp;
+    if (s0 >= nv) return;
+    const float* row = A.T_vv + (size_t)s * A.vcap;
+    float v[kVvLoads];
+#pragma unroll
+    for (int u = 0; u < kVvLoads; ++u) {
+      const int j = lane + 32 * u;
+      v[u] = s < nv && j < nv ? __ldg(row + j) : 0.f;
+    }
+    for (int j = threadIdx.x; j < nv; j += kThreads) s_xall[j] = (float)A.xs[A.vidx[j] + 2];
+    __syncthreads();
+    if (s >= nv) return;
+    float c = 0.f;
+    for (int j0 = 0; j0 < nv; j0 += 32 * kVvLoads) {
+      if (j0 > 0) {
+#pragma unroll
+        for (int u = 0; u < kVvLoads; ++u) {
+          const int j = j0 + lane + 32 * u;
+          v[u] = j < nv ? __ldg(row + j) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kVvLoads; ++u) {
+        const int j = j0 + lane + 32 * u;
+        if (j < nv) c = fma_rn(v[u], s_xall[j], c);
+      }
+    }
+    c = warp_sum(c);
+    if (lane == 0) A.y_vv[s] = c;
+    return;
+  }
+
+  if (b >= 2) {
+    // lo: a warp a slot, the bump over the slot's neighbours
+    const int s = (b - 2) * kWarps + warp;
+    if (!kLo || s >= nv) return;
+    const int* nb = A.anb + (size_t)A.vidx[s] * A.max_nn;
+    const float* dv = A.dyn + (size_t)s * A.max_nn;
+    float d = 0.f;
+    for (int k = lane; k < A.max_nn; k += 32) {
+      const int j = nb[k];
+      d = fma_rn(dv[k], (float)A.xs[(j < 0 ? 0 : j) + 2], d);
+    }
+    d = warp_sum(d);
+    if (lane == 0) A.y_bump[s] = d;
+    return;
+  }
+
+  // the virtual nodes' rows: gnd . xa over its nonzero range (atoms past
+  // na - num_ground_ext), src . xa over the first nsi atoms; a block each,
+  // the threads' terms in order, then the block's sum
+  const bool is_gnd = b == 0;
+  const int a0 = is_gnd ? A.gnd_lo : 0, a1 = is_gnd ? A.na : A.nsi;
+  const T* w = is_gnd ? A.gnd : A.src;
+  T acc = 0;
+#pragma unroll 4
+  for (int a = a0 + threadIdx.x; a < a1; a += kThreads) acc = fma_rn(w[a], A.xs[a + 2], acc);
+  const T sum = block_sum(acc, s_warp);
+  if (threadIdx.x == 0) A.dots[is_gnd ? 0 : 1] = sum;
+}
+
+// ----------------------------------------------------------------------------
+// transport_rows
+// ----------------------------------------------------------------------------
+
+template <typename T>
+struct RowsArgs {
+  // the scaled vector [n_full]
+  const T* xs;
+  // lo: the band's product in its permuted layout and the inverse
+  // permutation [na]; the bump [vcap]
+  const float* band_y;
+  const int* inv;
+  const float* y_bump;
+  // hi: the ELL neighbour conductances [na, max_nn] (f64) over the atom
+  // graph [na, max_nn] (int32, pad -1)
+  const double* nbv;
+  const int* anb;
+  // each atom's bucket slot and metal slot (-1: none)
+  const int* vslot;
   const int* mp_inv;
-  // the fly kernel's product [n_mp] (f32)
+  // the fly kernel's product [n_mp] and transport_blocks': the column sums
+  // [n_mp], T_vm x_m and T_vv x_v [vcap] (f32), the dots [2]
   const float* y_cc;
+  const float* mv;
+  const float* y_vm;
+  const float* y_vv;
+  const T* dots;
   // virtual rows, diagonal and scaling in the working type
   const T* gnd;
   const T* src;
   const T* diag;
   const T* dsi;
   double loop_G;
-  int gnd_lo, nsi;
-  int na, nsub, max_nn, vcap, n_mp;
+  int na, nsub, max_nn;
   // lo: the inner CG's direction, product, r.z, step and flag
   const float* p;
   float* ap;
@@ -215,148 +463,79 @@ struct ApplyArgs {
   const double* b;
   double* r;
   double* rsum;
-  // scratch: the products of the vacancy blocks and the bump [vcap], the
-  // column sums' chunks [kColChunks, n_mp], the two virtual-node dots, the
-  // tiles' partial sums, the ticket, the barrier
-  float* y_vm;
-  float* y_vv;
-  float* y_bump;
-  float* mv_part;
-  T* dots;
+  // scratch: the tiles' partial sums, the ticket
   T* part;
   int* ticket;
-  unsigned* bar;
   unsigned long long* count;
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) transport_apply_kernel(ApplyArgs<T> A) {
+__global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs<T> A) {
   count_launch(A.count);
   constexpr bool kLo = sizeof(T) == 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nv = min(*A.n_vac, A.vcap);
-  const int col_groups = (A.n_mp + 31) / 32;
-  const int rows_per_chunk = (A.vcap + kColChunks - 1) / kColChunks;
-  const int n_tasks = A.vcap + col_groups * kColChunks + 2;
-  auto xv_of = [&](int s) { return (float)A.xs[A.vidx[s] + 2]; };
-
-  // 1. the block products, one task a warp
-  for (int task = blockIdx.x * kWarps + warp; task < n_tasks; task += gridDim.x * kWarps) {
-    if (task < A.vcap) {
-      const int s = task;
-      if (s >= nv) continue;
-      const float* row = A.T_vm + (size_t)s * A.n_mp;
-      float a = 0.f;
-      for (int k = lane; k < A.n_mp; k += 32) a = fma_rn(__ldg(row + k), __ldg(A.xm + k), a);
-      a = warp_sum(a);
-      const float* rvv = A.T_vv + (size_t)s * A.vcap;
-      float c = 0.f;
-      for (int j = lane; j < nv; j += 32) c = fma_rn(__ldg(rvv + j), xv_of(j), c);
-      c = warp_sum(c);
-      float d = 0.f;
-      if (kLo) {
-        const int* nb = A.anb + (size_t)A.vidx[s] * A.max_nn;
-        const float* dv = A.dyn + (size_t)s * A.max_nn;
-        for (int k = lane; k < A.max_nn; k += 32) {
-          const int j = nb[k];
-          d = fma_rn(dv[k], (float)A.xs[(j < 0 ? 0 : j) + 2], d);
-        }
-        d = warp_sum(d);
-      }
-      if (lane == 0) {
-        A.y_vm[s] = a;
-        A.y_vv[s] = c;
-        if (kLo) A.y_bump[s] = d;
-      }
-    } else if (task < A.vcap + col_groups * kColChunks) {
-      const int t = task - A.vcap;
-      const int g = t / kColChunks, q = t % kColChunks;
-      const int col = g * 32 + lane;
-      const int s0 = q * rows_per_chunk, s1 = min(s0 + rows_per_chunk, nv);
-      if (col < A.n_mp) {
-        float acc = 0.f;
-        for (int s = s0; s < s1; ++s)
-          acc = fma_rn(xv_of(s), __ldg(A.T_vm + (size_t)s * A.n_mp + col), acc);
-        A.mv_part[(size_t)q * A.n_mp + col] = acc;
-      }
-    } else {
-      // the virtual nodes' rows: gnd . xa over its nonzero range (atoms
-      // past na - num_ground_ext), src . xa over the first nsi atoms
-      const bool is_gnd = task == n_tasks - 2;
-      const int a0 = is_gnd ? A.gnd_lo : 0, a1 = is_gnd ? A.na : A.nsi;
-      const T* w = is_gnd ? A.gnd : A.src;
-      T acc = 0;
-      for (int a = a0 + lane; a < a1; a += 32) acc = fma_rn(w[a], A.xs[a + 2], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) A.dots[is_gnd ? 0 : 1] = acc;
-    }
-  }
-
-  grid_barrier(A.bar);
-
-  // 2. the rows, a tile of kTile at a time, and the tile's partial sum
   __shared__ T s_warp[kWarps];
   __shared__ int s_flag;
-  const int n_tiles = (A.nsub + kTile - 1) / kTile;
-  const T x0 = A.xs[0], x1 = A.xs[1];
-  const T lg = (T)A.loop_G;
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    T acc = 0;
-#pragma unroll
-    for (int kk = 0; kk < kRows; ++kk) {
-      const int i = t * kTile + kk * kThreads + threadIdx.x;
-      if (i >= A.nsub) continue;
-      T y;
-      if (i >= 2) {
-        const int a = i - 2;
-        if (kLo) {
-          y = (T)__ldcg(A.band_y + A.inv[a]);
-        } else {
-          y = 0;
-          const int* nb = A.anb + (size_t)a * A.max_nn;
-          const double* nv_ = A.nbv + (size_t)a * A.max_nn;
-          for (int k = 0; k < A.max_nn; ++k) {
-            const int j = nb[k];
-            if (j >= 0) y = fma_rn((T)nv_[k], A.xs[j + 2], y);
-          }
-        }
-        const int s = A.vslot[a];
-        if (kLo && s >= 0) y = add_rn(y, (T)__ldcg(A.y_bump + s));
-        const int k = A.mp_inv[a];
-        T tm = 0;
-        if (k >= 0) {
-          float mv = 0.f;
-          for (int q = 0; q < kColChunks; ++q) mv += __ldcg(A.mv_part + (size_t)q * A.n_mp + k);
-          tm = add_rn((T)A.y_cc[k], (T)mv);
-        }
-        y = add_rn(y, tm);
-        if (s >= 0) y = add_rn(y, add_rn((T)__ldcg(A.y_vv + s), (T)__ldcg(A.y_vm + s)));
-        y = add_rn(y, mul_rn(A.gnd[a], x0));
-        y = add_rn(y, mul_rn(A.src[a], x1));
-      } else if (i == 0) {
-        y = sub_rn(__ldcg(A.dots + 0), mul_rn(lg, x1));
-      } else {
-        y = sub_rn(__ldcg(A.dots + 1), mul_rn(lg, x0));
-      }
-      y = add_rn(y, mul_rn(A.diag[i], A.xs[i]));
-      const T v = mul_rn(A.dsi[i], y);
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  T acc = 0;
+  if (i < A.nsub) {
+    const T x0 = A.xs[0], x1 = A.xs[1];
+    T y;
+    if (i >= 2) {
+      const int a = i - 2;
       if (kLo) {
-        A.ap[i] = (float)v;
-        acc = fma_rn((T)A.p[i], v, acc);
+        y = (T)__ldcg(A.band_y + A.inv[a]);
       } else {
-        const T rr = sub_rn((T)A.b[i], v);
-        A.r[i] = (double)rr;
-        acc = fma_rn(rr, rr, acc);
+        y = 0;
+        const int* nb = A.anb + (size_t)a * A.max_nn;
+        const double* nv_ = A.nbv + (size_t)a * A.max_nn;
+        for (int k0 = 0; k0 < A.max_nn; k0 += kEll) {
+          int j[kEll];
+          T w[kEll], xv[kEll];
+#pragma unroll
+          for (int u = 0; u < kEll; ++u) {
+            const int k = k0 + u;
+            j[u] = k < A.max_nn ? nb[k] : -1;
+            w[u] = k < A.max_nn ? (T)nv_[k] : T(0);
+          }
+#pragma unroll
+          for (int u = 0; u < kEll; ++u) xv[u] = j[u] >= 0 ? A.xs[j[u] + 2] : T(0);
+#pragma unroll
+          for (int u = 0; u < kEll; ++u)
+            if (j[u] >= 0) y = fma_rn(w[u], xv[u], y);
+        }
       }
+      const int s = A.vslot[a];
+      if (kLo && s >= 0) y = add_rn(y, (T)__ldcg(A.y_bump + s));
+      const int k = A.mp_inv[a];
+      T tm = 0;
+      if (k >= 0) tm = add_rn((T)A.y_cc[k], (T)__ldcg(A.mv + k));
+      y = add_rn(y, tm);
+      if (s >= 0) y = add_rn(y, add_rn((T)__ldcg(A.y_vv + s), (T)__ldcg(A.y_vm + s)));
+      y = add_rn(y, mul_rn(A.gnd[a], x0));
+      y = add_rn(y, mul_rn(A.src[a], x1));
+    } else {
+      const T lg = (T)A.loop_G;
+      y = i == 0 ? sub_rn(__ldcg(A.dots + 0), mul_rn(lg, x1))
+                 : sub_rn(__ldcg(A.dots + 1), mul_rn(lg, x0));
     }
-    const T sum = block_sum(acc, s_warp);
-    if (threadIdx.x == 0) A.part[t] = sum;
+    y = add_rn(y, mul_rn(A.diag[i], A.xs[i]));
+    const T v = mul_rn(A.dsi[i], y);
+    if (kLo) {
+      A.ap[i] = (float)v;
+      acc = fma_rn((T)A.p[i], v, acc);
+    } else {
+      const T rr = sub_rn((T)A.b[i], v);
+      A.r[i] = (double)rr;
+      acc = fma_rn(rr, rr, acc);
+    }
   }
+  const T sum = block_sum(acc, s_warp);
+  if (threadIdx.x == 0) A.part[blockIdx.x] = sum;
 
-  // 3. the tiles' sums in tile order, by the block that draws the last
+  // the tiles' sums in tile order, by the block that draws the last
   // ticket: alpha (lo, while the inner CG iterates) or r.r (hi)
   if (!last_ticket(A.ticket, 0, gridDim.x, &s_flag)) return;
-  const T total = sum_partials(A.part, n_tiles, s_warp);
+  const T total = sum_partials(A.part, gridDim.x, s_warp);
   if (threadIdx.x == 0) {
     if (kLo) {
       if (A.act[0]) A.alpha[0] = total != T(0) ? (float)(A.rz[0] / (float)total) : 0.f;
@@ -396,6 +575,16 @@ struct RefineArgs {
   long long* iters;
   int* ctl;
   int* cond_in;
+  // the direction packed as the inner product reads it: the f32 scaling,
+  // the scaled vector [n_full], the band's window through the inverse
+  // permutation (front: its leading zeros) and the metal vector
+  const float* dsi;
+  float* xs;
+  float* xw;
+  float* xm;
+  const int* inv;
+  const int* mp_inv;
+  int front;
   // scratch: the tiles' partial sums of b_in . b_in and the barrier
   float* part;
   unsigned* bar;
@@ -420,8 +609,8 @@ __global__ void __launch_bounds__(kThreads) transport_refine_kernel(RefineArgs A
   const double scale = rn > 0 ? rn : 1.0;
   const int n_tiles = (A.nsub + kTile - 1) / kTile;
 
-  // the inner CG's start: x = 0, r = p = b_in = f32(r / scale), and the
-  // tiles' partial sums of b_in . b_in
+  // the inner CG's start: x = 0, r = p = b_in = f32(r / scale), p packed,
+  // and the tiles' partial sums of b_in . b_in
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     float acc = 0.f;
 #pragma unroll
@@ -432,6 +621,13 @@ __global__ void __launch_bounds__(kThreads) transport_refine_kernel(RefineArgs A
       A.x[i] = 0.f;
       A.rr_in[i] = bi;
       A.p[i] = bi;
+      const float v = mul_rn(A.dsi[i], bi);
+      A.xs[i] = v;
+      if (i >= 2) {
+        A.xw[A.front + A.inv[i - 2]] = v;
+        const int k = A.mp_inv[i - 2];
+        if (k >= 0) A.xm[k] = v;
+      }
       acc = fma_rn(bi, bi, acc);
     }
     const float sum = block_sum(acc, s_warp);
@@ -442,6 +638,7 @@ __global__ void __launch_bounds__(kThreads) transport_refine_kernel(RefineArgs A
   if (blockIdx.x != 0) return;
   const float rz = sum_partials(A.part, n_tiles, s_warp);
   if (threadIdx.x != 0) return;
+  A.xs[A.nsub] = 0.f;
   // the round's tolerance: a tenth of the reduction this round needs, no
   // tighter than inner_tol and no looser than 0.05, rounded to f32
   const double needed = __ddiv_rn(*A.thresh, fmax(rn, 1e-300));
@@ -504,76 +701,109 @@ int launch_cooperative(K kernel, int want, const Args& args, cudaStream_t st) {
 // (0 on success).  is_f64: the f64 (refinement) build, else the f32 (inner)
 // one.
 
-// lo: p the inner direction (f32) -> xs (f32), xw, xm; hi: x (f64, updated
-// by xi * scale unless first) -> xs (f64), xm (xw null).
-extern "C" int dkmc_transport_pack(int is_f64, const void* dsi, const void* p, void* x,
-                                   const void* xi, const void* scale, int first,
-                                   const void* inv, const void* mp_inv, int front, int nsub,
-                                   void* xs, void* xw, void* xm, void* count, void* stream) {
+// x (f64, updated by xi * scale unless first) -> xs (f64), xm.
+extern "C" int dkmc_transport_pack(const void* dsi, void* x, const void* xi, const void* scale,
+                                   int first, const void* mp_inv, int nsub, void* xs, void* xm,
+                                   void* count, void* stream) {
   if (nsub < 2) return (int)cudaErrorInvalidValue;
   const int n_full = nsub + 1;
-  const dim3 grid((n_full + kThreads - 1) / kThreads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* cnt = static_cast<unsigned long long*>(count);
-  if (is_f64)
-    transport_pack_kernel<double><<<grid, kThreads, 0, st>>>(
-        static_cast<const double*>(dsi), nullptr, static_cast<double*>(x),
-        static_cast<const float*>(xi), static_cast<const double*>(scale), first,
-        static_cast<const int*>(inv), static_cast<const int*>(mp_inv), front, nsub, n_full,
-        static_cast<double*>(xs), nullptr, static_cast<float*>(xm), cnt);
-  else
-    transport_pack_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(dsi), static_cast<const float*>(p), nullptr, nullptr,
-        nullptr, 1, static_cast<const int*>(inv), static_cast<const int*>(mp_inv), front,
-        nsub, n_full, static_cast<float*>(xs), static_cast<float*>(xw),
-        static_cast<float*>(xm), cnt);
+  transport_pack_kernel<<<(n_full + kThreads - 1) / kThreads, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(dsi), static_cast<double*>(x), static_cast<const float*>(xi),
+      static_cast<const double*>(scale), first, static_cast<const int*>(mp_inv), nsub, n_full,
+      static_cast<double*>(xs), static_cast<float*>(xm),
+      static_cast<unsigned long long*>(count));
   return (int)cudaGetLastError();
 }
 
-extern "C" int dkmc_transport_apply(
-    int is_f64, const void* xs, const void* xm, const void* band_y, const void* inv,
-    const void* dyn, const void* nbv, const void* anb, const void* T_vm, const void* T_vv,
-    const void* vidx, const void* vslot, const void* n_vac, const void* mp_inv,
-    const void* y_cc, const void* gnd, const void* src, const void* diag, const void* dsi,
-    double loop_G, int gnd_lo, int nsi, int na, int max_nn, int vcap, int n_mp,
-    const void* p, void* ap, const void* rz, void* alpha, const void* act, const void* b,
-    void* r, void* rsum, void* y_vm, void* y_vv, void* y_bump, void* mv_part, void* dots,
-    void* part, void* ticket, void* bar, void* count, void* stream) {
-  const int nsub = na + 1;
+extern "C" int dkmc_transport_blocks(
+    int is_f64, const void* xs, const void* xm, const void* T_vm, const void* T_vv,
+    const void* vidx, const void* n_vac, const void* dyn, const void* anb, const void* gnd,
+    const void* src, int gnd_lo, int nsi, int na, int max_nn, int vcap, int n_mp, void* mv,
+    void* y_vm, void* y_vv, void* y_bump, void* dots, void* col_part, void* row_part,
+    void* tickets, void* count, void* stream) {
   if (na < 1 || max_nn < 1 || vcap < 1 || n_mp < 1) return (int)cudaErrorInvalidValue;
-  const int n_tiles = (nsub + kTile - 1) / kTile;
-  const int tasks = vcap + (n_mp + 31) / 32 * kColChunks + 2;
-  const int want = max(n_tiles, (tasks + kWarps - 1) / kWarps);
+  const int n_ct = (n_mp + kBlockCols - 1) / kBlockCols;
+  const int n_rt = (vcap + kBlockRows - 1) / kBlockRows;
+  const int grid = n_rt * n_ct + 2 * ((vcap + kWarps - 1) / kWarps) + 2;
+  const size_t smem = (size_t)vcap * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto fill = [&](auto& A) {
-    using T = typename std::remove_pointer<decltype(A.gnd)>::type;
-    using TT = typename std::remove_const<T>::type;
-    A.xs = static_cast<const TT*>(xs);
+    using T = typename std::remove_const<
+        typename std::remove_pointer<decltype(A.gnd)>::type>::type;
+    A.xs = static_cast<const T*>(xs);
     A.xm = static_cast<const float*>(xm);
-    A.band_y = static_cast<const float*>(band_y);
-    A.inv = static_cast<const int*>(inv);
-    A.dyn = static_cast<const float*>(dyn);
-    A.nbv = static_cast<const double*>(nbv);
-    A.anb = static_cast<const int*>(anb);
     A.T_vm = static_cast<const float*>(T_vm);
     A.T_vv = static_cast<const float*>(T_vv);
     A.vidx = static_cast<const int*>(vidx);
-    A.vslot = static_cast<const int*>(vslot);
     A.n_vac = static_cast<const int*>(n_vac);
-    A.mp_inv = static_cast<const int*>(mp_inv);
-    A.y_cc = static_cast<const float*>(y_cc);
-    A.gnd = static_cast<const TT*>(gnd);
-    A.src = static_cast<const TT*>(src);
-    A.diag = static_cast<const TT*>(diag);
-    A.dsi = static_cast<const TT*>(dsi);
-    A.loop_G = loop_G;
+    A.dyn = static_cast<const float*>(dyn);
+    A.anb = static_cast<const int*>(anb);
+    A.gnd = static_cast<const T*>(gnd);
+    A.src = static_cast<const T*>(src);
     A.gnd_lo = gnd_lo;
     A.nsi = nsi;
     A.na = na;
-    A.nsub = nsub;
     A.max_nn = max_nn;
     A.vcap = vcap;
     A.n_mp = n_mp;
+    A.mv = static_cast<float*>(mv);
+    A.y_vm = static_cast<float*>(y_vm);
+    A.y_vv = static_cast<float*>(y_vv);
+    A.y_bump = static_cast<float*>(y_bump);
+    A.dots = static_cast<T*>(dots);
+    A.col_part = static_cast<float*>(col_part);
+    A.row_part = static_cast<float*>(row_part);
+    A.tickets = static_cast<int*>(tickets);
+    A.count = static_cast<unsigned long long*>(count);
+  };
+  if (is_f64) {
+    BlocksArgs<double> A;
+    fill(A);
+    transport_blocks_kernel<double><<<grid, kThreads, smem, st>>>(A);
+  } else {
+    BlocksArgs<float> A;
+    fill(A);
+    transport_blocks_kernel<float><<<grid, kThreads, smem, st>>>(A);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dkmc_transport_rows(
+    int is_f64, const void* xs, const void* band_y, const void* inv, const void* y_bump,
+    const void* nbv, const void* anb, const void* vslot, const void* mp_inv, const void* y_cc,
+    const void* mv, const void* y_vm, const void* y_vv, const void* dots, const void* gnd,
+    const void* src, const void* diag, const void* dsi, double loop_G, int na, int max_nn,
+    const void* p, void* ap, const void* rz, void* alpha, const void* act, const void* b,
+    void* r, void* rsum, void* part, void* ticket, void* count, void* stream) {
+  if (na < 1 || max_nn < 1) return (int)cudaErrorInvalidValue;
+  const int nsub = na + 1;
+  const int grid = (nsub + kThreads - 1) / kThreads;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto fill = [&](auto& A) {
+    using T = typename std::remove_const<
+        typename std::remove_pointer<decltype(A.gnd)>::type>::type;
+    A.xs = static_cast<const T*>(xs);
+    A.band_y = static_cast<const float*>(band_y);
+    A.inv = static_cast<const int*>(inv);
+    A.y_bump = static_cast<const float*>(y_bump);
+    A.nbv = static_cast<const double*>(nbv);
+    A.anb = static_cast<const int*>(anb);
+    A.vslot = static_cast<const int*>(vslot);
+    A.mp_inv = static_cast<const int*>(mp_inv);
+    A.y_cc = static_cast<const float*>(y_cc);
+    A.mv = static_cast<const float*>(mv);
+    A.y_vm = static_cast<const float*>(y_vm);
+    A.y_vv = static_cast<const float*>(y_vv);
+    A.dots = static_cast<const T*>(dots);
+    A.gnd = static_cast<const T*>(gnd);
+    A.src = static_cast<const T*>(src);
+    A.diag = static_cast<const T*>(diag);
+    A.dsi = static_cast<const T*>(dsi);
+    A.loop_G = loop_G;
+    A.na = na;
+    A.nsub = nsub;
+    A.max_nn = max_nn;
     A.p = static_cast<const float*>(p);
     A.ap = static_cast<float*>(ap);
     A.rz = static_cast<const float*>(rz);
@@ -582,33 +812,31 @@ extern "C" int dkmc_transport_apply(
     A.b = static_cast<const double*>(b);
     A.r = static_cast<double*>(r);
     A.rsum = static_cast<double*>(rsum);
-    A.y_vm = static_cast<float*>(y_vm);
-    A.y_vv = static_cast<float*>(y_vv);
-    A.y_bump = static_cast<float*>(y_bump);
-    A.mv_part = static_cast<float*>(mv_part);
-    A.dots = static_cast<TT*>(dots);
-    A.part = static_cast<TT*>(part);
+    A.part = static_cast<T*>(part);
     A.ticket = static_cast<int*>(ticket);
-    A.bar = static_cast<unsigned*>(bar);
     A.count = static_cast<unsigned long long*>(count);
   };
   if (is_f64) {
-    ApplyArgs<double> A;
+    RowsArgs<double> A;
     fill(A);
-    return launch_cooperative(transport_apply_kernel<double>, want, A, st);
+    transport_rows_kernel<double><<<grid, kThreads, 0, st>>>(A);
+  } else {
+    RowsArgs<float> A;
+    fill(A);
+    transport_rows_kernel<float><<<grid, kThreads, 0, st>>>(A);
   }
-  ApplyArgs<float> A;
-  fill(A);
-  return launch_cooperative(transport_apply_kernel<float>, want, A, st);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int dkmc_transport_refine(
     const void* r, const void* rsum, const void* thresh, const void* go, void* it_out,
     void* it_in, void* rnorm, void* scale, void* rnorm0, void* cond_out, void* x, void* rr_in,
     void* p, void* rz, void* rr, void* thresh2, void* act0, void* act, void* iters, void* ctl,
-    void* cond_in, void* part, void* bar, double inner_tol, int first, int max_outer,
-    int maxiter, int nsub, unsigned long long handle, void* count, void* stream) {
-  if (nsub < 1) return (int)cudaErrorInvalidValue;
+    void* cond_in, const void* dsi, void* xs, void* xw, void* xm, const void* inv,
+    const void* mp_inv, int front, void* part, void* bar, double inner_tol, int first,
+    int max_outer, int maxiter, int nsub, unsigned long long handle, void* count,
+    void* stream) {
+  if (nsub < 2) return (int)cudaErrorInvalidValue;
   RefineArgs A;
   A.r = static_cast<const double*>(r);
   A.rsum = static_cast<const double*>(rsum);
@@ -631,6 +859,13 @@ extern "C" int dkmc_transport_refine(
   A.iters = static_cast<long long*>(iters);
   A.ctl = static_cast<int*>(ctl);
   A.cond_in = static_cast<int*>(cond_in);
+  A.dsi = static_cast<const float*>(dsi);
+  A.xs = static_cast<float*>(xs);
+  A.xw = static_cast<float*>(xw);
+  A.xm = static_cast<float*>(xm);
+  A.inv = static_cast<const int*>(inv);
+  A.mp_inv = static_cast<const int*>(mp_inv);
+  A.front = front;
   A.part = static_cast<float*>(part);
   A.bar = static_cast<unsigned*>(bar);
   A.inner_tol = inner_tol;

@@ -150,7 +150,8 @@ _launch_counts = {}
 #: launch_counts
 COUNTED_ON_CARD = ("ell_gather_batched", "poisson_pairwise_batched", "kmc_event_loop_batched",
                    "banded_matvec_out", "wkb_fly_matvec_out", "transport_pack",
-                   "transport_apply", "transport_refine")
+                   "transport_blocks", "transport_rows", "transport_refine",
+                   "cg_update_direction_pack")
 
 
 def launch_counts(device):

@@ -9,6 +9,9 @@ package's one jitted program a superstep (``jax.jit(superstep_impl)``,
   inside a loop, as the refinement rounds around the inner CG of the
   transport solve); its plain version, for CPU tensors only, is a Python
   ``while`` on a read of the predicate.
+* :func:`fork` and :func:`join` run work on a branch beside a stream: under
+  a capture a second path of nodes in the same graph or WHILE body (edges,
+  no event nodes), outside one a second stream with event waits.
 * :class:`Graph` captures a function of static buffers once and replays it
   as one launch (``torch.cuda.graph``, every read of the device forbidden
   while it captures); on the CPU it calls the function, the plain version of
@@ -37,6 +40,9 @@ MAX_DEPTH = 2
 _depth = 0
 #: the stream graphs are captured on, one a device
 _capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
+#: the branches forked beside a stream (fork): (stream, fork event, join
+#: event), one a device and nesting depth
+_branches: Dict[tuple, tuple] = {}
 
 
 def _fn(name: str):
@@ -44,21 +50,69 @@ def _fn(name: str):
     if fn.argtypes is None:
         p, u = ctypes.c_void_p, ctypes.c_ulonglong
         fn.argtypes = {"dkmc_while_begin": [p, p, p, ctypes.POINTER(u)],
-                       "dkmc_while_end": [p]}[name]
+                       "dkmc_while_end": [p], "dkmc_stream_wait": [p, p, p],
+                       "dkmc_event_create": [ctypes.POINTER(p)]}[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    return device
 
 
 def side_stream(device, depth: int = 0) -> torch.cuda.Stream:
     """The stream that captures the bodies of WHILE nodes nested ``depth``
     deep on ``device``; :class:`Graph` makes them before a capture begins."""
-    device = torch.device(device)
-    if device.index is None:
-        device = torch.device(device.type, torch.cuda.current_device())
-    key = (device, depth)
+    key = (_device(device), depth)
     if key not in _side_streams:
         _side_streams[key] = torch.cuda.Stream(key[0])
     return _side_streams[key]
+
+
+def _branch(device, depth: int) -> tuple:
+    """(stream, fork event, join event) of the branch that :func:`fork`
+    starts inside ``depth`` WHILE bodies being captured (0: none) on
+    ``device``; :class:`Graph` makes them before a capture begins."""
+    key = (_device(device), depth)
+    if key not in _branches:
+        events = []
+        for _ in range(2):
+            ev = ctypes.c_void_p()
+            err = _fn("dkmc_event_create")(ctypes.byref(ev))
+            if err != 0:
+                raise RuntimeError(f"branch: no event: cudaError {err}")
+            events.append(ev.value)
+        _branches[key] = (torch.cuda.Stream(key[0]), *events)
+    return _branches[key]
+
+
+def fork(device, stream=None) -> int:
+    """Start a branch beside ``stream`` (a raw stream handle on ``device``;
+    None: the current stream): the branch's stream, whose work runs after
+    what ``stream`` was given so far and beside what it is given next, until
+    :func:`join`.  Inside a capture the branch is captured into the same
+    graph, or WHILE body, as a second path of nodes."""
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    side, ev, _ = _branch(device, _depth)
+    err = _fn("dkmc_stream_wait")(stream, side.cuda_stream, ev)
+    if err != 0:
+        raise RuntimeError(f"fork: cudaError {err}")
+    return side.cuda_stream
+
+
+def join(device, stream=None) -> None:
+    """``stream`` (None: the current stream) runs what it is given next
+    after the work of the branch :func:`fork` started beside it."""
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    side, _, ev = _branch(device, _depth)
+    err = _fn("dkmc_stream_wait")(side.cuda_stream, stream, ev)
+    if err != 0:
+        raise RuntimeError(f"join: cudaError {err}")
 
 
 def _predicate(cond: torch.Tensor) -> bool:
@@ -142,6 +196,8 @@ class Graph:
             return
         for depth in range(MAX_DEPTH):
             side_stream(self.device, depth)
+        for depth in range(MAX_DEPTH + 1):
+            _branch(self.device, depth)
         stream = _capture_streams.get(self.device)
         if stream is None:
             stream = _capture_streams[self.device] = torch.cuda.Stream(self.device)

@@ -632,23 +632,43 @@ def _ell_nb(blk, xa, wd):
     return (blk["nb_vals"].to(wd) * xa[blk["nb_safe"]]).sum(dim=1)
 
 
-def _band_bump(blk, xa, ya):
-    """The band's product plus the dynamic (high_G - low_G) bump on the
-    neutral-vacancy pairs of the bucket."""
-    yv = (blk["band_dyn_vals"] * xa[blk["band_vnb_safe"]]).sum(dim=1)
+def _bump_values(blk, xa):
+    """The dynamic (high_G - low_G) bump on the neutral-vacancy pairs of the
+    bucket, one value a bucket slot."""
+    return (blk["band_dyn_vals"] * xa[blk["band_vnb_safe"]]).sum(dim=1)
+
+
+def _place_bump(blk, ya, yv):
+    """``ya`` plus the bump ``yv`` at the bucket's live atoms."""
     return ya.index_add_(0, blk["vidx"], torch.where(blk["v_ok"], yv, 0.0))
 
 
-def _apply_tail(blk, x, wd, ya, y_cc, xm, T_vv, T_vm, mm):
-    """The rest of X x after the neighbour part ``ya`` and the metal block's
-    product ``y_cc``: the vacancy blocks, their placement, the virtual rows
-    and the diagonal."""
+def _band_bump(blk, xa, ya):
+    """The band's product plus the dynamic (high_G - low_G) bump on the
+    neutral-vacancy pairs of the bucket."""
+    return _place_bump(blk, ya, _bump_values(blk, xa))
+
+
+def _tail_products(blk, x, wd, xm, T_vv, T_vm, mm):
+    """The parts of X x's rest that read x alone: the vacancy blocks'
+    products T_vm^T x_v, T_vv x_v, T_vm x_m (in ``wd``) and the virtual
+    nodes' dots gnd . xa, src . xa."""
     xa = x[2:]
     cd = T_vv.dtype
     xv = torch.where(blk["v_ok"], xa[blk["vidx"]], 0.0).to(cd)
     y_mv = mm(xv, T_vm).to(wd)
     y_vv = mm(T_vv, xv).to(wd)
     y_vm = mm(T_vm, xm).to(wd)
+    gnd = blk["gnd_vals"].to(wd)
+    src = blk["src_vals"].to(wd)
+    return y_mv, y_vv, y_vm, torch.dot(gnd, xa), torch.dot(src, xa)
+
+
+def _tail_rows(blk, x, wd, ya, y_cc, products):
+    """X x's rows from the neighbour part ``ya``, the metal block's product
+    ``y_cc`` and :func:`_tail_products`: the vacancy blocks' placement, the
+    virtual rows and the diagonal."""
+    y_mv, y_vv, y_vm, d_gnd, d_src = products
     ya = _place_tunnel(blk, ya, y_cc + y_mv, y_vv + y_vm)
 
     src = blk["src_vals"].to(wd)
@@ -656,26 +676,45 @@ def _apply_tail(blk, x, wd, ya, y_cc, xm, T_vv, T_vm, mm):
     loop_G = blk["loop_G"]
     x0, x1 = x[0], x[1]
     ya = ya + gnd * x0 + src * x1
-    y0 = torch.dot(gnd, xa) - loop_G * x1
-    y1 = torch.dot(src, xa) - loop_G * x0
+    y0 = d_gnd - loop_G * x1
+    y1 = d_src - loop_G * x0
     return torch.cat([torch.stack([y0, y1]), ya]) + blk["diag"].to(wd) * x
 
 
-def apply_from_parts(blk, x, wd, band_y, y_cc):
-    """:func:`_apply_X_blocks` of the full vector ``x`` (already in ``wd``)
-    from the products its kernels made: ``band_y`` the band's output in its
-    permuted layout (f32 with a band; None: the ELL part) and ``y_cc`` the
-    on-the-fly metal block's [n_mp] f32.  The plain version the transport
-    CG's device loop (``ops.transport_cg``) runs on CPU tensors, the same
-    operations as :func:`_apply_X_blocks`."""
+def _apply_tail(blk, x, wd, ya, y_cc, xm, T_vv, T_vm, mm):
+    """The rest of X x after the neighbour part ``ya`` and the metal block's
+    product ``y_cc``: the vacancy blocks, their placement, the virtual rows
+    and the diagonal."""
+    return _tail_rows(blk, x, wd, ya, y_cc, _tail_products(blk, x, wd, xm, T_vv, T_vm, mm))
+
+
+def apply_blocks(blk, x, wd):
+    """The parts of :func:`_apply_X_blocks` of the full vector ``x`` (already
+    in ``wd``) that read ``x`` alone, in its operations: the vacancy blocks'
+    products and the virtual nodes' dots (:func:`_tail_products`), and with
+    the band in the f32 iterations the bump, else None.  The plain version of
+    the transport CG's transport_blocks kernel (``ops.transport_cg``)."""
     xa = x[2:]
+    xm = xa[blk["mp"]].to(blk["T_vv"].dtype)
+    bump = (_bump_values(blk, xa)
+            if blk.get("band") is not None and wd == torch.float32 else None)
+    return _tail_products(blk, x, wd, xm, blk["T_vv"], blk["T_vm"], torch.matmul) + (bump,)
+
+
+def apply_rows(blk, x, wd, band_y, y_cc, parts):
+    """:func:`_apply_X_blocks` of ``x`` from the products its kernels made:
+    ``band_y`` the band's output in its permuted layout (f32 with a band;
+    None: the ELL part), ``y_cc`` the on-the-fly metal block's [n_mp] f32
+    and ``parts`` :func:`apply_blocks`' (in ``wd``).  The plain version of
+    the transport CG's transport_rows kernel, the same operations as
+    :func:`_apply_X_blocks`."""
+    xa = x[2:]
+    *products, bump = parts
     if band_y is not None:
-        ya = _band_bump(blk, xa, _band_unpermute(blk["band"], band_y, xa))
+        ya = _place_bump(blk, _band_unpermute(blk["band"], band_y, xa), bump)
     else:
         ya = _ell_nb(blk, xa, wd)
-    xm = xa[blk["mp"]].to(blk["T_vv"].dtype)
-    return _apply_tail(blk, x, wd, ya, y_cc.to(wd), xm, blk["T_vv"], blk["T_vm"],
-                       torch.matmul)
+    return _tail_rows(blk, x, wd, ya, y_cc.to(wd), products)
 
 
 def _apply_X_blocks_mat(blk, X, wd):
@@ -1184,7 +1223,9 @@ def _update_power_warm_device(
         anb=geom.atom_neigh_idx, T_vm=blk["T_vm"].contiguous(), T_vv=blk["T_vv"].contiguous(),
         vidx=blk["vidx32"], vslot=blk["vslot"], n_vac=blk["n_vac"],
         mp_inv=geom.atom_metalp_inv, mp=blk["mp"], mpos=f["mpos"], mcb=f["mcb"], env=f["env"],
-        plain=lambda x, wd, band_y, y_cc: apply_from_parts(blk, x, wd, band_y, y_cc))
+        plain_blocks=lambda x, wd: apply_blocks(blk, x, wd),
+        plain_rows=lambda x, wd, band_y, y_cc, parts: apply_rows(blk, x, wd, band_y, y_cc,
+                                                                  parts))
     tws = transport_workspace(geom, params, cc)
     res = transport_cg.solve(tws, op, y0, go, cg_tol, cg_maxiter)
     v = res.x * dsi

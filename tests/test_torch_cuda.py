@@ -1779,67 +1779,138 @@ def _clone_tws(tws):
     return type(tws)(**kw)
 
 
+def _cpu_ws(ws):
+    """A transport workspace's CPU copy."""
+    import dataclasses
+
+    kw = {}
+    for f in dataclasses.fields(ws):
+        v = getattr(ws, f.name)
+        if f.name == "cg":
+            v = dataclasses.replace(v, **{g.name: getattr(v, g.name).cpu() for g in
+                                          dataclasses.fields(v)
+                                          if torch.is_tensor(getattr(v, g.name))})
+        elif f.name == "fly":
+            v = tuple(t.cpu() for t in v)
+        elif torch.is_tensor(v):
+            v = v.cpu()
+        kw[f.name] = v
+    return type(ws)(**kw)
+
+
+def _cpu_op(op):
+    """The operator's CPU twin for the plain versions (whose blocks stay on
+    the card: the plain operator parts run there and come back)."""
+    cpu = lambda v: v.cpu() if torch.is_tensor(v) else v
+    cuda = lambda v: v.cuda() if torch.is_tensor(v) else v
+    op_c = op._replace(**{k: cpu(v) for k, v in op._asdict().items()
+                          if k not in ("plain_blocks", "plain_rows", "env")})
+    blocks, rows = op.plain_blocks, op.plain_rows
+    return op_c._replace(
+        plain_blocks=lambda x, wd: tuple(cpu(v) for v in blocks(x.cuda(), wd)),
+        plain_rows=lambda x, wd, band_y, y_cc, parts: rows(
+            x.cuda(), wd, cuda(band_y), y_cc.cuda(), tuple(cuda(v) for v in parts)).cpu())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("crossbar", [False, True])
 def test_cuda_transport_kernels_match_plain(tmp_path, crossbar):
     """Each kernel of the transport CG against its plain version on the same
     inputs (the operator of a state after 2 supersteps, a seeded direction):
-    pack bit-equal (f32 and f64, with and without the round's correction);
-    apply's ap within 2e-6 and the f64 residual within 1e-9 of their largest
-    entry, p.ap within 1e-6 of the sum of its terms' sizes, r.r that of the
-    kernel's residual; refine's b_in, flags, counts,
-    scale and ||r|| equal given the same residual, r.r of b_in within 1e-5."""
+    the f64 pack bit-equal (with and without the round's correction); the
+    update and pack (the transport build of cg_update_direction): the
+    update bit-equal to the boundary build's, the new direction packed as
+    pack_plain packs it, and within 1e-5 of its plain version's scale;
+    transport_blocks' products (f32 and f64) within 1e-5 of the sum of their
+    terms' sizes, the dots within 1e-5 (f32) and 1e-12 (f64) of theirs;
+    transport_rows' ap within 2e-6 and its f64 residual within 1e-9 of their
+    largest entry, p.ap within 1e-6 of the sum of its terms' sizes, r.r that
+    of the kernel's residual; refine's b_in, flags, counts, scale, ||r|| and
+    packed direction equal given the same residual, r.r of b_in within
+    1e-5."""
     _need_card()
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
     from devicekmc_tpu_torch.ops import transport_cg as tcg
 
     sim = _transport_sim(tmp_path, crossbar=crossbar, fused=False)
     sim.run_bias_point(sim.cfg.V_switch[0], 1e30, max_steps=2)
     tws, op, cap = _transport_op(sim)
-    # a CPU twin of the operator for the plain versions
-    cpu = lambda v: v.cpu() if torch.is_tensor(v) else v
-    op_c = op._replace(**{k: cpu(v) for k, v in op._asdict().items()
-                          if k not in ("plain", "env")})
-    blk_plain = op.plain
+    op_c = _cpu_op(op)
+    nv = int(op.n_vac)
 
-    def plain_on_cpu(x, wd, band_y, y_cc):
-        return blk_plain(x.cuda(), wd, None if band_y is None else band_y.cuda(),
-                         y_cc.cuda()).cpu()
+    for first in (True, False):
+        k, p = _clone_tws(tws), _cpu_ws(_clone_tws(tws))
+        tcg.pack(k, op, first)
+        tcg.pack_plain(p, op_c, True, first)
+        for f in ("xs64", "xm", "x"):
+            assert torch.equal(getattr(k, f).cpu(), getattr(p, f)), (first, f)
 
-    op_c = op_c._replace(plain=plain_on_cpu)
+    # the update and pack: a CG state after the round's set-up and one
+    # iteration's product
+    base = _clone_tws(tws)
+    tcg.pack(base, op, True)
+    tcg.fly(base, op)
+    tcg.blocks(base, op, True)
+    tcg.rows(base, op, True)
+    base.go.fill_(True)
+    base.thresh.fill_(float(base.rsum) ** 0.5 * 1e-3)
+    tcg.refine(base, op, True, 40, 20000)
+    tcg.products(base, op)
+    tcg.rows(base, op, False)
+    k, b = _clone_tws(base), _clone_tws(base)
+    p = _cpu_ws(_clone_tws(base))
+    tcg.update_pack(k, op)
+    bcg.cg_update_direction(b.cg, tcg.INNER_MAXITER)
+    tcg.update_pack_plain(p, op_c)
+    for f in ("x", "r", "p", "rz", "rr", "beta", "act", "iters", "ctl", "cond", "total"):
+        assert torch.equal(getattr(k.cg, f), getattr(b.cg, f)), f
+    ref = _cpu_ws(_clone_tws(k))
+    tcg.pack_plain(ref, op_c, False)
+    for f in ("xs32", "xw", "xm"):
+        assert torch.equal(getattr(k, f).cpu(), getattr(ref, f)), f
+        scale = float(getattr(p, f).abs().max())
+        assert float((getattr(k, f).cpu() - getattr(p, f)).abs().max()) <= 1e-5 * scale, f
 
-    def to_cpu(ws):
-        import dataclasses
-        kw = {}
-        for f in dataclasses.fields(ws):
-            v = getattr(ws, f.name)
-            if f.name == "cg":
-                v = dataclasses.replace(v, **{g.name: getattr(v, g.name).cpu() for g in
-                                              dataclasses.fields(v)
-                                              if torch.is_tensor(getattr(v, g.name))})
-            elif f.name == "fly":
-                v = tuple(t.cpu() for t in v)
-            elif torch.is_tensor(v):
-                v = v.cpu()
-            kw[f.name] = v
-        return type(ws)(**kw)
-
-    for hi, first in ((False, False), (True, True), (True, False)):
-        k, p = _clone_tws(tws), to_cpu(_clone_tws(tws))
-        tcg.pack(k, op, hi, first)
-        tcg.pack_plain(p, op_c, hi, first)
-        for f in ("xs64" if hi else "xs32", "xm", "x") + (() if hi else ("xw",)):
-            assert torch.equal(getattr(k, f).cpu(), getattr(p, f)), (hi, first, f)
+    # transport_blocks of the direction (lo) and of the iterate (hi)
     for hi in (False, True):
-        k = _clone_tws(tws)
-        tcg.pack(k, op, hi)
+        k = _clone_tws(base)
+        if hi:
+            tcg.pack(k, op, True)
+        p = _cpu_ws(_clone_tws(k))
+        tcg.blocks(k, op, hi)
+        tcg.blocks_plain(p, op_c, hi)
+        xs = (p.xs64 if hi else p.xs32).double()
+        xa = xs[2:]
+        T_vm, T_vv = op_c.T_vm[:nv].double().abs(), op_c.T_vv[:nv, :nv].double().abs()
+        xv = xa[op_c.vidx[:nv].long()].abs()
+        xm = xa[op_c.mp.long()].abs()
+        sizes = {"mv": xv @ T_vm, "y_vm": T_vm @ xm, "y_vv": T_vv @ xv}
         if not hi:
-            tcg.band(k, op)
-        tcg.fly(k, op)
-        p = to_cpu(_clone_tws(k))
+            nb = op_c.anb[op_c.vidx[:nv].long()].long()
+            sizes["y_bump"] = (op_c.dyn[:nv].double().abs() * xa[nb.clamp(min=0)].abs()).sum(1)
+        for f, size in sizes.items():
+            got, want = getattr(k, f).cpu().double(), getattr(p, f).double()
+            n = size.shape[0]
+            assert bool(((got[:n] - want[:n]).abs() <= 1e-5 * size + 1e-30).all()), (hi, f)
+        dots = (k.dots64 if hi else k.dots32).cpu().double()
+        want = (p.dots64 if hi else p.dots32).double()
+        na = op_c.anb.shape[0]
+        dsize = torch.stack([(op_c.gnd.abs() * xa[:na].abs())[op.gnd_lo:].sum(),
+                             (op_c.src.abs() * xa[:na].abs())[:op.nsi].sum()])
+        assert bool(((dots - want).abs() <= (1e-12 if hi else 1e-5) * dsize).all()), hi
+
+    # transport_rows from the same products
+    for hi in (False, True):
+        k = _clone_tws(base)
+        if hi:
+            tcg.pack(k, op, True)
+            tcg.fly(k, op)
+        tcg.blocks(k, op, hi)
+        p = _cpu_ws(_clone_tws(k))
         k.cg.act.fill_(True)
         p.cg.act.fill_(True)
-        tcg.apply(k, op, hi)
-        tcg.apply_plain(p, op_c, hi)
+        tcg.rows(k, op, hi)
+        tcg.rows_plain(p, op_c, hi)
         if hi:
             ref = p.r
             scale = float((op_c.b - ref).abs().max())
@@ -1854,19 +1925,21 @@ def test_cuda_transport_kernels_match_plain(tmp_path, crossbar):
             terms = float((p.cg.p * ref).abs().sum())
             rz = float(p.cg.rz)
             assert abs(rz / float(k.cg.alpha) - rz / float(p.cg.alpha)) <= 1e-6 * terms
+
     for first in (True, False):
         k = _clone_tws(tws)
-        tcg.pack(k, op, True, True)
+        tcg.pack(k, op, True)
         tcg.fly(k, op)
-        tcg.apply(k, op, True)
+        tcg.blocks(k, op, True)
+        tcg.rows(k, op, True)
         k.go.fill_(True)
         k.thresh.fill_(float(k.rsum) ** 0.5 * 1e-3)
         k.cg.iters.fill_(17)
         k.it_in.fill_(100)
-        p = to_cpu(_clone_tws(k))
-        tcg.refine(k, first, 40, 20000)
-        tcg.refine_plain(p, first, 40, 20000)
-        for f in ("it_out", "it_in", "rnorm", "scale", "cond"):
+        p = _cpu_ws(_clone_tws(k))
+        tcg.refine(k, op, first, 40, 20000)
+        tcg.refine_plain(p, op_c, first, 40, 20000)
+        for f in ("it_out", "it_in", "rnorm", "scale", "cond", "xs32", "xw", "xm"):
             assert torch.equal(getattr(k, f).cpu(), getattr(p, f)), (first, f)
         for f in ("x", "r", "p", "act", "act0", "iters", "ctl", "cond"):
             assert torch.equal(getattr(k.cg, f).cpu(), getattr(p.cg, f)), (first, f)

@@ -18,6 +18,14 @@ crossbar's shapes (108,944 sites; the state after two graph supersteps):
   ``torch.sparse.mm`` of the same operator in CSR, the nonzero bound and
   the 32-byte sectors that the rows' valid prefixes span.
 
+* the transport CG (``--parts transport``) at the crossbar's transport
+  operator: its kernels through their wrappers, the band with the kernels
+  that run beside it, inner iterations and the warm solve captured (the
+  solve also with other forms of the inner body), ``clock64()`` stamps of
+  each kernel's phases (TRANSPORT_STAMPS: the parent's apply and pack, or
+  the blocks, rows and f64 pack), and the transport and heat (global)
+  configurations' graph supersteps, their ms an inner iteration;
+
 * the boundary CG's update and direction at the same system: through the
   package's wrappers, the update and direction kernels (the parent's pair
   ``cg_update`` + ``cg_direction``, beside ``torch.addcmul``, the one
@@ -737,6 +745,16 @@ def update_probe(cs, sim, stamped, variants=None, batches=(8, 32), ensemble=True
         res["times"][name]["plain"] = cs.time_ms(lambda: fn(w), reps=5)
     if fused:
         res["grid_b1"] = bcg.update_direction_grid(w0)
+        # one launch's outputs, to hold two checkouts' kernels bit for bit
+        import hashlib
+
+        w = clone(w0)
+        fns["cg_update_direction"](w)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for f in ("x", "r", "p", "rz", "rr", "beta", "act", "iters", "ctl", "cond"):
+            digest.update(getattr(w, f).cpu().numpy().tobytes())
+        res["digest"] = digest.hexdigest()
 
     # B > 1: the replica copied
     fields = ("x", "r", "p", "ap", "minv", "rz", "rr", "thresh2", "alpha", "beta", "act0",
@@ -839,6 +857,468 @@ def update_probe(cs, sim, stamped, variants=None, batches=(8, 32), ensemble=True
     return res
 
 
+#: clock64() stamps of the transport CG's kernels, by the form the measured
+#: csrc/transport_cg.cu has: (text that occurs once, stamp, "after" or
+#: "before" it).  TP_BLOCK(k) in thread 0 of every block writes block stamp
+#: k (clock64 and the global timer); TP_TASK(t, q, cycles) in lane 0 of a
+#: warp the cycles of part q of task t.  TRANSPORT_TASKS names the tasks'
+#: kinds and parts, TRANSPORT_PHASES the phases between block stamps, by
+#: kernel.
+TRANSPORT_STAMPS = {
+    "apply": (
+        ("  count_launch(A.count);\n  constexpr bool kLo = sizeof(T) == 4;\n",
+         "  TP_BLOCK(0);\n", "after"),
+        ("      if (s >= nv) continue;\n", "      const long long c0_ = clock64();\n", "after"),
+        ("      a = warp_sum(a);\n", "      const long long c1_ = clock64();\n", "after"),
+        ("      c = warp_sum(c);\n", "      const long long c2_ = clock64();\n", "after"),
+        ("        d = warp_sum(d);\n      }\n",
+         "      const long long c3_ = clock64();\n      TP_TASK(task, 0, c1_ - c0_);\n"
+         "      TP_TASK(task, 1, c2_ - c1_);\n      TP_TASK(task, 2, c3_ - c2_);\n", "after"),
+        ("      const int s0 = q * rows_per_chunk, s1 = min(s0 + rows_per_chunk, nv);\n",
+         "      const long long c0_ = clock64();\n", "after"),
+        ("        A.mv_part[(size_t)q * A.n_mp + col] = acc;\n      }\n",
+         "      __syncwarp();\n      TP_TASK(task, 0, clock64() - c0_);\n", "after"),
+        ("      const T* w = is_gnd ? A.gnd : A.src;\n", "      const long long c0_ = clock64();\n",
+         "after"),
+        ("      if (lane == 0) A.dots[is_gnd ? 0 : 1] = acc;\n",
+         "      TP_TASK(task, 0, clock64() - c0_);\n", "before"),
+        ("  grid_barrier(A.bar);\n\n  // 2. the rows", "  __syncthreads();\n  TP_BLOCK(1);\n",
+         "before"),
+        ("  // 2. the rows, a tile of kTile at a time", "  TP_BLOCK(2);\n", "before"),
+        ("  // 3. the tiles' sums in tile order", "  TP_BLOCK(3);\n", "before"),
+        ("      A.rsum[0] = (double)total;\n    }\n  }\n", "  TP_BLOCK(4);\n", "after"),
+    ),
+    "pack": (
+        ("  count_launch(count);\n  const int i = blockIdx.x * kThreads + threadIdx.x;\n",
+         "  TP_BLOCK(0);\n", "after"),
+        ("  if (k >= 0) xm[k] = (float)v;\n}\n", "  TP_BLOCK(1);\n", "before"),
+    ),
+    "blocks": (
+        ("  const int nv = min(*A.n_vac, A.vcap);\n  const int n_ct", "  TP_BLOCK(0);\n",
+         "before"),
+        ("    // each column's partial T_vm^T x_v", "    TP_BLOCK(1);\n", "before"),
+        ("    // the column tile's last live row tile", "    TP_BLOCK(2);\n", "before"),
+        ("    return;\n  }\n\n  if (b >= 2 + n_vb) {", "    TP_BLOCK(3);\n", "before"),
+        ("    for (int j = threadIdx.x; j < nv; j += kThreads) s_xall[j]", "    TP_BLOCK(1);\n",
+         "before"),
+        ("    if (s >= nv) return;\n    float c = 0.f;\n", "    TP_BLOCK(2);\n", "before"),
+        ("    if (lane == 0) A.y_vv[s] = c;\n", "    TP_BLOCK(3);\n", "after"),
+        ("    const int* nb = A.anb + (size_t)A.vidx[s] * A.max_nn;\n    const float* dv",
+         "    TP_BLOCK(2);\n", "before"),
+        ("    if (lane == 0) A.y_bump[s] = d;\n", "    TP_BLOCK(3);\n", "after"),
+        ("  const bool is_gnd = b == 0;\n", "  TP_BLOCK(2);\n", "before"),
+        ("  if (threadIdx.x == 0) A.dots[is_gnd ? 0 : 1] = sum;\n", "  TP_BLOCK(3);\n", "after"),
+    ),
+    "rows": (
+        ("  const int i = blockIdx.x * kThreads + threadIdx.x;\n  T acc = 0;\n",
+         "  TP_BLOCK(0);\n", "after"),
+        ("  if (threadIdx.x == 0) A.part[blockIdx.x] = sum;\n", "  TP_BLOCK(1);\n", "after"),
+        ("      A.rsum[0] = (double)total;\n    }\n  }\n", "  TP_BLOCK(2);\n", "after"),
+    ),
+}
+TRANSPORT_PHASES = {
+    "apply": ("phase 1 (block products, bump, dots)", "grid barrier", "row tiles",
+              "last-ticket sum"),
+    "pack": ("a block's rows",),
+    # by the block's kind: a tile of T_vm (loads and its rows' partial sums,
+    # its columns' partial sums, the tickets and the tile sums), T_vv's rows
+    # (the bump, x_v gathered, the rows), a dot (all of it in the last)
+    "blocks": ("1", "2", "3"),
+    "rows": ("a block's rows", "last-ticket sum"),
+}
+#: transport_blocks' block kinds and the names of their phases
+BLOCKS_KINDS = {"T_vm tile": ("loads, rows' partial sums", "columns' partial sums",
+                              "tickets, tile sums"),
+                "T_vv rows": ("first loads issued", "x_v gathered", "T_vv rows"),
+                "bump": ("-", "-", "the bump"),
+                "dot": ("-", "-", "the dot")}
+#: the parent's tasks of phase 1, a warp each: (kind, part names) by the
+#: task's index range (rows [0, vcap), columns [vcap, vcap + groups * 32),
+#: the two dots)
+TRANSPORT_TASKS = {
+    "apply": ("T_vm row", "T_vv row", "bump"),
+}
+TP_BLOCKS, TP_STAMPS, TP_TASKS = 8192, 6, 8192
+TP_STAMP_DEFS = """
+__device__ long long g_tp_blk[@B@ * @S@];
+__device__ unsigned long long g_tp_gt[@B@ * @S@];
+__device__ long long g_tp_task[@T@ * 4];
+#define TP_BLOCK(k)                                                              \\
+  do {                                                                           \\
+    if (threadIdx.x == 0 && blockIdx.x < @B@) {                                 \\
+      unsigned long long t_;                                                     \\
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                     \\
+      g_tp_blk[blockIdx.x * @S@ + (k)] = clock64();                             \\
+      g_tp_gt[blockIdx.x * @S@ + (k)] = t_;                                     \\
+    }                                                                            \\
+  } while (0)
+#define TP_TASK(t, q, c)                                                         \\
+  do {                                                                           \\
+    if ((threadIdx.x & 31) == 0 && (t) < @T@) g_tp_task[(t) * 4 + (q)] = (c);   \\
+  } while (0)
+""".replace("@B@", str(TP_BLOCKS)).replace("@S@", str(TP_STAMPS)).replace("@T@", str(TP_TASKS))
+TP_STAMP_EXPORTS = """
+// the stamps into host memory: [blocks, stamps] clock64 and global timer,
+// [tasks, 4] cycles; and set to 0
+extern "C" int dkmc_tp_probe_read(void* blk, void* gt, void* task) {
+  cudaError_t e = cudaMemcpyFromSymbol(blk, g_tp_blk, sizeof(g_tp_blk));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, g_tp_gt, sizeof(g_tp_gt));
+  return (int)(e != cudaSuccess ? e : cudaMemcpyFromSymbol(task, g_tp_task, sizeof(g_tp_task)));
+}
+extern "C" int dkmc_tp_probe_clear() {
+  void *p = nullptr, *q = nullptr, *r = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, g_tp_blk);
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&q, g_tp_gt);
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&r, g_tp_task);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(g_tp_blk));
+  if (e == cudaSuccess) e = cudaMemset(q, 0, sizeof(g_tp_gt));
+  return (int)(e != cudaSuccess ? e : cudaMemset(r, 0, sizeof(g_tp_task)));
+}
+"""
+
+
+def transport_forms(src):
+    """The kernels of TRANSPORT_STAMPS that ``src`` (a transport_cg.cu)
+    holds."""
+    return [k for k in TRANSPORT_STAMPS if f"\ntransport_{k}_kernel(" in src
+            or f" transport_{k}_kernel(" in src]
+
+
+def transport_build(bdir, csrc):
+    """The transport_cg.cu of ``csrc`` with the stamps of every kernel of
+    TRANSPORT_STAMPS it holds: (those kernels, nvcc job)."""
+    src = (csrc / "transport_cg.cu").read_text()
+    forms = transport_forms(src)
+    for form in forms:
+        for anchor, stamp, where in TRANSPORT_STAMPS[form]:
+            src = replace_once(src, anchor, anchor + stamp if where == "after"
+                               else stamp + anchor, "transport_cg.cu")
+    head = "#include \"ticket.cuh\"\n"
+    src = replace_once(src, head, head + TP_STAMP_DEFS, "transport_cg.cu")
+    path = os.path.join(bdir, "transport_cg_stamped.cu")
+    with open(path, "w") as f:
+        f.write(src + TP_STAMP_EXPORTS)
+    return forms, nvcc_build(path, path[:-3] + ".so", csrc)
+
+
+def transport_stamps(lib, form, kinds=(), block_kinds=None):
+    """Each phase of TRANSPORT_PHASES[form] of the stamped kernel's last
+    launch, in cycles over the blocks that reached both its stamps (median,
+    most, count, block 0's); the global timer's spread of the blocks' first
+    stamps and the span from the first to the last stamp of any block (ns);
+    with ``kinds`` ((name, first task, end task, parts)), each kind's tasks'
+    cycles by part (median, most, count); with ``block_kinds`` ({kind: (first
+    block, end block, phase names)}) the phases by the blocks' kind ("-": a
+    phase not reported)."""
+    S = TP_STAMPS
+    blk = (ctypes.c_longlong * (TP_BLOCKS * S))()
+    gt = (ctypes.c_ulonglong * (TP_BLOCKS * S))()
+    task = (ctypes.c_longlong * (TP_TASKS * 4))()
+    err = lib.dkmc_tp_probe_read(*(ctypes.cast(b, ctypes.c_void_p) for b in (blk, gt, task)))
+    if err != 0:
+        raise RuntimeError(f"transport stamps: cudaError {err}")
+    rows = [blk[S * b:S * b + S] for b in range(TP_BLOCKS)]
+    gts = [gt[S * b:S * b + S] for b in range(TP_BLOCKS)]
+    live = [b for b in range(TP_BLOCKS) if rows[b][0]]
+    med = lambda xs: statistics.median(xs) if xs else None
+    out = {"blocks": len(live)}
+    groups = block_kinds or {"": (0, TP_BLOCKS, TRANSPORT_PHASES[form])}
+    for kind, (b_lo, b_hi, names) in groups.items():
+        mine = [b for b in live if b_lo <= b < b_hi]
+        for k, name in enumerate(names):
+            d = [rows[b][k + 1] - rows[b][k] for b in mine if rows[b][k] and rows[b][k + 1]]
+            if name != "-":
+                out[f"{kind}: {name}" if kind else name] = dict(
+                    blocks=len(d), median=med(d), max=max(d) if d else None)
+    if live:
+        starts = [gts[b][0] for b in live]
+        t0 = min(starts)
+        out["globaltimer_ns"] = dict(
+            start_spread=max(starts) - t0, start_median=med(starts) - t0,
+            span=max(max(v for v in gts[b] if v) for b in live) - t0)
+    for name, t_lo, t_hi, parts in kinds:
+        for q, part in enumerate(parts):
+            c = [task[4 * t + q] for t in range(t_lo, min(t_hi, TP_TASKS)) if task[4 * t + q]]
+            out[f"{name}: {part}"] = dict(tasks=len(c), median=med(c),
+                                          max=max(c) if c else None)
+    clear = lib.dkmc_tp_probe_clear()
+    if clear != 0:
+        raise RuntimeError(f"transport stamps: cudaError {clear}")
+    return out
+
+
+def transport_probe(cs, sim, stamped, inner=20):
+    """The transport CG's kernels of the package at the crossbar's transport
+    operator (the state after two supersteps, chip_smoke.transport_operator's
+    seeded direction): each kernel through its wrapper, back to back, beside
+    the band and the fly matvec; ``inner`` inner iterations captured as one
+    graph (a seeded CG start whose threshold is 0, so every iteration
+    iterates), per iteration; the warm solve of chip_smoke.py's phase 4
+    captured, per inner iteration; with ``stamped`` ((forms, library) of
+    transport_build) one launch of each stamped kernel and its phases."""
+    import dataclasses
+
+    import torch
+
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+    from devicekmc_tpu_torch.ops.graph import Graph
+
+    tws, op, x0, gen = cs.transport_operator(sim)
+    new = hasattr(tcg, "rows")
+    res = {"design": "blocks + rows, update packs" if new else "pack + apply",
+           "shape": dict(nsub=tws.x.shape[0], n_mp=int(op.T_vm.shape[1]),
+                         vcap=int(op.T_vm.shape[0]), n_vac=int(op.n_vac),
+                         max_nn=int(op.anb.shape[1]), nsi=op.nsi,
+                         gnd_terms=int(op.anb.shape[0]) - op.gnd_lo)}
+
+    def clone(ws):
+        kw = {}
+        for f in dataclasses.fields(ws):
+            v = getattr(ws, f.name)
+            if f.name == "cg":
+                v = dataclasses.replace(v, **{g.name: getattr(v, g.name).clone()
+                                              for g in dataclasses.fields(v)
+                                              if torch.is_tensor(getattr(v, g.name))})
+            elif f.name == "fly":
+                v = tuple(t.clone() for t in v)
+            elif torch.is_tensor(v):
+                v = v.clone()
+            kw[f.name] = v
+        return type(ws)(**kw)
+
+    # the inputs of each kernel: lo after the direction's products, hi
+    # after the iterate's
+    lo, hi = clone(tws), clone(tws)
+    if new:
+        tcg.refine(lo, op, True, tcg.MAX_OUTER, 20000)
+        tcg.blocks(lo, op, False)
+        tcg.pack(hi, op, True)
+        tcg.blocks(hi, op, True)
+    else:
+        tcg.pack(lo, op, False)
+        tcg.pack(hi, op, True, True)
+    tcg.band(lo, op)
+    tcg.fly(lo, op)
+    tcg.fly(hi, op)
+    t = {}
+    t["band"] = cs.time_ms(lambda: tcg.band(lo, op))
+    t["fly"] = cs.time_ms(lambda: tcg.fly(lo, op))
+    if new:
+        t["blocks_lo"] = cs.time_ms(lambda: tcg.blocks(lo, op, False))
+        t["blocks_hi"] = cs.time_ms(lambda: tcg.blocks(hi, op, True))
+        t["rows_lo"] = cs.time_ms(lambda: tcg.rows(lo, op, False))
+        t["rows_hi"] = cs.time_ms(lambda: tcg.rows(hi, op, True))
+        up = clone(lo)
+        up.cg.thresh2.zero_()
+        t["update_pack"] = cs.time_ms(lambda: tcg.update_pack(up, op))
+        t["pack_hi"] = cs.time_ms(lambda: tcg.pack(hi, op, True))
+    else:
+        t["pack_lo"] = cs.time_ms(lambda: tcg.pack(lo, op, False))
+        t["pack_hi"] = cs.time_ms(lambda: tcg.pack(hi, op, True, True))
+        t["apply_lo"] = cs.time_ms(lambda: tcg.apply(lo, op, False))
+        t["apply_hi"] = cs.time_ms(lambda: tcg.apply(hi, op, True))
+        up = clone(lo)
+        up.cg.thresh2.zero_()
+        t["cg_update_direction"] = cs.time_ms(
+            lambda: tcg.cg_update_direction(up.cg, tcg.INNER_MAXITER))
+    res["ms"] = t
+
+    # the body's products and inner iterations captured: the band alone, the
+    # band with what runs beside it (or after it, in the parent), and whole
+    # inner iterations from a CG start (threshold 0)
+    it = clone(tws)
+    it.cg.act.fill_(True)
+    it.cg.act0.fill_(True)
+    if new:
+        tcg.refine(it, op, True, tcg.MAX_OUTER, 20000)
+    else:
+        tcg.refine(it, True, tcg.MAX_OUTER, 20000)
+    it.cg.thresh2.zero_()
+    it.cg.act.fill_(True)
+    graphs = {"band": lambda: [tcg.band(it, op) for _ in range(inner)]}
+    if new:
+        from devicekmc_tpu_torch.ops.graph import fork, join
+
+        def beside(first, *parts):
+            # the band and ``parts`` on a branch beside it, the band captured
+            # ``first`` or after the branch's kernels
+            def run():
+                side = fork(it.x.device)
+                if first:
+                    tcg.band(it, op)
+                for part in parts:
+                    part(side)
+                if not first:
+                    tcg.band(it, op)
+                join(it.x.device)
+            return run
+
+        fly_b = lambda s_: tcg.fly(it, op, s_)
+        blocks_b = lambda s_: tcg.blocks(it, op, False, s_)
+        graphs["band beside fly + blocks"] = lambda: [tcg.products(it, op) for _ in range(inner)]
+        for name, fn in (("fly + blocks, then the band beside them",
+                          beside(False, fly_b, blocks_b)),
+                         ("band beside fly", beside(True, fly_b)),
+                         ("band beside blocks", beside(True, blocks_b)),
+                         ("fly + blocks alone", lambda: (fly_b(None), blocks_b(None)))):
+            graphs[name] = lambda fn=fn: [fn() for _ in range(inner)]
+    else:
+        graphs["band, fly, apply in series"] = lambda: [
+            (tcg.band(it, op), tcg.fly(it, op), tcg.apply(it, op, False)) for _ in range(inner)]
+    graphs["inner iteration"] = lambda: [tcg.inner_iteration(it, op) for _ in range(inner)]
+    res["captured_ms_each"] = {}
+    for name, fn in graphs.items():
+        g = Graph(fn, "cuda")
+        res["captured_ms_each"][name] = cs.time_ms(g, reps=3, rounds=5, warmup=1) / inner
+        del g
+
+    # the warm solve of chip_smoke.py's phase 4, captured
+    x0p = x0 * (1 + 1e-3 * torch.randn(x0.shape, generator=gen, dtype=torch.float64).cuda())
+    go = torch.ones(1, dtype=torch.bool, device="cuda")
+    tol = sim.params.transport_tol
+    sw = clone(tws)
+    solve = Graph(lambda: tcg.solve(sw, op, x0p, go, tol, 20000), "cuda")
+    solve()
+    n_in = int(sw.it_in)
+    ms = cs.time_ms(solve, reps=1, rounds=5, warmup=1)
+    res["solve"] = dict(inner=n_in, rounds=int(sw.it_out), ms=ms, ms_per_inner=ms / n_in)
+    if new:
+        # the same solve with other forms of the inner body's products: the
+        # branch captured first, or no branch (in series, either order)
+        from devicekmc_tpu_torch.ops.graph import fork, join
+
+        def branch_first(tw, op_, stream=None):
+            side = fork(tw.x.device, stream)
+            tcg.fly(tw, op_, side)
+            tcg.blocks(tw, op_, False, side)
+            tcg.band(tw, op_, stream)
+            join(tw.x.device, stream)
+
+        def series(band_first):
+            def run(tw, op_, stream=None):
+                if band_first:
+                    tcg.band(tw, op_, stream)
+                tcg.fly(tw, op_, stream)
+                tcg.blocks(tw, op_, False, stream)
+                if not band_first:
+                    tcg.band(tw, op_, stream)
+            return run
+
+        res["solve_forms"] = {}
+        products = tcg.products
+        def branch_of(*parts, after=()):
+            # the branch (captured first) of ``parts``, then ``after`` in
+            # series after the join
+            def run(tw, op_, stream=None):
+                side = fork(tw.x.device, stream)
+                for part in parts:
+                    part(tw, op_, side)
+                tcg.band(tw, op_, stream)
+                join(tw.x.device, stream)
+                for part in after:
+                    part(tw, op_, stream)
+            return run
+
+        fly_p = lambda tw, op_, s_: tcg.fly(tw, op_, s_)
+        blocks_p = lambda tw, op_, s_: tcg.blocks(tw, op_, False, s_)
+        try:
+            for name, form in (("branch first", branch_first),
+                               ("branch first, blocks then fly", branch_of(blocks_p, fly_p)),
+                               ("fly beside the band, blocks after",
+                                branch_of(fly_p, after=(blocks_p,))),
+                               ("blocks beside the band, fly after",
+                                branch_of(blocks_p, after=(fly_p,))),
+                               ("in series, band first", series(True)),
+                               ("in series, band last", series(False)),
+                               ("band first (the package's)", products)):
+                tcg.products = form
+                sv = clone(tws)
+                g = Graph(lambda: tcg.solve(sv, op, x0p, go, tol, 20000), "cuda")
+                g()
+                n = int(sv.it_in)
+                ms = cs.time_ms(g, reps=1, rounds=5, warmup=1)
+                res["solve_forms"][name] = dict(inner=n, ms=ms, ms_per_inner=ms / n)
+                del g
+        finally:
+            tcg.products = products
+
+    # one launch of each stamped kernel, its library in the package's place
+    forms, lib = stamped
+    loaded = _build._libs.get("transport_cg")
+    _build._libs["transport_cg"] = lib
+    res["stamps"] = {}
+    try:
+        lib.dkmc_tp_probe_clear()
+        vcap, n_mp = op.T_vm.shape
+        ncol = vcap + (n_mp + 31) // 32 * 32
+        for form in forms:
+            for build in (False, True):
+                w = clone(lo if not build else hi)
+                if form == "pack" and new and not build:
+                    continue
+                launch = {"apply": lambda: tcg.apply(w, op, build),
+                          "pack": (lambda: tcg.pack(w, op, True)) if new
+                          else lambda: tcg.pack(w, op, build, True),
+                          "blocks": lambda: tcg.blocks(w, op, build),
+                          "rows": lambda: tcg.rows(w, op, build)}[form]
+                torch.cuda.synchronize()
+                torch.cuda._sleep(cs.HOLD_CYCLES)
+                a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                launch()
+                e.record()
+                e.synchronize()
+                kinds, block_kinds = (), None
+                if form == "blocks":
+                    n_tb = -(-vcap // tcg.BLOCK_ROWS) * -(-n_mp // tcg.BLOCK_COLS)
+                    n_vb = -(-vcap // 8)
+                    small = 2 + 2 * n_vb
+                    ranges = ((small, small + n_tb), (2 + n_vb, small), (2, 2 + n_vb), (0, 2))
+                    block_kinds = {kind: (*r, names) for (kind, names), r in
+                                   zip(BLOCKS_KINDS.items(), ranges)}
+                if form == "apply":
+                    kinds = (("row task", 0, vcap, TRANSPORT_TASKS["apply"]),
+                             ("column chunk task", vcap, ncol, ("32 rows of 32 columns",)),
+                             ("virtual-node dot", ncol, ncol + 2, ("dot",)))
+                res["stamps"][f"{form}_{'hi' if build else 'lo'}"] = dict(
+                    ms=a.elapsed_time(e), **transport_stamps(lib, form, kinds, block_kinds))
+    finally:
+        _build._libs["transport_cg"] = loaded
+    res["sm_mhz"] = sm_mhz()
+    res["resources"] = {name: _build.kernel_resources(name)
+                        for name in ("banded", "wkb_fly", "transport_cg", "boundary_cg")}
+    return res
+
+
+#: graph supersteps timed after the probe's warm-up, transport and heat
+SUPERSTEPS = 8
+
+
+def superstep_probe(cs, sim, steps=SUPERSTEPS):
+    """``steps`` supersteps of ``sim`` (its captured graph), each timed with
+    the host clock between synchronizations beside its inner CG iterations;
+    the least-squares slope of ms over iterations (ms an inner iteration:
+    the steps' iteration counts differ, and move with the kernels' last
+    bits) and its intercept (the rest of a superstep)."""
+    import torch
+
+    ms, iters = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sim.state, _, m = sim._superstep(sim.state, cs.VD_MAIN)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        iters.append(int(m["cg_iters_power"]))
+    n = len(ms)
+    mi, mm = sum(iters) / n, sum(ms) / n
+    var = sum((i - mi) ** 2 for i in iters)
+    slope = sum((i - mi) * (t - mm) for i, t in zip(iters, ms)) / var if var else None
+    return dict(ms=ms, inner=iters, ms_per_inner=slope,
+                rest_ms=None if slope is None else mm - slope * mi)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--events", type=int, default=200, help="events of the capped launch")
@@ -846,14 +1326,15 @@ def main():
                     help="also time variants of both kernels (see the module's docstring)")
     ap.add_argument("--pkg", help="checkout whose devicekmc_tpu_torch is measured")
     ap.add_argument("--parts", default="events,matvec,update",
-                    help="what to probe, of events, matvec and update")
+                    help="what to probe, of events, matvec, update and transport")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "probe_cg_events.json"))
     args = ap.parse_args()
     if args.pkg and args.variants:
         ap.error("--variants rebuilds this checkout's sources: not with --pkg")
     parts = set(args.parts.split(","))
-    if parts - {"events", "matvec", "update"}:
-        ap.error(f"--parts: unknown {sorted(parts - {'events', 'matvec', 'update'})}")
+    known = {"events", "matvec", "update", "transport"}
+    if parts - known:
+        ap.error(f"--parts: unknown {sorted(parts - known)}")
     sys.path.insert(0, os.path.abspath(args.pkg) if args.pkg else ROOT)
     import torch
 
@@ -879,7 +1360,10 @@ def main():
     update_job = update_build(bdir, _build.CSRC) if "update" in parts else None
     update_variant_jobs = (update_variant_builds(bdir, _build.CSRC)
                            if args.variants and "update" in parts else {})
-    _build.build(["ell_gather", "pairwise", "kmc_events", "graph", "boundary_cg"])
+    transport_job = transport_build(bdir, _build.CSRC) if "transport" in parts else None
+    _build.build(["ell_gather", "pairwise", "kmc_events", "graph", "boundary_cg"]
+                 + (["banded", "wkb_fly", "wkb_window", "transport_cg"]
+                    if "transport" in parts else []))
     cs.finish_latency_build(latency_job)
     stamped, variants = finish(events_jobs), finish(matvec_jobs)
     update_lib = None
@@ -888,15 +1372,41 @@ def main():
         update_lib.dkmc_cg_probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         for fn in (update_lib.dkmc_cg_probe_stamps, update_lib.dkmc_cg_probe_clear):
             fn.restype = ctypes.c_int
+    transport_lib = None
+    if transport_job is not None:
+        transport_lib = finish({"transport_stamped": transport_job[1]})["transport_stamped"]
+        transport_lib.dkmc_tp_probe_read.argtypes = [ctypes.c_void_p] * 3
+        for fn in (transport_lib.dkmc_tp_probe_read, transport_lib.dkmc_tp_probe_clear):
+            fn.restype = ctypes.c_int
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in ("kmc_events", "boundary_cg"):
         print(name, [l.strip() for l in _build.build_log(name).splitlines()
                      if "registers" in l], flush=True)
 
-    sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build", "probe_run"))
-    sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
-    torch.cuda.synchronize()
     out = {"gpu": cs.gpu_line(), "package": pkg}
+    if "transport" in parts:
+        tsim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build",
+                                                                      "probe_transport"),
+                                     current=True)
+        tsim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
+        torch.cuda.synchronize()
+        out["transport"] = transport_probe(cs, tsim, (transport_job[0], transport_lib))
+        out["transport"]["supersteps"] = {"transport": superstep_probe(cs, tsim)}
+        del tsim
+        torch.cuda.empty_cache()
+        hsim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build",
+                                                                      "probe_heat"),
+                                     current=True, heat="global")
+        hsim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
+        out["transport"]["supersteps"]["heat (global)"] = superstep_probe(cs, hsim)
+        print("transport CG: " + json.dumps(out["transport"]), flush=True)
+        del hsim
+        torch.cuda.empty_cache()
+    if parts - {"transport"}:
+        sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build",
+                                                                     "probe_run"))
+        sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
+        torch.cuda.synchronize()
     if "events" in parts:
         out["events"] = event_probe(cs, sim, stamped, args.events)
         print("event loop: " + json.dumps(out["events"]), flush=True)
