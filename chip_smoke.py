@@ -101,11 +101,14 @@ Phases (any failed check raises and the exit code is non-zero):
    T_bg, the virtual potentials, the site power, the tunnel store, every
    metric); both again in turns, timed, one superstep of each under
    torch.profiler (busy share, the union of the device records; 1
-   device-to-host copy a graph superstep); the capture seconds at a second
+   device-to-host copy a graph superstep; in a graph superstep that solves,
+   each transport CG kernel of the nested WHILE bodies in the trace at
+   least once); the capture seconds at a second
    bias point (Vd = 1.05 V, 2 supersteps); the transport CG's kernels
    (blocks and rows, f32 and f64 builds, the update that packs, the f64
    pack, refine) against their plain versions at the path's shapes, timed
-   beside their bytes bounds, the band's and fly matvec's out= entries
+   beside their bytes bounds (the ELL rows' and the bump's valid slots, the
+   virtual rows' nonzero ranges), the band's and fly matvec's out= entries
    bit-equal to the allocating ones, the inner body inside a WHILE node
    with and without the branch beside the band and in series, and the warm
    solve captured and from the host loop;
@@ -169,9 +172,11 @@ Phases (any failed check raises and the exit code is non-zero):
    heat, B = 2) on the card against the CPU path;
 11. the boundary CG kernels of the captured superstep (csrc/boundary_cg.cu)
    at the crossbar's boundary system after phase 3: the device loop captured
-   with its WHILE node against cg_solve_batched from the run's potential plus
-   seeded noise (iteration counts equal, the iterate within 1e-12 of its
-   scale; the kernels of the WHILE node's body in the trace of a replay),
+   with its WHILE node (also after phase 3 and after each later phase, each
+   capture's profiled replay logged with the body's kernels its trace shows) against
+   cg_solve_batched from the run's potential plus seeded noise (iteration
+   counts equal, the iterate within 1e-12 of its scale; the kernels of the
+   WHILE node's body in the trace of a replay),
    each of the two kernels (cg_matvec_dot, cg_update_direction) against its
    plain version, timed back to back and with a cold L2 beside its bytes
    bound (the matvec's: the operator's interior nonzeros, value and index,
@@ -1378,12 +1383,20 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-#: the kernels of the headline paths by their wrappers' names, and the name
-#: each has in a profiler trace (no name holds another)
+#: the kernels of the headline paths and of the transport CG by their
+#: wrappers' names, and a stem of the name each has in a profiler trace (a
+#: record is the kernel's whose stem is the longest it holds: the transport
+#: build of cg_update_direction is the pack's)
 TRACE_NAMES = {name: f"{name}_kernel" for name in (
     "ell_gather", "ell_gather_batched", "poisson_pairwise", "poisson_pairwise_batched",
-    "kmc_event_loop", "kmc_event_loop_batched", "cg_matvec_dot", "cg_update_direction")}
+    "kmc_event_loop", "kmc_event_loop_batched", "cg_matvec_dot", "cg_update_direction",
+    "transport_blocks", "transport_rows", "transport_pack", "transport_refine")}
+TRACE_NAMES["cg_update_direction_pack"] = "cg_update_direction_kernel<float, true>"
 CG_KERNELS = ("cg_matvec_dot", "cg_update_direction")
+#: the transport CG's kernels, each in the trace of a graph superstep that
+#: solves
+TRANSPORT_TRACED = ("transport_blocks", "transport_rows", "cg_update_direction_pack",
+                    "transport_pack", "transport_refine")
 
 
 def trace_counts(prof):
@@ -1391,8 +1404,13 @@ def trace_counts(prof):
     torch.profiler trace."""
     from torch.autograd import DeviceType
 
-    dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return {k: sum(stem in name for name in dev) for k, stem in TRACE_NAMES.items()}
+    out = dict.fromkeys(TRACE_NAMES, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            held = [k for k, stem in TRACE_NAMES.items() if stem in e.name]
+            if held:
+                out[max(held, key=lambda k: len(TRACE_NAMES[k]))] += 1
+    return out
 
 
 #: profiler sessions a profiled call may take: torch.profiler now and then
@@ -1710,26 +1728,33 @@ def transport_turns(sim, sim_e, tag, turns=TRANSPORT_TURNS):
               f"{tag}: graph and eager supersteps in turns differ")
         ms_g.append(tg)
         ms_e.append(te)
-    prof = {}
+    prof, inner = {}, {}
     for name, s in (("graph", sim), ("eager", sim_e)):
         prev = s.state
-        prof[name] = profile_calls(lambda: step(s), 1,
+        prof[name] = profile_calls(lambda: inner.__setitem__(name, step(s)[1]), 1,
                                    reset=lambda: setattr(s, "state", prev))
         check(prof[name][1] is not None, f"{tag} {name}: a trace without device records")
+        inner[name] = int(inner[name]["cg_iters_power"])
     check(prof["graph"][2] == 1, f"{tag}: {prof['graph'][2]} device-to-host copies a graph "
           "superstep, not 1")
+    # the kernels of the graph's nested WHILE bodies in its trace
+    seen = {k: prof["graph"][3][k] for k in TRANSPORT_TRACED}
+    check(inner["graph"] == 0 or all(seen.values()), f"{tag}: the trace of a graph "
+          f"superstep of {inner['graph']} inner iterations shows {seen}")
     out = dict(ms_turns_graph=ms_g, ms_turns_eager=ms_e,
                median_turns_graph=statistics.median(ms_g),
                median_turns_eager=statistics.median(ms_e),
                busy_graph=100 * prof["graph"][1] / prof["graph"][0],
                busy_eager=100 * prof["eager"][1] / prof["eager"][0],
-               dtoh_graph=prof["graph"][2], dtoh_eager=prof["eager"][2])
+               dtoh_graph=prof["graph"][2], dtoh_eager=prof["eager"][2],
+               traced_graph=dict(seen, inner_iterations=inner["graph"]))
     log(f"{tag} in turns, {turns} supersteps each: graph median "
         f"{out['median_turns_graph']:.2f} ms ({[round(x, 2) for x in ms_g]}), eager median "
         f"{out['median_turns_eager']:.2f} ms ({[round(x, 2) for x in ms_e]}); one profiled "
         f"superstep each: device busy graph {out['busy_graph']:.1f} %, eager "
         f"{out['busy_eager']:.1f} %; device-to-host copies graph {out['dtoh_graph']}, eager "
-        f"{out['dtoh_eager']}")
+        f"{out['dtoh_eager']}; the transport CG's kernels in the graph superstep's trace "
+        f"{out['traced_graph']}")
     return out
 
 
@@ -1871,7 +1896,13 @@ def transport_cg_checks(sim, band):
     nv = int(op.n_vac)
     R, m_pad, B = tws.shape
     nfull = nsub + 1
+    # what the functions must read of the sparse inputs: the virtual rows'
+    # nonzero ranges (gnd on atoms gnd_lo .. na - 1, src on 0 .. nsi - 1), the
+    # valid slots of the atom graph (ELL rows of max_nn slots, pad -1) and of
+    # the live vacancies' rows (the bump)
     dots_terms = (na - op.gnd_lo) + op.nsi
+    nnz = int((op.anb >= 0).sum())
+    nnz_vac = int((op.anb[op.vidx[:nv].long()] >= 0).sum())
     f4, f8, i4 = 4, 8, 4
 
     def clone(ws):
@@ -1905,8 +1936,9 @@ def transport_cg_checks(sim, band):
         tcg.pack_plain(p, op, True, first)
         e = max(err(getattr(k, f), getattr(p, f)) for f in ("xs64", "xm", "x"))
         check(e == 0, f"transport_pack (first={first}): {e} from its plain version")
+    # timed on the warm start (first: no inner x read, x not written)
     timed("pack", lambda: tcg.pack(k, op, True), lambda: tcg.pack_plain(p, op, True, True),
-          f8 * 2 * nsub + f4 * nsub + f8 * nfull + i4 * na + f4 * n_mp, 0.0)
+          f8 * 2 * nsub + f8 * nfull + i4 * na + f4 * n_mp, 0.0)
     # the band's and the fly matvec's out= entries, at the path's shapes
     k = clone(tws)
     tcg.pack_plain(k, op, False)
@@ -1963,7 +1995,7 @@ def transport_cg_checks(sim, band):
               f"(scale {scale}), dots {e_dot} relative")
         w = f8 if hi else f4
         bytes_ = (f4 * nv * n_mp + f4 * nv * nv + f4 * n_mp + (i4 + w) * nv
-                  + (0 if hi else (f4 + i4 + w) * nv * max_nn) + 2 * w * dots_terms
+                  + (0 if hi else (f4 + i4 + w) * nnz_vac) + 2 * w * dots_terms
                   + f4 * (n_mp + 3 * nv) + 2 * w)
         timed(f"blocks_{'hi' if hi else 'lo'}", lambda: tcg.blocks(k, op, hi),
               lambda: tcg.blocks_plain(p, op, hi), bytes_, e, rel_err=e / scale,
@@ -1988,10 +2020,11 @@ def transport_cg_checks(sim, band):
               f"(scale {scale})")
         common = i4 * na * 2 + f4 * n_mp * 2 + f4 * nv * 2
         if hi:
-            bytes_ = common + (f8 + i4) * na * max_nn + f8 * (2 * na + 2 + 4 * nsub) + f8 * nsub
+            bytes_ = (common + (f8 + i4) * nnz + f8 * (dots_terms + 2 + 4 * nsub)
+                      + f8 * nsub)
         else:
             bytes_ = (common + i4 * na + f4 * na + f4 * nv
-                      + f4 * (2 * na + 2 + 4 * nsub) + f4 * nsub)
+                      + f4 * (dots_terms + 2 + 4 * nsub) + f4 * nsub)
         timed(f"rows_{'hi' if hi else 'lo'}", lambda: tcg.rows(k, op, hi),
               lambda: tcg.rows_plain(p, op, hi), bytes_, e, rel_err=e / scale)
     # the update and pack: the boundary build's update bit for bit, and the
@@ -2101,7 +2134,8 @@ def transport_cg_checks(sim, band):
         f"{(ce['inner iteration'] - ce['without the branch']) * 1e3:.2f} us, in series "
         f"{(ce['in series'] - ce['without the branch']) * 1e3:.2f} us")
     shape = (f"Nsub={nsub}, n_mp={n_mp}, vacancy bucket {vcap} ({nv} live), "
-             f"max_nn={max_nn}, dots of {na - op.gnd_lo} and {op.nsi} terms")
+             f"max_nn={max_nn}, {nnz} valid ELL slots ({nnz / na:.2f} a row; {nnz_vac} on "
+             f"the live vacancies' rows), dots of {na - op.gnd_lo} and {op.nsi} terms")
     log(f"transport CG kernels at the path's shapes ({shape}): "
         + "; ".join(f"{name} {r['ms']:.5f} ms (bound {r['bound_ms']:.5f}, plain "
                     f"{r['plain_ms']:.4f}, err {r['err']:.3g})"
@@ -3906,18 +3940,13 @@ def update_direction_bytes(bcg, N, nb, per, itemsize=8):
     return 8 * itemsize * nb * N, 3 * itemsize * again
 
 
-def boundary_cg_graph(sim):
-    """Phase 11's captured boundary CG at the crossbar's boundary system (B =
-    1, the state after phase 3's runs, a warm start with seeded noise),
-    captured right after phase 3: torch.profiler records the WHILE body's
-    kernels of a graph captured then, and of one captured after the later
-    phases' graphs none (my chip runs PR 14).  Returns its inputs, the
-    workspace and the graph."""
+def boundary_cg_system(sim):
+    """Phase 11's boundary system: the crossbar's (B = 1, the state after
+    phase 3's runs) and a warm start with seeded noise.  Returns its
+    inputs."""
     import numpy as np
     import torch
 
-    from devicekmc_tpu_torch.ops import boundary_cg as bcg
-    from devicekmc_tpu_torch.ops.graph import Graph
     from devicekmc_tpu_torch.physics import potential as pot
     from devicekmc_tpu_torch.state import stack_states
 
@@ -3933,12 +3962,38 @@ def boundary_cg_graph(sim):
     noise = torch.as_tensor(CG_NOISE * rng.standard_normal(geom.N), device="cuda")
     x0 = torch.where(interior, states.potential_boundary + noise, 0.0)
     active = torch.ones(1, dtype=torch.bool, device="cuda")
-    tol = params.solver_tol
-    ws = bcg.workspace(1, geom.neigh_idx, interior, b.dtype, "cuda")
-    solve = Graph(lambda: bcg.cg_solve_device(op, b, x0, pre, tol, CG_MAXITER, active, ws),
-                  "cuda")
     return dict(states=states, b=b, matvec=matvec, pre=pre, op=op, x0=x0, active=active,
-                tol=tol, ws=ws, solve=solve)
+                tol=params.solver_tol)
+
+
+def boundary_cg_capture(cg):
+    """The boundary CG of ``cg`` (boundary_cg_system's) captured with its
+    WHILE node: (workspace, graph)."""
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.ops.graph import Graph
+
+    op = cg["op"]
+    ws = bcg.workspace(1, op[2], op[3], cg["b"].dtype, "cuda")
+    return ws, Graph(lambda: bcg.cg_solve_device(op, cg["b"], cg["x0"], cg["pre"], cg["tol"],
+                                                 CG_MAXITER, cg["active"], ws), "cuda")
+
+
+#: phase 11's boundary CG captured anew after each phase from phase 3 on:
+#: (the phase, the CG kernels in the trace of one profiled replay, the
+#: iterations the card counted in it)
+fresh_traces = []
+
+
+def fresh_capture_trace(cg, after):
+    """Capture phase 11's boundary CG anew (``cg``: boundary_cg_system's)
+    after the phase ``after`` and profile one replay: the WHILE body's
+    kernels in its trace against the card's iteration count (fresh_traces,
+    logged).  No check: phase 11 checks its own capture."""
+    ws, g = boundary_cg_capture(cg)
+    seen = profile_calls(g, 1, before=ws.total.zero_)[3]
+    fresh_traces.append((after, seen and {k: seen[k] for k in CG_KERNELS}, int(ws.total)))
+    log(f"phase 11's boundary CG captured after phase {after}: one profiled replay's trace "
+        f"shows {fresh_traces[-1][1]} of {fresh_traces[-1][2]} iterations")
 
 
 def boundary_cg_path(sim, cg, cg_launches, cg_launches_ensemble):
@@ -3954,7 +4009,7 @@ def boundary_cg_path(sim, cg, cg_launches, cg_launches_ensemble):
     CSR; cg_update_direction also at B = 8 and 32 (the replica copied),
     beside its bound and the bytes its blocks read again; the work a
     captured superstep adds in a step where no replica solves (assembly, CG
-    setup, residual) captured and timed.  ``cg``: boundary_cg_graph's.
+    setup, residual) captured and timed.  ``cg``: boundary_cg_system's.
     Returns the kernels' records (``cg_launches``, ``cg_launches_ensemble``:
     the device's iteration count in phase 3's graph run and phase 10's main
     run)."""
@@ -3971,12 +4026,13 @@ def boundary_cg_path(sim, cg, cg_launches, cg_launches_ensemble):
     geom, params = sim.geom, sim.params
     states, b, matvec, pre, op = cg["states"], cg["b"], cg["matvec"], cg["pre"], cg["op"]
     diag, vals = op[0], op[1]
-    x0, active, tol, ws, solve = cg["x0"], cg["active"], cg["tol"], cg["ws"], cg["solve"]
+    x0, active, tol = cg["x0"], cg["active"], cg["tol"]
     interior = geom.bp_interior_mask
     masks = (geom.bp_left_mask, geom.bp_right_mask, interior)
     vl, vr = -VD_MAIN / 2, VD_MAIN / 2
 
     ref = cg_solve_batched(matvec, b, x0, pre, tol=tol, maxiter=CG_MAXITER, active=active)
+    ws, solve = boundary_cg_capture(cg)
     res = solve()
     iters, iters_ref = int(res.iters[0]), int(ref.iters[0])
     x_err = rel_err(res.x, ref.x)
@@ -4174,30 +4230,39 @@ def main():
 
     run, draws_crossbar, event_record, kernels, (xsim, headline) = headline_path(out_root)
     torch.cuda.empty_cache()
-    boundary_cg = boundary_cg_graph(xsim)
+    boundary_cg = boundary_cg_system(xsim)
+    fresh_capture_trace(boundary_cg, "3 (headline)")
     batched = crossbar_batched_check(out_root, run)
     torch.cuda.empty_cache()
+    fresh_capture_trace(boundary_cg, "batched crossbar")
     transport_launches, (presolve, steps, readbacks), tgraph, records = transport_path(
         out_root)
     kernels += records
     torch.cuda.empty_cache()
+    fresh_capture_trace(boundary_cg, "4 (transport)")
     heat_launches, hgraph, pdisp = heat_path(out_root)
     torch.cuda.empty_cache()
+    fresh_capture_trace(boundary_cg, "5 (heat)")
     readbacks_ref = cg_reference_run(out_root, (presolve, steps))
     torch.cuda.empty_cache()
+    fresh_capture_trace(boundary_cg, "6 (reference run)")
 
     t0 = time.perf_counter()
     small_modular_check(out_root)
     modular_launches = modular_path(out_root, run[0])
     torch.cuda.empty_cache()
+    fresh_capture_trace(boundary_cg, "7 (modular)")
     small_resume_checks(out_root)
     crossbar_resume_checks(out_root)
     torch.cuda.empty_cache()
+    fresh_capture_trace(boundary_cg, "8 (resumes)")
     bf16_record, bf16_launches = bf16_transport_path(out_root, steps)
     torch.cuda.empty_cache()
+    fresh_capture_trace(boundary_cg, "9 (bf16)")
     log(f"modular, checkpoint and bf16 phases in {time.perf_counter() - t0:.1f} s")
     ensemble_checks, ensemble = ensemble_path(out_root)
     torch.cuda.empty_cache()
+    fresh_capture_trace(boundary_cg, "10 (ensemble)")
     log("ensemble summary: " + json.dumps(ensemble))
     pdisp.update(launches_transport_path=transport_launches["wkb_fly_pdisp"],
                  launches_heat_path=pdisp["launches"])

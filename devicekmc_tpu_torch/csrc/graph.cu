@@ -23,11 +23,6 @@
 // stream).  The handle is then made on that body graph, the node is added to
 // it, and the inner body is captured from `side`.
 //
-// A branch beside a stream: dkmc_stream_wait records an event on one stream
-// and makes another wait for it.  Under a capture (a WHILE body's too) the
-// waiting stream joins the capture and the two paths become edges of the
-// graph, not event nodes: a fork, and with the streams swapped a join.
-//
 // The handles are the driver's: this library links the CUDA runtime
 // statically, and a stream, a graph and a node made through PyTorch's runtime
 // are the same objects here.  Needs CUDA 12.4 (conditional nodes added during
@@ -107,18 +102,4 @@ extern "C" int dkmc_while_begin(void* stream, void* side, const void* cond,
 extern "C" int dkmc_while_end(void* side) {
   cudaGraph_t body;
   return (int)cudaStreamEndCapture(static_cast<cudaStream_t>(side), &body);
-}
-
-// `to` runs what it is given next after what `from` was given so far.
-extern "C" int dkmc_stream_wait(void* from, void* to, void* event) {
-  cudaEvent_t ev = static_cast<cudaEvent_t>(event);
-  cudaError_t err = cudaEventRecord(ev, static_cast<cudaStream_t>(from));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaStreamWaitEvent(static_cast<cudaStream_t>(to), ev, 0);
-}
-
-// An event for dkmc_stream_wait (no timing), kept by the caller.
-extern "C" int dkmc_event_create(void** event) {
-  return (int)cudaEventCreateWithFlags(reinterpret_cast<cudaEvent_t*>(event),
-                                       cudaEventDisableTiming);
 }

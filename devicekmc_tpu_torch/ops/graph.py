@@ -31,8 +31,8 @@ import torch
 
 from . import _build
 
-#: the streams the bodies of WHILE nodes are captured on, one a device and
-#: nesting depth
+#: the streams the bodies of WHILE nodes are captured on, and those of the
+#: branches fork starts, one a device and nesting depth
 _side_streams: Dict[tuple, torch.cuda.Stream] = {}
 #: WHILE nodes nested deepest: the side streams Graph makes before a capture
 MAX_DEPTH = 2
@@ -40,9 +40,6 @@ MAX_DEPTH = 2
 _depth = 0
 #: the stream graphs are captured on, one a device
 _capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
-#: the branches forked beside a stream (fork): (stream, fork event, join
-#: event), one a device and nesting depth
-_branches: Dict[tuple, tuple] = {}
 
 
 def _fn(name: str):
@@ -50,8 +47,7 @@ def _fn(name: str):
     if fn.argtypes is None:
         p, u = ctypes.c_void_p, ctypes.c_ulonglong
         fn.argtypes = {"dkmc_while_begin": [p, p, p, ctypes.POINTER(u)],
-                       "dkmc_while_end": [p], "dkmc_stream_wait": [p, p, p],
-                       "dkmc_event_create": [ctypes.POINTER(p)]}[name]
+                       "dkmc_while_end": [p]}[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -63,30 +59,24 @@ def _device(device) -> torch.device:
     return device
 
 
-def side_stream(device, depth: int = 0) -> torch.cuda.Stream:
+def side_stream(device, depth: int = 0, branch: bool = False) -> torch.cuda.Stream:
     """The stream that captures the bodies of WHILE nodes nested ``depth``
-    deep on ``device``; :class:`Graph` makes them before a capture begins."""
-    key = (_device(device), depth)
+    deep on ``device`` (``branch``: that of the branches :func:`fork` starts
+    inside ``depth`` bodies being captured, 0: none); :class:`Graph` makes
+    them before a capture begins."""
+    key = (_device(device), depth, branch)
     if key not in _side_streams:
         _side_streams[key] = torch.cuda.Stream(key[0])
     return _side_streams[key]
 
 
-def _branch(device, depth: int) -> tuple:
-    """(stream, fork event, join event) of the branch that :func:`fork`
-    starts inside ``depth`` WHILE bodies being captured (0: none) on
-    ``device``; :class:`Graph` makes them before a capture begins."""
-    key = (_device(device), depth)
-    if key not in _branches:
-        events = []
-        for _ in range(2):
-            ev = ctypes.c_void_p()
-            err = _fn("dkmc_event_create")(ctypes.byref(ev))
-            if err != 0:
-                raise RuntimeError(f"branch: no event: cudaError {err}")
-            events.append(ev.value)
-        _branches[key] = (torch.cuda.Stream(key[0]), *events)
-    return _branches[key]
+def _streams(device, stream) -> tuple:
+    """``stream`` (a raw handle on ``device``; None: the current stream) as
+    a torch stream, and the stream of a branch beside it."""
+    device = _device(device)
+    base = (torch.cuda.current_stream(device) if stream is None
+            else torch.cuda.ExternalStream(stream, device=device))
+    return base, side_stream(device, _depth, branch=True)
 
 
 def fork(device, stream=None) -> int:
@@ -95,24 +85,16 @@ def fork(device, stream=None) -> int:
     what ``stream`` was given so far and beside what it is given next, until
     :func:`join`.  Inside a capture the branch is captured into the same
     graph, or WHILE body, as a second path of nodes."""
-    if stream is None:
-        stream = torch.cuda.current_stream(device).cuda_stream
-    side, ev, _ = _branch(device, _depth)
-    err = _fn("dkmc_stream_wait")(stream, side.cuda_stream, ev)
-    if err != 0:
-        raise RuntimeError(f"fork: cudaError {err}")
+    base, side = _streams(device, stream)
+    side.wait_stream(base)
     return side.cuda_stream
 
 
 def join(device, stream=None) -> None:
     """``stream`` (None: the current stream) runs what it is given next
     after the work of the branch :func:`fork` started beside it."""
-    if stream is None:
-        stream = torch.cuda.current_stream(device).cuda_stream
-    side, _, ev = _branch(device, _depth)
-    err = _fn("dkmc_stream_wait")(side.cuda_stream, stream, ev)
-    if err != 0:
-        raise RuntimeError(f"join: cudaError {err}")
+    base, side = _streams(device, stream)
+    base.wait_stream(side)
 
 
 def _predicate(cond: torch.Tensor) -> bool:
@@ -194,10 +176,9 @@ class Graph:
         self.per_replay = {}
         if self.device.type == "cpu":
             return
-        for depth in range(MAX_DEPTH):
-            side_stream(self.device, depth)
         for depth in range(MAX_DEPTH + 1):
-            _branch(self.device, depth)
+            side_stream(self.device, depth)
+            side_stream(self.device, depth, branch=True)
         stream = _capture_streams.get(self.device)
         if stream is None:
             stream = _capture_streams[self.device] = torch.cuda.Stream(self.device)

@@ -22,8 +22,8 @@ crossbar's shapes (108,944 sites; the state after two graph supersteps):
   operator: its kernels through their wrappers, the band with the kernels
   that run beside it, inner iterations and the warm solve captured (the
   solve also with other forms of the inner body), ``clock64()`` stamps of
-  each kernel's phases (TRANSPORT_STAMPS: the parent's apply and pack, or
-  the blocks, rows and f64 pack), and the transport and heat (global)
+  each kernel's phases (TRANSPORT_STAMPS: the blocks, rows and f64 pack),
+  and the transport and heat (global)
   configurations' graph supersteps, their ms an inner iteration;
 
 * the boundary CG's update and direction at the same system: through the
@@ -857,37 +857,11 @@ def update_probe(cs, sim, stamped, variants=None, batches=(8, 32), ensemble=True
     return res
 
 
-#: clock64() stamps of the transport CG's kernels, by the form the measured
-#: csrc/transport_cg.cu has: (text that occurs once, stamp, "after" or
-#: "before" it).  TP_BLOCK(k) in thread 0 of every block writes block stamp
-#: k (clock64 and the global timer); TP_TASK(t, q, cycles) in lane 0 of a
-#: warp the cycles of part q of task t.  TRANSPORT_TASKS names the tasks'
-#: kinds and parts, TRANSPORT_PHASES the phases between block stamps, by
-#: kernel.
+#: clock64() stamps of the transport CG's kernels: (text that occurs once,
+#: stamp, "after" or "before" it).  TP_BLOCK(k) in thread 0 of every block
+#: writes block stamp k (clock64 and the global timer).  TRANSPORT_PHASES
+#: names the phases between block stamps, by kernel.
 TRANSPORT_STAMPS = {
-    "apply": (
-        ("  count_launch(A.count);\n  constexpr bool kLo = sizeof(T) == 4;\n",
-         "  TP_BLOCK(0);\n", "after"),
-        ("      if (s >= nv) continue;\n", "      const long long c0_ = clock64();\n", "after"),
-        ("      a = warp_sum(a);\n", "      const long long c1_ = clock64();\n", "after"),
-        ("      c = warp_sum(c);\n", "      const long long c2_ = clock64();\n", "after"),
-        ("        d = warp_sum(d);\n      }\n",
-         "      const long long c3_ = clock64();\n      TP_TASK(task, 0, c1_ - c0_);\n"
-         "      TP_TASK(task, 1, c2_ - c1_);\n      TP_TASK(task, 2, c3_ - c2_);\n", "after"),
-        ("      const int s0 = q * rows_per_chunk, s1 = min(s0 + rows_per_chunk, nv);\n",
-         "      const long long c0_ = clock64();\n", "after"),
-        ("        A.mv_part[(size_t)q * A.n_mp + col] = acc;\n      }\n",
-         "      __syncwarp();\n      TP_TASK(task, 0, clock64() - c0_);\n", "after"),
-        ("      const T* w = is_gnd ? A.gnd : A.src;\n", "      const long long c0_ = clock64();\n",
-         "after"),
-        ("      if (lane == 0) A.dots[is_gnd ? 0 : 1] = acc;\n",
-         "      TP_TASK(task, 0, clock64() - c0_);\n", "before"),
-        ("  grid_barrier(A.bar);\n\n  // 2. the rows", "  __syncthreads();\n  TP_BLOCK(1);\n",
-         "before"),
-        ("  // 2. the rows, a tile of kTile at a time", "  TP_BLOCK(2);\n", "before"),
-        ("  // 3. the tiles' sums in tile order", "  TP_BLOCK(3);\n", "before"),
-        ("      A.rsum[0] = (double)total;\n    }\n  }\n", "  TP_BLOCK(4);\n", "after"),
-    ),
     "pack": (
         ("  count_launch(count);\n  const int i = blockIdx.x * kThreads + threadIdx.x;\n",
          "  TP_BLOCK(0);\n", "after"),
@@ -917,8 +891,6 @@ TRANSPORT_STAMPS = {
     ),
 }
 TRANSPORT_PHASES = {
-    "apply": ("phase 1 (block products, bump, dots)", "grid barrier", "row tiles",
-              "last-ticket sum"),
     "pack": ("a block's rows",),
     # by the block's kind: a tile of T_vm (loads and its rows' partial sums,
     # its columns' partial sums, the tickets and the tile sums), T_vv's rows
@@ -932,17 +904,10 @@ BLOCKS_KINDS = {"T_vm tile": ("loads, rows' partial sums", "columns' partial sum
                 "T_vv rows": ("first loads issued", "x_v gathered", "T_vv rows"),
                 "bump": ("-", "-", "the bump"),
                 "dot": ("-", "-", "the dot")}
-#: the parent's tasks of phase 1, a warp each: (kind, part names) by the
-#: task's index range (rows [0, vcap), columns [vcap, vcap + groups * 32),
-#: the two dots)
-TRANSPORT_TASKS = {
-    "apply": ("T_vm row", "T_vv row", "bump"),
-}
-TP_BLOCKS, TP_STAMPS, TP_TASKS = 8192, 6, 8192
+TP_BLOCKS, TP_STAMPS = 8192, 6
 TP_STAMP_DEFS = """
 __device__ long long g_tp_blk[@B@ * @S@];
 __device__ unsigned long long g_tp_gt[@B@ * @S@];
-__device__ long long g_tp_task[@T@ * 4];
 #define TP_BLOCK(k)                                                              \\
   do {                                                                           \\
     if (threadIdx.x == 0 && blockIdx.x < @B@) {                                 \\
@@ -952,27 +917,20 @@ __device__ long long g_tp_task[@T@ * 4];
       g_tp_gt[blockIdx.x * @S@ + (k)] = t_;                                     \\
     }                                                                            \\
   } while (0)
-#define TP_TASK(t, q, c)                                                         \\
-  do {                                                                           \\
-    if ((threadIdx.x & 31) == 0 && (t) < @T@) g_tp_task[(t) * 4 + (q)] = (c);   \\
-  } while (0)
-""".replace("@B@", str(TP_BLOCKS)).replace("@S@", str(TP_STAMPS)).replace("@T@", str(TP_TASKS))
+""".replace("@B@", str(TP_BLOCKS)).replace("@S@", str(TP_STAMPS))
 TP_STAMP_EXPORTS = """
-// the stamps into host memory: [blocks, stamps] clock64 and global timer,
-// [tasks, 4] cycles; and set to 0
-extern "C" int dkmc_tp_probe_read(void* blk, void* gt, void* task) {
+// the stamps into host memory: [blocks, stamps] clock64 and global timer;
+// and set to 0
+extern "C" int dkmc_tp_probe_read(void* blk, void* gt) {
   cudaError_t e = cudaMemcpyFromSymbol(blk, g_tp_blk, sizeof(g_tp_blk));
-  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(gt, g_tp_gt, sizeof(g_tp_gt));
-  return (int)(e != cudaSuccess ? e : cudaMemcpyFromSymbol(task, g_tp_task, sizeof(g_tp_task)));
+  return (int)(e != cudaSuccess ? e : cudaMemcpyFromSymbol(gt, g_tp_gt, sizeof(g_tp_gt)));
 }
 extern "C" int dkmc_tp_probe_clear() {
-  void *p = nullptr, *q = nullptr, *r = nullptr;
+  void *p = nullptr, *q = nullptr;
   cudaError_t e = cudaGetSymbolAddress(&p, g_tp_blk);
   if (e == cudaSuccess) e = cudaGetSymbolAddress(&q, g_tp_gt);
-  if (e == cudaSuccess) e = cudaGetSymbolAddress(&r, g_tp_task);
   if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(g_tp_blk));
-  if (e == cudaSuccess) e = cudaMemset(q, 0, sizeof(g_tp_gt));
-  return (int)(e != cudaSuccess ? e : cudaMemset(r, 0, sizeof(g_tp_task)));
+  return (int)(e != cudaSuccess ? e : cudaMemset(q, 0, sizeof(g_tp_gt)));
 }
 """
 
@@ -1001,20 +959,17 @@ def transport_build(bdir, csrc):
     return forms, nvcc_build(path, path[:-3] + ".so", csrc)
 
 
-def transport_stamps(lib, form, kinds=(), block_kinds=None):
+def transport_stamps(lib, form, block_kinds=None):
     """Each phase of TRANSPORT_PHASES[form] of the stamped kernel's last
     launch, in cycles over the blocks that reached both its stamps (median,
-    most, count, block 0's); the global timer's spread of the blocks' first
-    stamps and the span from the first to the last stamp of any block (ns);
-    with ``kinds`` ((name, first task, end task, parts)), each kind's tasks'
-    cycles by part (median, most, count); with ``block_kinds`` ({kind: (first
-    block, end block, phase names)}) the phases by the blocks' kind ("-": a
-    phase not reported)."""
+    most, count); the global timer's spread of the blocks' first stamps and
+    the span from the first to the last stamp of any block (ns); with
+    ``block_kinds`` ({kind: (first block, end block, phase names)}) the
+    phases by the blocks' kind ("-": a phase not reported)."""
     S = TP_STAMPS
     blk = (ctypes.c_longlong * (TP_BLOCKS * S))()
     gt = (ctypes.c_ulonglong * (TP_BLOCKS * S))()
-    task = (ctypes.c_longlong * (TP_TASKS * 4))()
-    err = lib.dkmc_tp_probe_read(*(ctypes.cast(b, ctypes.c_void_p) for b in (blk, gt, task)))
+    err = lib.dkmc_tp_probe_read(*(ctypes.cast(b, ctypes.c_void_p) for b in (blk, gt)))
     if err != 0:
         raise RuntimeError(f"transport stamps: cudaError {err}")
     rows = [blk[S * b:S * b + S] for b in range(TP_BLOCKS)]
@@ -1036,11 +991,6 @@ def transport_stamps(lib, form, kinds=(), block_kinds=None):
         out["globaltimer_ns"] = dict(
             start_spread=max(starts) - t0, start_median=med(starts) - t0,
             span=max(max(v for v in gts[b] if v) for b in live) - t0)
-    for name, t_lo, t_hi, parts in kinds:
-        for q, part in enumerate(parts):
-            c = [task[4 * t + q] for t in range(t_lo, min(t_hi, TP_TASKS)) if task[4 * t + q]]
-            out[f"{name}: {part}"] = dict(tasks=len(c), median=med(c),
-                                          max=max(c) if c else None)
     clear = lib.dkmc_tp_probe_clear()
     if clear != 0:
         raise RuntimeError(f"transport stamps: cudaError {clear}")
@@ -1062,12 +1012,10 @@ def transport_probe(cs, sim, stamped, inner=20):
 
     from devicekmc_tpu_torch.ops import _build
     from devicekmc_tpu_torch.ops import transport_cg as tcg
-    from devicekmc_tpu_torch.ops.graph import Graph
+    from devicekmc_tpu_torch.ops.graph import Graph, fork, join
 
     tws, op, x0, gen = cs.transport_operator(sim)
-    new = hasattr(tcg, "rows")
-    res = {"design": "blocks + rows, update packs" if new else "pack + apply",
-           "shape": dict(nsub=tws.x.shape[0], n_mp=int(op.T_vm.shape[1]),
+    res = {"shape": dict(nsub=tws.x.shape[0], n_mp=int(op.T_vm.shape[1]),
                          vcap=int(op.T_vm.shape[0]), n_vac=int(op.n_vac),
                          max_nn=int(op.anb.shape[1]), nsi=op.nsi,
                          gnd_terms=int(op.anb.shape[0]) - op.gnd_lo)}
@@ -1090,82 +1038,59 @@ def transport_probe(cs, sim, stamped, inner=20):
     # the inputs of each kernel: lo after the direction's products, hi
     # after the iterate's
     lo, hi = clone(tws), clone(tws)
-    if new:
-        tcg.refine(lo, op, True, tcg.MAX_OUTER, 20000)
-        tcg.blocks(lo, op, False)
-        tcg.pack(hi, op, True)
-        tcg.blocks(hi, op, True)
-    else:
-        tcg.pack(lo, op, False)
-        tcg.pack(hi, op, True, True)
+    tcg.refine(lo, op, True, tcg.MAX_OUTER, 20000)
+    tcg.blocks(lo, op, False)
+    tcg.pack(hi, op, True)
+    tcg.blocks(hi, op, True)
     tcg.band(lo, op)
     tcg.fly(lo, op)
     tcg.fly(hi, op)
     t = {}
     t["band"] = cs.time_ms(lambda: tcg.band(lo, op))
     t["fly"] = cs.time_ms(lambda: tcg.fly(lo, op))
-    if new:
-        t["blocks_lo"] = cs.time_ms(lambda: tcg.blocks(lo, op, False))
-        t["blocks_hi"] = cs.time_ms(lambda: tcg.blocks(hi, op, True))
-        t["rows_lo"] = cs.time_ms(lambda: tcg.rows(lo, op, False))
-        t["rows_hi"] = cs.time_ms(lambda: tcg.rows(hi, op, True))
-        up = clone(lo)
-        up.cg.thresh2.zero_()
-        t["update_pack"] = cs.time_ms(lambda: tcg.update_pack(up, op))
-        t["pack_hi"] = cs.time_ms(lambda: tcg.pack(hi, op, True))
-    else:
-        t["pack_lo"] = cs.time_ms(lambda: tcg.pack(lo, op, False))
-        t["pack_hi"] = cs.time_ms(lambda: tcg.pack(hi, op, True, True))
-        t["apply_lo"] = cs.time_ms(lambda: tcg.apply(lo, op, False))
-        t["apply_hi"] = cs.time_ms(lambda: tcg.apply(hi, op, True))
-        up = clone(lo)
-        up.cg.thresh2.zero_()
-        t["cg_update_direction"] = cs.time_ms(
-            lambda: tcg.cg_update_direction(up.cg, tcg.INNER_MAXITER))
+    t["blocks_lo"] = cs.time_ms(lambda: tcg.blocks(lo, op, False))
+    t["blocks_hi"] = cs.time_ms(lambda: tcg.blocks(hi, op, True))
+    t["rows_lo"] = cs.time_ms(lambda: tcg.rows(lo, op, False))
+    t["rows_hi"] = cs.time_ms(lambda: tcg.rows(hi, op, True))
+    up = clone(lo)
+    up.cg.thresh2.zero_()
+    t["update_pack"] = cs.time_ms(lambda: tcg.update_pack(up, op))
+    t["pack_hi"] = cs.time_ms(lambda: tcg.pack(hi, op, True))
     res["ms"] = t
 
     # the body's products and inner iterations captured: the band alone, the
-    # band with what runs beside it (or after it, in the parent), and whole
-    # inner iterations from a CG start (threshold 0)
+    # band with what runs beside it, and whole inner iterations from a CG
+    # start (threshold 0)
     it = clone(tws)
     it.cg.act.fill_(True)
     it.cg.act0.fill_(True)
-    if new:
-        tcg.refine(it, op, True, tcg.MAX_OUTER, 20000)
-    else:
-        tcg.refine(it, True, tcg.MAX_OUTER, 20000)
+    tcg.refine(it, op, True, tcg.MAX_OUTER, 20000)
     it.cg.thresh2.zero_()
     it.cg.act.fill_(True)
-    graphs = {"band": lambda: [tcg.band(it, op) for _ in range(inner)]}
-    if new:
-        from devicekmc_tpu_torch.ops.graph import fork, join
 
-        def beside(first, *parts):
-            # the band and ``parts`` on a branch beside it, the band captured
-            # ``first`` or after the branch's kernels
-            def run():
-                side = fork(it.x.device)
-                if first:
-                    tcg.band(it, op)
-                for part in parts:
-                    part(side)
-                if not first:
-                    tcg.band(it, op)
-                join(it.x.device)
-            return run
+    def beside(first, *parts):
+        # the band and ``parts`` on a branch beside it, the band captured
+        # ``first`` or after the branch's kernels
+        def run():
+            side = fork(it.x.device)
+            if first:
+                tcg.band(it, op)
+            for part in parts:
+                part(side)
+            if not first:
+                tcg.band(it, op)
+            join(it.x.device)
+        return run
 
-        fly_b = lambda s_: tcg.fly(it, op, s_)
-        blocks_b = lambda s_: tcg.blocks(it, op, False, s_)
-        graphs["band beside fly + blocks"] = lambda: [tcg.products(it, op) for _ in range(inner)]
-        for name, fn in (("fly + blocks, then the band beside them",
-                          beside(False, fly_b, blocks_b)),
-                         ("band beside fly", beside(True, fly_b)),
-                         ("band beside blocks", beside(True, blocks_b)),
-                         ("fly + blocks alone", lambda: (fly_b(None), blocks_b(None)))):
-            graphs[name] = lambda fn=fn: [fn() for _ in range(inner)]
-    else:
-        graphs["band, fly, apply in series"] = lambda: [
-            (tcg.band(it, op), tcg.fly(it, op), tcg.apply(it, op, False)) for _ in range(inner)]
+    fly_b = lambda s_: tcg.fly(it, op, s_)
+    blocks_b = lambda s_: tcg.blocks(it, op, False, s_)
+    graphs = {"band": lambda: [tcg.band(it, op) for _ in range(inner)],
+              "band beside fly + blocks": lambda: [tcg.products(it, op) for _ in range(inner)]}
+    for name, fn in (("band first, fly + blocks beside it", beside(True, fly_b, blocks_b)),
+                     ("band first, fly beside it", beside(True, fly_b)),
+                     ("band first, blocks beside it", beside(True, blocks_b)),
+                     ("fly + blocks alone", lambda: (fly_b(None), blocks_b(None)))):
+        graphs[name] = lambda fn=fn: [fn() for _ in range(inner)]
     graphs["inner iteration"] = lambda: [tcg.inner_iteration(it, op) for _ in range(inner)]
     res["captured_ms_each"] = {}
     for name, fn in graphs.items():
@@ -1173,75 +1098,67 @@ def transport_probe(cs, sim, stamped, inner=20):
         res["captured_ms_each"][name] = cs.time_ms(g, reps=3, rounds=5, warmup=1) / inner
         del g
 
-    # the warm solve of chip_smoke.py's phase 4, captured
+    # the warm solve of chip_smoke.py's phase 4, captured, with the package's
+    # inner body and with other forms of its products: the band captured
+    # before its branch, part of the branch after the join, no branch (in
+    # series, either order)
     x0p = x0 * (1 + 1e-3 * torch.randn(x0.shape, generator=gen, dtype=torch.float64).cuda())
     go = torch.ones(1, dtype=torch.bool, device="cuda")
     tol = sim.params.transport_tol
-    sw = clone(tws)
-    solve = Graph(lambda: tcg.solve(sw, op, x0p, go, tol, 20000), "cuda")
-    solve()
-    n_in = int(sw.it_in)
-    ms = cs.time_ms(solve, reps=1, rounds=5, warmup=1)
-    res["solve"] = dict(inner=n_in, rounds=int(sw.it_out), ms=ms, ms_per_inner=ms / n_in)
-    if new:
-        # the same solve with other forms of the inner body's products: the
-        # branch captured first, or no branch (in series, either order)
-        from devicekmc_tpu_torch.ops.graph import fork, join
 
-        def branch_first(tw, op_, stream=None):
+    def branch_of(*parts, after=(), band_first=False):
+        # the branch of ``parts`` (captured before the band, or after it),
+        # then ``after`` in series after the join
+        def run(tw, op_, stream=None):
             side = fork(tw.x.device, stream)
-            tcg.fly(tw, op_, side)
-            tcg.blocks(tw, op_, False, side)
-            tcg.band(tw, op_, stream)
-            join(tw.x.device, stream)
-
-        def series(band_first):
-            def run(tw, op_, stream=None):
-                if band_first:
-                    tcg.band(tw, op_, stream)
-                tcg.fly(tw, op_, stream)
-                tcg.blocks(tw, op_, False, stream)
-                if not band_first:
-                    tcg.band(tw, op_, stream)
-            return run
-
-        res["solve_forms"] = {}
-        products = tcg.products
-        def branch_of(*parts, after=()):
-            # the branch (captured first) of ``parts``, then ``after`` in
-            # series after the join
-            def run(tw, op_, stream=None):
-                side = fork(tw.x.device, stream)
-                for part in parts:
-                    part(tw, op_, side)
+            if band_first:
                 tcg.band(tw, op_, stream)
-                join(tw.x.device, stream)
-                for part in after:
-                    part(tw, op_, stream)
-            return run
+            for part in parts:
+                part(tw, op_, side)
+            if not band_first:
+                tcg.band(tw, op_, stream)
+            join(tw.x.device, stream)
+            for part in after:
+                part(tw, op_, stream)
+        return run
 
-        fly_p = lambda tw, op_, s_: tcg.fly(tw, op_, s_)
-        blocks_p = lambda tw, op_, s_: tcg.blocks(tw, op_, False, s_)
-        try:
-            for name, form in (("branch first", branch_first),
-                               ("branch first, blocks then fly", branch_of(blocks_p, fly_p)),
-                               ("fly beside the band, blocks after",
-                                branch_of(fly_p, after=(blocks_p,))),
-                               ("blocks beside the band, fly after",
-                                branch_of(blocks_p, after=(fly_p,))),
-                               ("in series, band first", series(True)),
-                               ("in series, band last", series(False)),
-                               ("band first (the package's)", products)):
-                tcg.products = form
-                sv = clone(tws)
-                g = Graph(lambda: tcg.solve(sv, op, x0p, go, tol, 20000), "cuda")
-                g()
-                n = int(sv.it_in)
-                ms = cs.time_ms(g, reps=1, rounds=5, warmup=1)
-                res["solve_forms"][name] = dict(inner=n, ms=ms, ms_per_inner=ms / n)
-                del g
-        finally:
-            tcg.products = products
+    def series(band_first):
+        def run(tw, op_, stream=None):
+            if band_first:
+                tcg.band(tw, op_, stream)
+            tcg.fly(tw, op_, stream)
+            tcg.blocks(tw, op_, False, stream)
+            if not band_first:
+                tcg.band(tw, op_, stream)
+        return run
+
+    fly_p = lambda tw, op_, s_: tcg.fly(tw, op_, s_)
+    blocks_p = lambda tw, op_, s_: tcg.blocks(tw, op_, False, s_)
+    products = tcg.products
+    res["solve_forms"] = {}
+    try:
+        for name, form in (("the package's", products),
+                           ("branch first, blocks then fly", branch_of(blocks_p, fly_p)),
+                           ("band first, the branch beside it",
+                            branch_of(fly_p, blocks_p, band_first=True)),
+                           ("fly beside the band, blocks after",
+                            branch_of(fly_p, after=(blocks_p,))),
+                           ("blocks beside the band, fly after",
+                            branch_of(blocks_p, after=(fly_p,))),
+                           ("in series, band first", series(True)),
+                           ("in series, band last", series(False))):
+            tcg.products = form
+            sv = clone(tws)
+            g = Graph(lambda: tcg.solve(sv, op, x0p, go, tol, 20000), "cuda")
+            g()
+            n = int(sv.it_in)
+            ms = cs.time_ms(g, reps=1, rounds=5, warmup=1)
+            res["solve_forms"][name] = dict(inner=n, rounds=int(sv.it_out), ms=ms,
+                                            ms_per_inner=ms / n)
+            del g
+    finally:
+        tcg.products = products
+    res["solve"] = res["solve_forms"]["the package's"]
 
     # one launch of each stamped kernel, its library in the package's place
     forms, lib = stamped
@@ -1251,15 +1168,10 @@ def transport_probe(cs, sim, stamped, inner=20):
     try:
         lib.dkmc_tp_probe_clear()
         vcap, n_mp = op.T_vm.shape
-        ncol = vcap + (n_mp + 31) // 32 * 32
         for form in forms:
-            for build in (False, True):
+            for build in ((True,) if form == "pack" else (False, True)):
                 w = clone(lo if not build else hi)
-                if form == "pack" and new and not build:
-                    continue
-                launch = {"apply": lambda: tcg.apply(w, op, build),
-                          "pack": (lambda: tcg.pack(w, op, True)) if new
-                          else lambda: tcg.pack(w, op, build, True),
+                launch = {"pack": lambda: tcg.pack(w, op, True),
                           "blocks": lambda: tcg.blocks(w, op, build),
                           "rows": lambda: tcg.rows(w, op, build)}[form]
                 torch.cuda.synchronize()
@@ -1269,7 +1181,7 @@ def transport_probe(cs, sim, stamped, inner=20):
                 launch()
                 e.record()
                 e.synchronize()
-                kinds, block_kinds = (), None
+                block_kinds = None
                 if form == "blocks":
                     n_tb = -(-vcap // tcg.BLOCK_ROWS) * -(-n_mp // tcg.BLOCK_COLS)
                     n_vb = -(-vcap // 8)
@@ -1277,12 +1189,8 @@ def transport_probe(cs, sim, stamped, inner=20):
                     ranges = ((small, small + n_tb), (2 + n_vb, small), (2, 2 + n_vb), (0, 2))
                     block_kinds = {kind: (*r, names) for (kind, names), r in
                                    zip(BLOCKS_KINDS.items(), ranges)}
-                if form == "apply":
-                    kinds = (("row task", 0, vcap, TRANSPORT_TASKS["apply"]),
-                             ("column chunk task", vcap, ncol, ("32 rows of 32 columns",)),
-                             ("virtual-node dot", ncol, ncol + 2, ("dot",)))
                 res["stamps"][f"{form}_{'hi' if build else 'lo'}"] = dict(
-                    ms=a.elapsed_time(e), **transport_stamps(lib, form, kinds, block_kinds))
+                    ms=a.elapsed_time(e), **transport_stamps(lib, form, block_kinds))
     finally:
         _build._libs["transport_cg"] = loaded
     res["sm_mhz"] = sm_mhz()
@@ -1375,7 +1283,7 @@ def main():
     transport_lib = None
     if transport_job is not None:
         transport_lib = finish({"transport_stamped": transport_job[1]})["transport_stamped"]
-        transport_lib.dkmc_tp_probe_read.argtypes = [ctypes.c_void_p] * 3
+        transport_lib.dkmc_tp_probe_read.argtypes = [ctypes.c_void_p] * 2
         for fn in (transport_lib.dkmc_tp_probe_read, transport_lib.dkmc_tp_probe_clear):
             fn.restype = ctypes.c_int
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
