@@ -172,8 +172,8 @@ Phases (any failed check raises and the exit code is non-zero):
    heat, B = 2) on the card against the CPU path;
 11. the boundary CG kernels of the captured superstep (csrc/boundary_cg.cu)
    at the crossbar's boundary system after phase 3: the device loop captured
-   with its WHILE node (also after phase 3 and after each later phase, each
-   capture's profiled replay logged with the body's kernels its trace shows) against
+   with its WHILE node (right after phase 3; captured anew at phase 11, one
+   profiled replay's trace is logged, not checked) against
    cg_solve_batched from the run's potential plus seeded noise (iteration
    counts equal, the iterate within 1e-12 of its scale; the kernels of the
    WHILE node's body in the trace of a replay),
@@ -3942,8 +3942,11 @@ def update_direction_bytes(bcg, N, nb, per, itemsize=8):
 
 def boundary_cg_system(sim):
     """Phase 11's boundary system: the crossbar's (B = 1, the state after
-    phase 3's runs) and a warm start with seeded noise.  Returns its
-    inputs."""
+    phase 3's runs) and a warm start with seeded noise, and its boundary CG
+    captured now (``captured``: boundary_cg_capture's): torch.profiler
+    records the WHILE body's kernels of a graph captured right after phase
+    3, and of one captured after the later phases as a rule none (PERF.md
+    §7).  Returns its inputs."""
     import numpy as np
     import torch
 
@@ -3962,8 +3965,10 @@ def boundary_cg_system(sim):
     noise = torch.as_tensor(CG_NOISE * rng.standard_normal(geom.N), device="cuda")
     x0 = torch.where(interior, states.potential_boundary + noise, 0.0)
     active = torch.ones(1, dtype=torch.bool, device="cuda")
-    return dict(states=states, b=b, matvec=matvec, pre=pre, op=op, x0=x0, active=active,
-                tol=params.solver_tol)
+    cg = dict(states=states, b=b, matvec=matvec, pre=pre, op=op, x0=x0, active=active,
+              tol=params.solver_tol)
+    cg["captured"] = boundary_cg_capture(cg)
+    return cg
 
 
 def boundary_cg_capture(cg):
@@ -3976,24 +3981,6 @@ def boundary_cg_capture(cg):
     ws = bcg.workspace(1, op[2], op[3], cg["b"].dtype, "cuda")
     return ws, Graph(lambda: bcg.cg_solve_device(op, cg["b"], cg["x0"], cg["pre"], cg["tol"],
                                                  CG_MAXITER, cg["active"], ws), "cuda")
-
-
-#: phase 11's boundary CG captured anew after each phase from phase 3 on:
-#: (the phase, the CG kernels in the trace of one profiled replay, the
-#: iterations the card counted in it)
-fresh_traces = []
-
-
-def fresh_capture_trace(cg, after):
-    """Capture phase 11's boundary CG anew (``cg``: boundary_cg_system's)
-    after the phase ``after`` and profile one replay: the WHILE body's
-    kernels in its trace against the card's iteration count (fresh_traces,
-    logged).  No check: phase 11 checks its own capture."""
-    ws, g = boundary_cg_capture(cg)
-    seen = profile_calls(g, 1, before=ws.total.zero_)[3]
-    fresh_traces.append((after, seen and {k: seen[k] for k in CG_KERNELS}, int(ws.total)))
-    log(f"phase 11's boundary CG captured after phase {after}: one profiled replay's trace "
-        f"shows {fresh_traces[-1][1]} of {fresh_traces[-1][2]} iterations")
 
 
 def boundary_cg_path(sim, cg, cg_launches, cg_launches_ensemble):
@@ -4032,7 +4019,7 @@ def boundary_cg_path(sim, cg, cg_launches, cg_launches_ensemble):
     vl, vr = -VD_MAIN / 2, VD_MAIN / 2
 
     ref = cg_solve_batched(matvec, b, x0, pre, tol=tol, maxiter=CG_MAXITER, active=active)
-    ws, solve = boundary_cg_capture(cg)
+    ws, solve = cg["captured"]
     res = solve()
     iters, iters_ref = int(res.iters[0]), int(ref.iters[0])
     x_err = rel_err(res.x, ref.x)
@@ -4043,6 +4030,11 @@ def boundary_cg_path(sim, cg, cg_launches, cg_launches_ensemble):
     check(seen is not None and int(ws.total) == iters,
           f"boundary CG: {int(ws.total)} iterations on the card in a profiled replay")
     n_seen = cg_seen("boundary CG", seen, iters)
+    # the same solve captured now, one replay profiled: logged, not checked
+    ws_late, late = boundary_cg_capture(cg)
+    seen = profile_calls(late, 1, before=ws_late.total.zero_)[3]
+    n_seen_late = seen and {k: seen[k] for k in CG_KERNELS}
+    del late
     solve_ms = time_ms(solve, reps=3, rounds=3, warmup=1)
     eager_ms = time_ms(lambda: cg_solve_batched(matvec, b, x0, pre, tol=tol,
                                                 maxiter=CG_MAXITER, active=active),
@@ -4154,7 +4146,8 @@ def boundary_cg_path(sim, cg, cg_launches, cg_launches_ensemble):
     log(f"boundary CG at the crossbar's system (noise {CG_NOISE} V on the warm start): "
         f"{iters} iterations in the captured device loop and by cg_solve_batched, iterate "
         f"within {x_err:.3e} of its scale; the trace of a profiled replay shows the CG "
-        f"kernels {n_seen} times for its {iters} iterations; the captured solve "
+        f"kernels {n_seen} times for its {iters} iterations (captured after phase 3; "
+        f"captured now, {n_seen_late}); the captured solve "
         f"{solve_ms:.3f} ms "
         f"({solve_ms / iters * 1e3:.2f} us an iteration), cg_solve_batched {eager_ms:.3f} ms "
         f"({eager_ms / iters * 1e3:.2f} us an iteration)")
@@ -4185,7 +4178,8 @@ def boundary_cg_path(sim, cg, cg_launches, cg_launches_ensemble):
                     path="headline, captured graph (WHILE node body)", **r)
                for name, r in out.items()]
     summary = dict(iters=iters, x_err=x_err, solve_ms=solve_ms, eager_ms=eager_ms,
-                   assembly_ms=assembly_ms, cg_launches_traced=n_seen)
+                   assembly_ms=assembly_ms, cg_launches_traced=n_seen,
+                   cg_launches_traced_late_capture=n_seen_late)
     return records, summary
 
 
@@ -4231,38 +4225,29 @@ def main():
     run, draws_crossbar, event_record, kernels, (xsim, headline) = headline_path(out_root)
     torch.cuda.empty_cache()
     boundary_cg = boundary_cg_system(xsim)
-    fresh_capture_trace(boundary_cg, "3 (headline)")
     batched = crossbar_batched_check(out_root, run)
     torch.cuda.empty_cache()
-    fresh_capture_trace(boundary_cg, "batched crossbar")
     transport_launches, (presolve, steps, readbacks), tgraph, records = transport_path(
         out_root)
     kernels += records
     torch.cuda.empty_cache()
-    fresh_capture_trace(boundary_cg, "4 (transport)")
     heat_launches, hgraph, pdisp = heat_path(out_root)
     torch.cuda.empty_cache()
-    fresh_capture_trace(boundary_cg, "5 (heat)")
     readbacks_ref = cg_reference_run(out_root, (presolve, steps))
     torch.cuda.empty_cache()
-    fresh_capture_trace(boundary_cg, "6 (reference run)")
 
     t0 = time.perf_counter()
     small_modular_check(out_root)
     modular_launches = modular_path(out_root, run[0])
     torch.cuda.empty_cache()
-    fresh_capture_trace(boundary_cg, "7 (modular)")
     small_resume_checks(out_root)
     crossbar_resume_checks(out_root)
     torch.cuda.empty_cache()
-    fresh_capture_trace(boundary_cg, "8 (resumes)")
     bf16_record, bf16_launches = bf16_transport_path(out_root, steps)
     torch.cuda.empty_cache()
-    fresh_capture_trace(boundary_cg, "9 (bf16)")
     log(f"modular, checkpoint and bf16 phases in {time.perf_counter() - t0:.1f} s")
     ensemble_checks, ensemble = ensemble_path(out_root)
     torch.cuda.empty_cache()
-    fresh_capture_trace(boundary_cg, "10 (ensemble)")
     log("ensemble summary: " + json.dumps(ensemble))
     pdisp.update(launches_transport_path=transport_launches["wkb_fly_pdisp"],
                  launches_heat_path=pdisp["launches"])
