@@ -888,15 +888,101 @@ def fly_checks(pos, cb, env, K, tag, plain_reps=5):
     return rec
 
 
+def band_checks(band, n_atoms, ell=None):
+    """The band kernel at ``band`` (``build_banded_nb``'s, f32 or bf16
+    values) on a seeded window: bit-equal to its plain version (the same
+    sums in the same order), timed back to back and with a cold L2 beside
+    its bytes bound over the nonzeros (each slot's value and offset, the
+    slice starts, the window once, the output), the plain version and
+    torch.sparse.mm of the same operator in CSR (f32 values: those of a bf16
+    band widened); ``ell`` (nb_vals, nb_safe): also the ELL form of the
+    whole neighbour product in f32.  The slots' bytes, the longest row and
+    the padding share logged."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import banded as bd
+
+    slots = band["slots"]
+    R, m_pad, B = slots.shape
+    g = torch.Generator(device="cuda").manual_seed(1)
+    xa = torch.randn(n_atoms, generator=g, device="cuda")
+    xw = torch.zeros((R + m_pad - 1) * B, device="cuda")
+    xw[band["front"]:band["front"] + n_atoms] = xa[band["pi"]]
+    y = bd.banded_matvec(slots, xw)
+    ref = bd.banded_matvec_plain(slots, xw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all()), "banded_matvec: output finite")
+    check(torch.equal(y, ref), f"banded_matvec: not bit-equal to its plain version (max "
+          f"difference {float((y - ref).abs().max())})")
+    # the operator's nonzeros: each row's valid slots, in order, as CSR
+    pos, held = bd._rows(slots)
+    ok = held & (slots.val[pos] != 0)
+    per_row = ok.sum(dim=1)
+    nnz = int(per_row.sum())
+    rows = torch.arange(R * B, device="cuda")[:, None].expand_as(pos)[ok]
+    cols = (rows // B) * B + (slots.off[pos[ok]].long() & 0xFFFF)
+    crow = torch.zeros(R * B + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(per_row, 0)
+    vals = slots.val[pos[ok]].float()
+    csr = torch.sparse_csr_tensor(crow, cols, vals, (R * B, xw.numel()))
+    x2 = xw[:, None]
+    lib = torch.sparse.mm(csr, x2)[:, 0]
+    # f32 sums in another order: within 1e-5 of the largest sum of |terms|
+    scale = float(torch.sparse.mm(torch.sparse_csr_tensor(crow, cols, vals.abs(),
+                                                          (R * B, xw.numel())),
+                                  x2.abs()).max())
+    lib_err = float((lib - y).abs().max())
+    check(lib_err <= 1e-5 * scale, f"torch.sparse.mm differs from the kernel by {lib_err} "
+          f"(scale {scale})")
+    vb = slots.val.element_size()
+    n_el = slots.off.numel()
+    slot_bytes = n_el * (2 + vb) + slots.start.numel() * 4
+    bytes_ = nnz * (2 + vb) + slots.start.numel() * 4 + xw.numel() * 4 + R * B * 4
+    bound, by = _bound(2 * nnz, bytes_)
+    out = dict(
+        err=0.0, bound_ms=bound, bound_by=by,
+        ms=time_ms(lambda: bd.banded_matvec(slots, xw)),
+        cold_ms=time_ms_cold(lambda: bd.banded_matvec(slots, xw)),
+        plain_ms=time_ms(lambda: bd.banded_matvec_plain(slots, xw), reps=5, rounds=3),
+        library_ms=time_ms(lambda: torch.sparse.mm(csr, x2)),
+        library_cold_ms=time_ms_cold(lambda: torch.sparse.mm(csr, x2)),
+        library_err=lib_err, nnz=nnz, elements=n_el, slot_bytes=slot_bytes,
+        bound_bytes=bytes_, longest_row=int(per_row.max()), pad_share=1 - nnz / max(n_el, 1),
+        dense_bytes=R * m_pad * B * B * vb,
+        shape=(f"band [{R}, {m_pad}, {B}] {str(slots.val.dtype)[6:]}: {nnz} nonzeros in "
+               f"{n_el} slots ({slot_bytes / 2**20:.2f} MiB), f32 vector"))
+    if ell is not None:
+        nb32, nb_safe = ell
+        out["ell_ms"] = time_ms(lambda: (nb32 * xa[nb_safe]).sum(dim=1))
+        out["ell_bytes"] = nb32.numel() * 4 + nb_safe.numel() * 8
+    if slots.val.dtype == torch.bfloat16:
+        # the vector rounded to bf16 (the JAX package's form, which stalls
+        # the inner CG) gives another product
+        rounded = bd.banded_matvec_plain(slots, xw.to(torch.bfloat16))
+        out["err_rounded"] = float((rounded - ref).abs().max())
+        check(out["err_rounded"] > 0, "bf16 band: the bf16-rounded vector gives the same "
+              "product")
+    log(f"banded_matvec {out['shape']}; longest row {out['longest_row']} slots, padding "
+        f"{100 * out['pad_share']:.2f} % of the slots (the dense blocks: "
+        f"{out['dense_bytes'] / 2**30:.2f} GiB): {out['ms']:.5f} ms back to back, "
+        f"{out['cold_ms']:.5f} ms cold L2 (bound {bound:.5f} ms by {by}, "
+        f"{bytes_ / 2**20:.2f} MiB), bit-equal to the plain version ({out['plain_ms']:.4f} "
+        f"ms); torch.sparse.mm in CSR {out['library_ms']:.5f} ms, cold "
+        f"{out['library_cold_ms']:.5f} ms (max difference {lib_err:.3e} of scale "
+        f"{scale:.3e})"
+        + (f"; the ELL form nb_vals * xa[nb_safe] in f32 ({out['ell_bytes'] / 2**20:.1f} "
+           f"MiB): {out['ell_ms']:.4f} ms" if ell is not None else "")
+        + (f"; the bf16-rounded vector {out['err_rounded']:.3e} from it"
+           if "err_rounded" in out else ""))
+    return out
+
+
 def transport_kernel_checks(sim):
     """The four transport kernels against their plain versions at the
     transport path's shapes: the band built for this structure, the run's
     metal atoms and CB edges, its vacancy bucket."""
     import torch
 
-    from devicekmc_tpu_torch.ops.banded import (
-        banded_matvec, banded_matvec_plain, window_stack,
-    )
     from devicekmc_tpu_torch.ops.wkb_window import (
         wkb_window_block, wkb_window_block_plain,
     )
@@ -906,38 +992,8 @@ def transport_kernel_checks(sim):
     blk = cur.assemble_X_blocks(geom, params, state, band=sim._band)
     env = blk["fly"]["env"]
     out = {}
-
-    # ---- banded matvec, beside the ELL gather form of the same product ----
-    Cb = sim._band["C"]
-    R, m_pad, B, _ = Cb.shape
-    Na = geom.N_atom
-    g = torch.Generator(device="cuda").manual_seed(1)
-    xa = torch.randn(Na, generator=g, device="cuda")
-    xp = torch.zeros((R + m_pad - 1) * B, device="cuda")
-    xp[sim._band["front"]:sim._band["front"] + Na] = xa[sim._band["pi"]]
-    xp2 = xp.reshape(R + m_pad - 1, B)
-    y = banded_matvec(Cb, xp2)
-    # rtol 2e-5 of the largest entry: f32 sums in another order
-    err = _close("banded matvec", y, banded_matvec_plain(Cb, xp2), 2e-5)
-    xst = window_stack(xp2, R, m_pad)
-    nb32, nb_safe = blk["nb_vals"].float(), blk["nb_safe"]
-    bytes_ = Cb.numel() * 4 + xp2.numel() * 4 + R * B * 4
-    bound, by = _bound(2 * Cb.numel(), bytes_)
-    out["banded"] = dict(
-        err=err, bound_ms=bound, bound_by=by,
-        ms=time_ms(lambda: banded_matvec(Cb, xp2), reps=10),
-        plain_ms=time_ms(lambda: banded_matvec_plain(Cb, xp2), reps=5, rounds=3),
-        library_ms=time_ms(lambda: torch.einsum("rkbj,rkj->rb", Cb, xst), reps=5, rounds=3),
-        ell_ms=time_ms(lambda: (nb32 * xa[nb_safe]).sum(dim=1)),
-        ell_bytes=nb32.numel() * 4 + nb_safe.numel() * 8,
-        shape=f"C4 [{R}, {m_pad}, {B}, {B}] f32, {bytes_ / 2**30:.2f} GiB")
-    nnz = int((Cb != 0).sum())
-    log(f"banded_matvec {out['banded']['shape']} ({nnz} non-zeros, "
-        f"{100 * nnz / Cb.numel():.3f} %): {out['banded']['ms']:.4f} ms (bound "
-        f"{bound:.4f} ms by {by}), plain {out['banded']['plain_ms']:.4f} ms, einsum on "
-        f"the window stack {out['banded']['library_ms']:.4f} ms, max err {err:.3e}; the "
-        f"ELL form nb_vals * xa[nb_safe] in f32 ({out['banded']['ell_bytes'] / 2**20:.1f} "
-        f"MiB): {out['banded']['ell_ms']:.4f} ms")
+    out["banded"] = band_checks(sim._band, geom.N_atom,
+                                (blk["nb_vals"].float(), blk["nb_safe"]))
 
     # ---- on-the-fly products at this path's metal set ----
     K = params.coarse_slabs * max(1, params.coarse_yz) ** 2
@@ -1773,15 +1829,21 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True):
     from devicekmc_tpu_torch.ops import pairwise as pw
 
     tag = "heat (global) graph" if heat else "transport graph"
+    # the memory this run holds once built and the most it allocates while
+    # it runs, beyond what was live before it (the eager run's)
+    before = torch.cuda.memory_allocated()
     sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(
         out_root, "heat_graph" if heat else "transport_graph"), current=True,
         heat="global" if heat else None)
+    built_gib = (torch.cuda.memory_allocated() - before) / 2**30
+    torch.cuda.reset_peak_memory_stats()
     check(sim._graph_for(sim.params) is not None,
           f"{tag}: the configuration does not run the captured graph")
     batched = {"ell_gather_batched": eg.ell_gather_batched,
                "poisson_pairwise_batched": pw.poisson_pairwise_batched,
                "kmc_event_loop_batched": kmc_events.kmc_event_loop_batched}
     recs, card, host, wall = transport_graph_run(sim, tag, wrappers=batched)
+    peak_gib = (torch.cuda.max_memory_allocated() - before) / 2**30
     graph = sim._graph
     n = TRANSPORT_STEPS
     check(graph.replays == n and graph.captures == 2,
@@ -1823,6 +1885,8 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True):
         f"({graph.captures} captures of {[round(x, 3) for x in first]} s; at {VD_SECOND} V "
         f"{[round(x, 3) for x in second]} s, that bias point in {time.perf_counter() - t:.2f} "
         f"s); launches on the card {card}; {inner} inner CG iterations in {n} supersteps; "
+        f"memory held once built {built_gib:.3f} GiB, the most while it ran {peak_gib:.3f} "
+        f"GiB; "
         f"events, elements, cg_iters_power, I_macro, P_tot, T_bg, the virtual potentials, "
         f"the site power and the tunnel store equal to the eager run step for step")
     log(f"{tag} supersteps after 2: graph median {statistics.median(ms):.2f} ms (min "
@@ -1832,7 +1896,8 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True):
                     for a, b in zip(steps, sim_e.step_log[:n])))
     return sim, dict(wall_s=wall, captures_first_s=first, captures_second_s=second,
                      launches_card=card, launches_host=host, inner_iterations=inner,
-                     solving_steps=rounds, median_ms=statistics.median(ms),
+                     solving_steps=rounds, built_gib=built_gib, peak_gib=peak_gib,
+                     median_ms=statistics.median(ms),
                      median_ms_eager=statistics.median(ms_e), **turns)
 
 
@@ -1942,9 +2007,9 @@ def transport_cg_checks(sim, band):
     # the band's and the fly matvec's out= entries, at the path's shapes
     k = clone(tws)
     tcg.pack_plain(k, op, False)
-    y = torch.empty((R, B), dtype=torch.float32, device="cuda")
-    banded_matvec_out(band["C"], k.xw.view(R + m_pad - 1, B), y)
-    check(torch.equal(y, banded_matvec(band["C"], k.xw.view(R + m_pad - 1, B))),
+    y = torch.empty(R * B, dtype=torch.float32, device="cuda")
+    banded_matvec_out(band["slots"], k.xw, y)
+    check(torch.equal(y, banded_matvec(band["slots"], k.xw)),
           "banded_matvec_out differs from banded_matvec")
     yc = torch.empty(n_mp, dtype=torch.float32, device="cuda")
     wkb_fly_matvec_out(op.mpos, op.mcb, k.xm, op.env, yc, k.fly)
@@ -2216,12 +2281,11 @@ def transport_path(out_root):
     sim._make = engine.make_superstep
     torch.cuda.synchronize()
     g, p = sim.geom, sim.params
-    Cb = sim._band["C"] if sim._band is not None else None
-    check(Cb is not None, "the banded operator was not built")
+    check(sim._band is not None, "the banded operator was not built")
     log(f"transport crossbar: N={g.N} sites, {g.N_atom} atoms, n_mp="
         f"{g.atom_metalp_idx.shape[0]}, tunnel_vac_cap {p.tunnel_vac_cap}, "
         f"transport_cc {p.transport_cc}, incremental {p.transport_incremental}, band "
-        f"{tuple(Cb.shape)}; built in {time.perf_counter() - t0:.1f} s")
+        f"{sim._band['slots'].shape}; built in {time.perf_counter() - t0:.1f} s")
     check(p.transport_cc == "fly" and p.transport_incremental, "transport options")
     counts0 = conserved_counts(sim.state)
 
@@ -2324,8 +2388,11 @@ def transport_path(out_root):
             "launches": launches["banded_matvec"], "max_abs_err": k["banded"]["err"],
             "ms": k["banded"]["ms"], "plain_ms": k["banded"]["plain_ms"],
             "bound_ms": k["banded"]["bound_ms"], "bound_by": k["banded"]["bound_by"],
-            "library_ms": k["banded"]["library_ms"], "shape": k["banded"]["shape"],
-            "ell_form_ms": k["banded"]["ell_ms"],
+            "library_ms": k["banded"]["library_ms"], "library": "torch.sparse.mm (CSR)",
+            "shape": k["banded"]["shape"], "ell_form_ms": k["banded"]["ell_ms"],
+            **{key: k["banded"][key] for key in (
+                "cold_ms", "library_cold_ms", "nnz", "elements", "slot_bytes", "longest_row",
+                "pad_share", "dense_bytes")},
             "out_entry": {"launches_graph_run_card": graph_summary["launches_card"][
                 "banded_matvec_out"], "ms": tcg_checks["band_out_ms"],
                 "bit_equal_to_allocating_entry": True},
@@ -3073,10 +3140,6 @@ CKPT_STEPS = 2
 #: the fields a resume must reproduce bit for bit
 RESUME_FIELDS = ("element", "charge", "key", "kmc_time", "I_macro",
                  "virtual_potentials", "CB_edge")
-#: the bf16 band with the f32 vector against its plain version, as a share
-#: of the largest entry: f32 sums in another order (the bound of
-#: tests/test_torch_cuda.py::test_cuda_banded_matvec_bf16_band_f32_vector)
-BF16_REL = 2e-5
 #: the bf16 inner I_macro against the dense direct solve on the small stack
 BF16_DIRECT_RTOL = 2e-4
 #: supersteps of the bf16 transport run on the crossbar
@@ -3185,7 +3248,7 @@ def small_bf16_check(out_root, steps=4, Vd=10.0):
                 sim.run_bias_point(Vd, 1e30, max_steps=steps)
             finally:
                 restore()
-            check(sim._band is not None and sim._band["C"].dtype == torch.bfloat16,
+            check(sim._band is not None and sim._band["slots"].val.dtype == torch.bfloat16,
                   f"{cc}: the band is not bf16")
             st_d, _ = cur.update_power(sim.geom, sim.params, sim.state, Vd, method="direct")
             runs[device] = (sim, st_d.I_macro, twins["calls"])
@@ -3336,15 +3399,13 @@ def bf16_transport_path(out_root, f32_steps):
     finite and positive, every transport kernel launched, the band bf16.
     cg_iters_power and I_macro beside the f32 inner run's (``f32_steps``,
     phase 4).  Then the bf16 band kernel against its plain version on the
-    run's band, timed beside its bytes bound and torch.einsum on the same
-    bf16 window stack.  Returns its record and the run's launches."""
+    run's band (``band_checks``).  Returns its record and the run's
+    launches."""
     import math
 
     import torch
 
-    from devicekmc_tpu_torch.ops.banded import (
-        banded_matvec, banded_matvec_plain, window_stack,
-    )
+    from devicekmc_tpu_torch.ops.banded import banded_matvec
     from devicekmc_tpu_torch.ops.ell_gather import ell_gather
     from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop
     from devicekmc_tpu_torch.ops.pairwise import poisson_pairwise
@@ -3354,8 +3415,8 @@ def bf16_transport_path(out_root, f32_steps):
     sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "transport_bf16"),
                              current=True, transport_bf16_inner=True,
                              transport_tol=BF16_TRANSPORT_TOL)
-    Cb = sim._band["C"]
-    check(Cb.dtype == torch.bfloat16, f"the band is {Cb.dtype}, not bf16")
+    vdt = sim._band["slots"].val.dtype
+    check(vdt == torch.bfloat16, f"the band is {vdt}, not bf16")
     wrappers = {"ell_gather": ell_gather, "poisson_pairwise": poisson_pairwise,
                 "banded_matvec": banded_matvec, "wkb_fly_matvec": wkb_fly_matvec,
                 "wkb_fly_matmat": wkb_fly_matmat, "wkb_window_block": wkb_window_block,
@@ -3391,48 +3452,19 @@ def bf16_transport_path(out_root, f32_steps):
             f"{a['Current [uA]']:.9g} uA (f32 inner {b['Current [uA]']:.9g})")
 
     # ---- the bf16 band kernel at the run's band ----
-    R, m_pad, B, _ = Cb.shape
-    Na = sim.geom.N_atom
-    g = torch.Generator(device="cuda").manual_seed(1)
-    xa = torch.randn(Na, generator=g, device="cuda")
-    xp = torch.zeros((R + m_pad - 1) * B, device="cuda")
-    xp[sim._band["front"]:sim._band["front"] + Na] = xa[sim._band["pi"]]
-    xp2 = xp.reshape(R + m_pad - 1, B)
-    y = banded_matvec(Cb, xp2)
-    ref = banded_matvec_plain(Cb, xp2)
-    torch.cuda.synchronize()
-    # the vector rounded to bf16 (the JAX package's form, which stalls the
-    # inner CG) must lie well outside the bound
-    rounded = banded_matvec_plain(Cb, xp2.to(torch.bfloat16))
-    check(bool(torch.isfinite(y).all()), "bf16 band: output finite")
-    err = float((y - ref).abs().max())
-    scale = float(ref.abs().max())
-    err_rounded = float((rounded - ref).abs().max())
-    check(err <= BF16_REL * scale, f"bf16 band: max error {err} beyond {BF16_REL} of the "
-          f"largest entry {scale}")
-    check(err_rounded > 10 * err, f"bf16 band: the bf16-rounded vector's error "
-          f"{err_rounded} is not 10x the kernel's {err}")
-    # the library call takes one type: the window stack rounded to bf16
-    xst = window_stack(xp2.to(torch.bfloat16), R, m_pad)
-    bytes_ = Cb.numel() * 2 + xp2.numel() * 4 + R * B * 4
-    bound, by = _bound(2 * Cb.numel(), bytes_)
-    rec = dict(
-        err=err, bound_ms=bound, bound_by=by,
-        ms=time_ms(lambda: banded_matvec(Cb, xp2), reps=10),
-        plain_ms=time_ms(lambda: banded_matvec_plain(Cb, xp2), reps=2, rounds=3),
-        library_ms=time_ms(lambda: torch.einsum("rkbj,rkj->rb", Cb, xst), reps=5, rounds=3),
-        shape=f"C4 [{R}, {m_pad}, {B}, {B}] bf16, f32 vector, {bytes_ / 2**30:.2f} GiB")
-    log(f"banded_matvec {rec['shape']}: {rec['ms']:.4f} ms (bound {bound:.4f} ms by {by}), "
-        f"plain {rec['plain_ms']:.4f} ms, torch.einsum on the bf16 window stack "
-        f"{rec['library_ms']:.4f} ms, max err {err:.3e} = {err / scale:.3e} of the largest "
-        f"entry (bound {BF16_REL}; the bf16-rounded vector {err_rounded / scale:.3e})")
+    rec = band_checks(sim._band, sim.geom.N_atom)
     record = {
         "name": "banded_matvec_bf16", "route": "cuda",
         "source": "devicekmc_tpu_torch/csrc/banded.cu",
         "replaces": "devicekmc_tpu/ops/banded_pallas.py:74",
-        "launches": launches["banded_matvec"], "max_abs_err": err,
-        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound, "bound_by": by,
-        "library_ms": rec["library_ms"], "shape": rec["shape"],
+        "launches": launches["banded_matvec"], "max_abs_err": rec["err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        "library": "torch.sparse.mm (CSR, the bf16 values widened to f32)",
+        "shape": rec["shape"],
+        **{key: rec[key] for key in ("cold_ms", "library_cold_ms", "nnz", "elements",
+                                     "slot_bytes", "longest_row", "pad_share",
+                                     "err_rounded")},
         "path": "transport with transport_bf16_inner (cold solves + "
                 f"{BF16_STEPS} supersteps)",
         "cg_iters_power": [int(s["cg_iters_power"]) for s in steps],

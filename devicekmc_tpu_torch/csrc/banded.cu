@@ -1,29 +1,37 @@
-// Static banded-dense matvec of the blocked transport operator, for NVIDIA
-// Hopper (sm_90a).
+// Static band product of the blocked transport operator, for NVIDIA Hopper
+// (sm_90a), from the band's nonzeros.
 //
 // Replaces the TPU kernel devicekmc_tpu/ops/banded_pallas.py:
 // banded_matvec_pallas (_kernel):
 //
-//   y[r, b] = sum_{k < m_pad, j < B} C4[r, k, b, j] * xp2[r + k, j]
+//   y[r*B + b] = sum_{k < m_pad, j < B} C4[r, k, b, j] * xw[(r + k)*B + j]
 //
-// C4 [R, m_pad, B, B] holds the neighbour conductances of x-sorted atoms as
-// zero-padded band blocks, stored f32 or bf16; xp2 [R + m_pad - 1, B] is the
-// padded, permuted vector, f32 or in C4's type; the sum is taken in f32.
-// transport_bf16_inner takes a bf16 C4 with an f32 vector: rounding the
-// vector too would make the inner operator nonlinear noise of 2^-9 of the
-// metal rows' 1e5 conductances, and its CG stall.
+// C4 [R, m_pad, B, B] (the JAX package's dense band blocks) holds the static
+// neighbour conductances of x-sorted atoms: 0.22 % of its entries at the
+// crossbar's width (17.83 a row of 8,192), so this kernel reads only the
+// nonzeros (ops/banded.py, BandSlots): row i = r*B + b has slots (o, v), o =
+// k*B + j its window offset (a uint16: m_pad*B <= 65,536) and v the value,
+// f32 or bf16 (transport_bf16_inner), in ascending offset order.  xw
+// [(R + m_pad - 1)*B] is the padded, permuted f32 vector; the sums are f32.
 //
-// Bound on this card: bytes.  C4 is read once (about 2 GB at crossbar width)
-// against 2 operations per element; x and y are a few hundred KB.
-// Design: one block per row block r.  The window xp2[r .. r+m_pad-1, :] is
-// staged in shared memory as f32 once (m_pad * B * 4 bytes).  A warp takes
-// one output row b at a time and walks k: its 32 lanes read 128 consecutive
-// elements of C4[r, k, b, :] as one 16-byte (f32) or 8-byte (bf16) load
-// each, so every request is a full coalesced line, multiply with the staged
-// window and keep a partial sum per lane; one shuffle reduction per output
-// row.  The k loop is unrolled so that several loads are in flight.  Blocks
-// share nothing and every sum has a fixed order: the result repeats from run
-// to run.
+// Bound on this card: bytes, but few of them (the slots' 6 or 4 bytes, the
+// window once, the output: about 9 MB at the crossbar, under 3 us); what a
+// launch costs is its latency.  Layout: a sliced ELL.  Rows go in slices of
+// 32, a warp a slice and a lane a row; a slice is padded to its longest row,
+// rounded up to kGroup slots (pads: offset 0, value 0), and stored
+// slot-group-major, so that a lane's kGroup slots are contiguous (one 8-byte
+// load of offsets, one 16- or 8-byte load of values) and the warp's loads of
+// a group are one contiguous run.  The vector is gathered straight from xw,
+// which stays in L1 and L2 (343 KB at the crossbar; a row's neighbours lie
+// within its 32 KB window, and the slice's rows share it), rather than
+// staged in shared memory: the staged form took 0.0062-0.0063 ms at the
+// crossbar's band against the direct gather's 0.0056
+// (tools/probe_cg_events.py --parts transport, BAND_VARIANTS; PERF.md).
+//
+// Sum order: each row sums its slots in ascending order, a multiply then an
+// add, each rounded (__fmul_rn, __fadd_rn: no fused multiply-add), pads
+// included; ops/banded.py banded_matvec_plain does the same arithmetic, so
+// the two are bit-equal.  No atomics: the result repeats run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,96 +41,89 @@
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kThreads = 256;  // rows a block
+constexpr int kSlice = 32;     // rows a slice: a warp
+constexpr int kGroup = 4;      // slots a lane loads at once
 
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ void load_vals(const float* p, float (&v)[kGroup]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
+__device__ __forceinline__ void load_vals(const __nv_bfloat16* p, float (&v)[kGroup]) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
   const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
   const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
   v[0] = __bfloat162float(a.x); v[1] = __bfloat162float(a.y);
   v[2] = __bfloat162float(b.x); v[3] = __bfloat162float(b.y);
 }
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// B is a multiple of 128: a lane owns elements j = 128*c + 4*lane .. +3
-template <typename TC, typename TX>
-__global__ void __launch_bounds__(kWarps * 32)
-banded_matvec_kernel(const TC* __restrict__ C4, const TX* __restrict__ xp2, int m_pad,
-                     int B, float* __restrict__ y, unsigned long long* count) {
-  count_launch(count);
-  extern __shared__ __align__(16) float xs[];  // [m_pad * B]
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t win = (int64_t)m_pad * B;
-  const TX* xw = xp2 + (int64_t)r * B;
-  for (int64_t e = tid; e < win; e += blockDim.x) xs[e] = to_float(xw[e]);
-  __syncthreads();
-  const TC* Cr = C4 + (int64_t)r * m_pad * B * B;
-  for (int b = warp; b < B; b += kWarps) {
-    float acc = 0.f;
-    for (int c = 0; c < B; c += 128) {
-      const int j = c + 4 * lane;
-#pragma unroll 4
-      for (int k = 0; k < m_pad; ++k) {
-        float v[4];
-        load4(Cr + ((int64_t)k * B + b) * B + j, v);
-        const float4 xk = *reinterpret_cast<const float4*>(xs + (int64_t)k * B + j);
-        acc = fmaf(v[0], xk.x, acc);
-        acc = fmaf(v[1], xk.y, acc);
-        acc = fmaf(v[2], xk.z, acc);
-        acc = fmaf(v[3], xk.w, acc);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) y[(int64_t)r * B + b] = acc;
-  }
+__device__ __forceinline__ void load_offs(const uint16_t* p, int (&o)[kGroup]) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  o[0] = q.x & 0xffff; o[1] = q.x >> 16; o[2] = q.y & 0xffff; o[3] = q.y >> 16;
 }
 
-template <typename TC, typename TX>
-int launch(const void* C4, const void* xp2, int R, int m_pad, int B, void* y,
-           unsigned long long* count, cudaStream_t st) {
-  const size_t smem = (size_t)m_pad * B * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(banded_matvec_kernel<TC, TX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// n_rows = R*B rows (B a multiple of 32); start [n_rows / 32 + 1]: the
+// first element of each slice, a multiple of 32 * kGroup
+template <typename TV>
+__global__ void __launch_bounds__(kThreads)
+banded_slots_kernel(const uint16_t* __restrict__ off, const TV* __restrict__ val,
+                    const int* __restrict__ start, const float* __restrict__ xw,
+                    int n_rows, int B, float* __restrict__ y, unsigned long long* count) {
+  count_launch(count);
+  const int row = (int)blockIdx.x * kThreads + (int)threadIdx.x;
+  const float* x = xw + (int64_t)(row / B) * B;
+  if (row >= n_rows) return;
+  const int s = row / kSlice, lane = row % kSlice;
+  const int e0 = start[s], groups = (start[s + 1] - e0) / (kSlice * kGroup);
+  const uint16_t* o = off + e0 + lane * kGroup;
+  const TV* v = val + e0 + lane * kGroup;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int g = 0; g < groups; ++g) {
+    int oi[kGroup];
+    float vi[kGroup];
+    load_offs(o + g * kSlice * kGroup, oi);
+    load_vals(v + g * kSlice * kGroup, vi);
+#pragma unroll
+    for (int q = 0; q < kGroup; ++q) {
+      acc = __fadd_rn(acc, __fmul_rn(vi[q], __ldg(x + oi[q])));
+    }
   }
-  banded_matvec_kernel<TC, TX><<<R, kWarps * 32, smem, st>>>(
-      static_cast<const TC*>(C4), static_cast<const TX*>(xp2), m_pad, B,
+  y[row] = acc;
+}
+
+template <typename TV>
+int launch(const void* off, const void* val, const void* start, const void* xw, int R,
+           int m_pad, int B, void* y, unsigned long long* count, cudaStream_t st) {
+  const int n_rows = R * B;
+  banded_slots_kernel<TV><<<(n_rows + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      static_cast<const uint16_t*>(off), static_cast<const TV*>(val),
+      static_cast<const int*>(start), static_cast<const float*>(xw), n_rows, B,
       static_cast<float*>(y), count);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// y [R, B] f32.  c_bf16, x_bf16: storage types of C4 and xp2 (f32 C4 with
-// a bf16 xp2 is refused).  B % 128 == 0.  count: the launch counter on the
-// card (null: none).  Returns the cudaError_t of the launch (0 on success).
-extern "C" int dkmc_banded_matvec_out(const void* C4, const void* xp2, int R, int m_pad,
-                                      int B, int c_bf16, int x_bf16, void* y, void* count,
-                                      void* stream) {
-  if (R <= 0 || m_pad <= 0 || B <= 0 || B % 128 != 0) return (int)cudaErrorInvalidValue;
+// y [R*B] f32 from the band's slots (off: uint16 window offsets, val: f32,
+// or bf16 if v_bf16, start: int32 [R*B/32 + 1]) and the f32 window xw
+// [(R + m_pad - 1)*B].  B % 32 == 0, m_pad*B <= 65,536.  count: the launch
+// counter on the card (null: none).  Returns the cudaError_t of the launch
+// (0 on success).
+extern "C" int dkmc_banded_matvec_out(const void* off, const void* val, const void* start,
+                                      const void* xw, int R, int m_pad, int B, int v_bf16,
+                                      void* y, void* count, void* stream) {
+  if (R <= 0 || m_pad <= 0 || B <= 0 || B % kSlice != 0 || (int64_t)m_pad * B > 65536)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* cnt = static_cast<unsigned long long*>(count);
-  if (!c_bf16) {
-    return x_bf16 ? (int)cudaErrorInvalidValue
-                  : launch<float, float>(C4, xp2, R, m_pad, B, y, cnt, st);
-  }
-  return x_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(C4, xp2, R, m_pad, B, y, cnt, st)
-                : launch<__nv_bfloat16, float>(C4, xp2, R, m_pad, B, y, cnt, st);
+  return v_bf16 ? launch<__nv_bfloat16>(off, val, start, xw, R, m_pad, B, y, cnt, st)
+                : launch<float>(off, val, start, xw, R, m_pad, B, y, cnt, st);
 }
 
-extern "C" int dkmc_banded_matvec(const void* C4, const void* xp2, int R, int m_pad,
-                                  int B, int c_bf16, int x_bf16, void* y, void* stream) {
-  return dkmc_banded_matvec_out(C4, xp2, R, m_pad, B, c_bf16, x_bf16, y, nullptr, stream);
+extern "C" int dkmc_banded_matvec(const void* off, const void* val, const void* start,
+                                  const void* xw, int R, int m_pad, int B, int v_bf16,
+                                  void* y, void* stream) {
+  return dkmc_banded_matvec_out(off, val, start, xw, R, m_pad, B, v_bf16, y, nullptr, stream);
 }

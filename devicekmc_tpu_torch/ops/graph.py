@@ -32,10 +32,12 @@ import torch
 from . import _build
 
 #: the streams the bodies of WHILE nodes are captured on, and those of the
-#: branches fork starts, one a device and nesting depth
+#: branches fork starts, one a device, nesting depth and branch
 _side_streams: Dict[tuple, torch.cuda.Stream] = {}
 #: WHILE nodes nested deepest: the side streams Graph makes before a capture
 MAX_DEPTH = 2
+#: branches beside one stream at once, at most
+MAX_BRANCHES = 2
 #: the WHILE bodies being captured now (0: none)
 _depth = 0
 #: the stream graphs are captured on, one a device
@@ -59,41 +61,46 @@ def _device(device) -> torch.device:
     return device
 
 
-def side_stream(device, depth: int = 0, branch: bool = False) -> torch.cuda.Stream:
+def side_stream(device, depth: int = 0, branch: int = 0) -> torch.cuda.Stream:
     """The stream that captures the bodies of WHILE nodes nested ``depth``
-    deep on ``device`` (``branch``: that of the branches :func:`fork` starts
-    inside ``depth`` bodies being captured, 0: none); :class:`Graph` makes
-    them before a capture begins."""
+    deep on ``device`` (``branch`` k > 0: that of the k-th branch
+    :func:`fork` starts inside ``depth`` bodies being captured, 0: none);
+    :class:`Graph` makes them before a capture begins."""
     key = (_device(device), depth, branch)
     if key not in _side_streams:
         _side_streams[key] = torch.cuda.Stream(key[0])
     return _side_streams[key]
 
 
-def _streams(device, stream) -> tuple:
+def _streams(device, stream, branch) -> tuple:
     """``stream`` (a raw handle on ``device``; None: the current stream) as
-    a torch stream, and the stream of a branch beside it."""
+    a torch stream, and the stream of its branch ``branch`` (1 ..
+    MAX_BRANCHES)."""
+    if not 1 <= branch <= MAX_BRANCHES:
+        raise ValueError(f"fork: branch {branch} is not in 1 .. {MAX_BRANCHES}")
     device = _device(device)
     base = (torch.cuda.current_stream(device) if stream is None
             else torch.cuda.ExternalStream(stream, device=device))
-    return base, side_stream(device, _depth, branch=True)
+    return base, side_stream(device, _depth, branch)
 
 
-def fork(device, stream=None) -> int:
-    """Start a branch beside ``stream`` (a raw stream handle on ``device``;
-    None: the current stream): the branch's stream, whose work runs after
-    what ``stream`` was given so far and beside what it is given next, until
-    :func:`join`.  Inside a capture the branch is captured into the same
-    graph, or WHILE body, as a second path of nodes."""
-    base, side = _streams(device, stream)
+def fork(device, stream=None, branch: int = 1) -> int:
+    """Start branch ``branch`` beside ``stream`` (a raw stream handle on
+    ``device``; None: the current stream): the branch's stream, whose work
+    runs after what ``stream`` was given so far and beside what it is given
+    next, until :func:`join`.  Inside a capture the branch is captured into
+    the same graph, or WHILE body, as a second path of nodes (a third with a
+    second branch)."""
+    base, side = _streams(device, stream, branch)
     side.wait_stream(base)
     return side.cuda_stream
 
 
-def join(device, stream=None) -> None:
+def join(device, stream=None, branch: int = 1) -> None:
     """``stream`` (None: the current stream) runs what it is given next
-    after the work of the branch :func:`fork` started beside it."""
-    base, side = _streams(device, stream)
+    after the work of the branch ``branch`` that :func:`fork` started beside
+    it."""
+    base, side = _streams(device, stream, branch)
     base.wait_stream(side)
 
 
@@ -177,8 +184,8 @@ class Graph:
         if self.device.type == "cpu":
             return
         for depth in range(MAX_DEPTH + 1):
-            side_stream(self.device, depth)
-            side_stream(self.device, depth, branch=True)
+            for branch in range(MAX_BRANCHES + 1):
+                side_stream(self.device, depth, branch)
         stream = _capture_streams.get(self.device)
         if stream is None:
             stream = _capture_streams[self.device] = torch.cuda.Stream(self.device)

@@ -21,7 +21,7 @@ the same stop rules and counts:
   packed, the outer predicate);
 * the inner CG (f32, criterion "r", no diagonal: the system is already
   scaled) at the round's tolerance, at most ``INNER_MAXITER`` iterations:
-  :func:`inner_iteration`, the band beside a branch of the fly matvec and
+  :func:`inner_iteration`, the band beside two branches, the fly matvec and
   transport_blocks (:func:`products`), then transport_rows, then the update
   and direction that also packs the next direction (:func:`update_pack`).
 
@@ -51,7 +51,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import _build, boundary_cg, cg as cg_mod
-from .banded import banded_matvec_out
+from .banded import BandSlots, banded_matvec_out
 from .boundary_cg import Workspace as CGWorkspace
 from .boundary_cg import cg_update_direction_plain, n_tiles
 from .cg import rowdot
@@ -143,7 +143,7 @@ def workspace(n_atoms: int, vcap: int, n_mp: int, band, device) -> Workspace:
     interior-metal atoms and the static ``band`` (``build_banded_nb``)."""
     dev = torch.device(device)
     nsub, n_full = n_atoms + 1, n_atoms + 2
-    R, m_pad, B, _ = band["C"].shape
+    R, m_pad, B = band["slots"].shape
     tiles = row_tiles(nsub)
     n_ct, n_rt = -(-n_mp // BLOCK_COLS), -(-vcap // BLOCK_ROWS)
 
@@ -180,16 +180,17 @@ class Operator(NamedTuple):
     the scaled right-hand side ``b`` (f64); the diagonal ``diag`` / ``diag32``
     [Na + 2]; the virtual rows ``gnd`` / ``gnd32`` / ``src`` / ``src32`` [Na],
     nonzero on atoms ``gnd_lo`` .. Na - 1 and 0 .. ``nsi`` - 1, and
-    ``loop_G``; the band ``C``; the bump ``dyn`` [vcap, max_nn] (f32); the ELL
-    conductances ``nbv`` [Na, max_nn] (f64) over the atom graph ``anb``
-    (int32, pad -1); the vacancy blocks ``T_vm`` [vcap, n_mp] and ``T_vv``
-    [vcap, vcap] (f32), the bucket ``vidx`` [vcap] (int32), each atom's
-    bucket slot ``vslot`` (int32, -1 none), the live count ``n_vac`` (int32
-    [1]); the metal atoms' slots ``mp_inv`` [Na] (int32, -1 none) and indices
-    ``mp``; the fly kernel's ``mpos``, ``mcb``, ``env``; the plain versions
-    of the product's two parts, ``plain_blocks(x, wd)`` and
-    ``plain_rows(x, wd, band_y, y_cc, parts)`` (``physics.current``'s
-    ``apply_blocks`` and ``apply_rows`` of the solve's blocks)."""
+    ``loop_G``; the band's ``slots`` (``ops.banded.BandSlots``); the bump
+    ``dyn`` [vcap, max_nn] (f32); the ELL conductances ``nbv`` [Na, max_nn]
+    (f64) over the atom graph ``anb`` (int32, pad -1); the vacancy blocks
+    ``T_vm`` [vcap, n_mp] and ``T_vv`` [vcap, vcap] (f32), the bucket
+    ``vidx`` [vcap] (int32), each atom's bucket slot ``vslot`` (int32, -1
+    none), the live count ``n_vac`` (int32 [1]); the metal atoms' slots
+    ``mp_inv`` [Na] (int32, -1 none) and indices ``mp``; the fly kernel's
+    ``mpos``, ``mcb``, ``env``; the plain versions of the product's two
+    parts, ``plain_blocks(x, wd)`` and ``plain_rows(x, wd, band_y, y_cc,
+    parts)`` (``physics.current``'s ``apply_blocks`` and ``apply_rows`` of
+    the solve's blocks)."""
     dsi: torch.Tensor
     dsi32: torch.Tensor
     b: torch.Tensor
@@ -202,7 +203,7 @@ class Operator(NamedTuple):
     gnd_lo: int
     nsi: int
     loop_G: float
-    C: torch.Tensor
+    slots: BandSlots
     dyn: torch.Tensor
     nbv: torch.Tensor
     anb: torch.Tensor
@@ -298,8 +299,7 @@ pack.launches = 0
 
 def band(tw: Workspace, op: Operator, stream=None) -> None:
     """The band's product of the window (``banded_matvec_out``)."""
-    R, m_pad, B = tw.shape
-    banded_matvec_out(op.C, tw.xw.view(R + m_pad - 1, B), tw.band_y.view(R, B), stream)
+    banded_matvec_out(op.slots, tw.xw, tw.band_y, stream)
 
 
 def fly(tw: Workspace, op: Operator, stream=None) -> None:
@@ -489,21 +489,29 @@ refine.launches = 0
 
 def products(tw: Workspace, op: Operator, stream=None) -> None:
     """The products of the inner direction that :func:`rows` reads: the band
-    on ``stream``, and beside it on a branch (``ops.graph.fork``) the fly
-    matvec and :func:`blocks`, joined before the return.  The branch is
-    captured first: inside a WHILE node's body the nodes start in capture
-    order, and a branch captured after the band's one wave of blocks waits
-    for it (``tools/probe_cg_events.py --parts transport``, the solve's body
-    forms).  Outside a capture (the host loop, and on the CPU) the same
-    kernels run in order on one stream: the same bits."""
+    on ``stream``, and beside it the fly matvec and :func:`blocks`, each on a
+    branch of its own (``ops.graph.fork``), joined before the return.  The
+    fastest of the WHILE body's forms on an H100 (``tools/probe_cg_events.py
+    --parts transport``, the crossbar's warm solve, 345 inner iterations, two
+    runs): the band captured first, then a branch each, 0.0393-0.0408 ms an
+    inner iteration; the band captured after the two branches 0.0440-0.0441;
+    one branch of the fly matvec then blocks, the band captured first
+    0.0456, last 0.0472; every kernel in series 0.0505.  The fly matvec
+    (0.0195 ms) is the longest of the three, the band (0.0055) the
+    shortest: inside a WHILE body the nodes start in capture order, and the
+    band captured first is done before the branches need the card.  Outside
+    a capture (the host loop, and on the CPU) the same kernels run in order
+    on one stream: the same bits."""
     dev = tw.x.device
     capturing = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
-    side = fork(dev, stream) if capturing else stream
-    fly(tw, op, side)
-    blocks(tw, op, False, side)
+    side1 = fork(dev, stream, 1) if capturing else stream
+    side2 = fork(dev, stream, 2) if capturing else stream
     band(tw, op, stream)
-    if side is not stream:
-        join(dev, stream)
+    fly(tw, op, side1)
+    blocks(tw, op, False, side2)
+    if capturing:
+        join(dev, stream, 1)
+        join(dev, stream, 2)
 
 
 def inner_iteration(tw: Workspace, op: Operator, handle: int = 0, stream=None) -> None:

@@ -27,8 +27,8 @@ into a sparse neighbor matrix and a dense tunnel matrix"), so instead of
 the dense [N_atom+2]^2 matrix the operator is kept as
 
   * an ELL neighbour-conductance part over the static atom graph
-    (``geom.atom_neigh_idx``), with a static banded-dense twin for the f32
-    inner iterations (:func:`build_banded_nb`),
+    (``geom.atom_neigh_idx``), with a static band twin (its nonzeros over
+    x-sorted atoms) for the f32 inner iterations (:func:`build_banded_nb`),
   * three tunnel blocks over the active subset:
       - metal_p x metal_p  (c2c, single-shot WKB): stored, or re-derived
         inside every product (``transport_cc="fly"``, ``ops/wkb_fly.py``),
@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..ops.banded import banded_matvec
+from ..ops.banded import banded_matvec, slots_from_entries
 from ..ops.cg import cg_solve, cg_solve_mixed, invert_coarse
 from ..ops import transport_cg
 from ..ops.compact import nonzero_fixed, nonzero_fixed_batched
@@ -757,7 +757,7 @@ def build_banded_nb(
     geom: Geometry, params: PhysParams, state: SimState,
     block: int = 128, max_bytes: int = 3 << 30,
 ):
-    """Static banded-dense neighbour-conductance operator (built ONCE per
+    """Static band of the neighbour-conductance operator (built ONCE per
     simulation, on the device; the gather-free inner-CG matvec).
 
     The neighbour matrix decomposes exactly as
@@ -767,18 +767,22 @@ def build_banded_nb(
     where ADJ (atom adjacency) and MM (metal-metal pairs) are STATIC (no
     KMC event touches a metal site) and CVAC2 (uncharged-vacancy pairs,
     src/current_solver.cpp:86-99) lives entirely on the vacancy bucket.
-    The static part is laid out banded-dense over x-sorted atoms:
-    ``C[r, k, b, j]`` holds the coupling of permuted atom r*B+b to permuted
-    atom (r-p+k)*B+j, stored f32, so the matvec needs no gather beyond the
-    two [Na] permutation reads.  The k axis is zero-padded to a multiple of
-    8 (the JAX package's layout).  The permutation is internal to this
-    operator.  Under ``transport_bf16_inner`` the band is stored bf16: it
-    feeds only the f32 inner matvec (the f64 refinement keeps the exact ELL
-    path), as the tunnel blocks' twins do, with ``row_fix`` [Na] f32, each
-    row's rounding, which the matvec adds back on the diagonal.
+    The static part couples x-sorted atoms within a band: the JAX package
+    lays it out dense, ``C4[r, k, b, j]`` the coupling of permuted atom
+    r*B+b to permuted atom (r-p+k)*B+j, k zero-padded to a multiple of 8;
+    the port keeps the same layout's nonzeros only (``ops.banded``
+    ``BandSlots``: each row's window offsets k*B+j and values, f32), made
+    from the atom graph without ever holding ``C4``, so the matvec needs no
+    gather beyond the two [Na] permutation reads.  The permutation is
+    internal to this operator.  Under ``transport_bf16_inner`` the values
+    are stored bf16: they feed only the f32 inner matvec (the f64
+    refinement keeps the exact ELL path), as the tunnel blocks' twins do,
+    with ``row_fix`` [Na] f32, each row's rounding, which the matvec adds
+    back on the diagonal.
 
-    Returns None when the banded layout exceeds ``max_bytes`` (extreme
-    aspect ratios); callers then keep the ELL gather."""
+    Returns dict(slots, front=p*B, pi, inv[, row_fix]), or None where the
+    JAX package's dense layout would exceed ``max_bytes`` (extreme aspect
+    ratios); callers then keep the ELL gather."""
     dev = geom.device
     anb = geom.atom_neigh_idx
     Na = int(geom.N_atom)
@@ -806,13 +810,13 @@ def build_banded_nb(
         torch.tensor(-params.low_G, dtype=torch.float64, device=dev),
     )
     vals = vals64.to(torch.float32)
-    C4 = torch.zeros((R, m_pad, B, B), dtype=torch.float32, device=dev)
     ri, ci = inv[rows], inv[cols]
     off = ci - (ri // B - p) * B
-    C4[ri // B, off // B, ri % B, off % B] = vals
-    band = dict(C=C4, front=p * B, pi=pi, inv=inv)
-    if bf16_inner(params):
-        band["C"] = C4.to(torch.bfloat16)
+    bf16 = bf16_inner(params)
+    band = dict(slots=slots_from_entries(ri, off, vals.to(torch.bfloat16) if bf16 else vals,
+                                         (R, m_pad, B)),
+                front=p * B, pi=pi, inv=inv)
+    if bf16:
         # the rows of the rounded band no longer sum to what the exact f64
         # diagonal cancels (-1e5 rounds to a bf16 160 away, 18 times in a
         # metal row): the inner operator would lose the Laplacian's
@@ -829,10 +833,9 @@ def build_banded_nb(
 def _band_window(band, xa):
     """The permuted vector laid into the band's zero-padded window layout
     [(R + m_pad - 1) * B] f32."""
-    Cb = band["C"]
-    R, m_pad, B, _ = Cb.shape
+    R, m_pad, B = band["slots"].shape
     Na = band["pi"].shape[0]
-    xp = torch.zeros((R + m_pad - 1) * B, dtype=torch.float32, device=Cb.device)
+    xp = torch.zeros((R + m_pad - 1) * B, dtype=torch.float32, device=xa.device)
     front = band["front"]                  # p*B leading zeros
     xp[front:front + Na] = xa[band["pi"]].float()
     return xp
@@ -849,16 +852,13 @@ def _band_unpermute(band, y, xa):
 
 
 def _banded_nb_matvec(band, xa):
-    """y = C_static @ x through the banded-matvec kernel's wrapper
-    (``ops/banded.py``): the permuted vector is laid into the zero-padded
-    window layout, and the result permuted back.  The vector stays f32 with
-    a bf16 band too (the JAX package rounds it to bf16, which makes the
-    inner operator nonlinear noise of 2^-9 of the 1e5 metal conductances),
-    and a bf16 band adds its ``row_fix`` diagonal."""
-    Cb = band["C"]
-    R, m_pad, B, _ = Cb.shape
-    xp = _band_window(band, xa)
-    return _band_unpermute(band, banded_matvec(Cb, xp.reshape(R + m_pad - 1, B)), xa)
+    """y = C_static @ x through the band kernel's wrapper (``ops/banded.py``):
+    the permuted vector is laid into the zero-padded window layout, and the
+    result permuted back.  The vector stays f32 with a bf16 band too (the
+    JAX package rounds it to bf16, which makes the inner operator nonlinear
+    noise of 2^-9 of the 1e5 metal conductances), and a bf16 band adds its
+    ``row_fix`` diagonal."""
+    return _band_unpermute(band, banded_matvec(band["slots"], _band_window(band, xa)), xa)
 
 
 def _deflation_ops(geom: Geometry, params: PhysParams, blk, d):
@@ -1218,7 +1218,7 @@ def _update_power_warm_device(
         dsi=dsi, dsi32=dsi.to(torch.float32), b=b_s, diag=diag,
         diag32=diag.to(torch.float32), gnd=gnd, gnd32=gnd.to(torch.float32), src=src,
         src32=src.to(torch.float32), gnd_lo=max(0, min(Na, Na - params.num_ground_ext + 1)),
-        nsi=max(0, min(Na, nsi)), loop_G=loop_G, C=band["C"],
+        nsi=max(0, min(Na, nsi)), loop_G=loop_G, slots=band["slots"],
         dyn=blk["band_dyn_vals"].contiguous(), nbv=blk["nb_vals"].contiguous(),
         anb=geom.atom_neigh_idx, T_vm=blk["T_vm"].contiguous(), T_vv=blk["T_vv"].contiguous(),
         vidx=blk["vidx32"], vslot=blk["vslot"], n_vac=blk["n_vac"],

@@ -68,7 +68,7 @@ def test_blocked_bf16_inner_matches_dense(dev):
     assert st_b.I_macro == pytest.approx(I_ref, rel=2e-4)
     assert int(mb["cg_iters_power"]) < 4000
     band = cur.build_banded_nb(g, p, st, block=32)
-    assert band["C"].dtype == torch.bfloat16
+    assert band["slots"].val.dtype == torch.bfloat16
     st_bb, mbb = cur.update_power(g, p, st, VD, cc={"band": band})
     assert mbb["transport_converged"]
     assert st_bb.I_macro == pytest.approx(I_ref, rel=2e-4)
@@ -87,14 +87,18 @@ def test_bf16_inner_matches_jax(dev, with_band):
     package's rounds the vector and not the diagonal
     (test_bf16_band_keeps_its_row_sums)."""
     from devicekmc_tpu.physics import current as jcur
+    from devicekmc_tpu_torch.ops.banded import band_slots
     from devicekmc_tpu_torch.physics import current as tcur
 
     jcc = tcc = None
     if with_band:
         jband = jcur.build_banded_nb(dev["jg"], dev["jp"], dev["js"], block=32)
         tband = tcur.build_banded_nb(dev["tg"], dev["tp"], dev["ts"], block=32)
-        np.testing.assert_array_equal(
-            tband["C"].float().numpy(), np.asarray(jband["C"], np.float32))
+        ref = band_slots(np.asarray(jband["C"]))
+        assert tband["slots"].val.dtype == ref.val.dtype == torch.bfloat16
+        for a, b in zip(tband["slots"][:3], ref[:3]):
+            assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                               b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
         jcc, tcc = {"band": jband}, {"band": tband}
     jst, jm = jcur.update_power(dev["jg"], dev["jp"], dev["js"], VD, cc=jcc)
     tst, tm = tcur.update_power(dev["tg"], dev["tp"], dev["ts"], VD, cc=tcc)
@@ -130,7 +134,7 @@ def test_bf16_twins_only_in_mixed_mode(dev):
     assert not cur.bf16_inner(f64)
     blk = cur.assemble_X_blocks(dev["tg"], f64, dev["ts"])
     assert "T_vv16" not in blk
-    assert cur.build_banded_nb(dev["tg"], f64, dev["ts"], block=32)["C"].dtype \
+    assert cur.build_banded_nb(dev["tg"], f64, dev["ts"], block=32)["slots"].val.dtype \
         == torch.float32
 
 
@@ -160,6 +164,7 @@ def test_bf16_band_keeps_its_row_sums(dev):
     """The bf16 band's rows plus its ``row_fix`` sum to the exact f64
     band's (within f32 rounding of the sums), so that the inner operator
     stays a conductance Laplacian; an f32 band has no fix."""
+    from devicekmc_tpu_torch.ops.banded import band_dense
     from devicekmc_tpu_torch.physics import current as cur
 
     g, p, st = dev["tg"], dev["tp"], dev["ts"]
@@ -167,8 +172,9 @@ def test_bf16_band_keeps_its_row_sums(dev):
     f32 = cur.build_banded_nb(g, dataclasses.replace(p, transport_bf16_inner=False), st,
                               block=32)
     assert "row_fix" not in f32 and band["row_fix"].dtype == torch.float32
-    rows = lambda c: c.double().sum(dim=(1, 3)).reshape(-1)[:g.N_atom][band["inv"]]
-    exact, rounded = rows(f32["C"]), rows(band["C"])
+    rows = lambda b: (band_dense(b["slots"]).double().sum(dim=(1, 3)).reshape(-1)
+                      [:g.N_atom][band["inv"]])
+    exact, rounded = rows(f32), rows(band)
     assert float((rounded - exact).abs().max()) > 100.0   # 1e5 rounds 160 away
     np.testing.assert_allclose((rounded + band["row_fix"].double()).numpy(),
                                exact.numpy(), rtol=1e-7, atol=1e-9)
@@ -216,15 +222,17 @@ def test_band_takes_an_f32_vector_with_a_bf16_band(dev):
     """The transport path hands the band an f32 vector also when the band
     is bf16; the wrapper's plain version then rounds only the band (its
     result differs from the all-bf16 product)."""
-    from devicekmc_tpu_torch.ops.banded import banded_matvec, window_stack
+    from devicekmc_tpu_torch.ops.banded import band_dense, banded_matvec
     from devicekmc_tpu_torch.physics import current as cur
 
     band = cur.build_banded_nb(dev["tg"], dev["tp"], dev["ts"], block=32)
-    C = band["C"]
-    R, m_pad, B, _ = C.shape
-    x = torch.randn((R + m_pad - 1, B), generator=torch.Generator().manual_seed(2))
+    C = band["slots"]
+    R, m_pad, B = C.shape
+    x = torch.randn((R + m_pad - 1) * B, generator=torch.Generator().manual_seed(2))
     y = banded_matvec(C, x)
-    ref = torch.einsum("rkbj,rkj->rb", C.double(), window_stack(x.double(), R, m_pad))
+    x2 = x.double().reshape(R + m_pad - 1, B)
+    ref = torch.einsum("rkbj,rkj->rb", band_dense(C).double(),
+                       torch.stack([x2[k:k + R] for k in range(m_pad)], dim=1)).reshape(-1)
     assert y.dtype == torch.float32
     np.testing.assert_allclose(y.double().numpy(), ref.numpy(), rtol=1e-5,
                                atol=1e-5 * float(ref.abs().max()))

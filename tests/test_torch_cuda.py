@@ -188,30 +188,73 @@ def _points(n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,m_pad,B,dtype,rtol,atol", [
-    (5, 3, 128, torch.float32, 2e-5, 1e-4),
-    (3, 16, 128, torch.float32, 2e-5, 1e-4),
-    (37, 56, 128, torch.float32, 2e-5, 1e-4),
-    (2, 120, 128, torch.float32, 2e-5, 2e-4),
-    (3, 8, 256, torch.float32, 2e-5, 1e-4),
-    (4, 8, 128, torch.bfloat16, 2e-2, 2e-1),
+@pytest.mark.parametrize("R,m_pad,B,dtype", [
+    (5, 3, 128, torch.float32),
+    (3, 16, 128, torch.float32),
+    (37, 56, 128, torch.float32),
+    (2, 120, 128, torch.float32),
+    (3, 8, 256, torch.float32),
+    (4, 8, 128, torch.bfloat16),
 ])
-def test_cuda_banded_matvec(R, m_pad, B, dtype, rtol, atol):
-    """f32 sums in another order than the einsum; bf16 storage with f32
-    accumulation (the tolerances of the TPU kernel's own tests)."""
+def test_cuda_banded_matvec(R, m_pad, B, dtype):
+    """A fully dense random band (every entry a slot): bit-equal to the
+    plain version (each row's sum in ascending slot order, a rounded
+    multiply then a rounded add); bf16 values with f32 sums."""
     _need_card()
-    from devicekmc_tpu_torch.ops.banded import banded_matvec, banded_matvec_plain
+    from devicekmc_tpu_torch.ops.banded import band_slots, banded_matvec, banded_matvec_plain
 
-    g = torch.Generator(device="cuda").manual_seed(R * 100 + m_pad)
-    C4 = torch.randn((R, m_pad, B, B), generator=g, device="cuda").to(dtype)
-    xp2 = torch.randn((R + m_pad - 1, B), generator=g, device="cuda").to(dtype)
+    g = torch.Generator(device="cpu").manual_seed(R * 100 + m_pad)
+    C4 = torch.randn((R, m_pad, B, B), generator=g).to(dtype)
+    slots = band_slots(C4).to("cuda")
+    xw = torch.randn((R + m_pad - 1) * B, generator=g).cuda()
     before = banded_matvec.launches
-    y = banded_matvec(C4, xp2)
-    ref = banded_matvec_plain(C4, xp2)
+    y = banded_matvec(slots, xw)
+    ref = banded_matvec_plain(slots, xw)
     torch.cuda.synchronize()
     assert banded_matvec.launches == before + 1
-    assert y.dtype == torch.float32 and y.shape == (R, B)
-    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=rtol, atol=atol)
+    assert y.dtype == torch.float32 and y.shape == (R * B,)
+    assert torch.equal(y, ref)
+
+
+def _sparse_entries(g, R, m_pad, B, most):
+    """Random entries of a band: row i (of the first R*B - B // 2, the rest
+    empty) gets 0 .. ``most`` slots at random window offsets (repeats
+    included)."""
+    n_rows = R * B - B // 2
+    counts = torch.randint(0, most + 1, (n_rows,), generator=g)
+    row = torch.repeat_interleave(torch.arange(n_rows), counts)
+    off = torch.randint(0, m_pad * B, (row.numel(),), generator=g)
+    return row, off, torch.randn(row.numel(), generator=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,m_pad,B,most", [(13, 7, 96, 40), (41, 61, 32, 70), (607, 3, 32, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_banded_matvec_ragged_bit_equal(R, m_pad, B, most, dtype):
+    """A sparse band at a ragged R, m_pad and B (rows of 0 .. ``most``
+    slots, the last half block empty), its slots built on the card: the
+    storage equals the CPU's bit for bit, and the kernel its plain version
+    bit for bit, through both entries; the empty rows give 0."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.banded import (
+        banded_matvec, banded_matvec_out, banded_matvec_plain, slots_from_entries,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(R + m_pad + most)
+    row, off, val = _sparse_entries(g, R, m_pad, B, most)
+    cpu = slots_from_entries(row, off, val.to(dtype), (R, m_pad, B))
+    slots = slots_from_entries(row.cuda(), off.cuda(), val.to(dtype).cuda(), (R, m_pad, B))
+    for a, b in zip(slots[:3], cpu[:3]):
+        assert torch.equal(a.cpu(), b)
+    xw = torch.randn((R + m_pad - 1) * B, generator=g).cuda()
+    y = banded_matvec(slots, xw)
+    out = torch.full((R * B,), float("nan"), device="cuda")
+    banded_matvec_out(slots, xw, out)
+    ref = banded_matvec_plain(slots, xw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ref) and torch.equal(out, ref)
+    assert torch.equal(ref.cpu(), banded_matvec_plain(cpu, xw.cpu()))
+    assert not bool(y[R * B - B // 2:].any())
 
 
 FLY_N = [1, 31, 128, 129, 300, 1153, 3527]
@@ -926,23 +969,23 @@ def test_cuda_event_loop_wide_rows(dtype):
 @pytest.mark.parametrize("R,m_pad", [(4, 8), (37, 56), (2, 120)])
 def test_cuda_banded_matvec_bf16_band_f32_vector(R, m_pad):
     """A bf16 band with an f32 vector (what transport_bf16_inner runs):
-    against the plain version on the same inputs, f32 sums in another order
-    (2e-5 of the largest entry); the vector is not rounded."""
+    bit-equal to the plain version on the same inputs; the vector is not
+    rounded (the bf16-rounded vector gives another product)."""
     _need_card()
-    from devicekmc_tpu_torch.ops.banded import banded_matvec, banded_matvec_plain
+    from devicekmc_tpu_torch.ops.banded import band_slots, banded_matvec, banded_matvec_plain
 
-    g = torch.Generator(device="cuda").manual_seed(R * 100 + m_pad)
-    C4 = torch.randn((R, m_pad, 128, 128), generator=g, device="cuda").to(torch.bfloat16)
-    xp2 = torch.randn((R + m_pad - 1, 128), generator=g, device="cuda")
+    g = torch.Generator(device="cpu").manual_seed(R * 100 + m_pad)
+    C4 = torch.randn((R, m_pad, 128, 128), generator=g).to(torch.bfloat16)
+    slots = band_slots(C4).to("cuda")
+    xw = torch.randn((R + m_pad - 1) * 128, generator=g).cuda()
     before = banded_matvec.launches
-    y = banded_matvec(C4, xp2)
-    ref = banded_matvec_plain(C4, xp2)
-    rounded = banded_matvec_plain(C4, xp2.to(torch.bfloat16))
+    y = banded_matvec(slots, xw)
+    ref = banded_matvec_plain(slots, xw)
+    rounded = banded_matvec_plain(slots, xw.to(torch.bfloat16))
     torch.cuda.synchronize()
     assert banded_matvec.launches == before + 1
-    scale = float(ref.abs().max())
-    assert float((y - ref).abs().max()) <= 2e-5 * scale
-    assert float((rounded - ref).abs().max()) > 10 * float((y - ref).abs().max())
+    assert torch.equal(y, ref)
+    assert not torch.equal(rounded, ref)
 
 
 @pytest.mark.cuda
@@ -1698,16 +1741,16 @@ def test_cuda_band_and_fly_out_entries_bit_equal():
     on a side stream too, and the card counts one launch of each a call."""
     _need_card()
     from devicekmc_tpu_torch.ops import _build
-    from devicekmc_tpu_torch.ops.banded import banded_matvec, banded_matvec_out
+    from devicekmc_tpu_torch.ops.banded import band_slots, banded_matvec, banded_matvec_out
     from devicekmc_tpu_torch.ops.wkb_fly import (
         matvec_scratch, wkb_fly_matvec, wkb_fly_matvec_out,
     )
 
     g = torch.Generator(device="cpu").manual_seed(3)
     R, m_pad, B = 7, 8, 128
-    C4 = torch.randn((R, m_pad, B, B), generator=g).cuda()
-    xp = torch.randn((R + m_pad - 1, B), generator=g).cuda()
-    out = torch.full((R, B), float("nan"), device="cuda")
+    C4 = band_slots(torch.randn((R, m_pad, B, B), generator=g)).to("cuda")
+    xp = torch.randn((R + m_pad - 1) * B, generator=g).cuda()
+    out = torch.full((R * B,), float("nan"), device="cuda")
     names = _build.COUNTED_ON_CARD
     card0 = _build.launch_counts("cuda").tolist()
     side = torch.cuda.Stream()
@@ -1804,7 +1847,8 @@ def _cpu_op(op):
     cpu = lambda v: v.cpu() if torch.is_tensor(v) else v
     cuda = lambda v: v.cuda() if torch.is_tensor(v) else v
     op_c = op._replace(**{k: cpu(v) for k, v in op._asdict().items()
-                          if k not in ("plain_blocks", "plain_rows", "env")})
+                          if k not in ("plain_blocks", "plain_rows", "env", "slots")},
+                       slots=op.slots.to("cpu"))
     blocks, rows = op.plain_blocks, op.plain_rows
     return op_c._replace(
         plain_blocks=lambda x, wd: tuple(cpu(v) for v in blocks(x.cuda(), wd)),

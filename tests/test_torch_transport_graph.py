@@ -308,3 +308,17 @@ def test_transport_cg_plain_matches_cg_solve_mixed(tmp_path):
     assert got.I_macro == ref.I_macro
     assert torch.equal(got.virtual_potentials, ref.virtual_potentials)
     assert mg["transport_rel0"] == mr["transport_rel0"]
+
+
+@pytest.mark.parametrize("branch", [0, 3])
+def test_fork_refuses_a_branch_out_of_range(branch):
+    """The inner body forks two branches (the fly matvec and
+    transport_blocks); a branch number outside 1 .. MAX_BRANCHES, whose
+    stream no capture made beforehand, raises before any stream is made."""
+    from devicekmc_tpu_torch.ops.graph import MAX_BRANCHES, fork, join
+
+    assert MAX_BRANCHES == 2
+    with pytest.raises(ValueError):
+        fork("cpu", branch=branch)
+    with pytest.raises(ValueError):
+        join("cpu", branch=branch)

@@ -50,8 +50,11 @@ def _points(n, seed=42):
     (2, 8, 128, "bfloat16", 2e-2, 2e-1),
 ])
 def test_banded_plain_matches_pallas(R, m_pad, B, dtype, rtol, atol):
+    """The port's plain version on ``band_slots`` of a fully dense random
+    band against the Pallas kernel on the dense band (bf16: the band and
+    the vector rounded as the JAX test rounds them)."""
     from devicekmc_tpu.ops.banded_pallas import banded_matvec_pallas
-    from devicekmc_tpu_torch.ops.banded import banded_matvec
+    from devicekmc_tpu_torch.ops.banded import band_slots, banded_matvec
 
     rng = np.random.default_rng(R * 100 + m_pad)
     C4 = rng.standard_normal((R, m_pad, B, B)).astype(np.float32)
@@ -60,9 +63,118 @@ def test_banded_plain_matches_pallas(R, m_pad, B, dtype, rtol, atol):
     tdt = getattr(torch, dtype)
     ref = np.asarray(banded_matvec_pallas(jnp.asarray(C4, jdt), jnp.asarray(xp2, jdt),
                                           interpret=True))
-    got = banded_matvec(torch.as_tensor(C4).to(tdt), torch.as_tensor(xp2).to(tdt))
-    assert got.dtype == torch.float32 and tuple(got.shape) == (R, B)
-    np.testing.assert_allclose(got.numpy(), ref, rtol=rtol, atol=atol)
+    slots = band_slots(torch.as_tensor(C4).to(tdt))
+    got = banded_matvec(slots, torch.as_tensor(xp2).to(tdt).reshape(-1))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (R * B,)
+    np.testing.assert_allclose(got.reshape(R, B).numpy(), ref, rtol=rtol, atol=atol)
+
+
+def _dense_einsum(C4, xw):
+    """The dense band's product over the window stack, as the port computed
+    it before its band kept only nonzeros, written as the einsum's terms
+    (each product rounded to f32) summed over (k, j)."""
+    R, m_pad, B, _ = C4.shape
+    x2 = xw.reshape(R + m_pad - 1, B).float()
+    xst = torch.stack([x2[k:k + R] for k in range(m_pad)], dim=1)
+    return (C4.float() * xst[:, :, None, :]).sum(dim=(1, 3)).reshape(-1)
+
+
+def _sparse_band(rng, R, m_pad, B, per_row, dtype=np.float32):
+    """A random band with at most ``per_row`` nonzeros a row at random
+    offsets (repeats collapse), rows past the first ``R * B - B // 2``
+    empty (the padded rows past Na)."""
+    C4 = np.zeros((R, m_pad, B, B), dtype)
+    for i in range(R * B - B // 2):
+        offs = rng.integers(0, m_pad * B, per_row)
+        C4[i // B, offs // B, i % B, offs % B] = rng.standard_normal(per_row)
+    return C4
+
+
+@pytest.mark.parametrize("R,m_pad,B,per_row", [(3, 5, 32, 2), (5, 3, 64, 7), (2, 17, 32, 30)])
+def test_band_slots_layout(R, m_pad, B, per_row):
+    """band_slots keeps every nonzero once, each row's in ascending offset
+    order, in the sliced ELL layout the kernel reads (a slice's slots a row
+    a multiple of GROUP, pads offset 0 and value 0), and band_dense gives
+    the band back."""
+    from devicekmc_tpu_torch.ops import banded as bd
+
+    rng = np.random.default_rng(R + 10 * per_row)
+    C4 = _sparse_band(rng, R, m_pad, B, per_row)
+    slots = bd.band_slots(C4)
+    assert slots.shape == (R, m_pad, B) and slots.start.dtype == torch.int32
+    assert slots.off.dtype == torch.int16 and slots.val.dtype == torch.float32
+    assert torch.equal(bd.band_dense(slots), torch.as_tensor(C4))
+    width = (slots.start[1:] - slots.start[:-1]) // bd.SLICE
+    assert int(slots.start[0]) == 0 and bool((width % bd.GROUP == 0).all())
+    pos, held = bd._rows(slots)
+    off = slots.off.long() & 0xFFFF
+    for i in range(R * B):
+        p = pos[i][held[i]]
+        v, o = slots.val[p], off[p]
+        n = int((v != 0).sum())
+        assert n == int((C4[i // B, :, i % B, :] != 0).sum())
+        # the row's slots first, in ascending offset order, then its pads
+        assert bool((v[:n] != 0).all()) and not bool(v[n:].any()) and not bool(o[n:].any())
+        assert bool((o[1:n] > o[:max(n - 1, 0)]).all())
+        k, j = o[:n] // B, o[:n] % B
+        assert torch.equal(v[:n], torch.as_tensor(C4[i // B, k.numpy(), i % B, j.numpy()]))
+
+
+def test_band_slots_of_a_jax_bf16_band():
+    """A bf16 band as numpy holds it from JAX (ml_dtypes' bfloat16) gives the
+    slots of the same band as a torch tensor, values bit for bit."""
+    from devicekmc_tpu_torch.ops.banded import band_slots
+
+    rng = np.random.default_rng(4)
+    C4 = _sparse_band(rng, 2, 3, 32, 5)
+    a = band_slots(np.asarray(jnp.asarray(C4, jnp.bfloat16)))
+    b = band_slots(torch.as_tensor(C4).to(torch.bfloat16))
+    assert a.val.dtype == torch.bfloat16
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                           y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,m_pad,B,per_row", [(3, 5, 32, 1), (3, 5, 32, 2), (4, 9, 64, 12)])
+def test_banded_plain_matches_dense_einsum(R, m_pad, B, per_row, dtype):
+    """The plain version on a random sparse band against the dense band's
+    einsum terms summed: bit-equal on the rows of at most two nonzeros (the
+    zeros add exactly, so their sum has one order), within f32 summation
+    error elsewhere; the empty rows past the last give exact zeros."""
+    from devicekmc_tpu_torch.ops.banded import band_slots, banded_matvec_plain
+
+    rng = np.random.default_rng(R * 7 + per_row)
+    C4 = torch.as_tensor(_sparse_band(rng, R, m_pad, B, per_row)).to(getattr(torch, dtype))
+    xw = torch.as_tensor(rng.standard_normal((R + m_pad - 1) * B).astype(np.float32))
+    got = banded_matvec_plain(band_slots(C4), xw)
+    ref = _dense_einsum(C4, xw)
+    nnz = (C4 != 0).sum(dim=(1, 3)).reshape(-1)
+    short = nnz <= 2
+    assert bool(short.any())
+    assert torch.equal(got[short], ref[short])
+    assert not bool(got[R * B - B // 2:].any())
+    scale = float(_dense_einsum(C4.abs(), xw.abs()).max())
+    assert float((got - ref).abs().max()) <= 1e-6 * scale
+
+
+def test_banded_plain_sums_in_slot_order():
+    """Each row's sum is a rounded multiply then a rounded add a slot, in
+    ascending offset order from 0: the kernel's arithmetic, repeated here in
+    numpy f32 on a row whose terms do not commute in f32."""
+    from devicekmc_tpu_torch.ops.banded import band_slots, banded_matvec_plain
+
+    B, m_pad = 32, 3
+    C4 = np.zeros((1, m_pad, B, B), np.float32)
+    offs = np.array([70, 3, 40, 95, 11])
+    C4[0, offs // B, 0, offs % B] = [1e8, 1.0, -1e8, 3.0, 0.5]
+    xw = np.linspace(0.5, 1.5, m_pad * B).astype(np.float32)
+    got = banded_matvec_plain(band_slots(C4), torch.as_tensor(xw))
+    acc = np.float32(0)
+    for o in sorted(offs):
+        acc = np.float32(acc + np.float32(C4[0, o // B, 0, o % B] * xw[o]))
+    assert float(got[0]) == float(acc)
+    assert not bool(got[1:].any())
 
 
 @pytest.mark.parametrize("pbc", [False, True])
@@ -278,7 +390,7 @@ def test_window_plain_matches_tunnel_block_window():
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """On a CUDA tensor a wrapper launches or raises; here only the checks
     that need no card: a device that is neither CPU nor CUDA."""
-    from devicekmc_tpu_torch.ops.banded import banded_matvec
+    from devicekmc_tpu_torch.ops.banded import BandSlots, banded_matvec
     from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matmat, wkb_fly_matvec
     from devicekmc_tpu_torch.ops.wkb_window import wkb_window_block
 
@@ -292,8 +404,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         wkb_window_block(m, v, v.bool(), m, v, tenv)
     with pytest.raises(ValueError):
-        banded_matvec(torch.zeros((1, 1, 128, 128), device="meta"),
-                      torch.zeros((1, 128), device="meta"))
+        banded_matvec(BandSlots(torch.zeros(0, dtype=torch.int16, device="meta"),
+                                torch.zeros(0, device="meta"),
+                                torch.zeros(5, dtype=torch.int32, device="meta"), (1, 1, 128)),
+                      torch.zeros(128, device="meta"))
 
 
 # ---------------------------------------------------------------------------

@@ -142,12 +142,14 @@ def _jax_blocks(blk):
     """The port's blocks as the JAX package's _apply_X_blocks reads them."""
     import jax.numpy as jnp
 
+    from devicekmc_tpu_torch.ops.banded import band_dense
+
     j = lambda t: jnp.asarray(t.numpy())
     keys = ("band_dyn_vals", "band_vnb_safe", "vidx", "v_ok", "nb_vals", "nb_safe", "T_vv",
             "T_vm", "mp", "mp_inv", "src_vals", "gnd_vals", "diag")
     out = {k: j(blk[k]) for k in keys}
     band = blk["band"]
-    out["band"] = dict(C=j(band["C"]), pi=j(band["pi"]), inv=j(band["inv"]),
+    out["band"] = dict(C=j(band_dense(band["slots"])), pi=j(band["pi"]), inv=j(band["inv"]),
                        front=jnp.zeros(int(band["front"]), jnp.float32))
     out["loop_G"] = jnp.asarray(blk["loop_G"], jnp.float64)
     out["T_cc"] = None

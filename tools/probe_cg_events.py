@@ -21,10 +21,14 @@ crossbar's shapes (108,944 sites; the state after two graph supersteps):
 * the transport CG (``--parts transport``) at the crossbar's transport
   operator: its kernels through their wrappers, the band with the kernels
   that run beside it, inner iterations and the warm solve captured (the
-  solve also with other forms of the inner body), ``clock64()`` stamps of
-  each kernel's phases (TRANSPORT_STAMPS: the blocks, rows and f64 pack),
-  and the transport and heat (global)
-  configurations' graph supersteps, their ms an inner iteration;
+  solve also with other forms of the inner body: one branch or a branch
+  each for the fly matvec and transport_blocks, the band captured first or
+  last, in series), ``clock64()`` stamps of each kernel's phases
+  (TRANSPORT_STAMPS: the blocks, rows and f64 pack; BAND_STAMPS: the band,
+  also built with its window staged in shared memory, BAND_VARIANTS), and
+  the transport and heat (global) configurations' graph supersteps, their
+  ms an inner iteration, and the memory each run holds once built and the
+  most its cold solves and first two supersteps allocate;
 
 * the boundary CG's update and direction at the same system: through the
   package's wrappers, the update and direction kernels (the parent's pair
@@ -959,6 +963,112 @@ def transport_build(bdir, csrc):
     return forms, nvcc_build(path, path[:-3] + ".so", csrc)
 
 
+#: clock64() stamps of the band kernel (csrc/banded.cu): a block's start,
+#: its slice starts read, thread 0's row written; BAND_VARIANTS: builds of
+#: the kernel otherwise (name: [(old, new)] text replacements): the block's
+#: span of the window staged in shared memory, gathered from there
+BAND_STAMPS = (
+    ("  count_launch(count);\n  const int row =", "  TP_BLOCK(0);\n", "before"),
+    ("  float acc = 0.f;\n#pragma unroll", "  TP_BLOCK(1);\n", "before"),
+    ("  y[row] = acc;\n", "  TP_BLOCK(2);\n", "after"),
+)
+BAND_PHASES = ("slice starts read", "thread 0's row")
+BAND_VARIANTS = {
+    "direct": [],
+    "staged window": [
+        ("int n_rows, int B, float* __restrict__ y,",
+         "int n_rows, int m_pad, int B, float* __restrict__ y,"),
+        ("  const float* x = xw + (int64_t)(row / B) * B;\n",
+         "  // the windows of the block's row blocks, one span of xw\n"
+         "  extern __shared__ float xs[];\n"
+         "  const int row0 = (int)blockIdx.x * kThreads, rb0 = row0 / B;\n"
+         "  const int rb1 = (min(row0 + kThreads, n_rows) - 1) / B;\n"
+         "  const int n = (rb1 - rb0 + m_pad) * B;\n"
+         "  for (int e = (int)threadIdx.x; e < n; e += kThreads)\n"
+         "    xs[e] = xw[(int64_t)rb0 * B + e];\n"
+         "  __syncthreads();\n"
+         "  const float* x = xs + (row / B - rb0) * B;\n"),
+        ("__ldg(x + oi[q])", "x[oi[q]]"),
+        ("  banded_slots_kernel<TV><<<(n_rows + kThreads - 1) / kThreads, kThreads, 0, st>>>(",
+         "  const size_t smem =\n"
+         "      (size_t)((kThreads + B - 1) / B + 1 + m_pad) * B * sizeof(float);\n"
+         "  if (smem > 48 * 1024) {\n"
+         "    cudaError_t e = cudaFuncSetAttribute(banded_slots_kernel<TV>,\n"
+         "        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);\n"
+         "    if (e != cudaSuccess) return (int)e;\n"
+         "  }\n"
+         "  banded_slots_kernel<TV>\n"
+         "      <<<(n_rows + kThreads - 1) / kThreads, kThreads, smem, st>>>("),
+        ("static_cast<const float*>(xw), n_rows, B,",
+         "static_cast<const float*>(xw), n_rows, m_pad, B,"),
+    ],
+}
+
+
+def band_builds(bdir, csrc):
+    """csrc/banded.cu with BAND_STAMPS, as each of BAND_VARIANTS: {name: nvcc
+    job}; none for a package whose band kernel is not the slots kernel."""
+    src = (csrc / "banded.cu").read_text()
+    if "banded_slots_kernel" not in src:
+        return {}
+    for anchor, stamp, where in BAND_STAMPS:
+        src = replace_once(src, anchor, anchor + stamp if where == "after"
+                           else stamp + anchor, "banded.cu")
+    head = "#include \"launch_count.cuh\"\n"
+    src = replace_once(src, head, head + TP_STAMP_DEFS, "banded.cu") + TP_STAMP_EXPORTS
+    jobs = {}
+    for name, subs in BAND_VARIANTS.items():
+        text = src
+        for old, new in subs:
+            text = replace_once(text, old, new, "banded.cu")
+        path = os.path.join(bdir, f"banded_{name.replace(' ', '_')}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        jobs[name] = nvcc_build(path, path[:-3] + ".so", csrc)
+    return jobs
+
+
+def band_probe(cs, op, xw, libs):
+    """The band kernel's builds of ``libs`` (band_builds) at the operator's
+    band: each bit-equal to the package's launch, timed back to back and
+    with a cold L2, and one stamped launch's phases (BAND_PHASES)."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.banded import banded_matvec
+
+    slots = op.slots
+    R, m_pad, B = slots.shape
+    ref = banded_matvec(slots, xw)
+    out = {}
+    for name, lib in libs.items():
+        fn = lib.dkmc_banded_matvec
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        y = torch.empty_like(ref)
+
+        def run():
+            err = fn(slots.off.data_ptr(), slots.val.data_ptr(), slots.start.data_ptr(),
+                     xw.data_ptr(), R, m_pad, B, int(slots.val.dtype == torch.bfloat16),
+                     y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"band {name}: cudaError {err}")
+
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(y, ref):
+            raise RuntimeError(f"band {name}: not bit-equal to the package's kernel")
+        lib.dkmc_tp_probe_read.argtypes = [ctypes.c_void_p] * 2
+        lib.dkmc_tp_probe_read.restype = lib.dkmc_tp_probe_clear.restype = ctypes.c_int
+        lib.dkmc_tp_probe_clear()
+        torch.cuda._sleep(cs.HOLD_CYCLES)
+        run()
+        torch.cuda.synchronize()
+        out[name] = dict(ms=cs.time_ms(run), cold_ms=cs.time_ms_cold(run),
+                         stamps=transport_stamps(lib, None, {"": (0, TP_BLOCKS,
+                                                                  BAND_PHASES)}))
+    return out
+
+
 def transport_stamps(lib, form, block_kinds=None):
     """Each phase of TRANSPORT_PHASES[form] of the stamped kernel's last
     launch, in cycles over the blocks that reached both its stamps (median,
@@ -997,7 +1107,7 @@ def transport_stamps(lib, form, block_kinds=None):
     return out
 
 
-def transport_probe(cs, sim, stamped, inner=20):
+def transport_probe(cs, sim, stamped, band_libs, inner=20):
     """The transport CG's kernels of the package at the crossbar's transport
     operator (the state after two supersteps, chip_smoke.transport_operator's
     seeded direction): each kernel through its wrapper, back to back, beside
@@ -1005,7 +1115,8 @@ def transport_probe(cs, sim, stamped, inner=20):
     graph (a seeded CG start whose threshold is 0, so every iteration
     iterates), per iteration; the warm solve of chip_smoke.py's phase 4
     captured, per inner iteration; with ``stamped`` ((forms, library) of
-    transport_build) one launch of each stamped kernel and its phases."""
+    transport_build) one launch of each stamped kernel and its phases; the
+    band kernel's builds ``band_libs`` (band_probe)."""
     import dataclasses
 
     import torch
@@ -1056,7 +1167,10 @@ def transport_probe(cs, sim, stamped, inner=20):
     up.cg.thresh2.zero_()
     t["update_pack"] = cs.time_ms(lambda: tcg.update_pack(up, op))
     t["pack_hi"] = cs.time_ms(lambda: tcg.pack(hi, op, True))
+    t["band_cold"] = cs.time_ms_cold(lambda: tcg.band(lo, op))
     res["ms"] = t
+    if band_libs:
+        res["band_builds"] = band_probe(cs, op, lo.xw, band_libs)
 
     # the body's products and inner iterations captured: the band alone, the
     # band with what runs beside it, and whole inner iterations from a CG
@@ -1122,6 +1236,22 @@ def transport_probe(cs, sim, stamped, inner=20):
                 part(tw, op_, stream)
         return run
 
+    def branches(band_first):
+        # the fly matvec and transport_blocks on a branch each, the band
+        # captured before them or after them
+        def run(tw, op_, stream=None):
+            dev = tw.x.device
+            s1, s2 = fork(dev, stream, 1), fork(dev, stream, 2)
+            if band_first:
+                tcg.band(tw, op_, stream)
+            tcg.fly(tw, op_, s1)
+            tcg.blocks(tw, op_, False, s2)
+            if not band_first:
+                tcg.band(tw, op_, stream)
+            join(dev, stream, 1)
+            join(dev, stream, 2)
+        return run
+
     def series(band_first):
         def run(tw, op_, stream=None):
             if band_first:
@@ -1135,18 +1265,23 @@ def transport_probe(cs, sim, stamped, inner=20):
     fly_p = lambda tw, op_, s_: tcg.fly(tw, op_, s_)
     blocks_p = lambda tw, op_, s_: tcg.blocks(tw, op_, False, s_)
     products = tcg.products
+    forms = [("the package's", products),
+             ("one branch (fly, blocks) first, the band after it", branch_of(fly_p, blocks_p)),
+             ("one branch, blocks then fly, first", branch_of(blocks_p, fly_p)),
+             ("band first, one branch (fly, blocks) beside it",
+              branch_of(fly_p, blocks_p, band_first=True)),
+             ("fly beside the band, blocks after", branch_of(fly_p, after=(blocks_p,))),
+             ("blocks beside the band, fly after", branch_of(blocks_p, after=(fly_p,))),
+             ("in series, band first", series(True)),
+             ("in series, band last", series(False))]
+    # a branch each for the fly matvec and transport_blocks needs a package
+    # whose fork takes a branch number
+    if "branch" in inspect.signature(fork).parameters:
+        forms += [("fly and blocks on a branch each, the band after them", branches(False)),
+                  ("band first, fly and blocks on a branch each", branches(True))]
     res["solve_forms"] = {}
     try:
-        for name, form in (("the package's", products),
-                           ("branch first, blocks then fly", branch_of(blocks_p, fly_p)),
-                           ("band first, the branch beside it",
-                            branch_of(fly_p, blocks_p, band_first=True)),
-                           ("fly beside the band, blocks after",
-                            branch_of(fly_p, after=(blocks_p,))),
-                           ("blocks beside the band, fly after",
-                            branch_of(blocks_p, after=(fly_p,))),
-                           ("in series, band first", series(True)),
-                           ("in series, band last", series(False))):
+        for name, form in forms:
             tcg.products = form
             sv = clone(tws)
             g = Graph(lambda: tcg.solve(sv, op, x0p, go, tol, 20000), "cuda")
@@ -1201,6 +1336,19 @@ def transport_probe(cs, sim, stamped, inner=20):
 
 #: graph supersteps timed after the probe's warm-up, transport and heat
 SUPERSTEPS = 8
+
+
+def memory_of(run):
+    """GiB the card holds before ``run()`` (a run just built) and the most
+    it allocates while ``run()`` runs."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return dict(held=held / 2**30, peak=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def superstep_probe(cs, sim, steps=SUPERSTEPS):
@@ -1269,6 +1417,7 @@ def main():
     update_variant_jobs = (update_variant_builds(bdir, _build.CSRC)
                            if args.variants and "update" in parts else {})
     transport_job = transport_build(bdir, _build.CSRC) if "transport" in parts else None
+    band_jobs = band_builds(bdir, _build.CSRC) if "transport" in parts else {}
     _build.build(["ell_gather", "pairwise", "kmc_events", "graph", "boundary_cg"]
                  + (["banded", "wkb_fly", "wkb_window", "transport_cg"]
                     if "transport" in parts else []))
@@ -1286,6 +1435,7 @@ def main():
         transport_lib.dkmc_tp_probe_read.argtypes = [ctypes.c_void_p] * 2
         for fn in (transport_lib.dkmc_tp_probe_read, transport_lib.dkmc_tp_probe_clear):
             fn.restype = ctypes.c_int
+    band_libs = finish(band_jobs)
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in ("kmc_events", "boundary_cg"):
         print(name, [l.strip() for l in _build.build_log(name).splitlines()
@@ -1293,20 +1443,26 @@ def main():
 
     out = {"gpu": cs.gpu_line(), "package": pkg}
     if "transport" in parts:
+        # the memory each run holds once built, and the most it allocates in
+        # its cold solves and two supersteps
+        mem = {}
         tsim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build",
                                                                       "probe_transport"),
                                      current=True)
-        tsim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
-        torch.cuda.synchronize()
-        out["transport"] = transport_probe(cs, tsim, (transport_job[0], transport_lib))
+        mem["transport"] = memory_of(lambda: tsim.run_bias_point(cs.VD_MAIN, 1e30,
+                                                                 max_steps=2))
+        out["transport"] = transport_probe(cs, tsim, (transport_job[0], transport_lib),
+                                           band_libs)
         out["transport"]["supersteps"] = {"transport": superstep_probe(cs, tsim)}
         del tsim
         torch.cuda.empty_cache()
         hsim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build",
                                                                       "probe_heat"),
                                      current=True, heat="global")
-        hsim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
+        mem["heat (global)"] = memory_of(lambda: hsim.run_bias_point(cs.VD_MAIN, 1e30,
+                                                                     max_steps=2))
         out["transport"]["supersteps"]["heat (global)"] = superstep_probe(cs, hsim)
+        out["transport"]["memory_gib"] = mem
         print("transport CG: " + json.dumps(out["transport"]), flush=True)
         del hsim
         torch.cuda.empty_cache()

@@ -19,7 +19,9 @@ to the trajectory; ``--chunks`` sets the CG iterations between two reads of
 the stop condition, ``ops.cg.CHUNKS``, ``1`` reads every iteration), builds
 the kernels, runs the cold pre-solves and two warm-up supersteps (printing
 each step's events, CG iterations and current, the wall time of the cold
-solves and the warm-up, the CG read-backs and the matvec launches), then:
+solves and the warm-up, the CG read-backs, the matvec launches and the most
+memory allocated; with the band, its nonzeros and the bytes of its slots),
+then:
 
 1. host-clock phase breakdown over ``--steps`` supersteps, with a device
    synchronize after each phase: charge rule, boundary solve, Poisson,
@@ -99,16 +101,27 @@ def main():
                              current=args.transport,
                              heat=("local" if args.local else "global") if args.heat
                              else None, **overrides)
-    from devicekmc_tpu_torch.ops.banded import banded_matvec
+    from devicekmc_tpu_torch.ops.banded import banded_matvec, banded_matvec_out
     from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matvec
 
-    cg.readbacks = banded_matvec.launches = wkb_fly_matvec.launches = 0
+    band = getattr(sim, "_band", None)
+    if band is not None:
+        sl = band["slots"]
+        nnz = int((sl.val != 0).sum())
+        mib = (sl.off.numel() * (2 + sl.val.element_size()) + sl.start.numel() * 4) / 2**20
+        print(f"band {sl.shape} {sl.val.dtype}: {nnz} nonzeros in {sl.off.numel()} slots "
+              f"({mib:.2f} MiB)")
+    cg.readbacks = banded_matvec.launches = banded_matvec_out.launches = 0
+    wkb_fly_matvec.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sim.run_bias_point(VD_MAIN, 1e30, max_steps=2)
     torch.cuda.synchronize()
     print(f"CG stop checks every {cg.CHUNKS} iterations: cold solves and 2 warm-up steps in "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms, {cg.readbacks} CG read-backs, "
-          f"{banded_matvec.launches} banded and {wkb_fly_matvec.launches} fly matvec launches")
+          f"{banded_matvec.launches} banded ({banded_matvec_out.launches} out= entry host "
+          f"calls) and {wkb_fly_matvec.launches} fly matvec launches; the most memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for pre in sim.presolve_log:
         print(f"cold {pre['phase']} solve: {pre['cg_iters']} CG iterations, "
               f"{pre['s'] * 1e3:.1f} ms")
@@ -132,7 +145,8 @@ def main():
     cg_iters = []
     n_events = []
     state = sim.state
-    cg.readbacks = banded_matvec.launches = wkb_fly_matvec.launches = 0
+    cg.readbacks = banded_matvec.launches = banded_matvec_out.launches = 0
+    wkb_fly_matvec.launches = 0
     for _ in range(args.steps):
         t0 = sync()
         state, _ = charge.update_charge(geom, params, state)
@@ -196,7 +210,8 @@ def main():
     per_event = [p / max(n, 1) for p, n in zip(phases["event_loop"], n_events)]
     print(f"  event loop per event: median {statistics.median(per_event) * 1e3:.3f} ms")
     print(f"  CG read-backs {cg.readbacks}; banded matvec launches "
-          f"{banded_matvec.launches}, fly matvec launches {wkb_fly_matvec.launches}")
+          f"{banded_matvec.launches} (out= entry {banded_matvec_out.launches}), fly matvec "
+          f"launches {wkb_fly_matvec.launches}")
     if args.transport:
         print(f"transport phase: {len(transport['assembly'])} solved steps "
               f"(cg_iters_power {cg_iters}), {len(transport['skipped'])} skipped; median ms:")
