@@ -185,7 +185,21 @@ Phases (any failed check raises and the exit code is non-zero):
    torch.sparse.mm of the operator in CSR), cg_update_direction also at
    B = 8 and 32 beside its bound and the bytes its blocks read again, and
    the boundary work a captured superstep adds where no replica solves,
-   captured and timed.
+   captured and timed;
+12. the halo decomposition (parallel.halo_superstep) at world size 1
+   through NCCL (an in-process store, cuda:0): the crossbar in f64 (solver_tol
+   1e-12, the JAX package's halo test's) over the
+   halo path and on the single-device eager superstep, each its cold pre-solve
+   and 3 supersteps at Vd = 1 V, the halo run driven with the wrappers'
+   counts set to 0 just before and read just after (the gather launched,
+   its plain version never, the pair sweep and event kernels not): events,
+   elements and charges equal step for step, potential_boundary within
+   1e-8 of its scale, kmc_time within 1e-6 relative; the ms a superstep of
+   both, the collectives a superstep by kind, the boundary CG iterations;
+   the ms of the halo superstep's four phases; the same in mixed
+   precision, timed, its events printed and not gated;
+   the halo width beside the slab at 2, 4 and 8 cards; the group destroyed
+   at the end.
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -426,7 +440,7 @@ def small_device(device, out_dir, current=False, heat=None, fused=True, **overri
 
 
 def synthetic_crossbar(n_sites, device, out_dir, current=False, heat=None, fused=True,
-                       **overrides):
+                       mesh=None, **overrides):
     """The headline configuration on the synthetic crossbar: the structure,
     substoichiometry and solver settings of the JAX package's bench.py
     build_synthetic_crossbar_sim (bench.py:219-297), with site_order "x",
@@ -438,7 +452,8 @@ def synthetic_crossbar(n_sites, device, out_dir, current=False, heat=None, fused
     "global" (the lumped model, A = ly * lz) or "local" (the matrix-free
     site-resolved model with symmetric plate-contact spans, so that interior
     metal stays inside the heat domain); ``fused=False`` selects the modular
-    driver; ``overrides`` replace single configuration fields."""
+    superstep; ``mesh`` (parallel.make_mesh) runs it over the halo
+    decomposition; ``overrides`` replace single configuration fields."""
     from devicekmc_tpu_torch.config import KMCConfig
     from devicekmc_tpu_torch.engine import Simulation
     from devicekmc_tpu_torch.physics import heat as heat_mod
@@ -473,7 +488,8 @@ def synthetic_crossbar(n_sites, device, out_dir, current=False, heat=None, fused
         cfg = dataclasses.replace(cfg, solve_heating_local=True, heat_solver="cg")
     cfg = dataclasses.replace(cfg, **overrides)
     os.makedirs(out_dir, exist_ok=True)
-    sim = Simulation(cfg, elements=elems, coords=s.coords, device=device, fused=fused)
+    sim = Simulation(cfg, elements=elems, coords=s.coords, device=device, fused=fused,
+                     mesh=mesh, decomposition="halo" if mesh is not None else "replicate")
     if heat == "local":
         e = sim.state.element.cpu().numpy()
         spans = (heat_mod._num_in_contact_left(e, cfg.num_atoms_contact),
@@ -4215,6 +4231,191 @@ def boundary_cg_path(sim, cg, cg_launches, cg_launches_ensemble):
     return records, summary
 
 
+# ---------------------------------------------------------------------------
+# the halo decomposition
+# ---------------------------------------------------------------------------
+
+#: supersteps of each halo-phase run
+HALO_STEPS = 3
+#: card counts at which the phase sets the crossbar's halo width beside its slab
+HALO_CARDS = (2, 4, 8)
+#: the halo superstep's phases, timed in phase 12 (function: name)
+HALO_PHASES = {"halo_charge": "charge", "halo_boundary": "boundary potential",
+               "halo_poisson": "Poisson", "_halo_event_loop": "events"}
+
+
+def halo_sim(out_root, tag, mesh, device="cuda", n_sites=N_SITES, **overrides):
+    """The crossbar over the halo decomposition (``mesh``), or without a mesh
+    through the single-device eager superstep (the engine's superstep without a
+    graph), with each superstep recorded: its ms between two
+    synchronizations, events, CG iterations, step time, the whole
+    structure's elements, charges and boundary potential, and under the mesh
+    its collectives by kind."""
+    import torch
+
+    from devicekmc_tpu_torch import engine
+
+    sim = synthetic_crossbar(n_sites, device, os.path.join(out_root, tag), mesh=mesh,
+                             **overrides)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    if mesh is None:
+        sim._make = engine.make_superstep
+    steps, inner = [], sim._superstep
+    nr = sim.geom.N_real
+
+    def wrapped(state, Vd):
+        if mesh is not None:
+            mesh.comm.reset_counts()
+        sync()
+        t = time.perf_counter()
+        out = inner(state, Vd)
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        st, m = out[0], out[2]
+        counts = dict(mesh.comm.counts) if mesh is not None else None
+        # the whole structure's fields (gathered from the ranks' slabs)
+        whole = (lambda x: x) if mesh is None else mesh.comm.all_gather
+        steps.append(dict(
+            ms=ms, events=int(m["n_events"]), cg=int(m["cg_iters_boundary"]),
+            step_time=float(out[1]), element=whole(st.element)[:nr].cpu(),
+            charge=whole(st.charge)[:nr].cpu(),
+            pb=whole(st.potential_boundary)[:nr].double().cpu(), counts=counts))
+        return out
+
+    sim._superstep = wrapped
+    return sim, steps
+
+
+def halo_path(out_root, device="cuda", n_sites=N_SITES):
+    """Phase 12: the halo decomposition at world size 1 through NCCL (an
+    in-process store, cuda:0) on the crossbar, in f64 at solver_tol 1e-12
+    (the JAX package's halo test's; the supersteps' boundary solves then
+    iterate) and in the headline's mixed precision,
+    each against the single-device eager superstep from the same state: the
+    cold pre-solve and HALO_STEPS supersteps.  In f64, events, elements and
+    charges equal step for step, potential_boundary within 1e-8 of its
+    scale, kmc_time within 1e-6 relative; mixed is timed and its events
+    printed, not gated (its single-device Poisson sweep is the f32 pair
+    kernel, the halo path's the exact erfc).  The halo run is driven with
+    the wrappers' counts set to 0 just before and read just after: the
+    gather launched on the card, its plain version never, the pair sweep
+    and event kernels not (the halo path sweeps and selects in PyTorch, as
+    the JAX package's does in jnp).  ``device="cpu"`` (with a smaller
+    ``n_sites``) rehearses the phase on the CPU through gloo.  Returns the
+    phase's summary."""
+    import torch
+    import torch.distributed as dist
+
+    from devicekmc_tpu_torch.ops import ell_gather as eg
+    from devicekmc_tpu_torch.ops import kmc_events
+    from devicekmc_tpu_torch.ops import pairwise as pw
+    from devicekmc_tpu_torch.parallel import halo_superstep as hs
+    from devicekmc_tpu_torch.parallel import make_mesh
+    from devicekmc_tpu_torch.physics.events import _BLOCK
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    card = gpu_line() if cuda else "cpu"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    backend = "NCCL" if cuda else "gloo"
+    check(not dist.is_initialized(), "a process group runs before the halo phase")
+    dist.init_process_group(backend.lower(), store=dist.HashStore(), rank=0, world_size=1)
+    summary = {}
+    try:
+        mesh = make_mesh(1, device=device)
+        wrappers = {"ell_gather": eg.ell_gather, "poisson_pairwise": pw.poisson_pairwise,
+                    "kmc_event_loop": kmc_events.kmc_event_loop}
+        for prec, over in (("f64", dict(precision="f64", poisson_kernel="jnp",
+                                        solver_tol=1e-12)),
+                           ("mixed", {})):
+            single, s_steps = halo_sim(out_root, f"halo_single_{prec}", None, device,
+                                       n_sites, **over)
+            single.run_bias_point(VD_MAIN, 1e30, max_steps=HALO_STEPS)
+            s_pre = single.presolve_log[0]
+            s_kmc = single.state.kmc_time
+            del single
+            halo, h_steps = halo_sim(out_root, f"halo_{prec}", mesh, device, n_sites, **over)
+            width, n_real = halo._halo_width, halo.geom.N_real
+            # ---- counters to 0, drive, read ----
+            for w in wrappers.values():
+                w.launches = 0
+            plain, restore = _counted(eg, "ell_gather_plain")
+            timed = {name: _counted(hs, name, sync) for name in HALO_PHASES}
+            mesh.comm.reset_counts()
+            try:
+                t = time.perf_counter()
+                halo.run_bias_point(VD_MAIN, 1e30, max_steps=HALO_STEPS)
+                sync()
+                wall = time.perf_counter() - t
+            finally:
+                restore()
+                for _, undo in timed.values():
+                    undo()
+            # the supersteps' phases (the cold pre-solve's charge and boundary
+            # calls come first)
+            phase_ms = {HALO_PHASES[name]: [round(x, 3) for x in rec["ms"][-HALO_STEPS:]]
+                        for name, (rec, _) in timed.items()}
+            launches = {name: w.launches for name, w in wrappers.items()}
+            check(len(h_steps) == len(s_steps) == HALO_STEPS,
+                  f"halo {prec}: ran {len(h_steps)} and {len(s_steps)} supersteps")
+            if cuda:
+                check(launches["ell_gather"] > 0, f"halo {prec}: the gather was never launched")
+                check(plain["calls"] == 0, f"halo {prec}: the gather's plain version ran")
+            else:
+                check(plain["calls"] > 0, f"halo {prec}: no gather ran")
+            check(launches["poisson_pairwise"] == launches["kmc_event_loop"] == 0,
+                  f"halo {prec}: launches {launches}")
+            h_pre = halo.presolve_log[0]
+            h_kmc = halo.state.kmc_time
+            del halo
+            if cuda:
+                torch.cuda.empty_cache()
+
+            pb_err = max(float((h["pb"] - s["pb"]).abs().max() / s["pb"].abs().max())
+                         for h, s in zip(h_steps, s_steps))
+            same = [h["events"] == s["events"] and torch.equal(h["element"], s["element"])
+                    and torch.equal(h["charge"], s["charge"])
+                    for h, s in zip(h_steps, s_steps)]
+            kmc_rel = abs(h_kmc - s_kmc) / abs(s_kmc)
+            slabs = {K: -(-n_real // (K * _BLOCK)) * _BLOCK for K in HALO_CARDS}
+            rec = dict(
+                ms_halo=[round(h["ms"], 3) for h in h_steps],
+                ms_single=[round(s["ms"], 3) for s in s_steps],
+                events_halo=[h["events"] for h in h_steps],
+                events_single=[s["events"] for s in s_steps],
+                cg_halo=[h["cg"] for h in h_steps], cg_single=[s["cg"] for s in s_steps],
+                steps_equal=same, potential_boundary_err=pb_err, kmc_time_rel_err=kmc_rel,
+                collectives=[h["counts"] for h in h_steps], launches=launches,
+                phase_ms=phase_ms,
+                presolve_halo=h_pre, presolve_single=s_pre, wall_s=wall,
+                halo_width=width, slabs=slabs)
+            summary[prec] = rec
+            med = lambda xs: statistics.median(xs)
+            log(f"halo phase, {prec} ({card}), world 1 through {backend}: {HALO_STEPS} supersteps "
+                f"{med(rec['ms_halo']):.2f} ms median {rec['ms_halo']} against the single "
+                f"device's eager {med(rec['ms_single']):.2f} ms {rec['ms_single']}; events "
+                f"{rec['events_halo']} (single {rec['events_single']}), equal step for step "
+                f"{same}; potential_boundary within {pb_err:.2e} of its scale, kmc_time "
+                f"{kmc_rel:.2e} relative; boundary CG iterations {rec['cg_halo']} (single "
+                f"{rec['cg_single']}); cold pre-solve {h_pre['cg_iters']} iterations, "
+                f"{h_pre['s']:.3f} s (single {s_pre['cg_iters']}, {s_pre['s']:.3f} s)")
+            log(f"  collectives a superstep: {rec['collectives']}; launches on the halo path "
+                f"{launches}; ms of the halo superstep's phases {phase_ms}")
+            if prec == "f64":
+                for k, (ok, h, s) in enumerate(zip(same, h_steps, s_steps)):
+                    check(ok, f"halo f64 step {k}: events {h['events']} vs {s['events']}, "
+                              "or elements or charges differ")
+                check(pb_err <= 1e-8, f"halo f64: potential_boundary error {pb_err:.3e}")
+                check(kmc_rel <= 1e-6, f"halo f64: kmc_time {h_kmc} vs {s_kmc}")
+        log(f"  halo width {width} sites against the slab at "
+            + ", ".join(f"{K} cards: {S} ({'fits' if width <= S else 'does not fit'})"
+                        for K, S in slabs.items())
+            + f"; phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    return summary
+
+
 def main():
     import torch
 
@@ -4281,6 +4482,9 @@ def main():
     ensemble_checks, ensemble = ensemble_path(out_root)
     torch.cuda.empty_cache()
     log("ensemble summary: " + json.dumps(ensemble))
+    halo = halo_path(out_root)
+    torch.cuda.empty_cache()
+    log("halo summary: " + json.dumps(halo))
     pdisp.update(launches_transport_path=transport_launches["wkb_fly_pdisp"],
                  launches_heat_path=pdisp["launches"])
     for k in kernels:
@@ -4313,6 +4517,10 @@ def main():
         batched_crossbar=batched,
         cg_readbacks_transport_run=readbacks, cg_readbacks_read_every_iteration=readbacks_ref)
     kernels.append(event_record)
+    for k in kernels:
+        if k["name"] in halo["f64"]["launches"]:
+            k["launches_halo_path"] = halo["f64"]["launches"][k["name"]]
+            k["launches_halo_path_mixed"] = halo["mixed"]["launches"][k["name"]]
     kernels += batched_records((headline.pop("kernel_checks"), headline["launches_graph"]),
                                ensemble_checks)
     cg_records, cg_summary = boundary_cg_path(xsim, boundary_cg,

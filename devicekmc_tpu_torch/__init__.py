@@ -10,8 +10,12 @@ the neighbour gather, the Poisson pair sweep, the banded matvec, the
 on-the-fly WKB products, the window-integral block, the event loop and the
 boundary CG iteration as hand-written CUDA kernels (``csrc/``).  The
 headline configuration runs each superstep, batch and ensemble call as one
-captured CUDA graph (``superstep.SuperstepGraph``).  The multi-card layers
-of ``devicekmc_tpu.parallel`` (mesh, sharding, halos) are not ported yet.
+captured CUDA graph (``superstep.SuperstepGraph``).  Over several cards
+(``parallel.make_mesh``, one process a card under ``torchrun``) the
+headline superstep runs as a halo-exchange domain decomposition
+(``Simulation(cfg, mesh=mesh, decomposition="halo")``); its transport and
+the replicated decomposition are not ported yet.  ``postprocessing`` and
+``io`` are the JAX package's log parsers, plots and matrix dumps.
 
 Quick start::
 

@@ -19,6 +19,12 @@ runs the in-superstep boundary and transport re-solves and the local cg heat
 model in bounded segments.  A full-state npz checkpoint
 (:meth:`Simulation.save_checkpoint`) resumes a run bit for bit, also in the
 middle of a bias point; the JAX package reads and writes the same file.
+
+With a mesh (``parallel.make_mesh``) and ``decomposition="halo"`` every
+rank runs the same bias loop on its x-slab of the sites
+(``parallel.halo_superstep``): a superstep a call, no batches and no graph,
+the metrics summed over the ranks, and only rank 0 writing output.txt and
+the snapshots.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from . import rng
 from .config import KMCConfig
 from .device import resolve_device
 from .physics import current as current_mod
+from .physics import events as events_mod
 from .physics import heat as heat_mod
 from .state import attach_tunnel_state, build_simulation, replace
 from .structure import Element, write_xyz
@@ -49,6 +56,10 @@ from .superstep import (  # noqa: F401  (the JAX package's engine names)
 #: metrics kept in ``step_log`` but not written to output.txt, whose keys are
 #: those of the JAX package
 _UNLOGGED = {"boundary_converged", "transport_partial_assembly"}
+
+#: where the replicated decomposition stands
+NO_REPLICATE = ('decomposition="replicate" is not ported yet (ROADMAP §1 item 5.2: '
+                'parallel/sharding.py); decomposition="halo" runs over a mesh')
 
 
 def make_superstep(geom, params, heat, graph: Optional[SuperstepGraph] = None):
@@ -133,7 +144,16 @@ class Simulation:
     batch of ``batch_steps``, as one replay of a captured CUDA graph
     (``superstep.SuperstepGraph``, on the CPU its plain version) and one read
     of its result; the state then stays in the graph's buffers between
-    replays, and ``state`` is a view of them.  The others run eagerly."""
+    replays, and ``state`` is a view of them.  The others run eagerly.
+
+    ``mesh`` (``parallel.make_mesh``) with ``decomposition="halo"`` runs
+    the superstep over the halo decomposition
+    (``parallel.halo_superstep``, the JAX package's ``engine.py:316-321``):
+    the site axis padded to ``world * events._BLOCK``, each rank holding its
+    x-slab on the mesh's device (``state`` is this rank's slab;
+    :meth:`global_field` gathers a whole field), the cold boundary solve and
+    every superstep as distributed CG and events, one superstep a call.
+    ``decomposition="replicate"`` raises NotImplementedError."""
 
     #: the checkpoint's state fields and grown caps, under the JAX package's
     #: names (devicekmc_tpu/engine.py), so that both read one npz
@@ -156,11 +176,26 @@ class Simulation:
         elements: Optional[np.ndarray] = None,
         coords: Optional[np.ndarray] = None,
         neigh_idx=None,
-        device="cuda",
+        device=None,
         fused: bool = True,
+        mesh=None,
+        decomposition: str = "replicate",
     ):
         self.cfg = cfg
         self.fused = fused
+        self.mesh = mesh
+        self.decomposition = decomposition if mesh is not None else "none"
+        if mesh is not None:
+            if decomposition == "replicate":
+                raise NotImplementedError(NO_REPLICATE)
+            if decomposition != "halo":
+                raise ValueError(f"unknown decomposition {decomposition!r}; expected "
+                                 "'halo' or 'replicate'")
+            if device is not None and torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device!r} differs from the mesh's {mesh.device}")
+            device = mesh.device
+        #: the rank that writes output.txt and the snapshots
+        self._writer = mesh is None or mesh.rank == 0
         if fused:
             self._make = lambda g, p, h: make_superstep(g, p, h, self._graph_for(p))
         else:
@@ -168,12 +203,17 @@ class Simulation:
                 g, p, h, chunk_iters=cfg.solver_chunk_iters)
         self._step_params = self._step = None
         self._graph: Optional[SuperstepGraph] = None
-        self.device = resolve_device(device)
+        self.device = resolve_device("cuda" if device is None else device)
+        halo = self.decomposition == "halo"
         self.geom, self.params, self.state = build_simulation(
             cfg, elements=elements, coords=coords, neigh_idx=neigh_idx,
-            device=self.device,
+            device=self.device, pad_to=mesh.world * events_mod._BLOCK if halo else 1,
         )
-        if cfg.solve_heating_local:
+        if halo:
+            # no heat phase runs under the halo decomposition: it needs
+            # transport (ROADMAP §1 item 5.1)
+            self.heat = heat_mod.empty_heat_model(self.params, self.device)
+        elif cfg.solve_heating_local:
             # the reference's contact-span rule; crossbars with interior metal
             # build their model with symmetric spans (heat.build_heat_model)
             # and assign it to ``heat``
@@ -186,6 +226,8 @@ class Simulation:
             self.params = replace(self.params, poisson_compact_cap=self._auto_poisson_cap())
         if cfg.active_rows_cap == -1:
             self.params = replace(self.params, active_rows_cap=self._auto_active_cap())
+        if halo:
+            self._init_halo()
         # per-bias-point cache of the blocked transport operator (the metal
         # block, constant within a bias point) and the static banded operator
         self._cc = None
@@ -236,13 +278,39 @@ class Simulation:
                     "for this structure and was not built; the f32 inner matvec "
                     "uses the ELL neighbour product", RuntimeWarning, stacklevel=2)
 
-    def _superstep(self, state, Vd):
+    def _init_halo(self):
+        """Split the padded structure into this rank's slab and build its
+        superstep (which raises for a configuration the halo path cannot
+        run).  Rank 0 keeps the whole file order and coordinates for the
+        snapshots."""
+        from .parallel import halo_superstep
+
+        self._halo_width = halo_superstep.required_halo(self.geom)
+        if self._writer:
+            self._site_io = (self.geom.io_idx.long(), self.geom.coords)
+        self.geom, self.state = halo_superstep.shard_halo_simulation(
+            self.geom, self.state, self.mesh)
+        self._make = lambda g, p, h: halo_superstep.make_halo_superstep(
+            g, p, h, self.mesh, self._halo_width)
+        self._current_step()
+
+    def _current_step(self):
         if self._step_params is not self.params:
             # built once, and again when the params change (a cap grew, a
             # checkpoint restored its caps)
             self._step_params = self.params
             self._step = self._make(self.geom, self.params, self.heat)
-        return self._step(state, Vd, self._cc)
+        return self._step
+
+    def _superstep(self, state, Vd):
+        return self._current_step()(state, Vd, self._cc)
+
+    def global_field(self, name: str) -> torch.Tensor:
+        """The state's per-site field ``name`` for the whole structure: under
+        the halo decomposition gathered from every rank's slab (a collective
+        that every rank calls), else the field itself."""
+        x = getattr(self.state, name)
+        return self.mesh.comm.all_gather(x) if self.decomposition == "halo" else x
 
     def _graph_for(self, params) -> Optional[SuperstepGraph]:
         """The captured superstep of one replica when the fused driver runs
@@ -455,7 +523,18 @@ class Simulation:
 
     def _chunked_boundary(self, Vd: float, chunk: int, base_params=None) -> int:
         """Charge rule, then the boundary network; returns the total
-        iterations."""
+        iterations.  Under the halo decomposition the boundary network is
+        the distributed CG (deflated as ``base_params`` asks) in segments of
+        ``chunk`` iterations, each warm-started from the last."""
+        if self.decomposition == "halo":
+            step = self._current_step()
+            p = base_params or self.params
+            slabs = p.coarse_slabs if p.boundary_precond == "deflated" else 0
+            self.state, _ = step.charge(self.state)
+            self.state, _, total = segments(
+                lambda st: step.boundary(st, Vd, chunk, slabs), self.state,
+                "cg_iters_boundary", "boundary_converged", "boundary solve")
+            return total
         self.state, _ = _phase_charge(self.geom, self.params, self.state)
         self.state, m = chunked_boundary_resolve(self.geom, base_params or self.params,
                                                  self.state, Vd, chunk)
@@ -490,6 +569,8 @@ class Simulation:
         self._buffer.append(text)
 
     def _flush(self):
+        if not self._writer:
+            self._buffer = []
         if self._buffer:
             with open(self.output_path, "a") as f:
                 f.write("".join(self._buffer))
@@ -501,17 +582,26 @@ class Simulation:
         src/Device.cpp:236-252) in FILE order.  The reference writes it after
         the field solve and before the events (src/kmc_main.cpp:198-205):
         ``elem_state`` gives elements and power, ``field_state`` the
-        potentials."""
-        os.makedirs(folder, exist_ok=True)
+        potentials.  Under the halo decomposition every rank calls it (the
+        fields are gathered from the slabs) and rank 0 writes."""
         es = self.state if elem_state is None else elem_state
         fs = self.state if field_state is None else field_state
-        io = self.geom.io_idx.long()
-        phi = (fs.potential_boundary + fs.potential_charge)[io].cpu().numpy()
+        phi = fs.potential_boundary + fs.potential_charge
+        elem, power = es.element, es.power
+        io, coords = self.geom.io_idx.long(), self.geom.coords
+        if self.decomposition == "halo":
+            comm = self.mesh.comm
+            phi, elem, power = (comm.all_gather(x) for x in (phi, elem, power))
+            if not self._writer:
+                return
+            io, coords = self._site_io
+        io = io[:self.geom.N_real]
+        os.makedirs(folder, exist_ok=True)
         write_xyz(
             os.path.join(folder, f"snapshot_{step_count}.xyz"),
-            es.element[io].cpu().numpy(),
-            self.geom.coords[io].cpu().numpy(),
-            extra_cols=[phi, es.power[io].cpu().numpy()],
+            elem[io].cpu().numpy(),
+            coords[io].cpu().numpy(),
+            extra_cols=[phi[io].cpu().numpy(), power[io].cpu().numpy()],
         )
 
     def _log_step_start(self, step_count: int, V_vcm: float):
@@ -612,17 +702,24 @@ class Simulation:
         if backend != "npz":
             raise ValueError(f"unknown checkpoint backend {backend!r}")
 
+    def _check_no_mesh(self):
+        if self.mesh is not None:
+            raise NotImplementedError("checkpoints of a run over a mesh are not ported yet "
+                                      "(ROADMAP §1 item 5.5)")
+
     def save_checkpoint(self, path: str, backend: Optional[str] = None):
         """Full-state checkpoint: the state fields, the grown caps and the
         driver position (bias index, step), enough for a bit-exact resume
         also in the middle of a bias point.  npz only (``backend`` "npz",
         the default for a ``*.npz`` path; an orbax backend raises)."""
         self._check_backend(path, backend)
+        self._check_no_mesh()
         np.savez(path, **self._checkpoint_payload())
 
     def load_checkpoint(self, path: str, backend: Optional[str] = None):
         """Restore a checkpoint of this package or of the JAX package."""
         self._check_backend(path, backend)
+        self._check_no_mesh()
         with np.load(path) as data:
             self._restore_payload({f: data[f] for f in data.files})
 
@@ -635,7 +732,8 @@ class Simulation:
         resumes where it was taken)."""
         cfg = self.cfg
         resume_bias, resume_step = self._pos
-        if resume_bias == 0 and resume_step == 0 and os.path.exists(self.output_path):
+        if (self._writer and resume_bias == 0 and resume_step == 0
+                and os.path.exists(self.output_path)):
             os.remove(self.output_path)
         for vt in range(resume_bias, len(cfg.V_switch)):
             self._pos = (vt, resume_step if vt == resume_bias else 0)
@@ -697,7 +795,8 @@ class Simulation:
                            lambda: self._chunked_transport(Vd, chunk))
 
         folder = os.path.join(cfg.output_dir, f"Results_{Vd:.6f}")
-        os.makedirs(folder, exist_ok=True)
+        if self._writer:
+            os.makedirs(folder, exist_ok=True)
         self._log(f"Created folder: {folder}\n")
 
         if cold:
@@ -707,7 +806,7 @@ class Simulation:
         kmc_time = self.state.kmc_time
         summary: Dict = {}
 
-        if cfg.batch_steps > 1 and self.fused:
+        if cfg.batch_steps > 1 and self.fused and self.mesh is None:
             return self._run_bias_point_batched(Vd, t_end, folder, max_steps,
                                                 resume_step)
 

@@ -68,12 +68,16 @@ def cg_solve(
     maxiter: int = 50000,
     criterion: str = "r",
     precond: Optional[Callable] = None,
+    dot: Callable = torch.dot,
 ) -> CGResult:
     """Solve A x = b for SPD A.
 
     criterion: "r"   — ||r|| <= tol*||b||;
                "pre" — sqrt(r'M^-1 r) <= tol*sqrt(b'M^-1 b).
     precond: r -> M^-1 r; overrides the Jacobi ``diag`` preconditioner.
+    dot: the inner product; a slab of a vector split over ranks takes the
+    product summed over the ranks (``parallel.halo_superstep``), so that
+    every rank reads the same stop conditions.
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -84,20 +88,20 @@ def cg_solve(
     apply_M = precond if precond is not None else (lambda r: minv * r)
 
     if criterion == "pre":
-        ref = torch.sqrt(torch.dot(b, apply_M(b)))
+        ref = torch.sqrt(dot(b, apply_M(b)))
     else:
-        ref = torch.sqrt(torch.dot(b, b))
+        ref = torch.sqrt(dot(b, b))
     thresh = tol * torch.where(ref > 0, ref, 1.0)
     thresh2 = thresh * thresh
 
     def measure2(r, rz):
-        return rz if criterion == "pre" else torch.dot(r, r)
+        return rz if criterion == "pre" else dot(r, r)
 
     x = x0
     r = b - matvec(x0)
     z = apply_M(r)
     p = z
-    rz = torch.dot(r, z)
+    rz = dot(r, z)
     global readbacks
 
     def state(ran):
@@ -128,12 +132,12 @@ def cg_solve(
             # and rz, and with them the test, no longer change)
             active = measure2(r, rz) > thresh2
             ap = matvec(p)
-            denom = torch.dot(p, ap)
+            denom = dot(p, ap)
             alpha = torch.where(denom != 0, rz / denom, 0.0)
             x_n = x + alpha * p
             r_n = r - alpha * ap
             z = apply_M(r_n)
-            rz_n = torch.dot(r_n, z)
+            rz_n = dot(r_n, z)
             beta = torch.where(rz != 0, rz_n / rz, 0.0)
             x = torch.where(active, x_n, x)
             r = torch.where(active, r_n, r)

@@ -1,8 +1,16 @@
 """Parallel layouts of the port.  ``batched``: B replicas of one device as a
-batch axis on one card.  The mesh, sharding, halo and multi-host layers of
-the JAX package (``devicekmc_tpu/parallel``) are not ported yet (ROADMAP §1
-item 6)."""
+batch axis on one card.  ``mesh``, ``multihost``, ``halo`` and
+``halo_superstep``: one structure split into x-slabs over the ranks of a
+``torch.distributed`` process group, one card (or CPU) a rank, with halo
+exchanges between neighbouring slabs.  The replicated decomposition of the
+JAX package (``devicekmc_tpu/parallel/sharding.py``) and the halo path's
+transport (``halo_transport.py``) are not ported yet (ROADMAP §1 item 5)."""
 
+from . import multihost
 from .batched import batch_states, make_batched_superstep, shard_batch
+from .halo import compute_halo_width, make_halo_laplace_solver
+from .mesh import Communicator, Mesh, make_mesh
 
-__all__ = ["batch_states", "make_batched_superstep", "shard_batch"]
+__all__ = ["batch_states", "make_batched_superstep", "shard_batch", "multihost",
+           "compute_halo_width", "make_halo_laplace_solver", "Communicator", "Mesh",
+           "make_mesh"]

@@ -13,7 +13,7 @@ A batched state is a ``SimState`` with a leading replica axis
 (``state.stack_states``, ``state.unbatch``); replica i's key is
 ``fold_in(PRNGKey(base_seed), i)``, the JAX package's streams.  Sharding the
 replica axis over a mesh of cards (``mesh``, :func:`shard_batch`) is not
-ported (ROADMAP §1 item 6).
+ported (ROADMAP §1 item 5.3).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from ..state import Geometry, PhysParams, SimState, batch_size, stack_states
 from ..superstep import SuperstepGraph, graph_ready, superstep_batched
 
 _NO_MESH = ("sharding the replica axis over a mesh of cards is not ported yet "
-            "(ROADMAP §1 item 6: parallel/mesh.py, sharding.py, multihost.py)")
+            "(ROADMAP §1 item 5.3: make_batched_superstep's mesh= and shard_batch)")
 
 
 def batch_states(state: SimState, n: int, base_seed: int = 0) -> SimState:

@@ -34,7 +34,7 @@ from .. import constants as C
 from ..ops.boundary_cg import Workspace, cg_solve_device
 from ..ops.cg import cg_solve, cg_solve_batched, invert_coarse, rowdot
 from ..ops.compact import nonzero_fixed, nonzero_fixed_batched
-from ..ops.ell import ell_matvec, safe_index
+from ..ops.ell import safe_index
 from ..ops.pairwise import kernel_scalars, poisson_pairwise, poisson_pairwise_batched
 from ..state import Geometry, PhysParams, SimState, _as_dtype, replace
 from ..structure import Element
@@ -71,26 +71,48 @@ def _edge_conductance_cb(geom: Geometry, state: SimState, params: PhysParams):
     return torch.where(geom.neigh_valid, g, 0.0)
 
 
-def _dirichlet_system(geom: Geometry, edge_g, v_left: float, v_right: float, masks):
+class _OneDevice:
+    """The sums of a solve whose vectors are whole on one device; a slab of a
+    mesh (``parallel.halo_superstep._Shard``) gives the same methods summed
+    over its ranks."""
+
+    @staticmethod
+    def rows(x):
+        return x
+
+    @staticmethod
+    def psum(t, op="sum"):
+        return t
+
+    pdot = staticmethod(torch.dot)
+
+
+def _dirichlet_system(geom: Geometry, edge_g, v_left: float, v_right: float, masks,
+                      nbr=None):
     """The Dirichlet-eliminated interior system of the conductances
     ``edge_g`` ([N, max_nn], or [B, N, max_nn] for B replicas): the
     right-hand side, the operator, its diagonal, the off-diagonal values and
-    the Jacobi diagonal (1 on the contacts)."""
+    the Jacobi diagonal (1 on the contacts).  ``nbr(x)``: a per-site
+    tensor's values at each row's neighbour slots (any value at pad slots,
+    where ``edge_g`` is 0); by default indexed at ``geom.neigh_idx``."""
     is_left, is_right, interior = masks
     dtype = edge_g.dtype
     diag = edge_g.sum(dim=-1)
-    safe = safe_index(geom.neigh_idx)
+    if nbr is None:
+        safe = safe_index(geom.neigh_idx)
+        nbr = lambda x: x[..., safe]  # noqa: E731
     nb_boundary_v = torch.where(
-        is_left[safe], v_left, _select(is_right[safe], v_right, 0.0, dtype)
+        nbr(is_left), v_left, _select(nbr(is_right), v_right, 0.0, dtype)
     )
     # RHS: b_i = sum_{j in boundary} G_ij * V_j   (Dirichlet elimination)
     b = torch.where(interior, (edge_g * nb_boundary_v).sum(dim=-1), 0.0)
     # interior operator: (L_II x)_i = diag_i x_i - sum_{j interior} G_ij x_j
-    neg_vals = -edge_g * interior[safe]
+    neg_vals = -edge_g * nbr(interior)
 
     def matvec(x):
         xm = torch.where(interior, x, 0.0)
-        return torch.where(interior, ell_matvec(diag, neg_vals, safe, xm), 0.0)
+        # ops.ell.ell_matvec's arithmetic
+        return torch.where(interior, diag * xm + (neg_vals * nbr(xm)).sum(dim=-1), 0.0)
 
     return b, matvec, diag, neg_vals, torch.where(interior, diag, 1.0)
 
@@ -106,19 +128,26 @@ def _dirichlet_laplace_solve(
     masks=None,
     deflate_slabs: int = 0,
     want_residual: bool = False,
+    slab=None,
 ):
     """Graph-Laplacian solve with Dirichlet contacts on ``masks`` = (left,
     right, interior), by default the boundary network's.  Returns the
     full-length potential and the CG result (plus the TRUE residual and the
-    right-hand side with ``want_residual``)."""
+    right-hand side with ``want_residual``).
+
+    ``slab`` (``parallel.halo_superstep._Shard``): the vectors are one
+    rank's slab of a mesh, the neighbours read through its halo window
+    (``slab.gather``) and every sum of the solve taken over the ranks
+    (``slab.pdot``, ``slab.psum`` of ``slab.rows``)."""
     is_left, is_right, interior = masks or (
         geom.bp_left_mask, geom.bp_right_mask, geom.bp_interior_mask
     )
+    red = _OneDevice if slab is None else slab
 
     dtype = edge_g.dtype
     b, matvec, diag, neg_vals, pre_diag = _dirichlet_system(
-        geom, edge_g, v_left, v_right, (is_left, is_right, interior))
-    safe = safe_index(geom.neigh_idx)
+        geom, edge_g, v_left, v_right, (is_left, is_right, interior),
+        nbr=None if slab is None else slab.gather)
     x0_int = torch.where(interior, x0, 0.0)
 
     if deflate_slabs > 0:
@@ -130,20 +159,22 @@ def _dirichlet_laplace_solve(
         K = deflate_slabs
         ax = geom.coords[:, 0].to(dtype)
         big = torch.finfo(dtype).max
-        xmin = torch.where(interior, ax, big).min()
-        xmax = torch.where(interior, ax, -big).max()
-        slab = torch.clamp(
+        xmin = red.psum(torch.where(interior, ax, big).min(), op="min")
+        xmax = red.psum(torch.where(interior, ax, -big).max(), op="max")
+        agg_x = torch.clamp(
             ((ax - xmin) / torch.clamp(xmax - xmin, min=1e-30) * K).to(torch.int32),
             0, K - 1,
         )
-        agg = torch.where(interior, slab, K).long()      # contacts: no aggregate
+        agg = torch.where(interior, agg_x, K).long()      # contacts: no aggregate
         Zm = torch.nn.functional.one_hot(agg, K + 1)[:, :K].to(dtype)   # [N, K]
 
         LZ = pre_diag[:, None] * Zm
+        Zm_nb = _slot_rows(Zm, geom, slab)
         for s in range(neg_vals.shape[1]):
-            LZ = LZ + neg_vals[:, s:s + 1] * Zm[safe[:, s]]
+            LZ = LZ + neg_vals[:, s:s + 1] * Zm_nb(s)
         LZ = torch.where(interior[:, None], LZ, 0.0)
-        E = Zm.T @ LZ
+        rows = red.rows
+        E = red.psum(rows(Zm).T @ rows(LZ))
         E_inv = invert_coarse(E)
         ds = torch.sqrt(torch.where(interior & (diag > 0), diag, 1.0))
         dsi = 1.0 / ds
@@ -156,15 +187,18 @@ def _dirichlet_laplace_solve(
 
         b_s = dsi * b
         y0 = ds * x0_int
-        y0 = y0 - Zhat @ esolve(W.T @ y0) + Zhat @ esolve(Zhat.T @ b_s)
+        y0 = (y0 - Zhat @ esolve(red.psum(rows(W).T @ rows(y0)))
+              + Zhat @ esolve(red.psum(rows(Zhat).T @ rows(b_s))))
         res = cg_solve(
             lambda y: dsi * matvec(dsi * y), b_s, x0=y0,
-            precond=lambda r: r + Zhat @ esolve(Zhat.T @ r - W.T @ r),
-            tol=tol, maxiter=maxiter, criterion="r",
+            precond=lambda r: r + Zhat @ esolve(
+                red.psum(rows(Zhat).T @ rows(r) - rows(W).T @ rows(r))),
+            tol=tol, maxiter=maxiter, criterion="r", dot=red.pdot,
         )
         res = res._replace(x=res.x * dsi)
     else:
-        res = cg_solve(matvec, b, x0=x0_int, diag=pre_diag, tol=tol, maxiter=maxiter)
+        res = cg_solve(matvec, b, x0=x0_int, diag=pre_diag, tol=tol, maxiter=maxiter,
+                       dot=red.pdot)
 
     phi = torch.where(
         is_left, v_left, torch.where(is_right, v_right, res.x)
@@ -175,6 +209,16 @@ def _dirichlet_laplace_solve(
         r_true = torch.where(interior, b - matvec(res.x), 0.0)
         return phi, res, r_true, b
     return phi, res
+
+
+def _slot_rows(Z, geom, slab):
+    """``s -> Z``'s rows at each row's neighbour slot ``s`` ([N, K]; a slab's
+    through one exchange of its halo window)."""
+    if slab is None:
+        safe = safe_index(geom.neigh_idx)
+        return lambda s: Z[safe[:, s]]
+    Zw = slab.window(Z)
+    return lambda s: Zw[slab.win_safe[:, s]]
 
 
 def _incremental_boundary_residual(
@@ -455,17 +499,18 @@ def solve_cb_edge(
 # gridless Poisson (pairwise screened Coulomb), compacted charged set
 # ----------------------------------------------------------------------------
 
-def _poisson_rows_compact(coords, cidx, cq, lattice, sigma: float, k: float,
-                          pbc: bool, block: int):
-    """Exact-erfc pair sweep in ``coords.dtype`` over the compacted charged
-    set (``cidx``, charges ``cq``), blocked over rows."""
+def _poisson_rows(coords, c_coords, c_ids, cq, lattice, sigma: float, k: float,
+                  pbc: bool, block: int, row0: int = 0):
+    """Exact-erfc pair sweep in ``coords.dtype`` of the rows ``coords``
+    (site ids ``row0``, ``row0 + 1``, ...) over the charged sites at
+    ``c_coords`` (site ids ``c_ids``, charges ``cq``), blocked over rows; a
+    pair of one site with itself adds nothing."""
     dtype = coords.dtype
     n = coords.shape[0]
     sig = torch.tensor(sigma, dtype=dtype)
     inv_s = 1.0 / (sig * torch.sqrt(torch.tensor(2.0, dtype=dtype)))
     kk = torch.tensor(k, dtype=dtype, device=coords.device)
-    c_coords = coords[cidx]
-    ci = cidx
+    ci = c_ids
     out = torch.empty(n, dtype=dtype, device=coords.device)
     for r0 in range(0, n, block):
         r1 = min(r0 + block, n)
@@ -475,12 +520,19 @@ def _poisson_rows_compact(coords, cidx, cq, lattice, sigma: float, k: float,
             dy = dy - torch.round(dy / lattice[1]) * lattice[1]
             dz = dz - torch.round(dz / lattice[2]) * lattice[2]
         dist = torch.sqrt(dx * dx + dy * dy + dz * dz) * 1e-10
-        rows = torch.arange(r0, r1, device=coords.device)
+        rows = torch.arange(row0 + r0, row0 + r1, device=coords.device)
         dead = (rows[:, None] == ci[None, :]) | (dist <= 0.0)
         dist = torch.where(dead, 1.0, dist)
         contrib = cq[None, :] * torch.special.erfc(dist * inv_s.item()) * kk * C.Q_C / dist
         out[r0:r1] = torch.where(dead, 0.0, contrib).sum(dim=1)
     return out
+
+
+def _poisson_rows_compact(coords, cidx, cq, lattice, sigma: float, k: float,
+                          pbc: bool, block: int):
+    """Exact-erfc pair sweep in ``coords.dtype`` over the compacted charged
+    set (``cidx``, charges ``cq``), blocked over rows."""
+    return _poisson_rows(coords, coords[cidx], cidx, cq, lattice, sigma, k, pbc, block)
 
 
 def poisson_gridless_compact(

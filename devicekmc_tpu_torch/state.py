@@ -57,6 +57,7 @@ class Geometry:
     layer_E: torch.Tensor           # [n_layers, 4] float
     rev_slot: torch.Tensor          # [N,max_nn] int32: slot of i in row neigh_idx[i,s]
     io_idx: torch.Tensor            # [N] int32: internal index of file position p
+                                    # (pad sites: positions from N_real on)
     io_fpos: torch.Tensor           # [N] int32: file position of internal site k
     bp_left_mask: torch.Tensor      # [N] bool: boundary-potential Dirichlet masks
     bp_right_mask: torch.Tensor     # [N] bool
@@ -70,10 +71,11 @@ class Geometry:
     atom_metalp_idx: torch.Tensor   # [n_mp] int32: atom slots of the interior metals
     atom_metalp_inv: torch.Tensor   # [N_atom] int32: slot in atom_metalp_idx, -1 else
     atom_neigh_idx: torch.Tensor    # [N_atom,max_nn] int32: neigh_idx in atom slots, pad -1
-    N: int = 0
+    N: int = 0                      # sites, pad sites included
     max_nn: int = 0
     N_atom: int = 0
     pbc: bool = False
+    N_real: int = 0                 # sites of the structure: N less the pad sites
     lattice_host: Tuple[float, float, float] = (0.0, 0.0, 0.0)
 
     @property
@@ -224,9 +226,13 @@ def build_geometry(
     cfg: KMCConfig,
     neigh_idx=None,
     device="cuda",
+    pad_to: int = 1,
 ) -> Geometry:
     """Build the static geometry on ``device``.  ``neigh_idx`` (numpy or
-    tensor, file order) is built on the device when not given."""
+    tensor, file order) is built on the device when not given.  ``pad_to``
+    rounds the site axis up to a multiple with inert DEFECT pad sites that
+    have no neighbours (at the first site's position, after every real
+    site), so that it splits evenly over the ranks of a mesh."""
     dev = resolve_device(device)
     dtype = _dtype_of(cfg.precision)
     lattice = np.asarray(cfg.lattice, dtype=np.float64)
@@ -255,6 +261,19 @@ def build_geometry(
         big = torch.iinfo(torch.int32).max
         nb = torch.sort(torch.where(nb < 0, big, nb), dim=1).values
         nb = torch.where(nb == big, -1, nb).to(torch.int32)
+
+    n_real = n
+    n_pad = (-n_real) % max(pad_to, 1)
+    if n_pad:
+        elements = np.concatenate([elements, np.full(n_pad, int(Element.DEFECT),
+                                                     dtype=elements.dtype)])
+        coords = np.concatenate([coords, np.tile(coords[:1], (n_pad, 1))])
+        nb = torch.cat([nb, torch.full((n_pad, nb.shape[1]), -1, dtype=torch.int32,
+                                       device=dev)])
+        n = n_real + n_pad
+        # pad sites map to the file positions past the structure's
+        order = np.concatenate([order, n_real + np.arange(n_pad, dtype=np.int32)])
+        inv_order = np.concatenate([inv_order, n_real + np.arange(n_pad, dtype=np.int32)])
 
     m = nb.shape[1]
     valid = nb >= 0
@@ -337,13 +356,13 @@ def build_geometry(
         io_idx=t(inv_order, torch.int32),
         io_fpos=t(fpos, torch.int32),
         bp_left_mask=t(fpos < bp_w),
-        bp_right_mask=t(fpos >= n - bp_w),
-        bp_interior_mask=t((fpos >= bp_w) & (fpos < n - bp_w)),
+        bp_right_mask=t((fpos >= n_real - bp_w) & (fpos < n_real)),
+        bp_interior_mask=t((fpos >= bp_w) & (fpos < n_real - bp_w)),
         left_mask=t(fpos < n_first),
-        right_mask=t(fpos >= n - n_first),
-        interior_mask=t((fpos >= n_first) & (fpos < n - n_first)),
+        right_mask=t((fpos >= n_real - n_first) & (fpos < n_real)),
+        interior_mask=t((fpos >= n_first) & (fpos < n_real - n_first)),
         inner_mask=t((fpos >= cfg.num_atoms_contact)
-                     & (fpos < n - cfg.num_atoms_contact)),
+                     & (fpos < n_real - cfg.num_atoms_contact)),
         atom_ind=t(atom_ind),
         atom_metalp_idx=t(atom_metalp_idx),
         atom_metalp_inv=t(atom_metalp_inv),
@@ -352,6 +371,7 @@ def build_geometry(
         max_nn=int(m),
         N_atom=int(atom_mask.sum()),
         pbc=bool(cfg.pbc),
+        N_real=int(n_real),
         lattice_host=tuple(float(_as_dtype(x, dtype)) for x in lattice),
     )
 
@@ -460,8 +480,13 @@ def init_state(geom: Geometry, cfg: KMCConfig, elements: np.ndarray) -> SimState
     dtype = _dtype_of(cfg.precision)
     dev = geom.device
     n = geom.N
+    elements = np.asarray(elements)
+    if len(elements) < n:
+        # the pad sites of a geometry padded for a mesh (build_geometry)
+        elements = np.concatenate([elements, np.full(n - len(elements), int(Element.DEFECT),
+                                                     dtype=elements.dtype)])
     # FILE order -> internal site order
-    elements = np.asarray(elements)[geom.io_fpos.cpu().numpy()]
+    elements = elements[geom.io_fpos.cpu().numpy()]
     zeros = lambda: torch.zeros(n, dtype=dtype, device=dev)
     return SimState(
         element=torch.as_tensor(elements, dtype=torch.int32, device=dev),
@@ -525,10 +550,12 @@ def build_simulation(
     coords: Optional[np.ndarray] = None,
     neigh_idx=None,
     device="cuda",
+    pad_to: int = 1,
 ) -> Tuple[Geometry, PhysParams, SimState]:
     """Full setup: read structure files (or accept arrays), apply shifts and
     substoichiometry, build geometry/params/state (reference:
-    src/kmc_main.cpp:60-124, src/Device.cpp:17-96)."""
+    src/kmc_main.cpp:60-124, src/Device.cpp:17-96).  ``pad_to``: see
+    :func:`build_geometry`."""
     import os
 
     from .structure import read_xyz, translate_cell
@@ -554,7 +581,7 @@ def build_simulation(
             elements, cfg.initial_vacancy_concentration, cfg.rnd_seed
         )
     geom = build_geometry(elements, coords, cfg, neigh_idx=neigh_idx,
-                          device=device)
+                          device=device, pad_to=pad_to)
     params = build_params(cfg)
     state = init_state(geom, cfg, elements)
     return geom, params, state
@@ -568,7 +595,7 @@ _INT_FIELDS = {"neigh_idx", "site_layer", "rev_slot", "io_idx", "io_fpos",
                "element", "charge", "atom_ind", "atom_metalp_idx",
                "atom_metalp_inv", "atom_neigh_idx", "trans_elem_prev",
                "trans_charge_prev", "tt_slot_atom"}
-_STATIC_GEOM = {"N", "max_nn", "N_atom", "pbc"}
+_STATIC_GEOM = {"N", "max_nn", "N_atom", "pbc", "N_real"}
 _HOST_STATE = {"T_bg", "kmc_time", "I_macro", "P_tot", "Vd_prev",
                "transport_Vd_prev"}
 

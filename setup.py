@@ -21,6 +21,9 @@ setup(
         "devicekmc_tpu_torch",
         "devicekmc_tpu_torch.ops",
         "devicekmc_tpu_torch.physics",
+        "devicekmc_tpu_torch.parallel",
+        "devicekmc_tpu_torch.io",
+        "devicekmc_tpu_torch.postprocessing",
     ],
     package_data={"devicekmc_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[

@@ -456,9 +456,9 @@ def test_mesh_and_shard_batch_raise():
     from devicekmc_tpu_torch.parallel import batched
 
     geom, params, state = _port_sim(**HEADLINE)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5.3"):
         batched.make_batched_superstep(geom, params, None, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5.3"):
         batched.shard_batch(batched.batch_states(state, 2), object())
 
 

@@ -1,0 +1,179 @@
+"""One rank of the halo decomposition's CPU tests (tests/test_torch_halo.py).
+
+    python tests/torch_halo_ranks.py WORKDIR RANK WORLD
+
+Joins a gloo group of WORLD ranks through a file rendezvous in WORKDIR, runs
+every case on its slab and writes what it saw to ``WORKDIR/rank<RANK>.npz``
+(arrays) and ``WORKDIR/rank<RANK>.json`` (counts, messages).  Imports no
+JAX: the test process holds the results against the JAX package.
+
+Cases:
+  * ``exchange``: the halo exchange in groups of 1, 2 and 4 ranks, int32,
+    float32, float64 and an int32 [S, 2] slab, halo widths 0, 3 and S;
+  * ``laplace``: ``make_halo_laplace_solver`` on the slabs of
+    ``WORKDIR/laplace.npz``;
+  * ``run``: ``Simulation(..., decomposition="halo")`` on the 184-site stack
+    of tests/test_halo_superstep.py, 8 supersteps at 4 V (one event a
+    step), and again as ``fast`` with every barrier scaled by 0.2 (59
+    events over the 8 steps, picked in every slab);
+  * ``raises``: the errors a configuration or a mesh must raise.
+"""
+
+import dataclasses
+import datetime
+import json
+import os
+import sys
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+#: the exchange cases' slab rows and halo widths
+EX_ROWS = 8
+EX_HALOS = (0, 3, EX_ROWS)
+#: the run case: the stack, its bias and steps
+RUN_STACK = dict(nx_contact=2, nx_oxide=28, ny=2, nz=2, seed=5)
+RUN_VD = 4.0
+RUN_STEPS = 8
+#: the run cases: the barriers' scale of each
+RUN_CASES = {"run": 1.0, "fast": 0.2}
+#: a stack whose graph bandwidth (275) exceeds a 4-rank slab (256 sites)
+WIDE_STACK = dict(nx_contact=2, nx_oxide=4, ny=10, nz=10, seed=1)
+
+
+def exchange_global(world, dtype, seed):
+    """The global vector the exchange case splits over ``world`` ranks."""
+    rng = np.random.default_rng(seed)
+    n = world * EX_ROWS
+    if dtype == "int32":
+        return rng.integers(-2**31, 2**31 - 1, size=n, dtype=np.int64).astype(np.int32)
+    if dtype == "int32x2":
+        return rng.integers(-2**31, 2**31 - 1, size=(n, 2), dtype=np.int64).astype(np.int32)
+    return rng.standard_normal(n).astype(dtype)
+
+
+def run_config(out_dir, barrier_scale=1.0, **over):
+    """The port's configuration of tests/test_halo_superstep.py's ``_cfg``,
+    every layer's barriers scaled by ``barrier_scale``."""
+    from devicekmc_tpu_torch.config import KMCConfig
+    from devicekmc_tpu_torch.structure import make_test_structure
+
+    s = make_test_structure(**over.pop("stack", RUN_STACK))
+    layers = [dataclasses.replace(l, **{e: getattr(l, e) * barrier_scale for e in (
+        "E_gen_0", "E_rec_1", "E_diff_2", "E_diff_3")}) for l in s.layers]
+    base = dict(
+        lattice=list(s.lattice), nn_dist=3.0, pbc=False,
+        num_atoms_first_layer=s.num_atoms_first_layer,
+        num_layers_contact=s.num_layers_contact,
+        num_atoms_contact=s.num_atoms_contact, layers=layers,
+        solve_potential=True, solve_current=False, perturb_structure=True,
+        pristine=True, initial_vacancy_concentration=0.15,
+        V_switch=[RUN_VD], t_switch=[1e30], log_freq=1000,
+        output_dir=str(out_dir), active_rows_cap=0, event_mode="incremental",
+    )
+    base.update(over)
+    return KMCConfig(**base), s
+
+
+def case_exchange(rank, world, arrays):
+    from devicekmc_tpu_torch.parallel.mesh import Communicator
+
+    groups = {1: dist.new_group([0]), 2: dist.new_group([0, 1]), world: dist.group.WORLD}
+    for w, group in groups.items():
+        if rank >= w:
+            continue
+        comm = Communicator(group, torch.device("cpu"))
+        for k, dtype in enumerate(("int32", "float32", "float64", "int32x2")):
+            x = exchange_global(w, dtype, seed=10 * w + k)
+            slab = torch.from_numpy(x[rank * EX_ROWS:(rank + 1) * EX_ROWS].copy())
+            for H in EX_HALOS:
+                arrays[f"ex_{w}_{dtype}_{H}"] = comm.exchange(slab, H).numpy()
+
+
+def case_laplace(rank, world, workdir, arrays):
+    from devicekmc_tpu_torch.parallel import make_halo_laplace_solver, make_mesh
+
+    data = np.load(os.path.join(workdir, "laplace.npz"))
+    mesh = make_mesh(world, device="cpu")
+    S = data["x0"].shape[0] // world
+    sl = slice(rank * S, (rank + 1) * S)
+    t = lambda name: torch.from_numpy(np.ascontiguousarray(data[name][sl]))
+    solver = make_halo_laplace_solver(mesh, halo=int(data["halo"]), tol=1e-12)
+    phi, iters = solver(t("edge_g"), t("neigh_idx").to(torch.int32), t("interior"),
+                        t("is_left"), t("is_right"), t("x0"), float(data["v_left"]),
+                        float(data["v_right"]))
+    arrays["laplace_phi"] = phi.numpy()
+    arrays["laplace_iters"] = np.asarray(iters)
+
+
+def case_run(rank, world, workdir, arrays, facts, case):
+    from devicekmc_tpu_torch.engine import Simulation
+    from devicekmc_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(world, device="cpu")
+    cfg, s = run_config(os.path.join(workdir, f"halo_{case}"), RUN_CASES[case])
+    sim = Simulation(cfg, elements=s.elements, coords=s.coords, mesh=mesh,
+                     decomposition="halo")
+    mesh.comm.reset_counts()
+    sim.run_bias_point(RUN_VD, 1e30, max_steps=RUN_STEPS)
+    for f in ("element", "charge", "potential_boundary", "potential_charge"):
+        arrays[f"{case}_{f}"] = sim.global_field(f).numpy()
+    facts[case] = dict(
+        n_events=[r["n_events"] for r in sim.step_log], kmc_time=sim.state.kmc_time,
+        halo_width=sim._halo_width, N=sim.geom.N, N_real=sim.geom.N_real,
+        presolve=sim.presolve_log, counts=dict(mesh.comm.counts))
+
+
+def expect_raise(facts, name, exc, fn):
+    try:
+        fn()
+    except exc as e:
+        facts.setdefault("raises", {})[name] = f"{type(e).__name__}: {e}"
+        return
+    facts.setdefault("raises", {})[name] = "no exception"
+
+
+def case_raises(rank, world, workdir, facts):
+    from devicekmc_tpu_torch.engine import Simulation
+    from devicekmc_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(world, device="cpu")
+    out = os.path.join(workdir, "raises")
+    cfg, s = run_config(out, stack=WIDE_STACK)
+    expect_raise(facts, "halo_width", ValueError, lambda: Simulation(
+        cfg, elements=s.elements, coords=s.coords, mesh=mesh, decomposition="halo"))
+    cfg, s = run_config(out, solve_current=True, transport="blocked", A=6.25e-19)
+    expect_raise(facts, "solve_current", NotImplementedError, lambda: Simulation(
+        cfg, elements=s.elements, coords=s.coords, mesh=mesh, decomposition="halo"))
+    cfg, s = run_config(out)
+    expect_raise(facts, "replicate", NotImplementedError, lambda: Simulation(
+        cfg, elements=s.elements, coords=s.coords, mesh=mesh, decomposition="replicate"))
+    expect_raise(facts, "world_size", ValueError, lambda: make_mesh(world - 1, device="cpu"))
+
+
+def main(workdir, rank, world):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(workdir, 'rdzv')}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    arrays, facts = {}, {}
+    try:
+        case_exchange(rank, world, arrays)
+        case_laplace(rank, world, workdir, arrays)
+        for case in RUN_CASES:
+            case_run(rank, world, workdir, arrays, facts, case)
+        case_raises(rank, world, workdir, facts)
+    except Exception:
+        facts["error"] = traceback.format_exc()
+        raise
+    finally:
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), **arrays)
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(facts, f)
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))

@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""The halo decomposition of chip_smoke.py's crossbar over K ranks, one card
+(or one CPU process) a rank, and the comparison of two such runs.
+
+    torchrun --nproc-per-node K tools/halo_cards.py --out DIR [--device cuda | cpu]
+                                                    [--sites 110000] [--steps 3]
+    python3 tools/halo_cards.py --compare DIR_A DIR_B
+
+A run builds the crossbar of ``chip_smoke.synthetic_crossbar`` over the
+halo decomposition (``Simulation(mesh=make_mesh(), decomposition="halo")``)
+in the two configurations of chip_smoke.py's phase 12 (f64 at solver_tol
+1e-12, and mixed precision), runs the cold pre-solve and ``--steps``
+supersteps at Vd = 1 V, and rank 0 writes to DIR, for each configuration,
+the whole structure's elements, charges and boundary potential after every
+superstep (``<config>.npz``) and a summary (``summary.json``: the world
+size, the card's name and power limit, ms a superstep, the ms of its four
+phases, the collectives a superstep by kind, events, boundary CG
+iterations, the cold pre-solve, the halo width and the slab).  ``--compare``
+prints, for each configuration, whether the two runs' events, elements and
+charges are equal step for step, and how far apart their potentials and KMC
+clocks are.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+#: the two configurations of chip_smoke.py's phase 12
+CONFIGS = {"f64": dict(precision="f64", poisson_kernel="jnp", solver_tol=1e-12), "mixed": {}}
+
+
+def run(args):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from devicekmc_tpu_torch.parallel import halo_superstep as hs
+    from devicekmc_tpu_torch.parallel import make_mesh, multihost
+
+    cuda = args.device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    multihost.initialize(device=args.device)
+    mesh = make_mesh(device=args.device)
+    rank0 = mesh.rank == 0
+    summary = {"world": mesh.world, "card": cs.gpu_line() if cuda else "cpu"}
+    if rank0:
+        os.makedirs(args.out, exist_ok=True)
+    for tag, over in CONFIGS.items():
+        sim, steps = cs.halo_sim(os.path.join(args.out, f"run_{tag}"), tag, mesh, args.device,
+                                 args.sites, **over)
+        timed = {name: cs._counted(hs, name, sync) for name in cs.HALO_PHASES}
+        try:
+            t = time.perf_counter()
+            sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=args.steps)
+            sync()
+            wall = time.perf_counter() - t
+        finally:
+            for _, undo in timed.values():
+                undo()
+        ms = [s["ms"] for s in steps]
+        summary[tag] = dict(
+            ms=[round(x, 3) for x in ms], ms_median=statistics.median(ms),
+            phase_ms={cs.HALO_PHASES[name]: [round(x, 3) for x in rec["ms"][-args.steps:]]
+                      for name, (rec, _) in timed.items()},
+            collectives=[s["counts"] for s in steps], events=[s["events"] for s in steps],
+            cg=[s["cg"] for s in steps], presolve=sim.presolve_log[0], wall_s=wall,
+            kmc_time=sim.state.kmc_time, halo_width=sim._halo_width,
+            slab=sim.geom.N // mesh.world, N=sim.geom.N, N_real=sim.geom.N_real)
+        if rank0:
+            np.savez(os.path.join(args.out, f"{tag}.npz"),
+                     **{f"{f}_{k}": s[f].numpy() for k, s in enumerate(steps)
+                        for f in ("element", "charge", "pb")})
+        del sim
+    if rank0:
+        with open(os.path.join(args.out, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        print(json.dumps(summary), flush=True)
+    dist.destroy_process_group()
+
+
+def compare(a_dir, b_dir):
+    import numpy as np
+
+    sa, sb = (json.load(open(os.path.join(d, "summary.json"))) for d in (a_dir, b_dir))
+    out = {}
+    for tag in CONFIGS:
+        a, b = (np.load(os.path.join(d, f"{tag}.npz")) for d in (a_dir, b_dir))
+        n = len(sa[tag]["events"])
+        equal = [sa[tag]["events"][k] == sb[tag]["events"][k]
+                 and np.array_equal(a[f"element_{k}"], b[f"element_{k}"])
+                 and np.array_equal(a[f"charge_{k}"], b[f"charge_{k}"]) for k in range(n)]
+        pb = max(float(np.abs(a[f"pb_{k}"] - b[f"pb_{k}"]).max() / np.abs(a[f"pb_{k}"]).max())
+                 for k in range(n))
+        kmc = abs(sa[tag]["kmc_time"] - sb[tag]["kmc_time"]) / abs(sa[tag]["kmc_time"])
+        out[tag] = dict(worlds=(sa["world"], sb["world"]), steps_equal=equal,
+                        potential_boundary_err=pb, kmc_time_rel_err=kmc,
+                        ms_median=(sa[tag]["ms_median"], sb[tag]["ms_median"]))
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "halo_cards"))
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--sites", type=int, default=110_000)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--compare", nargs=2, metavar="DIR")
+    args = ap.parse_args()
+    if args.compare:
+        compare(*args.compare)
+    else:
+        run(args)
+
+
+if __name__ == "__main__":
+    main()
