@@ -198,8 +198,22 @@ Phases (any failed check raises and the exit code is non-zero):
    both, the collectives a superstep by kind, the boundary CG iterations;
    the ms of the halo superstep's four phases; the same in mixed
    precision, timed, its events printed and not gated;
-   the halo width beside the slab at 2, 4 and 8 cards; the group destroyed
-   at the end.
+   the halo width beside the slab at 2, 4 and 8 cards; then the transport
+   runs (halo_transport_path): the transport settings of PERF.md §4 with
+   global heat, f64 (solver and transport tolerance 1e-12) and mixed,
+   against the single device's eager run, counters to 0 around the halo
+   run: the window kernel once an assembly in mixed precision (its plain
+   version never), the pair-sweep, band, on-the-fly and event kernels
+   never; events, elements, charges equal step for step and every solve
+   converged; at the first superstep's state the halo operator against
+   assemble_X_blocks's on a seeded vector (1e-12 of its scale in f64, 1e-6
+   mixed) and the tunnel rows alone, in f64 the power extraction of one
+   potential vector (1e-12) and the local cg heat model on a seeded power
+   that moves T by 10 K (1e-8 K); I_macro and P_tot printed, the ms of the
+   six phases, the collectives, the CG iterations, an operator
+   application's and a collective's ms, the application's device busy
+   share, copies and launches under torch.profiler; the group destroyed at
+   the end.
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -4242,6 +4256,19 @@ HALO_CARDS = (2, 4, 8)
 #: the halo superstep's phases, timed in phase 12 (function: name)
 HALO_PHASES = {"halo_charge": "charge", "halo_boundary": "boundary potential",
                "halo_poisson": "Poisson", "_halo_event_loop": "events"}
+#: and with transport and heat
+HALO_TRANSPORT_PHASES = dict(HALO_PHASES, halo_power="transport and power", halo_heat="heat")
+#: the transport run's configurations: the transport settings of PERF.md §4
+#: with global heat, in f64 at solver and transport tolerance 1e-12 (the
+#: stored metal block: the on-the-fly kernels are f32) and in mixed
+#: precision; both with the exact-erfc Poisson sweep of the halo path, and
+#: the single device's warm solves with the halo path's (cold, deflated)
+#: preconditioner
+HALO_TRANSPORT = {
+    "f64": dict(precision="f64", solver_tol=1e-12, transport_tol=1e-12, transport_cc="auto"),
+    "mixed": {}}
+HALO_TRANSPORT_COMMON = dict(current=True, heat="global", poisson_kernel="jnp",
+                             transport_warm_precond="deflated")
 
 
 def halo_sim(out_root, tag, mesh, device="cuda", n_sites=N_SITES, **overrides):
@@ -4279,7 +4306,8 @@ def halo_sim(out_root, tag, mesh, device="cuda", n_sites=N_SITES, **overrides):
             ms=ms, events=int(m["n_events"]), cg=int(m["cg_iters_boundary"]),
             step_time=float(out[1]), element=whole(st.element)[:nr].cpu(),
             charge=whole(st.charge)[:nr].cpu(),
-            pb=whole(st.potential_boundary)[:nr].double().cpu(), counts=counts))
+            pb=whole(st.potential_boundary)[:nr].double().cpu(), counts=counts,
+            metrics={k: float(v) for k, v in m.items()}, state=st))
         return out
 
     sim._superstep = wrapped
@@ -4409,11 +4437,275 @@ def halo_path(out_root, device="cuda", n_sites=N_SITES):
                 check(kmc_rel <= 1e-6, f"halo f64: kmc_time {h_kmc} vs {s_kmc}")
         log(f"  halo width {width} sites against the slab at "
             + ", ".join(f"{K} cards: {S} ({'fits' if width <= S else 'does not fit'})"
-                        for K, S in slabs.items())
-            + f"; phase 12 in {time.perf_counter() - t_phase:.1f} s")
+                        for K, S in slabs.items()))
+        summary["transport"] = halo_transport_path(out_root, mesh, backend, device, n_sites)
+        log(f"  phase 12 in {time.perf_counter() - t_phase:.1f} s")
     finally:
         dist.destroy_process_group()
     return summary
+
+
+def halo_transport_path(out_root, mesh, backend, device="cuda", n_sites=N_SITES):
+    """Phase 12's transport run: the crossbar with the transport settings of
+    PERF.md §4 and global heat (``HALO_TRANSPORT``) over the halo
+    decomposition at world size 1 (``mesh``) and on the single-device eager
+    superstep, each its cold solves and HALO_STEPS supersteps at Vd = 1 V, in
+    f64 and in mixed precision.  The halo run is driven with the wrappers'
+    counts set to 0 just before and read just after: the window kernel once
+    an operator assembly in mixed precision (its plain version never), the
+    pair-sweep, band, on-the-fly and event kernels never.  Gates, each
+    precision: events, elements and charges equal step for step, every
+    transport solve converged; at the first superstep's state (the single
+    device's, fed to both) the halo operator and ``assemble_X_blocks``'s on
+    one seeded vector within 1e-12 (f64) and 1e-6 (mixed) of their scale; in
+    f64 the two power extractions of one potential vector within 1e-12 of
+    their scale, and the local heat models (``halo_heat_local_cg``,
+    ``update_temperature_local_cg``) on one seeded power that moves T by
+    about 10 K within 1e-8 K.  Printed: I_macro and P_tot of both runs, ms a
+    superstep and of each phase, the collectives a superstep, the CG
+    iterations, an operator application's ms (and on the card its device
+    busy ms, copies and launches) and a collective's alone.  Returns the
+    summary."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from devicekmc_tpu_torch.ops import banded, kmc_events, wkb_fly
+    from devicekmc_tpu_torch.ops import ell_gather as eg
+    from devicekmc_tpu_torch.ops import pairwise as pw
+    from devicekmc_tpu_torch.ops import wkb_window as ww
+    from devicekmc_tpu_torch.parallel import halo_superstep as hs
+    from devicekmc_tpu_torch.parallel import halo_transport as ht
+    from devicekmc_tpu_torch.physics import current as cur
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+    from devicekmc_tpu_torch.state import replace
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    wrappers = {"wkb_window_block": ww.wkb_window_block, "ell_gather": eg.ell_gather,
+                "poisson_pairwise": pw.poisson_pairwise, "banded_matvec": banded.banded_matvec,
+                "banded_matvec_out": banded.banded_matvec_out,
+                "wkb_fly_matvec": wkb_fly.wkb_fly_matvec,
+                "wkb_fly_matvec_out": wkb_fly.wkb_fly_matvec_out,
+                "wkb_fly_matmat": wkb_fly.wkb_fly_matmat, "wkb_fly_pdisp": wkb_fly.wkb_fly_pdisp,
+                "kmc_event_loop": kmc_events.kmc_event_loop}
+    f64 = torch.float64
+    summary = {}
+    for prec, over in HALO_TRANSPORT.items():
+        over = dict(HALO_TRANSPORT_COMMON, **over)
+        single, s_steps = halo_sim(out_root, f"halo_transport_single_{prec}", None, device,
+                                   n_sites, **over)
+        single.run_bias_point(VD_MAIN, 1e30, max_steps=HALO_STEPS)
+        halo, h_steps = halo_sim(out_root, f"halo_transport_{prec}", mesh, device, n_sites,
+                                 **over)
+        # ---- counters to 0, drive, read ----
+        for w in wrappers.values():
+            w.launches = 0
+        plain, restore = _counted(ww, "wkb_window_block_plain")
+        assemblies, restore_asm = _counted(ht, "assemble_halo_operator")
+        timed = {name: _counted(hs, name, sync) for name in HALO_TRANSPORT_PHASES}
+        mesh.comm.reset_counts()
+        try:
+            t = time.perf_counter()
+            halo.run_bias_point(VD_MAIN, 1e30, max_steps=HALO_STEPS)
+            sync()
+            wall = time.perf_counter() - t
+        finally:
+            restore()
+            restore_asm()
+            for _, undo in timed.values():
+                undo()
+        launches = {name: w.launches for name, w in wrappers.items()}
+        phase_ms = {HALO_TRANSPORT_PHASES[name]: [round(x, 3) for x in rec["ms"][-HALO_STEPS:]]
+                    for name, (rec, _) in timed.items()}
+        check(len(h_steps) == len(s_steps) == HALO_STEPS,
+              f"halo transport {prec}: ran {len(h_steps)} and {len(s_steps)} supersteps")
+        same = [h["events"] == s["events"] and torch.equal(h["element"], s["element"])
+                and torch.equal(h["charge"], s["charge"]) for h, s in zip(h_steps, s_steps)]
+        conv = [(h["metrics"]["transport_converged"], s["metrics"]["transport_converged"])
+                for h, s in zip(h_steps, s_steps)]
+        n_asm = assemblies["calls"]
+        if cuda:
+            if prec == "mixed":
+                check(launches["wkb_window_block"] == n_asm > 0,
+                      f"halo transport mixed: {launches['wkb_window_block']} window launches "
+                      f"for {n_asm} assemblies")
+            else:
+                check(launches["wkb_window_block"] == 0, "halo transport f64: window launched")
+            check(plain["calls"] == 0, f"halo transport {prec}: the window's plain version ran")
+            check(launches["ell_gather"] > 0, f"halo transport {prec}: no gather launched")
+        quiet = {k: v for k, v in launches.items() if k not in ("wkb_window_block", "ell_gather")}
+        check(not any(quiet.values()), f"halo transport {prec}: launches {launches}")
+
+        # ---- the operator and the extraction at the first superstep's state ----
+        st0 = s_steps[0]["state"]
+        hst = halo.state
+        nr, Na = single.geom.N_real, single.geom.N_atom
+        ts, sizes = halo.transport_static
+        check(sizes["Na"] == Na, "halo transport: the atom counts differ")
+        pad = lambda f: torch.cat([getattr(st0, f), getattr(hst, f)[nr:]])  # noqa: E731
+        sh = hs._Shard(mesh.comm, halo.geom.neigh_idx, halo._halo_width, halo.geom.N_real)
+        op = ht.assemble_halo_operator(sh, halo.geom, halo.params, ts, sizes, pad("element"),
+                                       pad("charge"), pad("CB_edge"),
+                                       T_cc_loc=halo._cc["cc"])
+        blk = cur.assemble_X_blocks(single.geom, single.params, st0, cc=single._cc["cc"],
+                                    band=single._cc.get("band"))
+        rng = np.random.default_rng(7)
+        x = torch.zeros(sizes["Na_pad"] + 2, dtype=f64, device=single.device)
+        x[:Na + 1] = torch.from_numpy(rng.standard_normal(Na + 1)).to(x.device)
+        y_h = op["apply"](x, f64)[:Na + 1]
+        y_s = cur._apply_X_blocks(blk, x[:Na + 2], f64)[:Na + 1]
+        # the virtual rows (loop_G ~ 1e7 high_G) and the atom rows apart
+        op_err = max(float((y_h[r] - y_s[r]).abs().max() / y_s[r].abs().max())
+                     for r in (slice(0, 2), slice(2, None)))
+        # the tunnel rows alone (at world 1 the bucket's slots are the single
+        # device's; the metal block where the single device stores it)
+        n_mp, vcap = sizes["n_mp"], single.params.tunnel_vac_cap
+        pairs = [(op["T_vm_loc"][:vcap, :n_mp], blk["T_vm"]), (op["T_vv_loc"][:vcap, :vcap],
+                                                             blk["T_vv"])]
+        if blk["T_cc"] is not None:
+            pairs.append((op["T_cc_loc"][:n_mp, :n_mp], blk["T_cc"]))
+        tunnel_err = max(float((a.double() - b.double()).abs().max()
+                               / b.double().abs().max().clamp(min=1e-300)) for a, b in pairs)
+        v = st0.virtual_potentials.to(f64)
+        M = v * cur.G0
+        ap_s = cur._site_power(single.geom, single.params, st0,
+                               cur._pdisp_blocked(blk, M[2:], VD_MAIN))[0][
+            single.geom.atom_ind.long()]
+        Matoms = torch.cat([M[2:Na + 1], torch.zeros(sizes["Na_pad"] - Na + 1, dtype=f64,
+                                                      device=M.device)])
+        ap_h = ht.halo_atom_power(sh, halo.params, op, sizes, Matoms, VD_MAIN)[:Na]
+        pw_err = float((ap_h - ap_s).abs().max() / ap_s.abs().max().clamp(min=1e-300))
+        # what an operator application costs at this state, and its
+        # collectives alone at their shapes (host clock, 20 calls)
+        costs = {}
+        for name, fn in (("apply_f64_ms", lambda: op["apply"](x, f64)),
+                         ("apply_f32_ms", lambda: op["apply"](x, torch.float32)),
+                         ("all_gather_ms", lambda: mesh.comm.all_gather(x[:sizes["Sa"]])),
+                         ("all_reduce_ms", lambda: mesh.comm.all_reduce(
+                             x[:sizes["n_mp_pad"]].float()))):
+            fn()
+            sync()
+            t = time.perf_counter()
+            for _ in range(20):
+                fn()
+            sync()
+            costs[name] = (time.perf_counter() - t) * 1e3 / 20
+        if cuda:
+            # the f32 application under torch.profiler: the device's busy
+            # share of its wall time, its device-to-host copies and launches
+            apply32 = lambda: op["apply"](x, torch.float32)  # noqa: E731
+            wall, busy, dtoh, _ = profile_calls(apply32, 20)
+            launched, kernels = device_launches(apply32)
+            costs.update(apply_f32_profiled_ms=wall / 20,
+                         apply_f32_busy_ms=None if busy is None else busy / 20,
+                         apply_f32_dtoh=None if dtoh is None else dtoh / 20,
+                         apply_f32_launches=launched, apply_f32_device_kernels=len(kernels))
+        del op, blk
+
+        rec = dict(
+            ms_halo=[round(h["ms"], 3) for h in h_steps],
+            ms_single=[round(s["ms"], 3) for s in s_steps],
+            events_halo=[h["events"] for h in h_steps],
+            events_single=[s["events"] for s in s_steps], steps_equal=same,
+            transport_converged=conv,
+            cg_power_halo=[int(h["metrics"]["cg_iters_power"]) for h in h_steps],
+            cg_power_single=[int(s["metrics"]["cg_iters_power"]) for s in s_steps],
+            cg_boundary_halo=[h["cg"] for h in h_steps],
+            I_macro=(halo.state.I_macro, single.state.I_macro),
+            P_tot=(halo.state.P_tot, single.state.P_tot),
+            T_bg=(halo.state.T_bg, single.state.T_bg),
+            operator_err=op_err, tunnel_rows_err=tunnel_err, power_err=pw_err,
+            launches=launches, assemblies=n_asm, costs=costs,
+            collectives=[h["counts"] for h in h_steps], phase_ms=phase_ms,
+            presolve_halo=halo.presolve_log, presolve_single=single.presolve_log,
+            wall_s=wall, sizes=sizes)
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-300)  # noqa: E731
+        med = statistics.median
+        log(f"halo transport, {prec}, world 1 through {backend}: "
+            f"{HALO_STEPS} supersteps {med(rec['ms_halo']):.2f} ms median {rec['ms_halo']} "
+            f"against the single device's eager {med(rec['ms_single']):.2f} ms "
+            f"{rec['ms_single']}; events {rec['events_halo']} (single {rec['events_single']}), "
+            f"equal step for step {same}; transport converged {conv}; transport CG "
+            f"iterations {rec['cg_power_halo']} (single {rec['cg_power_single']}); operator "
+            f"within {op_err:.2e} of its scale (virtual and atom rows apart), tunnel rows "
+            f"{tunnel_err:.2e}, extraction {pw_err:.2e}; I_macro "
+            f"{rec['I_macro'][0]:.10e} against {rec['I_macro'][1]:.10e} A ("
+            f"{rel(*rec['I_macro']):.2e}), P_tot {rec['P_tot'][0]:.10e} against "
+            f"{rec['P_tot'][1]:.10e} W ({rel(*rec['P_tot']):.2e})")
+        log(f"  collectives a superstep: {rec['collectives']}; launches on the halo path "
+            f"{launches}, {n_asm} assemblies; ms of the halo superstep's phases {phase_ms}; "
+            f"an operator application and a collective alone: {costs}")
+        for k, (ok, h, s) in enumerate(zip(same, h_steps, s_steps)):
+            check(ok, f"halo transport {prec} step {k}: events {h['events']} vs "
+                      f"{s['events']}, or elements or charges differ")
+        check(all(a and b for a, b in conv), f"halo transport {prec}: converged {conv}")
+        for what, err in (("operator", op_err), ("tunnel rows", tunnel_err)):
+            check(err <= (1e-12 if prec == "f64" else 1e-6),
+                  f"halo transport {prec}: {what} error {err:.3e}")
+        if prec == "f64":
+            check(pw_err <= 1e-12, f"halo transport f64: extraction error {pw_err:.3e}")
+            rec["local_heat"] = _halo_local_heat_check(single, halo, sh, st0, nr)
+        summary[prec] = rec
+        del single, halo
+        if cuda:
+            torch.cuda.empty_cache()
+    log(f"  halo transport runs in {time.perf_counter() - t_phase:.1f} s")
+    return summary
+
+
+def _halo_local_heat_check(single, halo, sh, st0, nr):
+    """The local (cg) heat model on the slabs against the single device's
+    on one seeded power (the single device's first superstep's state),
+    scaled so that the temperature moves by about 10 K: 4 transient
+    substeps; within 1e-8 K.  Both models with symmetric contact spans."""
+    import numpy as np
+    import torch
+
+    from devicekmc_tpu_torch.parallel import halo_superstep as hs
+    from devicekmc_tpu_torch.parallel import halo_transport as ht
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+    from devicekmc_tpu_torch.state import replace
+
+    def model(sim, elements, n_sites):
+        e = elements.cpu().numpy()
+        nac = sim.cfg.num_atoms_contact
+        spans = (heat_mod._num_in_contact_left(e, nac),
+                 heat_mod._num_in_contact_left(e[::-1], nac))
+        # built on the whole structure: at world size 1 the slab is all of it
+        return heat_mod.build_heat_model(sim.geom, sim.params, sim.cfg, e,
+                                         sim.geom.neigh_idx.cpu().numpy(), method="cg",
+                                         contact_spans=spans)
+
+    params = single.params
+    step_time = 3 * params.delta_t
+    T0 = params.background_temp
+    elem_h = torch.cat([st0.element, halo.state.element[nr:]])
+    heat_s = model(single, st0.element, single.geom.N)
+    heat_h = hs.shard_heat_model(model(halo, elem_h, halo.geom.N), halo.geom.N, halo.mesh)
+    rng = np.random.default_rng(11)
+    p0 = torch.from_numpy(rng.uniform(0.0, 1.0, nr)).to(st0.power)
+    temp0 = torch.full_like(st0.temperature, T0)
+    single_T = lambda p: heat_mod.update_temperature_local_cg(  # noqa: E731
+        single.geom, params, heat_s, replace(st0, power=p, temperature=temp0), step_time)[0]
+    dT = float((single_T(p0).temperature - T0).abs().max())
+    p = p0 * (10.0 / dT)
+    ts_ = single_T(p)
+    pad = lambda a, b: torch.cat([a, b[nr:]])  # noqa: E731
+    temp_h, T_bg_h, _ = ht.halo_heat_local_cg(
+        sh, halo.geom, halo.params, heat_h, elem_h, pad(p, torch.zeros_like(halo.state.power)),
+        pad(temp0, halo.state.temperature), step_time)
+    err = float((temp_h[:nr] - ts_.temperature).abs().max())
+    moved = float((ts_.temperature - T0).abs().max())
+    log(f"  local heat on the slab against the single device: {heat_s.n_interface} interface "
+        f"sites, T moved {moved:.3f} K in {heat_mod.n_substeps(params, step_time)} substeps; "
+        f"temperature within {err:.3e} K, T_bg {T_bg_h:.12f} against {ts_.T_bg:.12f} K")
+    check(err <= 1e-8, f"halo local heat: temperature error {err:.3e} K")
+    check(abs(T_bg_h - ts_.T_bg) <= 1e-8, f"halo local heat: T_bg {T_bg_h} vs {ts_.T_bg}")
+    return dict(interface=heat_s.n_interface, moved_K=moved, temp_err_K=err,
+                T_bg=(T_bg_h, ts_.T_bg))
 
 
 def main():
@@ -4521,6 +4813,10 @@ def main():
         if k["name"] in halo["f64"]["launches"]:
             k["launches_halo_path"] = halo["f64"]["launches"][k["name"]]
             k["launches_halo_path_mixed"] = halo["mixed"]["launches"][k["name"]]
+        if k["name"] in halo["transport"]["mixed"]["launches"]:
+            k["launches_halo_transport_path"] = halo["transport"]["mixed"]["launches"][k["name"]]
+            k["launches_halo_transport_path_f64"] = halo["transport"]["f64"]["launches"][
+                k["name"]]
     kernels += batched_records((headline.pop("kernel_checks"), headline["launches_graph"]),
                                ensemble_checks)
     cg_records, cg_summary = boundary_cg_path(xsim, boundary_cg,

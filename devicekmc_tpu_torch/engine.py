@@ -22,9 +22,10 @@ middle of a bias point; the JAX package reads and writes the same file.
 
 With a mesh (``parallel.make_mesh``) and ``decomposition="halo"`` every
 rank runs the same bias loop on its x-slab of the sites
-(``parallel.halo_superstep``): a superstep a call, no batches and no graph,
-the metrics summed over the ranks, and only rank 0 writing output.txt and
-the snapshots.
+(``parallel.halo_superstep``; with ``solve_current`` the blocked transport,
+power and heat of ``parallel.halo_transport``): a superstep a call, no
+batches and no graph, the metrics summed over the ranks, and only rank 0
+writing output.txt and the snapshots.
 """
 
 from __future__ import annotations
@@ -152,7 +153,11 @@ class Simulation:
     the site axis padded to ``world * events._BLOCK``, each rank holding its
     x-slab on the mesh's device (``state`` is this rank's slab;
     :meth:`global_field` gathers a whole field), the cold boundary solve and
-    every superstep as distributed CG and events, one superstep a call.
+    every superstep as distributed CG and events, one superstep a call;
+    with ``solve_current`` (``transport="blocked"``; local heat with
+    ``heat_solver="cg"``) the CB edge solved on the slabs, this rank's rows
+    of the metal block stored a bias point, the transport solve and the heat
+    every superstep over the ranks, and no cold transport pre-solve.
     ``decomposition="replicate"`` raises NotImplementedError."""
 
     #: the checkpoint's state fields and grown caps, under the JAX package's
@@ -209,14 +214,12 @@ class Simulation:
             cfg, elements=elements, coords=coords, neigh_idx=neigh_idx,
             device=self.device, pad_to=mesh.world * events_mod._BLOCK if halo else 1,
         )
-        if halo:
-            # no heat phase runs under the halo decomposition: it needs
-            # transport (ROADMAP §1 item 5.1)
-            self.heat = heat_mod.empty_heat_model(self.params, self.device)
-        elif cfg.solve_heating_local:
+        if cfg.solve_heating_local and (not halo or cfg.heat_solver == "cg"):
             # the reference's contact-span rule; crossbars with interior metal
             # build their model with symmetric spans (heat.build_heat_model)
-            # and assign it to ``heat``
+            # and assign it to ``heat`` (on one device).  Under the halo
+            # decomposition the whole structure's model, cut to the slab by
+            # _init_halo; its dense model raises there
             self.heat = heat_mod.build_heat_model(
                 self.geom, self.params, cfg, self._elements_np(),
                 self.geom.neigh_idx.cpu().numpy(), method=cfg.heat_solver)
@@ -226,14 +229,14 @@ class Simulation:
             self.params = replace(self.params, poisson_compact_cap=self._auto_poisson_cap())
         if cfg.active_rows_cap == -1:
             self.params = replace(self.params, active_rows_cap=self._auto_active_cap())
-        if halo:
-            self._init_halo()
         # per-bias-point cache of the blocked transport operator (the metal
         # block, constant within a bias point) and the static banded operator
         self._cc = None
         self._band = None
         self._tt_stale = False
-        if cfg.solve_current:
+        if halo:
+            self._init_halo()
+        elif cfg.solve_current:
             self._init_transport()
         self._buffer: List[str] = []
         self.output_path = os.path.join(cfg.output_dir, "output.txt")
@@ -281,17 +284,32 @@ class Simulation:
     def _init_halo(self):
         """Split the padded structure into this rank's slab and build its
         superstep (which raises for a configuration the halo path cannot
-        run).  Rank 0 keeps the whole file order and coordinates for the
-        snapshots."""
-        from .parallel import halo_superstep
+        run).  With ``solve_current``: the vacancy bucket resolved and the
+        transport's static tables made from the whole structure first; the
+        persistent tunnel rows stay off and no band is built (the JAX
+        package's halo path has neither).  Rank 0 keeps the whole file order
+        and coordinates for the snapshots."""
+        from .parallel import halo_superstep as hs
+        from .parallel.halo_transport import build_transport_static
 
-        self._halo_width = halo_superstep.required_halo(self.geom)
+        hs.check_halo_config(self.params, self.heat.method)
+        self._halo_width = hs.required_halo(self.geom)
+        ts = sizes = None
+        if self.cfg.solve_current:
+            if self.cfg.tunnel_vac_cap == -1:
+                self.params = replace(self.params, tunnel_vac_cap=self._auto_poisson_cap())
+            ts, sizes = build_transport_static(self.geom, self.params, self._elements_np(),
+                                               self.mesh)
         if self._writer:
             self._site_io = (self.geom.io_idx.long(), self.geom.coords)
-        self.geom, self.state = halo_superstep.shard_halo_simulation(
-            self.geom, self.state, self.mesh)
-        self._make = lambda g, p, h: halo_superstep.make_halo_superstep(
-            g, p, h, self.mesh, self._halo_width)
+        n_sites = self.geom.N
+        self.geom, self.state = hs.shard_halo_simulation(self.geom, self.state, self.mesh)
+        self.heat = hs.shard_heat_model(self.heat, n_sites, self.mesh)
+        #: the halo transport's static tables and sizes (build_transport_static)
+        self.transport_static = (ts, sizes)
+        self._halo_cc = hs.make_halo_cc_cache(self.geom, self.mesh, ts, sizes)
+        self._make = lambda g, p, h: hs.make_halo_superstep(
+            g, p, h, self.mesh, self._halo_width, ts, sizes)
         self._current_step()
 
     def _current_step(self):
@@ -513,11 +531,17 @@ class Simulation:
         return prev_state, step_time, metrics
 
     # -- bias-start cold solves -------------------------------------------
+    def _cb_edge(self, params, state, Vd: float):
+        """The CB-edge solve: under the halo decomposition on the slabs."""
+        if self.decomposition == "halo":
+            return self._current_step().cb_edge(state, Vd, params)
+        return _phase_cb_edge(self.geom, params, state, Vd)
+
     # Restarted CG in segments of ``chunk`` iterations (superstep.segments).
     def _chunked_cb_edge(self, Vd: float, chunk: int, base_params=None) -> int:
         pchunk = replace(base_params or self.params, solver_maxiter=chunk)
         self.state, _, total = segments(
-            lambda st: _phase_cb_edge(self.geom, pchunk, st, Vd), self.state,
+            lambda st: self._cb_edge(pchunk, st, Vd), self.state,
             "cg_iters_cb_edge", "cb_edge_converged", "CB-edge solve")
         return total
 
@@ -777,12 +801,15 @@ class Simulation:
                 def cb_edge():
                     if chunk > 0:
                         return self._chunked_cb_edge(Vd, chunk, cold_params)
-                    self.state, m = _phase_cb_edge(self.geom, cold_params, self.state, Vd)
+                    self.state, m = self._cb_edge(cold_params, self.state, Vd)
                     return int(m["cg_iters_cb_edge"])
 
                 dt = self._presolve("cb_edge", Vd, cb_edge)
                 self._log(f"Z - calculation time - CB edge [s]: {dt:.6g}\n")
-            if params.transport == "blocked":
+            if self.decomposition == "halo":
+                # this rank's rows of the metal block, for the bias point
+                self._cc = {"cc": self._halo_cc(self.params, self.state)}
+            elif params.transport == "blocked":
                 cache = _phase_transport_cache(self.geom, self.params, self.state)
                 if self._band is not None:
                     cache["band"] = self._band
@@ -790,7 +817,9 @@ class Simulation:
         if params.solve_potential and cold:
             self._presolve("boundary", Vd, lambda: self._chunked_boundary(
                 Vd, chunk if chunk > 0 else self.params.solver_maxiter, cold_params))
-        if params.solve_current and chunk > 0 and cold:
+        if params.solve_current and chunk > 0 and cold and self.decomposition != "halo":
+            # (the halo path has no cold transport pre-solve, as the JAX
+            # package's has none)
             self._presolve("transport", Vd,
                            lambda: self._chunked_transport(Vd, chunk))
 

@@ -20,15 +20,19 @@ adjacent ranks.  The phases:
     each zeroes its conflicting pairs.  One all-gather and one all-reduce
     an event; the loop runs on the host, one read an event.
 
+  * **transport and power** (``solve_current``, ``transport="blocked"``) —
+    the blocked operator split over the ranks by rows, the CG vectors whole
+    on every rank (``halo_transport.py``); each rank puts the atoms' power
+    on its slab's sites;
+  * **heat** — the global ODE on the whole power, or the matrix-free local
+    model (``heat_solver="cg"``) on the slab.
+
 The arithmetic is the single-device superstep's (the same charge rule, rate
 law, block size and selection chain), so a halo run follows the single
 device's trajectory up to CG round-off.
 
 Requirements: graph bandwidth <= halo width <= slab size, and a slab a
 multiple of ``events._BLOCK`` rows (``build_simulation(pad_to=...)``).
-
-Not here: transport, dissipated power and heat (the JAX package's phases
-5-6, ``halo_transport.py``); a configuration with ``solve_current`` raises.
 """
 
 from __future__ import annotations
@@ -43,19 +47,18 @@ from ..ops.compact import nonzero_fixed
 from ..ops.ell_gather import _WORD_DTYPES, ell_gather
 from ..ops.kmc_events import execute_event, event_type, time_draw
 from ..physics import charge as charge_mod
+from ..physics import heat as heat_mod
 from ..physics.events import _BLOCK, pack_site_code, rates_from_pairs
-from ..physics.potential import _dirichlet_laplace_solve, _poisson_rows, _select
+from ..physics.potential import (_dirichlet_laplace_solve, _poisson_rows, _select,
+                                 solve_cb_edge)
 from ..state import Geometry, PhysParams, SimState, _as_dtype, replace
 from ..structure import Element
 from .halo import compute_halo_width
+from .halo_transport import halo_cc_rows, halo_heat_local_cg, halo_transport_power
 from .mesh import Communicator, Mesh
 
 _V = int(Element.VACANCY)
 _OD = int(Element.OXYGEN_DEFECT)
-
-#: where the halo decomposition's transport stands
-NO_TRANSPORT = ("solve_current under the halo decomposition is not ported yet (ROADMAP §1 "
-                "item 5.1: parallel/halo_transport.py, the superstep's phases 5-6)")
 
 #: the fields with one row a site: each rank keeps its slab of them; every
 #: other field (the element and layer tables, the atom graph, the host
@@ -90,6 +93,18 @@ def shard_halo_simulation(geom: Geometry, state: SimState, mesh: Mesh
         return replace(rec, **kw)
 
     return cut(geom, GEOM_SITE_FIELDS), cut(state, STATE_SITE_FIELDS)
+
+
+def shard_heat_model(heat: heat_mod.HeatModel, n_sites: int, mesh: Mesh
+                     ) -> heat_mod.HeatModel:
+    """This rank's slab of every field of the heat model with one row a
+    site (the JAX package's ``site_axis_specs``), the others whole, on the
+    rank's device."""
+    S = n_sites // mesh.world
+    lo = mesh.rank * S
+    kw = {f: (v[lo:lo + S] if v.dim() and v.shape[0] == n_sites else v).to(mesh.device)
+          for f, v in vars(heat).items() if torch.is_tensor(v)}
+    return replace(heat, **kw)
 
 
 # ----------------------------------------------------------------------------
@@ -335,11 +350,43 @@ def _halo_event_loop(sh: _Shard, geom: Geometry, params: PhysParams, element, ch
 # the superstep
 # ----------------------------------------------------------------------------
 
+def halo_power(sh: _Shard, geom: Geometry, params: PhysParams, state: SimState, Vd: float,
+               ts, sizes, cc=None) -> Tuple[SimState, Dict]:
+    """Phase 5: the transport solve and the power over the ranks
+    (``halo_transport.halo_transport_power``), the atoms' power put on this
+    rank's sites through ``site_atom``.  ``cc``: the bias point's
+    ``{"cc": rows}`` of :func:`halo_transport.halo_cc_rows`."""
+    vp, I_macro, atom_power, P_tot, metrics = halo_transport_power(
+        sh, geom, params, ts, sizes, state.element, state.charge, state.CB_edge,
+        state.virtual_potentials, Vd, T_cc_loc=(cc or {}).get("cc"))
+    sa = ts["site_atom"]
+    power = torch.where(sa >= 0, atom_power[sa.clamp(min=0).long()], 0.0).to(params.dtype)
+    return replace(state, virtual_potentials=vp, I_macro=I_macro, P_tot=P_tot,
+                   power=power), metrics
+
+
+def halo_heat(sh: _Shard, geom: Geometry, params: PhysParams, heat, state: SimState,
+              step_time: float) -> Tuple[SimState, Dict]:
+    """Phase 6: the global ODE on the whole power (it takes precedence, as
+    ``heat.update_temperature`` has it), or the matrix-free local model on
+    the slab (``halo_transport.halo_heat_local_cg``)."""
+    if params.solve_heating_global:
+        T_bg = heat_mod.global_ode(params, state.T_bg, state.P_tot, step_time)
+        return replace(state, T_bg=T_bg), {"Global temperature [K]": T_bg}
+    if params.solve_heating_local and heat is not None and heat.n_interface:
+        temp, T_bg, m = halo_heat_local_cg(sh, geom, params, heat, state.element,
+                                           state.power, state.temperature, step_time)
+        return replace(state, temperature=temp, T_bg=T_bg), m
+    return state, {}
+
+
 def _halo_superstep_body(sh: _Shard, geom: Geometry, params: PhysParams, state: SimState,
-                         Vd: float) -> Tuple[SimState, float, Dict]:
-    """Phases 1-4 of the superstep on this rank's slab: charge, boundary
-    potential, gridless Poisson, KMC events.  Every metric is the whole
-    structure's, the same on every rank."""
+                         Vd: float, heat=None, ts=None, sizes=None, cc=None
+                         ) -> Tuple[SimState, float, Dict]:
+    """The superstep on this rank's slab: charge, boundary potential,
+    gridless Poisson, KMC events, and with ``solve_current`` transport and
+    power, then heat.  Every metric is the whole structure's, the same on
+    every rank."""
     metrics: Dict = {}
     if params.solve_potential:
         state, m = halo_charge(sh, geom, state)
@@ -358,24 +405,51 @@ def _halo_superstep_body(sh: _Shard, geom: Geometry, params: PhysParams, state: 
             state.potential_charge, state.T_bg, state.key)
         state = replace(state, element=element, charge=charge, key=key,
                         kmc_time=state.kmc_time + step_time)
+
+    if params.solve_current:
+        state, m = halo_power(sh, geom, params, state, Vd, ts, sizes, cc)
+        metrics.update(m)
+        state, m = halo_heat(sh, geom, params, heat, state, step_time)
+        metrics.update(m)
     metrics["n_events"] = n_events
     return state, step_time, metrics
 
 
-def make_halo_superstep(geom: Geometry, params: PhysParams, heat, mesh: Mesh, halo: int):
+def check_halo_config(params: PhysParams, heat_method: Optional[str]) -> None:
+    """Raise where the JAX package's halo path raises for a configuration it
+    cannot split: dense transport, and local heat with the dense model
+    (``heat_method``: the heat model's method, None without one)."""
+    if params.solve_current and params.transport != "blocked":
+        raise ValueError("halo transport requires transport='blocked' (the dense X matrix "
+                         "cannot shard); set transport = blocked")
+    if params.solve_heating_local and heat_method != "cg":
+        raise ValueError("halo local heating requires the matrix-free model: set "
+                         "heat_solver = cg (the dense interface inverse cannot shard)")
+
+
+def make_halo_superstep(geom: Geometry, params: PhysParams, heat, mesh: Mesh, halo: int,
+                        ts=None, sizes=None):
     """The superstep of this rank over the halo decomposition, for the slab
     geometry of :func:`shard_halo_simulation`: ``superstep(state, Vd,
     cc=None) -> (state, step_time, metrics)``, the contract of
-    ``engine.make_superstep``, run by every rank in step.  Its
-    ``charge(state)`` and ``boundary(state, Vd, maxiter, deflate_slabs=0)``
-    are the first two phases alone (the engine's cold pre-solve, deflated
-    with ``deflate_slabs``).  ``heat``: unused (heat needs transport).
+    ``engine.make_superstep``, run by every rank in step.  With
+    ``solve_current`` the blocked transport runs split over the ranks
+    (``ts``, ``sizes``: ``halo_transport.build_transport_static``'s, required)
+    and ``cc`` carries the bias point's metal-block rows
+    (:func:`make_halo_cc_cache`); ``heat``: this rank's slab of the heat model
+    (:func:`shard_heat_model`).  Its ``charge(state)``, ``boundary(state, Vd,
+    maxiter, deflate_slabs=0)`` and ``cb_edge(state, Vd, params)`` (the CB
+    edge on the slabs, deflated as ``params.boundary_precond`` says) are
+    those phases alone (the engine's cold pre-solves).
 
-    Raises NotImplementedError with ``solve_current`` and ValueError where
-    the JAX package raises: a halo wider than the slab, a slab that is not
-    a whole number of blocks, ``poisson_compact_cap <= 0``."""
-    if params.solve_current:
-        raise NotImplementedError(NO_TRANSPORT)
+    Raises ValueError where the JAX package raises: dense transport, local
+    heat without ``heat_solver="cg"``, no static tables, a halo wider than
+    the slab, a slab that is not a whole number of blocks,
+    ``poisson_compact_cap <= 0``."""
+    check_halo_config(params, None if heat is None else heat.method)
+    if params.solve_current and (ts is None or sizes is None):
+        raise ValueError("halo transport needs the static tables from "
+                         "halo_transport.build_transport_static")
     S = geom.neigh_idx.shape[0]
     if S * mesh.world != geom.N:
         raise ValueError("the geometry is not this rank's slab (shard_halo_simulation)")
@@ -391,12 +465,25 @@ def make_halo_superstep(geom: Geometry, params: PhysParams, heat, mesh: Mesh, ha
     sh = _Shard(mesh.comm, geom.neigh_idx, halo, geom.N_real)
 
     def superstep(state: SimState, Vd: float, cc=None):
-        return _halo_superstep_body(sh, geom, params, state, Vd)
+        return _halo_superstep_body(sh, geom, params, state, Vd, heat, ts, sizes, cc)
 
     superstep.charge = lambda state: halo_charge(sh, geom, state)
     superstep.boundary = lambda state, Vd, maxiter, deflate_slabs=0: halo_boundary(
         sh, geom, params, state, Vd, maxiter, deflate_slabs)
+    superstep.cb_edge = lambda state, Vd, p=params: solve_cb_edge(geom, p, state, Vd, slab=sh)
     return superstep
+
+
+def make_halo_cc_cache(geom: Geometry, mesh: Mesh, ts, sizes):
+    """The bias point's metal-block cache of the halo transport (``current.
+    assemble_transport_cache`` over the ranks): ``fn(params, state) ->`` this
+    rank's ``[Smp, n_mp_pad]`` rows of the metal_p x metal_p block, for
+    ``cc={"cc": rows}`` (valid while the CB edge is: a bias point)."""
+    def build(params: PhysParams, state: SimState) -> torch.Tensor:
+        return halo_cc_rows(geom, params, mesh.comm, ts, sizes, state.element, state.charge,
+                            state.CB_edge)
+
+    return build
 
 
 def required_halo(geom_or_neigh) -> int:

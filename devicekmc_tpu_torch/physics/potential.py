@@ -61,13 +61,16 @@ def _edge_conductance_boundary(geom: Geometry, state: SimState, params: PhysPara
     return torch.where(geom.neigh_valid, g, 0.0)
 
 
-def _edge_conductance_cb(geom: Geometry, state: SimState, params: PhysParams):
+def _edge_conductance_cb(geom: Geometry, state: SimState, params: PhysParams, slab=None):
     """Per-edge conductance of the CB-edge network: high_G iff either
-    endpoint is metal (src/potential_solver.cpp:58-70)."""
-    safe = safe_index(geom.neigh_idx)
+    endpoint is metal (src/potential_solver.cpp:58-70).  ``slab``: the
+    neighbours' metal flags through its halo window."""
     metal = geom.metal_mask_table[state.element.long()]
-    g = _select(metal[:, None] | metal[safe], params.high_G, params.low_G,
-                params.dtype)
+    if slab is None:
+        metal_nb = metal[safe_index(geom.neigh_idx)]
+    else:
+        metal_nb = slab.gather(metal.to(torch.int32)) > 0
+    g = _select(metal[:, None] | metal_nb, params.high_G, params.low_G, params.dtype)
     return torch.where(geom.neigh_valid, g, 0.0)
 
 
@@ -474,13 +477,15 @@ def solve_boundary_potential_batched(
 
 
 def solve_cb_edge(
-    geom: Geometry, params: PhysParams, state: SimState, Vd: float
+    geom: Geometry, params: PhysParams, state: SimState, Vd: float, slab=None,
 ) -> Tuple[SimState, dict]:
     """Update ``CB_edge`` [J]: contacts at +q*Vd/2 (left), -q*Vd/2 (right).
     The linear solve runs in volts and the result is scaled by eV_to_J, as
-    the reference's GPU path does (src/potential_solver_gpu.cu:634-674)."""
+    the reference's GPU path does (src/potential_solver_gpu.cu:634-674).
+    ``slab`` (``parallel.halo_superstep._Shard``): the state is one rank's
+    slab, solved over the ranks (see :func:`_dirichlet_laplace_solve`)."""
     dtype = params.dtype
-    edge_g = _edge_conductance_cb(geom, state, params)
+    edge_g = _edge_conductance_cb(geom, state, params, slab)
     vl = float(torch.tensor(Vd / 2.0, dtype=dtype))
     vr = float(torch.tensor(-Vd / 2.0, dtype=dtype))
     phi, res = _dirichlet_laplace_solve(
@@ -490,6 +495,7 @@ def solve_cb_edge(
         masks=(geom.left_mask, geom.right_mask, geom.interior_mask),
         deflate_slabs=(params.coarse_slabs
                        if params.boundary_precond == "deflated" else 0),
+        slab=slab,
     )
     return (replace(state, CB_edge=phi * C.EV_TO_J),
             {"cg_iters_cb_edge": res.iters, "cb_edge_converged": res.converged})

@@ -7,11 +7,14 @@ through halo exchanges with the adjacent ranks.  Each rank drives one card
 
 Usage:
     torchrun --nproc-per-node K examples/halo_torch.py [--steps 8] [--vd 4.0]
-                                                      [--device cuda | cpu]
+                                                      [--device cuda | cpu] [--current]
     python examples/halo_torch.py --device cpu       # a world of one rank
 
 Rank 0 writes output.txt and the snapshots under --out and prints the run's
 events, the halo width beside the slab and the collectives a superstep.
+``--current`` adds the blocked transport and global Joule heating (each rank
+stores its rows of the metal block; the CG vectors are whole on every rank)
+and prints the current and the temperature.
 """
 
 import argparse
@@ -27,6 +30,8 @@ def main(argv=None):
     ap.add_argument("--vd", type=float, default=4.0)
     ap.add_argument("--device", default="cuda", help="cuda (NCCL, a card a rank) or cpu (gloo)")
     ap.add_argument("--out", default="halo_torch_out")
+    ap.add_argument("--current", action="store_true",
+                    help="blocked transport and global heat (transport='blocked')")
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
@@ -48,6 +53,9 @@ def main(argv=None):
         initial_vacancy_concentration=0.15, V_switch=[args.vd], t_switch=[1e30],
         output_dir=args.out, log_freq=1000,
     )
+    if args.current:
+        cfg.solve_current, cfg.transport = True, "blocked"
+        cfg.solve_heating_global, cfg.A = True, 6.25e-19
     if mesh.rank == 0:
         os.makedirs(args.out, exist_ok=True)
     sim = Simulation(cfg, elements=s.elements, coords=s.coords, mesh=mesh,
@@ -63,6 +71,10 @@ def main(argv=None):
         print(f"{steps} supersteps at Vd = {args.vd} V: events "
               f"{[int(r['n_events']) for r in sim.step_log]}, KMC time "
               f"{sim.state.kmc_time:.6g} s")
+        if args.current:
+            print(f"current {[round(r['Current [uA]'], 9) for r in sim.step_log]} uA, "
+                  f"transport CG iterations {[int(r['cg_iters_power']) for r in sim.step_log]}, "
+                  f"T_bg {sim.state.T_bg:.9f} K")
         print("collectives a superstep (cold solve and snapshots included): "
               + ", ".join(f"{k} {v / steps:.1f}" for k, v in sorted(counts.items())))
     dist.destroy_process_group()

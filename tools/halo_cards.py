@@ -3,7 +3,7 @@
 (or one CPU process) a rank, and the comparison of two such runs.
 
     torchrun --nproc-per-node K tools/halo_cards.py --out DIR [--device cuda | cpu]
-                                                    [--sites 110000] [--steps 3]
+                                                    [--sites 110000] [--steps 3] [--current]
     python3 tools/halo_cards.py --compare DIR_A DIR_B
 
 A run builds the crossbar of ``chip_smoke.synthetic_crossbar`` over the
@@ -19,6 +19,14 @@ iterations, the cold pre-solve, the halo width and the slab).  ``--compare``
 prints, for each configuration, whether the two runs' events, elements and
 charges are equal step for step, and how far apart their potentials and KMC
 clocks are.
+
+``--current`` runs phase 12's transport configurations instead (the
+transport settings of PERF.md §4 with global heat, f64 at solver and
+transport tolerance 1e-12 and mixed precision: chip_smoke.py's
+``HALO_TRANSPORT``), and the summary adds each superstep's current, power,
+transport CG iterations (every rank's: they must be equal) and the ms of
+the transport and heat phases; ``--compare`` then also prints the two runs'
+currents and how far apart they are.
 """
 
 import argparse
@@ -49,13 +57,15 @@ def run(args):
     multihost.initialize(device=args.device)
     mesh = make_mesh(device=args.device)
     rank0 = mesh.rank == 0
-    summary = {"world": mesh.world, "card": cs.gpu_line() if cuda else "cpu"}
+    summary = {"world": mesh.world, "card": cs.gpu_line() if cuda else "cpu",
+               "current": args.current}
     if rank0:
         os.makedirs(args.out, exist_ok=True)
-    for tag, over in CONFIGS.items():
+    phases = cs.HALO_TRANSPORT_PHASES if args.current else cs.HALO_PHASES
+    for tag, over in configs(args.current).items():
         sim, steps = cs.halo_sim(os.path.join(args.out, f"run_{tag}"), tag, mesh, args.device,
                                  args.sites, **over)
-        timed = {name: cs._counted(hs, name, sync) for name in cs.HALO_PHASES}
+        timed = {name: cs._counted(hs, name, sync) for name in phases}
         try:
             t = time.perf_counter()
             sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=args.steps)
@@ -67,12 +77,21 @@ def run(args):
         ms = [s["ms"] for s in steps]
         summary[tag] = dict(
             ms=[round(x, 3) for x in ms], ms_median=statistics.median(ms),
-            phase_ms={cs.HALO_PHASES[name]: [round(x, 3) for x in rec["ms"][-args.steps:]]
+            phase_ms={phases[name]: [round(x, 3) for x in rec["ms"][-args.steps:]]
                       for name, (rec, _) in timed.items()},
             collectives=[s["counts"] for s in steps], events=[s["events"] for s in steps],
             cg=[s["cg"] for s in steps], presolve=sim.presolve_log[0], wall_s=wall,
             kmc_time=sim.state.kmc_time, halo_width=sim._halo_width,
             slab=sim.geom.N // mesh.world, N=sim.geom.N, N_real=sim.geom.N_real)
+        if args.current:
+            m = [s["metrics"] for s in steps]
+            cg = torch.tensor([int(x["cg_iters_power"]) for x in m], device=mesh.device)
+            summary[tag].update(
+                current_uA=[x["Current [uA]"] for x in m],
+                power_mW=[x["Total dissipated power [mW]"] for x in m],
+                converged=[x["transport_converged"] for x in m],
+                cg_power_ranks=mesh.comm.all_gather(cg[None]).tolist(),
+                I_macro=sim.state.I_macro, P_tot=sim.state.P_tot, T_bg=sim.state.T_bg)
         if rank0:
             np.savez(os.path.join(args.out, f"{tag}.npz"),
                      **{f"{f}_{k}": s[f].numpy() for k, s in enumerate(steps)
@@ -85,12 +104,22 @@ def run(args):
     dist.destroy_process_group()
 
 
+def configs(current):
+    """The configurations of a run: phase 12's halo runs, or with
+    ``current`` its transport runs (their chip_smoke.halo_sim overrides)."""
+    import chip_smoke as cs
+
+    if not current:
+        return CONFIGS
+    return {tag: dict(cs.HALO_TRANSPORT_COMMON, **over) for tag, over in cs.HALO_TRANSPORT.items()}
+
+
 def compare(a_dir, b_dir):
     import numpy as np
 
     sa, sb = (json.load(open(os.path.join(d, "summary.json"))) for d in (a_dir, b_dir))
     out = {}
-    for tag in CONFIGS:
+    for tag in configs(sa.get("current", False)):
         a, b = (np.load(os.path.join(d, f"{tag}.npz")) for d in (a_dir, b_dir))
         n = len(sa[tag]["events"])
         equal = [sa[tag]["events"][k] == sb[tag]["events"][k]
@@ -102,6 +131,16 @@ def compare(a_dir, b_dir):
         out[tag] = dict(worlds=(sa["world"], sb["world"]), steps_equal=equal,
                         potential_boundary_err=pb, kmc_time_rel_err=kmc,
                         ms_median=(sa[tag]["ms_median"], sb[tag]["ms_median"]))
+        if sa.get("current"):
+            I_a, I_b = sa[tag]["I_macro"], sb[tag]["I_macro"]
+            out[tag].update(
+                I_macro=(I_a, I_b), I_macro_rel=abs(I_a - I_b) / abs(I_b),
+                cg_power=(sa[tag]["cg_power_ranks"][0], sb[tag]["cg_power_ranks"][0]),
+                cg_equal_across_ranks=[len({tuple(r) for r in x[tag]["cg_power_ranks"]}) == 1
+                                       for x in (sa, sb)],
+                converged=[all(x[tag]["converged"]) for x in (sa, sb)],
+                phase_ms_median=[{k: statistics.median(v) for k, v in x[tag]["phase_ms"].items()}
+                                 for x in (sa, sb)])
     print(json.dumps(out), flush=True)
     return out
 
@@ -112,6 +151,8 @@ def main():
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--sites", type=int, default=110_000)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--current", action="store_true",
+                    help="the transport runs (chip_smoke.HALO_TRANSPORT)")
     ap.add_argument("--compare", nargs=2, metavar="DIR")
     args = ap.parse_args()
     if args.compare:
