@@ -407,7 +407,8 @@ def time_ms_cold(fn, reps=20, warmup=3):
 # configurations
 # ---------------------------------------------------------------------------
 
-def small_device(device, out_dir, current=False, heat=None, fused=True, **overrides):
+def small_device(device, out_dir, current=False, heat=None, fused=True, mesh=None,
+                 decomposition="replicate", **overrides):
     """The 256-site stack of tests/test_golden_trajectory.py with the
     headline modules; ``current`` adds blocked transport as the transport
     path runs it (transport_tol 1e-11: two solves that meet the default
@@ -416,7 +417,8 @@ def small_device(device, out_dir, current=False, heat=None, fused=True, **overri
     (f64, dense transport, global model: the golden trajectory's
     configuration), "local-dense" (blocked transport, stored metal block,
     local model with the dense propagators); ``fused=False`` selects the
-    modular driver; ``overrides`` replace single configuration fields."""
+    modular driver; ``mesh`` runs it over ``decomposition``; ``overrides``
+    replace single configuration fields."""
     from devicekmc_tpu_torch.config import KMCConfig
     from devicekmc_tpu_torch.engine import Simulation
     from devicekmc_tpu_torch.structure import make_test_structure
@@ -450,11 +452,11 @@ def small_device(device, out_dir, current=False, heat=None, fused=True, **overri
     cfg = dataclasses.replace(cfg, **overrides)
     os.makedirs(out_dir, exist_ok=True)
     return Simulation(cfg, elements=s.elements, coords=s.coords, device=device,
-                      fused=fused)
+                      fused=fused, mesh=mesh, decomposition=decomposition)
 
 
 def synthetic_crossbar(n_sites, device, out_dir, current=False, heat=None, fused=True,
-                       mesh=None, **overrides):
+                       mesh=None, decomposition="halo", **overrides):
     """The headline configuration on the synthetic crossbar: the structure,
     substoichiometry and solver settings of the JAX package's bench.py
     build_synthetic_crossbar_sim (bench.py:219-297), with site_order "x",
@@ -466,8 +468,9 @@ def synthetic_crossbar(n_sites, device, out_dir, current=False, heat=None, fused
     "global" (the lumped model, A = ly * lz) or "local" (the matrix-free
     site-resolved model with symmetric plate-contact spans, so that interior
     metal stays inside the heat domain); ``fused=False`` selects the modular
-    superstep; ``mesh`` (parallel.make_mesh) runs it over the halo
-    decomposition; ``overrides`` replace single configuration fields."""
+    superstep; ``mesh`` (parallel.make_mesh) runs it over ``decomposition``
+    (the halo decomposition, or "replicate"); ``overrides`` replace single
+    configuration fields."""
     from devicekmc_tpu_torch.config import KMCConfig
     from devicekmc_tpu_torch.engine import Simulation
     from devicekmc_tpu_torch.physics import heat as heat_mod
@@ -503,7 +506,7 @@ def synthetic_crossbar(n_sites, device, out_dir, current=False, heat=None, fused
     cfg = dataclasses.replace(cfg, **overrides)
     os.makedirs(out_dir, exist_ok=True)
     sim = Simulation(cfg, elements=elems, coords=s.coords, device=device, fused=fused,
-                     mesh=mesh, decomposition="halo" if mesh is not None else "replicate")
+                     mesh=mesh, decomposition=decomposition)
     if heat == "local":
         e = sim.state.element.cpu().numpy()
         spans = (heat_mod._num_in_contact_left(e, cfg.num_atoms_contact),
@@ -4271,19 +4274,20 @@ HALO_TRANSPORT_COMMON = dict(current=True, heat="global", poisson_kernel="jnp",
                              transport_warm_precond="deflated")
 
 
-def halo_sim(out_root, tag, mesh, device="cuda", n_sites=N_SITES, **overrides):
-    """The crossbar over the halo decomposition (``mesh``), or without a mesh
-    through the single-device eager superstep (the engine's superstep without a
-    graph), with each superstep recorded: its ms between two
-    synchronizations, events, CG iterations, step time, the whole
-    structure's elements, charges and boundary potential, and under the mesh
-    its collectives by kind."""
+def halo_sim(out_root, tag, mesh, device="cuda", n_sites=N_SITES, decomposition="halo",
+             **overrides):
+    """The crossbar over the halo decomposition (``mesh``; or over
+    ``decomposition``), or without a mesh through the single-device eager
+    superstep (the engine's superstep without a graph), with each superstep
+    recorded: its ms between two synchronizations, events, CG iterations,
+    step time, the whole structure's elements, charges and boundary
+    potential, and under the mesh its collectives by kind."""
     import torch
 
     from devicekmc_tpu_torch import engine
 
     sim = synthetic_crossbar(n_sites, device, os.path.join(out_root, tag), mesh=mesh,
-                             **overrides)
+                             decomposition=decomposition, **overrides)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     if mesh is None:
         sim._make = engine.make_superstep
@@ -4301,7 +4305,7 @@ def halo_sim(out_root, tag, mesh, device="cuda", n_sites=N_SITES, **overrides):
         st, m = out[0], out[2]
         counts = dict(mesh.comm.counts) if mesh is not None else None
         # the whole structure's fields (gathered from the ranks' slabs)
-        whole = (lambda x: x) if mesh is None else mesh.comm.all_gather
+        whole = (lambda x: x) if sim.decomposition != "halo" else mesh.comm.all_gather
         steps.append(dict(
             ms=ms, events=int(m["n_events"]), cg=int(m["cg_iters_boundary"]),
             step_time=float(out[1]), element=whole(st.element)[:nr].cpu(),
@@ -4708,6 +4712,307 @@ def _halo_local_heat_check(single, halo, sh, st0, nr):
                 T_bg=(T_bg_h, ts_.T_bg))
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the replicated decomposition
+# ---------------------------------------------------------------------------
+
+REPLICATE_STEPS = 3
+#: phase 13's runs, each against the single device's eager run with the same
+#: resolved options: the crossbar's headline in f64 at solver_tol 1e-12 and in
+#: mixed precision, then the transport configuration with global heat
+#: (without the band and the persistent tunnel store, which a mesh turns off)
+REPLICATE_RUNS = {
+    "f64": dict(precision="f64", solver_tol=1e-12),
+    "mixed": {},
+    "transport": dict(current=True, heat="global", transport_banded=False,
+                      transport_incremental="off"),
+}
+#: the replicated superstep's phases, timed in phase 13 (function: name)
+REPLICATE_PHASES = {"replicate_charge": "charge", "replicate_boundary": "boundary potential",
+                    "replicate_poisson": "Poisson", "replicate_events": "events",
+                    "replicate_power": "transport and power", "replicate_heat": "heat"}
+#: the single device's phases (``superstep``), timed alike in phase 13's
+#: single-device runs: each between two synchronizations, as the replicated
+#: run's
+SINGLE_PHASES = {"_phase_charge": "charge", "_phase_boundary": "boundary potential",
+                 "_phase_poisson": "Poisson", "_phase_events": "events",
+                 "_phase_power": "transport and power", "_phase_heat": "heat"}
+#: the kernels of the replicated path (wrapper module, wrapper, plain version)
+#: and the runs that must launch each (the pair sweep: its row range)
+REPLICATE_KERNELS = {
+    "ell_gather": ("ell_gather", "ell_gather_plain", ("f64", "mixed", "transport")),
+    "poisson_pairwise": ("pairwise", "poisson_pairwise_plain", ("f64", "mixed", "transport")),
+    "kmc_event_loop": ("kmc_events", "kmc_event_loop_plain", ("f64", "mixed", "transport")),
+    "wkb_fly_matvec": ("wkb_fly", "wkb_fly_matvec_plain", ()),
+    "wkb_fly_matvec_out": ("wkb_fly", None, ()),
+    "wkb_fly_matmat": ("wkb_fly", "wkb_fly_matmat_plain", ("transport",)),
+    "wkb_fly_pdisp": ("wkb_fly", "wkb_fly_pdisp_plain", ("transport",)),
+    "wkb_window_block": ("wkb_window", "wkb_window_block_plain", ("transport",)),
+}
+#: ranks whose rows the pair sweep's row range is held to at the crossbar's
+#: shape
+ROW_SPLITS = 4
+#: supersteps of the replica-axis check
+REPLICA_STEPS = 2
+
+
+def _ops_module(name):
+    import importlib
+
+    return importlib.import_module(f"devicekmc_tpu_torch.ops.{name}")
+
+
+def pair_rows_checks(geom, params, state):
+    """The pair sweep over a row range at the crossbar's shape (the charged
+    list of ``state``): the rows of ROW_SPLITS ranks, each bit-equal to the
+    same rows of one launch over every row and within 2e-6 of the plain
+    version's scale; timed at a quarter of the rows and at all of them,
+    beside the plain version and the bound.  Returns the record fields."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.pairwise import (kernel_scalars, poisson_grid,
+                                                  poisson_pairwise, poisson_pairwise_plain,
+                                                  poisson_pairwise_rows)
+
+    coords32 = geom.coords.to(torch.float32).contiguous()
+    cidx = torch.nonzero(state.charge != 0).reshape(-1).to(torch.int32)
+    cq = state.charge[cidx.long()].to(torch.float32)
+    n, n_c = geom.N, int(cidx.numel())
+    check(n_c > 0 and n % ROW_SPLITS == 0, f"row range: {n_c} charged, {n} rows")
+    scal = kernel_scalars(params.sigma, params.k, list(geom.lattice_host), params.dtype)
+    whole = poisson_pairwise(coords32, cidx, cq, *scal, geom.pbc)
+    S = n // ROW_SPLITS
+    err = 0.0
+    for r in range(ROW_SPLITS):
+        got = poisson_pairwise_rows(coords32, r * S, S, cidx, cq, *scal, geom.pbc)
+        ref = poisson_pairwise_plain(coords32, cidx, cq, *scal, geom.pbc, row0=r * S,
+                                     n_rows=S)
+        check(torch.equal(got, whole[r * S:(r + 1) * S]),
+              f"row range {r}: not the whole launch's rows bit for bit")
+        err = max(err, _close(f"poisson_pairwise_rows {r}", got, ref, 2e-6))
+
+    def bound(rows):
+        return _bound(rows * n_c * POISSON_OPS_PER_PAIR[geom.pbc], rows * 16 + n_c * 8)
+
+    ms = time_ms(lambda: poisson_pairwise_rows(coords32, 0, S, cidx, cq, *scal, geom.pbc))
+    ms_all = time_ms(lambda: poisson_pairwise(coords32, cidx, cq, *scal, geom.pbc))
+    plain_ms = time_ms(lambda: poisson_pairwise_plain(coords32, cidx, cq, *scal, geom.pbc,
+                                                      row0=0, n_rows=S), reps=5)
+    (b_ms, b_by), (b_all, _) = bound(S), bound(n)
+    n_split = poisson_grid(n, n_c,
+                           torch.cuda.get_device_properties(0).multi_processor_count)[1]
+    log(f"poisson_pairwise_rows [{S} of {n} rows x {n_c} charged, the whole sweep's "
+        f"{n_split} splits]: {ROW_SPLITS} row ranges bit-equal to the whole launch's rows, "
+        f"max err against the plain version {err:.3e}; {ms:.4f} ms a quarter (bound "
+        f"{b_ms:.4f} ms by {b_by}, plain {plain_ms:.4f} ms), {ms_all:.4f} ms every row "
+        f"(bound {b_all:.4f} ms)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, shape=f"{S} of {n} rows x {n_c} charged",
+                ms_all_rows=ms_all, bound_ms_all_rows=b_all, n_split=n_split,
+                row_ranges=ROW_SPLITS)
+
+
+def replica_axis_check(out_root, mesh_batch):
+    """The replica axis at world 1: phase 10's replicas (its crossbar, cold
+    solve, ENSEMBLE_B replicas, keys of ENSEMBLE_SEED) through
+    make_batched_superstep with and without a mesh along "batch"
+    (shard_batch, then gather_batch), REPLICA_STEPS supersteps: every field
+    bit for bit."""
+    import torch
+
+    from devicekmc_tpu_torch.parallel.batched import (batch_states, gather_batch,
+                                                      make_batched_superstep, shard_batch)
+    from devicekmc_tpu_torch.state import replace
+
+    sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "replica_axis"))
+    geom, params = sim.geom, sim.params
+    sim._chunked_boundary(VD_MAIN, params.solver_maxiter,
+                          replace(params, boundary_precond="deflated"))
+    states0 = batch_states(sim.state, ENSEMBLE_B, base_seed=ENSEMBLE_SEED)
+    plain, meshed = states0, shard_batch(states0, mesh_batch)
+    step = make_batched_superstep(geom, params, sim.heat)
+    step_m = make_batched_superstep(geom, params, sim.heat, mesh=mesh_batch)
+    events = []
+    for _ in range(REPLICA_STEPS):
+        plain, dts, m = step(plain, VD_MAIN)
+        meshed, dts_m, _ = step_m(meshed, VD_MAIN)
+        check(torch.equal(dts, dts_m), "replica axis: step times differ")
+        events.append(m["n_events"].tolist())
+    whole = gather_batch(meshed, mesh_batch)
+    for f in dataclasses.fields(whole):
+        a, b = getattr(whole, f.name), getattr(plain, f.name)
+        check(a.dtype == b.dtype and a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes(),
+              f"replica axis: {f.name} differs")
+    log(f"replica axis at world 1 ({ENSEMBLE_B} replicas of phase 10's crossbar, keys of seed "
+        f"{ENSEMBLE_SEED}): make_batched_superstep with a mesh along 'batch' (shard_batch, "
+        f"gather_batch) against the same without one, {REPLICA_STEPS} supersteps: every "
+        f"field bit for bit; events {events}")
+    return dict(replicas=ENSEMBLE_B, steps=REPLICA_STEPS, events=events, bit_equal=True)
+
+
+def replicate_path(out_root, device="cuda", n_sites=N_SITES):
+    """Phase 13: the replicated decomposition (``Simulation(mesh=...)``'s
+    default) at world size 1 through NCCL (an in-process store, cuda:0) on
+    the crossbar, REPLICATE_RUNS: each run's cold solves and REPLICATE_STEPS
+    supersteps against the single device's eager run with the same resolved
+    options: events, elements and charges equal, and the boundary and charge
+    potentials, I_macro, P_tot and T_bg bit-equal, step for step.  Both runs
+    time each phase between two synchronizations (REPLICATE_PHASES,
+    SINGLE_PHASES), so their supersteps' ms compare.  The replicated runs
+    are driven with the wrappers' counts set to 0 just before and read just
+    after: the gather, the pair sweep (its row range) and the event loop
+    launched in every run, the fly matvec and matmat, the window block and
+    the dissipation kernel in the transport run, and no plain version.  Then
+    the pair sweep's row range at the crossbar's shape (pair_rows_checks), the replica
+    axis (replica_axis_check) and a checkpoint under a mesh under both
+    decompositions (phase 8's resume_check on the small stack).  ``device=
+    "cpu"`` (with a smaller ``n_sites``) rehearses the runs on the CPU
+    through gloo (the kernel checks need the card).  Returns the phase's
+    summary and the row range's record fields."""
+    import torch
+    import torch.distributed as dist
+
+    from devicekmc_tpu_torch import superstep as superstep_mod
+    from devicekmc_tpu_torch.parallel import make_mesh
+    from devicekmc_tpu_torch.parallel import sharding as shd
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    card = gpu_line() if cuda else "cpu"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    backend = "NCCL" if cuda else "gloo"
+    check(not dist.is_initialized(), "a process group runs before the replicate phase")
+    dist.init_process_group(backend.lower(), store=dist.HashStore(), rank=0, world_size=1)
+    summary, row_rec = {}, None
+    try:
+        mesh = make_mesh(1, device=device)
+        for tag, over in REPLICATE_RUNS.items():
+            single, s_steps = halo_sim(out_root, f"rep_single_{tag}", None, device, n_sites,
+                                       **over)
+            timed_s = {name: _counted(superstep_mod, name, sync) for name in SINGLE_PHASES}
+            try:
+                single.run_bias_point(VD_MAIN, 1e30, max_steps=REPLICATE_STEPS)
+            finally:
+                for _, undo in timed_s.values():
+                    undo()
+            s_phase_ms = {SINGLE_PHASES[name]: [round(x, 3)
+                                                for x in rec["ms"][-REPLICATE_STEPS:]]
+                          for name, (rec, _) in timed_s.items() if rec["ms"]}
+            s_pre = single.presolve_log
+            del single
+            rep, r_steps = halo_sim(out_root, f"rep_{tag}", mesh, device, n_sites,
+                                    decomposition="replicate", **over)
+            check(rep.decomposition == "replicate" and rep._band is None
+                  and not rep.params.transport_incremental, f"replicate {tag}: options")
+            # ---- counters to 0, drive, read ----
+            wrappers = {name: getattr(_ops_module(mod), name)
+                        for name, (mod, _, _) in REPLICATE_KERNELS.items()}
+            for w in wrappers.values():
+                w.launches = 0
+            plains = {name: _counted(_ops_module(mod), plain)
+                      for name, (mod, plain, _) in REPLICATE_KERNELS.items() if plain}
+            timed = {name: _counted(shd, name, sync) for name in REPLICATE_PHASES}
+            try:
+                t = time.perf_counter()
+                rep.run_bias_point(VD_MAIN, 1e30, max_steps=REPLICATE_STEPS)
+                sync()
+                wall = time.perf_counter() - t
+            finally:
+                for _, undo in list(plains.values()) + list(timed.values()):
+                    undo()
+            launches = {name: w.launches for name, w in wrappers.items()}
+            plain_calls = {name: rec["calls"] for name, (rec, _) in plains.items()}
+            phase_ms = {REPLICATE_PHASES[name]: [round(x, 3)
+                                                 for x in rec["ms"][-REPLICATE_STEPS:]]
+                        for name, (rec, _) in timed.items() if rec["ms"]}
+            r_pre = rep.presolve_log
+            if tag == "mixed":
+                rows_sim = rep
+            del rep
+            check(len(r_steps) == len(s_steps) == REPLICATE_STEPS,
+                  f"replicate {tag}: ran {len(r_steps)} and {len(s_steps)} supersteps")
+            if cuda:
+                for name, (_, _, runs) in REPLICATE_KERNELS.items():
+                    if tag in runs:
+                        check(launches[name] > 0, f"replicate {tag}: {name} never launched")
+                if tag == "transport":
+                    check(launches["wkb_fly_matvec"] + launches["wkb_fly_matvec_out"] > 0,
+                          "replicate transport: the fly matvec never launched")
+                check(all(c == 0 for c in plain_calls.values()),
+                      f"replicate {tag}: a plain version ran {plain_calls}")
+
+            fields = ("element", "charge", "pb")
+            same = [r["events"] == s["events"] and all(torch.equal(r[f], s[f]) for f in fields)
+                    for r, s in zip(r_steps, s_steps)]
+            keys = ("potential_charge", "I_macro", "P_tot", "T_bg", "kmc_time")
+
+            def val(st, k):
+                v = getattr(st, k)
+                return v.double().cpu() if torch.is_tensor(v) else torch.tensor(float(v))
+
+            bits = [all(torch.equal(val(r["state"], k), val(s["state"], k)) for k in keys)
+                    for r, s in zip(r_steps, s_steps)]
+            rec = dict(
+                ms_replicate=[round(r["ms"], 3) for r in r_steps],
+                ms_single=[round(s["ms"], 3) for s in s_steps],
+                events=[r["events"] for r in r_steps],
+                events_single=[s["events"] for s in s_steps],
+                cg_boundary=[r["cg"] for r in r_steps],
+                steps_equal=same, fields_bit_equal=bits,
+                collectives=[r["counts"] for r in r_steps], launches=launches,
+                plain_calls=plain_calls, phase_ms=phase_ms, phase_ms_single=s_phase_ms,
+                wall_s=wall,
+                presolve=r_pre, presolve_single=s_pre,
+                I_macro=float(r_steps[-1]["state"].I_macro),
+                T_bg=float(r_steps[-1]["state"].T_bg))
+            summary[tag] = rec
+            med = statistics.median
+            log(f"replicate phase, {tag} ({card}), world 1 through {backend}: "
+                f"{REPLICATE_STEPS} supersteps {med(rec['ms_replicate']):.2f} ms median "
+                f"{rec['ms_replicate']} against the single device's eager "
+                f"{med(rec['ms_single']):.2f} ms {rec['ms_single']}; events {rec['events']} "
+                f"(single {rec['events_single']}); events, elements, charges and "
+                f"potential_boundary equal step for step {same}; potential_charge, I_macro, "
+                f"P_tot, T_bg and kmc_time bit-equal {bits}; I_macro {rec['I_macro']:.6e} A, "
+                f"T_bg {rec['T_bg']:.6f} K")
+            log(f"  collectives a superstep: {rec['collectives']}; launches {launches}; plain "
+                f"calls {plain_calls}; ms of the phases {phase_ms} (single device "
+                f"{s_phase_ms}); cold solves {r_pre}")
+            for k, ok in enumerate(same):
+                check(ok, f"replicate {tag} step {k}: events, elements, charges or "
+                          "potential_boundary differ from the single device's")
+                check(bits[k], f"replicate {tag} step {k}: potential_charge, I_macro, P_tot, "
+                               "T_bg or kmc_time differ from the single device's")
+            if cuda:
+                torch.cuda.empty_cache()
+        per_rank = {W: shd.row_bytes(rows_sim.geom, W) for W in (1, 2, 4, 8)}
+        summary["row_bytes"] = per_rank
+        log("  bytes a rank holds of the [sites x max_nn] arrays (pair rows, a solve's ELL "
+            "rows, the whole neigh_idx and rev_slot) against one device: "
+            + "; ".join(f"{W} ranks {b['rank'] / 2**20:.2f} MiB ({b['pair_rows'] / 2**20:.2f} + "
+                        f"{b['solve_rows'] / 2**20:.2f} + {b['neigh_idx_rev_slot'] / 2**20:.2f})"
+                        for W, b in per_rank.items())
+            + f"; one device {per_rank[1]['single_device'] / 2**20:.2f} MiB")
+        if cuda:
+            row_rec = pair_rows_checks(rows_sim.geom, rows_sim.params, rows_sim.state)
+            del rows_sim
+            summary["replica_axis"] = replica_axis_check(
+                out_root, make_mesh(1, device=device, axis_names=("batch",)))
+            torch.cuda.empty_cache()
+            for dec in ("replicate", "halo"):
+                resume_check(f"small stack over a mesh of 1 rank, {dec}",
+                             lambda t, dec=dec: small_device(
+                                 device, os.path.join(out_root, f"mesh_ckpt_{dec}_{t}"),
+                                 mesh=mesh, decomposition=dec, poisson_compact_cap=-1),
+                             2.5, out_root)
+            summary["checkpoints"] = ["replicate", "halo"]
+        summary["seconds"] = round(time.perf_counter() - t_phase, 1)
+        log(f"  phase 13 in {summary['seconds']} s")
+    finally:
+        dist.destroy_process_group()
+    return summary, row_rec
+
+
 def main():
     import torch
 
@@ -4719,6 +5024,14 @@ def main():
     from devicekmc_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
+    # seconds of each part of the run, printed after the kernels line
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):
+        t = time.perf_counter()
+        laps[name] = round(t - t_lap[0], 1)
+        t_lap[0] = t
+
     libs = ["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window", "kmc_events",
             "graph", "boundary_cg", "transport_cg"]
     latency_job = start_latency_build()
@@ -4729,6 +5042,7 @@ def main():
         regs = [l.strip() for l in _build.build_log(name).splitlines() if "registers" in l]
         log(f"  {name}: {regs}")
     u32, u64 = threefry_check()
+    lap("build, threefry")
 
     out_root = os.path.join(ROOT, "build", "chip_smoke")
     t0 = time.perf_counter()
@@ -4746,20 +5060,26 @@ def main():
                                         EVENT_STEPS_SMALL, "small stack")
     small_batched_check(out_root)
     log(f"small-device checks in {time.perf_counter() - t0:.1f} s")
+    lap("small stack")
 
     run, draws_crossbar, event_record, kernels, (xsim, headline) = headline_path(out_root)
     torch.cuda.empty_cache()
+    lap("headline")
     boundary_cg = boundary_cg_system(xsim)
     batched = crossbar_batched_check(out_root, run)
     torch.cuda.empty_cache()
+    lap("crossbar batched")
     transport_launches, (presolve, steps, readbacks), tgraph, records = transport_path(
         out_root)
     kernels += records
     torch.cuda.empty_cache()
+    lap("transport")
     heat_launches, hgraph, pdisp = heat_path(out_root)
     torch.cuda.empty_cache()
+    lap("heat")
     readbacks_ref = cg_reference_run(out_root, (presolve, steps))
     torch.cuda.empty_cache()
+    lap("cg reference run")
 
     t0 = time.perf_counter()
     small_modular_check(out_root)
@@ -4771,12 +5091,19 @@ def main():
     bf16_record, bf16_launches = bf16_transport_path(out_root, steps)
     torch.cuda.empty_cache()
     log(f"modular, checkpoint and bf16 phases in {time.perf_counter() - t0:.1f} s")
+    lap("modular, checkpoint, bf16")
     ensemble_checks, ensemble = ensemble_path(out_root)
     torch.cuda.empty_cache()
     log("ensemble summary: " + json.dumps(ensemble))
+    lap("ensemble")
     halo = halo_path(out_root)
     torch.cuda.empty_cache()
     log("halo summary: " + json.dumps(halo))
+    lap("halo")
+    replicate, pair_rows = replicate_path(out_root)
+    torch.cuda.empty_cache()
+    log("replicate summary: " + json.dumps(replicate))
+    lap("replicate")
     pdisp.update(launches_transport_path=transport_launches["wkb_fly_pdisp"],
                  launches_heat_path=pdisp["launches"])
     for k in kernels:
@@ -4817,6 +5144,23 @@ def main():
             k["launches_halo_transport_path"] = halo["transport"]["mixed"]["launches"][k["name"]]
             k["launches_halo_transport_path_f64"] = halo["transport"]["f64"]["launches"][
                 k["name"]]
+    for k in kernels:
+        runs = {tag: rec["launches"][k["name"]] for tag, rec in replicate.items()
+                if tag in REPLICATE_RUNS and k["name"] in rec["launches"]}
+        if runs:
+            k["launches_replicate_path"] = runs
+    # the pair sweep over a quarter of the rows: the same kernel and entry as
+    # poisson_pairwise (one launch counter), timed at a rank's rows
+    kernels.append({
+        "name": "poisson_pairwise_rows", "route": "cuda",
+        "source": "devicekmc_tpu_torch/csrc/pairwise.cu",
+        "replaces": "devicekmc_tpu/ops/pairwise_pallas.py:146",
+        "launches": replicate["mixed"]["launches"]["poisson_pairwise"],
+        "path": "replicated decomposition at world 1, headline mixed",
+        "kernel_of": "poisson_pairwise",
+        "launches_replicate_path": {tag: replicate[tag]["launches"]["poisson_pairwise"]
+                                    for tag in REPLICATE_RUNS},
+        **pair_rows})
     kernels += batched_records((headline.pop("kernel_checks"), headline["launches_graph"]),
                                ensemble_checks)
     cg_records, cg_summary = boundary_cg_path(xsim, boundary_cg,
@@ -4835,9 +5179,15 @@ def main():
     log(f"profiled calls taken again after a trace without device records: "
         f"{len(empty_traces)} {empty_traces}; launches in the traces of the profiled calls "
         f"against their counts: {traced_totals()}")
+    lap("boundary cg kernels, records")
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
+    # after the kernels line, so that the end of a long output keeps them
+    print(json.dumps({"seconds": laps, "replicate": {
+        tag: {k: replicate[tag][k] for k in ("ms_replicate", "ms_single", "phase_ms",
+                                             "phase_ms_single", "events")}
+        for tag in REPLICATE_RUNS}, "replicate_seconds": replicate["seconds"]}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,12 @@
 //   * The next tile's gather (index, then coordinates) is loaded into
 //     registers while the current tile is used, and tiles alternate between
 //     two shared buffers: one __syncthreads a tile.
+//
+// A row range: the entry sweeps the rows [row0, row0 + n_rows) of the site
+// array, the charged sites anywhere in it (one rank's rows under the
+// replicated decomposition; every row for one device).  The caller gives the
+// split count of the sweep over every site, so each row of a range is that
+// row of the whole sweep bit for bit.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -117,10 +123,12 @@ __device__ __forceinline__ float4 load_site(const float* __restrict__ coords,
 
 // The sweep of one block: row block blockIdx.x, split `split` of n_split,
 // which takes the charged sites [split * chunk, min(n_c, (split + 1) *
-// chunk)).  part: [n_split][row blocks * kBlockRows] slots, cnt: a ticket a
-// row block.
+// chunk)).  rows: the n swept rows' coordinates, coords: every site's (the
+// charged sites' are read at their indices).  part: [n_split][row blocks *
+// kBlockRows] slots, cnt: a ticket a row block.
 template <bool PBC>
-__device__ __forceinline__ void sweep(const float* __restrict__ coords, int n,
+__device__ __forceinline__ void sweep(const float* __restrict__ rows,
+                                      const float* __restrict__ coords, int n,
                                       const int32_t* __restrict__ cidx,
                                       const float* __restrict__ cq, int n_c, int chunk,
                                       int split, int n_split, const Scal& sc, float* part,
@@ -135,9 +143,9 @@ __device__ __forceinline__ void sweep(const float* __restrict__ coords, int n,
     const int i = row0 + j * kThreads + tid;
     xr[j] = yr[j] = zr[j] = 0.f;
     if (i < n) {
-      xr[j] = coords[3 * (int64_t)i];
-      yr[j] = coords[3 * (int64_t)i + 1];
-      zr[j] = coords[3 * (int64_t)i + 2];
+      xr[j] = rows[3 * (int64_t)i];
+      yr[j] = rows[3 * (int64_t)i + 1];
+      zr[j] = rows[3 * (int64_t)i + 2];
     }
     acc[j] = 0.f;
   }
@@ -181,14 +189,15 @@ __device__ __forceinline__ void sweep(const float* __restrict__ coords, int n,
   }
 }
 
-// Grid (row blocks, splits of the charged set).
+// Grid (row blocks, splits of the charged set): the rows rows [n, 3] (a
+// range of coords), the charged sites read at their indices in coords.
 template <bool PBC>
 __global__ void __launch_bounds__(kThreads)
-poisson_pairwise_kernel(const float* __restrict__ coords, int n,
-                        const int32_t* __restrict__ cidx, const float* __restrict__ cq,
-                        int n_c, int chunk, Scal sc, float* part, int* cnt,
-                        float* __restrict__ out) {
-  sweep<PBC>(coords, n, cidx, cq, n_c, chunk, blockIdx.y, gridDim.y, sc, part, cnt, out);
+poisson_pairwise_kernel(const float* __restrict__ rows, const float* __restrict__ coords,
+                        int n, const int32_t* __restrict__ cidx,
+                        const float* __restrict__ cq, int n_c, int chunk, Scal sc,
+                        float* part, int* cnt, float* __restrict__ out) {
+  sweep<PBC>(rows, coords, n, cidx, cq, n_c, chunk, blockIdx.y, gridDim.y, sc, part, cnt, out);
 }
 
 // B replicas in one launch, grid (row blocks, the most splits, replicas).
@@ -214,9 +223,9 @@ poisson_pairwise_batched_kernel(const float* __restrict__ coords, int n,
   if ((int)blockIdx.y >= n_split) return;
   const int chunk = (n_c + n_split - 1) / n_split;
   const int64_t n_pad = (int64_t)gridDim.x * kBlockRows;
-  sweep<PBC>(coords, n, cidx + (int64_t)b * cap, cq + (int64_t)b * cap, n_c, chunk, blockIdx.y,
-             n_split, sc, part + (int64_t)b * gridDim.y * n_pad, cnt + (int64_t)b * gridDim.x,
-             out + (int64_t)b * n);
+  sweep<PBC>(coords, coords, n, cidx + (int64_t)b * cap, cq + (int64_t)b * cap, n_c, chunk,
+             blockIdx.y, n_split, sc, part + (int64_t)b * gridDim.y * n_pad,
+             cnt + (int64_t)b * gridDim.x, out + (int64_t)b * n);
 }
 
 Scal scalars(float inv_s, float kq, float lat_y, float lat_z) {
@@ -233,40 +242,6 @@ Scal scalars(float inv_s, float kq, float lat_y, float lat_z) {
 }
 
 }  // namespace
-
-// V [n] of the charged sites cidx [n_c] (int32) with charges cq [n_c] (f32)
-// over the rows coords [n, 3] (f32).  inv_s = 1 / (sigma sqrt2) [1/m], kq =
-// k e; n_split splits of ceil(n_c / n_split) charged sites each.  part:
-// scratch of n_split * ceil(n / 256) * 256 floats and cnt: ceil(n / 256)
-// int32 tickets that are 0 before the call and 0 again after it.  Returns
-// the cudaError_t of the launch.
-extern "C" int dkmc_poisson_pairwise(const void* coords, int n, const void* cidx,
-                                     const void* cq, int n_c, float inv_s,
-                                     float kq, float lat_y, float lat_z, int pbc,
-                                     int n_split, void* part, void* cnt, void* out,
-                                     void* stream) {
-  if (n <= 0 || n_c < 0 || n_split <= 0 || n_split > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Scal sc = scalars(inv_s, kq, lat_y, lat_z);
-  const int chunk = (n_c + n_split - 1) / n_split;
-  const dim3 grid((unsigned)((n + kBlockRows - 1) / kBlockRows), (unsigned)n_split);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(coords);
-  const int32_t* ci = static_cast<const int32_t*>(cidx);
-  const float* q = static_cast<const float*>(cq);
-  float* pt = static_cast<float*>(part);
-  int* ct = static_cast<int*>(cnt);
-  float* o = static_cast<float*>(out);
-  if (pbc) {
-    poisson_pairwise_kernel<true><<<grid, kThreads, 0, st>>>(c, n, ci, q, n_c, chunk, sc,
-                                                             pt, ct, o);
-  } else {
-    poisson_pairwise_kernel<false><<<grid, kThreads, 0, st>>>(c, n, ci, q, n_c, chunk, sc,
-                                                              pt, ct, o);
-  }
-  return (int)cudaGetLastError();
-}
 
 // V [B, n] of B replicas: replica b's first min(counts[b], cap) charged sites
 // of cidx [B, cap] (int32) with charges cq [B, cap] (f32) over the shared
@@ -305,6 +280,44 @@ extern "C" int dkmc_poisson_pairwise_batched(const void* coords, int n, const vo
   } else {
     poisson_pairwise_batched_kernel<false><<<grid, kThreads, 0, st>>>(c, n, ci, q, cn, cap,
                                                                       want, sc, pt, ct, o, lc);
+  }
+  return (int)cudaGetLastError();
+}
+
+// V [n_rows] of the rows [row0, row0 + n_rows) of coords [n_sites, 3] (f32)
+// under the charged sites cidx [n_c] (int32, indices into coords) with
+// charges cq [n_c] (f32): out[k] = V[row0 + k].  inv_s = 1 / (sigma sqrt2)
+// [1/m], kq = k e; n_split splits of ceil(n_c / n_split) charged sites each
+// (give the split count of the sweep over every site, ops/pairwise.py
+// poisson_grid(n_sites, n_c), and a range's rows are the whole sweep's bit
+// for bit).  part: scratch of n_split * ceil(n_rows / 256) * 256 floats and
+// cnt: ceil(n_rows / 256) int32 tickets, 0 before the call and 0 again after
+// it.  Returns the cudaError_t of the launch.
+extern "C" int dkmc_poisson_pairwise(const void* coords, int n_sites, int row0, int n_rows,
+                                     const void* cidx, const void* cq, int n_c, float inv_s,
+                                     float kq, float lat_y, float lat_z, int pbc, int n_split,
+                                     void* part, void* cnt, void* out, void* stream) {
+  if (n_rows <= 0 || row0 < 0 || row0 > n_sites - n_rows || n_c < 0 || n_split <= 0
+      || n_split > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Scal sc = scalars(inv_s, kq, lat_y, lat_z);
+  const int chunk = (n_c + n_split - 1) / n_split;
+  const dim3 grid((unsigned)((n_rows + kBlockRows - 1) / kBlockRows), (unsigned)n_split);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(coords);
+  const float* r = c + 3 * (int64_t)row0;
+  const int32_t* ci = static_cast<const int32_t*>(cidx);
+  const float* q = static_cast<const float*>(cq);
+  float* pt = static_cast<float*>(part);
+  int* ct = static_cast<int*>(cnt);
+  float* o = static_cast<float*>(out);
+  if (pbc) {
+    poisson_pairwise_kernel<true><<<grid, kThreads, 0, st>>>(r, c, n_rows, ci, q, n_c, chunk,
+                                                             sc, pt, ct, o);
+  } else {
+    poisson_pairwise_kernel<false><<<grid, kThreads, 0, st>>>(r, c, n_rows, ci, q, n_c, chunk,
+                                                              sc, pt, ct, o);
   }
   return (int)cudaGetLastError();
 }

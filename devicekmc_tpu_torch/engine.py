@@ -20,12 +20,15 @@ model in bounded segments.  A full-state npz checkpoint
 (:meth:`Simulation.save_checkpoint`) resumes a run bit for bit, also in the
 middle of a bias point; the JAX package reads and writes the same file.
 
-With a mesh (``parallel.make_mesh``) and ``decomposition="halo"`` every
-rank runs the same bias loop on its x-slab of the sites
+With a mesh (``parallel.make_mesh``) every rank runs the same bias loop, a
+superstep a call, no batches and no graph, and only rank 0 writes
+output.txt, the snapshots and checkpoints.  ``decomposition="replicate"``
+(the default) keeps the whole state on every rank and splits the phases
+that read pair arrays by site rows (``parallel.sharding``);
+``decomposition="halo"`` gives each rank its x-slab of the sites
 (``parallel.halo_superstep``; with ``solve_current`` the blocked transport,
-power and heat of ``parallel.halo_transport``): a superstep a call, no
-batches and no graph, the metrics summed over the ranks, and only rank 0
-writing output.txt and the snapshots.
+power and heat of ``parallel.halo_transport``), the metrics summed over the
+ranks.
 """
 
 from __future__ import annotations
@@ -57,11 +60,6 @@ from .superstep import (  # noqa: F401  (the JAX package's engine names)
 #: metrics kept in ``step_log`` but not written to output.txt, whose keys are
 #: those of the JAX package
 _UNLOGGED = {"boundary_converged", "transport_partial_assembly"}
-
-#: where the replicated decomposition stands
-NO_REPLICATE = ('decomposition="replicate" is not ported yet (ROADMAP §1 item 5.2: '
-                'parallel/sharding.py); decomposition="halo" runs over a mesh')
-
 
 def make_superstep(geom, params, heat, graph: Optional[SuperstepGraph] = None):
     """The superstep as one call.  Returns ``superstep(state, Vd, cc=None) ->
@@ -147,8 +145,18 @@ class Simulation:
     of its result; the state then stays in the graph's buffers between
     replays, and ``state`` is a view of them.  The others run eagerly.
 
-    ``mesh`` (``parallel.make_mesh``) with ``decomposition="halo"`` runs
-    the superstep over the halo decomposition
+    ``mesh`` (``parallel.make_mesh``, along ``"sites"``) with
+    ``decomposition="replicate"``, the default, runs the superstep over the
+    replicated decomposition (``parallel.sharding``, the JAX package's
+    ``engine.py:308``): the site axis padded to the world size, the whole
+    state on every rank (``state`` is the whole state, the same bits on
+    every rank), each rank's rows of the pair arrays, the phases that read
+    them split by rows and made whole by collectives, the event loop,
+    transport, power and heat the single device's on every rank, one
+    superstep a call; no band and no persistent tunnel store.
+
+    With ``decomposition="halo"`` it runs the superstep over the halo
+    decomposition
     (``parallel.halo_superstep``, the JAX package's ``engine.py:316-321``):
     the site axis padded to ``world * events._BLOCK``, each rank holding its
     x-slab on the mesh's device (``state`` is this rank's slab;
@@ -158,7 +166,12 @@ class Simulation:
     ``heat_solver="cg"``) the CB edge solved on the slabs, this rank's rows
     of the metal block stored a bias point, the transport solve and the heat
     every superstep over the ranks, and no cold transport pre-solve.
-    ``decomposition="replicate"`` raises NotImplementedError."""
+
+    Under either decomposition :meth:`save_checkpoint` and
+    :meth:`load_checkpoint` are collectives that every rank calls: rank 0
+    writes the whole padded state, and every rank reads it (its slab of it
+    under halo); a checkpoint resumes on a run of the same world size and
+    decomposition."""
 
     #: the checkpoint's state fields and grown caps, under the JAX package's
     #: names (devicekmc_tpu/engine.py), so that both read one npz
@@ -191,11 +204,10 @@ class Simulation:
         self.mesh = mesh
         self.decomposition = decomposition if mesh is not None else "none"
         if mesh is not None:
-            if decomposition == "replicate":
-                raise NotImplementedError(NO_REPLICATE)
-            if decomposition != "halo":
+            if decomposition not in ("halo", "replicate"):
                 raise ValueError(f"unknown decomposition {decomposition!r}; expected "
                                  "'halo' or 'replicate'")
+            mesh.require_axis("sites", f"decomposition={decomposition!r}")
             if device is not None and torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device!r} differs from the mesh's {mesh.device}")
             device = mesh.device
@@ -210,9 +222,10 @@ class Simulation:
         self._graph: Optional[SuperstepGraph] = None
         self.device = resolve_device("cuda" if device is None else device)
         halo = self.decomposition == "halo"
+        pad_to = 1 if mesh is None else mesh.world * (events_mod._BLOCK if halo else 1)
         self.geom, self.params, self.state = build_simulation(
             cfg, elements=elements, coords=coords, neigh_idx=neigh_idx,
-            device=self.device, pad_to=mesh.world * events_mod._BLOCK if halo else 1,
+            device=self.device, pad_to=pad_to,
         )
         if cfg.solve_heating_local and (not halo or cfg.heat_solver == "cg"):
             # the reference's contact-span rule; crossbars with interior metal
@@ -238,6 +251,8 @@ class Simulation:
             self._init_halo()
         elif cfg.solve_current:
             self._init_transport()
+        if self.decomposition == "replicate":
+            self._init_replicate()
         self._buffer: List[str] = []
         self.output_path = os.path.join(cfg.output_dir, "output.txt")
         #: one dict per superstep run: the logged metrics, keyed as in output.txt
@@ -255,7 +270,9 @@ class Simulation:
     def _init_transport(self):
         """Resolve the transport options that depend on the structure: the
         vacancy bucket, stored or on-the-fly metal block, persistent tunnel
-        blocks; build the static band."""
+        blocks; build the static band.  Under a mesh the tunnel blocks stay
+        off and no band is built, as in the JAX package
+        (``devicekmc_tpu/engine.py:407-417``, ``:580-586``)."""
         cfg = self.cfg
         n_mp = int(self.geom.atom_metalp_idx.shape[0])
         if cfg.tunnel_vac_cap == -1:
@@ -267,12 +284,13 @@ class Simulation:
         f32_entries = self.params.mixed or self.params.dtype == torch.float32
         self.params = replace(self.params, transport_cc=current_mod.resolve_transport_cc(
             self.params.transport_cc, n_mp, f32_entries))
-        self.params = replace(
-            self.params,
-            transport_incremental=current_mod.resolve_transport_incremental(
-                cfg.transport_incremental, self.params, n_mp))
+        if self.mesh is None:
+            self.params = replace(
+                self.params,
+                transport_incremental=current_mod.resolve_transport_incremental(
+                    cfg.transport_incremental, self.params, n_mp))
         self.state = attach_tunnel_state(self.state, self.geom, self.params)
-        if cfg.transport_banded:
+        if cfg.transport_banded and self.mesh is None:
             # built once: metal sites and the atom graph never change
             self._band = current_mod.build_banded_nb(self.geom, self.params, self.state)
             if self._band is None:
@@ -312,6 +330,15 @@ class Simulation:
             g, p, h, self.mesh, self._halo_width, ts, sizes)
         self._current_step()
 
+    def _init_replicate(self):
+        """Place the whole structure on the mesh's device with this rank's
+        rows of the pair arrays, and build its superstep over the replicated
+        decomposition."""
+        from .parallel import sharding
+
+        self.geom, self.state = sharding.shard_simulation(self.geom, self.state, self.mesh)
+        self._make = lambda g, p, h: sharding.make_sharded_superstep(g, p, h, self.mesh)
+
     def _current_step(self):
         if self._step_params is not self.params:
             # built once, and again when the params change (a cap grew, a
@@ -334,7 +361,8 @@ class Simulation:
         """The captured superstep of one replica when the fused driver runs
         ``params`` as a graph (made once, told of changed params), else
         None."""
-        if not self.fused or graph_ready(params, band=self._band is not None) is not None:
+        if (not self.fused or self.mesh is not None
+                or graph_ready(params, band=self._band is not None) is not None):
             return None
         if self._graph is None:
             self._graph = SuperstepGraph(self.geom, params, 1)
@@ -532,9 +560,15 @@ class Simulation:
 
     # -- bias-start cold solves -------------------------------------------
     def _cb_edge(self, params, state, Vd: float):
-        """The CB-edge solve: under the halo decomposition on the slabs."""
+        """The CB-edge solve: over the ranks under a mesh (the slabs, or
+        the rows of ``parallel.sharding.solve_cb_edge_sharded``)."""
         if self.decomposition == "halo":
             return self._current_step().cb_edge(state, Vd, params)
+        if self.decomposition == "replicate":
+            from .parallel.sharding import solve_cb_edge_sharded
+
+            return solve_cb_edge_sharded(self.geom, params, state, Vd, self.mesh,
+                                         rows=self._current_step().rows)
         return _phase_cb_edge(self.geom, params, state, Vd)
 
     # Restarted CG in segments of ``chunk`` iterations (superstep.segments).
@@ -547,9 +581,10 @@ class Simulation:
 
     def _chunked_boundary(self, Vd: float, chunk: int, base_params=None) -> int:
         """Charge rule, then the boundary network; returns the total
-        iterations.  Under the halo decomposition the boundary network is
-        the distributed CG (deflated as ``base_params`` asks) in segments of
-        ``chunk`` iterations, each warm-started from the last."""
+        iterations.  Under a mesh the charge rule and the boundary network
+        are the decomposition's, the CG distributed over the ranks (deflated
+        as ``base_params`` asks), in segments of ``chunk`` iterations, each
+        warm-started from the last."""
         if self.decomposition == "halo":
             step = self._current_step()
             p = base_params or self.params
@@ -559,9 +594,13 @@ class Simulation:
                 lambda st: step.boundary(st, Vd, chunk, slabs), self.state,
                 "cg_iters_boundary", "boundary_converged", "boundary solve")
             return total
-        self.state, _ = _phase_charge(self.geom, self.params, self.state)
+        charge, boundary = _phase_charge, _phase_boundary
+        if self.decomposition == "replicate":
+            step = self._current_step()
+            charge, boundary = (lambda g, p, st: step.charge(st)), step.boundary
+        self.state, _ = charge(self.geom, self.params, self.state)
         self.state, m = chunked_boundary_resolve(self.geom, base_params or self.params,
-                                                 self.state, Vd, chunk)
+                                                 self.state, Vd, chunk, boundary=boundary)
         return int(m["cg_iters_boundary"])
 
     def _chunked_transport(self, Vd: float, chunk: int) -> int:
@@ -606,8 +645,8 @@ class Simulation:
         src/Device.cpp:236-252) in FILE order.  The reference writes it after
         the field solve and before the events (src/kmc_main.cpp:198-205):
         ``elem_state`` gives elements and power, ``field_state`` the
-        potentials.  Under the halo decomposition every rank calls it (the
-        fields are gathered from the slabs) and rank 0 writes."""
+        potentials.  Under a mesh every rank calls it (under halo the fields
+        are gathered from the slabs) and rank 0 writes."""
         es = self.state if elem_state is None else elem_state
         fs = self.state if field_state is None else field_state
         phi = fs.potential_boundary + fs.potential_charge
@@ -616,9 +655,10 @@ class Simulation:
         if self.decomposition == "halo":
             comm = self.mesh.comm
             phi, elem, power = (comm.all_gather(x) for x in (phi, elem, power))
-            if not self._writer:
-                return
-            io, coords = self._site_io
+            if self._writer:
+                io, coords = self._site_io
+        if not self._writer:
+            return
         io = io[:self.geom.N_real]
         os.makedirs(folder, exist_ok=True)
         write_xyz(
@@ -654,10 +694,19 @@ class Simulation:
         return result
 
     # -- checkpointing (full state, beyond the reference's xyz restart) ----
+    def _site_slab(self, f: str) -> bool:
+        """True when the state field ``f`` is this rank's slab of a site
+        field (the halo decomposition)."""
+        from .parallel.halo_superstep import STATE_SITE_FIELDS
+
+        return self.decomposition == "halo" and f in STATE_SITE_FIELDS
+
     def _checkpoint_payload(self) -> Dict:
         """The npz payload, laid out as the JAX package writes it: per-site
-        fields as arrays, the host scalars as 0-d f64 arrays, the key as
-        uint32[2], the caps as ``cap_<name>``, the driver position."""
+        fields as arrays (the whole padded structure's: under halo gathered
+        from the slabs, a collective), the host scalars as 0-d f64 arrays,
+        the key as uint32[2], the caps as ``cap_<name>``, the driver
+        position."""
         st = self.state
         p = {}
         for f in self._CKPT_STATE_FIELDS:
@@ -667,6 +716,8 @@ class Simulation:
                 p[f] = np.asarray(st.key, dtype=np.uint32)
             else:
                 v = getattr(st, f)
+                if self._site_slab(f):
+                    v = self.mesh.comm.all_gather(v)
                 p[f] = v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v, np.float64)
         for f in self._CKPT_CAP_FIELDS:
             p[f"cap_{f}"] = np.asarray(getattr(self.params, f))
@@ -693,12 +744,19 @@ class Simulation:
                     kw[f] = float(arr)
                     continue
                 a = np.asarray(arr)
-                if a.shape != tuple(cur.shape):
-                    # e.g. a JAX geometry padded past N (pad_to > 1)
+                want = tuple(cur.shape)
+                if self._site_slab(f):
+                    want = (self.geom.N,) + want[1:]
+                if a.shape != want:
+                    # another structure, or the same padded for another mesh
                     raise ValueError(
                         f"checkpoint field {f!r} has shape {a.shape}, this "
-                        f"simulation's is {tuple(cur.shape)}: not a checkpoint of "
-                        "this structure (padded geometries are not supported)")
+                        f"simulation's is {want}: not a checkpoint of this structure "
+                        "padded as this run pads it (a checkpoint resumes on a run of "
+                        "the same world size and decomposition)")
+                if self._site_slab(f):
+                    S = self.geom.N // self.mesh.world
+                    a = a[self.mesh.rank * S:(self.mesh.rank + 1) * S]
                 kw[f] = torch.as_tensor(a, device=self.device).to(cur.dtype)
         if "boundary_r" not in data and "Vd_prev" in kw:
             # a payload without the residual anchor: force a full boundary
@@ -726,24 +784,26 @@ class Simulation:
         if backend != "npz":
             raise ValueError(f"unknown checkpoint backend {backend!r}")
 
-    def _check_no_mesh(self):
-        if self.mesh is not None:
-            raise NotImplementedError("checkpoints of a run over a mesh are not ported yet "
-                                      "(ROADMAP §1 item 5.5)")
-
     def save_checkpoint(self, path: str, backend: Optional[str] = None):
         """Full-state checkpoint: the state fields, the grown caps and the
         driver position (bias index, step), enough for a bit-exact resume
         also in the middle of a bias point.  npz only (``backend`` "npz",
-        the default for a ``*.npz`` path; an orbax backend raises)."""
+        the default for a ``*.npz`` path; an orbax backend raises).  Under a
+        mesh a collective that every rank calls: rank 0 writes the whole
+        padded state, and no rank returns before the file is written."""
         self._check_backend(path, backend)
-        self._check_no_mesh()
-        np.savez(path, **self._checkpoint_payload())
+        payload = self._checkpoint_payload()
+        if self._writer:
+            np.savez(path, **payload)
+        if self.mesh is not None:
+            self.mesh.comm.barrier()
 
     def load_checkpoint(self, path: str, backend: Optional[str] = None):
-        """Restore a checkpoint of this package or of the JAX package."""
+        """Restore a checkpoint of this package or of the JAX package.  Under
+        a mesh every rank reads the file (under halo it keeps its slab of
+        each site field); the file holds the structure padded as this run
+        pads it (the same world size and decomposition)."""
         self._check_backend(path, backend)
-        self._check_no_mesh()
         with np.load(path) as data:
             self._restore_payload({f: data[f] for f in data.files})
 

@@ -15,9 +15,12 @@ compiled loop's issue bound in ``tools/fly_sass.py``).  See the kernel
 source for the design; :func:`poisson_grid` is its grid rule.
 
 :func:`poisson_pairwise` launches the kernel for CUDA tensors and takes the
-plain version :func:`poisson_pairwise_plain` only for CPU tensors.
-``poisson_pairwise.launches`` counts kernel launches (one device launch a
-call).  :func:`poisson_pairwise_batched` sweeps B replicas' charged lists
+plain version :func:`poisson_pairwise_plain` only for CPU tensors; it is
+every row of :func:`poisson_pairwise_rows`, which sweeps a range of rows of
+the same sweep (a rank's rows under the replicated decomposition), each row
+bit-equal to the whole sweep's.  ``poisson_pairwise.launches`` counts the
+launches of both (one device launch a call).
+:func:`poisson_pairwise_batched` sweeps B replicas' charged lists
 over the shared coordinates in one launch, each replica's count read on the
 device and its charged set split as the single launch splits it, so replica
 b's V is the single kernel's bit for bit; its plain version
@@ -66,16 +69,18 @@ def _erfc_pos(x: torch.Tensor) -> torch.Tensor:
 
 
 def poisson_pairwise_plain(coords, charged_idx, charged_q, inv_s, kq, lat_y,
-                           lat_z, pbc: bool, block: int = 2048) -> torch.Tensor:
+                           lat_z, pbc: bool, block: int = 2048, row0: int = 0,
+                           n_rows=None) -> torch.Tensor:
     """The plain PyTorch version, blocked over rows; same arguments as
-    :func:`poisson_pairwise`."""
-    n = coords.shape[0]
+    :func:`poisson_pairwise`, and of :func:`poisson_pairwise_rows` the rows
+    ``[row0, row0 + n_rows)`` (default: every row)."""
+    n = coords.shape[0] - row0 if n_rows is None else n_rows
     ci = charged_idx.long()
     cc = coords[ci]                                       # [C, 3]
     out = torch.empty(n, dtype=torch.float32, device=coords.device)
     for r0 in range(0, n, block):
         r1 = min(r0 + block, n)
-        xr = coords[r0:r1]
+        xr = coords[row0 + r0:row0 + r1]
         dx = cc[None, :, 0] - xr[:, None, 0]
         dy = cc[None, :, 1] - xr[:, None, 1]
         dz = cc[None, :, 2] - xr[:, None, 2]
@@ -83,7 +88,7 @@ def poisson_pairwise_plain(coords, charged_idx, charged_q, inv_s, kq, lat_y,
             dy = dy - torch.round(dy / lat_y) * lat_y
             dz = dz - torch.round(dz / lat_z) * lat_z
         r = torch.sqrt(dx * dx + dy * dy + dz * dz) * 1e-10
-        rows = torch.arange(r0, r1, device=coords.device)
+        rows = torch.arange(row0 + r0, row0 + r1, device=coords.device)
         dead = (ci[None, :] == rows[:, None]) | (r <= 0.0)
         r = torch.where(dead, 1.0, r)
         contrib = charged_q[None, :] * _erfc_pos(r * inv_s) * kq / r
@@ -114,13 +119,17 @@ def batched_tickets(n: int, batch: int) -> int:
     return batch * poisson_grid(n, 0)[0]
 
 
+_ARGTYPES = {
+    "dkmc_poisson_pairwise": "piiippiffffiipppp",
+    "dkmc_poisson_pairwise_batched": "pipppiiffffiiippppp",
+}
+
+
 def _lib(symbol="dkmc_poisson_pairwise"):
     fn = getattr(_build.load("pairwise"), symbol)
     if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([p, i, p, p, i, f, f, f, f, i, i, p, p, p, p]
-                       if symbol == "dkmc_poisson_pairwise" else
-                       [p, i, p, p, p, i, i, f, f, f, f, i, i, i, p, p, p, p, p])
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+        fn.argtypes = [kinds[c] for c in _ARGTYPES[symbol]]
         fn.restype = ctypes.c_int
     return fn
 
@@ -130,10 +139,26 @@ def poisson_pairwise(coords: torch.Tensor, charged_idx: torch.Tensor,
                      lat_y: float, lat_z: float, pbc: bool) -> torch.Tensor:
     """V [N] f32 from f32 ``coords`` [N,3] (contiguous), int32
     ``charged_idx`` [C] and f32 ``charged_q`` [C]; the scalars come from
-    :func:`kernel_scalars`."""
+    :func:`kernel_scalars`.  Every row of :func:`poisson_pairwise_rows`."""
+    return poisson_pairwise_rows(coords, 0, coords.shape[0], charged_idx, charged_q, inv_s,
+                                 kq, lat_y, lat_z, pbc)
+
+
+def poisson_pairwise_rows(coords: torch.Tensor, row0: int, n_rows: int,
+                          charged_idx: torch.Tensor, charged_q: torch.Tensor, inv_s: float,
+                          kq: float, lat_y: float, lat_z: float, pbc: bool) -> torch.Tensor:
+    """V [n_rows] f32 of the rows ``[row0, row0 + n_rows)`` of the sweep over
+    every site of ``coords`` [N,3] (f32, contiguous), the charged sites
+    ``charged_idx`` (int32, indices into ``coords``) with charges
+    ``charged_q``: one rank's rows under the replicated decomposition
+    (``parallel.sharding``), or every row (:func:`poisson_pairwise`).  The
+    launch splits the charged set by the grid rule of the sweep over every
+    site, so row k is row ``row0 + k`` of the whole sweep bit for bit.  For
+    CPU tensors the plain version (:func:`poisson_pairwise_plain` with the
+    same range).  Each launch adds one to ``poisson_pairwise.launches``."""
     if coords.device.type == "cpu":
-        return poisson_pairwise_plain(coords, charged_idx, charged_q, inv_s, kq,
-                                      lat_y, lat_z, pbc)
+        return poisson_pairwise_plain(coords, charged_idx, charged_q, inv_s, kq, lat_y,
+                                      lat_z, pbc, row0=row0, n_rows=n_rows)
     if coords.device.type != "cuda":
         raise ValueError(f"poisson_pairwise: unsupported device {coords.device}")
     if coords.dtype != torch.float32 or coords.dim() != 2 or coords.shape[1] != 3 \
@@ -147,19 +172,23 @@ def poisson_pairwise(coords: torch.Tensor, charged_idx: torch.Tensor,
     if charged_idx.device != coords.device or charged_q.device != coords.device:
         raise ValueError("poisson_pairwise: all tensors on one device")
     n = coords.shape[0]
-    out = torch.empty(n, dtype=torch.float32, device=coords.device)
-    if n == 0:
+    if not 0 <= row0 <= n - n_rows:
+        raise ValueError(f"poisson_pairwise: rows [{row0}, {row0 + n_rows}) outside the "
+                         f"{n} sites")
+    out = torch.empty(n_rows, dtype=torch.float32, device=coords.device)
+    if n_rows == 0:
         return out
     n_c = charged_idx.shape[0]
-    blocks, n_split = poisson_grid(n, n_c, _build.sm_count(coords.device))
+    n_split = poisson_grid(n, n_c, _build.sm_count(coords.device))[1]
+    blocks = poisson_grid(n_rows, 0)[0]
     part = torch.empty(n_split * blocks * _THREADS * _ROWS, dtype=torch.float32,
                        device=coords.device)
     cnt = _build.tickets(coords.device, blocks)
-    fn = _lib()
     stream = torch.cuda.current_stream(coords.device).cuda_stream
-    err = fn(coords.data_ptr(), n, charged_idx.data_ptr(), charged_q.data_ptr(),
-             n_c, inv_s, kq, lat_y, lat_z, int(bool(pbc)), n_split, part.data_ptr(),
-             cnt.data_ptr(), out.data_ptr(), stream)
+    err = _lib()(
+        coords.data_ptr(), n, row0, n_rows, charged_idx.data_ptr(), charged_q.data_ptr(),
+        n_c, inv_s, kq, lat_y, lat_z, int(bool(pbc)), n_split, part.data_ptr(),
+        cnt.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"poisson_pairwise kernel launch failed: cudaError {err}")
     poisson_pairwise.launches += 1

@@ -11,9 +11,15 @@ exactly what a single run from its state and key computes.
 
 A batched state is a ``SimState`` with a leading replica axis
 (``state.stack_states``, ``state.unbatch``); replica i's key is
-``fold_in(PRNGKey(base_seed), i)``, the JAX package's streams.  Sharding the
-replica axis over a mesh of cards (``mesh``, :func:`shard_batch`) is not
-ported (ROADMAP §1 item 5.3).
+``fold_in(PRNGKey(base_seed), i)``, the JAX package's streams.
+
+Over a mesh of ranks along ``"batch"`` (``mesh.make_mesh(axis_names=
+("batch",))``, one card a rank) the replica axis is split: rank r runs the
+contiguous replicas ``[r·B/W, (r+1)·B/W)`` (:func:`shard_batch`) through the
+same batched superstep, with no collective inside a superstep, and
+:func:`gather_batch` makes the batch whole again in rank order.  Replica
+``r·B/W + i`` keeps its key ``fold_in(PRNGKey(base_seed), r·B/W + i)``, so it
+is the one-process batch's replica bit for bit.
 """
 
 from __future__ import annotations
@@ -21,11 +27,8 @@ from __future__ import annotations
 import dataclasses
 
 from .. import rng
-from ..state import Geometry, PhysParams, SimState, batch_size, stack_states
+from ..state import Geometry, PhysParams, SimState, batch_size, replace, stack_states
 from ..superstep import SuperstepGraph, graph_ready, superstep_batched
-
-_NO_MESH = ("sharding the replica axis over a mesh of cards is not ported yet "
-            "(ROADMAP §1 item 5.3: make_batched_superstep's mesh= and shard_batch)")
 
 
 def batch_states(state: SimState, n: int, base_seed: int = 0) -> SimState:
@@ -37,7 +40,8 @@ def batch_states(state: SimState, n: int, base_seed: int = 0) -> SimState:
         [rng.fold_in(base, i) for i in range(n)], batched.element.device))
 
 
-def make_batched_superstep(geom: Geometry, params: PhysParams, heat, mesh=None):
+def make_batched_superstep(geom: Geometry, params: PhysParams, heat, mesh=None,
+                           axis: str = "batch"):
     """Return ``superstep(states, Vd) -> (states, step_times, metrics)`` over
     the leading replica axis of a batched state: ``step_times`` [B] and every
     metric a [B] tensor (``n_events``, ``n_active_rows``,
@@ -52,9 +56,17 @@ def make_batched_superstep(geom: Geometry, params: PhysParams, heat, mesh=None):
     (``devicekmc_tpu/parallel/batched.py:47-51``), and read nothing back; the
     returned tensors are copies of the graph's outputs (the function's
     ``graphs``: its ``SuperstepGraph`` by B).  The others run
-    ``superstep.superstep_batched`` eagerly."""
+    ``superstep.superstep_batched`` eagerly.
+
+    ``mesh`` (a mesh along ``axis``): each rank calls the superstep with its
+    replicas (:func:`shard_batch`) on the mesh's device, as the JAX package
+    shards the batch axis (``devicekmc_tpu/parallel/batched.py:40-64``);
+    the replicas are independent, so no collective runs."""
     if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+        mesh.require_axis(axis, "make_batched_superstep(mesh=)")
+        if geom.device != mesh.device:
+            raise ValueError(f"the geometry is on {geom.device}, the mesh's device is "
+                             f"{mesh.device}")
 
     # B is known only at the call: a batch of None is the case B > 1, which
     # with solve_current runs eagerly, replica by replica
@@ -76,6 +88,27 @@ def make_batched_superstep(geom: Geometry, params: PhysParams, heat, mesh=None):
     return superstep
 
 
-def shard_batch(states: SimState, mesh) -> SimState:
-    """Not ported: the replica axis runs on one card."""
-    raise NotImplementedError(_NO_MESH)
+def _split(mesh, B: int, axis: str):
+    mesh.require_axis(axis, "the replica axis over a mesh")
+    if B % mesh.world:
+        raise ValueError(f"{B} replicas do not split over {mesh.world} ranks")
+    per = B // mesh.world
+    return mesh.rank * per, per
+
+
+def shard_batch(states: SimState, mesh, axis: str = "batch") -> SimState:
+    """This rank's contiguous ``B / W`` replicas ``[r·B/W, (r+1)·B/W)`` of
+    the batched state ``states`` (copies on the mesh's device), for a mesh of
+    W ranks along ``axis``.  Raises ValueError when W does not divide B."""
+    lo, per = _split(mesh, batch_size(states), axis)
+    return replace(states, **{f: v[lo:lo + per].to(mesh.device, copy=True)
+                              for f, v in vars(states).items()})
+
+
+def gather_batch(states: SimState, mesh) -> SimState:
+    """The whole batch from every rank's replicas (:func:`shard_batch`'s
+    layout), in rank order, on every rank: one all-gather a field, a
+    collective that every rank calls (the counterpart of reading a sharded
+    JAX array)."""
+    mesh.require_axis("batch", "gather_batch")
+    return replace(states, **{f: mesh.comm.all_gather(v) for f, v in vars(states).items()})

@@ -209,12 +209,14 @@ class SuperstepResult(NamedTuple):
     n_active: int = 0
 
 
-def execute_superstep(geom: Geometry, params: PhysParams, state: SimState
-                      ) -> SuperstepResult:
-    """One KMC superstep (dispatch on params.event_mode)."""
+def execute_superstep(geom: Geometry, params: PhysParams, state: SimState,
+                      rate_table=None) -> SuperstepResult:
+    """One KMC superstep (dispatch on params.event_mode).  ``rate_table``:
+    :func:`build_rate_table`'s signature, by default that function (the
+    replicated decomposition gives the table its ranks made by rows)."""
     if params.event_mode == "incremental":
-        return execute_superstep_incremental(geom, params, state)
-    return execute_superstep_scan(geom, params, state)
+        return execute_superstep_incremental(geom, params, state, rate_table=rate_table)
+    return execute_superstep_scan(geom, params, state, rate_table=rate_table)
 
 
 def _select_flat(prob: torch.Tensor, u: float):
@@ -241,12 +243,12 @@ def _select_two_level(prob: torch.Tensor, u: float):
     return psum, row * m + torch.clamp(slot, max=m - 1)
 
 
-def execute_superstep_scan(geom: Geometry, params: PhysParams, state: SimState
-                           ) -> SuperstepResult:
+def execute_superstep_scan(geom: Geometry, params: PhysParams, state: SimState,
+                           rate_table=None) -> SuperstepResult:
     """Literal formulation: every event rescans the full [N, max_nn] table
     (the reference's Thrust scan, src/kmc_events.cu:210-349).  Kept as the
     equivalence check of :func:`execute_superstep_incremental`."""
-    prob = build_rate_table(geom, params, state).clone()
+    prob = (rate_table or build_rate_table)(geom, params, state).clone()
     n, m = prob.shape
     t_window = 1.0 / params.freq
     select = _select_flat if params.selection == "flat" else _select_two_level
@@ -287,7 +289,8 @@ def execute_superstep_scan(geom: Geometry, params: PhysParams, state: SimState
     )
 
 
-def incremental_tables(geom: Geometry, params: PhysParams, state: SimState):
+def incremental_tables(geom: Geometry, params: PhysParams, state: SimState,
+                       rate_table=None):
     """The inputs of the incremental event loop: the rate table (all rows,
     or with ``params.active_rows_cap > 0`` the candidate source rows {d, Od,
     V}, fill rows zero), its f64 row sums (zero-padded to whole blocks) and
@@ -299,7 +302,8 @@ def incremental_tables(geom: Geometry, params: PhysParams, state: SimState):
     A batched state gives each of these with a leading replica axis
     (``prob`` [B, n_rows, m], counts [B]), each replica compacting its own
     rows on the device; the full table's ``aidx = inv = arange(N)`` stays
-    shared."""
+    shared.  ``rate_table``: :func:`build_rate_table` by default."""
+    table = rate_table or build_rate_table
     N = geom.N
     cap = params.active_rows_cap
     dev = geom.device
@@ -314,14 +318,14 @@ def incremental_tables(geom: Geometry, params: PhysParams, state: SimState):
         inv.scatter_(-1, torch.where(slot_ok, aidx.long(), N),
                      torch.arange(cap, dtype=torch.int32, device=dev).expand(*lead, cap))
         inv = inv[..., :N].contiguous()
-        prob = build_rate_table(geom, params, state, active_idx=aidx)
+        prob = table(geom, params, state, active_idx=aidx)
         prob = torch.where(slot_ok[..., None], prob, 0.0)
         n_rows = cap
     else:
         aidx = torch.arange(N, dtype=torch.int32, device=dev)
         inv = aidx
         n_active = None
-        prob = build_rate_table(geom, params, state)
+        prob = table(geom, params, state)
         n_rows = N
     nb_pad = (-n_rows) % _BLOCK
     n_blocks = (n_rows + nb_pad) // _BLOCK
@@ -332,7 +336,8 @@ def incremental_tables(geom: Geometry, params: PhysParams, state: SimState):
 
 
 def execute_superstep_incremental(geom: Geometry, params: PhysParams,
-                                  state: SimState, event_loop=None) -> SuperstepResult:
+                                  state: SimState, event_loop=None,
+                                  rate_table=None) -> SuperstepResult:
     """The same superstep at O(max_nn + N/BLOCK) work per event:
 
       * a three-level sum hierarchy (block sums -> row sums -> slots) in f64
@@ -354,7 +359,7 @@ def execute_superstep_incremental(geom: Geometry, params: PhysParams,
     the bucket when it overflows.
     """
     prob, row_sums, block_sums, aidx, inv, n_active_t = incremental_tables(
-        geom, params, state)
+        geom, params, state, rate_table)
     loop = event_loop or kmc_events.kmc_event_loop
     element, charge, res = loop(
         prob, row_sums, block_sums, aidx, inv, geom.neigh_idx, geom.rev_slot,

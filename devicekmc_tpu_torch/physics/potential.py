@@ -35,7 +35,7 @@ from ..ops.boundary_cg import Workspace, cg_solve_device
 from ..ops.cg import cg_solve, cg_solve_batched, invert_coarse, rowdot
 from ..ops.compact import nonzero_fixed, nonzero_fixed_batched
 from ..ops.ell import safe_index
-from ..ops.pairwise import kernel_scalars, poisson_pairwise, poisson_pairwise_batched
+from ..ops.pairwise import kernel_scalars, poisson_pairwise_batched, poisson_pairwise_rows
 from ..state import Geometry, PhysParams, SimState, _as_dtype, replace
 from ..structure import Element
 
@@ -49,14 +49,19 @@ def _select(cond: torch.Tensor, a: float, b: float, dtype) -> torch.Tensor:
                        torch.full((), b, dtype=dtype, device=cond.device))
 
 
-def _edge_conductance_boundary(geom: Geometry, state: SimState, params: PhysParams):
+def _edge_conductance_boundary(geom: Geometry, state: SimState, params: PhysParams,
+                               rows=None):
     """Per-edge conductance: high_G iff (metal,metal) or (neutral vacancy,
-    neutral vacancy); [B, N, max_nn] for a batched state."""
+    neutral vacancy); [B, N, max_nn] for a batched state.  ``rows``
+    (``parallel.sharding._Rows``): the whole state's conductances at that
+    rank's rows only."""
     elem = state.element.long()
-    safe = safe_index(geom.neigh_idx)
+    safe = safe_index(geom.neigh_idx) if rows is None else rows.win_safe
+    own = slice(None) if rows is None else rows.sl
     metal = geom.metal_mask_table[elem]
     cvac = (state.element == int(Element.VACANCY)) & (state.charge == 0)
-    high = (metal[..., None] & metal[..., safe]) | (cvac[..., None] & cvac[..., safe])
+    high = ((metal[..., own, None] & metal[..., safe])
+            | (cvac[..., own, None] & cvac[..., safe]))
     g = _select(high, params.high_G, params.low_G, params.dtype)
     return torch.where(geom.neigh_valid, g, 0.0)
 
@@ -280,7 +285,7 @@ def _incremental_boundary_residual(
 
 
 def solve_boundary_potential(
-    geom: Geometry, params: PhysParams, state: SimState, Vd: float
+    geom: Geometry, params: PhysParams, state: SimState, Vd: float, rows=None,
 ) -> Tuple[SimState, dict]:
     """Update ``potential_boundary``: contacts at -Vd/2 (left) and +Vd/2
     (right) (src/potential_solver.cpp:311-319).
@@ -290,7 +295,14 @@ def solve_boundary_potential(
         previous potential is the solution (no assembly, no CG);
       * with ``boundary_incremental`` and the Jacobi solve: the stored TRUE
         residual is updated on the affected rows only, and if the warm
-        solution still meets the tolerance the solve is skipped."""
+        solution still meets the tolerance the solve is skipped.
+
+    ``rows`` (``parallel.sharding._Rows``): the state is whole on every rank
+    of a mesh (the replicated decomposition).  The shortcuts are decided
+    alike on every rank from the whole state; a solve assembles this rank's
+    rows and runs over the ranks (see :func:`_dirichlet_laplace_solve`), and
+    the potential, the true residual and the right-hand side are made whole
+    by one all-gather."""
     dtype = params.dtype
     Vd = float(torch.tensor(Vd, dtype=dtype))
     elem = state.element
@@ -302,15 +314,17 @@ def solve_boundary_potential(
     inc_on = params.boundary_incremental and params.boundary_precond == "jacobi"
 
     def solve():
-        edge_g = _edge_conductance_boundary(geom, state, params)
+        edge_g = _edge_conductance_boundary(geom, state, params, rows)
         phi, res, r_true, b = _dirichlet_laplace_solve(
-            geom, edge_g, vl, vr,
-            x0=state.potential_boundary,
+            geom if rows is None else rows.geom, edge_g, vl, vr,
+            x0=state.potential_boundary if rows is None else state.potential_boundary[rows.sl],
             tol=params.solver_tol, maxiter=params.solver_maxiter,
             deflate_slabs=(params.coarse_slabs
                            if params.boundary_precond == "deflated" else 0),
-            want_residual=True,
+            want_residual=True, slab=rows,
         )
+        if rows is not None:
+            phi, r_true, b = rows.whole(phi, r_true, b)
         return phi, res.iters, r_true, b, res.converged
 
     if same_vd and not bool(changed.any()):
@@ -543,7 +557,7 @@ def _poisson_rows_compact(coords, cidx, cq, lattice, sigma: float, k: float,
 
 def poisson_gridless_compact(
     geom: Geometry, params: PhysParams, state: SimState, cap: int,
-    block: int = 512,
+    block: int = 512, rows=None,
 ) -> Tuple[SimState, int]:
     """Charged-site-compacted Poisson.  Returns ``(state, n_charged)``; the
     engine checks n_charged <= cap (the exactness condition) and redoes the
@@ -554,28 +568,36 @@ def poisson_gridless_compact(
     the exact-erfc sweep in f32 (mixed) or the working dtype.  Either way
     the sweep runs over the charged sites actually present: the fill slots
     of the fixed-size buffer add exact zeros, so dropping them changes no
-    bit of the result."""
+    bit of the result.
+
+    ``rows`` (``parallel.sharding._Rows``): the state is whole on every rank
+    of a mesh; every rank compacts the whole charged set, sweeps this rank's
+    rows against it, and one all-gather makes the potential whole."""
     if params.poisson_kernel == "pallas":
         cap = -(-cap // 8) * 8
     cidx, n_charged_t = nonzero_fixed(state.charge != 0, cap, fill_value=0)
     n_charged = int(n_charged_t)
     cidx = cidx[:min(n_charged, cap)]
+    r0, n_rows = (0, geom.N) if rows is None else (rows.gstart, rows.S)
     if params.poisson_kernel == "pallas":
         coords32 = geom.coords.to(torch.float32).contiguous()
         cq = state.charge[cidx.long()].to(torch.float32)
         inv_s, kq, lat_y, lat_z = kernel_scalars(
             params.sigma, params.k, geom.lattice_host, params.dtype)
-        v = poisson_pairwise(coords32, cidx, cq, inv_s, kq, lat_y, lat_z, geom.pbc)
+        v = poisson_pairwise_rows(coords32, r0, n_rows, cidx, cq, inv_s, kq, lat_y, lat_z,
+                                  geom.pbc)
     else:
         cdtype = torch.float32 if params.mixed else params.dtype
         coords = geom.coords.to(cdtype)
-        cq = state.charge[cidx.long()].to(cdtype)
+        ci = cidx.long()
         lat = [float(torch.tensor(x, dtype=cdtype)) for x in geom.lattice_host]
-        v = _poisson_rows_compact(
-            coords, cidx.long(), cq, lat,
+        v = _poisson_rows(
+            coords[r0:r0 + n_rows], coords[ci], ci, state.charge[ci].to(cdtype), lat,
             float(torch.tensor(params.sigma, dtype=cdtype)),
-            float(torch.tensor(params.k, dtype=cdtype)), geom.pbc, block,
+            float(torch.tensor(params.k, dtype=cdtype)), geom.pbc, block, row0=r0,
         )
+    if rows is not None:
+        v = rows.whole(v)
     return replace(state, potential_charge=v.to(params.dtype)), n_charged
 
 

@@ -38,19 +38,21 @@ def _phase_charge(geom, params, state):
     return charge_mod.update_charge(geom, params, state)
 
 
-def _phase_boundary(geom, params, state, Vd):
-    return potential_mod.solve_boundary_potential(geom, params, state, Vd)
+def _phase_boundary(geom, params, state, Vd, rows=None):
+    """``rows``: a rank's rows under the replicated decomposition
+    (``parallel.sharding``), as in the next phase."""
+    return potential_mod.solve_boundary_potential(geom, params, state, Vd, rows=rows)
 
 
-def _phase_poisson(geom, params, state):
+def _phase_poisson(geom, params, state, rows=None):
     if params.poisson_compact_cap > 0:
         state, n = potential_mod.poisson_gridless_compact(
-            geom, params, state, cap=params.poisson_compact_cap)
+            geom, params, state, cap=params.poisson_compact_cap, rows=rows)
         return state, {"n_charged_sites": n}
     # dense sweep: every site is a candidate, so the compaction bucket is the
     # whole site axis and can never overflow
     state, _ = potential_mod.poisson_gridless_compact(
-        geom, replace(params, poisson_kernel="jnp"), state, cap=geom.N)
+        geom, replace(params, poisson_kernel="jnp"), state, cap=geom.N, rows=rows)
     return state, {}
 
 
@@ -122,13 +124,14 @@ def segments(step, state, iters_key: str, converged_key: str, what: str):
     raise RuntimeError(f"chunked {what} failed to converge")
 
 
-def chunked_boundary_resolve(geom, params, state, Vd, chunk: int):
+def chunked_boundary_resolve(geom, params, state, Vd, chunk: int, boundary=_phase_boundary):
     """The boundary solve in segments of ``chunk`` iterations; the metrics
-    with the iterations summed."""
+    with the iterations summed.  ``boundary``: :func:`_phase_boundary`'s
+    signature (the replicated decomposition's solve over its ranks)."""
     pchunk = replace(params, solver_maxiter=chunk)
 
     def step(st):
-        st, m = _phase_boundary(geom, pchunk, st, Vd)
+        st, m = boundary(geom, pchunk, st, Vd)
         if not m["boundary_converged"]:
             # defeat the exact skip for the next segment (it would see an
             # unchanged network and keep the unconverged field)

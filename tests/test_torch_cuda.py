@@ -161,6 +161,39 @@ def test_cuda_poisson_shapes(n_c, pbc):
                                atol=2e-6 * float(ref.abs().max()))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("n_c", [1, 129, 8192])
+def test_cuda_poisson_rows_bit_equal_to_whole(n_c, pbc):
+    """The pair sweep over a row range (a rank's rows under the replicated
+    decomposition): ranges of 4 and 3 ranks over 20,001 rows, a ragged one
+    and a single row, each bit-equal to the same rows of one whole launch,
+    within atol 2e-6 * max|plain| (over every row) of the plain version's
+    range, one launch a call."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.pairwise import (
+        kernel_scalars, poisson_pairwise, poisson_pairwise_plain, poisson_pairwise_rows,
+    )
+
+    rng = np.random.default_rng(n_c + 7)
+    N = 20_001
+    coords = torch.as_tensor(rng.uniform(0, 60, (N, 3)).astype(np.float32), device="cuda")
+    cidx = torch.as_tensor(rng.choice(N, n_c, replace=False).astype(np.int32), device="cuda")
+    cq = torch.as_tensor(rng.choice([-2.0, 2.0], n_c).astype(np.float32), device="cuda")
+    sc = kernel_scalars(3.5e-10, 8.987552e9 / 23, [60.0, 60.0, 60.0], torch.float32)
+    whole = poisson_pairwise(coords, cidx, cq, *sc, pbc)
+    atol = 2e-6 * float(poisson_pairwise_plain(coords, cidx, cq, *sc, pbc).abs().max())
+    ranges = [(r * 5000, 5000) for r in range(4)] + [(r * 6667, 6667) for r in range(3)]
+    for row0, n in ranges + [(20_000, 1), (17, 2003), (0, N)]:
+        before = poisson_pairwise.launches
+        got = poisson_pairwise_rows(coords, row0, n, cidx, cq, *sc, pbc)
+        ref = poisson_pairwise_plain(coords, cidx, cq, *sc, pbc, row0=row0, n_rows=n)
+        torch.cuda.synchronize()
+        assert poisson_pairwise.launches == before + 1
+        assert torch.equal(got, whole[row0:row0 + n]), (row0, n)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=atol)
+
+
 # ---------------------------------------------------------------------------
 # transport kernels
 # ---------------------------------------------------------------------------

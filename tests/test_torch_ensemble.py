@@ -453,13 +453,32 @@ def test_ensemble_configuration_matches_jax(capsys):
 # ---------------------------------------------------------------------------
 
 def test_mesh_and_shard_batch_raise():
-    from devicekmc_tpu_torch.parallel import batched
+    """The replica axis over a mesh, which raised until it was ported, now
+    runs: over a world of one gloo rank along "batch", ``shard_batch`` keeps
+    every replica, the superstep with ``mesh=`` is the one without it bit
+    for bit, and ``gather_batch`` gives the batch back; a mesh along
+    "sites" raises."""
+    import torch.distributed as dist
+
+    from devicekmc_tpu_torch.parallel import batched, make_mesh
 
     geom, params, state = _port_sim(**HEADLINE)
-    with pytest.raises(NotImplementedError, match="item 5.3"):
-        batched.make_batched_superstep(geom, params, None, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 5.3"):
-        batched.shard_batch(batched.batch_states(state, 2), object())
+    states = batched.batch_states(state, 2)
+    want, want_dts, _ = batched.make_batched_superstep(geom, params, None)(states, VD)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, device="cpu", axis_names=("batch",))
+        mine = batched.shard_batch(states, mesh)
+        out, dts, _ = batched.make_batched_superstep(geom, params, None, mesh=mesh)(mine, VD)
+        out = batched.gather_batch(out, mesh)
+        with pytest.raises(ValueError, match="needs a mesh along 'batch'"):
+            batched.shard_batch(states, make_mesh(1, device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(dts, want_dts)
+    for f in dataclasses.fields(out):
+        a, b = getattr(out, f.name), getattr(want, f.name)
+        assert a.dtype == b.dtype and a.numpy().tobytes() == b.numpy().tobytes(), f.name
 
 
 def test_default_device_is_the_card():

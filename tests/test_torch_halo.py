@@ -301,7 +301,7 @@ def test_halo_run_output_from_rank0(ranks, references, case):
     ("halo_width", "ValueError: halo width 275 exceeds slab size 256"),
     ("transport_dense", "ValueError: halo transport requires transport='blocked'"),
     ("heat_dense", "ValueError: halo local heating requires .*heat_solver = cg"),
-    ("replicate", "NotImplementedError: .*ROADMAP §1 item 5.2"),
+    ("replicate", "runs: decomposition='replicate', 1 superstep"),
     ("world_size", "ValueError: make_mesh: need 3 devices, the process group has 4 ranks"),
 ])
 def test_halo_raises(ranks, name, match):

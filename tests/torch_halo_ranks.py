@@ -18,7 +18,8 @@ Cases:
     of tests/test_halo_superstep.py, 8 supersteps at 4 V (one event a
     step), and again as ``fast`` with every barrier scaled by 0.2 (59
     events over the 8 steps, picked in every slab);
-  * ``raises``: the errors a configuration or a mesh must raise;
+  * ``raises``: the errors a configuration or a mesh must raise (and the
+    replicated decomposition, which raised before it was ported, running);
   * ``transport`` (tests/test_torch_halo_transport.py): the halo transport's
     functions on the inputs of ``WORKDIR/transport.npz`` (the operator and
     its matrix form in f64 and mixed precision, the transport solve and the
@@ -258,9 +259,14 @@ def case_raises(rank, world, workdir, facts):
     cfg, s = run_config(out, **TRANSPORT, **dict(HEAT_CASES["local"], heat_solver="dense"))
     expect_raise(facts, "heat_dense", ValueError, lambda: Simulation(
         cfg, elements=s.elements, coords=s.coords, mesh=mesh, decomposition="halo"))
-    cfg, s = run_config(out)
-    expect_raise(facts, "replicate", NotImplementedError, lambda: Simulation(
-        cfg, elements=s.elements, coords=s.coords, mesh=mesh, decomposition="replicate"))
+    # the replicated decomposition, which raised until it was ported, now runs
+    cfg, s = run_config(os.path.join(out, "replicate"))
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    sim = Simulation(cfg, elements=s.elements, coords=s.coords, mesh=mesh,
+                     decomposition="replicate")
+    steps = sim.run_bias_point(RUN_VD, 1e30, max_steps=1)["steps"]
+    facts.setdefault("raises", {})["replicate"] = (
+        f"runs: decomposition={sim.decomposition!r}, {steps} superstep")
     expect_raise(facts, "world_size", ValueError, lambda: make_mesh(world - 1, device="cpu"))
 
 
