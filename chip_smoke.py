@@ -141,9 +141,13 @@ Phases (any failed check raises and the exit code is non-zero):
    their medians printed;
 8. checkpoint and resume on the card: on the small stack with transport and
    on the headline crossbar, per step and with batch_steps = 4, 2
-   supersteps, a checkpoint, 2 more, against a fresh Simulation that loads
-   the file and runs the same 2: element, charge, key, kmc_time, I_macro,
-   virtual_potentials and CB_edge bit for bit; the save and load seconds;
+   supersteps, a checkpoint in each backend (npz, the dcp directory, the
+   dcp_async background write), 2 more before the wait for that write,
+   against a fresh Simulation that loads each in turn (the state at the
+   save) and runs the same 2: element, charge, key, kmc_time, I_macro,
+   virtual_potentials and CB_edge bit for bit; each backend's save, load
+   and host-blocked seconds and MiB; the kernels' launches in these runs
+   (counters to 0 just before, read just after);
 9. the transport configuration of phase 4 with transport_bf16_inner and
    transport_tol 1e-6 (the option's 1e-2 tightening makes it phase 4's
    1e-8), counters set to 0 just before: cold solves and 4 supersteps,
@@ -213,7 +217,15 @@ Phases (any failed check raises and the exit code is non-zero):
    six phases, the collectives, the CG iterations, an operator
    application's and a collective's ms, the application's device busy
    share, copies and launches under torch.profiler; the group destroyed at
-   the end.
+   the end;
+13. the replicated decomposition at world size 1 through NCCL
+   (replicate_path): the crossbar's headline in f64 and mixed and the
+   transport configuration with global heat against the single device's
+   eager run bit for bit, the pair sweep over a row range, the replica
+   axis along "batch", the 2-D ("batch", "sites") mesh (mesh2d_check: a
+   (1, 1) mesh, each replica bit-equal to the single device's eager
+   superstep with its key, the gather, pair-sweep and event-loop launches
+   counted), and checkpoints in every backend under both decompositions.
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -3170,6 +3182,16 @@ MODULAR_CHUNK = 200
 HEAT_CHECK_SUBSTEPS = 150.5
 #: supersteps before and after the checkpoint in the resume checks
 CKPT_STEPS = 2
+#: the checkpoint backends phase 8 saves at the same step and resumes from
+CKPT_BACKENDS = ("npz", "dcp", "dcp_async")
+#: the wrappers whose launches phase 8 counts over its resume runs (by the
+#: ops module that holds each)
+CKPT_COUNTED = {"ell_gather": "ell_gather", "ell_gather_batched": "ell_gather",
+                "poisson_pairwise": "pairwise", "poisson_pairwise_batched": "pairwise",
+                "kmc_event_loop": "kmc_events", "kmc_event_loop_batched": "kmc_events",
+                "wkb_fly_matvec": "wkb_fly", "wkb_fly_matmat": "wkb_fly",
+                "wkb_fly_pdisp": "wkb_fly", "wkb_window_block": "wkb_window",
+                "banded_matvec": "banded"}
 #: the fields a resume must reproduce bit for bit
 RESUME_FIELDS = ("element", "charge", "key", "kmc_time", "I_macro",
                  "virtual_potentials", "CB_edge")
@@ -3308,73 +3330,141 @@ def small_bf16_check(out_root, steps=4, Vd=10.0):
 
 
 def state_fields(sim):
-    """RESUME_FIELDS of the state as numpy (host scalars and the key as arrays)."""
+    """RESUME_FIELDS of the state as numpy copies (host scalars and the key as
+    arrays; in graph mode the state is a view of the graph's buffers, which
+    the next replay overwrites)."""
     import numpy as np
     import torch
 
     out = {}
     for f in RESUME_FIELDS:
         v = getattr(sim.state, f)
-        out[f] = v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+        out[f] = np.array(v.cpu().numpy() if torch.is_tensor(v) else v)
     return out
 
 
-def resume_check(tag, make, Vd, out_root):
-    """Run A: CKPT_STEPS supersteps, a checkpoint, CKPT_STEPS more; run B: a
-    fresh Simulation loads the file and runs the same steps.  RESUME_FIELDS
-    equal bit for bit; the save and load seconds are printed."""
+def ckpt_mib(path):
+    """MiB of a checkpoint: an npz file, or every file of a dcp directory."""
+    if os.path.isfile(path):
+        return os.path.getsize(path) / 2**20
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 2**20
+
+
+def resume_check(tag, make, Vd, out_root, backends=CKPT_BACKENDS):
+    """Run A: CKPT_STEPS supersteps, a checkpoint in each of ``backends`` at
+    that step, CKPT_STEPS more, then the wait for the dcp_async write (its
+    directory written while those supersteps ran).  Run B, a fresh
+    Simulation, loads each checkpoint in turn: its RESUME_FIELDS are A's at
+    the save, bit for bit, and after the same CKPT_STEPS from there A's at
+    the end.  Prints and returns each backend's save, load and host-blocked
+    seconds (a save's call, and for dcp_async also the wait after the
+    supersteps) and its MiB."""
     import numpy as np
     import torch
 
-    path = os.path.join(out_root, f"ckpt_{tag}.npz")
+    slug = "".join(c if c.isalnum() else "_" for c in tag)
+    path = {b: os.path.join(out_root, f"ckpt_{slug}" + (".npz" if b == "npz" else f"_{b}"))
+            for b in backends}
     a = make("a")
+    sync = torch.cuda.synchronize if a.device.type == "cuda" else (lambda: None)
     a.run_bias_point(Vd, 1e30, max_steps=CKPT_STEPS)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    a.save_checkpoint(path)
-    save_s = time.perf_counter() - t0
+    at_save = state_fields(a)
+    rec = {}
+    for b in backends:
+        sync()
+        t0 = time.perf_counter()
+        a.save_checkpoint(path[b], backend=b)
+        rec[b] = dict(save_s=time.perf_counter() - t0)
     a.run_bias_point(Vd, 1e30, max_steps=2 * CKPT_STEPS, resume_step=CKPT_STEPS)
-    b = make("b")
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    b.load_checkpoint(path)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    check(b._pos == (0, CKPT_STEPS), f"{tag}: position {b._pos}")
-    b.run_bias_point(Vd, 1e30, max_steps=2 * CKPT_STEPS, resume_step=CKPT_STEPS)
-    fa, fb = state_fields(a), state_fields(b)
-    for f in RESUME_FIELDS:
-        check(np.array_equal(fa[f], fb[f]), f"{tag}: resumed {f} differs")
-    check([s["step"] for s in b.step_log] == list(range(CKPT_STEPS, 2 * CKPT_STEPS)),
-          f"{tag}: resumed steps {[s['step'] for s in b.step_log]}")
-    log(f"checkpoint and resume, {tag}: {CKPT_STEPS} supersteps, save, {CKPT_STEPS} more, "
-        f"against a fresh Simulation that loads the file and runs the same: "
-        f"{', '.join(RESUME_FIELDS)} equal bit for bit; events "
-        f"{[int(s['n_events']) for s in a.step_log]}; save {save_s:.3f} s, load "
-        f"{load_s:.3f} s ({os.path.getsize(path) / 2**20:.1f} MiB)")
+    a.wait_for_checkpoint()
+    wait_s = time.perf_counter() - t0
+    fa = state_fields(a)
+    b_sim = make("b")
+    for b in backends:
+        r = rec[b]
+        r.update(blocked_s=r["save_s"] + (wait_s if b == "dcp_async" else 0.0),
+                 mib=ckpt_mib(path[b]))
+        sync()
+        t0 = time.perf_counter()
+        b_sim.load_checkpoint(path[b], backend=b)
+        sync()
+        r["load_s"] = time.perf_counter() - t0
+        check(b_sim._pos == (0, CKPT_STEPS), f"{tag}, {b}: position {b_sim._pos}")
+        fl = state_fields(b_sim)
+        for f in RESUME_FIELDS:
+            check(np.array_equal(fl[f], at_save[f]), f"{tag}, {b}: loaded {f} is not the "
+                                                     "state at the save")
+        n_log = len(b_sim.step_log)
+        b_sim.run_bias_point(Vd, 1e30, max_steps=2 * CKPT_STEPS, resume_step=CKPT_STEPS)
+        fb = state_fields(b_sim)
+        for f in RESUME_FIELDS:
+            check(np.array_equal(fa[f], fb[f]), f"{tag}, {b}: resumed {f} differs")
+        steps = [s["step"] for s in b_sim.step_log[n_log:]]
+        check(steps == list(range(CKPT_STEPS, 2 * CKPT_STEPS)),
+              f"{tag}, {b}: resumed steps {steps}")
+    log(f"checkpoint and resume, {tag}: {CKPT_STEPS} supersteps, a save in each of "
+        f"{', '.join(backends)}, {CKPT_STEPS} more, then the wait; a fresh Simulation loads "
+        f"each in turn (the state at the save) and runs the same: {', '.join(RESUME_FIELDS)} "
+        f"equal bit for bit; events {[int(s['n_events']) for s in a.step_log]}; "
+        + "; ".join(f"{b}: save {r['save_s']:.4f} s, load {r['load_s']:.4f} s, host blocked "
+                    f"{r['blocked_s']:.4f} s, {r['mib']:.2f} MiB" for b, r in rec.items()))
+    return rec
+
+
+def counted_launches(fn):
+    """``fn()`` with the launch counters of CKPT_COUNTED's wrappers set to 0
+    just before it and read just after, beside the launches the card counted
+    of its COUNTED_ON_CARD kernels in it (the batched kernels' equal to their
+    wrappers', which count a graph's launches a replay; the kernels inside a
+    WHILE node only the card counts).  Returns ``fn``'s result and the counts
+    by kernel."""
+    from devicekmc_tpu_torch.ops import _build
+
+    wrappers = {n: getattr(_ops_module(m), n) for n, m in CKPT_COUNTED.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    card0 = card_counts()
+    out = fn()
+    card1 = card_counts()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    for n in _build.COUNTED_ON_CARD:
+        c = card1[n] - card0[n]
+        if n in counts:
+            check(counts[n] == c, f"{n}: {counts[n]} launches counted, {c} on the card")
+        counts[n] = c
+    return out, counts
 
 
 def small_resume_checks(out_root):
     """Phase 8, first part: resume_check on the small stack with transport,
-    per step and with batch_steps = BATCH_STEPS."""
-    for bs in (1, BATCH_STEPS):
-        resume_check(f"small stack with transport, batch_steps {bs}",
-                     lambda tag: small_device(
-                         "cuda", os.path.join(out_root, f"small_ckpt{bs}_{tag}"),
-                         current=True, batch_steps=bs),
-                     10.0, out_root)
+    per step and with batch_steps = BATCH_STEPS, each backend.  Returns the
+    records and the launches of the resume runs."""
+    def runs():
+        return {bs: resume_check(f"small stack with transport, batch_steps {bs}",
+                                 lambda tag: small_device(
+                                     "cuda", os.path.join(out_root, f"small_ckpt{bs}_{tag}"),
+                                     current=True, batch_steps=bs),
+                                 10.0, out_root)
+                for bs in (1, BATCH_STEPS)}
+
+    return counted_launches(runs)
 
 
 def crossbar_resume_checks(out_root):
     """Phase 8, second part: resume_check on the headline crossbar, per step
-    and with batch_steps = BATCH_STEPS."""
-    for bs in (1, BATCH_STEPS):
-        resume_check(
+    and with batch_steps = BATCH_STEPS, each backend.  Returns the records
+    and the launches of the resume runs."""
+    def runs():
+        return {bs: resume_check(
             f"crossbar headline, batch_steps {bs}",
             lambda tag: synthetic_crossbar(N_SITES, "cuda",
                                            os.path.join(out_root, f"crossbar_ckpt{bs}_{tag}"),
                                            batch_steps=bs),
-            VD_MAIN, out_root)
+            VD_MAIN, out_root) for bs in (1, BATCH_STEPS)}
+
+    return counted_launches(runs)
 
 
 def modular_path(out_root, ref):
@@ -4847,7 +4937,89 @@ def replica_axis_check(out_root, mesh_batch):
         f"{ENSEMBLE_SEED}): make_batched_superstep with a mesh along 'batch' (shard_batch, "
         f"gather_batch) against the same without one, {REPLICA_STEPS} supersteps: every "
         f"field bit for bit; events {events}")
-    return dict(replicas=ENSEMBLE_B, steps=REPLICA_STEPS, events=events, bit_equal=True)
+    rec = dict(replicas=ENSEMBLE_B, steps=REPLICA_STEPS, events=events, bit_equal=True)
+    return rec, mesh2d_check(sim, states0)
+
+
+#: the kernels of the 2-D mesh's superstep (the replicated decomposition's
+#: headline, each replica alone): wrapper module and plain version
+MESH2D_KERNELS = {name: REPLICATE_KERNELS[name][:2]
+                  for name in ("ell_gather", "poisson_pairwise", "kmc_event_loop")}
+
+
+def mesh2d_check(sim, states0):
+    """The 2-D ("batch", "sites") mesh at world 1 (a (1, 1) mesh through
+    NCCL): ``states0``'s replicas through ``make_batched_superstep`` on the
+    geometry of ``shard_simulation``, REPLICA_STEPS supersteps, with the
+    counts of MESH2D_KERNELS' wrappers set to 0 just before and read just
+    after (each launched, no plain version); then each replica alone through
+    the single device's eager superstep from its own state and key: every
+    field and step time bit for bit.  Returns the record."""
+    import torch
+
+    from devicekmc_tpu_torch import engine
+    from devicekmc_tpu_torch.parallel import make_mesh
+    from devicekmc_tpu_torch.parallel.batched import make_batched_superstep, shard_batch
+    from devicekmc_tpu_torch.parallel.sharding import shard_simulation
+    from devicekmc_tpu_torch.state import stack_states, unbatch_all
+
+    geom, params = sim.geom, sim.params
+    dev = geom.device.type
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    mesh = make_mesh(1, device=dev, axis_names=("batch", "sites"), shape=(1, 1))
+    g2, _ = shard_simulation(geom, sim.state, mesh)
+    step2 = make_batched_superstep(g2, params, sim.heat, mesh=mesh)
+    wrappers = {name: getattr(_ops_module(mod), name)
+                for name, (mod, _) in MESH2D_KERNELS.items()}
+    plains = {name: _counted(_ops_module(mod), plain)
+              for name, (mod, plain) in MESH2D_KERNELS.items()}
+    # ---- counters to 0, drive, read ----
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        states, dts2, events = shard_batch(states0, mesh), [], []
+        sync()
+        t = time.perf_counter()
+        for _ in range(REPLICA_STEPS):
+            states, dts, m = step2(states, VD_MAIN)
+            dts2.append(dts)
+            events.append([int(x) for x in m["n_events"].tolist()])
+        sync()
+        wall = time.perf_counter() - t
+    finally:
+        for _, undo in plains.values():
+            undo()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    plain_calls = {name: rec["calls"] for name, (rec, _) in plains.items()}
+    if dev == "cuda":
+        for name, n in launches.items():
+            check(n > 0, f"2-D mesh: {name} never launched")
+        check(all(c == 0 for c in plain_calls.values()),
+              f"2-D mesh: a plain version ran {plain_calls}")
+
+    eager = engine.make_superstep(geom, params, sim.heat)
+    ends, dts1 = [], []
+    for st in unbatch_all(states0):
+        dt = []
+        for _ in range(REPLICA_STEPS):
+            st, t1, _ = eager(st, VD_MAIN)
+            dt.append(float(t1))
+        ends.append(st)
+        dts1.append(dt)
+    single = stack_states(ends)
+    for f in dataclasses.fields(single):
+        a, b = getattr(states, f.name), getattr(single, f.name)
+        check(a.dtype == b.dtype and a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes(),
+              f"2-D mesh: {f.name} differs from the single device's eager superstep")
+    got = torch.stack(dts2).T.cpu().tolist()
+    check(got == dts1, f"2-D mesh: step times {got} against {dts1}")
+    log(f"2-D ('batch', 'sites') mesh at world 1 (a (1, 1) mesh, {dev}; {ENSEMBLE_B} "
+        f"replicas of phase 10's crossbar): make_batched_superstep on shard_simulation's "
+        f"geometry, {REPLICA_STEPS} supersteps in {wall:.3f} s, against each replica alone "
+        f"through the single device's eager superstep: every field and step time bit for "
+        f"bit; events {events}; launches {launches}; plain calls {plain_calls}")
+    return dict(replicas=ENSEMBLE_B, steps=REPLICA_STEPS, events=events, launches=launches,
+                plain_calls=plain_calls, wall_s=wall, bit_equal=True)
 
 
 def replicate_path(out_root, device="cuda", n_sites=N_SITES):
@@ -4996,16 +5168,15 @@ def replicate_path(out_root, device="cuda", n_sites=N_SITES):
         if cuda:
             row_rec = pair_rows_checks(rows_sim.geom, rows_sim.params, rows_sim.state)
             del rows_sim
-            summary["replica_axis"] = replica_axis_check(
+            summary["replica_axis"], summary["mesh2d"] = replica_axis_check(
                 out_root, make_mesh(1, device=device, axis_names=("batch",)))
             torch.cuda.empty_cache()
-            for dec in ("replicate", "halo"):
-                resume_check(f"small stack over a mesh of 1 rank, {dec}",
-                             lambda t, dec=dec: small_device(
-                                 device, os.path.join(out_root, f"mesh_ckpt_{dec}_{t}"),
-                                 mesh=mesh, decomposition=dec, poisson_compact_cap=-1),
-                             2.5, out_root)
-            summary["checkpoints"] = ["replicate", "halo"]
+            summary["checkpoints"] = {
+                dec: resume_check(f"small stack over a mesh of 1 rank, {dec}",
+                                  lambda t, dec=dec: small_device(
+                                      device, os.path.join(out_root, f"mesh_ckpt_{dec}_{t}"),
+                                      mesh=mesh, decomposition=dec, poisson_compact_cap=-1),
+                                  2.5, out_root) for dec in ("replicate", "halo")}
         summary["seconds"] = round(time.perf_counter() - t_phase, 1)
         log(f"  phase 13 in {summary['seconds']} s")
     finally:
@@ -5021,6 +5192,9 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # the checkpoint groups' gloo transport over the loopback device: every
+    # rank of this script runs on one host
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     from devicekmc_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
@@ -5085,8 +5259,13 @@ def main():
     small_modular_check(out_root)
     modular_launches = modular_path(out_root, run[0])
     torch.cuda.empty_cache()
-    small_resume_checks(out_root)
-    crossbar_resume_checks(out_root)
+    ckpt_small, ckpt_small_launches = small_resume_checks(out_root)
+    ckpt_crossbar, ckpt_crossbar_launches = crossbar_resume_checks(out_root)
+    for name in ("ell_gather_batched", "poisson_pairwise_batched", "kmc_event_loop_batched"):
+        check(ckpt_crossbar_launches[name] > 0, f"checkpoint runs: {name} never launched")
+    check(ckpt_small_launches["wkb_window_block"] > 0
+          and ckpt_small_launches["wkb_fly_matvec"] + ckpt_small_launches["wkb_fly_matvec_out"]
+          > 0, f"checkpointed transport runs: launches {ckpt_small_launches}")
     torch.cuda.empty_cache()
     bf16_record, bf16_launches = bf16_transport_path(out_root, steps)
     torch.cuda.empty_cache()
@@ -5180,6 +5359,13 @@ def main():
         f"{len(empty_traces)} {empty_traces}; launches in the traces of the profiled calls "
         f"against their counts: {traced_totals()}")
     lap("boundary cg kernels, records")
+    for k in kernels:
+        if k["name"] in ckpt_small_launches:
+            k["launches_checkpoint_path"] = {
+                "small stack with transport": ckpt_small_launches[k["name"]],
+                "crossbar headline": ckpt_crossbar_launches[k["name"]]}
+        if k["name"] in replicate["mesh2d"]["launches"]:
+            k["launches_mesh2d_path"] = replicate["mesh2d"]["launches"][k["name"]]
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -5187,7 +5373,10 @@ def main():
     print(json.dumps({"seconds": laps, "replicate": {
         tag: {k: replicate[tag][k] for k in ("ms_replicate", "ms_single", "phase_ms",
                                              "phase_ms_single", "events")}
-        for tag in REPLICATE_RUNS}, "replicate_seconds": replicate["seconds"]}), flush=True)
+        for tag in REPLICATE_RUNS}, "replicate_seconds": replicate["seconds"],
+        "mesh2d": replicate["mesh2d"], "checkpoints": {
+            "small stack with transport": ckpt_small, "crossbar headline": ckpt_crossbar,
+            "mesh of 1 rank": replicate["checkpoints"]}}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

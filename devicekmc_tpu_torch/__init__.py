@@ -11,11 +11,14 @@ on-the-fly WKB products, the window-integral block, the event loop and the
 boundary CG iteration as hand-written CUDA kernels (``csrc/``).  The
 headline configuration runs each superstep, batch and ensemble call as one
 captured CUDA graph (``superstep.SuperstepGraph``).  Over several cards
-(``parallel.make_mesh``, one process a card under ``torchrun``) the
-headline superstep runs as a halo-exchange domain decomposition
-(``Simulation(cfg, mesh=mesh, decomposition="halo")``); its transport and
-the replicated decomposition are not ported yet.  ``postprocessing`` and
-``io`` are the JAX package's log parsers, plots and matrix dumps.
+(``parallel.make_mesh``, one process a card under ``torchrun``) one
+structure runs as the replicated decomposition (``Simulation(cfg,
+mesh=mesh)``) or the halo-exchange one (``decomposition="halo"``), and an
+ensemble's replicas split along ``"batch"`` (with each replica's sites
+along ``"sites"`` on a 2-D mesh).  Checkpoints are npz files, which the JAX
+package reads too, or ``torch.distributed.checkpoint`` directories, written
+in place or in the background.  ``postprocessing`` and ``io`` are the JAX
+package's log parsers, plots and matrix dumps.
 
 Quick start::
 

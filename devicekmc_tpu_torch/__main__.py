@@ -9,14 +9,17 @@ dense`` or ``cg``) the dissipated power and the temperature; ``batch_steps >
 1`` runs the supersteps in batches.
 
     python -m devicekmc_tpu_torch parameters.txt [--cpu] [--max-steps N]
-        [--modular] [--resume ck.npz] [--checkpoint ck.npz]
+        [--modular] [--resume CK] [--checkpoint CK]
+        [--checkpoint-backend npz | dcp | dcp_async]
 
 ``--modular`` runs the superstep phase by phase with the reference's
 per-module timing keys (and, with ``solver_chunk_iters > 0``, the
 in-superstep re-solves in bounded segments); ``--resume`` loads a full-state
-checkpoint (of this package or of the JAX package) before the run and
-``--checkpoint`` writes one after it (npz).  Runs on the CUDA card unless
-``--cpu`` is given.
+checkpoint (an npz of this package or of the JAX package, or a dcp
+directory of this package) before the run and ``--checkpoint`` writes one
+after it and waits for its write (npz for a ``*.npz`` path, else a
+``torch.distributed.checkpoint`` directory; ``--checkpoint-backend``
+chooses).  Runs on the CUDA card unless ``--cpu`` is given.
 """
 
 import argparse
@@ -36,8 +39,9 @@ def main(argv=None):
                     help="per-phase timing (reference-style module timers)")
     ap.add_argument("--checkpoint", default="",
                     help="write a full-state checkpoint here at the end")
-    ap.add_argument("--checkpoint-backend", default=None, choices=["npz"],
-                    help="checkpoint format (npz, the only one)")
+    ap.add_argument("--checkpoint-backend", default=None,
+                    choices=["npz", "dcp", "dcp_async"],
+                    help="checkpoint format (default: npz for *.npz, else dcp)")
     ap.add_argument("--resume", default="",
                     help="load a full-state checkpoint before running")
     args = ap.parse_args(argv)
@@ -67,6 +71,7 @@ def main(argv=None):
     sim.run(max_steps_per_bias=args.max_steps)
     if args.checkpoint:
         sim.save_checkpoint(args.checkpoint, backend=args.checkpoint_backend)
+        sim.wait_for_checkpoint()
     print(f"Done. Output in {sim.output_path}")
     return 0
 

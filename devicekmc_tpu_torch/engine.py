@@ -16,13 +16,16 @@ Two superstep forms: ``fused=True`` runs ``superstep.superstep_impl`` whole;
 phases and logs the reference's per-module times (``Z - calculation time -
 <phase> [s]``, src/kmc_main.cpp:272-277), and with ``solver_chunk_iters > 0``
 runs the in-superstep boundary and transport re-solves and the local cg heat
-model in bounded segments.  A full-state npz checkpoint
+model in bounded segments.  A full-state checkpoint
 (:meth:`Simulation.save_checkpoint`) resumes a run bit for bit, also in the
-middle of a bias point; the JAX package reads and writes the same file.
+middle of a bias point: an npz file, which the JAX package reads and writes
+too, or a ``torch.distributed.checkpoint`` directory, written in place or in
+the background (the counterparts of the JAX package's orbax backends).
 
 With a mesh (``parallel.make_mesh``) every rank runs the same bias loop, a
 superstep a call, no batches and no graph, and only rank 0 writes
-output.txt, the snapshots and checkpoints.  ``decomposition="replicate"``
+output.txt, the snapshots and npz checkpoints (every rank writes its part
+of a directory checkpoint).  ``decomposition="replicate"``
 (the default) keeps the whole state on every rank and splits the phases
 that read pair arrays by site rows (``parallel.sharding``);
 ``decomposition="halo"`` gives each rank its x-slab of the sites
@@ -60,6 +63,13 @@ from .superstep import (  # noqa: F401  (the JAX package's engine names)
 #: metrics kept in ``step_log`` but not written to output.txt, whose keys are
 #: those of the JAX package
 _UNLOGGED = {"boundary_converged", "transport_partial_assembly"}
+
+#: the checkpoint backends: one npz file in the JAX package's layout, a
+#: ``torch.distributed.checkpoint`` directory, the same written in the
+#: background
+CHECKPOINT_BACKENDS = ("npz", "dcp", "dcp_async")
+#: the JAX package's orbax backends, and their counterparts here
+JAX_BACKENDS = {"orbax": "dcp", "orbax_async": "dcp_async"}
 
 def make_superstep(geom, params, heat, graph: Optional[SuperstepGraph] = None):
     """The superstep as one call.  Returns ``superstep(state, Vd, cc=None) ->
@@ -168,10 +178,12 @@ class Simulation:
     every superstep over the ranks, and no cold transport pre-solve.
 
     Under either decomposition :meth:`save_checkpoint` and
-    :meth:`load_checkpoint` are collectives that every rank calls: rank 0
-    writes the whole padded state, and every rank reads it (its slab of it
-    under halo); a checkpoint resumes on a run of the same world size and
-    decomposition."""
+    :meth:`load_checkpoint` are collectives that every rank calls: for npz
+    rank 0 writes the whole padded state, and every rank reads it (its slab
+    of it under halo); for a dcp directory every rank writes and reads its
+    part (under halo its slab of each site field, nothing gathered); a
+    checkpoint resumes on a run of the same world size and decomposition.
+    The mesh must be 1-D along ``"sites"``: a 2-D mesh raises."""
 
     #: the checkpoint's state fields and grown caps, under the JAX package's
     #: names (devicekmc_tpu/engine.py), so that both read one npz
@@ -207,7 +219,11 @@ class Simulation:
             if decomposition not in ("halo", "replicate"):
                 raise ValueError(f"unknown decomposition {decomposition!r}; expected "
                                  "'halo' or 'replicate'")
-            mesh.require_axis("sites", f"decomposition={decomposition!r}")
+            if len(mesh.axis_names) != 1:
+                raise ValueError(f"Simulation runs on a 1-D mesh along 'sites' (the JAX "
+                                 f"package's engine.py:310); this mesh's axes are "
+                                 f"{mesh.axis_names}")
+            mesh.axis("sites")
             if device is not None and torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device!r} differs from the mesh's {mesh.device}")
             device = mesh.device
@@ -266,6 +282,8 @@ class Simulation:
         #: the JAX state's step_count, which nothing advances: carried
         #: through a checkpoint as read
         self._step_count = 0
+        #: the in-flight dcp_async write (a Future; wait_for_checkpoint)
+        self._pending_save = None
 
     def _init_transport(self):
         """Resolve the transport options that depend on the structure: the
@@ -701,12 +719,12 @@ class Simulation:
 
         return self.decomposition == "halo" and f in STATE_SITE_FIELDS
 
-    def _checkpoint_payload(self) -> Dict:
+    def _checkpoint_payload(self, gather: bool = True) -> Dict:
         """The npz payload, laid out as the JAX package writes it: per-site
         fields as arrays (the whole padded structure's: under halo gathered
-        from the slabs, a collective), the host scalars as 0-d f64 arrays,
-        the key as uint32[2], the caps as ``cap_<name>``, the driver
-        position."""
+        from the slabs, a collective; with ``gather=False`` this rank's
+        slab), the host scalars as 0-d f64 arrays, the key as uint32[2], the
+        caps as ``cap_<name>``, the driver position."""
         st = self.state
         p = {}
         for f in self._CKPT_STATE_FIELDS:
@@ -716,7 +734,7 @@ class Simulation:
                 p[f] = np.asarray(st.key, dtype=np.uint32)
             else:
                 v = getattr(st, f)
-                if self._site_slab(f):
+                if gather and self._site_slab(f):
                     v = self.mesh.comm.all_gather(v)
                 p[f] = v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v, np.float64)
         for f in self._CKPT_CAP_FIELDS:
@@ -725,7 +743,19 @@ class Simulation:
         p["pos_bias_step"] = np.asarray(self._pos[1])
         return p
 
-    def _restore_payload(self, data: Dict):
+    @staticmethod
+    def _shape_error(f: str, got, want) -> ValueError:
+        # another structure, or the same padded for another mesh
+        return ValueError(
+            f"checkpoint field {f!r} has shape {tuple(got)}, this simulation's is "
+            f"{tuple(want)}: not a checkpoint of this structure padded as this run pads it "
+            "(a checkpoint resumes on a run of the same world size and decomposition)")
+
+    def _restore_payload(self, data: Dict, whole: bool = True):
+        """Restore a payload of :meth:`_checkpoint_payload`'s names (the
+        fields it holds).  ``whole``: under halo the site fields are the
+        whole structure's (npz; this rank cuts its slab), else this rank's
+        slab already (dcp)."""
         kw, caps = {}, {}
         for f, arr in data.items():
             if f.startswith("cap_"):
@@ -744,17 +774,13 @@ class Simulation:
                     kw[f] = float(arr)
                     continue
                 a = np.asarray(arr)
+                cut = whole and self._site_slab(f)
                 want = tuple(cur.shape)
-                if self._site_slab(f):
+                if cut:
                     want = (self.geom.N,) + want[1:]
                 if a.shape != want:
-                    # another structure, or the same padded for another mesh
-                    raise ValueError(
-                        f"checkpoint field {f!r} has shape {a.shape}, this "
-                        f"simulation's is {want}: not a checkpoint of this structure "
-                        "padded as this run pads it (a checkpoint resumes on a run of "
-                        "the same world size and decomposition)")
-                if self._site_slab(f):
+                    raise self._shape_error(f, a.shape, want)
+                if cut:
                     S = self.geom.N // self.mesh.world
                     a = a[self.mesh.rank * S:(self.mesh.rank + 1) * S]
                 kw[f] = torch.as_tensor(a, device=self.device).to(cur.dtype)
@@ -771,44 +797,134 @@ class Simulation:
         self.state = attach_tunnel_state(self.state, self.geom, self.params)
 
     @staticmethod
-    def _check_backend(path: str, backend: Optional[str]):
-        """npz only: the JAX package's default for a path that is not *.npz,
-        orbax, raises here, as do its orbax backends."""
+    def _resolve_backend(path: str, backend: Optional[str]) -> str:
+        """``backend``, by default "npz" for a ``*.npz`` path and "dcp" for
+        any other (the JAX package's default is orbax there); the JAX
+        package's orbax backends raise, naming their counterparts."""
         if backend is None:
-            backend = "npz" if path.endswith(".npz") else "orbax"
-        if backend in ("orbax", "orbax_async"):
+            backend = "npz" if path.endswith(".npz") else "dcp"
+        if backend in JAX_BACKENDS:
             raise ValueError(
-                f"checkpoint backend {backend!r} is not available in this "
-                "package: it writes and reads npz only (a path ending in .npz, "
-                "or backend='npz')")
-        if backend != "npz":
-            raise ValueError(f"unknown checkpoint backend {backend!r}")
+                f"checkpoint backend {backend!r} is the JAX package's orbax format, which this "
+                f"package neither writes nor reads; its counterpart here is "
+                f"{JAX_BACKENDS[backend]!r} (a torch.distributed.checkpoint directory), and "
+                "both packages read npz (a path ending in .npz, or backend='npz')")
+        if backend not in CHECKPOINT_BACKENDS:
+            raise ValueError(f"unknown checkpoint backend {backend!r}; expected one of "
+                             f"{CHECKPOINT_BACKENDS}")
+        return backend
+
+    def _dcp_state_dict(self) -> Dict:
+        """The payload as a ``torch.distributed.checkpoint`` state dict under
+        the npz's names: host tensors, copies (a background write runs while
+        the state moves on; in graph mode ``state`` is a view of the graph's
+        buffers).  Under halo each site field is a ``DTensor`` of this
+        rank's slab, sharded on dim 0 over the checkpoint group, so each rank
+        writes and reads only its slab; under the replicated decomposition
+        every rank holds the same tensors and DCP writes one copy."""
+        sd = {f: torch.from_numpy(np.array(a)) for f, a in
+              self._checkpoint_payload(gather=False).items()}
+        if self.decomposition == "halo":
+            from torch.distributed.device_mesh import DeviceMesh
+            from torch.distributed.tensor import DTensor, Shard
+
+            slabs = DeviceMesh.from_group(self.mesh.cpu_group(), "cpu")
+            for f, t in sd.items():
+                if self._site_slab(f):
+                    shape = (self.geom.N,) + tuple(t.shape[1:])
+                    sd[f] = DTensor.from_local(t, slabs, [Shard(0)], run_check=False,
+                                               shape=torch.Size(shape),
+                                               stride=torch.empty(shape, device="meta").stride())
+        return sd
+
+    def _dcp(self, op, sd: Dict, path: str):
+        """``op`` (``dcp.save``, ``dcp.async_save`` or ``dcp.load``) of ``sd``
+        at the directory ``path`` (a save overwrites it, as the JAX package's
+        orbax saves force): under a mesh over the mesh's gloo checkpoint
+        group (``Mesh.cpu_group``: a CPU backend, apart from the superstep's
+        collectives), else in one process."""
+        import torch.distributed.checkpoint as dcp
+
+        kw = (dict(checkpoint_id=path) if op is dcp.load
+              else dict(storage_writer=dcp.FileSystemWriter(path, overwrite=True)))
+        if self.mesh is not None:
+            return op(sd, process_group=self.mesh.cpu_group(), **kw)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+            return op(sd, no_dist=True, **kw)
 
     def save_checkpoint(self, path: str, backend: Optional[str] = None):
         """Full-state checkpoint: the state fields, the grown caps and the
         driver position (bias index, step), enough for a bit-exact resume
-        also in the middle of a bias point.  npz only (``backend`` "npz",
-        the default for a ``*.npz`` path; an orbax backend raises).  Under a
-        mesh a collective that every rank calls: rank 0 writes the whole
-        padded state, and no rank returns before the file is written."""
-        self._check_backend(path, backend)
-        payload = self._checkpoint_payload()
-        if self._writer:
-            np.savez(path, **payload)
-        if self.mesh is not None:
-            self.mesh.comm.barrier()
+        also in the middle of a bias point.  ``backend`` (JAX
+        ``engine.py:956-986``): "npz" (one file in the JAX package's layout,
+        the default for a ``*.npz`` path), "dcp" (a
+        ``torch.distributed.checkpoint`` directory, the default for any other
+        path: the counterpart of the JAX package's orbax) or "dcp_async"
+        (the payload copied to the host before this returns, the directory
+        written in the background while the run goes on: the counterpart of
+        orbax_async; :meth:`wait_for_checkpoint` blocks on the write).  A
+        save first waits for an earlier background write.
+
+        Under a mesh a collective that every rank calls.  npz: rank 0 writes
+        the whole padded state (under halo gathered from the slabs), and no
+        rank returns before the file is written.  dcp: every rank writes in
+        parallel, under halo only its slab of each site field (no gather),
+        and the directory is whole when the save (for dcp_async: the wait)
+        returns on any rank."""
+        backend = self._resolve_backend(path, backend)
+        self.wait_for_checkpoint()
+        if backend == "npz":
+            payload = self._checkpoint_payload()
+            if self._writer:
+                np.savez(path, **payload)
+            if self.mesh is not None:
+                self.mesh.comm.barrier()
+            return
+        import torch.distributed.checkpoint as dcp
+
+        op = dcp.save if backend == "dcp" else dcp.async_save
+        pending = self._dcp(op, self._dcp_state_dict(), path)
+        if backend == "dcp_async":
+            self._pending_save = pending
 
     def load_checkpoint(self, path: str, backend: Optional[str] = None):
-        """Restore a checkpoint of this package or of the JAX package.  Under
-        a mesh every rank reads the file (under halo it keeps its slab of
-        each site field); the file holds the structure padded as this run
-        pads it (the same world size and decomposition)."""
-        self._check_backend(path, backend)
-        with np.load(path) as data:
-            self._restore_payload({f: data[f] for f in data.files})
+        """Restore a checkpoint: an npz of this package or of the JAX
+        package, or a dcp directory of this package (``backend`` "dcp" or
+        "dcp_async", which read alike; the defaults as in
+        :meth:`save_checkpoint`).  Waits first for a background write, which
+        may be the checkpoint being loaded (JAX ``engine.py:998-1013``).
+        Under a mesh every rank reads (under halo it keeps, or from a dcp
+        directory reads, only its slab of each site field); the checkpoint
+        holds the structure padded as this run pads it (the same world size
+        and decomposition)."""
+        backend = self._resolve_backend(path, backend)
+        self.wait_for_checkpoint()
+        if backend == "npz":
+            with np.load(path) as data:
+                self._restore_payload({f: data[f] for f in data.files})
+            return
+        import torch.distributed.checkpoint as dcp
+        from torch.distributed.tensor import DTensor
+
+        # dcp.load fills the state dict in place: this run's own payload,
+        # the fields the directory holds, each of the directory's shape
+        saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+        sd = {f: t for f, t in self._dcp_state_dict().items() if f in saved}
+        for f, t in sd.items():
+            if tuple(saved[f].size) != tuple(t.shape):
+                raise self._shape_error(f, saved[f].size, t.shape)
+        self._dcp(dcp.load, sd, path)
+        self._restore_payload({f: (t.to_local() if isinstance(t, DTensor) else t).numpy()
+                               for f, t in sd.items()}, whole=False)
 
     def wait_for_checkpoint(self):
-        """Nothing to wait for: every save is written before it returns."""
+        """Block until an in-flight dcp_async save has written its directory
+        (JAX ``engine.py:992-996``); no-op when none is pending.  A write
+        that failed raises here."""
+        pending, self._pending_save = self._pending_save, None
+        if pending is not None:
+            pending.result()
 
     # -- main loop -------------------------------------------------------
     def run(self, max_steps_per_bias: Optional[int] = None) -> None:
@@ -831,6 +947,7 @@ class Simulation:
                 break
             self._pos = (vt + 1, 0)
         self._flush()
+        self.wait_for_checkpoint()
 
     def run_bias_point(self, Vd: float, t_end: float,
                        max_steps: Optional[int] = None, resume_step: int = 0) -> Dict:

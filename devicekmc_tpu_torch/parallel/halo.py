@@ -48,9 +48,11 @@ def make_halo_laplace_solver(mesh: Mesh, halo: int, tol: float = 1e-10,
     ``x0`` [S]) and the contact potentials, and returns this rank's slab of
     the potential and the iteration count, the same on every rank.  Jacobi
     CG with criterion "r" (``ops.cg.cg_solve``), every dot product summed
-    over the ranks."""
+    over the ranks of the mesh's ``"sites"`` axis."""
     from ..physics.potential import _dirichlet_laplace_solve
     from .halo_superstep import _Shard
+
+    mesh = mesh.axis("sites")
 
     def solver(edge_g, neigh_idx, interior, is_left, is_right, x0, v_left, v_right):
         phi, res = _dirichlet_laplace_solve(

@@ -79,7 +79,9 @@ def shard_halo_simulation(geom: Geometry, state: SimState, mesh: Mesh
                           ) -> Tuple[Geometry, SimState]:
     """This rank's slab ``[r·S, (r+1)·S)`` of every per-site field (copies on
     the rank's device) and the other fields whole.  ``neigh_idx`` keeps its
-    global indices, and ``N`` stays the whole structure's."""
+    global indices, and ``N`` stays the whole structure's.  The slabs run
+    along the mesh's ``"sites"`` axis."""
+    mesh = mesh.axis("sites")
     if geom.N % mesh.world:
         raise ValueError(f"{geom.N} sites do not split over {mesh.world} ranks (pad_to)")
     S = geom.N // mesh.world
@@ -100,6 +102,7 @@ def shard_heat_model(heat: heat_mod.HeatModel, n_sites: int, mesh: Mesh
     """This rank's slab of every field of the heat model with one row a
     site (the JAX package's ``site_axis_specs``), the others whole, on the
     rank's device."""
+    mesh = mesh.axis("sites")
     S = n_sites // mesh.world
     lo = mesh.rank * S
     kw = {f: (v[lo:lo + S] if v.dim() and v.shape[0] == n_sites else v).to(mesh.device)
@@ -450,6 +453,7 @@ def make_halo_superstep(geom: Geometry, params: PhysParams, heat, mesh: Mesh, ha
     if params.solve_current and (ts is None or sizes is None):
         raise ValueError("halo transport needs the static tables from "
                          "halo_transport.build_transport_static")
+    mesh = mesh.axis("sites")
     S = geom.neigh_idx.shape[0]
     if S * mesh.world != geom.N:
         raise ValueError("the geometry is not this rank's slab (shard_halo_simulation)")
@@ -479,6 +483,8 @@ def make_halo_cc_cache(geom: Geometry, mesh: Mesh, ts, sizes):
     assemble_transport_cache`` over the ranks): ``fn(params, state) ->`` this
     rank's ``[Smp, n_mp_pad]`` rows of the metal_p x metal_p block, for
     ``cc={"cc": rows}`` (valid while the CB edge is: a bias point)."""
+    mesh = mesh.axis("sites")
+
     def build(params: PhysParams, state: SimState) -> torch.Tensor:
         return halo_cc_rows(geom, params, mesh.comm, ts, sizes, state.element, state.charge,
                             state.CB_edge)

@@ -69,7 +69,8 @@ def build_transport_static(geom: Geometry, params: PhysParams, elements: np.ndar
     ``n_mp_pad`` (``mp_list``, ``mp_ok``, ``mp_inv``) whole.  ``elements``
     fixes the metal flags (no event makes or removes a metal).  Returns
     ``(tables, sizes)``: ``Na, Sa, Na_pad, n_mp, Smp, n_mp_pad``, each chunk
-    rounded up to 8."""
+    rounded up to 8.  The rows run along the mesh's ``"sites"`` axis."""
+    mesh = mesh.axis("sites")
     world, rank = mesh.world, mesh.rank
     Na = int(geom.N_atom)
     ai = geom.atom_ind.cpu().numpy()

@@ -1,14 +1,15 @@
 """The mesh of the port's multi-card layers: one process a card, over
 ``torch.distributed``, the port of ``devicekmc_tpu/parallel/mesh.py``.
 
-The JAX package's mesh is a 1-D array of devices along the ``"sites"`` axis
-that one program drives.  Here each rank is a process that drives its own
-card (NCCL) or its own CPU (gloo), and :class:`Mesh` holds what a rank needs
-to know of the others: the process group, its rank, the world size, its
-device and the mesh's one axis (``"sites"`` or ``"batch"``).
-:class:`Communicator` carries the collectives of the halo and replicated
-paths (the neighbour exchange, sums and gathers) and counts its calls by
-kind.
+The JAX package's mesh is an array of devices that one program drives,
+along ``"sites"``, ``"batch"`` or both.  Here each rank is a process that
+drives its own card (NCCL) or its own CPU (gloo), and :class:`Mesh` holds
+what a rank needs to know of the others: the process group, its rank, the
+world size, its device, the mesh's axes and shape, and for a 2-D
+``("batch", "sites")`` mesh the 1-D view of each axis (:meth:`Mesh.axis`,
+over a sub-group).  :class:`Communicator` carries the collectives of the
+halo and replicated paths (the neighbour exchange, sums and gathers) and
+counts its calls by kind.
 
 A world of one rank needs no launcher: :func:`make_mesh` then starts a
 one-process group itself.  A larger world is started by ``torchrun``
@@ -20,8 +21,9 @@ from __future__ import annotations
 import datetime
 import os
 from collections import Counter
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -133,38 +135,93 @@ class Communicator:
         return torch.cat([left, x, right])
 
 
-#: the 1-D meshes of the port: the site axis (the replicated and halo
+#: the axes of the port's meshes: the site axis (the replicated and halo
 #: decompositions of one structure) and the replica axis (``parallel.batched``)
 AXES = ("sites", "batch")
 
 
-class Mesh:
-    """One rank's view of a 1-D mesh of ``world`` ranks along its one axis,
-    ``axis_names`` (``("sites",)`` or ``("batch",)``): the process group,
-    this rank, the world size, this rank's device and its
-    :class:`Communicator`."""
+def _check_axes(axis_names: Tuple[str, ...]):
+    if not 1 <= len(axis_names) <= 2 or len(set(axis_names)) != len(axis_names):
+        raise ValueError(f"a mesh of axes {axis_names}: the port's meshes have one axis or "
+                         f"two distinct ones, of {AXES}")
+    for name in axis_names:
+        if name not in AXES:
+            raise ValueError(f"unknown mesh axis {name!r}; expected one of {AXES}")
 
-    def __init__(self, group, device: torch.device, axis_names: Tuple[str, ...] = ("sites",)):
+
+def _lines(shape: Tuple[int, ...], dim: int) -> List[List[int]]:
+    """The mesh ranks of each line along ``dim`` of a row-major mesh of
+    ``shape``: the ranks that share every other coordinate, in order."""
+    grid = np.arange(int(np.prod(shape))).reshape(shape)
+    return [list(map(int, line)) for line in np.moveaxis(grid, dim, -1).reshape(-1, shape[dim])]
+
+
+class Mesh:
+    """One rank's view of a mesh of ``world`` ranks with one axis or two,
+    ``axis_names`` (of ``"sites"`` and ``"batch"``) of sizes ``shape``: the
+    process group, this rank, the world size, this rank's device and its
+    :class:`Communicator` over the whole mesh.  Mesh rank r sits at
+    ``numpy.unravel_index(r, shape)``, row-major, as the JAX package
+    reshapes its device list (``devicekmc_tpu/parallel/mesh.py:43-46``).
+
+    :meth:`axis` gives the 1-D view of one axis: a mesh over the sub-group
+    of the ranks that share this rank's other coordinate (its rank there is
+    this rank's coordinate along the axis).  A 2-D mesh makes
+    the sub-groups of both axes when it is made (every rank makes every
+    sub-group, in the same order: ``dist.new_group`` is collective over the
+    world)."""
+
+    def __init__(self, group, device: torch.device, axis_names: Tuple[str, ...] = ("sites",),
+                 shape: Optional[Sequence[int]] = None):
         axis_names = tuple(axis_names)
-        if len(axis_names) != 1:
-            raise NotImplementedError(
-                f"a mesh of axes {axis_names}: the port's meshes are 1-D, ('sites',) or "
-                "('batch',); the 2-D ('batch', 'sites') mesh is not ported yet (ROADMAP §1 "
-                "item 5)")
-        if axis_names[0] not in AXES:
-            raise ValueError(f"unknown mesh axis {axis_names[0]!r}; expected one of {AXES}")
+        _check_axes(axis_names)
         self.axis_names = axis_names
         self.group = group
         self.device = device
         self.comm = Communicator(group, device)
         self.rank = self.comm.rank
         self.world = self.comm.world
+        if shape is None:
+            shape = [self.world] + [1] * (len(axis_names) - 1)
+        self.shape = tuple(int(n) for n in shape)
+        if len(self.shape) != len(axis_names) or int(np.prod(self.shape)) != self.world:
+            raise ValueError(f"a mesh of shape {self.shape} over axes {axis_names} needs "
+                             f"{int(np.prod(self.shape))} ranks; the process group has "
+                             f"{self.world}")
+        #: the global ranks of every line of this mesh's axis (a 1-D mesh:
+        #: its own ranks; an axis view: each line of its parent's axis)
+        self.lines = [list(self.comm._peer)]
+        self._cpu_group = None
+        self._views = {}
+        if len(axis_names) == 1:
+            self._views[axis_names[0]] = self
+            return
+        for dim, name in enumerate(axis_names):
+            lines = [[self.comm._peer[r] for r in line] for line in _lines(self.shape, dim)]
+            sub, _ = dist.new_subgroups_by_enumeration(lines)
+            view = Mesh(sub, device, (name,))
+            view.lines = lines
+            self._views[name] = view
 
-    def require_axis(self, axis: str, what: str):
-        """Raise ValueError unless the mesh runs along ``axis``."""
-        if axis not in self.axis_names:
-            raise ValueError(f"{what} needs a mesh along {axis!r}; this mesh's axes are "
-                             f"{self.axis_names} (make_mesh(axis_names=({axis!r},)))")
+    def axis(self, name: str) -> "Mesh":
+        """The 1-D mesh along ``name`` that holds this rank: itself on a 1-D
+        mesh along ``name``.  Raises ValueError when the mesh has no such
+        axis."""
+        if name not in self._views:
+            raise ValueError(f"this needs a mesh along {name!r}; this mesh's axes are "
+                             f"{self.axis_names} (make_mesh(axis_names=({name!r},)))")
+        return self._views[name]
+
+    def cpu_group(self):
+        """A gloo group over this mesh's ranks, for collectives that run on
+        the host beside the mesh's own (checkpoints, whose background writes
+        must not interleave with a superstep's collectives on the mesh's
+        group).  Made at the first call, which is collective over the world:
+        every rank calls it at once (on an axis view, the ranks of every line
+        of the axis), and every line gets its group."""
+        if self._cpu_group is None:
+            self._cpu_group, _ = dist.new_subgroups_by_enumeration(self.lines, backend="gloo")
+        return self._cpu_group
 
 
 def _local_rank() -> int:
@@ -172,17 +229,21 @@ def _local_rank() -> int:
 
 
 def make_mesh(n_devices: Optional[int] = None, device="cuda",
-              axis_names: Tuple[str, ...] = ("sites",),
+              axis_names: Tuple[str, ...] = ("sites",), shape: Optional[Sequence[int]] = None,
               timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> Mesh:
     """This rank's mesh over the default process group, along
     ``axis_names`` (``("sites",)``: one structure's sites, the default;
-    ``("batch",)``: the replicas of an ensemble): NCCL for
-    ``device="cuda"`` (the rank's card is ``cuda:LOCAL_RANK``), gloo for
-    ``"cpu"``.  Without a process group, one is started from torchrun's
-    environment (``multihost.initialize``), or, without that either, as a
-    world of one process.  ``n_devices`` (default: the world size) must equal
-    the world size; an existing group of another backend than the device's
-    raises.  Nothing falls back to another device or backend."""
+    ``("batch",)``: the replicas of an ensemble; ``("batch", "sites")``:
+    replicas over the first axis, each replica's sites over the second) of
+    sizes ``shape`` (default ``[world] + [1] * (len(axis_names) - 1)``, as
+    the JAX package's ``make_mesh``): NCCL for ``device="cuda"`` (the rank's
+    card is ``cuda:LOCAL_RANK``), gloo for ``"cpu"``.  Without a process
+    group, one is started from torchrun's environment
+    (``multihost.initialize``), or, without that either, as a world of one
+    process.  ``n_devices`` (default: the world size) must equal the world
+    size, and so must the product of ``shape``; an unknown axis or an
+    existing group of another backend than the device's raises ValueError.
+    Nothing falls back to another device or backend."""
     from . import multihost
 
     dev_type = torch.device(device).type
@@ -204,4 +265,4 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda",
     if n_devices is not None and n_devices != world:
         raise ValueError(f"make_mesh: need {n_devices} devices, the process group has "
                          f"{world} ranks (one device a rank)")
-    return Mesh(dist.group.WORLD, dev, axis_names)
+    return Mesh(dist.group.WORLD, dev, axis_names, shape)

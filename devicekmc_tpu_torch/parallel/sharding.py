@@ -68,8 +68,9 @@ _CHARGE_KEYS = ("Charged vacancies", "Uncharged vacancies", "Charged oxygen ions
 
 
 def row_range(n_sites: int, mesh: Mesh) -> Tuple[int, int]:
-    """(first row, rows) of this rank: ``[r·S, (r+1)·S)``, ``S = n_sites /
-    world``."""
+    """(first row, rows) of this rank along the mesh's ``"sites"`` axis:
+    ``[r·S, (r+1)·S)``, ``S = n_sites / W`` for W ranks along it."""
+    mesh = mesh.axis("sites")
     if n_sites % mesh.world:
         raise ValueError(f"{n_sites} sites do not split over {mesh.world} ranks "
                          "(build_simulation(pad_to=world))")
@@ -80,9 +81,8 @@ def row_range(n_sites: int, mesh: Mesh) -> Tuple[int, int]:
 def shard_simulation(geom: Geometry, state: SimState, mesh: Mesh
                      ) -> Tuple[Geometry, SimState]:
     """Place the geometry and the state on the mesh's device: this rank's rows
-    of the pair arrays (``GEOM_ROW_FIELDS``, copies), every other field
-    whole."""
-    mesh.require_axis("sites", "the replicated decomposition")
+    of the pair arrays (``GEOM_ROW_FIELDS``, copies) along the mesh's
+    ``"sites"`` axis, every other field whole."""
     lo, S = row_range(geom.N, mesh)
     kw = {f: getattr(geom, f)[lo:lo + S].to(mesh.device, copy=True) for f in GEOM_ROW_FIELDS}
     for f, v in vars(geom).items():
@@ -104,6 +104,7 @@ class _Rows(_Shard):
     global indices."""
 
     def __init__(self, geom: Geometry, mesh: Mesh):
+        mesh = mesh.axis("sites")
         if geom.neigh_valid.shape[0] * mesh.world != geom.N:
             raise ValueError("the geometry is not this rank's (shard_simulation)")
         lo, S = row_range(geom.N, mesh)
@@ -273,8 +274,10 @@ def make_sharded_superstep(geom: Geometry, params: PhysParams, heat, mesh: Mesh)
     geometry and state of :func:`shard_simulation`: ``superstep(state, Vd,
     cc=None) -> (state, step_time, metrics)``, the contract of
     ``engine.make_superstep``, run eagerly by every rank in step; every rank
-    returns the same state and metrics.  ``cc``: the bias point's transport
-    cache (``current.assemble_transport_cache``), whole on every rank;
+    returns the same state and metrics.  ``mesh``: a mesh with a
+    ``"sites"`` axis (on a 2-D mesh its ``"sites"`` view runs the rows).
+    ``cc``: the bias point's transport cache
+    (``current.assemble_transport_cache``), whole on every rank;
     ``heat``: the heat model, whole.  Its ``charge(state)`` and
     ``boundary(geom, params, state, Vd)`` (``superstep._phase_boundary``'s
     signature) are those phases alone, for the engine's cold pre-solve."""

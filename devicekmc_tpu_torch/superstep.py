@@ -533,7 +533,8 @@ class SuperstepGraph:
         self.ctl = self._hin[batch * cols:]
         self._staging = (torch.empty(self._hin.shape, dtype=torch.float64, pin_memory=True)
                          if self.device.type == "cuda" else None)
-        self.pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        #: the memory pool the graphs share (a new one for each set of graphs)
+        self.pool = None
         self.graphs: Dict = {}
         self.keys: Dict = {}
         self.checksums = None
@@ -618,6 +619,12 @@ class SuperstepGraph:
             # a new bias point: the graphs of the last one are not replayed again
             self.graphs = {k: v for k, v in self.graphs.items()
                            if k[2] == Vd and k[4] == id(self.cc)}
+            if not self.graphs and self.device.type == "cuda":
+                # no graph holds the pool now: a capture into a pool whose
+                # graphs were all freed fails PyTorch's allocator assert
+                # (use_count > 0) until the pool is released, so the next
+                # graphs take a new pool
+                self.pool = torch.cuda.graph_pool_handle()
             if self.params.solve_current:
                 if not (isinstance(self.cc, dict) and self.cc.get("band") is not None):
                     raise ValueError("the captured transport phase needs the bias point's "

@@ -2,8 +2,9 @@
 """Checkpoint / resume demo with the PyTorch port: interrupt a bias sweep
 mid-bias-point and resume it bit-exactly in a fresh Simulation.  The
 counterpart of examples/checkpoint_resume.py, with --device in place of
---cpu; the checkpoint is an npz file only (no --orbax), in the JAX package's
-layout, so either package reads the other's.
+--cpu and --dcp in place of --orbax: the checkpoint is an npz file in the
+JAX package's layout, which either package reads, or with --dcp a
+torch.distributed.checkpoint directory (the counterpart of orbax's).
 
 The checkpoint carries the full simulation state (elements, charges,
 fields, RNG key, KMC clock, solver warm starts) plus the driver position
@@ -11,7 +12,8 @@ fields, RNG key, KMC clock, solver warm starts) plus the driver position
 trajectory is identical to an uninterrupted run
 (tests/test_torch_checkpoint.py).
 
-Usage: python examples/checkpoint_resume_torch.py [--outdir OUT] [--device cuda | cpu]
+Usage: python examples/checkpoint_resume_torch.py [--outdir OUT] [--dcp]
+                                                 [--device cuda | cpu]
 """
 
 import argparse
@@ -24,6 +26,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--outdir", default="/tmp/dkmc_ckpt_demo_torch")
+    ap.add_argument("--dcp", action="store_true",
+                    help="a torch.distributed.checkpoint directory instead of npz")
     ap.add_argument("--device", default="cuda", help="the card (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -55,8 +59,8 @@ def main(argv=None):
     def sim_of(sub):
         return Simulation(mk(sub), elements=s.elements, coords=s.coords, device=args.device)
 
-    ckpt = os.path.join(args.outdir, "mid_bias.npz")
-    backend = "npz"
+    ckpt = os.path.join(args.outdir, "mid_bias" if args.dcp else "mid_bias.npz")
+    backend = "dcp" if args.dcp else "npz"
 
     # ---- phase 1: run 1 step of bias 0 and 2 steps of bias 1, checkpoint
     sim = sim_of("first")

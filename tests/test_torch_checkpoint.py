@@ -1,7 +1,10 @@
-"""Full-state checkpoint and resume in the port (npz): the round trip, a
+"""Full-state checkpoint and resume in the port: the round trip, a
 bit-exact resume through a bias boundary (per step and batched), a payload
-without the boundary residual, and the npz exchanged with the JAX package
-in both directions."""
+without the boundary residual, the npz exchanged with the JAX package in
+both directions; the dcp and dcp_async directory backends (the
+counterparts of the JAX package's orbax and orbax_async) against npz, a
+background write overlapped with supersteps, and the port resumed from its
+dcp directory beside the JAX package resumed from its orbax one."""
 
 import hashlib
 import os
@@ -195,24 +198,130 @@ def test_legacy_checkpoint_forces_full_solve(tmp_path):
 
 
 def test_checkpoint_rejects_orbax_and_other_structures(tmp_path):
-    """An orbax backend (and a path that is not *.npz, whose default it is)
-    raises a ValueError that names npz; a payload of another size (a JAX
-    geometry padded past N) raises on load."""
+    """A path that is not *.npz writes a dcp directory by default (the JAX
+    package's default there is orbax); an orbax backend raises a ValueError
+    that names its counterpart, dcp or dcp_async, and npz; a payload of
+    another size (a JAX geometry padded past N) raises on load."""
+    import torch.distributed.checkpoint as dcp
+
     cfg, s = _make_cfg(tmp_path)
     sim = _sim(cfg, s)
-    for path, backend in ((str(tmp_path / "ck"), None),
-                          (str(tmp_path / "ck"), "orbax"),
-                          (str(tmp_path / "ck.npz"), "orbax_async")):
-        with pytest.raises(ValueError, match="npz"):
+    sim.save_checkpoint(str(tmp_path / "ck"))
+    saved = dcp.FileSystemReader(str(tmp_path / "ck")).read_metadata().state_dict_metadata
+    assert set(saved) == set(sim._checkpoint_payload())
+    for path, backend, twin in ((str(tmp_path / "ck"), "orbax", "dcp"),
+                                (str(tmp_path / "ck.npz"), "orbax_async", "dcp_async")):
+        with pytest.raises(ValueError, match=f"'{twin}'.*npz"):
             sim.save_checkpoint(path, backend=backend)
-        with pytest.raises(ValueError, match="npz"):
+        with pytest.raises(ValueError, match=f"'{twin}'.*npz"):
             sim.load_checkpoint(path, backend=backend)
-    assert not os.listdir(tmp_path) or "ck.npz" not in os.listdir(tmp_path)
+    assert "ck.npz" not in os.listdir(tmp_path)
     payload = sim._checkpoint_payload()
     payload["potential_boundary"] = np.zeros(sim.geom.N + 8)
     np.savez(str(tmp_path / "padded.npz"), **payload)
     with pytest.raises(ValueError, match="potential_boundary"):
         _sim(cfg, s).load_checkpoint(str(tmp_path / "padded.npz"))
+    torch.save({}, str(tmp_path / "other"))
+    dcp.save({"potential_boundary": torch.from_numpy(payload["potential_boundary"])},
+             storage_writer=dcp.FileSystemWriter(str(tmp_path / "padded"), overwrite=True),
+             no_dist=True)
+    with pytest.raises(ValueError, match="potential_boundary"):
+        _sim(cfg, s).load_checkpoint(str(tmp_path / "padded"))
+
+
+# ---------------------------------------------------------------------------
+# the directory backends (torch.distributed.checkpoint)
+# ---------------------------------------------------------------------------
+
+def _same_payload(a, b):
+    assert set(a) == set(b)
+    for f in a:
+        assert a[f].dtype == b[f].dtype and np.array_equal(a[f], b[f], equal_nan=True), f
+
+
+def test_checkpoint_dcp_backend(tmp_path):
+    """Mirror of tests/test_engine.py::test_checkpoint_orbax_backend: a dcp
+    directory round-trips the full payload (state, caps, driver position)
+    as npz does, every field of every dtype."""
+    cfg, s = _make_cfg(tmp_path)
+    sim = _sim(cfg, s)
+    sim.run_bias_point(2.0, 1e-12, max_steps=2)
+    sim._pos = (0, 2)
+    sim.save_checkpoint(str(tmp_path / "ck_dcp"), backend="dcp")
+    sim.save_checkpoint(str(tmp_path / "ck.npz"))
+
+    sim2 = _sim(cfg, s)
+    sim2.load_checkpoint(str(tmp_path / "ck_dcp"), backend="dcp")
+    sim3 = _sim(cfg, s)
+    sim3.load_checkpoint(str(tmp_path / "ck.npz"))
+    assert sim2._pos == sim3._pos == (0, 2)
+    _same_payload(sim2._checkpoint_payload(), sim3._checkpoint_payload())
+    _same_payload(sim2._checkpoint_payload(), sim._checkpoint_payload())
+
+
+def test_checkpoint_dcp_async_backend(tmp_path):
+    """Mirror of tests/test_engine.py::test_checkpoint_orbax_async_backend:
+    a second dcp_async save right after the first waits for it, a load waits
+    for the write in flight, and the restored payload equals npz's."""
+    cfg, s = _make_cfg(tmp_path)
+    sim = _sim(cfg, s)
+    sim.run_bias_point(2.0, 1e-12, max_steps=2)
+    sim._pos = (0, 2)
+    sim.save_checkpoint(str(tmp_path / "ck_a1"), backend="dcp_async")
+    assert sim._pending_save is not None
+    sim.run_bias_point(2.0, 1e-12, max_steps=1)
+    sim._pos = (0, 3)
+    sim.save_checkpoint(str(tmp_path / "ck_a2"), backend="dcp_async")
+    sim.save_checkpoint(str(tmp_path / "ck.npz"))
+    # the npz save waited for ck_a2: nothing is left in flight
+    assert sim._pending_save is None
+    sim.save_checkpoint(str(tmp_path / "ck_a3"), backend="dcp_async")
+
+    sim2 = _sim(cfg, s)
+    sim2.load_checkpoint(str(tmp_path / "ck_a2"), backend="dcp_async")
+    sim3 = _sim(cfg, s)
+    sim3.load_checkpoint(str(tmp_path / "ck.npz"))
+    assert sim2._pos == sim3._pos == (0, 3)
+    _same_payload(sim2._checkpoint_payload(), sim3._checkpoint_payload())
+    # a load waits for the write in flight, which may be the one it reads
+    sim.load_checkpoint(str(tmp_path / "ck_a3"))
+    assert sim._pending_save is None and sim._pos == (0, 3)
+    _same_payload(sim._checkpoint_payload(), sim3._checkpoint_payload())
+
+
+def test_dcp_async_overlaps_supersteps(tmp_path):
+    """A dcp_async save returns with its payload copied; the run takes 3 more
+    supersteps before the wait, and the directory holds the state at the
+    save, not after them; run() waits at its end.  A background write that
+    fails raises at the next wait, and only once."""
+    cfg, s = _make_cfg(tmp_path, V_switch=[2.0], t_switch=[1e30])
+    sim = _sim(cfg, s)
+    sim.run(max_steps_per_bias=2)
+    at_save = sim._checkpoint_payload()
+    sim.save_checkpoint(str(tmp_path / "ck"), backend="dcp_async")
+    sim.run_bias_point(2.0, 1e30, max_steps=5, resume_step=2)
+    after = sim._checkpoint_payload()
+    assert not np.array_equal(after["element"], at_save["element"])
+    sim.wait_for_checkpoint()
+    back = _sim(cfg, s)
+    back.load_checkpoint(str(tmp_path / "ck"))
+    _same_payload(back._checkpoint_payload(), at_save)
+    sim.save_checkpoint(str(tmp_path / "ck2"), backend="dcp_async")
+    sim.run(max_steps_per_bias=6)
+    assert sim._pending_save is None
+
+    # DCP's CheckpointException derives from BaseException
+    from torch.distributed.checkpoint.api import CheckpointException
+
+    (tmp_path / "blocked").write_text("a file where the directory would go")
+    sim.save_checkpoint(str(tmp_path / "blocked" / "ck"), backend="dcp_async")
+    with pytest.raises(CheckpointException, match="Not a directory"):
+        sim.wait_for_checkpoint()
+    sim.wait_for_checkpoint()
+    sim.save_checkpoint(str(tmp_path / "blocked" / "ck"), backend="dcp_async")
+    with pytest.raises(CheckpointException, match="Not a directory"):
+        sim.save_checkpoint(str(tmp_path / "ck3"))
+    assert not os.path.exists(tmp_path / "ck3")
 
 
 # ---------------------------------------------------------------------------
@@ -289,6 +398,35 @@ def test_npz_exchanged_with_jax(tmp_path, writer):
     assert set(back) == set(saved)
     for f in saved:
         assert _same(back[f], saved[f]), f
+    jrec, trec = [], []
+    _continue(jr, jrec, np.asarray)
+    jr._flush()
+    _continue(tr, trec, lambda t: t.numpy())
+    assert len(jrec) == len(trec) == 3
+    for k, (a, b) in enumerate(zip(jrec, trec)):
+        assert b[0] == a[0] and b[1] == a[1], f"step {k + 2}"
+        assert b[2] == pytest.approx(a[2], rel=1e-5), f"step {k + 2}"
+
+
+@pytest.mark.parametrize("backend", ["dcp", "dcp_async"])
+def test_dcp_resume_beside_jax_orbax(tmp_path, backend):
+    """The JAX package saves an orbax directory after 2 supersteps and the
+    port a dcp one (``backend``) after the same 2; fresh simulations of each
+    package resume from their own directory and run steps 2-4: element
+    hashes and events equal step for step, the current within 1e-5 (as
+    test_npz_exchanged_with_jax)."""
+    pytest.importorskip("orbax.checkpoint")
+    jw, tw = _pair(tmp_path, "writers")
+    jw.run_bias_point(VD, 1e30, max_steps=2)
+    tw.run_bias_point(VD, 1e30, max_steps=2)
+    jw.save_checkpoint(str(tmp_path / "jax_ck"), backend="orbax")
+    tw.save_checkpoint(str(tmp_path / "port_ck"), backend=backend)
+    tw.wait_for_checkpoint()
+
+    jr, tr = _pair(tmp_path, "readers")
+    jr.load_checkpoint(str(tmp_path / "jax_ck"), backend="orbax")
+    tr.load_checkpoint(str(tmp_path / "port_ck"))
+    assert jr._pos == tr._pos == (0, 2)
     jrec, trec = [], []
     _continue(jr, jrec, np.asarray)
     jr._flush()

@@ -127,3 +127,31 @@ def test_cli_checkpoint_and_resume_on_cpu(tmp_path):
     r = _cli(path, "--max-steps", "4")
     assert r.returncode == 0, r.stderr[-2000:]
     assert (tmp_path / "ref" / "Results_2.500000" / "snapshot_4.xyz").read_text() == resumed
+
+
+def test_cli_dcp_async_checkpoint_and_resume_on_cpu(tmp_path):
+    """--checkpoint-backend dcp_async: the CLI waits for the background write
+    before it exits (the directory holds the position after 2 steps);
+    --resume of a path that is not *.npz reads it as a dcp directory and
+    ends in the uninterrupted 4-step run's snapshot byte for byte."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    path, _ = _write_inputs(tmp_path)
+    text = path.read_text()
+    ck = tmp_path / "ck"
+    r = _cli(path, "--max-steps", "2", "--checkpoint", str(ck),
+             "--checkpoint-backend", "dcp_async")
+    assert r.returncode == 0, r.stderr[-2000:]
+    pos = {"pos_bias_index": torch.tensor(-1), "pos_bias_step": torch.tensor(-1)}
+    dcp.load(pos, checkpoint_id=str(ck), no_dist=True)
+    assert int(pos["pos_bias_index"]) == 0 and int(pos["pos_bias_step"]) == 2
+    r = _cli(path, "--max-steps", "4", "--resume", str(ck))
+    assert r.returncode == 0, r.stderr[-2000:]
+    resumed = (tmp_path / "out" / "Results_2.500000" / "snapshot_4.xyz").read_text()
+
+    path.write_text(text.replace(f"output_dir = {tmp_path / 'out'}",
+                                 f"output_dir = {tmp_path / 'ref'}"))
+    r = _cli(path, "--max-steps", "4")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert (tmp_path / "ref" / "Results_2.500000" / "snapshot_4.xyz").read_text() == resumed

@@ -1,11 +1,15 @@
 """The port's twins of the JAX package's examples on the CPU at a tiny size:
 ``examples/iv_sweep_torch.py`` against ``examples/iv_sweep.py`` (2 bias
 points, 2 supersteps each: the current at each bias within 1e-5 relative),
-and ``examples/checkpoint_resume_torch.py`` (its resumed run bit-equal to
-the uninterrupted one)."""
+``examples/checkpoint_resume_torch.py`` with npz and with ``--dcp`` (its
+resumed run bit-equal to the uninterrupted one), and
+``examples/ensemble_torch.py --mesh 2`` over 2 gloo ranks (the lines of one
+process)."""
 
 import importlib.util
 import os
+import socket
+import subprocess
 import sys
 
 import numpy as np
@@ -60,8 +64,53 @@ def test_checkpoint_resume_example(tmp_path, capsys):
     assert os.path.exists(tmp_path / "mid_bias.npz")
 
 
+def test_checkpoint_resume_example_dcp(tmp_path, capsys):
+    """--dcp, the counterpart of the JAX example's --orbax: the checkpoint
+    is a torch.distributed.checkpoint directory."""
+    rc = _example("checkpoint_resume_torch").main(["--device", "cpu", "--dcp", "--outdir",
+                                                   str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert f"-> {tmp_path / 'mid_bias'} (dcp)" in out
+    assert "resumed trajectory bit-equal to uninterrupted run: True" in out
+    assert os.path.isfile(tmp_path / "mid_bias" / ".metadata")
+
+
+ENSEMBLE_ARGS = ["--device", "cpu", "--batch", "4", "--steps", "2"]
+
+
+def test_ensemble_example_mesh(tmp_path, capsys):
+    """--mesh 2 under 2 gloo ranks (torchrun's environment, each a process):
+    rank 0 prints the lines of the one-process ensemble, the other rank
+    nothing."""
+    _example("ensemble_torch").main(ENSEMBLE_ARGS)
+    want = capsys.readouterr().out
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), GLOO_SOCKET_IFNAME="lo",
+                   OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples", "ensemble_torch.py"),
+             *ENSEMBLE_ARGS, "--mesh", "2"], env=env, cwd=str(tmp_path),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        done = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], done
+    outs = [out for out, _ in done]
+    assert "ensemble of 4 devices" in want
+    assert outs[0] == want and outs[1] == ""
+
+
 def test_example_flags():
-    """--device in place of --cpu; npz only (no --orbax)."""
+    """--device in place of --cpu; --dcp in place of --orbax."""
     for name in ("iv_sweep_torch", "checkpoint_resume_torch"):
         src = open(os.path.join(ROOT, "examples", f"{name}.py")).read()
         assert '"--device"' in src and '"--cpu"' not in src and '"--orbax"' not in src

@@ -1,8 +1,8 @@
 """The port's replicated decomposition (``devicekmc_tpu_torch.parallel.
 sharding``, what ``Simulation(mesh=...)`` runs by default), the replica axis
 over a mesh (``parallel.batched``'s ``mesh=``, ``shard_batch``,
-``gather_batch``) and checkpoints under a mesh, on the CPU against the JAX
-package.
+``gather_batch``), the 2-D ``("batch", "sites")`` mesh and checkpoints under
+a mesh (npz, dcp, dcp_async), on the CPU against the JAX package.
 
 Four gloo ranks run as separate processes (``tests/torch_sharding_ranks.py``,
 which imports no JAX), started once for the whole file with a file
@@ -10,7 +10,8 @@ rendezvous and a hard time limit that kills them.  While they run, this
 process writes the JAX package's checkpoint that they continue and computes
 the references: the JAX package's ``make_sharded_superstep``,
 ``Simulation(mesh=...)`` and sharded ``make_batched_superstep`` on 4 CPU
-devices, and the port's single device and one-process batch.  A world of
+devices (along ``"batch"``, and on a (2, 2) ``("batch", "sites")`` mesh), and
+the port's single device and one-process batch.  A world of
 one gloo rank runs in this process.
 """
 
@@ -27,7 +28,8 @@ import torch
 import jax
 from jax.sharding import Mesh as JaxMesh
 
-from torch_sharding_ranks import (BATCH, BATCH_SEED, CKPT_STEPS, DRIVER_STEPS, MIXED,
+from torch_sharding_ranks import (BATCH, BATCH_SEED, CKPT_BACKENDS, CKPT_STEPS,
+                                  DRIVER_STEPS, MESH_BATCH, MESH_SHAPES, MESH_STEPS, MIXED,
                                   RESUME_FIELDS, VD, driver_config, pieces, pieces_config,
                                   pieces_elements)
 
@@ -38,7 +40,8 @@ WORLD = 4
 RANKS_TIMEOUT = 300
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the cases whose states every rank writes (each must be bit-equal on the ranks)
-RANK_STATES = ("ss", "driver", "mixed", "batch", "jax_resumed")
+RANK_STATES = ("ss", "driver", "mixed", "batch", "jax_resumed", "m2x2", "m4x1", "m1x4",
+               "b1d", "s1d")
 
 
 def _to_jax(tcfg):
@@ -51,8 +54,9 @@ def _to_jax(tcfg):
     return KMCConfig(**fields)
 
 
-def _jax_mesh(axis="sites"):
-    return JaxMesh(np.array(jax.devices("cpu")[:WORLD]), (axis,))
+def _jax_mesh(axis="sites", shape=(WORLD,)):
+    axes = (axis,) if len(shape) == 1 else ("batch", "sites")
+    return JaxMesh(np.array(jax.devices("cpu")[:WORLD]).reshape(shape), axes)
 
 
 def _events(output_txt):
@@ -128,6 +132,28 @@ def _jax_batch():
     return out, np.asarray(dts)
 
 
+def _jax_mesh2d():
+    """The JAX package's (2, 2) ``("batch", "sites")`` run: the geometry of
+    ``shard_simulation`` (``P("sites")``), MESH_BATCH replicas sharded
+    ``P("batch")``, MESH_STEPS supersteps of the batched superstep.  Returns
+    the last states and each step's events and step times [steps, B]."""
+    from devicekmc_tpu.parallel import shard_simulation
+    from devicekmc_tpu.parallel.batched import (batch_states, make_batched_superstep,
+                                                shard_batch)
+
+    geom, params, state, heat = _jax_pieces()
+    mesh = _jax_mesh(shape=(2, 2))
+    geom, state = shard_simulation(geom, state, mesh)
+    states = shard_batch(batch_states(state, MESH_BATCH, base_seed=BATCH_SEED), mesh)
+    step = make_batched_superstep(geom, params, heat, mesh=mesh)
+    events, dts = [], []
+    for _ in range(MESH_STEPS):
+        states, dt, m = step(states, VD)
+        events.append(np.asarray(m["n_events"]))
+        dts.append(np.asarray(dt))
+    return states, np.stack(events), np.stack(dts)
+
+
 # ----------------------------------------------------------------------------
 # the port's single device
 # ----------------------------------------------------------------------------
@@ -182,7 +208,8 @@ def runs(tmp_path_factory):
     timed_out = False
     try:
         refs = dict(jax_events=_jax_checkpoint_run(workdir), jax_superstep=_jax_superstep(),
-                    jax_batch=_jax_batch(), single_superstep=_single_superstep(),
+                    jax_batch=_jax_batch(), jax_mesh2d=_jax_mesh2d(),
+                    single_superstep=_single_superstep(),
                     single_driver=_single_driver(str(workdir / "single_driver")),
                     single_mixed=_single_driver(str(workdir / "single_mixed"), **MIXED),
                     single_batch=_single_batch())
@@ -361,16 +388,70 @@ def test_shard_batch_keys_and_raise(runs):
 @pytest.mark.parametrize("decomposition", ["replicate", "halo"])
 def test_checkpoint_resume_under_mesh(runs, decomposition):
     """2 supersteps, a checkpoint, 2 more; a fresh 4-rank Simulation that
-    loads the checkpoint and runs the same 2 ends in the same state bit for
-    bit."""
+    loads the (npz) checkpoint and runs the same 2 ends in the same state
+    bit for bit."""
     _, arrays, facts, _ = runs
     tag = f"ckpt_{decomposition}"
     f = facts[0][tag]
-    assert f["pos"] == [[0, 2 * CKPT_STEPS], [0, 2 * CKPT_STEPS]]
-    assert f["events_b"] == f["events_a"][CKPT_STEPS:]
+    assert f["pos"] == [[0, 2 * CKPT_STEPS]] * (1 + len(CKPT_BACKENDS))
+    assert f["events_npz"] == f["events_a"][CKPT_STEPS:]
     for fld in RESUME_FIELDS:
-        a, b = arrays[0][f"{tag}_a_{fld}"], arrays[0][f"{tag}_b_{fld}"]
+        a, b = arrays[0][f"{tag}_a_{fld}"], arrays[0][f"{tag}_npz_{fld}"]
         assert a.tobytes() == b.tobytes(), fld
+
+
+@pytest.mark.parametrize("backend", ["dcp", "dcp_async"])
+@pytest.mark.parametrize("decomposition", ["replicate", "halo"])
+def test_dcp_resume_under_mesh(runs, decomposition, backend):
+    """The same checkpoint saved as a dcp directory (dcp_async: the write in
+    the background while run A takes its next 2 supersteps): the fresh
+    Simulation that loads it ends where the npz resume and the uninterrupted
+    run end, bit for bit, on every rank."""
+    _, arrays, facts, _ = runs
+    tag = f"ckpt_{decomposition}"
+    for r in range(WORLD):
+        f = facts[r][tag]
+        assert f[f"events_{backend}"] == f["events_npz"] == f["events_a"][CKPT_STEPS:]
+        for fld in RESUME_FIELDS:
+            got = arrays[r][f"{tag}_{backend}_{fld}"]
+            assert got.tobytes() == arrays[r][f"{tag}_npz_{fld}"].tobytes(), (r, fld)
+            assert got.tobytes() == arrays[r][f"{tag}_a_{fld}"].tobytes(), (r, fld)
+
+
+@pytest.mark.parametrize("decomposition", ["replicate", "halo"])
+def test_dcp_writes_no_gather(runs, decomposition):
+    """A dcp save or load makes no collective of the mesh (an npz save under
+    halo gathers every site field to rank 0).  Under halo each rank's file
+    holds its slab of every site field, one chunk of N / W rows at its
+    offset; under the replicated decomposition DCP writes one copy of each
+    field."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import MetadataIndex
+
+    from devicekmc_tpu_torch.parallel.halo_superstep import STATE_SITE_FIELDS
+
+    workdir, arrays, facts, _ = runs
+    tag = f"ckpt_{decomposition}"
+    for r in range(WORLD):
+        counts = facts[r][tag]["counts"]
+        for backend in ("dcp", "dcp_async"):
+            assert counts[f"save_{backend}"] == {} and counts[f"load_{backend}"] == {}, r
+    if decomposition == "halo":
+        assert counts["save_npz"]["all_gather"] == len(STATE_SITE_FIELDS)
+    N = arrays[0][f"{tag}_a_element"].shape[0]
+    for backend in ("dcp", "dcp_async"):
+        md = dcp.FileSystemReader(str(workdir / f"{tag}_{backend}")).read_metadata()
+        for fld, meta in md.state_dict_metadata.items():
+            chunks = sorted(meta.chunks, key=lambda c: tuple(c.offsets))
+            if decomposition == "halo" and fld in STATE_SITE_FIELDS:
+                S = N // WORLD
+                assert [tuple(c.offsets) for c in chunks] == [(r * S,) for r in range(WORLD)]
+                assert all(tuple(c.sizes) == (S,) for c in chunks), fld
+                for r, c in enumerate(chunks):
+                    where = md.storage_data[MetadataIndex(fld, c.offsets)]
+                    assert where.relative_path == f"__{r}_0.distcp", (fld, r)
+            else:
+                assert len(chunks) == 1, fld
 
 
 def test_jax_checkpoint_continues_in_port(runs):
@@ -444,13 +525,96 @@ def test_world1_bit_equal_to_single_device(tmp_path):
 
 
 def test_mesh_axes():
-    """A 1-D mesh names its axis; the 2-D mesh is not ported and raises."""
-    from devicekmc_tpu_torch.parallel.mesh import Mesh
+    """A 2-D ("batch", "sites") mesh builds (a world of one gloo rank in this
+    process), each axis a 1-D view of itself, a 1-D mesh's view of its axis
+    itself; a shape whose product is not the world size, an unknown or a
+    repeated axis raises ValueError, and so does a Simulation on a 2-D mesh."""
+    import torch.distributed as dist
 
-    with pytest.raises(NotImplementedError, match="2-D"):
-        Mesh(None, torch.device("cpu"), ("batch", "sites"))
+    from devicekmc_tpu_torch.engine import Simulation
+    from devicekmc_tpu_torch.parallel.mesh import Mesh, make_mesh
+
     with pytest.raises(ValueError, match="unknown mesh axis"):
         Mesh(None, torch.device("cpu"), ("rows",))
+    with pytest.raises(ValueError, match="distinct"):
+        Mesh(None, torch.device("cpu"), ("sites", "sites"))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, device="cpu", axis_names=("batch", "sites"), shape=(1, 1))
+        assert mesh.shape == (1, 1)
+        for name in ("batch", "sites"):
+            view = mesh.axis(name)
+            assert view.axis_names == (name,) and view.world == 1 and view.axis(name) is view
+        one = make_mesh(1, device="cpu")
+        assert one.axis("sites") is one and one.shape == (1,)
+        with pytest.raises(ValueError, match="along 'batch'"):
+            one.axis("batch")
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            make_mesh(1, device="cpu", axis_names=("batch", "sites"), shape=(2, 1))
+        with pytest.raises(ValueError, match="unknown mesh axis"):
+            make_mesh(1, device="cpu", axis_names=("batch", "rows"))
+        cfg, s = driver_config("unused")
+        with pytest.raises(ValueError, match="1-D mesh"):
+            Simulation(cfg, elements=s.elements, coords=s.coords, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+# ----------------------------------------------------------------------------
+# the 2-D ("batch", "sites") mesh
+# ----------------------------------------------------------------------------
+
+def test_mesh2d_matches_jax(runs):
+    """The (2, 2) mesh's batch against the JAX package's (2, 2) run: events
+    step for step, elements and charges equal; potentials, step times,
+    I_macro and T_bg within test_batch_matches_jax's tolerances."""
+    _, arrays, _, refs = runs
+    jout, jev, jdts = refs["jax_mesh2d"]
+    a = arrays[0]
+    np.testing.assert_array_equal(a["m2x2_events"], jev.astype(np.float64))
+    np.testing.assert_array_equal(a["m2x2_element"], np.asarray(jout.element))
+    np.testing.assert_array_equal(a["m2x2_charge"], np.asarray(jout.charge))
+    np.testing.assert_allclose(a["m2x2_dts"], jdts, rtol=1e-4)
+    phi = np.asarray(jout.potential_boundary)
+    np.testing.assert_allclose(a["m2x2_potential_boundary"], phi, rtol=0,
+                               atol=1e-6 * np.abs(phi).max())
+    np.testing.assert_allclose(a["m2x2_I_macro"], np.asarray(jout.I_macro), rtol=1e-5)
+    np.testing.assert_allclose(a["m2x2_T_bg"], np.asarray(jout.T_bg), rtol=1e-9)
+
+
+@pytest.mark.parametrize("mesh2d,mesh1d", [("m4x1", "b1d"), ("m1x4", "s1d")],
+                         ids=["4x1-batch", "1x4-sites"])
+def test_mesh2d_bit_equal_to_1d(runs, mesh2d, mesh1d):
+    """(4, 1) is the 1-D "batch" run of the same replicas, and (1, 4) each
+    replica's 1-D "sites" run, every field, event count and step time bit
+    for bit."""
+    _, arrays, _, _ = runs
+    a = arrays[0]
+    keys = sorted(k[len(mesh1d) + 1:] for k in a if k.startswith(mesh1d + "_"))
+    assert len(keys) > 10
+    for k in keys:
+        got, want = a[f"{mesh2d}_{k}"], a[f"{mesh1d}_{k}"]
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), k
+
+
+def test_mesh2d_layout(runs):
+    """Rank r sits at (r // S, r % S) of each (B, S) mesh, holds MESH_BATCH /
+    B replicas and N / S rows of the pair arrays; the ranks of one "sites"
+    line hold the same replicas bit for bit; the 2-D mesh's own group runs
+    no collective (each replica's run is its "sites" line's)."""
+    _, arrays, facts, _ = runs
+    N = arrays[0]["m2x2_element"].shape[1]
+    for B, S in MESH_SHAPES:
+        tag = f"m{B}x{S}"
+        for r in range(WORLD):
+            f = facts[r]["mesh2d"][tag]
+            assert f["coords"] == [r // S, r % S]
+            assert f["mine"] == MESH_BATCH // B and f["rows"] == N // S
+            assert f["sites_line"] == [(r // S) * S + k for k in range(S)]
+            assert f["counts"] == {} and set(f["sites_counts"]) == {"all_gather", "all_reduce"}
+            for k in (k for k in arrays[r] if k.startswith(f"loc{tag}_")):
+                line0 = (r // S) * S
+                assert arrays[r][k].tobytes() == arrays[line0][k].tobytes(), (tag, r, k)
 
 
 @pytest.mark.parametrize("pbc", [False, True])

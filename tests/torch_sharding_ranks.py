@@ -21,13 +21,21 @@ Cases (CASES: comma-separated names, default all, in this order):
     the superstep case's state (``batch_states(..., base_seed=3)``), this
     rank's 2 through one batched superstep, gathered whole; a batch of 6
     must raise;
-  * ``ckpt``: under each decomposition, 2 supersteps, a checkpoint, 2 more;
-    then a fresh Simulation loads the checkpoint and runs the same 2;
+  * ``ckpt``: under each decomposition, 2 supersteps, a checkpoint in each
+    backend (npz, dcp, dcp_async; the Communicator's counts of each save),
+    2 more (before the wait for the dcp_async write); then for each backend a
+    fresh Simulation loads its checkpoint and runs the same 2;
   * ``jax_ckpt``: ``WORKDIR/jax_ckpt.npz``, written by the JAX package's
     4-device replicated run of the driver configuration after 2 supersteps
     (waited for), loaded and run for 2 more; and the driver configuration's
     own checkpoint after 2 supersteps (``port_ckpt.npz``), for the JAX
-    package to continue.
+    package to continue;
+  * ``mesh2d``: the ``("batch", "sites")`` mesh in the shapes of MESH_SHAPES:
+    MESH_BATCH replicas of the superstep case's state (no CB edge),
+    MESH_STEPS supersteps through ``make_batched_superstep`` on the geometry
+    of ``shard_simulation``, the batch gathered whole; beside it the 1-D
+    runs it must equal: the same replicas over a ``("batch",)`` mesh, and
+    each replica alone over a ``("sites",)`` mesh.
 """
 
 import dataclasses
@@ -56,6 +64,12 @@ MIXED = dict(precision="mixed", poisson_kernel="pallas", poisson_compact_cap=-1,
              active_rows_cap=64)
 #: seconds a rank waits for the JAX package's checkpoint
 JAX_CKPT_WAIT = 240
+#: the backends of the checkpoint case, each saved at the same step
+CKPT_BACKENDS = {"npz": "npz", "dcp": "dcp", "dcp_async": "dcp_async"}
+#: the 2-D meshes (batch x sites), their replicas and supersteps
+MESH_SHAPES = ((2, 2), (4, 1), (1, 4))
+MESH_BATCH = 4
+MESH_STEPS = 2
 #: the fields a resume must reproduce bit for bit
 RESUME_FIELDS = ("element", "charge", "key", "kmc_time", "I_macro", "virtual_potentials",
                  "CB_edge")
@@ -197,18 +211,33 @@ def case_batch(rank, world, arrays, facts):
         facts["batch"]["raises"] = f"ValueError: {e}"
 
 
-def _resume_pair(make, workdir, tag):
-    """2 supersteps, a checkpoint, 2 more (A); a fresh Simulation that loads
-    the checkpoint and runs the same 2 (B).  Returns both."""
+def _ckpt_path(workdir, tag, backend):
+    return os.path.join(workdir, f"{tag}.npz" if backend == "npz" else f"{tag}_{backend}")
+
+
+def _resume_runs(make, mesh, workdir, tag, facts):
+    """2 supersteps, a checkpoint in each backend, 2 more (A: run() waits for
+    the dcp_async write at its end); for each backend a fresh Simulation
+    that loads its checkpoint and runs the same 2.  The Communicator's
+    counts of each save and load go to ``facts``.  Returns A and the
+    resumed runs by backend."""
     a = make(os.path.join(workdir, f"{tag}_a"))
     a.run(max_steps_per_bias=CKPT_STEPS)
-    path = os.path.join(workdir, f"{tag}.npz")
-    a.save_checkpoint(path)
+    counts = facts.setdefault(tag, {}).setdefault("counts", {})
+    for backend in CKPT_BACKENDS:
+        mesh.comm.reset_counts()
+        a.save_checkpoint(_ckpt_path(workdir, tag, backend), backend=backend)
+        counts[f"save_{backend}"] = dict(mesh.comm.counts)
     a.run(max_steps_per_bias=2 * CKPT_STEPS)
-    b = make(os.path.join(workdir, f"{tag}_b"))
-    b.load_checkpoint(path)
-    b.run(max_steps_per_bias=2 * CKPT_STEPS)
-    return a, b
+    resumed = {}
+    for backend in CKPT_BACKENDS:
+        b = make(os.path.join(workdir, f"{tag}_b_{backend}"))
+        mesh.comm.reset_counts()
+        b.load_checkpoint(_ckpt_path(workdir, tag, backend), backend=backend)
+        counts[f"load_{backend}"] = dict(mesh.comm.counts)
+        b.run(max_steps_per_bias=2 * CKPT_STEPS)
+        resumed[backend] = b
+    return a, resumed
 
 
 def case_ckpt(rank, world, workdir, arrays, facts):
@@ -227,15 +256,16 @@ def case_ckpt(rank, world, workdir, arrays, facts):
 
     for tag, config, dec in (("ckpt_replicate", driver_config, "replicate"),
                              ("ckpt_halo", halo_config, "halo")):
-        a, b = _resume_pair(make(config, dec), workdir, tag)
-        for k, sim in (("a", a), ("b", b)):
+        a, resumed = _resume_runs(make(config, dec), mesh, workdir, tag, facts)
+        for k, sim in (("a", a), *resumed.items()):
             for f in RESUME_FIELDS:
                 v = getattr(sim.state, f) if dec == "replicate" or f not in (
                     "element", "charge", "CB_edge") else sim.global_field(f)
                 arrays[f"{tag}_{k}_{f}"] = (v.cpu().numpy() if torch.is_tensor(v)
                                             else np.asarray(v, dtype=np.float64 if f != "key"
                                                             else np.uint32))
-        facts[tag] = dict(events_a=_events(a), events_b=_events(b), pos=[a._pos, b._pos])
+        facts[tag].update(events_a=_events(a), pos=[a._pos] + [b._pos for b in resumed.values()],
+                          **{f"events_{k}": _events(b) for k, b in resumed.items()})
 
 
 def case_jax_ckpt(rank, world, workdir, arrays, facts):
@@ -267,10 +297,75 @@ def case_jax_ckpt(rank, world, workdir, arrays, facts):
     state_arrays(sim.state, "jax_resumed", arrays)
 
 
+def _run_batch(step, states, arrays, prefix, gather=None):
+    """MESH_STEPS supersteps of ``step`` from ``states``; the events and step
+    times of every step (gathered whole with ``gather``) and the last
+    states into ``arrays`` under ``prefix``."""
+    events, dts = [], []
+    for _ in range(MESH_STEPS):
+        states, dt, m = step(states, VD)
+        ev = m["n_events"].to(torch.float64)
+        events.append(gather(ev) if gather else ev)
+        dts.append(gather(dt) if gather else dt)
+    arrays[f"{prefix}_events"] = torch.stack(events).numpy()
+    arrays[f"{prefix}_dts"] = torch.stack(dts).numpy()
+    return states
+
+
+def case_mesh2d(rank, world, arrays, facts):
+    from devicekmc_tpu_torch.parallel import (batch_states, gather_batch,
+                                              make_batched_superstep, make_mesh, shard_batch)
+    from devicekmc_tpu_torch.parallel.sharding import make_sharded_superstep, shard_simulation
+    from devicekmc_tpu_torch.state import stack_states, unbatch_all
+
+    geom, params, state, heat = pieces(world)
+    states0 = batch_states(state, MESH_BATCH, base_seed=BATCH_SEED)
+    out = facts["mesh2d"] = {}
+    for shape in MESH_SHAPES:
+        tag = f"m{shape[0]}x{shape[1]}"
+        mesh = make_mesh(world, device="cpu", axis_names=("batch", "sites"), shape=shape)
+        g, _ = shard_simulation(geom, state, mesh)
+        step = make_batched_superstep(g, params, heat, mesh=mesh)
+        mine = shard_batch(states0, mesh)
+        bcomm = mesh.axis("batch").comm
+        mesh.comm.reset_counts()
+        last = _run_batch(step, mine, arrays, tag, gather=bcomm.all_gather)
+        state_arrays(last, f"loc{tag}", arrays)
+        state_arrays(gather_batch(last, mesh), tag, arrays)
+        out[tag] = dict(coords=[mesh.axis("batch").rank, mesh.axis("sites").rank],
+                        mine=int(mine.element.shape[0]),
+                        sites_line=[l for l in mesh.axis("sites").lines if rank in l][0],
+                        rows=int(g.neigh_valid.shape[0]), counts=dict(mesh.comm.counts),
+                        sites_counts=dict(mesh.axis("sites").comm.counts))
+    # the 1-D runs: the replicas over a ("batch",) mesh, each replica alone
+    # over a ("sites",) mesh
+    mesh_b = make_mesh(world, device="cpu", axis_names=("batch",))
+    last = _run_batch(make_batched_superstep(geom, params, heat, mesh=mesh_b),
+                      shard_batch(states0, mesh_b), arrays, "b1d", gather=mesh_b.comm.all_gather)
+    state_arrays(gather_batch(last, mesh_b), "b1d", arrays)
+    mesh_s = make_mesh(world, device="cpu")
+    g, _ = shard_simulation(geom, state, mesh_s)
+    single = make_sharded_superstep(g, params, heat, mesh_s)
+    ends, events, dts = [], [], []
+    for st in unbatch_all(states0):
+        ev, dt = [], []
+        for _ in range(MESH_STEPS):
+            st, t, m = single(st, VD)
+            ev.append(float(m["n_events"]))
+            dt.append(float(t))
+        ends.append(st)
+        events.append(ev)
+        dts.append(dt)
+    arrays["s1d_events"] = np.asarray(events).T
+    arrays["s1d_dts"] = np.asarray(dts).T
+    state_arrays(stack_states(ends), "s1d", arrays)
+
+
 CASES = {"superstep": case_superstep, "driver": case_driver, "batch": case_batch,
-         "ckpt": case_ckpt, "jax_ckpt": case_jax_ckpt}
+         "ckpt": case_ckpt, "jax_ckpt": case_jax_ckpt, "mesh2d": case_mesh2d}
 #: the arguments of each case beyond (rank, world)
-_ARGS = {"superstep": ("arrays", "facts"), "batch": ("arrays", "facts")}
+_ARGS = {"superstep": ("arrays", "facts"), "batch": ("arrays", "facts"),
+         "mesh2d": ("arrays", "facts")}
 
 
 def main(workdir, rank, world, cases=tuple(CASES)):
