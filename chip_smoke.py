@@ -5,7 +5,7 @@
 
 Phases (any failed check raises and the exit code is non-zero):
 
-1. builds the nine CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
+1. builds the ten CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
    sm_90a, one nvcc per source, in parallel) and beside them the latency
    probes of the event loop's bound (tools/latency_probe.cu), and prints
    ptxas's registers and shared memory per kernel; holds the event kernel's random stream
@@ -124,8 +124,21 @@ Phases (any failed check raises and the exit code is non-zero):
    registers and shared bytes, the device launches of one call and the
    share of upper-triangle chunks it skips.  Then 3
    supersteps with solve_heating_local on (matrix-free model, symmetric
-   contact spans), with the branch taken, the substeps and the CG iterations
-   of every step;
+   contact spans) on the eager driver, with the branch taken, the substeps
+   and the CG iterations of every step, and the same on the captured graph
+   (the main path of this configuration: the local model's substeps a WHILE
+   node with the CG's nested in it, csrc/heat.cu; counters to 0 around it,
+   the heat kernels' launches and CG iterations as the card counts them)
+   held bit for bit step for step against the eager run (the temperature
+   field, T_bg and the loops' logs too), both in turns with one profiled
+   superstep each (1 device-to-host copy a graph superstep); heat_cg_begin
+   and heat_cg_end against their plain versions at this model, timed beside
+   their bytes bounds; the heat phase alone, captured and from the host loop
+   of the same kernels; then the small stack with transport on the fly and
+   the dense local model, 4 supersteps eager and on the graph, bit for bit,
+   in turns, and heat_dense_substep against its plain version at the run's
+   interface and at 8,192 sites, timed beside its bytes bound, the plain
+   version and torch.mv;
 6. the transport run again (eager) with the CG stop condition read every iteration:
    the cold solves' iterations and every step's events, cg_iters_boundary
    and cg_iters_power equal to the chunked run's; the log of the event
@@ -150,9 +163,12 @@ Phases (any failed check raises and the exit code is non-zero):
    (counters to 0 just before, read just after);
 9. the transport configuration of phase 4 with transport_bf16_inner and
    transport_tol 1e-6 (the option's 1e-2 tightening makes it phase 4's
-   1e-8), counters set to 0 just before: cold solves and 4 supersteps,
-   every solve converged, every transport kernel launched and the band
-   bf16, the iterations and currents beside phase 4's; then the bf16 band
+   1e-8) on the eager driver, counters set to 0 just before: cold solves
+   and 4 supersteps, every solve converged, every transport kernel launched
+   and the band bf16, the iterations and currents beside phase 4's; the
+   same run on the captured graph (the main path: the bf16 band and its
+   row_fix in the inner body) bit for bit step for step against it, in
+   turns, 1 device-to-host copy a graph superstep; then the bf16 band
    kernel (with the f32 vector the path gives it) against its plain
    version on the run's band (within 2e-5 of its largest entry, and the vector
    rounded to bf16 more than 10x further off),
@@ -1738,9 +1754,14 @@ TRANSPORT_CARD = ("banded_matvec_out", "wkb_fly_matvec_out", "transport_pack",
 
 def transport_record(sim):
     """Wrap ``sim``'s superstep: per step the fields the transport and heat
-    phases write (device copies) and the metrics.  Returns the list."""
+    phases write (device copies), the metrics and, with the local heat model,
+    its branch, substeps and CG iterations (``heat.last_local``).  Returns
+    the list."""
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+
     recs = []
     step = sim._superstep
+    local = sim.params.solve_heating_local and not sim.params.solve_heating_global
 
     def wrapped(state, Vd, *rest):
         out = step(state, Vd, *rest)
@@ -1748,8 +1769,9 @@ def transport_record(sim):
         recs.append(dict(
             element=st.element.clone(), vp=st.virtual_potentials.clone(),
             tt=(st.tt_slot_atom.clone(), st.tt_vm.clone(), st.tt_vv.clone()),
-            power=st.power.clone(), step_time=out[1],
+            power=st.power.clone(), temperature=st.temperature.clone(), step_time=out[1],
             scalars=(st.I_macro, st.P_tot, st.T_bg, bool(st.tt_valid)),
+            local=dict(heat_mod.last_local) if local else None,
             metrics={k: float(v) for k, v in m.items() if not k.startswith("Z - ")}))
         return out
 
@@ -1760,12 +1782,17 @@ def transport_record(sim):
 def same_transport_steps(tag, ref, got):
     """Two transport runs (transport_record) bit for bit, step for step: the
     events, elements, cg_iters_power, I_macro, P_tot, T_bg, the virtual
-    potentials, the site power and the tunnel store, every metric."""
+    potentials, the site power, the temperature field and the tunnel store,
+    every metric, and the local heat model's branch, substeps and CG
+    iterations."""
     import torch
 
     check(len(ref) == len(got), f"{tag}: {len(ref)} and {len(got)} supersteps")
     for k, (a, b) in enumerate(zip(ref, got)):
-        diff = [key for key in ("element", "vp", "power") if not torch.equal(a[key], b[key])]
+        diff = [key for key in ("element", "vp", "power", "temperature")
+                if not torch.equal(a[key], b[key])]
+        if a["local"] != b["local"]:
+            diff.append(f"the local heat model's loops {a['local']} against {b['local']}")
         if not all(torch.equal(u, v) for u, v in zip(a["tt"], b["tt"])):
             diff.append("the tunnel store")
         if a["scalars"] != b["scalars"] or a["step_time"] != b["step_time"]:
@@ -1775,13 +1802,14 @@ def same_transport_steps(tag, ref, got):
         check(not diff and not metrics, f"{tag}: step {k}: {diff} differ; metrics {metrics}")
 
 
-def transport_graph_run(sim, tag, n_steps=TRANSPORT_STEPS, wrappers=None):
-    """Counters to 0, ``sim.run_bias_point`` (cold solves + ``n_steps``),
-    read: (records, card counts, wrapper counts, wall s).  No plain version
-    of a transport CG kernel may run."""
+def transport_graph_run(sim, tag, n_steps=TRANSPORT_STEPS, wrappers=None, Vd=VD_MAIN):
+    """Counters to 0, ``sim.run_bias_point`` (cold solves + ``n_steps`` at
+    ``Vd``), read: (records, card counts, wrapper counts, wall s).  No plain
+    version of a transport CG or heat kernel may run."""
     import torch
 
     from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import heat as heat_ops
     from devicekmc_tpu_torch.ops import transport_cg as tcg
 
     wrappers = wrappers or {}
@@ -1790,10 +1818,12 @@ def transport_graph_run(sim, tag, n_steps=TRANSPORT_STEPS, wrappers=None):
     _build.launch_counts("cuda").zero_()
     plains = [_counted(tcg, name) for name in ("pack_plain", "blocks_plain", "rows_plain",
                                                "update_pack_plain", "refine_plain")]
+    plains += [_counted(heat_ops, name) for name in ("dense_substep_plain", "cg_begin_plain",
+                                                     "cg_end_plain")]
     recs = transport_record(sim)
     try:
         t = time.perf_counter()
-        sim.run_bias_point(VD_MAIN, 1e30, max_steps=n_steps)
+        sim.run_bias_point(Vd, 1e30, max_steps=n_steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     finally:
@@ -1805,7 +1835,7 @@ def transport_graph_run(sim, tag, n_steps=TRANSPORT_STEPS, wrappers=None):
     return recs, card_counts(), {name: w.launches for name, w in wrappers.items()}, wall
 
 
-def transport_turns(sim, sim_e, tag, turns=TRANSPORT_TURNS):
+def transport_turns(sim, sim_e, tag, turns=TRANSPORT_TURNS, Vd=VD_MAIN):
     """The graph and the eager driver again, superstep by superstep in turns
     (elements, I_macro and the virtual potentials equal): wall ms of each;
     one superstep of each under torch.profiler (device busy share,
@@ -1815,7 +1845,7 @@ def transport_turns(sim, sim_e, tag, turns=TRANSPORT_TURNS):
     def step(s):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        s.state, _, m = s._superstep(s.state, VD_MAIN)
+        s.state, _, m = s._superstep(s.state, Vd)
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3, m
 
@@ -1825,6 +1855,7 @@ def transport_turns(sim, sim_e, tag, turns=TRANSPORT_TURNS):
         check(torch.equal(sim.state.element, sim_e.state.element)
               and sim.state.I_macro == sim_e.state.I_macro
               and torch.equal(sim.state.virtual_potentials, sim_e.state.virtual_potentials)
+              and torch.equal(sim.state.temperature, sim_e.state.temperature)
               and mg["cg_iters_power"] == me["cg_iters_power"],
               f"{tag}: graph and eager supersteps in turns differ")
         ms_g.append(tg)
@@ -1859,38 +1890,64 @@ def transport_turns(sim, sim_e, tag, turns=TRANSPORT_TURNS):
     return out
 
 
-def transport_graph_phase(out_root, heat, eager_run, second_point=True):
-    """The main path of the transport (``heat`` False) or heat (global)
-    configuration: the captured graph, counters set to 0 just before cold
-    solves + TRANSPORT_STEPS supersteps and read just after, then held bit
-    for bit step for step against ``eager_run`` (``(sim_e, records)``, the
-    eager driver's run of the same configuration), the two in turns, and
-    with ``second_point`` the graph captured at a second bias point.  Returns
-    (sim, summary)."""
+#: the wrappers (beside the batched ones) whose launches a transport graph
+#: run reports, by name: the cold solves' allocating band and fly matvec, the
+#: window block and the dissipation kernel (the graph counts these last two
+#: at each replay)
+GRAPH_RUN_WRAPPERS = (("banded", "banded_matvec"), ("wkb_fly", "wkb_fly_matvec"),
+                      ("wkb_window", "wkb_window_block"), ("wkb_fly", "wkb_fly_pdisp"))
+
+
+def transport_graph_phase(out_root, heat, eager_run, second_point=True, n_steps=TRANSPORT_STEPS,
+                          tag=None, make=None, Vd=VD_MAIN, **overrides):
+    """The main path of the transport (``heat`` None or False), heat (True
+    or "global": the global model; "local": the matrix-free local model) or
+    another configuration of the crossbar (``overrides`` of
+    synthetic_crossbar's fields; ``make(dir)``: the simulation itself): the
+    captured graph, counters set to 0 just before cold solves + ``n_steps``
+    supersteps and read just after, then held bit for bit step for step
+    against ``eager_run`` (``(sim_e, records)``, the eager driver's run of
+    the same configuration), the two in turns, and with ``second_point`` the
+    graph captured at a second bias point; ``Vd`` the bias.  With the local
+    model its
+    kernels' launches on the card and the CG iterations counted there
+    (``heat.ws.cg.total``) against the steps' logs.  Returns (sim,
+    summary)."""
+    import importlib
+
     import torch
 
     from devicekmc_tpu_torch.ops import ell_gather as eg
     from devicekmc_tpu_torch.ops import kmc_events
     from devicekmc_tpu_torch.ops import pairwise as pw
 
-    tag = "heat (global) graph" if heat else "transport graph"
+    heat = "global" if heat is True else (heat or None)
+    tag = tag or {"global": "heat (global) graph", "local": "heat (local) graph",
+                  None: "transport graph"}[heat]
     # the memory this run holds once built and the most it allocates while
     # it runs, beyond what was live before it (the eager run's)
     before = torch.cuda.memory_allocated()
-    sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(
-        out_root, "heat_graph" if heat else "transport_graph"), current=True,
-        heat="global" if heat else None)
+    out_dir = os.path.join(out_root, tag.replace(" ", "_").replace("(", "").replace(")", ""))
+    sim = make(out_dir) if make is not None else synthetic_crossbar(
+        N_SITES, "cuda", out_dir, current=True, heat=heat, **overrides)
     built_gib = (torch.cuda.memory_allocated() - before) / 2**30
     torch.cuda.reset_peak_memory_stats()
     check(sim._graph_for(sim.params) is not None,
           f"{tag}: the configuration does not run the captured graph")
+    local = sim.params.solve_heating_local and not sim.params.solve_heating_global
     batched = {"ell_gather_batched": eg.ell_gather_batched,
                "poisson_pairwise_batched": pw.poisson_pairwise_batched,
                "kmc_event_loop_batched": kmc_events.kmc_event_loop_batched}
-    recs, card, host, wall = transport_graph_run(sim, tag, wrappers=batched)
+    others = {name: getattr(importlib.import_module(f"devicekmc_tpu_torch.ops.{mod}"), name)
+              for mod, name in GRAPH_RUN_WRAPPERS}
+    heat_cg = local and sim.heat.method == "cg"
+    if heat_cg:
+        sim.heat.ws.cg.total.zero_()
+    recs, card, host, wall = transport_graph_run(sim, tag, n_steps=n_steps,
+                                                 wrappers={**batched, **others}, Vd=Vd)
     peak_gib = (torch.cuda.max_memory_allocated() - before) / 2**30
     graph = sim._graph
-    n = TRANSPORT_STEPS
+    n = n_steps
     check(graph.replays == n and graph.captures == 2,
           f"{tag}: {graph.replays} replays, {graph.captures} captures")
     check(card["ell_gather_batched"] == 2 * n and card["poisson_pairwise_batched"] == n
@@ -1912,9 +1969,25 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True):
     rounds = sum(int(s["cg_iters_power"] > 0) for s in steps)
     check(all(s["transport_converged"] == 1.0 for s in steps), f"{tag}: a solve did not "
           "converge")
+    heat_log = {}
+    if local:
+        logs = [r["local"] for r in recs]
+        passes = sum(ll["substeps"] if ll["branch"] == "transient" else 1 for ll in logs)
+        cg_iters = sum(ll["cg_iters"] for ll in logs)
+        heat_log = dict(branches=[ll["branch"] for ll in logs],
+                        substeps=[ll["substeps"] for ll in logs],
+                        cg_iters=[ll["cg_iters"] for ll in logs],
+                        cg_iters_card=int(sim.heat.ws.cg.total) if heat_cg else 0)
+        counted = ("heat_cg_begin", "heat_cg_end") if sim.heat.method == "cg" \
+            else ("heat_dense_substep",)
+        check(all(card[name] == passes > 0 for name in counted),
+              f"{tag}: heat launches on the card {card} against {passes} passes of the loops")
+        check(not heat_cg or heat_log["cg_iters_card"] == cg_iters > 0,
+              f"{tag}: {heat_log['cg_iters_card']} heat CG iterations on the card against "
+              f"the steps' {cg_iters}")
     sim_e, recs_e = eager_run
     same_transport_steps(f"{tag} against eager", recs_e, recs)
-    turns = transport_turns(sim, sim_e, tag)
+    turns = transport_turns(sim, sim_e, tag, Vd=Vd)
     first = list(graph.capture_s)
     t = time.perf_counter()
     if second_point:
@@ -1924,17 +1997,20 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True):
     check(len(second) == (2 if second_point else 0),
           f"{tag}: {len(second)} captures at the second bias point")
     key = "Z - calculation time - KMC superstep [s]"
-    ms = [s[key] * 1e3 for s in steps[2:]]
-    ms_e = [s[key] * 1e3 for s in sim_e.step_log[2:n]]
+    later = steps[2:] or steps
+    ms = [s[key] * 1e3 for s in later]
+    ms_e = [s[key] * 1e3 for s in sim_e.step_log[len(steps) - len(later):n]]
     log(f"{tag}: run_bias_point (cold solves + {n} supersteps) in {wall:.2f} s on the graph "
         f"({graph.captures} captures of {[round(x, 3) for x in first]} s; at {VD_SECOND} V "
         f"{[round(x, 3) for x in second]} s, that bias point in {time.perf_counter() - t:.2f} "
-        f"s); launches on the card {card}; {inner} inner CG iterations in {n} supersteps; "
-        f"memory held once built {built_gib:.3f} GiB, the most while it ran {peak_gib:.3f} "
-        f"GiB; "
+        f"s); launches on the card {card}; wrappers {host}; {inner} inner CG iterations in "
+        f"{n} supersteps; memory held once built {built_gib:.3f} GiB, the most while it ran "
+        f"{peak_gib:.3f} GiB; "
         f"events, elements, cg_iters_power, I_macro, P_tot, T_bg, the virtual potentials, "
-        f"the site power and the tunnel store equal to the eager run step for step")
-    log(f"{tag} supersteps after 2: graph median {statistics.median(ms):.2f} ms (min "
+        f"the site power, the temperature field and the tunnel store equal to the eager "
+        f"run step for step" + (f"; local heat model {heat_log}" if local else ""))
+    log(f"{tag} supersteps{' after 2' if len(later) < len(steps) else ''}: graph median "
+        f"{statistics.median(ms):.2f} ms (min "
         f"{min(ms):.2f}, max {max(ms):.2f}), eager median {statistics.median(ms_e):.2f} ms; "
         "step by step (graph / eager ms, inner iterations): "
         + ", ".join(f"{a[key] * 1e3:.1f} / {b[key] * 1e3:.1f} ({int(a['cg_iters_power'])})"
@@ -1943,7 +2019,7 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True):
                      launches_card=card, launches_host=host, inner_iterations=inner,
                      solving_steps=rounds, built_gib=built_gib, peak_gib=peak_gib,
                      median_ms=statistics.median(ms),
-                     median_ms_eager=statistics.median(ms_e), **turns)
+                     median_ms_eager=statistics.median(ms_e), local_heat=heat_log, **turns)
 
 
 def transport_operator(sim, seed=13):
@@ -2671,10 +2747,286 @@ PDISP_FACTS = ("bound_all_pairs_ms", "kernel", "registers", "shared_bytes",
                "device_launches", "chunks_upper", "skipped_chunk_share")
 
 
+#: supersteps of the dense local model's runs on the small stack, and the
+#: interface size of the dense substep kernel's second timing
+SMALL_HEAT_STEPS = 4
+DENSE_REF_NI = 8192
+
+
+def _heat_ws_copy(ws):
+    """A copy of a heat workspace (``ops.heat.Workspace``) on its device."""
+    import torch
+
+    copy = lambda v: v.clone() if torch.is_tensor(v) else v  # noqa: E731
+    kw = {}
+    for f in dataclasses.fields(ws):
+        v = getattr(ws, f.name)
+        if f.name == "cg" and v is not None:
+            v = dataclasses.replace(v, **{g.name: copy(getattr(v, g.name))
+                                          for g in dataclasses.fields(v)})
+        elif isinstance(v, tuple) and f.name.startswith("op"):
+            v = tuple(copy(t) for t in v)
+        else:
+            v = copy(v)
+        kw[f.name] = v
+    return type(ws)(**kw)
+
+
+def dense_substep_checks(heat, ref_ni=DENSE_REF_NI):
+    """Kernel 1 (heat_dense_substep) against its plain version on the card's
+    tensors, at the run's interface (``heat``'s L_inv) and at ``ref_ni``
+    sites (a seeded propagator): the field and the next right-hand side
+    within 1e-5 of their scale (f32 products summed in another order), the
+    counter and predicate equal; timed beside its bytes bound (the
+    propagator once, ni^2 entries, and the [ni] vectors), the plain version
+    and torch.mv of the propagator (the product alone)."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import heat as heat_ops
+
+    out = {}
+    gen = torch.Generator().manual_seed(17)
+    for tag, ni in (("run", heat.n_interface), ("ref", ref_ni)):
+        if tag == "run":
+            M = heat.L_inv
+        else:
+            M = (torch.rand((ni, ni), generator=gen) * (2.0 / ni)).to(heat.L_inv).cuda()
+        dt, isz = M.dtype, M.element_size()
+        ws = heat_ops.workspace("dense", dt, "cuda", torch.arange(ni, device="cuda"))
+        ws.u[0].copy_((torch.rand(ni, generator=gen) * 1e-3).to(dt))
+        ws.src.copy_((torch.rand(ni, generator=gen) * 1e-4).to(dt))
+        heat_ops.prepare(ws, False, 1 << 30)
+        k, q = _heat_ws_copy(ws), _heat_ws_copy(ws)
+        tk = torch.full((ni,), 300.0, dtype=dt, device="cuda")
+        tq = tk.clone()
+        heat_ops.dense_substep(k, M, tk, 300.0, 1000.0, False, 0)
+        heat_ops.dense_substep_plain(q, M, tq, 300.0, 1000.0, False, 0)
+        err = max(_close(f"heat_dense_substep ({tag}) field", tk - 300.0, tq - 300.0, 1e-5),
+                  _close(f"heat_dense_substep ({tag}) right-hand side", k.u, q.u, 1e-5))
+        check(k.k.tolist() == q.k.tolist() and k.cond.tolist() == q.cond.tolist(),
+              f"heat_dense_substep ({tag}): counter or predicate differ")
+        ms = time_ms(lambda: heat_ops.dense_substep(k, M, tk, 300.0, 1000.0, False, 0))
+        plain_ms = time_ms(lambda: heat_ops.dense_substep_plain(q, M, tq, 300.0, 1000.0,
+                                                                 False, 0), reps=5, rounds=3)
+        u0 = ws.u[0].clone()
+        lib_ms = time_ms(lambda: torch.mv(M, u0))
+        bound_ms, by = _bound(2 * ni * ni, ni * ni * isz + 4 * ni * isz + 4 * ni)
+        out[tag] = dict(ni=ni, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=bound_ms, bound_by=by, dtype=str(dt))
+        log(f"heat_dense_substep at ni = {ni} ({tag}, {dt}): {ms:.5f} ms, bound {bound_ms:.5f} "
+            f"ms ({by}), plain {plain_ms:.5f} ms, torch.mv {lib_ms:.5f} ms, max error "
+            f"{err:.3e}")
+    return out
+
+
+def heat_cg_checks(sim):
+    """heat_cg_begin and heat_cg_end against their plain versions on the
+    card's tensors, at the crossbar's local model after its graph run: the
+    warm set-up of a transient substep (x0 within 1e-6 of its scale: the
+    plain version on the card divides by the scale as PyTorch's CUDA rule
+    has it, through the reciprocal; r and p within 1e-5 of the scale of b,
+    r.r and the threshold within 1e-4, flags, counts and
+    the predicate equal) and the end from its iterate (the field bit-equal,
+    counter and predicate equal); each timed beside its bytes bound (the
+    set-up: the interface rows' valid slots, value and index, and each
+    [N] input and output once; the end: the interface's iterate and field
+    and the mask) and its plain version."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import heat as heat_ops
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+
+    h, p, st = sim.heat, sim.params, sim.state
+    T0, scale, src_t, _ = heat_mod._local_cg_sources(p, h, st)
+    temp = st.temperature.to(p.dtype).clone()
+    k, q = _heat_ws_copy(h.ws), _heat_ws_copy(h.ws)
+    for ws in (k, q):
+        ws.src.copy_(src_t)
+        heat_ops.prepare(ws, False, 1)
+    tk, tq = temp.clone(), temp.clone()
+    heat_ops.cg_begin(k, k.op_t, True, tk, T0, scale, 1e-10, 1000)
+    heat_ops.cg_begin_plain(q, q.op_t, True, tq, T0, scale, 1e-10, 1000)
+    # PyTorch's CUDA division by a scalar multiplies by its reciprocal, the
+    # kernel divides (as the plain version does on the CPU): an ulp apart
+    x_sc = float(q.cg.x.abs().max())
+    x_err = float((k.cg.x - q.cg.x).abs().max())
+    check(x_err <= 1e-6 * x_sc, f"heat_cg_begin: x0 error {x_err} of {x_sc}")
+    b = torch.where(q.op_t[3], q.cg.x[0] + q.src, 0.0)
+    sc = float(b.abs().max())
+    err = max(float((getattr(k.cg, f) - getattr(q.cg, f)).abs().max()) for f in ("r", "p"))
+    err = max(err, x_err)
+    check(sc > 0 and err <= 1e-5 * sc, f"heat_cg_begin: r, p error {err} of {sc}")
+    for f in ("rr", "rz", "thresh2"):
+        a_, b_ = float(getattr(k.cg, f)), float(getattr(q.cg, f))
+        check(abs(a_ - b_) <= 1e-4 * abs(b_), f"heat_cg_begin: {f} {a_} against {b_}")
+    for f in ("act", "iters", "ctl", "cond"):
+        check(torch.equal(getattr(k.cg, f), getattr(q.cg, f)), f"heat_cg_begin: {f} differs")
+    q.cg.x.copy_(k.cg.x + 1e-4 * torch.rand(k.cg.x.shape, generator=torch.Generator(
+        ).manual_seed(2)).to(k.cg.x))
+    k.cg.x.copy_(q.cg.x)
+    heat_ops.cg_end(k, tk, T0, scale, False, 0)
+    heat_ops.cg_end_plain(q, tq, T0, scale, False, 0)
+    check(torch.equal(tk, tq), "heat_cg_end: the field differs from the plain version's")
+    check(k.log.tolist() == q.log.tolist() and k.k.tolist() == q.k.tolist()
+          and k.cond.tolist() == q.cond.tolist(), "heat_cg_end: counters differ")
+    ms_b = time_ms(lambda: heat_ops.cg_begin(k, k.op_t, True, tk, T0, scale, 1e-10, 1000))
+    plain_b = time_ms(lambda: heat_ops.cg_begin_plain(q, q.op_t, True, tq, T0, scale, 1e-10,
+                                                      1000), reps=5, rounds=3)
+    ms_e = time_ms(lambda: heat_ops.cg_end(k, tk, T0, scale, False, 0))
+    plain_e = time_ms(lambda: heat_ops.cg_end_plain(q, tq, T0, scale, False, 0), reps=5,
+                      rounds=3)
+    mask = h.interface_mask
+    n, n_i = int(mask.shape[0]), int(mask.sum())
+    slots = int(k.cg.row_len[mask].clamp(min=0).sum())
+    isz = temp.element_size()
+    bytes_b = slots * (isz + 4) + n_i * isz + n * (2 * isz + 1 + 4) + 3 * n * isz
+    bytes_e = n_i * 2 * isz + n
+    bound_b, by_b = _bound(2 * slots + 10 * n_i, bytes_b)
+    bound_e, by_e = _bound(2 * n_i, bytes_e)
+    out = dict(n=n, interface=n_i, slots=slots,
+               begin=dict(err=err, ms=ms_b, plain_ms=plain_b, bound_ms=bound_b, bound_by=by_b),
+               end=dict(err=0.0, ms=ms_e, plain_ms=plain_e, bound_ms=bound_e, bound_by=by_e))
+    log(f"heat CG kernels at the crossbar's local model ({n} sites, {n_i} on the interface, "
+        f"{slots} valid slots): heat_cg_begin {ms_b:.5f} ms (bound {bound_b:.5f}, {by_b}; "
+        f"plain {plain_b:.5f}; r, p error {err:.3e} of {sc:.3e}), heat_cg_end {ms_e:.5f} ms "
+        f"(bound {bound_e:.5f}, {by_e}; plain {plain_e:.5f}; bit-equal)")
+    return out
+
+
+def heat_phase_timing(sim, extra=(), reps=5):
+    """The local heat phase alone at the run's last state, at its last step
+    time and at ``extra`` step times (in units of delta_t): captured once
+    (a graph of the update in its device form: each branch a WHILE node,
+    the CG's nested in the substep's; the step time a device input; CUDA
+    events around its replays) and from the host loop of the same kernels
+    (wall ms between synchronizations, the median of ``reps``), with the
+    branch, substeps and CG iterations; the two results bit-equal."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.graph import Graph
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+
+    g, p, h = sim.geom, sim.params, sim.heat
+    upd = heat_mod.update_temperature_local if h.method == "dense" \
+        else heat_mod.update_temperature_local_cg
+    times = [float(sim.step_log[-1]["step_time"])] + [m * p.delta_t for m in extra]
+    state = dataclasses.replace(sim.state, temperature=sim.state.temperature.clone(),
+                                power=sim.state.power.clone(),
+                                element=sim.state.element.clone())
+    dstate = dataclasses.replace(state, T_bg=torch.tensor(float(state.T_bg),
+                                                          dtype=torch.float64, device="cuda"))
+    st_t = torch.tensor(times[0], dtype=torch.float64, device="cuda")
+    graph = Graph(lambda: upd(g, p, h, dstate, st_t), "cuda")
+    out = []
+    for step_time in times:
+        st_t.fill_(step_time)
+        temp = graph()[0].temperature.clone()
+        log_g = h.ws.log.tolist()
+        ms_graph = time_ms(graph, reps=reps, rounds=3, warmup=1)
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host, _ = upd(g, p, h, state, step_time)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        check(torch.equal(host.temperature, temp) and h.ws.log.tolist() == log_g,
+              "local heat phase: captured and host loop differ")
+        res = dict(method=h.method, step_time=step_time,
+                   branch=("transient", "steady")[log_g[0]], substeps=log_g[1],
+                   cg_iters=log_g[2], ms_graph=ms_graph, ms_host_loop=statistics.median(walls),
+                   ms_per_cg_iteration_graph=ms_graph / log_g[2] if log_g[2] else None)
+        log(f"local heat phase ({h.method}) alone at step time {step_time:.4g} s: "
+            f"{res['branch']} branch, {log_g[1]} substeps, {log_g[2]} CG iterations; captured "
+            f"{ms_graph:.4f} ms, host loop of the same kernels {res['ms_host_loop']:.4f} ms "
+            f"(median of {reps}), bit-equal")
+        out.append(res)
+    return out
+
+
+def dense_heat_path(out_root, n_steps=SMALL_HEAT_STEPS, Vd=10.0):
+    """Phase 5, the dense local model: the small stack with blocked
+    transport on the fly and the dense propagators, eager (counters to 0 and
+    read) then on the captured graph, bit for bit step for step (the
+    temperature field, T_bg and the loops' log too), in turns; then kernel 1
+    against its plain version (dense_substep_checks) and the heat phase
+    alone, captured and from the host loop.  Returns (graph summary, kernel
+    record, phase timing)."""
+    import torch
+
+    from devicekmc_tpu_torch import engine
+
+    def make(d):
+        return small_device("cuda", d, current=True, solve_heating_local=True,
+                            heat_solver="dense")
+
+    sim_e = make(os.path.join(out_root, "small_heat_dense_eager"))
+    sim_e._make = engine.make_superstep
+    check(sim_e.heat.method == "dense" and sim_e.params.transport_cc == "fly",
+          "small stack dense heat: options")
+    recs_e = transport_record(sim_e)
+    sim_e.run_bias_point(Vd, 1e30, max_steps=n_steps)
+    sim_e.__dict__.pop("_superstep", None)
+    sim, summary = transport_graph_phase(
+        out_root, "local", (sim_e, recs_e), second_point=False, n_steps=n_steps,
+        tag="small stack local heat (dense) graph", make=make, Vd=Vd)
+    rec = dense_substep_checks(sim.heat)
+    # the run's steps take the steady branch: the transient loop at 151
+    # substeps too
+    timing = heat_phase_timing(sim, extra=(150.5,))
+    del sim, sim_e
+    torch.cuda.empty_cache()
+    return summary, rec, timing
+
+
+def heat_records(dense, dgraph, cg, lgraph):
+    """The kernels JSON records of csrc/heat.cu's three kernels (``dense``:
+    dense_substep_checks, ``cg``: heat_cg_checks; the graph runs' summaries
+    ``dgraph`` (the small stack, dense) and ``lgraph`` (the crossbar,
+    matrix-free), whose counts on the card are their launches)."""
+    src = "devicekmc_tpu_torch/csrc/heat.cu"
+    run = dense["run"]
+    recs = [{
+        "name": "heat_dense_substep", "route": "cuda", "source": src,
+        "replaces": "devicekmc_tpu/physics/heat.py:271",
+        "launches": dgraph["launches_card"]["heat_dense_substep"], "max_abs_err": run["err"],
+        "ms": run["ms"], "plain_ms": run["plain_ms"], "bound_ms": run["bound_ms"],
+        "bound_by": run["bound_by"], "library_ms": run["library_ms"],
+        "library": "torch.mv(L_inv, u), the product alone",
+        "shape": f"ni={run['ni']} ({run['dtype']}), the small stack's interface",
+        "path": "the small stack with transport on the fly and the dense local model, "
+                "captured graph", "ref_ni": dense["ref"],
+        "computes": "one substep of the dense local model (the steady pass with L_ss_inv): "
+                    "the propagator's row products, the field and the next right-hand side, "
+                    "the counter and the WHILE predicate"}]
+    for name, key, note in (
+            ("heat_cg_begin", "begin", "the set-up of one CG solve of the matrix-free local "
+             "model: x0 from the field, b, r = p = b - A x0, r.r, the threshold, the inner "
+             "predicate"),
+            ("heat_cg_end", "end", "the end of one CG solve: the field written back, the "
+             "iterations summed, the substep counter and the outer predicate")):
+        r = cg[key]
+        recs.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": "devicekmc_tpu/physics/heat.py:351",
+            "launches": lgraph["launches_card"][name], "max_abs_err": r["err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library_none": "no one PyTorch call computes it",
+            "shape": f"N={cg['n']}, {cg['interface']} interface sites, {cg['slots']} slots",
+            "path": "the crossbar's heat path with the matrix-free local model, captured "
+                    "graph", "computes": note})
+    return recs
+
+
 def heat_path(out_root):
     """Phase 5: the heat runs (global, then local), then the dissipation
-    kernel's checks; returns every kernel's launches on the global run and
-    the new kernel's record."""
+    kernel's checks; the local runs (the crossbar's matrix-free model and the
+    small stack's dense one) each on the captured graph against the eager
+    driver, the heat kernels against their plain versions and the local heat
+    phase alone.  Returns every kernel's launches on the global run, the
+    global graph's summary, the dissipation kernel's record and the local
+    model's (summaries, kernel records, phase timings)."""
     import torch
 
     from devicekmc_tpu_torch.ops.banded import banded_matvec
@@ -2705,9 +3057,20 @@ def heat_path(out_root):
     del sim, blk, f
     torch.cuda.empty_cache()
 
-    _, local_launches, _ = heat_run(out_root, "local", LOCAL_HEAT_STEPS, wrappers)
+    sim_l, local_launches, recs_l = heat_run(out_root, "local", LOCAL_HEAT_STEPS, wrappers)
+    lsim, lgraph = transport_graph_phase(out_root, "local", (sim_l, recs_l),
+                                         second_point=False, n_steps=LOCAL_HEAT_STEPS)
+    del recs_l, sim_l
     torch.cuda.empty_cache()
+    cg_rec = heat_cg_checks(lsim)
+    ltiming = heat_phase_timing(lsim)
+    del lsim
+    torch.cuda.empty_cache()
+    dgraph, dense_rec, dtiming = dense_heat_path(out_root)
     n_mp = rec["n"]
+    local = dict(lgraph=lgraph, dgraph=dgraph, records=heat_records(dense_rec, dgraph, cg_rec,
+                                                                      lgraph),
+                 timing={"crossbar_cg": ltiming, "small_stack_dense": dtiming})
     return launches, graph_summary, {
         "name": "wkb_fly_pdisp", "route": "cuda",
         "source": "devicekmc_tpu_torch/csrc/wkb_fly.cu",
@@ -2726,7 +3089,7 @@ def heat_path(out_root):
             "plain_ms": ref["plain_ms"], "stored_sweep_ms": ref["stored_sweep_ms"],
             "max_abs_err": ref["err"], "max_err_of_largest_sum": ref["rel_err"],
         },
-    }
+    }, local
 
 
 # ---------------------------------------------------------------------------
@@ -3517,17 +3880,21 @@ def modular_path(out_root, ref):
 def bf16_transport_path(out_root, f32_steps):
     """Phase 9: the transport configuration with transport_bf16_inner (at
     transport_tol BF16_TRANSPORT_TOL, so that it stops where phase 4 does),
-    counters set to 0 just before run_bias_point and read just after: the
-    cold solves and BF16_STEPS supersteps; every solve converged, I_macro
-    finite and positive, every transport kernel launched, the band bf16.
-    cg_iters_power and I_macro beside the f32 inner run's (``f32_steps``,
-    phase 4).  Then the bf16 band kernel against its plain version on the
-    run's band (``band_checks``).  Returns its record and the run's
-    launches."""
+    on the eager driver, counters set to 0 just before run_bias_point and
+    read just after: the cold solves and BF16_STEPS supersteps; every solve
+    converged, I_macro finite and positive, every transport kernel launched,
+    the band bf16.  cg_iters_power and I_macro beside the f32 inner run's
+    (``f32_steps``, phase 4).  Then the main path: the same run on the
+    captured graph (transport_graph_phase: counters to 0 around it, bit for
+    bit step for step against the eager run, in turns, 1 device-to-host copy
+    a graph superstep).  Then the bf16 band kernel against its plain version
+    on the run's band (``band_checks``).  Returns its record, the eager run's
+    launches and the graph's summary."""
     import math
 
     import torch
 
+    from devicekmc_tpu_torch import engine
     from devicekmc_tpu_torch.ops.banded import banded_matvec
     from devicekmc_tpu_torch.ops.ell_gather import ell_gather
     from devicekmc_tpu_torch.ops.kmc_events import kmc_event_loop
@@ -3535,9 +3902,11 @@ def bf16_transport_path(out_root, f32_steps):
     from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matmat, wkb_fly_matvec, wkb_fly_pdisp
     from devicekmc_tpu_torch.ops.wkb_window import wkb_window_block
 
+    bf16 = dict(transport_bf16_inner=True, transport_tol=BF16_TRANSPORT_TOL)
     sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "transport_bf16"),
-                             current=True, transport_bf16_inner=True,
-                             transport_tol=BF16_TRANSPORT_TOL)
+                             current=True, **bf16)
+    sim._make = engine.make_superstep
+    recs = transport_record(sim)
     vdt = sim._band["slots"].val.dtype
     check(vdt == torch.bfloat16, f"the band is {vdt}, not bf16")
     wrappers = {"ell_gather": ell_gather, "poisson_pairwise": poisson_pairwise,
@@ -3551,6 +3920,7 @@ def bf16_transport_path(out_root, f32_steps):
     sim.run_bias_point(VD_MAIN, 1e30, max_steps=BF16_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    sim.__dict__.pop("_superstep", None)
     launches = {name: w.launches for name, w in wrappers.items()}
     for name, n in launches.items():
         if name == "wkb_fly_pdisp":
@@ -3566,13 +3936,20 @@ def bf16_transport_path(out_root, f32_steps):
     for pre in sim.presolve_log:
         log(f"cold {pre['phase']} solve (bf16 inner): {pre['cg_iters']} CG iterations, "
             f"{pre['s'] * 1e3:.1f} ms")
-    log(f"bf16 transport path: run_bias_point (cold solves + {BF16_STEPS} supersteps) in "
-        f"{wall:.2f} s; launches {launches} (every band launch bf16)")
+    log(f"bf16 transport path, eager: run_bias_point (cold solves + {BF16_STEPS} supersteps) "
+        f"in {wall:.2f} s; launches {launches} (every band launch bf16)")
     for a, b in zip(steps, f32_steps):
         log(f"  step {a['step']}: {a['Z - calculation time - KMC superstep [s]'] * 1e3:.2f} ms, "
             f"events {int(a['n_events'])} (f32 inner {int(b['n_events'])}), cg_iters_power "
             f"{int(a['cg_iters_power'])} (f32 inner {int(b['cg_iters_power'])}), Current "
             f"{a['Current [uA]']:.9g} uA (f32 inner {b['Current [uA]']:.9g})")
+
+    # ---- the main path: the same run on the captured graph ----
+    gsim, graph = transport_graph_phase(out_root, None, (sim, recs), second_point=False,
+                                        n_steps=BF16_STEPS, tag="bf16 transport graph", **bf16)
+    check(gsim._band["slots"].val.dtype == torch.bfloat16, "bf16 graph: the band is not bf16")
+    del gsim, recs
+    torch.cuda.empty_cache()
 
     # ---- the bf16 band kernel at the run's band ----
     rec = band_checks(sim._band, sim.geom.N_atom)
@@ -3580,7 +3957,10 @@ def bf16_transport_path(out_root, f32_steps):
         "name": "banded_matvec_bf16", "route": "cuda",
         "source": "devicekmc_tpu_torch/csrc/banded.cu",
         "replaces": "devicekmc_tpu/ops/banded_pallas.py:74",
-        "launches": launches["banded_matvec"], "max_abs_err": rec["err"],
+        "launches": graph["launches_card"]["banded_matvec_out"],
+        "launches_eager_run": launches["banded_matvec"],
+        "launches_graph_run_cold_solves": graph["launches_host"]["banded_matvec"],
+        "max_abs_err": rec["err"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         "library": "torch.sparse.mm (CSR, the bf16 values widened to f32)",
@@ -3589,14 +3969,15 @@ def bf16_transport_path(out_root, f32_steps):
                                      "slot_bytes", "longest_row", "pad_share",
                                      "err_rounded")},
         "path": "transport with transport_bf16_inner (cold solves + "
-                f"{BF16_STEPS} supersteps)",
+                f"{BF16_STEPS} supersteps), captured graph: the out= entry's launches on the "
+                "card",
         "cg_iters_power": [int(s["cg_iters_power"]) for s in steps],
         "cg_iters_power_f32_inner": [int(s["cg_iters_power"]) for s in f32_steps[:BF16_STEPS]],
         "cold_cg_iters": [p["cg_iters"] for p in sim.presolve_log],
         "current_uA": [s["Current [uA]"] for s in steps],
         "current_uA_f32_inner": [s["Current [uA]"] for s in f32_steps[:BF16_STEPS]],
     }
-    return record, launches
+    return record, launches, graph
 
 
 # ---------------------------------------------------------------------------
@@ -5207,7 +5588,7 @@ def main():
         t_lap[0] = t
 
     libs = ["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window", "kmc_events",
-            "graph", "boundary_cg", "transport_cg"]
+            "graph", "boundary_cg", "transport_cg", "heat"]
     latency_job = start_latency_build()
     _build.build(libs)
     finish_latency_build(latency_job)
@@ -5248,7 +5629,7 @@ def main():
     kernels += records
     torch.cuda.empty_cache()
     lap("transport")
-    heat_launches, hgraph, pdisp = heat_path(out_root)
+    heat_launches, hgraph, pdisp, local_heat = heat_path(out_root)
     torch.cuda.empty_cache()
     lap("heat")
     readbacks_ref = cg_reference_run(out_root, (presolve, steps))
@@ -5267,7 +5648,7 @@ def main():
           and ckpt_small_launches["wkb_fly_matvec"] + ckpt_small_launches["wkb_fly_matvec_out"]
           > 0, f"checkpointed transport runs: launches {ckpt_small_launches}")
     torch.cuda.empty_cache()
-    bf16_record, bf16_launches = bf16_transport_path(out_root, steps)
+    bf16_record, bf16_launches, bgraph = bf16_transport_path(out_root, steps)
     torch.cuda.empty_cache()
     log(f"modular, checkpoint and bf16 phases in {time.perf_counter() - t0:.1f} s")
     lap("modular, checkpoint, bf16")
@@ -5352,9 +5733,37 @@ def main():
     for rec in tcg_records:
         rec["launches_heat_graph_run"] = hgraph["launches_card"][rec["name"]]
     kernels += tcg_records
+    kernels += local_heat["records"]
+    # the launches of the bf16 and local-heat graph runs (phases 9 and 5):
+    # the card's counts of the kernels that count there, else the wrappers'
+    for k in kernels:
+        for tag, summ in (("bf16_graph_run", bgraph), ("local_heat_graph_run",
+                                                       local_heat["lgraph"]),
+                          ("small_stack_dense_heat_graph_run", local_heat["dgraph"])):
+            name = {"banded_matvec": "banded_matvec_out", "banded_matvec_bf16":
+                    "banded_matvec_out", "wkb_fly_matvec": "wkb_fly_matvec_out"}.get(
+                        k["name"], k["name"])
+            if k["name"].startswith("banded_matvec") \
+                    and k["name"].endswith("bf16") != tag.startswith("bf16"):
+                # the band's out= entry ran in the other storage in this run
+                k[f"launches_{tag}"] = 0
+            elif name in summ["launches_card"]:
+                k[f"launches_{tag}"] = summ["launches_card"][name]
+            elif name in summ["launches_host"]:
+                k[f"launches_{tag}"] = summ["launches_host"][name]
+    for k in kernels:
+        if k["name"] in ("cg_matvec_dot", "cg_update_direction"):
+            # the matrix-free local model's CG runs the boundary build: one
+            # launch of each an iteration, as the card counts them
+            k["launches_local_heat_graph_run"] = local_heat["lgraph"]["local_heat"][
+                "cg_iters_card"]
     log("headline graph summary: " + json.dumps({**headline, **cg_summary}))
     log("transport graph summary: " + json.dumps(tgraph))
     log("heat (global) graph summary: " + json.dumps(hgraph))
+    log("heat (local) graph summaries: " + json.dumps({
+        "crossbar_cg": local_heat["lgraph"], "small_stack_dense": local_heat["dgraph"],
+        "heat_phase_alone": local_heat["timing"]}))
+    log("bf16 transport graph summary: " + json.dumps(bgraph))
     log(f"profiled calls taken again after a trace without device records: "
         f"{len(empty_traces)} {empty_traces}; launches in the traces of the profiled calls "
         f"against their counts: {traced_totals()}")

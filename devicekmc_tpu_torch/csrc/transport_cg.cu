@@ -18,8 +18,9 @@
 //                     T_vm^T x_v, the bump over the bucket's neighbours
 //                     (f32 build) and the two virtual-node dots; it runs on
 //                     a branch beside the band (ops/transport_cg.products)
-//   transport_rows    every row (band or ELL part, bump, metal row through
-//                     mp_inv, vacancy slot, virtual rows, diagonal, dsi);
+//   transport_rows    every row (band or ELL part, a bf16 band's row_fix,
+//                     bump, metal row through mp_inv, vacancy slot,
+//                     virtual rows, diagonal, dsi);
 //                     the f32 build writes ap and alpha = r.z / p.ap (the
 //                     inner CG's step, as cg_matvec_dot does), the f64
 //                     build r = b - A x and r.r
@@ -70,7 +71,12 @@
 //   * the row arithmetic spells out each rounding (products rounded on
 //     their own, then added) in the order of the plain version, so that a
 //     row differs from it only through the sums that reduce in another
-//     order;
+//     order; a bf16 band's row_fix x is added to the band's value first, a
+//     rounded product and a rounded sum, where the eager bf16 operator adds
+//     it (physics/current.py _band_unpermute), not folded into the f32
+//     diagonal at assembly: (diag + row_fix) x would round once where the
+//     plain version rounds twice, so the CPU result would no longer be
+//     cg_solve_mixed's bit for bit;
 //   * nothing allocates: every buffer comes from the caller, so the
 //     launches can be captured into the body of a WHILE node.
 
@@ -428,9 +434,11 @@ struct RowsArgs {
   // the scaled vector [n_full]
   const T* xs;
   // lo: the band's product in its permuted layout and the inverse
-  // permutation [na]; the bump [vcap]
+  // permutation [na]; a bf16 band's row_fix [na] (null: an f32 band); the
+  // bump [vcap]
   const float* band_y;
   const int* inv;
+  const float* row_fix;
   const float* y_bump;
   // hi: the ELL neighbour conductances [na, max_nn] (f64) over the atom
   // graph [na, max_nn] (int32, pad -1)
@@ -484,6 +492,9 @@ __global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs<T> A)
       const int a = i - 2;
       if (kLo) {
         y = (T)__ldcg(A.band_y + A.inv[a]);
+        // a bf16 band's rounding of the row, put back on the diagonal as
+        // physics/current.py _band_unpermute adds it: y + row_fix x
+        if (A.row_fix != nullptr) y = add_rn(y, mul_rn((T)A.row_fix[a], A.xs[i]));
       } else {
         y = 0;
         const int* nb = A.anb + (size_t)a * A.max_nn;
@@ -770,7 +781,8 @@ extern "C" int dkmc_transport_blocks(
 }
 
 extern "C" int dkmc_transport_rows(
-    int is_f64, const void* xs, const void* band_y, const void* inv, const void* y_bump,
+    int is_f64, const void* xs, const void* band_y, const void* inv, const void* row_fix,
+    const void* y_bump,
     const void* nbv, const void* anb, const void* vslot, const void* mp_inv, const void* y_cc,
     const void* mv, const void* y_vm, const void* y_vv, const void* dots, const void* gnd,
     const void* src, const void* diag, const void* dsi, double loop_G, int na, int max_nn,
@@ -786,6 +798,7 @@ extern "C" int dkmc_transport_rows(
     A.xs = static_cast<const T*>(xs);
     A.band_y = static_cast<const float*>(band_y);
     A.inv = static_cast<const int*>(inv);
+    A.row_fix = static_cast<const float*>(row_fix);
     A.y_bump = static_cast<const float*>(y_bump);
     A.nbv = static_cast<const double*>(nbv);
     A.anb = static_cast<const int*>(anb);

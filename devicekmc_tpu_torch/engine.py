@@ -383,8 +383,9 @@ class Simulation:
                 or graph_ready(params, band=self._band is not None) is not None):
             return None
         if self._graph is None:
-            self._graph = SuperstepGraph(self.geom, params, 1)
+            self._graph = SuperstepGraph(self.geom, params, 1, heat=self.heat)
         self._graph.set_params(params)
+        self._graph.set_heat(self.heat)
         return self._graph
 
     def _msuperstep(self, state, Vd, Icc_A, t_end, limit):

@@ -180,7 +180,9 @@ class Operator(NamedTuple):
     the scaled right-hand side ``b`` (f64); the diagonal ``diag`` / ``diag32``
     [Na + 2]; the virtual rows ``gnd`` / ``gnd32`` / ``src`` / ``src32`` [Na],
     nonzero on atoms ``gnd_lo`` .. Na - 1 and 0 .. ``nsi`` - 1, and
-    ``loop_G``; the band's ``slots`` (``ops.banded.BandSlots``); the bump
+    ``loop_G``; the band's ``slots`` (``ops.banded.BandSlots``, f32 or bf16)
+    and with bf16 slots its ``row_fix`` [Na] (f32, each row's rounding put
+    back on the diagonal of the inner product; None: none); the bump
     ``dyn`` [vcap, max_nn] (f32); the ELL conductances ``nbv`` [Na, max_nn]
     (f64) over the atom graph ``anb`` (int32, pad -1); the vacancy blocks
     ``T_vm`` [vcap, n_mp] and ``T_vv`` [vcap, vcap] (f32), the bucket
@@ -204,6 +206,7 @@ class Operator(NamedTuple):
     nsi: int
     loop_G: float
     slots: BandSlots
+    row_fix: Optional[torch.Tensor]
     dyn: torch.Tensor
     nbv: torch.Tensor
     anb: torch.Tensor
@@ -243,7 +246,7 @@ def _fn(symbol):
         fn.argtypes = {
             "dkmc_transport_pack": [p, p, p, p, i, p, i, p, p, p, p],
             "dkmc_transport_blocks": [i] + [p] * 10 + [i] * 6 + [p] * 10,
-            "dkmc_transport_rows": [i] + [p] * 17 + [d, i, i] + [p] * 12,
+            "dkmc_transport_rows": [i] + [p] * 18 + [d, i, i] + [p] * 12,
             "dkmc_transport_refine": [p] * 27 + [i, p, p, d, i, i, i, i, u, p, p],
         }[symbol]
         fn.restype = ctypes.c_int
@@ -365,17 +368,20 @@ def rows_plain(tw: Workspace, op: Operator, hi: bool) -> None:
 
 def rows(tw: Workspace, op: Operator, hi: bool, stream=None) -> None:
     """Every row of the product from the packed vector and the outputs of
-    the band (not ``hi``: else the ELL part), the metal block and
-    :func:`blocks`: the inner CG's ``ap = A p`` and its step ``alpha = r.z /
-    p.ap`` (f32), or the refinement's residual ``r = b - A x`` and its r.r
-    (``hi``, f64)."""
+    the band (not ``hi``: else the ELL part; with a bf16 band its
+    ``row_fix`` times the row's entry added to the band's value, a product
+    and a sum each rounded, as ``physics.current._band_unpermute`` adds
+    it), the metal block and :func:`blocks`: the inner CG's ``ap = A p`` and
+    its step ``alpha = r.z / p.ap`` (f32), or the refinement's residual ``r
+    = b - A x`` and its r.r (``hi``, f64)."""
     if tw.x.device.type == "cpu":
         return rows_plain(tw, op, hi)
     c = tw.cg
     na, max_nn = op.anb.shape
     _launched("transport_rows", _fn("dkmc_transport_rows")(
         int(hi), _ptr(tw.xs64 if hi else tw.xs32), None if hi else _ptr(tw.band_y),
-        _ptr(tw.inv32), None if hi else _ptr(tw.y_bump), _ptr(op.nbv) if hi else None,
+        _ptr(tw.inv32), None if hi else _ptr(op.row_fix), None if hi else _ptr(tw.y_bump),
+        _ptr(op.nbv) if hi else None,
         _ptr(op.anb), _ptr(op.vslot), _ptr(op.mp_inv), _ptr(tw.y_cc), _ptr(tw.mv),
         _ptr(tw.y_vm), _ptr(tw.y_vv), _ptr(tw.dots64 if hi else tw.dots32),
         _ptr(op.gnd if hi else op.gnd32), _ptr(op.src if hi else op.src32),

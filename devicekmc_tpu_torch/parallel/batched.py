@@ -96,7 +96,7 @@ def make_batched_superstep(geom: Geometry, params: PhysParams, heat, mesh=None,
         def superstep(states: SimState, Vd: float):
             B = batch_size(states)
             if B not in graphs:
-                graphs[B] = SuperstepGraph(geom, params, B)
+                graphs[B] = SuperstepGraph(geom, params, B, heat=heat)
             return graphs[B].step_batched(states, Vd)
 
         superstep.graphs = graphs

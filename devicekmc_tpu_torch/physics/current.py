@@ -69,7 +69,7 @@ from ..ops import transport_cg
 from ..ops.compact import nonzero_fixed, nonzero_fixed_batched
 from ..ops.wkb_fly import wkb_fly_matmat, wkb_fly_matvec, wkb_fly_pdisp
 from ..ops.wkb_window import wkb_window_block
-from ..state import Geometry, PhysParams, SimState, replace
+from ..state import Geometry, PhysParams, SimState, _as_dtype, replace
 from ..structure import Element
 
 #: conductance-quantum prefactor: G = G0 * T_ij
@@ -566,14 +566,13 @@ def assemble_X_blocks(
         out["band"] = band
         out["band_dyn_vals"] = torch.where(hi_dyn, bump, 0.0)
         out["band_vnb_safe"] = vsafe
-    if bf16_inner(params):
+    if bf16_inner(params) and not cc_fly:
         # bf16 twins of the tunnel blocks for the f32 inner iterations only;
         # the f64 refinement keeps the f32 blocks, so the converged answer is
         # unchanged.  Under transport_cc="fly" the metal block has no stored
-        # form: only the vacancy blocks get twins (and _apply_X_blocks then
-        # reads none of them, as the JAX package does)
-        if not cc_fly:
-            out["T_cc16"] = T_cc.to(torch.bfloat16)
+        # form and _apply_X_blocks reads no twin (as the JAX package does), so
+        # none is made
+        out["T_cc16"] = T_cc.to(torch.bfloat16)
         out["T_vv16"] = T_vv.to(torch.bfloat16)
         out["T_vm16"] = T_vm.to(torch.bfloat16)
     return out
@@ -1146,8 +1145,9 @@ def device_form_reason(params: PhysParams) -> Optional[str]:
     """Why the in-superstep transport solve of ``params`` does not run as the
     transport CG's device loops (``ops.transport_cg``); None when it does:
     blocked, mixed precision, the on-the-fly metal block, the Jacobi warm
-    preconditioner, no bf16 inner operator (and, at the call, the static
-    band: :func:`warm_device_form`)."""
+    preconditioner (and, at the call, the static band:
+    :func:`warm_device_form`), with or without the bf16 inner operator
+    (under fly the bf16 band and its ``row_fix`` diagonal)."""
     if params.transport != "blocked":
         return f"transport={params.transport!r}: the dense transport solve runs eagerly"
     if not params.mixed:
@@ -1158,8 +1158,6 @@ def device_form_reason(params: PhysParams) -> Optional[str]:
     if params.transport_warm_precond != "jacobi":
         return (f"transport_warm_precond={params.transport_warm_precond!r}: the deflated "
                 "warm re-solve runs eagerly")
-    if params.transport_bf16_inner:
-        return "transport_bf16_inner: the bf16 inner operator runs eagerly"
     return None
 
 
@@ -1194,7 +1192,11 @@ def _update_power_warm_device(
     two nested WHILE nodes), the current, and with heating the site power.
     ``go`` [1] bool: False runs no refinement round.  Returns the new state
     fields and the metrics, 0-d tensors where they are scalars (the
-    arithmetic of :func:`update_power_blocked`'s mixed branch)."""
+    arithmetic of :func:`update_power_blocked`'s mixed branch: with
+    ``transport_bf16_inner`` the bf16 band and its ``row_fix`` in the inner
+    product, the tolerance tightened as there)."""
+    if bf16_inner(params):
+        cg_tol = cg_tol * 1e-2
     dtype = params.dtype
     dev = geom.device
     Na = geom.N_atom
@@ -1219,7 +1221,8 @@ def _update_power_warm_device(
         diag32=diag.to(torch.float32), gnd=gnd, gnd32=gnd.to(torch.float32), src=src,
         src32=src.to(torch.float32), gnd_lo=max(0, min(Na, Na - params.num_ground_ext + 1)),
         nsi=max(0, min(Na, nsi)), loop_G=loop_G, slots=band["slots"],
-        dyn=blk["band_dyn_vals"].contiguous(), nbv=blk["nb_vals"].contiguous(),
+        row_fix=band.get("row_fix"), dyn=blk["band_dyn_vals"].contiguous(),
+        nbv=blk["nb_vals"].contiguous(),
         anb=geom.atom_neigh_idx, T_vm=blk["T_vm"].contiguous(), T_vv=blk["T_vv"].contiguous(),
         vidx=blk["vidx32"], vslot=blk["vslot"], n_vac=blk["n_vac"],
         mp_inv=geom.atom_metalp_inv, mp=blk["mp"], mpos=f["mpos"], mcb=f["mcb"], env=f["env"],
@@ -1357,7 +1360,8 @@ def update_power(
     outright (the modular driver's bounded warm segments)."""
     if cg_tol is None:
         cg_tol = params.transport_tol
-    Vd = float(torch.tensor(Vd, dtype=params.dtype))
+    # rounded to the working dtype on the host (no tensor: nothing to read)
+    Vd = _as_dtype(float(Vd), params.dtype)
     blocked = params.transport == "blocked" and method != "direct"
     if precond is None and allow_skip:
         precond = params.transport_warm_precond
@@ -1423,7 +1427,7 @@ def transport_unchanged(geom: Geometry, params: PhysParams, state: SimState,
     constant within a bias point).  Then that solution IS the solution.  No
     read: the state's scalars may be host numbers or 0-d device tensors."""
     dev = geom.device
-    Vd = float(torch.tensor(Vd, dtype=params.dtype))
+    Vd = _as_dtype(float(Vd), params.dtype)
     ai = geom.atom_ind.long()
     return ((_f64(state.transport_Vd_prev, dev) == _f64(Vd, dev))
             & (state.element[ai] == state.trans_elem_prev).all()

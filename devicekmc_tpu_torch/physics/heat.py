@@ -11,10 +11,14 @@ Local model (reference: Device::updateLocalTemperature{,SteadyState},
 src/heat_solver.cpp:354-513): mat-vec with a precomputed inverse of the
 interface graph Laplacian.  The transient propagator (I - dt*tau*L)^-1 and
 the steady-state L^-1 are computed once at set-up on the host in f64
-(reference: constructLaplacian, src/heat_solver.cpp:40-246) and applied as
-``torch.matmul`` per substep (plain products, IEEE f32 in f32 precision).
-The matrix-free variant (``method="cg"``) applies the Laplacian on the ELL
-graph and solves every substep with CG; its loop is driven from the host.
+(reference: constructLaplacian, src/heat_solver.cpp:40-246) and applied once
+a substep.  The matrix-free variant (``method="cg"``) applies the Laplacian
+on the ELL graph and solves every substep with CG.  Both run as the device
+loops of ``ops.heat`` (the JAX package's ``lax.while_loop`` over the
+substeps and ``lax.cond`` between the branches): the branch and the substep
+count are computed on the device from the step time, and a state whose
+scalars are 0-d device tensors (a captured superstep's) keeps T_bg there
+too; a host state gets it back with one read.
 
 Quirk reproduced: the reference's ``p_transfer_vacancies`` is built from
 ``k_th_interface`` and ``p_transfer_non_vacancies`` from ``k_th_vacancies``
@@ -30,15 +34,26 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..ops.cg import cg_solve
+from ..ops import cg as cg_mod
+from ..ops import heat as heat_ops
 from ..state import Geometry, PhysParams, SimState, replace
 from ..structure import Element
 from .current import require_ieee_f32
 
 #: what the last local-model update did: the branch taken ("transient" |
 #: "steady"), its substeps and, for the matrix-free model, the CG iterations
-#: summed over them
+#: summed over them (read from the device loops' counters after the run:
+#: by the update itself on a host state, by ``superstep.SuperstepGraph``
+#: with a replay's result)
 last_local: Dict = {}
+
+
+def note_local(steady, substeps, cg_iters) -> None:
+    """Set :data:`last_local` from the device loops' log (``ops.heat``
+    ``Workspace.log``, read)."""
+    last_local.clear()
+    last_local.update(branch="steady" if steady else "transient", substeps=int(substeps),
+                      cg_iters=int(cg_iters))
 
 
 @dataclass
@@ -66,6 +81,9 @@ class HeatModel:
     # static parts of the matrix-free Laplacian (cg), made at set-up
     nb_int: Optional[torch.Tensor] = None     # [N, max_nn] bool: interface neighbours
     n_int_nb: Optional[torch.Tensor] = None   # [N] float: their count
+    # the device loops' buffers and operator forms (ops.heat.Workspace), made
+    # with the model, before any capture
+    ws: Optional[heat_ops.Workspace] = None
 
 
 def _npd(params: PhysParams):
@@ -101,6 +119,18 @@ def _cg_static(geom: Geometry, mask: torch.Tensor):
     safe = geom.neigh_idx.clamp(min=0).long()
     nb_int = mask[safe] & geom.neigh_valid
     return nb_int, nb_int.sum(dim=1).to(geom.coords.dtype)
+
+
+def _with_device_form(model: HeatModel, geom: Geometry) -> HeatModel:
+    """``model`` with the device loops' workspace (``ops.heat.workspace``):
+    for the matrix-free model the ELL forms of its two operators over the
+    geometry's neighbour list."""
+    if model.n_interface:
+        model.ws = heat_ops.workspace(
+            model.method, model.diag_base.dtype, geom.device, model.interface_idx,
+            neigh_idx=geom.neigh_idx, mask=model.interface_mask, diag_base=model.diag_base,
+            nb_int=model.nb_int, n_int_nb=model.n_int_nb, step_scale=model.step_scale)
+    return model
 
 
 def build_heat_model(
@@ -159,13 +189,13 @@ def build_heat_model(
         z = torch.zeros((0, 0), dtype=dtype, device=dev)
         mask_t = torch.as_tensor(interface_mask, device=dev)
         nb_int, n_int_nb = _cg_static(geom, mask_t)
-        return HeatModel(
+        return _with_device_form(HeatModel(
             L_inv=z, L_ss_inv=z, interface_idx=iidx_t, interface_mask=mask_t,
             diag_base=torch.as_tensor(diag_base, device=dev).to(dtype),
             step_scale=step_scale,
             n_interface=int(ni), n_left=int(n_left), n_right=int(n_right),
             method="cg", nb_int=nb_int, n_int_nb=n_int_nb,
-        )
+        ), geom)
 
     require_ieee_f32("the local heat model's propagator products")
     L = np.zeros((ni, ni), dtype=np.float64)
@@ -187,16 +217,16 @@ def build_heat_model(
 
     L_inv = np.linalg.inv(np.eye(ni) - step_time * L)
     L_ss_inv = np.linalg.inv(L)
-    return HeatModel(
-        L_inv=torch.as_tensor(L_inv, device=dev).to(dtype),
-        L_ss_inv=torch.as_tensor(L_ss_inv, device=dev).to(dtype),
+    return _with_device_form(HeatModel(
+        L_inv=torch.as_tensor(L_inv, device=dev).to(dtype).contiguous(),
+        L_ss_inv=torch.as_tensor(L_ss_inv, device=dev).to(dtype).contiguous(),
         interface_idx=iidx_t,
         interface_mask=torch.zeros(n, dtype=torch.bool, device=dev),
         diag_base=torch.zeros(n, dtype=dtype, device=dev),
         step_scale=step_scale,
         n_interface=int(ni), n_left=int(n_left), n_right=int(n_right),
         method="dense",
-    )
+    ), geom)
 
 
 def empty_heat_model(params: PhysParams, device="cpu") -> HeatModel:
@@ -225,7 +255,8 @@ def heat_from_jax_arrays(heat: dict, geom: Geometry) -> HeatModel:
     )
     if model.method == "cg" and model.n_interface:
         model.nb_int, model.n_int_nb = _cg_static(geom, model.interface_mask)
-    return model
+    model.L_inv, model.L_ss_inv = model.L_inv.contiguous(), model.L_ss_inv.contiguous()
+    return _with_device_form(model, geom)
 
 
 # ----------------------------------------------------------------------------
@@ -304,48 +335,73 @@ def is_steady(params: PhysParams, step_time: float) -> bool:
     return bool(f(step_time) > f(1e3) * f(params.delta_t))
 
 
+def branch(params: PhysParams, step_time, device):
+    """``(steady, n_sub)`` of :func:`is_steady` and :func:`n_substeps`: for a
+    0-d tensor ``step_time`` (a captured superstep's) computed on the device
+    in the working dtype as those compute them (a 0-d bool and a 0-d int32,
+    ``n_sub`` bounded so that a step time far in the steady branch does not
+    overflow it), for a host number on the host."""
+    if not torch.is_tensor(step_time):
+        return is_steady(params, step_time), n_substeps(params, step_time)
+    f = _npd(params)
+    st = step_time.to(device=device, dtype=torch.float64).to(params.dtype)
+    steady = st > float(f(1e3) * f(params.delta_t))
+    n_sub = torch.clamp(torch.floor(st / float(f(params.delta_t))) + 1, max=2 ** 30)
+    return steady, n_sub.to(torch.int32)
+
+
+def _pick(steady, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` on the steady branch, else ``b``: a selection on the device when
+    ``steady`` is a tensor."""
+    if torch.is_tensor(steady):
+        return torch.where(steady, a, b)
+    return a if steady else b
+
+
+def _device_ws(heat: HeatModel) -> heat_ops.Workspace:
+    if heat.ws is None:
+        raise ValueError("the local heat model has no device form: build it with "
+                         "build_heat_model or heat_from_jax_arrays")
+    return heat.ws
+
+
 def update_temperature_local(
     geom: Geometry,
     params: PhysParams,
     heat: HeatModel,
     state: SimState,
-    step_time: float,
+    step_time,
 ) -> Tuple[SimState, Dict]:
     """Transient or steady-state local temperature update with the dense
-    propagators (src/heat_solver.cpp:286-307 dispatch)."""
+    propagators (src/heat_solver.cpp:286-307 dispatch): the device loops of
+    ``ops.heat.run_dense``, the transient one over the substeps of L_inv
+    and the steady pass of L_ss_inv, the branch and the substep count from
+    ``step_time`` (a host number or a 0-d tensor)."""
     require_ieee_f32("the local heat model's propagator products")
     f = _npd(params)
     T0 = float(f(params.background_temp))
     scale = float(f(C.T_1) - f(T0))
+    ws = _device_ws(heat)
     iidx = heat.interface_idx
     P_i = state.power[iidx]
     p_t = _p_transfer(params, state.element[iidx])
-
-    if is_steady(params, step_time):
-        last_local.update(branch="steady", substeps=0, cg_iters=0)
-        t_tr = heat.L_ss_inv @ (P_i * p_t)
-        temp_i = -t_tr * scale + T0
-    else:
-        sub_dt = float(f(params.delta_t) * f(params.tau))
-        n_sub = n_substeps(params, step_time)
-        last_local.update(branch="transient", substeps=n_sub, cg_iters=0)
-        src = P_i * p_t * sub_dt
-        temp_i = state.temperature[iidx]
-        for _ in range(n_sub):
-            t_vec = (temp_i - T0) / scale
-            temp_i = (heat.L_inv @ (t_vec + src)) * scale + T0
-    temp = state.temperature.clone()
-    temp[iidx] = temp_i.to(temp.dtype)
-    return finish_local_temperature(geom, params, state, temp)
+    steady, n_sub = branch(params, step_time, geom.device)
+    temp = state.temperature.to(params.dtype).clone()
+    src = P_i * p_t * float(f(params.delta_t) * f(params.tau))
+    transient = (temp[iidx] - T0) / scale + src
+    ws.u[0].copy_(_pick(steady, P_i * p_t, transient))
+    ws.src.copy_(src)
+    heat_ops.prepare(ws, steady, n_sub)
+    heat_ops.run_dense(ws, heat.L_inv, heat.L_ss_inv, temp, T0, scale)
+    return finish_local_temperature(geom, params, state, temp, ws)
 
 
 def _laplacian_apply(geom: Geometry, heat: HeatModel, x: torch.Tensor) -> torch.Tensor:
     """Matrix-free L @ x on interface sites (adjacency 1 + gamma boundary +
-    negative-degree diagonal), full-length vectors.  Plain indexing: the
-    field may be f64, and the gather kernel moves 32-bit words."""
+    negative-degree diagonal), full-length vectors, from the model's static
+    tables: the operator whose ELL forms the device loops solve
+    (``ops.heat.workspace``)."""
     mask = heat.interface_mask
-    if heat.nb_int is None:
-        heat.nb_int, heat.n_int_nb = _cg_static(geom, mask)
     safe = geom.neigh_idx.clamp(min=0).long()
     xm = torch.where(mask, x, 0.0)
     off = torch.where(heat.nb_int, xm[safe], 0.0).sum(dim=1)
@@ -353,15 +409,34 @@ def _laplacian_apply(geom: Geometry, heat: HeatModel, x: torch.Tensor) -> torch.
     return torch.where(mask, diag * x + off, 0.0)
 
 
-def _local_cg_setup(geom, params, heat, state):
-    """Shared pieces of the matrix-free local model."""
+def _local_cg_sources(params, heat, state):
+    """The shared constants of the matrix-free model and its two sources:
+    ``P p_t s`` of the transient substeps and ``-P p_t`` of the steady solve,
+    on the interface."""
     f = _npd(params)
     T0 = float(f(params.background_temp))
     scale = float(f(C.T_1) - f(T0))
     mask = heat.interface_mask
     p_t_full = torch.where(mask, _p_transfer(params, state.element), 0.0)
     P_full = torch.where(mask, state.power, 0.0)
-    return T0, scale, mask, p_t_full, P_full
+    return T0, scale, P_full * p_t_full * heat.step_scale, -P_full * p_t_full
+
+
+def _run_local_cg(params, heat, state, temp, steady, n_sub, tol, maxiter):
+    """The matrix-free model's loops (``ops.heat.run_cg``) on ``temp`` in
+    place."""
+    ws = _device_ws(heat)
+    T0, scale, src_t, src_s = _local_cg_sources(params, heat, state)
+    ws.src.copy_(_pick(steady, src_s, src_t))
+    heat_ops.prepare(ws, steady, n_sub)
+    heat_ops.run_cg(ws, temp, T0, scale, tol, maxiter)
+    return ws
+
+
+def _cg_iterations(ws) -> int:
+    """The CG iterations of the last run (a read)."""
+    cg_mod.readbacks += 1
+    return int(ws.log[2])
 
 
 def local_cg_transient_window(
@@ -375,24 +450,14 @@ def local_cg_transient_window(
     maxiter: int = 1000,
 ) -> torch.Tensor:
     """Run ``n_sub`` transient substeps of the matrix-free local model on the
-    temperature field ``temp`` and return it.  Each substep is one CG solve
-    warm-started from the current field; whether it met ``tol`` is not
-    checked (the JAX package does not check it either)."""
-    T0, scale, mask, p_t_full, P_full = _local_cg_setup(geom, params, heat, state)
-    s = heat.step_scale
-
-    def matvec(x):
-        return torch.where(mask, x - s * _laplacian_apply(geom, heat, x), 0.0)
-
-    src = P_full * p_t_full * s
-    iters = 0
-    for _ in range(int(n_sub)):
-        t_vec = torch.where(mask, (temp - T0) / scale, 0.0)
-        rhs = torch.where(mask, t_vec + src, 0.0)
-        res = cg_solve(matvec, rhs, x0=t_vec, tol=tol, maxiter=maxiter)
-        iters += res.iters
-        temp = torch.where(mask, res.x * scale + T0, temp)
-    last_local["cg_iters"] = last_local.get("cg_iters", 0) + iters
+    temperature field ``temp`` and return it (the chunked modular driver's
+    segment, the device loops' substeps; adds their CG iterations to
+    :data:`last_local`).  Each substep is one CG solve warm-started from the
+    current field; whether it met ``tol`` is not checked (the JAX package
+    does not check it either)."""
+    temp = temp.to(params.dtype).clone()
+    ws = _run_local_cg(params, heat, state, temp, False, int(n_sub), tol, maxiter)
+    last_local["cg_iters"] = last_local.get("cg_iters", 0) + _cg_iterations(ws)
     return temp
 
 
@@ -406,23 +471,28 @@ def local_cg_steady(
     maxiter: int = 1000,
 ) -> torch.Tensor:
     """The steady-state branch of the matrix-free local model
-    (L T_tr = P*p_t solved as SPD (-L) T_tr = -P*p_t)."""
-    T0, scale, mask, p_t_full, P_full = _local_cg_setup(geom, params, heat, state)
-
-    def matvec(x):
-        return torch.where(mask, -_laplacian_apply(geom, heat, x), 0.0)
-
-    rhs = torch.where(mask, -P_full * p_t_full, 0.0)
-    res = cg_solve(matvec, rhs, tol=tol, maxiter=maxiter)
-    last_local["cg_iters"] = last_local.get("cg_iters", 0) + res.iters
-    return torch.where(mask, -res.x * scale + T0, temp)
+    (L T_tr = P*p_t solved as SPD (-L) T_tr = -P*p_t from 0)."""
+    temp = temp.to(params.dtype).clone()
+    ws = _run_local_cg(params, heat, state, temp, True, 0, tol, maxiter)
+    last_local["cg_iters"] = last_local.get("cg_iters", 0) + _cg_iterations(ws)
+    return temp
 
 
-def finish_local_temperature(geom: Geometry, params: PhysParams, state, temp):
-    """Common tail of the local model: inner-region average -> T_bg (one
-    read-back)."""
+def finish_local_temperature(geom: Geometry, params: PhysParams, state, temp, ws=None):
+    """Common tail of the local model: inner-region average -> T_bg.  A
+    state whose scalars are 0-d device tensors keeps T_bg on the device; a
+    host state gets it back with one read, together with the device loops'
+    log ``ws.log`` (then :data:`last_local`)."""
     inner = geom.inner_mask
-    T_bg = float(torch.where(inner, temp, 0.0).sum() / inner.sum())
+    T_bg = torch.where(inner, temp, 0.0).sum() / inner.sum()
+    if not torch.is_tensor(state.T_bg):
+        cg_mod.readbacks += 1
+        if ws is None:
+            T_bg = float(T_bg)
+        else:
+            T_bg, *log = torch.cat([T_bg.reshape(1).to(torch.float64),
+                                    ws.log.to(torch.float64)]).tolist()
+            note_local(*log)
     new_state = replace(state, temperature=temp.to(params.dtype), T_bg=T_bg)
     return new_state, {"Global temperature [K]": T_bg}
 
@@ -432,23 +502,19 @@ def update_temperature_local_cg(
     params: PhysParams,
     heat: HeatModel,
     state: SimState,
-    step_time: float,
+    step_time,
     tol: float = 1e-10,
     maxiter: int = 1000,
 ) -> Tuple[SimState, Dict]:
     """Matrix-free variant of :func:`update_temperature_local`: each
     transient substep solves (I - dt*tau*L) T' = rhs with CG (the reference
     precomputes the dense inverse instead, src/heat_solver.cpp:151-191); the
-    steady-state branch solves L T = -P*p_t."""
-    if is_steady(params, step_time):
-        last_local.update(branch="steady", substeps=0, cg_iters=0)
-        temp = local_cg_steady(geom, params, heat, state, state.temperature, tol, maxiter)
-    else:
-        n_sub = n_substeps(params, step_time)
-        last_local.update(branch="transient", substeps=n_sub, cg_iters=0)
-        temp = local_cg_transient_window(
-            geom, params, heat, state, state.temperature, n_sub, tol, maxiter)
-    return finish_local_temperature(geom, params, state, temp)
+    steady-state branch solves L T = -P*p_t.  The device loops of
+    ``ops.heat.run_cg``."""
+    steady, n_sub = branch(params, step_time, geom.device)
+    temp = state.temperature.to(params.dtype).clone()
+    ws = _run_local_cg(params, heat, state, temp, steady, n_sub, tol, maxiter)
+    return finish_local_temperature(geom, params, state, temp, ws)
 
 
 def update_temperature(

@@ -332,8 +332,9 @@ def superstep_batched(
     ``ops.boundary_cg``, and with ``solve_current`` (B = 1) the transport
     phase assembles its operator on the device and solves it by the device
     loops of ``ops.transport_cg`` with the per-bias-point cache ``cc`` (band,
-    workspace), the skip a mask, and the global heat model runs on the
-    device (configurations of :func:`graph_ready` only)."""
+    workspace), the skip a mask, and the heat model runs on the device, the
+    local one (``heat``) as the device loops of ``ops.heat``
+    (configurations of :func:`graph_ready` only)."""
     B = batch_size(states)
     metrics: Dict = {}
     if params.solve_potential:
@@ -429,14 +430,13 @@ def graph_ready(params: PhysParams, batch: Optional[int] = 1,
     boundary CG, the incremental event loop and the compacted pair-sweep
     kernel; with ``solve_current``, one replica
     (``batch`` 1) of the blocked mixed solve with the on-the-fly metal block,
-    the static band (``band``) and the Jacobi warm preconditioner, heating
-    off or global.  Otherwise why it runs eagerly."""
+    the static band (``band``) and the Jacobi warm preconditioner, with or
+    without the bf16 inner operator, heating off, global or local (dense or
+    matrix-free).  Otherwise why it runs eagerly."""
     if params.solve_current:
         reason = current_mod.device_form_reason(params)
         if reason is not None:
             return f"solve_current with {reason}"
-        if params.solve_heating_local and not params.solve_heating_global:
-            return "solve_current with solve_heating_local: the local heat model runs eagerly"
         if batch != 1:
             return ("solve_current with a replica axis (B > 1): the transport and heat "
                     "phases run replica by replica, eagerly")
@@ -516,13 +516,20 @@ class SuperstepGraph:
     the driver's form, with one read a replay; :meth:`step_batched` takes
     and returns batched states and reads nothing.  ``checksums``: after
     :meth:`multi`, :func:`element_checksum` of the elements after each step
-    of the batch, [n_steps] (read with the batch's result)."""
+    of the batch, [n_steps] (read with the batch's result).
 
-    def __init__(self, geom: Geometry, params: PhysParams, batch: int):
+    ``heat``: the simulation's heat model (``physics.heat``), whose device
+    loops the local model runs in (its workspace made with the model).
+    With the local model on, the read of :meth:`step` and :meth:`multi`
+    also carries the loops' log of the last superstep (branch, substeps, CG
+    iterations), which sets ``physics.heat.last_local``; it is no metric."""
+
+    def __init__(self, geom: Geometry, params: PhysParams, batch: int, heat=None):
         reason = graph_ready(params, batch)
         if reason is not None:
             raise ValueError(f"the superstep of these params is not captured: {reason}")
         self.geom, self.params, self.batch = geom, params, batch
+        self.heat = heat
         self.device = geom.device
         self.slots: Optional[List[SimState]] = None
         self.ws = boundary_cg.workspace(batch, geom.neigh_idx, geom.bp_interior_mask,
@@ -554,6 +561,22 @@ class SuperstepGraph:
                 raise ValueError(f"the superstep of these params is not captured: {reason}")
             self.params = params
             self.graphs.clear()
+
+    def set_heat(self, heat) -> None:
+        """Use the heat model ``heat`` from the next replay on (captured
+        anew when it is another)."""
+        if heat is not self.heat:
+            self.heat = heat
+            self.graphs.clear()
+
+    def _local_log(self) -> Optional[torch.Tensor]:
+        """The local heat model's loop log when the superstep runs it, else
+        None."""
+        p, h = self.params, self.heat
+        if (p.solve_current and p.solve_heating_local and not p.solve_heating_global
+                and h is not None and h.n_interface):
+            return h.ws.log
+        return None
 
     # -- the state in the slots -------------------------------------------
     def _slot_of(self, element: torch.Tensor) -> int:
@@ -647,13 +670,16 @@ class SuperstepGraph:
 
         def fn():
             set_host(S, self.hin)
-            out, dts, m = superstep_batched(self.geom, self.params, S, Vd, cg_ws=self.ws,
-                                            cc=self.cc)
+            out, dts, m = superstep_batched(self.geom, self.params, S, Vd, heat=self.heat,
+                                            cg_ws=self.ws, cc=self.cc)
             _copy_into(D, out)
             keys = self.keys["step"] = sorted(m)
+            log = self._local_log()
             pack = torch.cat([dts.to(torch.float64)[:, None]]
                              + [m[k].to(torch.float64)[:, None] for k in keys]
-                             + [host_block(D)], dim=1)
+                             + [host_block(D)]
+                             + ([] if log is None else [log.to(torch.float64).expand(
+                                 self.batch, -1)]), dim=1)
             return pack, dts, m
 
         return fn
@@ -675,7 +701,7 @@ class SuperstepGraph:
             for k in range(n_steps):
                 done = done | (limit <= k)
                 new, dts, m = superstep_batched(self.geom, self.params, st, Vd,
-                                                cg_ws=self.ws, cc=self.cc)
+                                                heat=self.heat, cg_ws=self.ws, cc=self.cc)
                 st = _select(done, st, new)
                 keys = sorted(m)
                 rows.append(torch.stack(
@@ -687,8 +713,10 @@ class SuperstepGraph:
                 done = done | (st.kmc_time >= t_end) | (st.I_macro > icc)
             self.keys[("batch", n_steps)] = keys
             _copy_into(D, st)
+            log = self._local_log()
             return torch.cat([torch.stack(rows).reshape(-1), torch.stack(sums).reshape(-1),
-                              host_block(D).reshape(-1)])
+                              host_block(D).reshape(-1)]
+                             + ([] if log is None else [log.to(torch.float64)]))
 
         return fn
 
@@ -704,8 +732,16 @@ class SuperstepGraph:
         pack, _, _ = self._graph("step", i, Vd)()
         row = pack.tolist()[0]
         keys = self.keys["step"]
-        host = host_values(row[1 + len(keys):])
+        end = 1 + len(keys) + HOST_COLS
+        host = host_values(row[1 + len(keys):end])
+        self._note_local(row[end:])
         return _unbatch(self.slots[1 - i], 0, host), row[0], dict(zip(keys, row[1:1 + len(keys)]))
+
+    @staticmethod
+    def _note_local(log) -> None:
+        """``physics.heat.last_local`` from a replay's loop log, if any."""
+        if len(log):
+            heat_mod.note_local(*log)
 
     def multi(self, state: SimState, Vd: float, Icc_A: float, t_end: float, n_steps: int,
               limit=None, cc=None):
@@ -720,7 +756,9 @@ class SuperstepGraph:
         width = 2 + len(keys)
         rows = vals[:n_steps * width].reshape(n_steps, width)
         self.checksums = vals[n_steps * width:n_steps * (width + 1)]
-        host = host_values(vals[n_steps * (width + 1):])
+        end = n_steps * (width + 1) + HOST_COLS
+        host = host_values(vals[n_steps * (width + 1):end])
+        self._note_local(vals[end:])
         metrics = {key: rows[:, 2 + c] for c, key in enumerate(keys)}
         metrics["active"] = rows[:, 1] > 0
         return _unbatch(self.slots[1 - i], 0, host), rows[:, 0], metrics

@@ -2138,3 +2138,217 @@ def test_cuda_transport_graph_batch_matches_per_step(tmp_path):
                         sim.state.element.clone())
     assert runs[1][0] == runs[4][0]
     assert torch.equal(runs[1][1], runs[4][1])
+
+
+# ---------------------------------------------------------------------------
+# the local heat model's device loops (csrc/heat.cu) and the bf16 inner
+# operator inside the captured transport superstep
+# ---------------------------------------------------------------------------
+
+def _heat_ws_to(ws, device):
+    """A copy of a heat workspace (ops.heat.Workspace) on ``device``."""
+    import dataclasses
+
+    move = lambda v: v.to(device, copy=True) if torch.is_tensor(v) else v  # noqa: E731
+    kw = {}
+    for f in dataclasses.fields(ws):
+        v = getattr(ws, f.name)
+        if f.name == "cg" and v is not None:
+            v = dataclasses.replace(v, **{g.name: move(getattr(v, g.name))
+                                          for g in dataclasses.fields(v)})
+        elif isinstance(v, tuple) and f.name.startswith("op"):
+            v = tuple(move(t) for t in v)
+        else:
+            v = move(v)
+        kw[f.name] = v
+    return type(ws)(**kw)
+
+
+def _heat_sim(tmp_path, method):
+    """The small stack's transport configuration with the local heat model
+    ``method`` on the card, after one superstep at 10 V (so that sites
+    dissipate)."""
+    sim = _transport_sim(tmp_path, solve_heating_local=True, heat_solver=method)
+    sim.run_bias_point(10.0, 1e30, max_steps=1)
+    assert sim.heat.method == method and sim.heat.n_interface > 0
+    assert float(sim.state.power.abs().max()) > 0
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["dense", "cg"])
+def test_cuda_heat_kernels_match_plain(tmp_path, method):
+    """Each heat kernel against its plain version on the same inputs (the
+    model of the small stack, f32): the dense substep three times from a
+    seeded right-hand side (the field and both halves of the right-hand side
+    within 1e-5 of their scale, the counter and the predicates equal); the
+    CG set-up warm from the field and cold (x0 bit-equal, r and p within
+    1e-5 of the scale of b, r.r, r.z and the threshold within 1e-4, flags,
+    counts and the predicate equal) and the CG end from one iterate (the
+    field bit-equal, the counts, counter and predicate equal)."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import heat as heat_ops
+
+    sim = _heat_sim(tmp_path, method)
+    h, st = sim.heat, sim.state
+    T0, scale = 300.0, 1000.0
+    gen = torch.Generator().manual_seed(4)
+    temp = st.temperature.clone() + torch.rand(st.temperature.shape, generator=gen).cuda()
+    k, p = _heat_ws_to(h.ws, "cuda"), _heat_ws_to(h.ws, "cpu")
+    tk, tp = temp.clone(), temp.cpu()
+    if method == "dense":
+        ni = h.n_interface
+        u0 = torch.rand(ni, generator=gen, dtype=torch.float64) * 1e-3
+        src = torch.rand(ni, generator=gen, dtype=torch.float64) * 1e-4
+        for ws in (k, p):
+            ws.u.zero_()
+            ws.u[0].copy_(u0)
+            ws.src.copy_(src)
+            heat_ops.prepare(ws, False, 3)
+        for _ in range(3):
+            heat_ops.dense_substep(k, h.L_inv, tk, T0, scale, False, 0)
+            heat_ops.dense_substep_plain(p, h.L_inv.cpu(), tp, T0, scale, False, 0)
+        for got, want in ((tk, tp), (k.u, p.u)):
+            sc = float(want.abs().max())
+            assert float((got.cpu() - want).abs().max()) <= 1e-5 * sc
+        assert k.k.tolist() == p.k.tolist() == [3] and k.cond.tolist() == p.cond.tolist()
+        return
+    src = torch.rand(h.interface_mask.shape[0], generator=gen) * 1e-4
+    for warm, op_k, op_p in ((True, k.op_t, p.op_t), (False, k.op_s, p.op_s)):
+        for ws in (k, p):
+            ws.src.copy_(torch.where(ws.op_t[3], src.to(ws.src), 0.0))
+        heat_ops.cg_begin(k, op_k, warm, tk, T0, scale, 1e-10, 1000)
+        heat_ops.cg_begin_plain(p, op_p, warm, tp, T0, scale, 1e-10, 1000)
+        assert torch.equal(k.cg.x.cpu(), p.cg.x), warm
+        b = torch.where(p.op_t[3], p.cg.x[0] + p.src, 0.0)
+        sc = float(b.abs().max())
+        for f in ("r", "p"):
+            assert float((getattr(k.cg, f).cpu() - getattr(p.cg, f)).abs().max()) <= 1e-5 * sc
+        for f in ("rr", "rz", "thresh2"):
+            assert float(getattr(k.cg, f)) == pytest.approx(float(getattr(p.cg, f)), rel=1e-4)
+        for f in ("act", "iters", "ctl", "cond"):
+            assert torch.equal(getattr(k.cg, f).cpu(), getattr(p.cg, f)), (warm, f)
+    heat_ops.prepare(k, False, 2)
+    heat_ops.prepare(p, False, 2)
+    x = torch.randn(p.cg.x.shape, generator=gen) * 1e-3
+    for ws in (k, p):
+        ws.cg.x.copy_(x)
+        ws.cg.iters.fill_(7)
+    heat_ops.cg_end(k, tk, T0, scale, False, 0)
+    heat_ops.cg_end_plain(p, tp, T0, scale, False, 0)
+    assert torch.equal(tk.cpu(), tp)
+    assert k.log.tolist() == p.log.tolist() and k.log.tolist()[2] == 7
+    assert k.k.tolist() == p.k.tolist() == [1] and k.cond.tolist() == p.cond.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["dense", "cg"])
+def test_cuda_heat_loops_captured_equal_host_loop(tmp_path, method):
+    """The local model's update in its device form (0-d step time and T_bg)
+    captured as a graph (the substep loop a WHILE node, with the CG's
+    nested in it) against the host loop of the same kernels (a host state
+    and step time): the field and T_bg bit for bit and the loops' log equal,
+    transient (3 substeps) and steady; the replay reads nothing (sync debug
+    mode "error")."""
+    _need_card()
+    import dataclasses
+
+    from devicekmc_tpu_torch.ops.graph import Graph
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+
+    sim = _heat_sim(tmp_path, method)
+    g, p, h = sim.geom, sim.params, sim.heat
+    upd = heat_mod.update_temperature_local if method == "dense" \
+        else heat_mod.update_temperature_local_cg
+    st_t = torch.zeros((), dtype=torch.float64, device="cuda")
+    dstate = dataclasses.replace(sim.state, T_bg=torch.tensor(300.0, device="cuda",
+                                                                dtype=torch.float64))
+    graph = Graph(lambda: upd(g, p, h, dstate, st_t), "cuda")
+    for mult in (2.5, 5e3):
+        step_time = mult * p.delta_t
+        st_t.fill_(step_time)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, _ = graph()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        temp, T_bg, log = out.temperature.clone(), float(out.T_bg), h.ws.log.tolist()
+        assert log[:2] == ([0, 3] if mult < 1e3 else [1, 0])
+        host, m = upd(g, p, h, sim.state, step_time)
+        assert torch.equal(host.temperature, temp) and host.T_bg == T_bg
+        assert h.ws.log.tolist() == log
+        assert heat_mod.last_local["substeps"] == log[1]
+        assert float((temp - 300.0).abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["bf16", "heat-local-dense", "heat-local-cg"])
+def test_cuda_new_graph_configurations_match_eager(tmp_path, config):
+    """The engine's captured transport superstep with the bf16 inner
+    operator and with the local heat model (dense and matrix-free) against
+    the eager engine from the same start, step by step and bit for bit:
+    elements, events, cg_iters_power, I_macro, P_tot, T_bg, the temperature
+    field and the virtual potentials; one capture from each slot."""
+    _need_card()
+    from devicekmc_tpu_torch.engine import make_superstep
+
+    over = {"bf16": dict(transport_bf16_inner=True),
+            "heat-local-dense": dict(solve_heating_local=True, heat_solver="dense"),
+            "heat-local-cg": dict(solve_heating_local=True, heat_solver="cg")}[config]
+    runs = {}
+    for kind in ("graph", "eager"):
+        d = tmp_path / kind
+        d.mkdir()
+        sim = _transport_sim(d, **over)
+        if kind == "eager":
+            sim._make = lambda g, p, h: make_superstep(g, p, h)
+        rec = runs[kind] = []
+        step = sim._superstep
+
+        def wrapped(state, Vd, *a, step=step, rec=rec):
+            out = step(state, Vd, *a)
+            st, m = out[0], out[2]
+            rec.append((st.element.clone(), m["n_events"], m["cg_iters_power"], st.I_macro,
+                        st.P_tot, st.T_bg, st.temperature.clone(),
+                        st.virtual_potentials.clone(), m["transport_converged"]))
+            return out
+
+        sim._superstep = wrapped
+        sim.run_bias_point(10.0, 1e30, max_steps=4)
+        assert (sim._graph is not None and sim._graph.captures == 2) == (kind == "graph")
+    assert len(runs["graph"]) == len(runs["eager"]) == 4
+    for k, (a, b) in enumerate(zip(runs["graph"], runs["eager"])):
+        for j, (u, v) in enumerate(zip(a, b)):
+            same = torch.equal(u, v) if torch.is_tensor(u) else u == v
+            assert same, (k, j)
+    assert all(r[-1] == 1.0 for r in runs["graph"])
+
+
+@pytest.mark.cuda
+def test_cuda_transport_rows_bf16_row_fix(tmp_path):
+    """transport_rows with the bf16 band: the inner product ap within 2e-6
+    of its plain version's largest entry (which adds the band's row_fix as
+    physics.current._band_unpermute does), and without the row fix further
+    off than that (the kernel applies it)."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+
+    sim = _transport_sim(tmp_path, fused=False, transport_bf16_inner=True)
+    sim.run_bias_point(sim.cfg.V_switch[0], 1e30, max_steps=2)
+    tws, op, _ = _transport_op(sim)
+    assert op.slots.val.dtype == torch.bfloat16 and op.row_fix is not None
+    op_c = _cpu_op(op)
+    tcg.products(tws, op)
+    k, p = _clone_tws(tws), _cpu_ws(_clone_tws(tws))
+    k.cg.act.fill_(True)
+    p.cg.act.fill_(True)
+    tcg.rows(k, op, False)
+    tcg.rows_plain(p, op_c, False)
+    scale = float(p.cg.ap.abs().max())
+    err = float((k.cg.ap.cpu() - p.cg.ap).abs().max())
+    assert err <= 2e-6 * scale
+    n = _clone_tws(tws)
+    n.cg.act.fill_(True)
+    tcg.rows(n, op._replace(row_fix=torch.zeros_like(op.row_fix)), False)
+    assert float((n.cg.ap.cpu() - p.cg.ap).abs().max()) > 10 * err

@@ -284,8 +284,10 @@ def sync_guard(monkeypatch):
     """Makes a read of a tensor's value raise while a captured function runs
     (``ops.graph.Graph.__call__``), except in the plain loop's read of its
     predicate and in the plain versions of the kernels, which stand for one
-    launch each on the card."""
-    from devicekmc_tpu_torch.ops import ell_gather, graph, kmc_events, pairwise
+    launch each on the card (those of the transport superstep's kernels
+    too)."""
+    from devicekmc_tpu_torch.ops import (banded, ell_gather, graph, kmc_events, pairwise,
+                                         wkb_fly, wkb_window)
 
     state = {"armed": False, "allowed": 0, "reads": 0}
 
@@ -310,7 +312,9 @@ def sync_guard(monkeypatch):
         monkeypatch.setattr(torch.Tensor, name, guarded(name, getattr(torch.Tensor, name)))
     for mod, name in ((graph, "_predicate"), (kmc_events, "kmc_event_loop_batched_plain"),
                       (pairwise, "poisson_pairwise_batched_plain"),
-                      (ell_gather, "ell_gather_batched_plain")):
+                      (ell_gather, "ell_gather_batched_plain"),
+                      (wkb_window, "wkb_window_block_plain"), (wkb_fly, "wkb_fly_matvec_plain"),
+                      (wkb_fly, "wkb_fly_pdisp_plain"), (banded, "banded_matvec_plain")):
         monkeypatch.setattr(mod, name, allowed(getattr(mod, name)))
     call = graph.Graph.__call__
 
@@ -325,14 +329,26 @@ def sync_guard(monkeypatch):
     return state
 
 
-@pytest.mark.parametrize("kind", ["step", "batch", "ensemble"])
-def test_graph_body_reads_nothing(both, sync_guard, kind):
+@pytest.mark.parametrize("kind", ["step", "batch", "ensemble", "bf16", "heat-local-dense",
+                                  "heat-local-cg"])
+def test_graph_body_reads_nothing(both, sync_guard, kind, tmp_path):
     """The body of the per-step graph, of a batch of 3 and of the ensemble at
     B = 3 runs 3 times with every read of a tensor's value an error outside
-    the plain device loop's predicate and the plain kernels (which do read)."""
+    the plain device loop's predicate and the plain kernels (which do read);
+    so does the transport superstep's with the bf16 inner operator and with
+    the local heat model, dense and matrix-free (the engine's per-step graph,
+    3 supersteps after the cold solves, which run outside the graph)."""
     from devicekmc_tpu_torch.parallel.batched import batch_states, make_batched_superstep
     from devicekmc_tpu_torch.physics import heat as heat_mod
 
+    if kind in ("bf16", "heat-local-dense", "heat-local-cg"):
+        from test_torch_transport_graph import CONFIGS, VD as VD_T, _port
+
+        sim = _port(tmp_path, kind, **CONFIGS[kind])
+        sim.run_bias_point(VD_T, 1e30, max_steps=3)
+        assert sim._graph is not None and sim._graph.replays == 3
+        assert sync_guard["reads"] > 0
+        return
     g, st = _graph(both)
     _, (tg, tp, ts) = both
     if kind == "ensemble":

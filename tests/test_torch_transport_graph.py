@@ -1,8 +1,9 @@
 """The transport superstep as one captured graph (``superstep.SuperstepGraph``
-with ``solve_current``, ``ops.transport_cg``) through its plain versions on
-the CPU: which configurations take the graph, the graph's body against the
-eager engine bit for bit (heating off and global, the unchanged-network skip
-and the persistent tunnel rows on and off), both against the JAX package's
+with ``solve_current``, ``ops.transport_cg``, ``ops.heat``) through its plain
+versions on the CPU: which configurations take the graph, the graph's body
+against the eager engine bit for bit (heating off, global and local, dense
+and matrix-free, the bf16 inner operator, the unchanged-network skip and the
+persistent tunnel rows on and off), both against the JAX package's
 jitted superstep and its batched driver with a compliance stop, a redo after
 the integration count grew, and the transport CG's plain loop against
 ``cg_solve_mixed``.  All on the 256-site stack, seeded, transport_tol 1e-11
@@ -30,6 +31,22 @@ BASE = dict(pristine=True, initial_vacancy_concentration=0.08, rnd_seed=3, rnd_s
             poisson_kernel="pallas", poisson_compact_cap=64, V_switch=[VD],
             t_switch=[1e30], transport_tol=1e-11, solver_chunk_iters=40, coarse_slabs=4)
 HEAT = dict(solve_heating_global=True, A=1e-18)
+#: the configurations beside the transport one, by test id: heating off,
+#: global, local with the dense propagators and matrix-free, the bf16 inner
+#: operator
+CONFIGS = {"heat-off": {}, "heat-global": HEAT,
+           "heat-local-dense": dict(solve_heating_local=True, heat_solver="dense"),
+           "heat-local-cg": dict(solve_heating_local=True, heat_solver="cg"),
+           "bf16": dict(transport_bf16_inner=True)}
+#: I_macro against the JAX package, relative: two independent mixed solves at
+#: 1e-11 (test_torch_transport.py's tolerance); with the bf16 inner operator
+#: test_torch_bf16_inner.py's 2e-5 (the port's bf16 band keeps the vector f32
+#: and each row's rounding on the diagonal, the JAX package's does not)
+I_TOL = {"bf16": 2e-5}
+#: the temperature field against the JAX package: test_torch_heat.py's
+#: tolerances of the local models (dense 1e-10, matrix-free 1e-9, rtol and
+#: atol)
+TEMP_TOL = {"heat-local-dense": 1e-10, "heat-local-cg": 1e-9}
 
 
 def _hash(a) -> str:
@@ -69,7 +86,8 @@ def _record(sim, to_np=lambda t: t.numpy()):
             elem=_hash(to_np(st.element)), charge=_hash(to_np(st.charge)),
             step_time=float(out[1]), I=float(st.I_macro), P=float(st.P_tot),
             T=float(st.T_bg), vp=to_np(st.virtual_potentials).copy(),
-            power=to_np(st.power).copy(), tt=[to_np(getattr(st, f)).copy() for f in
+            power=to_np(st.power).copy(), temp=to_np(st.temperature).copy(),
+            tt=[to_np(getattr(st, f)).copy() for f in
                                               ("tt_slot_atom", "tt_vm", "tt_vv")],
             tt_valid=bool(st.tt_valid), m={k: float(v) for k, v in m.items()}))
         return out
@@ -90,17 +108,22 @@ def _record(sim, to_np=lambda t: t.numpy()):
     (dict(mixed=False), 1, True, "precision other than 'mixed'"),
     (dict(transport_cc="stored"), 1, True, "stored metal block"),
     (dict(transport_warm_precond="deflated"), 1, True, "deflated warm re-solve"),
-    (dict(transport_bf16_inner=True), 1, True, "bf16"),
-    (dict(solve_heating_local=True), 1, True, "local heat model"),
+    pytest.param(dict(transport_bf16_inner=True), 1, True, None, id="over7-1-True-bf16"),
+    pytest.param(dict(solve_heating_local=True), 1, True, None,
+                 id="over8-1-True-local heat model"),
     ({}, 3, True, "B > 1"),
     ({}, None, True, "B > 1"),
     ({}, 1, False, "static band"),
+    pytest.param(dict(solve_heating_local=True, heat_solver="cg"), 1, True, None,
+                 id="over12-1-True-local heat model, heat_solver cg"),
 ])
 def test_transport_graph_route_by_configuration(over, batch, band, reason):
     """graph_ready admits the transport scope (blocked, mixed, on-the-fly
-    metal block, band, Jacobi warm re-solve, heating off or global, B = 1)
-    and names a reason for everything outside it; a graph of such params
-    refuses to be made."""
+    metal block, band, Jacobi warm re-solve, with or without the bf16 inner
+    operator, heating off, global or local, B = 1) and names a reason for
+    everything outside it; a graph of such params refuses to be made.  The
+    local model's heat_solver (dense or cg) is the heat model's, not the
+    params': both take the graph (test_transport_engine_takes_the_graph)."""
     from devicekmc_tpu_torch.state import PhysParams
     from devicekmc_tpu_torch.superstep import SuperstepGraph, graph_ready
 
@@ -108,6 +131,7 @@ def test_transport_graph_route_by_configuration(over, batch, band, reason):
                         low_G=1e-8, background_temp=300.0, solve_current=True,
                         transport="blocked", transport_cc="fly", mixed=True,
                         poisson_compact_cap=64, poisson_kernel="pallas")
+    over = {k: v for k, v in over.items() if k != "heat_solver"}
     params = dataclasses.replace(params, **over)
     got = graph_ready(params, batch, band)
     if reason is None:
@@ -131,21 +155,51 @@ def test_transport_engine_takes_the_graph(tmp_path):
     assert eager._graph is None
 
 
+@pytest.mark.parametrize("config", ["heat-local-dense", "heat-local-cg", "bf16"])
+def test_engine_runs_the_new_configurations_on_the_graph(tmp_path, config):
+    """The local heat model (dense and matrix-free) and the bf16 inner
+    operator run on SuperstepGraph: the engine's superstep replays it, one
+    capture from each slot, with the simulation's heat model
+    (heat.last_local set from the replay's read with the local model); per
+    step, and with batch_steps = 3 through a batch graph, to the same
+    elements."""
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+    from devicekmc_tpu_torch.superstep import SuperstepGraph
+
+    sim = _port(tmp_path, config, **CONFIGS[config])
+    sim.run_bias_point(VD, 1e30, max_steps=3)
+    g = sim._graph
+    assert isinstance(g, SuperstepGraph) and g.captures == 2 and g.replays == 3
+    assert g.heat is sim.heat
+    if config != "bf16":
+        assert sim.heat.method == CONFIGS[config]["heat_solver"]
+        assert heat_mod.last_local["branch"] in ("transient", "steady")
+        assert (heat_mod.last_local["cg_iters"] > 0) == (config == "heat-local-cg")
+    batched = _port(tmp_path, config + "-batch", batch_steps=3, log_freq=1000,
+                    **CONFIGS[config])
+    batched.run_bias_point(VD, 1e30, max_steps=3)
+    bg = batched._graph
+    assert bg is not None and bg.replays < 3
+    assert any(key[0] == "batch" for key in bg.graphs)
+    assert torch.equal(batched.state.element, sim.state.element)
+
+
 # ---------------------------------------------------------------------------
 # the graph's body against the eager engine, bit for bit
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("heat", [False, True], ids=["heat-off", "heat-global"])
+@pytest.mark.parametrize("config", list(CONFIGS))
 @pytest.mark.parametrize("skip,incremental", [(True, "on"), (False, "on"), (True, "off"),
                                               (False, "off")])
-def test_transport_graph_matches_eager_bit_for_bit(tmp_path, heat, skip, incremental):
+def test_transport_graph_matches_eager_bit_for_bit(tmp_path, config, skip, incremental):
     """STEPS supersteps of the captured transport superstep (its plain
     version: the device loops through the plain kernels) against the eager
     engine from the same start, the last two without events (so that the
     network is unchanged): every field the transport and heat phases write
-    and every metric bit for bit, step for step."""
+    (the temperature field too) and every metric bit for bit, step for
+    step."""
     kw = dict(transport_skip_unchanged=skip, transport_incremental=incremental,
-              **(HEAT if heat else {}))
+              **CONFIGS[config])
     g = _port(tmp_path, "g", **kw)
     e = _port(tmp_path, "e", eager=True, **kw)
     rg, re_ = _record(g), _record(e)
@@ -160,7 +214,7 @@ def test_transport_graph_matches_eager_bit_for_bit(tmp_path, heat, skip, increme
     for k, (a, b) in enumerate(zip(rg, re_)):
         for key in ("elem", "charge", "step_time", "I", "P", "T", "tt_valid", "m"):
             assert a[key] == b[key], (k, key)
-        for key in ("vp", "power"):
+        for key in ("vp", "power", "temp"):
             np.testing.assert_array_equal(a[key], b[key], err_msg=f"{k} {key}")
         for u, v in zip(a["tt"], b["tt"]):
             np.testing.assert_array_equal(u, v, err_msg=f"{k} tt")
@@ -172,7 +226,7 @@ def test_transport_graph_matches_eager_bit_for_bit(tmp_path, heat, skip, increme
     if incremental == "off":
         assert 1.0 not in assembly
     assert all(r["m"]["transport_converged"] == 1.0 for r in rg)
-    if heat:
+    if config.startswith("heat-") and config != "heat-off":
         assert rg[-1]["T"] > 300.0
 
 
@@ -180,17 +234,17 @@ def test_transport_graph_matches_eager_bit_for_bit(tmp_path, heat, skip, increme
 # against the JAX package
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("heat", [False, True], ids=["heat-off", "heat-global"])
-def test_transport_graph_matches_jax(tmp_path, heat):
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_transport_graph_matches_jax(tmp_path, config):
     """The captured transport superstep against the JAX package's
     jit(superstep_impl) (its Simulation, fused): elements and events equal
-    step for step, I_macro within 1e-5 relative (two independent mixed
-    solves at 1e-11, test_torch_transport.py's tolerance), T_bg within
-    1e-9, the skips at the same steps."""
+    step for step, I_macro within 1e-5 relative (I_TOL), T_bg within 1e-9,
+    with the local model the temperature field within TEMP_TOL, the skips at
+    the same steps."""
     from devicekmc_tpu.engine import Simulation as JSim
     from devicekmc_tpu_torch.engine import Simulation as TSim
 
-    jcfg, tcfg, s = _cfgs(tmp_path, "jx", **(HEAT if heat else {}))
+    jcfg, tcfg, s = _cfgs(tmp_path, "jx", **CONFIGS[config])
     jsim = JSim(jcfg, elements=s.elements, coords=s.coords)
     tsim = TSim(tcfg, elements=s.elements, coords=s.coords, device="cpu")
     jrec, trec = _record(jsim, np.asarray), _record(tsim)
@@ -202,8 +256,12 @@ def test_transport_graph_matches_jax(tmp_path, heat):
     for k, (a, b) in enumerate(zip(jrec, trec)):
         assert b["elem"] == a["elem"] and b["charge"] == a["charge"], k
         assert b["m"]["n_events"] == a["m"]["n_events"], k
-        assert b["I"] == pytest.approx(a["I"], rel=1e-5), k
+        assert b["I"] == pytest.approx(a["I"], rel=I_TOL.get(config, 1e-5)), k
         assert b["T"] == pytest.approx(a["T"], rel=1e-9), k
+        if config in TEMP_TOL:
+            tol = TEMP_TOL[config]
+            np.testing.assert_allclose(b["temp"], a["temp"], rtol=tol, atol=tol,
+                                       err_msg=f"step {k}")
         assert (b["m"]["transport_rel0"] == -1.0) == (a["m"]["transport_rel0"] == -1.0), k
 
 
