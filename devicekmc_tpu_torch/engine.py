@@ -149,7 +149,8 @@ class Simulation:
 
     Fused, the configurations of ``superstep.graph_ready`` (the headline
     module set, and with ``solve_current`` the blocked mixed transport on the
-    fly with the band, heating off or global) run every superstep, and every
+    fly with the band, with or without the bf16 inner operator, heating off,
+    global or local) run every superstep, and every
     batch of ``batch_steps``, as one replay of a captured CUDA graph
     (``superstep.SuperstepGraph``, on the CPU its plain version) and one read
     of its result; the state then stays in the graph's buffers between
