@@ -105,8 +105,10 @@ Phases (any failed check raises and the exit code is non-zero):
    each transport CG kernel of the nested WHILE bodies in the trace at
    least once); the capture seconds at a second
    bias point (Vd = 1.05 V, 2 supersteps); the transport CG's kernels
-   (blocks and rows, f32 and f64 builds, the update that packs, the f64
-   pack, refine) against their plain versions at the path's shapes, timed
+   (blocks, f32 and f64 builds; transport_rows_update, the inner tail of
+   rows, update and direction that packs, warm and cold L2, a stopped
+   iterate's launch left as it was; the f64 rows, the f64 pack, refine)
+   against their plain versions at the path's shapes, timed
    beside their bytes bounds (the ELL rows' and the bump's valid slots, the
    virtual rows' nonzero ranges), the band's and fly matvec's out= entries
    bit-equal to the allocating ones, the inner body inside a WHILE node
@@ -1502,17 +1504,16 @@ def rel_err(a, b):
 
 #: the kernels of the headline paths and of the transport CG by their
 #: wrappers' names, and a stem of the name each has in a profiler trace (a
-#: record is the kernel's whose stem is the longest it holds: the transport
-#: build of cg_update_direction is the pack's)
+#: record is the kernel's whose stem is the longest it holds)
 TRACE_NAMES = {name: f"{name}_kernel" for name in (
     "ell_gather", "ell_gather_batched", "poisson_pairwise", "poisson_pairwise_batched",
     "kmc_event_loop", "kmc_event_loop_batched", "cg_matvec_dot", "cg_update_direction",
-    "transport_blocks", "transport_rows", "transport_pack", "transport_refine")}
-TRACE_NAMES["cg_update_direction_pack"] = "cg_update_direction_kernel<float, true>"
+    "transport_blocks", "transport_rows", "transport_rows_update", "transport_pack",
+    "transport_refine")}
 CG_KERNELS = ("cg_matvec_dot", "cg_update_direction")
 #: the transport CG's kernels, each in the trace of a graph superstep that
 #: solves
-TRANSPORT_TRACED = ("transport_blocks", "transport_rows", "cg_update_direction_pack",
+TRANSPORT_TRACED = ("transport_blocks", "transport_rows_update", "transport_rows",
                     "transport_pack", "transport_refine")
 
 
@@ -1749,7 +1750,7 @@ VD_SECOND = 1.05
 #: the transport CG's kernels that count their launches on the card
 TRANSPORT_CARD = ("banded_matvec_out", "wkb_fly_matvec_out", "transport_pack",
                   "transport_blocks", "transport_rows", "transport_refine",
-                  "cg_update_direction_pack")
+                  "transport_rows_update")
 
 
 def transport_record(sim):
@@ -1817,7 +1818,8 @@ def transport_graph_run(sim, tag, n_steps=TRANSPORT_STEPS, wrappers=None, Vd=VD_
         w.launches = 0
     _build.launch_counts("cuda").zero_()
     plains = [_counted(tcg, name) for name in ("pack_plain", "blocks_plain", "rows_plain",
-                                               "update_pack_plain", "refine_plain")]
+                                               "update_pack_plain", "rows_update_plain",
+                                               "refine_plain")]
     plains += [_counted(heat_ops, name) for name in ("dense_substep_plain", "cg_begin_plain",
                                                      "cg_end_plain")]
     recs = transport_record(sim)
@@ -1956,14 +1958,13 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True, n_steps=
         check(card[name] > 0, f"{tag}: {name} was not launched on the card ({card})")
     steps = sim.step_log
     inner = sum(int(s["cg_iters_power"]) for s in steps)
-    # the inner body launches no pack: the f64 pack, the fly matvec's extra
-    # launches and the rows' and blocks' come from the round ends (one a
-    # refine), the update and the band from the inner iterations
+    # the inner body launches no pack: the f64 pack and rows, the fly
+    # matvec's and blocks' extra launches come from the round ends (one a
+    # refine), the fused tail and the band from the inner iterations
     ends = card["transport_refine"]
-    check(card["transport_pack"] == ends and card["cg_update_direction_pack"] == inner
-          and card["banded_matvec_out"] == inner
-          and card["transport_blocks"] == card["transport_rows"] == inner + ends
-          and card["wkb_fly_matvec_out"] == inner + ends,
+    check(card["transport_pack"] == card["transport_rows"] == ends
+          and card["transport_rows_update"] == card["banded_matvec_out"] == inner
+          and card["transport_blocks"] == card["wkb_fly_matvec_out"] == inner + ends,
           f"{tag}: launches on the card {card} against {inner} inner iterations and {ends} "
           "round ends")
     rounds = sum(int(s["cg_iters_power"] > 0) for s in steps)
@@ -2061,9 +2062,10 @@ def transport_cg_checks(sim, band):
     """The transport CG's kernels at the path's shapes (``sim``'s operator
     after its run, a seeded inner direction and correction) against their
     plain versions (PyTorch operations on the same tensors), timed beside
-    their bytes bounds; the update and pack against the boundary build of
-    cg_update_direction (bit-equal) and its pack against pack_plain of the
-    new direction (bit-equal); the band's and the fly matvec's out= entries
+    their bytes bounds; transport_rows_update's update against the boundary
+    build of cg_update_direction from its own ap and alpha (bit-equal), its
+    pack against pack_plain of its new direction (bit-equal), a stopped
+    iterate's launch (nothing moves); the band's and the fly matvec's out= entries
     against their allocating entries (bit-equal); the band alone against the
     band with its branch (fly, transport_blocks) and whole inner iterations,
     captured; the warm solve captured and from the host loop."""
@@ -2186,63 +2188,93 @@ def transport_cg_checks(sim, band):
         timed(f"blocks_{'hi' if hi else 'lo'}", lambda: tcg.blocks(k, op, hi),
               lambda: tcg.blocks_plain(p, op, hi), bytes_, e, rel_err=e / scale,
               dots_rel_err=e_dot)
-    # transport_rows: ap and alpha (lo), r and r.r (hi)
-    for hi in (False, True):
-        k = clone(base)
-        if hi:
-            tcg.pack(k, op, True)
-        else:
-            tcg.band(k, op)
-        tcg.fly(k, op)
-        tcg.blocks(k, op, hi)
-        p = clone(k)
-        tcg.rows(k, op, hi)
-        tcg.rows_plain(p, op, hi)
-        got, ref = (k.r, p.r) if hi else (k.cg.ap[0], p.cg.ap[0])
-        scale = float((op.b - ref).abs().max()) if hi else float(ref.abs().max())
-        e = err(got, ref)
-        check(e <= (1e-9 if hi else 2e-6) * scale,
-              f"transport_rows ({'hi' if hi else 'lo'}): {e} from its plain version "
-              f"(scale {scale})")
-        common = i4 * na * 2 + f4 * n_mp * 2 + f4 * nv * 2
-        if hi:
-            bytes_ = (common + (f8 + i4) * nnz + f8 * (dots_terms + 2 + 4 * nsub)
-                      + f8 * nsub)
-        else:
-            bytes_ = (common + i4 * na + f4 * na + f4 * nv
-                      + f4 * (dots_terms + 2 + 4 * nsub) + f4 * nsub)
-        timed(f"rows_{'hi' if hi else 'lo'}", lambda: tcg.rows(k, op, hi),
-              lambda: tcg.rows_plain(p, op, hi), bytes_, e, rel_err=e / scale)
-    # the update and pack: the boundary build's update bit for bit, and the
-    # new direction packed as pack_plain packs it
+    # transport_rows (f64): r and r.r
+    k = clone(base)
+    tcg.pack(k, op, True)
+    tcg.fly(k, op)
+    tcg.blocks(k, op, True)
+    p = clone(k)
+    tcg.rows(k, op)
+    tcg.rows_plain(p, op, True)
+    scale = float((op.b - p.r).abs().max())
+    e = err(k.r, p.r)
+    check(e <= 1e-9 * scale, f"transport_rows (f64): {e} from its plain version (scale {scale})")
+    common = i4 * na * 2 + f4 * n_mp * 2 + f4 * nv * 2
+    timed("rows_hi", lambda: tcg.rows(k, op), lambda: tcg.rows_plain(p, op, True),
+          common + (f8 + i4) * nnz + f8 * (dots_terms + 2 + 4 * nsub) + f8 * nsub, e,
+          rel_err=e / scale)
+
+    # transport_rows_update: the rows, the update and the direction packed,
+    # from one iteration's products, against rows_plain then
+    # update_pack_plain; its update bit-equal to the boundary build of
+    # cg_update_direction from the kernel's own ap and alpha, its packed
+    # direction to pack_plain of its own p; a stopped iterate left as it was
     tcg.products(base, op)
-    tcg.rows(base, op, False)
     k, b, p = clone(base), clone(base), clone(base)
-    tcg.update_pack(k, op)
+    tcg.rows_update(k, op)
+    tcg.rows_update_plain(p, op)
+    scale_ap = float(p.cg.ap.abs().max())
+    e_ap = err(k.cg.ap, p.cg.ap)
+    terms = float((base.cg.p * p.cg.ap).abs().sum())
+    rz0 = float(base.cg.rz)
+    e_pap = abs(rz0 / float(k.cg.alpha) - rz0 / float(p.cg.alpha)) / terms
+    e_vec = {f: err(getattr(k.cg, f), getattr(p.cg, f)) / float(getattr(p.cg, f).abs().max())
+             for f in ("x", "r", "p")}
+    e_vec.update({f: err(getattr(k, f), getattr(p, f)) / float(getattr(p, f).abs().max())
+                  for f in ("xs32", "xw", "xm")})
+    e_sc = {f: abs(float(getattr(k.cg, f)) / float(getattr(p.cg, f)) - 1)
+            for f in ("rz", "rr", "beta")}
+    check(e_ap <= 2e-6 * scale_ap and e_pap <= 1e-6 and max(e_vec.values()) <= 1e-5
+          and max(e_sc.values()) <= 1e-4,
+          f"transport_rows_update: ap {e_ap} (scale {scale_ap}), p.ap {e_pap} of its terms, "
+          f"vectors {e_vec} and scalars {e_sc} relative from its plain version")
+    for f in ("act", "iters", "ctl", "cond", "total"):
+        check(torch.equal(getattr(k.cg, f), getattr(p.cg, f)),
+              f"transport_rows_update: {f} differs from its plain version")
+    b.cg.ap.copy_(k.cg.ap)
+    b.cg.alpha.copy_(k.cg.alpha)
     bcg.cg_update_direction(b.cg, tcg.INNER_MAXITER)
-    tcg.update_pack_plain(p, op)
-    for f in ("x", "r", "p", "rz", "rr", "beta", "act", "iters", "ctl", "cond"):
+    for f in ("x", "r", "act", "iters", "ctl", "cond"):
         check(torch.equal(getattr(k.cg, f), getattr(b.cg, f)),
-              f"cg_update_direction_pack: {f} differs from the boundary build's")
+              f"transport_rows_update: {f} differs from the boundary build's update")
     ref = clone(k)
     tcg.pack_plain(ref, op, False)
     check(all(torch.equal(getattr(k, f), getattr(ref, f)) for f in ("xs32", "xw", "xm")),
-          "cg_update_direction_pack: the packed direction differs from pack_plain's")
-    e = max(err(getattr(k, f), getattr(p, f)) for f in ("xs32", "xm"))
-    scale = float(p.xs32.abs().max())
-    check(e <= 1e-5 * scale, f"cg_update_direction_pack: {e} from its plain version "
-          f"(scale {scale})")
+          "transport_rows_update: the packed direction differs from pack_plain's")
+    st = clone(base)
+    # (a converged iterate: r.r at its threshold, the flag down)
+    st.cg.act.fill_(False)
+    st.cg.thresh2.copy_(st.cg.rr)
+    before = clone(st)
+    tcg.rows_update(st, op)
+    moved = [f for f in ("x", "r", "p", "ap", "rz", "rr", "alpha", "beta", "iters", "act")
+             if not torch.equal(getattr(st.cg, f), getattr(before.cg, f))]
+    moved += [f for f in ("xs32", "xw", "xm") if not torch.equal(getattr(st, f),
+                                                                 getattr(before, f))]
+    check(not moved and int(st.cg.cond) == 0
+          and int(st.cg.total) == int(before.cg.total) + 1,
+          f"transport_rows_update: a stopped iterate's launch moved {moved}")
+    # timed from an iterating state that stays iterating (threshold 0)
     k.cg.thresh2.zero_()
     p.cg.thresh2.zero_()
-    timed("update_pack", lambda: tcg.update_pack(k, op), lambda: tcg.update_pack_plain(p, op),
-          f4 * 8 * nsub + f4 * nsub + f4 * nfull + (f4 + 2 * i4) * na + f4 * n_mp, e,
-          rel_err=e / scale, boundary_ms=time_ms(
-              lambda: bcg.cg_update_direction(b.cg, tcg.INNER_MAXITER)))
+    k.cg.act.fill_(True)
+    p.cg.act.fill_(True)
+    e = max(e_ap / scale_ap, max(e_vec.values()))
+    facts = kernel_facts("transport_cg", "transport_rows_update_kernel", (),
+                         lambda: tcg.rows_update(k, op))
+    rows_bytes = (common + i4 * na + f4 * na + f4 * nv + f4 * (dots_terms + 2 + 4 * nsub)
+                  + f4 * nsub + (f4 * na if op.row_fix is not None else 0))
+    timed("rows_update", lambda: tcg.rows_update(k, op), lambda: tcg.rows_update_plain(p, op),
+          rows_bytes + f4 * (4 * nsub + nsub + nfull + na + n_mp), e_ap,
+          rel_err=e, ap_rel_err=e_ap / scale_ap, p_ap_rel_err=e_pap, vector_rel_err=e_vec,
+          scalar_rel_err=e_sc, cold_ms=time_ms_cold(lambda: tcg.rows_update(k, op)),
+          boundary_ms=time_ms(lambda: bcg.cg_update_direction(b.cg, tcg.INNER_MAXITER)),
+          stopped_ms=time_ms(lambda: tcg.rows_update(st, op)), **facts)
 
     # the inner body inside a WHILE node, as the solve runs it, from a CG
     # start whose threshold is 0 (INNER_MAXITER iterations a replay): the
-    # package's body, the body without the branch (the band, the rows, the
-    # update) and every kernel in series
+    # package's body, the body without the branch (the band, the fused
+    # tail) and every kernel in series
     it = clone(base)
     tcg.refine(it, op, True, tcg.MAX_OUTER, 20000)
     it.cg.thresh2.zero_()
@@ -2251,11 +2283,11 @@ def transport_cg_checks(sim, band):
     start = clone(it)
     bodies = {
         "inner iteration": lambda h, s_: tcg.inner_iteration(it, op, h, s_),
-        "without the branch": lambda h, s_: (tcg.band(it, op, s_), tcg.rows(it, op, False, s_),
-                                             tcg.update_pack(it, op, h, s_)),
+        "without the branch": lambda h, s_: (tcg.band(it, op, s_),
+                                             tcg.rows_update(it, op, h, s_)),
         "in series": lambda h, s_: (tcg.band(it, op, s_), tcg.fly(it, op, s_),
-                                    tcg.blocks(it, op, False, s_), tcg.rows(it, op, False, s_),
-                                    tcg.update_pack(it, op, h, s_)),
+                                    tcg.blocks(it, op, False, s_),
+                                    tcg.rows_update(it, op, h, s_)),
     }
 
     def loop(body):
@@ -2326,8 +2358,11 @@ def transport_cg_checks(sim, band):
         + "; ".join(f"{name} {r['ms']:.5f} ms (bound {r['bound_ms']:.5f}, plain "
                     f"{r['plain_ms']:.4f}, err {r['err']:.3g})"
                     for name, r in out.items() if isinstance(r, dict) and "bound_ms" in r)
-        + f"; the boundary build of cg_update_direction on the same state "
-        f"{out['update_pack']['boundary_ms']:.5f} ms; band out= {out['band_out_ms']:.5f} ms, "
+        + f"; transport_rows_update cold L2 {out['rows_update']['cold_ms']:.5f} ms, a stopped "
+        f"iterate's launch {out['rows_update']['stopped_ms']:.5f} ms, "
+        f"{out['rows_update']['registers']} registers; the boundary build of "
+        f"cg_update_direction on the same state {out['rows_update']['boundary_ms']:.5f} ms; "
+        f"band out= {out['band_out_ms']:.5f} ms, "
         f"fly out= {out['fly_out_ms']:.5f} ms, both bit-equal to their allocating entries")
     out["shape"] = shape
     return out
@@ -2344,14 +2379,13 @@ def transport_cg_records(k, launches):
             ("transport_blocks", "blocks_lo", src, "devicekmc_tpu/ops/cg.py:112",
              "the products that read the inner direction alone: T_vm x_m, T_vv x_v, "
              "T_vm^T x_v, the bump, the virtual-node dots (f32), beside the band"),
-            ("transport_rows", "rows_lo", src, "devicekmc_tpu/ops/cg.py:112",
-             "every row of A p after the band, the fly matvec and transport_blocks, p.ap "
-             "and alpha (f32)"),
-            ("cg_update_direction_pack", "update_pack", "devicekmc_tpu_torch/csrc/boundary_cg.cu",
-             "devicekmc_tpu/ops/cg.py:112",
-             "the inner CG's update and direction (the transport build of "
-             "cg_update_direction), the new direction packed into the band's window and the "
-             "metal vector"),
+            ("transport_rows_update", "rows_update", src, "devicekmc_tpu/ops/cg.py:112",
+             "the inner iteration's tail in one cooperative launch: every row of A p after "
+             "the band, the fly matvec and transport_blocks, p.ap and alpha, the update "
+             "and direction (minv 1), the new direction packed into the band's window and "
+             "the metal vector, the flag, counts and predicate (f32)"),
+            ("transport_rows", "rows_hi", src, "devicekmc_tpu/ops/cg.py:225",
+             "the refinement's residual r = b - A x and r.r (f64)"),
             ("transport_pack", "pack", src, "devicekmc_tpu/ops/cg.py:225",
              "the round's correction of the iterate and its f64 scaled vector"),
             ("transport_refine", "refine", src, "devicekmc_tpu/ops/cg.py:225",
@@ -2362,11 +2396,14 @@ def transport_cg_records(k, launches):
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
                "library_ms": None, "library_none": none, "shape": k["shape"],
                "computes": note}
-        hi = {"blocks_lo": "blocks_hi", "rows_lo": "rows_hi"}.get(key)
-        if hi:
-            rec["f64_build"] = {f: k[hi][f] for f in ("err", "ms", "plain_ms", "bound_ms")}
-        if key == "update_pack":
-            rec["boundary_build_ms"] = r["boundary_ms"]
+        if key == "blocks_lo":
+            rec["f64_build"] = {f: k["blocks_hi"][f] for f in ("err", "ms", "plain_ms",
+                                                               "bound_ms")}
+        if key == "rows_update":
+            rec.update({f: r[f] for f in ("cold_ms", "stopped_ms", "boundary_ms", "kernel",
+                                          "registers", "shared_bytes", "device_launches",
+                                          "ap_rel_err", "p_ap_rel_err", "vector_rel_err",
+                                          "scalar_rel_err")})
         recs.append(rec)
     recs[0]["body_ms_each"] = k["body_ms_each"]
     recs[0]["solve"] = k["solve"]

@@ -19,9 +19,9 @@
 //   cg_matvec_dot        ap = A p and p.ap of each replica -> alpha = r.z / p.ap
 //   cg_update_direction  x += alpha p, r -= alpha ap, z = r / diag, r.z and
 //                        r.r -> beta, p = z + beta p, the new stop flags, the
-//                        loop's predicate; its transport build (f32, B = 1)
-//                        also packs the new p as the transport CG's next
-//                        product reads it (ops/transport_cg.update_pack)
+//                        loop's predicate (the transport CG's inner tail is
+//                        this update with minv = 1 after its rows, fused in
+//                        csrc/transport_cg.cu transport_rows_update)
 //
 // Bound: bytes.  An iteration needs the operator's nonzeros (8 + 4 bytes
 // each in f64; 27.4 a row of the headline crossbar, 51 at most), the
@@ -67,11 +67,6 @@
 //     runs give the same bits, and a replica's bits do not depend on B;
 //   * a stopped replica's matvec blocks leave at once; its update tiles are
 //     skipped, but their blocks reach the barrier;
-//   * the transport build (a template flag) writes, from the p each row has
-//     just computed, xs[i] = dsi[i] p[i] (xs[n] = 0), the atom's slot of the
-//     band's window and of the metal vector (csrc/transport_cg.cu's inputs),
-//     so the transport CG's inner body needs no pack launch; the boundary
-//     builds read none of its pointers;
 //   * nothing allocates: every buffer comes from the caller, so the two
 //     launches can be captured into the body of a conditional node.
 
@@ -79,7 +74,6 @@
 #include <stdint.h>
 
 #include "grid_sync.cuh"
-#include "launch_count.cuh"
 #include "ticket.cuh"
 
 namespace {
@@ -257,21 +251,6 @@ __device__ __forceinline__ void tile_sums(const T* part, int n_tiles, T& s_rz, T
   s_rr = warp_sum(q);
 }
 
-// The transport CG's inner direction as its next product reads it
-// (transport build, B = 1, f32): the scaling dsi [n], the scaled vector xs
-// [n + 1], the band's zero-padded window xw (atom a at front + inv[a]) and
-// the metal vector xm (atom a at mp_inv[a] >= 0); row i is atom i - 2.
-struct PackArgs {
-  const float* dsi;
-  float* xs;
-  float* xw;
-  float* xm;
-  const int* inv;
-  const int* mp_inv;
-  int front;
-  unsigned long long* count;
-};
-
 // One launch after cg_matvec_dot: the update x += alpha p, r -= alpha ap,
 // z = r / diag with the partial sums of r.z and r.r, a barrier of the grid,
 // every block's sums, beta and the direction p = z + beta p.  The grid's
@@ -282,8 +261,7 @@ struct PackArgs {
 // tiles read r, minv and p again.  Block 0 writes every replica's r.z, r.r,
 // beta, count and flag, the loop's count and predicate and sets the WHILE
 // node's condition; the other blocks read act and rz before the barrier.
-// kPack (T float, B = 1): row i's new direction also packed (PackArgs).
-template <typename T, bool kPack>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 cg_update_direction_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__ p,
                            const T* __restrict__ ap, const T* __restrict__ minv,
@@ -294,9 +272,7 @@ cg_update_direction_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__
                            T* __restrict__ part, unsigned* __restrict__ bar,
                            int* __restrict__ ctl, int* __restrict__ cond,
                            unsigned long long* __restrict__ total, unsigned long long handle,
-                           int n, int batch, int per, int maxiter, const PackArgs pk) {
-  static_assert(!kPack || sizeof(T) == 4, "the transport build is f32");
-  if constexpr (kPack) count_launch(pk.count);
+                           int n, int batch, int per, int maxiter) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_tiles = (n + kTile - 1) / kTile;
   const int first = blockIdx.x * per, last = min(first + per, batch * n_tiles);
@@ -426,15 +402,6 @@ cg_update_direction_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__
         const T pn =
             w == first ? fma_rn(be, ph[k], zh[k]) : fma_rn(be, p[e], mul_rn(minv[e], r[e]));
         p[e] = pn;
-        if constexpr (kPack) {
-          const float v = mul_rn(pk.dsi[i], pn);
-          pk.xs[i] = v;
-          if (i >= 2) {
-            pk.xw[pk.front + pk.inv[i - 2]] = v;
-            const int m = pk.mp_inv[i - 2];
-            if (m >= 0) pk.xm[m] = v;
-          }
-        }
       }
     }
   }
@@ -449,7 +416,6 @@ cg_update_direction_kernel(T* __restrict__ x, T* __restrict__ r, T* __restrict__
     const int go = n_on > 0 && it < maxiter;
     cond[0] = go;
     *total += 1;
-    if constexpr (kPack) pk.xs[n] = 0.f;
     if (handle) cudaGraphSetConditional(handle, go);
   }
 }
@@ -493,13 +459,13 @@ int update_grid(K kernel, int n, int batch, int* grid, int* per) {
 
 // A cooperative launch of a build of cg_update_direction (every block
 // resident at once, as the barrier needs) on the grid of update_grid.
-template <typename T, bool kPack>
+template <typename T>
 int launch_update(void* x, void* r, void* p, const void* ap, const void* minv, void* act,
                   const void* act0, const void* alpha, void* beta, void* rz, void* rr,
                   const void* thresh2, void* iters, void* part, void* bar, void* ctl,
                   void* cond, void* total, unsigned long long handle, int n, int batch,
-                  int maxiter, const PackArgs& pk, void* stream) {
-  auto* kernel = cg_update_direction_kernel<T, kPack>;
+                  int maxiter, void* stream) {
+  auto* kernel = cg_update_direction_kernel<T>;
   int grid = 0, per = 0;
   const int err = update_grid(kernel, n, batch, &grid, &per);
   if (err != 0) return err;
@@ -520,7 +486,7 @@ int launch_update(void* x, void* r, void* p, const void* ap, const void* minv, v
       static_cast<T*>(beta), static_cast<T*>(rz), static_cast<T*>(rr),
       static_cast<const T*>(thresh2), static_cast<long long*>(iters), static_cast<T*>(part),
       static_cast<unsigned*>(bar), static_cast<int*>(ctl), static_cast<int*>(cond),
-      static_cast<unsigned long long*>(total), handle, n, batch, per, maxiter, pk);
+      static_cast<unsigned long long*>(total), handle, n, batch, per, maxiter);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -557,8 +523,8 @@ extern "C" int dkmc_cg_matvec_dot(int is_f64, const void* diag, const void* vals
 // batch replicas of n rows (update_grid).
 extern "C" int dkmc_cg_update_direction_grid(int is_f64, int n, int batch, int* grid,
                                              int* per) {
-  return is_f64 ? update_grid(cg_update_direction_kernel<double, false>, n, batch, grid, per)
-                : update_grid(cg_update_direction_kernel<float, false>, n, batch, grid, per);
+  return is_f64 ? update_grid(cg_update_direction_kernel<double>, n, batch, grid, per)
+                : update_grid(cg_update_direction_kernel<float>, n, batch, grid, per);
 }
 
 extern "C" int dkmc_cg_update_direction(int is_f64, void* x, void* r, void* p, const void* ap,
@@ -568,29 +534,7 @@ extern "C" int dkmc_cg_update_direction(int is_f64, void* x, void* r, void* p, c
                                         void* bar, void* ctl, void* cond, void* total,
                                         unsigned long long handle, int n, int batch,
                                         int maxiter, void* stream) {
-  const PackArgs none = {};
-  auto launch = is_f64 ? launch_update<double, false> : launch_update<float, false>;
+  auto launch = is_f64 ? launch_update<double> : launch_update<float>;
   return launch(x, r, p, ap, minv, act, act0, alpha, beta, rz, rr, thresh2, iters,
-                part, bar, ctl, cond, total, handle, n, batch, maxiter, none, stream);
-}
-
-// The transport build (f32, one replica of n rows): the boundary build's
-// update and direction, and the new direction packed into xs, xw and xm.
-extern "C" int dkmc_cg_update_direction_pack(void* x, void* r, void* p, const void* ap,
-                                             const void* minv, void* act, const void* act0,
-                                             const void* alpha, void* beta, void* rz, void* rr,
-                                             const void* thresh2, void* iters, void* part,
-                                             void* bar, void* ctl, void* cond, void* total,
-                                             unsigned long long handle, int n, int maxiter,
-                                             const void* dsi, void* xs, void* xw, void* xm,
-                                             const void* inv, const void* mp_inv, int front,
-                                             void* count, void* stream) {
-  if (n < 2) return (int)cudaErrorInvalidValue;
-  const PackArgs pk = {static_cast<const float*>(dsi), static_cast<float*>(xs),
-                       static_cast<float*>(xw), static_cast<float*>(xm),
-                       static_cast<const int*>(inv), static_cast<const int*>(mp_inv), front,
-                       static_cast<unsigned long long*>(count)};
-  return launch_update<float, true>(x, r, p, ap, minv, act, act0, alpha, beta, rz, rr, thresh2,
-                                    iters, part, bar, ctl, cond, total, handle, n, 1, maxiter,
-                                    pk, stream);
+                part, bar, ctl, cond, total, handle, n, batch, maxiter, stream);
 }

@@ -18,12 +18,22 @@
 //                     T_vm^T x_v, the bump over the bucket's neighbours
 //                     (f32 build) and the two virtual-node dots; it runs on
 //                     a branch beside the band (ops/transport_cg.products)
-//   transport_rows    every row (band or ELL part, a bf16 band's row_fix,
-//                     bump, metal row through mp_inv, vacancy slot,
-//                     virtual rows, diagonal, dsi);
-//                     the f32 build writes ap and alpha = r.z / p.ap (the
-//                     inner CG's step, as cg_matvec_dot does), the f64
-//                     build r = b - A x and r.r
+//   transport_rows_update
+//                     the inner iteration's tail (f32), one cooperative
+//                     launch: every row of ap = A p (band part, a bf16
+//                     band's row_fix, bump, metal row through mp_inv,
+//                     vacancy slot, virtual rows, diagonal, dsi) and p.ap;
+//                     a barrier of the grid; alpha = r.z / p.ap, x += alpha
+//                     p, r -= alpha ap, z = r (the system is Jacobi-scaled:
+//                     minv = 1) and r.r; a barrier; beta, p = z + beta p
+//                     packed as the next product reads it (xs = dsi p, the
+//                     band's window, the metal vector), the stop flag, the
+//                     counts and the inner predicate (also the WHILE node's
+//                     condition): boundary_cg.cu's cg_update_direction with
+//                     minv = 1, after the rows
+//   transport_rows    the refinement's f64 residual: every row (ELL part,
+//                     metal row, vacancy slot, virtual rows, diagonal, dsi),
+//                     r = b - A x and r.r
 //   transport_pack    the refinement's iterate: x += f64(inner x) scale (the
 //                     finished round's correction), then the scaled vector
 //                     xs = dsi * x and its f32 metal part
@@ -36,12 +46,9 @@
 //                     threshold and predicate); a barrier of the grid
 //                     between the sum of b_in.b_in's tiles and its use
 //
-// The inner update and direction is boundary_cg.cu's cg_update_direction
-// kernel (f32, B = 1) in its transport build, with the inverse diagonal 1
-// (the system is Jacobi-scaled, so z = r and r.z is r.r bit for bit): it
-// also packs the new direction (xs = dsi p, the band's window, the metal
-// vector), so the inner body is band | (fly, transport_blocks), then
-// transport_rows, then the update.
+// So the inner body is band | (fly, transport_blocks), then
+// transport_rows_update; a round's end is transport_pack, fly,
+// transport_blocks (f64), transport_rows and transport_refine.
 //
 // Bound: bytes.  An inner iteration reads the band (static, about 2 GB at
 // the crossbar's width: its own kernel), the vacancy blocks' live rows once
@@ -61,13 +68,37 @@
 //     bucket's live slots (n_vac, on the device) leave at once, so the
 //     column sums fit the live rows; T_vv's rows a warp each, 8 loads a lane
 //     in flight against x_v in shared memory; the dots a block each;
-//   * transport_rows takes one row a thread in tiles of kThreads rows (the
-//     grid covers the card: 304 blocks at the crossbar's 77,617 rows), the
-//     f64 build's ELL row in passes of kEll slots whose loads are all
-//     issued before the first is used; the tiles' partial sums are added in
-//     tile order by the block that draws the last ticket;
+//   * transport_rows_update keeps each row's ap, p, dsi and slots in
+//     registers from the rows to the direction, so ap is written once and
+//     never read back, p read once; a thread starts the loads of all its
+//     rows' own entries and slots, then of all the values the slots point
+//     at, before it adds any (two levels of latency, not one a slot); kRuRows rows a
+//     thread in tiles of kRuTile rows (rows t, t + kRuThreads, ... of a
+//     tile), a block the tiles [b per, (b + 1) per) of which the first
+//     stays in registers (the others read their rows again), the grid
+//     capped at the blocks the card holds (a cooperative launch,
+//     csrc/grid_sync.cuh); each tile's partial sums of p.ap and r.r go to
+//     slots of their own, and after each barrier warp 0 of every block adds
+//     the same slots in the same order (lane l: the four slots of groups
+//     l, l + 32, ..., then a butterfly), so every block has the same alpha
+//     and beta and no block waits for a last one.  The last-ticket sum of
+//     the two kernels it replaces (transport_rows' f32 build and the
+//     transport build of cg_update_direction) is gone with their ap round
+//     trip, their second read of p and a node of the WHILE body; a stopped
+//     iterate's launch leaves at once (block 0 writes the flags and counts).
+//     tools/probe_cg_events.py on an H100 80GB HBM3 at 700 W: one row a
+//     thread in 152 blocks of 512 the fastest of 1-4 rows and 256-1,024
+//     threads (none of them apart by more than 10 %), the barriers and sums
+//     after them 62 % of a block's time (clock64() stamps); every warp of
+//     every block adding the slots put tens of thousands of loads on the
+//     same L2 lines (6.8 us for a barrier at 304 blocks), one block an SM
+//     and a sleep between a barrier's polls were no faster;
+//   * transport_rows (f64) takes one row a thread in tiles of kThreads rows,
+//     its ELL row in passes of kEll slots whose loads all start before the
+//     first is used; the tiles' partial sums are added in tile order by
+//     the block that draws the last ticket;
 //   * every sum has a fixed order and no float atomics are used: two runs
-//     give the same bits;
+//     give the same bits, and graph and host loop the same iterates;
 //   * the row arithmetic spells out each rounding (products rounded on
 //     their own, then added) in the order of the plain version, so that a
 //     row differs from it only through the sums that reduce in another
@@ -108,6 +139,16 @@ constexpr int kVvLoads = 8;
 constexpr int kSumLoads = 8;
 // transport_rows (f64): ELL slots a pass, their loads issued together
 constexpr int kEll = 8;
+// transport_rows_update: threads a block and rows a thread (rows t, t +
+// kRuThreads, ... of a tile of kRuTile rows); tools/probe_cg_events.py
+// --parts transport --variants times other values
+constexpr int kRuThreads = 512;
+constexpr int kRuRows = 1;
+constexpr int kRuWarps = kRuThreads / 32;
+constexpr int kRuTile = kRuThreads * kRuRows;
+// the caller's partial sums hold two slots for every RU_MIN_TILE rows and
+// four more (ops/transport_cg.py): the r.r slots start 16-byte aligned
+static_assert(kRuTile >= 128, "a tile of transport_rows_update holds 128 rows or more");
 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -146,8 +187,8 @@ __device__ __forceinline__ T sum_partials(const T* part, int count, T* s_warp) {
 }
 
 // The sum of the block's values v (one a thread) in thread order through
-// the warps' butterflies and the warps in order; in thread 0.
-template <typename T>
+// the warps' butterflies and the warps in order (kW warps); in thread 0.
+template <typename T, int kW = kWarps>
 __device__ __forceinline__ T block_sum(T v, T* s_warp) {
   v = warp_sum(v);
   __syncthreads();
@@ -155,9 +196,45 @@ __device__ __forceinline__ T block_sum(T v, T* s_warp) {
   __syncthreads();
   T sum = 0;
   if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) sum += s_warp[w];
+    for (int w = 0; w < kW; ++w) sum += s_warp[w];
   __syncthreads();
   return sum;
+}
+
+// The sum of `count` partials (written by other blocks: read past L1; 16-
+// byte aligned) in every thread of the block, with the same bits in every
+// block: warp 0 alone reads them, 16 bytes a load (lane l: the four slots
+// of groups l, l + 32, ..., kPass groups loaded before any is added, each
+// group's slots below `count` added in order), then a butterfly; the sum
+// reaches the other warps through `s_sum`.  Every thread calls it.
+__device__ __forceinline__ float block_sum_partials(const float* part, int count,
+                                                    float* s_sum) {
+  if (threadIdx.x < 32) {
+    constexpr int kPass = 4;
+    const float4* p4 = reinterpret_cast<const float4*>(part);
+    const int n4 = (count + 3) >> 2;
+    float a = 0.f;
+    for (int q0 = threadIdx.x; q0 < n4; q0 += 32 * kPass) {
+      float4 v[kPass];
+#pragma unroll
+      for (int k = 0; k < kPass; ++k) {
+        const int q = q0 + 32 * k;
+        v[k] = q < n4 ? __ldcg(p4 + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int k = 0; k < kPass; ++k) {
+        const int t = 4 * (q0 + 32 * k);
+        if (t < count) a += v[k].x;
+        if (t + 1 < count) a += v[k].y;
+        if (t + 2 < count) a += v[k].z;
+        if (t + 3 < count) a += v[k].w;
+      }
+    }
+    a = warp_sum(a);
+    if (threadIdx.x == 0) *s_sum = a;
+  }
+  __syncthreads();
+  return *s_sum;
 }
 
 // The sum of slots q, q + lanes, ... below count of a column of partial sums
@@ -426,22 +503,14 @@ __global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T
 }
 
 // ----------------------------------------------------------------------------
-// transport_rows
+// transport_rows (f64)
 // ----------------------------------------------------------------------------
 
-template <typename T>
 struct RowsArgs {
   // the scaled vector [n_full]
-  const T* xs;
-  // lo: the band's product in its permuted layout and the inverse
-  // permutation [na]; a bf16 band's row_fix [na] (null: an f32 band); the
-  // bump [vcap]
-  const float* band_y;
-  const int* inv;
-  const float* row_fix;
-  const float* y_bump;
-  // hi: the ELL neighbour conductances [na, max_nn] (f64) over the atom
-  // graph [na, max_nn] (int32, pad -1)
+  const double* xs;
+  // the ELL neighbour conductances [na, max_nn] over the atom graph [na,
+  // max_nn] (int32, pad -1)
   const double* nbv;
   const int* anb;
   // each atom's bucket slot and metal slot (-1: none)
@@ -453,106 +522,346 @@ struct RowsArgs {
   const float* mv;
   const float* y_vm;
   const float* y_vv;
-  const T* dots;
-  // virtual rows, diagonal and scaling in the working type
-  const T* gnd;
-  const T* src;
-  const T* diag;
-  const T* dsi;
+  const double* dots;
+  // virtual rows, diagonal and scaling
+  const double* gnd;
+  const double* src;
+  const double* diag;
+  const double* dsi;
   double loop_G;
   int na, nsub, max_nn;
-  // lo: the inner CG's direction, product, r.z, step and flag
-  const float* p;
-  float* ap;
-  const float* rz;
-  float* alpha;
-  const unsigned char* act;
-  // hi: the right-hand side, the residual and r.r
+  // the right-hand side, the residual and r.r
   const double* b;
   double* r;
   double* rsum;
   // scratch: the tiles' partial sums, the ticket
-  T* part;
+  double* part;
   int* ticket;
   unsigned long long* count;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs<T> A) {
+__global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs A) {
   count_launch(A.count);
-  constexpr bool kLo = sizeof(T) == 4;
-  __shared__ T s_warp[kWarps];
+  __shared__ double s_warp[kWarps];
   __shared__ int s_flag;
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  T acc = 0;
+  double acc = 0;
   if (i < A.nsub) {
-    const T x0 = A.xs[0], x1 = A.xs[1];
-    T y;
+    const double x0 = A.xs[0], x1 = A.xs[1];
+    double y;
     if (i >= 2) {
       const int a = i - 2;
-      if (kLo) {
-        y = (T)__ldcg(A.band_y + A.inv[a]);
-        // a bf16 band's rounding of the row, put back on the diagonal as
-        // physics/current.py _band_unpermute adds it: y + row_fix x
-        if (A.row_fix != nullptr) y = add_rn(y, mul_rn((T)A.row_fix[a], A.xs[i]));
-      } else {
-        y = 0;
-        const int* nb = A.anb + (size_t)a * A.max_nn;
-        const double* nv_ = A.nbv + (size_t)a * A.max_nn;
-        for (int k0 = 0; k0 < A.max_nn; k0 += kEll) {
-          int j[kEll];
-          T w[kEll], xv[kEll];
+      y = 0;
+      const int* nb = A.anb + (size_t)a * A.max_nn;
+      const double* nv_ = A.nbv + (size_t)a * A.max_nn;
+      for (int k0 = 0; k0 < A.max_nn; k0 += kEll) {
+        int j[kEll];
+        double w[kEll], xv[kEll];
 #pragma unroll
-          for (int u = 0; u < kEll; ++u) {
-            const int k = k0 + u;
-            j[u] = k < A.max_nn ? nb[k] : -1;
-            w[u] = k < A.max_nn ? (T)nv_[k] : T(0);
-          }
-#pragma unroll
-          for (int u = 0; u < kEll; ++u) xv[u] = j[u] >= 0 ? A.xs[j[u] + 2] : T(0);
-#pragma unroll
-          for (int u = 0; u < kEll; ++u)
-            if (j[u] >= 0) y = fma_rn(w[u], xv[u], y);
+        for (int u = 0; u < kEll; ++u) {
+          const int k = k0 + u;
+          j[u] = k < A.max_nn ? nb[k] : -1;
+          w[u] = k < A.max_nn ? nv_[k] : 0.0;
         }
+#pragma unroll
+        for (int u = 0; u < kEll; ++u) xv[u] = j[u] >= 0 ? A.xs[j[u] + 2] : 0.0;
+#pragma unroll
+        for (int u = 0; u < kEll; ++u)
+          if (j[u] >= 0) y = fma_rn(w[u], xv[u], y);
       }
       const int s = A.vslot[a];
-      if (kLo && s >= 0) y = add_rn(y, (T)__ldcg(A.y_bump + s));
       const int k = A.mp_inv[a];
-      T tm = 0;
-      if (k >= 0) tm = add_rn((T)A.y_cc[k], (T)__ldcg(A.mv + k));
+      double tm = 0;
+      if (k >= 0) tm = add_rn((double)A.y_cc[k], (double)__ldcg(A.mv + k));
       y = add_rn(y, tm);
-      if (s >= 0) y = add_rn(y, add_rn((T)__ldcg(A.y_vv + s), (T)__ldcg(A.y_vm + s)));
+      if (s >= 0)
+        y = add_rn(y, add_rn((double)__ldcg(A.y_vv + s), (double)__ldcg(A.y_vm + s)));
       y = add_rn(y, mul_rn(A.gnd[a], x0));
       y = add_rn(y, mul_rn(A.src[a], x1));
     } else {
-      const T lg = (T)A.loop_G;
-      y = i == 0 ? sub_rn(__ldcg(A.dots + 0), mul_rn(lg, x1))
-                 : sub_rn(__ldcg(A.dots + 1), mul_rn(lg, x0));
+      y = i == 0 ? sub_rn(__ldcg(A.dots + 0), mul_rn(A.loop_G, x1))
+                 : sub_rn(__ldcg(A.dots + 1), mul_rn(A.loop_G, x0));
     }
     y = add_rn(y, mul_rn(A.diag[i], A.xs[i]));
-    const T v = mul_rn(A.dsi[i], y);
-    if (kLo) {
-      A.ap[i] = (float)v;
-      acc = fma_rn((T)A.p[i], v, acc);
-    } else {
-      const T rr = sub_rn((T)A.b[i], v);
-      A.r[i] = (double)rr;
-      acc = fma_rn(rr, rr, acc);
-    }
+    const double rr = sub_rn(A.b[i], mul_rn(A.dsi[i], y));
+    A.r[i] = rr;
+    acc = fma_rn(rr, rr, acc);
   }
-  const T sum = block_sum(acc, s_warp);
+  const double sum = block_sum(acc, s_warp);
   if (threadIdx.x == 0) A.part[blockIdx.x] = sum;
 
-  // the tiles' sums in tile order, by the block that draws the last
-  // ticket: alpha (lo, while the inner CG iterates) or r.r (hi)
+  // the tiles' sums in tile order, by the block that draws the last ticket
   if (!last_ticket(A.ticket, 0, gridDim.x, &s_flag)) return;
-  const T total = sum_partials(A.part, gridDim.x, s_warp);
-  if (threadIdx.x == 0) {
-    if (kLo) {
-      if (A.act[0]) A.alpha[0] = total != T(0) ? (float)(A.rz[0] / (float)total) : 0.f;
-    } else {
-      A.rsum[0] = (double)total;
+  const double total = sum_partials(A.part, gridDim.x, s_warp);
+  if (threadIdx.x == 0) A.rsum[0] = total;
+}
+
+// ----------------------------------------------------------------------------
+// transport_rows_update (f32): the inner iteration's tail
+// ----------------------------------------------------------------------------
+
+struct RowsUpdateArgs {
+  // the packed direction: the scaled vector [n_full] (the rows read it, the
+  // direction writes the next one), the band's zero-padded window (atom a at
+  // front + inv[a]) and the metal vector (atom a at mp_inv[a] >= 0)
+  float* xs;
+  float* xw;
+  float* xm;
+  int front;
+  // the band's product in its permuted layout and the inverse permutation
+  // [na]; a bf16 band's row_fix [na] (null: an f32 band); the bump [vcap]
+  const float* band_y;
+  const int* inv;
+  const float* row_fix;
+  const float* y_bump;
+  // each atom's bucket slot and metal slot (-1: none)
+  const int* vslot;
+  const int* mp_inv;
+  // the fly kernel's product [n_mp] and transport_blocks': the column sums
+  // [n_mp], T_vm x_m and T_vv x_v [vcap], the dots [2]
+  const float* y_cc;
+  const float* mv;
+  const float* y_vm;
+  const float* y_vv;
+  const float* dots;
+  // virtual rows, diagonal and scaling
+  const float* gnd;
+  const float* src;
+  const float* diag;
+  const float* dsi;
+  double loop_G;
+  int nsub, per, maxiter;
+  // the inner CG (boundary_cg's workspace at B = 1): iterate, residual,
+  // direction, its product, the flags, the scalars, the counts, the
+  // predicate and the WHILE node it conditions (0: none)
+  float* x;
+  float* r;
+  float* p;
+  float* ap;
+  unsigned char* act;
+  const unsigned char* act0;
+  float* alpha;
+  float* beta;
+  float* rz;
+  float* rr;
+  const float* thresh2;
+  long long* iters;
+  int* ctl;
+  int* cond;
+  unsigned long long* total;
+  unsigned long long handle;
+  // scratch: the tiles' partial sums of p.ap [n_tiles] and then, from the
+  // next multiple of 4, of r.r [n_tiles]; the grid barrier
+  float* part;
+  unsigned* bar;
+  unsigned long long* count;
+};
+
+// Row i of ap = A p from the packed direction (transport_rows' f32 rows
+// before they were fused, each rounding spelled out), in two levels of
+// loads so that a thread's rows start every load of a level before any is
+// used: ru_load1 the row's own entries and slots, ru_load2 what the slots
+// point at (slot 0 where the row has none: loaded, not used), ru_value the
+// arithmetic.
+struct RuRow {
+  float xi, pe, d, dg, g, sr, rf;
+  int a_inv, s, m;
+  float by, bump, vv, vm, ycc, mvv;
+};
+
+__device__ __forceinline__ void ru_load1(const RowsUpdateArgs& A, int i, RuRow& w) {
+  w.xi = A.xs[i];
+  w.pe = A.p[i];
+  w.d = A.dsi[i];
+  w.dg = A.diag[i];
+  w.a_inv = w.s = w.m = -1;
+  w.g = w.sr = w.rf = 0.f;
+  if (i >= 2) {
+    const int a = i - 2;
+    w.a_inv = A.inv[a];
+    w.s = A.vslot[a];
+    w.m = A.mp_inv[a];
+    w.g = A.gnd[a];
+    w.sr = A.src[a];
+    if (A.row_fix != nullptr) w.rf = A.row_fix[a];
+  }
+}
+
+__device__ __forceinline__ void ru_load2(const RowsUpdateArgs& A, int i, RuRow& w) {
+  if (i < 2) return;
+  const int s = max(w.s, 0), m = max(w.m, 0);
+  w.by = __ldcg(A.band_y + w.a_inv);
+  w.bump = __ldcg(A.y_bump + s);
+  w.vv = __ldcg(A.y_vv + s);
+  w.vm = __ldcg(A.y_vm + s);
+  w.ycc = A.y_cc[m];
+  w.mvv = __ldcg(A.mv + m);
+}
+
+__device__ __forceinline__ float ru_value(const RowsUpdateArgs& A, int i, const RuRow& w,
+                                          float x0, float x1) {
+  float y;
+  if (i >= 2) {
+    y = w.by;
+    // a bf16 band's rounding of the row, put back on the diagonal as
+    // physics/current.py _band_unpermute adds it: y + row_fix x
+    if (A.row_fix != nullptr) y = add_rn(y, mul_rn(w.rf, w.xi));
+    if (w.s >= 0) y = add_rn(y, w.bump);
+    float tm = 0.f;
+    if (w.m >= 0) tm = add_rn(w.ycc, w.mvv);
+    y = add_rn(y, tm);
+    if (w.s >= 0) y = add_rn(y, add_rn(w.vv, w.vm));
+    y = add_rn(y, mul_rn(w.g, x0));
+    y = add_rn(y, mul_rn(w.sr, x1));
+  } else {
+    const float lg = (float)A.loop_G;
+    y = i == 0 ? sub_rn(__ldcg(A.dots + 0), mul_rn(lg, x1))
+               : sub_rn(__ldcg(A.dots + 1), mul_rn(lg, x0));
+  }
+  return mul_rn(w.d, add_rn(y, mul_rn(w.dg, w.xi)));
+}
+
+// One inner iteration's tail after the products, in three phases between
+// two barriers of the grid; the block's tiles t in [first, last), row i =
+// t kRuTile + k kRuThreads + threadIdx.x, the first tile's rows held in
+// registers from A to C.  Block 0 reads its scalars before the barriers and
+// writes every scalar, flag, count and the predicate after the last.
+__global__ void __launch_bounds__(kRuThreads) transport_rows_update_kernel(RowsUpdateArgs A) {
+  count_launch(A.count);
+  __shared__ float s_warp[kRuWarps];
+  __shared__ float s_alpha, s_beta;
+  const bool writer = blockIdx.x == 0;
+  const int n_tiles = (A.nsub + kRuTile - 1) / kRuTile;
+  // the r.r slots after the p.ap slots, 16-byte aligned
+  float* part_rr = A.part + ((n_tiles + 3) & ~3);
+  const int first = blockIdx.x * A.per, last = min(first + A.per, n_tiles);
+  // the entry flag and the scalars no block writes before the last barrier
+  const bool on = *A.act != 0;
+  const float rz_o = *A.rz;
+  long long it_w = 0;
+  float rr_w = 0.f, th_w = 0.f;
+  bool a0_w = false;
+  int ctl_0 = 0;
+  if (writer && threadIdx.x == 0) {
+    it_w = *A.iters;
+    rr_w = *A.rr;
+    th_w = *A.thresh2;
+    a0_w = *A.act0 != 0;
+    ctl_0 = A.ctl[0];
+  }
+  float alpha = 0.f, beta = 0.f, rz_n = 0.f;
+  if (on) {
+    float ph[kRuRows], vh[kRuRows], dh[kRuRows], zh[kRuRows];
+    int ih[kRuRows], mh[kRuRows];
+    const float x0 = A.xs[0], x1 = A.xs[1];
+
+    // A. the rows of ap = A p and each tile's partial p.ap (a thread's rows
+    // in order, the warp's butterfly, the warps in order)
+    for (int t = first; t < last; ++t) {
+      RuRow w[kRuRows];
+#pragma unroll
+      for (int k = 0; k < kRuRows; ++k) {
+        const int i = t * kRuTile + k * kRuThreads + threadIdx.x;
+        if (i < A.nsub) ru_load1(A, i, w[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kRuRows; ++k) {
+        const int i = t * kRuTile + k * kRuThreads + threadIdx.x;
+        if (i < A.nsub) ru_load2(A, i, w[k]);
+      }
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < kRuRows; ++k) {
+        const int i = t * kRuTile + k * kRuThreads + threadIdx.x;
+        if (i < A.nsub) {
+          const float v = ru_value(A, i, w[k], x0, x1);
+          A.ap[i] = v;
+          acc = fma_rn(w[k].pe, v, acc);
+          if (t == first) {
+            ph[k] = w[k].pe;
+            vh[k] = v;
+            dh[k] = w[k].d;
+            ih[k] = w[k].a_inv;
+            mh[k] = w[k].m;
+          }
+        }
+      }
+      const float sum = block_sum<float, kRuWarps>(acc, s_warp);
+      if (threadIdx.x == 0) A.part[t] = sum;
     }
+    grid_barrier(A.bar);
+
+    // B. alpha in every block; the update of the block's rows and each
+    // tile's partial r.r (z = r: r.z is r.r bit for bit)
+    const float pap = block_sum_partials(A.part, n_tiles, &s_alpha);
+    alpha = pap != 0.f ? rz_o / pap : 0.f;
+    for (int t = first; t < last; ++t) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < kRuRows; ++k) {
+        const int i = t * kRuTile + k * kRuThreads + threadIdx.x;
+        if (i < A.nsub) {
+          const bool reg = t == first;
+          const float pe = reg ? ph[k] : A.p[i];
+          const float ve = reg ? vh[k] : A.ap[i];
+          const float rn = fma_rn(-alpha, ve, A.r[i]);
+          A.x[i] = fma_rn(alpha, pe, A.x[i]);
+          A.r[i] = rn;
+          acc = fma_rn(rn, rn, acc);
+          if (reg) zh[k] = rn;
+        }
+      }
+      const float sum = block_sum<float, kRuWarps>(acc, s_warp);
+      if (threadIdx.x == 0) part_rr[t] = sum;
+    }
+    grid_barrier(A.bar);
+
+    // C. beta in every block; the direction p = z + beta p of the block's
+    // rows, packed: xs = dsi p, the band's window, the metal vector
+    rz_n = block_sum_partials(part_rr, n_tiles, &s_beta);
+    beta = rz_o != 0.f ? rz_n / rz_o : 0.f;
+    for (int t = first; t < last; ++t) {
+#pragma unroll
+      for (int k = 0; k < kRuRows; ++k) {
+        const int i = t * kRuTile + k * kRuThreads + threadIdx.x;
+        if (i < A.nsub) {
+          const bool reg = t == first;
+          const float pn = reg ? fma_rn(beta, ph[k], zh[k]) : fma_rn(beta, A.p[i], A.r[i]);
+          A.p[i] = pn;
+          const float v = mul_rn(reg ? dh[k] : A.dsi[i], pn);
+          A.xs[i] = v;
+          if (i >= 2) {
+            const int a_inv = reg ? ih[k] : A.inv[i - 2];
+            const int a_mp = reg ? mh[k] : A.mp_inv[i - 2];
+            A.xw[A.front + a_inv] = v;
+            if (a_mp >= 0) A.xm[a_mp] = v;
+          }
+        }
+      }
+    }
+  }
+
+  // block 0: the scalars, the flag (a stopped iterate's from its r.r as it
+  // is), the iterations run and the predicate
+  if (writer && threadIdx.x == 0) {
+    const float rr_c = on ? rz_n : rr_w;
+    if (on) {
+      *A.alpha = alpha;
+      *A.beta = beta;
+      *A.rz = rz_n;
+      *A.rr = rz_n;
+      *A.iters = it_w + 1;
+    }
+    const bool go_c = a0_w && rr_c > th_w;
+    *A.act = go_c;
+    const int it = ctl_0 + 1;
+    A.ctl[0] = it;
+    A.ctl[1] = go_c;
+    const int go = go_c && it < A.maxiter;
+    *A.cond = go;
+    *A.total += 1;
+    A.xs[A.nsub] = 0.f;
+    if (A.handle) cudaGraphSetConditional(A.handle, go);
   }
 }
 
@@ -676,28 +985,29 @@ __global__ void __launch_bounds__(kThreads) transport_refine_kernel(RefineArgs A
   if (A.handle) cudaGraphSetConditional(A.handle, go);
 }
 
-// Blocks of a cooperative kernel that the current card holds at once.
+// Blocks of a cooperative kernel of `threads` threads that the current card
+// holds at once.
 template <typename K>
-int resident_blocks(K kernel) {
+int resident_blocks(K kernel, int threads) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess
       || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
-      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0)
              != cudaSuccess)
     return 0;
   return per_sm * sms;
 }
 
 template <typename K, typename Args>
-int launch_cooperative(K kernel, int want, const Args& args, cudaStream_t st) {
-  const int cap = resident_blocks(kernel);
+int launch_cooperative(K kernel, int want, int threads, const Args& args, cudaStream_t st) {
+  const int cap = resident_blocks(kernel, threads);
   if (cap <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
   attr[0].val.cooperative = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(max(1, min(want, cap)));
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = st;
   cfg.attrs = attr;
@@ -780,65 +1090,111 @@ extern "C" int dkmc_transport_blocks(
   return (int)cudaGetLastError();
 }
 
-extern "C" int dkmc_transport_rows(
-    int is_f64, const void* xs, const void* band_y, const void* inv, const void* row_fix,
-    const void* y_bump,
-    const void* nbv, const void* anb, const void* vslot, const void* mp_inv, const void* y_cc,
-    const void* mv, const void* y_vm, const void* y_vv, const void* dots, const void* gnd,
-    const void* src, const void* diag, const void* dsi, double loop_G, int na, int max_nn,
-    const void* p, void* ap, const void* rz, void* alpha, const void* act, const void* b,
-    void* r, void* rsum, void* part, void* ticket, void* count, void* stream) {
+// The refinement's residual (f64): r = b - A x of the packed iterate xs and
+// r.r.
+extern "C" int dkmc_transport_rows(const void* xs, const void* nbv, const void* anb,
+                                   const void* vslot, const void* mp_inv, const void* y_cc,
+                                   const void* mv, const void* y_vm, const void* y_vv,
+                                   const void* dots, const void* gnd, const void* src,
+                                   const void* diag, const void* dsi, double loop_G, int na,
+                                   int max_nn, const void* b, void* r, void* rsum, void* part,
+                                   void* ticket, void* count, void* stream) {
   if (na < 1 || max_nn < 1) return (int)cudaErrorInvalidValue;
-  const int nsub = na + 1;
-  const int grid = (nsub + kThreads - 1) / kThreads;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto fill = [&](auto& A) {
-    using T = typename std::remove_const<
-        typename std::remove_pointer<decltype(A.gnd)>::type>::type;
-    A.xs = static_cast<const T*>(xs);
-    A.band_y = static_cast<const float*>(band_y);
-    A.inv = static_cast<const int*>(inv);
-    A.row_fix = static_cast<const float*>(row_fix);
-    A.y_bump = static_cast<const float*>(y_bump);
-    A.nbv = static_cast<const double*>(nbv);
-    A.anb = static_cast<const int*>(anb);
-    A.vslot = static_cast<const int*>(vslot);
-    A.mp_inv = static_cast<const int*>(mp_inv);
-    A.y_cc = static_cast<const float*>(y_cc);
-    A.mv = static_cast<const float*>(mv);
-    A.y_vm = static_cast<const float*>(y_vm);
-    A.y_vv = static_cast<const float*>(y_vv);
-    A.dots = static_cast<const T*>(dots);
-    A.gnd = static_cast<const T*>(gnd);
-    A.src = static_cast<const T*>(src);
-    A.diag = static_cast<const T*>(diag);
-    A.dsi = static_cast<const T*>(dsi);
-    A.loop_G = loop_G;
-    A.na = na;
-    A.nsub = nsub;
-    A.max_nn = max_nn;
-    A.p = static_cast<const float*>(p);
-    A.ap = static_cast<float*>(ap);
-    A.rz = static_cast<const float*>(rz);
-    A.alpha = static_cast<float*>(alpha);
-    A.act = static_cast<const unsigned char*>(act);
-    A.b = static_cast<const double*>(b);
-    A.r = static_cast<double*>(r);
-    A.rsum = static_cast<double*>(rsum);
-    A.part = static_cast<T*>(part);
-    A.ticket = static_cast<int*>(ticket);
-    A.count = static_cast<unsigned long long*>(count);
-  };
-  if (is_f64) {
-    RowsArgs<double> A;
-    fill(A);
-    transport_rows_kernel<double><<<grid, kThreads, 0, st>>>(A);
-  } else {
-    RowsArgs<float> A;
-    fill(A);
-    transport_rows_kernel<float><<<grid, kThreads, 0, st>>>(A);
-  }
+  RowsArgs A;
+  A.xs = static_cast<const double*>(xs);
+  A.nbv = static_cast<const double*>(nbv);
+  A.anb = static_cast<const int*>(anb);
+  A.vslot = static_cast<const int*>(vslot);
+  A.mp_inv = static_cast<const int*>(mp_inv);
+  A.y_cc = static_cast<const float*>(y_cc);
+  A.mv = static_cast<const float*>(mv);
+  A.y_vm = static_cast<const float*>(y_vm);
+  A.y_vv = static_cast<const float*>(y_vv);
+  A.dots = static_cast<const double*>(dots);
+  A.gnd = static_cast<const double*>(gnd);
+  A.src = static_cast<const double*>(src);
+  A.diag = static_cast<const double*>(diag);
+  A.dsi = static_cast<const double*>(dsi);
+  A.loop_G = loop_G;
+  A.na = na;
+  A.nsub = na + 1;
+  A.max_nn = max_nn;
+  A.b = static_cast<const double*>(b);
+  A.r = static_cast<double*>(r);
+  A.rsum = static_cast<double*>(rsum);
+  A.part = static_cast<double*>(part);
+  A.ticket = static_cast<int*>(ticket);
+  A.count = static_cast<unsigned long long*>(count);
+  transport_rows_kernel<<<(A.nsub + kThreads - 1) / kThreads, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
+}
+
+// The inner iteration's tail (f32): the rows of ap = A p from the products
+// of the packed direction xs, then the update, the direction and its
+// packing, the flags, counts and predicate (also the condition of the WHILE
+// node `handle`, 0: none); one cooperative launch.  `part` holds 2
+// ceil(nsub / 128) + 4 floats, 16-byte aligned.
+extern "C" int dkmc_transport_rows_update(
+    const void* band_y, const void* inv, const void* row_fix, const void* y_bump,
+    const void* vslot, const void* mp_inv, const void* y_cc, const void* mv, const void* y_vm,
+    const void* y_vv, const void* dots, const void* gnd, const void* src, const void* diag,
+    const void* dsi, double loop_G, int na, void* x, void* r, void* p, void* ap, void* act,
+    const void* act0, void* alpha, void* beta, void* rz, void* rr, const void* thresh2,
+    void* iters, void* ctl, void* cond, void* total, unsigned long long handle, int maxiter,
+    void* xs, void* xw, void* xm, int front, void* part, void* bar, void* count,
+    void* stream) {
+  if (na < 1) return (int)cudaErrorInvalidValue;
+  RowsUpdateArgs A;
+  A.xs = static_cast<float*>(xs);
+  A.xw = static_cast<float*>(xw);
+  A.xm = static_cast<float*>(xm);
+  A.front = front;
+  A.band_y = static_cast<const float*>(band_y);
+  A.inv = static_cast<const int*>(inv);
+  A.row_fix = static_cast<const float*>(row_fix);
+  A.y_bump = static_cast<const float*>(y_bump);
+  A.vslot = static_cast<const int*>(vslot);
+  A.mp_inv = static_cast<const int*>(mp_inv);
+  A.y_cc = static_cast<const float*>(y_cc);
+  A.mv = static_cast<const float*>(mv);
+  A.y_vm = static_cast<const float*>(y_vm);
+  A.y_vv = static_cast<const float*>(y_vv);
+  A.dots = static_cast<const float*>(dots);
+  A.gnd = static_cast<const float*>(gnd);
+  A.src = static_cast<const float*>(src);
+  A.diag = static_cast<const float*>(diag);
+  A.dsi = static_cast<const float*>(dsi);
+  A.loop_G = loop_G;
+  A.nsub = na + 1;
+  A.maxiter = maxiter;
+  A.x = static_cast<float*>(x);
+  A.r = static_cast<float*>(r);
+  A.p = static_cast<float*>(p);
+  A.ap = static_cast<float*>(ap);
+  A.act = static_cast<unsigned char*>(act);
+  A.act0 = static_cast<const unsigned char*>(act0);
+  A.alpha = static_cast<float*>(alpha);
+  A.beta = static_cast<float*>(beta);
+  A.rz = static_cast<float*>(rz);
+  A.rr = static_cast<float*>(rr);
+  A.thresh2 = static_cast<const float*>(thresh2);
+  A.iters = static_cast<long long*>(iters);
+  A.ctl = static_cast<int*>(ctl);
+  A.cond = static_cast<int*>(cond);
+  A.total = static_cast<unsigned long long*>(total);
+  A.handle = handle;
+  A.part = static_cast<float*>(part);
+  A.bar = static_cast<unsigned*>(bar);
+  A.count = static_cast<unsigned long long*>(count);
+  // as few tiles a block as the blocks the card holds allow, and no block
+  // without one
+  const int n_tiles = (A.nsub + kRuTile - 1) / kRuTile;
+  const int cap = resident_blocks(transport_rows_update_kernel, kRuThreads);
+  if (cap <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  A.per = (n_tiles + cap - 1) / cap;
+  return launch_cooperative(transport_rows_update_kernel, (n_tiles + A.per - 1) / A.per,
+                            kRuThreads, A, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dkmc_transport_refine(
@@ -889,6 +1245,6 @@ extern "C" int dkmc_transport_refine(
   A.handle = handle;
   A.count = static_cast<unsigned long long*>(count);
   const int n_tiles = (nsub + kTile - 1) / kTile;
-  return launch_cooperative(transport_refine_kernel, n_tiles, A,
+  return launch_cooperative(transport_refine_kernel, n_tiles, kThreads, A,
                             static_cast<cudaStream_t>(stream));
 }

@@ -151,7 +151,7 @@ _launch_counts = {}
 COUNTED_ON_CARD = ("ell_gather_batched", "poisson_pairwise_batched", "kmc_event_loop_batched",
                    "banded_matvec_out", "wkb_fly_matvec_out", "transport_pack",
                    "transport_blocks", "transport_rows", "transport_refine",
-                   "cg_update_direction_pack", "heat_dense_substep", "heat_cg_begin",
+                   "transport_rows_update", "heat_dense_substep", "heat_cg_begin",
                    "heat_cg_end")
 
 

@@ -154,8 +154,6 @@ def _fn(symbol):
         fn.argtypes = {
             "dkmc_cg_matvec_dot": [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
             "dkmc_cg_update_direction": [i] + [p] * 18 + [ctypes.c_ulonglong, i, i, i, p],
-            "dkmc_cg_update_direction_pack": [p] * 18 + [ctypes.c_ulonglong, i, i] + [p] * 6
-                                             + [i, p, p],
             "dkmc_cg_update_direction_grid": [i, i, i, ctypes.POINTER(i),
                                               ctypes.POINTER(i)],
         }[symbol]

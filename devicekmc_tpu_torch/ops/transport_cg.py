@@ -1,8 +1,7 @@
 """The warm transport solve of a captured superstep: the mixed-precision CG
 with iterative refinement as two nested device loops (``ops.graph.device_while``)
-whose bodies are hand-written kernels (``csrc/transport_cg.cu``, the band's
-and the on-the-fly metal block's ``out=`` entries, and the transport build of
-boundary_cg's ``cg_update_direction``).
+whose bodies are hand-written kernels (``csrc/transport_cg.cu`` and the
+band's and the on-the-fly metal block's ``out=`` entries).
 
 Replaces the JAX package's refinement loop and inner CG of the transport
 solve, the ``lax.while_loop``s of ``devicekmc_tpu/ops/cg.py:225`` and ``:112``
@@ -22,8 +21,9 @@ the same stop rules and counts:
 * the inner CG (f32, criterion "r", no diagonal: the system is already
   scaled) at the round's tolerance, at most ``INNER_MAXITER`` iterations:
   :func:`inner_iteration`, the band beside two branches, the fly matvec and
-  transport_blocks (:func:`products`), then transport_rows, then the update
-  and direction that also packs the next direction (:func:`update_pack`).
+  transport_blocks (:func:`products`), then one cooperative launch of the
+  rows, the update and the direction that also packs the next direction
+  (:func:`rows_update`).
 
 Every buffer lives in a :class:`Workspace` made before the capture, so
 nothing allocates inside a body.  For CPU tensors each kernel wrapper runs
@@ -37,7 +37,7 @@ captured loop's bit for bit, iteration counts included.
 
 Launches: each wrapper's ``launches`` counts its host calls (one a capture
 of a loop's body); the card counts every launch of the pack, blocks, rows,
-refine and update-and-pack kernels, the band and the fly matvec
+refine and rows-and-update kernels, the band and the fly matvec
 (``_build.launch_counts``), and ``Workspace.cg.total`` the inner iterations
 run.
 """
@@ -50,7 +50,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from . import _build, boundary_cg, cg as cg_mod
+from . import _build, cg as cg_mod
 from .banded import BandSlots, banded_matvec_out
 from .boundary_cg import Workspace as CGWorkspace
 from .boundary_cg import cg_update_direction_plain, n_tiles
@@ -65,9 +65,11 @@ INNER_TOL = 1e-5
 INNER_MAXITER = 400
 MAX_OUTER = 40
 #: rows a tile of transport_rows (one a thread) and of transport_refine (two
-#: a thread), whose partial sums have a slot of their own
+#: a thread), whose partial sums have a slot of their own; a tile of
+#: transport_rows_update holds RU_MIN_TILE rows or more (``kRuTile``)
 ROW_TILE = 256
 TILE = 512
+RU_MIN_TILE = 128
 #: the tiles of T_vm that transport_blocks reads: rows x columns
 BLOCK_ROWS = 32
 BLOCK_COLS = 128
@@ -89,8 +91,10 @@ class Workspace:
     T_vm^T x_v [n_mp], ``y_vm`` / ``y_vv`` / ``y_bump`` [vcap], ``dots32`` /
     ``dots64`` the virtual nodes', its scratch ``col_part`` [row tiles,
     n_mp], ``row_part`` [column tiles, vcap] and ``tickets`` [column tiles +
-    row tiles]; ``part32`` / ``part64`` transport_rows' tiles' partial sums
-    and ``ticket`` its last ticket; ``part_b`` and ``bar`` transport_refine's
+    row tiles]; ``part_ru`` transport_rows_update's tiles' partial sums of
+    p.ap and r.r (two slots for every RU_MIN_TILE rows and four more: the
+    r.r slots start 16-byte aligned; its barrier is ``cg.bar``); ``part64``
+    transport_rows' tiles' partial sums and ``ticket`` its last ticket; ``part_b`` and ``bar`` transport_refine's
     partial sums and grid barrier.  The refinement (f64): the iterate ``x``,
     residual ``r`` and its r.r ``rsum`` [Nsub], the threshold ``thresh``, the
     go flag ``go`` (False: a skipped solve, no round), the rounds ``it_out``
@@ -115,7 +119,7 @@ class Workspace:
     col_part: torch.Tensor
     row_part: torch.Tensor
     tickets: torch.Tensor
-    part32: torch.Tensor
+    part_ru: torch.Tensor
     part64: torch.Tensor
     ticket: torch.Tensor
     part_b: torch.Tensor
@@ -164,7 +168,8 @@ def workspace(n_atoms: int, vcap: int, n_mp: int, band, device) -> Workspace:
         xw=z((R + m_pad - 1) * B), xm=z(n_mp), band_y=z(R * B), y_cc=z(n_mp),
         fly=matvec_scratch(n_mp, dev), mv=z(n_mp), y_vm=z(vcap), y_vv=z(vcap),
         y_bump=z(vcap), dots32=z(2), dots64=z(2, dtype=f64), col_part=z(n_rt * n_mp),
-        row_part=z(n_ct * vcap), tickets=z(n_ct + n_rt, dtype=i32), part32=z(tiles),
+        row_part=z(n_ct * vcap), tickets=z(n_ct + n_rt, dtype=i32),
+        part_ru=z(2 * row_tiles(nsub, RU_MIN_TILE) + 4),
         part64=z(tiles, dtype=f64), ticket=z(1, dtype=i32),
         part_b=z(row_tiles(nsub, TILE)), bar=z(1, dtype=i32), x=z(nsub, dtype=f64),
         r=z(nsub, dtype=f64), rsum=z(1, dtype=f64), thresh=z(1, dtype=f64),
@@ -246,7 +251,9 @@ def _fn(symbol):
         fn.argtypes = {
             "dkmc_transport_pack": [p, p, p, p, i, p, i, p, p, p, p],
             "dkmc_transport_blocks": [i] + [p] * 10 + [i] * 6 + [p] * 10,
-            "dkmc_transport_rows": [i] + [p] * 18 + [d, i, i] + [p] * 12,
+            "dkmc_transport_rows": [p] * 14 + [d, i, i] + [p] * 7,
+            "dkmc_transport_rows_update": [p] * 15 + [d, i] + [p] * 15 + [u, i] + [p] * 3
+                                          + [i] + [p] * 4,
             "dkmc_transport_refine": [p] * 27 + [i, p, p, d, i, i, i, i, u, p, p],
         }[symbol]
         fn.restype = ctypes.c_int
@@ -268,7 +275,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def pack_plain(tw: Workspace, op: Operator, hi: bool, first: bool = False) -> None:
     """The plain version of :func:`pack` (``hi``) and of the direction's
-    packing by :func:`update_pack` and :func:`refine` (the full f32 vector,
+    packing by :func:`rows_update` and :func:`refine` (the full f32 vector,
     the band's window and the metal vector of the inner direction)."""
     na = op.mp_inv.shape[0]
     zero = torch.zeros(1, dtype=torch.float64 if hi else torch.float32, device=tw.x.device)
@@ -347,7 +354,14 @@ blocks.launches = 0
 
 
 def rows_plain(tw: Workspace, op: Operator, hi: bool) -> None:
-    """The plain version of :func:`rows`."""
+    """The plain version of :func:`rows` (``hi``) and of the rows of
+    :func:`rows_update`: every row of the product from the packed vector
+    and the outputs of the band (not ``hi``: else the ELL part; with a bf16
+    band its ``row_fix`` times the row's entry added to the band's value, a
+    product and a sum each rounded, as ``physics.current._band_unpermute``
+    adds it), the metal block and :func:`blocks`: the inner CG's ``ap = A p``
+    and its step ``alpha = r.z / p.ap`` (f32), or the refinement's residual
+    ``r = b - A x`` and its r.r (``hi``, f64)."""
     nsub = op.dsi.shape[0]
     wd = torch.float64 if hi else torch.float32
     dots = tw.dots64 if hi else tw.dots32
@@ -366,29 +380,18 @@ def rows_plain(tw: Workspace, op: Operator, hi: bool) -> None:
     c.alpha.copy_(torch.where(denom != 0, c.rz / denom, 0.0))
 
 
-def rows(tw: Workspace, op: Operator, hi: bool, stream=None) -> None:
-    """Every row of the product from the packed vector and the outputs of
-    the band (not ``hi``: else the ELL part; with a bf16 band its
-    ``row_fix`` times the row's entry added to the band's value, a product
-    and a sum each rounded, as ``physics.current._band_unpermute`` adds
-    it), the metal block and :func:`blocks`: the inner CG's ``ap = A p`` and
-    its step ``alpha = r.z / p.ap`` (f32), or the refinement's residual ``r
-    = b - A x`` and its r.r (``hi``, f64)."""
+def rows(tw: Workspace, op: Operator, stream=None) -> None:
+    """The refinement's residual ``r = b - A x`` of the packed iterate and
+    its r.r (f64): every row from the ELL part, the metal block and
+    :func:`blocks`."""
     if tw.x.device.type == "cpu":
-        return rows_plain(tw, op, hi)
-    c = tw.cg
+        return rows_plain(tw, op, True)
     na, max_nn = op.anb.shape
     _launched("transport_rows", _fn("dkmc_transport_rows")(
-        int(hi), _ptr(tw.xs64 if hi else tw.xs32), None if hi else _ptr(tw.band_y),
-        _ptr(tw.inv32), None if hi else _ptr(op.row_fix), None if hi else _ptr(tw.y_bump),
-        _ptr(op.nbv) if hi else None,
-        _ptr(op.anb), _ptr(op.vslot), _ptr(op.mp_inv), _ptr(tw.y_cc), _ptr(tw.mv),
-        _ptr(tw.y_vm), _ptr(tw.y_vv), _ptr(tw.dots64 if hi else tw.dots32),
-        _ptr(op.gnd if hi else op.gnd32), _ptr(op.src if hi else op.src32),
-        _ptr(op.diag if hi else op.diag32), _ptr(op.dsi if hi else op.dsi32),
-        float(op.loop_G), na, max_nn, _ptr(c.p), _ptr(c.ap), _ptr(c.rz), _ptr(c.alpha),
-        _ptr(c.act), _ptr(op.b), _ptr(tw.r), _ptr(tw.rsum),
-        _ptr(tw.part64 if hi else tw.part32), _ptr(tw.ticket),
+        _ptr(tw.xs64), _ptr(op.nbv), _ptr(op.anb), _ptr(op.vslot), _ptr(op.mp_inv),
+        _ptr(tw.y_cc), _ptr(tw.mv), _ptr(tw.y_vm), _ptr(tw.y_vv), _ptr(tw.dots64),
+        _ptr(op.gnd), _ptr(op.src), _ptr(op.diag), _ptr(op.dsi), float(op.loop_G), na, max_nn,
+        _ptr(op.b), _ptr(tw.r), _ptr(tw.rsum), _ptr(tw.part64), _ptr(tw.ticket),
         _build.launch_counter(tw.x.device, "transport_rows"), _stream(tw.x, stream)))
     rows.launches += 1
 
@@ -397,31 +400,49 @@ rows.launches = 0
 
 
 def update_pack_plain(tw: Workspace, op: Operator) -> None:
-    """The plain version of :func:`update_pack`."""
+    """The inner CG's update and direction (boundary_cg's
+    ``cg_update_direction_plain`` with ``minv = 1``, which sets the inner
+    predicate), the new direction packed as :func:`pack_plain` packs it: the
+    second half of :func:`rows_update_plain`."""
     cg_update_direction_plain(tw.cg, INNER_MAXITER)
     pack_plain(tw, op, False)
 
 
-def update_pack(tw: Workspace, op: Operator, handle: int = 0, stream=None) -> None:
-    """The inner CG's update and direction (boundary_cg's
-    ``cg_update_direction`` with ``minv = 1``, which sets the inner
-    predicate and the WHILE node ``handle``'s condition), the new direction
-    packed as :func:`pack_plain` packs it: one launch of the kernel's
-    transport build."""
+def rows_update_plain(tw: Workspace, op: Operator) -> None:
+    """The plain version of :func:`rows_update`: :func:`rows_plain` (f32),
+    then :func:`update_pack_plain`."""
+    rows_plain(tw, op, False)
+    update_pack_plain(tw, op)
+
+
+def rows_update(tw: Workspace, op: Operator, handle: int = 0, stream=None) -> None:
+    """The inner iteration's tail after :func:`products`, one cooperative
+    launch: every row of ``ap = A p`` (as :func:`rows_plain` computes it,
+    a bf16 band's ``row_fix`` included) and ``alpha = r.z / p.ap``; the
+    update ``x += alpha p``, ``r -= alpha ap`` (``minv = 1``: z = r), r.z,
+    r.r and beta; the direction ``p = z + beta p`` packed as
+    :func:`pack_plain` packs it; the stop flag, the counts and the inner
+    predicate, also set as the condition of the WHILE node ``handle`` (0:
+    none).  A stopped iterate keeps its iterate, residual, direction, r.z
+    and count.  On the card the grid is capped at the blocks it holds at
+    once; the build or launch raises on failure."""
     if tw.x.device.type == "cpu":
-        return update_pack_plain(tw, op)
+        return rows_update_plain(tw, op)
     c = tw.cg
-    _launched("cg_update_direction_pack", boundary_cg._fn("dkmc_cg_update_direction_pack")(
-        _ptr(c.x), _ptr(c.r), _ptr(c.p), _ptr(c.ap), _ptr(c.minv), _ptr(c.act), _ptr(c.act0),
-        _ptr(c.alpha), _ptr(c.beta), _ptr(c.rz), _ptr(c.rr), _ptr(c.thresh2), _ptr(c.iters),
-        _ptr(c.part), _ptr(c.bar), _ptr(c.ctl), _ptr(c.cond), _ptr(c.total), handle,
-        c.x.shape[1], INNER_MAXITER, _ptr(op.dsi32), _ptr(tw.xs32), _ptr(tw.xw), _ptr(tw.xm),
-        _ptr(tw.inv32), _ptr(op.mp_inv), tw.front,
-        _build.launch_counter(tw.x.device, "cg_update_direction_pack"), _stream(tw.x, stream)))
-    update_pack.launches += 1
+    _launched("transport_rows_update", _fn("dkmc_transport_rows_update")(
+        _ptr(tw.band_y), _ptr(tw.inv32), _ptr(op.row_fix), _ptr(tw.y_bump), _ptr(op.vslot),
+        _ptr(op.mp_inv), _ptr(tw.y_cc), _ptr(tw.mv), _ptr(tw.y_vm), _ptr(tw.y_vv),
+        _ptr(tw.dots32), _ptr(op.gnd32), _ptr(op.src32), _ptr(op.diag32), _ptr(op.dsi32),
+        float(op.loop_G), op.anb.shape[0], _ptr(c.x), _ptr(c.r), _ptr(c.p), _ptr(c.ap),
+        _ptr(c.act), _ptr(c.act0), _ptr(c.alpha), _ptr(c.beta), _ptr(c.rz), _ptr(c.rr),
+        _ptr(c.thresh2), _ptr(c.iters), _ptr(c.ctl), _ptr(c.cond), _ptr(c.total), handle,
+        INNER_MAXITER, _ptr(tw.xs32), _ptr(tw.xw), _ptr(tw.xm), tw.front, _ptr(tw.part_ru),
+        _ptr(c.bar), _build.launch_counter(tw.x.device, "transport_rows_update"),
+        _stream(tw.x, stream)))
+    rows_update.launches += 1
 
 
-update_pack.launches = 0
+rows_update.launches = 0
 
 
 def refine_plain(tw: Workspace, op: Operator, first: bool, max_outer: int,
@@ -494,12 +515,13 @@ refine.launches = 0
 # ----------------------------------------------------------------------------
 
 def products(tw: Workspace, op: Operator, stream=None) -> None:
-    """The products of the inner direction that :func:`rows` reads: the band
-    on ``stream``, and beside it the fly matvec and :func:`blocks`, each on a
-    branch of its own (``ops.graph.fork``), joined before the return.  The
-    fastest of the WHILE body's forms on an H100 (``tools/probe_cg_events.py
-    --parts transport``, the crossbar's warm solve, 345 inner iterations, two
-    runs): the band captured first, then a branch each, 0.0393-0.0408 ms an
+    """The products of the inner direction that :func:`rows_update` reads:
+    the band on ``stream``, and beside it the fly matvec and :func:`blocks`,
+    each on a branch of its own (``ops.graph.fork``), joined before the
+    return.  The fastest of the WHILE body's forms on an H100
+    (``tools/probe_cg_events.py --parts transport``, the crossbar's warm
+    solve, 345 inner iterations, two runs, with the tail in two kernels
+    then): the band captured first, then a branch each, 0.0393-0.0408 ms an
     inner iteration; the band captured after the two branches 0.0440-0.0441;
     one branch of the fly matvec then blocks, the band captured first
     0.0456, last 0.0472; every kernel in series 0.0505.  The fly matvec
@@ -521,12 +543,12 @@ def products(tw: Workspace, op: Operator, stream=None) -> None:
 
 
 def inner_iteration(tw: Workspace, op: Operator, handle: int = 0, stream=None) -> None:
-    """One iteration of the inner CG: A p (:func:`products`, :func:`rows`)
-    and the update and direction with the next direction packed, which sets
-    the inner predicate (and the WHILE node ``handle``'s condition)."""
+    """One iteration of the inner CG: the products of the direction
+    (:func:`products`), then its rows, the update and the direction with
+    the next direction packed (:func:`rows_update`), which sets the inner
+    predicate (and the WHILE node ``handle``'s condition)."""
     products(tw, op, stream)
-    rows(tw, op, False, stream)
-    update_pack(tw, op, handle, stream)
+    rows_update(tw, op, handle, stream)
 
 
 def round_end(tw: Workspace, op: Operator, max_outer: int, maxiter: int, first: bool = False,
@@ -536,7 +558,7 @@ def round_end(tw: Workspace, op: Operator, max_outer: int, maxiter: int, first: 
     pack(tw, op, first, stream)
     fly(tw, op, stream)
     blocks(tw, op, True, stream)
-    rows(tw, op, True, stream)
+    rows(tw, op, stream)
     refine(tw, op, first, max_outer, maxiter, handle, stream)
 
 

@@ -705,7 +705,8 @@ def apply_rows(blk, x, wd, band_y, y_cc, parts):
     ``band_y`` the band's output in its permuted layout (f32 with a band;
     None: the ELL part), ``y_cc`` the on-the-fly metal block's [n_mp] f32
     and ``parts`` :func:`apply_blocks`' (in ``wd``).  The plain version of
-    the transport CG's transport_rows kernel, the same operations as
+    the rows of the transport CG's transport_rows_update (f32, the band)
+    and transport_rows (f64, ELL) kernels, the same operations as
     :func:`_apply_X_blocks`."""
     xa = x[2:]
     *products, bump = parts

@@ -132,7 +132,9 @@ class PhysParams:
     transport_warm_precond: str = "jacobi"  # in-superstep re-solves
     transport_cc: str = "stored"            # metal x metal block: "stored" | "fly"
                                             # ("auto" until the engine resolves it)
-    transport_bf16_inner: bool = False      # not ported (ROADMAP, queue ahead, item 2): raises
+    transport_bf16_inner: bool = False      # the inner CG's band in bf16 (physics/
+                                            # current.py), eager and in the captured
+                                            # superstep
     transport_incremental: bool = False     # resolved by the engine from the config's
                                             # "auto" | "on" | "off"
     transport_delta_cap: int = 16

@@ -320,7 +320,11 @@ def superstep_batched(
     batched pair sweep and of the batched event loop for all replicas, and
     each replica's decisions (skip, incremental residual, CG stop) are masks
     on the device, so that the host reads of this part (the CG's, one a chunk
-    of iterations) do not grow with B.  With ``solve_current`` (and heating)
+    of iterations) do not grow with B.  Under ``event_mode = "scan"`` (the
+    equivalence mode; ``graph_ready`` keeps it eager) the events run replica
+    by replica through the literal scan loop
+    (:func:`_scan_replica_by_replica`), as the JAX package's vmap runs
+    ``execute_superstep_scan`` on each.  With ``solve_current`` (and heating)
     the transport and heat phases run replica by replica on
     ``state.unbatch_all(states)`` and are stacked again: what the JAX
     package's vmap computes; the replica axis through the transport and heat
@@ -353,11 +357,10 @@ def superstep_batched(
 
     step_times = torch.zeros(B, dtype=torch.float64, device=geom.device)
     if params.perturb_structure:
-        if params.event_mode != "incremental":
-            raise NotImplementedError(
-                "batched supersteps run the incremental event loop; event_mode "
-                f"{params.event_mode!r} runs only on a single state")
-        res = events_mod.execute_superstep_incremental_batched(geom, params, states)
+        if params.event_mode == "incremental":
+            res = events_mod.execute_superstep_incremental_batched(geom, params, states)
+        else:
+            res = _scan_replica_by_replica(geom, params, states)
         states, step_times = res.state, res.step_time
         metrics["n_events"] = res.n_events
         metrics["n_active_rows"] = res.n_active
@@ -388,6 +391,26 @@ def superstep_batched(
             metrics[key] = torch.tensor([float(m[key]) for m in rows], dtype=torch.float64,
                                         device=geom.device)
     return states, step_times, metrics
+
+
+def _scan_replica_by_replica(geom: Geometry, params: PhysParams,
+                             states: SimState) -> events_mod.BatchedSuperstepResult:
+    """The literal scan event loop (``events.execute_superstep_scan``) of
+    each replica in turn, stacked again: what the JAX package's vmap of
+    ``execute_superstep_scan`` computes (``n_active`` 0, as a scan
+    superstep reports it)."""
+    singles, times, counts = [], [], []
+    for st in unbatch_all(states):
+        res = events_mod.execute_superstep_scan(geom, params, st)
+        singles.append(res.state)
+        times.append(res.step_time)
+        counts.append(res.n_events)
+    dev = geom.device
+    return events_mod.BatchedSuperstepResult(
+        state=stack_states(singles),
+        step_time=torch.tensor(times, dtype=torch.float64, device=dev),
+        n_events=torch.tensor(counts, dtype=torch.int64, device=dev),
+        n_active=torch.zeros(len(singles), dtype=torch.int64, device=dev))
 
 
 # ----------------------------------------------------------------------------

@@ -1889,22 +1889,54 @@ def _cpu_op(op):
             x.cuda(), wd, cuda(band_y), y_cc.cuda(), tuple(cuda(v) for v in parts)).cpu())
 
 
+def _rows_update_close(k, p, start):
+    """transport_rows_update's workspace ``k`` (card) against its plain
+    version's ``p`` (CPU), both from the iterating state ``start``: the
+    tolerances of test_cuda_transport_kernels_match_plain."""
+    ref = p.cg.ap
+    scale = float(ref.abs().max())
+    assert float((k.cg.ap.cpu() - ref).abs().max()) <= 2e-6 * scale
+    # p.ap (= r.z / alpha) within 1e-6 of the sum of its terms' sizes
+    terms = float((start.cg.p.cpu() * ref).abs().sum())
+    rz = float(start.cg.rz)
+    assert abs(rz / float(k.cg.alpha) - rz / float(p.cg.alpha)) <= 1e-6 * terms
+    for f in ("x", "r", "p"):
+        want = getattr(p.cg, f)
+        err = float((getattr(k.cg, f).cpu() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), f
+    for f in ("xs32", "xw", "xm"):
+        want = getattr(p, f)
+        err = float((getattr(k, f).cpu() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), f
+    for f in ("rz", "rr", "beta"):
+        assert float(getattr(k.cg, f)) == pytest.approx(float(getattr(p.cg, f)), rel=1e-4), f
+    for f in ("act", "iters", "ctl", "cond", "total"):
+        assert torch.equal(getattr(k.cg, f).cpu(), getattr(p.cg, f)), f
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("crossbar", [False, True])
 def test_cuda_transport_kernels_match_plain(tmp_path, crossbar):
     """Each kernel of the transport CG against its plain version on the same
     inputs (the operator of a state after 2 supersteps, a seeded direction):
-    the f64 pack bit-equal (with and without the round's correction); the
-    update and pack (the transport build of cg_update_direction): the
-    update bit-equal to the boundary build's, the new direction packed as
-    pack_plain packs it, and within 1e-5 of its plain version's scale;
-    transport_blocks' products (f32 and f64) within 1e-5 of the sum of their
-    terms' sizes, the dots within 1e-5 (f32) and 1e-12 (f64) of theirs;
-    transport_rows' ap within 2e-6 and its f64 residual within 1e-9 of their
-    largest entry, p.ap within 1e-6 of the sum of its terms' sizes, r.r that
-    of the kernel's residual; refine's b_in, flags, counts, scale, ||r|| and
-    packed direction equal given the same residual, r.r of b_in within
-    1e-5."""
+    the f64 pack bit-equal (with and without the round's correction);
+    transport_rows_update (the rows, update and direction in one launch)
+    against rows_plain then update_pack_plain: ap within 2e-6 of its largest
+    entry (f32 rows whose only other order is the band's and the blocks'
+    sums), p.ap (= r.z / alpha) within 1e-6 of the sum of its terms' sizes,
+    x, r, p and the packed xs, xw, xm within 1e-5 of their largest entry and
+    r.z, r.r, beta within 1e-4 relative (the update from an alpha and ap a
+    few ulps apart, f32 sums of 10^3-10^5 terms in another order), the flag,
+    counts and predicate equal; the kernel's x and r bit-equal to the
+    boundary build of cg_update_direction (minv 1) from the kernel's own ap
+    and alpha, its packed direction bit-equal to pack_plain of its own p; a
+    stopped iterate's launch leaves every vector and scalar as it was
+    (the loop's count, the flag and predicate set); transport_blocks'
+    products (f32 and f64) within 1e-5 of the sum of their terms' sizes,
+    the dots within 1e-5 (f32) and 1e-12 (f64) of theirs; transport_rows'
+    f64 residual within 1e-9 of its largest entry, r.r that of the kernel's
+    residual; refine's b_in, flags, counts, scale, ||r|| and packed
+    direction equal given the same residual, r.r of b_in within 1e-5."""
     _need_card()
     from devicekmc_tpu_torch.ops import boundary_cg as bcg
     from devicekmc_tpu_torch.ops import transport_cg as tcg
@@ -1922,31 +1954,46 @@ def test_cuda_transport_kernels_match_plain(tmp_path, crossbar):
         for f in ("xs64", "xm", "x"):
             assert torch.equal(getattr(k, f).cpu(), getattr(p, f)), (first, f)
 
-    # the update and pack: a CG state after the round's set-up and one
-    # iteration's product
+    # transport_rows_update: a CG state after the round's set-up and one
+    # iteration's products
     base = _clone_tws(tws)
     tcg.pack(base, op, True)
     tcg.fly(base, op)
     tcg.blocks(base, op, True)
-    tcg.rows(base, op, True)
+    tcg.rows(base, op)
     base.go.fill_(True)
     base.thresh.fill_(float(base.rsum) ** 0.5 * 1e-3)
     tcg.refine(base, op, True, 40, 20000)
     tcg.products(base, op)
-    tcg.rows(base, op, False)
+    assert bool(base.cg.act)
     k, b = _clone_tws(base), _clone_tws(base)
     p = _cpu_ws(_clone_tws(base))
-    tcg.update_pack(k, op)
+    tcg.rows_update(k, op)
+    tcg.rows_update_plain(p, op_c)
+    _rows_update_close(k, p, base)
+    # the update half: the boundary build from the kernel's own ap and alpha
+    b.cg.ap.copy_(k.cg.ap)
+    b.cg.alpha.copy_(k.cg.alpha)
     bcg.cg_update_direction(b.cg, tcg.INNER_MAXITER)
-    tcg.update_pack_plain(p, op_c)
-    for f in ("x", "r", "p", "rz", "rr", "beta", "act", "iters", "ctl", "cond", "total"):
+    for f in ("x", "r", "act", "iters", "ctl", "cond", "total"):
         assert torch.equal(getattr(k.cg, f), getattr(b.cg, f)), f
     ref = _cpu_ws(_clone_tws(k))
     tcg.pack_plain(ref, op_c, False)
     for f in ("xs32", "xw", "xm"):
         assert torch.equal(getattr(k, f).cpu(), getattr(ref, f)), f
-        scale = float(getattr(p, f).abs().max())
-        assert float((getattr(k, f).cpu() - getattr(p, f)).abs().max()) <= 1e-5 * scale, f
+    # a stopped iterate: nothing moves but the loop's count, flag, predicate
+    s_ = _clone_tws(base)
+    # (a converged iterate: r.r at its threshold, the flag down)
+    s_.cg.act.fill_(False)
+    s_.cg.thresh2.copy_(s_.cg.rr)
+    before = _clone_tws(s_)
+    tcg.rows_update(s_, op)
+    for f in ("x", "r", "p", "ap", "rz", "rr", "alpha", "beta", "iters", "act"):
+        assert torch.equal(getattr(s_.cg, f), getattr(before.cg, f)), f
+    for f in ("xs32", "xw", "xm"):
+        assert torch.equal(getattr(s_, f), getattr(before, f)), f
+    assert int(s_.cg.ctl[0]) == int(before.cg.ctl[0]) + 1 and int(s_.cg.ctl[1]) == 0
+    assert int(s_.cg.cond) == 0 and int(s_.cg.total) == int(before.cg.total) + 1
 
     # transport_blocks of the direction (lo) and of the iterate (hi)
     for hi in (False, True):
@@ -1976,32 +2023,19 @@ def test_cuda_transport_kernels_match_plain(tmp_path, crossbar):
                              (op_c.src.abs() * xa[:na].abs())[:op.nsi].sum()])
         assert bool(((dots - want).abs() <= (1e-12 if hi else 1e-5) * dsize).all()), hi
 
-    # transport_rows from the same products
-    for hi in (False, True):
-        k = _clone_tws(base)
-        if hi:
-            tcg.pack(k, op, True)
-            tcg.fly(k, op)
-        tcg.blocks(k, op, hi)
-        p = _cpu_ws(_clone_tws(k))
-        k.cg.act.fill_(True)
-        p.cg.act.fill_(True)
-        tcg.rows(k, op, hi)
-        tcg.rows_plain(p, op_c, hi)
-        if hi:
-            ref = p.r
-            scale = float((op_c.b - ref).abs().max())
-            assert float((k.r.cpu() - ref).abs().max()) <= 1e-9 * scale
-            # r.r of the kernel's own residual, in its tile order
-            assert float(k.rsum) == pytest.approx(float((k.r * k.r).sum()), rel=1e-12)
-        else:
-            ref = p.cg.ap
-            scale = float(ref.abs().max())
-            assert float((k.cg.ap.cpu() - ref).abs().max()) <= 2e-6 * scale
-            # p.ap (= r.z / alpha) within 1e-6 of the sum of its terms' sizes
-            terms = float((p.cg.p * ref).abs().sum())
-            rz = float(p.cg.rz)
-            assert abs(rz / float(k.cg.alpha) - rz / float(p.cg.alpha)) <= 1e-6 * terms
+    # transport_rows (f64) from the iterate's products
+    k = _clone_tws(base)
+    tcg.pack(k, op, True)
+    tcg.fly(k, op)
+    tcg.blocks(k, op, True)
+    p = _cpu_ws(_clone_tws(k))
+    tcg.rows(k, op)
+    tcg.rows_plain(p, op_c, True)
+    ref = p.r
+    scale = float((op_c.b - ref).abs().max())
+    assert float((k.r.cpu() - ref).abs().max()) <= 1e-9 * scale
+    # r.r of the kernel's own residual, in its tile order
+    assert float(k.rsum) == pytest.approx(float((k.r * k.r).sum()), rel=1e-12)
 
     for first in (True, False):
         k = _clone_tws(tws)
@@ -2036,8 +2070,10 @@ def test_cuda_transport_solve_graph_equals_eager(tmp_path, monkeypatch, crossbar
     "error" around it), and a replay with go False runs no round.  The
     nesting, counted on the card: each replay's inner WHILE node runs the
     solve's inner iterations and no more (``cg.total``), inside the outer
-    node's rounds (``it_out``: all 40 at the inner cap)."""
+    node's rounds (``it_out``: all 40 at the inner cap), and the fused
+    tail (transport_rows_update) launched once an inner iteration."""
     _need_card()
+    from devicekmc_tpu_torch.ops import _build
     from devicekmc_tpu_torch.ops import transport_cg as tcg
     from devicekmc_tpu_torch.ops.graph import Graph
 
@@ -2058,8 +2094,10 @@ def test_cuda_transport_solve_graph_equals_eager(tmp_path, monkeypatch, crossbar
     g = Graph(lambda: tcg.solve(tws, op, x0, go, tol, maxiter), "cuda")
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
+    counts = _build.launch_counts("cuda")
     try:
         tws.cg.total.zero_()
+        counts.zero_()
         out = g()
         g()
     finally:
@@ -2067,6 +2105,9 @@ def test_cuda_transport_solve_graph_equals_eager(tmp_path, monkeypatch, crossbar
     assert torch.equal(out.x, eager[0])
     assert (int(out.iters), float(out.residual), int(tws.it_out)) == eager[1:]
     assert int(tws.cg.total) == 2 * eager[1]
+    # one launch of the fused tail an inner iteration, counted on the card
+    ru = _build.COUNTED_ON_CARD.index("transport_rows_update")
+    assert int(counts[ru]) == 2 * eager[1]
     assert eager[3] == (tcg.MAX_OUTER if inner_cap is not None else eager[3]) >= 1
     go.fill_(False)
     out = g()
@@ -2327,10 +2368,12 @@ def test_cuda_new_graph_configurations_match_eager(tmp_path, config):
 
 @pytest.mark.cuda
 def test_cuda_transport_rows_bf16_row_fix(tmp_path):
-    """transport_rows with the bf16 band: the inner product ap within 2e-6
-    of its plain version's largest entry (which adds the band's row_fix as
-    physics.current._band_unpermute does), and without the row fix further
-    off than that (the kernel applies it)."""
+    """transport_rows_update with the bf16 band against rows_plain then
+    update_pack_plain (which add the band's row_fix as
+    physics.current._band_unpermute does) at the tolerances of
+    test_cuda_transport_kernels_match_plain (ap within 2e-6 of its largest
+    entry), and without the row fix ap further off than that (the kernel
+    applies it)."""
     _need_card()
     from devicekmc_tpu_torch.ops import transport_cg as tcg
 
@@ -2339,16 +2382,16 @@ def test_cuda_transport_rows_bf16_row_fix(tmp_path):
     tws, op, _ = _transport_op(sim)
     assert op.slots.val.dtype == torch.bfloat16 and op.row_fix is not None
     op_c = _cpu_op(op)
+    tws.cg.act.fill_(True)
+    tws.cg.act0.fill_(True)
+    tws.cg.rz.fill_(0.75)
+    tws.cg.thresh2.zero_()
     tcg.products(tws, op)
     k, p = _clone_tws(tws), _cpu_ws(_clone_tws(tws))
-    k.cg.act.fill_(True)
-    p.cg.act.fill_(True)
-    tcg.rows(k, op, False)
-    tcg.rows_plain(p, op_c, False)
-    scale = float(p.cg.ap.abs().max())
+    tcg.rows_update(k, op)
+    tcg.rows_update_plain(p, op_c)
+    _rows_update_close(k, p, tws)
     err = float((k.cg.ap.cpu() - p.cg.ap).abs().max())
-    assert err <= 2e-6 * scale
     n = _clone_tws(tws)
-    n.cg.act.fill_(True)
-    tcg.rows(n, op._replace(row_fix=torch.zeros_like(op.row_fix)), False)
+    tcg.rows_update(n, op._replace(row_fix=torch.zeros_like(op.row_fix)))
     assert float((n.cg.ap.cpu() - p.cg.ap).abs().max()) > 10 * err

@@ -1,10 +1,12 @@
 """The transport CG's product in two kernels and its update that packs the
-next direction (``ops.transport_cg``: transport_blocks, transport_rows, the
-transport build of cg_update_direction) through their plain versions on
-the CPU: the two parts against the one product they replace bit for bit,
-the product against the JAX package's ``_apply_X_blocks``, the packing
-against ``pack_plain``, and the solve through the new body against
-``cg_solve_mixed``.  On the 256-site stack of tests/torch_parity.py with the
+next direction (``ops.transport_cg``: transport_blocks, then
+transport_rows_update, the rows with the update and direction; the f64
+transport_rows) through their plain versions on the CPU: the two parts
+against the one product they replace bit for bit, the product against the
+JAX package's ``_apply_X_blocks``, the packing against ``pack_plain``, the
+fused tail's CPU path against the rows and the update one after the other
+(f32 and bf16 band, active and stopped iterate), and the solve through the
+new body against ``cg_solve_mixed``.  On the 256-site stack of tests/torch_parity.py with the
 transport settings of tests/test_torch_transport_graph.py (seeded,
 transport_tol 1e-11); JAX runs on the CPU in x64 with its Pallas kernels
 interpreted."""
@@ -41,13 +43,12 @@ def _sim(tmp_path, tag, **kw):
     return sim
 
 
-@pytest.fixture(scope="module")
-def solve_inputs(tmp_path_factory):
+def _inputs(tmp, **kw):
     """The workspace and operator of the warm re-solve of the state after
     two supersteps (a changed bias: no skip), and its blocks."""
     from devicekmc_tpu_torch.physics import current
 
-    sim = _sim(tmp_path_factory.mktemp("split"), "fixture")
+    sim = _sim(tmp, "fixture", **kw)
     st = dataclasses.replace(sim.state, transport_Vd_prev=float("nan"))
     cap = {}
     solve = current.transport_cg.solve
@@ -63,6 +64,18 @@ def solve_inputs(tmp_path_factory):
         current.transport_cg.solve = solve
     blk = current.assemble_X_blocks(sim.geom, sim.params, st, band=sim._cc["band"])
     return cap["tws"], cap["op"], blk
+
+
+@pytest.fixture(scope="module")
+def solve_inputs(tmp_path_factory):
+    """_inputs of the transport configuration (an f32 band)."""
+    return _inputs(tmp_path_factory.mktemp("split"))
+
+
+@pytest.fixture(scope="module")
+def bf16_inputs(tmp_path_factory):
+    """_inputs with transport_bf16_inner (a bf16 band and its row_fix)."""
+    return _inputs(tmp_path_factory.mktemp("split_bf16"), transport_bf16_inner=True)
 
 
 def _clone(tw):
@@ -235,8 +248,9 @@ def test_product_matches_jax_apply_X_blocks(solve_inputs, hi):
 
 
 def test_update_pack_and_refine_pack_the_direction(solve_inputs):
-    """update_pack (CPU: its plain version) is cg_update_direction_plain and
-    then pack_plain of the new direction; the kernels' scatter of that
+    """update_pack_plain (the update half of transport_rows_update's plain
+    version) is cg_update_direction_plain and then pack_plain of the new
+    direction; the kernels' scatter of that
     direction through the band's inverse permutation and the metal slots
     gives pack_plain's gather through the permutation and the metal
     indices; refine leaves the packed b_in, as pack_plain packs it."""
@@ -250,7 +264,7 @@ def test_update_pack_and_refine_pack_the_direction(solve_inputs):
     tw.cg.act.fill_(True)
     tw.cg.act0.fill_(True)
     got, ref = _clone(tw), _clone(tw)
-    tcg.update_pack(got, op)
+    tcg.update_pack_plain(got, op)
     cg_update_direction_plain(ref.cg, tcg.INNER_MAXITER)
     tcg.pack_plain(ref, op, False)
     for f in ("x", "r", "p", "rz", "rr", "beta", "iters", "ctl", "cond", "total"):
@@ -285,9 +299,48 @@ def test_update_pack_and_refine_pack_the_direction(solve_inputs):
         assert torch.equal(getattr(tw, f), getattr(ref, f)), f
 
 
+@pytest.mark.parametrize("active", [True, False], ids=["active", "stopped"])
+@pytest.mark.parametrize("band", ["f32", "bf16"])
+def test_rows_update_cpu_is_rows_then_update(solve_inputs, bf16_inputs, band, active):
+    """transport_rows_update on CPU tensors is rows_plain (f32) followed by
+    update_pack_plain, bit for bit in every buffer of the workspace, with an
+    f32 band and with a bf16 one (its row_fix added to the band's rows), for
+    an iterating and for a stopped iterate; an iterating one advances (its
+    count, x and the packed direction change), a stopped one keeps its
+    count, iterate and residual."""
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+
+    tws, op, _ = bf16_inputs if band == "bf16" else solve_inputs
+    assert (op.row_fix is not None) == (band == "bf16")
+    assert (op.slots.val.dtype == torch.bfloat16) == (band == "bf16")
+    tw = _seeded(tws, op, False, seed=5)
+    tcg.blocks_plain(tw, op, False)
+    tw.cg.act.fill_(active)
+    tw.cg.act0.fill_(True)
+    tw.cg.iters.fill_(3)
+    got, ref = _clone(tw), _clone(tw)
+    tcg.rows_update(got, op)
+    tcg.rows_plain(ref, op, False)
+    tcg.update_pack_plain(ref, op)
+    for f in dataclasses.fields(tw):
+        a, b = getattr(got, f.name), getattr(ref, f.name)
+        if torch.is_tensor(a):
+            assert torch.equal(a, b), f.name
+    for f in dataclasses.fields(tw.cg):
+        a, b = getattr(got.cg, f.name), getattr(ref.cg, f.name)
+        if torch.is_tensor(a):
+            assert torch.equal(a, b), f"cg.{f.name}"
+    assert int(got.cg.iters) == (4 if active else 3)
+    assert torch.equal(got.cg.x, tw.cg.x) != active
+    assert torch.equal(got.cg.r, tw.cg.r) != active
+    if active:
+        assert not torch.equal(got.xs32, tw.xs32)
+
+
 def test_solve_through_the_new_body_matches_cg_solve_mixed(tmp_path, monkeypatch):
-    """transport_cg.solve through the new inner body (products, rows,
-    update_pack; each of them seen to run) against cg_solve_mixed
+    """transport_cg.solve through the new inner body (products, then
+    rows_update; each seen to run an inner iteration, the f64 rows a round's
+    end) against cg_solve_mixed
     (update_power_blocked with the Jacobi preconditioner) on the heat
     (global) configuration's state after two supersteps with its stored
     solution perturbed: iterations, the iterate and I_macro bit for bit."""
@@ -295,7 +348,7 @@ def test_solve_through_the_new_body_matches_cg_solve_mixed(tmp_path, monkeypatch
     from devicekmc_tpu_torch.physics import current
 
     calls = {}
-    for name in ("products", "rows", "update_pack"):
+    for name in ("products", "rows_update", "rows"):
         fn = getattr(tcg, name)
 
         def counted(*a, fn=fn, name=name, **k):
@@ -315,8 +368,9 @@ def test_solve_through_the_new_body_matches_cg_solve_mixed(tmp_path, monkeypatch
     n = mg["cg_iters_power"]
     assert mg["transport_converged"] and mr["transport_converged"]
     assert n == mr["cg_iters_power"] > 0
-    assert calls["products"] == calls["update_pack"] == n
-    assert calls["rows"] > n
+    assert calls["products"] == calls["rows_update"] == n
+    # the residual of the warm start and of each round's end
+    assert 2 <= calls["rows"] <= tcg.MAX_OUTER + 1 and calls["rows"] < n
     assert got.I_macro == ref.I_macro
     assert torch.equal(got.virtual_potentials, ref.virtual_potentials)
     assert torch.equal(got.power, ref.power)

@@ -24,11 +24,19 @@ crossbar's shapes (108,944 sites; the state after two graph supersteps):
   solve also with other forms of the inner body: one branch or a branch
   each for the fly matvec and transport_blocks, the band captured first or
   last, in series), ``clock64()`` stamps of each kernel's phases
-  (TRANSPORT_STAMPS: the blocks, rows and f64 pack; BAND_STAMPS: the band,
-  also built with its window staged in shared memory, BAND_VARIANTS), and
-  the transport and heat (global) configurations' graph supersteps, their
-  ms an inner iteration, and the memory each run holds once built and the
-  most its cold solves and first two supersteps allocate;
+  (TRANSPORT_STAMPS: the blocks, the f64 rows and pack, the phases of the
+  inner tail transport_rows_update; BAND_STAMPS: the band, also built with
+  its window staged in shared memory, BAND_VARIANTS), the inner tail
+  (``tail``: the package's transport_rows_update, or an older checkout's
+  transport_rows then update_pack) warm and cold, with ``--variants``
+  transport_rows_update rebuilt with other rows a thread and threads a
+  block (RU_VARIANTS), alone and in the captured solve, and the
+  transport and heat (global) configurations' graph supersteps, their ms an
+  inner iteration, and the memory each run holds once built and the most
+  its cold solves and first two supersteps allocate;
+* the graph supersteps alone (``--parts supersteps``) of the transport,
+  heat (global and local) and bf16 configurations (SUPERSTEP_CONFIGS), 8
+  after the cold solves and two more, each with its inner iterations;
 
 * the boundary CG's update and direction at the same system: through the
   package's wrappers, the update and direction kernels (the parent's pair
@@ -888,10 +896,18 @@ TRANSPORT_STAMPS = {
         ("  if (threadIdx.x == 0) A.dots[is_gnd ? 0 : 1] = sum;\n", "  TP_BLOCK(3);\n", "after"),
     ),
     "rows": (
-        ("  const int i = blockIdx.x * kThreads + threadIdx.x;\n  T acc = 0;\n",
+        ("  const int i = blockIdx.x * kThreads + threadIdx.x;\n  double acc = 0;\n",
          "  TP_BLOCK(0);\n", "after"),
         ("  if (threadIdx.x == 0) A.part[blockIdx.x] = sum;\n", "  TP_BLOCK(1);\n", "after"),
-        ("      A.rsum[0] = (double)total;\n    }\n  }\n", "  TP_BLOCK(2);\n", "after"),
+        ("  if (threadIdx.x == 0) A.rsum[0] = total;\n", "  TP_BLOCK(2);\n", "after"),
+    ),
+    "rows_update": (
+        ("    const float x0 = A.xs[0], x1 = A.xs[1];\n", "    TP_BLOCK(0);\n", "after"),
+        ("    grid_barrier(A.bar);\n\n    // B. alpha", "    TP_BLOCK(1);\n", "before"),
+        ("    alpha = pap != 0.f ? rz_o / pap : 0.f;\n", "    TP_BLOCK(2);\n", "after"),
+        ("    grid_barrier(A.bar);\n\n    // C. beta", "    TP_BLOCK(3);\n", "before"),
+        ("    beta = rz_o != 0.f ? rz_n / rz_o : 0.f;\n", "    TP_BLOCK(4);\n", "after"),
+        ("  // block 0: the scalars, the flag", "  TP_BLOCK(5);\n", "before"),
     ),
 }
 TRANSPORT_PHASES = {
@@ -901,7 +917,23 @@ TRANSPORT_PHASES = {
     # (the bump, x_v gathered, the rows), a dot (all of it in the last)
     "blocks": ("1", "2", "3"),
     "rows": ("a block's rows", "last-ticket sum"),
+    "rows_update": ("rows, p.ap partial", "grid barrier 1, alpha (the partials' sum)",
+                    "update, r.r partial", "grid barrier 2, beta (the partials' sum)",
+                    "direction and pack"),
 }
+#: transport_rows_update rebuilt with other rows a thread and threads a
+#: block, which ``--variants`` times (name: the two constants of
+#: csrc/transport_cg.cu)
+RU_VARIANTS = {
+    "1 row, 512 threads": dict(kRuRows=1, kRuThreads=512),
+    "1 row, 256 threads": dict(kRuRows=1, kRuThreads=256),
+    "1 row, 1024 threads": dict(kRuRows=1, kRuThreads=1024),
+    "2 rows, 256 threads": dict(kRuRows=2, kRuThreads=256),
+    "2 rows, 512 threads": dict(kRuRows=2, kRuThreads=512),
+    "4 rows, 256 threads": dict(kRuRows=4, kRuThreads=256),
+}
+
+
 #: transport_blocks' block kinds and the names of their phases
 BLOCKS_KINDS = {"T_vm tile": ("loads, rows' partial sums", "columns' partial sums",
                               "tickets, tile sums"),
@@ -941,9 +973,32 @@ extern "C" int dkmc_tp_probe_clear() {
 
 def transport_forms(src):
     """The kernels of TRANSPORT_STAMPS that ``src`` (a transport_cg.cu)
-    holds."""
-    return [k for k in TRANSPORT_STAMPS if f"\ntransport_{k}_kernel(" in src
-            or f" transport_{k}_kernel(" in src]
+    holds in the form of their anchors (each once; an earlier form of a
+    kernel, as another checkout may hold it, is timed but not stamped)."""
+    return [k for k in TRANSPORT_STAMPS
+            if (f"\ntransport_{k}_kernel(" in src or f" transport_{k}_kernel(" in src)
+            and all(src.count(anchor) == 1 for anchor, _, _ in TRANSPORT_STAMPS[k])]
+
+
+def ru_variant_builds(bdir, csrc):
+    """This checkout's transport_cg.cu with each of RU_VARIANTS' constants:
+    {name: nvcc job}."""
+    import re
+
+    src = (csrc / "transport_cg.cu").read_text()
+    jobs = {}
+    for k, (name, consts) in enumerate(RU_VARIANTS.items()):
+        text = src
+        for const, value in consts.items():
+            pat = rf"constexpr int {const} = \d+;"
+            if len(re.findall(pat, text)) != 1:
+                raise RuntimeError(f"transport_cg.cu: {const} is not defined once")
+            text = re.sub(pat, f"constexpr int {const} = {value};", text)
+        path = os.path.join(bdir, f"transport_cg_ru{k}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        jobs[name] = nvcc_build(path, path[:-3] + ".so", csrc)
+    return jobs
 
 
 def transport_build(bdir, csrc):
@@ -1107,7 +1162,7 @@ def transport_stamps(lib, form, block_kinds=None):
     return out
 
 
-def transport_probe(cs, sim, stamped, band_libs, inner=20):
+def transport_probe(cs, sim, stamped, band_libs, ru_libs=None, inner=20):
     """The transport CG's kernels of the package at the crossbar's transport
     operator (the state after two supersteps, chip_smoke.transport_operator's
     seeded direction): each kernel through its wrapper, back to back, beside
@@ -1116,7 +1171,11 @@ def transport_probe(cs, sim, stamped, band_libs, inner=20):
     iterates), per iteration; the warm solve of chip_smoke.py's phase 4
     captured, per inner iteration; with ``stamped`` ((forms, library) of
     transport_build) one launch of each stamped kernel and its phases; the
-    band kernel's builds ``band_libs`` (band_probe)."""
+    band kernel's builds ``band_libs`` (band_probe); ``ru_libs`` ({name:
+    library} of ru_variant_builds): transport_rows_update of each build,
+    alone (warm and cold L2) and in the captured warm solve.  The inner
+    tail (``tail``) is the package's transport_rows_update where it has
+    one, else its transport_rows (f32) then update_pack (also alone)."""
     import dataclasses
 
     import torch
@@ -1156,16 +1215,27 @@ def transport_probe(cs, sim, stamped, band_libs, inner=20):
     tcg.band(lo, op)
     tcg.fly(lo, op)
     tcg.fly(hi, op)
+    fused = hasattr(tcg, "rows_update")
+    rows_hi = (lambda w: tcg.rows(w, op)) if fused else (lambda w: tcg.rows(w, op, True))
     t = {}
     t["band"] = cs.time_ms(lambda: tcg.band(lo, op))
     t["fly"] = cs.time_ms(lambda: tcg.fly(lo, op))
     t["blocks_lo"] = cs.time_ms(lambda: tcg.blocks(lo, op, False))
     t["blocks_hi"] = cs.time_ms(lambda: tcg.blocks(hi, op, True))
-    t["rows_lo"] = cs.time_ms(lambda: tcg.rows(lo, op, False))
-    t["rows_hi"] = cs.time_ms(lambda: tcg.rows(hi, op, True))
+    t["rows_hi"] = cs.time_ms(lambda: rows_hi(hi))
+    # the inner tail from an iterating state that stays iterating
+    # (threshold 0)
     up = clone(lo)
     up.cg.thresh2.zero_()
-    t["update_pack"] = cs.time_ms(lambda: tcg.update_pack(up, op))
+    up.cg.act.fill_(True)
+    if fused:
+        tail = lambda: tcg.rows_update(up, op)
+    else:
+        tail = lambda: (tcg.rows(up, op, False), tcg.update_pack(up, op))
+        t["rows_lo"] = cs.time_ms(lambda: tcg.rows(up, op, False))
+        t["update_pack"] = cs.time_ms(lambda: tcg.update_pack(up, op))
+    t["tail"] = cs.time_ms(tail)
+    t["tail_cold"] = cs.time_ms_cold(tail)
     t["pack_hi"] = cs.time_ms(lambda: tcg.pack(hi, op, True))
     t["band_cold"] = cs.time_ms_cold(lambda: tcg.band(lo, op))
     res["ms"] = t
@@ -1295,6 +1365,27 @@ def transport_probe(cs, sim, stamped, band_libs, inner=20):
         tcg.products = products
     res["solve"] = res["solve_forms"]["the package's"]
 
+    # the builds of transport_rows_update: the tail alone and the solve
+    loaded = _build._libs.get("transport_cg")
+    res["ru_variants"] = {}
+    try:
+        for name, lib in (ru_libs or {}).items():
+            _build._libs["transport_cg"] = lib
+            w = clone(up)
+            sv = clone(tws)
+            g = Graph(lambda: tcg.solve(sv, op, x0p, go, tol, 20000), "cuda")
+            g()
+            n = int(sv.it_in)
+            ms = cs.time_ms(g, reps=1, rounds=5, warmup=1)
+            res["ru_variants"][name] = dict(
+                ms=cs.time_ms(lambda: tcg.rows_update(w, op)),
+                cold_ms=cs.time_ms_cold(lambda: tcg.rows_update(w, op)),
+                solve_inner=n, solve_ms=ms, solve_ms_per_inner=ms / n)
+            del g
+            print(f"transport_rows_update {name}: {res['ru_variants'][name]}", flush=True)
+    finally:
+        _build._libs["transport_cg"] = loaded
+
     # one launch of each stamped kernel, its library in the package's place
     forms, lib = stamped
     loaded = _build._libs.get("transport_cg")
@@ -1304,11 +1395,17 @@ def transport_probe(cs, sim, stamped, band_libs, inner=20):
         lib.dkmc_tp_probe_clear()
         vcap, n_mp = op.T_vm.shape
         for form in forms:
-            for build in ((True,) if form == "pack" else (False, True)):
+            builds = {"pack": (True,), "rows": (True,), "rows_update": (False,)}.get(
+                form, (False, True))
+            for build in builds:
                 w = clone(lo if not build else hi)
+                if form == "rows_update":
+                    w.cg.thresh2.zero_()
+                    w.cg.act.fill_(True)
                 launch = {"pack": lambda: tcg.pack(w, op, True),
                           "blocks": lambda: tcg.blocks(w, op, build),
-                          "rows": lambda: tcg.rows(w, op, build)}[form]
+                          "rows": lambda: tcg.rows(w, op),
+                          "rows_update": lambda: tcg.rows_update(w, op)}[form]
                 torch.cuda.synchronize()
                 torch.cuda._sleep(cs.HOLD_CYCLES)
                 a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1336,6 +1433,15 @@ def transport_probe(cs, sim, stamped, band_libs, inner=20):
 
 #: graph supersteps timed after the probe's warm-up, transport and heat
 SUPERSTEPS = 8
+#: the crossbar configurations of ``--parts supersteps``: synthetic_crossbar's
+#: arguments beside current=True, from chip_smoke (the bf16 run at its
+#: tolerance)
+SUPERSTEP_CONFIGS = {
+    "transport": lambda cs: {},
+    "heat (global)": lambda cs: dict(heat="global"),
+    "heat (local)": lambda cs: dict(heat="local"),
+    "bf16": lambda cs: dict(transport_bf16_inner=True, transport_tol=cs.BF16_TRANSPORT_TOL),
+}
 
 
 def memory_of(run):
@@ -1382,13 +1488,14 @@ def main():
                     help="also time variants of both kernels (see the module's docstring)")
     ap.add_argument("--pkg", help="checkout whose devicekmc_tpu_torch is measured")
     ap.add_argument("--parts", default="events,matvec,update",
-                    help="what to probe, of events, matvec, update and transport")
+                    help="what to probe, of events, matvec, update, transport and "
+                         "supersteps (the graph supersteps of SUPERSTEP_CONFIGS alone)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "probe_cg_events.json"))
     args = ap.parse_args()
     if args.pkg and args.variants:
         ap.error("--variants rebuilds this checkout's sources: not with --pkg")
     parts = set(args.parts.split(","))
-    known = {"events", "matvec", "update", "transport"}
+    known = {"events", "matvec", "update", "transport", "supersteps"}
     if parts - known:
         ap.error(f"--parts: unknown {sorted(parts - known)}")
     sys.path.insert(0, os.path.abspath(args.pkg) if args.pkg else ROOT)
@@ -1418,6 +1525,8 @@ def main():
                            if args.variants and "update" in parts else {})
     transport_job = transport_build(bdir, _build.CSRC) if "transport" in parts else None
     band_jobs = band_builds(bdir, _build.CSRC) if "transport" in parts else {}
+    ru_jobs = (ru_variant_builds(bdir, _build.CSRC)
+               if args.variants and "transport" in parts else {})
     _build.build(["ell_gather", "pairwise", "kmc_events", "graph", "boundary_cg"]
                  + (["banded", "wkb_fly", "wkb_window", "transport_cg"]
                     if "transport" in parts else []))
@@ -1436,6 +1545,7 @@ def main():
         for fn in (transport_lib.dkmc_tp_probe_read, transport_lib.dkmc_tp_probe_clear):
             fn.restype = ctypes.c_int
     band_libs = finish(band_jobs)
+    ru_libs = finish(ru_jobs)
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in ("kmc_events", "boundary_cg"):
         print(name, [l.strip() for l in _build.build_log(name).splitlines()
@@ -1452,7 +1562,7 @@ def main():
         mem["transport"] = memory_of(lambda: tsim.run_bias_point(cs.VD_MAIN, 1e30,
                                                                  max_steps=2))
         out["transport"] = transport_probe(cs, tsim, (transport_job[0], transport_lib),
-                                           band_libs)
+                                           band_libs, ru_libs)
         out["transport"]["supersteps"] = {"transport": superstep_probe(cs, tsim)}
         del tsim
         torch.cuda.empty_cache()
@@ -1466,7 +1576,21 @@ def main():
         print("transport CG: " + json.dumps(out["transport"]), flush=True)
         del hsim
         torch.cuda.empty_cache()
-    if parts - {"transport"}:
+    if "supersteps" in parts:
+        # each configuration's graph supersteps after its cold solves and
+        # two warm-up supersteps
+        out["supersteps"] = {}
+        for k, (name, config) in enumerate(SUPERSTEP_CONFIGS.items()):
+            ssim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(
+                ROOT, "build", f"probe_supersteps{k}"), current=True, **config(cs))
+            ssim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
+            torch.cuda.synchronize()
+            graph = ssim._graph_for(ssim.params) is not None
+            out["supersteps"][name] = dict(graph=graph, **superstep_probe(cs, ssim))
+            print(f"supersteps {name}: " + json.dumps(out["supersteps"][name]), flush=True)
+            del ssim
+            torch.cuda.empty_cache()
+    if parts - {"transport", "supersteps"}:
         sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build",
                                                                      "probe_run"))
         sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
