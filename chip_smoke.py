@@ -139,8 +139,9 @@ Phases (any failed check raises and the exit code is non-zero):
    of the same kernels; then the small stack with transport on the fly and
    the dense local model, 4 supersteps eager and on the graph, bit for bit,
    in turns, and heat_dense_substep against its plain version at the run's
-   interface and at 8,192 sites, timed beside its bytes bound, the plain
-   version and torch.mv;
+   interface and at 192, 512, 2,048 and 8,192 sites in f32 and f64, timed
+   beside its bytes bound, the plain version and torch.mv, with the form it
+   took (heat_cg_begin also with a cold L2);
 6. the transport run again (eager) with the CG stop condition read every iteration:
    the cold solves' iterations and every step's events, cg_iters_boundary
    and cg_iters_power equal to the chunked run's; the log of the event
@@ -758,9 +759,9 @@ def _bound(ops, bytes_):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _close(name, got, ref, tol):
-    """max|got - ref| <= tol * max|ref| (f32 sums in another order, FMA
-    contraction, one-ulp exp and sqrt); returns the absolute error."""
+def _close(name, got, ref, tol, atol=0.0):
+    """max|got - ref| <= tol * max|ref| + atol (f32 sums in another order,
+    FMA contraction, one-ulp exp and sqrt); returns the absolute error."""
     import torch
 
     torch.cuda.synchronize()
@@ -768,7 +769,7 @@ def _close(name, got, ref, tol):
     scale = float(ref.abs().max())
     err = float((got - ref).abs().max())
     check(scale > 0, f"{name}: the plain version is all zero")
-    check(err <= tol * scale, f"{name}: max error {err} > {tol} * {scale}")
+    check(err <= tol * scale + atol, f"{name}: max error {err} > {tol} * {scale} + {atol}")
     return err
 
 
@@ -2784,9 +2785,11 @@ PDISP_FACTS = ("bound_all_pairs_ms", "kernel", "registers", "shared_bytes",
                "device_launches", "chunks_upper", "skipped_chunk_share")
 
 
-#: supersteps of the dense local model's runs on the small stack, and the
-#: interface size of the dense substep kernel's second timing
+#: supersteps of the dense local model's runs on the small stack; the
+#: interface sizes at which the dense substep kernel is timed (f32 and f64),
+#: and the one of them whose f64 timing is the "ref" record
 SMALL_HEAT_STEPS = 4
+DENSE_SIZES = (192, 512, 2048, 8192)
 DENSE_REF_NI = 8192
 
 
@@ -2809,26 +2812,33 @@ def _heat_ws_copy(ws):
     return type(ws)(**kw)
 
 
-def dense_substep_checks(heat, ref_ni=DENSE_REF_NI):
+def dense_substep_checks(heat, sizes=DENSE_SIZES):
     """Kernel 1 (heat_dense_substep) against its plain version on the card's
-    tensors, at the run's interface (``heat``'s L_inv) and at ``ref_ni``
-    sites (a seeded propagator): the field and the next right-hand side
-    within 1e-5 of their scale (f32 products summed in another order), the
-    counter and predicate equal; timed beside its bytes bound (the
-    propagator once, ni^2 entries, and the [ni] vectors), the plain version
-    and torch.mv of the propagator (the product alone)."""
+    tensors, at the run's interface (``heat``'s L_inv) and at each ni of
+    ``sizes`` in f32 and f64 (a seeded propagator; ni 8,192 of f64 is the
+    "ref" record): the field and the next right-hand side within 1e-5 of
+    their scale (products summed in another order; in f32 plus an ulp of
+    the field, rounded next to T0), the counter and
+    predicate equal; timed beside its bytes bound (the propagator once, ni^2
+    entries, and the [ni] vectors), the plain version and torch.mv of the
+    propagator (the product alone), with the form the kernel took
+    (``ops.heat.dense_plan``)."""
     import torch
 
+    from devicekmc_tpu_torch.ops import _build
     from devicekmc_tpu_torch.ops import heat as heat_ops
 
-    out = {}
+    out = {"sizes": []}
     gen = torch.Generator().manual_seed(17)
-    for tag, ni in (("run", heat.n_interface), ("ref", ref_ni)):
+    cases = [("run", heat.n_interface, heat.L_inv.dtype)]
+    cases += [(f"{ni} {str(dt)[6:]}", ni, dt) for ni in sizes
+              for dt in (torch.float32, torch.float64)]
+    for tag, ni, dt in cases:
         if tag == "run":
             M = heat.L_inv
         else:
-            M = (torch.rand((ni, ni), generator=gen) * (2.0 / ni)).to(heat.L_inv).cuda()
-        dt, isz = M.dtype, M.element_size()
+            M = (torch.rand((ni, ni), generator=gen) * (2.0 / ni)).to(dt).cuda()
+        isz = M.element_size()
         ws = heat_ops.workspace("dense", dt, "cuda", torch.arange(ni, device="cuda"))
         ws.u[0].copy_((torch.rand(ni, generator=gen) * 1e-3).to(dt))
         ws.src.copy_((torch.rand(ni, generator=gen) * 1e-4).to(dt))
@@ -2838,8 +2848,13 @@ def dense_substep_checks(heat, ref_ni=DENSE_REF_NI):
         tq = tk.clone()
         heat_ops.dense_substep(k, M, tk, 300.0, 1000.0, False, 0)
         heat_ops.dense_substep_plain(q, M, tq, 300.0, 1000.0, False, 0)
-        err = max(_close(f"heat_dense_substep ({tag}) field", tk - 300.0, tq - 300.0, 1e-5),
-                  _close(f"heat_dense_substep ({tag}) right-hand side", k.u, q.u, 1e-5))
+        # f32: also an ulp of the field, whose rounding next to T0 the two
+        # versions' sums may tip apart (over the scale in the right-hand side)
+        ulp = torch.finfo(dt).eps * float(tq.abs().max()) if dt == torch.float32 else 0.0
+        err = max(_close(f"heat_dense_substep ({tag}) field", tk - 300.0, tq - 300.0, 1e-5,
+                         ulp),
+                  _close(f"heat_dense_substep ({tag}) right-hand side", k.u, q.u, 1e-5,
+                         ulp / 1000.0))
         check(k.k.tolist() == q.k.tolist() and k.cond.tolist() == q.cond.tolist(),
               f"heat_dense_substep ({tag}): counter or predicate differ")
         ms = time_ms(lambda: heat_ops.dense_substep(k, M, tk, 300.0, 1000.0, False, 0))
@@ -2848,11 +2863,22 @@ def dense_substep_checks(heat, ref_ni=DENSE_REF_NI):
         u0 = ws.u[0].clone()
         lib_ms = time_ms(lambda: torch.mv(M, u0))
         bound_ms, by = _bound(2 * ni * ni, ni * ni * isz + 4 * ni * isz + 4 * ni)
-        out[tag] = dict(ni=ni, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=bound_ms, bound_by=by, dtype=str(dt))
-        log(f"heat_dense_substep at ni = {ni} ({tag}, {dt}): {ms:.5f} ms, bound {bound_ms:.5f} "
-            f"ms ({by}), plain {plain_ms:.5f} ms, torch.mv {lib_ms:.5f} ms, max error "
-            f"{err:.3e}")
+        plan = heat_ops.dense_plan(ni, isz, M.data_ptr() % 16 == 0 and k.u.data_ptr() % 16 == 0,
+                                   _build.sm_count(M.device))
+        rec = dict(ni=ni, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=by, dtype=str(dt),
+                   form=dict(dataclasses.asdict(plan)))
+        if tag == "run":
+            out["run"] = rec
+        else:
+            out["sizes"].append(rec)
+            if ni == DENSE_REF_NI and dt == torch.float64:
+                out["ref"] = rec
+        log(f"heat_dense_substep at ni = {ni} ({tag}, {dt}, {plan.form} form, {plan.grid} "
+            f"blocks, {plan.rows} rows a warp): {ms:.5f} ms, bound {bound_ms:.5f} ms ({by}, "
+            f"{100 * bound_ms / ms:.1f} %), plain {plain_ms:.5f} ms, torch.mv {lib_ms:.5f} ms, "
+            f"max error {err:.3e}")
+        del M, ws, k, q, tk, tq, u0
     return out
 
 
@@ -2867,7 +2893,8 @@ def heat_cg_checks(sim):
     counter and predicate equal); each timed beside its bytes bound (the
     set-up: the interface rows' valid slots, value and index, and each
     [N] input and output once; the end: the interface's iterate and field
-    and the mask) and its plain version."""
+    and the mask) and its plain version; the set-up with a cold L2 too (a
+    64 MiB buffer written before each launch)."""
     import torch
 
     from devicekmc_tpu_torch.ops import heat as heat_ops
@@ -2907,6 +2934,8 @@ def heat_cg_checks(sim):
     check(k.log.tolist() == q.log.tolist() and k.k.tolist() == q.k.tolist()
           and k.cond.tolist() == q.cond.tolist(), "heat_cg_end: counters differ")
     ms_b = time_ms(lambda: heat_ops.cg_begin(k, k.op_t, True, tk, T0, scale, 1e-10, 1000))
+    cold_b = time_ms_cold(lambda: heat_ops.cg_begin(k, k.op_t, True, tk, T0, scale, 1e-10,
+                                                    1000))
     plain_b = time_ms(lambda: heat_ops.cg_begin_plain(q, q.op_t, True, tq, T0, scale, 1e-10,
                                                       1000), reps=5, rounds=3)
     ms_e = time_ms(lambda: heat_ops.cg_end(k, tk, T0, scale, False, 0))
@@ -2921,10 +2950,12 @@ def heat_cg_checks(sim):
     bound_b, by_b = _bound(2 * slots + 10 * n_i, bytes_b)
     bound_e, by_e = _bound(2 * n_i, bytes_e)
     out = dict(n=n, interface=n_i, slots=slots,
-               begin=dict(err=err, ms=ms_b, plain_ms=plain_b, bound_ms=bound_b, bound_by=by_b),
+               begin=dict(err=err, ms=ms_b, cold_ms=cold_b, plain_ms=plain_b, bound_ms=bound_b,
+                          bound_by=by_b),
                end=dict(err=0.0, ms=ms_e, plain_ms=plain_e, bound_ms=bound_e, bound_by=by_e))
     log(f"heat CG kernels at the crossbar's local model ({n} sites, {n_i} on the interface, "
-        f"{slots} valid slots): heat_cg_begin {ms_b:.5f} ms (bound {bound_b:.5f}, {by_b}; "
+        f"{slots} valid slots): heat_cg_begin {ms_b:.5f} ms, cold L2 {cold_b:.5f} ms (bound "
+        f"{bound_b:.5f}, {by_b}, {100 * bound_b / ms_b:.1f} %; "
         f"plain {plain_b:.5f}; r, p error {err:.3e} of {sc:.3e}), heat_cg_end {ms_e:.5f} ms "
         f"(bound {bound_e:.5f}, {by_e}; plain {plain_e:.5f}; bit-equal)")
     return out
@@ -3032,7 +3063,7 @@ def heat_records(dense, dgraph, cg, lgraph):
         "library": "torch.mv(L_inv, u), the product alone",
         "shape": f"ni={run['ni']} ({run['dtype']}), the small stack's interface",
         "path": "the small stack with transport on the fly and the dense local model, "
-                "captured graph", "ref_ni": dense["ref"],
+                "captured graph", "ref_ni": dense["ref"], "sizes": dense["sizes"],
         "computes": "one substep of the dense local model (the steady pass with L_ss_inv): "
                     "the propagator's row products, the field and the next right-hand side, "
                     "the counter and the WHILE predicate"}]
@@ -3049,6 +3080,7 @@ def heat_records(dense, dgraph, cg, lgraph):
             "launches": lgraph["launches_card"][name], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
+            **({"cold_ms": r["cold_ms"]} if "cold_ms" in r else {}),
             "library_none": "no one PyTorch call computes it",
             "shape": f"N={cg['n']}, {cg['interface']} interface sites, {cg['slots']} slots",
             "path": "the crossbar's heat path with the matrix-free local model, captured "

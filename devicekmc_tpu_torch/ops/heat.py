@@ -50,8 +50,74 @@ from . import cg as cg_mod
 from .boundary_cg import Workspace as CGWorkspace
 from .graph import device_while
 
-#: threads a block of the three kernels (cg_begin's grid: a row a thread)
+#: threads a block of the three kernels
 THREADS = 256
+#: warps a block
+WARPS = THREADS // 32
+#: heat_dense_substep's cluster form takes ni up to this (one cluster of at
+#: most DENSE_CLUSTER blocks); the grid form the rest, DENSE_BLOCKS_PER_SM
+#: blocks an SM, the right-hand side's tile of at most DENSE_TILE_BYTES in
+#: shared memory
+DENSE_SMALL_MAX_NI = 256
+DENSE_CLUSTER = 16
+DENSE_BLOCKS_PER_SM = 2
+DENSE_TILE_BYTES = 96 * 1024
+#: the grid form takes a row a block from this ni (sets of rows below it)
+DENSE_ROWS_MIN_NI = 4096
+#: rows of a chunk of heat_cg_begin (4 passes of its 8 warps, 2 rows a warp)
+BEGIN_CHUNK = 64
+
+
+#: heat_dense_substep's forms, by the number the kernel's entry takes
+DENSE_FORMS = ("sets", "cluster", "rows")
+
+
+@dataclass(frozen=True)
+class DensePlan:
+    """How heat_dense_substep covers an [ni, ni] propagator (``csrc/heat.cu``),
+    ``form`` one of DENSE_FORMS: "cluster", one cluster of ``grid`` blocks;
+    "sets", ``grid`` blocks over tiles of ``tile`` columns of the right-hand
+    side in shared memory; either in sets of ``WARPS * rows`` rows (set s,
+    s + grid, ... a block); "rows", ``grid`` blocks, the whole right-hand
+    side one tile (``tile`` ni), a block a row at a time (its first row its
+    index, the next ones drawn from a counter; ``rows`` 1); ``vec`` entries a
+    load (16 bytes' worth, or 1)."""
+    form: str
+    rows: int
+    vec: int
+    tile: int
+    grid: int
+
+
+def dense_plan(ni: int, itemsize: int, aligned: bool = True,
+               sms: int = _build.H100_SMS) -> DensePlan:
+    """The form of heat_dense_substep for ``ni`` rows of ``itemsize``-byte
+    entries on a card of ``sms`` SMs (``aligned``: the propagator's and the
+    right-hand side's data start on 16 bytes).  Up to DENSE_SMALL_MAX_NI one
+    cluster of at most DENSE_CLUSTER blocks with the fewest rows a warp that
+    covers ni in one pass (4 where none does); above, at most
+    DENSE_BLOCKS_PER_SM blocks an SM: a row a block from DENSE_ROWS_MIN_NI
+    where the right-hand side fits one tile, else sets of the most rows a
+    warp (of 4, 2, 1) that still give every block a set."""
+    natural = 16 // itemsize
+    vec = natural if aligned and ni % natural == 0 else 1
+    if ni <= DENSE_SMALL_MAX_NI:
+        rows = next((r for r in (1, 2, 4) if DENSE_CLUSTER * WARPS * r >= ni), 4)
+        return DensePlan("cluster", rows, vec, ni,
+                         min(-(-ni // (WARPS * rows)), DENSE_CLUSTER))
+    cap = sms * DENSE_BLOCKS_PER_SM
+    tile = min(ni, DENSE_TILE_BYTES // itemsize // vec * vec)
+    if tile == ni and ni >= DENSE_ROWS_MIN_NI:
+        return DensePlan("rows", 1, vec, ni, cap)
+    rows = next((r for r in (4, 2) if -(-ni // (WARPS * r)) >= cap), 1)
+    return DensePlan("sets", rows, vec, tile, min(-(-ni // (WARPS * rows)), cap))
+
+
+def cg_begin_grid(n: int) -> int:
+    """heat_cg_begin's blocks for ``n`` rows at most: a chunk of BEGIN_CHUNK
+    rows each (the launch takes as many of them as the card holds at once;
+    its partial sums take ``2 * cg_begin_grid(n)`` entries)."""
+    return -(-n // BEGIN_CHUNK)
 
 
 @dataclass
@@ -66,11 +132,12 @@ class Workspace:
     them (:func:`prepare`), else None.
 
     Dense: ``u`` the right-hand side, double-buffered [2, ni]; ``iidx`` the
-    interface sites (int32 [ni]); ``ticket`` the substep kernel's.  Matrix-
-    free: ``cg`` the CG's (``boundary_cg.Workspace`` at B = 1, ``minv =
-    1``), ``op_t`` and ``op_s`` the ELL forms of the transient and steady
-    operators (``boundary_cg.apply_operator``'s ``op``), ``part`` and
-    ``ticket`` cg_begin's partial sums and ticket."""
+    interface sites (int32 [ni]); ``ticket`` the substep kernel's ticket and
+    row counter (int32 [2], zero between launches).  Matrix-free: ``cg`` the
+    CG's (``boundary_cg.Workspace`` at B = 1, ``minv = 1``; its ``bar`` also
+    cg_begin's grid barrier), ``op_t`` and ``op_s`` the ELL forms of the
+    transient and steady operators (``boundary_cg.apply_operator``'s
+    ``op``), ``part`` and ``ticket[0]`` cg_begin's partial sums and ticket."""
     method: str
     k: torch.Tensor
     n: torch.Tensor
@@ -106,7 +173,7 @@ def workspace(method: str, dtype, device, interface_idx: torch.Tensor,
     common = dict(method=method, k=torch.zeros(1, **i32), n=torch.zeros(2, **i32),
                   cond=torch.zeros(2, **i32),
                   log=torch.zeros(3, dtype=torch.int64, device=dev),
-                  ticket=torch.zeros(1, **i32))
+                  ticket=torch.zeros(2, **i32))
     if method == "dense":
         ni = interface_idx.shape[0]
         return Workspace(src=torch.zeros(ni, dtype=dtype, device=dev),
@@ -126,10 +193,10 @@ def workspace(method: str, dtype, device, interface_idx: torch.Tensor,
     cg = boundary_cg.workspace(1, nb, mask, dtype, dev)
     cg.minv.fill_(1.0)
     cg.act0.fill_(True)
-    grid = -(-n // THREADS)
     return Workspace(src=torch.zeros(n, dtype=dtype, device=dev), cg=cg,
                      op_t=form(1.0 - s * d, -s), op_s=form(-d, -1.0),
-                     part=torch.zeros(2 * grid, dtype=dtype, device=dev), **common)
+                     part=torch.zeros(2 * cg_begin_grid(n), dtype=dtype, device=dev),
+                     **common)
 
 
 def prepare(ws: Workspace, steady, n_sub) -> None:
@@ -163,8 +230,9 @@ def _fn(symbol):
     if fn.argtypes is None:
         p, i, d, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_ulonglong
         fn.argtypes = {
-            "dkmc_heat_dense_substep": [i, p, p, p, p, p, i, d, d, i, p, p, p, p, u, p, p],
-            "dkmc_heat_cg_begin": [i] + [p] * 20 + [d, d, d, i, i, i, i, p, p],
+            "dkmc_heat_dense_substep": [i, p, p, p, p, p, i, d, d, i, p, p, p, p, u, p, p,
+                                        i, i, i, i, i],
+            "dkmc_heat_cg_begin": [i] + [p] * 20 + [d, d, d, i, i, i, i, p, p, i, p],
             "dkmc_heat_cg_end": [i, p, p, p, i, d, d, i, p, p, p, p, p, u, p, p],
         }[symbol]
         fn.restype = ctypes.c_int
@@ -203,13 +271,15 @@ def dense_substep_plain(ws: Workspace, M: torch.Tensor, temp: torch.Tensor, T0: 
 
 
 def dense_substep(ws: Workspace, M: torch.Tensor, temp: torch.Tensor, T0: float, scale: float,
-                  negate: bool, which: int, handle: int = 0, stream=None) -> None:
+                  negate: bool, which: int, handle: int = 0, stream=None,
+                  plan: Optional[DensePlan] = None) -> None:
     """One pass of the dense model's loop ``which`` (0: transient, M =
     L_inv; 1: steady, M = L_ss_inv, ``negate``): t = (-)M u_in with u_in
     the half of ``ws.u`` the counter's parity picks, ``temp[iidx] = t scale
     + T0`` and into the other half ``(T - T0) / scale + src``; the counter
     advanced and the predicate ``ws.cond[which]`` (and the WHILE node
-    ``handle``'s condition, 0: none) set to ``k < n[which]``."""
+    ``handle``'s condition, 0: none) set to ``k < n[which]``.  ``plan``: the
+    kernel's form (default :func:`dense_plan` of the shapes and the card)."""
     if temp.device.type == "cpu":
         return dense_substep_plain(ws, M, temp, T0, scale, negate, which)
     ni = ws.u.shape[1]
@@ -217,11 +287,16 @@ def dense_substep(ws: Workspace, M: torch.Tensor, temp: torch.Tensor, T0: float,
             or not M.is_contiguous() or not temp.is_contiguous():
         raise ValueError("dense_substep: a contiguous [ni, ni] propagator and field of the "
                          "workspace's dtype")
+    if plan is None:
+        plan = dense_plan(ni, M.element_size(),
+                          M.data_ptr() % 16 == 0 and ws.u.data_ptr() % 16 == 0,
+                          _build.sm_count(temp.device))
     _launched("heat_dense_substep", _fn("dkmc_heat_dense_substep")(
         _is_f64(temp), M.data_ptr(), ws.u.data_ptr(), ws.src.data_ptr(), ws.iidx.data_ptr(),
         temp.data_ptr(), ni, float(T0), float(scale), int(negate), ws.k.data_ptr(),
         ws.n[which:].data_ptr(), ws.cond[which:].data_ptr(), ws.ticket.data_ptr(), handle,
-        _build.launch_counter(temp.device, "heat_dense_substep"), _stream(temp, stream)))
+        _build.launch_counter(temp.device, "heat_dense_substep"), _stream(temp, stream),
+        DENSE_FORMS.index(plan.form), plan.rows, plan.vec, plan.tile, plan.grid))
     dense_substep.launches += 1
 
 
@@ -250,6 +325,10 @@ def cg_begin(ws: Workspace, op: tuple, warm: bool, temp: torch.Tensor, T0: float
     diag, vals, nb, mask = op
     c = ws.cg
     n, m = nb.shape
+    grid = cg_begin_grid(n)
+    if ws.part.numel() < 2 * grid or ws.part.data_ptr() % 16 != 0:
+        raise ValueError(f"cg_begin: the partial sums hold {ws.part.numel()} entries, the "
+                         f"grid of {grid} blocks needs {2 * grid}, 16-byte aligned")
     _launched("heat_cg_begin", _fn("dkmc_heat_cg_begin")(
         _is_f64(temp), temp.data_ptr(), mask.data_ptr(), ws.src.data_ptr(), diag.data_ptr(),
         vals.data_ptr(), nb.data_ptr(), c.row_len.data_ptr(), c.x.data_ptr(), c.r.data_ptr(),
@@ -257,7 +336,8 @@ def cg_begin(ws: Workspace, op: tuple, warm: bool, temp: torch.Tensor, T0: float
         c.act0.data_ptr(), c.act.data_ptr(), c.iters.data_ptr(), c.ctl.data_ptr(),
         c.cond.data_ptr(), ws.part.data_ptr(), ws.ticket.data_ptr(), float(T0), float(scale),
         float(tol), int(warm), n, m, int(maxiter),
-        _build.launch_counter(temp.device, "heat_cg_begin"), _stream(temp, stream)))
+        _build.launch_counter(temp.device, "heat_cg_begin"), _stream(temp, stream), grid,
+        c.bar.data_ptr()))
     cg_begin.launches += 1
 
 

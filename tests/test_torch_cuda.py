@@ -2323,6 +2323,191 @@ def test_cuda_heat_loops_captured_equal_host_loop(tmp_path, method):
         assert float((temp - 300.0).abs().max()) > 0
 
 
+def _dense_case(ni, dtype, device, seed):
+    """A dense model's workspace on ``device`` with a seeded propagator
+    [ni, ni] (entries of 2 / ni), right-hand side and source, its interface
+    sites a seeded permutation into a field of ni + 7 sites."""
+    from devicekmc_tpu_torch.ops import heat as heat_ops
+
+    rng = np.random.default_rng(seed)
+    M = torch.as_tensor(rng.random((ni, ni)) * (2.0 / ni), dtype=dtype)
+    iidx = torch.as_tensor(rng.permutation(ni + 7)[:ni])
+    ws = heat_ops.workspace("dense", dtype, device, iidx)
+    ws.u[0].copy_(torch.as_tensor(rng.random(ni) * 1e-3))
+    ws.src.copy_(torch.as_tensor(rng.random(ni) * 1e-4))
+    temp = torch.as_tensor(300.0 + rng.random(ni + 7), dtype=dtype)
+    return M.to(device), ws, temp.to(device)
+
+
+#: ni of the dense substep's card tests: not multiples of a tile or of a
+#: load's width, and each side of the switch between the two forms
+DENSE_NI = (1, 31, 193, 1000, 4097, 256, 257)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("negate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ni", DENSE_NI)
+def test_cuda_heat_dense_substep_shapes(ni, dtype, negate):
+    """heat_dense_substep against dense_substep_plain on the CPU, five
+    substeps in a row (so both halves of the right-hand side are read): the
+    field and both halves within 1e-5 of their scale, the counter and the
+    predicates equal (in f32 also five ulps of the field, its rounding
+    next to T0 once a substep); at the switch (ni DENSE_SMALL_MAX_NI and one
+    more) the cluster and the sets; from 193 also a row a block, from 1,000
+    the right-hand side in tiles of 256 columns; where 16-byte loads apply,
+    the propagator one entry off 16 bytes too (the 1-entry build)."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import heat as heat_ops
+
+    sms = _build.sm_count("cuda")
+    base = heat_ops.dense_plan(ni, dtype.itemsize, True, sms)
+    # (plan, propagator one entry off 16 bytes): the plan of the shapes, and
+    # where it loads 16 bytes, of the offset data (the 1-entry build)
+    cases = [(None, False)] + ([(None, True)] if base.vec > 1 else [])
+    if ni in (heat_ops.DENSE_SMALL_MAX_NI, heat_ops.DENSE_SMALL_MAX_NI + 1):
+        cases += [(heat_ops.DensePlan("cluster", 4, base.vec, ni, min(-(-ni // 32), 8)),
+                   False),
+                  (heat_ops.DensePlan("sets", 1, base.vec, ni, min(-(-ni // 8), 2 * sms)),
+                   False)]
+    if ni >= 193:
+        # a row a block; and sets of 2 rows a warp over tiles of 256 columns
+        cases += [(heat_ops.DensePlan("rows", 1, base.vec, ni, min(ni, 2 * sms)), False)]
+    if ni >= 1000:
+        cases += [(heat_ops.DensePlan("sets", 2, base.vec, 256, min(-(-ni // 16), 2 * sms)),
+                   False)]
+    for plan, offset in cases:
+        M, k, tk = _dense_case(ni, dtype, "cuda", ni)
+        Mp, p, tp = _dense_case(ni, dtype, "cpu", ni)
+        if offset:
+            buf = torch.empty(ni * ni + 1, dtype=dtype, device="cuda")
+            M = buf[1:].view(ni, ni).copy_(M)
+        for ws in (k, p):
+            heat_ops.prepare(ws, False, 5)
+        for _ in range(5):
+            heat_ops.dense_substep(k, M, tk, 300.0, 1000.0, negate, 0, plan=plan)
+            heat_ops.dense_substep_plain(p, Mp, tp, 300.0, 1000.0, negate, 0)
+        torch.cuda.synchronize()
+        # products summed in another order (1e-5 of the scale), and in f32 the
+        # field's rounding next to T0 (an ulp of the field a substep, over
+        # scale 1000 in the right-hand side)
+        ulps = 5 * torch.finfo(dtype).eps * float(tp.abs().max()) if dtype == torch.float32 \
+            else 0.0
+        for got, want, atol in ((tk - 300.0, tp - 300.0, ulps), (k.u, p.u, ulps / 1000.0)):
+            sc = float(want.abs().max())
+            err = float((got.cpu() - want).abs().max())
+            assert sc > 0 and err <= 1e-5 * sc + atol, (plan, offset, err, sc, atol)
+        assert k.k.tolist() == p.k.tolist() == [5], plan
+        assert k.cond.tolist() == p.cond.tolist() == [0, 0], plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ni", [193, 1000])
+def test_cuda_heat_dense_loop_trip_count(ni):
+    """The dense loops captured (the transient WHILE node entered on 7
+    substeps, the steady one on 0; then the steady one on its 1 pass) run
+    their trip count, counted on the card, and give the host loop's bits."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import heat as heat_ops
+    from devicekmc_tpu_torch.ops.graph import Graph
+
+    M, ws, temp = _dense_case(ni, torch.float64, "cuda", 3)
+    M2 = torch.flip(M, (0,)).contiguous()
+    _, hw, ht = _dense_case(ni, torch.float64, "cuda", 3)
+    graph = Graph(lambda: heat_ops.run_dense(ws, M, M2, temp, 300.0, 1000.0), "cuda")
+    idx = _build.COUNTED_ON_CARD.index("heat_dense_substep")
+    for steady, n_sub, trips in ((False, 7, 7), (True, 7, 1)):
+        heat_ops.prepare(ws, steady, n_sub)
+        heat_ops.prepare(hw, steady, n_sub)
+        before = int(_build.launch_counts("cuda")[idx])
+        graph()
+        torch.cuda.synchronize()
+        assert int(_build.launch_counts("cuda")[idx]) - before == trips
+        assert ws.k.tolist() == [trips] and ws.cond.tolist() == [0, 0]
+        heat_ops.run_dense(hw, M, M2, ht, 300.0, 1000.0)
+        assert torch.equal(temp, ht) and torch.equal(ws.u, hw.u)
+        assert hw.k.tolist() == [trips]
+
+
+def _begin_case(seed):
+    """A synthetic matrix-free operator for heat_cg_begin on 1,000 rows of
+    51 slots: rows of valid length 0, 1, 17 and 51, rows off the interface,
+    a row whose neighbours are all off it; workspaces on the card and the
+    CPU, a seeded field and source."""
+    from devicekmc_tpu_torch.ops import heat as heat_ops
+
+    rng = np.random.default_rng(seed)
+    n, m = 1000, 51
+    mask = rng.random(n) < 0.7
+    lens = rng.integers(0, m + 1, n)
+    lens[:4] = (0, 1, 17, 51)
+    mask[:4] = True
+    off = np.flatnonzero(~mask)
+    nb = np.full((n, m), -1)
+    for i in range(n):
+        nb[i, :lens[i]] = rng.choice(n, lens[i], replace=False)
+    nb[4] = -1
+    nb[4, :9] = off[:9]
+    lens[4], mask[4] = 9, True
+    nb_int = (nb >= 0) & mask[np.maximum(nb, 0)]
+    diag_base, src, temp = rng.random(n) + 2.0, rng.random(n) * 1e-4, 300.0 + rng.random(n)
+    out = []
+    for dev in ("cuda", "cpu"):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        ws = heat_ops.workspace(
+            "cg", torch.float64, dev, t(np.flatnonzero(mask)), neigh_idx=t(nb),
+            mask=t(mask), diag_base=t(diag_base), nb_int=t(nb_int),
+            n_int_nb=t(nb_int.sum(1)), step_scale=0.3)
+        ws.src.copy_(t(np.where(mask, src, 0.0)))
+        out.append((ws, t(temp)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cold_l2", [False, True])
+def test_cuda_heat_cg_begin_rows(cold_l2):
+    """heat_cg_begin against cg_begin_plain on the synthetic operator, warm
+    (transient) and cold (steady), with the L2 written over before each
+    launch or not: x0 bit-equal, r and p within 1e-12 of the scale of b,
+    r.r, r.z and the threshold within 1e-10, flags, counts and predicate
+    equal; the rows off the interface zero; a second launch the same bits;
+    the partial sums too short raise."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import heat as heat_ops
+
+    (k, tk), (p, tp) = _begin_case(9)
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for warm, op_k, op_p in ((True, k.op_t, p.op_t), (False, k.op_s, p.op_s)):
+        for ws in (k, p):
+            heat_ops.prepare(ws, False, 1)
+        if cold_l2:
+            scrub.fill_(1)
+        heat_ops.cg_begin(k, op_k, warm, tk, 300.0, 1000.0, 1e-10, 1000)
+        heat_ops.cg_begin_plain(p, op_p, warm, tp, 300.0, 1000.0, 1e-10, 1000)
+        torch.cuda.synchronize()
+        assert torch.equal(k.cg.x.cpu(), p.cg.x), warm
+        b = torch.where(p.op_t[3], p.cg.x[0] + p.src, 0.0)
+        sc = float(b.abs().max())
+        for f in ("r", "p"):
+            got = getattr(k.cg, f).cpu()
+            assert float((got - getattr(p.cg, f)).abs().max()) <= 1e-12 * sc, (warm, f)
+            assert not bool(got[0][~p.op_t[3]].any())
+        for f in ("rr", "rz", "thresh2"):
+            assert float(getattr(k.cg, f)) == pytest.approx(float(getattr(p.cg, f)),
+                                                            rel=1e-10)
+        for f in ("act", "iters", "ctl", "cond"):
+            assert torch.equal(getattr(k.cg, f).cpu(), getattr(p.cg, f)), (warm, f)
+        first = {f: getattr(k.cg, f).clone() for f in ("x", "r", "p", "rr", "thresh2")}
+        heat_ops.cg_begin(k, op_k, warm, tk, 300.0, 1000.0, 1e-10, 1000)
+        for f, v in first.items():
+            assert torch.equal(getattr(k.cg, f), v), (warm, f)
+    k.part = k.part[:-2]
+    with pytest.raises(ValueError, match="partial sums"):
+        heat_ops.cg_begin(k, k.op_t, True, tk, 300.0, 1000.0, 1e-10, 1000)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("config", ["bf16", "heat-local-dense", "heat-local-cg"])
 def test_cuda_new_graph_configurations_match_eager(tmp_path, config):

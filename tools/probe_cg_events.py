@@ -34,6 +34,14 @@ crossbar's shapes (108,944 sites; the state after two graph supersteps):
   transport and heat (global) configurations' graph supersteps, their ms an
   inner iteration, and the memory each run holds once built and the most
   its cold solves and first two supersteps allocate;
+* the local heat model's two kernels (``--parts heat``, csrc/heat.cu):
+  heat_dense_substep at ni 192, 512, 2,048 and 8,192 (f32 and f64) beside
+  torch.mv, and where the package has forms each form forced; the small
+  stack's dense heat phase alone at 151 substeps; heat_cg_begin at the
+  crossbar's local model warm and cold, the crossbar's heat phase alone;
+  ``clock64()`` stamps of both kernels' phases (HEAT_STAMPS: loads, row
+  sums, ticket or barrier, epilogue; the parent's forms too), and with
+  ``--variants`` heat_cg_begin rebuilt with BEGIN_VARIANTS' constants;
 * the graph supersteps alone (``--parts supersteps``) of the transport,
   heat (global and local) and bf16 configurations (SUPERSTEP_CONFIGS), 8
   after the cold solves and two more, each with its inner iterations;
@@ -66,7 +74,8 @@ and times ``cg_update_direction`` with other tiles and a launch that is not
 cooperative (UPDATE_VARIANTS).  Needs the card:
 
     python3 tools/probe_cg_events.py [--events 200] [--variants] [--pkg DIR]
-        [--parts events,matvec,update] [--out build/probe_cg_events.json]
+        [--parts events,matvec,update,transport,supersteps,heat]
+        [--out build/probe_cg_events.json]
 """
 
 import argparse
@@ -940,7 +949,7 @@ BLOCKS_KINDS = {"T_vm tile": ("loads, rows' partial sums", "columns' partial sum
                 "T_vv rows": ("first loads issued", "x_v gathered", "T_vv rows"),
                 "bump": ("-", "-", "the bump"),
                 "dot": ("-", "-", "the dot")}
-TP_BLOCKS, TP_STAMPS = 8192, 6
+TP_BLOCKS, TP_STAMPS = 8192, 8
 TP_STAMP_DEFS = """
 __device__ long long g_tp_blk[@B@ * @S@];
 __device__ unsigned long long g_tp_gt[@B@ * @S@];
@@ -1431,6 +1440,310 @@ def transport_probe(cs, sim, stamped, band_libs, ru_libs=None, inner=20):
     return res
 
 
+#: clock64() stamps of the local heat model's two redesigned kernels
+#: (csrc/heat.cu), by form (this design's, and the earlier warp-a-row and
+#: thread-a-row kernels that another checkout may hold): name -> (kind,
+#: phases of HEAT_PHASES, anchors),
+#: an anchor (text that occurs once, stamp, "after", "before" or "replace");
+#: TP_BLOCK(k) in thread 0 of every block.  Of each kind the first form whose
+#: anchors all occur once in the measured checkout's source is stamped.
+HEAT_STAMPS = {
+    "rows (a row a block)": ("rows", "rows", (
+        ("  const int passes = c_hi > c_lo ? (c_hi - c_lo + kChunk - 1) / kChunk : 1;\n",
+         "  TP_BLOCK(0);\n", "after"),
+        ("    const T w = warp_sum(acc);\n", "    TP_BLOCK(1);\n", "before"),
+        ("}\n\n// `smem` bytes of dynamic shared memory allowed", "  TP_BLOCK(2);\n", "before"),
+    )),
+    "dense (sets of rows, a cluster or the grid)": ("dense", "sets", (
+        ("  const int n_sets = (ni + kSetRows - 1) / kSetRows;\n  const int tile = CLUSTER",
+         "  TP_BLOCK(0);\n", "before"),
+        ("    T a = 0;\n#pragma unroll\n", "    TP_BLOCK(1);\n", "before"),
+        ("  if constexpr (CLUSTER) {\n    // every block of the cluster has read the counter",
+         "  TP_BLOCK(2);\n", "before"),
+        ('    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");\n',
+         "    TP_BLOCK(3);\n", "after"),
+        ("}\n\n// The grid form with the whole right-hand side in shared memory",
+         "  TP_BLOCK(4);\n", "before"),
+    )),
+    "dense (a warp a row, a ticket)": ("dense", "dense", (
+        ("  const int row = blockIdx.x * kWarps + warp;\n", "  TP_BLOCK(0);\n", "after"),
+        ("    acc = warp_sum(acc);\n", "    TP_BLOCK(1);\n", "before"),
+        ("  if (!last_ticket(ticket, 0, gridDim.x, &s_flag)) return;\n", "  TP_BLOCK(2);\n",
+         "before"),
+        ("  if (threadIdx.x == 0) {\n    const int kn = __ldcg(k) + 1;", "  TP_BLOCK(3);\n",
+         "before"),
+        ("    if (handle) cudaGraphSetConditional(handle, go);\n  }\n}\n\n// ------------------"
+         "----------------------------------------------------------\n// heat_cg_begin",
+         "    if (handle) cudaGraphSetConditional(handle, go);\n  }\n  TP_BLOCK(4);\n}\n\n"
+         "// ----------------------------------------------------------------------------\n"
+         "// heat_cg_begin", "replace"),
+    )),
+    "begin (x0 first, a grid barrier, lanes a row)": ("begin", "begin", (
+        ("  const int gl = lane % kBeginLanes, sub = lane / kBeginLanes;\n"
+         "  const int n = A.n, m = A.m;\n", "  TP_BLOCK(0);\n", "after"),
+        ("  grid_barrier(A.bar);\n", "  TP_BLOCK(1);\n", "before"),
+        ("  grid_barrier(A.bar);\n", "  TP_BLOCK(2);\n", "after"),
+        ("  // the warp's pair: its groups' first lanes in order", "  TP_BLOCK(3);\n", "before"),
+        ("  if (!last_ticket(A.ticket, 0, gridDim.x, &s_flag)) return;\n  const T2 tot",
+         "  TP_BLOCK(4);\n", "before"),
+        ("  const T2 tot = sum_pairs(", "  TP_BLOCK(5);\n", "before"),
+        ("    A.cond[0] = go && 0 < A.maxiter;\n  }\n", "  TP_BLOCK(6);\n", "after"),
+    )),
+    "begin (a thread a row)": ("begin", "begin16", (
+        ("  const int i = blockIdx.x * kThreads + threadIdx.x;\n  T bb = 0, rr = 0;\n",
+         "  TP_BLOCK(0);\n", "after"),
+        ("  const T s_bb = block_sum(bb, s_warp);\n", "  TP_BLOCK(1);\n", "before"),
+        ("  if (!last_ticket(A.ticket, 0, gridDim.x, &s_flag)) return;\n  const T t_bb",
+         "  TP_BLOCK(2);\n", "before"),
+        ("  const T t_bb = sum_partials(", "  TP_BLOCK(3);\n", "before"),
+        ("    A.cond[0] = go && 0 < A.maxiter;\n  }\n", "  TP_BLOCK(4);\n", "after"),
+    )),
+}
+#: the phases between the stamps, by form ("begin16": a set-up without the
+#: barrier, the parent's)
+HEAT_PHASES = {
+    "rows": ("loads and products (every row of the block)", "the last row's sum and writes"),
+    "sets": ("loads and products (every set of the block)", "row sums and writes (its last set)",
+             "the cluster's barrier (a wait; the grid form has none)",
+             "counter and predicate (the cluster's block 0)"),
+    "dense": ("loads and products (every set of the block)", "row sums and writes (its last set)",
+              "ticket or cluster barrier", "counter and predicate (the last block)"),
+    "begin": ("x0 of every row", "grid barrier", "rows: loads, gathers, row sums, writes",
+              "the block's pair", "ticket", "the blocks' pairs summed, scalars (the last block)"),
+    "begin16": ("rows: loads, gathers, row sums, writes", "the block's pair", "ticket",
+                "the blocks' pairs summed, scalars (the last block)"),
+}
+#: heat_cg_begin rebuilt with other constants of csrc/heat.cu, which
+#: ``--variants`` times (name: constants); the grid follows the chunk
+BEGIN_VARIANTS = {
+    "16 lanes a row, 4 passes a chunk": dict(kBeginLanes=16, kBeginPasses=4),
+    "16 lanes a row, 1 pass a chunk": dict(kBeginLanes=16, kBeginPasses=1),
+    "8 lanes a row, 1 pass a chunk": dict(kBeginPasses=1),
+    "8 lanes a row, 4 passes a chunk": dict(kBeginPasses=4),
+    "8 lanes a row, 8 slots": dict(kBeginSlots=8),
+}
+#: ni of the dense substep's timings (f32 and f64); the ni of its stamps (f64)
+HEAT_DENSE_NI = (192, 512, 2048, 8192)
+HEAT_STAMP_NI = (192, 8192)
+
+
+def heat_forms(src):
+    """Of each kind of HEAT_STAMPS, the first form whose anchors occur once
+    each in ``src`` (a heat.cu): {kind: form}."""
+    out = {}
+    for form, (kind, _, stamps) in HEAT_STAMPS.items():
+        if kind not in out and all(src.count(anchor) == 1 for anchor, _, _ in stamps):
+            out[kind] = form
+    return out
+
+
+def heat_build(bdir, csrc):
+    """The heat.cu of ``csrc`` with the stamps of the forms it holds:
+    ({kind: form}, nvcc job)."""
+    src = (csrc / "heat.cu").read_text()
+    forms = heat_forms(src)
+    for form in forms.values():
+        for anchor, stamp, where in HEAT_STAMPS[form][2]:
+            new = {"after": anchor + stamp, "before": stamp + anchor, "replace": stamp}[where]
+            src = replace_once(src, anchor, new, "heat.cu")
+    head = "#include \"ticket.cuh\"\n"
+    src = replace_once(src, head, head + TP_STAMP_DEFS, "heat.cu")
+    path = os.path.join(bdir, "heat_stamped.cu")
+    with open(path, "w") as f:
+        f.write(src + TP_STAMP_EXPORTS)
+    return forms, nvcc_build(path, path[:-3] + ".so", csrc)
+
+
+def begin_variant_builds(bdir, csrc):
+    """This checkout's heat.cu with each of BEGIN_VARIANTS' constants:
+    {name: (rows a chunk, nvcc job)}."""
+    import re
+
+    src = (csrc / "heat.cu").read_text()
+    jobs = {}
+    for k, (name, consts) in enumerate(BEGIN_VARIANTS.items()):
+        text = src
+        for const, value in consts.items():
+            pat = rf"constexpr int {const} = \d+;"
+            if len(re.findall(pat, text)) != 1:
+                raise RuntimeError(f"heat.cu: {const} is not defined once")
+            text = re.sub(pat, f"constexpr int {const} = {value};", text)
+        val = lambda c: int(re.search(rf"constexpr int {c} = (\d+);", text).group(1))  # noqa
+        chunk = val("kBeginPasses") * (val("kThreads") // 32) * (32 // val("kBeginLanes"))
+        path = os.path.join(bdir, f"heat_v{k}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        jobs[name] = (chunk, nvcc_build(path, path[:-3] + ".so", csrc))
+    return jobs
+
+
+def heat_probe(cs, stamped, begin_libs, out_root):
+    """The local heat model's two kernels of the package: heat_dense_substep
+    at HEAT_DENSE_NI (f32 and f64, a seeded propagator) through its wrapper
+    beside torch.mv and its bytes bound, and where the package has forms
+    (``dense_plan``), each form forced (the cluster form up to 2,048, the
+    grid form with 1, 2 and 4 rows a warp), each checked against the plain
+    version first; the heat phase of the small stack's dense model alone at
+    151 transient substeps and steady, captured (chip_smoke.heat_phase_timing);
+    heat_cg_begin at the crossbar's local model (after one superstep) warm
+    and cold L2, and the crossbar's heat phase alone; with ``stamped``
+    ((forms, library) of heat_build) one launch of each stamped kernel (the
+    dense one at HEAT_STAMP_NI) and its phases; ``begin_libs`` ({name: (rows
+    a chunk, library)}): heat_cg_begin of each build, warm and cold."""
+    import dataclasses
+
+    import torch
+
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import heat as heat_ops
+
+    forms, lib = stamped
+    res = {"stamped_forms": forms}
+
+    def stamps_of(kinds, run):
+        # one launch of the stamped build through the wrapper, the phases of
+        # the first of ``kinds`` the build has
+        kind = next((k for k in kinds if k in forms), None)
+        if kind is None:
+            return None
+        loaded = _build._libs.get("heat")
+        _build._libs["heat"] = lib
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            _build._libs["heat"] = loaded
+        phases = HEAT_PHASES[HEAT_STAMPS[forms[kind]][1]]
+        return dict(form=forms[kind], **transport_stamps(lib, None, {"": (0, TP_BLOCKS, phases)}))
+
+    def forced(ni, isz, vec):
+        # the forms of the package's plan at ni: one cluster (to 2,048) of up
+        # to 8 and up to DENSE_CLUSTER blocks with 1, 2, 4 rows a warp; sets
+        # of 1, 2, 4 rows a warp on up to 2 blocks an SM, the right-hand side
+        # in one tile and (2 rows) in tiles of half the row; a row a block
+        # on 1, 2, 3 blocks an SM (forms of this design)
+        if not hasattr(heat_ops, "DENSE_FORMS"):
+            return {}
+        sms = _build.sm_count("cuda")
+        out = {}
+        if ni <= 2048:
+            for cap in (8, heat_ops.DENSE_CLUSTER):
+                for rows in (1, 2, 4):
+                    grid = min(-(-ni // (8 * rows)), cap)
+                    out[f"cluster {grid} x {rows} rows"] = heat_ops.DensePlan(
+                        "cluster", rows, vec, ni, grid)
+        if ni * isz <= heat_ops.DENSE_TILE_BYTES:
+            for rows in (1, 2, 4):
+                grid = min(-(-ni // (8 * rows)), 2 * sms)
+                out[f"sets {grid} x {rows} rows"] = heat_ops.DensePlan("sets", rows, vec, ni,
+                                                                       grid)
+            for per_sm in (1, 2, 3):
+                grid = min(ni, per_sm * sms)
+                out[f"rows {grid}"] = heat_ops.DensePlan("rows", 1, vec, ni, grid)
+        half = max(vec, ni // 2 // vec * vec)
+        grid = min(-(-ni // 16), 2 * sms)
+        out[f"sets {grid} x 2 rows, tiles of {half}"] = heat_ops.DensePlan("sets", 2, vec, half,
+                                                                            grid)
+        return out
+
+    gen = torch.Generator().manual_seed(17)
+    dense = []
+    for ni in HEAT_DENSE_NI:
+        for dt in (torch.float32, torch.float64):
+            M = (torch.rand((ni, ni), generator=gen) * (2.0 / ni)).to(dt).cuda()
+            ws = heat_ops.workspace("dense", dt, "cuda", torch.arange(ni, device="cuda"))
+            ws.u[0].copy_((torch.rand(ni, generator=gen) * 1e-3).to(dt))
+            ws.src.copy_((torch.rand(ni, generator=gen) * 1e-4).to(dt))
+            heat_ops.prepare(ws, False, 1 << 30)
+            temp = torch.full((ni,), 300.0, dtype=dt, device="cuda")
+            isz = M.element_size()
+            rec = dict(ni=ni, dtype=str(dt))
+            rec["bound_ms"], _ = cs._bound(2 * ni * ni, ni * ni * isz + 4 * ni * isz + 4 * ni)
+            rec["ms"] = cs.time_ms(lambda: heat_ops.dense_substep(ws, M, temp, 300.0, 1000.0,
+                                                                  False, 0))
+            u0 = ws.u[0].clone()
+            rec["torch_mv_ms"] = cs.time_ms(lambda: torch.mv(M, u0))
+            if hasattr(heat_ops, "dense_plan"):
+                rec["plan"] = dataclasses.asdict(heat_ops.dense_plan(
+                    ni, isz, True, _build.sm_count("cuda")))
+            rec["forms"] = {}
+            vec = 16 // isz
+            for name, plan in forced(ni, isz, vec).items():
+                k, q = cs._heat_ws_copy(ws), cs._heat_ws_copy(ws)
+                tk, tq = temp.clone(), temp.clone()
+                heat_ops.dense_substep(k, M, tk, 300.0, 1000.0, False, 0, plan=plan)
+                heat_ops.dense_substep_plain(q, M, tq, 300.0, 1000.0, False, 0)
+                ulp = torch.finfo(dt).eps * float(tq.abs().max()) if isz == 4 else 0.0
+                cs._close(f"heat_dense_substep {name} at {ni}", k.u, q.u, 1e-5, ulp / 1000.0)
+                rec["forms"][name] = cs.time_ms(lambda: heat_ops.dense_substep(
+                    k, M, tk, 300.0, 1000.0, False, 0, plan=plan))
+            if dt == torch.float64 and ni in HEAT_STAMP_NI:
+                form = rec.get("plan", {}).get("form")
+                rec["stamps"] = stamps_of(
+                    ("rows", "dense") if form == "rows" else ("dense",),
+                    lambda: heat_ops.dense_substep(ws, M, temp, 300.0, 1000.0, False, 0))
+            dense.append(rec)
+            print(f"heat_dense_substep: {json.dumps(rec)}", flush=True)
+            del M, ws, temp, u0
+            torch.cuda.empty_cache()
+    res["dense"] = dense
+
+    # the small stack's dense model: its heat phase alone, steady and at
+    # 151 transient substeps, captured and from the host loop
+    dsim = cs.small_device("cuda", os.path.join(out_root, "probe_heat_dense"), current=True,
+                           solve_heating_local=True, heat_solver="dense")
+    dsim.run_bias_point(10.0, 1e30, max_steps=2)
+    res["dense_phase"] = cs.heat_phase_timing(dsim, extra=(150.5,))
+    del dsim
+    torch.cuda.empty_cache()
+
+    # the crossbar's matrix-free model after one superstep
+    from devicekmc_tpu_torch.physics import heat as heat_mod
+
+    lsim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(out_root, "probe_heat_cg"),
+                                 current=True, heat="local")
+    lsim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=1)
+    torch.cuda.synchronize()
+    h, p, st = lsim.heat, lsim.params, lsim.state
+    T0, scale, src_t, _ = heat_mod._local_cg_sources(p, h, st)
+    temp = st.temperature.to(p.dtype).clone()
+    ws = cs._heat_ws_copy(h.ws)
+    ws.src.copy_(src_t)
+    heat_ops.prepare(ws, False, 1)
+    begin = lambda w: heat_ops.cg_begin(w, w.op_t, True, temp, T0, scale, 1e-10, 1000)  # noqa
+    mask = h.interface_mask
+    n, n_i = int(mask.shape[0]), int(mask.sum())
+    slots = int(ws.cg.row_len[mask].clamp(min=0).sum())
+    isz = temp.element_size()
+    bound, _ = cs._bound(2 * slots + 10 * n_i, slots * (isz + 4) + n_i * isz
+                         + n * (2 * isz + 1 + 4) + 3 * n * isz)
+    ref = cs._heat_ws_copy(ws)
+    heat_ops.cg_begin_plain(ref, ref.op_t, True, temp, T0, scale, 1e-10, 1000)
+    cg = dict(n=n, interface=n_i, slots=slots, bound_ms=bound, ms=cs.time_ms(lambda: begin(ws)),
+              cold_ms=cs.time_ms_cold(lambda: begin(ws)))
+    cg["stamps"] = stamps_of(("begin",), lambda: begin(ws))
+    builds = {}
+    for name, (chunk, vlib) in (begin_libs or {}).items():
+        v = cs._heat_ws_copy(ws)
+        v.part = torch.zeros(2 * -(-n // chunk), dtype=temp.dtype, device="cuda")
+        loaded, chunk0 = _build._libs.get("heat"), heat_ops.BEGIN_CHUNK
+        _build._libs["heat"], heat_ops.BEGIN_CHUNK = vlib, chunk
+        try:
+            begin(v)
+            cs._close(f"heat_cg_begin {name} r", v.cg.r, ref.cg.r, 1e-5)
+            builds[name] = dict(ms=cs.time_ms(lambda: begin(v)),
+                                cold_ms=cs.time_ms_cold(lambda: begin(v)))
+        finally:
+            _build._libs["heat"], heat_ops.BEGIN_CHUNK = loaded, chunk0
+    cg["builds"] = builds
+    res["cg_begin"] = cg
+    print(f"heat_cg_begin: {json.dumps(cg)}", flush=True)
+    res["cg_phase"] = cs.heat_phase_timing(lsim)
+    del lsim, ws, ref
+    torch.cuda.empty_cache()
+    return res
+
+
 #: graph supersteps timed after the probe's warm-up, transport and heat
 SUPERSTEPS = 8
 #: the crossbar configurations of ``--parts supersteps``: synthetic_crossbar's
@@ -1488,14 +1801,15 @@ def main():
                     help="also time variants of both kernels (see the module's docstring)")
     ap.add_argument("--pkg", help="checkout whose devicekmc_tpu_torch is measured")
     ap.add_argument("--parts", default="events,matvec,update",
-                    help="what to probe, of events, matvec, update, transport and "
-                         "supersteps (the graph supersteps of SUPERSTEP_CONFIGS alone)")
+                    help="what to probe, of events, matvec, update, transport, "
+                         "supersteps (the graph supersteps of SUPERSTEP_CONFIGS alone) and "
+                         "heat (the local heat model's dense substep and CG set-up)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "probe_cg_events.json"))
     args = ap.parse_args()
     if args.pkg and args.variants:
         ap.error("--variants rebuilds this checkout's sources: not with --pkg")
     parts = set(args.parts.split(","))
-    known = {"events", "matvec", "update", "transport", "supersteps"}
+    known = {"events", "matvec", "update", "transport", "supersteps", "heat"}
     if parts - known:
         ap.error(f"--parts: unknown {sorted(parts - known)}")
     sys.path.insert(0, os.path.abspath(args.pkg) if args.pkg else ROOT)
@@ -1527,9 +1841,13 @@ def main():
     band_jobs = band_builds(bdir, _build.CSRC) if "transport" in parts else {}
     ru_jobs = (ru_variant_builds(bdir, _build.CSRC)
                if args.variants and "transport" in parts else {})
+    heat_job = heat_build(bdir, _build.CSRC) if "heat" in parts else None
+    begin_jobs = (begin_variant_builds(bdir, _build.CSRC)
+                  if args.variants and "heat" in parts else {})
     _build.build(["ell_gather", "pairwise", "kmc_events", "graph", "boundary_cg"]
                  + (["banded", "wkb_fly", "wkb_window", "transport_cg"]
-                    if "transport" in parts else []))
+                    if parts & {"transport", "heat"} else [])
+                 + (["heat"] if "heat" in parts else []))
     cs.finish_latency_build(latency_job)
     stamped, variants = finish(events_jobs), finish(matvec_jobs)
     update_lib = None
@@ -1546,8 +1864,15 @@ def main():
             fn.restype = ctypes.c_int
     band_libs = finish(band_jobs)
     ru_libs = finish(ru_jobs)
+    heat_lib = None
+    if heat_job is not None:
+        heat_lib = finish({"heat_stamped": heat_job[1]})["heat_stamped"]
+        heat_lib.dkmc_tp_probe_read.argtypes = [ctypes.c_void_p] * 2
+        for fn in (heat_lib.dkmc_tp_probe_read, heat_lib.dkmc_tp_probe_clear):
+            fn.restype = ctypes.c_int
+    begin_libs = {n: (c, finish({n: j})[n]) for n, (c, j) in begin_jobs.items()}
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name in ("kmc_events", "boundary_cg"):
+    for name in ("kmc_events", "boundary_cg") + (("heat",) if "heat" in parts else ()):
         print(name, [l.strip() for l in _build.build_log(name).splitlines()
                      if "registers" in l], flush=True)
 
@@ -1576,6 +1901,10 @@ def main():
         print("transport CG: " + json.dumps(out["transport"]), flush=True)
         del hsim
         torch.cuda.empty_cache()
+    if "heat" in parts:
+        out["heat"] = heat_probe(cs, (heat_job[0], heat_lib), begin_libs,
+                                 os.path.join(ROOT, "build"))
+        print("heat: " + json.dumps(out["heat"]), flush=True)
     if "supersteps" in parts:
         # each configuration's graph supersteps after its cold solves and
         # two warm-up supersteps
@@ -1590,7 +1919,7 @@ def main():
             print(f"supersteps {name}: " + json.dumps(out["supersteps"][name]), flush=True)
             del ssim
             torch.cuda.empty_cache()
-    if parts - {"transport", "supersteps"}:
+    if parts - {"transport", "supersteps", "heat"}:
         sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build",
                                                                      "probe_run"))
         sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
