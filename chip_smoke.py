@@ -3198,8 +3198,11 @@ def threefry_check():
               f"threefry: f64 draws {e} differ")
         check(u32[e] == [rng.uniform(k_sel, np.float32), rng.uniform(k_time, np.float32)],
               f"threefry: f32 draws {e} differ")
+    # the kernel (one thread: a check of the stream, on no path) timed
+    ms = time_ms(lambda: threefry_draws(rng.prng_key(7), THREEFRY_DRAWS), reps=5, rounds=3)
     log(f"threefry: {THREEFRY_DRAWS} successive splits and the f64 and f32 draws of "
-        f"k_sel and k_time bit-equal to rng.py ({time.perf_counter() - t0:.1f} s)")
+        f"k_sel and k_time bit-equal to rng.py ({time.perf_counter() - t0:.1f} s); "
+        f"threefry_draws_kernel {ms:.5f} ms for the {THREEFRY_DRAWS} (one thread)")
     return [r[1] for r in u32], [r[1] for r in u64]
 
 

@@ -8,7 +8,8 @@
 //
 //   * a kernel that copies the predicate cond[0] (an int32 in device memory,
 //     written by the captured work before it) into the node's condition, so a
-//     loop whose predicate is false on entry runs no iteration;
+//     loop whose predicate is false on entry runs no iteration (its launches
+//     counted on the card when `count` is not null: once at every entry);
 //   * the WHILE node after it, and makes the node the stream's only
 //     dependency, so the work captured next runs after the loop;
 //
@@ -31,9 +32,13 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
-__global__ void while_cond_kernel(cudaGraphConditionalHandle handle, const int* cond) {
+__global__ void while_cond_kernel(cudaGraphConditionalHandle handle, const int* cond,
+                                  unsigned long long* count) {
+  count_launch(count);
   cudaGraphSetConditional(handle, cond[0] != 0);
 }
 
@@ -55,7 +60,7 @@ cudaError_t capture_info(cudaStream_t stream, cudaGraph_t* graph, const cudaGrap
 
 }  // namespace
 
-extern "C" int dkmc_while_begin(void* stream, void* side, const void* cond,
+extern "C" int dkmc_while_begin(void* stream, void* side, const void* cond, void* count,
                                 unsigned long long* handle_out) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaGraph_t graph;
@@ -66,7 +71,8 @@ extern "C" int dkmc_while_begin(void* stream, void* side, const void* cond,
   cudaGraphConditionalHandle handle;
   err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
   if (err != cudaSuccess) return (int)err;
-  while_cond_kernel<<<1, 1, 0, st>>>(handle, static_cast<const int*>(cond));
+  while_cond_kernel<<<1, 1, 0, st>>>(handle, static_cast<const int*>(cond),
+                                     static_cast<unsigned long long*>(count));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = capture_info(st, &graph, &deps, &n_deps);  // now the kernel above

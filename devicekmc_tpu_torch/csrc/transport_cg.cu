@@ -43,8 +43,8 @@
 //                     scale, b_in = f32(r / scale), the round's tolerance
 //                     and the inner CG's set-up (x = 0, r = p = b_in, p
 //                     packed as the inner product reads it, r.r, its
-//                     threshold and predicate); a barrier of the grid
-//                     between the sum of b_in.b_in's tiles and its use
+//                     threshold and predicate); the tiles' b_in.b_in
+//                     added by the block that draws the last ticket
 //
 // So the inner body is band | (fly, transport_blocks), then
 // transport_rows_update; a round's end is transport_pack, fly,
@@ -97,6 +97,20 @@
 //     its ELL row in passes of kEll slots whose loads all start before the
 //     first is used; the tiles' partial sums are added in tile order by
 //     the block that draws the last ticket;
+//   * transport_refine, a plain launch of a block a tile of kTile rows:
+//     nothing after the sum of b_in.b_in is read by another block, so the
+//     last ticket's block adds the tiles' slots and writes the scalars and
+//     every other block leaves after its stores; thread 0 draws the ticket
+//     before the rows' stores go out (ticket.cuh's last_ticket_acq_rel: one
+//     atomic with release and acquire semantics orders the tile's slot
+//     alone), so no fence or barrier waits for the atomic or for the
+//     scattered stores of the window and the metal vector; the scalars that
+//     do not need the sum (the rounds, the predicate, the round's tolerance
+//     with its f64 divide) are worked out while the rows' loads are in
+//     flight, so the tail after the sum is a square root, two products and
+//     the stores.  A cooperative launch waited at a barrier of the grid
+//     for block 0 to go on alone (tools/probe_cg_events.py --parts
+//     transport stamps both forms);
 //   * every sum has a fixed order and no float atomics are used: two runs
 //     give the same bits, and graph and host loop the same iterates;
 //   * the row arithmetic spells out each rounding (products rounded on
@@ -905,68 +919,126 @@ struct RefineArgs {
   const int* inv;
   const int* mp_inv;
   int front;
-  // scratch: the tiles' partial sums of b_in . b_in and the barrier
+  // scratch: the tiles' partial sums of b_in . b_in and their ticket
   float* part;
-  unsigned* bar;
+  int* ticket;
   double inner_tol;
   int first, max_outer, maxiter, nsub;
   unsigned long long handle;
   unsigned long long* count;
 };
 
+// A block a tile of kTile rows.  Every thread first issues the loads of its
+// rows (r, dsi, the window and metal slots), then reads the scalars, so the
+// two rounds of latency overlap; warp 1's lane 0 also works out what the
+// epilogue needs of them alone (the rounds, the predicate, the round's
+// tolerance: the divide off the tail).  b_in and its packed value stay in
+// registers while the block sums the tile's b_in . b_in; thread 0 writes the
+// tile's slot and draws a ticket (last_ticket_acq_rel: one atomic that
+// releases the slot and acquires the others'), and only then do the rows'
+// stores go out, so no fence waits for them.  The block that drew the last ticket adds the slots
+// in warp 0, in sum_partials' order over the whole block (so b_in . b_in has
+// the bits the block-wide sum gives), and writes the scalars; the other
+// blocks leave after their stores.
 __global__ void __launch_bounds__(kThreads) transport_refine_kernel(RefineArgs A) {
   count_launch(A.count);
   __shared__ float s_warp[kWarps];
-  // every block: ||r|| and the predicate, from values no block writes
-  // before the barrier
-  const double rn = sqrt(*A.rsum);
-  long long it_out = *A.it_out, it_in = *A.it_in;
-  if (!A.first) {
-    it_out += 1;
-    it_in += *A.iters;
-  }
-  const bool go = *A.go != 0 && rn > *A.thresh && it_out < A.max_outer && it_in < A.maxiter;
-  const double scale = rn > 0 ? rn : 1.0;
-  const int n_tiles = (A.nsub + kTile - 1) / kTile;
-
-  // the inner CG's start: x = 0, r = p = b_in = f32(r / scale), p packed,
-  // and the tiles' partial sums of b_in . b_in
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    float acc = 0.f;
+  __shared__ int s_flag, s_go;
+  __shared__ float s_tol;
+  __shared__ long long s_it[2];
+  const int i0 = blockIdx.x * kTile + threadIdx.x;
+  double rv[kRows];
+  float dv[kRows];
+  int wv[kRows], mv[kRows];
 #pragma unroll
-    for (int kk = 0; kk < kRows; ++kk) {
-      const int i = t * kTile + kk * kThreads + threadIdx.x;
-      if (i >= A.nsub) continue;
-      const float bi = __double2float_rn(__ddiv_rn(A.r[i], scale));
-      A.x[i] = 0.f;
-      A.rr_in[i] = bi;
-      A.p[i] = bi;
-      const float v = mul_rn(A.dsi[i], bi);
-      A.xs[i] = v;
-      if (i >= 2) {
-        A.xw[A.front + A.inv[i - 2]] = v;
-        const int k = A.mp_inv[i - 2];
-        if (k >= 0) A.xm[k] = v;
-      }
-      acc = fma_rn(bi, bi, acc);
+  for (int kk = 0; kk < kRows; ++kk) {
+    const int i = i0 + kk * kThreads;
+    const bool in = i < A.nsub, atom = in && i >= 2;
+    rv[kk] = in ? __ldg(A.r + i) : 0.0;
+    dv[kk] = in ? __ldg(A.dsi + i) : 0.f;
+    wv[kk] = atom ? __ldg(A.inv + i - 2) : -1;
+    mv[kk] = atom ? __ldg(A.mp_inv + i - 2) : -1;
+  }
+  // ||r|| and the scale in every thread; the rest of the scalars in warp
+  // 1's lane 0, into shared memory for the last block's thread 0 (off the
+  // path of thread 0, which sums the block and draws its ticket)
+  const double rn = sqrt(*A.rsum);
+  const double scale = rn > 0 ? rn : 1.0;
+  if (threadIdx.x == 32) {
+    long long it_out = *A.it_out, it_in = *A.it_in;
+    if (!A.first) {
+      it_out += 1;
+      it_in += *A.iters;
     }
-    const float sum = block_sum(acc, s_warp);
-    if (threadIdx.x == 0) A.part[t] = sum;
+    const double th = *A.thresh;
+    s_go = *A.go != 0 && rn > th && it_out < A.max_outer && it_in < A.maxiter;
+    // the round's tolerance: a tenth of the reduction this round needs, no
+    // tighter than inner_tol and no looser than 0.05, rounded to f32
+    const double needed = __ddiv_rn(th, fmax(rn, 1e-300));
+    s_tol = __double2float_rn(fmin(fmax(__dmul_rn(0.1, needed), A.inner_tol), 0.05));
+    s_it[0] = it_out;
+    s_it[1] = it_in;
   }
 
-  grid_barrier(A.bar);
-  if (blockIdx.x != 0) return;
-  const float rz = sum_partials(A.part, n_tiles, s_warp);
+  // the inner CG's start: b_in = f32(r / scale), its packed value and the
+  // tile's partial sum of b_in . b_in
+  float bv[kRows], vv[kRows];
+  float acc = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kRows; ++kk) {
+    bv[kk] = __double2float_rn(__ddiv_rn(rv[kk], scale));
+    vv[kk] = mul_rn(dv[kk], bv[kk]);
+    if (i0 + kk * kThreads < A.nsub) acc = fma_rn(bv[kk], bv[kk], acc);
+  }
+  const float sum = block_sum(acc, s_warp);
+  if (threadIdx.x == 0) {
+    A.part[blockIdx.x] = sum;
+    s_flag = last_ticket_acq_rel(A.ticket, 0, gridDim.x);
+  }
+  // x = 0, r = p = b_in, p packed
+#pragma unroll
+  for (int kk = 0; kk < kRows; ++kk) {
+    const int i = i0 + kk * kThreads;
+    if (i >= A.nsub) continue;
+    A.x[i] = 0.f;
+    A.rr_in[i] = bv[kk];
+    A.p[i] = bv[kk];
+    A.xs[i] = vv[kk];
+    if (wv[kk] >= 0) A.xw[A.front + wv[kk]] = vv[kk];
+    if (mv[kk] >= 0) A.xm[mv[kk]] = vv[kk];
+  }
+  __syncthreads();
+  if (!s_flag || threadIdx.x >= 32) return;
+  // the slots' sum in sum_partials' order: lane l takes the kWarps
+  // "threads" l, l + 32, ..., each adding its slots t, t + kThreads, ... in
+  // order; a butterfly each; then the kWarps sums in order, in lane 0
+  float w[kWarps];
+#pragma unroll
+  for (int q = 0; q < kWarps; ++q) w[q] = 0.f;
+  for (int base = 0; base < (int)gridDim.x; base += kThreads) {
+    float v[kWarps];
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) {
+      const int t = base + 32 * q + threadIdx.x;
+      v[q] = t < (int)gridDim.x ? __ldcg(A.part + t) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) w[q] += v[q];
+  }
+#pragma unroll
+  for (int q = 0; q < kWarps; ++q) w[q] = warp_sum(w[q]);
   if (threadIdx.x != 0) return;
-  A.xs[A.nsub] = 0.f;
-  // the round's tolerance: a tenth of the reduction this round needs, no
-  // tighter than inner_tol and no looser than 0.05, rounded to f32
-  const double needed = __ddiv_rn(*A.thresh, fmax(rn, 1e-300));
-  const float tol = __double2float_rn(fmin(fmax(__dmul_rn(0.1, needed), A.inner_tol), 0.05));
+  float rz = 0.f;
+#pragma unroll
+  for (int q = 0; q < kWarps; ++q) rz += w[q];
+  const bool go = s_go != 0;
+  const float tol = s_tol;
+  const long long it_out = s_it[0], it_in = s_it[1];
   const float ref = sqrtf(rz);
   const float th = __fmul_rn(tol, ref > 0.f ? ref : 1.f);
   const float th2 = __fmul_rn(th, th);
   const bool act = go && rz > th2;
+  A.xs[A.nsub] = 0.f;
   *A.rz = rz;
   *A.rr = rz;
   *A.thresh2 = th2;
@@ -1202,7 +1274,7 @@ extern "C" int dkmc_transport_refine(
     void* it_in, void* rnorm, void* scale, void* rnorm0, void* cond_out, void* x, void* rr_in,
     void* p, void* rz, void* rr, void* thresh2, void* act0, void* act, void* iters, void* ctl,
     void* cond_in, const void* dsi, void* xs, void* xw, void* xm, const void* inv,
-    const void* mp_inv, int front, void* part, void* bar, double inner_tol, int first,
+    const void* mp_inv, int front, void* part, void* ticket, double inner_tol, int first,
     int max_outer, int maxiter, int nsub, unsigned long long handle, void* count,
     void* stream) {
   if (nsub < 2) return (int)cudaErrorInvalidValue;
@@ -1236,7 +1308,7 @@ extern "C" int dkmc_transport_refine(
   A.mp_inv = static_cast<const int*>(mp_inv);
   A.front = front;
   A.part = static_cast<float*>(part);
-  A.bar = static_cast<unsigned*>(bar);
+  A.ticket = static_cast<int*>(ticket);
   A.inner_tol = inner_tol;
   A.first = first;
   A.max_outer = max_outer;
@@ -1244,7 +1316,7 @@ extern "C" int dkmc_transport_refine(
   A.nsub = nsub;
   A.handle = handle;
   A.count = static_cast<unsigned long long*>(count);
-  const int n_tiles = (nsub + kTile - 1) / kTile;
-  return launch_cooperative(transport_refine_kernel, n_tiles, kThreads, A,
-                            static_cast<cudaStream_t>(stream));
+  transport_refine_kernel<<<(nsub + kTile - 1) / kTile, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(A);
+  return (int)cudaGetLastError();
 }

@@ -48,7 +48,7 @@ def _fn(name: str):
     fn = getattr(_build.load("graph"), name)
     if fn.argtypes is None:
         p, u = ctypes.c_void_p, ctypes.c_ulonglong
-        fn.argtypes = {"dkmc_while_begin": [p, p, p, ctypes.POINTER(u)],
+        fn.argtypes = {"dkmc_while_begin": [p, p, p, p, ctypes.POINTER(u)],
                        "dkmc_while_end": [p]}[name]
         fn.restype = ctypes.c_int
     return fn
@@ -144,6 +144,7 @@ def device_while(cond: torch.Tensor, body: Callable[[int, object], None],
     side = side_stream(cond.device, _depth)
     handle = ctypes.c_ulonglong(0)
     err = _fn("dkmc_while_begin")(stream, side.cuda_stream, cond.data_ptr(),
+                                  _build.launch_counter(cond.device, "while_cond"),
                                   ctypes.byref(handle))
     if err != 0:
         raise RuntimeError(f"device_while: the conditional WHILE node could not be added "

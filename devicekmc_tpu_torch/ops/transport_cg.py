@@ -94,8 +94,8 @@ class Workspace:
     row tiles]; ``part_ru`` transport_rows_update's tiles' partial sums of
     p.ap and r.r (two slots for every RU_MIN_TILE rows and four more: the
     r.r slots start 16-byte aligned; its barrier is ``cg.bar``); ``part64``
-    transport_rows' tiles' partial sums and ``ticket`` its last ticket; ``part_b`` and ``bar`` transport_refine's
-    partial sums and grid barrier.  The refinement (f64): the iterate ``x``,
+    transport_rows' tiles' partial sums and ``ticket`` its last ticket;
+    ``part_b`` and ``ticket_b`` transport_refine's.  The refinement (f64): the iterate ``x``,
     residual ``r`` and its r.r ``rsum`` [Nsub], the threshold ``thresh``, the
     go flag ``go`` (False: a skipped solve, no round), the rounds ``it_out``
     and inner iterations ``it_in``, ``rnorm``, ``scale``, ``rnorm0`` (||r||
@@ -123,7 +123,7 @@ class Workspace:
     part64: torch.Tensor
     ticket: torch.Tensor
     part_b: torch.Tensor
-    bar: torch.Tensor
+    ticket_b: torch.Tensor
     x: torch.Tensor
     r: torch.Tensor
     rsum: torch.Tensor
@@ -171,7 +171,7 @@ def workspace(n_atoms: int, vcap: int, n_mp: int, band, device) -> Workspace:
         row_part=z(n_ct * vcap), tickets=z(n_ct + n_rt, dtype=i32),
         part_ru=z(2 * row_tiles(nsub, RU_MIN_TILE) + 4),
         part64=z(tiles, dtype=f64), ticket=z(1, dtype=i32),
-        part_b=z(row_tiles(nsub, TILE)), bar=z(1, dtype=i32), x=z(nsub, dtype=f64),
+        part_b=z(row_tiles(nsub, TILE)), ticket_b=z(1, dtype=i32), x=z(nsub, dtype=f64),
         r=z(nsub, dtype=f64), rsum=z(1, dtype=f64), thresh=z(1, dtype=f64),
         go=z(1, dtype=torch.bool), it_out=z(1, dtype=i64), it_in=z(1, dtype=i64),
         rnorm=z(1, dtype=f64), scale=z(1, dtype=f64), rnorm0=z(1, dtype=f64),
@@ -501,7 +501,7 @@ def refine(tw: Workspace, op: Operator, first: bool, max_outer: int, maxiter: in
         _ptr(c.x), _ptr(c.r), _ptr(c.p), _ptr(c.rz), _ptr(c.rr), _ptr(c.thresh2),
         _ptr(c.act0), _ptr(c.act), _ptr(c.iters), _ptr(c.ctl), _ptr(c.cond), _ptr(op.dsi32),
         _ptr(tw.xs32), _ptr(tw.xw), _ptr(tw.xm), _ptr(tw.inv32), _ptr(op.mp_inv), tw.front,
-        _ptr(tw.part_b), _ptr(tw.bar), INNER_TOL, int(first), int(max_outer), int(maxiter),
+        _ptr(tw.part_b), _ptr(tw.ticket_b), INNER_TOL, int(first), int(max_outer), int(maxiter),
         tw.x.shape[0], handle, _build.launch_counter(tw.x.device, "transport_refine"),
         _stream(tw.x, stream)))
     refine.launches += 1

@@ -2056,6 +2056,17 @@ def test_cuda_transport_kernels_match_plain(tmp_path, crossbar):
             assert torch.equal(getattr(k.cg, f).cpu(), getattr(p.cg, f)), (first, f)
         assert float(k.cg.rz) == pytest.approx(float(p.cg.rz), rel=1e-5)
         assert float(k.cg.thresh2) == pytest.approx(float(p.cg.thresh2), rel=1e-4)
+        # the last ticket's block set the ticket back; a second launch from
+        # the same state gives the same bits
+        assert int(k.ticket_b) == 0
+        again = _clone_tws(k)
+        for w in (k, again):
+            w.it_out.fill_(3)
+            w.cg.iters.fill_(17)
+        tcg.refine(k, op, first, 40, 20000)
+        tcg.refine(again, op, first, 40, 20000)
+        assert torch.equal(k.cg.rz, again.cg.rz) and torch.equal(k.cg.p, again.cg.p)
+        assert torch.equal(k.xw, again.xw) and torch.equal(k.cond, again.cond)
 
 
 @pytest.mark.cuda
@@ -2506,6 +2517,54 @@ def test_cuda_heat_cg_begin_rows(cold_l2):
     k.part = k.part[:-2]
     with pytest.raises(ValueError, match="partial sums"):
         heat_ops.cg_begin(k, k.op_t, True, tk, 300.0, 1000.0, 1e-10, 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,offset", [(108944, 0), (1003, 0), (3, 0), (1002, 1)])
+def test_cuda_heat_cg_end_matches_plain(dtype, n, offset):
+    """heat_cg_end against cg_end_plain: the field bit-equal on every entry
+    (set where the mask is, untouched elsewhere), with runs of four entries
+    of which all, some or none are on the interface, an entry count that is
+    not a multiple of 4 and (offset 1) data one entry off 16 bytes (what a
+    vectorised pass would branch on); negated and not; the iterations
+    summed, the counter and the predicate equal, the predicate false once
+    the counter reaches the trip count."""
+    _need_card()
+    from types import SimpleNamespace
+
+    from devicekmc_tpu_torch.ops import heat as heat_ops
+
+    rng = np.random.default_rng(n + offset)
+    mask = rng.random(n + offset) < 0.3
+    mask[offset:offset + 4 * (n // 8)] |= (np.arange(4 * (n // 8)) // 4) % 2 == 0
+    mask[offset + 4 * (n // 8):offset + 4 * (n // 8) + 8] = False
+    x = rng.standard_normal((1, n + offset)) * 1e-3
+    temp = rng.standard_normal(n + offset) + 300.0
+
+    def ws_on(dev):
+        t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+        xt = t(x)
+        return heat_ops.Workspace(
+            method="cg", k=t([0], torch.int32), n=t([2, 0], torch.int32),
+            cond=t([1, 0], torch.int32), log=t([0, 0, 5], torch.int64), src=xt[0],
+            ticket=t([0, 0], torch.int32),
+            cg=SimpleNamespace(x=xt[:, offset:], iters=t([7], torch.int64)),
+            op_t=(None, None, None, t(mask, torch.bool)[offset:]))
+
+    for negate in (False, True):
+        k, p = ws_on("cuda"), ws_on("cpu")
+        tk = torch.as_tensor(temp, dtype=dtype, device="cuda")[offset:]
+        tp = torch.as_tensor(temp, dtype=dtype)[offset:]
+        for step in range(2):
+            heat_ops.cg_end(k, tk, 300.0, 1000.0, negate, 0)
+            heat_ops.cg_end_plain(p, tp, 300.0, 1000.0, negate, 0)
+            assert torch.equal(tk.cpu(), tp), (negate, step)
+            assert k.log.tolist() == p.log.tolist() == [0, 0, 5 + 7 * (step + 1)]
+            assert k.k.tolist() == p.k.tolist() == [step + 1]
+            assert k.cond.tolist() == p.cond.tolist() == [int(step == 0), 0]
+        off = ~p.op_t[3]
+        assert torch.equal(tp[off], torch.as_tensor(temp, dtype=dtype)[offset:][off])
 
 
 @pytest.mark.cuda

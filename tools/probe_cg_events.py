@@ -25,10 +25,13 @@ crossbar's shapes (108,944 sites; the state after two graph supersteps):
   each for the fly matvec and transport_blocks, the band captured first or
   last, in series), ``clock64()`` stamps of each kernel's phases
   (TRANSPORT_STAMPS: the blocks, the f64 rows and pack, the phases of the
-  inner tail transport_rows_update; BAND_STAMPS: the band, also built with
+  inner tail transport_rows_update, transport_refine in either form;
+  BAND_STAMPS: the band, also built with
   its window staged in shared memory, BAND_VARIANTS), the inner tail
   (``tail``: the package's transport_rows_update, or an older checkout's
-  transport_rows then update_pack) warm and cold, with ``--variants``
+  transport_rows then update_pack) warm and cold, transport_refine warm,
+  cold and 20 launches captured back to back, a WHILE node's entry (20
+  loops of no iteration captured back to back), with ``--variants``
   transport_rows_update rebuilt with other rows a thread and threads a
   block (RU_VARIANTS), alone and in the captured solve, and the
   transport and heat (global) configurations' graph supersteps, their ms an
@@ -38,13 +41,19 @@ crossbar's shapes (108,944 sites; the state after two graph supersteps):
   heat_dense_substep at ni 192, 512, 2,048 and 8,192 (f32 and f64) beside
   torch.mv, and where the package has forms each form forced; the small
   stack's dense heat phase alone at 151 substeps; heat_cg_begin at the
-  crossbar's local model warm and cold, the crossbar's heat phase alone;
-  ``clock64()`` stamps of both kernels' phases (HEAT_STAMPS: loads, row
+  crossbar's local model warm and cold, the end of a solve (heat_cg_end)
+  also captured 20 times back to back, and in its context
+  (one substep's solve captured with and without its end), the
+  crossbar's heat phase alone;
+  ``clock64()`` stamps of the kernels' phases (HEAT_STAMPS: loads, row
   sums, ticket or barrier, epilogue; the parent's forms too), and with
   ``--variants`` heat_cg_begin rebuilt with BEGIN_VARIANTS' constants;
 * the graph supersteps alone (``--parts supersteps``) of the transport,
   heat (global and local) and bf16 configurations (SUPERSTEP_CONFIGS), 8
   after the cold solves and two more, each with its inner iterations;
+* the final states of the headline, transport and local heat
+  configurations after two graph supersteps hashed (``--parts digest``,
+  DIGEST_CONFIGS), so that two checkouts are held bit for bit;
 
 * the boundary CG's update and direction at the same system: through the
   package's wrappers, the update and direction kernels (the parent's pair
@@ -84,6 +93,7 @@ import importlib.util
 import inspect
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -907,7 +917,8 @@ TRANSPORT_STAMPS = {
     "rows": (
         ("  const int i = blockIdx.x * kThreads + threadIdx.x;\n  double acc = 0;\n",
          "  TP_BLOCK(0);\n", "after"),
-        ("  if (threadIdx.x == 0) A.part[blockIdx.x] = sum;\n", "  TP_BLOCK(1);\n", "after"),
+        ("\n  // the tiles' sums in tile order, by the block that draws the last ticket\n",
+         "  TP_BLOCK(1);\n", "before"),
         ("  if (threadIdx.x == 0) A.rsum[0] = total;\n", "  TP_BLOCK(2);\n", "after"),
     ),
     "rows_update": (
@@ -918,7 +929,32 @@ TRANSPORT_STAMPS = {
         ("    beta = rz_o != 0.f ? rz_n / rz_o : 0.f;\n", "    TP_BLOCK(4);\n", "after"),
         ("  // block 0: the scalars, the flag", "  TP_BLOCK(5);\n", "before"),
     ),
+    # a plain launch, the last ticket's block adding the tiles' sums
+    "refine": (
+        ("  const int i0 = blockIdx.x * kTile + threadIdx.x;\n", "  TP_BLOCK(0);\n", "after"),
+        ("  if (threadIdx.x == 0) {\n    A.part[blockIdx.x] = sum;\n", "  TP_BLOCK(1);\n",
+         "before"),
+        ("  __syncthreads();\n  if (!s_flag || threadIdx.x >= 32) return;\n",
+         "  TP_BLOCK(2);\n", "before"),
+        ("  if (threadIdx.x != 0) return;\n  float rz = 0.f;\n", "  TP_BLOCK(3);\n", "before"),
+        ("  *A.cond_out = go;\n  if (A.handle) cudaGraphSetConditional(A.handle, go);\n",
+         "  TP_BLOCK(4);\n", "after"),
+    ),
+    # the earlier cooperative launch: a barrier of the grid, block 0 on
+    "refine_barrier": (
+        ("  count_launch(A.count);\n  __shared__ float s_warp[kWarps];\n  // every block",
+         "  TP_BLOCK(0);\n", "before"),
+        ("  grid_barrier(A.bar);\n  if (blockIdx.x != 0) return;\n", "  TP_BLOCK(1);\n",
+         "before"),
+        ("  if (blockIdx.x != 0) return;\n  const float rz", "  TP_BLOCK(2);\n", "before"),
+        ("  if (threadIdx.x != 0) return;\n  A.xs[A.nsub] = 0.f;\n", "  TP_BLOCK(3);\n",
+         "before"),
+        ("  *A.cond_out = go;\n  if (A.handle) cudaGraphSetConditional(A.handle, go);\n",
+         "  TP_BLOCK(4);\n", "after"),
+    ),
 }
+#: the kernel of a form of TRANSPORT_STAMPS, where its name is not the form's
+TRANSPORT_KERNEL = {"refine_barrier": "refine"}
 TRANSPORT_PHASES = {
     "pack": ("a block's rows",),
     # by the block's kind: a tile of T_vm (loads and its rows' partial sums,
@@ -929,6 +965,12 @@ TRANSPORT_PHASES = {
     "rows_update": ("rows, p.ap partial", "grid barrier 1, alpha (the partials' sum)",
                     "update, r.r partial", "grid barrier 2, beta (the partials' sum)",
                     "direction and pack"),
+    "refine": ("scalars, rows' loads, b_in, the tile's sum",
+               "the tile's slot, ticket, the rows' stores issued",
+               "the tiles' sum (the last block, warp 0)", "scalars written (the last block)"),
+    "refine_barrier": ("scalars, rows (loads, b_in, packing), the tile's sum",
+                       "grid barrier (block 0)", "the tiles' sum (block 0)",
+                       "scalars written (block 0)"),
 }
 #: transport_rows_update rebuilt with other rows a thread and threads a
 #: block, which ``--variants`` times (name: the two constants of
@@ -984,9 +1026,12 @@ def transport_forms(src):
     """The kernels of TRANSPORT_STAMPS that ``src`` (a transport_cg.cu)
     holds in the form of their anchors (each once; an earlier form of a
     kernel, as another checkout may hold it, is timed but not stamped)."""
+    def has(k):
+        kernel = TRANSPORT_KERNEL.get(k, k)
+        return f"\ntransport_{kernel}_kernel(" in src or f" transport_{kernel}_kernel(" in src
+
     return [k for k in TRANSPORT_STAMPS
-            if (f"\ntransport_{k}_kernel(" in src or f" transport_{k}_kernel(" in src)
-            and all(src.count(anchor) == 1 for anchor, _, _ in TRANSPORT_STAMPS[k])]
+            if has(k) and all(src.count(anchor) == 1 for anchor, _, _ in TRANSPORT_STAMPS[k])]
 
 
 def ru_variant_builds(bdir, csrc):
@@ -1008,6 +1053,27 @@ def ru_variant_builds(bdir, csrc):
             f.write(text)
         jobs[name] = nvcc_build(path, path[:-3] + ".so", csrc)
     return jobs
+
+
+def check_stamps(csrc, parts):
+    """Raises, before anything is built, if a kernel of ``csrc``'s
+    transport_cg.cu or heat.cu that ``parts`` stamps has none of its forms
+    (each anchor once): an edit of the kernel moved an anchor."""
+    missing = []
+    if "transport" in parts:
+        src = (csrc / "transport_cg.cu").read_text()
+        have = {TRANSPORT_KERNEL.get(f, f) for f in transport_forms(src)}
+        missing += [f"transport_{k}" for k in dict.fromkeys(TRANSPORT_KERNEL.get(f, f)
+                                                             for f in TRANSPORT_STAMPS)
+                    if f"transport_{k}_kernel(" in src and k not in have]
+    if "heat" in parts:
+        src = (csrc / "heat.cu").read_text()
+        have = heat_forms(src)
+        missing += [kernel for kind, kernel in HEAT_KERNEL.items()
+                    if f"{kernel}(" in src and kind not in have]
+    if missing:
+        raise RuntimeError(f"{csrc}: no form of TRANSPORT_STAMPS or HEAT_STAMPS has its "
+                           f"anchors in {', '.join(missing)}")
 
 
 def transport_build(bdir, csrc):
@@ -1191,7 +1257,7 @@ def transport_probe(cs, sim, stamped, band_libs, ru_libs=None, inner=20):
 
     from devicekmc_tpu_torch.ops import _build
     from devicekmc_tpu_torch.ops import transport_cg as tcg
-    from devicekmc_tpu_torch.ops.graph import Graph, fork, join
+    from devicekmc_tpu_torch.ops.graph import Graph, device_while, fork, join
 
     tws, op, x0, gen = cs.transport_operator(sim)
     res = {"shape": dict(nsub=tws.x.shape[0], n_mp=int(op.T_vm.shape[1]),
@@ -1246,6 +1312,28 @@ def transport_probe(cs, sim, stamped, band_libs, ru_libs=None, inner=20):
     t["tail"] = cs.time_ms(tail)
     t["tail_cold"] = cs.time_ms_cold(tail)
     t["pack_hi"] = cs.time_ms(lambda: tcg.pack(hi, op, True))
+    # a round's end from the iterate's residual (the set-up's: first)
+    rf = clone(hi)
+    rows_hi(rf)
+    rf.go.fill_(True)
+    rf.thresh.fill_(float(rf.rsum) ** 0.5 * 1e-3)
+    refine = lambda: tcg.refine(rf, op, True, tcg.MAX_OUTER, 20000)  # noqa: E731
+    t["refine"] = cs.time_ms(refine)
+    t["refine_cold"] = cs.time_ms_cold(refine)
+    # ``inner`` launches captured back to back: the device's time a launch
+    # with the gap between two nodes, no host launch in it
+    g = Graph(lambda: [refine() for _ in range(inner)], "cuda")
+    t["refine_graph"] = cs.time_ms(g, reps=3, rounds=5, warmup=1) / inner
+    del g
+    # a WHILE node's entry (csrc/graph.cu's while_cond_kernel, then the node
+    # finding its condition false): ``inner`` loops of no iteration captured
+    # back to back
+    z = clone(tws)
+    z.cg.cond.zero_()
+    g = Graph(lambda: [device_while(z.cg.cond, lambda h, s_: tcg.inner_iteration(z, op, h, s_))
+                       for _ in range(inner)], "cuda")
+    t["while_entry_graph"] = cs.time_ms(g, reps=3, rounds=5, warmup=1) / inner
+    del g
     t["band_cold"] = cs.time_ms_cold(lambda: tcg.band(lo, op))
     res["ms"] = t
     if band_libs:
@@ -1404,17 +1492,22 @@ def transport_probe(cs, sim, stamped, band_libs, ru_libs=None, inner=20):
         lib.dkmc_tp_probe_clear()
         vcap, n_mp = op.T_vm.shape
         for form in forms:
-            builds = {"pack": (True,), "rows": (True,), "rows_update": (False,)}.get(
-                form, (False, True))
+            kernel = TRANSPORT_KERNEL.get(form, form)
+            builds = {"pack": (True,), "rows": (True,), "rows_update": (False,),
+                      "refine": (True,)}.get(kernel, (False, True))
             for build in builds:
                 w = clone(lo if not build else hi)
-                if form == "rows_update":
+                if kernel == "rows_update":
                     w.cg.thresh2.zero_()
                     w.cg.act.fill_(True)
+                if kernel == "refine":
+                    w = clone(rf)
                 launch = {"pack": lambda: tcg.pack(w, op, True),
                           "blocks": lambda: tcg.blocks(w, op, build),
                           "rows": lambda: tcg.rows(w, op),
-                          "rows_update": lambda: tcg.rows_update(w, op)}[form]
+                          "rows_update": lambda: tcg.rows_update(w, op),
+                          "refine": lambda: tcg.refine(w, op, True, tcg.MAX_OUTER,
+                                                       20000)}[kernel]
                 torch.cuda.synchronize()
                 torch.cuda._sleep(cs.HOLD_CYCLES)
                 a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1489,6 +1582,15 @@ HEAT_STAMPS = {
         ("  const T2 tot = sum_pairs(", "  TP_BLOCK(5);\n", "before"),
         ("    A.cond[0] = go && 0 < A.maxiter;\n  }\n", "  TP_BLOCK(6);\n", "after"),
     )),
+    "end (an entry a thread)": ("end", "end1", (
+        ("  const int i = blockIdx.x * kThreads + threadIdx.x;\n  if (i < n && mask[i]) {\n",
+         "  TP_BLOCK(0);\n", "before"),
+        ("  // no other block reads the counters in this launch\n", "  TP_BLOCK(1);\n",
+         "before"),
+        ("    if (handle) cudaGraphSetConditional(handle, go);\n  }\n}\n\n// A cooperative",
+         "    if (handle) cudaGraphSetConditional(handle, go);\n  }\n  TP_BLOCK(2);\n}\n\n"
+         "// A cooperative", "replace"),
+    )),
     "begin (a thread a row)": ("begin", "begin16", (
         ("  const int i = blockIdx.x * kThreads + threadIdx.x;\n  T bb = 0, rr = 0;\n",
          "  TP_BLOCK(0);\n", "after"),
@@ -1512,6 +1614,7 @@ HEAT_PHASES = {
               "the block's pair", "ticket", "the blocks' pairs summed, scalars (the last block)"),
     "begin16": ("rows: loads, gathers, row sums, writes", "the block's pair", "ticket",
                 "the blocks' pairs summed, scalars (the last block)"),
+    "end1": ("an entry: mask, x, field", "counters and predicate (block 0)"),
 }
 #: heat_cg_begin rebuilt with other constants of csrc/heat.cu, which
 #: ``--variants`` times (name: constants); the grid follows the chunk
@@ -1525,6 +1628,11 @@ BEGIN_VARIANTS = {
 #: ni of the dense substep's timings (f32 and f64); the ni of its stamps (f64)
 HEAT_DENSE_NI = (192, 512, 2048, 8192)
 HEAT_STAMP_NI = (192, 8192)
+
+
+#: the kernel of each kind of HEAT_STAMPS
+HEAT_KERNEL = {"rows": "heat_dense_rows_kernel", "dense": "heat_dense_substep_kernel",
+               "begin": "heat_cg_begin_kernel", "end": "heat_cg_end_kernel"}
 
 
 def heat_forms(src):
@@ -1586,7 +1694,9 @@ def heat_probe(cs, stamped, begin_libs, out_root):
     version first; the heat phase of the small stack's dense model alone at
     151 transient substeps and steady, captured (chip_smoke.heat_phase_timing);
     heat_cg_begin at the crossbar's local model (after one superstep) warm
-    and cold L2, and the crossbar's heat phase alone; with ``stamped``
+    and cold L2, the end of a solve (alone, 20 captured back to back, and in
+    its context: one substep's solve captured with and without it), and the
+    crossbar's heat phase alone; with ``stamped``
     ((forms, library) of heat_build) one launch of each stamped kernel (the
     dense one at HEAT_STAMP_NI) and its phases; ``begin_libs`` ({name: (rows
     a chunk, library)}): heat_cg_begin of each build, warm and cold."""
@@ -1596,6 +1706,7 @@ def heat_probe(cs, stamped, begin_libs, out_root):
 
     from devicekmc_tpu_torch.ops import _build
     from devicekmc_tpu_torch.ops import heat as heat_ops
+    from devicekmc_tpu_torch.ops.graph import Graph
 
     forms, lib = stamped
     res = {"stamped_forms": forms}
@@ -1738,6 +1849,48 @@ def heat_probe(cs, stamped, begin_libs, out_root):
     cg["builds"] = builds
     res["cg_begin"] = cg
     print(f"heat_cg_begin: {json.dumps(cg)}", flush=True)
+    # the end of a solve: heat_cg_end from the set-up's iterate (x0), the
+    # transient loop's counters far from their end; also 20 times captured
+    # back to back (the device's time with the gap between two nodes)
+    begin(ws)
+    end = lambda w: heat_ops.cg_end(w, temp, T0, scale, False, 0)  # noqa: E731
+    bound_e, _ = cs._bound(2 * n_i, n_i * 2 * isz + n)
+    ce = dict(kernel="heat_cg_end", bound_ms=bound_e, ms=cs.time_ms(lambda: end(ws)),
+              cold_ms=cs.time_ms_cold(lambda: end(ws)))
+    g = Graph(lambda: [end(ws) for _ in range(20)], "cuda")
+    ce["graph_ms"] = cs.time_ms(g, reps=3, rounds=5, warmup=1) / 20
+    del g
+    ce["stamps"] = stamps_of(("end",), lambda: end(ws))
+    # the end of a solve in its context: one transient substep's solve
+    # captured with the field restored first (so that every replay solves the
+    # same iterations from the same start), with heat_cg_end after the CG's
+    # WHILE node and without it: the difference is what the end costs in the
+    # graph, the node and its gap included
+    from devicekmc_tpu_torch.ops import boundary_cg as bcg
+    from devicekmc_tpu_torch.ops.graph import device_while
+
+    field0 = temp.clone()
+    ctx = {}
+    for name, with_end in {"with the end": True, "without": False}.items():
+        w, tt = cs._heat_ws_copy(ws), temp.clone()
+        heat_ops.prepare(w, False, 1 << 30)
+
+        def solve(w=w, tt=tt, with_end=with_end):
+            tt.copy_(field0)
+            heat_ops.cg_begin(w, w.op_t, True, tt, T0, scale, 1e-10, 1000)
+            device_while(w.cg.cond, lambda h, s_: bcg.cg_iteration(w.cg, w.op_t, 1000, h, s_))
+            if with_end:
+                heat_ops.cg_end(w, tt, T0, scale, False, 0)
+
+        g = Graph(solve, "cuda")
+        g()
+        ctx[name] = dict(ms=cs.time_ms(g, reps=20, rounds=7, warmup=2),
+                         iterations=int(w.cg.iters))
+        del g
+    ctx["the end's cost"] = ctx["with the end"]["ms"] - ctx["without"]["ms"]
+    ce["in_context"] = ctx
+    res["cg_end"] = ce
+    print(f"end of a solve: {json.dumps(ce)}", flush=True)
     res["cg_phase"] = cs.heat_phase_timing(lsim)
     del lsim, ws, ref
     torch.cuda.empty_cache()
@@ -1755,6 +1908,51 @@ SUPERSTEP_CONFIGS = {
     "heat (local)": lambda cs: dict(heat="local"),
     "bf16": lambda cs: dict(transport_bf16_inner=True, transport_tol=cs.BF16_TRANSPORT_TOL),
 }
+
+
+#: the crossbar configurations of ``--parts digest``: synthetic_crossbar's
+#: arguments, each run for DIGEST_STEPS graph supersteps after its cold solves
+DIGEST_CONFIGS = {
+    "headline": lambda cs: {},
+    "transport": lambda cs: dict(current=True),
+    "heat (local)": lambda cs: dict(current=True, heat="local"),
+}
+DIGEST_STEPS = 2
+#: the step log's entries a digest reads (counts and physics, no times)
+DIGEST_KEYS = ("iters", "events", "I_macro", "T_bg", "P_tot", "converged")
+
+
+def digest_probe(cs, steps=DIGEST_STEPS):
+    """Each configuration of DIGEST_CONFIGS run for ``steps`` supersteps: a
+    sha256 of every tensor of the final state (the whole state's, and each
+    field's first 16 hex digits) and the step log's counts and physics, so
+    that two checkouts' runs on one card can be held bit for bit."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    out = {}
+    for k, (name, config) in enumerate(DIGEST_CONFIGS.items()):
+        sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(
+            ROOT, "build", f"probe_digest{k}"), **config(cs))
+        sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=steps)
+        torch.cuda.synchronize()
+        whole, fields = hashlib.sha256(), {}
+        for f in dataclasses.fields(sim.state):
+            v = getattr(sim.state, f.name)
+            if torch.is_tensor(v):
+                raw = v.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
+                whole.update(raw)
+                fields[f.name] = hashlib.sha256(raw).hexdigest()[:16]
+        log_ = [{key: val for key, val in step.items()
+                 if any(w in key for w in DIGEST_KEYS) and isinstance(val, (int, float))}
+                for step in sim.step_log]
+        out[name] = dict(state=whole.hexdigest()[:16], fields=fields, steps=log_)
+        print(f"digest {name}: {out[name]['state']} {log_}", flush=True)
+        del sim
+        torch.cuda.empty_cache()
+    return out
 
 
 def memory_of(run):
@@ -1802,17 +2000,19 @@ def main():
     ap.add_argument("--pkg", help="checkout whose devicekmc_tpu_torch is measured")
     ap.add_argument("--parts", default="events,matvec,update",
                     help="what to probe, of events, matvec, update, transport, "
-                         "supersteps (the graph supersteps of SUPERSTEP_CONFIGS alone) and "
-                         "heat (the local heat model's dense substep and CG set-up)")
+                         "supersteps (the graph supersteps of SUPERSTEP_CONFIGS alone), "
+                         "heat (the local heat model's dense substep, CG set-up and the end "
+                         "of a solve) and digest (DIGEST_CONFIGS' final states hashed)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "probe_cg_events.json"))
     args = ap.parse_args()
     if args.pkg and args.variants:
         ap.error("--variants rebuilds this checkout's sources: not with --pkg")
     parts = set(args.parts.split(","))
-    known = {"events", "matvec", "update", "transport", "supersteps", "heat"}
+    known = {"events", "matvec", "update", "transport", "supersteps", "heat", "digest"}
     if parts - known:
         ap.error(f"--parts: unknown {sorted(parts - known)}")
     sys.path.insert(0, os.path.abspath(args.pkg) if args.pkg else ROOT)
+    check_stamps(pathlib.Path(sys.path[0], "devicekmc_tpu_torch", "csrc"), parts)
     import torch
 
     if not torch.cuda.is_available():
@@ -1846,8 +2046,8 @@ def main():
                   if args.variants and "heat" in parts else {})
     _build.build(["ell_gather", "pairwise", "kmc_events", "graph", "boundary_cg"]
                  + (["banded", "wkb_fly", "wkb_window", "transport_cg"]
-                    if parts & {"transport", "heat"} else [])
-                 + (["heat"] if "heat" in parts else []))
+                    if parts & {"transport", "heat", "digest"} else [])
+                 + (["heat"] if parts & {"heat", "digest"} else []))
     cs.finish_latency_build(latency_job)
     stamped, variants = finish(events_jobs), finish(matvec_jobs)
     update_lib = None
@@ -1919,7 +2119,9 @@ def main():
             print(f"supersteps {name}: " + json.dumps(out["supersteps"][name]), flush=True)
             del ssim
             torch.cuda.empty_cache()
-    if parts - {"transport", "supersteps", "heat"}:
+    if "digest" in parts:
+        out["digest"] = digest_probe(cs)
+    if parts - {"transport", "supersteps", "heat", "digest"}:
         sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build",
                                                                      "probe_run"))
         sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
