@@ -55,9 +55,11 @@ Phases (any failed check raises and the exit code is non-zero):
    copies: 1 a graph superstep, 0 in a replay alone; each kernel's launches
    in the trace equal to its wrapper's count, on the graph its per-replay
    count, and the batched kernels' counts equal to the launches the card
-   counts itself (csrc/launch_count.cuh); each CG kernel in the trace at
-   most as often as the card counts iterations and at least once where it
-   counts one; a trace may miss launches); then the
+   counts itself (csrc/launch_count.cuh); cg_matvec_dot's launches on the
+   card equal to the iterations the device counts, each CG kernel in the
+   trace at most as often and never where it counts none; a trace may miss
+   launches, so each kernel counted need show only in some trace of the
+   run); then the
    event kernel against its plain version on the crossbar's f32 table (3
    supersteps, step_time within 2 f32 ulps), the loop alone timed both
    ways, at the path's time window and with a cap of 200 events and no
@@ -102,8 +104,9 @@ Phases (any failed check raises and the exit code is non-zero):
    metric); both again in turns, timed, one superstep of each under
    torch.profiler (busy share, the union of the device records; 1
    device-to-host copy a graph superstep; in a graph superstep that solves,
-   each transport CG kernel of the nested WHILE bodies in the trace at
-   least once); the capture seconds at a second
+   each transport CG kernel of the nested WHILE bodies launched on the card
+   as it counts them, in the trace at most that often and, over the run,
+   in some trace); the capture seconds at a second
    bias point (Vd = 1.05 V, 2 supersteps); the transport CG's kernels
    (blocks, f32 and f64 builds; transport_rows_update, the inner tail of
    rows, update and direction that packs, warm and cold L2, a stopped
@@ -199,7 +202,8 @@ Phases (any failed check raises and the exit code is non-zero):
    profiled replay's trace is logged, not checked) against
    cg_solve_batched from the run's potential plus seeded noise (iteration
    counts equal, the iterate within 1e-12 of its scale; the kernels of the
-   WHILE node's body in the trace of a replay),
+   WHILE node's body in a profiled replay as the card counts them, and in
+   its trace at most that often),
    each of the two kernels (cg_matvec_dot, cg_update_direction) against its
    plain version, timed back to back and with a cold L2 beside its bytes
    bound (the matvec's: the operator's interior nonzeros, value and index,
@@ -244,7 +248,24 @@ Phases (any failed check raises and the exit code is non-zero):
    axis along "batch", the 2-D ("batch", "sites") mesh (mesh2d_check: a
    (1, 1) mesh, each replica bit-equal to the single device's eager
    superstep with its key, the gather, pair-sweep and event-loop launches
-   counted), and checkpoints in every backend under both decompositions.
+   counted), and checkpoints in every backend under both decompositions;
+14. the stored metal block (what transport_cc = "auto" picks) and f64 in the
+   captured transport superstep (stored_path, after phase 6): the crossbar
+   with transport_cc = "stored", heating off and global (cold solves + 8
+   supersteps), and in f64 (cold solves in one call + 4), each eagerly and
+   on the captured graph, the main path of these configurations (counters
+   to 0 just before and read just after: the stored block's product
+   launched, the fly matvec never; in f64 the f64 solve's set-up and
+   iterations counted on the card), bit for bit step for step, in turns
+   with one profiled superstep each (1 device-to-host copy a graph
+   superstep); the fly transport graph against the stored one in turns
+   (what "auto" costs); stored_matvec against its plain version at the
+   crossbar's blocks (f32, f64) and at the reference crossbar's 24,768
+   metal atoms (f32, f64), warm and with a cold L2, beside its bytes bound,
+   torch.mv and the fly matvec; the f64 solve's kernels (transport_blocks'
+   f64-storage build, transport_rows' product form, transport_update64)
+   against their plain versions and timed, and the f64 solve captured
+   against its host loop, bit for bit.
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -1510,12 +1531,15 @@ TRACE_NAMES = {name: f"{name}_kernel" for name in (
     "ell_gather", "ell_gather_batched", "poisson_pairwise", "poisson_pairwise_batched",
     "kmc_event_loop", "kmc_event_loop_batched", "cg_matvec_dot", "cg_update_direction",
     "transport_blocks", "transport_rows", "transport_rows_update", "transport_pack",
-    "transport_refine")}
+    "transport_refine", "stored_matvec", "transport_update64")}
 CG_KERNELS = ("cg_matvec_dot", "cg_update_direction")
 #: the transport CG's kernels, each in the trace of a graph superstep that
 #: solves
 TRANSPORT_TRACED = ("transport_blocks", "transport_rows_update", "transport_rows",
                     "transport_pack", "transport_refine")
+#: those of the f64 solve (phase 14)
+TRANSPORT_TRACED_F64 = ("stored_matvec", "transport_blocks", "transport_rows",
+                        "transport_update64")
 
 
 def trace_counts(prof):
@@ -1607,19 +1631,28 @@ def witness_launches(tag, wrappers, counted, seen, iters=None, card=None):
     may miss launches, see cg_seen, and traced_totals checks that each kernel
     shows in some); with
     ``iters``, the boundary CG iterations the device counted in it, witnessed
-    by the CG kernels in the trace (cg_seen)."""
+    by the card's count of the CG kernels and their trace (cg_seen)."""
     check(seen is not None, f"{tag}: a profiler trace came back without device records")
     for name in wrappers:
         if card is not None and name in card:
             check(card[name] == counted[name], f"{tag}: {name} counted {counted[name]} "
                   f"launches on the host, {card[name]} on the card")
-        check(seen[name] <= counted[name], f"{tag}: {name} counted {counted[name]} launches, "
-              f"the trace shows {seen[name]} (counted {counted}, trace {seen})")
+    trace_at_most(tag, seen, {name: counted[name] for name in wrappers})
+    if iters is not None:
+        cg_seen(tag, seen, iters, card)
+
+
+def trace_at_most(tag, seen, counted):
+    """Each kernel of ``counted`` (its launches in a profiled call, as the
+    card or a wrapper counts them) in that call's trace (``seen``) at most
+    as often, none where it counts none; added to the run's totals
+    (traced), which traced_totals checks."""
+    for name, n in counted.items():
+        check(seen[name] <= n, f"{tag}: {name} launched {n} times, the trace shows "
+              f"{seen[name]} (counted {counted}, trace {seen})")
         total = traced.setdefault(name, [0, 0])
         total[0] += seen[name]
-        total[1] += counted[name]
-    if iters is not None:
-        cg_seen(tag, seen, iters)
+        total[1] += n
 
 
 def traced_totals():
@@ -1631,19 +1664,21 @@ def traced_totals():
     return {name: tuple(t) for name, t in traced.items()}
 
 
-def cg_seen(tag, seen, iters):
-    """The two CG kernels in a trace (``seen``) of a call in which the device
-    counted ``iters`` iterations: each launched at least once when ``iters``
-    > 0, never when it is 0, and at most ``iters`` times.  The trace misses
-    some launches: of a captured loop of 46 iterations on an H100 it showed
-    43 or 44 of each kernel, in different numbers for each, and of a
-    replay of the ensemble's superstep one of its two batched gathers, so
-    the device's count stands for the launches.
+def cg_seen(tag, seen, iters, card):
+    """The two CG kernels of a call in which the device counted ``iters``
+    iterations (cg_update_direction's own count): cg_matvec_dot launched
+    ``iters`` times as the card counts it (``card``: its counts in the
+    call), and each kernel in the call's trace (``seen``) at most ``iters``
+    times (trace_at_most).  The trace misses some launches: of a captured
+    loop of 46 iterations on an H100 it showed 43 or 44 of each kernel, in
+    different numbers for each, of a replay of the ensemble's superstep one
+    of its two batched gathers, and of a superstep of one iteration no
+    cg_update_direction, so the card's counts stand for the launches.
     Returns each kernel's launches in the trace."""
-    n = {k: seen[k] for k in CG_KERNELS}
-    check(all((0 < c <= iters) if iters else c == 0 for c in n.values()),
-          f"{tag}: {iters} CG iterations on the device, the trace shows {n}")
-    return n
+    check(card["cg_matvec_dot"] == iters, f"{tag}: {iters} CG iterations on the device, "
+          f"{card['cg_matvec_dot']} launches of cg_matvec_dot on the card")
+    trace_at_most(tag, seen, dict.fromkeys(CG_KERNELS, iters))
+    return {k: seen[k] for k in CG_KERNELS}
 
 
 def profile_witnessed(tag, fn, wrappers, ws=None, reset=None):
@@ -1799,8 +1834,10 @@ def same_transport_steps(tag, ref, got):
             diff.append("the tunnel store")
         if a["scalars"] != b["scalars"] or a["step_time"] != b["step_time"]:
             diff.append(f"scalars {a['scalars']} against {b['scalars']}")
+        # (a NaN equals a NaN: the f64 solve's transport_rel0, as eagerly)
         metrics = {key: (v, b["metrics"].get(key)) for key, v in a["metrics"].items()
-                   if v != b["metrics"].get(key)}
+                   if v != b["metrics"].get(key) and not (v != v and b["metrics"].get(key)
+                                                          != b["metrics"].get(key))}
         check(not diff and not metrics, f"{tag}: step {k}: {diff} differ; metrics {metrics}")
 
 
@@ -1820,7 +1857,8 @@ def transport_graph_run(sim, tag, n_steps=TRANSPORT_STEPS, wrappers=None, Vd=VD_
     _build.launch_counts("cuda").zero_()
     plains = [_counted(tcg, name) for name in ("pack_plain", "blocks_plain", "rows_plain",
                                                "update_pack_plain", "rows_update_plain",
-                                               "refine_plain")]
+                                               "refine_plain", "stored_matvec_plain",
+                                               "rows_ap_plain", "update_f64_plain")]
     plains += [_counted(heat_ops, name) for name in ("dense_substep_plain", "cg_begin_plain",
                                                      "cg_end_plain")]
     recs = transport_record(sim)
@@ -1838,11 +1876,14 @@ def transport_graph_run(sim, tag, n_steps=TRANSPORT_STEPS, wrappers=None, Vd=VD_
     return recs, card_counts(), {name: w.launches for name, w in wrappers.items()}, wall
 
 
-def transport_turns(sim, sim_e, tag, turns=TRANSPORT_TURNS, Vd=VD_MAIN):
+def transport_turns(sim, sim_e, tag, turns=TRANSPORT_TURNS, Vd=VD_MAIN,
+                    kernels=TRANSPORT_TRACED):
     """The graph and the eager driver again, superstep by superstep in turns
     (elements, I_macro and the virtual potentials equal): wall ms of each;
     one superstep of each under torch.profiler (device busy share,
-    device-to-host copies: 1 a graph superstep)."""
+    device-to-host copies: 1 a graph superstep; in a graph superstep that
+    solves, each of ``kernels`` launched as the card counts it, and in the
+    trace at most that often, trace_at_most)."""
     import torch
 
     def step(s):
@@ -1863,33 +1904,38 @@ def transport_turns(sim, sim_e, tag, turns=TRANSPORT_TURNS, Vd=VD_MAIN):
               f"{tag}: graph and eager supersteps in turns differ")
         ms_g.append(tg)
         ms_e.append(te)
-    prof, inner = {}, {}
+    prof, inner, card0 = {}, {}, {}
     for name, s in (("graph", sim), ("eager", sim_e)):
         prev = s.state
         prof[name] = profile_calls(lambda: inner.__setitem__(name, step(s)[1]), 1,
-                                   reset=lambda: setattr(s, "state", prev))
+                                   reset=lambda: setattr(s, "state", prev),
+                                   before=lambda: card0.update(card_counts()))
         check(prof[name][1] is not None, f"{tag} {name}: a trace without device records")
         inner[name] = int(inner[name]["cg_iters_power"])
+        if name == "graph":
+            now = card_counts()
+            card = {k: now[k] - card0[k] for k in kernels}
     check(prof["graph"][2] == 1, f"{tag}: {prof['graph'][2]} device-to-host copies a graph "
           "superstep, not 1")
-    # the kernels of the graph's nested WHILE bodies in its trace
-    seen = {k: prof["graph"][3][k] for k in TRANSPORT_TRACED}
-    check(inner["graph"] == 0 or all(seen.values()), f"{tag}: the trace of a graph "
-          f"superstep of {inner['graph']} inner iterations shows {seen}")
+    # the kernels of the graph's nested WHILE bodies: on the card, and in its trace
+    check(inner["graph"] == 0 or all(card.values()), f"{tag}: a graph superstep of "
+          f"{inner['graph']} inner iterations launched {card} on the card")
+    trace_at_most(f"{tag} graph superstep", prof["graph"][3], card)
+    seen = {k: prof["graph"][3][k] for k in kernels}
     out = dict(ms_turns_graph=ms_g, ms_turns_eager=ms_e,
                median_turns_graph=statistics.median(ms_g),
                median_turns_eager=statistics.median(ms_e),
                busy_graph=100 * prof["graph"][1] / prof["graph"][0],
                busy_eager=100 * prof["eager"][1] / prof["eager"][0],
                dtoh_graph=prof["graph"][2], dtoh_eager=prof["eager"][2],
-               traced_graph=dict(seen, inner_iterations=inner["graph"]))
+               traced_graph=dict(seen, inner_iterations=inner["graph"]), card_graph=card)
     log(f"{tag} in turns, {turns} supersteps each: graph median "
         f"{out['median_turns_graph']:.2f} ms ({[round(x, 2) for x in ms_g]}), eager median "
         f"{out['median_turns_eager']:.2f} ms ({[round(x, 2) for x in ms_e]}); one profiled "
         f"superstep each: device busy graph {out['busy_graph']:.1f} %, eager "
         f"{out['busy_eager']:.1f} %; device-to-host copies graph {out['dtoh_graph']}, eager "
         f"{out['dtoh_eager']}; the transport CG's kernels in the graph superstep's trace "
-        f"{out['traced_graph']}")
+        f"{out['traced_graph']}, on the card {card}")
     return out
 
 
@@ -1953,21 +1999,42 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True, n_steps=
     n = n_steps
     check(graph.replays == n and graph.captures == 2,
           f"{tag}: {graph.replays} replays, {graph.captures} captures")
-    check(card["ell_gather_batched"] == 2 * n and card["poisson_pairwise_batched"] == n
+    # the gather: the charge rule's flags, in mixed precision the rate
+    # table's rows too
+    gathers = 2 * n if sim.params.mixed else n
+    check(card["ell_gather_batched"] == gathers and card["poisson_pairwise_batched"] == n
           and card["kmc_event_loop_batched"] == n, f"{tag}: batched launches {card}")
-    for name in TRANSPORT_CARD:
-        check(card[name] > 0, f"{tag}: {name} was not launched on the card ({card})")
     steps = sim.step_log
     inner = sum(int(s["cg_iters_power"]) for s in steps)
-    # the inner body launches no pack: the f64 pack and rows, the fly
-    # matvec's and blocks' extra launches come from the round ends (one a
-    # refine), the fused tail and the band from the inner iterations
-    ends = card["transport_refine"]
-    check(card["transport_pack"] == card["transport_rows"] == ends
-          and card["transport_rows_update"] == card["banded_matvec_out"] == inner
-          and card["transport_blocks"] == card["wkb_fly_matvec_out"] == inner + ends,
-          f"{tag}: launches on the card {card} against {inner} inner iterations and {ends} "
-          "round ends")
+    p = sim.params
+    metal = "wkb_fly_matvec_out" if p.transport_cc == "fly" else "stored_matvec"
+    if p.mixed:
+        for name in TRANSPORT_CARD + (metal,):
+            check(card[name] > 0 or name == "wkb_fly_matvec_out" and metal != name,
+                  f"{tag}: {name} was not launched on the card ({card})")
+        # the inner body launches no pack: the f64 pack and rows, the metal
+        # block's and blocks' extra launches come from the round ends (one a
+        # refine), the fused tail and the band from the inner iterations
+        ends = card["transport_refine"]
+        other = "stored_matvec" if metal == "wkb_fly_matvec_out" else "wkb_fly_matvec_out"
+        check(card["transport_pack"] == card["transport_rows"] == ends
+              and card["transport_rows_update"] == card["banded_matvec_out"] == inner
+              and card["transport_blocks"] == card[metal] == inner + ends
+              and card[other] == card["transport_update64"] == 0,
+              f"{tag}: launches on the card {card} against {inner} inner iterations and "
+              f"{ends} round ends")
+    else:
+        # the f64 solve: a set-up a graph superstep (the stored product,
+        # blocks and the residual form of the rows), then an iteration's
+        # product, blocks, rows (product form) and update
+        check(card["transport_update64"] == inner
+              and card["stored_matvec"] == card["transport_blocks"]
+              == card["transport_rows"] == inner + n
+              and all(card[k] == 0 for k in ("wkb_fly_matvec_out", "banded_matvec_out",
+                                             "transport_pack", "transport_refine",
+                                             "transport_rows_update")),
+              f"{tag}: launches on the card {card} against {inner} iterations and {n} "
+              "set-ups")
     rounds = sum(int(s["cg_iters_power"] > 0) for s in steps)
     check(all(s["transport_converged"] == 1.0 for s in steps), f"{tag}: a solve did not "
           "converge")
@@ -1989,7 +2056,9 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True, n_steps=
               f"the steps' {cg_iters}")
     sim_e, recs_e = eager_run
     same_transport_steps(f"{tag} against eager", recs_e, recs)
-    turns = transport_turns(sim, sim_e, tag, Vd=Vd)
+    turns = transport_turns(sim, sim_e, tag, Vd=Vd,
+                            kernels=TRANSPORT_TRACED if sim.params.mixed
+                            else TRANSPORT_TRACED_F64)
     first = list(graph.capture_s)
     t = time.perf_counter()
     if second_point:
@@ -2095,19 +2164,7 @@ def transport_cg_checks(sim, band):
     f4, f8, i4 = 4, 8, 4
 
     def clone(ws):
-        kw = {}
-        for f in dataclasses.fields(ws):
-            v = getattr(ws, f.name)
-            if f.name == "cg":
-                v = dataclasses.replace(v, **{g.name: getattr(v, g.name).clone() for g in
-                                              dataclasses.fields(v)
-                                              if torch.is_tensor(getattr(v, g.name))})
-            elif f.name == "fly":
-                v = tuple(t.clone() for t in v)
-            elif torch.is_tensor(v):
-                v = v.clone()
-            kw[f.name] = v
-        return type(ws)(**kw)
+        return _map_ws(ws, lambda t: t.clone())
 
     def err(a, b):
         return float((a.double() - b.double()).abs().max())
@@ -4634,10 +4691,13 @@ def boundary_cg_path(sim, cg, cg_launches, cg_launches_ensemble):
     check(iters == iters_ref and 0 < iters < CG_MAXITER,
           f"boundary CG: {iters} iterations in the graph, {iters_ref} by cg_solve_batched")
     check(x_err <= 1e-12, f"boundary CG: iterate {x_err:.3e} of its scale apart")
-    seen = profile_calls(solve, 1, before=ws.total.zero_)[3]
+    card0 = {}
+    seen = profile_calls(solve, 1, before=lambda: (ws.total.zero_(),
+                                                   card0.update(card_counts())))[3]
     check(seen is not None and int(ws.total) == iters,
           f"boundary CG: {int(ws.total)} iterations on the card in a profiled replay")
-    n_seen = cg_seen("boundary CG", seen, iters)
+    n_seen = cg_seen("boundary CG", seen, iters,
+                     {name: n - card0[name] for name, n in card_counts().items()})
     # the same solve captured now, one replay profiled: logged, not checked
     ws_late, late = boundary_cg_capture(cg)
     seen = profile_calls(late, 1, before=ws_late.total.zero_)[3]
@@ -5637,6 +5697,416 @@ def replicate_path(out_root, device="cuda", n_sites=N_SITES):
     return summary, row_rec
 
 
+
+# ---------------------------------------------------------------------------
+# phase 14: the stored metal block and the f64 solve in the captured
+# transport superstep
+# ---------------------------------------------------------------------------
+
+#: phase 14's configurations of the crossbar: tag, synthetic_crossbar's
+#: heat, overrides, supersteps after the cold solves.  f64 takes its cold
+#: transport solve in one call: segments restart the f64 deflated CG
+STORED_RUNS = (("stored graph", None, dict(transport_cc="stored"), TRANSPORT_STEPS),
+               ("stored heat (global) graph", "global", dict(transport_cc="stored"),
+                TRANSPORT_STEPS),
+               ("f64 graph", None, dict(transport_cc="stored", precision="f64",
+                                        solver_chunk_iters=0), 4))
+#: the JAX package's stored product that stored_matvec replaces
+STORED_REPLACES = "devicekmc_tpu/physics/current.py:802"
+
+
+def stored_eager_run(out_root, tag, heat, over, n_steps):
+    """The eager driver's run of a phase 14 configuration: cold solves and
+    ``n_steps`` supersteps at VD_MAIN, every solve converged, I_macro finite
+    and positive, the block stored.  Returns (sim, records)."""
+    import math
+
+    import torch
+
+    from devicekmc_tpu_torch import engine
+
+    sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(
+        out_root, tag.replace(" ", "_").replace("(", "").replace(")", "") + "_eager"),
+        current=True, heat=heat, **over)
+    sim._make = engine.make_superstep
+    check(sim.params.transport_cc == "stored", f"{tag}: transport_cc {sim.params.transport_cc}")
+    recs = transport_record(sim)
+    t0 = time.perf_counter()
+    try:
+        sim.run_bias_point(VD_MAIN, 1e30, max_steps=n_steps)
+        torch.cuda.synchronize()
+    finally:
+        sim.__dict__.pop("_superstep", None)
+    check(len(recs) == n_steps and all(s["transport_converged"] == 1.0 for s in sim.step_log),
+          f"{tag} eager: {len(recs)} supersteps, a solve did not converge")
+    I = sim.state.I_macro
+    check(math.isfinite(I) and I > 0, f"{tag} eager: I_macro {I}")
+    log(f"{tag}, eager: cold solves + {n_steps} supersteps in {time.perf_counter() - t0:.2f} "
+        f"s; cold solves {[(c['phase'], c['cg_iters']) for c in sim.presolve_log]}; "
+        f"iterations {[int(s['cg_iters_power']) for s in sim.step_log]}; I_macro {I}")
+    return sim, recs
+
+
+def _map_ws(ws, fn):
+    """A transport workspace with ``fn`` applied to every tensor, those of
+    its nested CG states and the fly scratch too."""
+    kw = {}
+    for f in dataclasses.fields(ws):
+        v = getattr(ws, f.name)
+        if hasattr(v, "data_ptr"):
+            v = fn(v)
+        elif dataclasses.is_dataclass(v):
+            v = dataclasses.replace(v, **{g.name: fn(getattr(v, g.name))
+                                          for g in dataclasses.fields(v)
+                                          if hasattr(getattr(v, g.name), "data_ptr")})
+        elif f.name == "fly":
+            v = tuple(fn(t) for t in v)
+        kw[f.name] = v
+    return type(ws)(**kw)
+
+
+def stored_matvec_checks(T, tag, plain_reps=5):
+    """stored_matvec_out on the block ``T`` against its plain version and the
+    product in f64, two launches bit-equal; timed warm and with a cold L2
+    beside its bytes bound (the block once, the vector, the output),
+    torch.mv (the library call) and the plain version."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.transport_cg import stored_matvec_out, stored_matvec_plain
+
+    n = T.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(n, generator=g, device="cuda", dtype=T.dtype)
+    y = torch.empty(n, dtype=T.dtype, device="cuda")
+    y2 = torch.empty_like(y)
+    stored_matvec_out(T, x, y)
+    stored_matvec_out(T, x, y2)
+    check(torch.equal(y, y2), f"stored_matvec {tag}: two launches differ")
+    ref = stored_matvec_plain(T, x)
+    tol = 1e-5 if T.dtype == torch.float32 else 1e-12
+    err = _close(f"stored_matvec {tag}", y, ref, tol)
+    exact = (T.double() @ x.double()) if T.dtype == torch.float32 else None
+    err_exact = float((y.double() - exact).abs().max()) if exact is not None else None
+    del exact
+    item = T.element_size()
+    bytes_ = item * (n * n + 2 * n)
+    bound, by = _bound(2 * n * n, bytes_)
+    rec = dict(n=n, dtype=str(T.dtype).replace("torch.", ""), max_abs_err=err,
+               max_abs_err_against_f64=err_exact,
+               ms=time_ms(lambda: stored_matvec_out(T, x, y)),
+               cold_ms=time_ms_cold(lambda: stored_matvec_out(T, x, y)),
+               plain_ms=time_ms(lambda: stored_matvec_plain(T, x), reps=plain_reps, rounds=3),
+               library_ms=time_ms(lambda: torch.mv(T, x)),
+               library_cold_ms=time_ms_cold(lambda: torch.mv(T, x)),
+               bound_ms=bound, bound_by=by, block_mb=item * n * n / 1e6)
+    log(f"stored_matvec {tag} (n {n}, {rec['dtype']}, {rec['block_mb']:.1f} MB): "
+        f"{rec['ms']:.5f} ms warm, {rec['cold_ms']:.5f} ms cold L2; bound {bound:.5f} ms "
+        f"({by}): {100 * bound / rec['ms']:.0f} % warm, {100 * bound / rec['cold_ms']:.0f} % "
+        f"cold; torch.mv {rec['library_ms']:.5f} / {rec['library_cold_ms']:.5f} ms; plain "
+        f"{rec['plain_ms']:.5f} ms; max error {err} (against f64 {err_exact})")
+    return rec
+
+
+def f64_cg_checks(sim):
+    """The f64 solve's kernels at the crossbar's f64 operator (its state
+    after the run, a seeded direction): transport_blocks' f64-storage build,
+    transport_rows' product form (ap, p.ap, alpha) and transport_update64
+    against their plain versions (PyTorch operations on the same tensors),
+    timed beside their bytes bounds; the f64 solve captured and from the host
+    loop, bit for bit."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+    from devicekmc_tpu_torch.ops.graph import Graph
+    from devicekmc_tpu_torch.physics import current as cur
+
+    cap = {}
+    solve = tcg.solve_f64
+
+    def grab(tws, op, x0, go, tol, maxiter):
+        cap.update(tws=tws, op=op, x0=x0.clone(), tol=tol, maxiter=maxiter)
+        return solve(tws, op, x0, go, tol, maxiter)
+
+    tcg.solve_f64 = grab
+    try:
+        st = dataclasses.replace(sim.state, transport_Vd_prev=float("nan"))
+        cur.update_power(sim.geom, sim.params, st, VD_MAIN, cc=dict(sim._cc), allow_skip=True)
+    finally:
+        tcg.solve_f64 = solve
+    tws, op = cap["tws"], cap["op"]
+    nsub = tws.x.shape[0]
+    na, max_nn = op.anb.shape
+    vcap, n_mp = op.T_vm.shape
+    nv = int(op.n_vac)
+    nnz = int((op.anb >= 0).sum())
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    tws.xs64[:nsub].copy_(torch.randn(nsub, generator=gen, dtype=torch.float64))
+    tws.xs64[nsub:].zero_()
+    tws.xm.copy_(tws.xs64[2:][op.mp])
+    tws.r.copy_(torch.randn(nsub, generator=gen, dtype=torch.float64))
+    c = tws.c64
+    c.act.fill_(True)
+    c.rz.copy_(torch.dot(tws.r, op.minv * tws.r).reshape(1))
+    c.thresh2.fill_(1e-300)
+    clone = lambda w: _map_ws(w, lambda t: t.clone())  # noqa: E731
+    f8, i4 = 8, 4
+    out = {}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def timed(name, fn, plain, bytes_, e, **extra):
+        out[name] = dict(err=e, ms=time_ms(fn), plain_ms=time_ms(plain, reps=5, rounds=3),
+                         bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3, **extra)
+
+    base = clone(tws)
+    tcg.metal(base, op)
+    k, p = clone(base), clone(base)
+    tcg.blocks(k, op, True)
+    tcg.blocks_plain(p, op, True)
+    e = max(rel(getattr(k, f)[:nv if f != "mv" else n_mp], getattr(p, f)[:nv if f != "mv"
+                                                                        else n_mp])
+            for f in ("mv", "y_vm", "y_vv"))
+    check(e <= 1e-12, f"transport_blocks (f64 blocks): {e} from its plain version")
+    timed("blocks64", lambda: tcg.blocks(k, op, True), lambda: tcg.blocks_plain(p, op, True),
+          f8 * (nv * n_mp + nv * nv + n_mp) + (i4 + f8) * nv + 2 * f8 * (na + op.nsi)
+          + f8 * (n_mp + 2 * nv) + 2 * f8, e)
+    tcg.blocks(base, op, True)
+    k, p = clone(base), clone(base)
+    tcg.rows_ap(k, op)
+    tcg.rows_ap_plain(p, op)
+    e = rel(k.c64.ap, p.c64.ap)
+    e_alpha = abs(float(k.c64.alpha) / float(p.c64.alpha) - 1)
+    check(e <= 1e-12 and e_alpha <= 1e-10, f"transport_rows (product form): ap {e}, alpha "
+          f"{e_alpha} from its plain version")
+    timed("rows_ap", lambda: tcg.rows_ap(k, op), lambda: tcg.rows_ap_plain(p, op),
+          (f8 + i4) * nnz + f8 * (nsub + 1) + (f8 + 2 * i4) * na + f8 * (2 * n_mp + 2 * nv)
+          + f8 * (2 * na + nsub) + f8 * nsub, e, alpha_rel_err=e_alpha)
+    tcg.rows_ap(base, op)
+    k, p = clone(base), clone(base)
+    tcg.update_f64(k, op, 20000)
+    tcg.update_f64_plain(p, op, 20000)
+    e = max(rel(getattr(k, f), getattr(p, f)) for f in ("x", "r", "xs64", "xm"))
+    e_rz = abs(float(k.c64.rz) / float(p.c64.rz) - 1)
+    check(e <= 1e-12 and e_rz <= 1e-10
+          and all(torch.equal(getattr(k.c64, f), getattr(p.c64, f))
+                  for f in ("act", "iters", "cond")),
+          f"transport_update64: {e}, r.z {e_rz} from its plain version")
+    # what the update must move: x, r, p read and written, ap and minv
+    # read, the metal vector written
+    # timed from the same start, again and again (threshold 0: the flag
+    # stays up, the predicate on)
+    k2 = clone(base)
+    for w in (k2, p):
+        w.c64.thresh2.zero_()
+    timed("update64", lambda: tcg.update_f64(k2, op, 1 << 30),
+          lambda: tcg.update_f64_plain(p, op, 1 << 30),
+          f8 * (6 * nsub + 2 * nsub) + f8 * n_mp + i4 * na, e, rz_rel_err=e_rz)
+
+    # the solve, captured and from the host loop
+    x0, tol, maxiter = cap["x0"], cap["tol"], cap["maxiter"]
+    x0 = x0 * (1 + 1e-3 * torch.randn(x0.shape, generator=gen, dtype=torch.float64).cuda())
+    go = torch.ones(1, dtype=torch.bool, device="cuda")
+    res = tcg.solve_f64(tws, op, x0, go, tol, maxiter)
+    eager = (res.x.clone(), int(res.iters))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tcg.solve_f64(tws, op, x0, go, tol, maxiter)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+    g = Graph(lambda: tcg.solve_f64(tws, op, x0, go, tol, maxiter), "cuda")
+    got = g()
+    check(torch.equal(got.x, eager[0]) and int(got.iters) == eager[1] and bool(got.converged),
+          f"the f64 solve captured differs from the host loop ({int(got.iters)} against "
+          f"{eager[1]} iterations)")
+    graph_ms = time_ms(g, reps=3, rounds=3)
+    out["solve"] = dict(iterations=eager[1], graph_ms=graph_ms, host_loop_ms=host_ms,
+                        graph_ms_per_iteration=graph_ms / max(eager[1], 1),
+                        host_ms_per_iteration=host_ms / max(eager[1], 1))
+    log(f"f64 solve kernels at the crossbar (nsub {nsub}, n_mp {n_mp}, {nv} live of {vcap}): "
+        + "; ".join(f"{k_} {v['ms']:.5f} ms (bound {v['bound_ms']:.5f}, plain "
+                    f"{v['plain_ms']:.4f}, error {v['err']:.2e})"
+                    for k_, v in out.items() if k_ != "solve")
+        + f"; the solve of {eager[1]} iterations captured {graph_ms:.3f} ms "
+        f"({out['solve']['graph_ms_per_iteration']:.4f} an iteration), host loop "
+        f"{host_ms:.3f} ms ({out['solve']['host_ms_per_iteration']:.4f})")
+    del g
+    return out
+
+
+#: supersteps of each of the fly and the stored transport graph in phase 14's
+#: turns (fly, stored, stored, fly, ...)
+AUTO_TURNS = 8
+
+
+def fly_against_stored(sim_s, out_root, turns=AUTO_TURNS):
+    """What transport_cc="auto" (the stored block) costs against the fly
+    block on the graph: a fly transport graph run of the crossbar (cold
+    solves + TRANSPORT_STEPS supersteps), then its supersteps and those of
+    the stored graph ``sim_s`` in turns: the ms and inner iterations of
+    each, their medians, and each form's least-squares line of ms against
+    inner iterations (ms an inner iteration, ms of the rest)."""
+    import torch
+
+    sim_f = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "fly_turns"),
+                               current=True)
+    check(sim_f._graph_for(sim_f.params) is not None and sim_f.params.transport_cc == "fly",
+          "the fly transport configuration does not run the graph")
+    sim_f.run_bias_point(VD_MAIN, 1e30, max_steps=TRANSPORT_STEPS)
+    rows = {"fly": [], "stored": []}
+    for k in range(2 * turns):
+        name = ("fly", "stored", "stored", "fly")[k % 4]
+        s = sim_f if name == "fly" else sim_s
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.state, _, m = s._superstep(s.state, VD_MAIN)
+        torch.cuda.synchronize()
+        rows[name].append(((time.perf_counter() - t) * 1e3, int(m["cg_iters_power"])))
+    out = {}
+    for name, r in rows.items():
+        ms, it = [a for a, _ in r], [b for _, b in r]
+        mi, mm = statistics.mean(it), statistics.mean(ms)
+        var = sum((i - mi) ** 2 for i in it)
+        slope = (sum((i - mi) * (t - mm) for i, t in zip(it, ms)) / var) if var else None
+        out[name] = dict(ms=ms, inner_iterations=it, median_ms=statistics.median(ms),
+                         ms_per_inner_iteration=slope,
+                         rest_ms=None if slope is None else mm - slope * mi)
+    log("fly against stored transport graph supersteps in turns: " + "; ".join(
+        f"{name} median {v['median_ms']:.2f} ms, ms (inner iterations) "
+        f"{[(round(a, 2), b) for a, b in zip(v['ms'], v['inner_iterations'])]}, line "
+        f"{v['ms_per_inner_iteration']} ms an inner iteration + {v['rest_ms']} ms"
+        for name, v in out.items()))
+    del sim_f
+    out["warm_solve"] = fly_against_stored_solve(sim_s)
+    return out
+
+
+def fly_against_stored_solve(sim_s):
+    """The captured warm solve of one operator (``sim_s``'s state, its warm
+    start perturbed) with the metal block stored and on the fly (the same
+    positions and CB edges), timed in turns (fly, stored, stored, fly): ms
+    a solve and an inner iteration of each."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+    from devicekmc_tpu_torch.ops.graph import Graph
+    from devicekmc_tpu_torch.physics import current as cur
+
+    tws, op, x0, gen = transport_operator(sim_s)
+    g, st, p = sim_s.geom, sim_s.state, sim_s.params
+    ai, mp = g.atom_ind.long(), g.atom_metalp_idx.long()
+    ops = {"stored": op,
+           "fly": op._replace(T_cc=None, mpos=g.coords[ai][mp].float().contiguous(),
+                              mcb=st.CB_edge[ai][mp].float().contiguous(),
+                              env=cur.wkb_env(g, p))}
+    x0 = x0 * (1 + 1e-3 * torch.randn(x0.shape, generator=gen, dtype=torch.float64).cuda())
+    go = torch.ones(1, dtype=torch.bool, device="cuda")
+    graphs, iters = {}, {}
+    for name, o in ops.items():
+        graphs[name] = Graph(lambda o=o: tcg.solve(tws, o, x0, go, p.transport_tol, 20000),
+                             "cuda")
+        iters[name] = int(graphs[name]().iters)
+    ms = {"fly": [], "stored": []}
+    for name in ("fly", "stored", "stored", "fly"):
+        ms[name].append(time_ms(graphs[name], reps=3, rounds=3))
+    out = {name: dict(ms=v, inner_iterations=iters[name],
+                      ms_per_inner_iteration=[t / max(iters[name], 1) for t in v])
+           for name, v in ms.items()}
+    log("the warm solve captured, one operator, in turns: " + "; ".join(
+        f"{name} {[round(t, 4) for t in v['ms']]} ms for {v['inner_iterations']} inner "
+        f"iterations ({[round(t, 5) for t in v['ms_per_inner_iteration']]} ms each)"
+        for name, v in out.items()))
+    del graphs
+    return out
+
+
+def stored_path(out_root):
+    """Phase 14: STORED_RUNS each eagerly and on the captured graph (the
+    main path: transport_graph_phase, counters to 0 around it, bit for bit
+    step for step, in turns, 1 device-to-host copy a graph superstep; the
+    stored block's product launched, the fly matvec never); stored_matvec
+    at the crossbar's block (f32 and f64) and at the reference crossbar's
+    24,768 metal atoms (f32, f64), beside the fly matvec at 3,527; the f64
+    solve's kernels.  Returns (kernel records, summaries)."""
+    import torch
+
+    from devicekmc_tpu_torch.ops.wkb_fly import wkb_fly_matvec
+    from devicekmc_tpu_torch.physics import current as cur
+
+    summaries, blocks = {}, {}
+    t0 = time.perf_counter()
+    f64 = None
+    for tag, heat, over, n in STORED_RUNS:
+        eager = stored_eager_run(out_root, tag, heat, over, n)
+        gsim, summ = transport_graph_phase(out_root, heat, eager, second_point=False,
+                                           n_steps=n, tag=tag, **over)
+        summaries[tag] = summ
+        blocks[tag] = gsim._cc["cc"]
+        if tag == "f64 graph":
+            f64 = f64_cg_checks(gsim)
+        elif heat is None:
+            ref_sim = gsim
+            summ["fly_against_stored"] = fly_against_stored(gsim, out_root)
+        del eager, gsim
+        torch.cuda.empty_cache()
+    checks = {"crossbar f32": stored_matvec_checks(blocks["stored graph"], "crossbar f32"),
+              "crossbar f64": stored_matvec_checks(blocks["f64 graph"], "crossbar f64")}
+    # the fly matvec at the same metal set, in this call
+    g, st = ref_sim.geom, ref_sim.state
+    mp = g.atom_metalp_idx.long()
+    ai = g.atom_ind.long()
+    env = cur.wkb_env(g, ref_sim.params)
+    pos, cb = g.coords[ai][mp].float().contiguous(), st.CB_edge[ai][mp].float().contiguous()
+    x = torch.randn(mp.shape[0], device="cuda")
+    fly_ms = time_ms(lambda: wkb_fly_matvec(pos, cb, x, env))
+    del blocks
+    torch.cuda.empty_cache()
+    # the reference crossbar's 24,768 interior-metal atoms: the f32 block as
+    # the stored assembly makes it, and its f64 copy
+    pos, cb = reference_metal_set(ref_sim)
+    ones = torch.ones(pos.shape[0], dtype=torch.bool, device="cuda")
+    T = cur.tunnel_block(env, pos, cb, ones, pos, cb, ones, cur.wkb_single_T).contiguous()
+    checks["reference f32"] = stored_matvec_checks(T, "reference f32", plain_reps=2)
+    T = T.double()
+    checks["reference f64"] = stored_matvec_checks(T, "reference f64", plain_reps=2)
+    del T, ref_sim
+    torch.cuda.empty_cache()
+    s3 = checks["crossbar f32"]
+    log(f"stored_matvec at the crossbar ({s3['n']} metal atoms, f32) {s3['ms']:.5f} ms against "
+        f"the fly matvec's {fly_ms:.5f} ms in this call; phase 14 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for tag, summ in summaries.items():
+        log(f"{tag}: graph median {summ['median_turns_graph']:.2f} ms against eager "
+            f"{summ['median_turns_eager']:.2f} ms in turns; {summ['inner_iterations']} "
+            f"iterations; copies {summ['dtoh_graph']} / {summ['dtoh_eager']}")
+    launches = summaries["stored graph"]["launches_card"]
+    src = "devicekmc_tpu_torch/csrc/transport_cg.cu"
+    rec = {"name": "stored_matvec", "route": "cuda", "source": src,
+           "replaces": STORED_REPLACES, "launches": launches["stored_matvec"],
+           "max_abs_err": s3["max_abs_err"], "ms": s3["ms"], "plain_ms": s3["plain_ms"],
+           "bound_ms": s3["bound_ms"], "bound_by": s3["bound_by"],
+           "library_ms": s3["library_ms"], "library": "torch.mv", "cold_ms": s3["cold_ms"],
+           "fly_matvec_ms": fly_ms, "checks": checks,
+           "fly_against_stored_graph": summaries["stored graph"]["fly_against_stored"],
+           "launches_stored_heat_graph_run": summaries["stored heat (global) graph"][
+               "launches_card"]["stored_matvec"],
+           "launches_f64_graph_run": summaries["f64 graph"]["launches_card"]["stored_matvec"],
+           "computes": "the stored metal block's product y = T_cc x_m (f32 in mixed "
+                       "precision, f64 in f64)"}
+    u = f64["update64"]
+    rec64 = {"name": "transport_update64", "route": "cuda", "source": src,
+             "replaces": "devicekmc_tpu/ops/cg.py:112",
+             "launches": summaries["f64 graph"]["launches_card"]["transport_update64"],
+             "max_abs_err": u["err"], "ms": u["ms"], "plain_ms": u["plain_ms"],
+             "bound_ms": u["bound_ms"], "bound_by": "bytes", "library_ms": None,
+             "library_none": "no one PyTorch call updates, reduces and sets the direction",
+             "rows_product_form": f64["rows_ap"], "blocks_f64_storage": f64["blocks64"],
+             "solve": f64["solve"],
+             "computes": "the f64 solve's update, Jacobi direction, packing, flag and "
+                         "predicate (criterion pre), one cooperative launch"}
+    return [rec, rec64], summaries
+
+
 def main():
     import torch
 
@@ -5707,6 +6177,9 @@ def main():
     readbacks_ref = cg_reference_run(out_root, (presolve, steps))
     torch.cuda.empty_cache()
     lap("cg reference run")
+    stored_records, stored_summaries = stored_path(out_root)
+    torch.cuda.empty_cache()
+    lap("stored and f64")
 
     t0 = time.perf_counter()
     small_modular_check(out_root)
@@ -5806,6 +6279,15 @@ def main():
         rec["launches_heat_graph_run"] = hgraph["launches_card"][rec["name"]]
     kernels += tcg_records
     kernels += local_heat["records"]
+    # phase 14: its two kernels, and the launches of its graph runs
+    kernels += stored_records
+    for k in kernels:
+        name = {"banded_matvec": "banded_matvec_out", "wkb_fly_matvec": "wkb_fly_matvec_out"
+                }.get(k["name"], k["name"])
+        for tag, summ in stored_summaries.items():
+            if name in summ["launches_card"]:
+                key = tag.replace(" ", "_").replace("(", "").replace(")", "")
+                k[f"launches_{key}_run"] = summ["launches_card"][name]
     # the launches of the bf16 and local-heat graph runs (phases 9 and 5):
     # the card's counts of the kernels that count there, else the wrappers'
     for k in kernels:
@@ -5836,6 +6318,7 @@ def main():
         "crossbar_cg": local_heat["lgraph"], "small_stack_dense": local_heat["dgraph"],
         "heat_phase_alone": local_heat["timing"]}))
     log("bf16 transport graph summary: " + json.dumps(bgraph))
+    log("stored and f64 graph summaries: " + json.dumps(stored_summaries))
     log(f"profiled calls taken again after a trace without device records: "
         f"{len(empty_traces)} {empty_traces}; launches in the traces of the profiled calls "
         f"against their counts: {traced_totals()}")

@@ -74,6 +74,7 @@
 #include <stdint.h>
 
 #include "grid_sync.cuh"
+#include "launch_count.cuh"
 #include "ticket.cuh"
 
 namespace {
@@ -148,7 +149,8 @@ cg_matvec_dot_kernel(const T* __restrict__ diag, const T* __restrict__ vals,
                      const T* __restrict__ p, T* __restrict__ ap,
                      const unsigned char* __restrict__ act, const T* __restrict__ rz,
                      T* __restrict__ alpha, T* __restrict__ part, int* __restrict__ tickets,
-                     int n, int m) {
+                     int n, int m, unsigned long long* count) {
+  count_launch(count);
   const int b = blockIdx.y;
   if (!act[b]) return;
   const int grid = gridDim.x;
@@ -496,25 +498,26 @@ extern "C" int dkmc_cg_matvec_dot(int is_f64, const void* diag, const void* vals
                                   const void* nb, const void* row_len, const void* p, void* ap,
                                   const void* act, const void* rz, void* alpha, void* part,
                                   void* tickets, int n, int m, int batch, int grid,
-                                  void* stream) {
+                                  void* count, void* stream) {
   if (bad_shape(n, m, batch, grid)) return (int)cudaErrorInvalidValue;
   const dim3 g(grid, batch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* len = static_cast<const int*>(row_len);
   const auto* a = static_cast<const unsigned char*>(act);
   const auto* ix = static_cast<const int*>(nb);
+  auto* cnt = static_cast<unsigned long long*>(count);
   if (is_f64)
     cg_matvec_dot_kernel<double><<<g, kThreads, 0, st>>>(
         static_cast<const double*>(diag), static_cast<const double*>(vals), ix, len,
         static_cast<const double*>(p), static_cast<double*>(ap), a,
         static_cast<const double*>(rz), static_cast<double*>(alpha),
-        static_cast<double*>(part), static_cast<int*>(tickets), n, m);
+        static_cast<double*>(part), static_cast<int*>(tickets), n, m, cnt);
   else
     cg_matvec_dot_kernel<float><<<g, kThreads, 0, st>>>(
         static_cast<const float*>(diag), static_cast<const float*>(vals), ix, len,
         static_cast<const float*>(p), static_cast<float*>(ap), a,
         static_cast<const float*>(rz), static_cast<float*>(alpha),
-        static_cast<float*>(part), static_cast<int*>(tickets), n, m);
+        static_cast<float*>(part), static_cast<int*>(tickets), n, m, cnt);
   return (int)cudaGetLastError();
 }
 

@@ -46,9 +46,27 @@
 //                     threshold and predicate); the tiles' b_in.b_in
 //                     added by the block that draws the last ticket
 //
-// So the inner body is band | (fly, transport_blocks), then
-// transport_rows_update; a round's end is transport_pack, fly,
-// transport_blocks (f64), transport_rows and transport_refine.
+//   stored_matvec     the stored metal block's product y = T_cc x_m (f32
+//                     in mixed precision, f64 in f64), in the fly matvec's
+//                     place when the block is stored (transport_cc =
+//                     "stored", what "auto" picks): the JAX package's
+//                     jnp.matmul(T_cc, xm) (devicekmc_tpu/physics/
+//                     current.py:802) inside its jitted superstep
+//   transport_update64
+//                     the f64 solve's tail (Jacobi CG, criterion "pre", on
+//                     the unscaled system: the JAX package's cg_solve,
+//                     devicekmc_tpu/ops/cg.py:40-118), one cooperative
+//                     launch: x += alpha p, r -= alpha ap, z = r / diag and
+//                     r.z; a barrier; beta, p = z + beta p packed into the
+//                     full vector and the metal vector; the flag, count and
+//                     predicate (also the WHILE node's condition)
+//
+// So the inner body is band | (fly or stored, transport_blocks), then
+// transport_rows_update; a round's end is transport_pack, fly or stored,
+// transport_blocks (f64), transport_rows and transport_refine.  The f64
+// solve's body is stored | transport_blocks (f64 blocks), transport_rows in
+// its product form (ap = A p, p.ap and alpha by the last ticket) and
+// transport_update64.
 //
 // Bound: bytes.  An inner iteration reads the band (static, about 2 GB at
 // the crossbar's width: its own kernel), the vacancy blocks' live rows once
@@ -122,6 +140,17 @@
 //     diagonal at assembly: (diag + row_fix) x would round once where the
 //     plain version rounds twice, so the CPU result would no longer be
 //     cg_solve_mixed's bit for bit;
+//   * stored_matvec (bytes: the block once, 49.8 MB in f32 at the crossbar's
+//     3,527 metal atoms, 2.45 GB at the reference's 24,768): a warp a row,
+//     16-byte loads, kStoredLoads of them in flight a lane, a row's head
+//     before its first 16-byte boundary and its tail a lane an element; the
+//     vector through the read-only path (L1-resident); one fixed order a
+//     row, so graph and host loop get the same bits and f32 never meets
+//     TF32;
+//   * transport_update64 keeps z and the old p of its first tile in
+//     registers across its one grid barrier, after which every block sums
+//     the tiles' r.z slots in the same order (warp 0, lane-strided) and so
+//     has the same beta; block 0 alone writes the scalars;
 //   * nothing allocates: every buffer comes from the caller, so the
 //     launches can be captured into the body of a WHILE node.
 
@@ -153,6 +182,11 @@ constexpr int kVvLoads = 8;
 constexpr int kSumLoads = 8;
 // transport_rows (f64): ELL slots a pass, their loads issued together
 constexpr int kEll = 8;
+// transport_stored: 16-byte loads a lane in flight
+constexpr int kStoredLoads = 4;
+// transport_update64: threads a block, a row a thread (a tile)
+constexpr int kUpThreads = 512;
+constexpr int kUpWarps = kUpThreads / 32;
 // transport_rows_update: threads a block and rows a thread (rows t, t +
 // kRuThreads, ... of a tile of kRuTile rows); tools/probe_cg_events.py
 // --parts transport --variants times other values
@@ -254,16 +288,17 @@ __device__ __forceinline__ float block_sum_partials(const float* part, int count
 // The sum of slots q, q + lanes, ... below count of a column of partial sums
 // (base[k stride], written by other blocks: read past L1), in order, with
 // kSumLoads loads in flight; 0 unless `on`.
-__device__ __forceinline__ float sum_strided(const float* base, size_t stride, int q,
-                                             int lanes, int count, bool on) {
-  float a = 0.f;
+template <typename S>
+__device__ __forceinline__ S sum_strided(const S* base, size_t stride, int q, int lanes,
+                                         int count, bool on) {
+  S a = S(0);
   if (!on) return a;
   for (int k0 = q; k0 < count; k0 += lanes * kSumLoads) {
-    float v[kSumLoads];
+    S v[kSumLoads];
 #pragma unroll
     for (int u = 0; u < kSumLoads; ++u) {
       const int k = k0 + u * lanes;
-      v[u] = k < count ? __ldcg(base + (size_t)k * stride) : 0.f;
+      v[u] = k < count ? __ldcg(base + (size_t)k * stride) : S(0);
     }
 #pragma unroll
     for (int u = 0; u < kSumLoads; ++u) a += v[u];
@@ -307,14 +342,15 @@ transport_pack_kernel(const double* __restrict__ dsi, double* __restrict__ x,
 // transport_blocks
 // ----------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, typename S>
 struct BlocksArgs {
-  // the scaled vector [n_full] and its f32 metal part [n_mp]
+  // the packed vector [n_full] and its metal part [n_mp] (S: the blocks'
+  // storage, f32 in mixed precision, f64 in f64)
   const T* xs;
-  const float* xm;
+  const S* xm;
   // the vacancy blocks, the bucket and its live count
-  const float* T_vm;
-  const float* T_vv;
+  const S* T_vm;
+  const S* T_vv;
   const int* vidx;
   const int* n_vac;
   // lo: the bump's values [vcap, max_nn] (f32) over the atom graph [na,
@@ -326,17 +362,17 @@ struct BlocksArgs {
   const T* gnd;
   const T* src;
   int gnd_lo, nsi, na, max_nn, vcap, n_mp;
-  // out: the column sums T_vm^T x_v [n_mp], T_vm x_m, T_vv x_v and the bump
-  // [vcap] (f32), the dots [2]
-  float* mv;
-  float* y_vm;
-  float* y_vv;
+  // out: the column sums T_vm^T x_v [n_mp], T_vm x_m, T_vv x_v [vcap] (S)
+  // and the bump [vcap] (f32), the dots [2]
+  S* mv;
+  S* y_vm;
+  S* y_vv;
   float* y_bump;
   T* dots;
   // scratch: the column tiles' partial sums [n_rt, n_mp], the row tiles'
   // [n_ct, vcap], the tickets [n_ct + n_rt] (column tiles, then row tiles)
-  float* col_part;
-  float* row_part;
+  S* col_part;
+  S* row_part;
   int* tickets;
   unsigned long long* count;
 };
@@ -344,9 +380,11 @@ struct BlocksArgs {
 // Blocks: the gnd and the src dot; n_vb = ceil(vcap / kWarps) blocks of the
 // bump and n_vb of T_vv's rows, a warp a slot; then the n_rt n_ct tiles of
 // T_vm (row tile rt = t / n_ct, column tile ct = t % n_ct): the short
-// latency-bound kinds first, so that they start in the first wave.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T> A) {
+// latency-bound kinds first, so that they start in the first wave.  Three
+// builds: <float, float> the inner direction (mixed), <double, float> the
+// refinement's iterate (mixed), <double, double> the f64 solve.
+template <typename T, typename S>
+__global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T, S> A) {
   count_launch(A.count);
   constexpr bool kLo = sizeof(T) == 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -356,11 +394,12 @@ __global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T
   const int n_vb = (A.vcap + kWarps - 1) / kWarps;
   const int n_small = 2 + 2 * n_vb;
   const int b = blockIdx.x;
-  __shared__ float s_xv[kBlockRows];
-  __shared__ float s_cp[kWarps][kBlockCols];  // (and the column sums' halves)
+  __shared__ S s_xv[kBlockRows];
+  __shared__ S s_cp[kWarps][kBlockCols];  // (and the column sums' halves)
   __shared__ T s_warp[kWarps];
   __shared__ int s_flag;
-  extern __shared__ float s_xall[];
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  S* s_xall = reinterpret_cast<S*>(s_raw);
 
   if (b >= n_small) {
     // a tile of T_vm: its elements once, for the rows' T_vm x_m and the
@@ -371,33 +410,33 @@ __global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T
     if (r0 >= nv) {
       // no live slot: the first row tile leaves zero column sums
       if (rt == 0 && threadIdx.x < kBlockCols && c0 + (int)threadIdx.x < A.n_mp)
-        A.mv[c0 + threadIdx.x] = 0.f;
+        A.mv[c0 + threadIdx.x] = S(0);
       return;
     }
-    float t[kRowsPerWarp][kColsPerLane], xm[kColsPerLane];
+    S t[kRowsPerWarp][kColsPerLane], xm[kColsPerLane];
 #pragma unroll
     for (int j = 0; j < kRowsPerWarp; ++j) {
       const int s = r0 + warp * kRowsPerWarp + j;
 #pragma unroll
       for (int q = 0; q < kColsPerLane; ++q) {
         const int col = c0 + lane + 32 * q;
-        t[j][q] = s < nv && col < A.n_mp ? __ldg(A.T_vm + (size_t)s * A.n_mp + col) : 0.f;
+        t[j][q] = s < nv && col < A.n_mp ? __ldg(A.T_vm + (size_t)s * A.n_mp + col) : S(0);
       }
     }
 #pragma unroll
     for (int q = 0; q < kColsPerLane; ++q) {
       const int col = c0 + lane + 32 * q;
-      xm[q] = col < A.n_mp ? __ldg(A.xm + col) : 0.f;
+      xm[q] = col < A.n_mp ? __ldg(A.xm + col) : S(0);
     }
     if (threadIdx.x < kBlockRows) {
       const int s = r0 + threadIdx.x;
-      s_xv[threadIdx.x] = s < nv ? (float)A.xs[A.vidx[s] + 2] : 0.f;
+      s_xv[threadIdx.x] = s < nv ? (S)A.xs[A.vidx[s] + 2] : S(0);
     }
     // each row's partial T_vm x_m over the tile's columns: a lane's columns
     // in order, then the warp's butterfly
 #pragma unroll
     for (int j = 0; j < kRowsPerWarp; ++j) {
-      float a = 0.f;
+      S a = S(0);
 #pragma unroll
       for (int q = 0; q < kColsPerLane; ++q) a = fma_rn(t[j][q], xm[q], a);
       a = warp_sum(a);
@@ -409,7 +448,7 @@ __global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T
     // in order, then the warps in order
 #pragma unroll
     for (int q = 0; q < kColsPerLane; ++q) {
-      float a = 0.f;
+      S a = S(0);
 #pragma unroll
       for (int j = 0; j < kRowsPerWarp; ++j)
         a = fma_rn(s_xv[warp * kRowsPerWarp + j], t[j][q], a);
@@ -418,7 +457,7 @@ __global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T
     __syncthreads();
     const int col = c0 + threadIdx.x;
     if (threadIdx.x < kBlockCols && col < A.n_mp) {
-      float a = 0.f;
+      S a = S(0);
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) a += s_cp[w][threadIdx.x];
       A.col_part[(size_t)rt * A.n_mp + col] = a;
@@ -430,12 +469,12 @@ __global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T
     if (last_ticket(A.tickets, ct, n_live, &s_flag)) {
       constexpr int kLanes = kThreads / kBlockCols;
       const int c = threadIdx.x % kBlockCols, q = threadIdx.x / kBlockCols;
-      const float a = sum_strided(A.col_part + c0 + c, A.n_mp, q, kLanes, n_live,
-                                  c0 + c < A.n_mp);
+      const S a = sum_strided(A.col_part + c0 + c, A.n_mp, q, kLanes, n_live,
+                              c0 + c < A.n_mp);
       s_cp[q][c] = a;
       __syncthreads();
       if (threadIdx.x < kBlockCols && col < A.n_mp) {
-        float t = 0.f;
+        S t = S(0);
 #pragma unroll
         for (int k = 0; k < kLanes; ++k) t += s_cp[k][threadIdx.x];
         A.mv[col] = t;
@@ -444,7 +483,7 @@ __global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T
     if (last_ticket(A.tickets, n_ct + rt, n_ct, &s_flag)) {
       constexpr int kLanes = kThreads / kBlockRows;
       const int j = threadIdx.x / kLanes, q = threadIdx.x % kLanes, s = r0 + j;
-      float a = sum_strided(A.row_part + s, A.vcap, q, kLanes, n_ct, s < nv);
+      S a = sum_strided(A.row_part + s, A.vcap, q, kLanes, n_ct, s < nv);
 #pragma unroll
       for (int o = 1; o < kLanes; o <<= 1) a += __shfl_down_sync(0xffffffffu, a, o, kLanes);
       if (q == 0 && s < nv) A.y_vm[s] = a;
@@ -457,23 +496,23 @@ __global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T
     // once a block, the row's first loads issued before the gather
     const int s0 = (b - 2 - n_vb) * kWarps, s = s0 + warp;
     if (s0 >= nv) return;
-    const float* row = A.T_vv + (size_t)s * A.vcap;
-    float v[kVvLoads];
+    const S* row = A.T_vv + (size_t)s * A.vcap;
+    S v[kVvLoads];
 #pragma unroll
     for (int u = 0; u < kVvLoads; ++u) {
       const int j = lane + 32 * u;
-      v[u] = s < nv && j < nv ? __ldg(row + j) : 0.f;
+      v[u] = s < nv && j < nv ? __ldg(row + j) : S(0);
     }
-    for (int j = threadIdx.x; j < nv; j += kThreads) s_xall[j] = (float)A.xs[A.vidx[j] + 2];
+    for (int j = threadIdx.x; j < nv; j += kThreads) s_xall[j] = (S)A.xs[A.vidx[j] + 2];
     __syncthreads();
     if (s >= nv) return;
-    float c = 0.f;
+    S c = S(0);
     for (int j0 = 0; j0 < nv; j0 += 32 * kVvLoads) {
       if (j0 > 0) {
 #pragma unroll
         for (int u = 0; u < kVvLoads; ++u) {
           const int j = j0 + lane + 32 * u;
-          v[u] = j < nv ? __ldg(row + j) : 0.f;
+          v[u] = j < nv ? __ldg(row + j) : S(0);
         }
       }
 #pragma unroll
@@ -520,8 +559,9 @@ __global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T
 // transport_rows (f64)
 // ----------------------------------------------------------------------------
 
+template <typename P>
 struct RowsArgs {
-  // the scaled vector [n_full]
+  // the packed vector [n_full]
   const double* xs;
   // the ELL neighbour conductances [na, max_nn] over the atom graph [na,
   // max_nn] (int32, pad -1)
@@ -530,32 +570,47 @@ struct RowsArgs {
   // each atom's bucket slot and metal slot (-1: none)
   const int* vslot;
   const int* mp_inv;
-  // the fly kernel's product [n_mp] and transport_blocks': the column sums
-  // [n_mp], T_vm x_m and T_vv x_v [vcap] (f32), the dots [2]
-  const float* y_cc;
-  const float* mv;
-  const float* y_vm;
-  const float* y_vv;
+  // the metal block's product [n_mp] and transport_blocks': the column sums
+  // [n_mp], T_vm x_m and T_vv x_v [vcap] (P: f32 in mixed precision, f64 in
+  // f64), the dots [2]
+  const P* y_cc;
+  const P* mv;
+  const P* y_vm;
+  const P* y_vv;
   const double* dots;
-  // virtual rows, diagonal and scaling
+  // virtual rows, diagonal and the scaling (null: none, the unscaled system)
   const double* gnd;
   const double* src;
   const double* diag;
   const double* dsi;
   double loop_G;
   int na, nsub, max_nn;
-  // the right-hand side, the residual and r.r
+  // the residual form: the right-hand side, the residual and r.r; the
+  // product form (b null): ap = A p of the vector p = xs, and the CG's
+  // entry flag, r.z and step alpha = r.z / p.ap
   const double* b;
   double* r;
   double* rsum;
+  double* ap;
+  const unsigned char* act;
+  const double* rz;
+  double* alpha;
   // scratch: the tiles' partial sums, the ticket
   double* part;
   int* ticket;
   unsigned long long* count;
 };
 
-__global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs A) {
+// A row a thread: row i of y = A xs (ELL part, metal row, vacancy slot,
+// virtual rows, diagonal), then either r = b - dsi y and the tiles' r.r, or
+// (b null) ap = y and the tiles' p.ap; the block that draws the last ticket
+// adds the tiles' sums in tile order and writes r.r, or alpha.  In the
+// product form a stopped CG's launch leaves at once.
+template <typename P>
+__global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs<P> A) {
   count_launch(A.count);
+  const bool product = A.b == nullptr;
+  if (product && *A.act == 0) return;
   __shared__ double s_warp[kWarps];
   __shared__ int s_flag;
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -586,7 +641,7 @@ __global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs A) {
       const int s = A.vslot[a];
       const int k = A.mp_inv[a];
       double tm = 0;
-      if (k >= 0) tm = add_rn((double)A.y_cc[k], (double)__ldcg(A.mv + k));
+      if (k >= 0) tm = add_rn((double)__ldcg(A.y_cc + k), (double)__ldcg(A.mv + k));
       y = add_rn(y, tm);
       if (s >= 0)
         y = add_rn(y, add_rn((double)__ldcg(A.y_vv + s), (double)__ldcg(A.y_vm + s)));
@@ -597,9 +652,14 @@ __global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs A) {
                  : sub_rn(__ldcg(A.dots + 1), mul_rn(A.loop_G, x0));
     }
     y = add_rn(y, mul_rn(A.diag[i], A.xs[i]));
-    const double rr = sub_rn(A.b[i], mul_rn(A.dsi[i], y));
-    A.r[i] = rr;
-    acc = fma_rn(rr, rr, acc);
+    if (product) {
+      A.ap[i] = y;
+      acc = fma_rn(A.xs[i], y, acc);
+    } else {
+      const double rr = sub_rn(A.b[i], A.dsi != nullptr ? mul_rn(A.dsi[i], y) : y);
+      A.r[i] = rr;
+      acc = fma_rn(rr, rr, acc);
+    }
   }
   const double sum = block_sum(acc, s_warp);
   if (threadIdx.x == 0) A.part[blockIdx.x] = sum;
@@ -607,7 +667,206 @@ __global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs A) {
   // the tiles' sums in tile order, by the block that draws the last ticket
   if (!last_ticket(A.ticket, 0, gridDim.x, &s_flag)) return;
   const double total = sum_partials(A.part, gridDim.x, s_warp);
-  if (threadIdx.x == 0) A.rsum[0] = total;
+  if (threadIdx.x != 0) return;
+  if (product) {
+    const double rz = *A.rz;
+    *A.alpha = total != 0.0 ? rz / total : 0.0;
+  } else {
+    A.rsum[0] = total;
+  }
+}
+
+// ----------------------------------------------------------------------------
+// transport_stored: the stored metal block's product
+// ----------------------------------------------------------------------------
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  __device__ static float at(const float4& v, int c) {
+    return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+  __device__ static double at(const double2& v, int c) { return c == 0 ? v.x : v.y; }
+};
+
+// y = T_cc x_m, a warp a row of n: lane l takes the row's elements before
+// its first 16-byte boundary at l (the row starts wherever row * n puts
+// it), then the 16-byte vectors l, l + 32, ..., kStoredLoads of them loaded
+// before any is used, then the tail's element l; each vector's elements in
+// order, one fused multiply-add each; then the warp's butterfly.  So a row's
+// sum has one fixed order, whatever launch runs it.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stored_matvec_kernel(const T* __restrict__ tcc, const T* __restrict__ xm, T* __restrict__ y,
+                     int n, unsigned long long* count) {
+  count_launch(count);
+  using V = typename Vec16<T>::type;
+  constexpr int kV = Vec16<T>::n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= n) return;
+  const T* rp = tcc + (size_t)row * n;
+  const int head = min(n, (int)(((16u - (unsigned)(reinterpret_cast<uintptr_t>(rp) & 15u)) & 15u)
+                                / sizeof(T)));
+  const int n_vec = (n - head) / kV;
+  const int tail0 = head + n_vec * kV;
+  T acc = T(0);
+  if (lane < head) acc = fma_rn(__ldg(rp + lane), __ldg(xm + lane), acc);
+  const V* rv = reinterpret_cast<const V*>(rp + head);
+  const T* xh = xm + head;
+  for (int q0 = lane; q0 < n_vec; q0 += 32 * kStoredLoads) {
+    V v[kStoredLoads];
+#pragma unroll
+    for (int u = 0; u < kStoredLoads; ++u) {
+      const int q = q0 + 32 * u;
+      if (q < n_vec) v[u] = __ldg(rv + q);
+    }
+#pragma unroll
+    for (int u = 0; u < kStoredLoads; ++u) {
+      const int q = q0 + 32 * u;
+      if (q < n_vec) {
+#pragma unroll
+        for (int c = 0; c < kV; ++c)
+          acc = fma_rn(Vec16<T>::at(v[u], c), __ldg(xh + q * kV + c), acc);
+      }
+    }
+  }
+  if (lane < n - tail0) acc = fma_rn(__ldg(rp + tail0 + lane), __ldg(xm + tail0 + lane), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) y[row] = acc;
+}
+
+// ----------------------------------------------------------------------------
+// transport_update64: the f64 solve's update, direction and packing
+// ----------------------------------------------------------------------------
+
+struct Update64Args {
+  // the iterate and residual [nsub], the direction p [n_full] (the vector
+  // the products read; p[nsub] stays 0), its product ap, the Jacobi minv
+  // = 1 / diag; the metal vector the direction is packed into
+  double* x;
+  double* r;
+  double* p;
+  const double* ap;
+  const double* minv;
+  double* xm;
+  const int* mp_inv;
+  // the entry flag, alpha (transport_rows' product form), beta, r.z, the
+  // threshold of the "pre" criterion, the iterations, the predicate, the
+  // loop's count, the WHILE node it conditions (0: none)
+  unsigned char* act;
+  const double* alpha;
+  double* beta;
+  double* rz;
+  const double* thresh2;
+  long long* iters;
+  int* cond;
+  unsigned long long* total;
+  unsigned long long handle;
+  int nsub, per, maxiter;
+  // scratch: the tiles' partial sums of r.z; the grid barrier
+  double* part;
+  unsigned* bar;
+  unsigned long long* count;
+};
+
+// The sum of `count` partials (written by other blocks: read past L1) in
+// every thread of the block, with the same bits in every block: warp 0's
+// lane l adds slots l, l + 32, ... in order, then a butterfly; the sum
+// reaches the other warps through `s_sum`.  Every thread calls it.
+__device__ __forceinline__ double block_sum_partials64(const double* part, int count,
+                                                       double* s_sum) {
+  if (threadIdx.x < 32) {
+    double a = 0;
+    for (int t = threadIdx.x; t < count; t += 32) a += __ldcg(part + t);
+    a = warp_sum(a);
+    if (threadIdx.x == 0) *s_sum = a;
+  }
+  __syncthreads();
+  return *s_sum;
+}
+
+// One cooperative launch of kUpThreads-row tiles (block b: tiles [b per, (b
+// + 1) per), a row a thread, the first tile held in registers): x += alpha
+// p, r -= alpha ap, z = minv r and the tiles' partial r.z; a barrier of the
+// grid; r.z and beta in every block from the same slots in the same order;
+// p = z + beta p and its metal part packed.  Block 0 writes the scalars, the
+// flag (criterion "pre": r.z above the threshold), the count and the
+// predicate (also the WHILE node's condition).  A stopped CG's launch
+// changes no vector or scalar but the loop's count, flag and predicate.
+__global__ void __launch_bounds__(kUpThreads) transport_update64_kernel(Update64Args A) {
+  count_launch(A.count);
+  __shared__ double s_warp[kUpWarps];
+  __shared__ double s_rz;
+  const bool writer = blockIdx.x == 0;
+  const int n_tiles = (A.nsub + kUpThreads - 1) / kUpThreads;
+  const int first = blockIdx.x * A.per, last = min(first + A.per, n_tiles);
+  const bool on = *A.act != 0;
+  const double rz_o = *A.rz;
+  long long it_w = 0;
+  double th_w = 0;
+  if (writer && threadIdx.x == 0) {
+    it_w = *A.iters;
+    th_w = *A.thresh2;
+  }
+  double rz_n = 0, beta = 0;
+  if (on) {
+    const double alpha = *A.alpha;
+    double zh = 0, ph = 0;
+    for (int t = first; t < last; ++t) {
+      const int i = t * kUpThreads + threadIdx.x;
+      double acc = 0;
+      if (i < A.nsub) {
+        const double pe = A.p[i];
+        const double rn = fma_rn(-alpha, A.ap[i], A.r[i]);
+        const double zn = mul_rn(A.minv[i], rn);
+        A.x[i] = fma_rn(alpha, pe, A.x[i]);
+        A.r[i] = rn;
+        acc = mul_rn(rn, zn);
+        if (t == first) {
+          zh = zn;
+          ph = pe;
+        }
+      }
+      const double sum = block_sum<double, kUpWarps>(acc, s_warp);
+      if (threadIdx.x == 0) A.part[t] = sum;
+    }
+    grid_barrier(A.bar);
+    rz_n = block_sum_partials64(A.part, n_tiles, &s_rz);
+    beta = rz_o != 0.0 ? rz_n / rz_o : 0.0;
+    for (int t = first; t < last; ++t) {
+      const int i = t * kUpThreads + threadIdx.x;
+      if (i >= A.nsub) continue;
+      const double pn = t == first ? fma_rn(beta, ph, zh)
+                                   : fma_rn(beta, A.p[i], mul_rn(A.minv[i], A.r[i]));
+      A.p[i] = pn;
+      if (i >= 2) {
+        const int k = A.mp_inv[i - 2];
+        if (k >= 0) A.xm[k] = pn;
+      }
+    }
+  }
+  if (writer && threadIdx.x == 0) {
+    if (on) {
+      *A.beta = beta;
+      *A.rz = rz_n;
+      *A.iters = it_w + 1;
+    }
+    const bool go_c = on && rz_n > th_w;
+    *A.act = go_c;
+    const int go = go_c && (on ? it_w + 1 : it_w) < A.maxiter;
+    *A.cond = go;
+    *A.total += 1;
+    if (A.handle) cudaGraphSetConditional(A.handle, go);
+  }
 }
 
 // ----------------------------------------------------------------------------
@@ -1109,25 +1368,29 @@ extern "C" int dkmc_transport_pack(const void* dsi, void* x, const void* xi, con
   return (int)cudaGetLastError();
 }
 
+// mode 0: the inner direction (f32 vector, f32 blocks, the bump); 1: the
+// refinement's iterate (f64 vector, f32 blocks); 2: the f64 solve (f64
+// vector and blocks).
 extern "C" int dkmc_transport_blocks(
-    int is_f64, const void* xs, const void* xm, const void* T_vm, const void* T_vv,
+    int mode, const void* xs, const void* xm, const void* T_vm, const void* T_vv,
     const void* vidx, const void* n_vac, const void* dyn, const void* anb, const void* gnd,
     const void* src, int gnd_lo, int nsi, int na, int max_nn, int vcap, int n_mp, void* mv,
     void* y_vm, void* y_vv, void* y_bump, void* dots, void* col_part, void* row_part,
     void* tickets, void* count, void* stream) {
-  if (na < 1 || max_nn < 1 || vcap < 1 || n_mp < 1) return (int)cudaErrorInvalidValue;
+  if (na < 1 || max_nn < 1 || vcap < 1 || n_mp < 1 || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
   const int n_ct = (n_mp + kBlockCols - 1) / kBlockCols;
   const int n_rt = (vcap + kBlockRows - 1) / kBlockRows;
   const int grid = n_rt * n_ct + 2 * ((vcap + kWarps - 1) / kWarps) + 2;
-  const size_t smem = (size_t)vcap * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto fill = [&](auto& A) {
+  auto launch = [&](auto A) {
     using T = typename std::remove_const<
         typename std::remove_pointer<decltype(A.gnd)>::type>::type;
+    using S = typename std::remove_pointer<decltype(A.mv)>::type;
     A.xs = static_cast<const T*>(xs);
-    A.xm = static_cast<const float*>(xm);
-    A.T_vm = static_cast<const float*>(T_vm);
-    A.T_vv = static_cast<const float*>(T_vv);
+    A.xm = static_cast<const S*>(xm);
+    A.T_vm = static_cast<const S*>(T_vm);
+    A.T_vv = static_cast<const S*>(T_vv);
     A.vidx = static_cast<const int*>(vidx);
     A.n_vac = static_cast<const int*>(n_vac);
     A.dyn = static_cast<const float*>(dyn);
@@ -1140,66 +1403,143 @@ extern "C" int dkmc_transport_blocks(
     A.max_nn = max_nn;
     A.vcap = vcap;
     A.n_mp = n_mp;
-    A.mv = static_cast<float*>(mv);
-    A.y_vm = static_cast<float*>(y_vm);
-    A.y_vv = static_cast<float*>(y_vv);
+    A.mv = static_cast<S*>(mv);
+    A.y_vm = static_cast<S*>(y_vm);
+    A.y_vv = static_cast<S*>(y_vv);
     A.y_bump = static_cast<float*>(y_bump);
     A.dots = static_cast<T*>(dots);
-    A.col_part = static_cast<float*>(col_part);
-    A.row_part = static_cast<float*>(row_part);
+    A.col_part = static_cast<S*>(col_part);
+    A.row_part = static_cast<S*>(row_part);
     A.tickets = static_cast<int*>(tickets);
     A.count = static_cast<unsigned long long*>(count);
+    transport_blocks_kernel<T, S><<<grid, kThreads, (size_t)vcap * sizeof(S), st>>>(A);
   };
-  if (is_f64) {
-    BlocksArgs<double> A;
-    fill(A);
-    transport_blocks_kernel<double><<<grid, kThreads, smem, st>>>(A);
-  } else {
-    BlocksArgs<float> A;
-    fill(A);
-    transport_blocks_kernel<float><<<grid, kThreads, smem, st>>>(A);
-  }
+  if (mode == 0)
+    launch(BlocksArgs<float, float>{});
+  else if (mode == 1)
+    launch(BlocksArgs<double, float>{});
+  else
+    launch(BlocksArgs<double, double>{});
   return (int)cudaGetLastError();
 }
 
-// The refinement's residual (f64): r = b - A x of the packed iterate xs and
-// r.r.
-extern "C" int dkmc_transport_rows(const void* xs, const void* nbv, const void* anb,
-                                   const void* vslot, const void* mp_inv, const void* y_cc,
-                                   const void* mv, const void* y_vm, const void* y_vv,
-                                   const void* dots, const void* gnd, const void* src,
-                                   const void* diag, const void* dsi, double loop_G, int na,
-                                   int max_nn, const void* b, void* r, void* rsum, void* part,
-                                   void* ticket, void* count, void* stream) {
+// The rows of A xs (f64): with b, the residual r = b - dsi A xs (dsi null:
+// unscaled) and r.r; without (b null), the product ap = A p of p = xs and
+// alpha = rz / p.ap, none when the flag act is down.  parts_f64: the metal
+// block's and transport_blocks' products are f64 (the f64 solve), else f32.
+extern "C" int dkmc_transport_rows(int parts_f64, const void* xs, const void* nbv,
+                                   const void* anb, const void* vslot, const void* mp_inv,
+                                   const void* y_cc, const void* mv, const void* y_vm,
+                                   const void* y_vv, const void* dots, const void* gnd,
+                                   const void* src, const void* diag, const void* dsi,
+                                   double loop_G, int na, int max_nn, const void* b, void* r,
+                                   void* rsum, void* ap, const void* act, const void* rz,
+                                   void* alpha, void* part, void* ticket, void* count,
+                                   void* stream) {
   if (na < 1 || max_nn < 1) return (int)cudaErrorInvalidValue;
-  RowsArgs A;
-  A.xs = static_cast<const double*>(xs);
-  A.nbv = static_cast<const double*>(nbv);
-  A.anb = static_cast<const int*>(anb);
-  A.vslot = static_cast<const int*>(vslot);
-  A.mp_inv = static_cast<const int*>(mp_inv);
-  A.y_cc = static_cast<const float*>(y_cc);
-  A.mv = static_cast<const float*>(mv);
-  A.y_vm = static_cast<const float*>(y_vm);
-  A.y_vv = static_cast<const float*>(y_vv);
-  A.dots = static_cast<const double*>(dots);
-  A.gnd = static_cast<const double*>(gnd);
-  A.src = static_cast<const double*>(src);
-  A.diag = static_cast<const double*>(diag);
-  A.dsi = static_cast<const double*>(dsi);
-  A.loop_G = loop_G;
-  A.na = na;
-  A.nsub = na + 1;
-  A.max_nn = max_nn;
-  A.b = static_cast<const double*>(b);
-  A.r = static_cast<double*>(r);
-  A.rsum = static_cast<double*>(rsum);
-  A.part = static_cast<double*>(part);
-  A.ticket = static_cast<int*>(ticket);
-  A.count = static_cast<unsigned long long*>(count);
-  transport_rows_kernel<<<(A.nsub + kThreads - 1) / kThreads, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(A);
+  auto launch = [&](auto A) {
+    using P = typename std::remove_const<
+        typename std::remove_pointer<decltype(A.y_cc)>::type>::type;
+    A.xs = static_cast<const double*>(xs);
+    A.nbv = static_cast<const double*>(nbv);
+    A.anb = static_cast<const int*>(anb);
+    A.vslot = static_cast<const int*>(vslot);
+    A.mp_inv = static_cast<const int*>(mp_inv);
+    A.y_cc = static_cast<const P*>(y_cc);
+    A.mv = static_cast<const P*>(mv);
+    A.y_vm = static_cast<const P*>(y_vm);
+    A.y_vv = static_cast<const P*>(y_vv);
+    A.dots = static_cast<const double*>(dots);
+    A.gnd = static_cast<const double*>(gnd);
+    A.src = static_cast<const double*>(src);
+    A.diag = static_cast<const double*>(diag);
+    A.dsi = static_cast<const double*>(dsi);
+    A.loop_G = loop_G;
+    A.na = na;
+    A.nsub = na + 1;
+    A.max_nn = max_nn;
+    A.b = static_cast<const double*>(b);
+    A.r = static_cast<double*>(r);
+    A.rsum = static_cast<double*>(rsum);
+    A.ap = static_cast<double*>(ap);
+    A.act = static_cast<const unsigned char*>(act);
+    A.rz = static_cast<const double*>(rz);
+    A.alpha = static_cast<double*>(alpha);
+    A.part = static_cast<double*>(part);
+    A.ticket = static_cast<int*>(ticket);
+    A.count = static_cast<unsigned long long*>(count);
+    transport_rows_kernel<P><<<(A.nsub + kThreads - 1) / kThreads, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(A);
+  };
+  if (b == nullptr && (ap == nullptr || act == nullptr || rz == nullptr || alpha == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (parts_f64)
+    launch(RowsArgs<double>{});
+  else
+    launch(RowsArgs<float>{});
   return (int)cudaGetLastError();
+}
+
+// The stored metal block's product y = T_cc xm (n x n, row-major; f32 or
+// f64 storage and sums).
+extern "C" int dkmc_transport_stored(int is_f64, const void* tcc, const void* xm, void* y,
+                                     int n, void* count, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const int grid = (n + kWarps - 1) / kWarps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* c = static_cast<unsigned long long*>(count);
+  if (is_f64)
+    stored_matvec_kernel<double><<<grid, kThreads, 0, st>>>(
+        static_cast<const double*>(tcc), static_cast<const double*>(xm),
+        static_cast<double*>(y), n, c);
+  else
+    stored_matvec_kernel<float><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(tcc), static_cast<const float*>(xm), static_cast<float*>(y),
+        n, c);
+  return (int)cudaGetLastError();
+}
+
+// The f64 solve's update, direction and packing (one cooperative launch),
+// also the condition of the WHILE node `handle` (0: none).  `part` holds
+// ceil(nsub / 512) doubles.
+extern "C" int dkmc_transport_update64(void* x, void* r, void* p, const void* ap,
+                                       const void* minv, void* xm, const void* mp_inv,
+                                       void* act, const void* alpha, void* beta, void* rz,
+                                       const void* thresh2, void* iters, void* cond,
+                                       void* total, unsigned long long handle, int nsub,
+                                       int maxiter, void* part, void* bar, void* count,
+                                       void* stream) {
+  if (nsub < 2) return (int)cudaErrorInvalidValue;
+  Update64Args A;
+  A.x = static_cast<double*>(x);
+  A.r = static_cast<double*>(r);
+  A.p = static_cast<double*>(p);
+  A.ap = static_cast<const double*>(ap);
+  A.minv = static_cast<const double*>(minv);
+  A.xm = static_cast<double*>(xm);
+  A.mp_inv = static_cast<const int*>(mp_inv);
+  A.act = static_cast<unsigned char*>(act);
+  A.alpha = static_cast<const double*>(alpha);
+  A.beta = static_cast<double*>(beta);
+  A.rz = static_cast<double*>(rz);
+  A.thresh2 = static_cast<const double*>(thresh2);
+  A.iters = static_cast<long long*>(iters);
+  A.cond = static_cast<int*>(cond);
+  A.total = static_cast<unsigned long long*>(total);
+  A.handle = handle;
+  A.nsub = nsub;
+  A.maxiter = maxiter;
+  A.part = static_cast<double*>(part);
+  A.bar = static_cast<unsigned*>(bar);
+  A.count = static_cast<unsigned long long*>(count);
+  // as few tiles a block as the blocks the card holds allow, and no block
+  // without one
+  const int n_tiles = (nsub + kUpThreads - 1) / kUpThreads;
+  const int cap = resident_blocks(transport_update64_kernel, kUpThreads);
+  if (cap <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  A.per = (n_tiles + cap - 1) / cap;
+  return launch_cooperative(transport_update64_kernel, (n_tiles + A.per - 1) / A.per,
+                            kUpThreads, A, static_cast<cudaStream_t>(stream));
 }
 
 // The inner iteration's tail (f32): the rows of ap = A p from the products

@@ -17,8 +17,10 @@ CPU result is ``cg_solve_batched``'s bit for bit.  On the card the kernels
 reduce in another, fixed order.
 
 Launches: each iteration launches each kernel once, counted on the device in
-``Workspace.total`` (:func:`device_iterations`); the wrappers' ``launches``
-count their host calls, one a capture of the loop's body.
+``Workspace.total`` (:func:`device_iterations`, written by
+cg_update_direction) and, for cg_matvec_dot, in ``_build.launch_counts``; the
+wrappers' ``launches`` count their host calls, one a capture of the loop's
+body.
 """
 
 from __future__ import annotations
@@ -152,7 +154,7 @@ def _fn(symbol):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
-            "dkmc_cg_matvec_dot": [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p],
+            "dkmc_cg_matvec_dot": [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p, p],
             "dkmc_cg_update_direction": [i] + [p] * 18 + [ctypes.c_ulonglong, i, i, i, p],
             "dkmc_cg_update_direction_grid": [i, i, i, ctypes.POINTER(i),
                                               ctypes.POINTER(i)],
@@ -213,7 +215,8 @@ def cg_matvec_dot(ws: Workspace, op, stream=None) -> None:
         int(ws.x.dtype == torch.float64), diag.data_ptr(), vals.data_ptr(),
         neigh_idx.data_ptr(), ws.row_len.data_ptr(), ws.p.data_ptr(), ws.ap.data_ptr(),
         ws.act.data_ptr(), ws.rz.data_ptr(), ws.alpha.data_ptr(), ws.part.data_ptr(),
-        ws.tickets.data_ptr(), n, neigh_idx.shape[1], B, ws.grid_mv, _stream(ws, stream)))
+        ws.tickets.data_ptr(), n, neigh_idx.shape[1], B, ws.grid_mv,
+        _build.launch_counter(ws.x.device, "cg_matvec_dot"), _stream(ws, stream)))
     cg_matvec_dot.launches += 1
 
 

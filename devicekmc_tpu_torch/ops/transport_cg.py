@@ -25,6 +25,20 @@ the same stop rules and counts:
   rows, the update and the direction that also packs the next direction
   (:func:`rows_update`).
 
+The metal block's product is the on-the-fly kernel's (``transport_cc =
+"fly"``) or, with the block stored (``"stored"``, what ``"auto"`` picks on
+every structure of the repo), :func:`stored_matvec_out`'s kernel
+(``csrc/transport_cg.cu`` ``stored_matvec_kernel``).
+
+In f64 precision :func:`solve_f64` computes what ``ops.cg.cg_solve`` with
+the Jacobi ``diag`` and criterion "pre" computes for the unscaled blocked
+operator (``physics.current``'s f64 warm re-solve), the counterpart of the
+JAX package's ``lax.while_loop`` of ``devicekmc_tpu/ops/cg.py:112``: one
+WHILE node whose body is the stored block's product beside transport_blocks
+(f64 build), the f64 rows of ``A p`` with ``p.ap`` and alpha
+(:func:`rows_ap`) and one cooperative launch of the update, the Jacobi
+direction and its packing (:func:`update_f64`).
+
 Every buffer lives in a :class:`Workspace` made before the capture, so
 nothing allocates inside a body.  For CPU tensors each kernel wrapper runs
 its plain version, the arithmetic of ``cg_solve_mixed`` and
@@ -37,9 +51,9 @@ captured loop's bit for bit, iteration counts included.
 
 Launches: each wrapper's ``launches`` counts its host calls (one a capture
 of a loop's body); the card counts every launch of the pack, blocks, rows,
-refine and rows-and-update kernels, the band and the fly matvec
-(``_build.launch_counts``), and ``Workspace.cg.total`` the inner iterations
-run.
+refine and rows-and-update kernels, the stored block's product, the f64
+update, the band and the fly matvec (``_build.launch_counts``), and
+``Workspace.cg.total`` (in f64 ``Workspace.c64.total``) the iterations run.
 """
 
 from __future__ import annotations
@@ -70,6 +84,8 @@ MAX_OUTER = 40
 ROW_TILE = 256
 TILE = 512
 RU_MIN_TILE = 128
+#: rows a tile of the f64 solve's update (a row a thread, ``kUpThreads``)
+UPDATE_TILE = 512
 #: the tiles of T_vm that transport_blocks reads: rows x columns
 BLOCK_ROWS = 32
 BLOCK_COLS = 128
@@ -101,8 +117,13 @@ class Workspace:
     and inner iterations ``it_in``, ``rnorm``, ``scale``, ``rnorm0`` (||r||
     of the warm start), the outer predicate ``cond``.  ``inv32`` the band's
     window slot of each atom, ``front`` its leading zeros, ``shape`` (R,
-    m_pad, B)."""
-    cg: CGWorkspace
+    m_pad, B) (empty, 0 and zeros without a band).
+
+    In f64 precision (``c64`` set, ``cg`` None) the metal vector, the
+    products and the tile sums of transport_blocks are f64, ``xs64`` holds
+    the CG's direction p, ``x`` and ``r`` its iterate and residual, and
+    ``c64`` the rest of its state (:class:`CG64`)."""
+    cg: Optional[CGWorkspace]
     xs32: torch.Tensor
     xs64: torch.Tensor
     xw: torch.Tensor
@@ -139,15 +160,40 @@ class Workspace:
     pi: torch.Tensor
     front: int
     shape: tuple
+    c64: Optional["CG64"] = None
 
 
-def workspace(n_atoms: int, vcap: int, n_mp: int, band, device) -> Workspace:
+@dataclass
+class CG64:
+    """The f64 solve's state beside the workspace's ``x``, ``r`` and ``xs64``
+    (iterate, residual, direction): ``ap`` [Nsub], the scalars ``rz``,
+    ``alpha``, ``beta`` and the threshold ``thresh2`` of the criterion "pre"
+    (f64 [1]), the flag ``act``, the iterations ``iters``, the predicate
+    ``cond``, the update's launches ``total``, its tiles' partial sums
+    ``part`` and grid barrier ``bar``."""
+    ap: torch.Tensor
+    rz: torch.Tensor
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    thresh2: torch.Tensor
+    act: torch.Tensor
+    iters: torch.Tensor
+    cond: torch.Tensor
+    total: torch.Tensor
+    part: torch.Tensor
+    bar: torch.Tensor
+
+
+def workspace(n_atoms: int, vcap: int, n_mp: int, band, device,
+              f64_solve: bool = False) -> Workspace:
     """The buffers of a solve of the grounded system of ``n_atoms`` atoms
     (Nsub = n_atoms + 1 rows) with a vacancy bucket of ``vcap``, ``n_mp``
-    interior-metal atoms and the static ``band`` (``build_banded_nb``)."""
+    interior-metal atoms and the static ``band`` (``build_banded_nb``; None:
+    none, the f64 solve reads the ELL rows); ``f64_solve``: the buffers of
+    :func:`solve_f64`, else of the mixed :func:`solve`."""
     dev = torch.device(device)
     nsub, n_full = n_atoms + 1, n_atoms + 2
-    R, m_pad, B = band["slots"].shape
+    R, m_pad, B = band["slots"].shape if band is not None else (0, 0, 0)
     tiles = row_tiles(nsub)
     n_ct, n_rt = -(-n_mp // BLOCK_COLS), -(-vcap // BLOCK_ROWS)
 
@@ -155,28 +201,40 @@ def workspace(n_atoms: int, vcap: int, n_mp: int, band, device) -> Workspace:
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     f64, i32, i64 = torch.float64, torch.int32, torch.int64
-    inner = CGWorkspace(
-        x=z(1, nsub), r=z(1, nsub), p=z(1, nsub), ap=z(1, nsub),
-        minv=torch.ones(1, nsub, dtype=torch.float32, device=dev),
-        rz=z(1), rr=z(1), thresh2=z(1), alpha=z(1), beta=z(1),
-        act0=z(1, dtype=torch.bool), act=z(1, dtype=torch.bool), iters=z(1, dtype=i64),
-        ctl=z(2, dtype=i32), cond=z(1, dtype=i32), total=z(1, dtype=i64),
-        part=z(2 * n_tiles(nsub)), tickets=z(1, dtype=i32),
-        bar=z(1, dtype=i32), row_len=z(0, dtype=i32), grid_mv=1)
+    pd = f64 if f64_solve else torch.float32
+    inner = c64 = None
+    if f64_solve:
+        c64 = CG64(ap=z(nsub, dtype=f64), rz=z(1, dtype=f64), alpha=z(1, dtype=f64),
+                   beta=z(1, dtype=f64), thresh2=z(1, dtype=f64), act=z(1, dtype=torch.bool),
+                   iters=z(1, dtype=i64), cond=z(1, dtype=i32), total=z(1, dtype=i64),
+                   part=z(row_tiles(nsub, UPDATE_TILE), dtype=f64), bar=z(1, dtype=i32))
+    else:
+        inner = CGWorkspace(
+            x=z(1, nsub), r=z(1, nsub), p=z(1, nsub), ap=z(1, nsub),
+            minv=torch.ones(1, nsub, dtype=torch.float32, device=dev),
+            rz=z(1), rr=z(1), thresh2=z(1), alpha=z(1), beta=z(1),
+            act0=z(1, dtype=torch.bool), act=z(1, dtype=torch.bool), iters=z(1, dtype=i64),
+            ctl=z(2, dtype=i32), cond=z(1, dtype=i32), total=z(1, dtype=i64),
+            part=z(2 * n_tiles(nsub)), tickets=z(1, dtype=i32),
+            bar=z(1, dtype=i32), row_len=z(0, dtype=i32), grid_mv=1)
     return Workspace(
         cg=inner, xs32=z(n_full), xs64=z(n_full, dtype=f64),
-        xw=z((R + m_pad - 1) * B), xm=z(n_mp), band_y=z(R * B), y_cc=z(n_mp),
-        fly=matvec_scratch(n_mp, dev), mv=z(n_mp), y_vm=z(vcap), y_vv=z(vcap),
-        y_bump=z(vcap), dots32=z(2), dots64=z(2, dtype=f64), col_part=z(n_rt * n_mp),
-        row_part=z(n_ct * vcap), tickets=z(n_ct + n_rt, dtype=i32),
+        xw=z((R + m_pad - 1) * B if R else 0), xm=z(n_mp, dtype=pd), band_y=z(R * B),
+        y_cc=z(n_mp, dtype=pd), fly=matvec_scratch(n_mp, dev), mv=z(n_mp, dtype=pd),
+        y_vm=z(vcap, dtype=pd), y_vv=z(vcap, dtype=pd), y_bump=z(vcap), dots32=z(2),
+        dots64=z(2, dtype=f64), col_part=z(n_rt * n_mp, dtype=pd),
+        row_part=z(n_ct * vcap, dtype=pd), tickets=z(n_ct + n_rt, dtype=i32),
         part_ru=z(2 * row_tiles(nsub, RU_MIN_TILE) + 4),
         part64=z(tiles, dtype=f64), ticket=z(1, dtype=i32),
         part_b=z(row_tiles(nsub, TILE)), ticket_b=z(1, dtype=i32), x=z(nsub, dtype=f64),
         r=z(nsub, dtype=f64), rsum=z(1, dtype=f64), thresh=z(1, dtype=f64),
         go=z(1, dtype=torch.bool), it_out=z(1, dtype=i64), it_in=z(1, dtype=i64),
         rnorm=z(1, dtype=f64), scale=z(1, dtype=f64), rnorm0=z(1, dtype=f64),
-        cond=z(1, dtype=i32), inv32=band["inv"].to(device=dev, dtype=i32).contiguous(),
-        pi=band["pi"].to(dev), front=int(band["front"]), shape=(R, m_pad, B))
+        cond=z(1, dtype=i32),
+        inv32=(band["inv"].to(device=dev, dtype=i32).contiguous() if band is not None
+               else z(0, dtype=i32)),
+        pi=band["pi"].to(dev) if band is not None else z(0, dtype=i64),
+        front=int(band["front"]) if band is not None else 0, shape=(R, m_pad, B), c64=c64)
 
 
 class Operator(NamedTuple):
@@ -197,22 +255,27 @@ class Operator(NamedTuple):
     ``mpos``, ``mcb``, ``env``; the plain versions of the product's two
     parts, ``plain_blocks(x, wd)`` and ``plain_rows(x, wd, band_y, y_cc,
     parts)`` (``physics.current``'s ``apply_blocks`` and ``apply_rows`` of
-    the solve's blocks)."""
-    dsi: torch.Tensor
-    dsi32: torch.Tensor
+    the solve's blocks).  ``T_cc`` the stored metal block [n_mp, n_mp] (f32
+    in mixed precision, f64 in f64; None: on the fly); ``minv`` [Nsub] the
+    f64 solve's Jacobi 1 / diag (None in mixed precision, where ``dsi``
+    scales the system and ``b`` is the scaled right-hand side; in f64
+    ``dsi`` and the f32 twins are None, ``b`` the unscaled right-hand
+    side)."""
+    dsi: Optional[torch.Tensor]
+    dsi32: Optional[torch.Tensor]
     b: torch.Tensor
     diag: torch.Tensor
-    diag32: torch.Tensor
+    diag32: Optional[torch.Tensor]
     gnd: torch.Tensor
-    gnd32: torch.Tensor
+    gnd32: Optional[torch.Tensor]
     src: torch.Tensor
-    src32: torch.Tensor
+    src32: Optional[torch.Tensor]
     gnd_lo: int
     nsi: int
     loop_G: float
-    slots: BandSlots
+    slots: Optional[BandSlots]
     row_fix: Optional[torch.Tensor]
-    dyn: torch.Tensor
+    dyn: Optional[torch.Tensor]
     nbv: torch.Tensor
     anb: torch.Tensor
     T_vm: torch.Tensor
@@ -222,11 +285,13 @@ class Operator(NamedTuple):
     n_vac: torch.Tensor
     mp_inv: torch.Tensor
     mp: torch.Tensor
-    mpos: torch.Tensor
-    mcb: torch.Tensor
-    env: dict
+    mpos: Optional[torch.Tensor]
+    mcb: Optional[torch.Tensor]
+    env: Optional[dict]
     plain_blocks: Callable
     plain_rows: Callable
+    T_cc: Optional[torch.Tensor] = None
+    minv: Optional[torch.Tensor] = None
 
 
 class Result(NamedTuple):
@@ -251,7 +316,9 @@ def _fn(symbol):
         fn.argtypes = {
             "dkmc_transport_pack": [p, p, p, p, i, p, i, p, p, p, p],
             "dkmc_transport_blocks": [i] + [p] * 10 + [i] * 6 + [p] * 10,
-            "dkmc_transport_rows": [p] * 14 + [d, i, i] + [p] * 7,
+            "dkmc_transport_rows": [i] + [p] * 14 + [d, i, i] + [p] * 11,
+            "dkmc_transport_stored": [i, p, p, p, i, p, p],
+            "dkmc_transport_update64": [p] * 15 + [u, i, i] + [p] * 4,
             "dkmc_transport_rows_update": [p] * 15 + [d, i] + [p] * 15 + [u, i] + [p] * 3
                                           + [i] + [p] * 4,
             "dkmc_transport_refine": [p] * 27 + [i, p, p, d, i, i, i, i, u, p, p],
@@ -318,6 +385,51 @@ def fly(tw: Workspace, op: Operator, stream=None) -> None:
     wkb_fly_matvec_out(op.mpos, op.mcb, tw.xm, op.env, tw.y_cc, tw.fly, stream)
 
 
+def stored_matvec_plain(T_cc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`stored_matvec_out`: ``T_cc @ x`` in the
+    block's dtype (``physics.current._apply_X_blocks``' product of a stored
+    block)."""
+    return T_cc.matmul(x)
+
+
+def stored_matvec_out(T_cc: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                      stream=None) -> None:
+    """``y = T_cc @ x`` of the stored metal block [n, n] (row-major, f32 or
+    f64 storage and sums in its dtype) into the caller's ``y`` [n] on
+    ``stream``: a warp a row, 16-byte loads, one fixed order of each row's
+    sum (``csrc/transport_cg.cu`` ``stored_matvec_kernel``), so that a
+    captured loop and a host loop get the same bits.  No TF32 and no
+    library call: the product sits in the body of a WHILE node, which cannot
+    allocate.  CPU tensors take :func:`stored_matvec_plain`; on the card the
+    build or launch raises on failure.  ``launches`` counts the launches;
+    the card counts them too."""
+    if y.device.type == "cpu":
+        y.copy_(stored_matvec_plain(T_cc, x))
+        return
+    n = T_cc.shape[0]
+    if (T_cc.shape != (n, n) or not T_cc.is_contiguous() or x.shape != (n,)
+            or y.shape != (n,) or not (T_cc.dtype == x.dtype == y.dtype)
+            or T_cc.dtype not in (torch.float32, torch.float64)):
+        raise ValueError("stored_matvec_out: a contiguous [n, n] block and [n] vectors of one "
+                         "dtype, f32 or f64")
+    _launched("stored_matvec", _fn("dkmc_transport_stored")(
+        int(T_cc.dtype == torch.float64), _ptr(T_cc), _ptr(x), _ptr(y), n,
+        _build.launch_counter(y.device, "stored_matvec"), _stream(y, stream)))
+    stored_matvec_out.launches += 1
+
+
+stored_matvec_out.launches = 0
+
+
+def metal(tw: Workspace, op: Operator, stream=None) -> None:
+    """The metal block's product ``y_cc`` of the metal vector: the stored
+    block's (:func:`stored_matvec_out`) or, on the fly, :func:`fly`."""
+    if op.T_cc is not None:
+        stored_matvec_out(op.T_cc, tw.xm, tw.y_cc, stream)
+    else:
+        fly(tw, op, stream)
+
+
 def blocks_plain(tw: Workspace, op: Operator, hi: bool) -> None:
     """The plain version of :func:`blocks`."""
     xs, wd = (tw.xs64, torch.float64) if hi else (tw.xs32, torch.float32)
@@ -339,8 +451,9 @@ def blocks(tw: Workspace, op: Operator, hi: bool, stream=None) -> None:
         return blocks_plain(tw, op, hi)
     na, max_nn = op.anb.shape
     vcap, n_mp = op.T_vm.shape
+    mode = 0 if not hi else 2 if tw.c64 is not None else 1
     _launched("transport_blocks", _fn("dkmc_transport_blocks")(
-        int(hi), _ptr(tw.xs64 if hi else tw.xs32), _ptr(tw.xm), _ptr(op.T_vm), _ptr(op.T_vv),
+        mode, _ptr(tw.xs64 if hi else tw.xs32), _ptr(tw.xm), _ptr(op.T_vm), _ptr(op.T_vv),
         _ptr(op.vidx), _ptr(op.n_vac), None if hi else _ptr(op.dyn), _ptr(op.anb),
         _ptr(op.gnd if hi else op.gnd32), _ptr(op.src if hi else op.src32), op.gnd_lo, op.nsi,
         na, max_nn, vcap, n_mp, _ptr(tw.mv), _ptr(tw.y_vm), _ptr(tw.y_vv), _ptr(tw.y_bump),
@@ -353,6 +466,15 @@ def blocks(tw: Workspace, op: Operator, hi: bool, stream=None) -> None:
 blocks.launches = 0
 
 
+def _parts(tw: Workspace, hi: bool) -> tuple:
+    """:func:`blocks`' products as ``physics.current.apply_rows`` takes them
+    (in the working dtype of ``hi``)."""
+    wd = torch.float64 if hi else torch.float32
+    dots = tw.dots64 if hi else tw.dots32
+    return (tw.mv.to(wd), tw.y_vv.to(wd), tw.y_vm.to(wd), dots[0], dots[1],
+            None if hi else tw.y_bump)
+
+
 def rows_plain(tw: Workspace, op: Operator, hi: bool) -> None:
     """The plain version of :func:`rows` (``hi``) and of the rows of
     :func:`rows_update`: every row of the product from the packed vector
@@ -361,18 +483,17 @@ def rows_plain(tw: Workspace, op: Operator, hi: bool) -> None:
     product and a sum each rounded, as ``physics.current._band_unpermute``
     adds it), the metal block and :func:`blocks`: the inner CG's ``ap = A p``
     and its step ``alpha = r.z / p.ap`` (f32), or the refinement's residual
-    ``r = b - A x`` and its r.r (``hi``, f64)."""
-    nsub = op.dsi.shape[0]
+    ``r = b - A x`` and its r.r (``hi``, f64; in the f64 solve, where
+    ``dsi`` is None, of the unscaled system)."""
+    nsub = op.b.shape[0]
     wd = torch.float64 if hi else torch.float32
-    dots = tw.dots64 if hi else tw.dots32
-    parts = (tw.mv.to(wd), tw.y_vv.to(wd), tw.y_vm.to(wd), dots[0], dots[1],
-             None if hi else tw.y_bump)
     if hi:
-        ap = op.dsi * op.plain_rows(tw.xs64, wd, None, tw.y_cc, parts)[:nsub]
-        r = op.b - ap
+        y = op.plain_rows(tw.xs64, wd, None, tw.y_cc, _parts(tw, True))[:nsub]
+        r = op.b - (y if op.dsi is None else op.dsi * y)
         tw.r.copy_(r)
         tw.rsum.copy_(torch.dot(r, r).reshape(1))
         return
+    parts = _parts(tw, False)
     ap = op.dsi32 * op.plain_rows(tw.xs32, wd, tw.band_y, tw.y_cc, parts)[:nsub]
     c = tw.cg
     c.ap[0].copy_(ap)
@@ -386,12 +507,22 @@ def rows(tw: Workspace, op: Operator, stream=None) -> None:
     :func:`blocks`."""
     if tw.x.device.type == "cpu":
         return rows_plain(tw, op, True)
+    _rows_launch(tw, op, True, stream)
+
+
+def _rows_launch(tw: Workspace, op: Operator, residual: bool, stream) -> None:
+    """transport_rows' launch: the residual form (:func:`rows`) or the
+    product form (:func:`rows_ap`)."""
     na, max_nn = op.anb.shape
+    c = tw.c64
+    prod = None if residual else c
     _launched("transport_rows", _fn("dkmc_transport_rows")(
-        _ptr(tw.xs64), _ptr(op.nbv), _ptr(op.anb), _ptr(op.vslot), _ptr(op.mp_inv),
-        _ptr(tw.y_cc), _ptr(tw.mv), _ptr(tw.y_vm), _ptr(tw.y_vv), _ptr(tw.dots64),
-        _ptr(op.gnd), _ptr(op.src), _ptr(op.diag), _ptr(op.dsi), float(op.loop_G), na, max_nn,
-        _ptr(op.b), _ptr(tw.r), _ptr(tw.rsum), _ptr(tw.part64), _ptr(tw.ticket),
+        int(c is not None), _ptr(tw.xs64), _ptr(op.nbv), _ptr(op.anb), _ptr(op.vslot),
+        _ptr(op.mp_inv), _ptr(tw.y_cc), _ptr(tw.mv), _ptr(tw.y_vm), _ptr(tw.y_vv),
+        _ptr(tw.dots64), _ptr(op.gnd), _ptr(op.src), _ptr(op.diag), _ptr(op.dsi),
+        float(op.loop_G), na, max_nn, _ptr(op.b) if residual else None,
+        _ptr(tw.r), _ptr(tw.rsum), prod and _ptr(prod.ap), prod and _ptr(prod.act),
+        prod and _ptr(prod.rz), prod and _ptr(prod.alpha), _ptr(tw.part64), _ptr(tw.ticket),
         _build.launch_counter(tw.x.device, "transport_rows"), _stream(tw.x, stream)))
     rows.launches += 1
 
@@ -535,7 +666,7 @@ def products(tw: Workspace, op: Operator, stream=None) -> None:
     side1 = fork(dev, stream, 1) if capturing else stream
     side2 = fork(dev, stream, 2) if capturing else stream
     band(tw, op, stream)
-    fly(tw, op, side1)
+    metal(tw, op, side1)
     blocks(tw, op, False, side2)
     if capturing:
         join(dev, stream, 1)
@@ -556,7 +687,7 @@ def round_end(tw: Workspace, op: Operator, max_outer: int, maxiter: int, first: 
     """The f64 residual of the corrected iterate and the next round's set-up
     (:func:`refine`), in series."""
     pack(tw, op, first, stream)
-    fly(tw, op, stream)
+    metal(tw, op, stream)
     blocks(tw, op, True, stream)
     rows(tw, op, stream)
     refine(tw, op, first, max_outer, maxiter, handle, stream)
@@ -610,3 +741,167 @@ def solve(tw: Workspace, op: Operator, x0: torch.Tensor, go: torch.Tensor, tol: 
             round_end(tw, op, max_outer, maxiter)
     return Result(x=tw.x, iters=tw.it_in[0], residual=tw.rnorm[0], rnorm0=tw.rnorm0[0],
                   thresh=tw.thresh[0])
+
+
+# ----------------------------------------------------------------------------
+# the f64 solve: Jacobi CG, criterion "pre", on the unscaled system
+# ----------------------------------------------------------------------------
+
+class ResultF64(NamedTuple):
+    """The f64 solve's outcome, device tensors: the iterate [Nsub] (the
+    workspace's), the iterations, sqrt(|r'M^-1 r|) of the last residual, and
+    whether it met the criterion (``ops.cg.cg_solve``'s ``residual`` and
+    ``converged``)."""
+    x: torch.Tensor
+    iters: torch.Tensor
+    residual: torch.Tensor
+    converged: torch.Tensor
+
+
+def rows_ap_plain(tw: Workspace, op: Operator) -> None:
+    """The plain version of :func:`rows_ap`: while the flag is up, ``ap = A
+    p`` of the direction in ``xs64`` (``physics.current.apply_rows`` of the
+    products, f64) and ``alpha = r.z / p.ap`` (``ops.cg.cg_solve``'s
+    operations), else nothing."""
+    c = tw.c64
+    nsub = op.b.shape[0]
+    ap = op.plain_rows(tw.xs64, torch.float64, None, tw.y_cc, _parts(tw, True))[:nsub]
+    denom = torch.dot(tw.xs64[:nsub], ap)
+    on = c.act
+    c.ap.copy_(torch.where(on, ap, c.ap))
+    c.alpha.copy_(torch.where(on, torch.where(denom != 0, c.rz / denom, 0.0), c.alpha))
+
+
+def rows_ap(tw: Workspace, op: Operator, stream=None) -> None:
+    """The f64 solve's product ``ap = A p`` of the direction packed in
+    ``xs64`` (the ELL part, the metal block, :func:`blocks`, the virtual
+    rows and the diagonal: transport_rows' product form), ``p.ap`` and
+    ``alpha = r.z / p.ap``; a stopped solve's launch leaves at once."""
+    if tw.x.device.type == "cpu":
+        return rows_ap_plain(tw, op)
+    _rows_launch(tw, op, False, stream)
+
+
+def update_f64_plain(tw: Workspace, op: Operator, maxiter: int) -> None:
+    """The plain version of :func:`update_f64`: ``ops.cg.cg_solve``'s update
+    and direction (Jacobi ``minv``) where the flag is up, the direction
+    packed into ``xs64`` and the metal vector, the flag from the criterion
+    "pre" (r.z above the threshold), the count and the predicate."""
+    c = tw.c64
+    nsub = op.b.shape[0]
+    on = c.act
+    p = tw.xs64[:nsub]
+    x_n = tw.x + c.alpha * p
+    r_n = tw.r - c.alpha * c.ap
+    z = op.minv * r_n
+    rz_n = torch.dot(r_n, z)
+    beta = torch.where(c.rz != 0, rz_n / c.rz, 0.0)
+    p_n = torch.where(on, z + beta * p, p)
+    tw.x.copy_(torch.where(on, x_n, tw.x))
+    tw.r.copy_(torch.where(on, r_n, tw.r))
+    tw.xs64[:nsub] = p_n
+    tw.xm.copy_(tw.xs64[2:][op.mp])
+    c.beta.copy_(torch.where(on, beta, c.beta))
+    c.rz.copy_(torch.where(on, rz_n, c.rz))
+    c.iters.add_(on.to(c.iters.dtype))
+    act = on & (c.rz > c.thresh2)
+    c.act.copy_(act)
+    c.cond.copy_((act & (c.iters < maxiter)).to(torch.int32))
+    c.total.add_(1)
+
+
+def update_f64(tw: Workspace, op: Operator, maxiter: int, handle: int = 0,
+               stream=None) -> None:
+    """The f64 solve's tail after :func:`rows_ap`, one cooperative launch:
+    ``x += alpha p``, ``r -= alpha ap``, ``z = minv r`` and r.z; a barrier
+    of the grid; beta and ``p = z + beta p`` packed into ``xs64`` and the
+    metal vector; the flag (criterion "pre"), the count and the predicate,
+    also set as the condition of the WHILE node ``handle`` (0: none).  A
+    stopped solve's launch changes nothing but the loop's count, flag and
+    predicate.  On the card the grid is capped at the blocks it holds at
+    once; the build or launch raises on failure."""
+    if tw.x.device.type == "cpu":
+        return update_f64_plain(tw, op, maxiter)
+    c = tw.c64
+    _launched("transport_update64", _fn("dkmc_transport_update64")(
+        _ptr(tw.x), _ptr(tw.r), _ptr(tw.xs64), _ptr(c.ap), _ptr(op.minv), _ptr(tw.xm),
+        _ptr(op.mp_inv), _ptr(c.act), _ptr(c.alpha), _ptr(c.beta), _ptr(c.rz),
+        _ptr(c.thresh2), _ptr(c.iters), _ptr(c.cond), _ptr(c.total), handle,
+        op.b.shape[0], maxiter, _ptr(c.part), _ptr(c.bar),
+        _build.launch_counter(tw.x.device, "transport_update64"), _stream(tw.x, stream)))
+    update_f64.launches += 1
+
+
+update_f64.launches = 0
+
+
+def iteration_f64(tw: Workspace, op: Operator, maxiter: int, handle: int = 0,
+                  stream=None) -> None:
+    """One iteration of the f64 solve: the stored block's product and, on a
+    branch beside it under a capture, :func:`blocks` (f64 build); then
+    :func:`rows_ap` and :func:`update_f64`, which sets the predicate (and
+    the WHILE node ``handle``'s condition).  Outside a capture the same
+    kernels in order on one stream: the same bits."""
+    dev = tw.x.device
+    capturing = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    side = fork(dev, stream, 1) if capturing else stream
+    metal(tw, op, stream)
+    blocks(tw, op, True, side)
+    if capturing:
+        join(dev, stream, 1)
+    rows_ap(tw, op, stream)
+    update_f64(tw, op, maxiter, handle, stream)
+
+
+def _load_vector(tw: Workspace, op: Operator, v: torch.Tensor) -> None:
+    """``v`` [Nsub] as the products read it: ``xs64`` (0 on the grounded
+    last atom) and the metal vector."""
+    nsub = v.shape[0]
+    tw.xs64[:nsub] = v
+    tw.xs64[nsub:] = 0.0
+    tw.xm.copy_(tw.xs64[2:][op.mp].to(tw.xm.dtype))
+
+
+def solve_f64(tw: Workspace, op: Operator, x0: torch.Tensor, go: torch.Tensor, tol: float,
+              maxiter: int) -> ResultF64:
+    """``ops.cg.cg_solve(A, op.b, x0, diag, tol, maxiter, criterion="pre")``
+    of the unscaled f64 operator ``op`` (Jacobi ``op.minv``) on ``tw``; ``go``
+    a bool [1] tensor (False: no iteration, the iterate stays ``x0``).  The
+    set-up (threshold, ``r0 = b - A x0`` through the kernels' residual form,
+    z0, r0.z0, p0 = z0) in PyTorch; then under a capture on the card (and on
+    CPU tensors, through the plain versions, whose arithmetic is
+    ``cg_solve``'s bit for bit) one WHILE node of :func:`iteration_f64`;
+    outside one on the card the same kernels from a host loop that reads the
+    predicate once a chunk of iterations (``ops.cg.CHUNKS``)."""
+    c = tw.c64
+    ref = torch.sqrt(torch.dot(op.b, op.minv * op.b))
+    th = tol * torch.where(ref > 0, ref, 1.0)
+    c.thresh2.copy_((th * th).reshape(1))
+    tw.x.copy_(x0)
+    _load_vector(tw, op, x0)
+    metal(tw, op)
+    blocks(tw, op, True)
+    rows(tw, op)
+    z = op.minv * tw.r
+    rz = torch.dot(tw.r, z)
+    _load_vector(tw, op, z)
+    act = go.reshape(1) & (rz > c.thresh2)
+    c.rz.copy_(rz.reshape(1))
+    c.act.copy_(act)
+    c.iters.zero_()
+    c.cond.copy_((act & (maxiter > 0)).to(torch.int32))
+    dev = tw.x.device
+    if dev.type == "cpu" or torch.cuda.is_current_stream_capturing():
+        device_while(c.cond, lambda h, s: iteration_f64(tw, op, maxiter, h, s))
+    else:
+        chunk = ran = 0
+        while _read(c.cond)[0]:
+            # no chunk past maxiter: the cap stops the loop, not the flag
+            n = min(cg_mod.CHUNKS[min(chunk, len(cg_mod.CHUNKS) - 1)], maxiter - ran)
+            for _ in range(n):
+                iteration_f64(tw, op, maxiter)
+            chunk += 1
+            ran += n
+    m2 = c.rz[0]
+    return ResultF64(x=tw.x, iters=c.iters[0], residual=torch.sqrt(torch.abs(m2)),
+                     converged=m2 <= c.thresh2[0])

@@ -1145,17 +1145,18 @@ def update_power_blocked(
 def device_form_reason(params: PhysParams) -> Optional[str]:
     """Why the in-superstep transport solve of ``params`` does not run as the
     transport CG's device loops (``ops.transport_cg``); None when it does:
-    blocked, mixed precision, the on-the-fly metal block, the Jacobi warm
-    preconditioner (and, at the call, the static band:
-    :func:`warm_device_form`), with or without the bf16 inner operator
-    (under fly the bf16 band and its ``row_fix`` diagonal)."""
+    blocked, the Jacobi warm preconditioner, and either mixed precision with
+    the on-the-fly or the stored metal block (and, at the call, the static
+    band: :func:`warm_device_form`), with or without the bf16 inner operator
+    (under fly the bf16 band and its ``row_fix`` diagonal), or f64 (the
+    stored block, the Jacobi CG of the unscaled system)."""
     if params.transport != "blocked":
         return f"transport={params.transport!r}: the dense transport solve runs eagerly"
-    if not params.mixed:
-        return "a precision other than 'mixed': the f64 blocked solve runs eagerly"
-    if params.transport_cc != "fly":
-        return (f"transport_cc={params.transport_cc!r}: the stored metal block runs "
-                "eagerly")
+    if not params.mixed and params.dtype != torch.float64:
+        return "precision 'f32': the f32 blocked solve runs eagerly"
+    if params.transport_cc == "stored" and bf16_inner(params):
+        return ("transport_bf16_inner with the stored metal block: its bf16 twin "
+                "products run eagerly")
     if params.transport_warm_precond != "jacobi":
         return (f"transport_warm_precond={params.transport_warm_precond!r}: the deflated "
                 "warm re-solve runs eagerly")
@@ -1165,20 +1166,27 @@ def device_form_reason(params: PhysParams) -> Optional[str]:
 def warm_device_form(params: PhysParams, cc, precond: Optional[str]) -> bool:
     """The in-superstep blocked solve runs as the transport CG's device loops
     (no read inside the solve): :func:`device_form_reason` None, the warm
-    preconditioner ``precond`` Jacobi, and the static band in ``cc``."""
+    preconditioner ``precond`` Jacobi, the bias point's cache ``cc`` with
+    the stored block when the block is stored, and in mixed precision the
+    static band (the f64 solve reads the exact ELL rows)."""
     return (device_form_reason(params) is None and precond == "jacobi"
-            and isinstance(cc, dict) and cc.get("band") is not None)
+            and isinstance(cc, dict)
+            and (not params.mixed or cc.get("band") is not None)
+            and (params.transport_cc == "fly" or cc.get("cc") is not None))
 
 
 def transport_workspace(geom: Geometry, params: PhysParams, cc) -> transport_cg.Workspace:
     """The transport CG's workspace of this bias point's cache ``cc`` (made
-    at the first solve, kept in ``cc`` under "tws" for the next)."""
+    at the first solve, kept in ``cc`` under "tws" for the next): the mixed
+    solve's with the band, or the f64 solve's."""
     n_mp = int(geom.atom_metalp_idx.shape[0])
-    key = (geom.N_atom, params.tunnel_vac_cap, n_mp)
+    f64_solve = not params.mixed
+    key = (geom.N_atom, params.tunnel_vac_cap, n_mp, f64_solve)
     tws = cc.get("tws")
     if tws is None or cc.get("tws_key") != key:
-        tws = cc["tws"] = transport_cg.workspace(geom.N_atom, params.tunnel_vac_cap, n_mp,
-                                                 cc["band"], geom.device)
+        tws = cc["tws"] = transport_cg.workspace(
+            geom.N_atom, params.tunnel_vac_cap, n_mp, None if f64_solve else cc["band"],
+            geom.device, f64_solve=f64_solve)
         cc["tws_key"] = key
     return tws
 
@@ -1188,14 +1196,17 @@ def _update_power_warm_device(
     cg_maxiter: int, cc, go: torch.Tensor,
 ) -> Tuple[Dict, Dict]:
     """The warm blocked re-solve with no read of the device
-    (:func:`warm_device_form`): the assembly, the mixed CG as the
-    transport CG's device loops (``ops.transport_cg.solve``, under a capture
-    two nested WHILE nodes), the current, and with heating the site power.
-    ``go`` [1] bool: False runs no refinement round.  Returns the new state
-    fields and the metrics, 0-d tensors where they are scalars (the
-    arithmetic of :func:`update_power_blocked`'s mixed branch: with
+    (:func:`warm_device_form`): the assembly, the solve as the transport
+    CG's device loops (under a capture WHILE nodes), the current, and with
+    heating the site power.  Mixed precision: the mixed CG
+    (``ops.transport_cg.solve``, two nested loops), the arithmetic of
+    :func:`update_power_blocked`'s mixed branch (with
     ``transport_bf16_inner`` the bf16 band and its ``row_fix`` in the inner
-    product, the tolerance tightened as there)."""
+    product, the tolerance tightened as there).  f64: the Jacobi CG with
+    criterion "pre" (``ops.transport_cg.solve_f64``, one loop), its f64
+    branch's.  The metal block on the fly or stored (``cc["cc"]``).  ``go``
+    [1] bool: False runs no iteration.  Returns the new state fields and the
+    metrics, 0-d tensors where they are scalars."""
     if bf16_inner(params):
         cg_tol = cg_tol * 1e-2
     dtype = params.dtype
@@ -1203,8 +1214,8 @@ def _update_power_warm_device(
     Na = geom.N_atom
     Nsub = Na + 1
     nsi = params.num_source_inj
-    band = cc["band"]
-    blk = assemble_X_blocks(geom, params, state, band=band)
+    band = cc.get("band") if params.mixed else None
+    blk = assemble_X_blocks(geom, params, state, cc=cc.get("cc"), band=band)
     loop_G = blk["loop_G"]
     diag = blk["diag"]
     rhs = torch.zeros(Nsub, dtype=dtype, device=dev)
@@ -1212,27 +1223,44 @@ def _update_power_warm_device(
     rhs.select(0, 0).fill_(-loop_G * Vd)
     rhs.select(0, 1).fill_(loop_G * Vd)
     d = diag[:Nsub]
-    dsi = 1.0 / torch.sqrt(torch.where(d > 0, d, 1.0))
-    b_s = rhs * dsi
-    y0 = state.virtual_potentials[:Nsub] / dsi
-    f = blk["fly"]
+    f = blk.get("fly") or dict(mpos=None, mcb=None, env=None)
+    T_cc = None if blk["T_cc"] is None else blk["T_cc"].contiguous()
     gnd, src = blk["gnd_vals"], blk["src_vals"]
-    op = transport_cg.Operator(
-        dsi=dsi, dsi32=dsi.to(torch.float32), b=b_s, diag=diag,
-        diag32=diag.to(torch.float32), gnd=gnd, gnd32=gnd.to(torch.float32), src=src,
-        src32=src.to(torch.float32), gnd_lo=max(0, min(Na, Na - params.num_ground_ext + 1)),
-        nsi=max(0, min(Na, nsi)), loop_G=loop_G, slots=band["slots"],
-        row_fix=band.get("row_fix"), dyn=blk["band_dyn_vals"].contiguous(),
-        nbv=blk["nb_vals"].contiguous(),
+    common = dict(
+        diag=diag, gnd=gnd, src=src, gnd_lo=max(0, min(Na, Na - params.num_ground_ext + 1)),
+        nsi=max(0, min(Na, nsi)), loop_G=loop_G, nbv=blk["nb_vals"].contiguous(),
         anb=geom.atom_neigh_idx, T_vm=blk["T_vm"].contiguous(), T_vv=blk["T_vv"].contiguous(),
         vidx=blk["vidx32"], vslot=blk["vslot"], n_vac=blk["n_vac"],
         mp_inv=geom.atom_metalp_inv, mp=blk["mp"], mpos=f["mpos"], mcb=f["mcb"], env=f["env"],
         plain_blocks=lambda x, wd: apply_blocks(blk, x, wd),
         plain_rows=lambda x, wd, band_y, y_cc, parts: apply_rows(blk, x, wd, band_y, y_cc,
-                                                                  parts))
+                                                                  parts),
+        T_cc=T_cc)
     tws = transport_workspace(geom, params, cc)
-    res = transport_cg.solve(tws, op, y0, go, cg_tol, cg_maxiter)
-    v = res.x * dsi
+    if not params.mixed:
+        # the f64 branch of update_power_blocked: cg_solve with the Jacobi
+        # diagonal and criterion "pre" on the unscaled system
+        op = transport_cg.Operator(
+            dsi=None, dsi32=None, b=rhs, diag32=None, gnd32=None, src32=None, slots=None,
+            row_fix=None, dyn=None, minv=torch.where(d != 0, 1.0 / d, 1.0), **common)
+        res = transport_cg.solve_f64(tws, op, state.virtual_potentials[:Nsub], go, cg_tol,
+                                     cg_maxiter)
+        v = res.x
+        rel0 = torch.full((), float("nan"), dtype=torch.float64, device=dev)
+        converged = res.converged
+    else:
+        dsi = 1.0 / torch.sqrt(torch.where(d > 0, d, 1.0))
+        b_s = rhs * dsi
+        y0 = state.virtual_potentials[:Nsub] / dsi
+        op = transport_cg.Operator(
+            dsi=dsi, dsi32=dsi.to(torch.float32), b=b_s, diag32=diag.to(torch.float32),
+            gnd32=gnd.to(torch.float32), src32=src.to(torch.float32), slots=band["slots"],
+            row_fix=band.get("row_fix"), dyn=blk["band_dyn_vals"].contiguous(), **common)
+        res = transport_cg.solve(tws, op, y0, go, cg_tol, cg_maxiter)
+        v = res.x * dsi
+        bref = torch.sqrt(torch.dot(b_s, b_s))
+        rel0 = res.rnorm0 / torch.where(bref > 0, bref, 1.0)
+        converged = res.residual <= res.thresh
 
     contact_drop = torch.abs(v[nsi] - Vd)
     M = torch.cat([v * G0, torch.zeros(1, dtype=dtype, device=dev)])  # [Na+2]
@@ -1249,15 +1277,13 @@ def _update_power_warm_device(
     if blk["tt_slot_atom"] is not None:
         fields.update(tt_slot_atom=blk["tt_slot_atom"], tt_vm=blk["T_vm"], tt_vv=blk["T_vv"],
                       tt_valid=torch.ones((), dtype=torch.bool, device=dev))
-    bref = torch.sqrt(torch.dot(b_s, b_s))
-    bref = torch.where(bref > 0, bref, 1.0)
     metrics = {
         "n_vac_atoms": _n_vac_atoms_t(geom, state),
         "Current [uA]": I_macro * 1e6,
         "Conductance [uS]": torch.abs(I_macro / (Vd if Vd != 0 else 1.0)) * 1e6,
         "cg_iters_power": res.iters.clone(),
-        "transport_rel0": res.rnorm0 / bref,
-        "transport_converged": res.residual <= res.thresh,
+        "transport_rel0": rel0,
+        "transport_converged": converged,
         "contact_potential_drop": contact_drop,
         "tunnel_int_steps_needed": blk["int_steps_needed"],
         "transport_partial_assembly": blk["tt_partial"].to(torch.int64),

@@ -452,10 +452,12 @@ def graph_ready(params: PhysParams, batch: Optional[int] = 1,
     (:class:`SuperstepGraph`): the headline module set with the Jacobi
     boundary CG, the incremental event loop and the compacted pair-sweep
     kernel; with ``solve_current``, one replica
-    (``batch`` 1) of the blocked mixed solve with the on-the-fly metal block,
-    the static band (``band``) and the Jacobi warm preconditioner, with or
-    without the bf16 inner operator, heating off, global or local (dense or
-    matrix-free).  Otherwise why it runs eagerly."""
+    (``batch`` 1) of the blocked solve with the Jacobi warm preconditioner,
+    heating off, global or local (dense or matrix-free): in mixed precision
+    with the on-the-fly or the stored metal block and the static band
+    (``band``), with or without the bf16 inner operator (on the fly), and in
+    f64 (the stored block; no band needed: the f64 operator reads the exact
+    ELL rows).  Otherwise why it runs eagerly."""
     if params.solve_current:
         reason = current_mod.device_form_reason(params)
         if reason is not None:
@@ -463,7 +465,7 @@ def graph_ready(params: PhysParams, batch: Optional[int] = 1,
         if batch != 1:
             return ("solve_current with a replica axis (B > 1): the transport and heat "
                     "phases run replica by replica, eagerly")
-        if not band:
+        if not band and params.mixed:
             return ("solve_current without the static band (transport_banded off, or too "
                     "large): the ELL inner operator runs eagerly")
     if params.solve_potential and params.boundary_precond != "jacobi":
@@ -672,9 +674,9 @@ class SuperstepGraph:
                 # graphs take a new pool
                 self.pool = torch.cuda.graph_pool_handle()
             if self.params.solve_current:
-                if not (isinstance(self.cc, dict) and self.cc.get("band") is not None):
+                if not current_mod.warm_device_form(self.params, self.cc, "jacobi"):
                     raise ValueError("the captured transport phase needs the bias point's "
-                                     "cache with the static band")
+                                     "cache (in mixed precision with the static band)")
                 # made before the capture, outside PyTorch's pool
                 current_mod.transport_workspace(self.geom, self.params, self.cc)
             fn = (self._step_fn if kind == "step" else self._batch_fn)(src, Vd, n_steps)

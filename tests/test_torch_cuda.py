@@ -1835,7 +1835,9 @@ def _transport_op(sim, seed=0):
     return tws, op, captured
 
 
-def _clone_tws(tws):
+def _map_tws(tws, fn):
+    """A transport workspace with ``fn`` applied to every tensor, those of
+    its nested CG states (``cg``, ``c64``) and the fly scratch too."""
     import copy
     import dataclasses
 
@@ -1843,35 +1845,26 @@ def _clone_tws(tws):
     for f in dataclasses.fields(tws):
         v = getattr(tws, f.name)
         if torch.is_tensor(v):
-            kw[f.name] = v.clone()
-        elif f.name == "cg":
-            kw[f.name] = dataclasses.replace(v, **{
-                g.name: getattr(v, g.name).clone() for g in dataclasses.fields(v)
+            v = fn(v)
+        elif dataclasses.is_dataclass(v):
+            v = dataclasses.replace(v, **{
+                g.name: fn(getattr(v, g.name)) for g in dataclasses.fields(v)
                 if torch.is_tensor(getattr(v, g.name))})
         elif f.name == "fly":
-            kw[f.name] = tuple(t.clone() for t in v)
+            v = tuple(fn(t) for t in v)
         else:
-            kw[f.name] = copy.copy(v)
+            v = copy.copy(v)
+        kw[f.name] = v
     return type(tws)(**kw)
+
+
+def _clone_tws(tws):
+    return _map_tws(tws, lambda t: t.clone())
 
 
 def _cpu_ws(ws):
     """A transport workspace's CPU copy."""
-    import dataclasses
-
-    kw = {}
-    for f in dataclasses.fields(ws):
-        v = getattr(ws, f.name)
-        if f.name == "cg":
-            v = dataclasses.replace(v, **{g.name: getattr(v, g.name).cpu() for g in
-                                          dataclasses.fields(v)
-                                          if torch.is_tensor(getattr(v, g.name))})
-        elif f.name == "fly":
-            v = tuple(t.cpu() for t in v)
-        elif torch.is_tensor(v):
-            v = v.cpu()
-        kw[f.name] = v
-    return type(ws)(**kw)
+    return _map_tws(ws, lambda t: t.cpu())
 
 
 def _cpu_op(op):
@@ -1881,7 +1874,7 @@ def _cpu_op(op):
     cuda = lambda v: v.cuda() if torch.is_tensor(v) else v
     op_c = op._replace(**{k: cpu(v) for k, v in op._asdict().items()
                           if k not in ("plain_blocks", "plain_rows", "env", "slots")},
-                       slots=op.slots.to("cpu"))
+                       slots=None if op.slots is None else op.slots.to("cpu"))
     blocks, rows = op.plain_blocks, op.plain_rows
     return op_c._replace(
         plain_blocks=lambda x, wd: tuple(cpu(v) for v in blocks(x.cuda(), wd)),
@@ -2639,3 +2632,287 @@ def test_cuda_transport_rows_bf16_row_fix(tmp_path):
     n = _clone_tws(tws)
     tcg.rows_update(n, op._replace(row_fix=torch.zeros_like(op.row_fix)))
     assert float((n.cg.ap.cpu() - p.cg.ap).abs().max()) > 10 * err
+
+
+# ---------------------------------------------------------------------------
+# the stored metal block's product and the f64 solve inside the captured
+# transport superstep
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_cuda_stored_matvec_matches_plain(dtype, offset):
+    """stored_matvec_out against the product in f64 (the plain version's
+    arithmetic without its rounding) at n 1, 2, 5, 31, 33, 127, 1,001 and
+    3,527, the block starting ``offset`` elements past a 16-byte boundary
+    (so every row's head and tail are taken): each entry within 1e-5 (f32)
+    and 1e-13 (f64) of the sum of its terms' sizes, and within that of the
+    plain version's; two launches bit-equal, one on a side stream; the card
+    counts one launch a call."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops.transport_cg import stored_matvec_out, stored_matvec_plain
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    g = torch.Generator().manual_seed(21 + offset)
+    idx = _build.COUNTED_ON_CARD.index("stored_matvec")
+    side = torch.cuda.Stream()
+    for n in (1, 2, 5, 31, 33, 127, 1001, 3527):
+        buf = torch.empty(n * n + 8, dtype=dtype, device="cuda")
+        head = (-(buf.data_ptr() // buf.element_size())) % (16 // buf.element_size())
+        T = buf[head + offset:head + offset + n * n].view(n, n)
+        T.copy_(torch.randn((n, n), generator=g, dtype=dtype))
+        x = torch.randn(n, generator=g, dtype=dtype).cuda()
+        y = torch.full((n,), float("nan"), dtype=dtype, device="cuda")
+        y2 = y.clone()
+        c0 = int(_build.launch_counts("cuda")[idx])
+        stored_matvec_out(T, x, y)
+        stored_matvec_out(T, x, y2, side.cuda_stream)
+        side.synchronize()
+        torch.cuda.synchronize()
+        assert int(_build.launch_counts("cuda")[idx]) == c0 + 2
+        assert torch.equal(y, y2), n
+        exact = T.double() @ x.double()
+        size = T.double().abs() @ x.double().abs()
+        assert bool(((y.double() - exact).abs() <= tol * size).all()), n
+        plain = stored_matvec_plain(T, x).double()
+        assert bool(((y.double() - plain).abs() <= 2 * tol * size).all()), n
+    with pytest.raises(ValueError):
+        stored_matvec_out(T.t(), x, y)
+
+
+def _f64_sim(tmp_path, crossbar=False, **over):
+    """The f64 configuration of the captured transport superstep (the stored
+    metal block) on the card: _transport_sim in f64, its cold transport
+    solve in one call (segments of 40 iterations restart the f64 deflated
+    CG, each with a new assembly, hundreds of times over)."""
+    return _transport_sim(tmp_path, crossbar=crossbar, precision="f64", transport_cc="stored",
+                          solver_chunk_iters=0, **over)
+
+
+def _transport_op64(sim, seed=0):
+    """The f64 solve's operator and workspace of ``sim``'s state (the warm
+    re-solve of a changed bias run once), the direction p in ``xs64`` and
+    the iterate and residual set from seeded noise, the flag up."""
+    import dataclasses
+
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+    from devicekmc_tpu_torch.physics import current
+
+    captured = {}
+    solve = tcg.solve_f64
+
+    def grab(tws, op, x0, go, tol, maxiter):
+        captured.update(tws=tws, op=op, x0=x0.clone(), tol=tol, maxiter=maxiter)
+        return solve(tws, op, x0, go, tol, maxiter)
+
+    tcg.solve_f64 = grab
+    try:
+        state = dataclasses.replace(sim.state, transport_Vd_prev=float("nan"))
+        current.update_power(sim.geom, sim.params, state, sim.cfg.V_switch[0],
+                             cc=dict(sim._cc), allow_skip=True)
+    finally:
+        tcg.solve_f64 = solve
+    tws, op = captured["tws"], captured["op"]
+    gen = torch.Generator().manual_seed(seed)
+    n = tws.x.shape[0]
+    tws.xs64[:n].copy_(torch.randn(n, generator=gen, dtype=torch.float64))
+    tws.xs64[n:].zero_()
+    tws.xm.copy_(tws.xs64[2:][op.mp])
+    tws.x.copy_(captured["x0"])
+    tws.r.copy_(torch.randn(n, generator=gen, dtype=torch.float64))
+    c = tws.c64
+    c.act.fill_(True)
+    c.rz.copy_(torch.dot(tws.r, op.minv * tws.r).reshape(1))
+    c.thresh2.fill_(1e-300)
+    c.iters.fill_(3)
+    return tws, op, captured
+
+
+def _close64(name, got, want, tol):
+    got, want = got.cpu().double(), want.double()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol * scale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crossbar", [False, True])
+def test_cuda_transport_f64_kernels_match_plain(tmp_path, crossbar):
+    """The f64 solve's kernels against their plain versions on the same
+    inputs (the f64 operator of a state after 2 supersteps, a seeded
+    direction): the stored block's product within 1e-13 of its largest
+    entry; transport_blocks' f64 build (f64 blocks) within 1e-12 of the sum
+    of its terms' sizes, the dots within 1e-12 of theirs; transport_rows'
+    residual form (unscaled) and product form (ap) within 1e-12 of their
+    largest entry (the residual's scale: A x), alpha within 1e-10; the
+    update, direction and packing (transport_update64) from the kernel's
+    own ap and alpha: x, r, the direction and the metal vector within 1e-12
+    of their largest entry, r.z and beta within 1e-10, flag, count,
+    predicate and the loop's count equal; a stopped solve's launches of
+    the product form and the update leave every vector and scalar as they
+    were (the loop's count, the flag and predicate set)."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+
+    sim = _f64_sim(tmp_path, crossbar=crossbar, fused=False)
+    sim.run_bias_point(sim.cfg.V_switch[0], 1e30, max_steps=2)
+    tws, op, cap = _transport_op64(sim)
+    op_c = _cpu_op(op)
+    nv = int(op.n_vac)
+    assert op.T_cc.dtype == torch.float64 and tws.xm.dtype == torch.float64
+
+    k, p = _clone_tws(tws), _cpu_ws(_clone_tws(tws))
+    tcg.metal(k, op)
+    tcg.metal(p, op_c)
+    _close64("y_cc", k.y_cc, p.y_cc, 1e-13)
+    tcg.blocks(k, op, True)
+    tcg.blocks_plain(p, op_c, True)
+    xa = p.xs64[2:]
+    T_vm, T_vv = op_c.T_vm[:nv].abs(), op_c.T_vv[:nv, :nv].abs()
+    xv = xa[op_c.vidx[:nv].long()].abs()
+    xm = xa[op_c.mp.long()].abs()
+    for f, size in {"mv": xv @ T_vm, "y_vm": T_vm @ xm, "y_vv": T_vv @ xv}.items():
+        got, want = getattr(k, f).cpu(), getattr(p, f)
+        n = size.shape[0]
+        assert bool(((got[:n] - want[:n]).abs() <= 1e-12 * size + 1e-300).all()), f
+    na = op_c.anb.shape[0]
+    dsize = torch.stack([(op_c.gnd.abs() * xa[:na].abs())[op.gnd_lo:].sum(),
+                         (op_c.src.abs() * xa[:na].abs())[:op.nsi].sum()])
+    assert bool(((k.dots64.cpu() - p.dots64).abs() <= 1e-12 * dsize).all())
+
+    # the product form from the same products (the kernel's)
+    p = _cpu_ws(_clone_tws(k))
+    tcg.rows_ap(k, op)
+    tcg.rows_ap_plain(p, op_c)
+    _close64("ap", k.c64.ap, p.c64.ap, 1e-12)
+    assert float(k.c64.alpha) == pytest.approx(float(p.c64.alpha), rel=1e-10)
+    # the residual form (unscaled)
+    r = _clone_tws(k)
+    pr = _cpu_ws(_clone_tws(k))
+    tcg.rows(r, op)
+    tcg.rows_plain(pr, op_c, True)
+    scale = float((op_c.b - pr.r).abs().max())
+    assert float((r.r.cpu() - pr.r).abs().max()) <= 1e-12 * scale
+
+    # the update from the kernel's own ap and alpha
+    p = _cpu_ws(_clone_tws(k))
+    start = _clone_tws(k)
+    tcg.update_f64(k, op, 20000)
+    tcg.update_f64_plain(p, op_c, 20000)
+    for f in ("x", "r", "xs64", "xm"):
+        _close64(f, getattr(k, f), getattr(p, f), 1e-12)
+    for f in ("rz", "beta"):
+        assert float(getattr(k.c64, f)) == pytest.approx(float(getattr(p.c64, f)), rel=1e-10)
+    for f in ("act", "iters", "cond", "total"):
+        assert torch.equal(getattr(k.c64, f).cpu(), getattr(p.c64, f)), f
+    assert int(k.c64.iters) == 4 and bool(k.c64.act)
+    assert float(k.xs64[-1]) == 0.0
+
+    # a stopped solve: nothing moves but the loop's count, flag, predicate
+    s_ = _clone_tws(start)
+    s_.c64.act.fill_(False)
+    before = _clone_tws(s_)
+    tcg.rows_ap(s_, op)
+    tcg.update_f64(s_, op, 20000)
+    for f in ("x", "r", "xs64", "xm"):
+        assert torch.equal(getattr(s_, f), getattr(before, f)), f
+    for f in ("ap", "rz", "alpha", "beta", "iters", "act"):
+        assert torch.equal(getattr(s_.c64, f), getattr(before.c64, f)), f
+    assert int(s_.c64.cond) == 0 and int(s_.c64.total) == int(before.c64.total) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crossbar", [False, True])
+def test_cuda_transport_f64_solve_graph_equals_eager(tmp_path, crossbar):
+    """transport_cg.solve_f64 captured (one WHILE node) and run from the
+    host loop on the same operator and warm start: the iterate and the
+    count bit for bit, the criterion met; the replay reads nothing (sync
+    debug mode "error"), and one with go False runs no iteration.  Counted
+    on the card: the update once an iteration a replay, the stored block's
+    product once an iteration and once at the set-up, the fly matvec never."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+    from devicekmc_tpu_torch.ops.graph import Graph
+
+    sim = _f64_sim(tmp_path, crossbar=crossbar, fused=False)
+    sim.run_bias_point(sim.cfg.V_switch[0], 1e30, max_steps=2)
+    tws, op, cap = _transport_op64(sim)
+    x0, tol, maxiter = cap["x0"], cap["tol"], cap["maxiter"]
+    x0 = x0 * (1 + 1e-3 * torch.randn(x0.shape, generator=torch.Generator().manual_seed(1),
+                                       dtype=torch.float64).cuda())
+    go = torch.ones(1, dtype=torch.bool, device="cuda")
+    res = tcg.solve_f64(tws, op, x0, go, tol, maxiter)
+    eager = (res.x.clone(), int(res.iters), float(res.residual))
+    assert bool(res.converged) and eager[1] > 0
+    g = Graph(lambda: tcg.solve_f64(tws, op, x0, go, tol, maxiter), "cuda")
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    counts = _build.launch_counts("cuda")
+    try:
+        tws.c64.total.zero_()
+        counts.zero_()
+        out = g()
+        g()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert torch.equal(out.x, eager[0])
+    assert (int(out.iters), float(out.residual)) == eager[1:]
+    names = _build.COUNTED_ON_CARD
+    assert int(tws.c64.total) == int(counts[names.index("transport_update64")]) == 2 * eager[1]
+    assert int(counts[names.index("stored_matvec")]) == 2 * (eager[1] + 1)
+    assert int(counts[names.index("wkb_fly_matvec_out")]) == 0
+    go.fill_(False)
+    out = g()
+    assert torch.equal(out.x, x0) and int(out.iters) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["stored", "stored-heat", "f64", "f64-heat"])
+def test_cuda_stored_f64_graph_superstep_matches_eager(tmp_path, config):
+    """The engine's captured transport superstep with the stored metal block
+    (mixed) and in f64, heating off and global, against the eager engine
+    from the same start, step by step and bit for bit: elements, events,
+    cg_iters_power, I_macro, P_tot, T_bg, the virtual potentials and the
+    tunnel store; every solve converged; the stored block's product
+    launched on the card in the graph run, the fly matvec never."""
+    _need_card()
+    from devicekmc_tpu_torch.engine import make_superstep
+    from devicekmc_tpu_torch.ops import _build
+
+    over = dict(transport_cc="stored")
+    if config.startswith("f64"):
+        over.update(precision="f64", solver_chunk_iters=0)
+    runs, card = {}, {}
+    for kind in ("graph", "eager"):
+        d = tmp_path / kind
+        d.mkdir()
+        sim = _transport_sim(d, heat=config.endswith("heat"), **over)
+        if kind == "eager":
+            sim._make = lambda g, p, h: make_superstep(g, p, h)
+        rec = runs[kind] = []
+        step = sim._superstep
+
+        def wrapped(state, Vd, *a, step=step, rec=rec):
+            out = step(state, Vd, *a)
+            st, m = out[0], out[2]
+            rec.append((st.element.clone(), m["n_events"], m["cg_iters_power"], st.I_macro,
+                        st.P_tot, st.T_bg, st.virtual_potentials.clone(),
+                        st.tt_vm.clone(), st.tt_vv.clone(), st.tt_slot_atom.clone(),
+                        st.tt_valid, m["transport_converged"]))
+            return out
+
+        sim._superstep = wrapped
+        _build.launch_counts("cuda").zero_()
+        sim.run_bias_point(10.0, 1e30, max_steps=4)
+        card[kind] = dict(zip(_build.COUNTED_ON_CARD, _build.launch_counts("cuda").tolist()))
+        assert (sim._graph is not None and sim._graph.captures == 2) == (kind == "graph")
+    assert len(runs["graph"]) == len(runs["eager"]) == 4
+    for k, (a, b) in enumerate(zip(runs["graph"], runs["eager"])):
+        for j, (u, v) in enumerate(zip(a, b)):
+            same = torch.equal(u, v) if torch.is_tensor(u) else u == v
+            assert same, (k, j)
+    assert all(r[-1] == 1.0 for r in runs["graph"])
+    assert card["graph"]["stored_matvec"] > 0 and card["graph"]["wkb_fly_matvec_out"] == 0
+    assert (card["graph"]["transport_update64"] > 0) == config.startswith("f64")

@@ -38,11 +38,26 @@ CONFIGS = {"heat-off": {}, "heat-global": HEAT,
            "heat-local-dense": dict(solve_heating_local=True, heat_solver="dense"),
            "heat-local-cg": dict(solve_heating_local=True, heat_solver="cg"),
            "bf16": dict(transport_bf16_inner=True)}
+#: the stored metal block (what transport_cc="auto" picks) in mixed
+#: precision, heating off, global and local matrix-free, and f64 (which
+#: always stores), heating off and global; all with the pair-sweep kernel
+#: and a Poisson bucket (BASE)
+STORED = dict(transport_cc="stored")
+F64 = dict(precision="f64", transport_cc="stored")
+NEW_CONFIGS = {"stored-heat-off": STORED, "stored-heat-global": dict(STORED, **HEAT),
+               "stored-heat-local-cg": dict(STORED, solve_heating_local=True,
+                                            heat_solver="cg"),
+               "f64-heat-off": F64, "f64-heat-global": dict(F64, **HEAT)}
+CONFIGS = {**CONFIGS, **NEW_CONFIGS}
 #: I_macro against the JAX package, relative: two independent mixed solves at
 #: 1e-11 (test_torch_transport.py's tolerance); with the bf16 inner operator
 #: test_torch_bf16_inner.py's 2e-5 (the port's bf16 band keeps the vector f32
-#: and each row's rounding on the diagonal, the JAX package's does not)
-I_TOL = {"bf16": 2e-5}
+#: and each row's rounding on the diagonal, the JAX package's does not); in
+#: f64 1e-10 (the same CG in both packages, products summed in other orders)
+I_TOL = {"bf16": 2e-5, "f64-heat-off": 1e-10, "f64-heat-global": 1e-10}
+#: P_tot against the JAX package in f64, relative (the two f64 solves' I_macro
+#: agree to about 3e-12 on this stack, P_tot to about 5e-15)
+P_TOL = 1e-10
 #: the temperature field against the JAX package: test_torch_heat.py's
 #: tolerances of the local models (dense 1e-10, matrix-free 1e-9, rtol and
 #: atol)
@@ -105,8 +120,10 @@ def _record(sim, to_np=lambda t: t.numpy()):
     (dict(solve_heating_global=True), 1, True, None),
     (dict(transport_incremental=False, transport_skip_unchanged=False), 1, True, None),
     (dict(transport="dense"), 1, True, "dense transport"),
-    (dict(mixed=False), 1, True, "precision other than 'mixed'"),
-    (dict(transport_cc="stored"), 1, True, "stored metal block"),
+    pytest.param(dict(mixed=False), 1, True, None,
+                 id="over4-1-True-precision other than 'mixed'"),
+    pytest.param(dict(transport_cc="stored"), 1, True, None,
+                 id="over5-1-True-stored metal block"),
     (dict(transport_warm_precond="deflated"), 1, True, "deflated warm re-solve"),
     pytest.param(dict(transport_bf16_inner=True), 1, True, None, id="over7-1-True-bf16"),
     pytest.param(dict(solve_heating_local=True), 1, True, None,
@@ -116,12 +133,24 @@ def _record(sim, to_np=lambda t: t.numpy()):
     ({}, 1, False, "static band"),
     pytest.param(dict(solve_heating_local=True, heat_solver="cg"), 1, True, None,
                  id="over12-1-True-local heat model, heat_solver cg"),
+    (dict(transport_cc="stored", transport_bf16_inner=True), 1, True, "bf16 twin"),
+    (dict(mixed=False, transport_cc="stored", poisson_kernel="jnp"), 1, True,
+     "Poisson sweep without the pair-sweep kernel"),
+    (dict(mixed=False, dtype=torch.float32), 1, True, "precision 'f32'"),
+    (dict(mixed=False, transport_cc="stored"), 1, False, None),
+    (dict(mixed=False, transport_cc="stored"), 2, True, "B > 1"),
+    (dict(mixed=False, transport_cc="stored", transport_warm_precond="deflated"), 1, True,
+     "deflated warm re-solve"),
+    (dict(transport_cc="stored", transport="dense"), 1, True, "dense transport"),
 ])
 def test_transport_graph_route_by_configuration(over, batch, band, reason):
-    """graph_ready admits the transport scope (blocked, mixed, on-the-fly
-    metal block, band, Jacobi warm re-solve, with or without the bf16 inner
-    operator, heating off, global or local, B = 1) and names a reason for
-    everything outside it; a graph of such params refuses to be made.  The
+    """graph_ready admits the transport scope (blocked, Jacobi warm
+    re-solve, heating off, global or local, B = 1; mixed precision with the
+    on-the-fly or the stored metal block and the band, the bf16 inner
+    operator on the fly; f64, with or without the band, as the f64 operator
+    reads the ELL rows) and names a reason for everything outside it (bf16
+    with a stored block, f32 precision, f64 with the exact-erfc Poisson
+    sweep among them); a graph of such params refuses to be made.  The
     local model's heat_solver (dense or cg) is the heat model's, not the
     params': both take the graph (test_transport_engine_takes_the_graph)."""
     from devicekmc_tpu_torch.state import PhysParams
@@ -137,7 +166,9 @@ def test_transport_graph_route_by_configuration(over, batch, band, reason):
     if reason is None:
         assert got is None
         return
-    assert reason in got and "solve_current" in got
+    assert reason in got
+    # the Poisson sweep's reason is the superstep's, not the transport's
+    assert ("solve_current" in got) != ("Poisson" in reason)
     if band and batch == 1:
         with pytest.raises(ValueError, match="not captured"):
             SuperstepGraph(None, params, batch)
@@ -155,14 +186,15 @@ def test_transport_engine_takes_the_graph(tmp_path):
     assert eager._graph is None
 
 
-@pytest.mark.parametrize("config", ["heat-local-dense", "heat-local-cg", "bf16"])
+@pytest.mark.parametrize("config", ["heat-local-dense", "heat-local-cg", "bf16",
+                                    "stored-heat-local-cg", "f64-heat-global"])
 def test_engine_runs_the_new_configurations_on_the_graph(tmp_path, config):
-    """The local heat model (dense and matrix-free) and the bf16 inner
-    operator run on SuperstepGraph: the engine's superstep replays it, one
-    capture from each slot, with the simulation's heat model
-    (heat.last_local set from the replay's read with the local model); per
-    step, and with batch_steps = 3 through a batch graph, to the same
-    elements."""
+    """The local heat model (dense and matrix-free), the bf16 inner
+    operator, the stored metal block and f64 run on SuperstepGraph: the
+    engine's superstep replays it, one capture from each slot, with the
+    simulation's heat model (heat.last_local set from the replay's read with
+    the local model); per step, and with batch_steps = 3 through a batch
+    graph, to the same elements."""
     from devicekmc_tpu_torch.physics import heat as heat_mod
     from devicekmc_tpu_torch.superstep import SuperstepGraph
 
@@ -171,10 +203,10 @@ def test_engine_runs_the_new_configurations_on_the_graph(tmp_path, config):
     g = sim._graph
     assert isinstance(g, SuperstepGraph) and g.captures == 2 and g.replays == 3
     assert g.heat is sim.heat
-    if config != "bf16":
+    if "heat_solver" in CONFIGS[config]:
         assert sim.heat.method == CONFIGS[config]["heat_solver"]
         assert heat_mod.last_local["branch"] in ("transient", "steady")
-        assert (heat_mod.last_local["cg_iters"] > 0) == (config == "heat-local-cg")
+        assert (heat_mod.last_local["cg_iters"] > 0) == config.endswith("heat-local-cg")
     batched = _port(tmp_path, config + "-batch", batch_steps=3, log_freq=1000,
                     **CONFIGS[config])
     batched.run_bias_point(VD, 1e30, max_steps=3)
@@ -188,16 +220,28 @@ def test_engine_runs_the_new_configurations_on_the_graph(tmp_path, config):
 # the graph's body against the eager engine, bit for bit
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("config", list(CONFIGS))
-@pytest.mark.parametrize("skip,incremental", [(True, "on"), (False, "on"), (True, "off"),
-                                              (False, "off")])
+_COMBOS = [(True, "on"), (False, "on"), (True, "off"), (False, "off")]
+#: every (skip, incremental) pair of the fly configurations; the stored and
+#: f64 ones each with one pair, both on or both off, so that each precision
+#: takes both
+NEW_COMBOS = {"stored-heat-off": (True, "on"), "stored-heat-global": (False, "off"),
+              "stored-heat-local-cg": (True, "on"), "f64-heat-off": (False, "off"),
+              "f64-heat-global": (True, "on")}
+BIT_CASES = ([pytest.param(c, sk, inc, id=f"{sk}-{inc}-{c}") for sk, inc in _COMBOS
+              for c in CONFIGS if c not in NEW_CONFIGS]
+             + [pytest.param(c, sk, inc, id=f"{sk}-{inc}-{c}")
+                for c, (sk, inc) in NEW_COMBOS.items()])
+
+
+@pytest.mark.parametrize("config,skip,incremental", BIT_CASES)
 def test_transport_graph_matches_eager_bit_for_bit(tmp_path, config, skip, incremental):
     """STEPS supersteps of the captured transport superstep (its plain
     version: the device loops through the plain kernels) against the eager
     engine from the same start, the last two without events (so that the
     network is unchanged): every field the transport and heat phases write
     (the temperature field too) and every metric bit for bit, step for
-    step."""
+    step (a NaN metric, f64's transport_rel0 as the eager f64 solve has it,
+    equal to a NaN)."""
     kw = dict(transport_skip_unchanged=skip, transport_incremental=incremental,
               **CONFIGS[config])
     g = _port(tmp_path, "g", **kw)
@@ -212,8 +256,9 @@ def test_transport_graph_matches_eager_bit_for_bit(tmp_path, config, skip, incre
     assert g._graph is not None and e._graph is None
     assert len(rg) == len(re_) == STEPS
     for k, (a, b) in enumerate(zip(rg, re_)):
-        for key in ("elem", "charge", "step_time", "I", "P", "T", "tt_valid", "m"):
+        for key in ("elem", "charge", "step_time", "I", "P", "T", "tt_valid"):
             assert a[key] == b[key], (k, key)
+        np.testing.assert_equal(a["m"], b["m"], err_msg=f"{k} metrics")
         for key in ("vp", "power", "temp"):
             np.testing.assert_array_equal(a[key], b[key], err_msg=f"{k} {key}")
         for u, v in zip(a["tt"], b["tt"]):
@@ -263,6 +308,11 @@ def test_transport_graph_matches_jax(tmp_path, config):
             np.testing.assert_allclose(b["temp"], a["temp"], rtol=tol, atol=tol,
                                        err_msg=f"step {k}")
         assert (b["m"]["transport_rel0"] == -1.0) == (a["m"]["transport_rel0"] == -1.0), k
+        if config.startswith("f64"):
+            # one f64 Jacobi CG with criterion "pre" in each package: the
+            # same iterations, P_tot within P_TOL
+            assert b["m"]["cg_iters_power"] == a["m"]["cg_iters_power"], k
+            assert b["P"] == pytest.approx(a["P"], rel=P_TOL, abs=1e-300), k
 
 
 def test_transport_graph_batch_compliance_matches_jax(tmp_path):
@@ -366,6 +416,95 @@ def test_transport_cg_plain_matches_cg_solve_mixed(tmp_path):
     assert got.I_macro == ref.I_macro
     assert torch.equal(got.virtual_potentials, ref.virtual_potentials)
     assert mg["transport_rel0"] == mr["transport_rel0"]
+
+
+def _f64_system(tmp_path):
+    """The f64 stored configuration after two supersteps, its stored solution
+    perturbed: the device form's operator and workspace as the warm re-solve
+    builds them (the solve run once), and the state."""
+    from devicekmc_tpu_torch.ops import transport_cg
+    from devicekmc_tpu_torch.physics import current
+
+    sim = _port(tmp_path, "cg64", eager=True, **F64)
+    sim.run_bias_point(VD, 1e30, max_steps=2)
+    rng = np.random.default_rng(0)
+    vp = sim.state.virtual_potentials
+    vp = vp * torch.as_tensor(1 + 1e-2 * rng.standard_normal(vp.shape[0]))
+    st = dataclasses.replace(sim.state, virtual_potentials=vp, transport_Vd_prev=float("nan"))
+    cap = {}
+    solve = transport_cg.solve_f64
+
+    def grab(tws, op, x0, go, tol, maxiter):
+        cap.update(tws=tws, op=op, x0=x0.clone(), tol=tol, maxiter=maxiter)
+        return solve(tws, op, x0, go, tol, maxiter)
+
+    transport_cg.solve_f64 = grab
+    try:
+        got, mg = current.update_power(sim.geom, sim.params, st, VD, cc=dict(sim._cc),
+                                       allow_skip=True)
+    finally:
+        transport_cg.solve_f64 = solve
+    return sim, st, got, mg, cap
+
+
+def test_transport_f64_plain_loop_matches_cg_solve(tmp_path):
+    """The f64 device loop's plain version (transport_cg.solve_f64: the
+    stored block's product, transport_blocks, the rows of A p and the
+    update, direction and packing) inside the warm re-solve against
+    update_power_blocked's f64 branch (ops.cg.cg_solve, Jacobi, criterion
+    "pre") on the same state: iterations, the iterate and I_macro bit for
+    bit (the same operations in the same order); and against the JAX
+    package's cg_solve(criterion="pre") on the same operator, made dense
+    from the port's product (x64): the same iterations, the iterate within
+    1e-12 of its largest entry (f64 sums in other orders), both meeting the
+    criterion."""
+    import jax
+    import jax.numpy as jnp
+    from devicekmc_tpu.ops.cg import cg_solve as jax_cg_solve
+    from devicekmc_tpu_torch.physics import current
+
+    sim, st, got, mg, cap = _f64_system(tmp_path)
+    ref, mr = current.update_power_blocked(sim.geom, sim.params, st, VD, cc=sim._cc,
+                                           precond="jacobi")
+    assert mr["transport_converged"] and mg["transport_converged"]
+    assert mg["cg_iters_power"] == mr["cg_iters_power"] > 0
+    assert got.I_macro == ref.I_macro
+    assert torch.equal(got.virtual_potentials, ref.virtual_potentials)
+    assert np.isnan(mg["transport_rel0"]) and np.isnan(mr["transport_rel0"])
+
+    op = cap["op"]
+    blk = current.assemble_X_blocks(sim.geom, sim.params, st, cc=sim._cc["cc"])
+    nsub = op.b.shape[0]
+    eye = torch.eye(nsub + 1, dtype=torch.float64)
+    A = torch.stack([current._apply_X_blocks(blk, eye[j], torch.float64)[:nsub]
+                     for j in range(nsub)], dim=1)
+    assert jax.config.jax_enable_x64
+    Aj = jnp.asarray(A.numpy())
+    res = jax_cg_solve(lambda x: Aj @ x, jnp.asarray(op.b.numpy()),
+                       x0=jnp.asarray(cap["x0"].numpy()),
+                       diag=jnp.asarray(blk["diag"][:nsub].numpy()), tol=cap["tol"],
+                       maxiter=cap["maxiter"], criterion="pre")
+    jx, jit = np.asarray(res.x), int(res.iters)
+    assert bool(res.converged) and Aj.dtype == jnp.float64
+    assert jit == mg["cg_iters_power"]
+    v = got.virtual_potentials[:nsub].numpy()
+    assert np.abs(v - jx).max() <= 1e-12 * np.abs(jx).max()
+
+
+def test_stored_matvec_plain_is_the_product():
+    """stored_matvec_out on CPU tensors writes the plain version, the stored
+    block's T_cc @ x in its dtype (what physics.current._apply_X_blocks
+    computes), into the caller's buffer, f32 and f64."""
+    from devicekmc_tpu_torch.ops.transport_cg import stored_matvec_out, stored_matvec_plain
+
+    g = torch.Generator().manual_seed(5)
+    for dtype in (torch.float32, torch.float64):
+        for n in (1, 7, 130):
+            T = torch.randn((n, n), generator=g, dtype=dtype)
+            x = torch.randn(n, generator=g, dtype=dtype)
+            y = torch.full((n,), float("nan"), dtype=dtype)
+            stored_matvec_out(T, x, y)
+            assert torch.equal(y, torch.matmul(T, x)) and torch.equal(y, stored_matvec_plain(T, x))
 
 
 @pytest.mark.parametrize("branch", [0, 3])

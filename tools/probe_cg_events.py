@@ -440,7 +440,7 @@ def matvec_probe(cs, sim, variants):
     for var, lib in (variants or {}).items():
         fn_v = lib.dkmc_cg_matvec_dot
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn_v.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        fn_v.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p, p]
         fn_v.restype = ctypes.c_int
         if isinstance(var, str):
             grids, label_of = [ws.grid_mv], lambda grid, var=var: var
@@ -456,7 +456,7 @@ def matvec_probe(cs, sim, variants):
                 e = fn_v(1, diag.data_ptr(), vals.data_ptr(), geom.neigh_idx.data_ptr(),
                          w.row_len.data_ptr(), w.p.data_ptr(), w.ap.data_ptr(),
                          w.act.data_ptr(), w.rz.data_ptr(), w.alpha.data_ptr(),
-                         w.part.data_ptr(), w.tickets.data_ptr(), N, M, 1, grid,
+                         w.part.data_ptr(), w.tickets.data_ptr(), N, M, 1, grid, None,
                          torch.cuda.current_stream().cuda_stream)
                 if e != 0:
                     raise RuntimeError(f"cg_matvec_dot variant: cudaError {e}")
