@@ -5,7 +5,7 @@
 
 Phases (any failed check raises and the exit code is non-zero):
 
-1. builds the ten CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
+1. builds the eleven CUDA libraries from devicekmc_tpu_torch/csrc (nvcc,
    sm_90a, one nvcc per source, in parallel) and beside them the latency
    probes of the event loop's bound (tools/latency_probe.cu), and prints
    ptxas's registers and shared memory per kernel; holds the event kernel's random stream
@@ -265,7 +265,27 @@ Phases (any failed check raises and the exit code is non-zero):
    torch.mv and the fly matvec; the f64 solve's kernels (transport_blocks'
    f64-storage build, transport_rows' product form, transport_update64)
    against their plain versions and timed, and the f64 solve captured
-   against its host loop, bit for bit.
+   against its host loop, bit for bit.  The f64 runs take the exact-erfc
+   Poisson sweep (poisson_kernel "jnp", the exact kernel once a superstep,
+   the pair sweep never): with the stored block, the JAX package's full
+   default;
+15. the default Poisson sweep (poisson_kernel "jnp", default_path): the
+   headline crossbar with "jnp" on its captured graph (the main path) and
+   on its eager superstep, counters set to 0 just before each run and read
+   just after (the exact kernel, csrc/pairwise_exact.cu, once a superstep
+   as the card counts it, the pair sweep and every plain version never),
+   events, elements, charges and potential_charge bit for bit step for
+   step, potential_boundary within 1e-12 of its scale; both again in turns,
+   one profiled superstep each (1 device-to-host copy a graph superstep);
+   its ensemble at B = 8 on the graph against the eager batched superstep,
+   superstep by superstep, bit for bit the same way; then the exact kernel
+   against its plain version at the crossbar's rows over the run's charged
+   sites, over a full bucket of 8,192 sources and over more (the bucket's
+   bits), over none, B = 1 and 8 (each replica its own launch's bits), a
+   quarter of the rows bit-equal to the whole sweep's, f32 within 1e-5 and
+   f64 within 1e-12 of the scale, PBC on at the small stack, two calls
+   bit-equal; timed beside its bound and the plain version.  Phase 12's
+   halo runs sweep with the same kernel (their Poisson phase timed).
 
 Prints the card's name and power limit, the kernels' JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card.
@@ -827,21 +847,23 @@ def device_launches(fn):
 def kernel_facts(lib, kernel, targs, fn):
     """What the build and one profiled call say of the kernel
     ``kernel<targs>`` of ``csrc/<lib>.cu``: ptxas's registers and static
-    shared bytes of that entry (found by its mangled template arguments, bool
-    then int), and the device kernels one call of ``fn`` launches, which must
+    shared bytes of that entry (found by its mangled template arguments: a
+    bool or an int, or a type by its mangled letter, "f" or "d"), and the
+    device kernels one call of ``fn`` launches, which must
     be that kernel alone (partial sums are added inside it)."""
     from devicekmc_tpu_torch.ops import _build
 
     mangled = kernel + ("I" + "".join(
-        f"L{'b' if isinstance(a, bool) else 'i'}{int(a)}E" for a in targs) + "E"
-        if targs else "")
+        a if isinstance(a, str) else f"L{'b' if isinstance(a, bool) else 'i'}{int(a)}E"
+        for a in targs) + "E" if targs else "")
     found = [v for k, v in _build.kernel_resources(lib).items() if mangled in k]
     regs, smem = found[0] if len(found) == 1 else (None, None)
     count, names = device_launches(fn)
     if count is not None:
         check(count == 1 and all(kernel in nm for nm in names),
               f"{kernel}: one call made {count} launches, of {names}")
-    label = kernel + (f"<{','.join(str(int(a)) for a in targs)}>" if targs else "")
+    label = kernel + (f"<{','.join(a if isinstance(a, str) else str(int(a)) for a in targs)}>"
+                      if targs else "")
     return dict(kernel=label, registers=regs, shared_bytes=smem, device_launches=count)
 
 
@@ -1532,6 +1554,7 @@ TRACE_NAMES = {name: f"{name}_kernel" for name in (
     "kmc_event_loop", "kmc_event_loop_batched", "cg_matvec_dot", "cg_update_direction",
     "transport_blocks", "transport_rows", "transport_rows_update", "transport_pack",
     "transport_refine", "stored_matvec", "transport_update64")}
+TRACE_NAMES["poisson_exact_batched"] = "poisson_exact_kernel"
 CG_KERNELS = ("cg_matvec_dot", "cg_update_direction")
 #: the transport CG's kernels, each in the trace of a graph superstep that
 #: solves
@@ -1849,6 +1872,7 @@ def transport_graph_run(sim, tag, n_steps=TRANSPORT_STEPS, wrappers=None, Vd=VD_
 
     from devicekmc_tpu_torch.ops import _build
     from devicekmc_tpu_torch.ops import heat as heat_ops
+    from devicekmc_tpu_torch.ops import pairwise as pw
     from devicekmc_tpu_torch.ops import transport_cg as tcg
 
     wrappers = wrappers or {}
@@ -1861,6 +1885,8 @@ def transport_graph_run(sim, tag, n_steps=TRANSPORT_STEPS, wrappers=None, Vd=VD_
                                                "rows_ap_plain", "update_f64_plain")]
     plains += [_counted(heat_ops, name) for name in ("dense_substep_plain", "cg_begin_plain",
                                                      "cg_end_plain")]
+    plains += [_counted(pw, name) for name in ("poisson_exact_batched_plain",
+                                               "poisson_pairwise_batched_plain")]
     recs = transport_record(sim)
     try:
         t = time.perf_counter()
@@ -2002,7 +2028,11 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True, n_steps=
     # the gather: the charge rule's flags, in mixed precision the rate
     # table's rows too
     gathers = 2 * n if sim.params.mixed else n
-    check(card["ell_gather_batched"] == gathers and card["poisson_pairwise_batched"] == n
+    # the Poisson sweep: the exact kernel (poisson_kernel "jnp") or the pair
+    # sweep, once a superstep, the other never
+    sweep, no_sweep = ("poisson_exact_batched", "poisson_pairwise_batched")[
+        ::1 if sim.params.poisson_kernel == "jnp" else -1]
+    check(card["ell_gather_batched"] == gathers and card[sweep] == n and card[no_sweep] == 0
           and card["kmc_event_loop_batched"] == n, f"{tag}: batched launches {card}")
     steps = sim.step_log
     inner = sum(int(s["cg_iters_power"]) for s in steps)
@@ -4933,9 +4963,11 @@ def halo_path(out_root, device="cuda", n_sites=N_SITES):
     printed, not gated (its single-device Poisson sweep is the f32 pair
     kernel, the halo path's the exact erfc).  The halo run is driven with
     the wrappers' counts set to 0 just before and read just after: the
-    gather launched on the card, its plain version never, the pair sweep
-    and event kernels not (the halo path sweeps and selects in PyTorch, as
-    the JAX package's does in jnp).  ``device="cpu"`` (with a smaller
+    gather and the exact-erfc sweep (the rank's rows over the gathered
+    charged slots, once a superstep) launched on the card, their plain
+    versions never, the pair sweep and event kernels not (the halo path
+    selects events in PyTorch, as the JAX package's does in jnp); the
+    phases' ms (the Poisson phase's among them).  ``device="cpu"`` (with a smaller
     ``n_sites``) rehearses the phase on the CPU through gloo.  Returns the
     phase's summary."""
     import torch
@@ -4959,7 +4991,8 @@ def halo_path(out_root, device="cuda", n_sites=N_SITES):
     try:
         mesh = make_mesh(1, device=device)
         wrappers = {"ell_gather": eg.ell_gather, "poisson_pairwise": pw.poisson_pairwise,
-                    "kmc_event_loop": kmc_events.kmc_event_loop}
+                    "kmc_event_loop": kmc_events.kmc_event_loop,
+                    "poisson_exact_batched": pw.poisson_exact_batched}
         for prec, over in (("f64", dict(precision="f64", poisson_kernel="jnp",
                                         solver_tol=1e-12)),
                            ("mixed", {})):
@@ -4975,6 +5008,7 @@ def halo_path(out_root, device="cuda", n_sites=N_SITES):
             for w in wrappers.values():
                 w.launches = 0
             plain, restore = _counted(eg, "ell_gather_plain")
+            exact_plain, restore_exact = _counted(pw, "poisson_exact_batched_plain")
             timed = {name: _counted(hs, name, sync) for name in HALO_PHASES}
             mesh.comm.reset_counts()
             try:
@@ -4984,6 +5018,7 @@ def halo_path(out_root, device="cuda", n_sites=N_SITES):
                 wall = time.perf_counter() - t
             finally:
                 restore()
+                restore_exact()
                 for _, undo in timed.values():
                     undo()
             # the supersteps' phases (the cold pre-solve's charge and boundary
@@ -4995,7 +5030,11 @@ def halo_path(out_root, device="cuda", n_sites=N_SITES):
                   f"halo {prec}: ran {len(h_steps)} and {len(s_steps)} supersteps")
             if cuda:
                 check(launches["ell_gather"] > 0, f"halo {prec}: the gather was never launched")
-                check(plain["calls"] == 0, f"halo {prec}: the gather's plain version ran")
+                check(plain["calls"] == exact_plain["calls"] == 0,
+                      f"halo {prec}: the gather's or the exact sweep's plain version ran")
+                # the exact-erfc sweep of the rank's rows: once a superstep
+                check(launches["poisson_exact_batched"] == HALO_STEPS,
+                      f"halo {prec}: launches {launches}")
             else:
                 check(plain["calls"] > 0, f"halo {prec}: no gather ran")
             check(launches["poisson_pairwise"] == launches["kmc_event_loop"] == 0,
@@ -5705,12 +5744,15 @@ def replicate_path(out_root, device="cuda", n_sites=N_SITES):
 
 #: phase 14's configurations of the crossbar: tag, synthetic_crossbar's
 #: heat, overrides, supersteps after the cold solves.  f64 takes its cold
-#: transport solve in one call: segments restart the f64 deflated CG
+#: transport solve in one call: segments restart the f64 deflated CG.  f64
+#: runs the exact-erfc Poisson sweep (poisson_kernel "jnp"): with the
+#: stored block and f64, the JAX package's full default (phase 15's fourth
+#: configuration)
 STORED_RUNS = (("stored graph", None, dict(transport_cc="stored"), TRANSPORT_STEPS),
                ("stored heat (global) graph", "global", dict(transport_cc="stored"),
                 TRANSPORT_STEPS),
                ("f64 graph", None, dict(transport_cc="stored", precision="f64",
-                                        solver_chunk_iters=0), 4))
+                                        solver_chunk_iters=0, poisson_kernel="jnp"), 4))
 #: the JAX package's stored product that stored_matvec replaces
 STORED_REPLACES = "devicekmc_tpu/physics/current.py:802"
 
@@ -6107,6 +6149,410 @@ def stored_path(out_root):
     return [rec, rec64], summaries
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the exact-erfc Poisson sweep (poisson_kernel "jnp", the default)
+# on the card, and the default configurations on the captured graph
+# ---------------------------------------------------------------------------
+
+#: the headline's Poisson bucket: a full bucket of sources
+EXACT_BUCKET = 8192
+#: sources past the bucket in the check above the cap
+EXACT_OVER = 1024
+#: operations of one pair of csrc/pairwise_exact.cu in its type (each add,
+#: multiply, division, square root, comparison and rint counted once, and
+#: erfc as one): 3 differences, 3 squares, 2 sums, the square root, the
+#: 1e-10 scale, 2 comparisons, the erfc argument, erfc, 3 products, the
+#: division and the accumulation; plus 8 for the two minimum-image wraps
+#: under PBC
+EXACT_OPS_PER_PAIR = {False: 19, True: 27}
+#: FP64 outside the tensor cores, H100 SXM data sheet, 700 W
+PEAK_FP64_PER_S = 34e12
+#: the kernel against its plain version, of the potential's scale: f32 sums
+#: of thousands of terms in another order and libdevice's erfcf against
+#: PyTorch's; in f64 the sums' order alone
+EXACT_TOL = {"f32": 1e-5, "f64": 1e-12}
+#: the small stack's sources in the PBC check, and how many of them a
+#: replica sweeps
+EXACT_SMALL = (200, 150)
+#: the JAX function the kernel replaces (XLA-fused jnp code, no Pallas kernel)
+EXACT_REPLACES = "devicekmc_tpu/physics/potential.py:438"
+
+
+def exact_sources(ids, q, dtype, coords):
+    """A replica's sources as the kernel takes them: the sites ``ids``
+    (numpy) with charges ``q``: (coordinates [cap, 3], site ids [cap] int32,
+    charges [cap]) on the card in ``dtype``."""
+    import torch
+
+    idx = torch.as_tensor(ids, device="cuda")
+    return (coords[idx].to(dtype), idx.to(torch.int32),
+            torch.as_tensor(q, device="cuda").to(dtype))
+
+
+def exact_case(tag, rows, srcs, counts, sc, pbc, tol, n_sweep=None, row0=0):
+    """One launch of the exact kernel on B replicas' sources ``srcs`` (a
+    list of exact_sources) against its plain version (each replica within
+    ``tol`` of its scale, a replica that sweeps nothing all zeros), and
+    against a second launch (bit-equal); a replica of a batch also against
+    its own launch at B = 1.  Returns (kernel output, the worst error)."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import pairwise as pw
+
+    B = len(srcs)
+    c, i, q = (torch.stack([s[j] for s in srcs]).contiguous() for j in range(3))
+    cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    args = (rows, row0, c, i, q, cnt, *sc, pbc)
+    got = pw.poisson_exact_batched(*args, n_sweep=n_sweep)
+    ref = pw.poisson_exact_batched_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, pw.poisson_exact_batched(*args, n_sweep=n_sweep)),
+          f"{tag}: two calls differ")
+    err = 0.0
+    for b in range(B):
+        if min(counts[b], c.shape[1]) == 0:
+            check(bool((got[b] == 0).all()), f"{tag}: replica {b} sweeps nothing, not all 0")
+            continue
+        err = max(err, _close(f"{tag} replica {b}", got[b], ref[b], tol) / float(
+            ref[b].abs().max()))
+        if B > 1:
+            one = pw.poisson_exact_batched(rows, row0, c[b:b + 1], i[b:b + 1], q[b:b + 1],
+                                           cnt[b:b + 1], *sc, pbc, n_sweep=n_sweep)
+            check(torch.equal(one[0], got[b]), f"{tag}: replica {b} differs from its own "
+                  "launch at B = 1")
+    return got, err
+
+
+def exact_kernel_checks(sim, small):
+    """The exact kernel against its plain version on the card: at the
+    crossbar's rows (PBC off) over the run's charged sites, over a full
+    bucket of EXACT_BUCKET sources and over more than the bucket (the first
+    EXACT_BUCKET swept: the full bucket's bits), over none; B = 1 and
+    ENSEMBLE_B replicas of other counts and lists (each replica its own
+    launch's bits); a quarter of the rows bit-equal to those rows of the
+    whole sweep; f32 and f64; on the small stack ``small`` with PBC on.
+    Timed at the run's charged sites and at the bucket beside the bound
+    and the plain version.  Returns the record's fields."""
+    import numpy as np
+    import torch
+
+    from devicekmc_tpu_torch.ops import pairwise as pw
+    from devicekmc_tpu_torch.physics.charge import update_charge
+    from devicekmc_tpu_torch.state import _as_dtype
+
+    geom, params = sim.geom, sim.params
+    state, _ = update_charge(geom, params, sim.state)
+    N = geom.N
+    charged = torch.nonzero(state.charge != 0).reshape(-1).cpu().numpy()
+    n_c = int(charged.size)
+    check(0 < n_c < EXACT_BUCKET, f"exact kernel: {n_c} charged sites")
+    rng = np.random.default_rng(15)
+    others = np.setdiff1d(np.arange(N), charged)
+    ids = np.concatenate([charged, rng.choice(others, EXACT_BUCKET + EXACT_OVER - n_c,
+                                              replace=False)])
+    q = np.concatenate([state.charge[torch.as_tensor(charged, device="cuda")].cpu().numpy(),
+                        rng.choice([-2, -1, 1, 2], EXACT_BUCKET + EXACT_OVER - n_c)])
+    out = {"n_charged": n_c, "bucket": EXACT_BUCKET}
+    for name, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        rows = geom.coords.to(dt).contiguous()
+        sc = ([_as_dtype(x, dt) for x in geom.lattice_host], _as_dtype(params.sigma, dt),
+              _as_dtype(params.k, dt))
+        tol = EXACT_TOL[name]
+        src = exact_sources(ids[:EXACT_BUCKET], q[:EXACT_BUCKET], dt, geom.coords)
+        run, e_run = exact_case(f"exact {name} run", rows, [src], [n_c], sc, False, tol)
+        full, e_full = exact_case(f"exact {name} bucket", rows, [src], [EXACT_BUCKET], sc,
+                                  False, tol)
+        over, _ = exact_case(f"exact {name} above the cap", rows, [src],
+                             [EXACT_BUCKET + EXACT_OVER], sc, False, tol)
+        check(torch.equal(over, full), f"exact {name}: above the cap is not the full bucket")
+        exact_case(f"exact {name} none", rows, [src], [0], sc, False, tol)
+        counts = [0, n_c, EXACT_BUCKET, EXACT_BUCKET + EXACT_OVER, n_c // 2, 1, 4095, 64]
+        srcs = [exact_sources(np.roll(ids, 1013 * b)[:EXACT_BUCKET],
+                              np.roll(q, 1013 * b)[:EXACT_BUCKET], dt, geom.coords)
+                for b in range(ENSEMBLE_B)]
+        _, e_b = exact_case(f"exact {name} B = {ENSEMBLE_B}", rows, srcs, counts, sc, False,
+                            tol)
+        # a rank's rows: the second quarter, the whole sweep's split rule
+        S = N // 4
+        for tag, whole, cnt in (("run", run, n_c), ("bucket", full, EXACT_BUCKET)):
+            part, _ = exact_case(f"exact {name} rows of {tag}", rows[S:2 * S].contiguous(),
+                                 [src], [cnt], sc, False, tol, n_sweep=N, row0=S)
+            check(torch.equal(part[0], whole[0, S:2 * S]),
+                  f"exact {name} {tag}: a row range is not the whole sweep's rows")
+        # the small stack, PBC on
+        g2 = small.geom
+        n_src, n_sw = EXACT_SMALL
+        rows2 = g2.coords.to(dt).contiguous()
+        sc2 = ([_as_dtype(x, dt) for x in g2.lattice_host], sc[1], sc[2])
+        ids2 = rng.choice(g2.N, n_src, replace=False)
+        src2 = exact_sources(ids2, rng.choice([-2, -1, 1, 2], n_src), dt, g2.coords)
+        _, e_pbc = exact_case(f"exact {name} small stack PBC", rows2, [src2], [n_sw], sc2,
+                              True, tol)
+        cnt1 = torch.tensor([n_c], dtype=torch.int32, device="cuda")
+        cntb = torch.tensor([EXACT_BUCKET], dtype=torch.int32, device="cuda")
+        c, i, qq = (t[None] for t in src)
+        call = lambda cn: pw.poisson_exact_batched(rows, 0, c, i, qq, cn, *sc, False)  # noqa
+        plain = lambda cn: pw.poisson_exact_batched_plain(rows, 0, c, i, qq, cn, *sc,  # noqa
+                                                          False)
+        itemsize = 4 if name == "f32" else 8
+        peak = PEAK_FP32_PER_S if name == "f32" else PEAK_FP64_PER_S
+
+        def bound(n_src):
+            ops = N * n_src * EXACT_OPS_PER_PAIR[False]
+            bytes_ = N * 4 * itemsize + n_src * (4 * itemsize + 4) + 4
+            t_ops, t_bytes = ops / peak, bytes_ / PEAK_BYTES_PER_S
+            return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+        (b_run, by), (b_full, _) = bound(n_c), bound(EXACT_BUCKET)
+        r = dict(err_run=e_run, err_bucket=e_full, err_batch=e_b, err_small_pbc=e_pbc,
+                 ms=time_ms(lambda: call(cnt1), reps=10), bound_ms=b_run, bound_by=by,
+                 plain_ms=time_ms(lambda: plain(cnt1), reps=1, rounds=3, warmup=1),
+                 ms_bucket=time_ms(lambda: call(cntb), reps=5), bound_ms_bucket=b_full,
+                 plain_ms_bucket=time_ms(lambda: plain(cntb), reps=1, rounds=3, warmup=1),
+                 **kernel_facts("pairwise_exact", "poisson_exact_kernel",
+                                ("f" if name == "f32" else "d", False), lambda: call(cnt1)))
+        out[name] = r
+        log(f"poisson_exact {name} [{N} rows x {n_c} charged (the run's) and x {EXACT_BUCKET} "
+            f"(a full bucket), PBC off; B = 1 and {ENSEMBLE_B}; counts 0, below and above the "
+            f"cap; the small stack PBC on]: worst error of the scale "
+            f"{max(e_run, e_full, e_b, e_pbc):.3e} (tolerance {tol}); two calls, a row range "
+            f"and each replica of a batch bit-equal; {r['ms']:.4f} ms at the run's sites "
+            f"(bound {b_run:.4f} ms by {by}, plain {r['plain_ms']:.3f} ms), "
+            f"{r['ms_bucket']:.4f} ms at the bucket (bound {b_full:.4f} ms, plain "
+            f"{r['plain_ms_bucket']:.3f} ms); {r['kernel']}: "
+            f"{r['registers']} registers, {r['shared_bytes']} bytes shared, "
+            f"{r['device_launches']} device launch a call")
+    return out
+
+
+def default_drive(sim, tag, n_steps, wrappers):
+    """Counters to 0, ``sim.run_bias_point`` (cold solves + ``n_steps``),
+    read: per superstep its events, elements, charges, potential_charge and
+    potential_boundary, and the launches (the wrappers' and the card's); no
+    plain version of a Poisson sweep may run."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import pairwise as pw
+
+    for w in wrappers.values():
+        w.launches = 0
+    _build.launch_counts("cuda").zero_()
+    plains = [_counted(pw, name) for name in ("poisson_exact_batched_plain",
+                                              "poisson_pairwise_batched_plain",
+                                              "poisson_pairwise_plain")]
+    recs, step = [], sim._superstep
+
+    def one(state, Vd, *rest):
+        out = step(state, Vd, *rest)
+        st = out[0]
+        recs.append(dict(events=int(out[2]["n_events"]), element=st.element.clone(),
+                         charge=st.charge.clone(), pc=st.potential_charge.clone(),
+                         pb=st.potential_boundary.clone()))
+        return out
+
+    sim._superstep = one
+    try:
+        t = time.perf_counter()
+        sim.run_bias_point(VD_MAIN, 1e30, max_steps=n_steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        sim.__dict__.pop("_superstep", None)
+        for _, restore in plains:
+            restore()
+    check(all(rec["calls"] == 0 for rec, _ in plains), f"{tag}: a plain version ran")
+    check(len(recs) == n_steps, f"{tag}: ran {len(recs)} supersteps")
+    return recs, {name: w.launches for name, w in wrappers.items()}, card_counts(), wall
+
+
+def same_default_steps(tag, ref, got):
+    """Two runs step for step: events, elements, charges and the charges'
+    potential (the same kernel on the same charges) bit for bit, the
+    boundary potential within 1e-12 of its scale (the graph's boundary CG
+    sums in another order than the eager one's cuBLAS).  Returns the
+    boundary potential's worst distance."""
+    import torch
+
+    check(len(ref) == len(got), f"{tag}: {len(ref)} vs {len(got)} supersteps")
+    err = 0.0
+    for k, (a, b) in enumerate(zip(ref, got)):
+        check(a["events"] == b["events"] and torch.equal(a["element"], b["element"])
+              and torch.equal(a["charge"], b["charge"]),
+              f"{tag}: step {k} events {a['events']} vs {b['events']}, or elements or "
+              "charges differ")
+        check(torch.equal(a["pc"], b["pc"]), f"{tag}: step {k} potential_charge differs")
+        err = max(err, rel_err(b["pb"], a["pb"]))
+    check(err <= 1e-12, f"{tag}: potential_boundary {err:.3e} of its scale apart")
+    return err
+
+
+def default_headline(out_root):
+    """The headline with poisson_kernel "jnp": its captured graph (the main
+    path) and its eager superstep, each driven with the counters set to 0
+    just before and read just after (the exact kernel once a superstep as
+    the card counts it, the pair sweep never, no plain version), step for
+    step (same_default_steps); both again in turns (graph_turns: 1
+    device-to-host copy a graph superstep).  Returns (launches of the graph
+    run, summary, the graph's simulation)."""
+    import torch
+
+    from devicekmc_tpu_torch import engine
+    from devicekmc_tpu_torch.ops import ell_gather as eg
+    from devicekmc_tpu_torch.ops import kmc_events
+    from devicekmc_tpu_torch.ops import pairwise as pw
+
+    n = WARMUP_STEPS + TIMED_STEPS
+    wrappers = {"ell_gather": eg.ell_gather, "ell_gather_batched": eg.ell_gather_batched,
+                "poisson_pairwise": pw.poisson_pairwise,
+                "poisson_pairwise_batched": pw.poisson_pairwise_batched,
+                "poisson_exact_batched": pw.poisson_exact_batched,
+                "kmc_event_loop": kmc_events.kmc_event_loop,
+                "kmc_event_loop_batched": kmc_events.kmc_event_loop_batched}
+    sim = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "default_graph"),
+                             poisson_kernel="jnp")
+    check(sim.params.poisson_kernel == "jnp" and sim._graph_for(sim.params) is not None,
+          "the headline with poisson_kernel jnp does not run the captured graph")
+    recs, host, card, wall = default_drive(sim, "jnp headline graph", n, wrappers)
+    sim_e = synthetic_crossbar(N_SITES, "cuda", os.path.join(out_root, "default_eager"),
+                               poisson_kernel="jnp")
+    sim_e._make = engine.make_superstep
+    recs_e, host_e, card_e, wall_e = default_drive(sim_e, "jnp headline eager", n, wrappers)
+    check(sim._graph.replays == n and sim_e._graph is None,
+          f"jnp headline: {sim._graph.replays} replays, eager graph {sim_e._graph}")
+    for tag, h, c in (("graph", host, card), ("eager", host_e, card_e)):
+        check(h["poisson_exact_batched"] == c["poisson_exact_batched"] == n
+              and h["poisson_pairwise"] == h["poisson_pairwise_batched"]
+              == c["poisson_pairwise_batched"] == 0,
+              f"jnp headline {tag}: launches {h}, on the card {c}")
+    pb_err = same_default_steps("jnp headline graph against eager", recs_e, recs)
+    key = "Z - calculation time - KMC superstep [s]"
+    ms = [s[key] * 1e3 for s in sim.step_log[WARMUP_STEPS:]]
+    ms_e = [s[key] * 1e3 for s in sim_e.step_log[WARMUP_STEPS:]]
+    charged = [int(s["n_charged_sites"]) for s in sim.step_log]
+    log(f"jnp headline: run_bias_point in {wall:.2f} s on the graph, {wall_e:.2f} s eagerly; "
+        f"timed supersteps graph median {statistics.median(ms):.2f} ms "
+        f"{[round(x, 2) for x in ms]}, "
+        f"eager median {statistics.median(ms_e):.2f} ms {[round(x, 2) for x in ms_e]}; events "
+        f"{[r['events'] for r in recs]}, elements, charges and potential_charge bit-equal "
+        f"step for step, potential_boundary within {pb_err:.3e}; charged sites {charged}; "
+        f"launches graph {host} (card {card['poisson_exact_batched']}), eager {host_e}")
+    turns = graph_turns(sim, sim_e, wrappers)
+    summary = dict(median_ms=statistics.median(ms), median_ms_eager=statistics.median(ms_e),
+                   ms=ms, ms_eager=ms_e, charged=charged, potential_boundary_err=pb_err,
+                   launches_graph=host, launches_eager=host_e, **turns)
+    del sim_e
+    torch.cuda.empty_cache()
+    return host, summary, sim
+
+
+def default_ensemble(sim):
+    """ENSEMBLE_B replicas of the headline with poisson_kernel "jnp" from the
+    state of ``sim``'s run (keys of ENSEMBLE_SEED): the ensemble's captured
+    graph (parallel.batched.make_batched_superstep) against the eager
+    batched superstep (superstep_batched), superstep by superstep in turns,
+    counters to 0 just before: the exact kernel once a superstep for all
+    replicas, as the card counts it; every replica's events, elements,
+    charges and potential_charge bit for bit, potential_boundary within
+    1e-12 of its scale; one graph superstep profiled (device-to-host
+    copies).  Returns the summary."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import pairwise as pw
+    from devicekmc_tpu_torch.parallel.batched import batch_states, make_batched_superstep
+    from devicekmc_tpu_torch.superstep import superstep_batched
+
+    geom, params = sim.geom, sim.params
+    step = make_batched_superstep(geom, params, sim.heat)
+    check(hasattr(step, "graphs"), "the jnp ensemble does not run the captured graph")
+    states_g = batch_states(sim.state, ENSEMBLE_B, base_seed=ENSEMBLE_SEED)
+    states_e = batch_states(sim.state, ENSEMBLE_B, base_seed=ENSEMBLE_SEED)
+    n = WARMUP_STEPS + TIMED_STEPS
+    pw.poisson_exact_batched.launches = 0
+    _build.launch_counts("cuda").zero_()
+    plain, restore = _counted(pw, "poisson_exact_batched_plain")
+    ms_g, ms_e, pb_err, events = [], [], 0.0, []
+    try:
+        for k in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            states_g, _, m_g = step(states_g, VD_MAIN)
+            torch.cuda.synchronize()
+            ms_g.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            states_e, _, m_e = superstep_batched(geom, params, states_e, VD_MAIN)
+            torch.cuda.synchronize()
+            ms_e.append((time.perf_counter() - t) * 1e3)
+            ev = m_g["n_events"].tolist()
+            check(ev == m_e["n_events"].tolist()
+                  and torch.equal(states_g.element, states_e.element)
+                  and torch.equal(states_g.charge, states_e.charge)
+                  and torch.equal(states_g.potential_charge, states_e.potential_charge),
+                  f"jnp ensemble step {k}: graph and eager differ (events {ev} vs "
+                  f"{m_e['n_events'].tolist()}, or elements, charges or potential_charge)")
+            pb_err = max(pb_err, rel_err(states_g.potential_boundary,
+                                         states_e.potential_boundary))
+            events.append(ev)
+    finally:
+        restore()
+    card = card_counts()["poisson_exact_batched"]
+    check(plain["calls"] == 0 and pw.poisson_exact_batched.launches == card == 2 * n,
+          f"jnp ensemble: {pw.poisson_exact_batched.launches} launches ({card} on the card) "
+          f"in {n} supersteps of the graph and of the eager superstep, plain {plain['calls']}")
+    check(pb_err <= 1e-12, f"jnp ensemble: potential_boundary {pb_err:.3e} of its scale apart")
+    prof = profile_calls(lambda: step(states_g, VD_MAIN), 1)
+    summary = dict(B=ENSEMBLE_B, ms_graph=ms_g, ms_eager=ms_e,
+                   median_ms_graph=statistics.median(ms_g[WARMUP_STEPS:]),
+                   median_ms_eager=statistics.median(ms_e[WARMUP_STEPS:]),
+                   potential_boundary_err=pb_err, events=events, launches=card,
+                   dtoh_graph=prof[2], busy_graph=None if prof[1] is None
+                   else 100 * prof[1] / prof[0])
+    check(prof[2] is None or prof[2] <= 1, f"jnp ensemble: {prof[2]} device-to-host copies in "
+          "a graph superstep")
+    log(f"jnp ensemble at B = {ENSEMBLE_B}: graph median {summary['median_ms_graph']:.2f} ms "
+        f"{[round(x, 2) for x in ms_g]}, eager median {summary['median_ms_eager']:.2f} ms "
+        f"{[round(x, 2) for x in ms_e]}; events, elements, charges and potential_charge "
+        f"bit-equal step for step, potential_boundary within {pb_err:.3e}; exact kernel "
+        f"{card} launches on the card in {n} supersteps of each; a graph superstep "
+        f"{prof[2]} device-to-host copies")
+    return summary
+
+
+def default_path(out_root, small):
+    """Phase 15: the exact kernel against its plain version
+    (exact_kernel_checks), the headline with poisson_kernel "jnp" on its
+    graph against its eager superstep (default_headline), and its ensemble
+    (default_ensemble).  The f64 stored configuration with "jnp" is phase
+    14's f64 run.  Returns (the kernel's record, the summary)."""
+    import torch
+
+    t0 = time.perf_counter()
+    launches, head, sim = default_headline(out_root)
+    ens = default_ensemble(sim)
+    checks = exact_kernel_checks(sim, small)
+    del sim
+    torch.cuda.empty_cache()
+    f32, f64 = checks["f32"], checks["f64"]
+    rec = {
+        "name": "poisson_exact_batched", "route": "cuda",
+        "source": "devicekmc_tpu_torch/csrc/pairwise_exact.cu", "replaces": EXACT_REPLACES,
+        "replaces_note": "XLA-fused jnp code, not a Pallas kernel (poisson_kernel 'jnp')",
+        "launches": launches["poisson_exact_batched"],
+        "path": "headline with poisson_kernel jnp, captured graph",
+        "max_abs_err": max(f32["err_run"], f32["err_bucket"], f32["err_batch"]),
+        "err_of": "the potential's scale", "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": None,
+        "library_none": "no PyTorch call computes the screened pair sum",
+        "shape": f"108944-site crossbar rows x {checks['n_charged']} charged, f32",
+        "f32": f32, "f64": f64, "bucket": checks["bucket"],
+        "launches_eager_run": head["launches_eager"]["poisson_exact_batched"],
+        "launches_ensemble_runs": ens["launches"]}
+    summary = dict(headline=head, ensemble=ens, seconds=time.perf_counter() - t0)
+    log(f"phase 15 in {summary['seconds']:.1f} s")
+    return rec, summary
+
+
 def main():
     import torch
 
@@ -6129,8 +6575,8 @@ def main():
         laps[name] = round(t - t_lap[0], 1)
         t_lap[0] = t
 
-    libs = ["ell_gather", "pairwise", "banded", "wkb_fly", "wkb_window", "kmc_events",
-            "graph", "boundary_cg", "transport_cg", "heat"]
+    libs = ["ell_gather", "pairwise", "pairwise_exact", "banded", "wkb_fly", "wkb_window",
+            "kmc_events", "graph", "boundary_cg", "transport_cg", "heat"]
     latency_job = start_latency_build()
     _build.build(libs)
     finish_latency_build(latency_job)
@@ -6180,6 +6626,12 @@ def main():
     stored_records, stored_summaries = stored_path(out_root)
     torch.cuda.empty_cache()
     lap("stored and f64")
+    exact_record, default_summary = default_path(out_root, sim)
+    exact_record["launches_f64_stored_graph_run"] = stored_summaries["f64 graph"][
+        "launches_card"]["poisson_exact_batched"]
+    del sim
+    torch.cuda.empty_cache()
+    lap("exact Poisson sweep, default configurations")
 
     t0 = time.perf_counter()
     small_modular_check(out_root)
@@ -6281,6 +6733,13 @@ def main():
     kernels += local_heat["records"]
     # phase 14: its two kernels, and the launches of its graph runs
     kernels += stored_records
+    # phase 15: the exact-erfc sweep, and its launches on the halo path
+    exact_record.update(
+        launches_halo_path=halo["f64"]["launches"]["poisson_exact_batched"],
+        launches_halo_path_mixed=halo["mixed"]["launches"]["poisson_exact_batched"],
+        halo_poisson_phase_ms={prec: halo[prec]["phase_ms"]["Poisson"]
+                               for prec in ("f64", "mixed")})
+    kernels.append(exact_record)
     for k in kernels:
         name = {"banded_matvec": "banded_matvec_out", "wkb_fly_matvec": "wkb_fly_matvec_out"
                 }.get(k["name"], k["name"])
@@ -6319,6 +6778,7 @@ def main():
         "heat_phase_alone": local_heat["timing"]}))
     log("bf16 transport graph summary: " + json.dumps(bgraph))
     log("stored and f64 graph summaries: " + json.dumps(stored_summaries))
+    log("default Poisson sweep (jnp) summary: " + json.dumps(default_summary))
     log(f"profiled calls taken again after a trace without device records: "
         f"{len(empty_traces)} {empty_traces}; launches in the traces of the profiled calls "
         f"against their counts: {traced_totals()}")

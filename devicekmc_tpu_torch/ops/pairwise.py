@@ -26,6 +26,13 @@ device and its charged set split as the single launch splits it, so replica
 b's V is the single kernel's bit for bit; its plain version
 :func:`poisson_pairwise_batched_plain` is the single plain sweep replica by
 replica.
+
+:func:`poisson_exact_batched` is the exact-erfc sweep of ``poisson_kernel =
+"jnp"`` (``csrc/pairwise_exact.cu``, f32 or f64): B replicas' source lists
+over the rows of a range in one launch, each replica's count read on the
+device; its plain version :func:`poisson_exact_batched_plain` is
+:func:`poisson_exact_plain`, the port's PyTorch sweep, of each replica's
+first ``min(count, cap)`` sources.
 """
 
 from __future__ import annotations
@@ -122,13 +129,16 @@ def batched_tickets(n: int, batch: int) -> int:
 _ARGTYPES = {
     "dkmc_poisson_pairwise": "piiippiffffiipppp",
     "dkmc_poisson_pairwise_batched": "pipppiiffffiiippppp",
+    "dkmc_poisson_exact": "piippppiiidddddiiippppp",
 }
 
 
 def _lib(symbol="dkmc_poisson_pairwise"):
-    fn = getattr(_build.load("pairwise"), symbol)
+    lib = "pairwise_exact" if symbol == "dkmc_poisson_exact" else "pairwise"
+    fn = getattr(_build.load(lib), symbol)
     if fn.argtypes is None:
-        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+                 "d": ctypes.c_double}
         fn.argtypes = [kinds[c] for c in _ARGTYPES[symbol]]
         fn.restype = ctypes.c_int
     return fn
@@ -262,3 +272,127 @@ def poisson_pairwise_batched(coords: torch.Tensor, charged_idx: torch.Tensor,
 
 
 poisson_pairwise_batched.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# the exact-erfc sweep (poisson_kernel = "jnp")
+# ----------------------------------------------------------------------------
+
+def poisson_exact_plain(coords, c_coords, c_ids, cq, lattice, sigma: float, k: float,
+                        pbc: bool, block: int = 512, row0: int = 0):
+    """Exact-erfc pair sweep in ``coords.dtype`` of the rows ``coords``
+    (site ids ``row0``, ``row0 + 1``, ...) over the charged sites at
+    ``c_coords`` (site ids ``c_ids``, charges ``cq``), blocked over rows; a
+    pair of one site with itself adds nothing.  ``lattice``, ``sigma`` and
+    ``k``: values of the dtype."""
+    dtype = coords.dtype
+    n = coords.shape[0]
+    sig = torch.tensor(sigma, dtype=dtype)
+    inv_s = 1.0 / (sig * torch.sqrt(torch.tensor(2.0, dtype=dtype)))
+    kk = torch.tensor(k, dtype=dtype, device=coords.device)
+    ci = c_ids
+    out = torch.empty(n, dtype=dtype, device=coords.device)
+    for r0 in range(0, n, block):
+        r1 = min(r0 + block, n)
+        d = coords[r0:r1, None, :] - c_coords[None, :, :]
+        dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+        if pbc:
+            dy = dy - torch.round(dy / lattice[1]) * lattice[1]
+            dz = dz - torch.round(dz / lattice[2]) * lattice[2]
+        dist = torch.sqrt(dx * dx + dy * dy + dz * dz) * 1e-10
+        rows = torch.arange(row0 + r0, row0 + r1, device=coords.device)
+        dead = (rows[:, None] == ci[None, :]) | (dist <= 0.0)
+        dist = torch.where(dead, 1.0, dist)
+        contrib = cq[None, :] * torch.special.erfc(dist * inv_s.item()) * kk * C.Q_C / dist
+        out[r0:r1] = torch.where(dead, 0.0, contrib).sum(dim=1)
+    return out
+
+
+def exact_scalars(lattice, sigma: float, k: float, dtype: torch.dtype):
+    """(inv_s, k, Q_C, lat_y, lat_z) as the kernel takes them: the values of
+    ``dtype`` that :func:`poisson_exact_plain` computes with."""
+    sig = torch.tensor(sigma, dtype=dtype)
+    inv_s = 1.0 / (sig * torch.sqrt(torch.tensor(2.0, dtype=dtype)))
+    return (float(inv_s), *(float(torch.tensor(x, dtype=dtype))
+                            for x in (k, C.Q_C, lattice[1], lattice[2])))
+
+
+def poisson_exact_batched_plain(rows, row0: int, src_coords, src_ids, src_q, counts,
+                                lattice, sigma: float, k: float, pbc: bool,
+                                block: int = 512) -> torch.Tensor:
+    """The plain version of :func:`poisson_exact_batched`:
+    :func:`poisson_exact_plain` of each replica's first ``min(count, cap)``
+    sources (the counts read)."""
+    cap = src_ids.shape[1]
+    return torch.stack([
+        poisson_exact_plain(rows, src_coords[b, :n], src_ids[b, :n].long(), src_q[b, :n],
+                            lattice, sigma, k, pbc, block, row0)
+        for b, n in enumerate(min(int(c), cap) for c in counts.tolist())])
+
+
+def poisson_exact_batched(rows: torch.Tensor, row0: int, src_coords: torch.Tensor,
+                          src_ids: torch.Tensor, src_q: torch.Tensor, counts: torch.Tensor,
+                          lattice, sigma: float, k: float, pbc: bool, n_sweep=None,
+                          block: int = 512) -> torch.Tensor:
+    """V [B, n_rows] of the exact-erfc sweep in the rows' dtype (f32 or
+    f64): ``rows`` [n_rows, 3] (contiguous; row j is the site ``row0 + j``)
+    under B replicas' sources, the coordinates ``src_coords`` [B, cap, 3]
+    and charges ``src_q`` [B, cap] in the rows' dtype and the site ids
+    ``src_ids`` [B, cap] (int32), each list filled past its count; ``counts``
+    [B] int32 on the device, the true counts (a replica sweeps its first
+    ``min(count, cap)``).  ``lattice``, ``sigma`` and ``k`` are values of the
+    dtype.  ``n_sweep``: the rows of the whole sweep when ``rows`` is a range
+    of it (default: ``n_rows``); the launch splits each source list by that
+    sweep's grid rule, so row j is row ``row0 + j`` of the whole sweep bit
+    for bit.  No count is read by the host.  For CPU tensors the plain
+    version (``block`` rows at a time).  Each launch adds one to
+    ``poisson_exact_batched.launches``."""
+    if rows.device.type == "cpu":
+        return poisson_exact_batched_plain(rows, row0, src_coords, src_ids, src_q, counts,
+                                           lattice, sigma, k, pbc, block)
+    if rows.device.type != "cuda":
+        raise ValueError(f"poisson_exact_batched: unsupported device {rows.device}")
+    dt = rows.dtype
+    if dt not in (torch.float32, torch.float64) or rows.dim() != 2 or rows.shape[1] != 3 \
+            or not rows.is_contiguous():
+        raise ValueError("poisson_exact_batched: rows must be a contiguous [n, 3] float32 "
+                         "or float64 tensor")
+    B, cap = src_ids.shape if src_ids.dim() == 2 else (-1, -1)
+    if src_ids.dtype != torch.int32 or counts.dtype != torch.int32 \
+            or src_coords.dtype != dt or src_q.dtype != dt \
+            or tuple(src_coords.shape) != (B, cap, 3) or tuple(src_q.shape) != (B, cap) \
+            or tuple(counts.shape) != (B,) \
+            or not all(t.is_contiguous() for t in (src_coords, src_ids, src_q, counts)):
+        raise ValueError("poisson_exact_batched: src_coords [B, cap, 3] and src_q [B, cap] "
+                         "in the rows' dtype, src_ids int32 [B, cap] and counts int32 [B], "
+                         "contiguous")
+    if any(t.device != rows.device for t in (src_coords, src_ids, src_q, counts)):
+        raise ValueError("poisson_exact_batched: all tensors on one device")
+    n = rows.shape[0]
+    n_sweep = n if n_sweep is None else n_sweep
+    if row0 < 0 or n_sweep < n:
+        raise ValueError(f"poisson_exact_batched: {n} rows from {row0} in a sweep of "
+                         f"{n_sweep}")
+    out = torch.empty((B, n), dtype=dt, device=rows.device)
+    if n == 0 or B == 0:
+        return out
+    n_sm = _build.sm_count(rows.device)
+    want = _want_splits(poisson_grid(n_sweep, 0, n_sm)[0], n_sm)
+    max_split = max(1, min(want, -(-cap // _MIN_SPLIT)))
+    blocks = poisson_grid(n, 0)[0]
+    part = torch.empty(B * max_split * blocks * _THREADS * _ROWS, dtype=dt, device=rows.device)
+    cnt = _build.tickets(rows.device, batched_tickets(n, B))
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    err = _lib("dkmc_poisson_exact")(
+        rows.data_ptr(), n, row0, src_coords.data_ptr(), src_ids.data_ptr(),
+        src_q.data_ptr(), counts.data_ptr(), B, cap, int(dt == torch.float64),
+        *exact_scalars(lattice, sigma, k, dt), int(bool(pbc)), want, max_split,
+        part.data_ptr(), cnt.data_ptr(), out.data_ptr(),
+        _build.launch_counter(rows.device, "poisson_exact_batched"), stream)
+    if err != 0:
+        raise RuntimeError(f"poisson_exact_batched kernel launch failed: cudaError {err}")
+    poisson_exact_batched.launches += 1
+    return out
+
+
+poisson_exact_batched.launches = 0

@@ -12,7 +12,10 @@ adjacent ranks.  The phases:
     with every dot product summed over the ranks), warm-started from the
     last potential, so that an unchanged network takes 0 iterations;
   * **gridless Poisson** — each rank compacts its charged sites, one
-    all-gather shares them, and each rank sweeps its rows over all of them;
+    all-gather shares them, and each rank sweeps its rows over all of them
+    with the exact-erfc sweep (``ops.pairwise.poisson_exact_batched``: the
+    kernel on the card, the gathered slots compacted there and their count
+    never read for the sweep);
   * **KMC events** — the residence-time loop with distributed selection:
     the ranks' 128-row block sums are all-gathered, every rank computes the
     same global cumsum and pick, the owner of the picked block resolves
@@ -43,14 +46,14 @@ import numpy as np
 import torch
 
 from .. import rng
-from ..ops.compact import nonzero_fixed
+from ..ops.compact import nonzero_fixed, nonzero_fixed_batched
 from ..ops.ell_gather import _WORD_DTYPES, ell_gather
 from ..ops.kmc_events import execute_event, event_type, time_draw
+from ..ops.pairwise import poisson_exact_batched
 from ..physics import charge as charge_mod
 from ..physics import heat as heat_mod
 from ..physics.events import _BLOCK, pack_site_code, rates_from_pairs
-from ..physics.potential import (_dirichlet_laplace_solve, _poisson_rows, _select,
-                                 solve_cb_edge)
+from ..physics.potential import _dirichlet_laplace_solve, _select, solve_cb_edge
 from ..state import Geometry, PhysParams, SimState, _as_dtype, replace
 from ..structure import Element
 from .halo import compute_halo_width
@@ -242,12 +245,18 @@ def halo_poisson(sh: _Shard, geom: Geometry, params: PhysParams, state: SimState
     tail[0, 0] = n_l
     g = sh.comm.all_gather(torch.cat([packed, tail])).reshape(sh.comm.world, cap + 1, 5)
     slots = g[:, :cap].reshape(-1, 5)
-    slots = slots[slots[:, 4] >= 0]
-    n_charged = int(g[:, cap, 0].sum())
+    # the filled slots, compacted on the device: the exact sweep's sources
+    # and their count, which the host does not read
+    sel, count = nonzero_fixed_batched((slots[:, 4] >= 0)[None], slots.shape[0])
+    src = slots[sel[0].long()]
     lat = [_as_dtype(x, cdtype) for x in geom.lattice_host]
-    v = _poisson_rows(geom.coords.to(cdtype), slots[:, :3].to(cdtype), slots[:, 4].long(),
-                      slots[:, 3].to(cdtype), lat, _as_dtype(params.sigma, cdtype),
-                      _as_dtype(params.k, cdtype), geom.pbc, block, row0=sh.gstart)
+    v = poisson_exact_batched(
+        geom.coords.to(cdtype).contiguous(), sh.gstart,
+        src[None, :, :3].to(cdtype).contiguous(), src[None, :, 4].to(torch.int32).contiguous(),
+        src[None, :, 3].to(cdtype).contiguous(), count, lat,
+        _as_dtype(params.sigma, cdtype), _as_dtype(params.k, cdtype), geom.pbc,
+        n_sweep=sh.comm.world * sh.S, block=block)[0]
+    n_charged = int(g[:, cap, 0].sum())
     return replace(state, potential_charge=v.to(dtype)), n_charged
 
 

@@ -20,8 +20,9 @@ placement asks for, one process a device (``mesh.Mesh``):
     charge rule (the counts through one all-reduce); the boundary system's
     assembly and its CG, whose matvec all-gathers the direction and whose
     dots are all-reduced partial sums; the compacted Poisson sweep, the
-    rank's rows against the whole charged list (``ops.pairwise.
-    poisson_pairwise_rows`` on the card), which every rank holds; the rate
+    rank's rows against the whole charged list (on the card the row range
+    of ``ops.pairwise.poisson_exact_batched`` or of
+    ``poisson_pairwise_rows``), which every rank holds; the rate
     table's rows.  The exact skip and the incremental residual run on every
     rank alike: they read the whole state and the changed rows only.  The
     boundary solve and the sweep are the single device's functions given
@@ -171,8 +172,10 @@ def replicate_boundary(rg: _Rows, geom: Geometry, params: PhysParams, state: Sim
 def replicate_poisson(rg: _Rows, geom: Geometry, params: PhysParams, state: SimState
                       ) -> Tuple[SimState, Dict]:
     """The compacted Poisson sweep over the ranks (``potential.
-    poisson_gridless_compact`` with the rank's rows: the pair-sweep kernel's
-    row range with ``poisson_kernel = "pallas"``)."""
+    poisson_gridless_compact`` with the rank's rows: the row range of the
+    exact kernel with ``poisson_kernel = "jnp"``, of the pair-sweep kernel
+    with ``"pallas"``; either splits its sources as the whole sweep does, so
+    each row is the single device's bit for bit)."""
     return _phase_poisson(geom, params, state, rows=rg)
 
 

@@ -26,7 +26,7 @@ turns its conditionals into selects.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -35,7 +35,8 @@ from ..ops.boundary_cg import Workspace, cg_solve_device
 from ..ops.cg import cg_solve, cg_solve_batched, invert_coarse, rowdot
 from ..ops.compact import nonzero_fixed, nonzero_fixed_batched
 from ..ops.ell import safe_index
-from ..ops.pairwise import kernel_scalars, poisson_pairwise_batched, poisson_pairwise_rows
+from ..ops.pairwise import (kernel_scalars, poisson_exact_batched, poisson_pairwise_batched,
+                            poisson_pairwise_rows)
 from ..state import Geometry, PhysParams, SimState, _as_dtype, replace
 from ..structure import Element
 
@@ -519,67 +520,50 @@ def solve_cb_edge(
 # gridless Poisson (pairwise screened Coulomb), compacted charged set
 # ----------------------------------------------------------------------------
 
-def _poisson_rows(coords, c_coords, c_ids, cq, lattice, sigma: float, k: float,
-                  pbc: bool, block: int, row0: int = 0):
-    """Exact-erfc pair sweep in ``coords.dtype`` of the rows ``coords``
-    (site ids ``row0``, ``row0 + 1``, ...) over the charged sites at
-    ``c_coords`` (site ids ``c_ids``, charges ``cq``), blocked over rows; a
-    pair of one site with itself adds nothing."""
-    dtype = coords.dtype
-    n = coords.shape[0]
-    sig = torch.tensor(sigma, dtype=dtype)
-    inv_s = 1.0 / (sig * torch.sqrt(torch.tensor(2.0, dtype=dtype)))
-    kk = torch.tensor(k, dtype=dtype, device=coords.device)
-    ci = c_ids
-    out = torch.empty(n, dtype=dtype, device=coords.device)
-    for r0 in range(0, n, block):
-        r1 = min(r0 + block, n)
-        d = coords[r0:r1, None, :] - c_coords[None, :, :]
-        dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
-        if pbc:
-            dy = dy - torch.round(dy / lattice[1]) * lattice[1]
-            dz = dz - torch.round(dz / lattice[2]) * lattice[2]
-        dist = torch.sqrt(dx * dx + dy * dy + dz * dz) * 1e-10
-        rows = torch.arange(row0 + r0, row0 + r1, device=coords.device)
-        dead = (rows[:, None] == ci[None, :]) | (dist <= 0.0)
-        dist = torch.where(dead, 1.0, dist)
-        contrib = cq[None, :] * torch.special.erfc(dist * inv_s.item()) * kk * C.Q_C / dist
-        out[r0:r1] = torch.where(dead, 0.0, contrib).sum(dim=1)
-    return out
-
-
-def _poisson_rows_compact(coords, cidx, cq, lattice, sigma: float, k: float,
-                          pbc: bool, block: int):
-    """Exact-erfc pair sweep in ``coords.dtype`` over the compacted charged
-    set (``cidx``, charges ``cq``), blocked over rows."""
-    return _poisson_rows(coords, coords[cidx], cidx, cq, lattice, sigma, k, pbc, block)
+def _exact_sweep(geom: Geometry, params: PhysParams, charge, cidx, counts, r0: int,
+                 n_rows: int, block: int):
+    """The exact-erfc sweep (``poisson_kernel = "jnp"``) in f32 (mixed) or the
+    working dtype of the rows ``[r0, r0 + n_rows)`` over each replica's
+    compacted charged list ``cidx`` [B, cap] (int32; its true count
+    ``counts`` [B] on the device, the fill slots past it unread): [B,
+    n_rows].  One launch of the exact kernel on the card, the port's PyTorch
+    sweep (its plain version) on the CPU."""
+    cdtype = torch.float32 if params.mixed else params.dtype
+    coords = geom.coords.to(cdtype)
+    ci = cidx.long()
+    return poisson_exact_batched(
+        coords[r0:r0 + n_rows], r0, coords[ci], cidx,
+        torch.gather(charge, 1, ci).to(cdtype), counts,
+        [_as_dtype(x, cdtype) for x in geom.lattice_host], _as_dtype(params.sigma, cdtype),
+        _as_dtype(params.k, cdtype), geom.pbc, n_sweep=geom.N, block=block)
 
 
 def poisson_gridless_compact(
     geom: Geometry, params: PhysParams, state: SimState, cap: int,
     block: int = 512, rows=None,
-) -> Tuple[SimState, int]:
+) -> Tuple[SimState, Union[int, torch.Tensor]]:
     """Charged-site-compacted Poisson.  Returns ``(state, n_charged)``; the
     engine checks n_charged <= cap (the exactness condition) and redoes the
     step with a grown cap on overflow.
 
     ``params.poisson_kernel == "pallas"`` runs the f32 A&S-erfc sweep (the
-    pair-sweep kernel on the card, its plain version on the CPU); ``"jnp"``
-    the exact-erfc sweep in f32 (mixed) or the working dtype.  Either way
-    the sweep runs over the charged sites actually present: the fill slots
-    of the fixed-size buffer add exact zeros, so dropping them changes no
-    bit of the result.
+    pair-sweep kernel on the card, its plain version on the CPU; n_charged
+    an int); ``"jnp"`` the exact-erfc sweep in f32 (mixed) or the working
+    dtype (the exact kernel on the card, which reads the count there, and
+    the port's PyTorch sweep on the CPU; n_charged a 0-d tensor on the
+    device).  Either way the sweep runs over the charged sites actually
+    present: the fill slots of the fixed-size buffer add exact zeros, so
+    dropping them changes no bit of the result.
 
     ``rows`` (``parallel.sharding._Rows``): the state is whole on every rank
     of a mesh; every rank compacts the whole charged set, sweeps this rank's
     rows against it, and one all-gather makes the potential whole."""
-    if params.poisson_kernel == "pallas":
-        cap = -(-cap // 8) * 8
-    cidx, n_charged_t = nonzero_fixed(state.charge != 0, cap, fill_value=0)
-    n_charged = int(n_charged_t)
-    cidx = cidx[:min(n_charged, cap)]
     r0, n_rows = (0, geom.N) if rows is None else (rows.gstart, rows.S)
     if params.poisson_kernel == "pallas":
+        cap = -(-cap // 8) * 8
+        cidx, n_charged_t = nonzero_fixed(state.charge != 0, cap, fill_value=0)
+        n_charged = int(n_charged_t)
+        cidx = cidx[:min(n_charged, cap)]
         coords32 = geom.coords.to(torch.float32).contiguous()
         cq = state.charge[cidx.long()].to(torch.float32)
         inv_s, kq, lat_y, lat_z = kernel_scalars(
@@ -587,15 +571,10 @@ def poisson_gridless_compact(
         v = poisson_pairwise_rows(coords32, r0, n_rows, cidx, cq, inv_s, kq, lat_y, lat_z,
                                   geom.pbc)
     else:
-        cdtype = torch.float32 if params.mixed else params.dtype
-        coords = geom.coords.to(cdtype)
-        ci = cidx.long()
-        lat = [float(torch.tensor(x, dtype=cdtype)) for x in geom.lattice_host]
-        v = _poisson_rows(
-            coords[r0:r0 + n_rows], coords[ci], ci, state.charge[ci].to(cdtype), lat,
-            float(torch.tensor(params.sigma, dtype=cdtype)),
-            float(torch.tensor(params.k, dtype=cdtype)), geom.pbc, block, row0=r0,
-        )
+        charge = state.charge[None]
+        cidx, counts = nonzero_fixed_batched(charge != 0, cap, fill_value=0)
+        v = _exact_sweep(geom, params, charge, cidx, counts, r0, n_rows, block)[0]
+        n_charged = counts[0]
     if rows is not None:
         v = rows.whole(v)
     return replace(state, potential_charge=v.to(params.dtype)), n_charged
@@ -607,9 +586,9 @@ def poisson_gridless_compact_batched(
     """:func:`poisson_gridless_compact` of B replicas.  Returns ``(states,
     n_charged)`` with the true counts [B] on the device; a replica that
     overflows ``cap`` sweeps its first ``cap`` charged sites, as the single
-    path does.  ``poisson_kernel == "pallas"`` is ONE launch of the batched
-    pair sweep, which reads the counts on the device; ``"jnp"`` sweeps
-    replica by replica over its charged sites (one read of the counts)."""
+    path does.  Either kernel is ONE launch for all replicas that reads the
+    counts on the device: the batched pair sweep (``"pallas"``) or the exact
+    sweep (``"jnp"``)."""
     if params.poisson_kernel == "pallas":
         cap = -(-cap // 8) * 8
     cidx, n_charged = nonzero_fixed_batched(states.charge != 0, cap, fill_value=0)
@@ -621,15 +600,5 @@ def poisson_gridless_compact_batched(
         v = poisson_pairwise_batched(coords32, cidx, cq, n_charged, inv_s, kq, lat_y, lat_z,
                                      geom.pbc)
     else:
-        cdtype = torch.float32 if params.mixed else params.dtype
-        coords = geom.coords.to(cdtype)
-        lat = [float(torch.tensor(x, dtype=cdtype)) for x in geom.lattice_host]
-        rows = []
-        for b, n in enumerate(n_charged.tolist()):
-            ci = cidx[b, :min(n, cap)].long()
-            rows.append(_poisson_rows_compact(
-                coords, ci, states.charge[b, ci].to(cdtype), lat,
-                float(torch.tensor(params.sigma, dtype=cdtype)),
-                float(torch.tensor(params.k, dtype=cdtype)), geom.pbc, block))
-        v = torch.stack(rows)
+        v = _exact_sweep(geom, params, states.charge, cidx, n_charged, 0, geom.N, block)
     return replace(states, potential_charge=v.to(params.dtype)), n_charged

@@ -17,7 +17,7 @@ import torch
 from .ops import boundary_cg, kmc_events
 from .ops import graph as ops_graph
 from .ops.ell_gather import ell_gather_batched
-from .ops.pairwise import batched_tickets, poisson_pairwise_batched
+from .ops.pairwise import batched_tickets, poisson_exact_batched, poisson_pairwise_batched
 from .ops.wkb_fly import wkb_fly_matvec, wkb_fly_pdisp
 from .ops.wkb_window import wkb_window_block
 from .physics import charge as charge_mod
@@ -423,7 +423,7 @@ _SCALARS = ("kmc_time", "T_bg", "I_macro", "P_tot", "Vd_prev", "transport_Vd_pre
 _HOST = _SCALARS + ("key", "tt_valid")
 #: the kernel wrappers a captured superstep launches outside its CG loops
 #: (the loops' kernels count their launches on the card)
-_COUNTED = (ell_gather_batched, poisson_pairwise_batched,
+_COUNTED = (ell_gather_batched, poisson_pairwise_batched, poisson_exact_batched,
             kmc_events.kmc_event_loop_batched, wkb_window_block, wkb_fly_matvec,
             wkb_fly_pdisp)
 
@@ -450,10 +450,11 @@ def graph_ready(params: PhysParams, batch: Optional[int] = 1,
     """None when the superstep of ``params`` (``batch`` replicas; None: a
     count not known yet, possibly above 1) runs as one captured graph
     (:class:`SuperstepGraph`): the headline module set with the Jacobi
-    boundary CG, the incremental event loop and the compacted pair-sweep
-    kernel; with ``solve_current``, one replica
-    (``batch`` 1) of the blocked solve with the Jacobi warm preconditioner,
-    heating off, global or local (dense or matrix-free): in mixed precision
+    boundary CG, the incremental event loop and a Poisson bucket (either
+    sweep: the exact-erfc kernel or the A&S pair-sweep kernel); with
+    ``solve_current``, one replica (``batch`` 1) of the blocked solve with
+    the Jacobi warm preconditioner, heating off, global or local (dense or
+    matrix-free): in mixed precision
     with the on-the-fly or the stored metal block and the static band
     (``band``), with or without the bf16 inner operator (on the fly), and in
     f64 (the stored block; no band needed: the f64 operator reads the exact
@@ -473,10 +474,9 @@ def graph_ready(params: PhysParams, batch: Optional[int] = 1,
                 "in-superstep solve runs eagerly")
     if params.perturb_structure and params.event_mode != "incremental":
         return f"event_mode={params.event_mode!r} runs eagerly"
-    if params.solve_potential and not (params.poisson_compact_cap > 0
-                                       and params.poisson_kernel == "pallas"):
-        return ("the Poisson sweep without the pair-sweep kernel and a bucket "
-                "reads its counts; it runs eagerly")
+    if params.solve_potential and params.poisson_compact_cap <= 0:
+        return ("the dense Poisson sweep (poisson_compact_cap <= 0, no bucket) runs "
+                "eagerly")
     return None
 
 

@@ -194,6 +194,129 @@ def test_cuda_poisson_rows_bit_equal_to_whole(n_c, pbc):
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=atol)
 
 
+#: the exact kernel against its plain version, of the potential's scale:
+#: f32 sums of thousands of terms in another order and libdevice's erfcf
+#: against PyTorch's; f64 the sums' order alone
+EXACT_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _exact_inputs(N, cap, B, dtype, seed):
+    """Rows [N, 3] and B replicas' source lists of ``cap`` random sites
+    (charges +-1, +-2) on the card, with a source at a row's own site and
+    two sources at one position among them."""
+    rng = np.random.default_rng(seed)
+    coords = rng.uniform(0, 60, (N, 3))
+    ids = np.stack([rng.choice(N, cap, replace=False) for _ in range(B)]).astype(np.int32)
+    if cap > 1:
+        coords[ids[0, 1]] = coords[ids[0, 0]]
+    rows = torch.as_tensor(coords, dtype=dtype, device="cuda")
+    idx = torch.as_tensor(ids, device="cuda")
+    q = torch.as_tensor(rng.choice([-2.0, -1.0, 1.0, 2.0], (B, cap)), dtype=dtype,
+                        device="cuda")
+    return rows, rows[idx.long()].contiguous(), idx, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pbc", [False, True])
+@pytest.mark.parametrize("counts", [(129,), (0,), (600,), (0, 129, 600, 513)])
+def test_cuda_poisson_exact_close_to_plain(counts, pbc, dtype):
+    """The exact-erfc kernel against its plain version over 20,001 rows and
+    buckets of 513 sources: counts 0, below and above the bucket, B = 1 and
+    4; within EXACT_TOL of the scale (all zeros where nothing is swept), two
+    calls bit-equal, each replica of a batch its own launch's bits, one
+    launch a call counted on the host and on the card."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops.pairwise import (poisson_exact_batched,
+                                                  poisson_exact_batched_plain)
+
+    B, cap = len(counts), 513
+    rows, c, i, q = _exact_inputs(20_001, cap, B, dtype, seed=sum(counts) + pbc)
+    n = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    args = (rows, 0, c, i, q, n, [60.0, 60.0, 60.0], 3.5e-10, 1.0, pbc)
+    card = _build.launch_counts("cuda")
+    slot = _build.COUNTED_ON_CARD.index("poisson_exact_batched")
+    before, on_card = poisson_exact_batched.launches, int(card[slot])
+    got = poisson_exact_batched(*args)
+    got2 = poisson_exact_batched(*args)
+    ref = poisson_exact_batched_plain(*args)
+    torch.cuda.synchronize()
+    assert poisson_exact_batched.launches == before + 2 and int(card[slot]) == on_card + 2
+    assert got.dtype == dtype and got.shape == (B, 20_001) and torch.equal(got, got2)
+    for b, count in enumerate(counts):
+        if count == 0:
+            assert not bool(got[b].any())
+            continue
+        scale = float(ref[b].abs().max())
+        assert float((got[b] - ref[b]).abs().max()) <= EXACT_TOL[dtype] * scale, b
+        if B > 1:
+            one = poisson_exact_batched(rows, 0, c[b:b + 1], i[b:b + 1], q[b:b + 1],
+                                        n[b:b + 1], *args[6:])
+            assert torch.equal(one[0], got[b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_c", [1, 129, 4096])
+def test_cuda_poisson_exact_rows_bit_equal_to_whole(n_c, dtype):
+    """The exact kernel over a row range (a rank's rows, ``n_sweep`` the
+    whole sweep's rows): ranges of 4 and 3 ranks over 20,001 rows, a
+    ragged one and a single row, each bit-equal to the same rows of one
+    whole launch and within EXACT_TOL of the plain version's range."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.pairwise import (poisson_exact_batched,
+                                                  poisson_exact_batched_plain)
+
+    N = 20_001
+    rows, c, i, q = _exact_inputs(N, n_c, 1, dtype, seed=n_c)
+    n = torch.tensor([n_c], dtype=torch.int32, device="cuda")
+    sc = ([60.0, 60.0, 60.0], 3.5e-10, 1.0, True)
+    whole = poisson_exact_batched(rows, 0, c, i, q, n, *sc)
+    ranges = [(r * 5000, 5000) for r in range(4)] + [(r * 6667, 6667) for r in range(3)]
+    for row0, m in ranges + [(20_000, 1), (17, 2003), (0, N)]:
+        part = rows[row0:row0 + m].contiguous()
+        got = poisson_exact_batched(part, row0, c, i, q, n, *sc, n_sweep=N)
+        ref = poisson_exact_batched_plain(part, row0, c, i, q, n, *sc)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], whole[0, row0:row0 + m]), (row0, m)
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= EXACT_TOL[dtype] * max(scale, 1e-300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["mixed", "f64"])
+def test_cuda_graph_superstep_jnp_matches_eager(tmp_path, precision):
+    """poisson_kernel "jnp" (the exact kernel) on the engine's per-step
+    graph of the small stack against the eager superstep_impl from the same
+    state, step by step: elements, charges, events and the charges'
+    potential bit for bit (the same kernel on the same charges), the
+    boundary potential within 1e-12 of its scale; the exact kernel launched
+    once a superstep on each path, the pair sweep never."""
+    _need_card()
+    from devicekmc_tpu_torch.ops.pairwise import poisson_exact_batched, poisson_pairwise_batched
+    from devicekmc_tpu_torch.superstep import superstep_impl
+
+    sim = _graph_sim(tmp_path, poisson_kernel="jnp", precision=precision)
+    sim.run_bias_point(2.5, 1e30, max_steps=1)
+    assert sim._graph is not None
+    eager = sim.state
+    for k in range(6):
+        before = (poisson_exact_batched.launches, poisson_pairwise_batched.launches)
+        got, dt, m = sim._superstep(sim.state, 2.5)
+        assert poisson_exact_batched.launches == before[0] + 1
+        sim.state = got
+        eager, dt_e, m_e = superstep_impl(sim.geom, sim.params, eager, 2.5)
+        assert poisson_exact_batched.launches == before[0] + 2
+        assert poisson_pairwise_batched.launches == before[1]
+        assert torch.equal(got.element, eager.element), k
+        assert torch.equal(got.charge, eager.charge), k
+        assert m["n_events"] == int(m_e["n_events"]), k
+        assert torch.equal(got.potential_charge, eager.potential_charge), k
+        pb, pb_e = got.potential_boundary, eager.potential_boundary
+        assert float((pb - pb_e).abs().max()) <= 1e-12 * float(pb_e.abs().max()), k
+
+
 # ---------------------------------------------------------------------------
 # transport kernels
 # ---------------------------------------------------------------------------

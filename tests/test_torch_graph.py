@@ -312,6 +312,7 @@ def sync_guard(monkeypatch):
         monkeypatch.setattr(torch.Tensor, name, guarded(name, getattr(torch.Tensor, name)))
     for mod, name in ((graph, "_predicate"), (kmc_events, "kmc_event_loop_batched_plain"),
                       (pairwise, "poisson_pairwise_batched_plain"),
+                      (pairwise, "poisson_exact_batched_plain"),
                       (ell_gather, "ell_gather_batched_plain"),
                       (wkb_window, "wkb_window_block_plain"), (wkb_fly, "wkb_fly_matvec_plain"),
                       (wkb_fly, "wkb_fly_pdisp_plain"), (banded, "banded_matvec_plain")):
@@ -330,19 +331,21 @@ def sync_guard(monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["step", "batch", "ensemble", "bf16", "heat-local-dense",
-                                  "heat-local-cg"])
+                                  "heat-local-cg", "jnp"])
 def test_graph_body_reads_nothing(both, sync_guard, kind, tmp_path):
     """The body of the per-step graph, of a batch of 3 and of the ensemble at
     B = 3 runs 3 times with every read of a tensor's value an error outside
     the plain device loop's predicate and the plain kernels (which do read);
-    so does the transport superstep's with the bf16 inner operator and with
-    the local heat model, dense and matrix-free (the engine's per-step graph,
-    3 supersteps after the cold solves, which run outside the graph)."""
+    so does the per-step graph's with the exact-erfc Poisson sweep
+    (poisson_kernel "jnp"), and the transport superstep's with the bf16
+    inner operator and with the local heat model, dense and matrix-free (the
+    engine's per-step graph, 3 supersteps after the cold solves, which run
+    outside the graph)."""
     from devicekmc_tpu_torch.parallel.batched import batch_states, make_batched_superstep
     from devicekmc_tpu_torch.physics import heat as heat_mod
 
     if kind in ("bf16", "heat-local-dense", "heat-local-cg"):
-        from test_torch_transport_graph import CONFIGS, VD as VD_T, _port
+        from torch_transport_graph import CONFIGS, VD as VD_T, _port
 
         sim = _port(tmp_path, kind, **CONFIGS[kind])
         sim.run_bias_point(VD_T, 1e30, max_steps=3)
@@ -351,11 +354,15 @@ def test_graph_body_reads_nothing(both, sync_guard, kind, tmp_path):
         return
     g, st = _graph(both)
     _, (tg, tp, ts) = both
+    if kind == "jnp":
+        from devicekmc_tpu_torch.superstep import SuperstepGraph
+
+        g = SuperstepGraph(tg, dataclasses.replace(tp, poisson_kernel="jnp"), 1)
     if kind == "ensemble":
         step = make_batched_superstep(tg, tp, heat_mod.empty_heat_model(tp, "cpu"))
         states = batch_states(ts, 3, base_seed=11)
     for _ in range(3):
-        if kind == "step":
+        if kind in ("step", "jnp"):
             st, _, m = g.step(st, VD)
         elif kind == "batch":
             st, _, m = g.multi(st, VD, float("inf"), 1e30, 3)
@@ -659,7 +666,9 @@ def test_graph_redo_after_cap_growth(tmp_path):
     (dict(solve_current=True), "solve_current"),
     (dict(boundary_precond="deflated"), "deflated"),
     (dict(event_mode="scan"), "event_mode"),
-    (dict(poisson_kernel="jnp"), "Poisson"),
+    # the exact-erfc sweep with a bucket: its kernel reads the count on the
+    # device, so it takes the graph
+    pytest.param(dict(poisson_kernel="jnp"), None, id="over4-Poisson"),
     (dict(poisson_compact_cap=0), "Poisson"),
 ])
 def test_graph_route_by_configuration(both, over, reason):

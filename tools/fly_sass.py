@@ -5,25 +5,30 @@ loops, and their times at the paths' shapes.
     python3 tools/fly_sass.py [--dump DIR] [--no-widths] [--inputs FILE]
                               [--pkg DIR] [--times]
 
-Builds ``devicekmc_tpu_torch/csrc/wkb_fly.cu``, ``pairwise.cu`` and
-``wkb_window.cu`` as the port does (nvcc, sm_90a), disassembles each library
-with ``cuobjdump -sass`` and, for every kernel in it, finds the innermost
-loop that holds a ``MUFU.EX2`` (a backward branch whose span is the smallest
-around one) and counts what one unit of work costs there: a pair of the
-on-the-fly WKB kernels and of the Poisson sweep, an energy step of the
-window block.  Each unit takes one ``MUFU.EX2``, so an unrolled loop divides
-by its count: instructions in all, special-function (``MUFU``)
-instructions, shared-memory loads, shuffles and FP32 multiply-adds a unit.
-(A loop whose branches hold one ``MUFU.EX2`` each, as the window kernel's
-before it took its barrier forms by select, counts them all: its figures a
-unit are then too low by the untaken branch's share.)
+Builds ``devicekmc_tpu_torch/csrc/wkb_fly.cu``, ``pairwise.cu``,
+``pairwise_exact.cu`` and ``wkb_window.cu`` as the port does (nvcc,
+sm_90a), disassembles each library with ``cuobjdump -sass`` and, for every
+kernel in it, finds the innermost loop that holds a ``MUFU.EX2`` (a backward
+branch whose span is the smallest around one; for the exact-erfc sweep a
+``MUFU.RSQ``, its square root, as its f64 erfc takes no ``MUFU.EX2``) and
+counts what one unit of work costs there: a pair of the on-the-fly WKB
+kernels and of the Poisson sweeps, an energy step of the window block.  Each
+unit takes one such instruction, so an unrolled loop divides by its count:
+instructions in all, special-function (``MUFU``) instructions, shared-memory
+loads, shuffles, FP32 multiply-adds and FP64 instructions a unit.  (A loop
+whose branches hold one ``MUFU.EX2`` each, as the window kernel's before it
+took its barrier forms by select, counts them all: its figures a unit are
+then too low by the untaken branch's share.  The exact sweep's rare slow
+paths of its square root and divisions are calls out of the loop, not
+counted.)
 
 The issue bound of a call that computes U units is then
 
-    U * max(instructions / 128, MUFU / 16) / (132 * clock)
+    U * max(instructions / 128, MUFU / 16, FP64 / 64) / (132 * clock)
 
-seconds: an H100 SM issues 4 warp instructions (128 lanes) a clock and its
-special-function units take 16 lanes a clock; 132 SMs; ``clock`` is the SM
+seconds: an H100 SM issues 4 warp instructions (128 lanes) a clock, its
+special-function units take 16 lanes a clock and its FP64 units 64; 132
+SMs; ``clock`` is the SM
 clock that ``nvidia-smi`` reports while the card runs the symmetric matvec
 in a loop (needs the card; without one the table is printed without it).
 With a card it then builds the synthetic crossbar of ``chip_smoke.py`` with
@@ -31,8 +36,9 @@ transport on (the cold solves and one superstep) and prints the issue bounds
 at the paths' shapes: the on-the-fly kernels at the transport path's 3,527
 metal atoms and at the reference crossbar's 24,768, for the pairs of the
 32 x 32 chunks they do not skip (``--no-widths`` leaves these out); the
-Poisson sweep at the headline path's rows and charged sites (the crossbar's
-state before its first superstep), PBC off and on; the window block at the
+Poisson sweeps at the headline path's rows and charged sites (the crossbar's
+state before its first superstep), PBC off and on, the exact one in f32 and
+f64; the window block at the
 run's vacancy bucket (full assembly), at 16 of its live rows (the partial
 assembly's shape) and at the bucket against 24,768 metal atoms, for the
 steps the pairs need, with every lane busy and with the share of lanes the
@@ -46,7 +52,7 @@ names it (with this checkout's package) and read by later ones.  ``--pkg
 DIR`` takes ``devicekmc_tpu_torch`` from the checkout at DIR (say, the parent
 commit unpacked under ``build/``), so that one call can compare two versions
 of the kernels on the same inputs in turns (parent, change, change, parent);
-``--times`` adds the time of one call of the Poisson sweep and the window
+``--times`` adds the time of one call of the Poisson sweeps and the window
 block at each shape (CUDA events, ``chip_smoke.time_ms``) beside the bounds,
 of the dissipation sweep at both metal widths, and of the neighbour gather
 at the headline path's shape (1 and 2 channels, cold L2 and back to back)
@@ -72,11 +78,18 @@ N_SM = 132
 RATE_BUCKETS = (1024, 8192)
 LANES_ISSUED_PER_CLK = 128
 MUFU_LANES_PER_CLK = 16
+FP64_LANES_PER_CLK = 64
 
 _INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
-_LIBS = ("wkb_fly", "pairwise", "wkb_window")
+_LIBS = ("wkb_fly", "pairwise", "pairwise_exact", "wkb_window")
 _KERNELS = ("fly_matvec_tiles", "fly_matmat_tiles", "fly_pdisp_tiles",
-            "poisson_pairwise_kernel", "window_block_kernel")
+            "poisson_pairwise_kernel", "poisson_exact_kernel", "window_block_kernel")
+#: the instruction each unit of a kernel's loop takes once (default
+#: ``MUFU.EX2``): the exact sweep's square root (``MUFU.RSQ``, in f64
+#: ``MUFU.RSQ64H``); its f64 erfc takes no ``MUFU.EX2``
+_UNIT = {"poisson_exact_kernel": "MUFU.RSQ"}
+#: FP64 instructions, issued at 64 lanes a clock an SM
+_FP64 = ("DFMA", "DADD", "DMUL", "DSETP", "DMNMX")
 
 
 def _cuobjdump():
@@ -88,13 +101,15 @@ def _cuobjdump():
 
 def kernel_label(mangled):
     """A short name with the template arguments, e.g. ``fly_matvec_tiles<1,4>``
-    (itanium mangling: ``ILb1ELi4EE`` -> bool 1, int 4)."""
+    (itanium mangling: ``ILb1ELi4EE`` -> bool 1, int 4) or
+    ``poisson_exact_kernel<d,0>`` (``IdLb0EE`` -> double, bool 0)."""
     for base in _KERNELS:
         if base in mangled:
-            args = re.search(base + r"I((?:L[bi]\d+E)+)E", mangled)
+            args = re.search(base + r"I((?:[fd]|L[bi]\d+E)+)E", mangled)
             if not args:
                 return base
-            return base + "<" + ",".join(re.findall(r"L[bi](\d+)E", args.group(1))) + ">"
+            return base + "<" + ",".join(m.group(1) or m.group(2) for m in re.finditer(
+                r"([fd])|L[bi](\d+)E", args.group(1))) + ">"
     return None
 
 
@@ -118,9 +133,9 @@ def parse_sass(text):
     return out
 
 
-def pair_loop(ins):
+def pair_loop(ins, unit="MUFU.EX2"):
     """(start, end) indices of the smallest backward-branch span holding a
-    MUFU.EX2, or None."""
+    ``unit`` instruction, or None."""
     addr_to_i = {a: i for i, (a, _, _) in enumerate(ins)}
     best = None
     for i, (a, op, body) in enumerate(ins):
@@ -133,20 +148,20 @@ def pair_loop(ins):
         if t >= a or t not in addr_to_i:
             continue
         j = addr_to_i[t]
-        if any(o.startswith("MUFU.EX2") for _, o, _ in ins[j:i + 1]):
+        if any(o.startswith(unit) for _, o, _ in ins[j:i + 1]):
             if best is None or i - j < best[1] - best[0]:
                 best = (j, i)
     return best
 
 
-def loop_costs(ins):
+def loop_costs(ins, unit="MUFU.EX2"):
     """Counts a unit (a pair, or an energy step) in the unit loop of one
-    kernel."""
-    span = pair_loop(ins)
+    kernel, whose units take one ``unit`` instruction each."""
+    span = pair_loop(ins, unit)
     if span is None:
         return None
     body = ins[span[0]:span[1] + 1]
-    pairs = sum(o.startswith("MUFU.EX2") for _, o, _ in body)
+    pairs = sum(o.startswith(unit) for _, o, _ in body)
     count = lambda pred: sum(1 for _, o, _ in body if pred(o)) / pairs
     return dict(
         pairs_per_iteration=pairs,
@@ -155,16 +170,19 @@ def loop_costs(ins):
         lds=count(lambda o: o.startswith("LDS")),
         shfl=count(lambda o: o.startswith("SHFL")),
         ffma=count(lambda o: o.startswith("FFMA")),
+        fp64=count(lambda o: o.startswith(_FP64)),
         span=(body[0][0], body[-1][0]),
     )
 
 
 def clocks_per_pair(cost):
-    """SM clocks one unit takes at best, per SM: the larger of issue and
-    special-function time; and which of the two."""
-    t_issue = cost["instructions"] / LANES_ISSUED_PER_CLK
-    t_mufu = cost["mufu"] / MUFU_LANES_PER_CLK
-    return max(t_issue, t_mufu), "issue" if t_issue >= t_mufu else "special function"
+    """SM clocks one unit takes at best, per SM: the largest of issue,
+    special-function and FP64 time; and which of them."""
+    t = {"issue": cost["instructions"] / LANES_ISSUED_PER_CLK,
+         "special function": cost["mufu"] / MUFU_LANES_PER_CLK,
+         "fp64": cost.get("fp64", 0.0) / FP64_LANES_PER_CLK}
+    by = max(t, key=t.get)
+    return t[by], by
 
 
 def issue_bound_ms(cost, pairs, clock_mhz):
@@ -180,7 +198,7 @@ def analyse(lib_path):
                           check=True, timeout=300).stdout
     costs = {}
     for label, ins in parse_sass(text).items():
-        c = loop_costs(ins)
+        c = loop_costs(ins, _UNIT.get(label.split("<")[0], "MUFU.EX2"))
         if c is not None:
             costs[label] = c
     return costs, text
@@ -428,6 +446,28 @@ def path_bounds(costs, clock_mhz, inputs, times):
             args = (P["coords"], P["cidx"], P["cq"], *P["scal"], pbc)
             line += f"; {cs.time_ms(lambda: poisson_pairwise(*args)):.5f} ms a call"
         print(line)
+    # the exact-erfc sweep at the same rows and charged set, f32 and f64
+    import torch
+
+    from devicekmc_tpu_torch.ops.pairwise import poisson_exact_batched
+
+    for dt, letter in ((torch.float32, "f"), (torch.float64, "d")):
+        rows = P["coords"].to(dt).contiguous()
+        ci = P["cidx"].long()
+        src = (rows[ci][None].contiguous(), P["cidx"][None].contiguous(),
+               P["cq"].to(dt)[None].contiguous(),
+               torch.tensor([n_c], dtype=torch.int32, device=rows.device))
+        for pbc in (False, True):
+            c = costs.get(f"poisson_exact_kernel<{letter},{int(pbc)}>")
+            line = f"poisson_exact {letter} pbc={pbc} [{n} rows x {n_c} charged]:"
+            if c is not None:
+                clk, by = clocks_per_pair(c)
+                line += (f" issue bound {issue_bound_ms(c, n * n_c, clock_mhz):.5f} ms "
+                         f"(by {by})")
+            if times:
+                args = (rows, 0, *src, [100.0, 100.0, 100.0], 3.5e-10, 1.0, pbc)
+                line += f"; {cs.time_ms(lambda: poisson_exact_batched(*args)):.5f} ms a call"
+            print(line)
     env = inputs["env"]
     for tag, w in inputs["window"].items():
         c = costs.get("window_block_kernel")
@@ -480,7 +520,8 @@ def main():
         regs, smem = res.get(label, (None, None))
         print(f"{label}: {c['instructions']:.2f} instructions a unit "
               f"({c['mufu']:.2f} MUFU, {c['lds']:.2f} LDS, {c['shfl']:.2f} SHFL, "
-              f"{c['ffma']:.2f} FFMA; loop 0x{c['span'][0]:x}-0x{c['span'][1]:x}, "
+              f"{c['ffma']:.2f} FFMA, {c['fp64']:.2f} FP64; loop "
+              f"0x{c['span'][0]:x}-0x{c['span'][1]:x}, "
               f"{c['pairs_per_iteration']} units an iteration) -> {clk:.4f} SM clocks a "
               f"unit by {by}; {regs} registers, {smem} bytes shared")
     if args.dump:
