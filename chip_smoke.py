@@ -475,6 +475,29 @@ def time_ms_cold(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def time_ms_clean(fn, reps=20, warmup=3):
+    """Time of one call after a 64 MiB buffer (more than the 50 MB L2) was
+    read, not written: time_ms_cold with the L2 full of clean lines, as a
+    solve's iteration leaves it (its static operator read, few stores)."""
+    import torch
+
+    scrub = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        scrub.sum()
+        torch.cuda._sleep(HOLD_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 # ---------------------------------------------------------------------------
 # configurations
 # ---------------------------------------------------------------------------
@@ -2287,10 +2310,20 @@ def transport_cg_checks(sim, band):
     scale = float((op.b - p.r).abs().max())
     e = err(k.r, p.r)
     check(e <= 1e-9 * scale, f"transport_rows (f64): {e} from its plain version (scale {scale})")
-    common = i4 * na * 2 + f4 * n_mp * 2 + f4 * nv * 2
+    # the bound of the kernel's own inputs (a valid slot's int32 index, a
+    # class byte an atom, the slice starts; the rows' vectors), and of the
+    # inputs of the row-major ELL it replaced (a valid slot's f64
+    # conductance and int32 index)
+    common = i4 * na * 2 + f4 * n_mp * 2 + f4 * nv * 2 + f8 * (dots_terms + 2 + 4 * nsub) \
+        + f8 * nsub
     timed("rows_hi", lambda: tcg.rows(k, op), lambda: tcg.rows_plain(p, op, True),
-          common + (f8 + i4) * nnz + f8 * (dots_terms + 2 + 4 * nsub) + f8 * nsub, e,
-          rel_err=e / scale)
+          common + i4 * nnz + na + i4 * op.nb_start.numel(), e, rel_err=e / scale,
+          bound_parent_inputs_ms=(common + (f8 + i4) * nnz) / PEAK_BYTES_PER_S * 1e3,
+          cold_ms=time_ms_cold(lambda: tcg.rows(k, op)))
+    r = out["rows_hi"]
+    log(f"transport_rows (f64, residual form): {r['ms']:.5f} ms, cold {r['cold_ms']:.5f}; bound "
+        f"{r['bound_ms']:.5f} ms ({100 * r['bound_ms'] / r['ms']:.0f} %), of the row-major "
+        f"ELL's inputs {r['bound_parent_inputs_ms']:.5f}")
 
     # transport_rows_update: the rows, the update and the direction packed,
     # from one iteration's products, against rows_plain then
@@ -2487,6 +2520,8 @@ def transport_cg_records(k, launches):
         if key == "blocks_lo":
             rec["f64_build"] = {f: k["blocks_hi"][f] for f in ("err", "ms", "plain_ms",
                                                                "bound_ms")}
+        if key == "rows_hi":
+            rec.update({f: r[f] for f in ("cold_ms", "bound_parent_inputs_ms")})
         if key == "rows_update":
             rec.update({f: r[f] for f in ("cold_ms", "stopped_ms", "boundary_ms", "kernel",
                                           "registers", "shared_bytes", "device_launches",
@@ -5809,9 +5844,10 @@ def _map_ws(ws, fn):
 
 def stored_matvec_checks(T, tag, plain_reps=5):
     """stored_matvec_out on the block ``T`` against its plain version and the
-    product in f64, two launches bit-equal; timed warm and with a cold L2
-    beside its bytes bound (the block once, the vector, the output),
-    torch.mv (the library call) and the plain version."""
+    product in f64, two launches bit-equal; timed warm, with a cold L2 (a
+    64 MiB write before) and after a 64 MiB read, beside its bytes bound
+    (the block once, the vector, the output), torch.mv (the library call)
+    timed alike and the plain version."""
     import torch
 
     from devicekmc_tpu_torch.ops.transport_cg import stored_matvec_out, stored_matvec_plain
@@ -5833,18 +5869,20 @@ def stored_matvec_checks(T, tag, plain_reps=5):
     item = T.element_size()
     bytes_ = item * (n * n + 2 * n)
     bound, by = _bound(2 * n * n, bytes_)
+    run = lambda: stored_matvec_out(T, x, y)  # noqa: E731
+    mv = lambda: torch.mv(T, x)  # noqa: E731
     rec = dict(n=n, dtype=str(T.dtype).replace("torch.", ""), max_abs_err=err,
-               max_abs_err_against_f64=err_exact,
-               ms=time_ms(lambda: stored_matvec_out(T, x, y)),
-               cold_ms=time_ms_cold(lambda: stored_matvec_out(T, x, y)),
+               max_abs_err_against_f64=err_exact, ms=time_ms(run), cold_ms=time_ms_cold(run),
+               clean_ms=time_ms_clean(run),
                plain_ms=time_ms(lambda: stored_matvec_plain(T, x), reps=plain_reps, rounds=3),
-               library_ms=time_ms(lambda: torch.mv(T, x)),
-               library_cold_ms=time_ms_cold(lambda: torch.mv(T, x)),
+               library_ms=time_ms(mv), library_cold_ms=time_ms_cold(mv),
+               library_clean_ms=time_ms_clean(mv),
                bound_ms=bound, bound_by=by, block_mb=item * n * n / 1e6)
     log(f"stored_matvec {tag} (n {n}, {rec['dtype']}, {rec['block_mb']:.1f} MB): "
-        f"{rec['ms']:.5f} ms warm, {rec['cold_ms']:.5f} ms cold L2; bound {bound:.5f} ms "
-        f"({by}): {100 * bound / rec['ms']:.0f} % warm, {100 * bound / rec['cold_ms']:.0f} % "
-        f"cold; torch.mv {rec['library_ms']:.5f} / {rec['library_cold_ms']:.5f} ms; plain "
+        f"{rec['ms']:.5f} ms warm, {rec['cold_ms']:.5f} ms cold L2, {rec['clean_ms']:.5f} "
+        f"after a read; bound {bound:.5f} ms ({by}): {100 * bound / rec['ms']:.0f} % warm, "
+        f"{100 * bound / rec['cold_ms']:.0f} % cold; torch.mv {rec['library_ms']:.5f} / "
+        f"{rec['library_cold_ms']:.5f} / {rec['library_clean_ms']:.5f} ms; plain "
         f"{rec['plain_ms']:.5f} ms; max error {err} (against f64 {err_exact})")
     return rec
 
@@ -5921,9 +5959,22 @@ def f64_cg_checks(sim):
     e_alpha = abs(float(k.c64.alpha) / float(p.c64.alpha) - 1)
     check(e <= 1e-12 and e_alpha <= 1e-10, f"transport_rows (product form): ap {e}, alpha "
           f"{e_alpha} from its plain version")
+    # the bound of the kernel's own inputs (a valid slot's int32 index, a
+    # class byte an atom, the slice starts; the rows' vectors), and of the
+    # inputs of the row-major ELL it replaced (a valid slot's f64
+    # conductance and int32 index)
+    rows_vec = f8 * (nsub + 1) + (f8 + 2 * i4) * na + f8 * (2 * n_mp + 2 * nv) \
+        + f8 * (2 * na + nsub) + f8 * nsub
     timed("rows_ap", lambda: tcg.rows_ap(k, op), lambda: tcg.rows_ap_plain(p, op),
-          (f8 + i4) * nnz + f8 * (nsub + 1) + (f8 + 2 * i4) * na + f8 * (2 * n_mp + 2 * nv)
-          + f8 * (2 * na + nsub) + f8 * nsub, e, alpha_rel_err=e_alpha)
+          i4 * nnz + na + i4 * op.nb_start.numel() + rows_vec, e, alpha_rel_err=e_alpha,
+          bound_parent_inputs_ms=((f8 + i4) * nnz + rows_vec) / PEAK_BYTES_PER_S * 1e3,
+          cold_ms=time_ms_cold(lambda: tcg.rows_ap(k, op)),
+          slots_read=int(op.nb_idx.numel()), slots_valid=nnz)
+    r = out["rows_ap"]
+    log(f"transport_rows (f64, product form): {r['ms']:.5f} ms, cold {r['cold_ms']:.5f}; bound "
+        f"{r['bound_ms']:.5f} ms ({100 * r['bound_ms'] / r['ms']:.0f} %), of the row-major "
+        f"ELL's inputs {r['bound_parent_inputs_ms']:.5f}; {r['slots_read']} slots read for "
+        f"{nnz} valid")
     tcg.rows_ap(base, op)
     k, p = clone(base), clone(base)
     tcg.update_f64(k, op, 20000)

@@ -111,10 +111,22 @@
 //     every block adding the slots put tens of thousands of loads on the
 //     same L2 lines (6.8 us for a barrier at 304 blocks), one block an SM
 //     and a sleep between a barrier's polls were no faster;
-//   * transport_rows (f64) takes one row a thread in tiles of kThreads rows,
-//     its ELL row in passes of kEll slots whose loads all start before the
-//     first is used; the tiles' partial sums are added in tile order by
-//     the block that draws the last ticket;
+//   * transport_rows (f64) takes one row a thread in tiles of kThreads rows
+//     (bytes: the valid slots of the atom graph, 17.83 of 51 a row at the
+//     crossbar, and a few [N] vectors; the row-major [Na, 51] ELL of f64
+//     conductances and int32 indices, read whole a thread a row, made a
+//     warp's load of a slot touch 32 rows 408 and 204 bytes apart); the
+//     atom graph is a sliced ELL made once a structure, before any capture
+//     (ops/transport_cg.py atom_slices): a warp's rows a slice, each row's
+//     valid neighbours in the graph's order, slot-major, so a warp's load
+//     of a slot is 128
+//     consecutive bytes and no pad past the slice's longest row is read;
+//     the conductance, one of two constants, comes from the two atoms'
+//     classes (a byte an atom the assembly writes, gathered from L2) as the
+//     assembly's nb_vals chooses it, so a slot costs 4 bytes, not 12; a
+//     row's slots in passes of kEll whose loads all start before the first
+//     is used; the tiles' partial sums are added in tile order by the block
+//     that draws the last ticket;
 //   * transport_refine, a plain launch of a block a tile of kTile rows:
 //     nothing after the sum of b_in.b_in is read by another block, so the
 //     last ticket's block adds the tiles' slots and writes the scalars and
@@ -142,11 +154,18 @@
 //     cg_solve_mixed's bit for bit;
 //   * stored_matvec (bytes: the block once, 49.8 MB in f32 at the crossbar's
 //     3,527 metal atoms, 2.45 GB at the reference's 24,768): a warp a row,
-//     16-byte loads, kStoredLoads of them in flight a lane, a row's head
-//     before its first 16-byte boundary and its tail a lane an element; the
-//     vector through the read-only path (L1-resident); one fixed order a
-//     row, so graph and host loop get the same bits and f32 never meets
-//     TF32;
+//     16-byte loads, kSmLoads of them in flight a lane; a block of at most
+//     kSmPastL1L2s of the card's L2s (the crossbar's, 1 and 2 L2s in f32
+//     and f64) loads past L1, which took a captured stored iteration from
+//     0.044 to 0.037 ms on an H100 (x and what the branch beside it reads
+//     stay in L1), a larger one (24,768: 49 and 98 L2s) through L1, which
+//     was 1-4 % faster there after a dirty L2 (PERF.md); a persistent grid
+//     of equal row ranges, an L2 evict-first policy and TMA bulk copies into
+//     shared memory were measured and gained nothing over it; a row's head
+//     before its first 16-byte boundary and its tail a lane an element, the
+//     head's product deferred until its first vectors are on their way; one
+//     fixed order a row, so graph and host loop get the same bits and f32
+//     never meets TF32;
 //   * transport_update64 keeps z and the old p of its first tile in
 //     registers across its one grid barrier, after which every block sums
 //     the tiles' r.z slots in the same order (warp 0, lane-strided) and so
@@ -180,10 +199,20 @@ constexpr int kBlockCols = 32 * kColsPerLane;
 // transport_blocks: T_vv's loads in flight a lane, and the tile sums'
 constexpr int kVvLoads = 8;
 constexpr int kSumLoads = 8;
-// transport_rows (f64): ELL slots a pass, their loads issued together
+// transport_rows (f64): rows a slice of the atom graph (a warp's rows,
+// ops/transport_cg.py ATOM_SLICE), and slots a pass, their loads issued
+// together
+constexpr int kSlice = 32;
 constexpr int kEll = 8;
-// transport_stored: 16-byte loads a lane in flight
-constexpr int kStoredLoads = 4;
+static_assert(kThreads % kSlice == 0, "a block of transport_rows holds whole slices");
+// stored_matvec: threads a block (a warp a row), blocks an SM (the launch
+// bound), 16-byte loads a lane in flight, and the card's L2s of block up to
+// which the block's loads go past L1
+constexpr int kSmThreads = 256;
+constexpr int kSmWarps = kSmThreads / 32;
+constexpr int kSmBlocks = 4;
+constexpr int kSmLoads = 4;
+constexpr int kSmPastL1L2s = 4;
 // transport_update64: threads a block, a row a thread (a tile)
 constexpr int kUpThreads = 512;
 constexpr int kUpWarps = kUpThreads / 32;
@@ -563,10 +592,16 @@ template <typename P>
 struct RowsArgs {
   // the packed vector [n_full]
   const double* xs;
-  // the ELL neighbour conductances [na, max_nn] over the atom graph [na,
-  // max_nn] (int32, pad -1)
-  const double* nbv;
-  const int* anb;
+  // the atom graph as a sliced ELL over the rows of the system (row i, atom
+  // i - 2): slices of kSlice rows, a row's valid neighbours in the atom
+  // graph's order, slot-major inside a slice (row i's slot k at nb_start[i
+  // / kSlice] + k kSlice + i % kSlice, pad -1); each atom's class (bit 0
+  // metal, bit 1 neutral vacancy) and the conductances of a pair whose
+  // atoms share a class bit (g_hi = -high_G) or not (g_lo = -low_G)
+  const int* nb_idx;
+  const int* nb_start;
+  const unsigned char* cls;
+  double g_hi, g_lo;
   // each atom's bucket slot and metal slot (-1: none)
   const int* vslot;
   const int* mp_inv;
@@ -584,7 +619,7 @@ struct RowsArgs {
   const double* diag;
   const double* dsi;
   double loop_G;
-  int na, nsub, max_nn;
+  int na, nsub;
   // the residual form: the right-hand side, the residual and r.r; the
   // product form (b null): ap = A p of the vector p = xs, and the CG's
   // entry flag, r.z and step alpha = r.z / p.ap
@@ -601,11 +636,15 @@ struct RowsArgs {
   unsigned long long* count;
 };
 
-// A row a thread: row i of y = A xs (ELL part, metal row, vacancy slot,
-// virtual rows, diagonal), then either r = b - dsi y and the tiles' r.r, or
-// (b null) ap = y and the tiles' p.ap; the block that draws the last ticket
-// adds the tiles' sums in tile order and writes r.r, or alpha.  In the
-// product form a stopped CG's launch leaves at once.
+// A row a thread, a warp a slice: row i of y = A xs (ELL part, metal row,
+// vacancy slot, virtual rows, diagonal), then either r = b - dsi y and the
+// tiles' r.r, or (b null) ap = y and the tiles' p.ap; the block that draws
+// the last ticket adds the tiles' sums in tile order and writes r.r, or
+// alpha.  The row's own entries and the products it adds are loaded before
+// its slots; the slots in passes of kEll, a pass's indices (32 rows' words
+// side by side) loaded before the neighbours' entries and classes, those
+// before any is added; each slot's conductance from the two atoms'
+// classes.  In the product form a stopped CG's launch leaves at once.
 template <typename P>
 __global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs<P> A) {
   count_launch(A.count);
@@ -617,44 +656,48 @@ __global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs<P> A)
   double acc = 0;
   if (i < A.nsub) {
     const double x0 = A.xs[0], x1 = A.xs[1];
+    const double xi = A.xs[i], dg = A.diag[i];
     double y;
     if (i >= 2) {
       const int a = i - 2;
+      const int s = A.vslot[a];
+      const int k = A.mp_inv[a];
+      const double ga = A.gnd[a], sa = A.src[a];
+      double tm = 0, tv = 0;
+      if (k >= 0) tm = add_rn((double)__ldcg(A.y_cc + k), (double)__ldcg(A.mv + k));
+      if (s >= 0) tv = add_rn((double)__ldcg(A.y_vv + s), (double)__ldcg(A.y_vm + s));
+      const int c0 = __ldg(A.nb_start + i / kSlice), c1 = __ldg(A.nb_start + i / kSlice + 1);
+      const int width = (c1 - c0) / kSlice;
+      const int* nb = A.nb_idx + c0 + i % kSlice;
+      const unsigned ca = A.cls[a];
       y = 0;
-      const int* nb = A.anb + (size_t)a * A.max_nn;
-      const double* nv_ = A.nbv + (size_t)a * A.max_nn;
-      for (int k0 = 0; k0 < A.max_nn; k0 += kEll) {
+      for (int k0 = 0; k0 < width; k0 += kEll) {
         int j[kEll];
         double w[kEll], xv[kEll];
 #pragma unroll
-        for (int u = 0; u < kEll; ++u) {
-          const int k = k0 + u;
-          j[u] = k < A.max_nn ? nb[k] : -1;
-          w[u] = k < A.max_nn ? nv_[k] : 0.0;
-        }
+        for (int u = 0; u < kEll; ++u)
+          j[u] = k0 + u < width ? __ldg(nb + (k0 + u) * kSlice) : -1;
 #pragma unroll
-        for (int u = 0; u < kEll; ++u) xv[u] = j[u] >= 0 ? A.xs[j[u] + 2] : 0.0;
+        for (int u = 0; u < kEll; ++u) {
+          xv[u] = j[u] >= 0 ? __ldg(A.xs + j[u] + 2) : 0.0;
+          w[u] = j[u] >= 0 && (ca & __ldg(A.cls + j[u])) != 0u ? A.g_hi : A.g_lo;
+        }
 #pragma unroll
         for (int u = 0; u < kEll; ++u)
           if (j[u] >= 0) y = fma_rn(w[u], xv[u], y);
       }
-      const int s = A.vslot[a];
-      const int k = A.mp_inv[a];
-      double tm = 0;
-      if (k >= 0) tm = add_rn((double)__ldcg(A.y_cc + k), (double)__ldcg(A.mv + k));
       y = add_rn(y, tm);
-      if (s >= 0)
-        y = add_rn(y, add_rn((double)__ldcg(A.y_vv + s), (double)__ldcg(A.y_vm + s)));
-      y = add_rn(y, mul_rn(A.gnd[a], x0));
-      y = add_rn(y, mul_rn(A.src[a], x1));
+      if (s >= 0) y = add_rn(y, tv);
+      y = add_rn(y, mul_rn(ga, x0));
+      y = add_rn(y, mul_rn(sa, x1));
     } else {
       y = i == 0 ? sub_rn(__ldcg(A.dots + 0), mul_rn(A.loop_G, x1))
                  : sub_rn(__ldcg(A.dots + 1), mul_rn(A.loop_G, x0));
     }
-    y = add_rn(y, mul_rn(A.diag[i], A.xs[i]));
+    y = add_rn(y, mul_rn(dg, xi));
     if (product) {
       A.ap[i] = y;
-      acc = fma_rn(A.xs[i], y, acc);
+      acc = fma_rn(xi, y, acc);
     } else {
       const double rr = sub_rn(A.b[i], A.dsi != nullptr ? mul_rn(A.dsi[i], y) : y);
       A.r[i] = rr;
@@ -697,40 +740,76 @@ struct Vec16<double> {
   __device__ static double at(const double2& v, int c) { return c == 0 ? v.x : v.y; }
 };
 
+// The block's 16-byte loads, past L1 (kPastL1) or through it.
+template <bool kPastL1>
+__device__ __forceinline__ float4 ld_block(const float4* p) {
+  if constexpr (kPastL1) {
+    float4 v;
+    asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+        : "l"(p));
+    return v;
+  } else {
+    return __ldg(p);
+  }
+}
+template <bool kPastL1>
+__device__ __forceinline__ double2 ld_block(const double2* p) {
+  if constexpr (kPastL1) {
+    double2 v;
+    asm("ld.global.nc.L1::no_allocate.v2.f64 {%0, %1}, [%2];" : "=d"(v.x), "=d"(v.y) : "l"(p));
+    return v;
+  } else {
+    return __ldg(p);
+  }
+}
+
 // y = T_cc x_m, a warp a row of n: lane l takes the row's elements before
-// its first 16-byte boundary at l (the row starts wherever row * n puts
-// it), then the 16-byte vectors l, l + 32, ..., kStoredLoads of them loaded
-// before any is used, then the tail's element l; each vector's elements in
-// order, one fused multiply-add each; then the warp's butterfly.  So a row's
-// sum has one fixed order, whatever launch runs it.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// its first 16-byte boundary at l (head; the row starts wherever row * n
+// puts it), then the 16-byte vectors l, l + 32, ..., kSmLoads of them
+// loaded before any is used, then the tail's element l; each vector's
+// elements in order, one fused multiply-add each; then the warp's
+// butterfly.  So a row's sum has one fixed order, whatever launch runs it.
+// The row's head and tail elements are read (a few words a row) before its
+// vectors, the head's product added once the first vectors are on their
+// way.
+template <typename T, bool kPastL1>
+__global__ void __launch_bounds__(kSmThreads, kSmBlocks)
 stored_matvec_kernel(const T* __restrict__ tcc, const T* __restrict__ xm, T* __restrict__ y,
                      int n, unsigned long long* count) {
   count_launch(count);
   using V = typename Vec16<T>::type;
   constexpr int kV = Vec16<T>::n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
+  const int row = blockIdx.x * kSmWarps + warp;
   if (row >= n) return;
   const T* rp = tcc + (size_t)row * n;
   const int head = min(n, (int)(((16u - (unsigned)(reinterpret_cast<uintptr_t>(rp) & 15u)) & 15u)
                                 / sizeof(T)));
   const int n_vec = (n - head) / kV;
   const int tail0 = head + n_vec * kV;
-  T acc = T(0);
-  if (lane < head) acc = fma_rn(__ldg(rp + lane), __ldg(xm + lane), acc);
+  T ha = T(0), hx = T(0), ta = T(0), tx = T(0);
+  if (lane < head) {
+    ha = __ldg(rp + lane);
+    hx = __ldg(xm + lane);
+  }
+  if (lane < n - tail0) {
+    ta = __ldg(rp + tail0 + lane);
+    tx = __ldg(xm + tail0 + lane);
+  }
   const V* rv = reinterpret_cast<const V*>(rp + head);
   const T* xh = xm + head;
-  for (int q0 = lane; q0 < n_vec; q0 += 32 * kStoredLoads) {
-    V v[kStoredLoads];
+  T acc = T(0);
+  for (int q0 = lane; q0 < n_vec; q0 += 32 * kSmLoads) {
+    V v[kSmLoads];
 #pragma unroll
-    for (int u = 0; u < kStoredLoads; ++u) {
+    for (int u = 0; u < kSmLoads; ++u) {
       const int q = q0 + 32 * u;
-      if (q < n_vec) v[u] = __ldg(rv + q);
+      if (q < n_vec) v[u] = ld_block<kPastL1>(rv + q);
     }
+    if (q0 == lane && lane < head) acc = fma_rn(ha, hx, acc);
 #pragma unroll
-    for (int u = 0; u < kStoredLoads; ++u) {
+    for (int u = 0; u < kSmLoads; ++u) {
       const int q = q0 + 32 * u;
       if (q < n_vec) {
 #pragma unroll
@@ -739,7 +818,9 @@ stored_matvec_kernel(const T* __restrict__ tcc, const T* __restrict__ xm, T* __r
       }
     }
   }
-  if (lane < n - tail0) acc = fma_rn(__ldg(rp + tail0 + lane), __ldg(xm + tail0 + lane), acc);
+  // a lane without vectors adds its head here, still first
+  if (lane >= n_vec && lane < head) acc = fma_rn(ha, hx, acc);
+  if (lane < n - tail0) acc = fma_rn(ta, tx, acc);
   acc = warp_sum(acc);
   if (lane == 0) y[row] = acc;
 }
@@ -1347,6 +1428,26 @@ int launch_cooperative(K kernel, int want, int threads, const Args& args, cudaSt
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+// One launch of stored_matvec_kernel<T, past L1>: a block of at most
+// kSmPastL1L2s of the card's L2s (its size asked at each launch) loads past
+// L1, a larger one through it.
+template <typename T>
+int launch_stored(const void* tcc, const void* xm, void* y, int n, void* count,
+                  cudaStream_t st) {
+  int dev = 0, l2 = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (n + kSmWarps - 1) / kSmWarps;
+  auto kernel = (double)n * n * sizeof(T) <= (double)kSmPastL1L2s * l2
+                    ? stored_matvec_kernel<T, true>
+                    : stored_matvec_kernel<T, false>;
+  kernel<<<grid, kSmThreads, 0, st>>>(static_cast<const T*>(tcc), static_cast<const T*>(xm),
+                                      static_cast<T*>(y), n,
+                                      static_cast<unsigned long long*>(count));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Every function launches one kernel on `stream` and returns its cudaError_t
@@ -1427,22 +1528,29 @@ extern "C" int dkmc_transport_blocks(
 // unscaled) and r.r; without (b null), the product ap = A p of p = xs and
 // alpha = rz / p.ap, none when the flag act is down.  parts_f64: the metal
 // block's and transport_blocks' products are f64 (the f64 solve), else f32.
-extern "C" int dkmc_transport_rows(int parts_f64, const void* xs, const void* nbv,
-                                   const void* anb, const void* vslot, const void* mp_inv,
-                                   const void* y_cc, const void* mv, const void* y_vm,
-                                   const void* y_vv, const void* dots, const void* gnd,
-                                   const void* src, const void* diag, const void* dsi,
-                                   double loop_G, int na, int max_nn, const void* b, void* r,
-                                   void* rsum, void* ap, const void* act, const void* rz,
-                                   void* alpha, void* part, void* ticket, void* count,
-                                   void* stream) {
-  if (na < 1 || max_nn < 1) return (int)cudaErrorInvalidValue;
+// The atom graph's slices nb_idx / nb_start (ops/transport_cg.py
+// atom_slices); the conductances from the atoms' classes cls and g_hi /
+// g_lo.
+extern "C" int dkmc_transport_rows(int parts_f64, const void* xs, const void* nb_idx,
+                                   const void* nb_start, const void* cls, double g_hi,
+                                   double g_lo, const void* vslot,
+                                   const void* mp_inv, const void* y_cc, const void* mv,
+                                   const void* y_vm, const void* y_vv, const void* dots,
+                                   const void* gnd, const void* src, const void* diag,
+                                   const void* dsi, double loop_G, int na, const void* b,
+                                   void* r, void* rsum, void* ap, const void* act,
+                                   const void* rz, void* alpha, void* part, void* ticket,
+                                   void* count, void* stream) {
+  if (na < 1) return (int)cudaErrorInvalidValue;
   auto launch = [&](auto A) {
     using P = typename std::remove_const<
         typename std::remove_pointer<decltype(A.y_cc)>::type>::type;
     A.xs = static_cast<const double*>(xs);
-    A.nbv = static_cast<const double*>(nbv);
-    A.anb = static_cast<const int*>(anb);
+    A.nb_idx = static_cast<const int*>(nb_idx);
+    A.nb_start = static_cast<const int*>(nb_start);
+    A.cls = static_cast<const unsigned char*>(cls);
+    A.g_hi = g_hi;
+    A.g_lo = g_lo;
     A.vslot = static_cast<const int*>(vslot);
     A.mp_inv = static_cast<const int*>(mp_inv);
     A.y_cc = static_cast<const P*>(y_cc);
@@ -1457,7 +1565,6 @@ extern "C" int dkmc_transport_rows(int parts_f64, const void* xs, const void* nb
     A.loop_G = loop_G;
     A.na = na;
     A.nsub = na + 1;
-    A.max_nn = max_nn;
     A.b = static_cast<const double*>(b);
     A.r = static_cast<double*>(r);
     A.rsum = static_cast<double*>(rsum);
@@ -1485,18 +1592,9 @@ extern "C" int dkmc_transport_rows(int parts_f64, const void* xs, const void* nb
 extern "C" int dkmc_transport_stored(int is_f64, const void* tcc, const void* xm, void* y,
                                      int n, void* count, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  const int grid = (n + kWarps - 1) / kWarps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* c = static_cast<unsigned long long*>(count);
-  if (is_f64)
-    stored_matvec_kernel<double><<<grid, kThreads, 0, st>>>(
-        static_cast<const double*>(tcc), static_cast<const double*>(xm),
-        static_cast<double*>(y), n, c);
-  else
-    stored_matvec_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(tcc), static_cast<const float*>(xm), static_cast<float*>(y),
-        n, c);
-  return (int)cudaGetLastError();
+  if (is_f64) return launch_stored<double>(tcc, xm, y, n, count, st);
+  return launch_stored<float>(tcc, xm, y, n, count, st);
 }
 
 // The f64 solve's update, direction and packing (one cooperative launch),

@@ -89,10 +89,41 @@ UPDATE_TILE = 512
 #: the tiles of T_vm that transport_blocks reads: rows x columns
 BLOCK_ROWS = 32
 BLOCK_COLS = 128
-
+#: rows a slice of transport_rows' atom graph (a warp's rows; csrc kSlice)
+ATOM_SLICE = 32
 
 def row_tiles(n: int, tile: int = ROW_TILE) -> int:
     return -(-n // tile)
+
+
+def atom_slices(anb: torch.Tensor):
+    """The atom graph ``anb`` [Na, max_nn] (int32, pad -1) as the f64 rows
+    kernel reads it, a sliced ELL over the rows of the grounded system (row
+    i the atom i - 2, Nsub = Na + 1 rows; rows 0 and 1, the virtual nodes,
+    have no slots): slices of ATOM_SLICE rows (a warp's), each row's valid
+    neighbours in ``anb``'s order, slot-major inside a slice and padded
+    with -1 to the slice's longest row (row i's slot k at ``start[i //
+    ATOM_SLICE] + k ATOM_SLICE + i % ATOM_SLICE``).  Returns (indices int32
+    [E], the slices' first elements int32 [n_slices + 1]).  Static for a
+    structure; one read of the device (E), so it is made before a capture."""
+    na = anb.shape[0]
+    nsub = na + 1
+    dev = anb.device
+    valid = anb[:na - 1] >= 0
+    n_sl = -(-nsub // ATOM_SLICE)
+    count = torch.zeros(n_sl * ATOM_SLICE, dtype=torch.int64, device=dev)
+    count[2:nsub] = valid.sum(dim=1)
+    start = torch.zeros(n_sl + 1, dtype=torch.int64, device=dev)
+    start[1:] = torch.cumsum(count.view(n_sl, ATOM_SLICE).amax(dim=1) * ATOM_SLICE, 0)
+    i = torch.arange(2, nsub, device=dev)[:, None]
+    j = torch.cumsum(valid.to(torch.int64), dim=1) - 1
+    pos = start[i // ATOM_SLICE] + j * ATOM_SLICE + i % ATOM_SLICE
+    n = int(start[-1])
+    if n >= 1 << 31:
+        raise ValueError(f"atom slices: {n} elements exceed int32 indices")
+    idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    idx[pos[valid]] = anb[:na - 1][valid]
+    return idx, start.to(torch.int32)
 
 
 @dataclass
@@ -246,8 +277,14 @@ class Operator(NamedTuple):
     ``loop_G``; the band's ``slots`` (``ops.banded.BandSlots``, f32 or bf16)
     and with bf16 slots its ``row_fix`` [Na] (f32, each row's rounding put
     back on the diagonal of the inner product; None: none); the bump
-    ``dyn`` [vcap, max_nn] (f32); the ELL conductances ``nbv`` [Na, max_nn]
-    (f64) over the atom graph ``anb`` (int32, pad -1); the vacancy blocks
+    ``dyn`` [vcap, max_nn] (f32); the atom graph ``anb`` [Na, max_nn]
+    (int32, pad -1) and the same graph as the f64 rows kernel reads it,
+    ``nb_idx`` and ``nb_start`` (:func:`atom_slices`, static for a
+    structure), each atom's class ``cls`` [Na] (uint8: bit 0 metal, bit 1
+    neutral vacancy) and the conductances ``g_hi`` (-high_G, of a pair
+    whose atoms share a class bit) and ``g_lo`` (-low_G), from which that
+    kernel makes each slot's ELL conductance as the assembly's ``nb_vals``
+    holds it; the vacancy blocks
     ``T_vm`` [vcap, n_mp] and ``T_vv`` [vcap, vcap] (f32), the bucket
     ``vidx`` [vcap] (int32), each atom's bucket slot ``vslot`` (int32, -1
     none), the live count ``n_vac`` (int32 [1]); the metal atoms' slots
@@ -276,8 +313,12 @@ class Operator(NamedTuple):
     slots: Optional[BandSlots]
     row_fix: Optional[torch.Tensor]
     dyn: Optional[torch.Tensor]
-    nbv: torch.Tensor
     anb: torch.Tensor
+    nb_idx: torch.Tensor
+    nb_start: torch.Tensor
+    cls: torch.Tensor
+    g_hi: float
+    g_lo: float
     T_vm: torch.Tensor
     T_vv: torch.Tensor
     vidx: torch.Tensor
@@ -316,7 +357,7 @@ def _fn(symbol):
         fn.argtypes = {
             "dkmc_transport_pack": [p, p, p, p, i, p, i, p, p, p, p],
             "dkmc_transport_blocks": [i] + [p] * 10 + [i] * 6 + [p] * 10,
-            "dkmc_transport_rows": [i] + [p] * 14 + [d, i, i] + [p] * 11,
+            "dkmc_transport_rows": [i] + [p] * 4 + [d, d] + [p] * 11 + [d, i] + [p] * 11,
             "dkmc_transport_stored": [i, p, p, p, i, p, p],
             "dkmc_transport_update64": [p] * 15 + [u, i, i] + [p] * 4,
             "dkmc_transport_rows_update": [p] * 15 + [d, i] + [p] * 15 + [u, i] + [p] * 3
@@ -396,8 +437,10 @@ def stored_matvec_out(T_cc: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                       stream=None) -> None:
     """``y = T_cc @ x`` of the stored metal block [n, n] (row-major, f32 or
     f64 storage and sums in its dtype) into the caller's ``y`` [n] on
-    ``stream``: a warp a row, 16-byte loads, one fixed order of each row's
-    sum (``csrc/transport_cg.cu`` ``stored_matvec_kernel``), so that a
+    ``stream``: a warp a row, the block's loads past L1 where it is at most
+    a few of the card's L2s and through L1 where it is larger, one fixed
+    order of each row's sum (``csrc/transport_cg.cu``
+    ``stored_matvec_kernel``), so that a
     captured loop and a host loop get the same bits.  No TF32 and no
     library call: the product sits in the body of a WHILE node, which cannot
     allocate.  CPU tensors take :func:`stored_matvec_plain`; on the card the
@@ -512,15 +555,16 @@ def rows(tw: Workspace, op: Operator, stream=None) -> None:
 
 def _rows_launch(tw: Workspace, op: Operator, residual: bool, stream) -> None:
     """transport_rows' launch: the residual form (:func:`rows`) or the
-    product form (:func:`rows_ap`)."""
-    na, max_nn = op.anb.shape
+    product form (:func:`rows_ap`), over the operator's atom slices, each
+    slot's conductance from the atoms' classes."""
     c = tw.c64
     prod = None if residual else c
     _launched("transport_rows", _fn("dkmc_transport_rows")(
-        int(c is not None), _ptr(tw.xs64), _ptr(op.nbv), _ptr(op.anb), _ptr(op.vslot),
+        int(c is not None), _ptr(tw.xs64), _ptr(op.nb_idx), _ptr(op.nb_start), _ptr(op.cls),
+        float(op.g_hi), float(op.g_lo), _ptr(op.vslot),
         _ptr(op.mp_inv), _ptr(tw.y_cc), _ptr(tw.mv), _ptr(tw.y_vm), _ptr(tw.y_vv),
         _ptr(tw.dots64), _ptr(op.gnd), _ptr(op.src), _ptr(op.diag), _ptr(op.dsi),
-        float(op.loop_G), na, max_nn, _ptr(op.b) if residual else None,
+        float(op.loop_G), op.anb.shape[0], _ptr(op.b) if residual else None,
         _ptr(tw.r), _ptr(tw.rsum), prod and _ptr(prod.ap), prod and _ptr(prod.act),
         prod and _ptr(prod.rz), prod and _ptr(prod.alpha), _ptr(tw.part64), _ptr(tw.ticket),
         _build.launch_counter(tw.x.device, "transport_rows"), _stream(tw.x, stream)))

@@ -61,6 +61,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import constants as C
 from ..ops.banded import banded_matvec, slots_from_entries
@@ -543,6 +544,11 @@ def assemble_X_blocks(
 
     out = dict(
         nb_vals=nb_vals, nb_safe=safe,
+        # what nb_vals is made of, as the f64 rows kernel reads it: each
+        # atom's class (bit 0 metal, bit 1 neutral vacancy) and the two
+        # conductances, -high_G where the classes share a bit
+        atom_class=(metal.to(torch.uint8) | (cvac.to(torch.uint8) << 1)).contiguous(),
+        g_hi=-high_G, g_lo=-low_G,
         T_cc=T_cc, T_vv=T_vv, T_vm=T_vm,
         mp=mp, mp_inv=geom.atom_metalp_inv, vidx=vlong, v_ok=v_ok,
         src_vals=src_vals, gnd_vals=gnd_vals,
@@ -1175,10 +1181,29 @@ def warm_device_form(params: PhysParams, cc, precond: Optional[str]) -> bool:
             and (params.transport_cc == "fly" or cc.get("cc") is not None))
 
 
+#: the structure's atom graph as the f64 rows kernel reads it, made once for
+#: each graph (``transport_cg.atom_slices``; a structure's atom graph never
+#: changes), kept as long as the graph's tensor lives
+_ATOM_SLICES = WeakIdKeyDictionary()
+
+
+def atom_graph_slices(geom: Geometry) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``transport_cg.atom_slices`` of ``geom.atom_neigh_idx``, made at the
+    first call for the structure (a read of the device: before any
+    capture) and kept with its atom graph."""
+    anb = geom.atom_neigh_idx
+    sl = _ATOM_SLICES.get(anb)
+    if sl is None:
+        sl = _ATOM_SLICES[anb] = transport_cg.atom_slices(anb)
+    return sl
+
+
 def transport_workspace(geom: Geometry, params: PhysParams, cc) -> transport_cg.Workspace:
     """The transport CG's workspace of this bias point's cache ``cc`` (made
-    at the first solve, kept in ``cc`` under "tws" for the next): the mixed
-    solve's with the band, or the f64 solve's."""
+    at the first solve, before any capture, kept in ``cc`` under "tws" for
+    the next): the mixed solve's with the band, or the f64 solve's.  The
+    structure's atom slices (:func:`atom_graph_slices`) are made with it
+    where they are not yet."""
     n_mp = int(geom.atom_metalp_idx.shape[0])
     f64_solve = not params.mixed
     key = (geom.N_atom, params.tunnel_vac_cap, n_mp, f64_solve)
@@ -1188,6 +1213,7 @@ def transport_workspace(geom: Geometry, params: PhysParams, cc) -> transport_cg.
             geom.N_atom, params.tunnel_vac_cap, n_mp, None if f64_solve else cc["band"],
             geom.device, f64_solve=f64_solve)
         cc["tws_key"] = key
+    atom_graph_slices(geom)
     return tws
 
 
@@ -1226,17 +1252,19 @@ def _update_power_warm_device(
     f = blk.get("fly") or dict(mpos=None, mcb=None, env=None)
     T_cc = None if blk["T_cc"] is None else blk["T_cc"].contiguous()
     gnd, src = blk["gnd_vals"], blk["src_vals"]
+    tws = transport_workspace(geom, params, cc)
+    nb_idx, nb_start = atom_graph_slices(geom)
     common = dict(
         diag=diag, gnd=gnd, src=src, gnd_lo=max(0, min(Na, Na - params.num_ground_ext + 1)),
-        nsi=max(0, min(Na, nsi)), loop_G=loop_G, nbv=blk["nb_vals"].contiguous(),
-        anb=geom.atom_neigh_idx, T_vm=blk["T_vm"].contiguous(), T_vv=blk["T_vv"].contiguous(),
+        nsi=max(0, min(Na, nsi)), loop_G=loop_G, anb=geom.atom_neigh_idx, nb_idx=nb_idx,
+        nb_start=nb_start, cls=blk["atom_class"], g_hi=blk["g_hi"], g_lo=blk["g_lo"],
+        T_vm=blk["T_vm"].contiguous(), T_vv=blk["T_vv"].contiguous(),
         vidx=blk["vidx32"], vslot=blk["vslot"], n_vac=blk["n_vac"],
         mp_inv=geom.atom_metalp_inv, mp=blk["mp"], mpos=f["mpos"], mcb=f["mcb"], env=f["env"],
         plain_blocks=lambda x, wd: apply_blocks(blk, x, wd),
         plain_rows=lambda x, wd, band_y, y_cc, parts: apply_rows(blk, x, wd, band_y, y_cc,
                                                                   parts),
         T_cc=T_cc)
-    tws = transport_workspace(geom, params, cc)
     if not params.mixed:
         # the f64 branch of update_power_blocked: cg_solve with the Jacobi
         # diagonal and criterion "pre" on the unscaled system

@@ -2767,26 +2767,28 @@ def test_cuda_transport_rows_bf16_row_fix(tmp_path):
 @pytest.mark.parametrize("offset", [0, 1, 3])
 def test_cuda_stored_matvec_matches_plain(dtype, offset):
     """stored_matvec_out against the product in f64 (the plain version's
-    arithmetic without its rounding) at n 1, 2, 5, 31, 33, 127, 1,001 and
-    3,527, the block starting ``offset`` elements past a 16-byte boundary
-    (so every row's head and tail are taken): each entry within 1e-5 (f32)
-    and 1e-13 (f64) of the sum of its terms' sizes, and within that of the
-    plain version's; two launches bit-equal, one on a side stream; the card
-    counts one launch a call."""
+    arithmetic without its rounding) at n 1, 2, 5, 31, 33, 127, 1,001, 3,527
+    and 15,001 (a block of many L2s: its loads through L1; the smaller ones
+    past it), the block starting ``offset`` elements past a
+    16-byte boundary (so every row's head and tail are taken, at every
+    alignment of an odd n): each entry within 1e-5 (f32) and 1e-13 (f64) of
+    the sum of its terms' sizes, and within that of the plain version's;
+    two launches bit-equal, one on a side stream; the card counts one launch
+    a call."""
     _need_card()
     from devicekmc_tpu_torch.ops import _build
     from devicekmc_tpu_torch.ops.transport_cg import stored_matvec_out, stored_matvec_plain
 
     tol = 1e-5 if dtype == torch.float32 else 1e-13
-    g = torch.Generator().manual_seed(21 + offset)
+    g = torch.Generator(device="cuda").manual_seed(21 + offset)
     idx = _build.COUNTED_ON_CARD.index("stored_matvec")
     side = torch.cuda.Stream()
-    for n in (1, 2, 5, 31, 33, 127, 1001, 3527):
+    for n in (1, 2, 5, 31, 33, 127, 1001, 3527, 15001):
         buf = torch.empty(n * n + 8, dtype=dtype, device="cuda")
         head = (-(buf.data_ptr() // buf.element_size())) % (16 // buf.element_size())
         T = buf[head + offset:head + offset + n * n].view(n, n)
-        T.copy_(torch.randn((n, n), generator=g, dtype=dtype))
-        x = torch.randn(n, generator=g, dtype=dtype).cuda()
+        T.copy_(torch.randn((n, n), generator=g, dtype=dtype, device="cuda"))
+        x = torch.randn(n, generator=g, dtype=dtype, device="cuda")
         y = torch.full((n,), float("nan"), dtype=dtype, device="cuda")
         y2 = y.clone()
         c0 = int(_build.launch_counts("cuda")[idx])
@@ -2801,8 +2803,10 @@ def test_cuda_stored_matvec_matches_plain(dtype, offset):
         assert bool(((y.double() - exact).abs() <= tol * size).all()), n
         plain = stored_matvec_plain(T, x).double()
         assert bool(((y.double() - plain).abs() <= 2 * tol * size).all()), n
+        del buf, T, exact, size, plain
+    T = torch.randn((4, 4), generator=g, dtype=dtype, device="cuda")
     with pytest.raises(ValueError):
-        stored_matvec_out(T.t(), x, y)
+        stored_matvec_out(T.t(), x[:4], y[:4])
 
 
 def _f64_sim(tmp_path, crossbar=False, **over):
@@ -2906,10 +2910,15 @@ def test_cuda_transport_f64_kernels_match_plain(tmp_path, crossbar):
 
     # the product form from the same products (the kernel's)
     p = _cpu_ws(_clone_tws(k))
+    before = _clone_tws(k)
     tcg.rows_ap(k, op)
     tcg.rows_ap_plain(p, op_c)
     _close64("ap", k.c64.ap, p.c64.ap, 1e-12)
     assert float(k.c64.alpha) == pytest.approx(float(p.c64.alpha), rel=1e-10)
+    # a second launch: the same bits
+    again = _clone_tws(before)
+    tcg.rows_ap(again, op)
+    assert torch.equal(again.c64.ap, k.c64.ap) and torch.equal(again.c64.alpha, k.c64.alpha)
     # the residual form (unscaled)
     r = _clone_tws(k)
     pr = _cpu_ws(_clone_tws(k))

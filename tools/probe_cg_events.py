@@ -49,11 +49,23 @@ crossbar's shapes (108,944 sites; the state after two graph supersteps):
   sums, ticket or barrier, epilogue; the parent's forms too), and with
   ``--variants`` heat_cg_begin rebuilt with BEGIN_VARIANTS' constants;
 * the graph supersteps alone (``--parts supersteps``) of the transport,
-  heat (global and local) and bf16 configurations (SUPERSTEP_CONFIGS), 8
-  after the cold solves and two more, each with its inner iterations;
-* the final states of the headline, transport and local heat
+  heat (global and local), bf16, stored and f64 configurations
+  (SUPERSTEP_CONFIGS), 8 after the cold solves and two more, each with its
+  inner iterations;
+* the final states of the headline, transport, local heat, stored and f64
   configurations after two graph supersteps hashed (``--parts digest``,
   DIGEST_CONFIGS), so that two checkouts are held bit for bit;
+* the stored metal block's product in context (``--parts stored``): the
+  stored inner iteration and the f64 solve's iteration captured with and
+  without it, the product alone (warm, cold L2 and after a 64 MiB read,
+  captured back to back; and
+  at the reference crossbar's 24,768 metal atoms beside torch.mv), the warm
+  solves captured, ``clock64()`` stamps of its blocks' start and end
+  (STORED_STAMPS) in the captured iterations and alone; the f64 rows
+  kernel in both forms; with ``--variants`` the iterations, solves and the
+  product alone (also at 24,768) with the product's choice of loads (past
+  L1 up to a few L2s of block, through L1 above) rebuilt to one choice at
+  every size (STORED_VARIANTS);
 
 * the boundary CG's update and direction at the same system: through the
   package's wrappers, the update and direction kernels (the parent's pair
@@ -83,7 +95,7 @@ and times ``cg_update_direction`` with other tiles and a launch that is not
 cooperative (UPDATE_VARIANTS).  Needs the card:
 
     python3 tools/probe_cg_events.py [--events 200] [--variants] [--pkg DIR]
-        [--parts events,matvec,update,transport,supersteps,heat]
+        [--parts events,matvec,update,transport,supersteps,heat,digest,stored]
         [--out build/probe_cg_events.json]
 """
 
@@ -1533,6 +1545,291 @@ def transport_probe(cs, sim, stamped, band_libs, ru_libs=None, inner=20):
     return res
 
 
+#: clock64() stamps of the stored metal block's product (csrc/transport_cg.cu
+#: stored_matvec_kernel, a warp a row in this checkout and its parent): the
+#: anchors of the block's start and end (TP_BLOCK(0), TP_BLOCK(1) in thread
+#: 0 of every block)
+STORED_STAMPS = (
+    ("  count_launch(count);\n  using V = typename Vec16<T>::type;\n", "  TP_BLOCK(0);\n"),
+    ("  if (lane == 0) y[row] = acc;\n", "  TP_BLOCK(1);\n"),
+)
+#: the f64 configuration of ``--parts stored``: chip_smoke's phase 14 run
+STORED_F64 = "f64 graph"
+#: the stored product (csrc/transport_cg.cu stored_matvec_kernel) rebuilt
+#: with one choice of loads at every size, which ``--parts stored
+#: --variants`` times in the captured iterations and at the reference
+#: crossbar's size: name -> [(text that occurs once, its replacement)]
+STORED_PAST_L1 = "constexpr int kSmPastL1L2s = 4;"
+STORED_VARIANTS = {
+    "loads past L1 at every size": [(STORED_PAST_L1, "constexpr int kSmPastL1L2s = 1 << 20;")],
+    "loads through L1 at every size": [(STORED_PAST_L1, "constexpr int kSmPastL1L2s = 0;")],
+}
+
+
+def stored_variant_builds(bdir, csrc):
+    """This checkout's transport_cg.cu with each of STORED_VARIANTS'
+    replacements: {name: nvcc job}."""
+    src = (csrc / "transport_cg.cu").read_text()
+    jobs = {}
+    for k, (name, reps) in enumerate(STORED_VARIANTS.items()):
+        text = src
+        for old, new in reps:
+            text = replace_once(text, old, new, "transport_cg.cu")
+        path = os.path.join(bdir, f"transport_cg_sm{k}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        jobs[name] = nvcc_build(path, path[:-3] + ".so", csrc)
+    return jobs
+
+
+def stored_build(bdir, csrc):
+    """The transport_cg.cu of ``csrc`` with STORED_STAMPS after their
+    anchors: its nvcc job."""
+    src = (csrc / "transport_cg.cu").read_text()
+    for anchor, stamp in STORED_STAMPS:
+        src = replace_once(src, anchor, anchor + stamp, "transport_cg.cu")
+    head = "#include \"ticket.cuh\"\n"
+    src = replace_once(src, head, head + TP_STAMP_DEFS, "transport_cg.cu")
+    path = os.path.join(bdir, "transport_cg_stored.cu")
+    with open(path, "w") as f:
+        f.write(src + TP_STAMP_EXPORTS)
+    return nvcc_build(path, path[:-3] + ".so", csrc)
+
+
+def stored_span(lib):
+    """The stamped product's last launch: its blocks, the median and most
+    cycles from a block's start to its end (thread 0), and the global
+    timer's span from the first block's start to the last block's end
+    (ns)."""
+    S = TP_STAMPS
+    blk = (ctypes.c_longlong * (TP_BLOCKS * S))()
+    gt = (ctypes.c_ulonglong * (TP_BLOCKS * S))()
+    err = lib.dkmc_tp_probe_read(*(ctypes.cast(b, ctypes.c_void_p) for b in (blk, gt)))
+    if err != 0 or lib.dkmc_tp_probe_clear() != 0:
+        raise RuntimeError(f"stored stamps: cudaError {err}")
+    live = [b for b in range(TP_BLOCKS) if blk[S * b] and blk[S * b + 1]]
+    if not live:
+        return dict(blocks=0)
+    cyc = [blk[S * b + 1] - blk[S * b] for b in live]
+    t0 = min(gt[S * b] for b in live)
+    return dict(blocks=len(live), cycles_median=statistics.median(cyc), cycles_max=max(cyc),
+                span_ns=max(gt[S * b + 1] for b in live) - t0)
+
+
+def stored_probe(cs, lib, variant_libs=None, inner=20):
+    """The stored metal block's product (``transport_cg.metal``) in its two
+    contexts at the crossbar, the mixed inner iteration (stored, chip_smoke's
+    phase 14 configuration) and the f64 solve's iteration (STORED_F64), each
+    from its state after two supersteps: ``inner`` iterations captured as one
+    graph with the product and without it (the product's cost in context);
+    the product alone, back to back, with a cold L2 and ``inner`` launches
+    captured back to back; the captured warm solve per iteration; with
+    ``lib`` (the library of stored_build) the product's block spans
+    (cycles, and the global timer from the first start to the last end) in
+    the captured iterations and alone, warm and cold; the f64 rows kernel in
+    both forms, warm and cold; the product alone at the reference
+    crossbar's metal atoms (a seeded block), f32 and f64, beside torch.mv.
+    ``variant_libs`` ({name: library} of stored_variant_builds): the
+    captured iterations, warm solves and the product at the reference size
+    with each build."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+    from devicekmc_tpu_torch.ops.graph import Graph
+    from devicekmc_tpu_torch.physics import current as cur
+
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    @contextlib.contextmanager
+    def using(library=None, metal=None):
+        saved = (_build._libs.get("transport_cg"), tcg.metal)
+        if library is not None:
+            _build._libs["transport_cg"] = library
+        if metal is not None:
+            tcg.metal = metal
+        try:
+            yield
+        finally:
+            if library is not None:
+                _build._libs["transport_cg"] = saved[0]
+            tcg.metal = saved[1]
+
+    def clone(ws):
+        return cs._map_ws(ws, lambda t: t.clone())
+
+    def per_launch(fn):
+        g = Graph(lambda: [fn() for _ in range(inner)], "cuda")
+        ms = cs.time_ms(g, reps=3, rounds=5, warmup=1) / inner
+        del g
+        return ms
+
+    def rows_times(w, op, residual):
+        # transport_rows in the form of ``w``'s solve
+        launch = (lambda: tcg.rows(w, op)) if residual else (lambda: tcg.rows_ap(w, op))
+        return dict(ms=cs.time_ms(launch), cold_ms=cs.time_ms_cold(launch))
+
+    def variants(it, op, body, solve):
+        # the iterations and the warm solve with each build of variant_libs
+        out = {}
+        for name, library in (variant_libs or {}).items():
+            with using(library=library):
+                sv = clone(it)
+                g = Graph(lambda: solve(sv), "cuda")
+                n = int(g())
+                ms = cs.time_ms(g, reps=1, rounds=5, warmup=1)
+                del g
+                w = clone(it)
+                out[name] = dict(iteration_ms=per_launch(lambda: body(it)),
+                                 solve=dict(iterations=n, ms_per_iteration=ms / max(n, 1)),
+                                 alone_ms=cs.time_ms(lambda: tcg.metal(w, op)),
+                                 alone_cold_ms=cs.time_ms_cold(lambda: tcg.metal(w, op)))
+            print(f"stored product variant {name}: {json.dumps(out[name])}", flush=True)
+        return out
+
+    def context(it, op, body, solve):
+        # ``body(w)`` one iteration on the workspace ``w``; ``solve(w)`` the
+        # warm solve from ``w``, returning its iterations
+        r = {"iteration_ms": per_launch(lambda: body(it))}
+        with using(metal=lambda tw, op_, stream=None: None):
+            r["iteration_without_product_ms"] = per_launch(lambda: body(it))
+        r["product_in_context_ms"] = r["iteration_ms"] - r["iteration_without_product_ms"]
+        w = clone(it)
+        r["alone_ms"] = cs.time_ms(lambda: tcg.metal(w, op))
+        r["alone_cold_ms"] = cs.time_ms_cold(lambda: tcg.metal(w, op))
+        r["alone_clean_ms"] = cs.time_ms_clean(lambda: tcg.metal(w, op))
+        r["alone_captured_ms"] = per_launch(lambda: tcg.metal(w, op))
+        sv = clone(it)
+        g = Graph(lambda: solve(sv), "cuda")
+        n = int(g())
+        ms = cs.time_ms(g, reps=1, rounds=5, warmup=1)
+        r["solve"] = dict(iterations=n, ms=ms, ms_per_iteration=ms / max(n, 1))
+        del g
+        if lib is not None:
+            with using(library=lib):
+                lib.dkmc_tp_probe_clear()
+                g = Graph(lambda: [body(it) for _ in range(inner)], "cuda")
+                g()
+                torch.cuda.synchronize()
+                stamps = {"in the captured iterations": stored_span(lib)}
+                del g
+                for _ in range(3):
+                    tcg.metal(w, op)
+                torch.cuda.synchronize()
+                stamps["alone"] = stored_span(lib)
+                scrub.fill_(1)
+                tcg.metal(w, op)
+                torch.cuda.synchronize()
+                stamps["alone, cold L2"] = stored_span(lib)
+            r["stamps"] = stamps
+        print(f"stored product in context: {json.dumps(r)}", flush=True)
+        return {"the package's": r}
+
+    res = {}
+    # the mixed inner iteration, the block stored
+    sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build", "probe_stored"),
+                                current=True, transport_cc="stored")
+    sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
+    tws, op, x0, gen = cs.transport_operator(sim)
+    it = clone(tws)
+    it.cg.act.fill_(True)
+    it.cg.act0.fill_(True)
+    tcg.refine(it, op, True, tcg.MAX_OUTER, 20000)
+    it.cg.thresh2.zero_()
+    it.cg.act.fill_(True)
+    x0p = x0 * (1 + 1e-3 * torch.randn(x0.shape, generator=gen, dtype=torch.float64).cuda())
+    go = torch.ones(1, dtype=torch.bool, device="cuda")
+    tol = sim.params.transport_tol
+    res["mixed"] = dict(n_mp=int(op.T_cc.shape[0]), dtype="float32", **context(
+        it, op, lambda w: tcg.inner_iteration(w, op),
+        lambda w: tcg.solve(w, op, x0p, go, tol, 20000).iters))
+    # the f64 rows' residual form at a round's end (the iterate packed, its
+    # products)
+    w = clone(tws)
+    tcg.pack(w, op, True)
+    tcg.metal(w, op)
+    tcg.blocks(w, op, True)
+    res["mixed"]["rows_residual"] = rows_times(w, op, True)
+    res["mixed"]["variants"] = variants(
+        it, op, lambda w: tcg.inner_iteration(w, op),
+        lambda w: tcg.solve(w, op, x0p, go, tol, 20000).iters)
+    del sim, tws, op, it
+    torch.cuda.empty_cache()
+
+    # the f64 solve's iteration
+    over = {tag: o for tag, _, o, _ in cs.STORED_RUNS}[STORED_F64]
+    sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build",
+                                                                 "probe_stored64"),
+                                current=True, **over)
+    sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
+    cap = {}
+    solve64 = tcg.solve_f64
+
+    def grab(tw, op_, x0_, go_, tol_, maxiter):
+        cap.update(tws=tw, op=op_, x0=x0_.clone(), tol=tol_, maxiter=maxiter)
+        return solve64(tw, op_, x0_, go_, tol_, maxiter)
+
+    tcg.solve_f64 = grab
+    try:
+        st = dataclasses.replace(sim.state, transport_Vd_prev=float("nan"))
+        cur.update_power(sim.geom, sim.params, st, cs.VD_MAIN, cc=dict(sim._cc), allow_skip=True)
+    finally:
+        tcg.solve_f64 = solve64
+    tws, op = cap["tws"], cap["op"]
+    nsub = tws.x.shape[0]
+    g64 = torch.Generator(device="cpu").manual_seed(17)
+    it = clone(tws)
+    it.xs64[:nsub].copy_(torch.randn(nsub, generator=g64, dtype=torch.float64))
+    it.xs64[nsub:].zero_()
+    it.xm.copy_(it.xs64[2:][op.mp])
+    it.r.copy_(torch.randn(nsub, generator=g64, dtype=torch.float64))
+    it.c64.act.fill_(True)
+    it.c64.rz.copy_(torch.dot(it.r, op.minv * it.r).reshape(1))
+    it.c64.thresh2.zero_()
+    x0p = cap["x0"] * (1 + 1e-3 * torch.randn(cap["x0"].shape, generator=g64,
+                                              dtype=torch.float64).cuda())
+    w = clone(it)
+    tcg.metal(w, op)
+    tcg.blocks(w, op, True)
+    rows_ap = rows_times(w, op, False)
+    res["f64"] = dict(n_mp=int(op.T_cc.shape[0]), dtype="float64", **context(
+        it, op, lambda w: tcg.iteration_f64(w, op, 1 << 30),
+        lambda w: tcg.solve_f64(w, op, x0p, go, cap["tol"], cap["maxiter"]).iters))
+    res["f64"]["rows_product"] = rows_ap
+    res["f64"]["variants"] = variants(
+        it, op, lambda w: tcg.iteration_f64(w, op, 1 << 30),
+        lambda w: tcg.solve_f64(w, op, x0p, go, cap["tol"], cap["maxiter"]).iters)
+    del sim, tws, op, it, cap, w
+    torch.cuda.empty_cache()
+
+    # the product alone at the reference crossbar's metal atoms (a seeded
+    # block), with each build of variant_libs, beside torch.mv
+    n = cs.REF_N_MP
+    res["reference"] = {}
+    for dtype in (torch.float32, torch.float64):
+        g = torch.Generator(device="cuda").manual_seed(n)
+        T = torch.rand((n, n), generator=g, device="cuda", dtype=dtype)
+        x = torch.randn(n, generator=g, device="cuda", dtype=dtype)
+        y = torch.empty(n, device="cuda", dtype=dtype)
+        r = {}
+        for name, library in [("the package's", None), *(variant_libs or {}).items()]:
+            with using(library=library):
+                run = lambda: tcg.stored_matvec_out(T, x, y)  # noqa: E731
+                r[name] = dict(ms=cs.time_ms(run), cold_ms=cs.time_ms_cold(run),
+                               clean_ms=cs.time_ms_clean(run))
+        mv = lambda: torch.mv(T, x)  # noqa: E731
+        r["torch.mv"] = dict(ms=cs.time_ms(mv), cold_ms=cs.time_ms_cold(mv),
+                             clean_ms=cs.time_ms_clean(mv))
+        res["reference"][str(dtype).replace("torch.", "")] = r
+        print(f"stored product at {n} ({dtype}): {json.dumps(r)}", flush=True)
+        del T
+        torch.cuda.empty_cache()
+    return res
+
+
 #: clock64() stamps of the local heat model's two redesigned kernels
 #: (csrc/heat.cu), by form (this design's, and the earlier warp-a-row and
 #: thread-a-row kernels that another checkout may hold): name -> (kind,
@@ -1899,6 +2196,13 @@ def heat_probe(cs, stamped, begin_libs, out_root):
 
 #: graph supersteps timed after the probe's warm-up, transport and heat
 SUPERSTEPS = 8
+
+
+def stored_run(cs, tag):
+    """The overrides of chip_smoke's phase 14 run ``tag`` (STORED_RUNS): the
+    stored metal block in mixed precision, or f64."""
+    return dict({t: over for t, _, over, _ in cs.STORED_RUNS}[tag])
+
 #: the crossbar configurations of ``--parts supersteps``: synthetic_crossbar's
 #: arguments beside current=True, from chip_smoke (the bf16 run at its
 #: tolerance)
@@ -1907,6 +2211,8 @@ SUPERSTEP_CONFIGS = {
     "heat (global)": lambda cs: dict(heat="global"),
     "heat (local)": lambda cs: dict(heat="local"),
     "bf16": lambda cs: dict(transport_bf16_inner=True, transport_tol=cs.BF16_TRANSPORT_TOL),
+    "stored": lambda cs: stored_run(cs, "stored graph"),
+    "f64": lambda cs: stored_run(cs, STORED_F64),
 }
 
 
@@ -1916,6 +2222,8 @@ DIGEST_CONFIGS = {
     "headline": lambda cs: {},
     "transport": lambda cs: dict(current=True),
     "heat (local)": lambda cs: dict(current=True, heat="local"),
+    "stored": lambda cs: dict(current=True, **stored_run(cs, "stored graph")),
+    "f64": lambda cs: dict(current=True, **stored_run(cs, STORED_F64)),
 }
 DIGEST_STEPS = 2
 #: the step log's entries a digest reads (counts and physics, no times)
@@ -2002,13 +2310,15 @@ def main():
                     help="what to probe, of events, matvec, update, transport, "
                          "supersteps (the graph supersteps of SUPERSTEP_CONFIGS alone), "
                          "heat (the local heat model's dense substep, CG set-up and the end "
-                         "of a solve) and digest (DIGEST_CONFIGS' final states hashed)")
+                         "of a solve), digest (DIGEST_CONFIGS' final states hashed) and "
+                         "stored (the stored metal block's product in context)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "probe_cg_events.json"))
     args = ap.parse_args()
     if args.pkg and args.variants:
         ap.error("--variants rebuilds this checkout's sources: not with --pkg")
     parts = set(args.parts.split(","))
-    known = {"events", "matvec", "update", "transport", "supersteps", "heat", "digest"}
+    known = {"events", "matvec", "update", "transport", "supersteps", "heat", "digest",
+             "stored"}
     if parts - known:
         ap.error(f"--parts: unknown {sorted(parts - known)}")
     sys.path.insert(0, os.path.abspath(args.pkg) if args.pkg else ROOT)
@@ -2042,11 +2352,15 @@ def main():
     ru_jobs = (ru_variant_builds(bdir, _build.CSRC)
                if args.variants and "transport" in parts else {})
     heat_job = heat_build(bdir, _build.CSRC) if "heat" in parts else None
+    stored_job = stored_build(bdir, _build.CSRC) if "stored" in parts else None
+    stored_variant_jobs = (stored_variant_builds(bdir, _build.CSRC)
+                           if args.variants and "stored" in parts else {})
     begin_jobs = (begin_variant_builds(bdir, _build.CSRC)
                   if args.variants and "heat" in parts else {})
     _build.build(["ell_gather", "pairwise", "kmc_events", "graph", "boundary_cg"]
                  + (["banded", "wkb_fly", "wkb_window", "transport_cg"]
-                    if parts & {"transport", "heat", "digest"} else [])
+                    if parts & {"transport", "heat", "digest", "stored", "supersteps"}
+                    else [])
                  + (["heat"] if parts & {"heat", "digest"} else []))
     cs.finish_latency_build(latency_job)
     stamped, variants = finish(events_jobs), finish(matvec_jobs)
@@ -2071,6 +2385,12 @@ def main():
         for fn in (heat_lib.dkmc_tp_probe_read, heat_lib.dkmc_tp_probe_clear):
             fn.restype = ctypes.c_int
     begin_libs = {n: (c, finish({n: j})[n]) for n, (c, j) in begin_jobs.items()}
+    stored_lib = None
+    if stored_job is not None:
+        stored_lib = finish({"transport_cg_stored": stored_job})["transport_cg_stored"]
+        stored_lib.dkmc_tp_probe_read.argtypes = [ctypes.c_void_p] * 2
+        for fn in (stored_lib.dkmc_tp_probe_read, stored_lib.dkmc_tp_probe_clear):
+            fn.restype = ctypes.c_int
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in ("kmc_events", "boundary_cg") + (("heat",) if "heat" in parts else ()):
         print(name, [l.strip() for l in _build.build_log(name).splitlines()
@@ -2121,7 +2441,10 @@ def main():
             torch.cuda.empty_cache()
     if "digest" in parts:
         out["digest"] = digest_probe(cs)
-    if parts - {"transport", "supersteps", "heat", "digest"}:
+    if "stored" in parts:
+        out["stored"] = stored_probe(cs, stored_lib, finish(stored_variant_jobs))
+        out["stored"]["resources"] = _build.kernel_resources("transport_cg")
+    if parts - {"transport", "supersteps", "heat", "digest", "stored"}:
         sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build",
                                                                      "probe_run"))
         sim.run_bias_point(cs.VD_MAIN, 1e30, max_steps=2)
