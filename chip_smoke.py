@@ -263,8 +263,9 @@ Phases (any failed check raises and the exit code is non-zero):
    crossbar's blocks (f32, f64) and at the reference crossbar's 24,768
    metal atoms (f32, f64), warm and with a cold L2, beside its bytes bound,
    torch.mv and the fly matvec; the f64 solve's kernels (transport_blocks'
-   f64-storage build, transport_rows' product form, transport_update64)
-   against their plain versions and timed, and the f64 solve captured
+   f64-storage build, transport_tail64: the rows of A p, the update and the
+   direction in one launch) against their plain versions and timed, warm
+   and with a cold L2, and the f64 solve captured
    against its host loop, bit for bit.  The f64 runs take the exact-erfc
    Poisson sweep (poisson_kernel "jnp", the exact kernel once a superstep,
    the pair sweep never): with the stored block, the JAX package's full
@@ -1576,7 +1577,7 @@ TRACE_NAMES = {name: f"{name}_kernel" for name in (
     "ell_gather", "ell_gather_batched", "poisson_pairwise", "poisson_pairwise_batched",
     "kmc_event_loop", "kmc_event_loop_batched", "cg_matvec_dot", "cg_update_direction",
     "transport_blocks", "transport_rows", "transport_rows_update", "transport_pack",
-    "transport_refine", "stored_matvec", "transport_update64")}
+    "transport_refine", "stored_matvec", "transport_tail64")}
 TRACE_NAMES["poisson_exact_batched"] = "poisson_exact_kernel"
 CG_KERNELS = ("cg_matvec_dot", "cg_update_direction")
 #: the transport CG's kernels, each in the trace of a graph superstep that
@@ -1585,7 +1586,7 @@ TRANSPORT_TRACED = ("transport_blocks", "transport_rows_update", "transport_rows
                     "transport_pack", "transport_refine")
 #: those of the f64 solve (phase 14)
 TRANSPORT_TRACED_F64 = ("stored_matvec", "transport_blocks", "transport_rows",
-                        "transport_update64")
+                        "transport_tail64")
 
 
 def trace_counts(prof):
@@ -2073,16 +2074,15 @@ def transport_graph_phase(out_root, heat, eager_run, second_point=True, n_steps=
         check(card["transport_pack"] == card["transport_rows"] == ends
               and card["transport_rows_update"] == card["banded_matvec_out"] == inner
               and card["transport_blocks"] == card[metal] == inner + ends
-              and card[other] == card["transport_update64"] == 0,
+              and card[other] == card["transport_tail64"] == 0,
               f"{tag}: launches on the card {card} against {inner} inner iterations and "
               f"{ends} round ends")
     else:
         # the f64 solve: a set-up a graph superstep (the stored product,
         # blocks and the residual form of the rows), then an iteration's
-        # product, blocks, rows (product form) and update
-        check(card["transport_update64"] == inner
-              and card["stored_matvec"] == card["transport_blocks"]
-              == card["transport_rows"] == inner + n
+        # product, blocks and tail (the rows of A p, update, direction)
+        check(card["transport_tail64"] == inner and card["transport_rows"] == n
+              and card["stored_matvec"] == card["transport_blocks"] == inner + n
               and all(card[k] == 0 for k in ("wkb_fly_matvec_out", "banded_matvec_out",
                                              "transport_pack", "transport_refine",
                                              "transport_rows_update")),
@@ -2298,7 +2298,11 @@ def transport_cg_checks(sim, band):
                   + f4 * (n_mp + 3 * nv) + 2 * w)
         timed(f"blocks_{'hi' if hi else 'lo'}", lambda: tcg.blocks(k, op, hi),
               lambda: tcg.blocks_plain(p, op, hi), bytes_, e, rel_err=e / scale,
-              dots_rel_err=e_dot)
+              dots_rel_err=e_dot, cold_ms=time_ms_cold(lambda: tcg.blocks(k, op, hi)))
+        r = out[f"blocks_{'hi' if hi else 'lo'}"]
+        log(f"transport_blocks <{'double' if hi else 'float'},float>: {r['ms']:.5f} ms, cold "
+            f"{r['cold_ms']:.5f}; bound {r['bound_ms']:.5f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.0f} %)")
     # transport_rows (f64): r and r.r
     k = clone(base)
     tcg.pack(k, op, True)
@@ -2518,8 +2522,9 @@ def transport_cg_records(k, launches):
                "library_ms": None, "library_none": none, "shape": k["shape"],
                "computes": note}
         if key == "blocks_lo":
-            rec["f64_build"] = {f: k["blocks_hi"][f] for f in ("err", "ms", "plain_ms",
-                                                               "bound_ms")}
+            rec["cold_ms"] = r["cold_ms"]
+            rec["f64_build"] = {f: k["blocks_hi"][f] for f in ("err", "ms", "cold_ms",
+                                                               "plain_ms", "bound_ms")}
         if key == "rows_hi":
             rec.update({f: r[f] for f in ("cold_ms", "bound_parent_inputs_ms")})
         if key == "rows_update":
@@ -5889,11 +5894,12 @@ def stored_matvec_checks(T, tag, plain_reps=5):
 
 def f64_cg_checks(sim):
     """The f64 solve's kernels at the crossbar's f64 operator (its state
-    after the run, a seeded direction): transport_blocks' f64-storage build,
-    transport_rows' product form (ap, p.ap, alpha) and transport_update64
-    against their plain versions (PyTorch operations on the same tensors),
-    timed beside their bytes bounds; the f64 solve captured and from the host
-    loop, bit for bit."""
+    after the run, a seeded direction): transport_blocks' f64-storage build
+    and transport_tail64 (the rows of ap = A p, p.ap and alpha, the update,
+    the direction and its packing in one cooperative launch) against their
+    plain versions (PyTorch operations on the same tensors), timed warm and
+    with a cold L2 beside their bytes bounds; the f64 solve captured and
+    from the host loop, bit for bit."""
     import torch
 
     from devicekmc_tpu_torch.ops import transport_cg as tcg
@@ -5950,51 +5956,44 @@ def f64_cg_checks(sim):
     check(e <= 1e-12, f"transport_blocks (f64 blocks): {e} from its plain version")
     timed("blocks64", lambda: tcg.blocks(k, op, True), lambda: tcg.blocks_plain(p, op, True),
           f8 * (nv * n_mp + nv * nv + n_mp) + (i4 + f8) * nv + 2 * f8 * (na + op.nsi)
-          + f8 * (n_mp + 2 * nv) + 2 * f8, e)
+          + f8 * (n_mp + 2 * nv) + 2 * f8, e,
+          cold_ms=time_ms_cold(lambda: tcg.blocks(k, op, True)))
     tcg.blocks(base, op, True)
     k, p = clone(base), clone(base)
-    tcg.rows_ap(k, op)
+    tcg.tail_f64(k, op, 20000)
     tcg.rows_ap_plain(p, op)
-    e = rel(k.c64.ap, p.c64.ap)
-    e_alpha = abs(float(k.c64.alpha) / float(p.c64.alpha) - 1)
-    check(e <= 1e-12 and e_alpha <= 1e-10, f"transport_rows (product form): ap {e}, alpha "
-          f"{e_alpha} from its plain version")
-    # the bound of the kernel's own inputs (a valid slot's int32 index, a
-    # class byte an atom, the slice starts; the rows' vectors), and of the
-    # inputs of the row-major ELL it replaced (a valid slot's f64
-    # conductance and int32 index)
-    rows_vec = f8 * (nsub + 1) + (f8 + 2 * i4) * na + f8 * (2 * n_mp + 2 * nv) \
-        + f8 * (2 * na + nsub) + f8 * nsub
-    timed("rows_ap", lambda: tcg.rows_ap(k, op), lambda: tcg.rows_ap_plain(p, op),
-          i4 * nnz + na + i4 * op.nb_start.numel() + rows_vec, e, alpha_rel_err=e_alpha,
-          bound_parent_inputs_ms=((f8 + i4) * nnz + rows_vec) / PEAK_BYTES_PER_S * 1e3,
-          cold_ms=time_ms_cold(lambda: tcg.rows_ap(k, op)),
-          slots_read=int(op.nb_idx.numel()), slots_valid=nnz)
-    r = out["rows_ap"]
-    log(f"transport_rows (f64, product form): {r['ms']:.5f} ms, cold {r['cold_ms']:.5f}; bound "
-        f"{r['bound_ms']:.5f} ms ({100 * r['bound_ms'] / r['ms']:.0f} %), of the row-major "
-        f"ELL's inputs {r['bound_parent_inputs_ms']:.5f}; {r['slots_read']} slots read for "
-        f"{nnz} valid")
-    tcg.rows_ap(base, op)
-    k, p = clone(base), clone(base)
-    tcg.update_f64(k, op, 20000)
     tcg.update_f64_plain(p, op, 20000)
+    e_ap = rel(k.c64.ap, p.c64.ap)
+    e_alpha = abs(float(k.c64.alpha) / float(p.c64.alpha) - 1)
     e = max(rel(getattr(k, f), getattr(p, f)) for f in ("x", "r", "xs64", "xm"))
     e_rz = abs(float(k.c64.rz) / float(p.c64.rz) - 1)
-    check(e <= 1e-12 and e_rz <= 1e-10
+    check(e_ap <= 1e-12 and e_alpha <= 1e-10 and e <= 1e-12 and e_rz <= 1e-10
           and all(torch.equal(getattr(k.c64, f), getattr(p.c64, f))
                   for f in ("act", "iters", "cond")),
-          f"transport_update64: {e}, r.z {e_rz} from its plain version")
-    # what the update must move: x, r, p read and written, ap and minv
-    # read, the metal vector written
-    # timed from the same start, again and again (threshold 0: the flag
-    # stays up, the predicate on)
+          f"transport_tail64: ap {e_ap}, alpha {e_alpha}, vectors {e}, r.z {e_rz} from its "
+          "plain version")
+    # what the tail must move: the rows' own inputs (a valid slot's int32
+    # index, a class byte an atom, the slice starts; p, the metal and
+    # vacancy products, the dots, the rows' slots, the virtual rows and the
+    # diagonal), ap written; x and r read and written, minv read, p written,
+    # the metal vector written; timed from the same start, again and again
+    # (threshold 0: the flag stays up, the predicate on)
+    rows_vec = f8 * (nsub + 1) + (f8 + 2 * i4) * na + f8 * (2 * n_mp + 2 * nv) \
+        + f8 * (2 * na + nsub)
+    update = f8 * (4 * nsub + 2 * nsub) + f8 * n_mp
     k2 = clone(base)
     for w in (k2, p):
         w.c64.thresh2.zero_()
-    timed("update64", lambda: tcg.update_f64(k2, op, 1 << 30),
-          lambda: tcg.update_f64_plain(p, op, 1 << 30),
-          f8 * (6 * nsub + 2 * nsub) + f8 * n_mp + i4 * na, e, rz_rel_err=e_rz)
+    timed("tail64", lambda: tcg.tail_f64(k2, op, 1 << 30),
+          lambda: (tcg.rows_ap_plain(p, op), tcg.update_f64_plain(p, op, 1 << 30)),
+          i4 * nnz + na + i4 * op.nb_start.numel() + rows_vec + f8 * nsub + update, e,
+          ap_rel_err=e_ap, alpha_rel_err=e_alpha, rz_rel_err=e_rz,
+          cold_ms=time_ms_cold(lambda: tcg.tail_f64(k2, op, 1 << 30)),
+          slots_read=int(op.nb_idx.numel()), slots_valid=nnz)
+    r = out["tail64"]
+    log(f"transport_tail64 (f64 rows, update, direction): {r['ms']:.5f} ms, cold "
+        f"{r['cold_ms']:.5f}; bound {r['bound_ms']:.5f} ms ({100 * r['bound_ms'] / r['ms']:.0f} "
+        f"%); {r['slots_read']} slots read for {nnz} valid")
 
     # the solve, captured and from the host loop
     x0, tol, maxiter = cap["x0"], cap["tol"], cap["maxiter"]
@@ -6186,17 +6185,19 @@ def stored_path(out_root):
            "launches_f64_graph_run": summaries["f64 graph"]["launches_card"]["stored_matvec"],
            "computes": "the stored metal block's product y = T_cc x_m (f32 in mixed "
                        "precision, f64 in f64)"}
-    u = f64["update64"]
-    rec64 = {"name": "transport_update64", "route": "cuda", "source": src,
+    u = f64["tail64"]
+    rec64 = {"name": "transport_tail64", "route": "cuda", "source": src,
              "replaces": "devicekmc_tpu/ops/cg.py:112",
-             "launches": summaries["f64 graph"]["launches_card"]["transport_update64"],
+             "launches": summaries["f64 graph"]["launches_card"]["transport_tail64"],
              "max_abs_err": u["err"], "ms": u["ms"], "plain_ms": u["plain_ms"],
              "bound_ms": u["bound_ms"], "bound_by": "bytes", "library_ms": None,
-             "library_none": "no one PyTorch call updates, reduces and sets the direction",
-             "rows_product_form": f64["rows_ap"], "blocks_f64_storage": f64["blocks64"],
+             "library_none": "no one PyTorch call makes the rows, updates, reduces and sets "
+                             "the direction",
+             "cold_ms": u["cold_ms"], "blocks_f64_storage": f64["blocks64"],
              "solve": f64["solve"],
-             "computes": "the f64 solve's update, Jacobi direction, packing, flag and "
-                         "predicate (criterion pre), one cooperative launch"}
+             "computes": "the f64 solve's tail in one cooperative launch: the rows of A p, "
+                         "p.ap and alpha, the update, Jacobi direction, packing, flag and "
+                         "predicate (criterion pre)"}
     return [rec, rec64], summaries
 
 

@@ -52,21 +52,21 @@
 //                     "stored", what "auto" picks): the JAX package's
 //                     jnp.matmul(T_cc, xm) (devicekmc_tpu/physics/
 //                     current.py:802) inside its jitted superstep
-//   transport_update64
-//                     the f64 solve's tail (Jacobi CG, criterion "pre", on
+//   transport_tail64  the f64 solve's tail (Jacobi CG, criterion "pre", on
 //                     the unscaled system: the JAX package's cg_solve,
 //                     devicekmc_tpu/ops/cg.py:40-118), one cooperative
-//                     launch: x += alpha p, r -= alpha ap, z = r / diag and
-//                     r.z; a barrier; beta, p = z + beta p packed into the
-//                     full vector and the metal vector; the flag, count and
-//                     predicate (also the WHILE node's condition)
+//                     launch: every row of ap = A p (transport_rows' row)
+//                     and p.ap; a barrier of the grid; alpha, x += alpha p,
+//                     r -= alpha ap, z = r / diag and r.z; a barrier; beta,
+//                     p = z + beta p packed into the full vector and the
+//                     metal vector; the flag, count and predicate (also the
+//                     WHILE node's condition)
 //
 // So the inner body is band | (fly or stored, transport_blocks), then
 // transport_rows_update; a round's end is transport_pack, fly or stored,
 // transport_blocks (f64), transport_rows and transport_refine.  The f64
-// solve's body is stored | transport_blocks (f64 blocks), transport_rows in
-// its product form (ap = A p, p.ap and alpha by the last ticket) and
-// transport_update64.
+// solve's body is stored | transport_blocks (f64 blocks), then
+// transport_tail64.
 //
 // Bound: bytes.  An inner iteration reads the band (static, about 2 GB at
 // the crossbar's width: its own kernel), the vacancy blocks' live rows once
@@ -75,17 +75,29 @@
 // Design:
 //
 //   * transport_blocks reads each live element of T_vm once for both of its
-//     products: a block takes a tile of kBlockRows rows x kBlockCols
-//     columns, a warp kRowsPerWarp rows, a lane kColsPerLane columns (all
-//     kRowsPerWarp x kColsPerLane loads issued before any is used); the
-//     tile's x_v is gathered into shared memory once a block; the rows'
-//     partial sums (one a column tile) and the columns' (one a live row
-//     tile) go to slots of their own, and the block that draws a column
-//     tile's or a row tile's last ticket (csrc/ticket.cuh) adds them in tile
-//     order, so that a metal row later reads one value; row tiles past the
-//     bucket's live slots (n_vac, on the device) leave at once, so the
-//     column sums fit the live rows; T_vv's rows a warp each, 8 loads a lane
-//     in flight against x_v in shared memory; the dots a block each;
+//     products: a block takes a work item, the live ones (n_vac, read on
+//     the device) in the first blocks: the two dots, the bump's and T_vv's
+//     groups of live slots, then the live tiles of kBlockRows rows x
+//     kBlockCols columns, a warp kRowsPerWarp rows, a lane kColsPerLane
+//     columns (all kRowsPerWarp x kColsPerLane loads issued before any is
+//     used); the rows' partial sums (one a column tile) and the columns'
+//     (one a live row tile) go to slots of their own, and the block that
+//     draws a column tile's or a row tile's last ticket adds them in tile
+//     order, so that a metal row later reads one value; the two tickets are
+//     drawn side by side by threads 0 and 32 (csrc/ticket.cuh
+//     last_ticket_acq_rel: an acquire-release atomic after the barrier that
+//     orders the block's slots, no fences), a column's slots loaded at once;
+//     T_vv's rows a warp each against x_v gathered into shared memory, the
+//     row's first two passes of loads issued before the gather; the bump's
+//     and the dots' loads issued before any is used; 40 registers in the
+//     f32 builds, so that the crossbar's 680 live blocks fit the card's
+//     first wave (6 blocks an SM).  tools/probe_cg_events.py on an H100
+//     80GB HBM3 at 700 W: the parent's two last_tickets (fences, barriers)
+//     and strip sums 1.85 us of a tile block's 5.3; a persistent grid of 2
+//     blocks an SM with each block's tiles through a cp.async ring was 18 %
+//     slower than the parent's block a tile, its items' chains one after
+//     another, and this design with each tile staged through shared memory
+//     by cp.async 11 % slower than with its loads in registers (PERF.md);
 //   * transport_rows_update keeps each row's ap, p, dsi and slots in
 //     registers from the rows to the direction, so ap is written once and
 //     never read back, p read once; a thread starts the loads of all its
@@ -166,10 +178,18 @@
 //     head's product deferred until its first vectors are on their way; one
 //     fixed order a row, so graph and host loop get the same bits and f32
 //     never meets TF32;
-//   * transport_update64 keeps z and the old p of its first tile in
-//     registers across its one grid barrier, after which every block sums
-//     the tiles' r.z slots in the same order (warp 0, lane-strided) and so
-//     has the same beta; block 0 alone writes the scalars;
+//   * transport_tail64 is the f64 rows (transport_rows' row_product, a row
+//     a thread, 512-row tiles whose halves are transport_rows' 256-row
+//     tiles of p.ap) and the update in one cooperative launch: ap, p, z and
+//     the metal slot of the first tile stay in registers across its two
+//     grid barriers, after each of which every block sums the same slots in
+//     the same order (alpha: sum_partials' order of the halves; beta: warp
+//     0, lane-strided) and so has the same scalars; every operand of a row's
+//     update is loaded before any is used, the slots' loads issued
+//     together; block 0 alone writes the scalars.  The rows' last ticket,
+//     one launch of the WHILE body and ap's round trip through memory went
+//     with the pair it replaced (transport_rows' product form, then
+//     transport_update64: PERF.md has both timed in turns);
 //   * nothing allocates: every buffer comes from the caller, so the
 //     launches can be captured into the body of a WHILE node.
 
@@ -196,8 +216,20 @@ constexpr int kRowsPerWarp = 4;
 constexpr int kBlockRows = kWarps * kRowsPerWarp;
 constexpr int kColsPerLane = 4;
 constexpr int kBlockCols = 32 * kColsPerLane;
-// transport_blocks: T_vv's loads in flight a lane, and the tile sums'
+// transport_blocks: T_vv's loads a lane in each of the two passes in
+// flight, the bump's (max_nn up to 32 kBumpLoads in one pass), a dot's,
+// x_v's gather's, and the tile sums' (a column's over up to 32 kColSumLoads
+// live row tiles, a row's over the column tiles)
 constexpr int kVvLoads = 8;
+constexpr int kBumpLoads = 2;
+// transport_blocks: the blocks an SM its registers allow (40 and 64 a
+// thread): the crossbar's live items (680 blocks at 578 live slots) in one
+// wave of f32 blocks
+template <typename S>
+constexpr int kBlocksPerSm = sizeof(S) == 4 ? 6 : 4;
+constexpr int kDotLoads = 8;
+constexpr int kGather = 4;
+constexpr int kColSumLoads = 16;
 constexpr int kSumLoads = 8;
 // transport_rows (f64): rows a slice of the atom graph (a warp's rows,
 // ops/transport_cg.py ATOM_SLICE), and slots a pass, their loads issued
@@ -213,7 +245,7 @@ constexpr int kSmWarps = kSmThreads / 32;
 constexpr int kSmBlocks = 4;
 constexpr int kSmLoads = 4;
 constexpr int kSmPastL1L2s = 4;
-// transport_update64: threads a block, a row a thread (a tile)
+// transport_tail64: threads a block, a row a thread (a tile)
 constexpr int kUpThreads = 512;
 constexpr int kUpWarps = kUpThreads / 32;
 // transport_rows_update: threads a block and rows a thread (rows t, t +
@@ -316,21 +348,21 @@ __device__ __forceinline__ float block_sum_partials(const float* part, int count
 
 // The sum of slots q, q + lanes, ... below count of a column of partial sums
 // (base[k stride], written by other blocks: read past L1), in order, with
-// kSumLoads loads in flight; 0 unless `on`.
-template <typename S>
+// kLoads loads in flight; 0 unless `on`.
+template <int kLoads, typename S>
 __device__ __forceinline__ S sum_strided(const S* base, size_t stride, int q, int lanes,
                                          int count, bool on) {
   S a = S(0);
   if (!on) return a;
-  for (int k0 = q; k0 < count; k0 += lanes * kSumLoads) {
-    S v[kSumLoads];
+  for (int k0 = q; k0 < count; k0 += lanes * kLoads) {
+    S v[kLoads];
 #pragma unroll
-    for (int u = 0; u < kSumLoads; ++u) {
+    for (int u = 0; u < kLoads; ++u) {
       const int k = k0 + u * lanes;
       v[u] = k < count ? __ldcg(base + (size_t)k * stride) : S(0);
     }
 #pragma unroll
-    for (int u = 0; u < kSumLoads; ++u) a += v[u];
+    for (int u = 0; u < kLoads; ++u) a += v[u];
   }
   return a;
 }
@@ -406,42 +438,103 @@ struct BlocksArgs {
   unsigned long long* count;
 };
 
-// Blocks: the gnd and the src dot; n_vb = ceil(vcap / kWarps) blocks of the
-// bump and n_vb of T_vv's rows, a warp a slot; then the n_rt n_ct tiles of
-// T_vm (row tile rt = t / n_ct, column tile ct = t % n_ct): the short
-// latency-bound kinds first, so that they start in the first wave.  Three
-// builds: <float, float> the inner direction (mixed), <double, float> the
-// refinement's iterate (mixed), <double, double> the f64 solve.
+// T_vv's row s (a warp; lane l: j = l, l + 32, ... below nv) against x_v
+// in shared memory, the lane's terms in order, then the warp's butterfly;
+// the lane's loads in passes of kVvLoads through two buffers, two passes in
+// flight before the first is used (the first two, v0 and v1, issued by the
+// caller).
+template <typename S>
+__device__ __forceinline__ void vv_loads(const S* row, int j0, int nv, S (&v)[kVvLoads]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < kVvLoads; ++u) {
+    const int j = j0 + lane + 32 * u;
+    v[u] = j < nv ? __ldg(row + j) : S(0);
+  }
+}
+
+template <typename S>
+__device__ __forceinline__ void vv_terms(const S (&v)[kVvLoads], int j0, int nv,
+                                         const S* s_xall, S& c) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < kVvLoads; ++u) {
+    const int j = j0 + lane + 32 * u;
+    if (j < nv) c = fma_rn(v[u], s_xall[j], c);
+  }
+}
+
+// the loads of the passes at j0 and j0 + 32 kVvLoads (where it holds live
+// slots)
+template <typename S>
+__device__ __forceinline__ void vv_two_passes(const S* row, int j0, int nv, S (&v0)[kVvLoads],
+                                              S (&v1)[kVvLoads]) {
+  vv_loads(row, j0, nv, v0);
+  if (j0 + 32 * kVvLoads < nv) vv_loads(row, j0 + 32 * kVvLoads, nv, v1);
+}
+
 template <typename T, typename S>
-__global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T, S> A) {
+__device__ __forceinline__ void vv_row(const BlocksArgs<T, S>& A, int s, int nv, const S* s_xall,
+                                       S (&v0)[kVvLoads], S (&v1)[kVvLoads]) {
+  constexpr int kPass = 32 * kVvLoads;
+  const S* row = A.T_vv + (size_t)s * A.vcap;
+  S c = S(0);
+  for (int j0 = 0; j0 < nv; j0 += 2 * kPass) {
+    if (j0 > 0) vv_two_passes(row, j0, nv, v0, v1);
+    vv_terms(v0, j0, nv, s_xall, c);
+    if (j0 + kPass < nv) vv_terms(v1, j0 + kPass, nv, s_xall, c);
+  }
+  c = warp_sum(c);
+  if ((threadIdx.x & 31) == 0) A.y_vv[s] = c;
+}
+
+// A block a work item of the ones that the bucket's live count n_vac, read
+// on the device, makes, in this order: the gnd and the src dot; the bump's
+// groups of kWarps live slots (f32 build); T_vv's groups of kWarps live
+// rows; the live row tiles' tiles of T_vm (row tile rt = t / n_ct, column
+// tile ct = t % n_ct).  So the live items take the first blocks, all of them
+// in the card's first wave, the short latency-bound kinds first, and the
+// blocks past the live items leave at once.  A T_vm tile's elements are
+// read once for both of its products: the rows' partial sums (a lane's
+// columns in order, the warp's butterfly) and the columns' (a warp's rows
+// in order, the warps in order) go to slots of their own; then threads 0
+// and 32 draw the column tile's and the row tile's tickets side by side
+// (csrc/ticket.cuh last_ticket_acq_rel, after the barrier that orders the
+// block's slots before them), and the block that draws a strip's last
+// ticket adds its slots in sum_strided's order.  Three builds: <float,
+// float> the inner direction (mixed), <double, float> the refinement's
+// iterate (mixed), <double, double> the f64 solve.
+template <typename T, typename S>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm<S>) transport_blocks_kernel(
+    BlocksArgs<T, S> A) {
   count_launch(A.count);
   constexpr bool kLo = sizeof(T) == 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nv = min(*A.n_vac, A.vcap);
   const int n_ct = (A.n_mp + kBlockCols - 1) / kBlockCols;
-  const int n_rt = (A.vcap + kBlockRows - 1) / kBlockRows;
-  const int n_vb = (A.vcap + kWarps - 1) / kWarps;
-  const int n_small = 2 + 2 * n_vb;
-  const int b = blockIdx.x;
+  const int n_live = (nv + kBlockRows - 1) / kBlockRows;
+  const int n_grp = (nv + kWarps - 1) / kWarps;
+  const int n_bump = kLo ? n_grp : 0;
+  const int n_small = 2 + n_bump + n_grp;
+  const int it = blockIdx.x;
   __shared__ S s_xv[kBlockRows];
-  __shared__ S s_cp[kWarps][kBlockCols];  // (and the column sums' halves)
+  __shared__ S s_cp[kWarps][kBlockCols];
   __shared__ T s_warp[kWarps];
-  __shared__ int s_flag;
+  __shared__ int s_last[2];
   extern __shared__ __align__(16) unsigned char s_raw[];
   S* s_xall = reinterpret_cast<S*>(s_raw);
 
-  if (b >= n_small) {
-    // a tile of T_vm: its elements once, for the rows' T_vm x_m and the
-    // columns' T_vm^T x_v
-    const int tile = b - n_small, rt = tile / n_ct, ct = tile - rt * n_ct;
+  // no live slot: zero column sums
+  if (nv == 0)
+    for (int c = it * kThreads + threadIdx.x; c < A.n_mp; c += gridDim.x * kThreads)
+      A.mv[c] = S(0);
+  if (it >= n_small + n_live * n_ct) return;
+
+  if (it >= n_small) {
+    // a tile of T_vm: every element, the columns' x_m and the rows' x_v
+    // loaded before any is used
+    const int tile = it - n_small, rt = tile / n_ct, ct = tile - rt * n_ct;
     const int r0 = rt * kBlockRows, c0 = ct * kBlockCols;
-    const int n_live = (nv + kBlockRows - 1) / kBlockRows;
-    if (r0 >= nv) {
-      // no live slot: the first row tile leaves zero column sums
-      if (rt == 0 && threadIdx.x < kBlockCols && c0 + (int)threadIdx.x < A.n_mp)
-        A.mv[c0 + threadIdx.x] = S(0);
-      return;
-    }
     S t[kRowsPerWarp][kColsPerLane], xm[kColsPerLane];
 #pragma unroll
     for (int j = 0; j < kRowsPerWarp; ++j) {
@@ -491,28 +584,35 @@ __global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T
       for (int w = 0; w < kWarps; ++w) a += s_cp[w][threadIdx.x];
       A.col_part[(size_t)rt * A.n_mp + col] = a;
     }
+    // the column tile's and the row tile's tickets, drawn side by side by
+    // threads 0 and 32 once the block's slots are written
+    __syncthreads();
+    if (threadIdx.x == 0) s_last[0] = last_ticket_acq_rel(A.tickets, ct, n_live);
+    if (threadIdx.x == 32) s_last[1] = last_ticket_acq_rel(A.tickets, n_ct + rt, n_ct);
+    __syncthreads();
     // the column tile's last live row tile: its columns' sums over the row
-    // tiles, kSumLanes threads a column (thread q of a column: tiles q, q +
-    // kSumLanes, ... in order), then those in order; the row tile's last
-    // column tile: its rows' over the column tiles, alike
-    if (last_ticket(A.tickets, ct, n_live, &s_flag)) {
+    // tiles, kLanes threads a column (thread q of a column: tiles q, q +
+    // kLanes, ... in order), then those in order
+    if (s_last[0]) {
       constexpr int kLanes = kThreads / kBlockCols;
       const int c = threadIdx.x % kBlockCols, q = threadIdx.x / kBlockCols;
-      const S a = sum_strided(A.col_part + c0 + c, A.n_mp, q, kLanes, n_live,
-                              c0 + c < A.n_mp);
+      const S a = sum_strided<kColSumLoads>(A.col_part + c0 + c, A.n_mp, q, kLanes, n_live,
+                                            c0 + c < A.n_mp);
       s_cp[q][c] = a;
       __syncthreads();
       if (threadIdx.x < kBlockCols && col < A.n_mp) {
-        S t = S(0);
+        S tot = S(0);
 #pragma unroll
-        for (int k = 0; k < kLanes; ++k) t += s_cp[k][threadIdx.x];
-        A.mv[col] = t;
+        for (int l = 0; l < kLanes; ++l) tot += s_cp[l][threadIdx.x];
+        A.mv[col] = tot;
       }
     }
-    if (last_ticket(A.tickets, n_ct + rt, n_ct, &s_flag)) {
+    // the row tile's last column tile: its rows' sums over the column tiles,
+    // alike, then a butterfly of the row's lanes downwards
+    if (s_last[1]) {
       constexpr int kLanes = kThreads / kBlockRows;
       const int j = threadIdx.x / kLanes, q = threadIdx.x % kLanes, s = r0 + j;
-      S a = sum_strided(A.row_part + s, A.vcap, q, kLanes, n_ct, s < nv);
+      S a = sum_strided<kSumLoads>(A.row_part + s, A.vcap, q, kLanes, n_ct, s < nv);
 #pragma unroll
       for (int o = 1; o < kLanes; o <<= 1) a += __shfl_down_sync(0xffffffffu, a, o, kLanes);
       if (q == 0 && s < nv) A.y_vm[s] = a;
@@ -520,66 +620,81 @@ __global__ void __launch_bounds__(kThreads) transport_blocks_kernel(BlocksArgs<T
     return;
   }
 
-  if (b >= 2 + n_vb) {
+  if (it >= 2 + n_bump) {
     // a warp a slot: T_vv's row against x_v gathered into shared memory
-    // once a block, the row's first loads issued before the gather
-    const int s0 = (b - 2 - n_vb) * kWarps, s = s0 + warp;
-    if (s0 >= nv) return;
-    const S* row = A.T_vv + (size_t)s * A.vcap;
-    S v[kVvLoads];
+    // (kGather a thread in flight), the row's first loads issued before
+    // the gather
+    const int s = (it - 2 - n_bump) * kWarps + warp;
+    S v0[kVvLoads], v1[kVvLoads];
+    if (s < nv) vv_two_passes(A.T_vv + (size_t)s * A.vcap, 0, nv, v0, v1);
+    for (int j0 = threadIdx.x; j0 < nv; j0 += kThreads * kGather) {
+      int a[kGather];
+      S x[kGather];
 #pragma unroll
-    for (int u = 0; u < kVvLoads; ++u) {
-      const int j = lane + 32 * u;
-      v[u] = s < nv && j < nv ? __ldg(row + j) : S(0);
+      for (int u = 0; u < kGather; ++u) {
+        const int j = j0 + kThreads * u;
+        a[u] = j < nv ? A.vidx[j] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kGather; ++u) x[u] = (S)A.xs[a[u] + 2];
+#pragma unroll
+      for (int u = 0; u < kGather; ++u)
+        if (j0 + kThreads * u < nv) s_xall[j0 + kThreads * u] = x[u];
     }
-    for (int j = threadIdx.x; j < nv; j += kThreads) s_xall[j] = (S)A.xs[A.vidx[j] + 2];
     __syncthreads();
-    if (s >= nv) return;
-    S c = S(0);
-    for (int j0 = 0; j0 < nv; j0 += 32 * kVvLoads) {
-      if (j0 > 0) {
-#pragma unroll
-        for (int u = 0; u < kVvLoads; ++u) {
-          const int j = j0 + lane + 32 * u;
-          v[u] = j < nv ? __ldg(row + j) : S(0);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kVvLoads; ++u) {
-        const int j = j0 + lane + 32 * u;
-        if (j < nv) c = fma_rn(v[u], s_xall[j], c);
-      }
-    }
-    c = warp_sum(c);
-    if (lane == 0) A.y_vv[s] = c;
+    if (s < nv) vv_row(A, s, nv, s_xall, v0, v1);
     return;
   }
 
-  if (b >= 2) {
-    // lo: a warp a slot, the bump over the slot's neighbours
-    const int s = (b - 2) * kWarps + warp;
-    if (!kLo || s >= nv) return;
+  if (it >= 2) {
+    // lo: a warp a slot, the bump over the slot's neighbours (lane l:
+    // slots l, l + 32, ..., their indices, values and entries loaded before
+    // any is used)
+    const int s = (it - 2) * kWarps + warp;
+    if (s >= nv) return;
     const int* nb = A.anb + (size_t)A.vidx[s] * A.max_nn;
     const float* dv = A.dyn + (size_t)s * A.max_nn;
     float d = 0.f;
-    for (int k = lane; k < A.max_nn; k += 32) {
-      const int j = nb[k];
-      d = fma_rn(dv[k], (float)A.xs[(j < 0 ? 0 : j) + 2], d);
+    for (int k0 = 0; k0 < A.max_nn; k0 += 32 * kBumpLoads) {
+      int j[kBumpLoads];
+      float w[kBumpLoads], x[kBumpLoads];
+#pragma unroll
+      for (int u = 0; u < kBumpLoads; ++u) {
+        const int k = k0 + lane + 32 * u;
+        j[u] = k < A.max_nn ? nb[k] : 0;
+        w[u] = k < A.max_nn ? dv[k] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBumpLoads; ++u) x[u] = (float)A.xs[(j[u] < 0 ? 0 : j[u]) + 2];
+#pragma unroll
+      for (int u = 0; u < kBumpLoads; ++u)
+        if (k0 + lane + 32 * u < A.max_nn) d = fma_rn(w[u], x[u], d);
     }
     d = warp_sum(d);
     if (lane == 0) A.y_bump[s] = d;
     return;
   }
 
-  // the virtual nodes' rows: gnd . xa over its nonzero range (atoms past
-  // na - num_ground_ext), src . xa over the first nsi atoms; a block each,
-  // the threads' terms in order, then the block's sum
-  const bool is_gnd = b == 0;
+  // the virtual nodes' rows: gnd . xa over its nonzero range (atoms past na
+  // - num_ground_ext), src . xa over the first nsi atoms; a block each, the
+  // threads' terms in order (kDotLoads loads in flight), then the block's
+  // sum
+  const bool is_gnd = it == 0;
   const int a0 = is_gnd ? A.gnd_lo : 0, a1 = is_gnd ? A.na : A.nsi;
   const T* w = is_gnd ? A.gnd : A.src;
   T acc = 0;
-#pragma unroll 4
-  for (int a = a0 + threadIdx.x; a < a1; a += kThreads) acc = fma_rn(w[a], A.xs[a + 2], acc);
+  for (int a = a0 + threadIdx.x; a < a1; a += kThreads * kDotLoads) {
+    T wv[kDotLoads], xv[kDotLoads];
+#pragma unroll
+    for (int u = 0; u < kDotLoads; ++u) {
+      const int q = a + kThreads * u;
+      wv[u] = q < a1 ? w[q] : T(0);
+      xv[u] = q < a1 ? A.xs[q + 2] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kDotLoads; ++u)
+      if (a + kThreads * u < a1) acc = fma_rn(wv[u], xv[u], acc);
+  }
   const T sum = block_sum(acc, s_warp);
   if (threadIdx.x == 0) A.dots[is_gnd ? 0 : 1] = sum;
 }
@@ -620,89 +735,83 @@ struct RowsArgs {
   const double* dsi;
   double loop_G;
   int na, nsub;
-  // the residual form: the right-hand side, the residual and r.r; the
-  // product form (b null): ap = A p of the vector p = xs, and the CG's
-  // entry flag, r.z and step alpha = r.z / p.ap
+  // the right-hand side, the residual and r.r (transport_rows)
   const double* b;
   double* r;
   double* rsum;
-  double* ap;
-  const unsigned char* act;
-  const double* rz;
-  double* alpha;
-  // scratch: the tiles' partial sums, the ticket
+  // scratch: the tiles' partial sums (the f64 tail's: of p.ap), the ticket
   double* part;
   int* ticket;
   unsigned long long* count;
 };
 
-// A row a thread, a warp a slice: row i of y = A xs (ELL part, metal row,
-// vacancy slot, virtual rows, diagonal), then either r = b - dsi y and the
-// tiles' r.r, or (b null) ap = y and the tiles' p.ap; the block that draws
-// the last ticket adds the tiles' sums in tile order and writes r.r, or
-// alpha.  The row's own entries and the products it adds are loaded before
-// its slots; the slots in passes of kEll, a pass's indices (32 rows' words
-// side by side) loaded before the neighbours' entries and classes, those
-// before any is added; each slot's conductance from the two atoms'
-// classes.  In the product form a stopped CG's launch leaves at once.
+// Row i < nsub of y = A xs (ELL part, metal row, vacancy slot, virtual rows,
+// diagonal), and xs[i] in xi.  The row's own entries and the products it
+// adds are loaded before its slots; the slots in passes of kEll, a pass's
+// indices (32 rows' words side by side) loaded before the neighbours'
+// entries and classes, those before any is added; each slot's conductance
+// from the two atoms' classes.
+template <typename P>
+__device__ __forceinline__ double row_product(const RowsArgs<P>& A, int i, double& xi) {
+  const double x0 = A.xs[0], x1 = A.xs[1];
+  xi = A.xs[i];
+  const double dg = A.diag[i];
+  double y;
+  if (i >= 2) {
+    const int a = i - 2;
+    const int s = A.vslot[a];
+    const int k = A.mp_inv[a];
+    const double ga = A.gnd[a], sa = A.src[a];
+    double tm = 0, tv = 0;
+    if (k >= 0) tm = add_rn((double)__ldcg(A.y_cc + k), (double)__ldcg(A.mv + k));
+    if (s >= 0) tv = add_rn((double)__ldcg(A.y_vv + s), (double)__ldcg(A.y_vm + s));
+    const int c0 = __ldg(A.nb_start + i / kSlice), c1 = __ldg(A.nb_start + i / kSlice + 1);
+    const int width = (c1 - c0) / kSlice;
+    const int* nb = A.nb_idx + c0 + i % kSlice;
+    const unsigned ca = A.cls[a];
+    y = 0;
+    for (int k0 = 0; k0 < width; k0 += kEll) {
+      int j[kEll];
+      double w[kEll], xv[kEll];
+#pragma unroll
+      for (int u = 0; u < kEll; ++u)
+        j[u] = k0 + u < width ? __ldg(nb + (k0 + u) * kSlice) : -1;
+#pragma unroll
+      for (int u = 0; u < kEll; ++u) {
+        xv[u] = j[u] >= 0 ? __ldg(A.xs + j[u] + 2) : 0.0;
+        w[u] = j[u] >= 0 && (ca & __ldg(A.cls + j[u])) != 0u ? A.g_hi : A.g_lo;
+      }
+#pragma unroll
+      for (int u = 0; u < kEll; ++u)
+        if (j[u] >= 0) y = fma_rn(w[u], xv[u], y);
+    }
+    y = add_rn(y, tm);
+    if (s >= 0) y = add_rn(y, tv);
+    y = add_rn(y, mul_rn(ga, x0));
+    y = add_rn(y, mul_rn(sa, x1));
+  } else {
+    y = i == 0 ? sub_rn(__ldcg(A.dots + 0), mul_rn(A.loop_G, x1))
+               : sub_rn(__ldcg(A.dots + 1), mul_rn(A.loop_G, x0));
+  }
+  return add_rn(y, mul_rn(dg, xi));
+}
+
+// A row a thread, a warp a slice: row_product, r = b - dsi y and the
+// tiles' r.r; the block that draws the last ticket adds the tiles' sums in
+// tile order and writes r.r.
 template <typename P>
 __global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs<P> A) {
   count_launch(A.count);
-  const bool product = A.b == nullptr;
-  if (product && *A.act == 0) return;
   __shared__ double s_warp[kWarps];
   __shared__ int s_flag;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   double acc = 0;
   if (i < A.nsub) {
-    const double x0 = A.xs[0], x1 = A.xs[1];
-    const double xi = A.xs[i], dg = A.diag[i];
-    double y;
-    if (i >= 2) {
-      const int a = i - 2;
-      const int s = A.vslot[a];
-      const int k = A.mp_inv[a];
-      const double ga = A.gnd[a], sa = A.src[a];
-      double tm = 0, tv = 0;
-      if (k >= 0) tm = add_rn((double)__ldcg(A.y_cc + k), (double)__ldcg(A.mv + k));
-      if (s >= 0) tv = add_rn((double)__ldcg(A.y_vv + s), (double)__ldcg(A.y_vm + s));
-      const int c0 = __ldg(A.nb_start + i / kSlice), c1 = __ldg(A.nb_start + i / kSlice + 1);
-      const int width = (c1 - c0) / kSlice;
-      const int* nb = A.nb_idx + c0 + i % kSlice;
-      const unsigned ca = A.cls[a];
-      y = 0;
-      for (int k0 = 0; k0 < width; k0 += kEll) {
-        int j[kEll];
-        double w[kEll], xv[kEll];
-#pragma unroll
-        for (int u = 0; u < kEll; ++u)
-          j[u] = k0 + u < width ? __ldg(nb + (k0 + u) * kSlice) : -1;
-#pragma unroll
-        for (int u = 0; u < kEll; ++u) {
-          xv[u] = j[u] >= 0 ? __ldg(A.xs + j[u] + 2) : 0.0;
-          w[u] = j[u] >= 0 && (ca & __ldg(A.cls + j[u])) != 0u ? A.g_hi : A.g_lo;
-        }
-#pragma unroll
-        for (int u = 0; u < kEll; ++u)
-          if (j[u] >= 0) y = fma_rn(w[u], xv[u], y);
-      }
-      y = add_rn(y, tm);
-      if (s >= 0) y = add_rn(y, tv);
-      y = add_rn(y, mul_rn(ga, x0));
-      y = add_rn(y, mul_rn(sa, x1));
-    } else {
-      y = i == 0 ? sub_rn(__ldcg(A.dots + 0), mul_rn(A.loop_G, x1))
-                 : sub_rn(__ldcg(A.dots + 1), mul_rn(A.loop_G, x0));
-    }
-    y = add_rn(y, mul_rn(dg, xi));
-    if (product) {
-      A.ap[i] = y;
-      acc = fma_rn(xi, y, acc);
-    } else {
-      const double rr = sub_rn(A.b[i], A.dsi != nullptr ? mul_rn(A.dsi[i], y) : y);
-      A.r[i] = rr;
-      acc = fma_rn(rr, rr, acc);
-    }
+    double xi;
+    const double y = row_product(A, i, xi);
+    const double rr = sub_rn(A.b[i], A.dsi != nullptr ? mul_rn(A.dsi[i], y) : y);
+    A.r[i] = rr;
+    acc = fma_rn(rr, rr, acc);
   }
   const double sum = block_sum(acc, s_warp);
   if (threadIdx.x == 0) A.part[blockIdx.x] = sum;
@@ -710,13 +819,7 @@ __global__ void __launch_bounds__(kThreads) transport_rows_kernel(RowsArgs<P> A)
   // the tiles' sums in tile order, by the block that draws the last ticket
   if (!last_ticket(A.ticket, 0, gridDim.x, &s_flag)) return;
   const double total = sum_partials(A.part, gridDim.x, s_warp);
-  if (threadIdx.x != 0) return;
-  if (product) {
-    const double rz = *A.rz;
-    *A.alpha = total != 0.0 ? rz / total : 0.0;
-  } else {
-    A.rsum[0] = total;
-  }
+  if (threadIdx.x == 0) A.rsum[0] = total;
 }
 
 // ----------------------------------------------------------------------------
@@ -826,25 +929,29 @@ stored_matvec_kernel(const T* __restrict__ tcc, const T* __restrict__ xm, T* __r
 }
 
 // ----------------------------------------------------------------------------
-// transport_update64: the f64 solve's update, direction and packing
+// the f64 solve's tail: the update, direction and packing
 // ----------------------------------------------------------------------------
 
-struct Update64Args {
-  // the iterate and residual [nsub], the direction p [n_full] (the vector
-  // the products read; p[nsub] stays 0), its product ap, the Jacobi minv
-  // = 1 / diag; the metal vector the direction is packed into
+// The f64 solve's tail: the product form of the rows (R: the direction p =
+// xs, its graph and products; R.part the 256-row halves' partial sums of
+// p.ap) and the update.
+struct Tail64Args {
+  RowsArgs<double> R;
+  // the iterate and residual [nsub], the direction p [n_full] (= R.xs; the
+  // vector the products read, p[nsub] stays 0) and its product ap, the
+  // Jacobi minv = 1 / diag; the metal vector the direction is packed into
   double* x;
   double* r;
   double* p;
-  const double* ap;
+  double* ap;
   const double* minv;
   double* xm;
   const int* mp_inv;
-  // the entry flag, alpha (transport_rows' product form), beta, r.z, the
-  // threshold of the "pre" criterion, the iterations, the predicate, the
-  // loop's count, the WHILE node it conditions (0: none)
+  // the entry flag, alpha, beta, r.z, the threshold of the "pre" criterion,
+  // the iterations, the predicate, the loop's count, the WHILE node it
+  // conditions (0: none)
   unsigned char* act;
-  const double* alpha;
+  double* alpha;
   double* beta;
   double* rz;
   const double* thresh2;
@@ -861,13 +968,25 @@ struct Update64Args {
 
 // The sum of `count` partials (written by other blocks: read past L1) in
 // every thread of the block, with the same bits in every block: warp 0's
-// lane l adds slots l, l + 32, ... in order, then a butterfly; the sum
-// reaches the other warps through `s_sum`.  Every thread calls it.
+// lane l adds slots l, l + 32, ... in order (kP of them loaded before any is
+// added), then a butterfly; the sum reaches the other warps through
+// `s_sum`.  Every thread calls it.
 __device__ __forceinline__ double block_sum_partials64(const double* part, int count,
                                                        double* s_sum) {
   if (threadIdx.x < 32) {
+    constexpr int kP = 8;
     double a = 0;
-    for (int t = threadIdx.x; t < count; t += 32) a += __ldcg(part + t);
+    for (int t0 = threadIdx.x; t0 < count; t0 += 32 * kP) {
+      double v[kP];
+#pragma unroll
+      for (int k = 0; k < kP; ++k) {
+        const int t = t0 + 32 * k;
+        v[k] = t < count ? __ldcg(part + t) : 0.0;
+      }
+#pragma unroll
+      for (int k = 0; k < kP; ++k)
+        if (t0 + 32 * k < count) a += v[k];
+    }
     a = warp_sum(a);
     if (threadIdx.x == 0) *s_sum = a;
   }
@@ -875,20 +994,50 @@ __device__ __forceinline__ double block_sum_partials64(const double* part, int c
   return *s_sum;
 }
 
-// One cooperative launch of kUpThreads-row tiles (block b: tiles [b per, (b
-// + 1) per), a row a thread, the first tile held in registers): x += alpha
-// p, r -= alpha ap, z = minv r and the tiles' partial r.z; a barrier of the
-// grid; r.z and beta in every block from the same slots in the same order;
-// p = z + beta p and its metal part packed.  Block 0 writes the scalars, the
-// flag (criterion "pre": r.z above the threshold), the count and the
-// predicate (also the WHILE node's condition).  A stopped CG's launch
-// changes no vector or scalar but the loop's count, flag and predicate.
-__global__ void __launch_bounds__(kUpThreads) transport_update64_kernel(Update64Args A) {
+// x += alpha p, r -= alpha ap, z = minv r of row i (every operand, the
+// row's metal slot too, loaded before any is used); r.z in `rz`.
+struct Up64Row {
+  double pe, zn;
+  int m;
+};
+
+__device__ __forceinline__ Up64Row up64_row(double* x, double* r, const double* minv,
+                                            const int* mp_inv, double pe, double ape,
+                                            double alpha, int i, double& rz) {
+  const double rv = r[i], xv = x[i], mi = minv[i];
+  const int m = i >= 2 ? mp_inv[i - 2] : -1;
+  const double rn = fma_rn(-alpha, ape, rv);
+  const double zn = mul_rn(mi, rn);
+  x[i] = fma_rn(alpha, pe, xv);
+  r[i] = rn;
+  rz = mul_rn(rn, zn);
+  return {pe, zn, m};
+}
+
+// The whole f64 tail in one cooperative launch of kUpThreads-row tiles
+// (block b: tiles [b per, (b + 1) per), a row a thread, the first tile held
+// in registers): the rows of ap = A p (row_product, transport_rows' product
+// form) and each 256-row half's partial p.ap (transport_rows' tiles); a
+// barrier of the grid; alpha = r.z / p.ap in every block from the halves'
+// slots in sum_partials' order (the first kThreads threads as its block);
+// x += alpha p, r -= alpha ap, z = minv r (every operand, the row's metal
+// slot too, loaded before the barrier) and the tiles' r.z; a barrier; r.z
+// and beta in every block from the same slots in the same order (warp 0,
+// lane-strided); p = z + beta p and its metal part packed.  ap, p, z and the
+// metal slot of the block's first tile stay in registers from the rows to
+// the direction (ap is also written, as cg_solve keeps it).  Block 0 writes
+// the scalars, the flag (criterion "pre": r.z above the threshold), the
+// count and the predicate (also the WHILE node's condition); a stopped CG's
+// launch changes nothing else.
+__global__ void __launch_bounds__(kUpThreads, 2) transport_tail64_kernel(Tail64Args A) {
+  const RowsArgs<double>& R = A.R;
   count_launch(A.count);
   __shared__ double s_warp[kUpWarps];
-  __shared__ double s_rz;
+  __shared__ double s_rz, s_alpha;
   const bool writer = blockIdx.x == 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_tiles = (A.nsub + kUpThreads - 1) / kUpThreads;
+  const int n_half = (A.nsub + kThreads - 1) / kThreads;
   const int first = blockIdx.x * A.per, last = min(first + A.per, n_tiles);
   const bool on = *A.act != 0;
   const double rz_o = *A.rz;
@@ -898,45 +1047,94 @@ __global__ void __launch_bounds__(kUpThreads) transport_update64_kernel(Update64
     it_w = *A.iters;
     th_w = *A.thresh2;
   }
-  double rz_n = 0, beta = 0;
+  double alpha = 0, rz_n = 0, beta = 0;
   if (on) {
-    const double alpha = *A.alpha;
-    double zh = 0, ph = 0;
+    // A. the rows of ap = A p and each half's partial p.ap (the half's
+    // warps in order)
+    double ph = 0, yh = 0;
+    for (int t = first; t < last; ++t) {
+      const int i = t * kUpThreads + threadIdx.x;
+      double acc = 0, pe = 0, y = 0;
+      if (i < A.nsub) {
+        y = row_product(R, i, pe);
+        A.ap[i] = y;
+        acc = fma_rn(pe, y, acc);
+      }
+      if (t == first) {
+        ph = pe;
+        yh = y;
+      }
+      acc = warp_sum(acc);
+      __syncthreads();
+      if (lane == 0) s_warp[warp] = acc;
+      __syncthreads();
+      if ((threadIdx.x & (kThreads - 1)) == 0) {
+        const int h = threadIdx.x / kThreads, q = 2 * t + h;
+        double sum = 0;
+        for (int w = 0; w < kWarps; ++w) sum += s_warp[h * kWarps + w];
+        if (q < n_half) R.part[q] = sum;
+      }
+    }
+    grid_barrier(A.bar);
+    // alpha: the halves' slots as sum_partials adds them in a block of
+    // kThreads
+    if (threadIdx.x < kThreads) {
+      constexpr int kP = 4;
+      double a = 0;
+      for (int q0 = threadIdx.x; q0 < n_half; q0 += kThreads * kP) {
+        double v[kP];
+#pragma unroll
+        for (int k = 0; k < kP; ++k) {
+          const int q = q0 + kThreads * k;
+          v[k] = q < n_half ? __ldcg(R.part + q) : 0.0;
+        }
+#pragma unroll
+        for (int k = 0; k < kP; ++k)
+          if (q0 + kThreads * k < n_half) a += v[k];
+      }
+      a = warp_sum(a);
+      if (lane == 0) s_warp[warp] = a;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      double tot = 0;
+      for (int w = 0; w < kWarps; ++w) tot += s_warp[w];
+      s_alpha = tot != 0.0 ? rz_o / tot : 0.0;
+    }
+    __syncthreads();
+    alpha = s_alpha;
+    // B. the update and each tile's partial r.z
+    Up64Row h = {0.0, 0.0, -1};
     for (int t = first; t < last; ++t) {
       const int i = t * kUpThreads + threadIdx.x;
       double acc = 0;
       if (i < A.nsub) {
-        const double pe = A.p[i];
-        const double rn = fma_rn(-alpha, A.ap[i], A.r[i]);
-        const double zn = mul_rn(A.minv[i], rn);
-        A.x[i] = fma_rn(alpha, pe, A.x[i]);
-        A.r[i] = rn;
-        acc = mul_rn(rn, zn);
-        if (t == first) {
-          zh = zn;
-          ph = pe;
-        }
+        const bool reg = t == first;
+        const Up64Row w = up64_row(A.x, A.r, A.minv, A.mp_inv, reg ? ph : A.p[i],
+                                   reg ? yh : __ldcg(A.ap + i), alpha, i, acc);
+        if (reg) h = w;
       }
       const double sum = block_sum<double, kUpWarps>(acc, s_warp);
       if (threadIdx.x == 0) A.part[t] = sum;
     }
     grid_barrier(A.bar);
+    // C. beta in every block; the direction packed
     rz_n = block_sum_partials64(A.part, n_tiles, &s_rz);
     beta = rz_o != 0.0 ? rz_n / rz_o : 0.0;
     for (int t = first; t < last; ++t) {
       const int i = t * kUpThreads + threadIdx.x;
       if (i >= A.nsub) continue;
-      const double pn = t == first ? fma_rn(beta, ph, zh)
-                                   : fma_rn(beta, A.p[i], mul_rn(A.minv[i], A.r[i]));
+      const bool reg = t == first;
+      const double pn = reg ? fma_rn(beta, h.pe, h.zn)
+                            : fma_rn(beta, A.p[i], mul_rn(A.minv[i], A.r[i]));
       A.p[i] = pn;
-      if (i >= 2) {
-        const int k = A.mp_inv[i - 2];
-        if (k >= 0) A.xm[k] = pn;
-      }
+      const int k = reg ? h.m : i >= 2 ? A.mp_inv[i - 2] : -1;
+      if (k >= 0) A.xm[k] = pn;
     }
   }
   if (writer && threadIdx.x == 0) {
     if (on) {
+      *A.alpha = alpha;
       *A.beta = beta;
       *A.rz = rz_n;
       *A.iters = it_w + 1;
@@ -1482,9 +1680,10 @@ extern "C" int dkmc_transport_blocks(
     return (int)cudaErrorInvalidValue;
   const int n_ct = (n_mp + kBlockCols - 1) / kBlockCols;
   const int n_rt = (vcap + kBlockRows - 1) / kBlockRows;
+  // a block an item of a full bucket
   const int grid = n_rt * n_ct + 2 * ((vcap + kWarps - 1) / kWarps) + 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto launch = [&](auto A) {
+  auto launch = [&](auto A) -> cudaError_t {
     using T = typename std::remove_const<
         typename std::remove_pointer<decltype(A.gnd)>::type>::type;
     using S = typename std::remove_pointer<decltype(A.mv)>::type;
@@ -1514,23 +1713,18 @@ extern "C" int dkmc_transport_blocks(
     A.tickets = static_cast<int*>(tickets);
     A.count = static_cast<unsigned long long*>(count);
     transport_blocks_kernel<T, S><<<grid, kThreads, (size_t)vcap * sizeof(S), st>>>(A);
+    return cudaGetLastError();
   };
-  if (mode == 0)
-    launch(BlocksArgs<float, float>{});
-  else if (mode == 1)
-    launch(BlocksArgs<double, float>{});
-  else
-    launch(BlocksArgs<double, double>{});
-  return (int)cudaGetLastError();
+  if (mode == 0) return (int)launch(BlocksArgs<float, float>{});
+  if (mode == 1) return (int)launch(BlocksArgs<double, float>{});
+  return (int)launch(BlocksArgs<double, double>{});
 }
 
-// The rows of A xs (f64): with b, the residual r = b - dsi A xs (dsi null:
-// unscaled) and r.r; without (b null), the product ap = A p of p = xs and
-// alpha = rz / p.ap, none when the flag act is down.  parts_f64: the metal
-// block's and transport_blocks' products are f64 (the f64 solve), else f32.
-// The atom graph's slices nb_idx / nb_start (ops/transport_cg.py
-// atom_slices); the conductances from the atoms' classes cls and g_hi /
-// g_lo.
+// The rows of A xs (f64): the residual r = b - dsi A xs (dsi null: the
+// unscaled system) and r.r.  parts_f64: the metal block's and
+// transport_blocks' products are f64 (the f64 solve), else f32.  The atom
+// graph's slices nb_idx / nb_start (ops/transport_cg.py atom_slices); the
+// conductances from the atoms' classes cls and g_hi / g_lo.
 extern "C" int dkmc_transport_rows(int parts_f64, const void* xs, const void* nb_idx,
                                    const void* nb_start, const void* cls, double g_hi,
                                    double g_lo, const void* vslot,
@@ -1538,10 +1732,9 @@ extern "C" int dkmc_transport_rows(int parts_f64, const void* xs, const void* nb
                                    const void* y_vm, const void* y_vv, const void* dots,
                                    const void* gnd, const void* src, const void* diag,
                                    const void* dsi, double loop_G, int na, const void* b,
-                                   void* r, void* rsum, void* ap, const void* act,
-                                   const void* rz, void* alpha, void* part, void* ticket,
-                                   void* count, void* stream) {
-  if (na < 1) return (int)cudaErrorInvalidValue;
+                                   void* r, void* rsum, void* part, void* ticket, void* count,
+                                   void* stream) {
+  if (na < 1 || b == nullptr) return (int)cudaErrorInvalidValue;
   auto launch = [&](auto A) {
     using P = typename std::remove_const<
         typename std::remove_pointer<decltype(A.y_cc)>::type>::type;
@@ -1568,18 +1761,12 @@ extern "C" int dkmc_transport_rows(int parts_f64, const void* xs, const void* nb
     A.b = static_cast<const double*>(b);
     A.r = static_cast<double*>(r);
     A.rsum = static_cast<double*>(rsum);
-    A.ap = static_cast<double*>(ap);
-    A.act = static_cast<const unsigned char*>(act);
-    A.rz = static_cast<const double*>(rz);
-    A.alpha = static_cast<double*>(alpha);
     A.part = static_cast<double*>(part);
     A.ticket = static_cast<int*>(ticket);
     A.count = static_cast<unsigned long long*>(count);
     transport_rows_kernel<P><<<(A.nsub + kThreads - 1) / kThreads, kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(A);
   };
-  if (b == nullptr && (ap == nullptr || act == nullptr || rz == nullptr || alpha == nullptr))
-    return (int)cudaErrorInvalidValue;
   if (parts_f64)
     launch(RowsArgs<double>{});
   else
@@ -1597,27 +1784,50 @@ extern "C" int dkmc_transport_stored(int is_f64, const void* tcc, const void* xm
   return launch_stored<float>(tcc, xm, y, n, count, st);
 }
 
-// The f64 solve's update, direction and packing (one cooperative launch),
-// also the condition of the WHILE node `handle` (0: none).  `part` holds
-// ceil(nsub / 512) doubles.
-extern "C" int dkmc_transport_update64(void* x, void* r, void* p, const void* ap,
-                                       const void* minv, void* xm, const void* mp_inv,
-                                       void* act, const void* alpha, void* beta, void* rz,
-                                       const void* thresh2, void* iters, void* cond,
-                                       void* total, unsigned long long handle, int nsub,
-                                       int maxiter, void* part, void* bar, void* count,
-                                       void* stream) {
-  if (nsub < 2) return (int)cudaErrorInvalidValue;
-  Update64Args A;
+// The f64 solve's tail (one cooperative launch): the rows of ap = A p of
+// the direction p = xs, alpha, the update, direction and packing, also the
+// condition of the WHILE node `handle` (0: none).  part_pap holds ceil(nsub
+// / 256) doubles, part ceil(nsub / 512).
+extern "C" int dkmc_transport_tail64(
+    void* xs, const void* nb_idx, const void* nb_start, const void* cls, double g_hi,
+    double g_lo, const void* vslot, const void* mp_inv, const void* y_cc, const void* mv,
+    const void* y_vm, const void* y_vv, const void* dots, const void* gnd, const void* src,
+    const void* diag, double loop_G, int na, void* ap, void* part_pap, void* x, void* r,
+    const void* minv, void* xm, void* act, void* alpha, void* beta, void* rz,
+    const void* thresh2, void* iters, void* cond, void* total, unsigned long long handle,
+    int maxiter, void* part, void* bar, void* count, void* stream) {
+  if (na < 1) return (int)cudaErrorInvalidValue;
+  Tail64Args A = {};
+  RowsArgs<double>& R = A.R;
+  R.xs = static_cast<const double*>(xs);
+  R.nb_idx = static_cast<const int*>(nb_idx);
+  R.nb_start = static_cast<const int*>(nb_start);
+  R.cls = static_cast<const unsigned char*>(cls);
+  R.g_hi = g_hi;
+  R.g_lo = g_lo;
+  R.vslot = static_cast<const int*>(vslot);
+  R.mp_inv = static_cast<const int*>(mp_inv);
+  R.y_cc = static_cast<const double*>(y_cc);
+  R.mv = static_cast<const double*>(mv);
+  R.y_vm = static_cast<const double*>(y_vm);
+  R.y_vv = static_cast<const double*>(y_vv);
+  R.dots = static_cast<const double*>(dots);
+  R.gnd = static_cast<const double*>(gnd);
+  R.src = static_cast<const double*>(src);
+  R.diag = static_cast<const double*>(diag);
+  R.loop_G = loop_G;
+  R.na = na;
+  R.nsub = na + 1;
+  R.part = static_cast<double*>(part_pap);
   A.x = static_cast<double*>(x);
   A.r = static_cast<double*>(r);
-  A.p = static_cast<double*>(p);
-  A.ap = static_cast<const double*>(ap);
+  A.p = static_cast<double*>(xs);
+  A.ap = static_cast<double*>(ap);
   A.minv = static_cast<const double*>(minv);
   A.xm = static_cast<double*>(xm);
   A.mp_inv = static_cast<const int*>(mp_inv);
   A.act = static_cast<unsigned char*>(act);
-  A.alpha = static_cast<const double*>(alpha);
+  A.alpha = static_cast<double*>(alpha);
   A.beta = static_cast<double*>(beta);
   A.rz = static_cast<double*>(rz);
   A.thresh2 = static_cast<const double*>(thresh2);
@@ -1625,19 +1835,19 @@ extern "C" int dkmc_transport_update64(void* x, void* r, void* p, const void* ap
   A.cond = static_cast<int*>(cond);
   A.total = static_cast<unsigned long long*>(total);
   A.handle = handle;
-  A.nsub = nsub;
+  A.nsub = na + 1;
   A.maxiter = maxiter;
   A.part = static_cast<double*>(part);
   A.bar = static_cast<unsigned*>(bar);
   A.count = static_cast<unsigned long long*>(count);
   // as few tiles a block as the blocks the card holds allow, and no block
   // without one
-  const int n_tiles = (nsub + kUpThreads - 1) / kUpThreads;
-  const int cap = resident_blocks(transport_update64_kernel, kUpThreads);
+  const int n_tiles = (A.nsub + kUpThreads - 1) / kUpThreads;
+  const int cap = resident_blocks(transport_tail64_kernel, kUpThreads);
   if (cap <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   A.per = (n_tiles + cap - 1) / cap;
-  return launch_cooperative(transport_update64_kernel, (n_tiles + A.per - 1) / A.per,
-                            kUpThreads, A, static_cast<cudaStream_t>(stream));
+  return launch_cooperative(transport_tail64_kernel, (n_tiles + A.per - 1) / A.per, kUpThreads,
+                            A, static_cast<cudaStream_t>(stream));
 }
 
 // The inner iteration's tail (f32): the rows of ap = A p from the products

@@ -152,7 +152,7 @@ COUNTED_ON_CARD = ("ell_gather_batched", "poisson_pairwise_batched", "kmc_event_
                    "banded_matvec_out", "wkb_fly_matvec_out", "transport_pack",
                    "transport_blocks", "transport_rows", "transport_refine",
                    "transport_rows_update", "heat_dense_substep", "heat_cg_begin",
-                   "heat_cg_end", "while_cond", "stored_matvec", "transport_update64",
+                   "heat_cg_end", "while_cond", "stored_matvec", "transport_tail64",
                    "cg_matvec_dot", "poisson_exact_batched")
 
 

@@ -35,9 +35,9 @@ the Jacobi ``diag`` and criterion "pre" computes for the unscaled blocked
 operator (``physics.current``'s f64 warm re-solve), the counterpart of the
 JAX package's ``lax.while_loop`` of ``devicekmc_tpu/ops/cg.py:112``: one
 WHILE node whose body is the stored block's product beside transport_blocks
-(f64 build), the f64 rows of ``A p`` with ``p.ap`` and alpha
-(:func:`rows_ap`) and one cooperative launch of the update, the Jacobi
-direction and its packing (:func:`update_f64`).
+(f64 build), then one cooperative launch of the f64 rows of ``A p`` with
+``p.ap`` and alpha, the update, the Jacobi direction and its packing
+(:func:`tail_f64`).
 
 Every buffer lives in a :class:`Workspace` made before the capture, so
 nothing allocates inside a body.  For CPU tensors each kernel wrapper runs
@@ -52,7 +52,7 @@ captured loop's bit for bit, iteration counts included.
 Launches: each wrapper's ``launches`` counts its host calls (one a capture
 of a loop's body); the card counts every launch of the pack, blocks, rows,
 refine and rows-and-update kernels, the stored block's product, the f64
-update, the band and the fly matvec (``_build.launch_counts``), and
+tail, the band and the fly matvec (``_build.launch_counts``), and
 ``Workspace.cg.total`` (in f64 ``Workspace.c64.total``) the iterations run.
 """
 
@@ -84,7 +84,7 @@ MAX_OUTER = 40
 ROW_TILE = 256
 TILE = 512
 RU_MIN_TILE = 128
-#: rows a tile of the f64 solve's update (a row a thread, ``kUpThreads``)
+#: rows a tile of the f64 solve's tail (a row a thread, ``kUpThreads``)
 UPDATE_TILE = 512
 #: the tiles of T_vm that transport_blocks reads: rows x columns
 BLOCK_ROWS = 32
@@ -141,7 +141,8 @@ class Workspace:
     row tiles]; ``part_ru`` transport_rows_update's tiles' partial sums of
     p.ap and r.r (two slots for every RU_MIN_TILE rows and four more: the
     r.r slots start 16-byte aligned; its barrier is ``cg.bar``); ``part64``
-    transport_rows' tiles' partial sums and ``ticket`` its last ticket;
+    transport_rows' tiles' partial sums (the f64 tail's of p.ap, a 256-row
+    tile each) and ``ticket`` its last ticket;
     ``part_b`` and ``ticket_b`` transport_refine's.  The refinement (f64): the iterate ``x``,
     residual ``r`` and its r.r ``rsum`` [Nsub], the threshold ``thresh``, the
     go flag ``go`` (False: a skipped solve, no round), the rounds ``it_out``
@@ -200,8 +201,9 @@ class CG64:
     (iterate, residual, direction): ``ap`` [Nsub], the scalars ``rz``,
     ``alpha``, ``beta`` and the threshold ``thresh2`` of the criterion "pre"
     (f64 [1]), the flag ``act``, the iterations ``iters``, the predicate
-    ``cond``, the update's launches ``total``, its tiles' partial sums
-    ``part`` and grid barrier ``bar``."""
+    ``cond``, the tail's launches ``total``, its tiles' partial sums of r.z
+    ``part`` (those of p.ap: the workspace's ``part64``) and grid barrier
+    ``bar``."""
     ap: torch.Tensor
     rz: torch.Tensor
     alpha: torch.Tensor
@@ -357,9 +359,10 @@ def _fn(symbol):
         fn.argtypes = {
             "dkmc_transport_pack": [p, p, p, p, i, p, i, p, p, p, p],
             "dkmc_transport_blocks": [i] + [p] * 10 + [i] * 6 + [p] * 10,
-            "dkmc_transport_rows": [i] + [p] * 4 + [d, d] + [p] * 11 + [d, i] + [p] * 11,
+            "dkmc_transport_rows": [i] + [p] * 4 + [d, d] + [p] * 11 + [d, i] + [p] * 7,
             "dkmc_transport_stored": [i, p, p, p, i, p, p],
-            "dkmc_transport_update64": [p] * 15 + [u, i, i] + [p] * 4,
+            "dkmc_transport_tail64": [p] * 4 + [d, d] + [p] * 10 + [d, i] + [p] * 14 + [u, i]
+                                     + [p] * 4,
             "dkmc_transport_rows_update": [p] * 15 + [d, i] + [p] * 15 + [u, i] + [p] * 3
                                           + [i] + [p] * 4,
             "dkmc_transport_refine": [p] * 27 + [i, p, p, d, i, i, i, i, u, p, p],
@@ -546,28 +549,20 @@ def rows_plain(tw: Workspace, op: Operator, hi: bool) -> None:
 
 def rows(tw: Workspace, op: Operator, stream=None) -> None:
     """The refinement's residual ``r = b - A x`` of the packed iterate and
-    its r.r (f64): every row from the ELL part, the metal block and
+    its r.r (f64; in the f64 solve, where ``dsi`` is None, of the unscaled
+    system): every row from the ELL part (the operator's atom slices, each
+    slot's conductance from the atoms' classes), the metal block and
     :func:`blocks`."""
     if tw.x.device.type == "cpu":
         return rows_plain(tw, op, True)
-    _rows_launch(tw, op, True, stream)
-
-
-def _rows_launch(tw: Workspace, op: Operator, residual: bool, stream) -> None:
-    """transport_rows' launch: the residual form (:func:`rows`) or the
-    product form (:func:`rows_ap`), over the operator's atom slices, each
-    slot's conductance from the atoms' classes."""
-    c = tw.c64
-    prod = None if residual else c
     _launched("transport_rows", _fn("dkmc_transport_rows")(
-        int(c is not None), _ptr(tw.xs64), _ptr(op.nb_idx), _ptr(op.nb_start), _ptr(op.cls),
-        float(op.g_hi), float(op.g_lo), _ptr(op.vslot),
+        int(tw.c64 is not None), _ptr(tw.xs64), _ptr(op.nb_idx), _ptr(op.nb_start),
+        _ptr(op.cls), float(op.g_hi), float(op.g_lo), _ptr(op.vslot),
         _ptr(op.mp_inv), _ptr(tw.y_cc), _ptr(tw.mv), _ptr(tw.y_vm), _ptr(tw.y_vv),
         _ptr(tw.dots64), _ptr(op.gnd), _ptr(op.src), _ptr(op.diag), _ptr(op.dsi),
-        float(op.loop_G), op.anb.shape[0], _ptr(op.b) if residual else None,
-        _ptr(tw.r), _ptr(tw.rsum), prod and _ptr(prod.ap), prod and _ptr(prod.act),
-        prod and _ptr(prod.rz), prod and _ptr(prod.alpha), _ptr(tw.part64), _ptr(tw.ticket),
-        _build.launch_counter(tw.x.device, "transport_rows"), _stream(tw.x, stream)))
+        float(op.loop_G), op.anb.shape[0], _ptr(op.b), _ptr(tw.r), _ptr(tw.rsum),
+        _ptr(tw.part64), _ptr(tw.ticket), _build.launch_counter(tw.x.device, "transport_rows"),
+        _stream(tw.x, stream)))
     rows.launches += 1
 
 
@@ -803,9 +798,9 @@ class ResultF64(NamedTuple):
 
 
 def rows_ap_plain(tw: Workspace, op: Operator) -> None:
-    """The plain version of :func:`rows_ap`: while the flag is up, ``ap = A
-    p`` of the direction in ``xs64`` (``physics.current.apply_rows`` of the
-    products, f64) and ``alpha = r.z / p.ap`` (``ops.cg.cg_solve``'s
+    """The plain version of :func:`tail_f64`'s rows: while the flag is up,
+    ``ap = A p`` of the direction in ``xs64`` (``physics.current.apply_rows``
+    of the products, f64) and ``alpha = r.z / p.ap`` (``ops.cg.cg_solve``'s
     operations), else nothing."""
     c = tw.c64
     nsub = op.b.shape[0]
@@ -816,21 +811,12 @@ def rows_ap_plain(tw: Workspace, op: Operator) -> None:
     c.alpha.copy_(torch.where(on, torch.where(denom != 0, c.rz / denom, 0.0), c.alpha))
 
 
-def rows_ap(tw: Workspace, op: Operator, stream=None) -> None:
-    """The f64 solve's product ``ap = A p`` of the direction packed in
-    ``xs64`` (the ELL part, the metal block, :func:`blocks`, the virtual
-    rows and the diagonal: transport_rows' product form), ``p.ap`` and
-    ``alpha = r.z / p.ap``; a stopped solve's launch leaves at once."""
-    if tw.x.device.type == "cpu":
-        return rows_ap_plain(tw, op)
-    _rows_launch(tw, op, False, stream)
-
-
 def update_f64_plain(tw: Workspace, op: Operator, maxiter: int) -> None:
-    """The plain version of :func:`update_f64`: ``ops.cg.cg_solve``'s update
-    and direction (Jacobi ``minv``) where the flag is up, the direction
-    packed into ``xs64`` and the metal vector, the flag from the criterion
-    "pre" (r.z above the threshold), the count and the predicate."""
+    """The plain version of :func:`tail_f64`'s update: ``ops.cg.cg_solve``'s
+    update and direction (Jacobi ``minv``) where the flag is up, the
+    direction packed into ``xs64`` and the metal vector, the flag from the
+    criterion "pre" (r.z above the threshold), the count and the
+    predicate."""
     c = tw.c64
     nsub = op.b.shape[0]
     on = c.act
@@ -854,38 +840,46 @@ def update_f64_plain(tw: Workspace, op: Operator, maxiter: int) -> None:
     c.total.add_(1)
 
 
-def update_f64(tw: Workspace, op: Operator, maxiter: int, handle: int = 0,
-               stream=None) -> None:
-    """The f64 solve's tail after :func:`rows_ap`, one cooperative launch:
-    ``x += alpha p``, ``r -= alpha ap``, ``z = minv r`` and r.z; a barrier
-    of the grid; beta and ``p = z + beta p`` packed into ``xs64`` and the
-    metal vector; the flag (criterion "pre"), the count and the predicate,
-    also set as the condition of the WHILE node ``handle`` (0: none).  A
-    stopped solve's launch changes nothing but the loop's count, flag and
-    predicate.  On the card the grid is capped at the blocks it holds at
-    once; the build or launch raises on failure."""
+def tail_f64(tw: Workspace, op: Operator, maxiter: int, handle: int = 0,
+             stream=None) -> None:
+    """The f64 solve's tail after the products, one cooperative launch: every
+    row of ``ap = A p`` of the direction packed in ``xs64`` (the ELL part,
+    the metal block, :func:`blocks`, the virtual rows and the diagonal),
+    ``p.ap`` and ``alpha = r.z / p.ap``; a barrier of the grid; ``x += alpha
+    p``, ``r -= alpha ap``, ``z = minv r`` and r.z; a barrier; beta and ``p
+    = z + beta p`` packed into ``xs64`` and the metal vector; the flag
+    (criterion "pre"), the count and the predicate, also set as the
+    condition of the WHILE node ``handle`` (0: none).  A stopped solve's
+    launch changes nothing but the loop's count, flag and predicate.  CPU
+    tensors take :func:`rows_ap_plain` then :func:`update_f64_plain`; on the
+    card the grid is capped at the blocks it holds at once, and the build or
+    launch raises on failure."""
     if tw.x.device.type == "cpu":
+        rows_ap_plain(tw, op)
         return update_f64_plain(tw, op, maxiter)
     c = tw.c64
-    _launched("transport_update64", _fn("dkmc_transport_update64")(
-        _ptr(tw.x), _ptr(tw.r), _ptr(tw.xs64), _ptr(c.ap), _ptr(op.minv), _ptr(tw.xm),
-        _ptr(op.mp_inv), _ptr(c.act), _ptr(c.alpha), _ptr(c.beta), _ptr(c.rz),
-        _ptr(c.thresh2), _ptr(c.iters), _ptr(c.cond), _ptr(c.total), handle,
-        op.b.shape[0], maxiter, _ptr(c.part), _ptr(c.bar),
-        _build.launch_counter(tw.x.device, "transport_update64"), _stream(tw.x, stream)))
-    update_f64.launches += 1
+    _launched("transport_tail64", _fn("dkmc_transport_tail64")(
+        _ptr(tw.xs64), _ptr(op.nb_idx), _ptr(op.nb_start), _ptr(op.cls), float(op.g_hi),
+        float(op.g_lo), _ptr(op.vslot), _ptr(op.mp_inv), _ptr(tw.y_cc), _ptr(tw.mv),
+        _ptr(tw.y_vm), _ptr(tw.y_vv), _ptr(tw.dots64), _ptr(op.gnd), _ptr(op.src),
+        _ptr(op.diag), float(op.loop_G), op.anb.shape[0], _ptr(c.ap), _ptr(tw.part64),
+        _ptr(tw.x), _ptr(tw.r), _ptr(op.minv), _ptr(tw.xm), _ptr(c.act), _ptr(c.alpha),
+        _ptr(c.beta), _ptr(c.rz), _ptr(c.thresh2), _ptr(c.iters), _ptr(c.cond), _ptr(c.total),
+        handle, maxiter, _ptr(c.part), _ptr(c.bar),
+        _build.launch_counter(tw.x.device, "transport_tail64"), _stream(tw.x, stream)))
+    tail_f64.launches += 1
 
 
-update_f64.launches = 0
+tail_f64.launches = 0
 
 
 def iteration_f64(tw: Workspace, op: Operator, maxiter: int, handle: int = 0,
                   stream=None) -> None:
     """One iteration of the f64 solve: the stored block's product and, on a
     branch beside it under a capture, :func:`blocks` (f64 build); then
-    :func:`rows_ap` and :func:`update_f64`, which sets the predicate (and
-    the WHILE node ``handle``'s condition).  Outside a capture the same
-    kernels in order on one stream: the same bits."""
+    :func:`tail_f64`, which sets the predicate (and the WHILE node
+    ``handle``'s condition).  Outside a capture the same kernels in order on
+    one stream: the same bits."""
     dev = tw.x.device
     capturing = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
     side = fork(dev, stream, 1) if capturing else stream
@@ -893,8 +887,7 @@ def iteration_f64(tw: Workspace, op: Operator, maxiter: int, handle: int = 0,
     blocks(tw, op, True, side)
     if capturing:
         join(dev, stream, 1)
-    rows_ap(tw, op, stream)
-    update_f64(tw, op, maxiter, handle, stream)
+    tail_f64(tw, op, maxiter, handle, stream)
 
 
 def _load_vector(tw: Workspace, op: Operator, v: torch.Tensor) -> None:

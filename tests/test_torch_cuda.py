@@ -2871,13 +2871,13 @@ def test_cuda_transport_f64_kernels_match_plain(tmp_path, crossbar):
     direction): the stored block's product within 1e-13 of its largest
     entry; transport_blocks' f64 build (f64 blocks) within 1e-12 of the sum
     of its terms' sizes, the dots within 1e-12 of theirs; transport_rows'
-    residual form (unscaled) and product form (ap) within 1e-12 of their
-    largest entry (the residual's scale: A x), alpha within 1e-10; the
-    update, direction and packing (transport_update64) from the kernel's
-    own ap and alpha: x, r, the direction and the metal vector within 1e-12
-    of their largest entry, r.z and beta within 1e-10, flag, count,
-    predicate and the loop's count equal; a stopped solve's launches of
-    the product form and the update leave every vector and scalar as they
+    residual (unscaled) within 1e-12 of its largest entry (its scale: A x);
+    the tail (transport_tail64: the rows of ap = A p, alpha, the update,
+    direction and packing in one launch) against rows_ap_plain then
+    update_f64_plain: ap, x, r, the direction and the metal vector within
+    1e-12 of their largest entry, alpha, r.z and beta within 1e-10, flag,
+    count, predicate and the loop's count equal; a stopped solve's launch
+    of the tail leaves every vector and scalar as they
     were (the loop's count, the flag and predicate set)."""
     _need_card()
     from devicekmc_tpu_torch.ops import transport_cg as tcg
@@ -2908,17 +2908,6 @@ def test_cuda_transport_f64_kernels_match_plain(tmp_path, crossbar):
                          (op_c.src.abs() * xa[:na].abs())[:op.nsi].sum()])
     assert bool(((k.dots64.cpu() - p.dots64).abs() <= 1e-12 * dsize).all())
 
-    # the product form from the same products (the kernel's)
-    p = _cpu_ws(_clone_tws(k))
-    before = _clone_tws(k)
-    tcg.rows_ap(k, op)
-    tcg.rows_ap_plain(p, op_c)
-    _close64("ap", k.c64.ap, p.c64.ap, 1e-12)
-    assert float(k.c64.alpha) == pytest.approx(float(p.c64.alpha), rel=1e-10)
-    # a second launch: the same bits
-    again = _clone_tws(before)
-    tcg.rows_ap(again, op)
-    assert torch.equal(again.c64.ap, k.c64.ap) and torch.equal(again.c64.alpha, k.c64.alpha)
     # the residual form (unscaled)
     r = _clone_tws(k)
     pr = _cpu_ws(_clone_tws(k))
@@ -2927,14 +2916,17 @@ def test_cuda_transport_f64_kernels_match_plain(tmp_path, crossbar):
     scale = float((op_c.b - pr.r).abs().max())
     assert float((r.r.cpu() - pr.r).abs().max()) <= 1e-12 * scale
 
-    # the update from the kernel's own ap and alpha
+    # the tail (the rows of ap = A p, alpha, the update and the direction in
+    # one launch) from the same products (the kernel's)
     p = _cpu_ws(_clone_tws(k))
     start = _clone_tws(k)
-    tcg.update_f64(k, op, 20000)
+    tcg.tail_f64(k, op, 20000)
+    tcg.rows_ap_plain(p, op_c)
     tcg.update_f64_plain(p, op_c, 20000)
+    _close64("ap", k.c64.ap, p.c64.ap, 1e-12)
     for f in ("x", "r", "xs64", "xm"):
         _close64(f, getattr(k, f), getattr(p, f), 1e-12)
-    for f in ("rz", "beta"):
+    for f in ("alpha", "rz", "beta"):
         assert float(getattr(k.c64, f)) == pytest.approx(float(getattr(p.c64, f)), rel=1e-10)
     for f in ("act", "iters", "cond", "total"):
         assert torch.equal(getattr(k.c64, f).cpu(), getattr(p.c64, f)), f
@@ -2945,13 +2937,187 @@ def test_cuda_transport_f64_kernels_match_plain(tmp_path, crossbar):
     s_ = _clone_tws(start)
     s_.c64.act.fill_(False)
     before = _clone_tws(s_)
-    tcg.rows_ap(s_, op)
-    tcg.update_f64(s_, op, 20000)
+    tcg.tail_f64(s_, op, 20000)
     for f in ("x", "r", "xs64", "xm"):
         assert torch.equal(getattr(s_, f), getattr(before, f)), f
     for f in ("ap", "rz", "alpha", "beta", "iters", "act"):
         assert torch.equal(getattr(s_.c64, f), getattr(before.c64, f)), f
     assert int(s_.c64.cond) == 0 and int(s_.c64.total) == int(before.c64.total) + 1
+
+
+# (label, live slots, bucket, metal atoms): no live slot; one; a full bucket
+# at the crossbar's widths (every row and column tile live); metal atoms
+# odd, not a multiple of 128
+BLOCKS_EDGES = [("empty", 0, 96, 384), ("one", 1, 96, 384), ("full", 1024, 1024, 3527),
+                ("odd_metal", 45, 96, 301)]
+
+
+def _blocks_case(nv, vcap, n_mp, build, seed=5):
+    """A seeded operator of transport_blocks alone (``build``: "lo" the inner
+    direction, "hi" the mixed refinement's iterate, "f64" the f64 solve)
+    with ``nv`` live slots of a bucket of ``vcap``, ``n_mp`` metal atoms and
+    its workspace on the card, the plain products physics.current's
+    apply_blocks of the same tensors."""
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+    from devicekmc_tpu_torch.physics.current import apply_blocks
+
+    rng = np.random.default_rng(seed)
+    na, max_nn = vcap + n_mp + 64, 51
+    f64 = build == "f64"
+    sd = torch.float64 if f64 else torch.float32
+    T_vm = torch.tensor(rng.standard_normal((vcap, n_mp)), dtype=sd, device="cuda")
+    T_vv = torch.tensor(rng.standard_normal((vcap, vcap)), dtype=sd, device="cuda")
+    perm = rng.permutation(na)
+    vidx = torch.tensor(perm[:vcap], dtype=torch.int32, device="cuda")
+    mp = torch.tensor(np.sort(perm[vcap:vcap + n_mp]), dtype=torch.int64, device="cuda")
+    anb = rng.integers(0, na, (na, max_nn))
+    anb[rng.random((na, max_nn)) < 0.3] = -1
+    anb = torch.tensor(anb, dtype=torch.int32, device="cuda")
+    vnb = anb[vidx.long()]
+    dyn = torch.tensor(rng.standard_normal((vcap, max_nn)), dtype=torch.float32,
+                       device="cuda") * (vnb >= 0)
+    gnd_lo, nsi = na - 37, 41
+    gnd = torch.tensor(rng.standard_normal(na), dtype=torch.float64, device="cuda")
+    gnd[:gnd_lo] = 0
+    src = torch.tensor(rng.standard_normal(na), dtype=torch.float64, device="cuda")
+    src[nsi:] = 0
+    mp_inv = torch.full((na,), -1, dtype=torch.int32, device="cuda")
+    mp_inv[mp] = torch.arange(n_mp, dtype=torch.int32, device="cuda")
+    blk = {"mp": mp, "T_vv": T_vv, "T_vm": T_vm, "vidx": vidx.long(),
+           "v_ok": torch.arange(vcap, device="cuda") < nv, "gnd_vals": gnd, "src_vals": src,
+           "band": None if build != "lo" else {}, "band_dyn_vals": dyn,
+           "band_vnb_safe": vnb.long().clamp(min=0)}
+    op = tcg.Operator(
+        dsi=None, dsi32=None, b=None, diag=None, diag32=None, gnd=gnd, gnd32=gnd.float(),
+        src=src, src32=src.float(), gnd_lo=gnd_lo, nsi=nsi, loop_G=0.0, slots=None,
+        row_fix=None, dyn=dyn, anb=anb, nb_idx=None, nb_start=None, cls=None, g_hi=0.0,
+        g_lo=0.0, T_vm=T_vm, T_vv=T_vv, vidx=vidx, vslot=None,
+        n_vac=torch.tensor([nv], dtype=torch.int32, device="cuda"), mp_inv=mp_inv, mp=mp,
+        mpos=None, mcb=None, env=None, plain_blocks=lambda x, wd: apply_blocks(blk, x, wd),
+        plain_rows=None)
+    tw = tcg.workspace(na, vcap, n_mp, None, "cuda", f64_solve=f64)
+    x = torch.tensor(rng.standard_normal(na + 2), device="cuda")
+    x[na + 1] = 0
+    if build == "lo":
+        tw.xs32.copy_(x)
+    else:
+        tw.xs64.copy_(x)
+    tw.xm.copy_(x[2:][mp].to(tw.xm.dtype))
+    return tw, op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", ["lo", "hi", "f64"])
+@pytest.mark.parametrize("label,nv,vcap,n_mp", BLOCKS_EDGES)
+def test_cuda_transport_blocks_edges(label, nv, vcap, n_mp, build):
+    """transport_blocks' three builds (a block a work item, the live items
+    first, n_vac read on the device) against their plain version at the
+    edges: no live slot (zero column sums, the dots), one, a full bucket of
+    1,024 at 3,527 metal atoms, metal atoms odd and not a multiple of 128.  The products within 1e-5 (f32 blocks) or 1e-12
+    (f64) of the sum of their terms' sizes, the dots within 1e-5 (f32
+    vector) or 1e-12 (f64) of theirs; two launches give the same bits and
+    leave every ticket at 0."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+
+    tw, op = _blocks_case(nv, vcap, n_mp, build)
+    hi = build != "lo"
+    fields = ("mv", "y_vm", "y_vv", "y_bump", "dots32", "dots64")
+    for f in fields:
+        getattr(tw, f).fill_(float("nan"))
+    k, p = _clone_tws(tw), _clone_tws(tw)
+    tcg.blocks(k, op, hi)
+    torch.cuda.synchronize()
+    tcg.blocks_plain(p, op, hi)
+    assert int(k.tickets.abs().sum()) == 0
+    xs = (p.xs64 if hi else p.xs32).double()
+    xa = xs[2:]
+    tol = 1e-12 if build == "f64" else 1e-5
+    T_vm, T_vv = op.T_vm[:nv].double().abs(), op.T_vv[:nv, :nv].double().abs()
+    xv = xa[op.vidx[:nv].long()].abs()
+    xm = xa[op.mp].abs()
+    sizes = {"mv": xv @ T_vm if nv else torch.zeros(n_mp, dtype=torch.float64, device="cuda"),
+             "y_vm": T_vm @ xm, "y_vv": T_vv @ xv}
+    if not hi:
+        nb = op.anb[op.vidx[:nv].long()].long()
+        sizes["y_bump"] = (op.dyn[:nv].double().abs() * xa[nb.clamp(min=0)].abs()).sum(1)
+    for f, size in sizes.items():
+        got, want = getattr(k, f).double(), getattr(p, f).double()
+        n = size.shape[0]
+        assert bool(((got[:n] - want[:n]).abs() <= tol * size + 1e-30).all()), f
+    if nv == 0:
+        assert bool((k.mv == 0).all())
+    dots_k, dots_p = (k.dots64, p.dots64) if hi else (k.dots32, p.dots32)
+    na = op.anb.shape[0]
+    dsize = torch.stack([(op.gnd.abs() * xa[:na].abs())[op.gnd_lo:].sum(),
+                         (op.src.abs() * xa[:na].abs())[:op.nsi].sum()])
+    assert bool(((dots_k.double() - dots_p.double()).abs()
+                 <= (1e-12 if hi else 1e-5) * dsize).all())
+    again = _clone_tws(tw)
+    tcg.blocks(again, op, hi)
+    bits = lambda t: t.view(torch.int64 if t.element_size() == 8 else torch.int32)  # noqa
+    for f in fields:
+        assert torch.equal(bits(getattr(again, f)), bits(getattr(k, f))), f
+    assert int(again.tickets.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_transport_f64_tail_edges(tmp_path):
+    """The f64 solve's tail (tail_f64: the rows of ap = A p, alpha, the
+    update and the direction in one cooperative launch) against
+    rows_ap_plain then update_f64_plain on the same inputs:
+    an iterating state (ap, x, r, the direction and the metal vector within
+    1e-12 of their largest entry, alpha, r.z and beta within 1e-10, flag,
+    count, predicate equal; a second launch from the same state gives the
+    same bits); a stopped iterate (only the loop's count, the flag and the
+    predicate change); the iteration at maxiter (the predicate falls, the
+    flag stays up)."""
+    _need_card()
+    from devicekmc_tpu_torch.ops import transport_cg as tcg
+
+    run = tcg.tail_f64
+    sim = _f64_sim(tmp_path, fused=False)
+    sim.run_bias_point(sim.cfg.V_switch[0], 1e30, max_steps=2)
+    tws, op, cap = _transport_op64(sim)
+    op_c = _cpu_op(op)
+    tcg.metal(tws, op)
+    tcg.blocks(tws, op, True)
+    k, again = _clone_tws(tws), _clone_tws(tws)
+    p = _cpu_ws(_clone_tws(tws))
+    run(k, op, 20000)
+    run(again, op, 20000)
+    tcg.rows_ap_plain(p, op_c)
+    tcg.update_f64_plain(p, op_c, 20000)
+    _close64("ap", k.c64.ap, p.c64.ap, 1e-12)
+    for f in ("x", "r", "xs64", "xm"):
+        _close64(f, getattr(k, f), getattr(p, f), 1e-12)
+    for f in ("alpha", "rz", "beta"):
+        assert float(getattr(k.c64, f)) == pytest.approx(float(getattr(p.c64, f)), rel=1e-10), f
+    for f in ("act", "iters", "cond", "total"):
+        assert torch.equal(getattr(k.c64, f).cpu(), getattr(p.c64, f)), f
+    for f in ("x", "r", "xs64", "xm"):
+        assert torch.equal(getattr(k, f), getattr(again, f)), f
+    for f in ("ap", "alpha", "rz", "beta", "act", "iters", "cond", "total"):
+        assert torch.equal(getattr(k.c64, f), getattr(again.c64, f)), f
+    assert int(k.c64.iters) == 4 and bool(k.c64.act) and int(k.c64.cond) == 1
+
+    # a stopped iterate: nothing moves but the loop's count, flag, predicate
+    s_ = _clone_tws(tws)
+    s_.c64.act.fill_(False)
+    before = _clone_tws(s_)
+    run(s_, op, 20000)
+    for f in ("x", "r", "xs64", "xm"):
+        assert torch.equal(getattr(s_, f), getattr(before, f)), f
+    for f in ("ap", "rz", "alpha", "beta", "iters", "act"):
+        assert torch.equal(getattr(s_.c64, f), getattr(before.c64, f)), f
+    assert int(s_.c64.cond) == 0 and int(s_.c64.total) == int(before.c64.total) + 1
+
+    # the iteration at maxiter: it runs, the predicate falls
+    m = _clone_tws(tws)
+    run(m, op, 4)
+    assert int(m.c64.iters) == 4 and bool(m.c64.act) and int(m.c64.cond) == 0
+    for f in ("x", "xs64"):
+        assert torch.equal(getattr(m, f), getattr(k, f)), f
 
 
 @pytest.mark.cuda
@@ -2992,7 +3158,7 @@ def test_cuda_transport_f64_solve_graph_equals_eager(tmp_path, crossbar):
     assert torch.equal(out.x, eager[0])
     assert (int(out.iters), float(out.residual)) == eager[1:]
     names = _build.COUNTED_ON_CARD
-    assert int(tws.c64.total) == int(counts[names.index("transport_update64")]) == 2 * eager[1]
+    assert int(tws.c64.total) == int(counts[names.index("transport_tail64")]) == 2 * eager[1]
     assert int(counts[names.index("stored_matvec")]) == 2 * (eager[1] + 1)
     assert int(counts[names.index("wkb_fly_matvec_out")]) == 0
     go.fill_(False)
@@ -3047,4 +3213,4 @@ def test_cuda_stored_f64_graph_superstep_matches_eager(tmp_path, config):
             assert same, (k, j)
     assert all(r[-1] == 1.0 for r in runs["graph"])
     assert card["graph"]["stored_matvec"] > 0 and card["graph"]["wkb_fly_matvec_out"] == 0
-    assert (card["graph"]["transport_update64"] > 0) == config.startswith("f64")
+    assert (card["graph"]["transport_tail64"] > 0) == config.startswith("f64")

@@ -23,8 +23,10 @@ crossbar's shapes (108,944 sites; the state after two graph supersteps):
   that run beside it, inner iterations and the warm solve captured (the
   solve also with other forms of the inner body: one branch or a branch
   each for the fly matvec and transport_blocks, the band captured first or
-  last, in series), ``clock64()`` stamps of each kernel's phases
-  (TRANSPORT_STAMPS: the blocks, the f64 rows and pack, the phases of the
+  last, in series; the inner iteration without transport_blocks),
+  ``clock64()`` stamps of each kernel's phases (TRANSPORT_STAMPS, this
+  checkout's forms and the earlier ones of TRANSPORT_EARLIER: the blocks by
+  kind of work item, the f64 rows and pack, the phases of the
   inner tail transport_rows_update, transport_refine in either form;
   BAND_STAMPS: the band, also built with
   its window staged in shared memory, BAND_VARIANTS), the inner tail
@@ -65,7 +67,11 @@ crossbar's shapes (108,944 sites; the state after two graph supersteps):
   kernel in both forms; with ``--variants`` the iterations, solves and the
   product alone (also at 24,768) with the product's choice of loads (past
   L1 up to a few L2s of block, through L1 above) rebuilt to one choice at
-  every size (STORED_VARIANTS);
+  every size (STORED_VARIANTS) and with transport_blocks rebuilt
+  (BLOCKS_VARIANTS); in both contexts the iterations without
+  transport_blocks and the blocks alone, warm and cold; the f64 solve's
+  tail (transport_tail64, or an older checkout's rows_ap then update_f64)
+  alone and captured, with stamps of its phases;
 
 * the boundary CG's update and direction at the same system: through the
   package's wrappers, the update and direction kernels (the parent's pair
@@ -910,7 +916,33 @@ TRANSPORT_STAMPS = {
          "  TP_BLOCK(0);\n", "after"),
         ("  if (k >= 0) xm[k] = (float)v;\n}\n", "  TP_BLOCK(1);\n", "before"),
     ),
+    # a block an item, the live items first, the tickets side by side
     "blocks": (
+        ("  S* s_xall = reinterpret_cast<S*>(s_raw);\n\n  // no live slot: zero column sums\n",
+         "  TP_BLOCK(0);\n", "before"),
+        ("    __syncthreads();\n    // each column's partial T_vm^T x_v over the tile's rows",
+         "    TP_BLOCK(1);\n", "before"),
+        ("    // the column tile's and the row tile's tickets, drawn side by side by\n",
+         "    TP_BLOCK(2);\n", "before"),
+        ("    if (threadIdx.x == 32) s_last[1] = last_ticket_acq_rel(A.tickets, n_ct + rt, n_ct);"
+         "\n    __syncthreads();\n", "    TP_BLOCK(3);\n", "after"),
+        ("      if (q == 0 && s < nv) A.y_vm[s] = a;\n    }\n    return;\n  }\n\n"
+         "  if (it >= 2 + n_bump) {", "      if (q == 0 && s < nv) A.y_vm[s] = a;\n    }\n"
+         "    TP_BLOCK(4);\n    return;\n  }\n\n  if (it >= 2 + n_bump) {", "replace"),
+        ("    __syncthreads();\n    if (s < nv) vv_row(A, s, nv, s_xall, v0, v1);\n",
+         "    TP_BLOCK(1);\n", "before"),
+        ("    if (s < nv) vv_row(A, s, nv, s_xall, v0, v1);\n", "    TP_BLOCK(2);\n", "after"),
+        ("    d = warp_sum(d);\n    if (lane == 0) A.y_bump[s] = d;\n    return;\n  }\n\n"
+         "  // the virtual nodes' rows: gnd . xa over its nonzero range (atoms past na\n",
+         "    d = warp_sum(d);\n    if (lane == 0) A.y_bump[s] = d;\n    TP_BLOCK(1);\n"
+         "    return;\n  }\n\n"
+         "  // the virtual nodes' rows: gnd . xa over its nonzero range (atoms past na\n",
+         "replace"),
+        ("  const T sum = block_sum(acc, s_warp);\n  if (threadIdx.x == 0) A.dots[is_gnd ? 0 : 1]"
+         " = sum;\n", "  TP_BLOCK(1);\n", "after"),
+    ),
+    # the parent's: a block an item, the tile sums by two last_tickets
+    "blocks_grid": (
         ("  const int nv = min(*A.n_vac, A.vcap);\n  const int n_ct", "  TP_BLOCK(0);\n",
          "before"),
         ("    // each column's partial T_vm^T x_v", "    TP_BLOCK(1);\n", "before"),
@@ -918,7 +950,7 @@ TRANSPORT_STAMPS = {
         ("    return;\n  }\n\n  if (b >= 2 + n_vb) {", "    TP_BLOCK(3);\n", "before"),
         ("    for (int j = threadIdx.x; j < nv; j += kThreads) s_xall[j]", "    TP_BLOCK(1);\n",
          "before"),
-        ("    if (s >= nv) return;\n    float c = 0.f;\n", "    TP_BLOCK(2);\n", "before"),
+        ("    if (s >= nv) return;\n    S c = S(0);\n", "    TP_BLOCK(2);\n", "before"),
         ("    if (lane == 0) A.y_vv[s] = c;\n", "    TP_BLOCK(3);\n", "after"),
         ("    const int* nb = A.anb + (size_t)A.vidx[s] * A.max_nn;\n    const float* dv",
          "    TP_BLOCK(2);\n", "before"),
@@ -932,6 +964,14 @@ TRANSPORT_STAMPS = {
         ("\n  // the tiles' sums in tile order, by the block that draws the last ticket\n",
          "  TP_BLOCK(1);\n", "before"),
         ("  if (threadIdx.x == 0) A.rsum[0] = total;\n", "  TP_BLOCK(2);\n", "after"),
+    ),
+    # the parent's: the residual form and the f64 solve's product form
+    "rows_parent": (
+        ("  const int i = blockIdx.x * kThreads + threadIdx.x;\n  double acc = 0;\n",
+         "  TP_BLOCK(0);\n", "after"),
+        ("\n  // the tiles' sums in tile order, by the block that draws the last ticket\n",
+         "  TP_BLOCK(1);\n", "before"),
+        ("    A.rsum[0] = total;\n  }\n", "  TP_BLOCK(2);\n", "after"),
     ),
     "rows_update": (
         ("    const float x0 = A.xs[0], x1 = A.xs[1];\n", "    TP_BLOCK(0);\n", "after"),
@@ -965,15 +1005,65 @@ TRANSPORT_STAMPS = {
          "  TP_BLOCK(4);\n", "after"),
     ),
 }
+TRANSPORT_STAMPS.update({
+    # the parent's update64: the metal slot loaded after the barrier
+    "update64_parent": (
+        ("  const bool writer = blockIdx.x == 0;\n  const int n_tiles = (A.nsub + kUpThreads - 1)"
+         " / kUpThreads;\n  const int first", "  TP_BLOCK(0);\n", "before"),
+        ("    grid_barrier(A.bar);\n    rz_n = block_sum_partials64(A.part, n_tiles, &s_rz);\n"
+         "    beta = rz_o != 0.0 ? rz_n / rz_o : 0.0;\n",
+         "    TP_BLOCK(1);\n    grid_barrier(A.bar);\n    TP_BLOCK(2);\n"
+         "    rz_n = block_sum_partials64(A.part, n_tiles, &s_rz);\n"
+         "    beta = rz_o != 0.0 ? rz_n / rz_o : 0.0;\n    TP_BLOCK(3);\n", "replace"),
+        ("        const int k = A.mp_inv[i - 2];\n        if (k >= 0) A.xm[k] = pn;\n      }\n"
+         "    }\n  }\n", "  TP_BLOCK(4);\n", "after"),
+        ("    *A.total += 1;\n    if (A.handle) cudaGraphSetConditional(A.handle, go);\n  }\n}\n\n"
+         "// ----------------------------------------------------------------------------\n"
+         "// transport_rows_update (f32)",
+         "    *A.total += 1;\n    if (A.handle) cudaGraphSetConditional(A.handle, go);\n  }\n"
+         "  TP_BLOCK(5);\n}\n\n"
+         "// ----------------------------------------------------------------------------\n"
+         "// transport_rows_update (f32)", "replace"),
+    ),
+    # the f64 solve's whole tail in one cooperative launch
+    "tail64": (
+        ("  const bool writer = blockIdx.x == 0;\n  const int warp = threadIdx.x >> 5, lane = "
+         "threadIdx.x & 31;\n  const int n_tiles", "  TP_BLOCK(0);\n", "before"),
+        ("    grid_barrier(A.bar);\n    // alpha: the halves'", "    TP_BLOCK(1);\n", "before"),
+        ("    // alpha: the halves'", "    TP_BLOCK(2);\n", "before"),
+        ("    alpha = s_alpha;\n", "    TP_BLOCK(3);\n", "after"),
+        ("    grid_barrier(A.bar);\n    // C. beta", "    TP_BLOCK(4);\n", "before"),
+        ("    // C. beta in every block; the direction packed\n", "    TP_BLOCK(5);\n", "before"),
+        ("    // C. beta in every block; the direction packed\n"
+         "    rz_n = block_sum_partials64(A.part, n_tiles, &s_rz);\n"
+         "    beta = rz_o != 0.0 ? rz_n / rz_o : 0.0;\n", "    TP_BLOCK(6);\n", "after"),
+        ("  if (writer && threadIdx.x == 0) {\n    if (on) {\n      *A.alpha = alpha;\n",
+         "  TP_BLOCK(7);\n", "before"),
+    ),
+})
 #: the kernel of a form of TRANSPORT_STAMPS, where its name is not the form's
-TRANSPORT_KERNEL = {"refine_barrier": "refine"}
+TRANSPORT_KERNEL = {"refine_barrier": "refine", "blocks_grid": "blocks",
+                    "update64_parent": "update64", "rows_parent": "rows"}
+#: the forms of TRANSPORT_STAMPS that an earlier checkout's kernels hold, not
+#: this one's (timed and stamped with --pkg)
+TRANSPORT_EARLIER = ("refine_barrier", "blocks_grid", "update64_parent", "rows_parent")
 TRANSPORT_PHASES = {
     "pack": ("a block's rows",),
     # by the block's kind: a tile of T_vm (loads and its rows' partial sums,
     # its columns' partial sums, the tickets and the tile sums), T_vv's rows
     # (the bump, x_v gathered, the rows), a dot (all of it in the last)
-    "blocks": ("1", "2", "3"),
+    "blocks_grid": ("1", "2", "3"),
+    # by the item's kind (BLOCKS_ITEMS)
+    "blocks": ("1", "2", "3", "4"),
+    "update64_parent": ("the rows' update and the tile's r.z",
+                        "the barrier's arrival and wait", "the partials' sum (beta)",
+                        "the direction and its pack", "block 0's scalars"),
+    "tail64": ("the rows of ap, the halves' p.ap", "barrier 1's arrival and wait",
+               "alpha (the halves' sum)", "the update and the tile's r.z",
+               "barrier 2's arrival and wait", "the partials' sum (beta)",
+               "the direction and its pack"),
     "rows": ("a block's rows", "last-ticket sum"),
+    "rows_parent": ("a block's rows", "last-ticket sum"),
     "rows_update": ("rows, p.ap partial", "grid barrier 1, alpha (the partials' sum)",
                     "update, r.r partial", "grid barrier 2, beta (the partials' sum)",
                     "direction and pack"),
@@ -997,7 +1087,14 @@ RU_VARIANTS = {
 }
 
 
-#: transport_blocks' block kinds and the names of their phases
+#: transport_blocks' kinds of work item, a block each (in their order: the
+#: two dots, the bump's groups of 8 live slots in the f32 build, T_vv's, the
+#: live tiles) and the names of their phases
+BLOCKS_ITEMS = {"dot": ("the dot",), "bump": ("the bump",),
+                "T_vv rows": ("first loads, x_v gathered", "the rows"),
+                "T_vm tile": ("loads, rows' partial sums", "columns' partial sums",
+                              "tickets (side by side)", "strip sums (the last tickets' blocks)")}
+#: the parent's transport_blocks' block kinds and the names of their phases
 BLOCKS_KINDS = {"T_vm tile": ("loads, rows' partial sums", "columns' partial sums",
                               "tickets, tile sums"),
                 "T_vv rows": ("first loads issued", "x_v gathered", "T_vv rows"),
@@ -1095,8 +1192,8 @@ def transport_build(bdir, csrc):
     forms = transport_forms(src)
     for form in forms:
         for anchor, stamp, where in TRANSPORT_STAMPS[form]:
-            src = replace_once(src, anchor, anchor + stamp if where == "after"
-                               else stamp + anchor, "transport_cg.cu")
+            new = {"after": anchor + stamp, "before": stamp + anchor, "replace": stamp}[where]
+            src = replace_once(src, anchor, new, "transport_cg.cu")
     head = "#include \"ticket.cuh\"\n"
     src = replace_once(src, head, head + TP_STAMP_DEFS, "transport_cg.cu")
     path = os.path.join(bdir, "transport_cg_stamped.cu")
@@ -1249,6 +1346,24 @@ def transport_stamps(lib, form, block_kinds=None):
     return out
 
 
+#: the kernels of TRANSPORT_STAMPS that run in the f64 solve alone
+F64_KERNELS = ("update64", "tail64")
+
+
+def blocks_items(nv, vcap, n_mp, lo):
+    """transport_blocks' work items (a block each) at ``nv`` live slots:
+    {kind of BLOCKS_ITEMS: (first block, end, phase names)}."""
+    import math
+
+    groups = math.ceil(nv / 8)
+    n_bump = groups if lo else 0
+    tiles = math.ceil(nv / 32) * math.ceil(n_mp / 128)
+    ends = (2, 2 + n_bump, 2 + n_bump + groups, 2 + n_bump + groups + tiles)
+    starts = (0,) + ends[:-1]
+    return {kind: (a, e, names) for (kind, names), a, e in
+            zip(BLOCKS_ITEMS.items(), starts, ends)}
+
+
 def transport_probe(cs, sim, stamped, band_libs, ru_libs=None, inner=20):
     """The transport CG's kernels of the package at the crossbar's transport
     operator (the state after two supersteps, chip_smoke.transport_operator's
@@ -1390,6 +1505,17 @@ def transport_probe(cs, sim, stamped, band_libs, ru_libs=None, inner=20):
         g = Graph(fn, "cuda")
         res["captured_ms_each"][name] = cs.time_ms(g, reps=3, rounds=5, warmup=1) / inner
         del g
+    # the inner iteration without transport_blocks: the blocks' cost in
+    # context
+    blocks = tcg.blocks
+    tcg.blocks = lambda *a, **k: None
+    try:
+        g = Graph(lambda: [tcg.inner_iteration(it, op) for _ in range(inner)], "cuda")
+        res["captured_ms_each"]["inner iteration without transport_blocks"] = cs.time_ms(
+            g, reps=3, rounds=5, warmup=1) / inner
+        del g
+    finally:
+        tcg.blocks = blocks
 
     # the warm solve of chip_smoke.py's phase 4, captured, with the package's
     # inner body and with other forms of its products: the band captured
@@ -1505,6 +1631,8 @@ def transport_probe(cs, sim, stamped, band_libs, ru_libs=None, inner=20):
         vcap, n_mp = op.T_vm.shape
         for form in forms:
             kernel = TRANSPORT_KERNEL.get(form, form)
+            if kernel in F64_KERNELS:
+                continue  # stamped in the f64 solve's context (stored_probe)
             builds = {"pack": (True,), "rows": (True,), "rows_update": (False,),
                       "refine": (True,)}.get(kernel, (False, True))
             for build in builds:
@@ -1529,6 +1657,8 @@ def transport_probe(cs, sim, stamped, band_libs, ru_libs=None, inner=20):
                 e.synchronize()
                 block_kinds = None
                 if form == "blocks":
+                    block_kinds = blocks_items(int(op.n_vac), vcap, n_mp, not build)
+                if form == "blocks_grid":
                     n_tb = -(-vcap // tcg.BLOCK_ROWS) * -(-n_mp // tcg.BLOCK_COLS)
                     n_vb = -(-vcap // 8)
                     small = 2 + 2 * n_vb
@@ -1566,12 +1696,28 @@ STORED_VARIANTS = {
 }
 
 
+#: transport_blocks rebuilt with other blocks an SM (its launch bound, so
+#: its registers) and loads in flight, which ``--parts stored --variants``
+#: times alone and in the captured iterations
+BLOCKS_PER_SM = "constexpr int kBlocksPerSm = sizeof(S) == 4 ? 6 : 4;"
+BLOCKS_VARIANTS = {
+    "blocks: 4 an SM in f32 (64 registers)": [(BLOCKS_PER_SM, BLOCKS_PER_SM.replace("6", "4"))],
+    "blocks: 5 an SM in f32 and f64": [(BLOCKS_PER_SM,
+                                        BLOCKS_PER_SM.replace("6", "5").replace(": 4", ": 5"))],
+    "blocks: a dot's and the gather's loads 4, 2": [
+        ("constexpr int kDotLoads = 8;", "constexpr int kDotLoads = 4;"),
+        ("constexpr int kGather = 4;", "constexpr int kGather = 2;")],
+    "blocks: T_vv 4 loads a pass": [("constexpr int kVvLoads = 8;",
+                                     "constexpr int kVvLoads = 4;")],
+}
+
+
 def stored_variant_builds(bdir, csrc):
-    """This checkout's transport_cg.cu with each of STORED_VARIANTS'
-    replacements: {name: nvcc job}."""
+    """This checkout's transport_cg.cu with each of STORED_VARIANTS' and
+    BLOCKS_VARIANTS' replacements: {name: nvcc job}."""
     src = (csrc / "transport_cg.cu").read_text()
     jobs = {}
-    for k, (name, reps) in enumerate(STORED_VARIANTS.items()):
+    for k, (name, reps) in enumerate({**STORED_VARIANTS, **BLOCKS_VARIANTS}.items()):
         text = src
         for old, new in reps:
             text = replace_once(text, old, new, "transport_cg.cu")
@@ -1616,7 +1762,7 @@ def stored_span(lib):
                 span_ns=max(gt[S * b + 1] for b in live) - t0)
 
 
-def stored_probe(cs, lib, variant_libs=None, inner=20):
+def stored_probe(cs, lib, variant_libs=None, inner=20, tp=None):
     """The stored metal block's product (``transport_cg.metal``) in its two
     contexts at the crossbar, the mixed inner iteration (stored, chip_smoke's
     phase 14 configuration) and the f64 solve's iteration (STORED_F64), each
@@ -1631,7 +1777,12 @@ def stored_probe(cs, lib, variant_libs=None, inner=20):
     crossbar's metal atoms (a seeded block), f32 and f64, beside torch.mv.
     ``variant_libs`` ({name: library} of stored_variant_builds): the
     captured iterations, warm solves and the product at the reference size
-    with each build."""
+    with each build.  In both contexts also the iterations without
+    transport_blocks (its cost in context) and transport_blocks alone, warm
+    and cold (the mixed <float, float> and <double, float> builds, the f64
+    <double, double>); in f64 the solve's tail (f64_tails), and with ``tp``
+    ((forms, library) of transport_build) the stamps of its kernels' phases
+    and of the f64 blocks' work items."""
     import contextlib
     import dataclasses
 
@@ -1645,18 +1796,33 @@ def stored_probe(cs, lib, variant_libs=None, inner=20):
     scrub = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
     @contextlib.contextmanager
-    def using(library=None, metal=None):
-        saved = (_build._libs.get("transport_cg"), tcg.metal)
+    def using(library=None, metal=None, blocks=None):
+        saved = (_build._libs.get("transport_cg"), tcg.metal, tcg.blocks)
         if library is not None:
             _build._libs["transport_cg"] = library
         if metal is not None:
             tcg.metal = metal
+        if blocks is not None:
+            tcg.blocks = blocks
         try:
             yield
         finally:
             if library is not None:
                 _build._libs["transport_cg"] = saved[0]
-            tcg.metal = saved[1]
+            tcg.metal, tcg.blocks = saved[1], saved[2]
+
+    def noop(*a, **k):
+        return None
+
+    def blocks_times(it, op, builds):
+        # transport_blocks alone, warm and cold, in each build (hi: the
+        # iterate's vector)
+        out = {}
+        for name, hi in builds:
+            w = clone(it)
+            run = lambda: tcg.blocks(w, op, hi)  # noqa: E731
+            out[name] = dict(ms=cs.time_ms(run), cold_ms=cs.time_ms_cold(run))
+        return out
 
     def clone(ws):
         return cs._map_ws(ws, lambda t: t.clone())
@@ -1672,10 +1838,12 @@ def stored_probe(cs, lib, variant_libs=None, inner=20):
         launch = (lambda: tcg.rows(w, op)) if residual else (lambda: tcg.rows_ap(w, op))
         return dict(ms=cs.time_ms(launch), cold_ms=cs.time_ms_cold(launch))
 
-    def variants(it, op, body, solve):
-        # the iterations and the warm solve with each build of variant_libs
+    def variants(it, op, body, solve, builds):
+        # the iterations, the warm solve and transport_blocks alone (its
+        # ``builds``) with the package's build and each of variant_libs
         out = {}
-        for name, library in (variant_libs or {}).items():
+        for name, library in ([("the package's", None)] if variant_libs else []) + list(
+                (variant_libs or {}).items()):
             with using(library=library):
                 sv = clone(it)
                 g = Graph(lambda: solve(sv), "cuda")
@@ -1686,7 +1854,9 @@ def stored_probe(cs, lib, variant_libs=None, inner=20):
                 out[name] = dict(iteration_ms=per_launch(lambda: body(it)),
                                  solve=dict(iterations=n, ms_per_iteration=ms / max(n, 1)),
                                  alone_ms=cs.time_ms(lambda: tcg.metal(w, op)),
-                                 alone_cold_ms=cs.time_ms_cold(lambda: tcg.metal(w, op)))
+                                 alone_cold_ms=cs.time_ms_cold(lambda: tcg.metal(w, op)),
+                                 blocks_ms={str(hi): cs.time_ms(lambda: tcg.blocks(w, op, hi))
+                                            for hi in builds})
             print(f"stored product variant {name}: {json.dumps(out[name])}", flush=True)
         return out
 
@@ -1697,6 +1867,9 @@ def stored_probe(cs, lib, variant_libs=None, inner=20):
         with using(metal=lambda tw, op_, stream=None: None):
             r["iteration_without_product_ms"] = per_launch(lambda: body(it))
         r["product_in_context_ms"] = r["iteration_ms"] - r["iteration_without_product_ms"]
+        with using(blocks=noop):
+            r["iteration_without_blocks_ms"] = per_launch(lambda: body(it))
+        r["blocks_in_context_ms"] = r["iteration_ms"] - r["iteration_without_blocks_ms"]
         w = clone(it)
         r["alone_ms"] = cs.time_ms(lambda: tcg.metal(w, op))
         r["alone_cold_ms"] = cs.time_ms_cold(lambda: tcg.metal(w, op))
@@ -1753,9 +1926,11 @@ def stored_probe(cs, lib, variant_libs=None, inner=20):
     tcg.metal(w, op)
     tcg.blocks(w, op, True)
     res["mixed"]["rows_residual"] = rows_times(w, op, True)
+    res["mixed"]["blocks_alone"] = blocks_times(
+        it, op, (("<float,float>", False), ("<double,float>", True)))
     res["mixed"]["variants"] = variants(
         it, op, lambda w: tcg.inner_iteration(w, op),
-        lambda w: tcg.solve(w, op, x0p, go, tol, 20000).iters)
+        lambda w: tcg.solve(w, op, x0p, go, tol, 20000).iters, (False, True))
     del sim, tws, op, it
     torch.cuda.empty_cache()
 
@@ -1794,14 +1969,16 @@ def stored_probe(cs, lib, variant_libs=None, inner=20):
     w = clone(it)
     tcg.metal(w, op)
     tcg.blocks(w, op, True)
-    rows_ap = rows_times(w, op, False)
+    rows_ap = rows_times(w, op, False) if hasattr(tcg, "rows_ap") else None
     res["f64"] = dict(n_mp=int(op.T_cc.shape[0]), dtype="float64", **context(
         it, op, lambda w: tcg.iteration_f64(w, op, 1 << 30),
         lambda w: tcg.solve_f64(w, op, x0p, go, cap["tol"], cap["maxiter"]).iters))
     res["f64"]["rows_product"] = rows_ap
+    res["f64"]["blocks_alone"] = blocks_times(it, op, (("<double,double>", True),))
+    res["f64"]["tail"] = f64_tail(cs, tcg, it, op, w, x0p, go, cap, per_launch, tp)
     res["f64"]["variants"] = variants(
         it, op, lambda w: tcg.iteration_f64(w, op, 1 << 30),
-        lambda w: tcg.solve_f64(w, op, x0p, go, cap["tol"], cap["maxiter"]).iters)
+        lambda w: tcg.solve_f64(w, op, x0p, go, cap["tol"], cap["maxiter"]).iters, (True,))
     del sim, tws, op, it, cap, w
     torch.cuda.empty_cache()
 
@@ -1828,6 +2005,74 @@ def stored_probe(cs, lib, variant_libs=None, inner=20):
         del T
         torch.cuda.empty_cache()
     return res
+
+
+def f64_tail(cs, tcg, it, op, w, x0p, go, cap, per_launch, tp):
+    """The f64 solve's tail of the package (tail_f64, one launch; a package
+    without it, the pair rows_ap then update_f64): the iteration captured,
+    the warm solve per iteration, the tail alone warm and cold (from ``w``:
+    the products of a direction made), the pair's update alone; with ``tp``
+    the stamps of update64 and tail64 and of the f64 blocks' items."""
+    import torch
+
+    from devicekmc_tpu_torch.ops import _build
+    from devicekmc_tpu_torch.ops.graph import Graph
+
+    def clone(ws):
+        return cs._map_ws(ws, lambda t: t.clone())
+
+    fused = hasattr(tcg, "tail_f64")
+    out = {"form": "tail_f64" if fused else "rows_ap, update_f64",
+           "iteration_ms": per_launch(lambda: tcg.iteration_f64(it, op, 1 << 30))}
+    sv = clone(it)
+    g = Graph(lambda: tcg.solve_f64(sv, op, x0p, go, cap["tol"], cap["maxiter"]).iters, "cuda")
+    n = int(g())
+    ms = cs.time_ms(g, reps=1, rounds=5, warmup=1)
+    del g
+    out["solve"] = dict(iterations=n, ms=ms, ms_per_iteration=ms / max(n, 1))
+    t = clone(w)
+    if fused:
+        run = lambda: tcg.tail_f64(t, op, 1 << 30)  # noqa: E731
+    else:
+        run = lambda: (tcg.rows_ap(t, op), tcg.update_f64(t, op, 1 << 30))  # noqa: E731
+        u = clone(w)
+        out["update64_alone"] = dict(
+            ms=cs.time_ms(lambda: tcg.update_f64(u, op, 1 << 30)),
+            cold_ms=cs.time_ms_cold(lambda: tcg.update_f64(u, op, 1 << 30)))
+    out["tail_ms"] = cs.time_ms(run)
+    out["tail_cold_ms"] = cs.time_ms_cold(run)
+    print(f"f64 tail: {json.dumps(out)}", flush=True)
+    if tp is None:
+        return out
+    forms_, lib = tp
+    loaded = _build._libs.get("transport_cg")
+    _build._libs["transport_cg"] = lib
+    out["stamps"] = {}
+    vcap, n_mp = op.T_vm.shape
+    try:
+        lib.dkmc_tp_probe_clear()
+        for form in forms_:
+            kernel = TRANSPORT_KERNEL.get(form, form)
+            if kernel not in F64_KERNELS + ("blocks",):
+                continue
+            t = clone(w)
+            launch = {"update64": lambda: tcg.update_f64(t, op, 1 << 30),
+                      "tail64": lambda: tcg.tail_f64(t, op, 1 << 30),
+                      "blocks": lambda: tcg.blocks(t, op, True)}[kernel]
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cs.HOLD_CYCLES)
+            a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            launch()
+            e.record()
+            e.synchronize()
+            kinds = blocks_items(int(op.n_vac), vcap, n_mp, False) if form == "blocks" else None
+            out["stamps"][form] = dict(ms=a.elapsed_time(e),
+                                       **transport_stamps(lib, form, kinds))
+    finally:
+        _build._libs["transport_cg"] = loaded
+    print(f"f64 stamps: {json.dumps(out['stamps'])}", flush=True)
+    return out
 
 
 #: clock64() stamps of the local heat model's two redesigned kernels
@@ -1898,6 +2143,9 @@ HEAT_STAMPS = {
         ("    A.cond[0] = go && 0 < A.maxiter;\n  }\n", "  TP_BLOCK(4);\n", "after"),
     )),
 }
+#: the forms of HEAT_STAMPS that an earlier checkout's kernels hold, not this
+#: one's
+HEAT_EARLIER = ("dense (a warp a row, a ticket)", "begin (a thread a row)")
 #: the phases between the stamps, by form ("begin16": a set-up without the
 #: barrier, the parent's)
 HEAT_PHASES = {
@@ -2442,7 +2690,9 @@ def main():
     if "digest" in parts:
         out["digest"] = digest_probe(cs)
     if "stored" in parts:
-        out["stored"] = stored_probe(cs, stored_lib, finish(stored_variant_jobs))
+        out["stored"] = stored_probe(
+            cs, stored_lib, finish(stored_variant_jobs),
+            tp=None if transport_job is None else (transport_job[0], transport_lib))
         out["stored"]["resources"] = _build.kernel_resources("transport_cg")
     if parts - {"transport", "supersteps", "heat", "digest", "stored"}:
         sim = cs.synthetic_crossbar(cs.N_SITES, "cuda", os.path.join(ROOT, "build",
